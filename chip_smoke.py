@@ -3,13 +3,18 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``sparse_tpu_torch/csrc``, holds
-each kernel against its plain PyTorch version, then drives the user's main
-path — CSR from triples or COO, ``smvm_prepare``, ``plan.apply(v)`` — on the
-README fixture and on two matrices at realistic size: a 500k-row, ~10M-nnz
-band (the ``segtile`` rung, kernel K1) and the 400k-row vector-FEM
-elasticity matrix of ``benchmarks/gen_fixtures.py`` (the ``blockseg`` rung,
-kernel K2).  Results are checked against SciPy in float64, then the kernels,
-their plain versions and ``apply`` are timed with CUDA events.
+each kernel against its plain PyTorch version, then drives the user's two
+main paths.  SpMV — CSR from triples or COO, ``smvm_prepare``,
+``plan.apply(v)`` — on the README fixture and on two matrices at realistic
+size: a 500k-row, ~10M-nnz band (the ``segtile`` rung, kernel K1) and the
+400k-row vector-FEM elasticity matrix of ``benchmarks/gen_fixtures.py`` (the
+``blockseg`` rung, kernel K2).  SpMM — ``bell_spmm`` on ``bench.py``'s
+80M-entry block band (nb 15,625, bsz 32, k 128, float32) with the banded kit
+(K4), without a plan (K3) and with the transposed kit at k = 32 (K5), K6
+called directly, a 5-step chain ``b <- A b``, and ``spmm`` at
+``__graft_entry__.entry()``'s shape.  Results are checked against SciPy in
+float64, then the kernels, their plain versions and the entry points are
+timed with CUDA events.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -491,6 +496,392 @@ def _block_bound(ab, vabs):
     return out.reshape(-1)
 
 
+# -- SpMM: the blocked-ELL kernels K3-K6 -------------------------------------
+
+
+def _bell(cols, valid, bsz, dtype, seed):
+    """BELL on the card from a host pattern; values N(0, 1) from ``seed``,
+    zero in padding slots."""
+    from sparse_tpu_torch.formats.bell import BELL
+
+    rng = np.random.default_rng(seed)
+    nb, Lb = cols.shape
+    blocks = rng.standard_normal((nb, Lb, bsz, bsz)) * valid[:, :, None, None]
+    return BELL(cols=torch.from_numpy(cols.astype(np.int32)).cuda(),
+                blocks=torch.from_numpy(blocks).to(dtype).cuda(),
+                n=nb * bsz, bsz=bsz)
+
+
+def _band_pattern(nb, hb, empty=()):
+    """Block band of half-width ``hb``: row r stores columns r-hb..r+hb
+    clipped to [0, nb), in order, padded at the end (column 0)."""
+    offs = np.arange(-hb, hb + 1)
+    c = np.arange(nb)[:, None] + offs[None, :]
+    ok = (c >= 0) & (c < nb)
+    ok[list(empty)] = False
+    order = np.argsort(~ok, axis=1, kind="stable")  # valid slots first
+    cols = np.where(ok, c, 0)[np.arange(nb)[:, None], order]
+    return cols, np.take_along_axis(ok, order, 1)
+
+
+def _scattered_pattern(nb, lmax, rng):
+    """Random block columns, 0..lmax per row (sorted, padded at the end)."""
+    cols = np.zeros((nb, lmax), np.int64)
+    valid = np.zeros((nb, lmax), bool)
+    for r, n in enumerate(rng.integers(0, lmax + 1, nb)):
+        cols[r, :n] = np.sort(rng.choice(nb, n, replace=False))
+        valid[r, :n] = True
+    return cols, valid
+
+
+def _abs_bound(a, b, stream):
+    """|A||B| in float64 on the card for A and B rounded to ``stream``."""
+    from sparse_tpu_torch.formats.bell import BELL
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    ab = BELL(cols=a.cols, blocks=a.blocks.to(stream).abs().double(),
+              n=a.n, bsz=a.bsz)
+    return cb.bell_spmm_fused_plain(ab, b.to(stream).abs().double())
+
+
+def _twice_vs_plain(label, kernel, plain, bound, tol_dtype):
+    """Kernel twice (bitwise equal), against the plain version within
+    tol(dtype) * bound; returns (max |kernel - plain|, kernel result)."""
+    y1 = kernel()
+    torch.cuda.synchronize()
+    y2 = kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(y1, y2):
+        raise AssertionError(f"{label}: two runs differ bitwise")
+    yp = plain()
+    if y1.shape != yp.shape or not torch.isfinite(y1).all():
+        raise AssertionError(f"{label}: shape {tuple(y1.shape)} vs plain "
+                             f"{tuple(yp.shape)}, or non-finite values")
+    return check_close(label, y1, yp, bound, tol_dtype), y1
+
+
+def phase7_bell_kernels_vs_plain():
+    """K3-K6 against their plain versions on the card: bsz 4/8/32, k
+    1/8/32/100/128, float32, float64, a bf16 stream and bf16x3, padding
+    slots and empty rows, nb not divisible by rt, plans with S > 1 and
+    S = 1, K5 with an unpadded and a padded operand; each case twice for
+    bitwise repeatability."""
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    rng = np.random.default_rng(7)
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    # rowwise kernels: (bsz, nb, lmax, k, dtype, compute_dtype, precision)
+    for bsz, nb, lmax, k, dt, cd, prec in (
+            (4, 500, 6, 1, f32, None, None),
+            (8, 300, 5, 8, f64, None, None),
+            (32, 200, 5, 128, f32, None, None),
+            (32, 200, 5, 100, f32, bf16, None),
+            (8, 300, 5, 128, f32, None, "bf16x3")):
+        cols, valid = _scattered_pattern(nb, lmax, rng)
+        a = _bell(cols, valid, bsz, dt, seed=nb + k)
+        b = torch.from_numpy(rng.standard_normal((a.n, k))).to(dt).cuda()
+        stream = cd or dt
+        bound = _abs_bound(a, b, stream)
+        tol = f64 if dt == f64 else f32
+        names = [("K3", cb.bell_spmm_fused, cb.bell_spmm_fused_plain,
+                  dict(compute_dtype=cd, precision=prec))]
+        if cd is None:  # K6 streams at the result dtype
+            names.append(("K6", cb.bell_spmm_block, cb.bell_spmm_block_plain,
+                          dict(precision=prec)))
+        for kname, fk, fp, kw in names:
+            label = (f"{kname} bsz={bsz} k={k} {str(dt)[6:]} stream="
+                     f"{str(stream)[6:]} precision={prec}")
+            err, _ = _twice_vs_plain(label, lambda: fk(a, b, **kw),
+                                     lambda: fp(a, b, **kw), bound, tol)
+            print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
+                  "repeatable", flush=True)
+    # K4: (nb, bsz, hb, rt, k, dtype, compute_dtype, precision, empty rows)
+    s_seen = set()
+    for nb, bsz, hb, rt, k, dt, cd, prec, empty in (
+            (301, 8, 2, 4, 128, f32, None, None, (150,)),
+            (240, 32, 2, 5, 32, f64, None, None, ()),
+            (49, 4, 1, 7, 1, f32, None, None, (3,)),
+            (240, 32, 2, 5, 128, f32, bf16, None, ()),
+            (240, 32, 2, 5, 8, f32, None, "bf16x3", ())):
+        cols, valid = _band_pattern(nb, hb, empty)
+        a = _bell(cols, valid, bsz, dt, seed=nb * k)
+        b = torch.from_numpy(rng.standard_normal((a.n, k))).to(dt).cuda()
+        kit = cb.bell_banded_prepare(a, row_tile=rt, compute_dtype=cd,
+                                     slot_valid=valid)
+        plan = kit.plan
+        s_seen.add(plan.S > 1)
+        stream = kit.tiles.dtype
+        bound = _abs_bound(a, b, stream)
+        kw = dict(tiles=kit.tiles, compute_dtype=stream, precision=prec)
+        label = (f"K4 nb={nb} bsz={bsz} rt={rt} W={plan.W} S={plan.S} k={k} "
+                 f"{str(dt)[6:]} stream={str(stream)[6:]} precision={prec}")
+        err, _ = _twice_vs_plain(
+            label, lambda: cb.bell_spmm_banded(a, b, plan, **kw),
+            lambda: cb.bell_spmm_banded_plain(a, b, plan, **kw), bound,
+            f64 if dt == f64 else f32)
+        print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
+              "repeatable", flush=True)
+    if s_seen != {True, False}:
+        raise AssertionError("K4 cases must cover plans with S > 1 and S = 1")
+    # K5: (nb, bsz, k, dtype, compute_dtype, precision, padded operand)
+    for nb, bsz, k, dt, cd, prec, padded in (
+            (250, 32, 32, f32, None, None, False),
+            (250, 32, 32, f32, None, None, True),
+            (301, 8, 8, f64, None, None, False),
+            (250, 32, 1, f32, None, "bf16x3", True),
+            (250, 32, 32, f32, bf16, None, False)):
+        cols, valid = _band_pattern(nb, 2)
+        a = _bell(cols, valid, bsz, dt, seed=nb + bsz + k)
+        b = torch.from_numpy(rng.standard_normal((a.n, k))).to(dt).cuda()
+        kit = cb.bell_banded_prepare_t(a, compute_dtype=cd, slot_valid=valid)
+        n_pad = kit.plan.offs.shape[0] * bsz
+        bt = b.T.contiguous()
+        if padded:
+            bt = torch.cat([bt, bt.new_zeros(k, n_pad - a.n)], 1)
+        stream = kit.tiles_t.dtype
+        bound = _abs_bound(a, b, stream).T
+        if padded:
+            bound = torch.cat([bound, bound.new_zeros(k, n_pad - a.n)], 1)
+        label = (f"K5 nb={nb} bsz={bsz} rt={kit.plan.rt} S={kit.plan.S} "
+                 f"k={k} {str(dt)[6:]} stream={str(stream)[6:]} "
+                 f"precision={prec} operand {'padded' if padded else 'n'}")
+        err, y = _twice_vs_plain(
+            label, lambda: cb.bell_spmm_banded_t(a, bt, kit, precision=prec),
+            lambda: cb.bell_spmm_banded_t_plain(a, bt, kit, precision=prec),
+            bound, f64 if dt == f64 else f32)
+        if y.shape != (k, n_pad if padded else a.n):
+            raise AssertionError(f"{label}: output {tuple(y.shape)}")
+        print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
+              "repeatable", flush=True)
+
+
+def _bench_bell():
+    """``bench.py``'s block band as a BELL on the card, built as its
+    ``tpu_time`` does: the pattern and ``slot_valid`` on the host, the
+    values from a seeded pool of N(0, 0.01^2) blocks on the device."""
+    sys.path.insert(0, str(ROOT))
+    from bench import BSZ, NB, build_block_band
+
+    from sparse_tpu_torch.formats.bell import BELL
+
+    rows, cols, _, _ = build_block_band()
+    lens = np.bincount(rows, minlength=NB)
+    Lb = int(lens.max())
+    starts = np.zeros(NB + 1, np.int64)
+    np.cumsum(lens, out=starts[1:])
+    slot = np.arange(rows.size) - starts[rows]
+    cols_np = np.zeros((NB, Lb), np.int32)
+    cols_np[rows, slot] = cols
+    slot_valid = np.arange(Lb)[None, :] < lens[:, None]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pool = torch.randn(1021, BSZ, BSZ, device="cuda", generator=gen) * 0.01
+    idx = torch.arange(NB * Lb, device="cuda") % 1021
+    blocks = pool[idx].reshape(NB, Lb, BSZ, BSZ) * torch.from_numpy(
+        slot_valid).cuda()[:, :, None, None]
+    a = BELL(cols=torch.from_numpy(cols_np).cuda(), blocks=blocks,
+             n=NB * BSZ, bsz=BSZ)
+    return a, cols_np, slot_valid, gen
+
+
+class _ScipyRows:
+    """SciPy BSR in float64 of a fixed subset of the BELL's block rows
+    (every 8th and the last), the oracle of phase 8."""
+
+    def __init__(self, a, cols_np, slot_valid):
+        import scipy.sparse as sp
+
+        nb, bsz = a.nb, a.bsz
+        self.sub = np.unique(np.r_[np.arange(0, nb, 8), nb - 1])
+        v = slot_valid[self.sub]
+        blk = a.blocks[torch.from_numpy(self.sub).cuda()].double().cpu() \
+            .numpy()[v]
+        indptr = np.r_[0, np.cumsum(v.sum(1))]
+        shape = (self.sub.size * bsz, a.n)
+        self.s = sp.bsr_matrix((blk, cols_np[self.sub][v], indptr),
+                               shape=shape)
+        self.abs = sp.bsr_matrix((np.abs(blk), cols_np[self.sub][v], indptr),
+                                 shape=shape)
+        rows = (self.sub[:, None] * bsz + np.arange(bsz)).reshape(-1)
+        self.rows = torch.from_numpy(rows).cuda()
+
+    def check(self, label, c, b):
+        """C's rows of the subset against SciPy's A @ B, B = ``b`` (n, k);
+        returns the max abs error."""
+        bh = b.double().cpu().numpy()
+        ref = torch.from_numpy(self.s @ bh).cuda()
+        bound = torch.from_numpy(self.abs @ np.abs(bh)).cuda()
+        if c.shape != b.shape or not torch.isfinite(c).all():
+            raise AssertionError(f"{label}: shape {tuple(c.shape)} or "
+                                 "non-finite values")
+        return check_close(label, c[self.rows], ref, bound, torch.float32)
+
+
+def phase8_spmm_main_path():
+    """The SpMM main path at full size through the public entry points; the
+    kernels' launch counts are read by the caller around this phase."""
+    import scipy.sparse as sp
+
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    t0 = time.perf_counter()
+    a, cols_np, slot_valid, gen = _bench_bell()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    oracle = _ScipyRows(a, cols_np, slot_valid)
+    sys.path.insert(0, str(ROOT))
+    from bench import K, K_CHAIN
+
+    b = torch.randn(a.n, K, device="cuda", generator=gen) * 0.01
+    t0 = time.perf_counter()
+    kit = pt.bell_banded_prepare(a, row_tile=5, slot_valid=slot_valid)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    plan = kit.plan
+    counts = {}
+    out = {}
+    for label, fn, kname in (
+            ("bell_spmm(plan=kit) [K4]",
+             lambda: pt.bell_spmm(a, b, plan=kit), "K4"),
+            ("bell_spmm(a, b) [K3]", lambda: pt.bell_spmm(a, b), "K3"),
+            ("bell_spmm_block [K6]", lambda: cb.bell_spmm_block(a, b), "K6")):
+        before = getattr(cb, f"{kname}_LAUNCHES")
+        c = fn()
+        torch.cuda.synchronize()
+        counts[kname] = getattr(cb, f"{kname}_LAUNCHES") - before
+        err = oracle.check(label, c, b)
+        out[kname] = c
+        print(f"   {label}: {tuple(c.shape)} max|C-scipy| {err:.3e} on "
+              f"{oracle.rows.numel()} rows", flush=True)
+    t0 = time.perf_counter()
+    kit_t = pt.bell_banded_prepare_t(a, slot_valid=slot_valid)
+    torch.cuda.synchronize()
+    t_prep_t = time.perf_counter() - t0
+    b32 = b[:, :32].contiguous()
+    before = cb.K5_LAUNCHES
+    c = pt.bell_spmm(a, b32, plan=kit_t)
+    torch.cuda.synchronize()
+    counts["K5"] = cb.K5_LAUNCHES - before
+    err = oracle.check("bell_spmm(plan=kit_t) k=32 [K5]", c, b32)
+    print(f"   bell_spmm(plan=kit_t) k=32 [K5]: rt={kit_t.plan.rt} "
+          f"W={kit_t.plan.W} S={kit_t.plan.S} {tuple(c.shape)} "
+          f"max|C-scipy| {err:.3e}", flush=True)
+    for kname, n in counts.items():
+        if n < 1:
+            raise AssertionError(f"{kname} was not launched by its call")
+    # the bench's chain b <- A b, each step against SciPy on the previous b
+    x = b
+    for step in range(K_CHAIN):
+        y = pt.bell_spmm(a, x, plan=kit)
+        torch.cuda.synchronize()
+        err = oracle.check(f"chain step {step + 1}", y, x)
+        x = y
+    print(f"   chain b <- A b x{K_CHAIN} [K4]: every step within 1e-5|A||b| "
+          f"of scipy (last max err {err:.3e}); |b_5| / |b| = "
+          f"{float(x.norm() / b.norm()):.3e}", flush=True)
+    # spmm at __graft_entry__.entry()'s shape: 512 x 512 at 5 %, k = 64
+    rng = np.random.default_rng(0)
+    dense = rng.standard_normal((512, 512)).astype(np.float32) * (
+        rng.random((512, 512)) < 0.05)
+    bb = rng.standard_normal((512, 64)).astype(np.float32)
+    ca = pt.csr_from_dense(torch.from_numpy(dense).cuda())
+    cc = pt.spmm(ca, torch.from_numpy(bb).cuda())
+    s = sp.csr_matrix(dense.astype(np.float64))
+    err = check_close("spmm entry shape", cc,
+                      torch.from_numpy(s @ bb.astype(np.float64)).cuda(),
+                      torch.from_numpy(abs(s) @ np.abs(bb).astype(
+                          np.float64)).cuda(), torch.float32)
+    print(f"   spmm at entry()'s shape 512x512 k=64: max|C-scipy| "
+          f"{err:.3e}", flush=True)
+    print(f"   bench BELL nb={a.nb} bsz={a.bsz} Lb={a.Lb} built on the card "
+          f"in {t_build:.2f} s; bell_banded_prepare {t_prep:.2f} s (W="
+          f"{plan.W} rt={plan.rt} S={plan.S} SW={plan.SW}, tiles "
+          f"{tuple(kit.tiles.shape)}), prepare_t {t_prep_t:.2f} s",
+          flush=True)
+    return dict(a=a, b=b, b32=b32, kit=kit, kit_t=kit_t,
+                nnz=int(slot_valid.sum()) * a.bsz * a.bsz, k=K,
+                chain=K_CHAIN, counts=counts)
+
+
+def _report_spmm(label, fn, flops, nbytes, card):
+    """Median alone and back-to-back times of ``fn`` with GB/s by the bytes
+    model and useful GFLOP/s; returns (alone, back to back) ms."""
+    ms, ms_b2b = median_ms(fn), pipelined_ms(fn)
+    print(f"   {label:24s}: {ms:.4f} ms alone (median of {N_TIMED}), "
+          f"{ms_b2b:.4f} ms back to back; {nbytes / ms / 1e6:.1f} / "
+          f"{nbytes / ms_b2b / 1e6:.1f} GB/s; {flops / ms / 1e6:.1f} / "
+          f"{flops / ms_b2b / 1e6:.1f} useful GFLOP/s [{card}]", flush=True)
+    return ms, ms_b2b
+
+
+def phase9_bell_timing(card, m):
+    """Each of K3-K6 against its plain version at the main path's shape
+    (tolerance, bitwise repeat over all rows), then timed in turns — plain,
+    kernel, kernel, plain — alone and back to back; then bell_spmm and the
+    chain."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    a, b, b32, kit, kit_t = m["a"], m["b"], m["b32"], m["kit"], m["kit_t"]
+    nnz, k = m["nnz"], m["k"]
+    bsz, nb, Lb = a.bsz, a.nb, a.Lb
+    # the reference's fused CostEstimate bytes: blocks, one panel per slot,
+    # the output
+    fused_bytes = nb * (bsz * Lb * bsz + Lb * bsz * k + bsz * k) * 4
+    bound = _abs_bound(a, b, torch.float32)
+    bound32 = bound[:, :32].T.contiguous()
+    bt32 = b32.T.contiguous()  # K5's operand layout, outside the timing
+    cases = (
+        ("K4 bell_banded", "sparse_tpu/ops/pallas_bell.py:430",
+         "bell_banded.cu",
+         lambda: cb.bell_spmm_banded(a, b, kit.plan, tiles=kit.tiles),
+         lambda: cb.bell_spmm_banded_plain(a, b, kit.plan, tiles=kit.tiles),
+         bound, 2 * nnz * k, cb.banded_spmm_hbm_bytes(kit, bsz, a.n, k)),
+        ("K3 bell_fused", "sparse_tpu/ops/pallas_bell.py:141",
+         "bell_spmm.cu", lambda: cb.bell_spmm_fused(a, b),
+         lambda: cb.bell_spmm_fused_plain(a, b), bound, 2 * nnz * k,
+         fused_bytes),
+        ("K5 bell_banded_t", "sparse_tpu/ops/pallas_bell.py:675",
+         "bell_banded.cu",
+         lambda: cb.bell_spmm_banded_t(a, bt32, kit_t),
+         lambda: cb.bell_spmm_banded_t_plain(a, bt32, kit_t),
+         bound32, 2 * nnz * 32,
+         cb.banded_spmm_t_hbm_bytes(kit_t, bsz, a.n, 32)),
+        ("K6 bell_block", "sparse_tpu/ops/pallas_bell.py:58", "bell_spmm.cu",
+         lambda: cb.bell_spmm_block(a, b),
+         lambda: cb.bell_spmm_block_plain(a, b), bound, 2 * nnz * k,
+         fused_bytes),
+    )
+    out = []
+    for name, replaces, src, kern, plain, bnd, flops, nbytes in cases:
+        kname = name.split()[0]
+        err, _ = _twice_vs_plain(f"{kname} at the bench shape", kern, plain,
+                                 bnd, torch.float32)
+        print(f"   {kname} at the bench shape: max|kernel-plain| {err:.3e} "
+              f"over all rows; bitwise repeatable", flush=True)
+        ms_p, _ = _report_spmm(f"{kname} plain", plain, flops, nbytes, card)
+        ms_k, _ = _report_spmm(f"{kname} kernel", kern, flops, nbytes, card)
+        _report_spmm(f"{kname} kernel", kern, flops, nbytes, card)
+        _report_spmm(f"{kname} plain", plain, flops, nbytes, card)
+        out.append({"name": name, "route": "cuda",
+                    "source": f"sparse_tpu_torch/csrc/{src}",
+                    "replaces": replaces, "launches": m["counts"][kname],
+                    "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p})
+    banded_bytes = cb.banded_spmm_hbm_bytes(kit, bsz, a.n, k)
+    _report_spmm("bell_spmm(plan=kit)", lambda: pt.bell_spmm(a, b, plan=kit),
+                 2 * nnz * k, banded_bytes, card)
+
+    def chain():
+        x = b
+        for _ in range(m["chain"]):
+            x = pt.bell_spmm(a, x, plan=kit)
+        return x
+
+    _report_spmm(f"chain, {m['chain']} steps", chain,
+                 2 * nnz * k * m["chain"], banded_bytes * m["chain"], card)
+    return out
+
+
 def main():
     with Phase("phase 0: device", 60):
         card = phase0_device()
@@ -516,6 +907,24 @@ def main():
             raise AssertionError(f"{k} was not launched by the main path")
     with Phase("phase 6: kernel vs plain at main-path shapes, timing", 180):
         kernels = phase6_timing(card, band, ela, launches)
+    with Phase("phase 7: K3-K6 vs plain versions on the card", 120):
+        phase7_bell_kernels_vs_plain()
+    from sparse_tpu_torch.ops import cuda_bell
+
+    # the SpMM main path's run: launch counts start at 0 here
+    for kname in ("K3", "K4", "K5", "K6"):
+        setattr(cuda_bell, f"{kname}_LAUNCHES", 0)
+    with Phase("phase 8: bell_spmm at bench.py's shape, spmm", 240):
+        spmm_run = phase8_spmm_main_path()
+    spmm_launches = {k: getattr(cuda_bell, f"{k}_LAUNCHES")
+                     for k in ("K3", "K4", "K5", "K6")}
+    print(f"   SpMM main-path launches: {spmm_launches}", flush=True)
+    for k, count in spmm_launches.items():
+        if count <= 0:
+            raise AssertionError(f"{k} was not launched by the main path")
+    spmm_run["counts"] = spmm_launches
+    with Phase("phase 9: K3-K6 vs plain at the bench shape, timing", 240):
+        kernels += phase9_bell_timing(card, spmm_run)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,28 @@
 """sparse_tpu_torch: the PyTorch / CUDA port of ``sparse_tpu``.
 
-This first slice carries the main path of the reference — build a CSR from
+The first slice carries the main path of the reference — build a CSR from
 triples or COO (sort + duplicate sum), ``smvm_prepare`` it once, and
 ``plan.apply(v)`` for ``y = A v`` — through every rung of the SpMV dispatch
-ladder.  The reference's two Pallas kernels on that path are hand-written
-CUDA kernels for Hopper here (``csrc/``, built with ``nvcc`` at first use):
-K1 (scalar segment tiles, ``ops/cuda_csr.py``) and K2 (2x2 block-granule
-segment tiles, ``ops/cuda_csr_block.py``).  On CPU tensors every kernel
+ladder; the second, the sparse x dense product: ``spmm``/``dsmm`` on CSR,
+the row-binned ``csr_spmm_*`` and ``bsr_spmm_ell``, and ``bell_spmm`` on the
+blocked-ELL format with its banded kits.  The reference's Pallas kernels on
+those paths are hand-written CUDA kernels for Hopper here (``csrc/``, built
+with ``nvcc`` at first use): K1 (scalar segment tiles, ``ops/cuda_csr.py``),
+K2 (2x2 block-granule segment tiles, ``ops/cuda_csr_block.py``) and K3-K6
+(blocked-ELL SpMM, ``ops/cuda_bell.py``).  On CPU tensors every kernel
 wrapper runs its plain PyTorch version instead.
 
 Imports torch, numpy and ctypes only — never jax or ``sparse_tpu``.
 """
 
-from .formats.bell import BELL, bell_from_bsr, bell_from_csr, bell_smvm
+from .formats.bell import (
+    BELL,
+    bell_from_bsr,
+    bell_from_csr,
+    bell_smvm,
+    bell_spmm,
+    bell_todense,
+)
 from .formats.bsr import (
     BSR,
     BSR_MAX_NB,
@@ -47,6 +57,16 @@ from .formats.csr import (
     csr_todense,
     csr_transpose,
 )
+from .ops.bsr_ell import bsr_row_capacity, bsr_smvm_ell, bsr_spmm_ell
+from .ops.cuda_bell import (
+    BandedKit,
+    BandedKitT,
+    BandedPlan,
+    bell_banded_prepare,
+    bell_banded_prepare_t,
+    bell_banded_refresh,
+    build_banded_plan,
+)
 from .ops.cuda_csr import (
     SegTilePlan,
     build_seg_tiles,
@@ -64,10 +84,18 @@ from .ops.cuda_csr_block import (
 from .ops.dispatch import SmvmAutoPlan, smvm_prepare
 from .ops.hub_split import HubSplit, hub_split_prepare, hub_split_smvm
 from .ops.reorder import rcm_order, rcm_order_blocked, reorder_for_locality
-from .ops.spmv import build_spmv_plan, csr_smvm_fast
+from .ops.spmm import dsmm, spmm
+from .ops.spmv import (
+    build_spmv_plan,
+    csr_smvm_fast,
+    csr_spmm_ell,
+    csr_spmm_fast,
+    row_capacity,
+)
 
 __all__ = [
-    "BELL", "bell_from_bsr", "bell_from_csr", "bell_smvm",
+    "BELL", "bell_from_bsr", "bell_from_csr", "bell_smvm", "bell_spmm",
+    "bell_todense",
     "BSR", "BSR_MAX_NB", "bsr_compact", "bsr_from_coo", "bsr_to_coo",
     "bsr_to_csr", "bsr_todense", "csr_to_bsr",
     "COO", "coo_from_dense", "coo_from_triples", "coo_make", "coo_nnz",
@@ -82,5 +110,10 @@ __all__ = [
     "SmvmAutoPlan", "smvm_prepare",
     "HubSplit", "hub_split_prepare", "hub_split_smvm",
     "rcm_order", "rcm_order_blocked", "reorder_for_locality",
-    "build_spmv_plan", "csr_smvm_fast",
+    "build_spmv_plan", "csr_smvm_fast", "csr_spmm_ell", "csr_spmm_fast",
+    "row_capacity",
+    "spmm", "dsmm",
+    "bsr_row_capacity", "bsr_smvm_ell", "bsr_spmm_ell",
+    "BandedPlan", "BandedKit", "BandedKitT", "build_banded_plan",
+    "bell_banded_prepare", "bell_banded_prepare_t", "bell_banded_refresh",
 ]

@@ -2,11 +2,13 @@
 
 The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper (``sm_90a``)
 into one shared library with a plain C interface and loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds).  The build runs at
-first use, into the package's ``_build/`` directory (listed in
-``.gitignore``); the library is named after a hash of the sources and the
-flags, so an edited source rebuilds.  There is no fallback: without
-``nvcc`` or with a failing compile, :func:`load` raises.
+``ctypes`` (no PyTorch headers, so a build takes seconds).  Each source is
+compiled by its own ``nvcc`` process, all started together, then one link
+makes the library.  The build runs at first use, into the package's
+``_build/`` directory (listed in ``.gitignore``); the library is named after
+a hash of the sources and the flags, so an edited source rebuilds.  There is
+no fallback: without ``nvcc`` or with a failing compile, :func:`load`
+raises.
 
 Every entry point takes device pointers and the CUDA stream as
 ``c_void_p``, sizes as ``c_longlong``/``c_int``, launches on that stream
@@ -31,12 +33,13 @@ _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 
-#: Compiled together into one library (``segtile_common.cuh`` is included).
-SOURCES = ("segtile_csr.cu", "segtile_block.cu")
-_HEADERS = ("segtile_common.cuh",)
+#: Linked into one library (the ``.cuh`` headers are included).
+SOURCES = ("segtile_csr.cu", "segtile_block.cu", "bell_spmm.cu",
+           "bell_banded.cu")
+_HEADERS = ("segtile_common.cuh", "bell_common.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -52,6 +55,13 @@ _SIGNATURES = {
     # stream
     "segtile_block_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P),
     "segtile_block_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P),
+    # kind, blocks, cols, b, c, nb, Lb, bsz, k, stream
+    "bell_fused": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
+    "bell_block": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
+    # kind, tiles, start, b, c, ntiles, M, K, N, bsz, b_rows | bt_cols,
+    # stream
+    "bell_banded": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P),
+    "bell_banded_t": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P),
 }
 
 _lock = threading.Lock()
@@ -84,6 +94,18 @@ def library_path() -> Path:
     return _BUILD / f"libsparse_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands side by side; wait for all of them."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    done = []
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        done.append(subprocess.CompletedProcess(c, p.returncode, out, ""))
+    return done
+
+
 def build() -> Path:
     """Compile ``csrc/`` into :func:`library_path` (skipped when present).
     Raises ``RuntimeError`` when ``nvcc`` is missing or the compile fails."""
@@ -97,17 +119,24 @@ def build() -> Path:
             "sparse_tpu_torch: nvcc not found (set CUDA_HOME or put nvcc on "
             "PATH); the CUDA kernels are built from csrc/ at first use")
     _BUILD.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [_BUILD / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(_CSRC / s) for s in SOURCES]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    results = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
+                    for s, o in zip(SOURCES, objs)])
+    if all(r.returncode == 0 for r in results):
+        results += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                          *[str(o) for o in objs]]])
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "".join(r.stdout for r in results)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [r for r in results if r.returncode != 0]
+    if failed:
         raise RuntimeError(
-            f"sparse_tpu_torch: nvcc failed ({proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{build_log}")
+            f"sparse_tpu_torch: nvcc failed ({failed[0].returncode}):\n"
+            f"{' '.join(failed[0].args)}\n{build_log}")
     os.replace(tmp, out)
     return out
 

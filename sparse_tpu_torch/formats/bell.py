@@ -1,11 +1,15 @@
-"""BELL: blocked-ELL storage for block-sparse SpMV (the ``bell`` rung).
+"""BELL: blocked-ELL storage for block-sparse SpMV and SpMM.
 
-Port of ``sparse_tpu/formats/bell.py`` without SpMM: ``blocks[r, l]`` is the
-l-th stored block of block row ``r`` (zero blocks pad short rows), with its
-block-column id in ``cols[r, l]``.  SpMV streams the blocks and gathers
-operand chunks at ``bsz`` granularity; it is plain PyTorch, as the reference
-left it to XLA.  ``bell_spmm`` reaches the BELL kernels (K3-K5) and waits for
-the SpMM slice.
+Port of ``sparse_tpu/formats/bell.py``: ``blocks[r, l]`` is the l-th stored
+block of block row ``r`` (zero blocks pad short rows), with its block-column
+id in ``cols[r, l]``.  SpMV (the ``bell`` rung) streams the blocks and
+gathers operand chunks at ``bsz`` granularity; it is plain PyTorch, as the
+reference left it to XLA.  :func:`bell_spmm` dispatches as the reference
+does, with a CUDA device in the place of the TPU backend: on CUDA tensors a
+banded kit goes to kernel K4 (``BandedKit``) or K5 (``BandedKitT``, small
+k), a bare ``BandedPlan`` to K4 with the tiles densified in the call, and
+no plan to the fused kernel K3 (``ops/cuda_bell.py``); on CPU tensors, or
+with ``prefer_pallas=False``, it takes the gather-einsum path.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 from ..utils.precision import full_precision
 from .bsr import BSR
 
-__all__ = ["BELL", "bell_from_bsr", "bell_from_csr", "bell_smvm"]
+__all__ = ["BELL", "bell_from_bsr", "bell_from_csr", "bell_smvm", "bell_spmm",
+           "bell_todense"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +51,18 @@ class BELL:
     @property
     def device(self) -> torch.device:
         return self.blocks.device
+
+    def __matmul__(self, other):
+        if not isinstance(other, torch.Tensor):
+            other = torch.as_tensor(other, device=self.device)
+        if other.dim() == 1:
+            return bell_smvm(self, other)
+        if other.dim() == 2:
+            return bell_spmm(self, other)
+        return NotImplemented
+
+    def todense(self) -> torch.Tensor:
+        return bell_todense(self)
 
 
 def bell_from_bsr(a: BSR, Lb: int | None = None) -> BELL:
@@ -98,3 +115,64 @@ def bell_smvm(a: BELL, v) -> torch.Tensor:
     with full_precision(out_dtype):
         out = torch.einsum("rlij,rlj->ri", a.blocks.to(out_dtype), vb)
     return out.reshape(a.n)
+
+
+def bell_spmm(a: BELL, b, *, prefer_pallas: bool | None = None, plan=None,
+              compute_dtype=None, precision=None) -> torch.Tensor:
+    """Blocked-ELL SpMM: C[n, k] = A @ B, batched (bsz x bsz) @ (bsz x k).
+
+    ``prefer_pallas`` (the reference's name) selects the kernels; None means
+    the kernels for CUDA tensors and the gather-einsum path for CPU tensors,
+    as the reference's default means the kernels on a TPU backend only.
+    With the kernels, ``plan`` picks one: a ``BandedKit`` from
+    ``ops.cuda_bell.bell_banded_prepare`` goes to K4, a ``BandedKitT``
+    (``bell_banded_prepare_t``, small k) to K5 through two n*k transposes, a
+    bare ``BandedPlan`` to K4 densifying its tiles in the call, None to the
+    fused kernel K3.  ``compute_dtype=torch.bfloat16`` streams both operands
+    as bf16 with float32 sums; ``precision="bf16x3"`` takes the three-product
+    split; float32 is otherwise full float32."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.as_tensor(b, device=a.device)
+    if b.dim() != 2 or b.shape[0] != a.n:
+        raise ValueError(
+            f"bell_spmm: operand shape {tuple(b.shape)} != ({a.n}, k)")
+    k = b.shape[1]
+    out_dtype = torch.promote_types(a.dtype, b.dtype)
+    if a.n == 0 or a.Lb == 0 or k == 0:
+        return torch.zeros(a.n, k, dtype=out_dtype, device=b.device)
+    from ..ops import cuda_bell as cb
+
+    if prefer_pallas is None:
+        prefer_pallas = a.device.type == "cuda"
+    if not prefer_pallas:  # the gather-einsum
+        return cb.bell_spmm_fused_plain(a, b, compute_dtype=compute_dtype,
+                                        precision=precision)
+    if plan is None:
+        return cb.bell_spmm_fused(a, b, compute_dtype=compute_dtype,
+                                  precision=precision)
+    if isinstance(plan, cb.BandedKitT):
+        # one-shot wrapper: iterative callers chain bell_spmm_banded_t in
+        # transposed space and skip both transposes
+        ct = cb.bell_spmm_banded_t(a, b.T.contiguous(), plan,
+                                   precision=precision)
+        return ct.T.contiguous()
+    if isinstance(plan, cb.BandedKit):
+        return cb.bell_spmm_banded(a, b, plan.plan, tiles=plan.tiles,
+                                   compute_dtype=plan.tiles.dtype,
+                                   precision=precision)
+    if isinstance(plan, cb.BandedPlan):
+        return cb.bell_spmm_banded(a, b, plan, compute_dtype=compute_dtype,
+                                   precision=precision)
+    raise TypeError(f"bell_spmm: plan must be a BandedKit, BandedKitT or "
+                    f"BandedPlan, got {type(plan).__name__}")
+
+
+def bell_todense(a: BELL) -> torch.Tensor:
+    """Dense (n, n) matrix; padding slots (zero blocks) add nothing."""
+    nb, bsz, Lb = a.nb, a.bsz, a.Lb
+    out = torch.zeros(nb * nb, bsz, bsz, dtype=a.dtype, device=a.device)
+    r = torch.arange(nb, device=a.device).repeat_interleave(Lb)
+    out.index_add_(0, r * nb + a.cols.reshape(-1).long(),
+                   a.blocks.reshape(nb * Lb, bsz, bsz))
+    return out.reshape(nb, nb, bsz, bsz).permute(0, 2, 1, 3).reshape(a.n,
+                                                                    a.n)

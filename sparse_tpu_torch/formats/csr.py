@@ -81,6 +81,10 @@ class CSR:
         other = torch.as_tensor(other, device=self.device)
         if other.dim() == 1:
             return csr_smvm(self, other)
+        if other.dim() == 2:
+            from ..ops.spmm import spmm
+
+            return spmm(self, other)
         return NotImplemented
 
     @property

@@ -21,6 +21,7 @@ from .formats.bell import BELL
 from .formats.bsr import BSR, _bidx_dtype
 from .formats.coo import COO
 from .formats.csr import CSR
+from .ops.cuda_bell import BandedKit, BandedKitT, BandedPlan
 from .ops.cuda_csr import SegTilePlan
 from .ops.cuda_csr_block import BlockSegTilePlan
 from .ops.dispatch import SmvmAutoPlan
@@ -35,13 +36,21 @@ __all__ = [
     "seg_tile_plan_from_arrays",
     "block_seg_tile_plan_from_arrays",
     "smvm_plan_from_arrays",
+    "bell_from_arrays",
+    "banded_plan_from_arrays",
+    "banded_kit_from_arrays",
+    "banded_kit_t_from_arrays",
 ]
 
 
 def _t(x, device, dtype=None) -> torch.Tensor | None:
     if x is None:
         return None
-    t = torch.from_numpy(np.array(x))
+    x = np.array(x)
+    if x.dtype.name == "bfloat16":  # numpy has no bf16: carry the bits
+        t = torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(x)
     if dtype is not None:
         t = t.to(dtype)
     return t.to(device or "cpu")
@@ -92,6 +101,41 @@ def block_seg_tile_plan_from_arrays(vals, q, seg_of, rb, *, n, nb, bsz,
         nbz=None if nbz is None else int(nbz))
 
 
+def bell_from_arrays(cols, blocks, n, bsz, *, device=None) -> BELL:
+    return BELL(cols=_t(cols, device, torch.int32), blocks=_t(blocks, device),
+                n=int(n), bsz=int(bsz))
+
+
+def banded_plan_from_arrays(offs, start, rel, sup, *, W, rt, S, SW,
+                            device=None) -> BandedPlan:
+    return BandedPlan(offs=_t(offs, device, torch.int32),
+                      start=_t(start, device, torch.int32),
+                      rel=_t(rel, device, torch.int32),
+                      sup=_t(sup, device, torch.int32), W=int(W), rt=int(rt),
+                      S=int(S), SW=int(SW))
+
+
+def _banded_plan(src, device) -> BandedPlan:
+    return banded_plan_from_arrays(
+        src.offs, src.start, src.rel, src.sup, W=src.W, rt=src.rt, S=src.S,
+        SW=src.SW, device=device)
+
+
+def banded_kit_from_arrays(plan, tiles, *, device=None) -> BandedKit:
+    """A :class:`BandedKit` from a plan with the reference's field names
+    (``offs``/``start``/``rel``/``sup``/``W``/``rt``/``S``/``SW``) and its
+    densified tiles."""
+    return BandedKit(plan=_banded_plan(plan, device),
+                     tiles=_t(tiles, device))
+
+
+def banded_kit_t_from_arrays(plan, tiles_t, *, device=None) -> BandedKitT:
+    """A :class:`BandedKitT` from a plan as in
+    :func:`banded_kit_from_arrays` and its transposed tiles."""
+    return BandedKitT(plan=_banded_plan(plan, device),
+                      tiles_t=_t(tiles_t, device))
+
+
 def _csr(src, device) -> CSR:
     return csr_from_arrays(src.data, src.indices, src.indptr, src.shape,
                            device=device)
@@ -136,9 +180,8 @@ def _state(kind: str, state, device) -> tuple:
                                 device=device), _block_plan(plan, device))
     if kind == "bell":
         (b,) = state
-        return (BELL(cols=_t(b.cols, device, torch.int32),
-                     blocks=_t(b.blocks, device), n=int(b.n),
-                     bsz=int(b.bsz)),)
+        return (bell_from_arrays(b.cols, b.blocks, b.n, b.bsz,
+                                 device=device),)
     if kind == "hubsplit":
         (s,) = state
         return (HubSplit(

@@ -9,8 +9,9 @@ reference package, so it also runs where only PyTorch is installed:
 
 The oracle is each kernel's plain PyTorch version on the same tensors, and
 SciPy in float64.  Tolerances: float32 1e-5 and float64 1e-12, times
-``|A||v|`` per row (the kernel and the plain version sum in different
-orders).
+``|A||v|`` per row (``|A||B|`` per element for SpMM; the kernel and the plain
+version sum in different orders), with a bf16 stream's bound taken on the
+bf16-rounded inputs.
 """
 
 import numpy as np
@@ -21,6 +22,8 @@ import torch
 import sparse_tpu_torch as pt
 from sparse_tpu_torch import interop
 from sparse_tpu_torch.formats import bsr as tbsr
+from sparse_tpu_torch.formats.bell import BELL
+from sparse_tpu_torch.ops import cuda_bell as tcb
 from sparse_tpu_torch.ops import cuda_csr as tpc
 from sparse_tpu_torch.ops import cuda_csr_block as tpb
 
@@ -179,3 +182,165 @@ def test_duplicate_sum_is_bitwise_repeatable(cuda):
     s.sum_duplicates()
     np.testing.assert_allclose(_np(outs[0])[:s.nnz], s.data, rtol=1e-12,
                                atol=1e-9)
+
+
+# -- K3-K6: blocked-ELL SpMM --------------------------------------------------
+
+
+def _band_bell(nb, bsz, hb, seed, dtype, device, empty=()):
+    """Block band of half-width ``hb`` on ``device``; edge and ``empty``
+    rows padded with zero blocks at column 0.  Returns (BELL, slot_valid)."""
+    c = np.arange(nb)[:, None] + np.arange(-hb, hb + 1)[None, :]
+    ok = (c >= 0) & (c < nb)
+    ok[list(empty)] = False
+    order = np.argsort(~ok, axis=1, kind="stable")
+    rows = np.arange(nb)[:, None]
+    cols, ok = np.where(ok, c, 0)[rows, order], ok[rows, order]
+    rng = np.random.default_rng(seed)
+    blocks = rng.standard_normal((nb, 2 * hb + 1, bsz, bsz)) * ok[
+        :, :, None, None]
+    return BELL(cols=torch.from_numpy(cols.astype(np.int32)).to(device),
+                blocks=torch.from_numpy(blocks).to(dtype).to(device),
+                n=nb * bsz, bsz=bsz), ok
+
+
+def _spmm_bound(a, b, stream):
+    """|A||B| in float64 for A and B rounded to the stream dtype."""
+    ab = BELL(cols=a.cols, blocks=a.blocks.to(stream).abs().double(), n=a.n,
+              bsz=a.bsz)
+    return tcb.bell_spmm_fused_plain(ab, b.to(stream).abs().double())
+
+
+def _check_spmm(got, ref, bound, dtype):
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    err = (got.double() - ref.double()).abs()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert bool((err <= tol * bound).all()), float((err - tol * bound).max())
+
+
+def _twice(fn, counter):
+    before = getattr(tcb, counter)
+    y1, y2 = fn(), fn()
+    torch.cuda.synchronize()
+    assert getattr(tcb, counter) == before + 2
+    assert torch.equal(y1, y2)  # bitwise repeatable
+    return y1
+
+
+TIERS = {"f32": (torch.float32, None, None),
+         "f64": (torch.float64, None, None),
+         "bf16": (torch.float32, torch.bfloat16, None),
+         "bf16x3": (torch.float32, None, "bf16x3")}
+
+
+@pytest.mark.parametrize("tier", list(TIERS))
+@pytest.mark.parametrize("nb,bsz,hb,k", [(37, 3, 2, 5), (29, 33, 1, 65),
+                                         (50, 8, 3, 1)])
+def test_k3_k6_match_plain_at_odd_shapes(cuda, nb, bsz, hb, k, tier):
+    dt, cd, prec = TIERS[tier]
+    a, _ = _band_bell(nb, bsz, hb, nb + k, dt, cuda, empty=(nb // 2,))
+    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).to(dt).to(cuda)
+    bound = _spmm_bound(a, b, cd or dt)
+    got = _twice(lambda: tcb.bell_spmm_fused(a, b, compute_dtype=cd,
+                                             precision=prec), "K3_LAUNCHES")
+    _check_spmm(got, tcb.bell_spmm_fused_plain(a, b, compute_dtype=cd,
+                                               precision=prec), bound, dt)
+    if cd is None:  # K6 streams at the result dtype
+        got = _twice(lambda: tcb.bell_spmm_block(a, b, precision=prec),
+                     "K6_LAUNCHES")
+        _check_spmm(got, tcb.bell_spmm_block_plain(a, b, precision=prec),
+                    bound, dt)
+
+
+@pytest.mark.parametrize("tier", list(TIERS))
+@pytest.mark.parametrize("nb,bsz,hb,rt,k", [(41, 24, 2, 3, 70),
+                                            (26, 16, 1, 4, 3)])
+def test_k4_matches_plain_at_odd_shapes(cuda, nb, bsz, hb, rt, k, tier):
+    dt, cd, prec = TIERS[tier]
+    a, ok = _band_bell(nb, bsz, hb, nb * k, dt, cuda, empty=(1,))
+    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).to(dt).to(cuda)
+    kit = tcb.bell_banded_prepare(a, row_tile=rt, compute_dtype=cd,
+                                  slot_valid=ok)
+    assert kit is not None and nb % rt
+    kw = dict(tiles=kit.tiles, compute_dtype=kit.tiles.dtype,
+              precision=prec)
+    got = _twice(lambda: tcb.bell_spmm_banded(a, b, kit.plan, **kw),
+                 "K4_LAUNCHES")
+    _check_spmm(got, tcb.bell_spmm_banded_plain(a, b, kit.plan, **kw),
+                _spmm_bound(a, b, kit.tiles.dtype), dt)
+
+
+@pytest.mark.parametrize("tier", list(TIERS))
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("nb,bsz,k", [(45, 16, 7), (70, 8, 33)])
+def test_k5_matches_plain_at_odd_shapes(cuda, nb, bsz, k, padded, tier):
+    dt, cd, prec = TIERS[tier]
+    a, ok = _band_bell(nb, bsz, 2, nb + k, dt, cuda)
+    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).to(dt).to(cuda)
+    kit = tcb.bell_banded_prepare_t(a, compute_dtype=cd, slot_valid=ok)
+    n_pad = kit.plan.offs.shape[0] * bsz
+    bt = b.T.contiguous()
+    bound = _spmm_bound(a, b, kit.tiles_t.dtype).T
+    if padded:
+        bt = torch.cat([bt, bt.new_zeros(k, n_pad - a.n)], 1)
+        bound = torch.cat([bound, bound.new_zeros(k, n_pad - a.n)], 1)
+    got = _twice(lambda: tcb.bell_spmm_banded_t(a, bt, kit, precision=prec),
+                 "K5_LAUNCHES")
+    assert got.shape == (k, n_pad if padded else a.n)
+    _check_spmm(got, tcb.bell_spmm_banded_t_plain(a, bt, kit,
+                                                  precision=prec), bound, dt)
+
+
+def test_bell_spmm_on_cuda_launches_the_kernels(cuda):
+    import scipy.sparse as sp
+
+    a, ok = _band_bell(64, 32, 2, 3, torch.float32, cuda)
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (a.n, 32))).float().to(cuda)
+    dense = pt.bell_todense(a).double().cpu().numpy()
+    s = sp.csr_matrix(dense)
+    bh = b.double().cpu().numpy()
+    ref = torch.from_numpy(s @ bh).to(cuda)
+    bound = torch.from_numpy(abs(s) @ np.abs(bh)).to(cuda)
+    kit = tcb.bell_banded_prepare(a, slot_valid=ok)
+    kit_t = tcb.bell_banded_prepare_t(a, slot_valid=ok)
+    for plan, counter in ((None, "K3_LAUNCHES"), (kit, "K4_LAUNCHES"),
+                          (kit.plan, "K4_LAUNCHES"),
+                          (kit_t, "K5_LAUNCHES")):
+        before = getattr(tcb, counter)
+        got = pt.bell_spmm(a, b, plan=plan)
+        torch.cuda.synchronize()
+        assert getattr(tcb, counter) == before + 1
+        assert got.is_cuda and got.is_contiguous()
+        _check_spmm(got, ref, bound, torch.float32)
+    _check_spmm(a @ b, ref, bound, torch.float32)
+    counts = [getattr(tcb, f"K{i}_LAUNCHES") for i in (3, 4, 5, 6)]
+    got = pt.bell_spmm(a, b, prefer_pallas=False)  # the gather-einsum
+    assert counts == [getattr(tcb, f"K{i}_LAUNCHES") for i in (3, 4, 5, 6)]
+    _check_spmm(got, ref, bound, torch.float32)
+
+
+def test_bell_kernels_reject_what_they_cannot_take(cuda):
+    a, ok = _band_bell(16, 8, 1, 0, torch.float32, cuda)
+    b = torch.ones(a.n, 4, device=cuda)
+    kit = tcb.bell_banded_prepare(a, slot_valid=ok)
+    for call in (lambda: pt.bell_spmm(a, b.cpu()),
+                 lambda: pt.bell_spmm(a, b.cpu(), plan=kit),
+                 lambda: tcb.bell_spmm_block(a, b.cpu()),
+                 lambda: tcb.bell_spmm_banded_t(
+                     a, b.T.contiguous().cpu(),
+                     tcb.bell_banded_prepare_t(a, slot_valid=ok))):
+        with pytest.raises(ValueError, match="device"):
+            call()
+    a16 = BELL(cols=a.cols, blocks=a.blocks.half(), n=a.n, bsz=a.bsz)
+    for call in (lambda: pt.bell_spmm(a16, b.half()),
+                 lambda: tcb.bell_spmm_block(a16, b.half()),
+                 lambda: pt.bell_spmm(a, b, compute_dtype=torch.float16),
+                 lambda: pt.bell_spmm(a, b, plan=kit.plan,
+                                      compute_dtype=torch.float16),
+                 lambda: pt.bell_spmm(a, b.double(), precision="bf16x3")):
+        with pytest.raises(ValueError):
+            call()
