@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``sparse_tpu_torch/csrc``, holds
-each kernel against its plain PyTorch version, then drives the user's two
+each kernel against its plain PyTorch version, then drives the user's three
 main paths.  SpMV — CSR from triples or COO, ``smvm_prepare``,
 ``plan.apply(v)`` — on the README fixture and on two matrices at realistic
 size: a 500k-row, ~10M-nnz band (the ``segtile`` rung, kernel K1) and the
@@ -12,9 +12,13 @@ size: a 500k-row, ~10M-nnz band (the ``segtile`` rung, kernel K1) and the
 80M-entry block band (nb 15,625, bsz 32, k 128, float32) with the banded kit
 (K4), without a plan (K3) and with the transposed kit at k = 32 (K5), K6
 called directly, a 5-step chain ``b <- A b``, and ``spmm`` at
-``__graft_entry__.entry()``'s shape.  Results are checked against SciPy in
-float64, then the kernels, their plain versions and the entry points are
-timed with CUDA events.
+``__graft_entry__.entry()``'s shape.  SpGEMM — ``spgemm(a, a)`` on the
+reference's block SpGEMM fixture (``benchmarks/measure_auto_block.py``: nb
+2,000, bsz 32, 181,214 block products, float32), routed to the block path
+and its slab kernel K7, then K7 on the prepared plan, a 5-step chain and
+the differentiable apply's forward and backward.  Results are checked
+against SciPy in float64, then the kernels, their plain versions and the
+entry points are timed with CUDA events.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -882,6 +886,375 @@ def phase9_bell_timing(card, m):
     return out
 
 
+# -- SpGEMM: the block-SpGEMM slab kernel K7 ---------------------------------
+
+#: bf16 results are rounded once from float32 sums in both the kernel and
+#: its plain version; the two float32 sums differ by ~1e-6 relative, so the
+#: roundings may differ by one bf16 ulp (2^-7 relative).
+BF16_TOL = 2.0 ** -7 + 1e-5
+
+
+def _slab_tol(dtype):
+    return BF16_TOL if dtype == torch.bfloat16 else TOL[dtype]
+
+
+def _rand_bsr(nb, bsz, density, dtype, rng, parity=None):
+    """Random stored blocks (N(0, 1) values) of a BSR on the card; with
+    ``parity`` the stored-block count is made odd (1) or even (0)."""
+    import sparse_tpu_torch as pt
+
+    r, c = np.nonzero(rng.random((nb, nb)) < density)
+    if parity is not None and r.size % 2 != parity:
+        r, c = r[:-1], c[:-1]
+    blocks = rng.standard_normal((r.size, bsz, bsz))
+    return pt.BSR(indices=torch.from_numpy((r * nb + c).astype(
+        np.int32)).cuda(), blocks=torch.from_numpy(blocks).to(dtype).cuda(),
+                  n=nb * bsz, bsz=bsz)
+
+
+def _slab_args(pp, z1, z2, out_dtype):
+    """The raw-array call of K7 and of its plain version for plan ``pp``."""
+    return ((pp.a_idx, pp.b_idx, pp.oloc, pp.first, pp.slab, z1, z2),
+            dict(chunks=pp.chunks, bsz=pp.bsz, g=pp.g, p=pp.p,
+                 nbz_out=pp.nbz_out, out_dtype=out_dtype, paired=pp.paired))
+
+
+def _slab_vs_plain(label, pp, z1, z2, out_dtype):
+    """K7 twice (bitwise equal) against its plain version on the same
+    inputs, within tol(dtype) * (|z1||z2|) per element (the plain version on
+    the absolute values in float64); returns (max |kernel - plain|, the
+    kernel's result)."""
+    from sparse_tpu_torch.ops import cuda_bsr
+
+    args, kw = _slab_args(pp, z1, z2, out_dtype)
+    bound = cuda_bsr.run_slabs_arrays_plain(
+        *args[:5], z1.abs().double(), z2.abs().double(),
+        **{**kw, "out_dtype": torch.float64})
+    y1 = cuda_bsr.run_slabs_arrays(*args, **kw, slab_start=pp.slab_start)
+    torch.cuda.synchronize()
+    y2 = cuda_bsr.run_slabs_arrays(*args, **kw)  # ranges from `first`
+    torch.cuda.synchronize()
+    if not torch.equal(y1, y2):
+        raise AssertionError(f"{label}: two runs differ bitwise")
+    yp = cuda_bsr.run_slabs_arrays_plain(*args, **kw)
+    if y1.shape != yp.shape or y1.dtype != out_dtype \
+            or not torch.isfinite(y1).all():
+        raise AssertionError(f"{label}: {tuple(y1.shape)} {y1.dtype} vs "
+                             f"plain {tuple(yp.shape)}, or non-finite")
+    err = (y1.double() - yp.double()).abs()
+    worst = float((err - _slab_tol(out_dtype) * bound).max()) \
+        if err.numel() else 0.0
+    if worst > 0:
+        raise AssertionError(f"{label}: error exceeds {_slab_tol(out_dtype)}"
+                             f" * |A||B| by {worst:.3e}")
+    return (float(err.max()) if err.numel() else 0.0), y1
+
+
+def phase10_slab_kernel_vs_plain():
+    """K7 against its plain version on the card: bsz 8/16/32/64, float32,
+    float64 and bf16, unpaired and paired schedules (odd and even A block
+    counts), a plan split into several reference chunks, an empty product
+    set, and the gradient's two schedules (dA, dB); each case twice for
+    bitwise repeatability."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_bsr
+
+    rng = np.random.default_rng(10)
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    # (bsz, nb, density, dtype, paired, A parity, g, p)
+    cases = [(8, 60, 0.1, f32, False, None, None, None),
+             (16, 40, 0.12, f64, False, None, None, None),
+             (32, 30, 0.15, f32, False, None, None, None),
+             (64, 14, 0.25, f32, False, None, None, None),
+             (32, 30, 0.15, bf16, False, None, None, None),
+             (64, 14, 0.25, f64, True, 1, None, None),
+             (16, 40, 0.12, bf16, True, 0, None, None),
+             (32, 30, 0.15, f32, True, 1, 6, 4),
+             (8, 60, 0.1, f32, True, 0, 8, 16)]
+    for bsz, nb, dens, dt, paired, parity, g, p in cases:
+        a = _rand_bsr(nb, bsz, dens, dt, rng, parity)
+        b = _rand_bsr(nb, bsz, dens, dt, rng)
+        plan = pt.bsr_smsmm_prepare(a, b)
+        pp = pt.bsr_smsmm_slab_prepare(plan, a.nbz, b.nbz, g=g, p=p,
+                                       paired=paired)
+        ka = 2 + (a.nbz & 1) if paired else 1
+        z1 = cuda_bsr._append_zero(a.blocks, dt, ka)
+        z2 = cuda_bsr._append_zero(b.blocks, dt)
+        label = (f"K7 bsz={bsz} {str(dt)[6:]} paired={paired} A blocks "
+                 f"{a.nbz} products {plan.n_products} g={pp.g} p={pp.p}")
+        err, _ = _slab_vs_plain(label, pp, z1, z2, dt)
+        print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
+              "repeatable", flush=True)
+    # several reference chunks: the step cap lowered to 256 at g = 2
+    a = _rand_bsr(60, 8, 0.1, f32, rng)
+    plan = pt.bsr_smsmm_prepare(a, a)
+    old = cuda_bsr._SMEM_BUDGET
+    try:
+        cuda_bsr._SMEM_BUDGET = (3 * 2 + 2) * 4 * 256
+        pp = pt.bsr_smsmm_slab_prepare(plan, a.nbz, a.nbz, g=2, p=2)
+    finally:
+        cuda_bsr._SMEM_BUDGET = old
+    if len(pp.chunks) < 3:
+        raise AssertionError(f"K7 chunked: {len(pp.chunks)} chunks")
+    z = cuda_bsr._append_zero(a.blocks, f32)
+    err, _ = _slab_vs_plain("K7 chunked", pp, z, z, f32)
+    print(f"   K7 plan in {len(pp.chunks)} reference chunks: max|kernel-"
+          f"plain| {err:.3e}; bitwise repeatable", flush=True)
+    # no block product at all: one stored block at (0, 1), squared
+    e = pt.BSR(indices=torch.tensor([1], dtype=torch.int32, device="cuda"),
+               blocks=torch.ones(1, 32, 32, device="cuda"), n=64, bsz=32)
+    pe = pt.bsr_smsmm_slab_prepare(pt.bsr_smsmm_prepare(e, e), 1, 1)
+    ce = pt.bsr_smsmm_apply_slab(pe, e, e)
+    if ce.blocks.shape != (0, 32, 32):
+        raise AssertionError(f"K7 empty: {tuple(ce.blocks.shape)}")
+    # the gradient: dA and dB are K7 on the permuted schedules
+    for dt in (f32, f64):
+        a = _rand_bsr(30, 32, 0.15, dt, rng)
+        b = _rand_bsr(30, 32, 0.15, dt, rng)
+        plans = pt.bsr_smsmm_slab_prepare_ad(pt.bsr_smsmm_prepare(a, b),
+                                             a.nbz, b.nbz)
+        ct = torch.from_numpy(rng.standard_normal(
+            (plans.fwd.nbz_out, 32, 32))).to(dt).cuda()
+        ab = a.blocks.clone().requires_grad_(True)
+        bb = b.blocks.clone().requires_grad_(True)
+        c = pt.bsr_smsmm_apply_slab_ad(
+            plans, pt.BSR(indices=a.indices, blocks=ab, n=a.n, bsz=32),
+            pt.BSR(indices=b.indices, blocks=bb, n=b.n, bsz=32))
+        c.blocks.backward(ct)
+        zc = cuda_bsr._append_zero(ct, dt)
+        zbt = cuda_bsr._append_zero(b.blocks.transpose(1, 2), dt)
+        zat = cuda_bsr._append_zero(a.blocks.transpose(1, 2), dt)
+        errs = []
+        for name, pp, z1, z2, got in (("dA", plans.da, zc, zbt, ab.grad),
+                                      ("dB", plans.db, zat, zc, bb.grad)):
+            err, y = _slab_vs_plain(f"K7 {name} {str(dt)[6:]}", pp, z1, z2,
+                                    dt)
+            if not torch.equal(got, y):
+                raise AssertionError(f"K7 {name}: autograd's gradient is not "
+                                     "the kernel's result")
+            errs.append(err)
+        print(f"   K7 gradient {str(dt)[6:]}: dA {errs[0]:.3e}, dB "
+              f"{errs[1]:.3e} max|kernel-plain|; bitwise repeatable",
+              flush=True)
+
+
+def _spgemm_fixture():
+    """``benchmarks/measure_auto_block.py``'s fixture, not cut: nb 2,000
+    block rows of 32 x 32 blocks, 10 draws per block row within +-50 block
+    columns (duplicates merged), N(0, 0.01^2) float32 values from
+    ``default_rng(9)``, every block fully stored.  Returns the SciPy BSR
+    (float64 copy of the float32 values) and the scalar CSR's arrays."""
+    import scipy.sparse as sp
+
+    nb, bsz = 2_000, 32
+    rng = np.random.default_rng(9)
+    rows = np.repeat(np.arange(nb, dtype=np.int64), 10)
+    cols = np.clip(rows + rng.integers(-50, 50, rows.size), 0, nb - 1)
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    keep = np.ones(rows.size, bool)
+    keep[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+    rows, cols = rows[keep], cols[keep]
+    bvals = rng.standard_normal((rows.size, bsz, bsz)).astype(
+        np.float32) * 0.01
+    bvals[bvals == 0] = 0.01
+    s = sp.bsr_matrix((bvals.astype(np.float64), cols,
+                       np.searchsorted(rows, np.arange(nb + 1))),
+                      shape=(nb * bsz, nb * bsz))
+    return s, rows, cols, bvals
+
+
+class _ScipyBlockRows:
+    """SciPy float64 ``A @ A`` on a fixed subset of block rows (every 8th
+    and the last), with ``|A||A|`` for the bound: the oracle of phase 11."""
+
+    def __init__(self, s):
+        import scipy.sparse as sp
+
+        nb = s.shape[0] // 32
+        self.sub = np.unique(np.r_[np.arange(0, nb, 8), nb - 1])
+        rows = (self.sub[:, None] * 32 + np.arange(32)).reshape(-1)
+        rows = s.tocsr()[rows].tobsr(blocksize=(32, 32))
+        self.ref = rows @ s
+        self.abs = abs(rows) @ abs(s)
+        for m in (self.ref, self.abs):
+            m.sort_indices()
+
+    def check(self, label, c):
+        """The scalar CSR ``c`` on the subset: every stored position of the
+        product's blocks, in order, and values within 1e-5 |A||A|."""
+        indptr = c.indptr.cpu().numpy()
+        ref, bnd = self.ref, self.abs
+        worst = 0.0
+        for j, br in enumerate(self.sub):
+            lo, hi = int(indptr[br * 32]), int(indptr[br * 32 + 32])
+            k0, k1 = ref.indptr[j], ref.indptr[j + 1]
+            want_cols = (ref.indices[k0:k1, None] * 32
+                         + np.arange(32)).reshape(-1)
+            if hi - lo != 32 * want_cols.size or not np.array_equal(
+                    np.diff(indptr[br * 32:br * 32 + 33]),
+                    np.full(32, want_cols.size)):
+                raise AssertionError(f"{label}: block row {br} stores "
+                                     f"{hi - lo} entries, expected "
+                                     f"{32 * want_cols.size}")
+            got_cols = c.indices[lo:hi].cpu().numpy().reshape(32, -1)
+            if not (got_cols == want_cols[None, :]).all():
+                raise AssertionError(f"{label}: block row {br}: column "
+                                     "structure differs from SciPy's")
+            got = c.data[lo:hi].double().cpu().numpy().reshape(32, -1)
+            want = ref.data[k0:k1].transpose(1, 0, 2).reshape(32, -1)
+            bound = bnd.data[k0:k1].transpose(1, 0, 2).reshape(32, -1)
+            err = np.abs(got - want)
+            over = float((err - TOL[torch.float32] * bound).max())
+            if over > 0:
+                raise AssertionError(f"{label}: block row {br}: error "
+                                     f"exceeds 1e-5 |A||A| by {over:.3e}")
+            worst = max(worst, float(err.max()))
+        return worst
+
+
+def phase11_spgemm_main_path():
+    """``spgemm(a, a)`` at the reference's SpGEMM fixture through the public
+    entry points (COO on the card -> CSR -> spgemm, method "auto"); the
+    caller reads K7's launch count around this phase."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import spgemm as sg
+
+    t0 = time.perf_counter()
+    s, rows, cols, bvals = _spgemm_fixture()
+    sc = s.tocsr()
+    t_gen = time.perf_counter() - t0
+    oracle = _ScipyBlockRows(s)
+    coo = sc.tocoo()
+    t0 = time.perf_counter()
+    a = pt.csr_from_coo(pt.coo_make(
+        sc.shape, torch.from_numpy(coo.row.astype(np.int64)).cuda(),
+        torch.from_numpy(coo.col.astype(np.int64)).cuda(),
+        torch.from_numpy(coo.data.astype(np.float32)).cuda()))
+    torch.cuda.synchronize()
+    t_csr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    route = sg._spgemm_route(a, a)
+    t_route = time.perf_counter() - t0
+    if route != ("block", 32):
+        raise AssertionError(f"spgemm route {route}, expected ('block', 32)")
+    t0 = time.perf_counter()
+    c = pt.spgemm(a, a)
+    torch.cuda.synchronize()
+    t_spgemm = time.perf_counter() - t0
+    if c.data.dtype != torch.float32 or not torch.isfinite(c.data).all():
+        raise AssertionError(f"spgemm: dtype {c.data.dtype} or non-finite")
+    err = oracle.check("spgemm(a, a) vs scipy", c)
+    c2 = pt.spgemm(a, a)
+    torch.cuda.synchronize()
+    for f in ("data", "indices", "indptr"):
+        if not torch.equal(getattr(c, f), getattr(c2, f)):
+            raise AssertionError(f"spgemm(a, a): two runs differ in {f}")
+    nbz_out = c.nse // (32 * 32)
+    print(f"   fixture: n={a.shape[0]} nnz={a.nse} stored blocks "
+          f"{rows.size} (generated in {t_gen:.1f} s); csr_from_coo "
+          f"{t_csr:.2f} s; route {route} in {t_route:.2f} s (host)",
+          flush=True)
+    print(f"   spgemm(a, a): {nbz_out} output blocks, nse {c.nse}, "
+          f"{t_spgemm:.2f} s one-shot; max|C-scipy| {err:.3e} on "
+          f"{oracle.sub.size} block rows; bitwise repeatable", flush=True)
+    return dict(a=a, t_spgemm=t_spgemm, oracle=oracle)
+
+
+def phase12_slab_timing(card, m, launches):
+    """K7 against its plain version at the fixture's shapes (the prepared
+    plan, forward and the gradient's schedules), then timed in turns —
+    plain, kernel, kernel, plain — alone and back to back: the raw slab
+    apply, the prepared ``bsr_smsmm_apply_slab``, a 5-step chain and the
+    AD forward + backward; the host prepare and the one-shot ``spgemm``
+    separately."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_bsr
+
+    a = m["a"]
+    t0 = time.perf_counter()
+    ab = pt.csr_to_bsr(a, 32)
+    torch.cuda.synchronize()
+    t_rebl = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = pt.bsr_smsmm_prepare(ab, ab)
+    t_sym = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pp = pt.bsr_smsmm_slab_prepare(plan, ab.nbz, ab.nbz)
+    t_slab = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plans = pt.bsr_smsmm_slab_prepare_ad(plan, ab.nbz, ab.nbz)
+    t_ad = time.perf_counter() - t0
+    F, bsz = plan.n_products, ab.bsz
+    steps, nslabs = pp.first.numel(), -(-pp.nbz_out // pp.p)
+    print(f"   host prepare: csr_to_bsr {t_rebl:.2f} s, bsr_smsmm_prepare "
+          f"{t_sym:.2f} s, slab prepare {t_slab:.2f} s ({steps} steps, "
+          f"g={pp.g}, p={pp.p}, {nslabs} slabs, {len(pp.chunks)} reference "
+          f"chunks), AD prepare "
+          f"{t_ad:.2f} s; F={F} block products, {plan.nbz_out} output "
+          f"blocks", flush=True)
+    z = cuda_bsr._append_zero(ab.blocks, torch.float32)
+    err, _ = _slab_vs_plain("K7 at the fixture", pp, z, z, torch.float32)
+    print(f"   K7 at the fixture: max|kernel-plain| {err:.3e} over all "
+          "output blocks; bitwise repeatable", flush=True)
+    # the gradient's schedules at the fixture's shapes
+    rng = torch.Generator(device="cuda").manual_seed(12)
+    ct = torch.randn(plan.nbz_out, bsz, bsz, device="cuda", generator=rng)
+    zc = cuda_bsr._append_zero(ct, torch.float32)
+    zt = cuda_bsr._append_zero(ab.blocks.transpose(1, 2), torch.float32)
+    for name, q, z1, z2 in (("dA", plans.da, zc, zt),
+                            ("dB", plans.db, zt, zc)):
+        e, _ = _slab_vs_plain(f"K7 {name} at the fixture", q, z1, z2,
+                              torch.float32)
+        print(f"   K7 {name} at the fixture: max|kernel-plain| {e:.3e}; "
+              "bitwise repeatable", flush=True)
+    args, kw = _slab_args(pp, z, z, torch.float32)
+    flops = 2 * F * bsz ** 3
+    # bytes model: both factor blocks of every product read once, every
+    # output block written once (tables and the zero pads left out)
+    nbytes = (2 * F + plan.nbz_out) * bsz * bsz * 4
+
+    def kern():
+        return cuda_bsr.run_slabs_arrays(*args, **kw,
+                                         slab_start=pp.slab_start)
+
+    def plain():
+        return cuda_bsr.run_slabs_arrays_plain(*args, **kw)
+
+    ms_p, _ = _report_spmm("K7 plain", plain, flops, nbytes, card)
+    ms_k, _ = _report_spmm("K7 kernel", kern, flops, nbytes, card)
+    _report_spmm("K7 kernel", kern, flops, nbytes, card)
+    _report_spmm("K7 plain", plain, flops, nbytes, card)
+    _report_spmm("bsr_smsmm_apply_slab", lambda: pt.bsr_smsmm_apply_slab(
+        pp, ab, ab), flops, nbytes, card)
+
+    def chain():
+        for _ in range(5):
+            out = pt.bsr_smsmm_apply_slab(pp, ab, ab)
+        return out
+
+    _report_spmm("chain, 5 applies", chain, 5 * flops, 5 * nbytes, card)
+    leaf = ab.blocks.clone().requires_grad_(True)
+
+    def ad():
+        x = pt.BSR(indices=ab.indices, blocks=leaf, n=ab.n, bsz=bsz)
+        out = pt.bsr_smsmm_apply_slab_ad(plans, x, x)
+        out.blocks.backward(ct)
+        leaf.grad = None
+        return out
+
+    # forward + dA + dB: three slab applies of F products each
+    _report_spmm("AD forward + backward", ad, 3 * flops, 3 * nbytes, card)
+    print(f"   spgemm(a, a) one-shot {m['t_spgemm']:.2f} s (host clock: "
+          f"re-block, host prepare, K7, back to scalar CSR) [{card}]",
+          flush=True)
+    return {"name": "K7 bsr_slab", "route": "cuda",
+            "source": "sparse_tpu_torch/csrc/bsr_slab.cu",
+            "replaces": "sparse_tpu/ops/pallas_bsr.py:467",
+            "launches": launches, "max_abs_err": err, "ms": ms_k,
+            "plain_ms": ms_p}
+
+
 def main():
     with Phase("phase 0: device", 60):
         card = phase0_device()
@@ -925,6 +1298,20 @@ def main():
     spmm_run["counts"] = spmm_launches
     with Phase("phase 9: K3-K6 vs plain at the bench shape, timing", 240):
         kernels += phase9_bell_timing(card, spmm_run)
+    with Phase("phase 10: K7 vs plain versions on the card", 120):
+        phase10_slab_kernel_vs_plain()
+    from sparse_tpu_torch.ops import cuda_bsr
+
+    # the SpGEMM main path's run: K7's launch count starts at 0 here
+    cuda_bsr.K7_LAUNCHES = 0
+    with Phase("phase 11: spgemm(a, a) at the SpGEMM fixture", 300):
+        spgemm_run = phase11_spgemm_main_path()
+    k7 = cuda_bsr.K7_LAUNCHES
+    print(f"   SpGEMM main-path launches: {{'K7': {k7}}}", flush=True)
+    if k7 <= 0:
+        raise AssertionError("K7 was not launched by the main path")
+    with Phase("phase 12: K7 vs plain at the fixture, timing", 240):
+        kernels.append(phase12_slab_timing(card, spgemm_run, k7))
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

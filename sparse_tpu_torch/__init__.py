@@ -9,8 +9,12 @@ blocked-ELL format with its banded kits.  The reference's Pallas kernels on
 those paths are hand-written CUDA kernels for Hopper here (``csrc/``, built
 with ``nvcc`` at first use): K1 (scalar segment tiles, ``ops/cuda_csr.py``),
 K2 (2x2 block-granule segment tiles, ``ops/cuda_csr_block.py``) and K3-K6
-(blocked-ELL SpMM, ``ops/cuda_bell.py``).  On CPU tensors every kernel
-wrapper runs its plain PyTorch version instead.
+(blocked-ELL SpMM, ``ops/cuda_bell.py``).  The third slice is SpGEMM:
+``spgemm`` (ESC, dense-accumulator and block cores), ``spgemm_prepare`` /
+``spgemm_apply``, ``CSR @ CSC``, and block SpGEMM on BSR (``bsr_smsmm``,
+``bsr_smsmm_prepare`` / ``bsr_smsmm_apply``, ``BSR @``), whose slab apply
+is K7 (``ops/cuda_bsr.py``).  On CPU tensors every kernel wrapper runs its
+plain PyTorch version instead.
 
 Imports torch, numpy and ctypes only — never jax or ``sparse_tpu``.
 """
@@ -26,11 +30,18 @@ from .formats.bell import (
 from .formats.bsr import (
     BSR,
     BSR_MAX_NB,
+    BsrSmsmmPlan,
     bsr_compact,
     bsr_from_coo,
+    bsr_smsmm,
+    bsr_smsmm_apply,
+    bsr_smsmm_core,
+    bsr_smsmm_prepare,
+    bsr_smvm,
     bsr_to_coo,
     bsr_to_csr,
     bsr_todense,
+    bsr_zero,
     csr_to_bsr,
 )
 from .formats.coo import (
@@ -42,12 +53,20 @@ from .formats.coo import (
     coo_normalize,
     coo_sort,
     coo_todense,
+    coo_transpose,
 )
 from .formats.csr import (
     CSC,
     CSR,
+    csc_from_coo,
+    csc_from_dense,
+    csc_from_triples,
+    csc_to_coo,
+    csc_todense,
     csc_transpose,
     csc_vsmm,
+    csr_compact,
+    csr_empty,
     csr_from_coo,
     csr_from_dense,
     csr_from_triples,
@@ -67,6 +86,14 @@ from .ops.cuda_bell import (
     bell_banded_refresh,
     build_banded_plan,
 )
+from .ops.cuda_bsr import (
+    BsrSlabPlan,
+    BsrSlabPlanAD,
+    bsr_smsmm_apply_slab,
+    bsr_smsmm_apply_slab_ad,
+    bsr_smsmm_slab_prepare,
+    bsr_smsmm_slab_prepare_ad,
+)
 from .ops.cuda_csr import (
     SegTilePlan,
     build_seg_tiles,
@@ -84,6 +111,16 @@ from .ops.cuda_csr_block import (
 from .ops.dispatch import SmvmAutoPlan, smvm_prepare
 from .ops.hub_split import HubSplit, hub_split_prepare, hub_split_smvm
 from .ops.reorder import rcm_order, rcm_order_blocked, reorder_for_locality
+from .ops.spgemm import (
+    SpgemmPlan,
+    spgemm,
+    spgemm_apply,
+    spgemm_csr_csr,
+    spgemm_flops,
+    spgemm_mxu_csr_csr,
+    spgemm_mxu_nse,
+    spgemm_prepare,
+)
 from .ops.spmm import dsmm, spmm
 from .ops.spmv import (
     build_spmv_plan,
@@ -96,13 +133,22 @@ from .ops.spmv import (
 __all__ = [
     "BELL", "bell_from_bsr", "bell_from_csr", "bell_smvm", "bell_spmm",
     "bell_todense",
-    "BSR", "BSR_MAX_NB", "bsr_compact", "bsr_from_coo", "bsr_to_coo",
-    "bsr_to_csr", "bsr_todense", "csr_to_bsr",
+    "BSR", "BSR_MAX_NB", "BsrSmsmmPlan", "bsr_compact", "bsr_from_coo",
+    "bsr_smsmm", "bsr_smsmm_apply", "bsr_smsmm_core", "bsr_smsmm_prepare",
+    "bsr_smvm", "bsr_to_coo", "bsr_to_csr", "bsr_todense", "bsr_zero",
+    "csr_to_bsr",
     "COO", "coo_from_dense", "coo_from_triples", "coo_make", "coo_nnz",
-    "coo_normalize", "coo_sort", "coo_todense",
-    "CSC", "CSR", "csc_transpose", "csc_vsmm", "csr_from_coo",
-    "csr_from_dense", "csr_from_triples", "csr_nnz", "csr_smvm",
-    "csr_to_coo", "csr_todense", "csr_transpose",
+    "coo_normalize", "coo_sort", "coo_todense", "coo_transpose",
+    "CSC", "CSR", "csc_from_coo", "csc_from_dense", "csc_from_triples",
+    "csc_to_coo", "csc_todense", "csc_transpose", "csc_vsmm", "csr_compact",
+    "csr_empty", "csr_from_coo", "csr_from_dense", "csr_from_triples",
+    "csr_nnz", "csr_smvm", "csr_to_coo", "csr_todense", "csr_transpose",
+    "BsrSlabPlan", "BsrSlabPlanAD", "bsr_smsmm_apply_slab",
+    "bsr_smsmm_apply_slab_ad", "bsr_smsmm_slab_prepare",
+    "bsr_smsmm_slab_prepare_ad",
+    "SpgemmPlan", "spgemm", "spgemm_apply", "spgemm_csr_csr",
+    "spgemm_flops", "spgemm_mxu_csr_csr", "spgemm_mxu_nse",
+    "spgemm_prepare",
     "SegTilePlan", "build_seg_tiles", "csr_smvm_auto", "csr_smvm_segtile",
     "seg_tiles_refresh", "segtile_apply",
     "BlockSegTilePlan", "block_seg_tiles_refresh", "bsr_smvm_segtile_block",

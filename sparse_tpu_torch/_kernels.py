@@ -35,7 +35,7 @@ _BUILD = _HERE / "_build"
 
 #: Linked into one library (the ``.cuh`` headers are included).
 SOURCES = ("segtile_csr.cu", "segtile_block.cu", "bell_spmm.cu",
-           "bell_banded.cu")
+           "bell_banded.cu", "bsr_slab.cu")
 _HEADERS = ("segtile_common.cuh", "bell_common.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -62,6 +62,10 @@ _SIGNATURES = {
     # stream
     "bell_banded": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P),
     "bell_banded_t": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P),
+    # kind, z1, z2, a_idx, b_idx, oloc, slab_start, out, nbz_out, bsz, g, p,
+    # paired, vec, stream
+    "bsr_slab": (_I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _I, _I,
+                 _P),
 }
 
 _lock = threading.Lock()

@@ -11,7 +11,13 @@ Port of the structural half of ``sparse_tpu/formats/bsr.py`` (reference
   reference requires jax x64 for them, which is how its tests run);
 * ``blocks``: [nbz, bsz, bsz] values; padding blocks are all-zero.
 
-The BSR algebra, SpGEMM and the LU solver are not ported yet.
+``BSR @ BSR`` is block SpGEMM (:func:`bsr_smsmm`, or the prepared pair
+:func:`bsr_smsmm_prepare` / :func:`bsr_smsmm_apply`) and ``BSR @ vector`` is
+:func:`bsr_smvm`.  Block products run as one batched matmul in the working
+dtype (sub-float32 inputs summed in float32 and rounded once; integers
+exactly); every duplicate sum is :func:`~..ops.segmented.segment_sum`, so no
+float atomics and bitwise repeatable results.  The element-wise algebra and
+the LU solver are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,12 +27,20 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.segmented import INDEX_DTYPE
+from ..ops.segmented import INDEX_DTYPE, expand, segment_sum
+from ..utils.precision import full_precision
 from .coo import COO, coo_normalize
 
 __all__ = [
     "BSR",
     "BSR_MAX_NB",
+    "bsr_zero",
+    "bsr_smvm",
+    "bsr_smsmm",
+    "bsr_smsmm_core",
+    "BsrSmsmmPlan",
+    "bsr_smsmm_prepare",
+    "bsr_smsmm_apply",
     "bsr_todense",
     "bsr_to_coo",
     "bsr_to_csr",
@@ -73,6 +87,18 @@ class BSR:
     def device(self) -> torch.device:
         return self.blocks.device
 
+    def __matmul__(self, other):
+        if isinstance(other, BSR):
+            return bsr_smsmm(self, other)
+        if not isinstance(other, torch.Tensor):
+            other = torch.as_tensor(other, device=self.device)
+        if other.dim() == 1:
+            return bsr_smvm(self, other)
+        return NotImplemented
+
+    def todense(self) -> torch.Tensor:
+        return bsr_todense(self)
+
 
 BSR_MAX_NB = 46340
 """Largest blocks-per-dimension whose flattened coordinates r*nb+c fit
@@ -97,6 +123,46 @@ def _rc(a: BSR):
     r = torch.where(valid, idx // max(nb, 1), torch.full_like(idx, nb))
     c = torch.where(valid, idx % max(nb, 1), torch.zeros_like(idx))
     return valid, r, c
+
+
+def _merge_blocks(n: int, bsz: int, idxs: torch.Tensor,
+                  blocks: torch.Tensor) -> BSR:
+    """Sort block entries by flattened index, sum duplicates, pack valid
+    entries at the front; capacity preserved (the engine behind ``smsmm``
+    accumulation, reference blocked_square_regular.fut:234-256, :349-359).
+    Duplicates sum in input order through ``segment_sum``."""
+    nb = n // bsz
+    sentinel = nb * nb
+    nbz = idxs.shape[0]
+    if nbz == 0:
+        return BSR(indices=idxs, blocks=blocks, n=n, bsz=bsz)
+    key, order = torch.sort(idxs.long(), stable=True)
+    valid = key < sentinel
+    is_head = torch.ones_like(valid)
+    is_head[1:] = key[1:] != key[:-1]
+    is_head &= valid
+    group = torch.cumsum(is_head.long(), 0) - 1
+    target = torch.where(valid, group, torch.full_like(group, nbz))
+    out_blocks = segment_sum(blocks[order], target, nbz,
+                             indices_are_sorted=True)
+    out_idx = torch.full((nbz,), sentinel, dtype=torch.long,
+                         device=idxs.device)
+    heads = torch.nonzero(is_head).reshape(-1)
+    out_idx[group[heads]] = key[heads]
+    return BSR(indices=out_idx.to(idxs.dtype), blocks=out_blocks, n=n,
+               bsz=bsz)
+
+
+def bsr_zero(n: int, bsz: int, nbz: int = 0, dtype=torch.float32, *,
+             device=None) -> BSR:
+    """Zero matrix with optional pre-allocated block capacity (reference
+    ``zero``, blocked_square_regular.fut:189-193)."""
+    _check_divides(n, bsz)
+    nb = n // bsz
+    return BSR(indices=torch.full((nbz,), nb * nb, dtype=_bidx_dtype(nb),
+                                  device=device),
+               blocks=torch.zeros((nbz, bsz, bsz), dtype=dtype,
+                                  device=device), n=n, bsz=bsz)
 
 
 def bsr_todense(a: BSR) -> torch.Tensor:
@@ -260,3 +326,191 @@ def bsr_compact(a: BSR) -> BSR:
     """Trim capacity to the exact valid block count (host sync)."""
     k = int(torch.sum(a.indices.long() < a.sentinel))
     return BSR(indices=a.indices[:k], blocks=a.blocks[:k], n=a.n, bsz=a.bsz)
+
+
+def _check_compat(a: BSR, b: BSR, op: str) -> None:
+    if a.n != b.n or a.bsz != b.bsz:
+        raise ValueError(
+            f"bsr_{op}: incompatible operands n={a.n}/{b.n} "
+            f"bsz={a.bsz}/{b.bsz}")
+
+
+# -- matmul -------------------------------------------------------------------
+
+
+def _block_products(x: torch.Tensor, y: torch.Tensor, out_dtype):
+    """``x[f] @ y[f]`` for (F, bsz, bsz) stacks, cast to ``out_dtype``.
+    Floating types multiply as one batched matmul in full precision, with
+    sub-float32 inputs summed in float32 and rounded once (the reference's
+    ``_flat_block_products`` / MXU einsum contract); integers sum exactly
+    over the shared index."""
+    if out_dtype.is_floating_point or out_dtype.is_complex:
+        acc = (torch.float32 if out_dtype.is_floating_point
+               and torch.finfo(out_dtype).bits < 32 else out_dtype)
+        with full_precision(acc):
+            return torch.bmm(x.to(acc), y.to(acc)).to(out_dtype)
+    x, y = x.to(out_dtype), y.to(out_dtype)
+    out = torch.zeros(x.shape[0], x.shape[1], y.shape[2], dtype=out_dtype,
+                      device=x.device)
+    for k in range(x.shape[2]):
+        out += x[:, :, k, None] * y[:, None, k, :]
+    return out
+
+
+def bsr_smvm(a: BSR, v) -> torch.Tensor:
+    """Block sparse matrix-vector product: batched block matvec + block-row
+    segment sum (reference ``smvm``, blocked_square_regular.fut:307-331)."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.as_tensor(v, device=a.device)
+    if tuple(v.shape) != (a.n,):
+        raise ValueError(f"bsr_smvm: vector shape {tuple(v.shape)} != "
+                         f"({a.n},)")
+    out_dtype = torch.promote_types(a.dtype, v.dtype)
+    nb, bsz = a.nb, a.bsz
+    if a.nbz == 0 or a.n == 0:
+        return torch.zeros(a.n, dtype=out_dtype, device=a.device)
+    _, r, c = _rc(a)
+    vb = v.to(out_dtype).reshape(nb, bsz)[c]  # padding: c=0, zero block
+    w = _block_products(a.blocks.to(out_dtype), vb[:, :, None],
+                        out_dtype)[:, :, 0]
+    return segment_sum(w, r, nb, indices_are_sorted=True).reshape(a.n)
+
+
+def bsr_smsmm_core(a: BSR, b: BSR, expansion_nbz: int) -> BSR:
+    """Block SpGEMM with a static block-product capacity: expand the actual
+    block pairs (A block column == B block row), one batched block product,
+    merge by target coordinate (reference ``smsmm``,
+    blocked_square_regular.fut:336-363).  Capacity = ``expansion_nbz``."""
+    _check_compat(a, b, "smsmm")
+    n, bsz, nb = a.n, a.bsz, a.nb
+    out_dtype = torch.promote_types(a.dtype, b.dtype)
+    if expansion_nbz == 0 or a.nbz == 0 or b.nbz == 0:
+        return bsr_zero(n, bsz, expansion_nbz, out_dtype, device=a.device)
+    valid_a, a_r, a_c = _rc(a)
+    valid_b, b_r, b_c = _rc(b)
+    b_row_counts = segment_sum(valid_b.long(), b_r, nb,
+                               indices_are_sorted=True)
+    b_row_ptr = torch.cumsum(b_row_counts, 0) - b_row_counts
+    sizes = torch.where(valid_a, b_row_counts[a_c.clamp(max=nb - 1)],
+                        torch.zeros_like(a_c))
+    elem_ids, inner = expand(sizes, expansion_nbz)
+    live = elem_ids.long() < a.nbz
+    e = torch.where(live, elem_ids.long(), torch.zeros_like(elem_ids.long()))
+    b_pos = b_row_ptr[a_c[e].clamp(max=nb - 1)] + inner.long()
+    b_pos = b_pos.clamp(max=max(b.nbz - 1, 0))
+    prods = _block_products(a.blocks[e], b.blocks[b_pos], out_dtype)
+    keep = live & valid_a[e]
+    target = torch.where(keep, a_r[e] * nb + b_c[b_pos],
+                         torch.full_like(e, nb * nb))
+    prods = torch.where(keep[:, None, None], prods, prods.new_zeros(()))
+    return _merge_blocks(n, bsz, target.to(_bidx_dtype(nb)), prods)
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrSmsmmPlan:
+    """Pattern-static block-SpGEMM schedule from :func:`bsr_smsmm_prepare`:
+    per block product, the storage positions of both factors and the
+    (pre-sorted) output block slot; ``indices`` is the result's sorted
+    block-coordinate array (capacity = exact stored block count)."""
+
+    a_pos: torch.Tensor
+    b_pos: torch.Tensor
+    seg: torch.Tensor
+    indices: torch.Tensor
+    n: int
+    bsz: int
+
+    @property
+    def nbz_out(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def n_products(self) -> int:
+        return self.a_pos.shape[0]
+
+
+def bsr_smsmm_prepare(a: BSR, b: BSR) -> BsrSmsmmPlan:
+    """Symbolic block-SpGEMM pass (host NumPy, once per pattern pair; the
+    reference's pass to the letter, so both packages build the same
+    ``a_pos``/``b_pos``/``seg``/``indices``).  The plan lives on ``a``'s
+    device."""
+    _check_compat(a, b, "smsmm_prepare")
+    nb = a.nb
+    ai = a.indices.cpu().numpy().astype(np.int64)
+    bi = b.indices.cpu().numpy().astype(np.int64)
+    va = np.flatnonzero(ai < nb * nb)
+    vb = np.flatnonzero(bi < nb * nb)
+    a_r, a_c = ai[va] // nb, ai[va] % nb
+    b_r, b_c = bi[vb] // nb, bi[vb] % nb
+    # row-compress B's valid blocks (BSR indices are sorted, so vb is
+    # already grouped by b_r)
+    b_counts = np.bincount(b_r, minlength=nb)
+    b_ptr = np.zeros(nb + 1, np.int64)
+    np.cumsum(b_counts, out=b_ptr[1:])
+    sizes = b_counts[a_c]
+    F = int(sizes.sum())
+    starts = np.cumsum(sizes) - sizes
+    pa_ = np.repeat(np.arange(va.size, dtype=np.int64), sizes)
+    inner = np.arange(F, dtype=np.int64) - starts[pa_]
+    pb_ = b_ptr[a_c[pa_]] + inner
+    target = a_r[pa_] * nb + b_c[pb_]
+    from ..native.plansort import argsort_u64
+
+    order = argsort_u64(target)
+    t_o = target[order]
+    head = np.ones(F, bool)
+    head[1:] = t_o[1:] != t_o[:-1]
+    seg = np.cumsum(head) - 1
+    dev = a.device
+
+    def put(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(dev)
+
+    return BsrSmsmmPlan(
+        a_pos=put(va[pa_[order]], INDEX_DTYPE),
+        b_pos=put(vb[pb_[order]], INDEX_DTYPE),
+        seg=put(seg, INDEX_DTYPE),
+        indices=put(t_o[head] if F else np.zeros(0, np.int64),
+                    _bidx_dtype(nb)),
+        n=a.n,
+        bsz=a.bsz,
+    )
+
+
+def bsr_smsmm_apply(plan: BsrSmsmmPlan, a: BSR, b: BSR) -> BSR:
+    """Numeric block-SpGEMM pass for the pattern pair captured in ``plan``
+    (values may change, block structure must not): gather both factors'
+    blocks, one batched block product, one pre-sorted segment sum.
+    Deterministic; the slab kernel (``ops.cuda_bsr``) computes the same
+    without the gathered streams."""
+    out_dtype = torch.promote_types(a.dtype, b.dtype)
+    bsz = plan.bsz
+    if plan.n_products == 0:
+        blocks = torch.zeros((plan.nbz_out, bsz, bsz), dtype=out_dtype,
+                             device=a.device)
+    else:
+        prods = _block_products(a.blocks[plan.a_pos.long()],
+                                b.blocks[plan.b_pos.long()], out_dtype)
+        blocks = segment_sum(prods, plan.seg, plan.nbz_out,
+                             indices_are_sorted=True)
+    return BSR(indices=plan.indices, blocks=blocks, n=plan.n, bsz=bsz)
+
+
+def bsr_smsmm(a: BSR, b: BSR, *, expansion_nbz: int | None = None,
+              compact: bool = True) -> BSR:
+    """Block sparse x sparse matmul (reference ``smsmm``,
+    blocked_square_regular.fut:336-363).  With ``expansion_nbz=None`` the
+    block-pair count is taken first (host sync) and the result is trimmed
+    to its stored blocks unless ``compact=False``."""
+    if expansion_nbz is None:
+        _check_compat(a, b, "smsmm")
+        valid_a, _, a_c = _rc(a)
+        valid_b, b_r, _ = _rc(b)
+        counts = segment_sum(valid_b.long(), b_r, max(a.nb, 1),
+                             indices_are_sorted=True)
+        f = int(torch.sum(torch.where(
+            valid_a, counts[a_c.clamp(max=max(a.nb - 1, 0))],
+            torch.zeros_like(a_c))))
+        out = bsr_smsmm_core(a, b, f)
+        return bsr_compact(out) if compact else out
+    return bsr_smsmm_core(a, b, expansion_nbz)

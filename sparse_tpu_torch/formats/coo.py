@@ -24,6 +24,7 @@ __all__ = [
     "coo_normalize",
     "coo_todense",
     "coo_from_dense",
+    "coo_transpose",
     "coo_nnz",
 ]
 
@@ -176,6 +177,15 @@ def coo_from_dense(x, nse: int | None = None, *, device=None) -> COO:
                        torch.zeros((), dtype=x.dtype, device=x.device))
     return COO(row=row.to(INDEX_DTYPE), col=col.to(INDEX_DTYPE), data=data,
                shape=(n, m))
+
+
+def coo_transpose(a: COO) -> COO:
+    """Swap rows and columns; padding sentinels move from (n, m) to (m, n)."""
+    n, m = a.shape
+    pad = a.row >= n
+    return COO(row=torch.where(pad, torch.full_like(a.col, m), a.col),
+               col=torch.where(pad, torch.full_like(a.row, n), a.row),
+               data=a.data, shape=(m, n))
 
 
 def coo_nnz(a: COO) -> torch.Tensor:

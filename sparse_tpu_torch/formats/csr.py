@@ -14,9 +14,9 @@ compressed.fut:61-332):
   of every faster SpMV path in ``sparse_tpu_torch.ops``.
 
 Construction sums duplicate triples (compressed.fut:154-160) and ``nnz``
-counts only non-zero stored values (compressed.fut:162-164).  The CSR/COO
-algebra (``add``/``sub``/``scale``) and the CSC constructors are not ported
-yet.
+counts only non-zero stored values (compressed.fut:162-164).  ``CSR @ CSC``
+is SpGEMM (``ops/spgemm.py``), as in the reference.  The CSR/COO algebra
+(``add``/``sub``/``scale``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,11 +32,14 @@ from .coo import (
     coo_from_triples,
     coo_normalize,
     coo_todense,
+    coo_transpose,
 )
 
 __all__ = [
     "CSR",
     "CSC",
+    "csr_empty",
+    "csr_compact",
     "csr_from_coo",
     "csr_from_dense",
     "csr_from_triples",
@@ -45,6 +48,10 @@ __all__ = [
     "csr_smvm",
     "csr_nnz",
     "csr_transpose",
+    "csc_from_coo",
+    "csc_from_triples",
+    "csc_from_dense",
+    "csc_to_coo",
     "csc_todense",
     "csc_vsmm",
     "csc_transpose",
@@ -78,6 +85,10 @@ class CSR:
         return self.data.device
 
     def __matmul__(self, other):
+        if isinstance(other, CSC):
+            from ..ops.spgemm import spgemm
+
+            return spgemm(self, other)
         other = torch.as_tensor(other, device=self.device)
         if other.dim() == 1:
             return csr_smvm(self, other)
@@ -145,7 +156,22 @@ def csc_transpose(a: CSC) -> CSR:
     return CSR(data=a.data, indices=a.indices, indptr=a.indptr, shape=(m, n))
 
 
+def _csc_as_csr_t(a: CSC) -> CSR:
+    """View the CSC's storage as the CSR of its transpose."""
+    return csc_transpose(a)
+
+
 # -- constructors -------------------------------------------------------------
+
+
+def csr_empty(n: int, m: int, nse: int = 0, dtype=torch.float32, *,
+              device=None) -> CSR:
+    """The zero matrix (reference ``zero``, compressed.fut:98-103), with an
+    optional pre-allocated capacity."""
+    return CSR(data=torch.zeros(nse, dtype=dtype, device=device),
+               indices=torch.zeros(nse, dtype=INDEX_DTYPE, device=device),
+               indptr=torch.zeros(n + 1, dtype=INDEX_DTYPE, device=device),
+               shape=(n, m))
 
 
 def csr_from_coo(a: COO) -> CSR:
@@ -212,6 +238,13 @@ def csr_smvm(a: CSR, v) -> torch.Tensor:
     return segment_sum(prods, rows, n, indices_are_sorted=True)
 
 
+def csr_compact(a: CSR) -> CSR:
+    """Trim capacity to the exact valid entry count (host sync)."""
+    k = int(a.indptr[-1])
+    return CSR(data=a.data[:k], indices=a.indices[:k], indptr=a.indptr,
+               shape=a.shape)
+
+
 def csr_nnz(a: CSR) -> torch.Tensor:
     """Number of stored values that are non-zero (compressed.fut:162-164)."""
     n, _ = a.shape
@@ -222,10 +255,30 @@ def csr_nnz(a: CSR) -> torch.Tensor:
 # -- CSC: delegation through the transpose duality ----------------------------
 
 
+def csc_from_coo(a: COO) -> CSC:
+    return csr_transpose(csr_from_coo(coo_transpose(a)))
+
+
+def csc_from_triples(n: int, m: int, triples, dtype=None, *,
+                     device=None) -> CSC:
+    swapped = [(c, r, v) for (r, c, v) in triples]
+    return csr_transpose(csr_from_triples(m, n, swapped, dtype=dtype,
+                                          device=device))
+
+
+def csc_from_dense(x, nse: int | None = None, *, device=None) -> CSC:
+    x = torch.as_tensor(x, device=device)
+    return csr_transpose(csr_from_dense(x.T, nse=nse))
+
+
+def csc_to_coo(a: CSC) -> COO:
+    return coo_transpose(csr_to_coo(_csc_as_csr_t(a)))
+
+
 def csc_todense(a: CSC) -> torch.Tensor:
-    return csr_todense(csc_transpose(a)).T
+    return csr_todense(_csc_as_csr_t(a)).T
 
 
 def csc_vsmm(v, a: CSC) -> torch.Tensor:
     """Vector-matrix multiply v . A (reference ``vsmm``, compressed.fut:223)."""
-    return csr_smvm(csc_transpose(a), v)
+    return csr_smvm(_csc_as_csr_t(a), v)

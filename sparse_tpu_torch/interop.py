@@ -18,15 +18,17 @@ import numpy as np
 import torch
 
 from .formats.bell import BELL
-from .formats.bsr import BSR, _bidx_dtype
+from .formats.bsr import BSR, BsrSmsmmPlan, _bidx_dtype
 from .formats.coo import COO
 from .formats.csr import CSR
 from .ops.cuda_bell import BandedKit, BandedKitT, BandedPlan
+from .ops.cuda_bsr import BsrSlabPlan, BsrSlabPlanAD
 from .ops.cuda_csr import SegTilePlan
 from .ops.cuda_csr_block import BlockSegTilePlan
 from .ops.dispatch import SmvmAutoPlan
 from .ops.hub_split import HubSplit
 from .ops.segmented import INDEX_DTYPE
+from .ops.spgemm import SpgemmPlan
 from .ops.spmv import SpmvPlan
 
 __all__ = [
@@ -40,6 +42,10 @@ __all__ = [
     "banded_plan_from_arrays",
     "banded_kit_from_arrays",
     "banded_kit_t_from_arrays",
+    "bsr_smsmm_plan_from_arrays",
+    "slab_plan_from_arrays",
+    "slab_plan_ad_from_arrays",
+    "spgemm_plan_from_arrays",
 ]
 
 
@@ -134,6 +140,63 @@ def banded_kit_t_from_arrays(plan, tiles_t, *, device=None) -> BandedKitT:
     :func:`banded_kit_from_arrays` and its transposed tiles."""
     return BandedKitT(plan=_banded_plan(plan, device),
                       tiles_t=_t(tiles_t, device))
+
+
+def bsr_smsmm_plan_from_arrays(a_pos, b_pos, seg, indices, *, n, bsz,
+                               device=None) -> BsrSmsmmPlan:
+    nb = int(n) // int(bsz)
+    return BsrSmsmmPlan(a_pos=_t(a_pos, device, INDEX_DTYPE),
+                        b_pos=_t(b_pos, device, INDEX_DTYPE),
+                        seg=_t(seg, device, INDEX_DTYPE),
+                        indices=_t(indices, device, _bidx_dtype(nb)),
+                        n=int(n), bsz=int(bsz))
+
+
+def slab_plan_from_arrays(a_idx, b_idx, oloc, slab, first, indices, *,
+                          chunks, n, bsz, g, p, nbz_out, paired=False,
+                          device=None) -> BsrSlabPlan:
+    """A :class:`BsrSlabPlan` from the reference's slab tables;
+    ``slab_start`` (the port's step range of each slab) is read off
+    ``first``, which holds one 1 per slab, in slab order."""
+    first_h = np.asarray(first).astype(np.int64)
+    starts = np.append(np.flatnonzero(first_h), first_h.size)
+    idx = np.asarray(indices)
+    return BsrSlabPlan(
+        a_idx=_t(a_idx, device, torch.int32),
+        b_idx=_t(b_idx, device, torch.int32),
+        oloc=_t(oloc, device, torch.int32),
+        slab=_t(slab, device, torch.int32),
+        first=_t(first, device, torch.int32),
+        indices=_t(idx, device, torch.int64 if idx.dtype == np.int64
+                   else INDEX_DTYPE),
+        chunks=tuple(tuple(int(x) for x in c) for c in chunks), n=int(n),
+        bsz=int(bsz), g=int(g), p=int(p), nbz_out=int(nbz_out),
+        paired=bool(paired), slab_start=_t(starts, device, torch.int32))
+
+
+def _slab_plan(src, device) -> BsrSlabPlan:
+    return slab_plan_from_arrays(
+        src.a_idx, src.b_idx, src.oloc, src.slab, src.first, src.indices,
+        device=device, **_plan_fields(
+            src, ("chunks", "n", "bsz", "g", "p", "nbz_out", "paired"), ()))
+
+
+def slab_plan_ad_from_arrays(fwd, da, db, *, device=None) -> BsrSlabPlanAD:
+    """A :class:`BsrSlabPlanAD` from three plans with the reference's field
+    names (``a_idx``/``b_idx``/``oloc``/``slab``/``first``/``indices`` and
+    ``chunks``/``n``/``bsz``/``g``/``p``/``nbz_out``/``paired``)."""
+    return BsrSlabPlanAD(fwd=_slab_plan(fwd, device),
+                         da=_slab_plan(da, device), db=_slab_plan(db, device))
+
+
+def spgemm_plan_from_arrays(a_pos, b_pos, seg, indices, indptr, *, shape,
+                            device=None) -> SpgemmPlan:
+    return SpgemmPlan(a_pos=_t(a_pos, device, INDEX_DTYPE),
+                      b_pos=_t(b_pos, device, INDEX_DTYPE),
+                      seg=_t(seg, device, INDEX_DTYPE),
+                      indices=_t(indices, device, INDEX_DTYPE),
+                      indptr=_t(indptr, device, INDEX_DTYPE),
+                      shape=(int(shape[0]), int(shape[1])))
 
 
 def _csr(src, device) -> CSR:

@@ -24,6 +24,7 @@ from sparse_tpu_torch import interop
 from sparse_tpu_torch.formats import bsr as tbsr
 from sparse_tpu_torch.formats.bell import BELL
 from sparse_tpu_torch.ops import cuda_bell as tcb
+from sparse_tpu_torch.ops import cuda_bsr as tbs
 from sparse_tpu_torch.ops import cuda_csr as tpc
 from sparse_tpu_torch.ops import cuda_csr_block as tpb
 
@@ -344,3 +345,204 @@ def test_bell_kernels_reject_what_they_cannot_take(cuda):
                  lambda: pt.bell_spmm(a, b.double(), precision="bf16x3")):
         with pytest.raises(ValueError):
             call()
+
+
+# -- K7: the block-SpGEMM slab apply ------------------------------------------
+
+
+def _rand_bsr(nb, bsz, density, seed, dtype, device, parity=None):
+    """Random stored blocks on ``device``; with ``parity`` the stored-block
+    count is made odd (1) or even (0)."""
+    rng = np.random.default_rng(seed)
+    r, c = np.nonzero(rng.random((nb, nb)) < density)
+    if parity is not None and r.size % 2 != parity:
+        r, c = r[:-1], c[:-1]
+    blocks = torch.from_numpy(rng.standard_normal((r.size, bsz, bsz)))
+    return pt.BSR(indices=torch.from_numpy((r * nb + c).astype(
+        np.int32)).to(device), blocks=blocks.to(dtype).to(device),
+                  n=nb * bsz, bsz=bsz)
+
+
+def _slab_raw(pp, z1, z2, dtype):
+    return ((pp.a_idx, pp.b_idx, pp.oloc, pp.first, pp.slab, z1, z2),
+            dict(chunks=pp.chunks, bsz=pp.bsz, g=pp.g, p=pp.p,
+                 nbz_out=pp.nbz_out, out_dtype=dtype, paired=pp.paired))
+
+
+def _check_slab(got, z1, z2, pp, dtype):
+    """Against the plain version within tol * (|z1||z2|); bf16 results may
+    differ from it by one bf16 rounding (2^-7 relative)."""
+    args, kw = _slab_raw(pp, z1, z2, dtype)
+    ref = tbs.run_slabs_arrays_plain(*args, **kw)
+    bound = tbs.run_slabs_arrays_plain(
+        *args[:5], z1.abs().double(), z2.abs().double(),
+        **{**kw, "out_dtype": torch.float64})
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12,
+           torch.bfloat16: 2.0 ** -7 + 1e-5}[dtype]
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    err = (got.double() - ref.double()).abs()
+    assert bool((err <= tol * bound).all()), float((err - tol * bound).max())
+
+
+SLAB_DTYPES = {"f32": torch.float32, "f64": torch.float64,
+               "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("dtype", list(SLAB_DTYPES))
+@pytest.mark.parametrize("bsz,nb,density", [(8, 40, 0.12), (16, 25, 0.15),
+                                            (32, 16, 0.2), (64, 9, 0.3),
+                                            (6, 30, 0.15), (40, 10, 0.3)])
+def test_k7_matches_plain(cuda, bsz, nb, density, dtype, paired):
+    """bsz 8-64 as the route gives them, and 6 and 40 (scalar loads, two
+    row groups); paired schedules with an odd A block count."""
+    dt = SLAB_DTYPES[dtype]
+    a = _rand_bsr(nb, bsz, density, nb + bsz, dt, cuda, 1 if paired else None)
+    b = _rand_bsr(nb, bsz, density, 3 * nb, dt, cuda)
+    plan = pt.bsr_smsmm_prepare(a, b)
+    pp = pt.bsr_smsmm_slab_prepare(plan, a.nbz, b.nbz, g=4 if paired else 3,
+                                   p=8, paired=paired)
+    before = tbs.K7_LAUNCHES
+    c1 = pt.bsr_smsmm_apply_slab(pp, a, b)
+    c2 = pt.bsr_smsmm_apply_slab(pp, a, b)
+    torch.cuda.synchronize()
+    assert tbs.K7_LAUNCHES == before + 2
+    assert torch.equal(c1.blocks, c2.blocks)  # bitwise repeatable
+    ka = 2 + (a.nbz & 1) if paired else 1
+    _check_slab(c1.blocks, tbs._append_zero(a.blocks, dt, ka),
+                tbs._append_zero(b.blocks, dt), pp, dt)
+
+
+def test_k7_chunked_plan_and_empty_set(cuda):
+    a = _rand_bsr(40, 8, 0.12, 1, torch.float32, cuda)
+    plan = pt.bsr_smsmm_prepare(a, a)
+    old = tbs._SMEM_BUDGET
+    try:
+        tbs._SMEM_BUDGET = (3 * 2 + 2) * 4 * 256
+        pp = pt.bsr_smsmm_slab_prepare(plan, a.nbz, a.nbz, g=2, p=2)
+    finally:
+        tbs._SMEM_BUDGET = old
+    assert len(pp.chunks) > 1
+    z = tbs._append_zero(a.blocks, torch.float32)
+    args, kw = _slab_raw(pp, z, z, torch.float32)
+    got = tbs.run_slabs_arrays(*args, **kw)  # slab ranges from `first`
+    assert torch.equal(got, pt.bsr_smsmm_apply_slab(pp, a, a).blocks)
+    _check_slab(got, z, z, pp, torch.float32)
+    e = pt.BSR(indices=torch.tensor([1], dtype=torch.int32, device=cuda),
+               blocks=torch.ones(1, 8, 8, device=cuda), n=16, bsz=8)
+    pe = pt.bsr_smsmm_slab_prepare(pt.bsr_smsmm_prepare(e, e), 1, 1)
+    assert pt.bsr_smsmm_apply_slab(pe, e, e).blocks.shape == (0, 8, 8)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k7_gradients(cuda, dtype):
+    """dA and dB are K7 on the permuted schedules; they agree with torch
+    autograd through the plain ``bsr_smsmm_apply``."""
+    dt = SLAB_DTYPES[dtype]
+    a = _rand_bsr(16, 32, 0.2, 4, dt, cuda)
+    b = _rand_bsr(16, 32, 0.2, 5, dt, cuda)
+    plan = pt.bsr_smsmm_prepare(a, b)
+    plans = pt.bsr_smsmm_slab_prepare_ad(plan, a.nbz, b.nbz)
+    ct = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (plan.nbz_out, 32, 32))).to(dt).to(cuda)
+    grads = []
+    for apply in (lambda x, y: pt.bsr_smsmm_apply_slab_ad(plans, x, y),
+                  lambda x, y: pt.bsr_smsmm_apply(plan, x, y)):
+        ab = a.blocks.clone().requires_grad_(True)
+        bb = b.blocks.clone().requires_grad_(True)
+        before = tbs.K7_LAUNCHES
+        c = apply(pt.BSR(indices=a.indices, blocks=ab, n=a.n, bsz=32),
+                  pt.BSR(indices=b.indices, blocks=bb, n=b.n, bsz=32))
+        c.blocks.backward(ct)
+        torch.cuda.synchronize()
+        grads.append((ab.grad, bb.grad, tbs.K7_LAUNCHES - before))
+    (ga, gb, launched), (ra, rb, none) = grads
+    assert launched == 3 and none == 0
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    for g, r, z1, z2, pp in (
+            (ga, ra, tbs._append_zero(ct, dt),
+             tbs._append_zero(b.blocks.transpose(1, 2), dt), plans.da),
+            (gb, rb, tbs._append_zero(a.blocks.transpose(1, 2), dt),
+             tbs._append_zero(ct, dt), plans.db)):
+        _check_slab(g, z1, z2, pp, dt)
+        args, kw = _slab_raw(pp, z1.abs().double(), z2.abs().double(),
+                             torch.float64)
+        bound = tbs.run_slabs_arrays_plain(*args, **kw)
+        assert bool(((g - r).abs().double() <= 2 * tol * bound).all())
+
+
+def test_k7_rejects_what_it_cannot_take(cuda):
+    a = _rand_bsr(10, 8, 0.3, 2, torch.float32, cuda)
+    pp = pt.bsr_smsmm_slab_prepare(pt.bsr_smsmm_prepare(a, a), a.nbz, a.nbz)
+    ai = pt.BSR(indices=a.indices, blocks=a.blocks.round().long(), n=a.n,
+                bsz=8)
+    before = tbs.K7_LAUNCHES
+    for call in (lambda: pt.bsr_smsmm_apply_slab(pp, ai, ai),
+                 lambda: pt.bsr_smsmm_apply_slab(pp, a, a,
+                                                 precision="bf16x3")):
+        with pytest.raises(ValueError):
+            call()
+    z = tbs._append_zero(a.blocks, torch.float32)
+    args, kw = _slab_raw(pp, z, z.cpu(), torch.float32)
+    with pytest.raises(ValueError, match="device"):
+        tbs.run_slabs_arrays(*args, **kw)
+    big = _rand_bsr(3, 72, 1.0, 3, torch.float32, cuda)
+    pb = pt.bsr_smsmm_slab_prepare(pt.bsr_smsmm_prepare(big, big), big.nbz,
+                                   big.nbz)
+    with pytest.raises(ValueError, match="block size"):
+        pt.bsr_smsmm_apply_slab(pb, big, big)
+    assert tbs.K7_LAUNCHES == before
+
+
+def _dense_blocks_csr(nb, bsz, seed, dtype, device):
+    """Scalar CSR on ``device`` whose stored pattern is fully dense
+    bsz x bsz blocks (a band of block columns)."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((nb, nb), bool)
+    for i in range(nb):
+        mask[i, np.clip(i + rng.integers(-3, 4, 3), 0, nb - 1)] = True
+    r, c = np.nonzero(mask)
+    vals = rng.standard_normal((r.size, bsz, bsz))
+    vals[vals == 0] = 1.0
+    if dtype == torch.int64:
+        vals = np.round(np.abs(vals) * 4) + 1.0  # no zero, no cancel
+    s = sp.bsr_matrix((vals, c, np.searchsorted(r, np.arange(nb + 1))),
+                      shape=(nb * bsz, nb * bsz)).tocsr()
+    s.sort_indices()
+    return s, interop.csr_from_arrays(
+        torch.from_numpy(s.data).to(dtype), s.indices, s.indptr, s.shape,
+        device=device)
+
+
+@pytest.mark.parametrize("bsz,dtype,launches", [
+    (8, torch.float32, 1), (16, torch.float64, 1), (4, torch.float32, 0),
+    (8, torch.int64, 0)])
+def test_spgemm_block_route_on_the_card(cuda, bsz, dtype, launches):
+    """``spgemm(a, a)`` takes the block route; bsz >= 8 in a float type
+    launches K7, bsz < 8 and integers take ``bsr_smsmm_apply``."""
+    from unittest import mock
+
+    from sparse_tpu_torch.ops import spgemm as tsg
+
+    s, a = _dense_blocks_csr(48, bsz, bsz, dtype, cuda)
+    before = tbs.K7_LAUNCHES
+    with mock.patch.object(tsg, "_MXU_DENSE_ELEMS", 10), \
+         mock.patch.object(tsg, "_BLOCK_ROUTE_MIN_NNZ", 1):
+        assert tsg._spgemm_route(a, a) == ("block", bsz)
+        c = pt.spgemm(a, a)
+    torch.cuda.synchronize()
+    assert tbs.K7_LAUNCHES - before == launches
+    assert c.data.is_cuda and c.data.dtype == dtype
+    ref = (s @ s).tocsr()
+    ref.sort_indices()
+    np.testing.assert_array_equal(_np(c.indptr), ref.indptr)
+    np.testing.assert_array_equal(_np(c.indices), ref.indices)
+    if dtype == torch.int64:
+        np.testing.assert_array_equal(_np(c.data), ref.data)
+    else:
+        bound = (abs(s) @ abs(s)).tocsr()
+        bound.sort_indices()
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        err = np.abs(_np(c.data).astype(np.float64) - ref.data)
+        assert np.all(err <= tol * bound.data)
