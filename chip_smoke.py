@@ -18,7 +18,16 @@ reference's block SpGEMM fixture (``benchmarks/measure_auto_block.py``: nb
 and its slab kernel K7, then K7 on the prepared plan, a 5-step chain and
 the differentiable apply's forward and backward.  Results are checked
 against SciPy in float64, then the kernels, their plain versions and the
-entry points are timed with CUDA events.
+entry points are timed with CUDA events.  The fourth slice: the segment-tile
+variants (32-row tiles, the rigid layout, the tensor-core lane reduction:
+kernels K1-r32 and K1-mxu) on the 10M-nnz band built through the default
+device and on the three Matrix Market files of ``benchmarks/matrices``
+read onto the card with ``mm_read``, and the dense-band SpMM of
+``benchmarks/measure_dband.py`` (K8) on ``bench.py``'s band, each against
+SciPy, then timed beside its bound on this card (the larger of its bytes
+over 3.35 TB/s and its flops over the peak for its type) and one PyTorch
+library call computing the same function (timed here only; the port never
+calls it).
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -40,7 +49,12 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+#: A bf16 result rounded once from a float32 sum, or a float32 sum of
+#: bf16-rounded inputs held against full float32, may differ by one bf16
+#: ulp (2^-7 relative).  Where both sides take the same bf16 operands and
+#: return the float32 sum (K8's stream), float32's tolerance applies.
+BF16_TOL = 2.0 ** -7 + 1e-5
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: BF16_TOL}
 N_TIMED = 20
 
 
@@ -120,16 +134,88 @@ def pipelined_ms(fn, warmup=3, n=N_TIMED):
     return start.elapsed_time(end) / n
 
 
+def bound_ms(nbytes, ops, dtype=torch.float32):
+    """The least time in ms the card could take for work that must move
+    ``nbytes`` and do ``ops`` operations on inputs of ``dtype``
+    (``utils.stats.kernel_bound_s``: data-sheet peaks); returns (ms, what
+    binds)."""
+    from sparse_tpu_torch.utils.stats import kernel_bound_s
+
+    t, by = kernel_bound_s(nbytes, ops, dtype)
+    return t * 1e3, by
+
+
+def csr_spmv_cost(a):
+    """Bytes (``utils.stats.csr_bound_bytes``) and flops of y = A v that
+    the pattern needs."""
+    from sparse_tpu_torch.utils.stats import csr_bound_bytes
+
+    return csr_bound_bytes(a), 2 * int(a.indptr[-1])
+
+
+def spmm_cost(nbz, bsz, n, k, itemsize=4):
+    """Bytes (``utils.stats.blocked_bound_bytes``, float32 output) and
+    flops of C = A B for A in ``nbz`` stored bsz x bsz blocks."""
+    from sparse_tpu_torch.utils.stats import blocked_bound_bytes
+
+    return (blocked_bound_bytes(nbz, bsz, n, k, value_bytes=itemsize),
+            2 * nbz * bsz * bsz * k)
+
+
+#: label -> torch's reason, for each library call refused on the card.
+LIBRARY_REFUSALS = {}
+
+
+def library_ms(label, fn, card, n=N_TIMED):
+    """Back-to-back time of one PyTorch library call computing a kernel's
+    function (a yardstick only: the port never calls it), or None with the
+    reason printed and kept in ``LIBRARY_REFUSALS`` when torch refuses it
+    on the card."""
+    try:
+        ms = pipelined_ms(fn, warmup=2, n=n)
+    except RuntimeError as e:  # torch's refusal (cuSPARSE, CUDA)
+        LIBRARY_REFUSALS[label] = " ".join(str(e).split())[:160]
+        print(f"   library {label}: refused on the card "
+              f"({LIBRARY_REFUSALS[label]})", flush=True)
+        return None
+    print(f"   library {label}: {ms:.4f} ms back to back [{card}]",
+          flush=True)
+    return ms
+
+
+def torch_csr(a):
+    """The port's CSR as a ``torch.sparse_csr_tensor`` (for the library
+    yardstick)."""
+    nnz = int(a.indptr[-1])
+    return torch.sparse_csr_tensor(a.indptr.long(), a.indices[:nnz].long(),
+                                   a.data[:nnz], size=a.shape)
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, cost,
+                 lib_ms, lib_call, dtype=torch.float32):
+    """One kernel's record for the ``kernels`` line; prints its bound."""
+    b_ms, b_by = bound_ms(*cost, dtype)
+    print(f"   {name}: {ms:.4f} ms back to back, bound {b_ms:.4f} ms "
+          f"({b_by}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.3f} GFLOP), "
+          f"{b_ms / ms:.1%} of it; plain {plain_ms:.4f} ms; library "
+          f"{'refused' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+          f"({lib_call})", flush=True)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "library_call": lib_call}
+
+
 def _report(cell, label, fn, nnz, slot_bytes, card):
     """Median alone and back-to-back per-call times of ``fn``, with the
-    rates they give; returns the median."""
+    rates they give; returns (alone, back to back) ms."""
     ms, ms_b2b = median_ms(fn), pipelined_ms(fn)
     print(f"   {cell} {label:9s}: {ms:.4f} ms alone (median of {N_TIMED}), "
           f"{ms_b2b:.4f} ms back to back; {nnz / ms / 1e6:.3f} / "
           f"{nnz / ms_b2b / 1e6:.3f} Gnnz/s; {slot_bytes / ms / 1e6:.1f} / "
           f"{slot_bytes / ms_b2b / 1e6:.1f} GB/s slot stream [{card}]",
           flush=True)
-    return ms
+    return ms, ms_b2b
 
 
 def phase0_device():
@@ -171,26 +257,34 @@ def _band_triples(n, per_row, half, rng):
     return rows, cols
 
 
+def _spill_band(n, rng):
+    """A band of 24 draws per row within +-1500 columns, every 7th row
+    empty, and row 0 with 16 entries on lane 5 within 2048 columns (one slot
+    spilled 16 deep); N(0, 1) values.  Returns (SciPy CSR, rows, cols,
+    vals)."""
+    import scipy.sparse as sp
+
+    rows, cols = _band_triples(n, 24, 1500, rng)
+    keep = rows % 7 != 3  # every 7th row empty
+    rows, cols = rows[keep], cols[keep]
+    rows = np.concatenate([np.zeros(16, np.int64), rows])
+    cols = np.concatenate([5 + 128 * np.arange(16), cols])
+    vals = rng.standard_normal(rows.size)
+    s = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    return s, rows, cols, vals
+
+
 def phase2_kernels_vs_plain():
     """K1 at wsub 8/16/32 in f32 and f64 (empty rows, lane-conflict spill
     tiles, a padded shuffled raw-array call) and K2, each against its plain
     version on the card, twice for bitwise repeatability; then the README
     fixtures straight through K1."""
-    import scipy.sparse as sp
-
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_csr, cuda_csr_block
 
     rng = np.random.default_rng(0)
     n = 20_000
-    rows, cols = _band_triples(n, 24, 1500, rng)
-    keep = rows % 7 != 3  # every 7th row empty
-    rows, cols = rows[keep], cols[keep]
-    # row 0: 16 entries on lane 5 within 2048 columns -> spill tiles
-    rows = np.concatenate([np.zeros(16, np.int64), rows])
-    cols = np.concatenate([5 + 128 * np.arange(16), cols])
-    vals = rng.standard_normal(rows.size)
-    s = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    s, rows, cols, vals = _spill_band(n, rng)
     v_np = rng.standard_normal(n)
     bound = abs_bound(s, v_np)
     for dtype in (torch.float32, torch.float64):
@@ -279,8 +373,9 @@ def phase2_kernels_vs_plain():
 
 
 def _readme_cases():
-    """README fixture (BASELINE config 1) and the 5x5 golden in f64 on the
-    card: ``(csr, v, want)``."""
+    """README fixture (BASELINE config 1) and the 5x5 golden in f64, built
+    from triples with no ``device=`` (the card is the default device):
+    ``(csr, v, want)``."""
     import sparse_tpu_torch as pt
 
     cases = [
@@ -291,19 +386,22 @@ def _readme_cases():
          [3, 1, 2, 6, 5], [71, 11, 59, 48, 104]),
     ]
     for n, m, triples, vec, want in cases:
-        yield (pt.csr_from_triples(n, m, triples, dtype=torch.float64,
-                                   device="cuda"),
+        yield (pt.csr_from_triples(n, m, triples, dtype=torch.float64),
                torch.tensor(vec, dtype=torch.float64, device="cuda"),
                torch.tensor(want, dtype=torch.float64, device="cuda"))
 
 
 def phase3_readme():
-    """The README fixtures through the main path on the card, with the
-    default ladder and with prefer="segtile" (whose fill gate sends these
-    tiny matrices to the row-binned rung, as in the reference)."""
+    """The README fixtures, built with no ``device=``, through the main path
+    on the card, with the default ladder and with prefer="segtile" (whose
+    fill gate sends these tiny matrices to the row-binned rung, as in the
+    reference)."""
     import sparse_tpu_torch as pt
 
     for a, v, want in _readme_cases():
+        if a.data.device != torch.device("cuda", 0):
+            raise AssertionError(f"README fixture built on {a.data.device}, "
+                                 "not on the default device cuda:0")
         kinds = []
         for prefer in (None, "segtile"):
             plan = pt.smvm_prepare(a, prefer=prefer)
@@ -412,12 +510,14 @@ def phase5_elasticity():
 def _time_in_turns(cell, kname, kernel, plain, apply, nnz, slot_bytes,
                    card):
     """Plain, kernel, kernel, plain (so each pair shows its own spread),
-    then ``apply``; returns the first kernel and first plain medians."""
-    ms_p = _report(cell, "plain", plain, nnz, slot_bytes, card)
-    ms_k = _report(cell, f"{kname} kernel", kernel, nnz, slot_bytes, card)
+    then ``apply`` when given; returns the first kernel and first plain
+    back-to-back times."""
+    _, ms_p = _report(cell, "plain", plain, nnz, slot_bytes, card)
+    _, ms_k = _report(cell, f"{kname} kernel", kernel, nnz, slot_bytes, card)
     _report(cell, f"{kname} kernel", kernel, nnz, slot_bytes, card)
     _report(cell, "plain", plain, nnz, slot_bytes, card)
-    _report(cell, "apply", apply, nnz, slot_bytes, card)
+    if apply is not None:
+        _report(cell, "apply", apply, nnz, slot_bytes, card)
     return ms_k, ms_p
 
 
@@ -452,11 +552,14 @@ def phase6_timing(card, band, ela, launches):
     ms_k, ms_p = _time_in_turns("band", "K1", k1, p1, lambda: plan.apply(v),
                                 band["nnz"], cuda_csr.segtile_hbm_bytes(st),
                                 card)
-    out.append({"name": "K1 segtile_csr", "route": "cuda",
-                "source": "sparse_tpu_torch/csrc/segtile_csr.cu",
-                "replaces": "sparse_tpu/ops/pallas_csr.py:492",
-                "launches": launches["K1"], "max_abs_err": err1,
-                "ms": ms_k, "plain_ms": ms_p})
+    csr_t = torch_csr(a)
+    band["library_ms"] = library_ms("CSR @ v (band)", lambda: csr_t @ v,
+                                    card)
+    out.append(kernel_entry(
+        "K1 segtile_csr", "sparse_tpu_torch/csrc/segtile_csr.cu",
+        "sparse_tpu/ops/pallas_csr.py:492", launches["K1"], err1, ms_k, ms_p,
+        csr_spmv_cost(a), band["library_ms"],
+        "torch.sparse_csr_tensor(...) @ v"))
     # K2 on the elasticity plan
     plan, v = ela["plan"], ela["v"]
     ab, st = plan.state
@@ -479,11 +582,22 @@ def phase6_timing(card, band, ela, launches):
     ms_k, ms_p = _time_in_turns(
         "elasticity", "K2", k2, p2, lambda: plan.apply(v), ela["nnz"],
         cuda_csr_block.block_segtile_hbm_bytes(st), card)
-    out.append({"name": "K2 segtile_block", "route": "cuda",
-                "source": "sparse_tpu_torch/csrc/segtile_block.cu",
-                "replaces": "sparse_tpu/ops/pallas_csr_block.py:229",
-                "launches": launches["K2"], "max_abs_err": err2,
-                "ms": ms_k, "plain_ms": ms_p})
+    import sparse_tpu_torch as pt
+
+    csr_b = torch_csr(pt.bsr_to_csr(ab))
+    lib2 = library_ms("CSR @ v (elasticity)", lambda: csr_b @ vp, card)
+    # the 2x2 blocks once (values and block column), block row pointers,
+    # the operand and the output
+    from sparse_tpu_torch.utils.stats import blocked_bound_bytes
+
+    nb = ab.nb
+    nbz = int((ab.indices.long() < nb * nb).sum())
+    cost2 = (blocked_bound_bytes(nbz, 2, ab.n, row_pointers=True),
+             2 * 4 * nbz)
+    out.append(kernel_entry(
+        "K2 segtile_block", "sparse_tpu_torch/csrc/segtile_block.cu",
+        "sparse_tpu/ops/pallas_csr_block.py:229", launches["K2"], err2, ms_k,
+        ms_p, cost2, lib2, "torch.sparse_csr_tensor(...) @ v"))
     return out
 
 
@@ -708,16 +822,16 @@ class _ScipyRows:
         rows = (self.sub[:, None] * bsz + np.arange(bsz)).reshape(-1)
         self.rows = torch.from_numpy(rows).cuda()
 
-    def check(self, label, c, b):
-        """C's rows of the subset against SciPy's A @ B, B = ``b`` (n, k);
-        returns the max abs error."""
+    def check(self, label, c, b, tol_dtype=torch.float32):
+        """C's rows of the subset against SciPy's A @ B, B = ``b`` (n, k),
+        within TOL[tol_dtype] * |A||B|; returns the max abs error."""
         bh = b.double().cpu().numpy()
         ref = torch.from_numpy(self.s @ bh).cuda()
         bound = torch.from_numpy(self.abs @ np.abs(bh)).cuda()
         if c.shape != b.shape or not torch.isfinite(c).all():
             raise AssertionError(f"{label}: shape {tuple(c.shape)} or "
                                  "non-finite values")
-        return check_close(label, c[self.rows], ref, bound, torch.float32)
+        return check_close(label, c[self.rows], ref, bound, tol_dtype)
 
 
 def phase8_spmm_main_path():
@@ -804,7 +918,33 @@ def phase8_spmm_main_path():
           flush=True)
     return dict(a=a, b=b, b32=b32, kit=kit, kit_t=kit_t,
                 nnz=int(slot_valid.sum()) * a.bsz * a.bsz, k=K,
-                chain=K_CHAIN, counts=counts)
+                chain=K_CHAIN, counts=counts, oracle=oracle,
+                cols_np=cols_np, slot_valid=slot_valid)
+
+
+def torch_bsr(m):
+    """The bench BELL's stored blocks as a ``torch.sparse_bsr_tensor`` (for
+    the library yardstick)."""
+    a, valid = m["a"], m["slot_valid"]
+    crow = np.zeros(a.nb + 1, np.int64)
+    np.cumsum(valid.sum(1), out=crow[1:])
+    keep = torch.from_numpy(valid).cuda()
+    return torch.sparse_bsr_tensor(
+        torch.from_numpy(crow).cuda(),
+        torch.from_numpy(m["cols_np"][valid].astype(np.int64)).cuda(),
+        a.blocks[keep].contiguous(), size=(a.n, a.n))
+
+
+def library_spmm(m, b, card, label):
+    """``A @ B`` by torch's BSR product on the bench band, or, where torch
+    refuses BSR on the card, by its CSR product; returns (ms, the call)."""
+    bsr = m.setdefault("bsr", torch_bsr(m))
+    ms = library_ms(f"BSR @ B ({label})", lambda: bsr @ b, card)
+    if ms is not None:
+        return ms, "torch.sparse_bsr_tensor(...) @ B"
+    csr = m.setdefault("csr", bsr.to_sparse_csr())
+    ms = library_ms(f"CSR @ B ({label})", lambda: csr @ b, card)
+    return ms, "torch.sparse_csr_tensor(...) @ B (BSR refused on the card)"
 
 
 def _report_spmm(label, fn, flops, nbytes, card):
@@ -857,20 +997,24 @@ def phase9_bell_timing(card, m):
          fused_bytes),
     )
     out = []
+    nbz = int(m["slot_valid"].sum())
     for name, replaces, src, kern, plain, bnd, flops, nbytes in cases:
         kname = name.split()[0]
         err, _ = _twice_vs_plain(f"{kname} at the bench shape", kern, plain,
                                  bnd, torch.float32)
         print(f"   {kname} at the bench shape: max|kernel-plain| {err:.3e} "
               f"over all rows; bitwise repeatable", flush=True)
-        ms_p, _ = _report_spmm(f"{kname} plain", plain, flops, nbytes, card)
-        ms_k, _ = _report_spmm(f"{kname} kernel", kern, flops, nbytes, card)
+        _, ms_p = _report_spmm(f"{kname} plain", plain, flops, nbytes, card)
+        _, ms_k = _report_spmm(f"{kname} kernel", kern, flops, nbytes, card)
         _report_spmm(f"{kname} kernel", kern, flops, nbytes, card)
         _report_spmm(f"{kname} plain", plain, flops, nbytes, card)
-        out.append({"name": name, "route": "cuda",
-                    "source": f"sparse_tpu_torch/csrc/{src}",
-                    "replaces": replaces, "launches": m["counts"][kname],
-                    "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p})
+        kk = 32 if kname == "K5" else k
+        lib, call = library_spmm(m, b32 if kname == "K5" else b, card,
+                                 f"k {kk}")
+        out.append(kernel_entry(
+            name, f"sparse_tpu_torch/csrc/{src}", replaces,
+            m["counts"][kname], err, ms_k, ms_p,
+            spmm_cost(nbz, bsz, a.n, kk), lib, call))
     banded_bytes = cb.banded_spmm_hbm_bytes(kit, bsz, a.n, k)
     _report_spmm("bell_spmm(plan=kit)", lambda: pt.bell_spmm(a, b, plan=kit),
                  2 * nnz * k, banded_bytes, card)
@@ -887,12 +1031,6 @@ def phase9_bell_timing(card, m):
 
 
 # -- SpGEMM: the block-SpGEMM slab kernel K7 ---------------------------------
-
-#: bf16 results are rounded once from float32 sums in both the kernel and
-#: its plain version; the two float32 sums differ by ~1e-6 relative, so the
-#: roundings may differ by one bf16 ulp (2^-7 relative).
-BF16_TOL = 2.0 ** -7 + 1e-5
-
 
 def _slab_tol(dtype):
     return BF16_TOL if dtype == torch.bfloat16 else TOL[dtype]
@@ -1221,8 +1359,8 @@ def phase12_slab_timing(card, m, launches):
     def plain():
         return cuda_bsr.run_slabs_arrays_plain(*args, **kw)
 
-    ms_p, _ = _report_spmm("K7 plain", plain, flops, nbytes, card)
-    ms_k, _ = _report_spmm("K7 kernel", kern, flops, nbytes, card)
+    _, ms_p = _report_spmm("K7 plain", plain, flops, nbytes, card)
+    _, ms_k = _report_spmm("K7 kernel", kern, flops, nbytes, card)
     _report_spmm("K7 kernel", kern, flops, nbytes, card)
     _report_spmm("K7 plain", plain, flops, nbytes, card)
     _report_spmm("bsr_smsmm_apply_slab", lambda: pt.bsr_smsmm_apply_slab(
@@ -1248,11 +1386,338 @@ def phase12_slab_timing(card, m, launches):
     print(f"   spgemm(a, a) one-shot {m['t_spgemm']:.2f} s (host clock: "
           f"re-block, host prepare, K7, back to scalar CSR) [{card}]",
           flush=True)
-    return {"name": "K7 bsr_slab", "route": "cuda",
-            "source": "sparse_tpu_torch/csrc/bsr_slab.cu",
-            "replaces": "sparse_tpu/ops/pallas_bsr.py:467",
-            "launches": launches, "max_abs_err": err, "ms": ms_k,
-            "plain_ms": ms_p}
+    csr = torch_csr(a)
+    lib = library_ms("A_csr @ A_csr", lambda: csr @ csr, card, n=5)
+    call = "torch.sparse_csr_tensor(...) @ (same)"
+    if lib is None:
+        call += f" refused on the card: {LIBRARY_REFUSALS['A_csr @ A_csr']}"
+    # C = A A: A's blocks once (z1 and z2 are one buffer), the output
+    # blocks once; 2 F bsz^3 flops
+    cost = ((ab.nbz + plan.nbz_out) * bsz * bsz * 4, flops)
+    return kernel_entry("K7 bsr_slab", "sparse_tpu_torch/csrc/bsr_slab.cu",
+                        "sparse_tpu/ops/pallas_bsr.py:467", launches, err,
+                        ms_k, ms_p, cost, lib, call)
+
+
+# -- slice 4: the K1 variants, K8, Matrix Market input, roofline -----------
+
+_VARIANTS = ((8, "ff"), (8, "rigid"), (32, "ff"), (32, "rigid"))
+
+
+def phase13_variants_vs_plain():
+    """K1 at rows 8/32 x reduce vpu/mxu x float32/float64 x wsub 8/16/32 on
+    first-fit and rigid plans (empty rows, one slot spilled 16 deep), and
+    K8 in float32 and the bf16 stream at odd shapes (nb % rt != 0, an empty
+    block row), each against its plain version on the card, twice for
+    bitwise repeatability."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_bell as cb
+    from sparse_tpu_torch.ops import cuda_csr, cuda_dband
+
+    rng = np.random.default_rng(13)
+    n = 20_000
+    s, rows, cols, vals = _spill_band(n, rng)
+    v_np = rng.standard_normal(n)
+    bound = abs_bound(s, v_np)
+    for dtype in (torch.float32, torch.float64):
+        a = pt.csr_from_coo(pt.coo_make(
+            (n, n), rows, cols, torch.from_numpy(vals).to(dtype).cuda()))
+        v = torch.from_numpy(v_np).to(dtype).cuda()
+        for r, layout in _VARIANTS:
+            for wsub in (8, 16, 32):
+                plan = pt.build_seg_tiles(a, wsub=wsub, rows=r, layout=layout)
+                raw = dict(n=n, wsub=wsub, rows=r, kstep=plan.kstep,
+                           chunks=plan.chunks)
+                arrs = (plan.vals, plan.q, plan.seg_of, plan.rb)
+                errs = []
+                for reduce in ("vpu", "mxu"):
+                    label = (f"K1 rows={r} {layout} wsub={wsub} {reduce} "
+                             f"{str(dtype)[6:]}")
+                    err, y = _twice_vs_plain(
+                        label,
+                        lambda: cuda_csr.segtile_apply(
+                            *arrs, v, reduce=reduce, **raw)[:n],
+                        lambda: cuda_csr.segtile_apply_plain(
+                            *arrs, v, reduce=reduce, **raw)[:n],
+                        bound, dtype)
+                    if not torch.all(y[3::7] == 0):
+                        raise AssertionError(f"{label}: an empty row is not "
+                                             "exactly 0")
+                    errs.append(err)
+                print(f"   K1 rows={r:2d} {layout:5s} wsub={wsub:2d} "
+                      f"{str(dtype)[6:]:7s} tiles {plan.n_tiles:6d} fill "
+                      f"{plan.fill:.4f}: max|kernel-plain| vpu {errs[0]:.3e}"
+                      f", mxu {errs[1]:.3e}; bitwise repeatable", flush=True)
+    # K8: (nb, bsz, rt, k, stream)
+    for nb, bsz, rt, k, stream in ((301, 8, 4, 40, torch.float32),
+                                   (301, 8, 4, 40, torch.bfloat16),
+                                   (53, 16, 5, 7, torch.float32)):
+        cols_b, valid = _band_pattern(nb, 2, empty=(nb // 2,))
+        a = _bell(cols_b, valid, bsz, torch.float32, seed=nb + k)
+        plan = cb.build_banded_plan(a, row_tile=rt, max_window=96,
+                                    slot_valid=valid)
+        tiles = cuda_dband.densify_tiles(a, plan, stream)
+        b = torch.from_numpy(rng.standard_normal((a.n, k))).float().cuda()
+        b3 = torch.cat([b.reshape(nb, bsz, k), b.new_zeros(plan.W, bsz, k)])
+        args = (tiles, plan.start, b3, nb, bsz, k, plan.W, rt, torch.float32)
+        label = (f"K8 nb={nb} bsz={bsz} rt={rt} W={plan.W} k={k} "
+                 f"stream={str(stream)[6:]}")
+        # both sides take the same operands rounded to the stream and sum
+        # in float32: float32's tolerance on the rounded inputs' |A||B|
+        err, _ = _twice_vs_plain(label, lambda: cuda_dband.dband_spmm(*args),
+                                 lambda: cuda_dband.dband_spmm_plain(*args),
+                                 _abs_bound(a, b, stream), torch.float32)
+        print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise repeatable",
+              flush=True)
+
+
+def _band_csr_default_device():
+    """band-10M (phase 4's draws) built from host arrays with no
+    ``device=``: (CSR, v, SciPy CSR)."""
+    import scipy.sparse as sp
+
+    import sparse_tpu_torch as pt
+
+    rng = np.random.default_rng(4)
+    n = 500_000
+    rows, cols = _band_triples(n, 20, 1000, rng)
+    vals = (rng.standard_normal(rows.size) * 0.01).astype(np.float32)
+    v_np = rng.standard_normal(n).astype(np.float32)
+    a = pt.csr_from_coo(pt.coo_make((n, n), rows, cols, vals))
+    if a.data.device != torch.device("cuda", 0):
+        raise AssertionError(f"band built on {a.data.device}, not cuda:0")
+    s = sp.coo_matrix((vals.astype(np.float64), (rows, cols)),
+                      shape=(n, n)).tocsr()
+    return a, torch.from_numpy(v_np).cuda(), s, v_np
+
+
+def phase14_slice(wsub0, m):
+    """The slice at full width through the entry points: band-10M on the
+    default device, plans at (rows, layout) in {8, 32} x {ff, rigid} at the
+    wsub smvm_prepare picked (the next wider one if a plan overflows int32
+    slot positions), each through ``csr_smvm_segtile`` with reduce vpu and
+    mxu against SciPy; ``dband_spmm`` on bench.py's band with
+    ``build_banded_plan(a, row_tile=5, max_window=96)`` (measure_dband.py's
+    call) in float32 and the bf16 stream against K4's ``bell_spmm(plan=kit)``
+    and SciPy; ``mm_read`` of the three Matrix Market files onto the card,
+    ``smvm_prepare(...).apply(v)`` and the variant plans against SciPy."""
+    import scipy.io
+    import scipy.sparse as sp
+
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_dband
+
+    t0 = time.perf_counter()
+    a, v, s, v_np = _band_csr_default_device()
+    torch.cuda.synchronize()
+    print(f"   band-10M built on {a.data.device} from host arrays in "
+          f"{time.perf_counter() - t0:.2f} s; smvm_prepare's wsub {wsub0}",
+          flush=True)
+    ref = torch.from_numpy(s @ v_np.astype(np.float64)).cuda()
+    bound = abs_bound(s, v_np)
+    plans = {}
+    for r, layout in _VARIANTS:
+        wsub = wsub0
+        t0 = time.perf_counter()
+        while True:
+            try:
+                plan = pt.build_seg_tiles(a, wsub=wsub, rows=r, layout=layout)
+                break
+            except ValueError as e:
+                wider = {8: 16, 16: 32}.get(wsub)
+                print(f"   rows={r} {layout} wsub={wsub}: {e}; next wider "
+                      f"wsub {wider}", flush=True)
+                if wider is None:
+                    raise
+                wsub = wider
+        t_plan = time.perf_counter() - t0
+        errs = []
+        for reduce in ("vpu", "mxu"):
+            y = pt.csr_smvm_segtile(a, v, plan, reduce=reduce)
+            torch.cuda.synchronize()
+            errs.append(check_close(f"band rows={r} {layout} {reduce} vs "
+                                    "scipy", y, ref, bound, torch.float32))
+        plans[(r, layout)] = plan
+        print(f"   band rows={r:2d} {layout:5s} wsub={plan.wsub:2d}: tiles "
+              f"{plan.n_tiles} fill {plan.fill:.4f} (plan {t_plan:.2f} s "
+              f"host); max|y-scipy| vpu {errs[0]:.3e}, mxu {errs[1]:.3e}",
+              flush=True)
+    # K8 on bench.py's band, measure_dband.py's flow
+    ab, b, kit, oracle = m["a"], m["b"], m["kit"], m["oracle"]
+    nb, bsz, k = ab.nb, ab.bsz, b.shape[1]
+    t0 = time.perf_counter()
+    dplan = pt.build_banded_plan(ab, row_tile=5, max_window=96)
+    c4 = pt.bell_spmm(ab, b, plan=kit)
+    dband = dict(plan=dplan, b=b, nb=nb, bsz=bsz, k=k)
+    for stream in (torch.float32, torch.bfloat16):
+        tiles = cuda_dband.densify_tiles(ab, dplan, stream)
+        b3 = torch.cat([b.reshape(nb, bsz, k),
+                        b.new_zeros(dplan.W, bsz, k)]).to(stream)
+        c8 = cuda_dband.dband_spmm(tiles, dplan.start, b3, nb, bsz, k,
+                                   dplan.W, 5, torch.float32)
+        torch.cuda.synchronize()
+        name = str(stream)[6:]
+        e4 = check_close(f"K8 {name} vs K4", c8, c4,
+                         _abs_bound(ab, b, stream), stream)
+        es = oracle.check(f"K8 {name} vs scipy", c8, b, stream)
+        dband[stream] = (tiles, b3)
+        print(f"   dband_spmm {name}: W={dplan.W} rt=5 tiles "
+              f"{tuple(tiles.shape)} -> {tuple(c8.shape)}; max|C8-C4| "
+              f"{e4:.3e}, max|C8-scipy| {es:.3e} on {oracle.rows.numel()} "
+              f"rows", flush=True)
+    print(f"   K8 plan + densify + runs {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    # Matrix Market files onto the card
+    rng = np.random.default_rng(14)
+    for path in sorted((ROOT / "benchmarks" / "matrices").glob("*.mtx")):
+        t0 = time.perf_counter()
+        am = pt.mm_read(path)
+        if not (am.data.is_cuda and am.indptr.is_cuda):
+            raise AssertionError(f"mm_read({path.name}) is not on the card")
+        t_read = time.perf_counter() - t0
+        sm = sp.csr_matrix(scipy.io.mmread(path))
+        vm_np = rng.standard_normal(am.shape[1])
+        vm = torch.from_numpy(vm_np).cuda()
+        want = torch.from_numpy(sm @ vm_np).cuda()
+        bnd = abs_bound(sm, vm_np)
+        prep = pt.smvm_prepare(am)
+        errs = [check_close(f"{path.stem} apply", prep.apply(vm), want, bnd,
+                            torch.float64)]
+        for r, layout in _VARIANTS:
+            plan = pt.build_seg_tiles(am, wsub="auto", rows=r, layout=layout)
+            for reduce in ("vpu", "mxu"):
+                errs.append(check_close(
+                    f"{path.stem} rows={r} {layout} {reduce}",
+                    pt.csr_smvm_segtile(am, vm, plan, reduce=reduce), want,
+                    bnd, torch.float64))
+        print(f"   {path.name}: {am.shape[0]}x{am.shape[1]} nnz "
+              f"{int(am.indptr[-1])} float64 read in {t_read:.2f} s; rung "
+              f"{prep.kind}; apply and 8 variant runs max|y-scipy| "
+              f"{max(errs):.3e}", flush=True)
+    return dict(a=a, v=v, s=s, plans=plans, dband=dband, kit=kit)
+
+
+def phase15_timing(card, sl, m, band_lib, launches):
+    """Every band-10M variant plan x reduce and K8 (float32, bf16 stream)
+    against their plain versions in turns (plain, kernel, kernel, plain),
+    alone and back to back, with nnz_roofline at csr_min_bytes and the
+    plan's bytes, and the entry point's dependency-chained time
+    (``timed_op``); a 1 GiB device copy as the card's streaming rate."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_csr, cuda_dband
+    from sparse_tpu_torch.utils.profiling import timed_op
+    from sparse_tpu_torch.utils.stats import (HBM_CEILING_GBPS,
+                                              csr_min_bytes, nnz_roofline)
+
+    a, v = sl["a"], sl["v"]
+    n = a.shape[0]
+    nnz = int(a.indptr[-1])
+    min_bytes = csr_min_bytes(a)
+    cost = csr_spmv_cost(a)
+    print(f"   band-10M kernel bound: csr_bound_bytes {cost[0]} B = "
+          f"csr_min_bytes {min_bytes} B + {cost[0] - min_bytes} B of CSR "
+          f"indices; {bound_ms(*cost)[0]:.4f} ms", flush=True)
+    ref = None
+    out = []
+    for (r, layout), plan in sl["plans"].items():
+        raw = dict(n=n, wsub=plan.wsub, rows=r, kstep=plan.kstep,
+                   chunks=plan.chunks)
+        arrs = (plan.vals, plan.q, plan.seg_of, plan.rb)
+        for reduce in ("vpu", "mxu"):
+            def kern():
+                return cuda_csr.segtile_apply(*arrs, v, reduce=reduce, **raw)
+
+            def plain():
+                return cuda_csr.segtile_apply_plain(*arrs, v, reduce=reduce,
+                                                    **raw)
+
+            cell = f"band r{r} {layout} {reduce}"
+            y, yp = kern()[:n], plain()[:n]
+            if ref is None:
+                ref = abs_bound(sl["s"], v.double().cpu().numpy())
+            err = check_close(cell, y, yp, ref, torch.float32)
+            ms_k, ms_p = _time_in_turns(cell, "K1", kern, plain, None, nnz,
+                                        cuda_csr.segtile_hbm_bytes(plan),
+                                        card)
+            rl = nnz_roofline(nnz, min_bytes=min_bytes,
+                              plan_bytes=cuda_csr.segtile_hbm_bytes(plan),
+                              seconds=ms_k / 1e3)
+            print(f"   {cell}: nnz_roofline at {HBM_CEILING_GBPS:.0f} GB/s: "
+                  + ", ".join(f"{key} {val:.4g}" for key, val in rl.items()),
+                  flush=True)
+            chained = timed_op(
+                lambda w, plan=plan, reduce=reduce: pt.csr_smvm_segtile(
+                    a, w, plan, reduce=reduce), v)
+            print(f"   {cell}: csr_smvm_segtile chained (timed_op, 10 "
+                  f"dependent applies, each rescaled): {chained * 1e3:.4f} "
+                  f"ms per apply [{card}]", flush=True)
+            if (r, layout, reduce) == (32, "ff", "vpu"):
+                out.append(kernel_entry(
+                    "K1-r32 segtile_csr rows=32",
+                    "sparse_tpu_torch/csrc/segtile_csr.cu",
+                    "sparse_tpu/ops/pallas_csr.py:531", launches["K1-r32"],
+                    err, ms_k, ms_p, cost, band_lib,
+                    "torch.sparse_csr_tensor(...) @ v"))
+            if (r, layout, reduce) == (8, "ff", "mxu"):
+                out.append(kernel_entry(
+                    "K1-mxu segtile_mxu",
+                    "sparse_tpu_torch/csrc/segtile_mxu.cu",
+                    "sparse_tpu/ops/pallas_csr.py:565", launches["K1-mxu"],
+                    err, ms_k, ms_p, cost, band_lib,
+                    "torch.sparse_csr_tensor(...) @ v"))
+    d = sl["dband"]
+    plan, nb, bsz, k = d["plan"], d["nb"], d["bsz"], d["k"]
+    nbz = int(m["slot_valid"].sum())
+    for stream in (torch.float32, torch.bfloat16):
+        tiles, b3 = d[stream]
+        args = (tiles, plan.start, b3, nb, bsz, k, plan.W, 5, torch.float32)
+
+        def kern():
+            return cuda_dband.dband_spmm(*args)
+
+        def plain():
+            return cuda_dband.dband_spmm_plain(*args)
+
+        name = str(stream)[6:]
+        err, _ = _twice_vs_plain(f"K8 {name} at the bench shape", kern,
+                                 plain, _abs_bound(m["a"], d["b"], stream),
+                                 torch.float32)
+        isz = 2 if stream == torch.bfloat16 else 4
+        c = spmm_cost(nbz, bsz, nb * bsz, k, isz)
+        # the work the densified tiles issue: every tile's full product
+        issued = 2 * tiles.shape[0] * tiles.shape[1] * tiles.shape[2] * k
+        _, ms_p = _report_spmm(f"K8 {name} plain", plain, c[1], c[0], card)
+        _, ms_k = _report_spmm(f"K8 {name} kernel", kern, c[1], c[0], card)
+        _report_spmm(f"K8 {name} kernel", kern, c[1], c[0], card)
+        _report_spmm(f"K8 {name} plain", plain, c[1], c[0], card)
+        print(f"   K8 {name}: {issued / 1e9:.2f} GFLOP issued for "
+              f"{c[1] / 1e9:.2f} useful ({issued / ms_k / 1e9:.2f} issued "
+              f"TFLOP/s)", flush=True)
+        if stream == torch.float32:
+            lib, call = library_spmm(m, d["b"], card, "k 128, K8")
+            out.append(kernel_entry(
+                "K8 dband_spmm", "sparse_tpu_torch/csrc/bell_banded.cu",
+                "benchmarks/measure_dband.py:57", launches["K8"], err, ms_k,
+                ms_p, c, lib, call))
+        else:
+            b_ms, b_by = bound_ms(*c, stream)
+            print(f"   K8 bf16 stream: {ms_k:.4f} ms back to back, bound "
+                  f"{b_ms:.4f} ms ({b_by}) [{card}]", flush=True)
+    # the card's streaming rate: 20 chained copies of 1 GiB
+    x = torch.empty(1 << 28, device="cuda").normal_()
+    y = torch.empty_like(x)
+
+    def copies():
+        for i in range(20):
+            (y if i % 2 == 0 else x).copy_(x if i % 2 == 0 else y)
+
+    ms = median_ms(copies, warmup=1, n=5)
+    rate = 20 * 2 * x.numel() * 4 / (ms / 1e3) / 1e12
+    print(f"   device copy, 20 x 1 GiB chained: {ms:.3f} ms = {rate:.3f} "
+          f"TB/s read + write, against 3.35 TB/s on the data sheet "
+          f"[{card}]", flush=True)
+    del x, y
+    return out
 
 
 def main():
@@ -1312,6 +1777,28 @@ def main():
         raise AssertionError("K7 was not launched by the main path")
     with Phase("phase 12: K7 vs plain at the fixture, timing", 240):
         kernels.append(phase12_slab_timing(card, spgemm_run, k7))
+    del spgemm_run
+    with Phase("phase 13: K1 variants and K8 vs plain versions", 180):
+        phase13_variants_vs_plain()
+    from sparse_tpu_torch.ops import cuda_dband
+
+    # the slice's own run: the variant and K8 launch counts start at 0 here
+    cuda_csr.K1_R32_LAUNCHES = 0
+    cuda_csr.K1_MXU_LAUNCHES = 0
+    cuda_dband.K8_LAUNCHES = 0
+    with Phase("phase 14: the variants, K8 and mm_read at full width", 420):
+        slice_run = phase14_slice(band["plan"].state[1].wsub, spmm_run)
+    slice_launches = {"K1-r32": cuda_csr.K1_R32_LAUNCHES,
+                      "K1-mxu": cuda_csr.K1_MXU_LAUNCHES,
+                      "K8": cuda_dband.K8_LAUNCHES}
+    print(f"   slice-4 main-path launches: {slice_launches}", flush=True)
+    for k, count in slice_launches.items():
+        if count <= 0:
+            raise AssertionError(f"{k} was not launched by the main path")
+    with Phase("phase 15: variants and K8 vs plain at full width, timing",
+               300):
+        kernels += phase15_timing(card, slice_run, spmm_run,
+                                  band["library_ms"], slice_launches)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,16 @@ K2 (2x2 block-granule segment tiles, ``ops/cuda_csr_block.py``) and K3-K6
 ``spgemm`` (ESC, dense-accumulator and block cores), ``spgemm_prepare`` /
 ``spgemm_apply``, ``CSR @ CSC``, and block SpGEMM on BSR (``bsr_smsmm``,
 ``bsr_smsmm_prepare`` / ``bsr_smsmm_apply``, ``BSR @``), whose slab apply
-is K7 (``ops/cuda_bsr.py``).  On CPU tensors every kernel wrapper runs its
-plain PyTorch version instead.
+is K7 (``ops/cuda_bsr.py``).  The fourth slice ports the reference's last
+Pallas kernels and what measures them: ``build_seg_tiles`` at ``rows=32``
+and ``layout="rigid"`` with ``csr_smvm_segtile(..., reduce="mxu")`` (K1-r32
+and K1-mxu), the dense-band SpMM of ``benchmarks/measure_dband.py`` (K8,
+``ops/cuda_dband.py``), Matrix Market input (``io/``) and the roofline
+model on the H100's own figures (``utils/stats.py``, ``utils/profiling.py``).
+On CPU tensors every kernel wrapper runs its plain PyTorch version instead.
+
+Constructors that take host data (lists, NumPy arrays, files) build on the
+card unless asked otherwise: ``device="cpu"``, or CPU tensors, for the CPU.
 
 Imports torch, numpy and ctypes only — never jax or ``sparse_tpu``.
 """
@@ -76,6 +84,7 @@ from .formats.csr import (
     csr_todense,
     csr_transpose,
 )
+from .io import mm_read, mm_read_coo, mm_write
 from .ops.bsr_ell import bsr_row_capacity, bsr_smvm_ell, bsr_spmm_ell
 from .ops.cuda_bell import (
     BandedKit,
@@ -162,4 +171,5 @@ __all__ = [
     "bsr_row_capacity", "bsr_smvm_ell", "bsr_spmm_ell",
     "BandedPlan", "BandedKit", "BandedKitT", "build_banded_plan",
     "bell_banded_prepare", "bell_banded_prepare_t", "bell_banded_refresh",
+    "mm_read", "mm_read_coo", "mm_write",
 ]

@@ -34,8 +34,8 @@ _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 
 #: Linked into one library (the ``.cuh`` headers are included).
-SOURCES = ("segtile_csr.cu", "segtile_block.cu", "bell_spmm.cu",
-           "bell_banded.cu", "bsr_slab.cu")
+SOURCES = ("segtile_csr.cu", "segtile_mxu.cu", "segtile_block.cu",
+           "bell_spmm.cu", "bell_banded.cu", "bsr_slab.cu")
 _HEADERS = ("segtile_common.cuh", "bell_common.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,9 +48,16 @@ _I = ctypes.c_int
 # name -> argtypes.  Pointer arguments are c_void_p (a Python int from
 # Tensor.data_ptr()); the last argument is the cudaStream_t.
 _SIGNATURES = {
-    # vals, q, seg_of, order, tile_ptr, v, partial, y, n_tiles, m, nbR, stream
-    "segtile_csr_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P),
-    "segtile_csr_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P),
+    # vals, q, seg_of, order, tile_ptr, v, partial, y, n_tiles, m, nbR,
+    # rows, stream
+    "segtile_csr_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
+                        _P),
+    "segtile_csr_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
+                        _P),
+    "segtile_mxu_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
+                        _P),
+    "segtile_mxu_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
+                        _P),
     # vals, q, seg_of, order, tile_ptr, v, partial, y, n_tiles, nb, nbRb,
     # stream
     "segtile_block_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P),

@@ -11,10 +11,10 @@
 
 namespace {
 
-constexpr int kRows = 8;     // rows per tile (the plan's `rows`)
+constexpr int kRows = 8;     // rows of one warp-row group of a tile
 constexpr int kLanes = 128;  // slots per tile row
 constexpr int kWarp = 32;
-constexpr int kTileThreads = kRows * kWarp;  // one warp per tile row
+constexpr int kTileThreads = kRows * kWarp;  // one warp per row of a group
 
 // Four consecutive slot values.  The slot stream is read exactly once per
 // SpMV, so it is loaded evict-first (__ldcs) to leave the L2 to the
@@ -57,7 +57,8 @@ __device__ __forceinline__ T warp_sum(T x) {
 // tiles of row block rb in the stable order `order[tile_ptr[rb] ..
 // tile_ptr[rb+1])`, of partial[(tile * kRows + r) * C + i].  One thread per
 // output element, no atomics: the same order on every run, whatever order
-// the plan's tiles come in (padding tiles included).
+// the plan's tiles come in (padding tiles included).  A 32-row tile's
+// partials are C = 4: (rb * 8 + r) * 4 + i = rb * 32 + row.
 template <typename T, int C>
 __global__ void segtile_rowblock_sum(const T* __restrict__ partial,
                                      const int* __restrict__ order,

@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..ops.segmented import INDEX_DTYPE, expand, segment_sum
 from ..utils.precision import full_precision
 from .coo import COO, coo_normalize
@@ -156,8 +157,10 @@ def _merge_blocks(n: int, bsz: int, idxs: torch.Tensor,
 def bsr_zero(n: int, bsz: int, nbz: int = 0, dtype=torch.float32, *,
              device=None) -> BSR:
     """Zero matrix with optional pre-allocated block capacity (reference
-    ``zero``, blocked_square_regular.fut:189-193)."""
+    ``zero``, blocked_square_regular.fut:189-193), on ``device`` (default
+    CUDA)."""
     _check_divides(n, bsz)
+    device = resolve_device(device)
     nb = n // bsz
     return BSR(indices=torch.full((nbz,), nb * nb, dtype=_bidx_dtype(nb),
                                   device=device),

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..ops.segmented import INDEX_DTYPE, segment_sum
 
 __all__ = [
@@ -33,15 +34,6 @@ def _np_dtype(dtype):
     if dtype is None or not isinstance(dtype, torch.dtype):
         return dtype
     return torch.empty(0, dtype=dtype).numpy().dtype
-
-
-def _resolve_device(device, *xs):
-    if device is not None:
-        return torch.device(device)
-    for x in xs:
-        if isinstance(x, torch.Tensor):
-            return x.device
-    return torch.device("cpu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,8 +67,8 @@ class COO:
 
 def coo_make(shape, row, col, data, *, device=None) -> COO:
     """Build a COO from index/value arrays (all valid entries, no padding)
-    on ``device`` (default: the device of a tensor argument, else CPU)."""
-    dev = _resolve_device(device, data, row, col)
+    on ``device`` (default: the device of a tensor argument, else CUDA)."""
+    dev = resolve_device(device, data, row, col)
     return COO(
         row=torch.as_tensor(row, device=dev).to(INDEX_DTYPE),
         col=torch.as_tensor(col, device=dev).to(INDEX_DTYPE),
@@ -103,7 +95,7 @@ def coo_from_triples(n: int, m: int, triples, dtype=None, *,
     ):
         raise ValueError(f"coordinate out of bounds for {n}x{m} matrix")
     return coo_make((n, m), torch.from_numpy(rows), torch.from_numpy(cols),
-                    torch.from_numpy(vals), device=device or "cpu")
+                    torch.from_numpy(vals), device=resolve_device(device))
 
 
 def coo_sort(a: COO) -> COO:
@@ -155,8 +147,9 @@ def coo_todense(a: COO) -> torch.Tensor:
 
 def coo_from_dense(x, nse: int | None = None, *, device=None) -> COO:
     """Stored entries of a dense matrix, row-major; ``nse`` fixes the
-    capacity (default: the nonzero count)."""
-    x = torch.as_tensor(x, device=device)
+    capacity (default: the nonzero count).  Builds on ``device``, else on
+    ``x``'s device when it is a tensor, else on CUDA."""
+    x = torch.as_tensor(x, device=resolve_device(device, x))
     n, m = x.shape
     flat = x.reshape(-1)
     nz = flat != 0

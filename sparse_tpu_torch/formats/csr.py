@@ -25,6 +25,7 @@ import dataclasses
 
 import torch
 
+from .._device import resolve_device
 from ..ops.segmented import INDEX_DTYPE, row_ids_from_indptr, segment_sum
 from .coo import (
     COO,
@@ -167,7 +168,8 @@ def _csc_as_csr_t(a: CSC) -> CSR:
 def csr_empty(n: int, m: int, nse: int = 0, dtype=torch.float32, *,
               device=None) -> CSR:
     """The zero matrix (reference ``zero``, compressed.fut:98-103), with an
-    optional pre-allocated capacity."""
+    optional pre-allocated capacity, on ``device`` (default CUDA)."""
+    device = resolve_device(device)
     return CSR(data=torch.zeros(nse, dtype=dtype, device=device),
                indices=torch.zeros(nse, dtype=INDEX_DTYPE, device=device),
                indptr=torch.zeros(n + 1, dtype=INDEX_DTYPE, device=device),
@@ -267,7 +269,7 @@ def csc_from_triples(n: int, m: int, triples, dtype=None, *,
 
 
 def csc_from_dense(x, nse: int | None = None, *, device=None) -> CSC:
-    x = torch.as_tensor(x, device=device)
+    x = torch.as_tensor(x, device=resolve_device(device, x))
     return csr_transpose(csr_from_dense(x.T, nse=nse))
 
 

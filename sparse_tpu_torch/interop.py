@@ -4,7 +4,8 @@ Each function builds one of the port's objects from the reference's arrays,
 given as anything ``numpy.asarray`` accepts (NumPy arrays, or the reference's
 own device arrays, converted without importing their framework).  The
 ``*_plan_from_arrays`` functions let the tests feed the SAME plan to both
-packages, so a kernel is checked apart from its planner.
+packages, so a kernel is checked apart from its planner.  Every function
+builds on ``device``, CUDA by default; ``device="cpu"`` asks for the CPU.
 
 :func:`smvm_plan_from_arrays` takes a dispatch plan's ``state`` as a tuple
 whose elements are the rung's objects — any objects carrying the
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .formats.bell import BELL
 from .formats.bsr import BSR, BsrSmsmmPlan, _bidx_dtype
 from .formats.coo import COO
@@ -59,7 +61,7 @@ def _t(x, device, dtype=None) -> torch.Tensor | None:
         t = torch.from_numpy(x)
     if dtype is not None:
         t = t.to(dtype)
-    return t.to(device or "cpu")
+    return t.to(resolve_device(device))
 
 
 def coo_from_arrays(row, col, data, shape, *, device=None) -> COO:

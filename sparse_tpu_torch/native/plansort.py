@@ -21,7 +21,8 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["argsort_u64", "counting_argsort", "seg_tile_layout",
-           "seg_tile_layout_ff", "spgemm_schedule", "rcm_order"]
+           "seg_tile_layout_ff", "spgemm_schedule", "rcm_order",
+           "build_shared"]
 
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE / "_plansort.cpp"
@@ -31,6 +32,24 @@ _lib = None
 _tried = False
 
 
+def build_shared(src: Path, so: Path) -> ctypes.CDLL:
+    """Compile the C++ source ``src`` with g++ into the shared object ``so``
+    unless it is up to date, and load it.  The object is written under a
+    temporary name and renamed, so concurrent processes never load a
+    half-written library.  Raises when g++ or the build fails."""
+    if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(src)],
+            check=True,
+            capture_output=True,
+            timeout=120,
+        )
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
+
+
 def _load():
     global _lib, _tried
     with _lock:
@@ -38,17 +57,7 @@ def _load():
             return _lib
         _tried = True
         try:
-            if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-                _SO.parent.mkdir(parents=True, exist_ok=True)
-                tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(_SRC)],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-                os.replace(tmp, _SO)
-            lib = ctypes.CDLL(str(_SO))
+            lib = build_shared(_SRC, _SO)
             lib.radix_argsort_u64.restype = ctypes.c_int64
             lib.counting_argsort_i64.restype = ctypes.c_int64
             lib.seg_tile_layout.restype = ctypes.c_int64

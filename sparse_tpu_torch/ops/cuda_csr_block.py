@@ -234,7 +234,7 @@ def _segtile_block_cuda(plan: BlockSegTilePlan, v, out_dtype):
                          f"bsz=2, got {plan.bsz}")
     vals, v = _check_kernel_inputs("bsr_smvm_segtile_block", plan.vals,
                                    plan.q, plan.seg_of, plan.rb, v,
-                                   out_dtype, (4, _R, _LANES))
+                                   out_dtype, (4, _R, _LANES), (_R, _LANES))
     dev = v.device
     n_tiles = vals.shape[0]
     nb = plan.nb

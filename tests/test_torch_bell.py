@@ -48,7 +48,8 @@ def _pair(x, bsz):
         blocks[r, :c.size] = xb[r, c]
     ja = jbell.BELL(cols=jnp.asarray(cols), blocks=jnp.asarray(blocks),
                     n=x.shape[0], bsz=bsz)
-    return ja, interop.bell_from_arrays(cols, blocks, x.shape[0], bsz)
+    return ja, interop.bell_from_arrays(cols, blocks, x.shape[0], bsz,
+                                        device="cpu")
 
 
 def banded(nb, bsz, hb, seed, empty_rows=(), dtype=np.float32):
@@ -101,7 +102,7 @@ def _ref_kit(jpb_kit, transposed=False):
     tiles = jpb_kit.tiles_t if transposed else jpb_kit.tiles
     make = (interop.banded_kit_t_from_arrays if transposed
             else interop.banded_kit_from_arrays)
-    return make(jpb_kit.plan, tiles)
+    return make(jpb_kit.plan, tiles, device="cpu")
 
 
 # -- the planner --------------------------------------------------------------
@@ -352,7 +353,8 @@ def test_bell_banded_refresh_matches_reference():
     _, ja, ta = banded(20, 8, 1, seed=3)
     tk, jk = tcb.bell_banded_prepare(ta), jpb.bell_banded_prepare(ja)
     ja2 = jbell.BELL(cols=ja.cols, blocks=ja.blocks * 2.0, n=ja.n, bsz=ja.bsz)
-    ta2 = interop.bell_from_arrays(ja2.cols, ja2.blocks, ja2.n, ja2.bsz)
+    ta2 = interop.bell_from_arrays(ja2.cols, ja2.blocks, ja2.n, ja2.bsz,
+                                   device="cpu")
     tk2 = tcb.bell_banded_refresh(tk, ta2)
     np.testing.assert_array_equal(_np(tk2.tiles), np.asarray(
         jpb.bell_banded_refresh(jk, ja2).tiles))

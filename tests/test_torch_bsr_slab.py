@@ -46,7 +46,8 @@ def random_pair(nb, bsz, density, seed, dtype=np.float32):
     idx = (r * nb + c).astype(np.int32)
     ja = jbsr.BSR(indices=jnp.asarray(idx, INDEX_DTYPE),
                   blocks=jnp.asarray(blocks), n=nb * bsz, bsz=bsz)
-    return ja, interop.bsr_from_arrays(idx, blocks, nb * bsz, bsz)
+    return ja, interop.bsr_from_arrays(idx, blocks, nb * bsz, bsz,
+                                       device="cpu")
 
 
 def _plans(ja, jb, ta, tb):
@@ -112,7 +113,7 @@ def test_apply_matches_reference(nb, bsz, density, g, p):
     carried = interop.slab_plan_from_arrays(
         jpp.a_idx, jpp.b_idx, jpp.oloc, jpp.slab, jpp.first, jpp.indices,
         chunks=jpp.chunks, n=jpp.n, bsz=jpp.bsz, g=jpp.g, p=jpp.p,
-        nbz_out=jpp.nbz_out, paired=jpp.paired)
+        nbz_out=jpp.nbz_out, paired=jpp.paired, device="cpu")
     np.testing.assert_allclose(
         _np(tcb.bsr_smsmm_apply_slab(carried, ta, tb).blocks),
         np.asarray(ref.blocks), **F32)
@@ -171,8 +172,10 @@ def test_oversized_slab_shrinks_p_or_raises():
                   blocks=jnp.asarray(blocks_a), n=nb * bsz, bsz=bsz)
     jb = jbsr.BSR(indices=jnp.asarray(np.arange(nb) * nb, INDEX_DTYPE),
                   blocks=jnp.asarray(blocks_b), n=nb * bsz, bsz=bsz)
-    ta = interop.bsr_from_arrays(np.arange(nb), blocks_a, nb * bsz, bsz)
-    tb = interop.bsr_from_arrays(np.arange(nb) * nb, blocks_b, nb * bsz, bsz)
+    ta = interop.bsr_from_arrays(np.arange(nb), blocks_a, nb * bsz, bsz,
+                                 device="cpu")
+    tb = interop.bsr_from_arrays(np.arange(nb) * nb, blocks_b, nb * bsz, bsz,
+                                 device="cpu")
     jp, tp = _plans(ja, jb, ta, tb)
     assert tp.n_products == nb and tp.nbz_out == 1
     tpp = tcb.bsr_smsmm_slab_prepare(tp, ta.nbz, tb.nbz, g=2, p=16)
@@ -230,7 +233,7 @@ def test_empty_product_set():
     ones = np.ones((1, bsz, bsz), np.float32)
     ja = jbsr.BSR(indices=jnp.asarray([1], INDEX_DTYPE),
                   blocks=jnp.asarray(ones), n=2 * bsz, bsz=bsz)
-    ta = interop.bsr_from_arrays([1], ones, 2 * bsz, bsz)
+    ta = interop.bsr_from_arrays([1], ones, 2 * bsz, bsz, device="cpu")
     jp, tp = _plans(ja, ja, ta, ta)
     tpp = tcb.bsr_smsmm_slab_prepare(tp, ta.nbz, ta.nbz, g=2, p=2)
     _assert_same_schedule(
@@ -245,9 +248,11 @@ def test_bf16_inputs_sum_in_f32():
     ja, _ = random_pair(5, 8, 0.5, seed=4)
     jab = dataclasses.replace(ja, blocks=ja.blocks.astype(jnp.bfloat16))
     exact = np.asarray(jab.blocks.astype(jnp.float32))  # the bf16 values
-    tab = interop.bsr_from_arrays(ja.indices, jab.blocks, ja.n, ja.bsz)
+    tab = interop.bsr_from_arrays(ja.indices, jab.blocks, ja.n, ja.bsz,
+                                  device="cpu")
     assert tab.dtype == torch.bfloat16
-    ta32 = interop.bsr_from_arrays(ja.indices, exact, ja.n, ja.bsz)
+    ta32 = interop.bsr_from_arrays(ja.indices, exact, ja.n, ja.bsz,
+                                   device="cpu")
     jp, tp = _plans(jab, jab, tab, tab)
     jpp = jpb.bsr_smsmm_pallas_prepare(jp, jab.nbz, jab.nbz, g=4, p=4)
     tpp = tcb.bsr_smsmm_slab_prepare(tp, tab.nbz, tab.nbz, g=4, p=4)
@@ -278,7 +283,8 @@ def test_paired_schedule_matches_reference(nb, density, seed, parity):
         pair.append((jbsr.BSR(indices=jnp.asarray(idx, INDEX_DTYPE),
                               blocks=jnp.asarray(blocks), n=nb * bsz,
                               bsz=bsz),
-                     interop.bsr_from_arrays(idx, blocks, nb * bsz, bsz)))
+                     interop.bsr_from_arrays(idx, blocks, nb * bsz, bsz,
+                                             device="cpu")))
     (ja, ta), (jb, tb) = pair
     assert ta.nbz % 2 == parity
     jp, tp = _plans(ja, jb, ta, tb)
@@ -343,7 +349,7 @@ def test_grads_match_reference_and_autograd():
         np.testing.assert_allclose(gb, np.asarray(gbr), **F32)
     # the reference's AD plans carried across give the same gradients
     carried = interop.slab_plan_ad_from_arrays(jplans.fwd, jplans.da,
-                                               jplans.db)
+                                               jplans.db, device="cpu")
     ab = ta.blocks.clone().requires_grad_(True)
     c = tcb.bsr_smsmm_apply_slab_ad(carried, dataclasses.replace(
         ta, blocks=ab), tb)

@@ -48,7 +48,7 @@ def test_readme_fixture(np_dt, t_dt):
     """README / BASELINE config 1: sparse 2 3 [(0,0,2),(1,2,3)] . [10,20,30]
     = [20, 90], through csr_smvm and through the dispatch main path."""
     triples = [(0, 0, 2), (1, 2, 3)]
-    a = pt.csr_from_triples(2, 3, triples, dtype=np_dt)
+    a = pt.csr_from_triples(2, 3, triples, dtype=np_dt, device="cpu")
     v = torch.tensor([10, 20, 30], dtype=t_dt)
     ref = st.csr_smvm(st.csr_from_triples(2, 3, triples, dtype=np_dt),
                       jnp.asarray(_np(v)))
@@ -65,7 +65,8 @@ def test_smvm_5x5_golden(np_dt, t_dt):
     rows = [0, 0, 0, 1, 1, 2, 2, 2, 3, 4, 4]
     cols = [0, 1, 3, 1, 2, 1, 2, 3, 3, 3, 4]
     vals = [1, 2, 11, 3, 4, 5, 6, 7, 8, 9, 10]
-    a = pt.csr_from_triples(5, 5, zip(rows, cols, vals), dtype=np_dt)
+    a = pt.csr_from_triples(5, 5, zip(rows, cols, vals), dtype=np_dt,
+                            device="cpu")
     v = torch.tensor([3, 1, 2, 6, 5], dtype=t_dt)
     np.testing.assert_array_equal(_np(pt.csr_smvm(a, v)),
                                   [71, 11, 59, 48, 104])
@@ -78,32 +79,32 @@ def test_smvm_5x5_golden(np_dt, t_dt):
 
 def test_duplicates_sum_and_bounds():
     a = pt.csr_from_triples(2, 2, [(0, 0, 1.0), (0, 0, 2.5), (1, 1, -1.0),
-                                   (0, 0, 0.5)])
+                                   (0, 0, 0.5)], device="cpu")
     np.testing.assert_array_equal(_np(pt.csr_todense(a)),
                                   [[4.0, 0.0], [0.0, -1.0]])
     assert a.nse == 4 and int(a.indptr[-1]) == 2
     with pytest.raises(ValueError, match="out of bounds"):
-        pt.csr_from_triples(2, 3, [(2, 0, 1.0)])
+        pt.csr_from_triples(2, 3, [(2, 0, 1.0)], device="cpu")
     with pytest.raises(ValueError, match="out of bounds"):
-        pt.csr_from_triples(2, 3, [(0, 3, 1.0)])
+        pt.csr_from_triples(2, 3, [(0, 3, 1.0)], device="cpu")
 
 
 def test_stored_zero_nnz():
     """Entries summing to zero stay stored but do not count in nnz
     (PARITY.md C2/C3, compressed.fut:162-164)."""
     triples = [(0, 0, 1.0), (0, 0, -1.0), (1, 2, 3.0), (1, 0, 0.0)]
-    a = pt.csr_from_triples(2, 3, triples)
+    a = pt.csr_from_triples(2, 3, triples, device="cpu")
     ja = st.csr_from_triples(2, 3, triples)
     assert int(pt.csr_nnz(a)) == int(st.csr_nnz(ja)) == 1
     assert int(a.indptr[-1]) == int(ja.indptr[-1]) == 3
-    coo, jcoo = pt.coo_from_triples(2, 3, triples), \
+    coo, jcoo = pt.coo_from_triples(2, 3, triples, device="cpu"), \
         st.coo_from_triples(2, 3, triples)
     assert int(pt.coo_nnz(coo)) == int(st.coo_nnz(jcoo)) == 3
     assert int(pt.coo_nnz(pt.coo_normalize(coo))) == 1
 
 
 def test_transpose_is_o1():
-    a = pt.csr_from_triples(2, 3, [(0, 0, 2.0), (1, 2, 3.0)])
+    a = pt.csr_from_triples(2, 3, [(0, 0, 2.0), (1, 2, 3.0)], device="cpu")
     t = pt.csr_transpose(a)
     assert t.shape == (3, 2)
     assert t.data is a.data and t.indices is a.indices \
@@ -123,12 +124,12 @@ def test_transpose_is_o1():
 ])
 def test_normalize_and_csr_match_reference(n, m, nse, seed):
     r, c, v = _random_coo(n, m, nse, seed)
-    ta = pt.coo_make((n, m), r, c, torch.from_numpy(v))
+    ta = pt.coo_make((n, m), r, c, torch.from_numpy(v), device="cpu")
     ja = st.coo_make((n, m), r, c, jnp.asarray(v))
     tn, jn = pt.coo_normalize(ta), st.coo_normalize(ja)
     # the reference's own COO carried across normalizes the same way
     cn = pt.coo_normalize(interop.coo_from_arrays(ja.row, ja.col, ja.data,
-                                                  ja.shape))
+                                                  ja.shape, device="cpu"))
     for t in (tn, cn):
         np.testing.assert_array_equal(_np(t.row), np.asarray(jn.row))
         np.testing.assert_array_equal(_np(t.col), np.asarray(jn.col))
@@ -158,20 +159,20 @@ def test_normalize_and_csr_match_reference(n, m, nse, seed):
 def test_from_dense_matches_reference(nse):
     rng = np.random.default_rng(5)
     x = rng.standard_normal((6, 4)) * (rng.random((6, 4)) < 0.4)
-    tc = pt.coo_from_dense(torch.from_numpy(x), nse=nse)
+    tc = pt.coo_from_dense(torch.from_numpy(x), nse=nse, device="cpu")
     jc = st.coo_from_dense(jnp.asarray(x), nse=nse)
     for f in ("row", "col", "data"):
         np.testing.assert_array_equal(_np(getattr(tc, f)),
                                       np.asarray(getattr(jc, f)))
     np.testing.assert_array_equal(_np(pt.csr_from_dense(
-        torch.from_numpy(x)).todense()), x)
+        torch.from_numpy(x), device="cpu").todense()), x)
 
 
 def test_smvm_bitwise_repeatable():
     """tests/test_determinism.py's bar, on the port."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal((64, 64)) * (rng.random((64, 64)) < 0.3)
-    a = pt.csr_from_dense(torch.from_numpy(x))
+    a = pt.csr_from_dense(torch.from_numpy(x), device="cpu")
     v = torch.from_numpy(rng.standard_normal(64))
     outs = [_np(pt.csr_smvm(a, v)) for _ in range(3)]
     assert all(np.array_equal(outs[0], o) for o in outs[1:])

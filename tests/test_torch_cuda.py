@@ -546,3 +546,126 @@ def test_spgemm_block_route_on_the_card(cuda, bsz, dtype, launches):
         tol = 1e-5 if dtype == torch.float32 else 1e-12
         err = np.abs(_np(c.data).astype(np.float64) - ref.data)
         assert np.all(err <= tol * bound.data)
+
+
+# -- slice 4: K1-r32, K1-mxu, K8, the default device, Matrix Market ---------
+
+_K1_COUNTERS = {(8, "vpu"): "K1_LAUNCHES", (32, "vpu"): "K1_R32_LAUNCHES",
+                (8, "mxu"): "K1_MXU_LAUNCHES", (32, "mxu"): "K1_MXU_LAUNCHES"}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("wsub", [8, 16, 32])
+@pytest.mark.parametrize("layout", ["ff", "rigid"])
+@pytest.mark.parametrize("rows,reduce", [(32, "vpu"), (8, "mxu"),
+                                         (32, "mxu")])
+def test_k1_variants_match_plain(cuda, rows, reduce, layout, wsub, dtype):
+    """K1-r32 and K1-mxu against their plain versions and SciPy, bitwise
+    repeatable, on a band with an empty row block and a spill slot."""
+    s = _band(3000, 40000, 21, 1800).tolil()
+    s[64:96, :] = 0
+    s[5, 7 + 128 * np.arange(12)] = 1.5  # one (row, lane) slot, 12 entries
+    s = s.tocsr()
+    s.eliminate_zeros()
+    a = interop.csr_from_arrays(s.data.astype(dtype), s.indices, s.indptr,
+                                s.shape, device=cuda)
+    plan = tpc.build_seg_tiles(a, wsub=wsub, rows=rows, layout=layout)
+    v = np.random.default_rng(22).standard_normal(3000).astype(dtype)
+    vt = torch.from_numpy(v).to(cuda)
+    raw = dict(n=3000, wsub=wsub, rows=rows, kstep=plan.kstep,
+               chunks=plan.chunks, reduce=reduce)
+    arrs = (plan.vals, plan.q, plan.seg_of, plan.rb)
+    counter = _K1_COUNTERS[(rows, reduce)]
+    before = getattr(tpc, counter)
+    y1 = tpc.segtile_apply(*arrs, vt, **raw)
+    y2 = tpc.segtile_apply(*arrs, vt, **raw)
+    torch.cuda.synchronize()
+    assert getattr(tpc, counter) == before + 2
+    assert torch.equal(y1, y2)  # bitwise repeatable
+    assert y1.shape == (-(-3000 // rows) * rows,)
+    plain = tpc.segtile_apply_plain(*arrs, vt, **raw)
+    _assert_close(_np(y1)[:3000], _np(plain)[:3000], s, v, dtype)
+    _assert_close(_np(y1)[:3000], s @ v.astype(np.float64), s, v, dtype)
+    assert bool((y1[64:96] == 0).all())
+    p = torch.randperm(plan.n_tiles, device=cuda)
+    y3 = tpc.segtile_apply(*(x[p] for x in arrs), vt, **raw)
+    _assert_close(_np(y3)[:3000], _np(plain)[:3000], s, v, dtype)
+    got = tpc.csr_smvm_segtile(a, vt, plan, reduce=reduce, batch=4)
+    _assert_close(_np(got), s @ v.astype(np.float64), s, v, dtype)
+
+
+def test_k1_variants_reject_what_they_cannot_take(cuda):
+    s = _band(64, 300, 13, 64)
+    a = interop.csr_from_arrays(s.data.astype(np.float32), s.indices,
+                                s.indptr, s.shape, device=cuda)
+    plan = tpc.build_seg_tiles(a, rows=32)
+    raw = dict(n=64, wsub=8, kstep=plan.kstep, chunks=plan.chunks)
+    v = torch.ones(64, device=cuda)
+    arrs = (plan.vals, plan.q, plan.seg_of, plan.rb)
+    with pytest.raises(ValueError, match="do not form a plan"):
+        tpc.segtile_apply(*arrs, v, rows=8, **raw)  # 32-row tiles as 8
+    with pytest.raises(TypeError):
+        tpc.segtile_apply(plan.vals.half(), *arrs[1:], v.half(), rows=32,
+                          reduce="mxu", **raw)
+    with pytest.raises(ValueError, match="reduce"):
+        tpc.segtile_apply(*arrs, v, rows=32, reduce="x", **raw)
+
+
+@pytest.mark.parametrize("stream", ["f32", "bf16", "f64"])
+def test_k8_matches_plain(cuda, stream):
+    from sparse_tpu_torch.ops import cuda_dband as tdb
+
+    dt = {"f32": torch.float32, "bf16": torch.float32,
+          "f64": torch.float64}[stream]
+    sdt = torch.bfloat16 if stream == "bf16" else dt
+    nb, bsz, rt, k = 53, 16, 5, 40
+    a, ok = _band_bell(nb, bsz, 2, 7, dt, cuda, empty=(9,))
+    plan = tcb.build_banded_plan(a, row_tile=rt, max_window=96,
+                                 slot_valid=ok)
+    tiles = tdb.densify_tiles(a, plan, sdt)
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (a.n, k))).to(dt).to(cuda)
+    b3 = torch.cat([b.reshape(nb, bsz, k), b.new_zeros(plan.W, bsz, k)])
+    args = (tiles, plan.start, b3, nb, bsz, k, plan.W, rt, dt)
+    before = tdb.K8_LAUNCHES
+    y1, y2 = tdb.dband_spmm(*args), tdb.dband_spmm(*args)
+    torch.cuda.synchronize()
+    assert tdb.K8_LAUNCHES == before + 2
+    assert torch.equal(y1, y2) and y1.shape == (nb * bsz, k)
+    bound = _spmm_bound(a, b, sdt)
+    _check_spmm(y1, tdb.dband_spmm_plain(*args), bound, dt)
+    _check_spmm(y1, tcb.bell_spmm_banded_plain(a, b, plan, tiles=tiles,
+                                               compute_dtype=sdt), bound, dt)
+
+
+def test_default_device_is_the_card(cuda):
+    """No ``device=``: host data builds on the card, and the README fixture
+    runs there."""
+    a = pt.csr_from_triples(2, 3, [(0, 0, 2), (1, 2, 3)])
+    assert a.data.device == torch.device("cuda", 0)
+    assert a.indptr.device == torch.device("cuda", 0)
+    y = pt.smvm_prepare(a).apply([10, 20, 30])
+    assert y.device == torch.device("cuda", 0)
+    assert y.tolist() == [20, 90]
+    for obj in (pt.coo_make((2, 3), np.array([0, 1]), np.array([0, 2]),
+                            np.array([2.0, 3.0])),
+                pt.csr_empty(3, 3), pt.bsr_zero(4, 2),
+                interop.csr_from_arrays([2.0], [0], [0, 1, 1], (2, 3))):
+        assert obj.data.is_cuda if hasattr(obj, "data") else \
+            obj.blocks.is_cuda
+
+
+def test_mm_read_lands_on_the_card(cuda):
+    from pathlib import Path
+
+    path = (Path(__file__).resolve().parents[1] / "benchmarks" / "matrices"
+            / "fem_poisson_8k.mtx")
+    a = pt.mm_read(path, dtype=np.float32)
+    assert a.data.is_cuda and a.indices.is_cuda and a.indptr.is_cuda
+    s = sp.csr_matrix((a.data.cpu().numpy().astype(np.float64),
+                       a.indices.cpu().numpy(), a.indptr.cpu().numpy()),
+                      shape=a.shape)
+    v = np.random.default_rng(3).standard_normal(a.shape[1])
+    y = pt.smvm_prepare(a).apply(torch.from_numpy(v).float().to(cuda))
+    _assert_close(_np(y), s @ v.astype(np.float32).astype(np.float64), s,
+                  v.astype(np.float32), np.float32)

@@ -60,7 +60,7 @@ def _build(name):
     constructors: csr_from_triples, as a user of either would."""
     n, (r, c, v) = MATRICES[name]()
     triples = list(zip(r.tolist(), c.tolist(), v.tolist()))
-    ta = pt.csr_from_triples(n, n, triples, dtype=np.float64)
+    ta = pt.csr_from_triples(n, n, triples, dtype=np.float64, device="cpu")
     ja = st.csr_from_triples(n, n, triples, dtype=np.float64)
     s = sp.coo_matrix((v, (r, c)), shape=(n, n)).tocsr()
     return ta, ja, s
@@ -127,7 +127,7 @@ def test_each_rung_matches_reference(kind, name):
     # the same plan carried over from the reference's arrays
     cp = interop.smvm_plan_from_arrays(
         jp.kind, jp.state, shape=jp.shape, perm=jp.perm,
-        inv_perm=jp.inv_perm, value_src=jp.value_src)
+        inv_perm=jp.inv_perm, value_src=jp.value_src, device="cpu")
     _assert_close(_np(cp.apply(torch.from_numpy(v))), got, s, v)
 
 
@@ -157,7 +157,8 @@ def test_refresh_through_composed_reorder():
     refresh maps original-order values through ``value_src``."""
     n = 2600
     r, c, v0 = _band(n, 5, per_row=3, half=4, scramble=True)
-    ta = pt.csr_from_coo(pt.coo_make((n, n), r, c, torch.from_numpy(v0)))
+    ta = pt.csr_from_coo(pt.coo_make((n, n), r, c, torch.from_numpy(v0),
+                                     device="cpu"))
     ja = st.csr_from_coo(st.coo_make((n, n), r, c, jnp.asarray(v0)))
     s = sp.coo_matrix((v0, (r, c)), shape=(n, n)).tocsr()
     tp = smvm_prepare(ta, prefer="segtile", refreshable=True)

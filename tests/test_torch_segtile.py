@@ -50,7 +50,7 @@ def _pair(s, dtype):
                 indices=jnp.asarray(s.indices.astype(np.int32)),
                 indptr=jnp.asarray(s.indptr.astype(np.int32)), shape=s.shape)
     ta = interop.csr_from_arrays(s.data.astype(dtype), s.indices, s.indptr,
-                                 s.shape)
+                                 s.shape, device="cpu")
     return ja, ta
 
 
@@ -133,7 +133,7 @@ def test_reference_plan_through_interop():
     jp = jpc.build_seg_tiles(ja, wsub=16, refreshable=True)
     fields = {f: getattr(jp, f) for f in PLAN_META + ("pos", "eidx")}
     tp = interop.seg_tile_plan_from_arrays(jp.vals, jp.q, jp.seg_of, jp.rb,
-                                           **fields)
+                                           **fields, device="cpu")
     v = np.random.default_rng(4).standard_normal(s.shape[1])
     raw = dict(n=jp.n, wsub=jp.wsub, rows=jp.rows, kstep=jp.kstep,
                chunks=jp.chunks)
@@ -176,7 +176,8 @@ def test_refresh_matches_rebuild_and_checks_length():
     tp2 = tpc.seg_tiles_refresh(tp, torch.from_numpy(new))
     jp2 = jpc.seg_tiles_refresh(jp, jnp.asarray(new))
     np.testing.assert_array_equal(_np(tp2.vals), np.asarray(jp2.vals))
-    ta2 = interop.csr_from_arrays(new, s.indices, s.indptr, s.shape)
+    ta2 = interop.csr_from_arrays(new, s.indices, s.indptr, s.shape,
+                                  device="cpu")
     np.testing.assert_array_equal(_np(tp2.vals),
                                   _np(tpc.build_seg_tiles(ta2).vals))
     with pytest.raises(ValueError, match="refreshable"):
@@ -220,20 +221,24 @@ def test_auto_on_cpu_takes_row_binned_path():
 
 
 def test_unported_variants_raise():
+    """Every variant of the reference is ported (``rows=32``,
+    ``layout="rigid"``, ``reduce="mxu"``, tested in
+    tests/test_torch_segtile_variants.py); what no variant takes still
+    raises ``ValueError``."""
     _, ta = _pair(CASES["band"](), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpc.build_seg_tiles(ta, rows=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpc.build_seg_tiles(ta, layout="rigid")
+    with pytest.raises(ValueError, match="rows"):
+        tpc.build_seg_tiles(ta, rows=12)
+    with pytest.raises(ValueError, match="layout"):
+        tpc.build_seg_tiles(ta, layout="x")
+    with pytest.raises(ValueError, match="wsub"):
+        tpc.build_seg_tiles(ta, wsub=12)
     tp = tpc.build_seg_tiles(ta)
     v = torch.zeros(200)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpc.csr_smvm_segtile(ta, v, tp, reduce="mxu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="reduce"):
+        tpc.csr_smvm_segtile(ta, v, tp, reduce="x")
+    with pytest.raises(ValueError, match="rows"):
         tpc.segtile_apply(tp.vals, tp.q, tp.seg_of, tp.rb, v, n=200, wsub=8,
-                          rows=32, kstep=tp.kstep, chunks=tp.chunks)
-    with pytest.raises(ValueError):
-        tpc.build_seg_tiles(ta, wsub=12)
+                          rows=12, kstep=tp.kstep, chunks=tp.chunks)
 
 
 def test_hbm_bytes_matches_reference():

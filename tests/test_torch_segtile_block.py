@@ -52,7 +52,8 @@ def _pair(x, dtype=np.float64):
     ja = st.CSR(data=jnp.asarray(s.data), indices=jnp.asarray(
         s.indices.astype(np.int32)), indptr=jnp.asarray(
         s.indptr.astype(np.int32)), shape=s.shape)
-    ta = interop.csr_from_arrays(s.data, s.indices, s.indptr, s.shape)
+    ta = interop.csr_from_arrays(s.data, s.indices, s.indptr, s.shape,
+                                 device="cpu")
     return s, ja, ta
 
 
@@ -107,10 +108,11 @@ def test_reference_block_plan_through_interop():
     s, ja, _ = _pair(x)
     jab = jbsr.csr_to_bsr(ja, 2)
     jp = jpb.build_seg_tiles_block(jab, wsub=8)
-    tab = interop.bsr_from_arrays(jab.indices, jab.blocks, jab.n, jab.bsz)
+    tab = interop.bsr_from_arrays(jab.indices, jab.blocks, jab.n, jab.bsz,
+                                  device="cpu")
     tp = interop.block_seg_tile_plan_from_arrays(
         jp.vals, jp.q, jp.seg_of, jp.rb,
-        **{f: getattr(jp, f) for f in PLAN_META})
+        **{f: getattr(jp, f) for f in PLAN_META}, device="cpu")
     v = np.random.default_rng(4).standard_normal(96)
     got = _np(tpb.bsr_smvm_segtile_block(tab, torch.from_numpy(v), tp))
     ref = np.asarray(jpb.bsr_smvm_segtile_block(jab, jnp.asarray(v), jp,
@@ -223,7 +225,8 @@ def test_wide_block_coordinates():
     r = np.array([0, 1, n - 2, n - 1, n - 1, 7])
     c = np.array([n - 1, n - 2, 0, 1, n - 1, 7])
     v = np.arange(1.0, 7.0)
-    ta = pt.csr_from_coo(pt.coo_make((n, n), r, c, torch.from_numpy(v)))
+    ta = pt.csr_from_coo(pt.coo_make((n, n), r, c, torch.from_numpy(v),
+                                     device="cpu"))
     ja = st.csr_from_coo(st.coo_make((n, n), r, c, jnp.asarray(v)))
     tb, jb = tbsr.csr_to_bsr(ta, 2), jbsr.csr_to_bsr(ja, 2)
     assert tb.indices.dtype == torch.int64

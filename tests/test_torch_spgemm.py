@@ -57,7 +57,8 @@ def _csr_pair(x):
     indices, indptr = s.indices.astype(np.int32), s.indptr.astype(np.int32)
     ja = st.CSR(data=jnp.asarray(s.data), indices=jnp.asarray(indices),
                 indptr=jnp.asarray(indptr), shape=x.shape)
-    return ja, interop.csr_from_arrays(s.data, indices, indptr, x.shape)
+    return ja, interop.csr_from_arrays(s.data, indices, indptr, x.shape,
+                                       device="cpu")
 
 
 def _csc_pair(x):
@@ -99,8 +100,8 @@ def _assert_same_csr(got, ref, dtype, exact_capacity=True):
 def test_smsmm_golden(n, m, k, at, bt, expected):
     ja = st.csr_from_triples(n, m, at, dtype=np.int64)
     jb = st.csc_from_triples(m, k, bt, dtype=np.int64)
-    ta = pt.csr_from_triples(n, m, at, dtype=torch.int64)
-    tb = pt.csc_from_triples(m, k, bt, dtype=torch.int64)
+    ta = pt.csr_from_triples(n, m, at, dtype=torch.int64, device="cpu")
+    tb = pt.csc_from_triples(m, k, bt, dtype=torch.int64, device="cpu")
     np.testing.assert_array_equal(_np(tb.indptr), np.asarray(jb.indptr))
     ref = jsg.spgemm(ja, jb)
     for got in (pt.spgemm(ta, tb), ta @ tb):
@@ -112,7 +113,7 @@ def test_smsmm_golden(n, m, k, at, bt, expected):
 def test_csc_constructors_match_reference():
     x = _random(7, 5, 0.4, seed=3)
     jc, tc = st.csc_from_dense(jnp.asarray(x)), pt.csc_from_dense(
-        torch.from_numpy(x))
+        torch.from_numpy(x), device="cpu")
     assert tc.shape == jc.shape == (7, 5)
     for f in ("data", "indices", "indptr"):
         np.testing.assert_array_equal(_np(getattr(tc, f)),
@@ -124,7 +125,7 @@ def test_csc_constructors_match_reference():
                                       np.asarray(getattr(jo, f)), err_msg=f)
     tc2 = pt.csc_from_coo(to)
     np.testing.assert_array_equal(_np(pt.csc_todense(tc2)), x)
-    empty = pt.csr_empty(3, 4, 2, torch.float64)
+    empty = pt.csr_empty(3, 4, 2, torch.float64, device="cpu")
     assert empty.nse == 2 and int(empty.indptr[-1]) == 0
     np.testing.assert_array_equal(_np(empty.todense()), np.zeros((3, 4)))
 
@@ -133,9 +134,9 @@ def test_csr_matmul_csc_operator():
     """``CSR @ CSC`` is SpGEMM, as in the reference (sparse_tpu/formats/
     csr.py:112-116)."""
     A = pt.csr_from_triples(2, 2, [(0, 0, 1.0), (0, 1, 7.0), (1, 0, 2.0),
-                                   (1, 1, 4.0)])
+                                   (1, 1, 4.0)], device="cpu")
     B = pt.csc_from_triples(2, 2, [(0, 0, 3.0), (0, 1, 3.0), (1, 0, 5.0),
-                                   (1, 1, 2.0)])
+                                   (1, 1, 2.0)], device="cpu")
     np.testing.assert_array_equal(_np((A @ B).todense()),
                                   [[38.0, 17.0], [26.0, 14.0]])
 
@@ -236,7 +237,8 @@ def test_plan_matches_reference_and_updates(operand):
                                -1.5 * (x @ y), rtol=1e-12, atol=1e-12)
     # the reference's plan carried across
     carried = interop.spgemm_plan_from_arrays(
-        jp.a_pos, jp.b_pos, jp.seg, jp.indices, jp.indptr, shape=jp.shape)
+        jp.a_pos, jp.b_pos, jp.seg, jp.indices, jp.indptr, shape=jp.shape,
+            device="cpu")
     _assert_same_csr(pt.spgemm_apply(carried, ta, tb), got, np.float64)
 
 
@@ -244,7 +246,8 @@ def test_plan_native_matches_numpy_path():
     """The native schedule and the NumPy branch give identical plans."""
     x, y = _random(60, 45, 0.15, 33), _random(45, 70, 0.15, 34)
     _, ta = _csr_pair(x)
-    for tb in (_csr_pair(y)[1], pt.csc_from_dense(torch.from_numpy(y))):
+    for tb in (_csr_pair(y)[1], pt.csc_from_dense(torch.from_numpy(y),
+                                                  device="cpu")):
         p_native = pt.spgemm_prepare(ta, tb)
         with mock.patch("sparse_tpu_torch.native.plansort._lib", None), \
              mock.patch("sparse_tpu_torch.native.plansort._tried", True):
@@ -254,16 +257,17 @@ def test_plan_native_matches_numpy_path():
 
 def test_cancellation_empty_and_truncation():
     # cancellation keeps the stored slot (explicit zero), nnz counts 0
-    A = pt.csr_from_triples(1, 2, [(0, 0, 1.0), (0, 1, 1.0)])
-    B = pt.csc_from_triples(2, 1, [(0, 0, 1.0), (1, 0, -1.0)])
+    A = pt.csr_from_triples(1, 2, [(0, 0, 1.0), (0, 1, 1.0)], device="cpu")
+    B = pt.csc_from_triples(2, 1, [(0, 0, 1.0), (1, 0, -1.0)], device="cpu")
     for C in (pt.spgemm(A, B), pt.spgemm(A, B, method="mxu"),
               pt.spgemm(A, B, method="esc"),
               pt.spgemm_apply(pt.spgemm_prepare(A, B), A, B)):
         np.testing.assert_array_equal(_np(C.todense()), [[0.0]])
         assert int(pt.csr_nnz(C)) == 0 and int(C.indptr[-1]) == 1
     # an empty operand
-    E = pt.csr_from_triples(3, 4, [], dtype=torch.float64)
-    B4 = pt.csr_from_triples(4, 2, [(0, 0, 1.0)], dtype=torch.float64)
+    E = pt.csr_from_triples(3, 4, [], dtype=torch.float64, device="cpu")
+    B4 = pt.csr_from_triples(4, 2, [(0, 0, 1.0)], dtype=torch.float64,
+                             device="cpu")
     plan = pt.spgemm_prepare(E, B4)
     assert plan.nse_out == 0 and plan.n_products == 0
     np.testing.assert_array_equal(_np(pt.spgemm_apply(plan, E, B4).todense()),
@@ -272,15 +276,16 @@ def test_cancellation_empty_and_truncation():
                                   np.zeros((3, 2)))
     # the dense core's capacity truncation drops the last row-major entry
     A2 = pt.csr_from_triples(2, 2, [(0, 0, 1.0), (0, 1, 7.0), (1, 0, 2.0),
-                                    (1, 1, 4.0)])
+                                    (1, 1, 4.0)], device="cpu")
     B2 = pt.csr_from_triples(2, 2, [(0, 0, 3.0), (0, 1, 3.0), (1, 0, 5.0),
-                                    (1, 1, 2.0)])
+                                    (1, 1, 2.0)], device="cpu")
     C = pt.spgemm_mxu_csr_csr(A2, B2, 3)
     np.testing.assert_array_equal(_np(C.todense()), [[38.0, 17.0],
                                                      [26.0, 0.0]])
     assert int(C.indptr[-1]) == 3
     # ints go to ESC under auto, exactly
-    Ai = pt.csr_from_triples(2, 2, [(0, 0, 3), (1, 1, 4)], dtype=torch.int64)
+    Ai = pt.csr_from_triples(2, 2, [(0, 0, 3), (1, 1, 4)], dtype=torch.int64,
+                             device="cpu")
     Ci = pt.spgemm(Ai, Ai)
     assert Ci.dtype == torch.int64
     np.testing.assert_array_equal(_np(Ci.todense()), [[9, 0], [0, 16]])
@@ -336,7 +341,8 @@ def _bsr_pair(x, bsz):
     idx = np.flatnonzero(np.any(xb != 0, axis=(1, 2))).astype(np.int32)
     jx = jbsr.BSR(indices=jnp.asarray(idx), blocks=jnp.asarray(xb[idx]),
                   n=x.shape[0], bsz=bsz)
-    return jx, interop.bsr_from_arrays(idx, xb[idx], x.shape[0], bsz)
+    return jx, interop.bsr_from_arrays(idx, xb[idx], x.shape[0], bsz,
+                                       device="cpu")
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])
@@ -411,10 +417,11 @@ def test_bsr_plan_matches_and_updates():
     np.testing.assert_allclose(_np(pt.bsr_smsmm_apply(tp, ta2, tb).todense()),
                                -2.0 * (xa @ xb), rtol=1e-10, atol=1e-10)
     carried = interop.bsr_smsmm_plan_from_arrays(
-        jp.a_pos, jp.b_pos, jp.seg, jp.indices, n=jp.n, bsz=jp.bsz)
+        jp.a_pos, jp.b_pos, jp.seg, jp.indices, n=jp.n, bsz=jp.bsz,
+            device="cpu")
     torch.testing.assert_close(pt.bsr_smsmm_apply(carried, ta, tb).blocks,
                                c.blocks, rtol=0, atol=0)
-    z = pt.bsr_zero(n, bsz)
+    z = pt.bsr_zero(n, bsz, device="cpu")
     pz = pt.bsr_smsmm_prepare(z, tb)
     assert pz.n_products == 0 and pz.nbz_out == 0
     np.testing.assert_array_equal(_np(pt.bsr_smsmm_apply(pz, z, tb).todense()),

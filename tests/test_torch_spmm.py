@@ -47,7 +47,8 @@ def _matrix(n, m, density, seed, dtype, long_rows=()):
     x[1::7] = 0.0
     x = x.astype(dtype)
     ja = st.csr_from_dense(jnp.asarray(x))
-    ta = interop.csr_from_arrays(ja.data, ja.indices, ja.indptr, ja.shape)
+    ta = interop.csr_from_arrays(ja.data, ja.indices, ja.indptr, ja.shape,
+                                 device="cpu")
     return x, ja, ta
 
 
@@ -79,7 +80,8 @@ def test_spmm_at_the_entry_shape():
     """``__graft_entry__.entry()``'s forward step: 512 x 512 at 5 % fill,
     k = 64, float32."""
     fn, (ja, jb) = __graft_entry__.entry()
-    ta = interop.csr_from_arrays(ja.data, ja.indices, ja.indptr, ja.shape)
+    ta = interop.csr_from_arrays(ja.data, ja.indices, ja.indptr, ja.shape,
+                                 device="cpu")
     b = np.array(jb)
     got = pt.spmm(ta, torch.from_numpy(b))
     assert got.shape == (512, 64) and got.dtype == torch.float32
@@ -140,7 +142,8 @@ def test_bsr_ell_matches_reference(dtype):
     x = (rng.standard_normal((nb * bsz, nb * bsz))
          * np.kron(mask, np.ones((bsz, bsz)))).astype(dtype)
     jb = st.bsr_from_dense(jnp.asarray(x), bsz)
-    tb = interop.bsr_from_arrays(jb.indices, jb.blocks, jb.n, jb.bsz)
+    tb = interop.bsr_from_arrays(jb.indices, jb.blocks, jb.n, jb.bsz,
+                                 device="cpu")
     Lb = pt.bsr_row_capacity(tb)
     assert Lb == jbe.bsr_row_capacity(jb) == int(mask.sum(1).max())
     b = rng.standard_normal((nb * bsz, 7)).astype(dtype)
