@@ -27,7 +27,14 @@ read onto the card with ``mm_read``, and the dense-band SpMM of
 SciPy, then timed beside its bound on this card (the larger of its bytes
 over 3.35 TB/s and its flops over the peak for its type) and one PyTorch
 library call computing the same function (timed here only; the port never
-calls it).
+calls it).  The SpMV kernels K1, K1-r32, K1-mxu and K2 read each plan's
+compact stream (one value and one int32 column per stored entry, built
+once with the plan): phases 2 and 13 hold them against their plain
+versions over that stream (a 20,000-entry row, stored zeros, the
+raw-array route, refresh), phases 6 and 15 time them through
+``csr_smvm_segtile`` / ``bsr_smvm_segtile_block`` against
+``torch.sparse_csr_tensor(...) @ v`` with int32 and with int64 indices,
+and a profiler trace lists the kernels of one apply.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -38,6 +45,7 @@ without the rest of the repository, the script fails.
 from __future__ import annotations
 
 import faulthandler
+import contextlib
 import json
 import statistics
 import subprocess
@@ -117,21 +125,28 @@ def median_ms(fn, warmup=3, n=N_TIMED):
     return statistics.median(times)
 
 
-def pipelined_ms(fn, warmup=3, n=N_TIMED):
-    """Per-call time in ms of ``n`` calls issued back to back between two
-    CUDA events: the device-bound rate, with the host's enqueue time
-    overlapped (``median_ms`` times each call alone, host included)."""
+def pipelined_ms(fn, warmup=3, n=N_TIMED, windows=5):
+    """Per-call times in ms of ``n`` calls issued back to back between two
+    CUDA events, over ``windows`` such windows: (median, fastest).  The
+    median is the reported time; the fastest shows how near the card's own
+    rate a window came once the host kept up (``median_ms`` times each call
+    alone, host included).  For a kernel of tens of us the host's Python per
+    call is of the same order and the host is shared, so a window can be
+    slower than the card, never faster."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times), min(times)
 
 
 def bound_ms(nbytes, ops, dtype=torch.float32):
@@ -172,48 +187,69 @@ def library_ms(label, fn, card, n=N_TIMED):
     reason printed and kept in ``LIBRARY_REFUSALS`` when torch refuses it
     on the card."""
     try:
-        ms = pipelined_ms(fn, warmup=2, n=n)
+        ms, fastest = pipelined_ms(fn, warmup=2, n=n)
     except RuntimeError as e:  # torch's refusal (cuSPARSE, CUDA)
         LIBRARY_REFUSALS[label] = " ".join(str(e).split())[:160]
         print(f"   library {label}: refused on the card "
               f"({LIBRARY_REFUSALS[label]})", flush=True)
         return None
-    print(f"   library {label}: {ms:.4f} ms back to back [{card}]",
-          flush=True)
+    print(f"   library {label}: {ms:.4f} ms back to back (median window; "
+          f"fastest {fastest:.4f}) [{card}]", flush=True)
     return ms
 
 
-def torch_csr(a):
-    """The port's CSR as a ``torch.sparse_csr_tensor`` (for the library
-    yardstick)."""
+def torch_csr(a, index_dtype=torch.int64):
+    """The port's CSR as a ``torch.sparse_csr_tensor`` with ``index_dtype``
+    row pointers and columns (for the library yardstick)."""
     nnz = int(a.indptr[-1])
-    return torch.sparse_csr_tensor(a.indptr.long(), a.indices[:nnz].long(),
+    return torch.sparse_csr_tensor(a.indptr.to(index_dtype),
+                                   a.indices[:nnz].to(index_dtype),
                                    a.data[:nnz], size=a.shape)
 
 
+def library_csr_ms(label, a, v, card):
+    """``torch.sparse_csr_tensor(...) @ v`` timed with int32 and with int64
+    indices; returns (the faster ms, {index dtype: ms})."""
+    times = {}
+    for idx in (torch.int32, torch.int64):
+        t = torch_csr(a, idx)
+        times[str(idx)[6:]] = library_ms(f"{label}, {str(idx)[6:]} indices",
+                                         lambda: t @ v, card)
+        del t
+    done = [ms for ms in times.values() if ms is not None]
+    return (min(done) if done else None), times
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, cost,
-                 lib_ms, lib_call, dtype=torch.float32):
-    """One kernel's record for the ``kernels`` line; prints its bound."""
+                 lib_ms, lib_call, dtype=torch.float32, **extra):
+    """One kernel's record for the ``kernels`` line; prints its bound.
+    ``extra`` keys (bytes per stored entry, both library times) are added
+    to the record."""
     b_ms, b_by = bound_ms(*cost, dtype)
     print(f"   {name}: {ms:.4f} ms back to back, bound {b_ms:.4f} ms "
           f"({b_by}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.3f} GFLOP), "
           f"{b_ms / ms:.1%} of it; plain {plain_ms:.4f} ms; library "
           f"{'refused' if lib_ms is None else f'{lib_ms:.4f} ms'} "
-          f"({lib_call})", flush=True)
+          f"({lib_call}){''.join(f'; {k} {v}' for k, v in extra.items())}",
+          flush=True)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "library_call": lib_call}
+            "bound_by": b_by, "library_ms": lib_ms, "library_call": lib_call,
+            **extra}
 
 
-def _report(cell, label, fn, nnz, slot_bytes, card):
+def _report(cell, label, fn, nnz, stream_bytes, card):
     """Median alone and back-to-back per-call times of ``fn``, with the
-    rates they give; returns (alone, back to back) ms."""
-    ms, ms_b2b = median_ms(fn), pipelined_ms(fn)
+    rates they give (``stream_bytes``: what one compact-stream apply
+    moves); returns (alone, back to back) ms."""
+    ms = median_ms(fn)
+    ms_b2b, fastest = pipelined_ms(fn)
     print(f"   {cell} {label:9s}: {ms:.4f} ms alone (median of {N_TIMED}), "
-          f"{ms_b2b:.4f} ms back to back; {nnz / ms / 1e6:.3f} / "
-          f"{nnz / ms_b2b / 1e6:.3f} Gnnz/s; {slot_bytes / ms / 1e6:.1f} / "
-          f"{slot_bytes / ms_b2b / 1e6:.1f} GB/s slot stream [{card}]",
+          f"{ms_b2b:.4f} ms back to back (median window; fastest "
+          f"{fastest:.4f}); {nnz / ms / 1e6:.3f} / "
+          f"{nnz / ms_b2b / 1e6:.3f} Gnnz/s; {stream_bytes / ms / 1e6:.1f} / "
+          f"{stream_bytes / ms_b2b / 1e6:.1f} GB/s of stream bytes [{card}]",
           flush=True)
     return ms, ms_b2b
 
@@ -275,9 +311,12 @@ def _spill_band(n, rng):
 
 
 def phase2_kernels_vs_plain():
-    """K1 at wsub 8/16/32 in f32 and f64 (empty rows, lane-conflict spill
-    tiles, a padded shuffled raw-array call) and K2, each against its plain
-    version on the card, twice for bitwise repeatability; then the README
+    """K1 over the compact stream at wsub 8/16/32 in f32 and f64 (empty
+    rows, a slot spilled 16 deep) against its plain version on the card,
+    twice for bitwise repeatability, and the raw-array route (exact, then
+    with padded and shuffled tiles) against the plan route; K1 and K1-mxu
+    on a rectangular matrix with a 20,000-entry row and stored zeros, and a
+    refreshed plan against a rebuilt one; K2 likewise; then the README
     fixtures straight through K1."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_csr, cuda_csr_block
@@ -300,28 +339,28 @@ def phase2_kernels_vs_plain():
             if spill != 16:
                 raise AssertionError(f"K1 wsub={wsub}: {spill} tiles hold "
                                      "slot (row 0, lane 5), expected 16")
+            st = plan.stream
+            if st.nnz != s.nnz:
+                raise AssertionError(f"K1 wsub={wsub}: the stream holds "
+                                     f"{st.nnz} entries, the CSR {s.nnz}")
+            label = f"K1 wsub={wsub} {dtype}"
+            err, y1 = _twice_vs_plain(
+                label, lambda: pt.csr_smvm_segtile(a, v, plan),
+                lambda: cuda_csr.segtile_stream_plain(st, v), bound, dtype)
+            if not torch.all(y1[3:n:7] == 0):
+                raise AssertionError(f"{label}: an empty row is not exactly 0")
             raw = dict(n=n, wsub=wsub, rows=8, kstep=plan.kstep,
                        chunks=plan.chunks)
             arrs = (plan.vals, plan.q, plan.seg_of, plan.rb)
-            y1 = cuda_csr.segtile_apply(*arrs, v, **raw)
-            torch.cuda.synchronize()
-            y2 = cuda_csr.segtile_apply(*arrs, v, **raw)
-            torch.cuda.synchronize()
-            if not torch.equal(y1, y2):
-                raise AssertionError(f"K1 wsub={wsub} {dtype}: two runs "
-                                     "differ bitwise")
-            yp = cuda_csr.segtile_apply_plain(*arrs, v, **raw)
-            err = check_close(f"K1 wsub={wsub} {dtype}", y1[:n], yp[:n],
-                              bound, dtype)
-            empty = y1[3:n:7]
-            if not torch.all(empty == 0):
-                raise AssertionError("K1: an empty row is not exactly 0")
+            if not torch.equal(cuda_csr.segtile_apply(*arrs, v, **raw), y1):
+                raise AssertionError(f"{label}: the raw-array route differs "
+                                     "from the plan route")
             # padded raw-array call: 37 inert tiles (rb 0 and last block),
             # whole tile order shuffled
             pad = 37
             t = plan.n_tiles
-            p = torch.randperm(t + pad, device="cuda",
-                               generator=torch.Generator("cuda").manual_seed(1))
+            gen = torch.Generator("cuda").manual_seed(1)
+            p = torch.randperm(t + pad, device="cuda", generator=gen)
             rbp = torch.cat([plan.rb, torch.tensor(
                 [0, -(-n // 8) - 1] * (pad // 2) + [0], dtype=torch.int32,
                 device="cuda")])
@@ -332,11 +371,14 @@ def phase2_kernels_vs_plain():
                                         **raw)
             torch.cuda.synchronize()
             err3 = check_close(f"K1 padded wsub={wsub} {dtype}", y3[:n],
-                               yp[:n], bound, dtype)
+                               y1, bound, dtype)
             print(f"   K1 wsub={wsub:2d} {str(dtype):13s} tiles "
-                  f"{plan.n_tiles:6d} ({spill} spill tiles on one slot) "
-                  f"max|kernel-plain| {err:.3e}, padded+shuffled "
-                  f"{err3:.3e}; bitwise repeatable", flush=True)
+                  f"{plan.n_tiles:6d} ({spill} spill tiles on one slot), "
+                  f"stream {st.nnz} entries, group {st.group}: "
+                  f"max|kernel-plain| {err:.3e}, raw route equal, padded+"
+                  f"shuffled {err3:.3e}; bitwise repeatable", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        _long_row_case(dtype, rng)
     sys.path.insert(0, str(ROOT / "benchmarks"))
     from gen_fixtures import elasticity_fem
 
@@ -351,18 +393,27 @@ def phase2_kernels_vs_plain():
             torch.from_numpy(c.col).cuda(),
             torch.from_numpy(c.data).to(dtype).cuda()))
         ab = pt.csr_to_bsr(a, 2)
-        plan = pt.build_seg_tiles_block(ab, wsub=16)
+        plan = pt.build_seg_tiles_block(ab, wsub=16, refreshable=True)
         v = torch.from_numpy(v_np).to(dtype).cuda()
-        y1 = cuda_csr_block.bsr_smvm_segtile_block(ab, v, plan)
-        torch.cuda.synchronize()
-        y2 = cuda_csr_block.bsr_smvm_segtile_block(ab, v, plan)
-        torch.cuda.synchronize()
-        if not torch.equal(y1, y2):
-            raise AssertionError(f"K2 {dtype}: two runs differ bitwise")
-        yp = cuda_csr_block.bsr_smvm_segtile_block_plain(ab, v, plan)
-        err = check_close(f"K2 {dtype}", y1, yp, bound, dtype)
-        print(f"   K2 wsub=16 {str(dtype):13s} tiles {plan.n_tiles:6d} "
-              f"max|kernel-plain| {err:.3e}; bitwise repeatable", flush=True)
+        st = plan.stream
+        err, _ = _twice_vs_plain(
+            f"K2 {dtype}", lambda: cuda_csr_block.bsr_smvm_segtile_block(
+                ab, v, plan),
+            lambda: cuda_csr_block.block_stream_plain(st, v), bound, dtype)
+        # refresh against a rebuild: the same stream, the same bits
+        blocks = ab.blocks * -1.5 + 0.25
+        ab2 = pt.BSR(indices=ab.indices, blocks=blocks, n=ab.n, bsz=2)
+        y_ref = cuda_csr_block.bsr_smvm_segtile_block(
+            ab2, v, pt.block_seg_tiles_refresh(plan, blocks))
+        y_new = cuda_csr_block.bsr_smvm_segtile_block(
+            ab2, v, pt.build_seg_tiles_block(ab2, wsub=16))
+        if not torch.equal(y_ref, y_new):
+            raise AssertionError(f"K2 {dtype}: a refreshed plan differs "
+                                 "from a rebuilt one")
+        print(f"   K2 wsub=16 {str(dtype):13s} tiles {plan.n_tiles:6d}, "
+              f"stream {st.nnz} blocks, group {st.group}: max|kernel-plain| "
+              f"{err:.3e}; bitwise repeatable; refresh equals rebuild",
+              flush=True)
     for a, v, want in _readme_cases():
         y = pt.csr_smvm_segtile(a, v, pt.build_seg_tiles(a))
         if not torch.equal(y, want):
@@ -370,6 +421,62 @@ def phase2_kernels_vs_plain():
                                  f"{y.tolist()}")
         print(f"   README fixture {a.shape[0]}x{a.shape[1]} through K1: "
               f"{y.tolist()}", flush=True)
+
+
+def _long_row_case(dtype, rng):
+    """300 x 50,000, row 7 holding 20,000 entries, row 8 empty, every 9th
+    stored value an explicit zero: K1 and K1-mxu against their plain
+    version and SciPy, the stream holding every stored entry; a refreshed
+    plan gives a rebuilt plan's bits."""
+    import scipy.sparse as sp
+
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch import interop
+    from sparse_tpu_torch.ops import cuda_csr
+
+    n, m = 300, 50_000
+    base = sp.random(n, m, density=0.002, random_state=5, format="coo")
+    rows = np.r_[base.row, np.full(20_000, 7)]
+    cols = np.r_[base.col, rng.choice(m, 20_000, replace=False)]
+    keep = rows != 8
+    s = sp.coo_matrix((rng.standard_normal(keep.sum()),
+                       (rows[keep], cols[keep])), shape=(n, m)).tocsr()
+    s.sum_duplicates()
+    s.data[::9] = 0.0  # stored zeros stay stored
+    v_np = rng.standard_normal(m)
+    bound = abs_bound(s, v_np)
+    a = interop.csr_from_arrays(s.data, s.indices, s.indptr, s.shape,
+                                device="cuda")
+    a = pt.CSR(data=a.data.to(dtype), indices=a.indices, indptr=a.indptr,
+               shape=a.shape)
+    v = torch.from_numpy(v_np).to(dtype).cuda()
+    plan = pt.build_seg_tiles(a, wsub=32, refreshable=True)
+    st = plan.stream
+    if st.nnz != s.nnz or st.n_long < 1:
+        raise AssertionError(f"long-row case: stream {st.nnz} entries (CSR "
+                             f"{s.nnz}), {st.n_long} long rows")
+    ref = torch.from_numpy(s @ v_np).cuda()
+    errs = []
+    for reduce in ("vpu", "mxu"):
+        label = f"K1 {reduce} long row {str(dtype)[6:]}"
+        err, y = _twice_vs_plain(
+            label, lambda: pt.csr_smvm_segtile(a, v, plan, reduce=reduce),
+            lambda: cuda_csr.segtile_stream_plain(st, v), bound, dtype)
+        errs.append(max(err, check_close(f"{label} vs scipy", y, ref, bound,
+                                         dtype)))
+        if y[8] != 0:
+            raise AssertionError(f"{label}: the empty row is not exactly 0")
+    new = a.data * -1.5 + 0.25
+    a2 = pt.CSR(data=new, indices=a.indices, indptr=a.indptr, shape=a.shape)
+    y_ref = pt.csr_smvm_segtile(a2, v, pt.seg_tiles_refresh(plan, new))
+    y_new = pt.csr_smvm_segtile(a2, v, pt.build_seg_tiles(a2, wsub=32))
+    if not torch.equal(y_ref, y_new):
+        raise AssertionError("long-row case: a refreshed plan differs from "
+                             "a rebuilt one")
+    print(f"   K1 long row {str(dtype)[6:]}: 300x50000, {st.nnz} entries "
+          f"({int((a.data == 0).sum())} stored zeros), {st.n_long} long "
+          f"row(s) in {st.n_pieces} pieces: max err vpu {errs[0]:.3e}, mxu "
+          f"{errs[1]:.3e}; refresh equals rebuild", flush=True)
 
 
 def _readme_cases():
@@ -436,9 +543,10 @@ def phase4_band():
     torch.cuda.synchronize()
     t_csr = time.perf_counter() - t0
     launches0 = cuda_csr.K1_LAUNCHES
-    t0 = time.perf_counter()
-    plan = pt.smvm_prepare(a)
-    t_prep = time.perf_counter() - t0
+    with _timed_stream_builds() as builds:
+        t0 = time.perf_counter()
+        plan = pt.smvm_prepare(a)
+        t_prep = time.perf_counter() - t0
     v = torch.from_numpy(v_np).cuda()
     y = plan.apply(v)
     torch.cuda.synchronize()
@@ -456,7 +564,60 @@ def phase4_band():
           f"fill={st.fill:.4f} n_tiles={st.n_tiles}; csr_from_coo "
           f"{t_csr:.2f} s, smvm_prepare {t_prep:.2f} s (host); "
           f"max|y-scipy| {err:.3e}", flush=True)
+    _plan_memory("band", st)
+    _stream_build_time("band", builds, t_prep)
     return dict(plan=plan, v=v, nnz=s.nnz, bound=bound)
+
+
+@contextlib.contextmanager
+def _timed_stream_builds():
+    """Host seconds of each compact-stream build run inside the block,
+    timed where the planners call ``_stream_from_slots`` (``cuda_csr`` and
+    ``cuda_csr_block``), with the card synchronised on each side."""
+    from sparse_tpu_torch.ops import cuda_csr, cuda_csr_block
+
+    build = cuda_csr._stream_from_slots
+    spent = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = build(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    mods = (cuda_csr, cuda_csr_block)
+    for mod in mods:
+        mod._stream_from_slots = timed
+    try:
+        yield spent
+    finally:
+        for mod in mods:
+            mod._stream_from_slots = build
+
+
+def _stream_build_time(cell, spent, t_prep):
+    """Prints the stream builds' share of ``smvm_prepare``."""
+    t = sum(spent)
+    print(f"   {cell}: smvm_prepare ran {len(spent)} compact-stream build(s), "
+          f"{t * 1e3:.1f} ms (host clock), {t / t_prep:.1%} of its "
+          f"{t_prep:.2f} s", flush=True)
+
+
+def _plan_memory(cell, plan):
+    """What one segment-tile plan holds on the card: the slot tensors and
+    the compact stream, in bytes."""
+    slots = sum(t.numel() * t.element_size()
+                for t in (plan.vals, plan.q, plan.seg_of, plan.rb))
+    st = plan.stream
+    stream = sum(t.numel() * t.element_size()
+                 for t in (st.vals, st.cols, st.row_ptr, st.long_rows,
+                           st.piece_ptr, st.piece_row))
+    print(f"   {cell} plan on the card: slots {slots / 1e6:.1f} MB, compact "
+          f"stream {stream / 1e6:.1f} MB ({st.nnz} entries, lane group "
+          f"{st.group}, {st.n_long} long rows in {st.n_pieces} pieces)",
+          flush=True)
 
 
 def phase5_elasticity():
@@ -484,9 +645,10 @@ def phase5_elasticity():
     torch.cuda.synchronize()
     t_csr = time.perf_counter() - t0
     launches0 = cuda_csr_block.K2_LAUNCHES
-    t0 = time.perf_counter()
-    plan = pt.smvm_prepare(a)
-    t_prep = time.perf_counter() - t0
+    with _timed_stream_builds() as builds:
+        t0 = time.perf_counter()
+        plan = pt.smvm_prepare(a)
+        t_prep = time.perf_counter() - t0
     v = torch.from_numpy(v_np).cuda()
     y = plan.apply(v)
     torch.cuda.synchronize()
@@ -504,62 +666,59 @@ def phase5_elasticity():
           f"(generated in {t_gen:.1f} s); csr_from_coo {t_csr:.2f} s, "
           f"smvm_prepare {t_prep:.2f} s (host); max|y-scipy| {err:.3e}",
           flush=True)
+    _plan_memory("elasticity", st)
+    _stream_build_time("elasticity", builds, t_prep)
     return dict(plan=plan, v=v, nnz=s.nnz)
 
 
-def _time_in_turns(cell, kname, kernel, plain, apply, nnz, slot_bytes,
+def _time_in_turns(cell, kname, kernel, plain, apply, nnz, stream_bytes,
                    card):
     """Plain, kernel, kernel, plain (so each pair shows its own spread),
     then ``apply`` when given; returns the first kernel and first plain
     back-to-back times."""
-    _, ms_p = _report(cell, "plain", plain, nnz, slot_bytes, card)
-    _, ms_k = _report(cell, f"{kname} kernel", kernel, nnz, slot_bytes, card)
-    _report(cell, f"{kname} kernel", kernel, nnz, slot_bytes, card)
-    _report(cell, "plain", plain, nnz, slot_bytes, card)
+    _, ms_p = _report(cell, "plain", plain, nnz, stream_bytes, card)
+    _, ms_k = _report(cell, f"{kname} kernel", kernel, nnz, stream_bytes,
+                      card)
+    _report(cell, f"{kname} kernel", kernel, nnz, stream_bytes, card)
+    _report(cell, "plain", plain, nnz, stream_bytes, card)
     if apply is not None:
-        _report(cell, "apply", apply, nnz, slot_bytes, card)
+        _report(cell, "apply", apply, nnz, stream_bytes, card)
     return ms_k, ms_p
 
 
 def phase6_timing(card, band, ela, launches):
-    """Kernel vs plain at the main path's shapes (tolerance, bitwise
-    repeat), and median times of the kernel and its plain version in turns,
-    then of apply."""
+    """K1 and K2 against their plain versions at the main path's shapes
+    (tolerance, bitwise repeat), the median times of the kernel through its
+    entry point and of its plain version in turns, then of apply; a
+    profiler trace names the kernels of one apply."""
+    import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_csr, cuda_csr_block
 
     out = []
-    # K1 on the band plan
+    # K1 on the band plan, through the plan route
     plan, v = band["plan"], band["v"]
-    st = plan.state[1]
-    a = plan.state[0]
-    raw = dict(n=a.shape[0], wsub=st.wsub, rows=8, kstep=st.kstep,
-               chunks=st.chunks)
-    arrs = (st.vals, st.q, st.seg_of, st.rb)
+    a, st = plan.state
 
     def k1():
-        return cuda_csr.segtile_apply(*arrs, v, **raw)
+        return pt.csr_smvm_segtile(a, v, st)
 
     def p1():
-        return cuda_csr.segtile_apply_plain(*arrs, v, **raw)
+        return cuda_csr.segtile_stream_plain(st.stream, v)
 
-    y, y2, yp = k1(), k1(), p1()
-    torch.cuda.synchronize()
-    if not torch.equal(y, y2):
-        raise AssertionError("K1 at the band's shape: runs differ bitwise")
-    n = a.shape[0]
-    err1 = check_close("K1 vs plain (band)", y[:n], yp[:n], band["bound"],
-                       torch.float32)
+    err1, _ = _twice_vs_plain("K1 vs plain (band)", k1, p1, band["bound"],
+                              torch.float32)
     ms_k, ms_p = _time_in_turns("band", "K1", k1, p1, lambda: plan.apply(v),
-                                band["nnz"], cuda_csr.segtile_hbm_bytes(st),
+                                band["nnz"], cuda_csr.segtile_stream_bytes(st),
                                 card)
-    csr_t = torch_csr(a)
-    band["library_ms"] = library_ms("CSR @ v (band)", lambda: csr_t @ v,
-                                    card)
+    _apply_kernels("band apply", lambda: plan.apply(v))
+    lib, libs = library_csr_ms("CSR @ v (band)", a, v, card)
+    band["library_ms"] = (lib, libs)
     out.append(kernel_entry(
         "K1 segtile_csr", "sparse_tpu_torch/csrc/segtile_csr.cu",
         "sparse_tpu/ops/pallas_csr.py:492", launches["K1"], err1, ms_k, ms_p,
-        csr_spmv_cost(a), band["library_ms"],
-        "torch.sparse_csr_tensor(...) @ v"))
+        csr_spmv_cost(a), lib, LIBRARY_CSR,
+        bytes_per_stored_entry=st.stream.bytes_per_entry,
+        library_ms_by_index=libs))
     # K2 on the elasticity plan
     plan, v = ela["plan"], ela["v"]
     ab, st = plan.state
@@ -569,23 +728,17 @@ def phase6_timing(card, band, ela, launches):
         return cuda_csr_block.bsr_smvm_segtile_block(ab, vp, st)
 
     def p2():
-        return cuda_csr_block.bsr_smvm_segtile_block_plain(ab, vp, st)
+        return cuda_csr_block.block_stream_plain(st.stream, vp)
 
-    y, y2, yp = k2(), k2(), p2()
-    torch.cuda.synchronize()
-    if not torch.equal(y, y2):
-        raise AssertionError("K2 at the elasticity shape: runs differ "
-                             "bitwise")
     bound = _block_bound(ab, vp.abs().double())
-    err2 = check_close("K2 vs plain (elasticity)", y, yp, bound,
-                       torch.float32)
+    err2, _ = _twice_vs_plain("K2 vs plain (elasticity)", k2, p2, bound,
+                              torch.float32)
     ms_k, ms_p = _time_in_turns(
         "elasticity", "K2", k2, p2, lambda: plan.apply(v), ela["nnz"],
-        cuda_csr_block.block_segtile_hbm_bytes(st), card)
-    import sparse_tpu_torch as pt
-
-    csr_b = torch_csr(pt.bsr_to_csr(ab))
-    lib2 = library_ms("CSR @ v (elasticity)", lambda: csr_b @ vp, card)
+        cuda_csr_block.block_stream_bytes(st), card)
+    _apply_kernels("elasticity apply", lambda: plan.apply(v))
+    lib2, libs2 = library_csr_ms("CSR @ v (elasticity)", pt.bsr_to_csr(ab),
+                                 vp, card)
     # the 2x2 blocks once (values and block column), block row pointers,
     # the operand and the output
     from sparse_tpu_torch.utils.stats import blocked_bound_bytes
@@ -597,8 +750,45 @@ def phase6_timing(card, band, ela, launches):
     out.append(kernel_entry(
         "K2 segtile_block", "sparse_tpu_torch/csrc/segtile_block.cu",
         "sparse_tpu/ops/pallas_csr_block.py:229", launches["K2"], err2, ms_k,
-        ms_p, cost2, lib2, "torch.sparse_csr_tensor(...) @ v"))
+        ms_p, cost2, lib2, LIBRARY_CSR,
+        bytes_per_stored_entry=st.stream.bytes_per_entry,
+        library_ms_by_index=libs2))
     return out
+
+
+#: The library call every SpMV kernel is held against.
+LIBRARY_CSR = ("torch.sparse_csr_tensor(...) @ v, the faster of int32 and "
+               "int64 indices")
+
+
+def _apply_kernels(label, fn, calls=5):
+    """The device kernels ``calls`` runs of ``fn`` launch, from a
+    ``torch.profiler`` trace: name, launches per call and device us per
+    call.  Fails if a sort or a search runs (the plan holds the order)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = kernels.get(e.name, (0, 0.0))
+            kernels[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if not kernels:
+        print(f"   {label}: the profiler saw no device kernel", flush=True)
+    for name, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1]):
+        print(f"   {label} kernel: {n / calls:g} launch(es) a call, "
+              f"{us / calls:.1f} us a call: {name[:110]}", flush=True)
+    bad = [k for k in kernels if "sort" in k.lower() or "search" in k.lower()]
+    if bad:
+        raise AssertionError(f"{label}: a sort or search runs per call: "
+                             f"{bad}")
 
 
 def _block_bound(ab, vabs):
@@ -950,9 +1140,11 @@ def library_spmm(m, b, card, label):
 def _report_spmm(label, fn, flops, nbytes, card):
     """Median alone and back-to-back times of ``fn`` with GB/s by the bytes
     model and useful GFLOP/s; returns (alone, back to back) ms."""
-    ms, ms_b2b = median_ms(fn), pipelined_ms(fn)
+    ms = median_ms(fn)
+    ms_b2b, fastest = pipelined_ms(fn)
     print(f"   {label:24s}: {ms:.4f} ms alone (median of {N_TIMED}), "
-          f"{ms_b2b:.4f} ms back to back; {nbytes / ms / 1e6:.1f} / "
+          f"{ms_b2b:.4f} ms back to back (median window; fastest "
+          f"{fastest:.4f}); {nbytes / ms / 1e6:.1f} / "
           f"{nbytes / ms_b2b / 1e6:.1f} GB/s; {flops / ms / 1e6:.1f} / "
           f"{flops / ms_b2b / 1e6:.1f} useful GFLOP/s [{card}]", flush=True)
     return ms, ms_b2b
@@ -1405,8 +1597,10 @@ _VARIANTS = ((8, "ff"), (8, "rigid"), (32, "ff"), (32, "rigid"))
 
 
 def phase13_variants_vs_plain():
-    """K1 at rows 8/32 x reduce vpu/mxu x float32/float64 x wsub 8/16/32 on
-    first-fit and rigid plans (empty rows, one slot spilled 16 deep), and
+    """K1 over the compact stream at rows 8/32 x reduce vpu/mxu x
+    float32/float64 x wsub 8/16/32 on first-fit and rigid plans (empty
+    rows, one slot spilled 16 deep), the raw-array route equal to the plan
+    route, and
     K8 in float32 and the bf16 stream at odd shapes (nb % rt != 0, an empty
     block row), each against its plain version on the card, twice for
     bitwise repeatability."""
@@ -1435,19 +1629,24 @@ def phase13_variants_vs_plain():
                              f"{str(dtype)[6:]}")
                     err, y = _twice_vs_plain(
                         label,
-                        lambda: cuda_csr.segtile_apply(
-                            *arrs, v, reduce=reduce, **raw)[:n],
-                        lambda: cuda_csr.segtile_apply_plain(
-                            *arrs, v, reduce=reduce, **raw)[:n],
+                        lambda: pt.csr_smvm_segtile(a, v, plan,
+                                                    reduce=reduce),
+                        lambda: cuda_csr.segtile_stream_plain(plan.stream,
+                                                              v),
                         bound, dtype)
                     if not torch.all(y[3::7] == 0):
                         raise AssertionError(f"{label}: an empty row is not "
                                              "exactly 0")
+                    if not torch.equal(cuda_csr.segtile_apply(
+                            *arrs, v, reduce=reduce, **raw), y):
+                        raise AssertionError(f"{label}: the raw-array route "
+                                             "differs from the plan route")
                     errs.append(err)
                 print(f"   K1 rows={r:2d} {layout:5s} wsub={wsub:2d} "
                       f"{str(dtype)[6:]:7s} tiles {plan.n_tiles:6d} fill "
                       f"{plan.fill:.4f}: max|kernel-plain| vpu {errs[0]:.3e}"
-                      f", mxu {errs[1]:.3e}; bitwise repeatable", flush=True)
+                      f", mxu {errs[1]:.3e}; bitwise repeatable, raw route "
+                      "equal", flush=True)
     # K8: (nb, bsz, rt, k, stream)
     for nb, bsz, rt, k, stream in ((301, 8, 4, 40, torch.float32),
                                    (301, 8, 4, 40, torch.bfloat16),
@@ -1598,10 +1797,11 @@ def phase14_slice(wsub0, m):
 
 
 def phase15_timing(card, sl, m, band_lib, launches):
-    """Every band-10M variant plan x reduce and K8 (float32, bf16 stream)
-    against their plain versions in turns (plain, kernel, kernel, plain),
-    alone and back to back, with nnz_roofline at csr_min_bytes and the
-    plan's bytes, and the entry point's dependency-chained time
+    """Every band-10M variant plan x reduce through ``csr_smvm_segtile``
+    and K8 (float32, bf16 stream) against their plain versions in turns
+    (plain, kernel, kernel, plain), alone and back to back, with
+    nnz_roofline at csr_min_bytes and the compact stream's bytes, and the
+    entry point's dependency-chained time
     (``timed_op``); a 1 GiB device copy as the card's streaming rate."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_csr, cuda_dband
@@ -1619,29 +1819,28 @@ def phase15_timing(card, sl, m, band_lib, launches):
           f"indices; {bound_ms(*cost)[0]:.4f} ms", flush=True)
     ref = None
     out = []
+    # the yardstick again, in this phase's conditions (phase 6's reading
+    # stays in its K1 entry)
+    lib, libs = library_csr_ms("CSR @ v (band-10M, phase 15)", a, v, card)
+    print(f"   phase 6 read the library at {band_lib[0]:.4f} ms", flush=True)
     for (r, layout), plan in sl["plans"].items():
-        raw = dict(n=n, wsub=plan.wsub, rows=r, kstep=plan.kstep,
-                   chunks=plan.chunks)
-        arrs = (plan.vals, plan.q, plan.seg_of, plan.rb)
+        stream_bytes = cuda_csr.segtile_stream_bytes(plan)
         for reduce in ("vpu", "mxu"):
             def kern():
-                return cuda_csr.segtile_apply(*arrs, v, reduce=reduce, **raw)
+                return pt.csr_smvm_segtile(a, v, plan, reduce=reduce)
 
             def plain():
-                return cuda_csr.segtile_apply_plain(*arrs, v, reduce=reduce,
-                                                    **raw)
+                return cuda_csr.segtile_stream_plain(plan.stream, v)
 
             cell = f"band r{r} {layout} {reduce}"
-            y, yp = kern()[:n], plain()[:n]
+            y, yp = kern(), plain()
             if ref is None:
                 ref = abs_bound(sl["s"], v.double().cpu().numpy())
             err = check_close(cell, y, yp, ref, torch.float32)
             ms_k, ms_p = _time_in_turns(cell, "K1", kern, plain, None, nnz,
-                                        cuda_csr.segtile_hbm_bytes(plan),
-                                        card)
+                                        stream_bytes, card)
             rl = nnz_roofline(nnz, min_bytes=min_bytes,
-                              plan_bytes=cuda_csr.segtile_hbm_bytes(plan),
-                              seconds=ms_k / 1e3)
+                              plan_bytes=stream_bytes, seconds=ms_k / 1e3)
             print(f"   {cell}: nnz_roofline at {HBM_CEILING_GBPS:.0f} GB/s: "
                   + ", ".join(f"{key} {val:.4g}" for key, val in rl.items()),
                   flush=True)
@@ -1656,15 +1855,17 @@ def phase15_timing(card, sl, m, band_lib, launches):
                     "K1-r32 segtile_csr rows=32",
                     "sparse_tpu_torch/csrc/segtile_csr.cu",
                     "sparse_tpu/ops/pallas_csr.py:531", launches["K1-r32"],
-                    err, ms_k, ms_p, cost, band_lib,
-                    "torch.sparse_csr_tensor(...) @ v"))
+                    err, ms_k, ms_p, cost, lib, LIBRARY_CSR,
+                    bytes_per_stored_entry=plan.stream.bytes_per_entry,
+                    library_ms_by_index=libs))
             if (r, layout, reduce) == (8, "ff", "mxu"):
                 out.append(kernel_entry(
                     "K1-mxu segtile_mxu",
                     "sparse_tpu_torch/csrc/segtile_mxu.cu",
                     "sparse_tpu/ops/pallas_csr.py:565", launches["K1-mxu"],
-                    err, ms_k, ms_p, cost, band_lib,
-                    "torch.sparse_csr_tensor(...) @ v"))
+                    err, ms_k, ms_p, cost, lib, LIBRARY_CSR,
+                    bytes_per_stored_entry=plan.stream.bytes_per_entry,
+                    library_ms_by_index=libs))
     d = sl["dband"]
     plan, nb, bsz, k = d["plan"], d["nb"], d["bsz"], d["k"]
     nbz = int(m["slot_valid"].sum())

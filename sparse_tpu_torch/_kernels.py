@@ -47,21 +47,17 @@ _I = ctypes.c_int
 
 # name -> argtypes.  Pointer arguments are c_void_p (a Python int from
 # Tensor.data_ptr()); the last argument is the cudaStream_t.
+_STREAM = (_P,) * 9 + (_LL,) * 3  # the compact-stream kernels' common head
 _SIGNATURES = {
-    # vals, q, seg_of, order, tile_ptr, v, partial, y, n_tiles, m, nbR,
-    # rows, stream
-    "segtile_csr_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
-                        _P),
-    "segtile_csr_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
-                        _P),
-    "segtile_mxu_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
-                        _P),
-    "segtile_mxu_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
-                        _P),
-    # vals, q, seg_of, order, tile_ptr, v, partial, y, n_tiles, nb, nbRb,
-    # stream
-    "segtile_block_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P),
-    "segtile_block_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P),
+    # vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
+    # n_rows, n_long, n_pieces, long_min, piece, group, stream
+    "segtile_csr_f32": _STREAM + (_I, _I, _I, _P),
+    "segtile_csr_f64": _STREAM + (_I, _I, _I, _P),
+    "segtile_block_f32": _STREAM + (_I, _I, _I, _P),
+    "segtile_block_f64": _STREAM + (_I, _I, _I, _P),
+    # the same without the lane group
+    "segtile_mxu_f32": _STREAM + (_I, _I, _P),
+    "segtile_mxu_f64": _STREAM + (_I, _I, _P),
     # kind, blocks, cols, b, c, nb, Lb, bsz, k, stream
     "bell_fused": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
     "bell_block": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),

@@ -1,121 +1,136 @@
-// K2: block-granule (2x2 BSR) segment-tile SpMV on Hopper.
+// K2: block-granule (2x2 BSR) segment-tile SpMV on Hopper, over the plan's
+// compact stream.
 //
 // Replaces the TPU kernel
 // sparse_tpu/ops/pallas_csr_block.py::bsr_smvm_segtile_block (def :229,
-// pallas_call :309, kernel :259).  One slot holds a whole 2x2 block: four
-// value planes share one int8 window pointer.  For tile t, row r, lane l,
-// with block column c = (seg_of[t] + q[t,r,l])*128 + l:
-//   y[2*(rb[t]*8 + r) + 0] += vals[t,0,r,l]*v[2c] + vals[t,1,r,l]*v[2c+1]
-//   y[2*(rb[t]*8 + r) + 1] += vals[t,2,r,l]*v[2c] + vals[t,3,r,l]*v[2c+1]
-// Block columns at or past nb read 0 (the TPU kernel's zero guard rows).
-// The operand is indexed directly (v[2c+i]); the TPU kernel's interleaved
-// operand planes with guard rows are not needed here.
+// pallas_call :309, kernel :259).  The TPU plan puts a whole 2x2 block in
+// one slot (four value planes sharing one int8 window pointer); the plan
+// here also holds its stored blocks as a compact stream (ops/cuda_csr.py):
+// per block one 16-byte record of its four values (a00, a01, a10, a11; 32
+// bytes in float64) and one int32 block column, in (block row, tile, lane)
+// order, with int32 block-row offsets.  For block row r:
+//   y[2r]     = sum over its blocks of a00 * v[2c] + a01 * v[2c+1]
+//   y[2r + 1] = sum over its blocks of a10 * v[2c] + a11 * v[2c+1]
 //
-// What bounds it on this card: the slot stream, 17 bytes per slot in
-// float32 (four 4-byte values + one 1-byte pointer; 33 in float64), against
-// 3.35 TB/s of HBM.  The operand (3.2 MB for 400k float64 rows) stays in
-// the 50 MB L2.
+// What bounds it on this card: the stream, 20 bytes per stored block in
+// float32 (5 per scalar entry; 36 per block in float64), plus the block-row
+// offsets and the output, against 3.35 TB/s of HBM.  The TPU's slots cost
+// 17 bytes each at any fill.  The operand (1.6 MB for 400k float32 rows
+// after the block RCM) stays in the 50 MB L2.
 //
-// What the design does about it: the K1 shape (segtile_csr.cu) with four
-// value planes — one block per tile, one warp per tile row, 16-byte
-// evict-first loads of each plane, the shared pointer loaded once and the
-// two operand values of a block column gathered once for all four planes;
-// then the deterministic pass 2 of segtile_common.cuh with two components
-// per row.
+// What the design does about it: one pass, a group of G lanes for 4
+// consecutive block rows (G from the plan's mean blocks per row; 2 rows at
+// G = 16, 1 at 32), each lane taking every G-th block of each row, the
+// first block of all its rows loaded before the first gather: one 16-byte evict-first record load, one 4-byte column load and
+// one 8-byte gather of the operand pair (float2 / double2 through __ldg);
+// two sums per row, reduced by the group's butterfly and written once; a
+// block walks consecutive chunks of block rows so the operand window stays
+// in its L1.
+// Long block rows are cut into pieces of 128 blocks, summed in order, as
+// in segtile_common.cuh.
 
 #include "segtile_common.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
-    segtile_block_rows(const T* __restrict__ vals,
-                       const signed char* __restrict__ q,
-                       const int* __restrict__ seg_of,
-                       const T* __restrict__ v, long long nb,
-                       T* __restrict__ partial) {
-  const long long t = blockIdx.x;
-  const int r = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  constexpr long long kPlane = static_cast<long long>(kRows) * kLanes;
-  // vals (n_tiles, 4, 8, 128): element (t, p, r, l) at ((t*4+p)*8+r)*128+l
-  const T* base = vals + (t * 4 * kRows + r) * kLanes + lane * 4;
-  T a0[4], a1[4], a2[4], a3[4];
-  load4_stream(base, a0);
-  load4_stream(base + kPlane, a1);
-  load4_stream(base + 2 * kPlane, a2);
-  load4_stream(base + 3 * kPlane, a3);
-  const char4 qq = load_q4(q + (t * kRows + r) * kLanes + lane * 4);
-  const int qs[4] = {qq.x, qq.y, qq.z, qq.w};
-  const long long col0 =
-      static_cast<long long>(__ldg(seg_of + t)) * kLanes + lane * 4;
-  T acc0 = T(0), acc1 = T(0);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const long long c = col0 + static_cast<long long>(qs[j]) * kLanes + j;
-    T x0 = T(0), x1 = T(0);
-    if (c >= 0 && c < nb) {
-      x0 = __ldg(v + 2 * c);
-      x1 = __ldg(v + 2 * c + 1);
-    }
-    acc0 += a0[j] * x0 + a1[j] * x1;
-    acc1 += a2[j] * x0 + a3[j] * x1;
-  }
-  acc0 = warp_sum(acc0);
-  acc1 = warp_sum(acc1);
-  if (lane == 0) {
-    partial[(t * kRows + r) * 2] = acc0;
-    partial[(t * kRows + r) * 2 + 1] = acc1;
-  }
+__device__ __forceinline__ void load_pair(const float* v, int c, float& x0,
+                                          float& x1) {
+  const float2 t = __ldg(reinterpret_cast<const float2*>(v) + c);
+  x0 = t.x;
+  x1 = t.y;
 }
 
-template <typename T>
-cudaError_t segtile_block(const void* vals, const void* q,
-                          const void* seg_of, const void* order,
-                          const void* tile_ptr, const void* v, void* partial,
-                          void* y, long long n_tiles, long long nb,
-                          long long nbRb, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_tiles > 0) {
-    segtile_block_rows<T><<<static_cast<unsigned>(n_tiles), kTileThreads, 0,
-                            s>>>(
-        static_cast<const T*>(vals), static_cast<const signed char*>(q),
-        static_cast<const int*>(seg_of), static_cast<const T*>(v), nb,
-        static_cast<T*>(partial));
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
+__device__ __forceinline__ void load_pair(const double* v, int c, double& x0,
+                                          double& x1) {
+  const double2 t = __ldg(reinterpret_cast<const double2*>(v) + c);
+  x0 = t.x;
+  x1 = t.y;
+}
+
+template <typename Tp>
+struct BlockEntries {
+  using T = Tp;
+  static constexpr int kUnit = 1;
+  static constexpr int kC = 2;
+  const T* vals;  // (nbz, 4), 16-byte aligned
+  const int* cols;
+  const T* v;  // (2 * nb), aligned to two elements
+
+  struct Unit {
+    T a[4];
+    int c;
+  };
+
+  __device__ __forceinline__ Unit load(long long u) const {
+    Unit x;
+    load4_stream(vals + 4 * u, x.a);
+    x.c = __ldcs(cols + u);
+    return x;
   }
-  return launch_rowblock_sum<T, 2>(
-      static_cast<const T*>(partial), static_cast<const int*>(order),
-      static_cast<const int*>(tile_ptr), nbRb, static_cast<T*>(y), s);
+
+  __device__ __forceinline__ void add(T (&acc)[2], const Unit& x,
+                                      long long, long long, long long) const {
+    T x0, x1;
+    load_pair(v, x.c, x0, x1);
+    acc[0] += x.a[0] * x0 + x.a[1] * x1;
+    acc[1] += x.a[2] * x0 + x.a[3] * x1;
+  }
+
+  __device__ __forceinline__ static void store(T* out, long long i,
+                                               const T (&acc)[2]) {
+    out[2 * i] = acc[0];
+    out[2 * i + 1] = acc[1];
+  }
+};
+
+template <typename T>
+int segtile_block_any(const void* vals, const void* cols,
+                      const void* row_ptr, const void* long_rows,
+                      const void* piece_ptr, const void* piece_row,
+                      const void* v, void* partial, void* y, long long n_rows,
+                      long long n_long, long long n_pieces, int long_min,
+                      int piece, int group, void* stream) {
+  const BlockEntries<T> ent{static_cast<const T*>(vals),
+                            static_cast<const int*>(cols),
+                            static_cast<const T*>(v)};
+  const Rows rows{static_cast<const int*>(row_ptr),
+                  static_cast<const int*>(long_rows),
+                  static_cast<const int*>(piece_ptr),
+                  static_cast<const int*>(piece_row), n_rows, n_pieces,
+                  long_min, piece};
+  return static_cast<int>(launch_stream_rows_any(
+      ent, rows, n_long, group, static_cast<T*>(partial), static_cast<T*>(y),
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
 
 extern "C" {
 
-// vals (n_tiles, 4, 8, 128), q int8 (n_tiles, 8, 128), seg_of int32,
-// order/tile_ptr as in segtile_csr.cu, v (2*nb), partial scratch
-// (n_tiles * 16), y (nbRb * 16) with y[2*row + i].  Returns
-// cudaGetLastError().
-int segtile_block_f32(const void* vals, const void* q, const void* seg_of,
-                      const void* order, const void* tile_ptr,
-                      const void* v, void* partial, void* y,
-                      long long n_tiles, long long nb, long long nbRb,
-                      void* stream) {
-  return static_cast<int>(segtile_block<float>(vals, q, seg_of, order,
-                                               tile_ptr, v, partial, y,
-                                               n_tiles, nb, nbRb, stream));
+// vals (nbz, 4) block records, cols int32 (nbz) block columns, row_ptr int32
+// (n_rows + 1) over block rows, long_rows/piece_ptr/piece_row as in
+// segtile_csr.cu, v (2 * nb), partial scratch (2 * n_pieces), y (2 * n_rows)
+// with y[2*row + i].  Returns cudaGetLastError().
+int segtile_block_f32(const void* vals, const void* cols,
+                      const void* row_ptr, const void* long_rows,
+                      const void* piece_ptr, const void* piece_row,
+                      const void* v, void* partial, void* y, long long n_rows,
+                      long long n_long, long long n_pieces, int long_min,
+                      int piece, int group, void* stream) {
+  return segtile_block_any<float>(vals, cols, row_ptr, long_rows, piece_ptr,
+                                  piece_row, v, partial, y, n_rows, n_long,
+                                  n_pieces, long_min, piece, group, stream);
 }
 
-int segtile_block_f64(const void* vals, const void* q, const void* seg_of,
-                      const void* order, const void* tile_ptr,
-                      const void* v, void* partial, void* y,
-                      long long n_tiles, long long nb, long long nbRb,
-                      void* stream) {
-  return static_cast<int>(segtile_block<double>(vals, q, seg_of, order,
-                                                tile_ptr, v, partial, y,
-                                                n_tiles, nb, nbRb, stream));
+int segtile_block_f64(const void* vals, const void* cols,
+                      const void* row_ptr, const void* long_rows,
+                      const void* piece_ptr, const void* piece_row,
+                      const void* v, void* partial, void* y, long long n_rows,
+                      long long n_long, long long n_pieces, int long_min,
+                      int piece, int group, void* stream) {
+  return segtile_block_any<double>(vals, cols, row_ptr, long_rows, piece_ptr,
+                                   piece_row, v, partial, y, n_rows, n_long,
+                                   n_pieces, long_min, piece, group, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,18 @@
-// Shared pieces of the segment-tile SpMV kernels (segtile_csr.cu,
-// segtile_block.cu): streamed slot loads, the warp sum, and pass 2 — the
-// deterministic per-row-block sum of per-tile partial row sums.
+// Shared pieces of the compact-stream SpMV kernels (segtile_csr.cu,
+// segtile_mxu.cu, segtile_block.cu): the row classes of a plan's compact
+// stream, streamed loads, the lane-group sum, the one-pass row kernel and
+// the fixed-order sum of a long row's pieces.
+//
+// The stream (built once per plan by ops/cuda_csr.py) holds a plan's stored
+// entries in (output row, tile, lane) order, so each output row is one
+// contiguous segment [row_ptr[r], row_ptr[r+1]).  A row is short when it has
+// at most `long_min` entries: a lane group sums it and writes y[r] once.  A
+// longer row is cut into pieces of `piece` entries; one warp sums each piece
+// into partial[p], and long_row_sum adds a row's pieces in piece order.  No
+// float atomics anywhere, so every result is bitwise repeatable.
 //
 // Everything lives in an anonymous namespace so each translation unit keeps
-// its own copy of the templates (both are linked into one library).
+// its own copy of the templates (all are linked into one library).
 
 #pragma once
 
@@ -11,14 +20,41 @@
 
 namespace {
 
-constexpr int kRows = 8;     // rows of one warp-row group of a tile
-constexpr int kLanes = 128;  // slots per tile row
 constexpr int kWarp = 32;
-constexpr int kTileThreads = kRows * kWarp;  // one warp per row of a group
+constexpr int kThreads = 256;  // threads of a block
+constexpr int kWarps = kThreads / kWarp;
+constexpr int kBlocksPerSm = 8;  // short-row blocks launched per SM
 
-// Four consecutive slot values.  The slot stream is read exactly once per
-// SpMV, so it is loaded evict-first (__ldcs) to leave the L2 to the
-// operand vector.  16-byte loads: the wrapper checks the alignment.
+// Row classes of a compact stream.  long_rows lists the long rows; the
+// pieces of long row j are piece_ptr[j] .. piece_ptr[j+1) and piece_row[p]
+// is the j of piece p.
+struct Rows {
+  const int* row_ptr;    // (n_rows + 1) entry offsets
+  const int* long_rows;  // (n_long)
+  const int* piece_ptr;  // (n_long + 1)
+  const int* piece_row;  // (n_pieces)
+  long long n_rows;
+  long long n_pieces;
+  int long_min;  // entries: a row with more is long
+  int piece;     // entries of one piece
+};
+
+// Entry range [s, e) of piece pc (an empty range past the last piece).
+__device__ __forceinline__ void piece_range(const Rows& rows, long long pc,
+                                            long long& s, long long& e) {
+  s = e = 0;
+  if (pc < rows.n_pieces) {
+    const int j = __ldg(rows.piece_row + pc);
+    const int r = __ldg(rows.long_rows + j);
+    const long long k = pc - __ldg(rows.piece_ptr + j);
+    s = __ldg(rows.row_ptr + r) + k * rows.piece;
+    e = min(s + rows.piece, static_cast<long long>(__ldg(rows.row_ptr + r + 1)));
+  }
+}
+
+// Four consecutive stream values.  The stream is read exactly once per
+// SpMV, so it is loaded evict-first (__ldcs) to leave the L2 to the operand
+// vector.  16-byte loads: the wrapper checks the alignment.
 __device__ __forceinline__ void load4_stream(const float* p, float (&a)[4]) {
   const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
   a[0] = t.x;
@@ -37,58 +73,199 @@ __device__ __forceinline__ void load4_stream(const double* p,
   a[3] = t1.y;
 }
 
-// Four int8 window pointers (one 4-byte load).
-__device__ __forceinline__ char4 load_q4(const signed char* p) {
-  return __ldcs(reinterpret_cast<const char4*>(p));
-}
-
-// Butterfly sum over the warp: a fixed order, so the result is bitwise
-// repeatable.
-template <typename T>
-__device__ __forceinline__ T warp_sum(T x) {
+// Butterfly sum over the G lanes of an aligned lane group (G a power of two
+// up to 32): a fixed order, so the result is bitwise repeatable.  Every lane
+// of the warp takes part.
+template <int G, typename T>
+__device__ __forceinline__ T group_sum(T x) {
 #pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1)
+  for (int off = G / 2; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
-// Pass 2.  Output element j = (rb * kRows + r) * C + i (C components per
-// row: 1 for scalar CSR, 2 for the 2x2 block kernel) is the sum, over the
-// tiles of row block rb in the stable order `order[tile_ptr[rb] ..
-// tile_ptr[rb+1])`, of partial[(tile * kRows + r) * C + i].  One thread per
-// output element, no atomics: the same order on every run, whatever order
-// the plan's tiles come in (padding tiles included).  A 32-row tile's
-// partials are C = 4: (rb * 8 + r) * 4 + i = rb * 32 + row.
+// Rows a lane group takes at once: their first load units are all in
+// flight before the first gather (a row of the band is one unit a lane).
+template <int G>
+__host__ __device__ constexpr int rows_per_group() {
+  return G <= 8 ? 4 : (G == 16 ? 2 : 1);
+}
+
+// Chunk c of the short rows (see stream_rows).
+template <class E, int G>
+__device__ __forceinline__ void chunk_rows(const E& ent, const Rows& rows,
+                                           long long c, typename E::T* y) {
+  using T = typename E::T;
+  constexpr int K = rows_per_group<G>();
+  constexpr int kGroups = kWarp / G;  // lane groups of a warp
+  const long long r0 =
+      (c * kWarps + threadIdx.x / kWarp) * kGroups * K +
+      (threadIdx.x % kWarp) / G;
+  const int g = threadIdx.x % G;
+  long long s[K], e[K];
+  bool mine[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long r = r0 + k * kGroups;
+    s[k] = e[k] = 0;
+    mine[k] = false;
+    if (r < rows.n_rows) {
+      s[k] = __ldg(rows.row_ptr + r);
+      e[k] = __ldg(rows.row_ptr + r + 1);
+      mine[k] = e[k] - s[k] <= rows.long_min;
+      if (!mine[k]) e[k] = s[k];  // a long row: its pieces sum it
+    }
+  }
+  T acc[K][E::kC];
+  typename E::Unit x[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int c = 0; c < E::kC; ++c) acc[k][c] = T(0);
+    const long long u = s[k] / E::kUnit + g;
+    if (u * E::kUnit < e[k]) x[k] = ent.load(u);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long u = s[k] / E::kUnit + g;
+    if (u * E::kUnit < e[k]) ent.add(acc[k], x[k], u, s[k], e[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {  // the rest of each row
+    for (long long u = s[k] / E::kUnit + g + G; u * E::kUnit < e[k];
+         u += G)
+      ent.add(acc[k], ent.load(u), u, s[k], e[k]);
+#pragma unroll
+    for (int c = 0; c < E::kC; ++c) acc[k][c] = group_sum<G>(acc[k][c]);
+    if (mine[k] && g == 0) E::store(y, r0 + k * kGroups, acc[k]);
+  }
+}
+
+// The one-pass row kernel, for an entry kind E:
+//   E::T, E::kUnit (entries per load unit), E::kC (output components per
+//   row), E::Unit and E::load(u) (load unit u's stream words),
+//   E::add(acc, x, u, s, e) (adds the entries of loaded unit x = u that lie
+//   in [s, e)) and E::store(out, i, acc) (writes out[i*kC .. i*kC + kC)).
+// Blocks [0, n_row_blocks) take the short rows, each `per_block`
+// consecutive chunks of kThreads / G * K rows in turn, so the operand's
+// window of neighbouring rows stays in the SM's L1 from one chunk to the
+// next.  In a chunk, a warp takes 32 / G * K consecutive rows, its group j
+// (of G lanes) rows j, j + 32 / G, ... so that at each step the groups
+// read neighbouring rows.  The blocks after them take the long rows'
+// pieces, one warp per piece, written to partial[p*kC ..].
+template <class E, int G>
+__global__ void __launch_bounds__(kThreads)
+    stream_rows(E ent, Rows rows, long long n_row_blocks, long long per_block,
+                typename E::T* __restrict__ partial,
+                typename E::T* __restrict__ y) {
+  if (blockIdx.x < n_row_blocks) {
+    constexpr int kChunkRows = kThreads / G * rows_per_group<G>();
+    const long long n_chunks = (rows.n_rows + kChunkRows - 1) / kChunkRows;
+    const long long c1 = min((blockIdx.x + 1) * per_block, n_chunks);
+    for (long long c = blockIdx.x * per_block; c < c1; ++c)
+      chunk_rows<E, G>(ent, rows, c, y);
+  } else {
+    using T = typename E::T;
+    T acc[E::kC];
+#pragma unroll
+    for (int c = 0; c < E::kC; ++c) acc[c] = T(0);
+    const long long pc =
+        (static_cast<long long>(blockIdx.x) - n_row_blocks) * kWarps +
+        threadIdx.x / kWarp;
+    const int lane = threadIdx.x % kWarp;
+    long long s, e;
+    piece_range(rows, pc, s, e);
+    for (long long u = s / E::kUnit + lane; u * E::kUnit < e; u += kWarp)
+      ent.add(acc, ent.load(u), u, s, e);
+#pragma unroll
+    for (int c = 0; c < E::kC; ++c) acc[c] = group_sum<kWarp>(acc[c]);
+    if (pc < rows.n_pieces && lane == 0) E::store(partial, pc, acc);
+  }
+}
+
+// y[long_rows[j]] = the sum of row j's piece partials in piece order, one
+// thread per long row (C components each).
 template <typename T, int C>
-__global__ void segtile_rowblock_sum(const T* __restrict__ partial,
-                                     const int* __restrict__ order,
-                                     const int* __restrict__ tile_ptr,
-                                     long long n_out, T* __restrict__ y) {
+__global__ void long_row_sum(const T* __restrict__ partial,
+                             const int* __restrict__ long_rows,
+                             const int* __restrict__ piece_ptr,
+                             long long n_long, T* __restrict__ y) {
   const long long j =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= n_out) return;
-  const long long rb = j / (kRows * C);
-  const int within = static_cast<int>(j - rb * (kRows * C));
-  const int k1 = tile_ptr[rb + 1];
-  T acc = T(0);
-  for (int k = tile_ptr[rb]; k < k1; ++k)
-    acc += partial[static_cast<long long>(order[k]) * (kRows * C) + within];
-  y[j] = acc;
+  if (j >= n_long) return;
+  const int p0 = piece_ptr[j], p1 = piece_ptr[j + 1];
+  const long long r = long_rows[j];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    T acc = T(0);
+    for (int p = p0; p < p1; ++p) acc += partial[static_cast<long long>(p) * C + c];
+    y[r * C + c] = acc;
+  }
 }
 
 template <typename T, int C>
-cudaError_t launch_rowblock_sum(const T* partial, const int* order,
-                                const int* tile_ptr, long long n_row_blocks,
-                                T* y, cudaStream_t stream) {
-  const long long n_out = n_row_blocks * kRows * C;
-  if (n_out > 0) {
-    const int threads = 256;
-    const long long blocks = (n_out + threads - 1) / threads;
-    segtile_rowblock_sum<T, C><<<static_cast<unsigned>(blocks), threads, 0,
-                                 stream>>>(partial, order, tile_ptr, n_out,
-                                           y);
+cudaError_t launch_long_row_sum(const T* partial, const Rows& rows,
+                                long long n_long, T* y, cudaStream_t s) {
+  if (n_long > 0) {
+    const long long blocks = (n_long + kThreads - 1) / kThreads;
+    long_row_sum<T, C><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        partial, rows.long_rows, rows.piece_ptr, n_long, y);
   }
   return cudaGetLastError();
+}
+
+// `chunks` consecutive row chunks over kBlocksPerSm blocks per SM of the
+// current device: `per_block` chunks a block, `blocks` blocks.
+inline cudaError_t split_chunks(long long chunks, long long& per_block,
+                                long long& blocks) {
+  int dev = 0, sms = 1;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = static_cast<long long>(sms) * kBlocksPerSm;
+  per_block = chunks > want ? (chunks + want - 1) / want : 1;
+  blocks = (chunks + per_block - 1) / per_block;
+  return err;
+}
+
+// Launch stream_rows at lane-group size G, then the long rows' sum.
+template <class E, int G>
+cudaError_t launch_stream_rows(const E& ent, const Rows& rows,
+                               long long n_long, typename E::T* partial,
+                               typename E::T* y, cudaStream_t s) {
+  constexpr int kChunkRows = kThreads / G * rows_per_group<G>();
+  long long per_block, row_blocks;
+  cudaError_t err = split_chunks((rows.n_rows + kChunkRows - 1) / kChunkRows,
+                                 per_block, row_blocks);
+  if (err != cudaSuccess) return err;
+  const long long grid = row_blocks + (rows.n_pieces + kWarps - 1) / kWarps;
+  if (grid > 0) {
+    stream_rows<E, G><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+        ent, rows, row_blocks, per_block, partial, y);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_long_row_sum<typename E::T, E::kC>(partial, rows, n_long, y,
+                                                   s);
+}
+
+// Dispatch the lane-group size (1, 2, 4, ..., 32) to its instantiation.
+template <class E>
+cudaError_t launch_stream_rows_any(const E& ent, const Rows& rows,
+                                   long long n_long, int group,
+                                   typename E::T* partial, typename E::T* y,
+                                   cudaStream_t s) {
+  switch (group) {
+    case 1: return launch_stream_rows<E, 1>(ent, rows, n_long, partial, y, s);
+    case 2: return launch_stream_rows<E, 2>(ent, rows, n_long, partial, y, s);
+    case 4: return launch_stream_rows<E, 4>(ent, rows, n_long, partial, y, s);
+    case 8: return launch_stream_rows<E, 8>(ent, rows, n_long, partial, y, s);
+    case 16:
+      return launch_stream_rows<E, 16>(ent, rows, n_long, partial, y, s);
+    case 32:
+      return launch_stream_rows<E, 32>(ent, rows, n_long, partial, y, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -1,135 +1,132 @@
-// K1 and K1-r32: scalar segment-tile CSR SpMV on Hopper.
+// K1 and K1-r32: segment-tile CSR SpMV on Hopper, over the plan's compact
+// stream.
 //
 // Replaces the TPU kernel sparse_tpu/ops/pallas_csr.py::segtile_apply
 // (def :492, pallas_call :618, body kernel_vpu :531), at both tile heights
-// R of the plan: 8 (K1) and 32 (K1-r32, the loop over 4 row groups at :550).
-// It computes the same sum over the same plan arrays: for tile t, row r,
-// lane l,
-//   y[rb[t]*R + r] += vals[t,r,l] * v[(seg_of[t] + q[t,r,l])*128 + l],
-// with columns at or past m reading 0 (the TPU kernel's zero guard rows).
+// of the plan: 8 (K1) and 32 (K1-r32, the loop over 4 row groups at :550).
+// It computes the same sum, y[r] = sum of vals[i] * v[cols[i]] over row r's
+// stored entries, but not over the TPU's slots: the plan also holds its
+// entries as a compact stream (ops/cuda_csr.py), a value and an int32
+// column per entry in (row, tile, lane) order, with int32 row offsets.  The
+// tile height only changes the order of a row's entries (and with it the
+// float rounding); K1-r32 is this kernel on a 32-row plan.
 //
-// What bounds it on this card: the slot stream.  Every slot of every tile is
-// read once, 5 bytes per slot in float32 (4-byte value + 1-byte int8 window
-// pointer; 9 in float64), against 3.35 TB/s of HBM; padding slots cost the
-// same as full ones, so the plan's fill sets the nnz rate (32-row tiles fill
-// worse: one window serves rows that span more columns).  The operand (2 MB
-// at 500k float32 columns) and the per-tile partial sums fit the 50 MB L2.
+// What bounds it on this card: the stream, 8 bytes per stored entry in
+// float32 (4-byte value + 4-byte column; 12 in float64), plus 4 bytes per
+// row offset and the output, against 3.35 TB/s of HBM.  The 8x8-row TPU
+// tiles at fill 0.066 cost 76 bytes per entry; the stream is read once.
+// The operand (2 MB at 500k float32 columns) stays in the 50 MB L2.
 //
 // What the design does about it:
-//  * pass 1: one 256-thread block per tile, one warp per row of each 8-row
-//    group (R / 8 groups, unrolled, so a warp has R / 8 independent loads in
-//    flight); each thread takes 4 lanes with one 16-byte value load and one
-//    4-byte pointer load, both evict-first (__ldcs) so the stream does not
-//    push the operand out of L2; operand gathers go through the read-only
-//    path (__ldg); the warp reduces its 128 products with a butterfly
-//    (__shfl_xor_sync) and writes one partial sum per (tile, row).  The
-//    TPU kernel shared one window slice among the 4 groups of a 32-row tile;
-//    here the window is simply L2-resident gathers;
-//  * pass 2 (segtile_common.cuh): the partials of each row block are summed
-//    in a stable tile order computed by the wrapper, one thread per output
-//    row, without atomics — bitwise repeatable, and right for any order of
-//    the plan's tiles (kstep padding tiles and per-shard plans included).
-// The TPU-specific plan padding (kstep, SMEM chunks) is consumed as is.
+//  * one pass: a group of G lanes per row (G = the plan's mean row length
+//    in 4-entry units, rounded up to a power of two, chosen by the plan
+//    builder), each lane taking every G-th aligned 4-entry unit of the row
+//    with one 16-byte value load and one 16-byte column load, both
+//    evict-first (__ldcs), masking the entries outside the row; the operand
+//    is gathered through the read-only path (__ldg); the group's butterfly
+//    sum is written once — no partials, no second pass, no atomics;
+//  * a group takes 4 rows (2 at G = 16, 1 at G = 32) and issues the
+//    first units of all of them before its first gather, so a lane has
+//    several stream loads in flight instead of one per round trip;
+//  * the gathers, not the stream, would dominate the L2 traffic if each
+//    block met its operand window once (a 32-byte sector per 4-byte
+//    gather): a block walks consecutive chunks of 128 rows (8 blocks per
+//    SM in all), so the window of neighbouring rows stays in its L1;
+//  * long rows (more than 8 group passes) would hold their warp: they are
+//    cut into 512-entry pieces, one warp each, and a one-thread-per-row
+//    pass adds the pieces in order (launched only when long rows exist).
 
 #include "segtile_common.cuh"
 
 namespace {
 
-template <typename T, int R>
-__global__ void __launch_bounds__(kTileThreads)
-    segtile_csr_rows(const T* __restrict__ vals,
-                     const signed char* __restrict__ q,
-                     const int* __restrict__ seg_of,
-                     const T* __restrict__ v, long long m,
-                     T* __restrict__ partial) {
-  const long long t = blockIdx.x;
-  const int w = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const long long col0 =
-      static_cast<long long>(__ldg(seg_of + t)) * kLanes + lane * 4;
-#pragma unroll
-  for (int g = 0; g < R / kRows; ++g) {
-    const int r = g * kRows + w;
-    const long long slot = (t * R + r) * kLanes + lane * 4;
+template <typename Tp>
+struct ScalarEntries {
+  using T = Tp;
+  static constexpr int kUnit = 4;
+  static constexpr int kC = 1;
+  const T* vals;  // padded to a multiple of 4 entries
+  const int* cols;
+  const T* v;
+
+  struct Unit {
     T a[4];
-    load4_stream(vals + slot, a);
-    const char4 qq = load_q4(q + slot);
-    const int qs[4] = {qq.x, qq.y, qq.z, qq.w};
-    T acc = T(0);
+    int4 c;
+  };
+
+  __device__ __forceinline__ Unit load(long long u) const {
+    Unit x;
+    load4_stream(vals + 4 * u, x.a);
+    x.c = __ldcs(reinterpret_cast<const int4*>(cols) + u);
+    return x;
+  }
+
+  __device__ __forceinline__ void add(T (&acc)[1], const Unit& x,
+                                      long long u, long long s,
+                                      long long e) const {
+    const int cs[4] = {x.c.x, x.c.y, x.c.z, x.c.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const long long c = col0 + static_cast<long long>(qs[j]) * kLanes + j;
-      const T x = (c >= 0 && c < m) ? __ldg(v + c) : T(0);
-      acc += a[j] * x;
+      const long long i = 4 * u + j;
+      if (i >= s && i < e) acc[0] += x.a[j] * __ldg(v + cs[j]);
     }
-    acc = warp_sum(acc);
-    if (lane == 0) partial[t * R + r] = acc;
   }
-}
 
-template <typename T, int R>
-cudaError_t segtile_csr(const void* vals, const void* q, const void* seg_of,
-                        const void* order, const void* tile_ptr,
-                        const void* v, void* partial, void* y,
-                        long long n_tiles, long long m, long long nbR,
-                        cudaStream_t s) {
-  if (n_tiles > 0) {
-    segtile_csr_rows<T, R><<<static_cast<unsigned>(n_tiles), kTileThreads, 0,
-                             s>>>(
-        static_cast<const T*>(vals), static_cast<const signed char*>(q),
-        static_cast<const int*>(seg_of), static_cast<const T*>(v), m,
-        static_cast<T*>(partial));
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
+  __device__ __forceinline__ static void store(T* out, long long i,
+                                               const T (&acc)[1]) {
+    out[i] = acc[0];
   }
-  return launch_rowblock_sum<T, R / kRows>(
-      static_cast<const T*>(partial), static_cast<const int*>(order),
-      static_cast<const int*>(tile_ptr), nbR, static_cast<T*>(y), s);
-}
+};
 
 template <typename T>
-int segtile_csr_any(const void* vals, const void* q, const void* seg_of,
-                    const void* order, const void* tile_ptr, const void* v,
-                    void* partial, void* y, long long n_tiles, long long m,
-                    long long nbR, int rows, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 8:
-      return static_cast<int>(segtile_csr<T, 8>(
-          vals, q, seg_of, order, tile_ptr, v, partial, y, n_tiles, m, nbR,
-          s));
-    case 32:
-      return static_cast<int>(segtile_csr<T, 32>(
-          vals, q, seg_of, order, tile_ptr, v, partial, y, n_tiles, m, nbR,
-          s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+int segtile_csr_any(const void* vals, const void* cols, const void* row_ptr,
+                    const void* long_rows, const void* piece_ptr,
+                    const void* piece_row, const void* v, void* partial,
+                    void* y, long long n_rows, long long n_long,
+                    long long n_pieces, int long_min, int piece, int group,
+                    void* stream) {
+  const ScalarEntries<T> ent{static_cast<const T*>(vals),
+                             static_cast<const int*>(cols),
+                             static_cast<const T*>(v)};
+  const Rows rows{static_cast<const int*>(row_ptr),
+                  static_cast<const int*>(long_rows),
+                  static_cast<const int*>(piece_ptr),
+                  static_cast<const int*>(piece_row), n_rows, n_pieces,
+                  long_min, piece};
+  return static_cast<int>(launch_stream_rows_any(
+      ent, rows, n_long, group, static_cast<T*>(partial), static_cast<T*>(y),
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
 
 extern "C" {
 
-// vals (n_tiles, rows, 128), q int8 (n_tiles, rows, 128), seg_of int32
-// (n_tiles), order int32 (n_tiles): tiles stably sorted by row block,
-// tile_ptr int32 (nbR + 1): each row block's range in `order`, v (m),
-// partial scratch (n_tiles * rows), y (nbR * rows); rows is 8 or 32.
+// vals (nnz padded to a multiple of 4, 16-byte aligned), cols int32 (same
+// length and alignment), row_ptr int32 (n_rows + 1), long_rows int32
+// (n_long), piece_ptr int32 (n_long + 1), piece_row int32 (n_pieces), v (m),
+// partial scratch (n_pieces), y (n_rows); group is 1, 2, 4, 8, 16 or 32.
 // Returns cudaGetLastError().
-int segtile_csr_f32(const void* vals, const void* q, const void* seg_of,
-                    const void* order, const void* tile_ptr, const void* v,
-                    void* partial, void* y, long long n_tiles, long long m,
-                    long long nbR, int rows, void* stream) {
-  return segtile_csr_any<float>(vals, q, seg_of, order, tile_ptr, v, partial,
-                                y, n_tiles, m, nbR, rows, stream);
+int segtile_csr_f32(const void* vals, const void* cols, const void* row_ptr,
+                    const void* long_rows, const void* piece_ptr,
+                    const void* piece_row, const void* v, void* partial,
+                    void* y, long long n_rows, long long n_long,
+                    long long n_pieces, int long_min, int piece, int group,
+                    void* stream) {
+  return segtile_csr_any<float>(vals, cols, row_ptr, long_rows, piece_ptr,
+                                piece_row, v, partial, y, n_rows, n_long,
+                                n_pieces, long_min, piece, group, stream);
 }
 
-int segtile_csr_f64(const void* vals, const void* q, const void* seg_of,
-                    const void* order, const void* tile_ptr, const void* v,
-                    void* partial, void* y, long long n_tiles, long long m,
-                    long long nbR, int rows, void* stream) {
-  return segtile_csr_any<double>(vals, q, seg_of, order, tile_ptr, v,
-                                 partial, y, n_tiles, m, nbR, rows, stream);
+int segtile_csr_f64(const void* vals, const void* cols, const void* row_ptr,
+                    const void* long_rows, const void* piece_ptr,
+                    const void* piece_row, const void* v, void* partial,
+                    void* y, long long n_rows, long long n_long,
+                    long long n_pieces, int long_min, int piece, int group,
+                    void* stream) {
+  return segtile_csr_any<double>(vals, cols, row_ptr, long_rows, piece_ptr,
+                                 piece_row, v, partial, y, n_rows, n_long,
+                                 n_pieces, long_min, piece, group, stream);
 }
 
 }  // extern "C"

@@ -15,6 +15,8 @@ CSR, and so on).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -25,8 +27,8 @@ from .formats.coo import COO
 from .formats.csr import CSR
 from .ops.cuda_bell import BandedKit, BandedKitT, BandedPlan
 from .ops.cuda_bsr import BsrSlabPlan, BsrSlabPlanAD
-from .ops.cuda_csr import SegTilePlan
-from .ops.cuda_csr_block import BlockSegTilePlan
+from .ops.cuda_csr import SegTilePlan, seg_tiles_stream
+from .ops.cuda_csr_block import BlockSegTilePlan, block_seg_tiles_stream
 from .ops.dispatch import SmvmAutoPlan
 from .ops.hub_split import HubSplit
 from .ops.segmented import INDEX_DTYPE
@@ -85,7 +87,13 @@ def bsr_from_arrays(indices, blocks, n, bsz, *, device=None) -> BSR:
 def seg_tile_plan_from_arrays(vals, q, seg_of, rb, *, n, m, n_tiles, fill,
                               chunks, wsub, rows, kstep, pos=None, eidx=None,
                               nse=None, device=None) -> SegTilePlan:
-    return SegTilePlan(
+    """A :class:`SegTilePlan` from the reference's slot arrays, with its
+    compact stream built here (:func:`~.ops.cuda_csr.seg_tiles_stream`):
+    from ``pos`` when given, which holds every stored entry, else from the
+    non-zero slots.  There a stored zero cannot be told from padding and is
+    left out of the stream, which gives the same result for finite
+    operands."""
+    plan = SegTilePlan(
         vals=_t(vals, device), q=_t(q, device, torch.int8),
         seg_of=_t(seg_of, device, torch.int32),
         rb=_t(rb, device, torch.int32), n=int(n), m=int(m),
@@ -93,13 +101,18 @@ def seg_tile_plan_from_arrays(vals, q, seg_of, rb, *, n, m, n_tiles, fill,
         wsub=int(wsub), rows=int(rows), kstep=int(kstep),
         pos=_t(pos, device, torch.int64), eidx=_t(eidx, device, torch.int64),
         nse=None if nse is None else int(nse))
+    return dataclasses.replace(plan, stream=seg_tiles_stream(plan))
 
 
 def block_seg_tile_plan_from_arrays(vals, q, seg_of, rb, *, n, nb, bsz,
                                     n_tiles, fill, chunks, wsub, kstep,
                                     pos=None, eidx=None, nbz=None,
                                     device=None) -> BlockSegTilePlan:
-    return BlockSegTilePlan(
+    """A :class:`BlockSegTilePlan` from the reference's slot arrays, with
+    its compact stream built here as in :func:`seg_tile_plan_from_arrays`
+    (without ``pos``, a stored all-zero block is left out: the same result
+    for finite operands)."""
+    plan = BlockSegTilePlan(
         vals=_t(vals, device), q=_t(q, device, torch.int8),
         seg_of=_t(seg_of, device, torch.int32),
         rb=_t(rb, device, torch.int32), n=int(n), nb=int(nb), bsz=int(bsz),
@@ -107,6 +120,7 @@ def block_seg_tile_plan_from_arrays(vals, q, seg_of, rb, *, n, nb, bsz,
         wsub=int(wsub), kstep=int(kstep), pos=_t(pos, device, torch.int64),
         eidx=_t(eidx, device, torch.int64),
         nbz=None if nbz is None else int(nbz))
+    return dataclasses.replace(plan, stream=block_seg_tiles_stream(plan))
 
 
 def bell_from_arrays(cols, blocks, n, bsz, *, device=None) -> BELL:

@@ -11,14 +11,23 @@ windows with spill tiers (``layout="rigid"``), both in
 ``native/_plansort.cpp`` (copied) with the reference's NumPy passes as
 fallbacks, so both packages build the same plan from the same CSR.
 
+The slots are the TPU's layout.  The card's kernels read instead the plan's
+:class:`CompactStream`, built once with the plan by one device sort: every
+stored entry (stored zeros included) as a value and an int32 column in
+(row, tile, lane) order, with int32 row offsets — 8 bytes per entry in
+float32 where the slots cost 5 per slot at fills near 0.07.
+:func:`csr_smvm_segtile` runs :func:`segtile_stream_apply` on it: on CUDA
+tensors one pass of a hand-written Hopper kernel, ``csrc/segtile_csr.cu``
+for ``reduce="vpu"`` (K1 at ``rows=8``, K1-r32 at ``rows=32``) or
+``csrc/segtile_mxu.cu`` for ``reduce="mxu"`` (K1-mxu, row sums by a
+tensor-core product against an all-ones matrix); on CPU tensors
+:func:`segtile_stream_plain`, the same sum in plain PyTorch.  There is no
+other route: a CUDA tensor never reaches a plain version.
+
 :func:`segtile_apply` is the raw-array SpMV over a plan's slot arrays (the
-contract the per-shard halo SpMV calls).  On CUDA tensors it launches a
-hand-written Hopper kernel: ``csrc/segtile_csr.cu`` for ``reduce="vpu"``
-(K1 at ``rows=8``, K1-r32 at ``rows=32``) and ``csrc/segtile_mxu.cu`` for
-``reduce="mxu"`` (K1-mxu, lanes summed by a tensor-core product against an
-all-ones matrix); on CPU tensors it runs :func:`segtile_apply_plain`, the
-same sum in plain PyTorch.  There is no other route: a CUDA tensor never
-reaches the plain version.
+contract the per-shard halo SpMV calls): it compacts the non-zero slots on
+every call, then runs the same kernels.  :func:`segtile_apply_plain`, the
+slot-by-slot sum, stays as the reference-shaped oracle.
 """
 
 from __future__ import annotations
@@ -34,20 +43,25 @@ from ..formats.csr import CSR
 from ..utils.precision import full_precision
 
 __all__ = [
+    "CompactStream",
     "SegTilePlan",
     "build_seg_tiles",
     "csr_smvm_segtile",
     "seg_tiles_refresh",
+    "seg_tiles_stream",
     "segtile_apply",
     "segtile_apply_plain",
+    "segtile_stream_apply",
+    "segtile_stream_plain",
     "csr_smvm_auto",
     "segtile_hbm_bytes",
+    "segtile_stream_bytes",
 ]
 
-#: Launches of each CUDA kernel (pass 1 + pass 2 count as one), counted
-#: where the wrapper launches it and nowhere else: K1 (``reduce="vpu"`` at
-#: ``rows=8``), K1-r32 (``reduce="vpu"`` at ``rows=32``), K1-mxu
-#: (``reduce="mxu"``, either height).
+#: Launches of each CUDA kernel (with the long rows' piece sum, when it
+#: runs, as one), counted where the wrapper launches it and nowhere else:
+#: K1 (``reduce="vpu"`` on an 8-row plan), K1-r32 (``reduce="vpu"`` on a
+#: 32-row plan), K1-mxu (``reduce="mxu"``, either height).
 K1_LAUNCHES = 0
 K1_R32_LAUNCHES = 0
 K1_MXU_LAUNCHES = 0
@@ -56,6 +70,74 @@ _LANES = 128
 _TILE_CAP = 102_400  # reference SMEM chunk budget; kept for plan parity
 _K = 512  # reference tiles per grid step at production sizes
 _REDUCES = ("vpu", "mxu")
+#: A row longer than ``_LONG_PASSES`` passes of its lane group is long and
+#: is cut into pieces of ``_PIECE_UNITS`` load units, one warp each (4 units
+#: a lane; csrc/segtile_common.cuh).
+_LONG_PASSES = 8
+_PIECE_UNITS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactStream:
+    """A plan's stored entries as the card's kernels read them.
+
+    ``vals``: the values in (output row, tile, lane) order — one per entry
+    for a scalar plan (zero-padded to a multiple of 4 for 16-byte loads), a
+    ``(nnz, 4)`` record ``(a00, a01, a10, a11)`` per 2x2 block for a block
+    plan; ``cols``: int32 (block) columns, padded alike; ``row_ptr``: int32
+    ``(n_rows + 1)`` offsets, row r being entries ``[row_ptr[r],
+    row_ptr[r+1])``.  Row classes: a short row is summed by ``group`` lanes
+    (the mean row length in load units — 4 entries, or one block — rounded
+    up to a power of two, at most 32); a row of more than ``long_min``
+    entries is long and cut into pieces of ``piece`` entries: ``long_rows``
+    lists the long rows, ``piece_ptr`` (n_long + 1) offsets their pieces,
+    ``piece_row`` names each piece's long row.  ``perm`` (refreshable
+    plans): each stream entry's index in the plan's ``pos``/``eidx`` order.
+    """
+
+    vals: torch.Tensor
+    cols: torch.Tensor
+    row_ptr: torch.Tensor
+    long_rows: torch.Tensor
+    piece_ptr: torch.Tensor
+    piece_row: torch.Tensor
+    n_rows: int
+    nnz: int
+    group: int
+    long_min: int
+    piece: int
+    perm: torch.Tensor | None = None
+
+    @property
+    def n_long(self) -> int:
+        return self.long_rows.numel()
+
+    @property
+    def n_pieces(self) -> int:
+        return self.piece_row.numel()
+
+    @property
+    def entry_nbytes(self) -> int:
+        """Bytes of the values and columns one apply reads, padding
+        included."""
+        return (self.vals.numel() * self.vals.element_size()
+                + self.cols.numel() * self.cols.element_size())
+
+    @property
+    def bytes_per_entry(self) -> float:
+        """``entry_nbytes`` over the stored entries (a 2x2 block record
+        holds four): 8 for a float32 scalar stream, 5 for a float32 block
+        stream, at no padding."""
+        per_record = self.vals[0].numel() if self.vals.dim() > 1 else 1
+        return self.entry_nbytes / max(self.nnz * per_record, 1)
+
+    def apply_nbytes(self, n_in: int, n_out: int) -> int:
+        """Bytes one apply moves: the values and columns, the row offsets,
+        an ``n_in``-element operand and an ``n_out``-element output in the
+        values' dtype."""
+        return (self.entry_nbytes
+                + self.row_ptr.numel() * self.row_ptr.element_size()
+                + (n_in + n_out) * self.vals.element_size())
 
 
 def _k_step(rows: int, n_real: int = 1 << 30) -> int:
@@ -78,7 +160,9 @@ class SegTilePlan:
     grid bookkeeping, kept for parity and ignored by the kernel.  ``pos``/
     ``eidx`` (``refreshable=True``): sorted slot positions and the source
     entry of each, for :func:`seg_tiles_refresh`; ``nse``: length of the
-    ``data`` tensor the plan was built from."""
+    ``data`` tensor the plan was built from.  ``stream``: the
+    :class:`CompactStream` the kernels read (the slot tensors serve the
+    plain slot version and the raw-array route)."""
 
     vals: torch.Tensor
     q: torch.Tensor
@@ -95,6 +179,7 @@ class SegTilePlan:
     pos: torch.Tensor | None = None
     eidx: torch.Tensor | None = None
     nse: int | None = None
+    stream: CompactStream | None = None
 
 
 def build_seg_tiles(a: CSR, wsub: int | str = 8, rows: int = 8,
@@ -281,11 +366,16 @@ def _finish_plan(a, n, m, nnz, wsub, R, pos_src, sub_src, src_index, t_base,
     tvals = _fill_slots(pos, a.data[eidx], size).reshape(n_tiles, R, _LANES)
     sub = torch.from_numpy(np.asarray(sub_src)[order].astype(np.int8))
     tq = _fill_slots(pos, sub.to(dev), size).reshape(n_tiles, R, _LANES)
+    seg_of_t = torch.from_numpy(seg_of).to(dev)
+    rb_t = torch.from_numpy(rb).to(dev)
     return SegTilePlan(
         vals=tvals,
         q=tq,
-        seg_of=torch.from_numpy(seg_of).to(dev),
-        rb=torch.from_numpy(rb).to(dev),
+        seg_of=seg_of_t,
+        rb=rb_t,
+        stream=_stream_from_slots(tvals, tq, seg_of_t, rb_t, rows=R,
+                                  n_rows=n, n_cols=m, pos=pos,
+                                  keep_perm=refreshable),
         n=n,
         m=m,
         n_tiles=n_tiles,
@@ -298,6 +388,101 @@ def _finish_plan(a, n, m, nnz, wsub, R, pos_src, sub_src, src_index, t_base,
         eidx=eidx if refreshable else None,
         nse=a.nse,
     )
+
+
+def _stream_from_slots(vals, q, seg_of, rb, *, rows: int, n_rows: int,
+                       n_cols: int, pos=None,
+                       keep_perm: bool = False) -> CompactStream:
+    """The compact stream of a slot plan, on the plan's device.
+
+    ``vals`` is ``(t, rows, 128)`` (scalar plan) or ``(t, 4, 8, 128)``
+    (2x2 block plan, planes a00, a01, a10, a11).  The entries are the slots
+    at ``pos`` — a plan's every stored entry, stored zeros included — or,
+    without ``pos``, the non-zero slots.  Entries whose row or column falls
+    outside ``[0, n_rows)`` x ``[0, n_cols)`` (the reference's kernels read
+    them as 0) are left out.  One device sort of the fused (row, slot) key
+    puts them in (row, tile, lane) order."""
+    block = vals.dim() == 4
+    planes = vals if block else vals.unsqueeze(1)
+    slots = rows * _LANES
+    total = max(planes.shape[0] * slots, 1)
+    if max(n_rows, 1) * total >= 1 << 62:
+        raise ValueError(f"compact stream: {n_rows} rows x {total} slots "
+                         "overflow the int64 sort key")
+    if pos is None:
+        pos = torch.nonzero((planes != 0).any(1).reshape(-1)).squeeze(1)
+    tile, rin, lane = pos // slots, pos // _LANES % rows, pos % _LANES
+    rbt = rb.long()[tile]
+    row = rbt * rows + rin
+    col = (seg_of.long()[tile] + q.reshape(-1)[pos].long()) * _LANES + lane
+    keep = torch.nonzero((rbt >= 0) & (row < n_rows) & (col >= 0)
+                         & (col < n_cols)).squeeze(1)
+    order = keep[torch.sort(row[keep] * total + pos[keep]).indices]
+    ent = planes[tile[order], :, rin[order], lane[order]]
+    unit = 1 if block else 4
+    pad = -order.numel() % unit
+    cvals = ent if block else ent[:, 0]
+    ccols = col[order]
+    if pad:
+        cvals = torch.cat([cvals, cvals.new_zeros(pad)])
+        ccols = torch.cat([ccols, ccols.new_zeros(pad)])
+    row_ptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=vals.device)
+    torch.cumsum(torch.bincount(row[order], minlength=n_rows), 0,
+                 out=row_ptr[1:])
+    return CompactStream(vals=cvals.contiguous(),
+                         cols=ccols.to(torch.int32), n_rows=n_rows,
+                         nnz=order.numel(),
+                         perm=order if keep_perm else None,
+                         **_row_classes(row_ptr, unit))
+
+
+def _row_classes(row_ptr: torch.Tensor, unit: int) -> dict:
+    """Lane group, long-row threshold and pieces of a stream (the
+    :class:`CompactStream` fields), from its int64 row offsets; ``unit``:
+    entries per load unit (4 scalar entries, or one block)."""
+    s, e = row_ptr[:-1], row_ptr[1:]
+    lens = e - s
+    units = torch.where(lens > 0, (e + unit - 1) // unit - s // unit, 0)
+    mean = float(units.double().mean()) if units.numel() else 0.0
+    group = 1
+    while group < min(mean, 32):
+        group *= 2
+    long_min = _LONG_PASSES * group * unit
+    piece = _PIECE_UNITS * unit
+    long_rows = torch.nonzero(lens > long_min).squeeze(1)
+    n_pieces = (lens[long_rows] + piece - 1) // piece
+    piece_ptr = torch.zeros(long_rows.numel() + 1, dtype=torch.int64,
+                            device=row_ptr.device)
+    torch.cumsum(n_pieces, 0, out=piece_ptr[1:])
+    piece_row = torch.repeat_interleave(
+        torch.arange(long_rows.numel(), device=row_ptr.device), n_pieces)
+    i32 = torch.int32
+    return dict(row_ptr=row_ptr.to(i32), long_rows=long_rows.to(i32),
+                piece_ptr=piece_ptr.to(i32), piece_row=piece_row.to(i32),
+                group=group, long_min=long_min, piece=piece)
+
+
+def seg_tiles_stream(plan: SegTilePlan) -> CompactStream:
+    """The compact stream of a plan given by its slot arrays (a plan carried
+    from the reference by :mod:`~sparse_tpu_torch.interop`): from the
+    plan's ``pos`` when it has them (every stored entry), else from its
+    non-zero slots — where a stored zero cannot be told from padding and is
+    left out, which changes no sum over finite operands."""
+    return _stream_from_slots(plan.vals, plan.q, plan.seg_of, plan.rb,
+                              rows=plan.rows, n_rows=plan.n, n_cols=plan.m,
+                              pos=plan.pos, keep_perm=plan.eidx is not None)
+
+
+def _refresh_stream(stream: CompactStream, values: torch.Tensor):
+    """``stream`` with new values, given in the plan's ``pos`` order (one
+    per entry, or one 2x2 block each)."""
+    new = values[stream.perm]
+    if new.dim() == 1:
+        new = torch.cat([new, new.new_zeros(stream.vals.numel()
+                                            - new.numel())])
+    else:
+        new = new.reshape(-1, 4)
+    return dataclasses.replace(stream, vals=new)
 
 
 def _check_refresh_source(name: str, source: torch.Tensor, nse, eidx):
@@ -329,22 +514,26 @@ def seg_tiles_refresh(plan: SegTilePlan, data) -> SegTilePlan:
                          f"{tuple(data.shape)}")
     _check_refresh_source("seg_tiles_refresh", data, plan.nse, plan.eidx)
     size = plan.n_tiles * plan.rows * _LANES
-    tvals = _fill_slots(plan.pos, data[plan.eidx], size).reshape(
+    values = data[plan.eidx]
+    tvals = _fill_slots(plan.pos, values, size).reshape(
         plan.n_tiles, plan.rows, _LANES)
-    return dataclasses.replace(plan, vals=tvals)
+    return dataclasses.replace(plan, vals=tvals,
+                               stream=_refresh_stream(plan.stream, values))
 
 
 def csr_smvm_segtile(a: CSR, v, plan: SegTilePlan, *, reduce: str = "vpu",
                      batch: int | None = None) -> torch.Tensor:
-    """SpMV through the segment-tile kernel; matches ``csr_smvm`` up to
-    float summation order.  ``plan`` from :func:`build_seg_tiles`.
+    """SpMV through the segment-tile kernel over the plan's compact stream;
+    matches ``csr_smvm`` up to float summation order.  ``plan`` from
+    :func:`build_seg_tiles` (or :mod:`~sparse_tpu_torch.interop`).
 
-    ``reduce``: how each tile row's 128 products become one sum — ``"vpu"``
-    (a warp's shuffle sum) or ``"mxu"`` (a tensor-core product against an
+    ``reduce``: how a row's products become one sum — ``"vpu"`` (a lane
+    group's shuffle sum) or ``"mxu"`` (a tensor-core product against an
     all-ones matrix, float32 split into two TF32 terms so the sum keeps
     float32 accuracy).  ``batch`` (the reference's per-grid-step emission
     group of the TPU kernel) is accepted and does not change the result;
     below 1 it raises ``ValueError``, as the reference fails there."""
+    _check_variant("csr_smvm_segtile", plan.rows, reduce, batch)
     v = torch.as_tensor(v, device=plan.vals.device)
     n, m = a.shape
     if tuple(v.shape) != (m,):
@@ -353,11 +542,12 @@ def csr_smvm_segtile(a: CSR, v, plan: SegTilePlan, *, reduce: str = "vpu",
     out_dtype = torch.promote_types(a.dtype, v.dtype)
     if n == 0:
         return torch.zeros(0, dtype=out_dtype, device=v.device)
-    y = segtile_apply(plan.vals, plan.q, plan.seg_of, plan.rb, v, n=n,
-                      wsub=plan.wsub, rows=plan.rows, kstep=plan.kstep,
-                      chunks=plan.chunks, reduce=reduce, batch=batch,
-                      out_dtype=out_dtype)
-    return y[:n]
+    if plan.stream is None:
+        raise ValueError("csr_smvm_segtile: the plan carries no compact "
+                         "stream; build it with build_seg_tiles or "
+                         "interop.seg_tile_plan_from_arrays")
+    return segtile_stream_apply(plan.stream, v, rows=plan.rows,
+                                reduce=reduce, out_dtype=out_dtype)
 
 
 def _check_variant(name: str, rows: int, reduce: str, batch) -> None:
@@ -373,37 +563,65 @@ def _check_variant(name: str, rows: int, reduce: str, batch) -> None:
 def segtile_apply(vals, q, seg_of, rb, v, *, n: int, wsub: int, rows: int,
                   kstep: int, chunks: tuple, reduce: str = "vpu",
                   batch: int | None = None, out_dtype=None) -> torch.Tensor:
-    """Raw-array segment-tile SpMV over a plan's slot tensors.
+    """Raw-array segment-tile SpMV over a plan's slot tensors, for callers
+    that hold only slot arrays.
 
     ``v`` is the operand in the plan's column space; returns the padded
-    ``(ceil(n/rows)*rows,)`` output.  CUDA tensors launch K1 or K1-r32
-    (``csrc/segtile_csr.cu``, ``reduce="vpu"``) or K1-mxu
-    (``csrc/segtile_mxu.cu``); CPU tensors run :func:`segtile_apply_plain`.
+    ``(ceil(n/rows)*rows,)`` output.  This is the slow route, which the
+    main path does not take: every call compacts the non-zero slots (a
+    device sort), then runs :func:`segtile_stream_apply` — K1, K1-r32 or
+    K1-mxu on CUDA tensors, :func:`segtile_stream_plain` on CPU tensors.
+    Slots whose column lies outside ``[0, len(v))`` or whose row block lies
+    outside the output read 0, as in the reference; a stored zero is not
+    told from padding (the same sums for finite operands).
     ``kstep``/``chunks``/``batch`` are accepted for the reference's
     signature and do not change the result."""
     _check_variant("segtile_apply", rows, reduce, batch)
-    if out_dtype is None:
-        out_dtype = torch.promote_types(vals.dtype, v.dtype)
+    _check_slot_arrays("segtile_apply", vals, q, seg_of, rb, v,
+                       (rows, _LANES), (rows, _LANES))
+    if wsub not in (8, 16, 32):
+        raise ValueError(f"segtile_apply: wsub must be 8, 16 or 32, got "
+                         f"{wsub}")
+    nbR = -(-n // rows)
+    stream = _stream_from_slots(vals, q, seg_of, rb, rows=rows,
+                                n_rows=nbR * rows, n_cols=v.shape[0])
+    return segtile_stream_apply(stream, v, rows=rows, reduce=reduce,
+                                out_dtype=out_dtype)
+
+
+def _check_slot_arrays(name, vals, q, seg_of, rb, v, val_shape, q_shape):
+    """Raise on slot arrays that do not form a plan (``val_shape``/
+    ``q_shape``: the per-tile shapes of ``vals`` and ``q``), or that lie on
+    more than one device."""
     devices = {t.device for t in (vals, q, seg_of, rb, v)}
-    if devices == {torch.device("cpu")}:
-        return segtile_apply_plain(vals, q, seg_of, rb, v, n=n, wsub=wsub,
-                                   rows=rows, kstep=kstep, chunks=chunks,
-                                   reduce=reduce, out_dtype=out_dtype)
-    if len(devices) == 1 and v.is_cuda:
-        return _segtile_apply_cuda(vals, q, seg_of, rb, v, n, wsub, rows,
-                                   reduce, out_dtype)
-    raise ValueError(f"segtile_apply: tensors must share one device, got "
-                     f"{sorted(str(d) for d in devices)}")
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors must share one device, got "
+                         f"{sorted(str(d) for d in devices)}")
+    if q.dtype != torch.int8:
+        raise TypeError(f"{name}: q must be int8, got {q.dtype}")
+    if seg_of.dtype != torch.int32 or rb.dtype != torch.int32:
+        raise TypeError(f"{name}: seg_of/rb must be int32, got "
+                        f"{seg_of.dtype}/{rb.dtype}")
+    t = vals.shape[0] if vals.dim() else -1
+    if (tuple(vals.shape) != (t, *val_shape)
+            or tuple(q.shape) != (t, *q_shape)
+            or tuple(seg_of.shape) != (t,) or tuple(rb.shape) != (t,)
+            or v.dim() != 1):
+        raise ValueError(
+            f"{name}: shapes vals {tuple(vals.shape)}, q {tuple(q.shape)}, "
+            f"seg_of {tuple(seg_of.shape)}, rb {tuple(rb.shape)}, v "
+            f"{tuple(v.shape)} do not form a plan with (t, {val_shape}) "
+            f"values and (t, {q_shape}) pointers")
 
 
 def segtile_apply_plain(vals, q, seg_of, rb, v, *, n: int, wsub: int,
                         rows: int = 8, kstep: int = 0, chunks: tuple = (),
                         reduce: str = "vpu", batch: int | None = None,
                         out_dtype=None) -> torch.Tensor:
-    """Plain PyTorch version of K1, K1-r32 and K1-mxu (any device): gather,
-    product, lane sum (``"mxu"``: one product with an all-ones column at
-    full precision, the reference's reduction), sum by row block.  Columns
-    at or past ``len(v)`` read 0."""
+    """The reference's sum slot by slot, in plain PyTorch (any device): the
+    oracle of the slot arrays.  Gather, product, lane sum (``"mxu"``: one
+    product with an all-ones column at full precision, the reference's
+    reduction), sum by row block.  Columns at or past ``len(v)`` read 0."""
     _check_variant("segtile_apply_plain", rows, reduce, batch)
     if out_dtype is None:
         out_dtype = torch.promote_types(vals.dtype, v.dtype)
@@ -428,77 +646,96 @@ def segtile_apply_plain(vals, q, seg_of, rb, v, *, n: int, wsub: int,
     return y.reshape(-1)
 
 
-def _tile_order(rb: torch.Tensor, n_row_blocks: int):
-    """Stable tile order by row block and each row block's range in it
-    (int32, on ``rb``'s device): what pass 2 of the kernels walks.  Tiles
-    with an out-of-range row block fall outside every range."""
-    rb_sorted, order = torch.sort(rb, stable=True)
-    bounds = torch.arange(n_row_blocks + 1, dtype=rb.dtype, device=rb.device)
-    tile_ptr = torch.searchsorted(rb_sorted, bounds, out_int32=True)
-    return order.to(torch.int32), tile_ptr
+def segtile_stream_apply(stream: CompactStream, v, *, rows: int = 8,
+                         reduce: str = "vpu",
+                         out_dtype=None) -> torch.Tensor:
+    """``y = A v`` over a scalar plan's compact stream, ``(stream.n_rows,)``.
+    CUDA tensors launch K1 (``reduce="vpu"``; counted as K1-r32 when the
+    plan has ``rows=32``) or K1-mxu (``reduce="mxu"``); CPU tensors run
+    :func:`segtile_stream_plain`."""
+    _check_variant("segtile_stream_apply", rows, reduce, None)
+    if out_dtype is None:
+        out_dtype = torch.promote_types(stream.vals.dtype, v.dtype)
+    devices = {stream.vals.device, v.device}
+    if devices == {torch.device("cpu")}:
+        return segtile_stream_plain(stream, v, out_dtype=out_dtype)
+    if len(devices) == 1 and v.is_cuda:
+        return _segtile_stream_cuda(stream, v, rows, reduce, out_dtype)
+    raise ValueError(f"segtile_stream_apply: tensors must share one device, "
+                     f"got {sorted(str(d) for d in devices)}")
 
 
-def _check_kernel_inputs(name, vals, q, seg_of, rb, v, out_dtype,
-                         val_shape, q_shape):
-    """Raise on anything the kernel does not take (``val_shape``/``q_shape``:
-    the per-tile shapes of ``vals`` and ``q``); returns (vals, v) in the
-    output dtype."""
+def _stream_rows(stream: CompactStream) -> torch.Tensor:
+    """The row of each stream entry (int64)."""
+    return torch.repeat_interleave(
+        torch.arange(stream.n_rows, device=stream.row_ptr.device),
+        stream.row_ptr.diff().long())
+
+
+def segtile_stream_plain(stream: CompactStream, v, *,
+                         out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of K1, K1-r32 and K1-mxu over a compact stream
+    (any device): gather, product, sum by row in entry order.  The three
+    kernels compute this one function; they differ in the order of the sum
+    and in which unit adds."""
+    if out_dtype is None:
+        out_dtype = torch.promote_types(stream.vals.dtype, v.dtype)
+    k = stream.nnz
+    prod = (stream.vals[:k].to(out_dtype)
+            * v.to(out_dtype)[stream.cols[:k].long()])
+    y = torch.zeros(stream.n_rows, dtype=out_dtype, device=v.device)
+    return y.index_add_(0, _stream_rows(stream), prod)
+
+
+def _launch(name: str, fn, stream: CompactStream, v, out_dtype, comps: int,
+            tail: tuple) -> torch.Tensor:
+    """Launch a compact-stream kernel (csrc/segtile_csr.cu's arguments, then
+    ``tail`` and the CUDA stream) on ``v``'s device; returns ``y``,
+    ``comps`` values per row.  Kept lean: at the sizes of a solver step
+    the host's work per call is comparable to the kernel's."""
     if out_dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: the CUDA kernel takes float32 or float64, "
                         f"got {out_dtype}")
-    if q.dtype != torch.int8:
-        raise TypeError(f"{name}: q must be int8, got {q.dtype}")
-    if seg_of.dtype != torch.int32 or rb.dtype != torch.int32:
-        raise TypeError(f"{name}: seg_of/rb must be int32, got "
-                        f"{seg_of.dtype}/{rb.dtype}")
-    t = vals.shape[0] if vals.dim() else -1
-    if (tuple(vals.shape) != (t, *val_shape)
-            or tuple(q.shape) != (t, *q_shape)
-            or tuple(seg_of.shape) != (t,) or tuple(rb.shape) != (t,)
-            or v.dim() != 1):
-        raise ValueError(
-            f"{name}: shapes vals {tuple(vals.shape)}, q {tuple(q.shape)}, "
-            f"seg_of {tuple(seg_of.shape)}, rb {tuple(rb.shape)}, v "
-            f"{tuple(v.shape)} do not form a plan with (t, {val_shape}) "
-            f"values and (t, {q_shape}) pointers")
-    vals = vals.to(out_dtype)
-    v = v.to(out_dtype)
-    for nm, x in (("vals", vals), ("q", q), ("seg_of", seg_of), ("rb", rb),
-                  ("v", v)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name}: {nm} must be contiguous")
-    if vals.data_ptr() % 16 or q.data_ptr() % 4:
-        raise ValueError(f"{name}: vals must be 16-byte and q 4-byte aligned")
-    return vals, v
-
-
-def _segtile_apply_cuda(vals, q, seg_of, rb, v, n, wsub, rows, reduce,
-                        out_dtype):
-    global K1_LAUNCHES, K1_R32_LAUNCHES, K1_MXU_LAUNCHES
-    tile = (rows, _LANES)
-    vals, v = _check_kernel_inputs("segtile_apply", vals, q, seg_of, rb, v,
-                                   out_dtype, tile, tile)
-    if wsub not in (8, 16, 32):
-        raise ValueError(f"segtile_apply: wsub must be 8, 16 or 32, got "
-                         f"{wsub}")
+    vals = stream.vals
+    if vals.dtype != out_dtype:
+        vals = vals.to(out_dtype)
+    if v.dtype != out_dtype or not v.is_contiguous():
+        v = v.to(out_dtype).contiguous()
+    if v.data_ptr() % (comps * v.element_size()):
+        v = v.clone()  # a block kernel gathers the operand in pairs
+    if vals.data_ptr() % 16 or stream.cols.data_ptr() % 16:
+        raise ValueError(f"{name}: the stream's vals and cols must be "
+                         "16-byte aligned")
     dev = v.device
-    n_tiles = vals.shape[0]
-    nbR = -(-n // rows)
+    y = torch.empty(comps * stream.n_rows, dtype=out_dtype, device=dev)
+    partial = (torch.empty(comps * stream.n_pieces, dtype=out_dtype,
+                           device=dev) if stream.n_pieces else None)
+    args = (vals.data_ptr(), stream.cols.data_ptr(),
+            stream.row_ptr.data_ptr(), stream.long_rows.data_ptr(),
+            stream.piece_ptr.data_ptr(), stream.piece_row.data_ptr(),
+            v.data_ptr(), 0 if partial is None else partial.data_ptr(),
+            y.data_ptr(), stream.n_rows, stream.n_long, stream.n_pieces,
+            *tail, torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args)
+    _kernels.check(rc, name)
+    return y
+
+
+def _segtile_stream_cuda(stream, v, rows, reduce, out_dtype):
+    global K1_LAUNCHES, K1_R32_LAUNCHES, K1_MXU_LAUNCHES
     lib = _kernels.load()
     f32 = out_dtype == torch.float32
     if reduce == "mxu":
         fn = lib.segtile_mxu_f32 if f32 else lib.segtile_mxu_f64
+        tail = (stream.long_min, stream.piece)
     else:
         fn = lib.segtile_csr_f32 if f32 else lib.segtile_csr_f64
-    with torch.cuda.device(dev):
-        order, tile_ptr = _tile_order(rb, nbR)
-        partial = torch.empty(n_tiles * rows, dtype=out_dtype, device=dev)
-        y = torch.empty(nbR * rows, dtype=out_dtype, device=dev)
-        rc = fn(vals.data_ptr(), q.data_ptr(), seg_of.data_ptr(),
-                order.data_ptr(), tile_ptr.data_ptr(), v.data_ptr(),
-                partial.data_ptr(), y.data_ptr(), n_tiles, v.shape[0], nbR,
-                rows, torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.check(rc, f"segtile_{reduce}")
+        tail = (stream.long_min, stream.piece, stream.group)
+    y = _launch(f"segtile_{reduce}", fn, stream, v, out_dtype, 1, tail)
     if reduce == "mxu":
         K1_MXU_LAUNCHES += 1
     elif rows == 32:
@@ -514,6 +751,13 @@ def segtile_hbm_bytes(plan: SegTilePlan) -> int:
     slots = plan.n_tiles * plan.rows * _LANES
     nbR = -(-plan.n // plan.rows)
     return slots * 5 + plan.m * 4 + nbR * plan.rows * 4
+
+
+def segtile_stream_bytes(plan: SegTilePlan) -> int:
+    """Bytes one K1 apply over the compact stream moves, from the stream's
+    own tensors: each value and int32 column (8 B per stored entry in
+    float32), the int32 row offsets, the operand and the output."""
+    return plan.stream.apply_nbytes(plan.m, plan.n)
 
 
 # Dispatch crossovers, kept at the reference's values so the port picks the

@@ -7,9 +7,14 @@ BLOCK pattern, each slot holds the 4 values of its block as separate value
 planes sharing one int8 window pointer.  The symmetric reorder that keeps
 blocks intact is :func:`~sparse_tpu_torch.ops.reorder.rcm_order_blocked`.
 
-On CUDA tensors :func:`bsr_smvm_segtile_block` launches the hand-written
-Hopper kernel ``csrc/segtile_block.cu``; on CPU tensors it runs
-:func:`bsr_smvm_segtile_block_plain`.  The result matches ``csr_smvm`` of the
+The plan also holds its stored blocks as a compact stream
+(:class:`~.cuda_csr.CompactStream`, built once with the plan): one record
+of four values and one int32 block column per block, in (block row, tile,
+lane) order.  On CUDA tensors :func:`bsr_smvm_segtile_block` launches the
+hand-written Hopper kernel ``csrc/segtile_block.cu`` on it (one pass, K2);
+on CPU tensors it runs :func:`block_stream_plain`, the same sum in plain
+PyTorch.  :func:`bsr_smvm_segtile_block_plain`, the slot-by-slot sum, stays
+as the reference-shaped oracle.  The result matches ``csr_smvm`` of the
 scalar expansion up to float summation order.
 """
 
@@ -24,20 +29,26 @@ from .. import _kernels
 from ..formats.bsr import BSR
 from .cuda_csr import (
     _LANES,
-    _check_kernel_inputs,
+    CompactStream,
     _check_refresh_source,
     _fill_slots,
+    _launch,
     _pad_tiles,
-    _tile_order,
+    _refresh_stream,
+    _stream_from_slots,
+    _stream_rows,
 )
 
 __all__ = [
     "BlockSegTilePlan",
     "build_seg_tiles_block",
     "block_seg_tiles_refresh",
+    "block_seg_tiles_stream",
     "bsr_smvm_segtile_block",
     "bsr_smvm_segtile_block_plain",
+    "block_stream_plain",
     "block_segtile_hbm_bytes",
+    "block_stream_bytes",
 ]
 
 #: Launches of the K2 CUDA kernel, counted where the wrapper launches it.
@@ -56,7 +67,8 @@ class BlockSegTilePlan:
     128-block-column units) / output block-row block.  ``fill`` is block-
     slot occupancy, padding tiles included as in the reference.  ``pos``/
     ``eidx`` (``refreshable=True``) feed :func:`block_seg_tiles_refresh`;
-    ``nbz``: block capacity of the BSR the plan was built from."""
+    ``nbz``: block capacity of the BSR the plan was built from; ``stream``:
+    the compact stream K2 reads."""
 
     vals: torch.Tensor
     q: torch.Tensor
@@ -73,10 +85,12 @@ class BlockSegTilePlan:
     pos: torch.Tensor | None = None
     eidx: torch.Tensor | None = None
     nbz: int | None = None
+    stream: CompactStream | None = None
 
 
-def _fill_planes(pos, eidx, blocks, size, n_tiles, bsz):
-    planes = [_fill_slots(pos, blocks[eidx, i, j], size)
+def _fill_planes(pos, values, size, n_tiles, bsz):
+    """Value planes from the blocks at slot positions ``pos``."""
+    planes = [_fill_slots(pos, values[:, i, j], size)
               for i in range(bsz) for j in range(bsz)]
     return torch.stack(planes, 0).reshape(bsz * bsz, n_tiles, _R, _LANES) \
         .transpose(0, 1).contiguous()
@@ -132,12 +146,17 @@ def build_seg_tiles_block(ab: BSR, wsub: int = 8,
     size = n_tiles * slots
     sub = torch.from_numpy(np.asarray(sub_src)[order].astype(np.int8))
     q = _fill_slots(pos, sub.to(dev), size).reshape(n_tiles, _R, _LANES)
-    vals = _fill_planes(pos, entry, ab.blocks, size, n_tiles, bsz)
+    vals = _fill_planes(pos, ab.blocks[entry], size, n_tiles, bsz)
+    seg_of_t = torch.from_numpy(seg_of).to(dev)
+    rb_t = torch.from_numpy(rb).to(dev)
     return BlockSegTilePlan(
         vals=vals,
         q=q,
-        seg_of=torch.from_numpy(seg_of).to(dev),
-        rb=torch.from_numpy(rb).to(dev),
+        seg_of=seg_of_t,
+        rb=rb_t,
+        stream=_stream_from_slots(vals, q, seg_of_t, rb_t, rows=_R,
+                                  n_rows=nb, n_cols=nb, pos=pos,
+                                  keep_perm=refreshable),
         n=ab.n,
         nb=nb,
         bsz=bsz,
@@ -169,9 +188,25 @@ def block_seg_tiles_refresh(plan: BlockSegTilePlan,
             f"{plan.bsz}), got {tuple(blocks.shape)}")
     _check_refresh_source("block_seg_tiles_refresh", blocks, plan.nbz,
                           plan.eidx)
-    vals = _fill_planes(plan.pos, plan.eidx, blocks,
-                        plan.n_tiles * _R * _LANES, plan.n_tiles, plan.bsz)
-    return dataclasses.replace(plan, vals=vals)
+    values = blocks[plan.eidx]
+    vals = _fill_planes(plan.pos, values, plan.n_tiles * _R * _LANES,
+                        plan.n_tiles, plan.bsz)
+    return dataclasses.replace(plan, vals=vals,
+                               stream=_refresh_stream(plan.stream, values))
+
+
+def block_seg_tiles_stream(plan: BlockSegTilePlan) -> CompactStream:
+    """The compact stream of a block plan given by its slot arrays (carried
+    from the reference by :mod:`~sparse_tpu_torch.interop`): from ``pos``
+    when the plan has them, else from the slots with a non-zero value — a
+    stored all-zero block cannot be told from padding and is left out,
+    which changes no sum over finite operands."""
+    if plan.bsz != 2:
+        raise ValueError(f"block_seg_tiles_stream: bsz=2 only, got "
+                         f"{plan.bsz}")
+    return _stream_from_slots(plan.vals, plan.q, plan.seg_of, plan.rb,
+                              rows=_R, n_rows=plan.nb, n_cols=plan.nb,
+                              pos=plan.pos, keep_perm=plan.eidx is not None)
 
 
 def _operand(ab: BSR, v, plan: BlockSegTilePlan):
@@ -185,19 +220,39 @@ def _operand(ab: BSR, v, plan: BlockSegTilePlan):
 
 def bsr_smvm_segtile_block(ab: BSR, v, plan: BlockSegTilePlan) -> \
         torch.Tensor:
-    """SpMV through the block-granule kernel (K2 on CUDA tensors, the plain
-    version on CPU tensors)."""
+    """SpMV through the block-granule kernel over the plan's compact stream
+    (K2 on CUDA tensors, :func:`block_stream_plain` on CPU tensors)."""
     v, out_dtype = _operand(ab, v, plan)
     if ab.n == 0:
         return torch.zeros(0, dtype=out_dtype, device=v.device)
-    tensors = (plan.vals, plan.q, plan.seg_of, plan.rb, v)
-    devices = {t.device for t in tensors}
+    stream = plan.stream
+    if stream is None:
+        raise ValueError("bsr_smvm_segtile_block: the plan carries no "
+                         "compact stream; build it with build_seg_tiles_block "
+                         "or interop.block_seg_tile_plan_from_arrays")
+    devices = {stream.vals.device, v.device}
     if devices == {torch.device("cpu")}:
-        return bsr_smvm_segtile_block_plain(ab, v, plan)
+        return block_stream_plain(stream, v, out_dtype=out_dtype)
     if len(devices) == 1 and v.is_cuda:
-        return _segtile_block_cuda(plan, v, out_dtype)
+        return _segtile_block_cuda(stream, v, out_dtype)
     raise ValueError(f"bsr_smvm_segtile_block: tensors must share one "
                      f"device, got {sorted(str(d) for d in devices)}")
+
+
+def block_stream_plain(stream: CompactStream, v, *,
+                       out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of K2 over a block plan's compact stream (any
+    device): gather each block's operand pair, the two products, sum by
+    block row in entry order; ``y[2*row + i]``."""
+    if out_dtype is None:
+        out_dtype = torch.promote_types(stream.vals.dtype, v.dtype)
+    k = stream.nnz
+    a = stream.vals[:k].to(out_dtype)
+    x = v.to(out_dtype).reshape(-1, 2)[stream.cols[:k].long()]
+    prod = torch.stack([a[:, 0] * x[:, 0] + a[:, 1] * x[:, 1],
+                        a[:, 2] * x[:, 0] + a[:, 3] * x[:, 1]], 1)
+    y = torch.zeros(stream.n_rows, 2, dtype=out_dtype, device=v.device)
+    return y.index_add_(0, _stream_rows(stream), prod).reshape(-1)
 
 
 def bsr_smvm_segtile_block_plain(ab: BSR, v, plan: BlockSegTilePlan) -> \
@@ -227,32 +282,15 @@ def bsr_smvm_segtile_block_plain(ab: BSR, v, plan: BlockSegTilePlan) -> \
     return y.reshape(-1)[:nb * 2]
 
 
-def _segtile_block_cuda(plan: BlockSegTilePlan, v, out_dtype):
+def _segtile_block_cuda(stream: CompactStream, v, out_dtype):
     global K2_LAUNCHES
-    if plan.bsz != 2:
-        raise ValueError(f"bsr_smvm_segtile_block: the CUDA kernel takes "
-                         f"bsz=2, got {plan.bsz}")
-    vals, v = _check_kernel_inputs("bsr_smvm_segtile_block", plan.vals,
-                                   plan.q, plan.seg_of, plan.rb, v,
-                                   out_dtype, (4, _R, _LANES), (_R, _LANES))
-    dev = v.device
-    n_tiles = vals.shape[0]
-    nb = plan.nb
-    nbRb = -(-nb // _R)
     lib = _kernels.load()
     fn = lib.segtile_block_f32 if out_dtype == torch.float32 \
         else lib.segtile_block_f64
-    with torch.cuda.device(dev):
-        order, tile_ptr = _tile_order(plan.rb, nbRb)
-        partial = torch.empty(n_tiles * _R * 2, dtype=out_dtype, device=dev)
-        y = torch.empty(nbRb * _R * 2, dtype=out_dtype, device=dev)
-        rc = fn(vals.data_ptr(), plan.q.data_ptr(), plan.seg_of.data_ptr(),
-                order.data_ptr(), tile_ptr.data_ptr(), v.data_ptr(),
-                partial.data_ptr(), y.data_ptr(), n_tiles, nb, nbRb,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.check(rc, "segtile_block")
+    y = _launch("bsr_smvm_segtile_block", fn, stream, v, out_dtype, 2,
+                (stream.long_min, stream.piece, stream.group))
     K2_LAUNCHES += 1
-    return y[:nb * 2]
+    return y
 
 
 def block_segtile_hbm_bytes(plan: BlockSegTilePlan) -> int:
@@ -262,3 +300,11 @@ def block_segtile_hbm_bytes(plan: BlockSegTilePlan) -> int:
     slots = plan.n_tiles * _R * _LANES
     return (slots * (4 * plan.bsz * plan.bsz + 1) + plan.nb * plan.bsz * 4
             + (-(-plan.nb // _R)) * _R * plan.bsz * 4)
+
+
+def block_stream_bytes(plan: BlockSegTilePlan) -> int:
+    """Bytes one K2 apply over the compact stream moves, from the stream's
+    own tensors: each value record and int32 block column (20 B per stored
+    2x2 block in float32), the int32 block-row offsets, the operand and the
+    output."""
+    return plan.stream.apply_nbytes(2 * plan.nb, 2 * plan.nb)

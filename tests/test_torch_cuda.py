@@ -14,6 +14,8 @@ version sum in different orders), with a bf16 stream's bound taken on the
 bf16-rounded inputs.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -69,36 +71,44 @@ def _blocks(nb, seed, bw):
     return full
 
 
+def _csr(s, dtype, device):
+    return interop.csr_from_arrays(s.data.astype(dtype), s.indices, s.indptr,
+                                   s.shape, device=device)
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("wsub", [8, 16, 32])
 def test_k1_matches_plain(cuda, wsub, dtype):
+    """K1 over the plan's compact stream against its plain version and
+    SciPy, bitwise repeatable; the raw-array route (slots compacted per
+    call) gives the plan route's result bit for bit."""
     s = _band(3000, 40000, 11, 2500)
-    a = interop.csr_from_arrays(s.data.astype(dtype), s.indices, s.indptr,
-                                s.shape, device=cuda)
+    a = _csr(s, dtype, cuda)
     plan = tpc.build_seg_tiles(a, wsub=wsub)
+    assert plan.stream.nnz == s.nnz and plan.stream.vals.is_cuda
     v = np.random.default_rng(12).standard_normal(3000).astype(dtype)
     vt = torch.from_numpy(v).to(cuda)
-    raw = dict(n=3000, wsub=wsub, rows=8, kstep=plan.kstep,
-               chunks=plan.chunks)
-    arrs = (plan.vals, plan.q, plan.seg_of, plan.rb)
     before = tpc.K1_LAUNCHES
-    y1 = tpc.segtile_apply(*arrs, vt, **raw)
-    y2 = tpc.segtile_apply(*arrs, vt, **raw)
+    y1 = tpc.csr_smvm_segtile(a, vt, plan)
+    y2 = tpc.csr_smvm_segtile(a, vt, plan)
     torch.cuda.synchronize()
     assert tpc.K1_LAUNCHES == before + 2
     assert torch.equal(y1, y2)  # bitwise repeatable
-    plain = tpc.segtile_apply_plain(*arrs, vt, **raw)
-    _assert_close(_np(y1)[:3000], _np(plain)[:3000], s, v, dtype)
-    _assert_close(_np(y1)[:3000], s @ v.astype(np.float64), s, v, dtype)
+    plain = tpc.segtile_stream_plain(plan.stream, vt)
+    _assert_close(_np(y1), _np(plain), s, v, dtype)
+    _assert_close(_np(y1), s @ v.astype(np.float64), s, v, dtype)
+    raw = dict(n=3000, wsub=wsub, rows=8, kstep=plan.kstep,
+               chunks=plan.chunks)
+    arrs = (plan.vals, plan.q, plan.seg_of, plan.rb)
+    assert torch.equal(tpc.segtile_apply(*arrs, vt, **raw)[:3000], y1)
     p = torch.randperm(plan.n_tiles, device=cuda)
     y3 = tpc.segtile_apply(*(x[p] for x in arrs), vt, **raw)
-    _assert_close(_np(y3)[:3000], _np(plain)[:3000], s, v, dtype)
+    _assert_close(_np(y3)[:3000], _np(plain), s, v, dtype)
 
 
 def test_k1_rejects_what_it_cannot_take(cuda):
     s = _band(64, 300, 13, 64)
-    a = interop.csr_from_arrays(s.data.astype(np.float32), s.indices,
-                                s.indptr, s.shape, device=cuda)
+    a = _csr(s, np.float32, cuda)
     plan = tpc.build_seg_tiles(a)
     raw = dict(n=64, wsub=8, rows=8, kstep=plan.kstep, chunks=plan.chunks)
     v = torch.ones(64, device=cuda)
@@ -108,21 +118,70 @@ def test_k1_rejects_what_it_cannot_take(cuda):
     with pytest.raises(TypeError):
         tpc.segtile_apply(plan.vals.half(), plan.q, plan.seg_of, plan.rb,
                           v.half(), **raw)
+    with pytest.raises(TypeError):
+        tpc.segtile_stream_apply(dataclasses.replace(
+            plan.stream, vals=plan.stream.vals.half()), v.half())
     with pytest.raises(ValueError):
         tpc.segtile_apply(plan.vals, plan.q, plan.seg_of, plan.rb, v.cpu(),
                           **raw)
+    with pytest.raises(ValueError, match="device"):
+        tpc.segtile_stream_apply(plan.stream, v.cpu())
     with pytest.raises(ValueError):
         tpc.segtile_apply(plan.vals[:, :4], plan.q, plan.seg_of, plan.rb, v,
                           **raw)
 
 
+@pytest.mark.parametrize("reduce", ["vpu", "mxu"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k1_long_rows_and_empty_matrix(cuda, dtype, reduce):
+    """A 20,000-entry row and rows just past the long threshold go through
+    the pieces and their ordered sum; an empty matrix and a matrix with no
+    stored entry give exact zeros; all bitwise repeatable."""
+    rng = np.random.default_rng(31)
+    n, m = 600, 30000
+    base = sp.random(n, m, density=0.0005, random_state=3, format="coo")
+    rows = np.r_[base.row, np.full(20000, 7), np.full(700, 100),
+                 np.full(2100, 599)]
+    cols = np.r_[base.col, rng.choice(m, 20000, replace=False),
+                 rng.choice(m, 700, replace=False),
+                 rng.choice(m, 2100, replace=False)]
+    s = sp.coo_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                      shape=(n, m)).tocsr()
+    s.sum_duplicates()
+    a = _csr(s, dtype, cuda)
+    plan = tpc.build_seg_tiles(a, wsub=32)
+    assert plan.stream.n_long >= 3 and plan.stream.n_pieces > 40
+    v = rng.standard_normal(m).astype(dtype)
+    vt = torch.from_numpy(v).to(cuda)
+    y1 = tpc.csr_smvm_segtile(a, vt, plan, reduce=reduce)
+    y2 = tpc.csr_smvm_segtile(a, vt, plan, reduce=reduce)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    _assert_close(_np(y1), _np(tpc.segtile_stream_plain(plan.stream, vt)), s,
+                  v, dtype)
+    _assert_close(_np(y1), s @ v.astype(np.float64), s, v, dtype)
+    for shape in ((0, 5), (40, 7)):
+        e = _csr(sp.csr_matrix(shape), dtype, cuda)
+        ep = tpc.build_seg_tiles(e)
+        got = tpc.csr_smvm_segtile(e, torch.ones(shape[1], device=cuda,
+                                                 dtype=e.dtype), ep,
+                                   reduce=reduce)
+        assert got.shape == (shape[0],) and bool((got == 0).all())
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_k2_matches_plain(cuda, dtype):
-    s = _blocks(2000, 11, 900).astype(dtype)
+    """K2 over the block plan's compact stream against its plain version and
+    SciPy, bitwise repeatable, a misaligned operand included; a block row
+    of 600 blocks goes through the pieces."""
+    s = _blocks(2000, 11, 900).tolil()
+    s[10:12, :1200] = 1.25  # block row 5: 600 blocks
+    s = s.tocsr().astype(dtype)
     a = interop.csr_from_arrays(s.data, s.indices, s.indptr, s.shape,
                                 device=cuda)
     ab = tbsr.csr_to_bsr(a, 2)
     plan = tpb.build_seg_tiles_block(ab, wsub=16)
+    assert plan.stream.n_long >= 1 and plan.stream.vals.shape[1] == 4
     v = np.random.default_rng(12).standard_normal(4000).astype(dtype)
     vt = torch.from_numpy(v).to(cuda)
     before = tpb.K2_LAUNCHES
@@ -131,10 +190,12 @@ def test_k2_matches_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert tpb.K2_LAUNCHES == before + 2
     assert torch.equal(y1, y2)
-    plain = tpb.bsr_smvm_segtile_block_plain(ab, vt, plan)
+    plain = tpb.block_stream_plain(plan.stream, vt)
     _assert_close(_np(y1), _np(plain), s, v, dtype)
     _assert_close(_np(y1), s.astype(np.float64) @ v.astype(np.float64), s,
                   v, dtype)
+    odd = torch.cat([vt.new_zeros(1), vt])[1:]  # one element off alignment
+    assert torch.equal(tpb.bsr_smvm_segtile_block(ab, odd, plan), y1)
 
 
 def test_readme_fixture_on_the_card(cuda):
@@ -560,44 +621,47 @@ _K1_COUNTERS = {(8, "vpu"): "K1_LAUNCHES", (32, "vpu"): "K1_R32_LAUNCHES",
 @pytest.mark.parametrize("rows,reduce", [(32, "vpu"), (8, "mxu"),
                                          (32, "mxu")])
 def test_k1_variants_match_plain(cuda, rows, reduce, layout, wsub, dtype):
-    """K1-r32 and K1-mxu against their plain versions and SciPy, bitwise
-    repeatable, on a band with an empty row block and a spill slot."""
+    """K1-r32 and K1-mxu over the compact stream against its plain version
+    and SciPy, bitwise repeatable, on a band with an empty row block and a
+    spill slot; the raw-array route, whose output is padded to whole tiles
+    (3000 is not a multiple of 32), gives the plan route's result, in any
+    tile order."""
     s = _band(3000, 40000, 21, 1800).tolil()
     s[64:96, :] = 0
     s[5, 7 + 128 * np.arange(12)] = 1.5  # one (row, lane) slot, 12 entries
     s = s.tocsr()
     s.eliminate_zeros()
-    a = interop.csr_from_arrays(s.data.astype(dtype), s.indices, s.indptr,
-                                s.shape, device=cuda)
+    a = _csr(s, dtype, cuda)
     plan = tpc.build_seg_tiles(a, wsub=wsub, rows=rows, layout=layout)
     v = np.random.default_rng(22).standard_normal(3000).astype(dtype)
     vt = torch.from_numpy(v).to(cuda)
-    raw = dict(n=3000, wsub=wsub, rows=rows, kstep=plan.kstep,
-               chunks=plan.chunks, reduce=reduce)
-    arrs = (plan.vals, plan.q, plan.seg_of, plan.rb)
     counter = _K1_COUNTERS[(rows, reduce)]
     before = getattr(tpc, counter)
-    y1 = tpc.segtile_apply(*arrs, vt, **raw)
-    y2 = tpc.segtile_apply(*arrs, vt, **raw)
+    y1 = tpc.csr_smvm_segtile(a, vt, plan, reduce=reduce, batch=4)
+    y2 = tpc.csr_smvm_segtile(a, vt, plan, reduce=reduce)
     torch.cuda.synchronize()
     assert getattr(tpc, counter) == before + 2
     assert torch.equal(y1, y2)  # bitwise repeatable
-    assert y1.shape == (-(-3000 // rows) * rows,)
-    plain = tpc.segtile_apply_plain(*arrs, vt, **raw)
-    _assert_close(_np(y1)[:3000], _np(plain)[:3000], s, v, dtype)
-    _assert_close(_np(y1)[:3000], s @ v.astype(np.float64), s, v, dtype)
+    plain = tpc.segtile_stream_plain(plan.stream, vt)
+    _assert_close(_np(y1), _np(plain), s, v, dtype)
+    _assert_close(_np(y1), s @ v.astype(np.float64), s, v, dtype)
     assert bool((y1[64:96] == 0).all())
+    raw = dict(n=3000, wsub=wsub, rows=rows, kstep=plan.kstep,
+               chunks=plan.chunks, reduce=reduce)
+    arrs = (plan.vals, plan.q, plan.seg_of, plan.rb)
+    y3 = tpc.segtile_apply(*arrs, vt, **raw)
+    assert y3.shape == (-(-3000 // rows) * rows,)
+    assert torch.equal(y3[:3000], y1) and bool((y3[3000:] == 0).all())
+    slot_plain = tpc.segtile_apply_plain(*arrs, vt, **raw)
+    _assert_close(_np(y1), _np(slot_plain)[:3000], s, v, dtype)
     p = torch.randperm(plan.n_tiles, device=cuda)
-    y3 = tpc.segtile_apply(*(x[p] for x in arrs), vt, **raw)
-    _assert_close(_np(y3)[:3000], _np(plain)[:3000], s, v, dtype)
-    got = tpc.csr_smvm_segtile(a, vt, plan, reduce=reduce, batch=4)
-    _assert_close(_np(got), s @ v.astype(np.float64), s, v, dtype)
+    y4 = tpc.segtile_apply(*(x[p] for x in arrs), vt, **raw)
+    _assert_close(_np(y4)[:3000], _np(plain), s, v, dtype)
 
 
 def test_k1_variants_reject_what_they_cannot_take(cuda):
     s = _band(64, 300, 13, 64)
-    a = interop.csr_from_arrays(s.data.astype(np.float32), s.indices,
-                                s.indptr, s.shape, device=cuda)
+    a = _csr(s, np.float32, cuda)
     plan = tpc.build_seg_tiles(a, rows=32)
     raw = dict(n=64, wsub=8, kstep=plan.kstep, chunks=plan.chunks)
     v = torch.ones(64, device=cuda)
@@ -609,6 +673,8 @@ def test_k1_variants_reject_what_they_cannot_take(cuda):
                           reduce="mxu", **raw)
     with pytest.raises(ValueError, match="reduce"):
         tpc.segtile_apply(*arrs, v, rows=32, reduce="x", **raw)
+    with pytest.raises(ValueError, match="reduce"):
+        tpc.csr_smvm_segtile(a, v, plan, reduce="x")
 
 
 @pytest.mark.parametrize("stream", ["f32", "bf16", "f64"])
