@@ -34,7 +34,13 @@ versions over that stream (a 20,000-entry row, stored zeros, the
 raw-array route, refresh), phases 6 and 15 time them through
 ``csr_smvm_segtile`` / ``bsr_smvm_segtile_block`` against
 ``torch.sparse_csr_tensor(...) @ v`` with int32 and with int64 indices,
-and a profiler trace lists the kernels of one apply.
+and a profiler trace lists the kernels of one apply.  K4 and K8 share one
+body for float32 and bf16 streams that skips the tiles' all-zero 32 x 32
+chunks: phases 9 and 15 time both streams (K4's bf16 stream through
+``compute_dtype=bfloat16``) beside ``BSR @ B`` in the same type, and
+read the work the body issued from a counter the kernel keeps on the card,
+which must stay within 1.25x the useful flops and equal this script's host
+model of the vote (the tiles' non-zero chunks).
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -910,7 +916,12 @@ def phase7_bell_kernels_vs_plain():
             (240, 32, 2, 5, 32, f64, None, None, ()),
             (49, 4, 1, 7, 1, f32, None, None, (3,)),
             (240, 32, 2, 5, 128, f32, bf16, None, ()),
-            (240, 32, 2, 5, 8, f32, None, "bf16x3", ())):
+            (240, 32, 2, 5, 8, f32, None, "bf16x3", ()),
+            # the vote body's ragged edges: bsz 24 divides no 32-row block
+            # (rt*bsz = 72), k 200 ends in a part column block, k 33 takes
+            # element copies
+            (40, 24, 2, 3, 200, f32, None, None, (2,)),
+            (130, 24, 1, 7, 33, f32, bf16, None, (5,))):
         cols, valid = _band_pattern(nb, hb, empty)
         a = _bell(cols, valid, bsz, dt, seed=nb * k)
         b = torch.from_numpy(rng.standard_normal((a.n, k))).to(dt).cuda()
@@ -1112,9 +1123,9 @@ def phase8_spmm_main_path():
                 cols_np=cols_np, slot_valid=slot_valid)
 
 
-def torch_bsr(m):
-    """The bench BELL's stored blocks as a ``torch.sparse_bsr_tensor`` (for
-    the library yardstick)."""
+def torch_bsr(m, dtype=torch.float32):
+    """The bench BELL's stored blocks in ``dtype`` as a
+    ``torch.sparse_bsr_tensor`` (for the library yardstick)."""
     a, valid = m["a"], m["slot_valid"]
     crow = np.zeros(a.nb + 1, np.int64)
     np.cumsum(valid.sum(1), out=crow[1:])
@@ -1122,19 +1133,74 @@ def torch_bsr(m):
     return torch.sparse_bsr_tensor(
         torch.from_numpy(crow).cuda(),
         torch.from_numpy(m["cols_np"][valid].astype(np.int64)).cuda(),
-        a.blocks[keep].contiguous(), size=(a.n, a.n))
+        a.blocks[keep].to(dtype).contiguous(), size=(a.n, a.n))
 
 
 def library_spmm(m, b, card, label):
-    """``A @ B`` by torch's BSR product on the bench band, or, where torch
-    refuses BSR on the card, by its CSR product; returns (ms, the call)."""
-    bsr = m.setdefault("bsr", torch_bsr(m))
+    """``A @ B`` by torch's BSR product on the bench band in ``b``'s dtype,
+    or, where torch refuses BSR on the card, by its CSR product; returns
+    (ms, the call)."""
+    bsr = m.get(("bsr", b.dtype))
+    if bsr is None:
+        bsr = m[("bsr", b.dtype)] = torch_bsr(m, b.dtype)
     ms = library_ms(f"BSR @ B ({label})", lambda: bsr @ b, card)
     if ms is not None:
         return ms, "torch.sparse_bsr_tensor(...) @ B"
-    csr = m.setdefault("csr", bsr.to_sparse_csr())
+    csr = m.get(("csr", b.dtype))
+    if csr is None:
+        csr = m[("csr", b.dtype)] = bsr.to_sparse_csr()
     ms = library_ms(f"CSR @ B ({label})", lambda: csr @ b, card)
     return ms, "torch.sparse_csr_tensor(...) @ B (BSR refused on the card)"
+
+
+#: The host model of the float32 / bf16 body of ``bell_banded`` (K4, K8):
+#: output rows and columns per thread block and the contraction chunk of
+#: one vote, as ``band::kBM``, ``kBN``, ``Cfg<T>::kBK`` in
+#: ``csrc/bell_banded.cu`` set them.
+BAND_BM, BAND_BN, BAND_BK = 32, 128, 32
+
+
+def issued_model(tiles, k):
+    """Host model of the operations (2 per multiply-add) that the float32 /
+    bf16 body of ``bell_banded`` issues on ``tiles`` (ntiles, M, K) at width
+    ``k``: one BM x BK x (k rounded up to BN) product for each chunk of a
+    tile that is not zero throughout (NaN counts as non-zero)."""
+    nt, M, K = tiles.shape
+    t = tiles
+    if M % BAND_BM or K % BAND_BK:
+        t = torch.nn.functional.pad(t, (0, -K % BAND_BK, 0, -M % BAND_BM))
+    nz = (t != 0).reshape(nt, t.shape[1] // BAND_BM, BAND_BM,
+                          t.shape[2] // BAND_BK, BAND_BK).any(4).any(2)
+    n_cols = -(-k // BAND_BN) * BAND_BN
+    return int(nz.sum()) * 2 * BAND_BM * BAND_BK * n_cols
+
+
+def check_issued(label, tiles, start, b, bsz, useful):
+    """The work the vote body issues on ``tiles`` against the operand ``b``
+    (rows, k), read from the kernel's own counter (one launch of
+    ``banded_issued_flops``), printed beside the ``useful`` flops, the dense
+    tile product's and the host model's; fails past 1.25x the useful flops
+    or where the kernel's count is not the model's.  Returns the count."""
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    k = b.shape[1]
+    issued = cb.banded_issued_flops(tiles, start, b, bsz)
+    model = issued_model(tiles, k)
+    dense = 2 * tiles.shape[0] * tiles.shape[1] * tiles.shape[2] * k
+    print(f"   {label}: {issued / 1e9:.3f} GFLOP issued (the kernel's "
+          f"count) for {useful / 1e9:.3f} useful = {issued / useful:.4f}x; "
+          f"the dense tile product is {dense / 1e9:.3f}; host model "
+          f"(non-zero {BAND_BM}x{BAND_BK} chunks) {model / 1e9:.3f}",
+          flush=True)
+    if issued > 1.25 * useful:
+        raise AssertionError(f"{label}: issues {issued / useful:.3f}x the "
+                             "useful flops, past 1.25x")
+    if issued != model:
+        raise AssertionError(
+            f"{label}: the kernel counted {issued} operations, the host "
+            f"model {model}: the vote kept other chunks than the non-zero "
+            "ones, or BAND_BM/BN/BK no longer mirror the kernel")
+    return issued
 
 
 def _report_spmm(label, fn, flops, nbytes, card):
@@ -1150,11 +1216,41 @@ def _report_spmm(label, fn, flops, nbytes, card):
     return ms, ms_b2b
 
 
+def bf16_stream_record(kname, kern, plain, bound, m, b, card):
+    """The bf16 stream of K4 or K8 at the bench shape (tiles and operand in
+    bf16, float32 sums): against its plain version — both take the same
+    bf16 operands and sum in float32, so float32's tolerance on the rounded
+    |A||B| — twice for bitwise repeatability, timed in turns beside its
+    bound and ``BSR @ B`` in bf16; returns the record kept in the kernel's
+    entry.  ``b`` is the (n, k) operand."""
+    label = f"{kname} bf16 stream"
+    err, _ = _twice_vs_plain(f"{label} at the bench shape", kern, plain,
+                             bound, torch.float32)
+    a, k = m["a"], b.shape[1]
+    cost = spmm_cost(int(m["slot_valid"].sum()), a.bsz, a.n, k, 2)
+    _, ms_p = _report_spmm(f"{label} plain", plain, cost[1], cost[0], card)
+    _, ms_k = _report_spmm(f"{label} kernel", kern, cost[1], cost[0], card)
+    _report_spmm(f"{label} kernel", kern, cost[1], cost[0], card)
+    _report_spmm(f"{label} plain", plain, cost[1], cost[0], card)
+    lib, call = library_spmm(m, b.to(torch.bfloat16), card,
+                             f"k {k} bf16, {kname}")
+    b_ms, b_by = bound_ms(*cost, torch.bfloat16)
+    print(f"   {label}: {ms_k:.4f} ms back to back, bound {b_ms:.4f} ms "
+          f"({b_by}), {b_ms / ms_k:.1%} of it; plain {ms_p:.4f} ms; max"
+          f"|kernel-plain| {err:.3e}; library "
+          f"{'refused' if lib is None else f'{lib:.4f} ms'} ({call}) "
+          f"[{card}]", flush=True)
+    return {"ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err, "library_ms": lib, "library_call": call,
+            "useful_gflop": cost[1] / 1e9}
+
+
 def phase9_bell_timing(card, m):
     """Each of K3-K6 against its plain version at the main path's shape
     (tolerance, bitwise repeat over all rows), then timed in turns — plain,
-    kernel, kernel, plain — alone and back to back; then bell_spmm and the
-    chain."""
+    kernel, kernel, plain — alone and back to back, with the work K4's
+    vote body issues; K4's bf16 stream (``compute_dtype=bfloat16``) the
+    same way; then bell_spmm beside K6, and the chain."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_bell as cb
 
@@ -1188,7 +1284,7 @@ def phase9_bell_timing(card, m):
          lambda: cb.bell_spmm_block_plain(a, b), bound, 2 * nnz * k,
          fused_bytes),
     )
-    out = []
+    out = {}
     nbz = int(m["slot_valid"].sum())
     for name, replaces, src, kern, plain, bnd, flops, nbytes in cases:
         kname = name.split()[0]
@@ -1203,13 +1299,39 @@ def phase9_bell_timing(card, m):
         kk = 32 if kname == "K5" else k
         lib, call = library_spmm(m, b32 if kname == "K5" else b, card,
                                  f"k {kk}")
-        out.append(kernel_entry(
+        out[kname] = kernel_entry(
             name, f"sparse_tpu_torch/csrc/{src}", replaces,
             m["counts"][kname], err, ms_k, ms_p,
-            spmm_cost(nbz, bsz, a.n, kk), lib, call))
+            spmm_cost(nbz, bsz, a.n, kk), lib, call)
+    useful = 2 * nnz * k
+    out["K4"]["issued_gflop"] = check_issued(
+        "K4 float32", kit.tiles, kit.plan.start, b, bsz, useful) / 1e9
+    out["K4"]["useful_gflop"] = useful / 1e9
+    bf16 = torch.bfloat16
+    kit_bf = cb.bell_banded_prepare(a, row_tile=5, compute_dtype=bf16,
+                                    slot_valid=m["slot_valid"])
+    kw = dict(tiles=kit_bf.tiles, compute_dtype=bf16)
+    b_bf = b.to(bf16)  # the stream's operand, as K8's b3 is
+    rec = out["K4"]["bf16_stream"] = bf16_stream_record(
+        "K4", lambda: cb.bell_spmm_banded(a, b_bf, kit_bf.plan, **kw),
+        lambda: cb.bell_spmm_banded_plain(a, b_bf, kit_bf.plan, **kw),
+        _abs_bound(a, b, bf16), m, b, card)
+    rec["issued_gflop"] = check_issued(
+        "K4 bf16 stream", kit_bf.tiles, kit_bf.plan.start, b_bf, bsz,
+        useful) / 1e9
+    # a float32 operand: the wrapper rounds it to bf16 on every call
+    _report_spmm("K4 bf16, float32 B", lambda: cb.bell_spmm_banded(
+        a, b, kit_bf.plan, **kw), useful,
+        cb.banded_spmm_hbm_bytes(kit_bf, bsz, a.n, k), card)
+    del kit_bf, kw, b_bf
     banded_bytes = cb.banded_spmm_hbm_bytes(kit, bsz, a.n, k)
-    _report_spmm("bell_spmm(plan=kit)", lambda: pt.bell_spmm(a, b, plan=kit),
-                 2 * nnz * k, banded_bytes, card)
+    _, ms_route = _report_spmm("bell_spmm(plan=kit)",
+                               lambda: pt.bell_spmm(a, b, plan=kit),
+                               2 * nnz * k, banded_bytes, card)
+    ms_k6 = out["K6"]["ms"]
+    print(f"   bell_spmm(plan=kit) runs K4: {ms_route:.4f} ms back to back "
+          f"against K6's {ms_k6:.4f} ({ms_route / ms_k6:.2f}x); the route is "
+          f"recorded, not changed [{card}]", flush=True)
 
     def chain():
         x = b
@@ -1219,7 +1341,7 @@ def phase9_bell_timing(card, m):
 
     _report_spmm(f"chain, {m['chain']} steps", chain,
                  2 * nnz * k * m["chain"], banded_bytes * m["chain"], card)
-    return out
+    return list(out.values())
 
 
 # -- SpGEMM: the block-SpGEMM slab kernel K7 ---------------------------------
@@ -1650,7 +1772,9 @@ def phase13_variants_vs_plain():
     # K8: (nb, bsz, rt, k, stream)
     for nb, bsz, rt, k, stream in ((301, 8, 4, 40, torch.float32),
                                    (301, 8, 4, 40, torch.bfloat16),
-                                   (53, 16, 5, 7, torch.float32)):
+                                   (53, 16, 5, 7, torch.float32),
+                                   (130, 24, 3, 200, torch.float32),
+                                   (64, 24, 3, 33, torch.bfloat16)):
         cols_b, valid = _band_pattern(nb, 2, empty=(nb // 2,))
         a = _bell(cols_b, valid, bsz, torch.float32, seed=nb + k)
         plan = cb.build_banded_plan(a, row_tile=rt, max_window=96,
@@ -1798,7 +1922,8 @@ def phase14_slice(wsub0, m):
 
 def phase15_timing(card, sl, m, band_lib, launches):
     """Every band-10M variant plan x reduce through ``csr_smvm_segtile``
-    and K8 (float32, bf16 stream) against their plain versions in turns
+    and K8 (float32, bf16 stream, each with the work its vote body issues)
+    against their plain versions in turns
     (plain, kernel, kernel, plain), alone and back to back, with
     nnz_roofline at csr_min_bytes and the compact stream's bytes, and the
     entry point's dependency-chained time
@@ -1879,31 +2004,30 @@ def phase15_timing(card, sl, m, band_lib, launches):
         def plain():
             return cuda_dband.dband_spmm_plain(*args)
 
-        name = str(stream)[6:]
-        err, _ = _twice_vs_plain(f"K8 {name} at the bench shape", kern,
-                                 plain, _abs_bound(m["a"], d["b"], stream),
-                                 torch.float32)
-        isz = 2 if stream == torch.bfloat16 else 4
-        c = spmm_cost(nbz, bsz, nb * bsz, k, isz)
-        # the work the densified tiles issue: every tile's full product
-        issued = 2 * tiles.shape[0] * tiles.shape[1] * tiles.shape[2] * k
-        _, ms_p = _report_spmm(f"K8 {name} plain", plain, c[1], c[0], card)
-        _, ms_k = _report_spmm(f"K8 {name} kernel", kern, c[1], c[0], card)
-        _report_spmm(f"K8 {name} kernel", kern, c[1], c[0], card)
-        _report_spmm(f"K8 {name} plain", plain, c[1], c[0], card)
-        print(f"   K8 {name}: {issued / 1e9:.2f} GFLOP issued for "
-              f"{c[1] / 1e9:.2f} useful ({issued / ms_k / 1e9:.2f} issued "
-              f"TFLOP/s)", flush=True)
-        if stream == torch.float32:
-            lib, call = library_spmm(m, d["b"], card, "k 128, K8")
-            out.append(kernel_entry(
-                "K8 dband_spmm", "sparse_tpu_torch/csrc/bell_banded.cu",
-                "benchmarks/measure_dband.py:57", launches["K8"], err, ms_k,
-                ms_p, c, lib, call))
-        else:
-            b_ms, b_by = bound_ms(*c, stream)
-            print(f"   K8 bf16 stream: {ms_k:.4f} ms back to back, bound "
-                  f"{b_ms:.4f} ms ({b_by}) [{card}]", flush=True)
+        bound = _abs_bound(m["a"], d["b"], stream)
+        c = spmm_cost(nbz, bsz, nb * bsz, k)
+        if stream == torch.bfloat16:
+            rec = entry["bf16_stream"] = bf16_stream_record(
+                "K8", kern, plain, bound, m, d["b"], card)
+            rec["issued_gflop"] = check_issued(
+                "K8 bf16 stream", tiles, plan.start, b3.reshape(-1, k), bsz,
+                c[1]) / 1e9
+            continue
+        err, _ = _twice_vs_plain("K8 float32 at the bench shape", kern,
+                                 plain, bound, torch.float32)
+        _, ms_p = _report_spmm("K8 float32 plain", plain, c[1], c[0], card)
+        _, ms_k = _report_spmm("K8 float32 kernel", kern, c[1], c[0], card)
+        _report_spmm("K8 float32 kernel", kern, c[1], c[0], card)
+        _report_spmm("K8 float32 plain", plain, c[1], c[0], card)
+        issued = check_issued("K8 float32", tiles, plan.start,
+                              b3.reshape(-1, k), bsz, c[1])
+        lib, call = library_spmm(m, d["b"], card, "k 128, K8")
+        entry = kernel_entry(
+            "K8 dband_spmm", "sparse_tpu_torch/csrc/bell_banded.cu",
+            "benchmarks/measure_dband.py:57", launches["K8"], err, ms_k,
+            ms_p, c, lib, call, issued_gflop=issued / 1e9,
+            useful_gflop=c[1] / 1e9)
+    out.append(entry)
     # the card's streaming rate: 20 chained copies of 1 GiB
     x = torch.empty(1 << 28, device="cuda").normal_()
     y = torch.empty_like(x)

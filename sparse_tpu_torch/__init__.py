@@ -119,7 +119,18 @@ from .ops.cuda_csr_block import (
 )
 from .ops.dispatch import SmvmAutoPlan, smvm_prepare
 from .ops.hub_split import HubSplit, hub_split_prepare, hub_split_smvm
-from .ops.reorder import rcm_order, rcm_order_blocked, reorder_for_locality
+from .ops.reorder import (
+    PermutePlan,
+    csr_bandwidth,
+    csr_permute,
+    permute_apply,
+    permute_prepare,
+    permute_vector,
+    rcm_order,
+    rcm_order_blocked,
+    reorder_for_locality,
+    unpermute_vector,
+)
 from .ops.spgemm import (
     SpgemmPlan,
     spgemm,
@@ -132,7 +143,9 @@ from .ops.spgemm import (
 )
 from .ops.spmm import dsmm, spmm
 from .ops.spmv import (
+    SpmvPlan,
     build_spmv_plan,
+    csr_smvm_ell,
     csr_smvm_fast,
     csr_spmm_ell,
     csr_spmm_fast,
@@ -165,8 +178,10 @@ __all__ = [
     "SmvmAutoPlan", "smvm_prepare",
     "HubSplit", "hub_split_prepare", "hub_split_smvm",
     "rcm_order", "rcm_order_blocked", "reorder_for_locality",
-    "build_spmv_plan", "csr_smvm_fast", "csr_spmm_ell", "csr_spmm_fast",
-    "row_capacity",
+    "PermutePlan", "csr_bandwidth", "csr_permute", "permute_apply",
+    "permute_prepare", "permute_vector", "unpermute_vector",
+    "SpmvPlan", "build_spmv_plan", "csr_smvm_ell", "csr_smvm_fast",
+    "csr_spmm_ell", "csr_spmm_fast", "row_capacity",
     "spmm", "dsmm",
     "bsr_row_capacity", "bsr_smvm_ell", "bsr_spmm_ell",
     "BandedPlan", "BandedKit", "BandedKitT", "build_banded_plan",

@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import device_values, host_values
 from ..utils.precision import full_precision
 from .bsr import BSR
 
@@ -70,7 +71,7 @@ def bell_from_bsr(a: BSR, Lb: int | None = None) -> BELL:
     lives on ``a``'s device)."""
     nb, bsz = a.nb, a.bsz
     idxs = a.indices.cpu().numpy().astype(np.int64)
-    blocks = a.blocks.cpu().numpy()
+    blocks = host_values(a.blocks)
     valid = idxs < nb * nb
     rs = idxs[valid] // max(nb, 1)
     cs = idxs[valid] % max(nb, 1)
@@ -87,7 +88,7 @@ def bell_from_bsr(a: BSR, Lb: int | None = None) -> BELL:
     out_blocks[rs[keep], slot[keep]] = vals[keep]
     out_cols[rs[keep], slot[keep]] = cs[keep]
     return BELL(cols=torch.from_numpy(out_cols).to(a.device),
-                blocks=torch.from_numpy(out_blocks).to(a.device),
+                blocks=device_values(out_blocks, a.dtype, a.device),
                 n=a.n, bsz=bsz)
 
 

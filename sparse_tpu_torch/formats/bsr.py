@@ -27,7 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import device_values, host_values, resolve_device
 from ..ops.segmented import INDEX_DTYPE, expand, segment_sum
 from ..utils.precision import full_precision
 from .coo import COO, coo_normalize
@@ -309,7 +309,7 @@ def _csr_to_bsr_host(a, bsz: int) -> BSR:
                                       device=dev), n=n, bsz=bsz)
     rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))[:k]
     cols = a.indices[:k].cpu().numpy().astype(np.int64)
-    data = a.data[:k].cpu().numpy()
+    data = host_values(a.data[:k])
     h = (rows // bsz) * nb + cols // bsz
     from ..native.plansort import argsort_u64
 
@@ -322,7 +322,7 @@ def _csr_to_bsr_host(a, bsz: int) -> BSR:
     blocks[group, rows[order] % bsz, cols[order] % bsz] = data[order]
     return BSR(indices=torch.from_numpy(h_s[heads]).to(_bidx_dtype(nb))
                .to(dev),
-               blocks=torch.from_numpy(blocks).to(dev), n=n, bsz=bsz)
+               blocks=device_values(blocks, a.dtype, dev), n=n, bsz=bsz)
 
 
 def bsr_compact(a: BSR) -> BSR:

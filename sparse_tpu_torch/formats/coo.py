@@ -31,8 +31,12 @@ __all__ = [
 
 
 def _np_dtype(dtype):
+    """NumPy dtype that holds ``dtype``'s values on the host: float32 for
+    bfloat16, which NumPy lacks (the caller casts the tensor back)."""
     if dtype is None or not isinstance(dtype, torch.dtype):
         return dtype
+    if dtype == torch.bfloat16:
+        return np.float32
     return torch.empty(0, dtype=dtype).numpy().dtype
 
 
@@ -94,8 +98,11 @@ def coo_from_triples(n: int, m: int, triples, dtype=None, *,
         rows.min() < 0 or rows.max() >= n or cols.min() < 0 or cols.max() >= m
     ):
         raise ValueError(f"coordinate out of bounds for {n}x{m} matrix")
+    data = torch.from_numpy(vals)
+    if isinstance(dtype, torch.dtype):
+        data = data.to(dtype)
     return coo_make((n, m), torch.from_numpy(rows), torch.from_numpy(cols),
-                    torch.from_numpy(vals), device=resolve_device(device))
+                    data, device=resolve_device(device))
 
 
 def coo_sort(a: COO) -> COO:

@@ -92,10 +92,11 @@ def mm_read_coo(path, dtype=None, *, device=None) -> COO:
         vals = dense[rows, cols]
     else:
         raise ValueError(f"unsupported MatrixMarket format: {fmt}")
+    data = torch.from_numpy(np.ascontiguousarray(vals.astype(out_dtype)))
+    if isinstance(dtype, torch.dtype):
+        data = data.to(dtype)  # bfloat16 is held as float32 on the host
     return coo_make((n, m), torch.from_numpy(rows.astype(np.int64)),
-                    torch.from_numpy(cols.astype(np.int64)),
-                    torch.from_numpy(np.ascontiguousarray(
-                        vals.astype(out_dtype))),
+                    torch.from_numpy(cols.astype(np.int64)), data,
                     device=resolve_device(device))
 
 

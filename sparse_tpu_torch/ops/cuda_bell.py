@@ -58,6 +58,7 @@ __all__ = [
     "bell_banded_refresh",
     "banded_spmm_hbm_bytes",
     "banded_spmm_t_hbm_bytes",
+    "banded_issued_flops",
     "bell_spmm_block",
     "bell_spmm_block_plain",
     "bell_spmm_fused",
@@ -495,6 +496,38 @@ def banded_spmm_t_hbm_bytes(kit: BandedKitT, bsz: int, n: int, k: int,
     ntiles = kit.tiles_t.shape[0]
     window_bytes = (ntiles // plan.S) * k * plan.SW * bsz * esz
     return kit.tiles_t.numel() * esz + window_bytes + n * k * out_itemsize
+
+
+def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
+                        b: torch.Tensor, bsz: int) -> int:
+    """Operations (two per multiply-add) that the float32 / bf16 body of K4
+    and K8 issues on ``tiles`` (ntiles, M, K) against the operand ``b``
+    (rows, k), as the kernel counts them: each thread block adds the chunks
+    its zero-chunk vote kept, at their full padded size, to a counter on
+    the card.  One launch into a scratch output, outside ``K4_LAUNCHES``
+    and ``K8_LAUNCHES``: it measures the skip and computes nothing.  CUDA
+    tensors with float32 or bf16 tiles only; the count is the kernel's, so
+    there is no plain version."""
+    name = "banded_issued_flops"
+    if (tiles.dim() != 3 or b.dim() != 2
+            or tiles.dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError(f"{name}: tiles {tuple(tiles.shape)} {tiles.dtype}"
+                         f" and operand {tuple(b.shape)}: needs 3-d float32 "
+                         "or bf16 tiles and a 2-d operand")
+    if not _on_cuda(name, tiles, start, b):
+        raise ValueError(f"{name}: counts on the card only, got CPU tensors")
+    ntiles, M, K = tiles.shape
+    ts = tiles.contiguous()
+    st = start.to(torch.int32).contiguous()
+    bs = b.to(tiles.dtype).contiguous()
+    out = torch.empty(ntiles * M, b.shape[1], dtype=torch.float32,
+                      device=b.device)
+    count = torch.zeros(1, dtype=torch.int64, device=b.device)
+    _launch(name, _kernels.load().bell_banded_issued, _KIND[tiles.dtype],
+            ts.data_ptr(), st.data_ptr(), bs.data_ptr(), out.data_ptr(),
+            ntiles, M, K, b.shape[1], bsz, b.shape[0], count.data_ptr(),
+            device=b.device)
+    return 2 * int(count.item())
 
 
 # -- K4: banded ---------------------------------------------------------------

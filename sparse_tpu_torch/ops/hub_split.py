@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import device_values, host_values
 from ..formats.csr import CSR
 from .cuda_csr import SegTilePlan, build_seg_tiles, csr_smvm_segtile
 from .spmv import SpmvPlan, build_spmv_plan, csr_smvm_fast
@@ -76,7 +77,7 @@ def hub_split_prepare(a: CSR, max_hub_cols: int | None = None,
     H = min(max_hub_cols if max_hub_cols is not None else DEFAULT_HUB_COLS,
             m)
     indptr, k, cols, deg = _degrees(a)
-    data = a.data[:k].cpu().numpy()
+    data = host_values(a.data[:k])
     hub_ids = np.argpartition(deg, m - H)[m - H:] if H < m \
         else np.arange(m, dtype=np.int64)
     hub_ids = hub_ids[np.argsort(-deg[hub_ids], kind="stable")]
@@ -94,7 +95,7 @@ def hub_split_prepare(a: CSR, max_hub_cols: int | None = None,
         ptr = np.zeros(n + 1, np.int64)
         np.cumsum(np.bincount(r, minlength=n), out=ptr[1:])
         idx = remap[c] if remap is not None else c
-        return CSR(data=torch.from_numpy(data[mask]).to(dev),
+        return CSR(data=device_values(data[mask], a.dtype, dev),
                    indices=torch.from_numpy(idx.astype(np.int32)).to(dev),
                    indptr=torch.from_numpy(ptr).to(dev), shape=(n, ncols))
 

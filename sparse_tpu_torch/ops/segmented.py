@@ -82,8 +82,8 @@ def segment_sum(
     if ids.numel() == 0:
         return out
     run_ids, totals = _sorted_segment_totals(data, ids)
-    out[run_ids] = totals
-    return out
+    # out of place, so torch.func.vmap can batch over the values
+    return out.index_put((run_ids,), totals)
 
 
 def row_ids_from_indptr(indptr: torch.Tensor, nse: int) -> torch.Tensor:

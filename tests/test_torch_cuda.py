@@ -334,6 +334,189 @@ def test_k4_matches_plain_at_odd_shapes(cuda, nb, bsz, hb, rt, k, tier):
                 _spmm_bound(a, b, kit.tiles.dtype), dt)
 
 
+# The float32 and bf16 streams of K4/K8 run the 32-row, 128-column body
+# with the zero-chunk vote; float64 and bf16x3 the first body.  Shapes:
+# bsz 24 (does not divide the 32-row block, nor does rt*bsz = 72), bsz 3
+# and 33 (ragged row blocks; the plan's lane rounding makes W*bsz a
+# multiple of 128, so W is 128 panels there), bsz 32 (blocks are block
+# rows); k 1 and 33 (element copies), 128 (one column block), 200 (two,
+# the second ragged).
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 33, 128, 200])
+@pytest.mark.parametrize("nb,bsz,hb,rt,mw", [(40, 24, 2, 3, 64),
+                                             (130, 3, 2, 7, 128),
+                                             (130, 33, 1, 2, 128),
+                                             (50, 32, 2, 5, 64)])
+def test_k4_vote_body_matches_plain(cuda, nb, bsz, hb, rt, mw, k, tier):
+    dt, cd, prec = TIERS[tier]
+    a, ok = _band_bell(nb, bsz, hb, nb * k + bsz, dt, cuda, empty=(2,))
+    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).to(dt).to(cuda)
+    kit = tcb.bell_banded_prepare(a, row_tile=rt, max_window=mw,
+                                  compute_dtype=cd, slot_valid=ok)
+    kw = dict(tiles=kit.tiles, compute_dtype=kit.tiles.dtype)
+    got = _twice(lambda: tcb.bell_spmm_banded(a, b, kit.plan, **kw),
+                 "K4_LAUNCHES")
+    _check_spmm(got, tcb.bell_spmm_banded_plain(a, b, kit.plan, **kw),
+                _spmm_bound(a, b, kit.tiles.dtype), dt)
+
+
+@pytest.mark.parametrize("tier", ["f64", "bf16x3"])
+@pytest.mark.parametrize("k", [1, 200])
+def test_k4_first_body_kinds_match_plain(cuda, k, tier):
+    dt, cd, prec = TIERS[tier]
+    a, ok = _band_bell(40, 24, 2, k, dt, cuda, empty=(2,))
+    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).to(dt).to(cuda)
+    kit = tcb.bell_banded_prepare(a, row_tile=3, slot_valid=ok)
+    kw = dict(tiles=kit.tiles, precision=prec)
+    got = _twice(lambda: tcb.bell_spmm_banded(a, b, kit.plan, **kw),
+                 "K4_LAUNCHES")
+    _check_spmm(got, tcb.bell_spmm_banded_plain(a, b, kit.plan, **kw),
+                _spmm_bound(a, b, dt), dt)
+
+
+def _issued_model(tiles, k):
+    """Operations the vote body should issue: 2 x 32 x 32 x (k rounded up
+    to 128) for every 32 x 32 chunk of the tiles that is not all zero."""
+    nt, m, kk = tiles.shape
+    t = torch.nn.functional.pad(tiles.float() != 0, (0, -kk % 32, 0, -m % 32))
+    kept = t.reshape(nt, t.shape[1] // 32, 32, t.shape[2] // 32, 32).any(
+        4).any(2).sum()
+    return int(kept) * 2 * 32 * 32 * (-(-k // 128) * 128)
+
+
+def _sparse_tiles_case(cuda, stream, fill):
+    """A 4-tile kit (bsz 32, rt 2) whose tiles are all zero, then ``fill``
+    writes into them; returns (BELL, operand, plan, tiles)."""
+    a, ok = _band_bell(8, 32, 1, 0, torch.float32, cuda)
+    kit = tcb.bell_banded_prepare(a, row_tile=2, compute_dtype=stream,
+                                  slot_valid=ok)
+    tiles = torch.zeros_like(kit.tiles)
+    fill(tiles)
+    b = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (a.n, 128))).float().to(cuda)
+    return a, b, kit.plan, tiles
+
+
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", ["all-zero", "one-element", "chunk-edge"])
+def test_k4_vote_keeps_lone_elements(cuda, stream, where):
+    def fill(t):
+        if where == "one-element":  # one value in an otherwise zero chunk
+            t[1, 37, 70] = 1.5
+        elif where == "chunk-edge":  # last row and column of a 32x32 chunk
+            t[2, 31, 63] = -2.0
+            t[3, 63, 95] = 0.75
+
+    a, b, plan, tiles = _sparse_tiles_case(cuda, stream, fill)
+    kw = dict(tiles=tiles, compute_dtype=stream)
+    got = _twice(lambda: tcb.bell_spmm_banded(a, b, plan, **kw),
+                 "K4_LAUNCHES")
+    want = tcb.bell_spmm_banded_plain(a, b, plan, **kw)
+    nz = tiles.float().reshape(-1, tiles.shape[2]).abs().sum(1) != 0
+    assert int(nz.sum()) == {"all-zero": 0, "one-element": 1,
+                             "chunk-edge": 2}[where]
+    # the kernel's own count: one 32 x 32 x 128 chunk per stored element
+    assert tcb.banded_issued_flops(tiles, plan.start, b, 32) == int(
+        nz.sum()) * 2 * 32 * 32 * 128 == _issued_model(tiles, 128)
+    # a row with a stored element is that element times a row of B, and
+    # not skipped; the rest are exact zeros
+    assert torch.equal(got[~nz], torch.zeros_like(got[~nz]))
+    assert bool((got[nz] != 0).all())
+    bound = tcb.bell_spmm_banded_plain(a, b.abs(), plan, tiles=tiles.abs(),
+                                       compute_dtype=stream)
+    _check_spmm(got, want, bound, torch.float32)
+
+
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+def test_k4_nan_in_a_propagates(cuda, stream):
+    def fill(t):
+        t[0, 5, 40] = float("nan")
+        t[0, 5, 41] = 1.0
+        t[1, 40, 3] = 2.0
+
+    a, b, plan, tiles = _sparse_tiles_case(cuda, stream, fill)
+    kw = dict(tiles=tiles, compute_dtype=stream)
+    before = tcb.K4_LAUNCHES
+    y1 = tcb.bell_spmm_banded(a, b, plan, **kw)
+    y2 = tcb.bell_spmm_banded(a, b, plan, **kw)
+    torch.cuda.synchronize()
+    assert tcb.K4_LAUNCHES == before + 2
+    assert torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+    want = tcb.bell_spmm_banded_plain(a, b, plan, **kw)
+    assert torch.isnan(y1[5]).all()  # the NaN row: NaN in every column
+    # the NaN's chunk (with its neighbour) and the 2.0's were multiplied
+    assert tcb.banded_issued_flops(tiles, plan.start, b,
+                                   32) == 2 * (2 * 32 * 32 * 128)
+    assert torch.equal(torch.isnan(y1), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.allclose(y1[ok], want[ok], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("stream", ["f32", "bf16"])
+def test_k8_windows_past_the_operand_end(cuda, stream):
+    """``b3`` shorter than the last windows: rows past its end read 0."""
+    from sparse_tpu_torch.ops import cuda_dband as tdb
+
+    sdt = torch.bfloat16 if stream == "bf16" else torch.float32
+    nb, bsz, rt, k = 45, 32, 5, 128
+    a, ok = _band_bell(nb, bsz, 2, 11, torch.float32, cuda, empty=(7,))
+    plan = tcb.build_banded_plan(a, row_tile=rt, max_window=96,
+                                 slot_valid=ok)
+    tiles = tdb.densify_tiles(a, plan, sdt)
+    b = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (a.n, k))).float().to(cuda)
+    b3 = b.reshape(nb, bsz, k)[:nb - 3]  # the last windows run past it
+    assert int(plan.start.max()) + plan.W > b3.shape[0]
+    args = (tiles, plan.start, b3, nb, bsz, k, plan.W, rt, torch.float32)
+    before = tdb.K8_LAUNCHES
+    y1, y2 = tdb.dband_spmm(*args), tdb.dband_spmm(*args)
+    torch.cuda.synchronize()
+    assert tdb.K8_LAUNCHES == before + 2
+    assert torch.equal(y1, y2) and y1.shape == (nb * bsz, k)
+    b_cut = torch.cat([b3.reshape(-1, k), b.new_zeros(3 * bsz, k)])
+    _check_spmm(y1, tdb.dband_spmm_plain(*args),
+                _spmm_bound(a, b_cut, sdt), torch.float32)
+
+
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,W,rt,k,shift", [(3, 5, 7, 33, 0),
+                                              (33, 3, 2, 70, 0),
+                                              (8, 4, 3, 64, 1)])
+def test_k8_element_copies(cuda, bsz, W, rt, k, shift, stream):
+    """Tiles of any W (K8 takes them as given): W*bsz not a multiple of 16
+    bytes, or tiles, operand and output at an odd element offset (shift),
+    take the element-copy path; half the 32-column chunks are zero."""
+    from sparse_tpu_torch.ops import cuda_dband as tdb
+
+    rng = np.random.default_rng(bsz * W + k)
+    nb, ntiles = 9, 4
+    t = rng.standard_normal((ntiles, rt * bsz, W * bsz))
+    for c0 in range(32, W * bsz, 64):
+        t[:, :, c0:c0 + 32] = 0.0
+    start = torch.from_numpy(rng.integers(0, nb, ntiles).astype(np.int32))
+    b3 = rng.standard_normal((nb, bsz, k))  # windows run past its end
+
+    def dev(x):
+        flat = torch.from_numpy(x).to(stream).reshape(-1)
+        return torch.cat([flat.new_zeros(shift), flat]).to(cuda)[
+            shift:].reshape(x.shape)
+
+    tiles, bb = dev(t), dev(b3)
+    args = (tiles, start.to(cuda), bb, nb, bsz, k, W, rt, torch.float32)
+    before = tdb.K8_LAUNCHES
+    y1, y2 = tdb.dband_spmm(*args), tdb.dband_spmm(*args)
+    torch.cuda.synchronize()
+    assert tdb.K8_LAUNCHES == before + 2
+    assert torch.equal(y1, y2)
+    assert tcb.banded_issued_flops(tiles, start.to(cuda), bb.reshape(-1, k),
+                                   bsz) == _issued_model(tiles, k)
+    bound = tdb.dband_spmm_plain(tiles.abs(), start.to(cuda), bb.abs(),
+                                 *args[3:])
+    _check_spmm(y1, tdb.dband_spmm_plain(*args), bound, torch.float32)
+
+
 @pytest.mark.parametrize("tier", list(TIERS))
 @pytest.mark.parametrize("padded", [False, True])
 @pytest.mark.parametrize("nb,bsz,k", [(45, 16, 7), (70, 8, 33)])
