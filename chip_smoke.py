@@ -40,7 +40,15 @@ chunks: phases 9 and 15 time both streams (K4's bf16 stream through
 ``compute_dtype=bfloat16``) beside ``BSR @ B`` in the same type, and
 read the work the body issued from a counter the kernel keeps on the card,
 which must stay within 1.25x the useful flops and equal this script's host
-model of the vote (the tiles' non-zero chunks).
+model of the vote (the tiles' non-zero chunks).  K3's float32 and bf16
+streams run the same body on each block row's wide row, and K5's walk the
+transposed kit's chunk mask (built once per kit): phase 7 holds both
+against their plain versions at the card tests' shapes, phase 9 reads
+their counters at the bench shape the same way (K5 also the tile bytes it
+read, beside the kit's) and times their bf16 streams with bf16 operands
+beside ``BSR @ B`` in bf16.  K7's yardstick is two library calls, the
+gathered block pairs through ``torch.bmm`` and ``index_add_`` into the
+output blocks, since cuSPARSE refuses the fixture's ``A_csr @ A_csr``.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -874,12 +882,175 @@ def _twice_vs_plain(label, kernel, plain, bound, tol_dtype):
     return check_close(label, y1, yp, bound, tol_dtype), y1
 
 
+def _with_values(a, values):
+    """``a`` with other values: "band" keeps them, "zero" makes every block
+    zero, "lone" leaves one stored element (1.5, in a stored slot of an
+    interior row), "nan" puts a NaN into a stored block."""
+    from sparse_tpu_torch.formats.bell import BELL
+
+    if values == "band":
+        return a
+    blocks = a.blocks.clone()
+    if values in ("zero", "lone"):
+        blocks.zero_()
+    if values == "lone":
+        blocks[a.nb // 3, 1, a.bsz - 1, a.bsz // 2] = 1.5
+    elif values == "nan":
+        blocks[a.nb // 3, 1, 1, 0] = float("nan")
+    return BELL(cols=a.cols, blocks=blocks, n=a.n, bsz=a.bsz)
+
+
+def _bits(y):
+    return y.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[y.element_size()])
+
+
+def _values_vs_plain(label, kernel, plain, bound, values):
+    """``_twice_vs_plain`` for the special values of ``_with_values``: a NaN
+    in A must give NaN exactly where the plain version has it (two runs
+    equal bit for bit), a lone element exactly as many non-zeros as the
+    plain version (one row of C or column of C^T), all-zero blocks exact
+    zeros; returns the max |kernel - plain| elsewhere."""
+    if values != "nan":
+        err, y = _twice_vs_plain(label, kernel, plain, bound, torch.float32)
+        nz = int((plain() != 0).sum())
+        if values in ("zero", "lone") and (
+                int((y != 0).sum()) != nz or (nz > 0) != (values == "lone")):
+            raise AssertionError(f"{label}: {int((y != 0).sum())} non-zeros,"
+                                 f" the plain version {nz}")
+        return err
+    y1 = kernel()
+    y2 = kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(y1), _bits(y2)):
+        raise AssertionError(f"{label}: two runs differ bitwise")
+    yp = plain()
+    nan = torch.isnan(yp)
+    if not bool(nan.any()) or not torch.equal(torch.isnan(y1), nan):
+        raise AssertionError(f"{label}: NaN pattern differs from the plain "
+                             "version's")
+    return check_close(label, y1.masked_fill(nan, 0), yp.masked_fill(nan, 0),
+                       bound.masked_fill(torch.isnan(bound), 0),
+                       torch.float32)
+
+
+def check_counted(label, counted, model, useful):
+    """A body's own count of the operations it issued, printed beside the
+    useful flops and the host model; fails past 1.25x the useful flops
+    (where there are any) or where the count is not the model's."""
+    ratio = counted / useful if useful else float("nan")
+    print(f"   {label}: {counted / 1e9:.6f} GFLOP issued (the kernel's "
+          f"count) for {useful / 1e9:.6f} useful = {ratio:.4f}x; host model "
+          f"{model / 1e9:.6f}", flush=True)
+    if useful and counted > 1.25 * useful:
+        raise AssertionError(f"{label}: issues {ratio:.3f}x the useful "
+                             "flops, past 1.25x")
+    if counted != model:
+        raise AssertionError(f"{label}: the kernel counted {counted}, its "
+                             f"host model {model}")
+    return counted
+
+
+def _hand_kit_t(a, valid, rt, max_window, stream):
+    """A BandedKitT built by hand from K4's plan (any rt, unaligned
+    starts); its chunk mask comes from ``__post_init__``."""
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    plan = cb.build_banded_plan(a, row_tile=rt, max_window=max_window,
+                                slot_valid=valid)
+    tiles = cb._densify_band_tiles(a, plan, stream)
+    return cb.BandedKitT(plan=plan,
+                         tiles_t=tiles.transpose(1, 2).contiguous())
+
+
+def _mask_bodies_vs_plain(rng):
+    """K3's vote body and K5's mask body (float32 and bf16 streams) against
+    their plain versions at tests/test_torch_cuda.py's shapes, each with
+    the body's own count of its work against the host model."""
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # K3: (nb, bsz, hb, k, values); edge rows and an empty row hold
+    # padding slots
+    for nb, bsz, hb, k, values in (
+            (37, 3, 2, 200, "band"), (40, 24, 2, 70, "band"),
+            (30, 32, 2, 32, "band"), (29, 33, 1, 33, "band"),
+            (12, 64, 1, 200, "band"), (50, 8, 3, 1, "band"),
+            (30, 32, 2, 128, "zero"), (30, 32, 2, 128, "lone"),
+            (30, 32, 2, 128, "nan")):
+        cols, valid = _band_pattern(nb, hb, empty=(nb // 2,))
+        a = _with_values(_bell(cols, valid, bsz, f32, seed=nb * k + bsz),
+                         values)
+        b = torch.from_numpy(rng.standard_normal((a.n, k))).float().cuda()
+        for cd in (None, bf16):
+            label = (f"K3 body nb={nb} bsz={bsz} k={k} {values} stream="
+                     f"{str(cd or f32)[6:]}")
+            err = _values_vs_plain(
+                label, lambda: cb.bell_spmm_fused(a, b, compute_dtype=cd),
+                lambda: cb.bell_spmm_fused_plain(a, b, compute_dtype=cd),
+                _abs_bound(a, b, cd or f32), values)
+            counted = cb.fused_issued_flops(a, b, compute_dtype=cd)
+            model = cb.fused_issued_model(a, k, compute_dtype=cd or f32)
+            if counted != model:
+                raise AssertionError(f"{label}: counted {counted} operations"
+                                     f", host model {model}")
+            print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
+                  f"repeatable; issued {counted} = host model", flush=True)
+    # K5: (nb, bsz, k, values, hand-built kit's rt or None), each with an
+    # unpadded and a padded operand
+    for nb, bsz, k, values, hand_rt in (
+            (45, 16, 7, "band", None), (100, 24, 70, "band", None),
+            (250, 32, 32, "band", None), (70, 64, 200, "band", None),
+            (1000, 3, 1, "band", 7), (130, 33, 33, "band", 2),
+            (250, 32, 32, "zero", None), (250, 32, 32, "lone", None),
+            (250, 32, 32, "nan", None)):
+        cols, valid = _band_pattern(nb, 2)
+        a = _with_values(_bell(cols, valid, bsz, f32, seed=nb + bsz * k),
+                         values)
+        b = torch.from_numpy(rng.standard_normal((a.n, k))).float().cuda()
+        for stream in (f32, bf16):
+            if hand_rt:
+                kit = _hand_kit_t(a, valid, hand_rt, 128, stream)
+            else:
+                kit = cb.bell_banded_prepare_t(a, max_window=128,
+                                               compute_dtype=stream,
+                                               slot_valid=valid)
+            n_pad = kit.plan.offs.shape[0] * bsz
+            bound = _abs_bound(a, b, stream).T
+            for padded in (False, True):
+                bt = b.T.contiguous()
+                bnd = bound
+                if padded:
+                    bt = torch.cat([bt, bt.new_zeros(k, n_pad - a.n)], 1)
+                    bnd = torch.cat([bound, bound.new_zeros(k, n_pad - a.n)],
+                                    1)
+                label = (f"K5 body nb={nb} bsz={bsz} k={k} {values} "
+                         f"rt={kit.plan.rt} stream={str(stream)[6:]} operand "
+                         f"{'padded' if padded else 'n'}")
+                err = _values_vs_plain(
+                    label, lambda: cb.bell_spmm_banded_t(a, bt, kit),
+                    lambda: cb.bell_spmm_banded_t_plain(a, bt, kit), bnd,
+                    values)
+                counted = cb.banded_t_issued(a, bt, kit)
+                model = cb.banded_t_issued_model(kit, k)
+                if counted != model:
+                    raise AssertionError(f"{label}: counted {counted} "
+                                         f"(operations, tile bytes), host "
+                                         f"model {model}")
+                print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
+                      f"repeatable; issued, tile bytes {counted} = host "
+                      "model", flush=True)
+
+
 def phase7_bell_kernels_vs_plain():
     """K3-K6 against their plain versions on the card: bsz 4/8/32, k
     1/8/32/100/128, float32, float64, a bf16 stream and bf16x3, padding
     slots and empty rows, nb not divisible by rt, plans with S > 1 and
     S = 1, K5 with an unpadded and a padded operand; each case twice for
-    bitwise repeatability."""
+    bitwise repeatability.  Then K3's and K5's float32 / bf16 bodies at the
+    card tests' shapes (bsz 3/8/16/24/32/33/64, k 1/7/32/33/70/128/200,
+    all-zero blocks, a lone element, a NaN in A, hand-built K5 kits) with
+    their issued-work counters."""
     from sparse_tpu_torch.ops import cuda_bell as cb
 
     rng = np.random.default_rng(7)
@@ -972,6 +1143,7 @@ def phase7_bell_kernels_vs_plain():
             raise AssertionError(f"{label}: output {tuple(y.shape)}")
         print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
               "repeatable", flush=True)
+    _mask_bodies_vs_plain(rng)
 
 
 def _bench_bell():
@@ -1153,54 +1325,41 @@ def library_spmm(m, b, card, label):
     return ms, "torch.sparse_csr_tensor(...) @ B (BSR refused on the card)"
 
 
-#: The host model of the float32 / bf16 body of ``bell_banded`` (K4, K8):
-#: output rows and columns per thread block and the contraction chunk of
-#: one vote, as ``band::kBM``, ``kBN``, ``Cfg<T>::kBK`` in
-#: ``csrc/bell_banded.cu`` set them.
-BAND_BM, BAND_BN, BAND_BK = 32, 128, 32
-
-
-def issued_model(tiles, k):
-    """Host model of the operations (2 per multiply-add) that the float32 /
-    bf16 body of ``bell_banded`` issues on ``tiles`` (ntiles, M, K) at width
-    ``k``: one BM x BK x (k rounded up to BN) product for each chunk of a
-    tile that is not zero throughout (NaN counts as non-zero)."""
-    nt, M, K = tiles.shape
-    t = tiles
-    if M % BAND_BM or K % BAND_BK:
-        t = torch.nn.functional.pad(t, (0, -K % BAND_BK, 0, -M % BAND_BM))
-    nz = (t != 0).reshape(nt, t.shape[1] // BAND_BM, BAND_BM,
-                          t.shape[2] // BAND_BK, BAND_BK).any(4).any(2)
-    n_cols = -(-k // BAND_BN) * BAND_BN
-    return int(nz.sum()) * 2 * BAND_BM * BAND_BK * n_cols
-
-
 def check_issued(label, tiles, start, b, bsz, useful):
-    """The work the vote body issues on ``tiles`` against the operand ``b``
-    (rows, k), read from the kernel's own counter (one launch of
-    ``banded_issued_flops``), printed beside the ``useful`` flops, the dense
-    tile product's and the host model's; fails past 1.25x the useful flops
-    or where the kernel's count is not the model's.  Returns the count."""
+    """The work the vote body of K4 / K8 issues on ``tiles`` against the
+    operand ``b`` (rows, k), read from the kernel's own counter (one launch
+    of ``banded_issued_flops``) beside the dense tile product's, checked as
+    ``check_counted`` does against the host model (the non-zero chunks)."""
     from sparse_tpu_torch.ops import cuda_bell as cb
 
     k = b.shape[1]
-    issued = cb.banded_issued_flops(tiles, start, b, bsz)
-    model = issued_model(tiles, k)
     dense = 2 * tiles.shape[0] * tiles.shape[1] * tiles.shape[2] * k
-    print(f"   {label}: {issued / 1e9:.3f} GFLOP issued (the kernel's "
-          f"count) for {useful / 1e9:.3f} useful = {issued / useful:.4f}x; "
-          f"the dense tile product is {dense / 1e9:.3f}; host model "
-          f"(non-zero {BAND_BM}x{BAND_BK} chunks) {model / 1e9:.3f}",
+    print(f"   {label}: the dense tile product is {dense / 1e9:.3f} GFLOP",
           flush=True)
-    if issued > 1.25 * useful:
-        raise AssertionError(f"{label}: issues {issued / useful:.3f}x the "
-                             "useful flops, past 1.25x")
-    if issued != model:
-        raise AssertionError(
-            f"{label}: the kernel counted {issued} operations, the host "
-            f"model {model}: the vote kept other chunks than the non-zero "
-            "ones, or BAND_BM/BN/BK no longer mirror the kernel")
-    return issued
+    return check_counted(label, cb.banded_issued_flops(tiles, start, b, bsz),
+                         cb.banded_issued_model(tiles, k), useful)
+
+
+def check_k5_counts(label, a, bt, kit, useful):
+    """K5's own counts on ``kit`` against ``bt``: the operations, checked as
+    ``check_counted`` does, and the tile bytes it copied, which must equal
+    the host model and are printed beside the kit's bytes; returns the
+    record's keys."""
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    ops, nbytes = cb.banded_t_issued(a, bt, kit)
+    model_ops, model_bytes = cb.banded_t_issued_model(kit, bt.shape[0])
+    if nbytes != model_bytes:
+        raise AssertionError(f"{label}: copied {nbytes} tile bytes, host "
+                             f"model {model_bytes}")
+    kit_bytes = kit.tiles_t.numel() * kit.tiles_t.element_size()
+    print(f"   {label}: read {nbytes / 1e6:.1f} MB of tile chunks (the "
+          f"kernel's count) of the kit's {kit_bytes / 1e6:.1f} MB "
+          f"({nbytes / kit_bytes:.1%}); chunk mask "
+          f"{int(kit.chunk_nz.sum())} of {kit.chunk_nz.numel()} chunks",
+          flush=True)
+    return {"issued_gflop": check_counted(label, ops, model_ops, useful) / 1e9,
+            "tile_mb_read": nbytes / 1e6, "tile_mb_kit": kit_bytes / 1e6}
 
 
 def _report_spmm(label, fn, flops, nbytes, card):
@@ -1217,12 +1376,12 @@ def _report_spmm(label, fn, flops, nbytes, card):
 
 
 def bf16_stream_record(kname, kern, plain, bound, m, b, card):
-    """The bf16 stream of K4 or K8 at the bench shape (tiles and operand in
-    bf16, float32 sums): against its plain version — both take the same
-    bf16 operands and sum in float32, so float32's tolerance on the rounded
-    |A||B| — twice for bitwise repeatability, timed in turns beside its
-    bound and ``BSR @ B`` in bf16; returns the record kept in the kernel's
-    entry.  ``b`` is the (n, k) operand."""
+    """The bf16 stream of K3, K4, K5 or K8 at the bench shape (A and the
+    operand in bf16, float32 sums): against its plain version — both take
+    the same bf16 operands and sum in float32, so float32's tolerance on
+    the rounded |A||B| — twice for bitwise repeatability, timed in turns
+    beside its bound and ``BSR @ B`` in bf16; returns the record kept in
+    the kernel's entry.  ``b`` is the (n, k) operand."""
     label = f"{kname} bf16 stream"
     err, _ = _twice_vs_plain(f"{label} at the bench shape", kern, plain,
                              bound, torch.float32)
@@ -1248,9 +1407,11 @@ def bf16_stream_record(kname, kern, plain, bound, m, b, card):
 def phase9_bell_timing(card, m):
     """Each of K3-K6 against its plain version at the main path's shape
     (tolerance, bitwise repeat over all rows), then timed in turns — plain,
-    kernel, kernel, plain — alone and back to back, with the work K4's
-    vote body issues; K4's bf16 stream (``compute_dtype=bfloat16``) the
-    same way; then bell_spmm beside K6, and the chain."""
+    kernel, kernel, plain — alone and back to back, with the work the
+    float32 bodies of K3, K4 and K5 issue (K5 also the tile bytes it
+    reads); the bf16 streams of K4, K3 (``compute_dtype=bfloat16``) and K5
+    (a bf16 kit at k 32), each with a bf16 operand, the same way beside
+    ``BSR @ B`` in bf16; then bell_spmm beside K6, and the chain."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_bell as cb
 
@@ -1307,6 +1468,15 @@ def phase9_bell_timing(card, m):
     out["K4"]["issued_gflop"] = check_issued(
         "K4 float32", kit.tiles, kit.plan.start, b, bsz, useful) / 1e9
     out["K4"]["useful_gflop"] = useful / 1e9
+    # K3's vote and K5's mask, read from their own counters
+    out["K3"]["issued_gflop"] = check_counted(
+        "K3 float32", cb.fused_issued_flops(a, b),
+        cb.fused_issued_model(a, k), useful) / 1e9
+    out["K3"]["useful_gflop"] = useful / 1e9
+    useful32 = 2 * nnz * 32
+    out["K5"]["useful_gflop"] = useful32 / 1e9
+    out["K5"].update(check_k5_counts("K5 float32 k=32", a, bt32, kit_t,
+                                     useful32))
     bf16 = torch.bfloat16
     kit_bf = cb.bell_banded_prepare(a, row_tile=5, compute_dtype=bf16,
                                     slot_valid=m["slot_valid"])
@@ -1323,7 +1493,28 @@ def phase9_bell_timing(card, m):
     _report_spmm("K4 bf16, float32 B", lambda: cb.bell_spmm_banded(
         a, b, kit_bf.plan, **kw), useful,
         cb.banded_spmm_hbm_bytes(kit_bf, bsz, a.n, k), card)
-    del kit_bf, kw, b_bf
+    del kit_bf, kw
+    # K3's bf16 stream, a bf16 operand
+    kw = dict(compute_dtype=bf16)
+    rec = out["K3"]["bf16_stream"] = bf16_stream_record(
+        "K3", lambda: cb.bell_spmm_fused(a, b_bf, **kw),
+        lambda: cb.bell_spmm_fused_plain(a, b_bf, **kw),
+        _abs_bound(a, b, bf16), m, b, card)
+    rec["issued_gflop"] = check_counted(
+        "K3 bf16 stream", cb.fused_issued_flops(a, b_bf, **kw),
+        cb.fused_issued_model(a, k, compute_dtype=bf16), useful) / 1e9
+    del b_bf
+    # K5's bf16 kit at k 32, a bf16 operand
+    kit_tbf = cb.bell_banded_prepare_t(a, compute_dtype=bf16,
+                                       slot_valid=m["slot_valid"])
+    bt_bf = bt32.to(bf16)
+    rec = out["K5"]["bf16_stream"] = bf16_stream_record(
+        "K5", lambda: cb.bell_spmm_banded_t(a, bt_bf, kit_tbf),
+        lambda: cb.bell_spmm_banded_t_plain(a, bt_bf, kit_tbf),
+        _abs_bound(a, b32, bf16).T.contiguous(), m, b32, card)
+    rec.update(check_k5_counts("K5 bf16 stream k=32", a, bt_bf, kit_tbf,
+                               useful32))
+    del kit_tbf, bt_bf
     banded_bytes = cb.banded_spmm_hbm_bytes(kit, bsz, a.n, k)
     _, ms_route = _report_spmm("bell_spmm(plan=kit)",
                                lambda: pt.bell_spmm(a, b, plan=kit),
@@ -1622,6 +1813,7 @@ def phase12_slab_timing(card, m, launches):
     separately."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_bsr
+    from sparse_tpu_torch.utils.precision import full_precision
 
     a = m["a"]
     t0 = time.perf_counter()
@@ -1701,16 +1893,39 @@ def phase12_slab_timing(card, m, launches):
           f"re-block, host prepare, K7, back to scalar CSR) [{card}]",
           flush=True)
     csr = torch_csr(a)
-    lib = library_ms("A_csr @ A_csr", lambda: csr @ csr, card, n=5)
-    call = "torch.sparse_csr_tensor(...) @ (same)"
-    if lib is None:
-        call += f" refused on the card: {LIBRARY_REFUSALS['A_csr @ A_csr']}"
+    csr_ms = library_ms("A_csr @ A_csr", lambda: csr @ csr, card, n=5)
+    del csr
+    # The yardstick: the same block products as gathered block pairs
+    # through torch.bmm, summed into the output blocks by index_add_ (two
+    # library calls, the gathers included; the port never calls it)
+    a_pos, b_pos = plan.a_pos.long(), plan.b_pos.long()
+    seg = plan.seg.long()
+
+    def yardstick(blocks=ab.blocks):
+        out = blocks.new_zeros(plan.nbz_out, bsz, bsz)
+        return out.index_add_(0, seg, torch.bmm(blocks[a_pos],
+                                                blocks[b_pos]))
+
+    with full_precision(torch.float32):  # no TF32, as K7 computes
+        c7 = pt.bsr_smsmm_apply_slab(pp, ab, ab).blocks
+        e7 = check_close("two-call yardstick vs K7", yardstick(), c7,
+                         yardstick(ab.blocks.abs()), torch.float32)
+        lib = library_ms("torch.bmm + index_add_ (K7's yardstick)", yardstick,
+                         card)
+    del c7
+    call = ("two-call yardstick: torch.bmm(A[a_pos], B[b_pos]) (F = "
+            f"{F} gathered block pairs) + index_add_ into the output blocks"
+            ", gathers included")
+    print(f"   {call}: max|yardstick-K7| {e7:.3e}; cuSPARSE's A_csr @ A_csr "
+          f"{'refused' if csr_ms is None else f'{csr_ms:.4f} ms'}",
+          flush=True)
     # C = A A: A's blocks once (z1 and z2 are one buffer), the output
     # blocks once; 2 F bsz^3 flops
     cost = ((ab.nbz + plan.nbz_out) * bsz * bsz * 4, flops)
     return kernel_entry("K7 bsr_slab", "sparse_tpu_torch/csrc/bsr_slab.cu",
                         "sparse_tpu/ops/pallas_bsr.py:467", launches, err,
-                        ms_k, ms_p, cost, lib, call)
+                        ms_k, ms_p, cost, lib, call,
+                        library_ms_csr=csr_ms)
 
 
 # -- slice 4: the K1 variants, K8, Matrix Market input, roofline -----------
@@ -2070,7 +2285,7 @@ def main():
             raise AssertionError(f"{k} was not launched by the main path")
     with Phase("phase 6: kernel vs plain at main-path shapes, timing", 180):
         kernels = phase6_timing(card, band, ela, launches)
-    with Phase("phase 7: K3-K6 vs plain versions on the card", 120):
+    with Phase("phase 7: K3-K6 vs plain versions on the card", 180):
         phase7_bell_kernels_vs_plain()
     from sparse_tpu_torch.ops import cuda_bell
 
@@ -2086,7 +2301,7 @@ def main():
         if count <= 0:
             raise AssertionError(f"{k} was not launched by the main path")
     spmm_run["counts"] = spmm_launches
-    with Phase("phase 9: K3-K6 vs plain at the bench shape, timing", 240):
+    with Phase("phase 9: K3-K6 vs plain at the bench shape, timing", 300):
         kernels += phase9_bell_timing(card, spmm_run)
     with Phase("phase 10: K7 vs plain versions on the card", 120):
         phase10_slab_kernel_vs_plain()

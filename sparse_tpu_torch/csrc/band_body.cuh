@@ -1,0 +1,464 @@
+// The float32 / bf16 body of the blocked-ELL SpMM kernels K3 (bell_spmm.cu),
+// K4 and K8 (bell_banded.cu): C (M, N) = A (M, K) @ B (K, N) for one output
+// matrix, where A is a mostly-zero band and B the dense operand.  The kernels
+// differ only in where A's rows and B's rows live, which an address policy
+// says (DenseTile: K4/K8's densified tile and operand window; WideRow: K3's
+// block row [A_r0 | ... | A_r,Lb-1] and the operand panels its slots name).
+//
+// One thread block owns 32 output rows and 128 output columns.  The
+// contraction runs in 32-index chunks through a ring in shared memory filled
+// by cp.async: A kAhead chunks ahead, B one chunk (kVote) ahead.  Once a
+// chunk of A has landed the block takes one vote (__syncthreads_or, the
+// loop's only barrier): a chunk that is zero throughout skips its B copy and
+// its multiply-adds.  The vote reads A only, so the result stays bitwise
+// repeatable, and reads magnitude bits, so a NaN stored in A counts as
+// non-zero and -0 does not.  Float32: each thread keeps an 8x4 register tile
+// fed by broadcast 16-byte shared loads, in full float32 (no TF32).  bf16
+// (A and B bf16, sums float32): the same tiling feeds mma.sync m16n8k16 from
+// ldmatrix fragments, each warp a 32x32 piece.  Copies are 16-byte vectors
+// (VEC), or one element at a time where a shape or a pointer's alignment
+// does not allow them.  Every output is written once, after one fixed-order
+// loop: no atomics on the output.  With a counter, each thread block adds
+// the multiply-adds of the chunks its vote kept, at their full size.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "sm90_async.cuh"
+
+namespace band {
+
+constexpr int kBM = 32;        // output rows per thread block
+constexpr int kBN = 128;       // output columns per thread block
+constexpr int kThreads = 128;  // four warps
+
+// Per stream type: kBK, the contraction chunk (one vote each); kVote, how
+// many chunks ahead of the one being multiplied the block votes (and starts
+// that chunk's B copy); kAhead (> kVote), how many ahead A is copied.  The
+// rings hold what is in flight plus what is being read.
+template <typename T>
+struct Cfg;
+template <>
+struct Cfg<float> {
+  using Bits = unsigned;
+  using Acc = float[8][4];              // 8 rows x 4 columns per thread
+  static constexpr unsigned kWord = 0x7fffffffu;  // magnitude bits
+  static constexpr int kBK = 32;
+  static constexpr int kAPitch = kBK;   // fragments are broadcast loads
+  static constexpr int kBPitch = kBN;
+  static constexpr int kVote = 1, kAhead = 2;
+  static constexpr int kAStages = kAhead + 2, kBStages = kVote + 1;
+  static constexpr int kMinBlocks = 4;  // per SM: at most 128 registers
+};
+template <>
+struct Cfg<__nv_bfloat16> {
+  using Bits = unsigned short;
+  using Acc = float[2][4][4];           // 2 m16 x 4 n8 mma tiles per warp
+  static constexpr unsigned kWord = 0x7fff7fffu;
+  static constexpr int kBK = 32;
+  static constexpr int kAPitch = kBK + 8;  // 80-byte rows: ldmatrix without
+  static constexpr int kBPitch = kBN + 8;  // bank conflicts (272-byte rows)
+  static constexpr int kVote = 2, kAhead = 3;  // the multiply is short
+  static constexpr int kAStages = kAhead + 2, kBStages = kVote + 1;
+  static constexpr int kMinBlocks = 4;
+};
+
+template <typename T>
+constexpr int smem_bytes() {
+  return (Cfg<T>::kAStages * kBM * Cfg<T>::kAPitch +
+          Cfg<T>::kBStages * Cfg<T>::kBK * Cfg<T>::kBPitch) *
+         static_cast<int>(sizeof(T));
+}
+
+// -- address policies ----------------------------------------------------
+// A policy resolves a chunk's addresses once per chunk: a_chunk(k0).at(i, c)
+// is A's element (i, k0 + c), for i < M and k0 + c < K (16-byte vectors
+// along c never cross a contiguous run when VEC holds); b_chunk(k0).row(c)
+// is operand row k0 + c, for b_has(k0 + c), which says whether the row
+// holds data (else it reads 0; never past the contraction, K).  a_any and
+// b_any are valid addresses handed to a masked copy, which reads nothing
+// from them.
+
+// K4/K8: one densified tile (M, K) row-major and the tile's operand window
+// of rows_ok rows (rows past the operand's end read 0), 32-bit indices.
+template <typename T>
+struct DenseTile {
+  const T* a;
+  const T* bw;
+  int K, N, rows_ok;
+  // (the index math of K4's first vote body, kept as it was: K4 and K8
+  // are FMA-bound, and other forms of it cost them 4% on an H100)
+  struct AChunk {
+    const T* a;
+    int K, k0;
+    __device__ __forceinline__ const T* at(int i, int c) const {
+      return a + i * K + (k0 + c);
+    }
+  };
+  struct BChunk {
+    const T* bw;
+    int N, k0;
+    __device__ __forceinline__ const T* row(int c) const {
+      return bw + (k0 + c) * N;
+    }
+  };
+  __device__ __forceinline__ AChunk a_chunk(int k0) const {
+    return {a, K, k0};
+  }
+  __device__ __forceinline__ BChunk b_chunk(int k0) const {
+    return {bw, N, k0};
+  }
+  __device__ __forceinline__ bool b_has(int kk) const { return kk < rows_ok; }
+  __device__ __forceinline__ const T* a_any() const { return a; }
+  __device__ __forceinline__ const T* b_any() const { return bw; }
+};
+
+// K3: block row r's Lb blocks (Lb, bsz, bsz) and cols[r, :]; the wide row's
+// element (i, l*bsz + j) is block l's (i, j), and contraction index kk reads
+// operand row cols[r, kk / bsz]*bsz + kk % bsz.  A chunk resolves its first
+// index's block and column id once; indices inside that block follow by
+// arithmetic, and only an index in a later block (bsz not a multiple of
+// 32) divides and reads its column id.
+template <typename T>
+struct WideRow {
+  const T* blk;
+  const int* col;
+  const T* b;
+  int bsz, K, N;
+  struct AChunk {
+    const T* blk;
+    int bsz, l0, j0;
+    __device__ __forceinline__ const T* at(int i, int c) const {
+      int l = l0, j = j0 + c;
+      if (j >= bsz) {
+        l += j / bsz;
+        j -= (l - l0) * bsz;
+      }
+      return blk + (l * bsz + i) * bsz + j;
+    }
+  };
+  struct BChunk {
+    const int* col;
+    const T* b;
+    const T* row0;  // operand row of the chunk's first index
+    int bsz, N, l0, j0;
+    __device__ __forceinline__ const T* row(int c) const {
+      const int j = j0 + c;
+      if (j < bsz) return row0 + static_cast<long long>(c) * N;
+      const int l = l0 + j / bsz;
+      const long long r = static_cast<long long>(__ldg(col + l)) * bsz +
+                          (j - (l - l0) * bsz);
+      return b + r * N;
+    }
+  };
+  __device__ __forceinline__ AChunk a_chunk(int k0) const {
+    const int l0 = k0 / bsz;
+    return {blk, bsz, l0, k0 - l0 * bsz};
+  }
+  __device__ __forceinline__ BChunk b_chunk(int k0) const {
+    const int l0 = k0 / bsz, j0 = k0 - l0 * bsz;
+    const long long r0 = static_cast<long long>(__ldg(col + l0)) * bsz + j0;
+    return {col, b, b + r0 * N, bsz, N, l0, j0};
+  }
+  __device__ __forceinline__ bool b_has(int kk) const { return kk < K; }
+  __device__ __forceinline__ const T* a_any() const { return blk; }
+  __device__ __forceinline__ const T* b_any() const { return b; }
+};
+
+// -- copies -------------------------------------------------------------------
+
+// A[m0 : m0+32, k0 : k0+32] into a stage; rows >= M and columns >= K are
+// zero.
+template <typename T, bool VEC, class P>
+__device__ __forceinline__ void load_a(T* sa, const P& p, int M, int K,
+                                       int m0, int k0) {
+  constexpr int kP = Cfg<T>::kAPitch, kBK = Cfg<T>::kBK;
+  const int tid = threadIdx.x;
+  const auto v = p.a_chunk(k0);
+  if constexpr (VEC) {
+    constexpr int V = 16 / sizeof(T), kRow = kBK / V;
+#pragma unroll
+    for (int s = 0; s < kBM * kRow / kThreads; ++s) {
+      const int e = tid + s * kThreads;
+      const int i = e / kRow, col = (e % kRow) * V;
+      const int gi = m0 + i, gk = k0 + col;
+      const bool ok = gi < M && gk < K;
+      sm90::cp_async16(sa + i * kP + col, ok ? v.at(gi, col) : p.a_any(),
+                       ok);
+    }
+  } else {
+    using B = typename Cfg<T>::Bits;
+    B* dst = reinterpret_cast<B*>(sa);
+#pragma unroll 4
+    for (int s = 0; s < kBM * kBK / kThreads; ++s) {
+      const int e = tid + s * kThreads;
+      const int i = e / kBK, col = e % kBK;
+      const int gi = m0 + i, gk = k0 + col;
+      dst[i * kP + col] =
+          (gi < M && gk < K) ? *reinterpret_cast<const B*>(v.at(gi, col))
+                             : B(0);
+    }
+  }
+}
+
+// Whether any element this thread copied by load_a is non-zero (NaN is).
+template <typename T, bool VEC>
+__device__ __forceinline__ bool mine_nonzero(const T* sa) {
+  constexpr int kP = Cfg<T>::kAPitch, kBK = Cfg<T>::kBK;
+  const int tid = threadIdx.x;
+  unsigned any = 0;
+  if constexpr (VEC) {
+    constexpr int V = 16 / sizeof(T), kRow = kBK / V;
+#pragma unroll
+    for (int s = 0; s < kBM * kRow / kThreads; ++s) {
+      const int e = tid + s * kThreads;
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          sa + (e / kRow) * kP + (e % kRow) * V);
+      any |= (w.x | w.y | w.z | w.w) & Cfg<T>::kWord;
+    }
+  } else {
+    using B = typename Cfg<T>::Bits;
+    const B* src = reinterpret_cast<const B*>(sa);
+#pragma unroll 4
+    for (int s = 0; s < kBM * kBK / kThreads; ++s) {
+      const int e = tid + s * kThreads;
+      any |= src[(e / kBK) * kP + e % kBK] & Cfg<T>::kWord;
+    }
+  }
+  return any != 0;
+}
+
+// Operand rows k0 .. k0+31 (rows without data, those >= K among them, read
+// 0), columns n0 .. n0+127 (columns >= N read 0), into a stage; called for
+// k0 < K.
+template <typename T, bool VEC, class P>
+__device__ __forceinline__ void load_b(T* sb, const P& p, int N, int k0,
+                                       int n0) {
+  constexpr int kP = Cfg<T>::kBPitch, kBK = Cfg<T>::kBK;
+  const int tid = threadIdx.x;
+  const auto v = p.b_chunk(k0);
+  if constexpr (VEC) {
+    constexpr int V = 16 / sizeof(T), kRow = kBN / V;
+#pragma unroll
+    for (int s = 0; s < kBK * kRow / kThreads; ++s) {
+      const int e = tid + s * kThreads;
+      const int kk = e / kRow, col = (e % kRow) * V;
+      const int gk = k0 + kk, gn = n0 + col;
+      const bool ok = p.b_has(gk) && gn < N;
+      sm90::cp_async16(sb + kk * kP + col, ok ? v.row(kk) + gn : p.b_any(),
+                       ok);
+    }
+  } else {
+    using B = typename Cfg<T>::Bits;
+    B* dst = reinterpret_cast<B*>(sb);
+    // one operand row per thread and pass: its address is resolved once
+    constexpr int kRowsPer = kThreads / 32;  // rows per pass
+    const int lane = tid % 32;
+#pragma unroll 2
+    for (int kk = tid / 32; kk < kBK; kk += kRowsPer) {
+      const int gk = k0 + kk;
+      const bool row_ok = p.b_has(gk);
+      const B* src =
+          row_ok ? reinterpret_cast<const B*>(v.row(kk)) : nullptr;
+#pragma unroll
+      for (int c = lane; c < kBN; c += 32) {
+        const int gn = n0 + c;
+        dst[kk * kP + c] = (row_ok && gn < N) ? src[gn] : B(0);
+      }
+    }
+  }
+}
+
+// -- multiply-adds ------------------------------------------------------------
+
+// acc += A chunk (32 x 32) @ B chunk (32 x 128), float32: thread (warp w,
+// lane l) owns rows 8w .. 8w+7 and columns 4l .. 4l+3.
+__device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
+                                          float (&acc)[8][4]) {
+  constexpr int kBK = Cfg<float>::kBK;
+  const float* pa = sa + (threadIdx.x / 32) * 8 * kBK;
+  const float* pb = sb + (threadIdx.x % 32) * 4;
+#pragma unroll
+  for (int kq = 0; kq < kBK; kq += 4) {
+    float4 a[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      a[r] = *reinterpret_cast<const float4*>(pa + r * kBK + kq);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 b = *reinterpret_cast<const float4*>(pb + (kq + q) * kBN);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float x = q == 0 ? a[r].x : q == 1 ? a[r].y
+                      : q == 2 ? a[r].z : a[r].w;
+        acc[r][0] = fmaf(x, b.x, acc[r][0]);
+        acc[r][1] = fmaf(x, b.y, acc[r][1]);
+        acc[r][2] = fmaf(x, b.z, acc[r][2]);
+        acc[r][3] = fmaf(x, b.w, acc[r][3]);
+      }
+    }
+  }
+}
+
+// The same for bf16 on the tensor cores: warp w owns all 32 rows and
+// columns 32w .. 32w+31, as 2 x 4 m16n8 tiles.
+__device__ __forceinline__ void mma_chunk(const __nv_bfloat16* sa,
+                                          const __nv_bfloat16* sb,
+                                          float (&acc)[2][4][4]) {
+  constexpr int kPA = Cfg<__nv_bfloat16>::kAPitch;
+  constexpr int kPB = Cfg<__nv_bfloat16>::kBPitch;
+  constexpr int kBK = Cfg<__nv_bfloat16>::kBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int ks = 0; ks < kBK; ks += 16) {
+    unsigned a[2][4], b[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      sm90::ldmatrix_x4(
+          a[mt], sa + (mt * 16 + lane % 16) * kPA + ks + (lane / 16) * 8);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      unsigned r[4];
+      sm90::ldmatrix_x4_trans(
+          r, sb + (ks + (lane / 8) % 2 * 8 + lane % 8) * kPB + warp * 32 +
+                 np * 16 + (lane / 16) * 8);
+      b[2 * np][0] = r[0];
+      b[2 * np][1] = r[1];
+      b[2 * np + 1][0] = r[2];
+      b[2 * np + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        sm90::mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
+  }
+}
+
+// -- output -------------------------------------------------------------------
+
+// C[m0 + ., n0 + .] of one output (M, N) from the register tiles.
+template <bool VEC>
+__device__ __forceinline__ void store(const float (&acc)[8][4], float* c,
+                                      int M, int N, int m0, int n0) {
+  const int gn = n0 + (threadIdx.x % 32) * 4;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int gi = m0 + (threadIdx.x / 32) * 8 + r;
+    if (gi >= M) continue;
+    float* row = c + gi * N;
+    if constexpr (VEC) {
+      if (gn < N)
+        *reinterpret_cast<float4*>(row + gn) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gn + j < N) row[gn + j] = acc[r][j];
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store(const float (&acc)[2][4][4], float* c,
+                                      int M, int N, int m0, int n0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int gn = n0 + warp * 32 + nt * 8 + (lane % 4) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gi = m0 + mt * 16 + lane / 4 + h * 8;
+        if (gi >= M) continue;
+        float* row = c + gi * N;
+        const float x = acc[mt][nt][2 * h], y = acc[mt][nt][2 * h + 1];
+        if constexpr (VEC) {
+          if (gn < N) *reinterpret_cast<float2*>(row + gn) = make_float2(x, y);
+        } else {
+          if (gn < N) row[gn] = x;
+          if (gn + 1 < N) row[gn + 1] = y;
+        }
+      }
+    }
+}
+
+// -- the body -----------------------------------------------------------------
+
+// C[m0 : m0+32, n0 : n0+128] of one output (M, N) at c (row-major, leading
+// dimension N) = A @ B over the whole contraction K, A and B read through
+// the policy p.  Needs smem_bytes<T>() of dynamic shared memory.
+template <typename T, bool VEC, class P>
+__device__ __forceinline__ void run(const P& p, float* c, int M, int K,
+                                    int N, int m0, int n0,
+                                    unsigned long long* issued) {
+  using Cf = Cfg<T>;
+  constexpr int kVote = Cf::kVote, kAhead = Cf::kAhead, kBK = Cf::kBK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sa = reinterpret_cast<T*>(smem);
+  T* sb = sa + Cf::kAStages * kBM * Cf::kAPitch;
+  const int nc = (K + kBK - 1) / kBK;
+  typename Cf::Acc acc = {};
+  auto stage_a = [&](int ch) {
+    return sa + (ch % Cf::kAStages) * kBM * Cf::kAPitch;
+  };
+  auto stage_b = [&](int ch) {
+    return sb + (ch % Cf::kBStages) * kBK * Cf::kBPitch;
+  };
+  auto vote = [&](int ch) {  // the loop's only barrier
+    const bool nz =
+        __syncthreads_or(ch < nc && mine_nonzero<T, VEC>(stage_a(ch)));
+    if (nz) load_b<T, VEC>(stage_b(ch), p, N, ch * kBK, n0);
+    return nz;
+  };
+  // Step it copies A(it + kAhead), votes on chunk it + kVote and copies its
+  // B, then multiplies chunk it; the first kAhead steps only fill the ring.
+  // Each thread commits two cp.async groups per step, A's then B's (empty
+  // where there is nothing to copy), so the wait before a vote can leave in
+  // flight only what is younger than A(it + kVote) and B(it).
+  constexpr int kWait = 2 * (kAhead - kVote) < 2 * kVote - 1
+                            ? 2 * (kAhead - kVote) : 2 * kVote - 1;
+  unsigned nzq = 0;  // bit i: chunk it + i is non-zero
+  int kept = 0;      // chunks multiplied
+  for (int it = -kAhead; it < nc; ++it) {
+    // stage (it + kAhead) % kAStages was last read by chunk it - 2, before
+    // the last barrier; B's stage by chunk it - 1, before this step's one
+    if (it + kAhead < nc)
+      load_a<T, VEC>(stage_a(it + kAhead), p, M, K, m0, (it + kAhead) * kBK);
+    sm90::cp_async_commit();
+    if (it + kVote >= 0) {
+      sm90::cp_async_wait<kWait>();
+      nzq |= static_cast<unsigned>(vote(it + kVote)) << kVote;
+    }
+    sm90::cp_async_commit();
+    if (it >= 0 && (nzq & 1u)) {
+      mma_chunk(stage_a(it), stage_b(it), acc);
+      ++kept;
+    }
+    nzq >>= 1;
+  }
+  sm90::cp_async_wait<0>();
+  store<VEC>(acc, c, M, N, m0, n0);
+  // each kept chunk at its full size, padding rows and columns included
+  if (issued != nullptr && threadIdx.x == 0 && kept > 0)
+    atomicAdd(issued, static_cast<unsigned long long>(kept) * kBM * kBK * kBN);
+}
+
+// Lets kern (a __global__ wrapper of run) take smem bytes of dynamic shared
+// memory where that is more than the default 48 KB.
+template <int SMEM, class K>
+cudaError_t allow_smem(K kern) {
+  if constexpr (SMEM > 48 * 1024)
+    return cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  return cudaSuccess;
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+}  // namespace band

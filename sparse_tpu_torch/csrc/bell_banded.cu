@@ -28,38 +28,34 @@
 // HBM time, since finding the zeros means reading them.  At small k (K5,
 // k = 32) the tiles' bytes dominate instead.
 //
-// K4/K8 for float32 and bf16 streams (band_kernel below): one thread block
-// owns 32 output rows of one tile (one block row at bsz 32, so its chunks
-// line up with the band's panels) and 128 output columns (all of k = 128,
-// so each tile's A comes from device memory once).  The contraction runs in
-// 32-column chunks through a ring in shared memory filled by cp.async: A two
-// chunks ahead, B one.  Once a chunk of A has landed the block takes one
-// vote (__syncthreads_or, the loop's only barrier): a chunk that is zero
-// throughout skips its B copy and its multiply-adds, which brings the work
-// issued at the bench shape back to the useful flops.  The vote reads A
-// only, so the result stays bitwise repeatable, and a NaN stored in A
-// counts as non-zero.  Float32: each thread keeps an 8x4 register tile, fed
-// by broadcast 16-byte shared loads, in full float32.  bf16 (tiles and
-// operand bf16, sums float32): the same tiling feeds mma.sync m16n8k16 from
-// ldmatrix fragments, each warp a 32x32 piece.  Index math is 32-bit inside
-// a tile; copies are 16-byte vectors, with a masked element path where k,
-// W*bsz or a pointer's alignment does not allow them.  Every output is
-// written once, after one fixed-order loop: no atomics on the output.
-// bell_banded_issued launches the same body with a counter on the card, to
-// which each thread block adds the multiply-adds of the chunks its vote
-// kept: what the skip saves is measured, not modelled.
+// K4/K8 for float32 and bf16 streams (band_kernel below) run the body of
+// band_body.cuh on the tile: 32 x 128 output blocks (one block row at bsz
+// 32, all of k = 128, so each tile's A comes from device memory once), a
+// cp.async ring, and a vote that skips the tile's all-zero 32 x 32 chunks
+// (their B copy and multiply-adds), which brings the work issued at the
+// bench shape back to the useful flops.  bell_banded_issued launches the
+// same body with a counter on the card: what the skip saves is measured.
+//
+// K5 for float32 and bf16 streams (band_t_kernel below): at k = 32 it is
+// bound by the tile bytes (769 MB of transposed tiles at the bench band, of
+// which the 20 non-zero 32 x 32 chunks per tile are 320 MB: >= 0.134 ms with
+// the operand and C^T).  So it does not vote on what it has read: it walks
+// the kit's chunk mask, built once per kit, and copies only the non-zero
+// chunks.  32-row blocks of k (no padding at k = 32), one 32-column slice
+// of the tile per warp.  bell_banded_t_issued also counts the tile bytes it
+// copied.
 //
 // Behaviour: a skipped chunk never multiplies the operand, so where B holds
 // Inf or NaN opposite a densified zero the result is the sparse product's
 // (what SciPy and BSR @ B give), not the NaN of the dense tile product.
 //
-// The float64 and bf16x3 kinds of K4/K8, and K5, stay on the first body
+// The float64 and bf16x3 kinds of K4/K8 and K5 stay on the first body
 // (bell_common.cuh): a thread block owns one (row tile, 64-row block,
 // 64-column chunk of k) output tile, stages A and B in shared memory 16 deep
 // and keeps a 4x4 register tile per thread.
 
+#include "band_body.cuh"
 #include "bell_common.cuh"
-#include "sm90_async.cuh"
 
 namespace {
 
@@ -152,155 +148,199 @@ cudaError_t launch(bool transposed, const void* tiles, const void* start,
 
 // -- K4/K8 for float32 and bf16 streams ---------------------------------------
 
-namespace band {
+// tiles (ntiles, M, K) and b (b_rows, N) in the stream type T, C
+// (ntiles*M, N) float32.  Block (tile, 32-row block, 128-column block),
+// column blocks fastest.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(band::kThreads, band::Cfg<T>::kMinBlocks)
+    band_kernel(const T* __restrict__ tiles, const int* __restrict__ start,
+                const T* __restrict__ b, float* __restrict__ c, int M, int K,
+                int N, int bsz, long long b_rows,
+                unsigned long long* __restrict__ issued) {
+  const int n_blocks = (N + band::kBN - 1) / band::kBN;
+  const int m_blocks = (M + band::kBM - 1) / band::kBM;
+  long long bid = blockIdx.x;
+  const int n0 = static_cast<int>(bid % n_blocks) * band::kBN;
+  bid /= n_blocks;
+  const int m0 = static_cast<int>(bid % m_blocks) * band::kBM;
+  const long long tile = bid / m_blocks;
+  const long long row0 = static_cast<long long>(__ldg(start + tile)) * bsz;
+  const long long left = b_rows - row0;  // window rows inside the operand
+  const int rows_ok = left <= 0 ? 0 : left >= K ? K : static_cast<int>(left);
+  const band::DenseTile<T> p{tiles + tile * M * K,
+                             rows_ok > 0 ? b + row0 * N : b, K, N, rows_ok};
+  band::run<T, VEC>(p, c + tile * M * N, M, K, N, m0, n0, issued);
+}
 
-constexpr int kBM = 32;        // output rows per thread block
-constexpr int kBN = 128;       // output columns per thread block
-constexpr int kThreads = 128;  // four warps
+template <typename T>
+cudaError_t launch_band(const void* tiles, const void* start, const void* b,
+                        void* c, long long ntiles, long long M, long long K,
+                        long long N, long long bsz, long long b_rows,
+                        unsigned long long* issued, void* stream) {
+  using band::kBM;
+  using band::kBN;
+  constexpr long long kMax = 0x7fffffffLL;
+  if (ntiles <= 0 || M <= 0 || N <= 0) return cudaSuccess;
+  // 32-bit index math inside a tile, its window and its output
+  if (M * K > kMax || K * N > kMax || M * N > kMax)
+    return cudaErrorInvalidValue;
+  const long long grid = ntiles * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  if (grid > kMax) return cudaErrorInvalidConfiguration;
+  constexpr long long V = 16 / sizeof(T);
+  const bool vec = K % V == 0 && N % V == 0 && band::aligned16(tiles) &&
+                   band::aligned16(b) && band::aligned16(c);
+  auto kern = vec ? band_kernel<T, true> : band_kernel<T, false>;
+  constexpr int smem = band::smem_bytes<T>();
+  const cudaError_t rc = band::allow_smem<smem>(kern);
+  if (rc != cudaSuccess) return rc;
+  kern<<<static_cast<unsigned>(grid), band::kThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(tiles), static_cast<const int*>(start),
+      static_cast<const T*>(b), static_cast<float*>(c), static_cast<int>(M),
+      static_cast<int>(K), static_cast<int>(N), static_cast<int>(bsz),
+      b_rows, issued);
+  return cudaGetLastError();
+}
 
-// Per stream type: kBK, the contraction chunk (one vote each); kVote, how
-// many chunks ahead of the one being multiplied the block votes (and starts
-// that chunk's B copy); kAhead (> kVote), how many ahead A is copied.  The
-// rings hold what is in flight plus what is being read.
+// -- K5 for float32 and bf16 streams ------------------------------------------
+//
+// C^T (N, out_cols) = B^T window (N, K) @ tiles_t[t] (K, M) per tile: the
+// operand is the dense factor and the tile the sparse one.  One thread
+// block owns C^T rows n0 .. n0+31 (of k) and 128 of the tile's M columns,
+// one 32-column slice per warp (at bsz 32 a slice is one block row).  The
+// kit's chunk mask (ntiles, P = ceil(K/32), Q = ceil(M/32)) says which
+// 32 x 32 chunks of the tile hold data; the block walks only the 32-row
+// panels where one of its slices does, so an all-zero panel costs nothing.
+// Each panel's operand chunk (32 x 32 of B^T's window) is shared by the
+// block; each warp copies and multiplies its own slice's chunk only where
+// the mask is set (warp-uniform, no divergence).  A cp.async ring keeps
+// kStages - 1 panels in flight behind one barrier per panel.  Float32:
+// 8x4 register tiles per thread in full float32; bf16: mma.sync m16n8k16,
+// the operand chunk by ldmatrix, the tile chunk by ldmatrix.trans.  Every
+// output is written once after a fixed-order loop: bitwise repeatable.
+
+namespace band_t {
+
+constexpr int kBN = 32;     // C^T rows (columns of k) per thread block
+constexpr int kBK = 32;     // contraction rows of a panel
+constexpr int kSlice = 32;  // output columns per warp
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBM = kSlice * kWarps;  // output columns per thread block
+
 template <typename T>
 struct Cfg;
 template <>
 struct Cfg<float> {
   using Bits = unsigned;
-  using Acc = float[8][4];              // 8 rows x 4 columns per thread
-  static constexpr unsigned kWord = 0x7fffffffu;  // magnitude bits
-  static constexpr int kBK = 32;
-  static constexpr int kAPitch = kBK;   // fragments are broadcast loads
-  static constexpr int kBPitch = kBN;
-  static constexpr int kVote = 1, kAhead = 2;
-  static constexpr int kAStages = kAhead + 2, kBStages = kVote + 1;
-  static constexpr int kMinBlocks = 4;  // per SM: at most 128 registers
+  using Acc = float[8][4];   // 8 rows x 4 columns of the warp's 32 x 32
+  static constexpr int kPitch = 32;  // broadcast / 128-byte row reads
+  static constexpr int kStages = 3;  // two panels in flight
+  static constexpr int kMinBlocks = 3;
 };
 template <>
 struct Cfg<__nv_bfloat16> {
   using Bits = unsigned short;
-  using Acc = float[2][4][4];           // 2 m16 x 4 n8 mma tiles per warp
-  static constexpr unsigned kWord = 0x7fff7fffu;
-  static constexpr int kBK = 32;
-  static constexpr int kAPitch = kBK + 8;  // 80-byte rows: ldmatrix without
-  static constexpr int kBPitch = kBN + 8;  // bank conflicts (272-byte rows)
-  static constexpr int kVote = 2, kAhead = 3;  // the multiply is short
-  static constexpr int kAStages = kAhead + 2, kBStages = kVote + 1;
+  using Acc = float[2][4][4];  // 2 m16 x 4 n8 mma tiles per warp
+  static constexpr int kPitch = 40;  // 80-byte rows: ldmatrix conflict-free
+  static constexpr int kStages = 4;
   static constexpr int kMinBlocks = 4;
 };
 
+// One stage: the operand chunk [kBN][kBK], then each warp's tile chunk
+// [kBK][kSlice], every row kPitch long.
+template <typename T>
+__host__ __device__ constexpr int stage_elems() {
+  return (1 + kWarps) * kBK * Cfg<T>::kPitch;
+}
 template <typename T>
 constexpr int smem_bytes() {
-  return (Cfg<T>::kAStages * kBM * Cfg<T>::kAPitch +
-          Cfg<T>::kBStages * Cfg<T>::kBK * Cfg<T>::kBPitch) *
-         static_cast<int>(sizeof(T));
+  return Cfg<T>::kStages * stage_elems<T>() * static_cast<int>(sizeof(T));
 }
 
-// A[m0 : m0+32, k0 : k0+32] of one tile (M, K) into a stage; rows >= M and
-// columns >= K are zero.  VEC: 16-byte cp.async, else one element at a time.
+// B^T rows n0 .. n0+31, window columns k0 .. k0+31 into the stage; rows >=
+// N, window columns >= K and operand columns >= bt_cols read 0.
 template <typename T, bool VEC>
-__device__ __forceinline__ void load_a(T* sa, const T* a, int M, int K,
-                                       int m0, int k0) {
-  constexpr int kP = Cfg<T>::kAPitch, kBK = Cfg<T>::kBK;
+__device__ __forceinline__ void load_op(T* so, const T* bt, long long bt_cols,
+                                        int N, int n0, long long col0, int K,
+                                        int k0) {
+  constexpr int kP = Cfg<T>::kPitch;
   const int tid = threadIdx.x;
   if constexpr (VEC) {
     constexpr int V = 16 / sizeof(T), kRow = kBK / V;
 #pragma unroll
-    for (int s = 0; s < kBM * kRow / kThreads; ++s) {
+    for (int s = 0; s < kBN * kRow / kThreads; ++s) {
       const int e = tid + s * kThreads;
-      const int i = e / kRow, col = (e % kRow) * V;
-      const int gi = m0 + i, gk = k0 + col;
-      const bool ok = gi < M && gk < K;
-      sm90::cp_async16(sa + i * kP + col, ok ? a + gi * K + gk : a, ok);
+      const int r = e / kRow, c = (e % kRow) * V;
+      const int gn = n0 + r, kk = k0 + c;
+      const long long col = col0 + kk;
+      const bool ok = gn < N && kk < K && col < bt_cols;
+      sm90::cp_async16(so + r * kP + c, ok ? bt + gn * bt_cols + col : bt,
+                       ok);
     }
   } else {
     using B = typename Cfg<T>::Bits;
-    const B* src = reinterpret_cast<const B*>(a);
-    B* dst = reinterpret_cast<B*>(sa);
+    const B* src = reinterpret_cast<const B*>(bt);
+    B* dst = reinterpret_cast<B*>(so);
 #pragma unroll 4
-    for (int s = 0; s < kBM * kBK / kThreads; ++s) {
+    for (int s = 0; s < kBN * kBK / kThreads; ++s) {
       const int e = tid + s * kThreads;
-      const int i = e / kBK, col = e % kBK;
-      const int gi = m0 + i, gk = k0 + col;
-      dst[i * kP + col] = (gi < M && gk < K) ? src[gi * K + gk] : B(0);
+      const int r = e / kBK, c = e % kBK;
+      const int gn = n0 + r, kk = k0 + c;
+      const long long col = col0 + kk;
+      dst[r * kP + c] =
+          (gn < N && kk < K && col < bt_cols) ? src[gn * bt_cols + col] : B(0);
     }
   }
 }
 
-// Whether any element this thread copied by load_a is non-zero (NaN is).
+// This warp's chunk: tile rows k0 .. k0+31, columns i0 .. i0+31 (rows >= K
+// and columns >= M read 0).
 template <typename T, bool VEC>
-__device__ __forceinline__ bool mine_nonzero(const T* sa) {
-  constexpr int kP = Cfg<T>::kAPitch, kBK = Cfg<T>::kBK;
-  const int tid = threadIdx.x;
-  unsigned any = 0;
+__device__ __forceinline__ void load_tile(T* st, const T* tt, int M, int K,
+                                          int k0, int i0) {
+  constexpr int kP = Cfg<T>::kPitch;
+  const int lane = threadIdx.x % 32;
   if constexpr (VEC) {
-    constexpr int V = 16 / sizeof(T), kRow = kBK / V;
+    constexpr int V = 16 / sizeof(T), kRow = kSlice / V;
 #pragma unroll
-    for (int s = 0; s < kBM * kRow / kThreads; ++s) {
-      const int e = tid + s * kThreads;
-      const uint4 w = *reinterpret_cast<const uint4*>(
-          sa + (e / kRow) * kP + (e % kRow) * V);
-      any |= (w.x | w.y | w.z | w.w) & Cfg<T>::kWord;
+    for (int s = 0; s < kBK * kRow / 32; ++s) {
+      const int e = lane + s * 32;
+      const int r = e / kRow, c = (e % kRow) * V;
+      const int gk = k0 + r, gi = i0 + c;
+      const bool ok = gk < K && gi < M;
+      sm90::cp_async16(st + r * kP + c, ok ? tt + gk * M + gi : tt, ok);
     }
   } else {
     using B = typename Cfg<T>::Bits;
-    const B* src = reinterpret_cast<const B*>(sa);
+    const B* src = reinterpret_cast<const B*>(tt);
+    B* dst = reinterpret_cast<B*>(st);
+    const int gi = i0 + lane;
 #pragma unroll 4
-    for (int s = 0; s < kBM * kBK / kThreads; ++s) {
-      const int e = tid + s * kThreads;
-      any |= src[(e / kBK) * kP + e % kBK] & Cfg<T>::kWord;
-    }
-  }
-  return any != 0;
-}
-
-// Operand rows k0 .. k0+31 of the tile's window bw (rows >= rows_ok read
-// 0), columns n0 .. n0+127 (columns >= N read 0), into a stage.
-template <typename T, bool VEC>
-__device__ __forceinline__ void load_b(T* sb, const T* bw, int rows_ok, int N,
-                                       int k0, int n0) {
-  constexpr int kP = Cfg<T>::kBPitch, kBK = Cfg<T>::kBK;
-  const int tid = threadIdx.x;
-  if constexpr (VEC) {
-    constexpr int V = 16 / sizeof(T), kRow = kBN / V;
-#pragma unroll
-    for (int s = 0; s < kBK * kRow / kThreads; ++s) {
-      const int e = tid + s * kThreads;
-      const int kk = e / kRow, col = (e % kRow) * V;
-      const int gk = k0 + kk, gn = n0 + col;
-      const bool ok = gk < rows_ok && gn < N;
-      sm90::cp_async16(sb + kk * kP + col, ok ? bw + gk * N + gn : bw, ok);
-    }
-  } else {
-    using B = typename Cfg<T>::Bits;
-    const B* src = reinterpret_cast<const B*>(bw);
-    B* dst = reinterpret_cast<B*>(sb);
-#pragma unroll 4
-    for (int s = 0; s < kBK * kBN / kThreads; ++s) {
-      const int e = tid + s * kThreads;
-      const int kk = e / kBN, col = e % kBN;
-      const int gk = k0 + kk, gn = n0 + col;
-      dst[kk * kP + col] = (gk < rows_ok && gn < N) ? src[gk * N + gn] : B(0);
+    for (int r = 0; r < kBK; ++r) {
+      const int gk = k0 + r;
+      dst[r * kP + lane] = (gk < K && gi < M) ? src[gk * M + gi] : B(0);
     }
   }
 }
 
-// acc += A chunk (32 x 32) @ B chunk (32 x 128), float32: thread (warp w,
-// lane l) owns rows 8w .. 8w+7 and columns 4l .. 4l+3.
-__device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
+// acc += operand chunk (32 x 32) @ the warp's tile chunk (32 x 32),
+// float32: lane l owns rows 8*(l/8) .. +7 and columns 4*(l%8) .. +3.
+__device__ __forceinline__ void mma_slice(const float* so, const float* st,
                                           float (&acc)[8][4]) {
-  constexpr int kBK = Cfg<float>::kBK;
-  const float* pa = sa + (threadIdx.x / 32) * 8 * kBK;
-  const float* pb = sb + (threadIdx.x % 32) * 4;
+  constexpr int kP = Cfg<float>::kPitch;
+  const int lane = threadIdx.x % 32;
+  const float* pa = so + (lane / 8) * 8 * kP;
+  const float* pb = st + (lane % 8) * 4;
 #pragma unroll
   for (int kq = 0; kq < kBK; kq += 4) {
     float4 a[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r)
-      a[r] = *reinterpret_cast<const float4*>(pa + r * kBK + kq);
+      a[r] = *reinterpret_cast<const float4*>(pa + r * kP + kq);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const float4 b = *reinterpret_cast<const float4*>(pb + (kq + q) * kBN);
+      const float4 b = *reinterpret_cast<const float4*>(pb + (kq + q) * kP);
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const float x = q == 0 ? a[r].x : q == 1 ? a[r].y
@@ -314,28 +354,25 @@ __device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
   }
 }
 
-// The same for bf16 on the tensor cores: warp w owns all 32 rows and
-// columns 32w .. 32w+31, as 2 x 4 m16n8 tiles.
-__device__ __forceinline__ void mma_chunk(const __nv_bfloat16* sa,
-                                          const __nv_bfloat16* sb,
+// The same in bf16 on the tensor cores: 2 x 4 m16n8 tiles per warp.
+__device__ __forceinline__ void mma_slice(const __nv_bfloat16* so,
+                                          const __nv_bfloat16* st,
                                           float (&acc)[2][4][4]) {
-  constexpr int kPA = Cfg<__nv_bfloat16>::kAPitch;
-  constexpr int kPB = Cfg<__nv_bfloat16>::kBPitch;
-  constexpr int kBK = Cfg<__nv_bfloat16>::kBK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int kP = Cfg<__nv_bfloat16>::kPitch;
+  const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int ks = 0; ks < kBK; ks += 16) {
     unsigned a[2][4], b[4][2];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
       sm90::ldmatrix_x4(
-          a[mt], sa + (mt * 16 + lane % 16) * kPA + ks + (lane / 16) * 8);
+          a[mt], so + (mt * 16 + lane % 16) * kP + ks + (lane / 16) * 8);
 #pragma unroll
     for (int np = 0; np < 2; ++np) {
       unsigned r[4];
       sm90::ldmatrix_x4_trans(
-          r, sb + (ks + (lane / 8) % 2 * 8 + lane % 8) * kPB + warp * 32 +
-                 np * 16 + (lane / 16) * 8);
+          r, st + (ks + (lane / 8) % 2 * 8 + lane % 8) * kP + np * 16 +
+                 (lane / 16) * 8);
       b[2 * np][0] = r[0];
       b[2 * np][1] = r[1];
       b[2 * np + 1][0] = r[2];
@@ -349,67 +386,74 @@ __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* sa,
   }
 }
 
-// C[m0 + ., n0 + .] of one tile's output (M, N) from the register tiles.
+// C^T rows n0 + ., columns i0 + . of this warp's slice; ct points at the
+// tile's first column, rows out_cols apart.
 template <bool VEC>
-__device__ __forceinline__ void store(const float (&acc)[8][4], float* c,
-                                      int M, int N, int m0, int n0) {
-  const int gn = n0 + (threadIdx.x % 32) * 4;
+__device__ __forceinline__ void store(const float (&acc)[8][4], float* ct,
+                                      long long out_cols, int M, int N,
+                                      int n0, int i0) {
+  const int lane = threadIdx.x % 32;
+  const int gi = i0 + (lane % 8) * 4;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
-    const int gi = m0 + (threadIdx.x / 32) * 8 + r;
-    if (gi >= M) continue;
-    float* row = c + gi * N;
+    const int gn = n0 + (lane / 8) * 8 + r;
+    if (gn >= N) continue;
+    float* row = ct + gn * out_cols;
     if constexpr (VEC) {
-      if (gn < N)
-        *reinterpret_cast<float4*>(row + gn) =
+      if (gi < M)
+        *reinterpret_cast<float4*>(row + gi) =
             make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (gn + j < N) row[gn + j] = acc[r][j];
+        if (gi + j < M) row[gi + j] = acc[r][j];
     }
   }
 }
 
 template <bool VEC>
-__device__ __forceinline__ void store(const float (&acc)[2][4][4], float* c,
-                                      int M, int N, int m0, int n0) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+__device__ __forceinline__ void store(const float (&acc)[2][4][4], float* ct,
+                                      long long out_cols, int M, int N,
+                                      int n0, int i0) {
+  const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      const int gn = n0 + warp * 32 + nt * 8 + (lane % 4) * 2;
+      const int gi = i0 + nt * 8 + (lane % 4) * 2;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int gi = m0 + mt * 16 + lane / 4 + h * 8;
-        if (gi >= M) continue;
-        float* row = c + gi * N;
+        const int gn = n0 + mt * 16 + lane / 4 + h * 8;
+        if (gn >= N) continue;
+        float* row = ct + gn * out_cols;
         const float x = acc[mt][nt][2 * h], y = acc[mt][nt][2 * h + 1];
         if constexpr (VEC) {
-          if (gn < N) *reinterpret_cast<float2*>(row + gn) = make_float2(x, y);
+          if (gi < M) *reinterpret_cast<float2*>(row + gi) = make_float2(x, y);
         } else {
-          if (gn < N) row[gn] = x;
-          if (gn + 1 < N) row[gn + 1] = y;
+          if (gi < M) row[gi] = x;
+          if (gi + 1 < M) row[gi + 1] = y;
         }
       }
     }
 }
 
-// tiles (ntiles, M, K) and b (b_rows, N) in the stream type T, C
-// (ntiles*M, N) float32.  Block (tile, 32-row block, 128-column block),
-// column blocks fastest.
+// tiles_t (ntiles, K, M) and bt (N, bt_cols) in the stream type T, mask
+// (ntiles, P, Q) uint8, C^T (N, out_cols) float32.  Block (tile, 128-column
+// block, 32-row block of k), k fastest.  counts, when given: [0] the
+// multiply-adds issued (each multiplied chunk at its full 32 x 32 x 32),
+// [1] the tile bytes copied (each copied chunk's elements inside the tile).
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads, Cfg<T>::kMinBlocks)
-    band_kernel(const T* __restrict__ tiles, const int* __restrict__ start,
-                const T* __restrict__ b, float* __restrict__ c, int M, int K,
-                int N, int bsz, long long b_rows,
-                unsigned long long* __restrict__ issued) {
+    band_t_kernel(const T* __restrict__ tiles_t, const int* __restrict__ start,
+                  const unsigned char* __restrict__ mask,
+                  const T* __restrict__ bt, float* __restrict__ ct, int M,
+                  int K, int N, int bsz, long long bt_cols,
+                  long long out_cols,
+                  unsigned long long* __restrict__ counts) {
   using Cf = Cfg<T>;
-  constexpr int kVote = Cf::kVote, kAhead = Cf::kAhead, kBK = Cf::kBK;
+  constexpr int kS = Cf::kStages, kAhead = kS - 1, kP = Cf::kPitch;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sa = reinterpret_cast<T*>(smem);
-  T* sb = sa + Cf::kAStages * kBM * Cf::kAPitch;
+  T* ring = reinterpret_cast<T*>(smem);
   const int n_blocks = (N + kBN - 1) / kBN;
   const int m_blocks = (M + kBM - 1) / kBM;
   long long bid = blockIdx.x;
@@ -417,109 +461,118 @@ __global__ void __launch_bounds__(kThreads, Cfg<T>::kMinBlocks)
   bid /= n_blocks;
   const int m0 = static_cast<int>(bid % m_blocks) * kBM;
   const long long tile = bid / m_blocks;
-  const T* a = tiles + tile * M * K;
-  const long long row0 = static_cast<long long>(__ldg(start + tile)) * bsz;
-  const long long left = b_rows - row0;  // window rows inside the operand
-  const int rows_ok = left <= 0 ? 0 : left >= K ? K : static_cast<int>(left);
-  const T* bw = rows_ok > 0 ? b + row0 * N : b;
-  const int nc = (K + kBK - 1) / kBK;
+  const int warp = threadIdx.x / 32;
+  const int i0 = m0 + warp * kSlice;  // this warp's slice
+  const T* tt = tiles_t + tile * M * K;
+  const long long col0 = static_cast<long long>(__ldg(start + tile)) * bsz;
+  const int P = (K + kBK - 1) / kBK, Q = (M + kSlice - 1) / kSlice;
+  const int q0 = m0 / kSlice;
+  const unsigned char* mk = mask + tile * P * Q;
+  // bit w: warp w's chunk of panel p holds data (uniform in the block)
+  auto bits = [&](int p) {
+    unsigned m = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      if (q0 + w < Q && __ldg(mk + p * Q + q0 + w) != 0) m |= 1u << w;
+    return m;
+  };
+  auto next = [&](int p) {  // the first panel after p with data, or P
+    for (++p; p < P && bits(p) == 0; ++p) {
+    }
+    return p;
+  };
+  auto stage = [&](int s) { return ring + s * stage_elems<T>(); };
+  long long copied = 0;  // this warp's tile bytes
+  auto fill = [&](int s, int p) {
+    T* st = stage(s);
+    load_op<T, VEC>(st, bt, bt_cols, N, n0, col0, K, p * kBK);
+    if ((bits(p) >> warp) & 1u) {
+      load_tile<T, VEC>(st + (1 + warp) * kBK * kP, tt, M, K, p * kBK, i0);
+      copied += static_cast<long long>(min(kBK, K - p * kBK)) *
+                min(kSlice, M - i0) * static_cast<int>(sizeof(T));
+    }
+  };
   typename Cf::Acc acc = {};
-  auto stage_a = [&](int ch) {
-    return sa + (ch % Cf::kAStages) * kBM * Cf::kAPitch;
-  };
-  auto stage_b = [&](int ch) {
-    return sb + (ch % Cf::kBStages) * kBK * Cf::kBPitch;
-  };
-  auto vote = [&](int ch) {  // the loop's only barrier
-    const bool nz =
-        __syncthreads_or(ch < nc && mine_nonzero<T, VEC>(stage_a(ch)));
-    if (nz) load_b<T, VEC>(stage_b(ch), bw, rows_ok, N, ch * kBK, n0);
-    return nz;
-  };
-  // Step it copies A(it + kAhead), votes on chunk it + kVote and copies its
-  // B, then multiplies chunk it; the first kAhead steps only fill the ring.
-  // Each thread commits two cp.async groups per step, A's then B's (empty
-  // where there is nothing to copy), so the wait before a vote can leave in
-  // flight only what is younger than A(it + kVote) and B(it).
-  constexpr int kWait = 2 * (kAhead - kVote) < 2 * kVote - 1
-                            ? 2 * (kAhead - kVote) : 2 * kVote - 1;
-  unsigned nzq = 0;  // bit i: chunk it + i is non-zero
-  int kept = 0;      // chunks multiplied
-  for (int it = -kAhead; it < nc; ++it) {
-    // stage (it + kAhead) % kAStages was last read by chunk it - 2, before
-    // the last barrier; B's stage by chunk it - 1, before this step's one
-    if (it + kAhead < nc)
-      load_a<T, VEC>(stage_a(it + kAhead), a, M, K, m0, (it + kAhead) * kBK);
-    sm90::cp_async_commit();
-    if (it + kVote >= 0) {
-      sm90::cp_async_wait<kWait>();
-      nzq |= static_cast<unsigned>(vote(it + kVote)) << kVote;
+  int pl = next(-1);  // the next panel to copy
+  int pc = pl;        // the next panel to multiply
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) {
+    if (pl < P) {
+      fill(s, pl);
+      pl = next(pl);
     }
     sm90::cp_async_commit();
-    if (it >= 0 && (nzq & 1u)) {
-      mma_chunk(stage_a(it), stage_b(it), acc);
+  }
+  int kept = 0;  // chunks this warp multiplied
+  for (int it = 0; pc < P; ++it) {
+    // one group per step: panel it has landed once kAhead - 1 younger
+    // ones may still be in flight; the barrier also says every warp is
+    // done reading the stage refilled below (panel it - 1's)
+    sm90::cp_async_wait<kAhead - 1>();
+    __syncthreads();
+    if (pl < P) {
+      fill((it + kAhead) % kS, pl);
+      pl = next(pl);
+    }
+    sm90::cp_async_commit();
+    if ((bits(pc) >> warp) & 1u) {
+      const T* st = stage(it % kS);
+      mma_slice(st, st + (1 + warp) * kBK * kP, acc);
       ++kept;
     }
-    nzq >>= 1;
+    pc = next(pc);
   }
   sm90::cp_async_wait<0>();
-  store<VEC>(acc, c + tile * M * N, M, N, m0, n0);
-  // each kept chunk at its full size, padding rows and columns included
-  if (issued != nullptr && threadIdx.x == 0 && kept > 0)
-    atomicAdd(issued, static_cast<unsigned long long>(kept) * kBM * kBK * kBN);
+  store<VEC>(acc, ct + tile * M, out_cols, M, N, n0, i0);
+  if (counts != nullptr && threadIdx.x % 32 == 0 && kept > 0) {
+    atomicAdd(counts, static_cast<unsigned long long>(kept) * kBN * kBK *
+                          kSlice);
+    atomicAdd(counts + 1, static_cast<unsigned long long>(copied));
+  }
 }
 
 template <typename T>
-cudaError_t launch(const void* tiles, const void* start, const void* b,
-                   void* c, long long ntiles, long long M, long long K,
-                   long long N, long long bsz, long long b_rows,
-                   unsigned long long* issued, void* stream) {
+cudaError_t launch(const void* tiles_t, const void* start, const void* mask,
+                   const void* bt, void* ct, long long ntiles, long long M,
+                   long long K, long long N, long long bsz,
+                   long long bt_cols, unsigned long long* counts,
+                   void* stream) {
   constexpr long long kMax = 0x7fffffffLL;
   if (ntiles <= 0 || M <= 0 || N <= 0) return cudaSuccess;
-  // 32-bit index math inside a tile, its window and its output
-  if (M * K > kMax || K * N > kMax || M * N > kMax)
-    return cudaErrorInvalidValue;
+  if (M * K > kMax) return cudaErrorInvalidValue;  // 32-bit inside a tile
   const long long grid = ntiles * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   if (grid > kMax) return cudaErrorInvalidConfiguration;
   constexpr long long V = 16 / sizeof(T);
-  auto aligned = [](const void* p) {
-    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
-  };
-  const bool vec = K % V == 0 && N % V == 0 && aligned(tiles) &&
-                   aligned(b) && aligned(c);
-  auto kern = vec ? band_kernel<T, true> : band_kernel<T, false>;
+  // 16-byte copies: tile rows and operand rows in whole vectors, each
+  // window's first column (start*bsz) on a vector
+  const bool vec = M % V == 0 && K % V == 0 && bsz % V == 0 &&
+                   bt_cols % V == 0 && band::aligned16(tiles_t) &&
+                   band::aligned16(bt) && band::aligned16(ct);
+  auto kern = vec ? band_t_kernel<T, true> : band_t_kernel<T, false>;
   constexpr int smem = smem_bytes<T>();
-  if constexpr (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return rc;
-  }
+  const cudaError_t rc = band::allow_smem<smem>(kern);
+  if (rc != cudaSuccess) return rc;
   kern<<<static_cast<unsigned>(grid), kThreads, smem,
          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(tiles), static_cast<const int*>(start),
-      static_cast<const T*>(b), static_cast<float*>(c), static_cast<int>(M),
-      static_cast<int>(K), static_cast<int>(N), static_cast<int>(bsz),
-      b_rows, issued);
+      static_cast<const T*>(tiles_t), static_cast<const int*>(start),
+      static_cast<const unsigned char*>(mask), static_cast<const T*>(bt),
+      static_cast<float*>(ct), static_cast<int>(M), static_cast<int>(K),
+      static_cast<int>(N), static_cast<int>(bsz), bt_cols, ntiles * M,
+      counts);
   return cudaGetLastError();
 }
 
-}  // namespace band
+}  // namespace band_t
 
-int dispatch(int kind, bool transposed, const void* tiles, const void* start,
-             const void* b, void* c, long long ntiles, long long M,
-             long long K, long long N, long long bsz, long long b_extent,
-             long long out_cols, void* stream) {
+// The float64 and bf16x3 kinds of K4 and K5, on the first body.
+int first_body(int kind, bool transposed, const void* tiles,
+               const void* start, const void* b, void* c, long long ntiles,
+               long long M, long long K, long long N, long long bsz,
+               long long b_extent, long long out_cols, void* stream) {
   switch (kind) {
-    case kF32:
-      return launch<float, false>(transposed, tiles, start, b, c, ntiles, M,
-                                  K, N, bsz, b_extent, out_cols, stream);
     case kF32Split:
       return launch<float, true>(transposed, tiles, start, b, c, ntiles, M,
                                  K, N, bsz, b_extent, out_cols, stream);
-    case kBF16:
-      return launch<__nv_bfloat16, false>(transposed, tiles, start, b, c,
-                                          ntiles, M, K, N, bsz, b_extent,
-                                          out_cols, stream);
     case kF64:
       return launch<double, false>(transposed, tiles, start, b, c, ntiles, M,
                                    K, N, bsz, b_extent, out_cols, stream);
@@ -543,14 +596,14 @@ int bell_banded(int kind, const void* tiles, const void* start,
                 void* stream) {
   switch (kind) {
     case kF32:
-      return band::launch<float>(tiles, start, b, c, ntiles, M, K, N, bsz,
-                                 b_rows, nullptr, stream);
+      return launch_band<float>(tiles, start, b, c, ntiles, M, K, N, bsz,
+                                b_rows, nullptr, stream);
     case kBF16:
-      return band::launch<__nv_bfloat16>(tiles, start, b, c, ntiles, M, K,
-                                         N, bsz, b_rows, nullptr, stream);
+      return launch_band<__nv_bfloat16>(tiles, start, b, c, ntiles, M, K, N,
+                                        bsz, b_rows, nullptr, stream);
     default:
-      return dispatch(kind, false, tiles, start, b, c, ntiles, M, K, N, bsz,
-                      b_rows, 0, stream);
+      return first_body(kind, false, tiles, start, b, c, ntiles, M, K, N,
+                        bsz, b_rows, 0, stream);
   }
 }
 
@@ -565,24 +618,59 @@ int bell_banded_issued(int kind, const void* tiles, const void* start,
   auto* count = static_cast<unsigned long long*>(issued);
   switch (kind) {
     case kF32:
-      return band::launch<float>(tiles, start, b, c, ntiles, M, K, N, bsz,
-                                 b_rows, count, stream);
+      return launch_band<float>(tiles, start, b, c, ntiles, M, K, N, bsz,
+                                b_rows, count, stream);
     case kBF16:
-      return band::launch<__nv_bfloat16>(tiles, start, b, c, ntiles, M, K,
-                                         N, bsz, b_rows, count, stream);
+      return launch_band<__nv_bfloat16>(tiles, start, b, c, ntiles, M, K, N,
+                                        bsz, b_rows, count, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// tiles_t (ntiles, K, M) and bt (N, bt_cols) in the stream type, C^T
+// tiles_t (ntiles, K, M) and bt (N, bt_cols) in the stream type, mask
+// (ntiles, ceil(K/32), ceil(M/32)) uint8 (read by the float32 and bf16
+// kinds, which run band_t_kernel; the others run the first body), C^T
 // (N, ntiles*M).
 int bell_banded_t(int kind, const void* tiles_t, const void* start,
-                  const void* bt, void* ct, long long ntiles, long long M,
-                  long long K, long long N, long long bsz, long long bt_cols,
-                  void* stream) {
-  return dispatch(kind, true, tiles_t, start, bt, ct, ntiles, M, K, N, bsz,
-                  bt_cols, ntiles * M, stream);
+                  const void* mask, const void* bt, void* ct,
+                  long long ntiles, long long M, long long K, long long N,
+                  long long bsz, long long bt_cols, void* stream) {
+  switch (kind) {
+    case kF32:
+      return band_t::launch<float>(tiles_t, start, mask, bt, ct, ntiles, M,
+                                   K, N, bsz, bt_cols, nullptr, stream);
+    case kBF16:
+      return band_t::launch<__nv_bfloat16>(tiles_t, start, mask, bt, ct,
+                                           ntiles, M, K, N, bsz, bt_cols,
+                                           nullptr, stream);
+    default:
+      return first_body(kind, true, tiles_t, start, bt, ct, ntiles, M, K, N,
+                        bsz, bt_cols, ntiles * M, stream);
+  }
+}
+
+// bell_banded_t for the float32 and bf16 kinds (others return
+// cudaErrorInvalidValue), also adding to counts[0] the multiply-adds the
+// body issues (kBN x kBK x kSlice for every chunk a warp multiplied) and
+// to counts[1] the tile bytes it copied (on the card, zeroed by the caller).
+int bell_banded_t_issued(int kind, const void* tiles_t, const void* start,
+                         const void* mask, const void* bt, void* ct,
+                         long long ntiles, long long M, long long K,
+                         long long N, long long bsz, long long bt_cols,
+                         void* counts, void* stream) {
+  auto* count = static_cast<unsigned long long*>(counts);
+  switch (kind) {
+    case kF32:
+      return band_t::launch<float>(tiles_t, start, mask, bt, ct, ntiles, M,
+                                   K, N, bsz, bt_cols, count, stream);
+    case kBF16:
+      return band_t::launch<__nv_bfloat16>(tiles_t, start, mask, bt, ct,
+                                           ntiles, M, K, N, bsz, bt_cols,
+                                           count, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

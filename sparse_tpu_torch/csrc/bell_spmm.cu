@@ -18,15 +18,29 @@
 //
 // What the design does about it: the TPU's DMA gathers become loads of the
 // block's panel rows inside the kernel (no gathered intermediate in device
-// memory, as on the TPU).  One thread block owns one (block row, 64-column
-// chunk of k) and keeps its output in registers (4 x 4 per thread) across
-// the whole contraction: K3 stages the wide row in chunks of 16 contraction
+// memory, as on the TPU).  K3's float32 and bf16 streams run the body of
+// band_body.cuh (K4's) on each block row's wide row: 32 output rows x 128
+// columns per thread block, 32-index contraction chunks (one stored block
+// at bsz 32), a cp.async ring (A ahead, B one chunk ahead), one
+// __syncthreads_or vote per chunk so the zero blocks of padding slots skip
+// their operand copy and their multiply-adds, 8x4 float32 register tiles,
+// bf16 on mma.sync.  Each chunk resolves its block and column id once, and
+// the row's column ids are prefetched into L1 at the start: the first body
+// paid a division and a column load per element (1.94 ms at the bench
+// shape on an H100, PERF.md), once per copied operand row it was 0.83 ms,
+// once per chunk 0.70.  bell_fused_issued counts the multiply-adds the
+// vote kept.  Behaviour: a padding slot's zero block never multiplies the
+// operand, so Inf or NaN in B opposite it gives the sparse product's
+// answer.
+//
+// K6, and K3's float64 and bf16x3 kinds, run the first body
+// (bell_common.cuh): one thread block owns one (block row, 64-column chunk
+// of k) and keeps its output in registers (4 x 4 per thread) across the
+// whole contraction; K3 stages the wide row in chunks of 16 contraction
 // indices that run across block boundaries, K6 walks the Lb stored blocks
-// one at a time.  No atomics, so the two runs of one input agree bitwise.
-// Measured on an H100 at bench.py's band (PERF.md): K6 0.96 ms, K3 1.93 ms
-// for the same products — K3's loads divide the contraction index by bsz
-// and load a column id per element, which K6's per-block loop avoids.
+// one at a time.  No atomics, so two runs of one input agree bitwise.
 
+#include "band_body.cuh"
 #include "bell_common.cuh"
 
 namespace {
@@ -90,6 +104,61 @@ __global__ void __launch_bounds__(Shape<kRowsBM>::kThreads)
   store<S, kRowsBM>(acc, c + r * bsz * k, k, 1, bsz, k, p.m0, p.n0);
 }
 
+// K3 for float32 and bf16 streams: blocks (nb, Lb, bsz, bsz) and b
+// (nb*bsz, k) in the stream type T, C (nb*bsz, k) float32.  Block (block
+// row, 32-row block, 128-column block), column blocks fastest.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(band::kThreads, band::Cfg<T>::kMinBlocks)
+    fused_band_kernel(const T* __restrict__ blocks,
+                      const int* __restrict__ cols, const T* __restrict__ b,
+                      float* __restrict__ c, int Lb, int bsz, int k,
+                      unsigned long long* __restrict__ issued) {
+  const int n_blocks = (k + band::kBN - 1) / band::kBN;
+  const int m_blocks = (bsz + band::kBM - 1) / band::kBM;
+  long long bid = blockIdx.x;
+  const int n0 = static_cast<int>(bid % n_blocks) * band::kBN;
+  bid /= n_blocks;
+  const int m0 = static_cast<int>(bid % m_blocks) * band::kBM;
+  const long long r = bid / m_blocks;
+  const int K = Lb * bsz;
+  const band::WideRow<T> p{blocks + r * Lb * bsz * bsz, cols + r * Lb, b,
+                           bsz, K, k};
+  // the row's column ids into L1 while A's first chunks are copied: the
+  // first operand copy waits on them
+  if (threadIdx.x == 0) sm90::prefetch_l1(cols + r * Lb);
+  band::run<T, VEC>(p, c + r * bsz * k, bsz, K, k, m0, n0, issued);
+}
+
+template <typename T>
+cudaError_t launch_fused_band(const void* blocks, const void* cols,
+                              const void* b, void* c, long long nb,
+                              long long Lb, long long bsz, long long k,
+                              unsigned long long* issued, void* stream) {
+  using band::kBM;
+  using band::kBN;
+  constexpr long long kMax = 0x7fffffffLL;
+  if (nb <= 0 || bsz <= 0 || k <= 0) return cudaSuccess;
+  // 32-bit index math inside a block row's blocks and its output
+  if (Lb * bsz * bsz > kMax || bsz * k > kMax) return cudaErrorInvalidValue;
+  const long long grid = nb * ((bsz + kBM - 1) / kBM) * ((k + kBN - 1) / kBN);
+  if (grid > kMax) return cudaErrorInvalidConfiguration;
+  constexpr long long V = 16 / sizeof(T);
+  // 16-byte copies: a vector of the wide row stays inside one block, and
+  // operand rows are whole vectors
+  const bool vec = bsz % V == 0 && k % V == 0 && band::aligned16(blocks) &&
+                   band::aligned16(b) && band::aligned16(c);
+  auto kern = vec ? fused_band_kernel<T, true> : fused_band_kernel<T, false>;
+  constexpr int smem = band::smem_bytes<T>();
+  const cudaError_t rc = band::allow_smem<smem>(kern);
+  if (rc != cudaSuccess) return rc;
+  kern<<<static_cast<unsigned>(grid), band::kThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(blocks), static_cast<const int*>(cols),
+      static_cast<const T*>(b), static_cast<float*>(c), static_cast<int>(Lb),
+      static_cast<int>(bsz), static_cast<int>(k), issued);
+  return cudaGetLastError();
+}
+
 template <typename T, bool SPLIT, bool FUSED>
 cudaError_t launch(const void* blocks, const void* cols, const void* b,
                    void* c, long long nb, long long Lb, long long bsz,
@@ -108,20 +177,25 @@ cudaError_t launch(const void* blocks, const void* cols, const void* b,
   return cudaGetLastError();
 }
 
+// The first body's kinds: all four for K6, float64 and bf16x3 for K3.
 template <bool FUSED>
 int dispatch(int kind, const void* blocks, const void* cols, const void* b,
              void* c, long long nb, long long Lb, long long bsz, long long k,
              void* stream) {
   switch (kind) {
     case kF32:
-      return launch<float, false, FUSED>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                         stream);
+      if constexpr (!FUSED)
+        return launch<float, false, FUSED>(blocks, cols, b, c, nb, Lb, bsz,
+                                           k, stream);
+      return cudaErrorInvalidValue;
     case kF32Split:
       return launch<float, true, FUSED>(blocks, cols, b, c, nb, Lb, bsz, k,
                                         stream);
     case kBF16:
-      return launch<__nv_bfloat16, false, FUSED>(blocks, cols, b, c, nb, Lb,
-                                                 bsz, k, stream);
+      if constexpr (!FUSED)
+        return launch<__nv_bfloat16, false, FUSED>(blocks, cols, b, c, nb,
+                                                   Lb, bsz, k, stream);
+      return cudaErrorInvalidValue;
     case kF64:
       return launch<double, false, FUSED>(blocks, cols, b, c, nb, Lb, bsz, k,
                                           stream);
@@ -137,11 +211,43 @@ extern "C" {
 // kind: 0 float32, 1 float32 with the bf16x3 split, 2 bf16 stream, 3
 // float64.  blocks (nb, Lb, bsz, bsz) and b (nb*bsz, k) in the stream type,
 // cols (nb, Lb) int32, C (nb*bsz, k) in float32 (float64 for kind 3).
-// Returns cudaGetLastError() after the launch.
+// K3's float32 and bf16 kinds run the band body, the others and K6 the
+// first body.  Returns cudaGetLastError() after the launch, or the error of
+// a shape the kernel cannot index.
 int bell_fused(int kind, const void* blocks, const void* cols, const void* b,
                void* c, long long nb, long long Lb, long long bsz,
                long long k, void* stream) {
-  return dispatch<true>(kind, blocks, cols, b, c, nb, Lb, bsz, k, stream);
+  switch (kind) {
+    case kF32:
+      return launch_fused_band<float>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                      nullptr, stream);
+    case kBF16:
+      return launch_fused_band<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
+                                              bsz, k, nullptr, stream);
+    default:
+      return dispatch<true>(kind, blocks, cols, b, c, nb, Lb, bsz, k, stream);
+  }
+}
+
+// bell_fused for the float32 and bf16 kinds (others return
+// cudaErrorInvalidValue), also adding to *issued (on the card, zeroed by
+// the caller) the multiply-adds the body issues: 32 x 32 x 128 for every
+// chunk of a wide row its vote kept.
+int bell_fused_issued(int kind, const void* blocks, const void* cols,
+                      const void* b, void* c, long long nb, long long Lb,
+                      long long bsz, long long k, void* issued,
+                      void* stream) {
+  auto* count = static_cast<unsigned long long*>(issued);
+  switch (kind) {
+    case kF32:
+      return launch_fused_band<float>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                      count, stream);
+    case kBF16:
+      return launch_fused_band<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
+                                              bsz, k, count, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 int bell_block(int kind, const void* blocks, const void* cols, const void* b,

@@ -1,6 +1,7 @@
-// Hopper data-movement and tensor-core helpers of the banded SpMM body
-// (bell_banded.cu): cp.async copies into shared memory (16 bytes, with
-// zero fill), ldmatrix fragment loads and the bf16 mma.sync.
+// Hopper data-movement and tensor-core helpers of the blocked-ELL SpMM
+// bodies (band_body.cuh, bell_banded.cu, bell_spmm.cu): cp.async copies
+// into shared memory (16 bytes, with zero fill), an L1 prefetch, ldmatrix
+// fragment loads and the bf16 mma.sync.
 
 #pragma once
 
@@ -30,6 +31,11 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Asks for the line holding p in L1 without waiting for it.
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
 }
 
 // Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix

@@ -27,6 +27,13 @@ of K5.  The super-tile fields (``S``, ``SW``, ``rel``, ``sup``) only shared a
 DMA window on the TPU; ``start == sup.repeat(S) + rel`` by construction, so
 K4 and K5 read ``start`` and ignore them.
 
+The float32 and bf16 streams of K3, K4 and K5 skip the band's all-zero
+32 x 32 chunks: K3 and K4 by a vote inside the kernel on what they read,
+K5 by the kit's chunk mask (:attr:`BandedKitT.chunk_nz`, built once with
+the kit), so it does not read them.  Each has an issued-work counter
+(:func:`fused_issued_flops`, :func:`banded_issued_flops`,
+:func:`banded_t_issued`) beside a host model of what it should count.
+
 Precision, as the reference's ``_resolve_precision``: float32 streams are
 full float32 (no TF32); ``precision="bf16x3"`` splits each float32 operand
 into a bf16 high part and a bf16 residual and sums hi*hi + hi*lo + lo*hi in
@@ -59,6 +66,12 @@ __all__ = [
     "banded_spmm_hbm_bytes",
     "banded_spmm_t_hbm_bytes",
     "banded_issued_flops",
+    "banded_issued_model",
+    "chunk_mask",
+    "fused_issued_flops",
+    "fused_issued_model",
+    "banded_t_issued",
+    "banded_t_issued_model",
     "bell_spmm_block",
     "bell_spmm_block_plain",
     "bell_spmm_fused",
@@ -81,6 +94,14 @@ _PRECISIONS = (None, "highest", "bf16x3")
 # stream kinds of the C entry points (csrc/bell_common.cuh, enum Kind)
 _KIND = {torch.float32: 0, torch.bfloat16: 2, torch.float64: 3}
 _KIND_F32_SPLIT = 1
+# the float32 / bf16 bodies' tiling, as the kernels set it: K3/K4/K8's
+# output rows and columns per thread block and contraction chunk
+# (csrc/band_body.cuh: band::kBM, kBN, Cfg<T>::kBK); K5's C^T rows per
+# thread block, panel rows and columns per warp (csrc/bell_banded.cu:
+# band_t::kBN, kBK, kSlice)
+_BAND_BM, _BAND_BN, _BAND_BK = 32, 128, 32
+_BT_BN, _BT_BK, _BT_SLICE = 32, 32, 32
+_COUNTED = (torch.float32, torch.bfloat16)  # kinds with a counter
 
 
 # -- precision ----------------------------------------------------------------
@@ -236,6 +257,73 @@ def bell_spmm_fused_plain(a: BELL, b, *, compute_dtype=None,
     """Plain PyTorch version of K3 (any device): the gather-einsum."""
     return _rowwise("bell_spmm_fused", "fused", a, b, compute_dtype,
                     precision, True)
+
+
+def _nonzero_chunks(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """(n, ceil(R/rows), ceil(C/cols)) bool of ``x`` (n, R, C): whether each
+    rows x cols chunk holds a non-zero element (NaN does, -0 does not, as
+    the kernels read magnitude bits)."""
+    n, r, c = x.shape
+    nz = x != 0
+    if r % rows or c % cols:
+        nz = torch.nn.functional.pad(nz, (0, -c % cols, 0, -r % rows))
+    return nz.reshape(n, nz.shape[1] // rows, rows, nz.shape[2] // cols,
+                      cols).any(4).any(2)
+
+
+def _band_body_model(a: torch.Tensor, k: int) -> int:
+    """Operations (2 per multiply-add) that the float32 / bf16 body of
+    ``csrc/band_body.cuh`` issues on A's (n, M, K) at width ``k``: one
+    32 x 32 x (k rounded up to 128) product for each 32 x 32 chunk of A
+    that is not zero throughout, where its vote keeps it."""
+    kept = int(_nonzero_chunks(a, _BAND_BM, _BAND_BK).sum())
+    return kept * 2 * _BAND_BM * _BAND_BK * (-(-k // _BAND_BN) * _BAND_BN)
+
+
+def fused_issued_model(a: BELL, k: int, *, compute_dtype=None) -> int:
+    """Host model of what K3's float32 / bf16 body issues on ``a`` at width
+    ``k`` (what :func:`fused_issued_flops` should read): the band body's
+    count over each block row's wide row [A_r0 | ... | A_r,Lb-1]."""
+    wide = a.blocks.to(compute_dtype or a.dtype).transpose(1, 2).reshape(
+        a.nb, a.bsz, a.Lb * a.bsz)
+    return _band_body_model(wide, k)
+
+
+def banded_issued_model(tiles: torch.Tensor, k: int) -> int:
+    """Host model of what K4's and K8's float32 / bf16 body issues on the
+    densified ``tiles`` (ntiles, M, K) at width ``k`` (what
+    :func:`banded_issued_flops` should read)."""
+    return _band_body_model(tiles, k)
+
+
+def fused_issued_flops(a: BELL, b, *, compute_dtype=None) -> int:
+    """Operations (two per multiply-add) that K3's float32 / bf16 body
+    issues on ``a`` against ``b``, as the kernel counts them: each thread
+    block adds the chunks its zero-chunk vote kept, at their full size, to
+    a counter on the card.  One launch into a scratch output, outside
+    ``K3_LAUNCHES``.  CUDA tensors and float32 or bf16 streams only; the
+    count is the kernel's, so there is no plain version
+    (:func:`fused_issued_model` is what it should read)."""
+    name = "fused_issued_flops"
+    b, out_dtype = _operand(name, a, b)
+    stream = compute_dtype or out_dtype
+    if stream not in _COUNTED:
+        raise ValueError(f"{name}: counts float32 and bf16 streams, got "
+                         f"{stream}")
+    if not _on_cuda(name, a.blocks, a.cols, b):
+        raise ValueError(f"{name}: counts on the card only, got CPU tensors")
+    k = b.shape[1]
+    if a.n == 0 or a.Lb == 0 or k == 0:
+        return 0
+    blocks = a.blocks.to(stream).contiguous()
+    cols = a.cols.to(torch.int32).contiguous()
+    bs = b.to(stream).contiguous()
+    out = torch.empty(a.n, k, dtype=torch.float32, device=b.device)
+    count = torch.zeros(1, dtype=torch.int64, device=b.device)
+    _launch(name, _kernels.load().bell_fused_issued, _KIND[stream],
+            blocks.data_ptr(), cols.data_ptr(), bs.data_ptr(), out.data_ptr(),
+            a.nb, a.Lb, a.bsz, k, count.data_ptr(), device=b.device)
+    return 2 * int(count.item())
 
 
 # -- the banded plan ----------------------------------------------------------
@@ -407,14 +495,30 @@ class BandedKit:
     tiles: torch.Tensor
 
 
+def chunk_mask(tiles_t: torch.Tensor) -> torch.Tensor:
+    """(ntiles, ceil(K/32), ceil(M/32)) uint8 of ``tiles_t`` (ntiles, K, M),
+    on its device: 1 where a 32 x 32 chunk (32 contraction rows of one
+    32-column slice) holds a non-zero element (NaN does, -0 does not)."""
+    return _nonzero_chunks(tiles_t, _BT_BK, _BT_SLICE).to(torch.uint8)
+
+
 @dataclasses.dataclass(frozen=True)
 class BandedKitT:
     """Plan + TRANSPOSED densified tiles (ntiles, W*bsz, rt*bsz) for
     :func:`bell_spmm_banded_t`, from :func:`bell_banded_prepare_t`.
-    Value-bound like :class:`BandedKit`."""
+    Value-bound like :class:`BandedKit`.
+
+    ``chunk_nz`` is built with the kit (:func:`chunk_mask` of the tiles, on
+    their device), whoever builds it: K5 reads only the chunks it marks.
+    It is plan data; the reference's kit has no such field."""
 
     plan: BandedPlan
     tiles_t: torch.Tensor
+    chunk_nz: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                               compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "chunk_nz", chunk_mask(self.tiles_t))
 
 
 def bell_banded_prepare(a: BELL, row_tile: int | None = None,
@@ -530,6 +634,53 @@ def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
     return 2 * int(count.item())
 
 
+def banded_t_issued_model(kit: BandedKitT, k: int) -> tuple[int, int]:
+    """Host model of what K5's float32 / bf16 body counts at width ``k``:
+    (operations, 2 per multiply-add: one 32 x 32 x 32 product per set bit
+    of ``chunk_nz`` and 32-row block of k; tile bytes copied: each set
+    chunk's elements inside the tile, once per 32-row block of k)."""
+    nt, K, M = kit.tiles_t.shape
+    nz = kit.chunk_nz.bool()
+    blocks_k = -(-k // _BT_BN)
+    rows = (K - _BT_BK * torch.arange(nz.shape[1])).clamp(max=_BT_BK)
+    cols = (M - _BT_SLICE * torch.arange(nz.shape[2])).clamp(max=_BT_SLICE)
+    inside = (rows[:, None] * cols[None, :]).to(nz.device)
+    flops = int(nz.sum()) * 2 * _BT_BN * _BT_BK * _BT_SLICE * blocks_k
+    nbytes = int((inside * nz).sum()) * kit.tiles_t.element_size() * blocks_k
+    return flops, nbytes
+
+
+def banded_t_issued(a: BELL, bt, kit: BandedKitT) -> tuple[int, int]:
+    """(operations, tile bytes) that K5's float32 / bf16 body issues on
+    ``kit`` against ``bt``, as the kernel counts them on the card: each
+    warp adds the chunks it multiplied, at their full 32 x 32 x 32, and the
+    bytes of the tile chunks it copied.  One launch into a scratch output,
+    outside ``K5_LAUNCHES``; CUDA tensors and float32 or bf16 kits only
+    (:func:`banded_t_issued_model` is what it should read)."""
+    name = "banded_t_issued"
+    plan, tiles_t = kit.plan, kit.tiles_t
+    if tiles_t.dtype not in _COUNTED:
+        raise ValueError(f"{name}: counts float32 and bf16 kits, got "
+                         f"{tiles_t.dtype}")
+    if not isinstance(bt, torch.Tensor):
+        bt = torch.as_tensor(bt, device=a.device)
+    if not _on_cuda(name, tiles_t, kit.chunk_nz, plan.start, bt):
+        raise ValueError(f"{name}: counts on the card only, got CPU tensors")
+    ntiles, K, M = tiles_t.shape
+    counts = torch.zeros(2, dtype=torch.int64, device=bt.device)
+    bs = bt.to(tiles_t.dtype).contiguous()
+    out = torch.empty(bt.shape[0], ntiles * M, dtype=torch.float32,
+                      device=bt.device)
+    _launch(name, _kernels.load().bell_banded_t_issued, _KIND[tiles_t.dtype],
+            tiles_t.contiguous().data_ptr(),
+            plan.start.to(torch.int32).contiguous().data_ptr(),
+            kit.chunk_nz.data_ptr(), bs.data_ptr(), out.data_ptr(), ntiles,
+            M, K, bt.shape[0], a.bsz, bt.shape[1], counts.data_ptr(),
+            device=bt.device)
+    flops, nbytes = counts.tolist()
+    return 2 * flops, nbytes
+
+
 # -- K4: banded ---------------------------------------------------------------
 
 
@@ -620,10 +771,13 @@ def _banded_t(a: BELL, bt, kit: BandedKitT, precision, plain: bool):
     stream = tiles_t.dtype
     split = _stream_mode(name, stream, precision)
     ntiles = nb_pad // rt
+    if tuple(tiles_t.shape) != (ntiles, W * bsz, rt * bsz):
+        raise ValueError(f"{name}: tiles_t {tuple(tiles_t.shape)} != "
+                         f"({ntiles}, {W * bsz}, {rt * bsz})")
     # a padded operand gets the padded output back (the chain idiom); an
     # unpadded one gets (k, n)
     width = bt.shape[1]
-    if plain or not _on_cuda(name, tiles_t, plan.start, bt):
+    if plain or not _on_cuda(name, tiles_t, kit.chunk_nz, plan.start, bt):
         cols, inside = _window_index(plan, bsz, width)
         bs = bt.to(stream)
         win = torch.where(inside[None], bs[:, cols], bs.new_zeros(()))
@@ -637,8 +791,9 @@ def _banded_t(a: BELL, bt, kit: BandedKitT, precision, plain: bool):
     bs = bt.to(stream).contiguous()
     out = torch.empty(k, n_pad, dtype=_acc_dtype(stream), device=bt.device)
     _launch(name, _kernels.load().bell_banded_t, _kind(stream, split),
-            ts.data_ptr(), start.data_ptr(), bs.data_ptr(), out.data_ptr(),
-            ntiles, rt * bsz, W * bsz, k, bsz, width, device=bt.device)
+            ts.data_ptr(), start.data_ptr(), kit.chunk_nz.data_ptr(),
+            bs.data_ptr(), out.data_ptr(), ntiles, rt * bsz, W * bsz, k, bsz,
+            width, device=bt.device)
     K5_LAUNCHES += 1
     return out[:, :width].to(out_dtype)
 

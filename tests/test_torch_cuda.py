@@ -280,13 +280,51 @@ def _check_spmm(got, ref, bound, dtype):
     assert bool((err <= tol * bound).all()), float((err - tol * bound).max())
 
 
+def _bits(y):
+    return y.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[y.element_size()])
+
+
 def _twice(fn, counter):
     before = getattr(tcb, counter)
     y1, y2 = fn(), fn()
     torch.cuda.synchronize()
     assert getattr(tcb, counter) == before + 2
-    assert torch.equal(y1, y2)  # bitwise repeatable
+    assert torch.equal(_bits(y1), _bits(y2))  # bitwise repeatable, NaN too
     return y1
+
+
+def _with_values(a, values):
+    """``a`` with other values: "band" keeps them, "zero" makes every block
+    zero, "lone" leaves one stored element (1.5, in a stored slot of an
+    interior row), "nan" puts a NaN into a stored block."""
+    if values == "band":
+        return a
+    blocks = a.blocks.clone()
+    r = a.nb // 3
+    if values in ("zero", "lone"):
+        blocks.zero_()
+    if values == "lone":
+        blocks[r, 1, a.bsz - 1, a.bsz // 2] = 1.5
+    elif values == "nan":
+        blocks[r, 1, 1, 0] = float("nan")
+    return BELL(cols=a.cols, blocks=blocks, n=a.n, bsz=a.bsz)
+
+
+def _check_values(got, ref, bound, dtype, values):
+    """_check_spmm, where a NaN in A must give NaN exactly where the plain
+    version has it (its row of C), and a lone element a non-zero row (K3)
+    or column (K5, ``ref`` being C^T) with exact zeros elsewhere."""
+    if values == "nan":
+        nan = torch.isnan(ref)
+        assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+        got, ref = got.masked_fill(nan, 0), ref.masked_fill(nan, 0)
+        bound = bound.masked_fill(torch.isnan(bound), 0)
+    if values in ("zero", "lone"):
+        nz = (ref != 0).sum().item()
+        assert (got != 0).sum().item() == nz and (nz > 0) == (
+            values == "lone")
+    _check_spmm(got, ref, bound, dtype)
 
 
 TIERS = {"f32": (torch.float32, None, None),
@@ -295,24 +333,45 @@ TIERS = {"f32": (torch.float32, None, None),
          "bf16x3": (torch.float32, None, "bf16x3")}
 
 
+# K3's float32 and bf16 streams run the band body (32 x 128 blocks, the
+# zero-chunk vote), float64 and bf16x3 the first body, as K6 does.  Shapes:
+# bsz 3 and 33 (element copies, ragged 32-row blocks), 8, 24 (a 32-index
+# chunk spans two blocks), 32 (a chunk is a block), 64 (two row blocks per
+# block row); k 1, 5, 33, 65, 70 (element copies or a ragged column
+# block), 32, 128, 200 (two column blocks).  Edge rows and an empty row
+# hold padding slots (zero blocks at column 0).
+K3_CASES = [(37, 3, 2, 5, "band"), (29, 33, 1, 65, "band"),
+            (50, 8, 3, 1, "band"), (40, 24, 2, 70, "band"),
+            (30, 32, 2, 32, "band"), (12, 64, 1, 200, "band"),
+            (29, 33, 1, 33, "band"), (37, 3, 2, 200, "band"),
+            (30, 32, 2, 128, "zero"), (30, 32, 2, 128, "lone"),
+            (30, 32, 2, 128, "nan"), (40, 24, 2, 33, "lone")]
+
+
 @pytest.mark.parametrize("tier", list(TIERS))
-@pytest.mark.parametrize("nb,bsz,hb,k", [(37, 3, 2, 5), (29, 33, 1, 65),
-                                         (50, 8, 3, 1)])
-def test_k3_k6_match_plain_at_odd_shapes(cuda, nb, bsz, hb, k, tier):
+@pytest.mark.parametrize("nb,bsz,hb,k,values", K3_CASES)
+def test_k3_k6_match_plain_at_odd_shapes(cuda, nb, bsz, hb, k, values, tier):
     dt, cd, prec = TIERS[tier]
     a, _ = _band_bell(nb, bsz, hb, nb + k, dt, cuda, empty=(nb // 2,))
+    a = _with_values(a, values)
     b = torch.from_numpy(np.random.default_rng(k).standard_normal(
         (a.n, k))).to(dt).to(cuda)
     bound = _spmm_bound(a, b, cd or dt)
     got = _twice(lambda: tcb.bell_spmm_fused(a, b, compute_dtype=cd,
                                              precision=prec), "K3_LAUNCHES")
-    _check_spmm(got, tcb.bell_spmm_fused_plain(a, b, compute_dtype=cd,
-                                               precision=prec), bound, dt)
+    _check_values(got, tcb.bell_spmm_fused_plain(a, b, compute_dtype=cd,
+                                                 precision=prec), bound, dt,
+                  values)
+    if tier in ("f32", "bf16"):  # the band body's own count of its work
+        issued = tcb.fused_issued_flops(a, b, compute_dtype=cd)
+        assert issued == tcb.fused_issued_model(a, k, compute_dtype=cd or dt)
+        if values == "lone":
+            assert issued == 2 * 32 * 32 * 128 * -(-k // 128)
     if cd is None:  # K6 streams at the result dtype
         got = _twice(lambda: tcb.bell_spmm_block(a, b, precision=prec),
                      "K6_LAUNCHES")
-        _check_spmm(got, tcb.bell_spmm_block_plain(a, b, precision=prec),
-                    bound, dt)
+        _check_values(got, tcb.bell_spmm_block_plain(a, b, precision=prec),
+                      bound, dt, values)
 
 
 @pytest.mark.parametrize("tier", list(TIERS))
@@ -517,15 +576,47 @@ def test_k8_element_copies(cuda, bsz, W, rt, k, shift, stream):
     _check_spmm(y1, tdb.dband_spmm_plain(*args), bound, torch.float32)
 
 
+def _hand_kit_t(a, ok, rt, mw, stream):
+    """A BandedKitT built by hand from K4's plan (unaligned starts, any rt),
+    as a caller may: its chunk mask comes from ``__post_init__``."""
+    plan = tcb.build_banded_plan(a, row_tile=rt, max_window=mw,
+                                 slot_valid=ok)
+    tiles = tcb._densify_band_tiles(a, plan, stream)
+    return tcb.BandedKitT(plan=plan, tiles_t=tiles.transpose(1, 2)
+                          .contiguous())
+
+
+# K5's float32 and bf16 streams run the mask body (32 rows of k x 128 tile
+# columns per thread block, one 32-column slice per warp), float64 and
+# bf16x3 the first body.  Kits: prepare_t's (rt*bsz a multiple of 128;
+# bsz 24 gives 384 columns) or, for bsz 3 and 33 (whose aligned plans
+# need windows of 384 and 128 panels), a hand-built one (rt 7 and 2: 21
+# and 66 columns, 128-panel windows).  bsz 3 and 33 take element copies;
+# k 1, 7, 33, 70, 200 end in a part 32-row block of k.  An unpadded
+# operand's last windows run past its end.
+K5_CASES = [(45, 16, 7, "band", None), (70, 8, 33, "band", None),
+            (100, 24, 70, "band", None), (250, 32, 32, "band", None),
+            (70, 64, 200, "band", None), (1000, 3, 1, "band", 7),
+            (130, 33, 33, "band", 2), (250, 32, 32, "zero", None),
+            (250, 32, 32, "lone", None), (250, 32, 32, "nan", None)]
+
+
 @pytest.mark.parametrize("tier", list(TIERS))
 @pytest.mark.parametrize("padded", [False, True])
-@pytest.mark.parametrize("nb,bsz,k", [(45, 16, 7), (70, 8, 33)])
-def test_k5_matches_plain_at_odd_shapes(cuda, nb, bsz, k, padded, tier):
+@pytest.mark.parametrize("nb,bsz,k,values,hand_rt", K5_CASES)
+def test_k5_matches_plain_at_odd_shapes(cuda, nb, bsz, k, values, hand_rt,
+                                        padded, tier):
     dt, cd, prec = TIERS[tier]
     a, ok = _band_bell(nb, bsz, 2, nb + k, dt, cuda)
+    a = _with_values(a, values)
     b = torch.from_numpy(np.random.default_rng(k).standard_normal(
         (a.n, k))).to(dt).to(cuda)
-    kit = tcb.bell_banded_prepare_t(a, compute_dtype=cd, slot_valid=ok)
+    if hand_rt:
+        kit = _hand_kit_t(a, ok, hand_rt, 128, cd or dt)
+    else:
+        kit = tcb.bell_banded_prepare_t(a, max_window=128, compute_dtype=cd,
+                                        slot_valid=ok)
+    assert torch.equal(kit.chunk_nz, tcb.chunk_mask(kit.tiles_t))
     n_pad = kit.plan.offs.shape[0] * bsz
     bt = b.T.contiguous()
     bound = _spmm_bound(a, b, kit.tiles_t.dtype).T
@@ -535,8 +626,16 @@ def test_k5_matches_plain_at_odd_shapes(cuda, nb, bsz, k, padded, tier):
     got = _twice(lambda: tcb.bell_spmm_banded_t(a, bt, kit, precision=prec),
                  "K5_LAUNCHES")
     assert got.shape == (k, n_pad if padded else a.n)
-    _check_spmm(got, tcb.bell_spmm_banded_t_plain(a, bt, kit,
-                                                  precision=prec), bound, dt)
+    _check_values(got, tcb.bell_spmm_banded_t_plain(a, bt, kit,
+                                                    precision=prec),
+                  bound, dt, values)
+    if tier in ("f32", "bf16"):  # the mask body's own counts
+        counted = tcb.banded_t_issued(a, bt, kit)
+        assert counted == tcb.banded_t_issued_model(kit, k)
+        if values == "lone":
+            esz = kit.tiles_t.element_size()
+            assert counted == (2 * 32 ** 3 * -(-k // 32),
+                               32 * 32 * esz * -(-k // 32))
 
 
 def test_bell_spmm_on_cuda_launches_the_kernels(cuda):
