@@ -46,9 +46,18 @@ transposed kit's chunk mask (built once per kit): phase 7 holds both
 against their plain versions at the card tests' shapes, phase 9 reads
 their counters at the bench shape the same way (K5 also the tile bytes it
 read, beside the kit's) and times their bf16 streams with bf16 operands
-beside ``BSR @ B`` in bf16.  K7's yardstick is two library calls, the
-gathered block pairs through ``torch.bmm`` and ``index_add_`` into the
-output blocks, since cuSPARSE refuses the fixture's ``A_csr @ A_csr``.
+beside ``BSR @ B`` in bf16.  K6's float32 and bf16 streams run a
+persistent body that votes once per stored block: phase 7 holds it
+against its plain version at the card tests' shapes, phase 9 reads its
+counter at the bench shape and times its bf16 stream (bf16 blocks and
+operand) beside ``BSR @ B`` in bf16.  K7 walks a product list built once
+per plan (``prod_ptr`` / ``prod_ab``): phases 10 and 12 hold the prepared
+route (the plan's list) and the raw route (a list with the pads, built per
+call) against their plain versions and read the kernel's count of the
+products it multiplied, which must equal ``prod_ptr[-1]``.  K7's yardstick
+is two library calls, the gathered block pairs through ``torch.bmm`` and
+``index_add_`` into the output blocks, since cuSPARSE refuses the
+fixture's ``A_csr @ A_csr``.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -182,12 +191,14 @@ def csr_spmv_cost(a):
     return csr_bound_bytes(a), 2 * int(a.indptr[-1])
 
 
-def spmm_cost(nbz, bsz, n, k, itemsize=4):
-    """Bytes (``utils.stats.blocked_bound_bytes``, float32 output) and
-    flops of C = A B for A in ``nbz`` stored bsz x bsz blocks."""
+def spmm_cost(nbz, bsz, n, k, itemsize=4, out_bytes=4):
+    """Bytes (``utils.stats.blocked_bound_bytes``: A and B at ``itemsize``,
+    C at ``out_bytes`` per entry) and flops of C = A B for A in ``nbz``
+    stored bsz x bsz blocks."""
     from sparse_tpu_torch.utils.stats import blocked_bound_bytes
 
-    return (blocked_bound_bytes(nbz, bsz, n, k, value_bytes=itemsize),
+    return (blocked_bound_bytes(nbz, bsz, n, k, value_bytes=itemsize,
+                                out_bytes=out_bytes),
             2 * nbz * bsz * bsz * k)
 
 
@@ -905,14 +916,16 @@ def _bits(y):
                    8: torch.int64}[y.element_size()])
 
 
-def _values_vs_plain(label, kernel, plain, bound, values):
+def _values_vs_plain(label, kernel, plain, bound, values,
+                     tol_dtype=torch.float32):
     """``_twice_vs_plain`` for the special values of ``_with_values``: a NaN
     in A must give NaN exactly where the plain version has it (two runs
     equal bit for bit), a lone element exactly as many non-zeros as the
     plain version (one row of C or column of C^T), all-zero blocks exact
-    zeros; returns the max |kernel - plain| elsewhere."""
+    zeros; returns the max |kernel - plain| elsewhere, within
+    TOL[tol_dtype] (bf16 where both round a float32 sum to bf16)."""
     if values != "nan":
-        err, y = _twice_vs_plain(label, kernel, plain, bound, torch.float32)
+        err, y = _twice_vs_plain(label, kernel, plain, bound, tol_dtype)
         nz = int((plain() != 0).sum())
         if values in ("zero", "lone") and (
                 int((y != 0).sum()) != nz or (nz > 0) != (values == "lone")):
@@ -930,8 +943,7 @@ def _values_vs_plain(label, kernel, plain, bound, values):
         raise AssertionError(f"{label}: NaN pattern differs from the plain "
                              "version's")
     return check_close(label, y1.masked_fill(nan, 0), yp.masked_fill(nan, 0),
-                       bound.masked_fill(torch.isnan(bound), 0),
-                       torch.float32)
+                       bound.masked_fill(torch.isnan(bound), 0), tol_dtype)
 
 
 def check_counted(label, counted, model, useful):
@@ -964,9 +976,10 @@ def _hand_kit_t(a, valid, rt, max_window, stream):
 
 
 def _mask_bodies_vs_plain(rng):
-    """K3's vote body and K5's mask body (float32 and bf16 streams) against
-    their plain versions at tests/test_torch_cuda.py's shapes, each with
-    the body's own count of its work against the host model."""
+    """K3's vote body, K6's persistent body and K5's mask body (float32 and
+    bf16 streams) against their plain versions at tests/test_torch_cuda.py's
+    shapes, each with the body's own count of its work against the host
+    model."""
     from sparse_tpu_torch.ops import cuda_bell as cb
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -991,6 +1004,25 @@ def _mask_bodies_vs_plain(rng):
                 _abs_bound(a, b, cd or f32), values)
             counted = cb.fused_issued_flops(a, b, compute_dtype=cd)
             model = cb.fused_issued_model(a, k, compute_dtype=cd or f32)
+            if counted != model:
+                raise AssertionError(f"{label}: counted {counted} operations"
+                                     f", host model {model}")
+            print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
+                  f"repeatable; issued {counted} = host model", flush=True)
+        # K6's persistent body streams at the result dtype: float32, and
+        # bf16 blocks with a bf16 operand
+        for stream in (f32, bf16):
+            a6 = _with_values(_bell(cols, valid, bsz, stream,
+                                    seed=nb * k + bsz), values)
+            b6 = b.to(stream)
+            label = (f"K6 body nb={nb} bsz={bsz} k={k} {values} stream="
+                     f"{str(stream)[6:]}")
+            err = _values_vs_plain(
+                label, lambda: cb.bell_spmm_block(a6, b6),
+                lambda: cb.bell_spmm_block_plain(a6, b6),
+                _abs_bound(a6, b6, stream), values, stream)
+            counted = cb.block_issued_flops(a6, b6)
+            model = cb.block_issued_model(a6, k)
             if counted != model:
                 raise AssertionError(f"{label}: counted {counted} operations"
                                      f", host model {model}")
@@ -1375,18 +1407,22 @@ def _report_spmm(label, fn, flops, nbytes, card):
     return ms, ms_b2b
 
 
-def bf16_stream_record(kname, kern, plain, bound, m, b, card):
+def bf16_stream_record(kname, kern, plain, bound, m, b, card,
+                       tol_dtype=torch.float32):
     """The bf16 stream of K3, K4, K5 or K8 at the bench shape (A and the
     operand in bf16, float32 sums): against its plain version — both take
     the same bf16 operands and sum in float32, so float32's tolerance on
     the rounded |A||B| — twice for bitwise repeatability, timed in turns
     beside its bound and ``BSR @ B`` in bf16; returns the record kept in
-    the kernel's entry.  ``b`` is the (n, k) operand."""
+    the kernel's entry.  ``b`` is the (n, k) operand.  ``tol_dtype``: bf16
+    where both sides round the float32 sums to a bf16 result (K6)."""
     label = f"{kname} bf16 stream"
-    err, _ = _twice_vs_plain(f"{label} at the bench shape", kern, plain,
-                             bound, torch.float32)
+    err, y = _twice_vs_plain(f"{label} at the bench shape", kern, plain,
+                             bound, tol_dtype)
     a, k = m["a"], b.shape[1]
-    cost = spmm_cost(int(m["slot_valid"].sum()), a.bsz, a.n, k, 2)
+    # A and B in bf16, C written once at the result's width (bf16 for K6)
+    cost = spmm_cost(int(m["slot_valid"].sum()), a.bsz, a.n, k, 2,
+                     y.element_size())
     _, ms_p = _report_spmm(f"{label} plain", plain, cost[1], cost[0], card)
     _, ms_k = _report_spmm(f"{label} kernel", kern, cost[1], cost[0], card)
     _report_spmm(f"{label} kernel", kern, cost[1], cost[0], card)
@@ -1408,11 +1444,13 @@ def phase9_bell_timing(card, m):
     """Each of K3-K6 against its plain version at the main path's shape
     (tolerance, bitwise repeat over all rows), then timed in turns — plain,
     kernel, kernel, plain — alone and back to back, with the work the
-    float32 bodies of K3, K4 and K5 issue (K5 also the tile bytes it
-    reads); the bf16 streams of K4, K3 (``compute_dtype=bfloat16``) and K5
-    (a bf16 kit at k 32), each with a bf16 operand, the same way beside
-    ``BSR @ B`` in bf16; then bell_spmm beside K6, and the chain."""
+    float32 bodies of K3, K4, K5 and K6 issue (K5 also the tile bytes it
+    reads); the bf16 streams of K4, K3 (``compute_dtype=bfloat16``), K6
+    (bf16 blocks) and K5 (a bf16 kit at k 32), each with a bf16 operand,
+    the same way beside ``BSR @ B`` in bf16; then bell_spmm beside K6, and
+    the chain."""
     import sparse_tpu_torch as pt
+    from sparse_tpu_torch.formats.bell import BELL
     from sparse_tpu_torch.ops import cuda_bell as cb
 
     a, b, b32, kit, kit_t = m["a"], m["b"], m["b32"], m["kit"], m["kit_t"]
@@ -1474,6 +1512,10 @@ def phase9_bell_timing(card, m):
         cb.fused_issued_model(a, k), useful) / 1e9
     out["K3"]["useful_gflop"] = useful / 1e9
     useful32 = 2 * nnz * 32
+    out["K6"]["issued_gflop"] = check_counted(
+        "K6 float32", cb.block_issued_flops(a, b),
+        cb.block_issued_model(a, k), useful) / 1e9
+    out["K6"]["useful_gflop"] = useful / 1e9
     out["K5"]["useful_gflop"] = useful32 / 1e9
     out["K5"].update(check_k5_counts("K5 float32 k=32", a, bt32, kit_t,
                                      useful32))
@@ -1503,7 +1545,16 @@ def phase9_bell_timing(card, m):
     rec["issued_gflop"] = check_counted(
         "K3 bf16 stream", cb.fused_issued_flops(a, b_bf, **kw),
         cb.fused_issued_model(a, k, compute_dtype=bf16), useful) / 1e9
-    del b_bf
+    # K6's bf16 stream: bf16 blocks and a bf16 operand, a bf16 result
+    a_bf = BELL(cols=a.cols, blocks=a.blocks.to(bf16), n=a.n, bsz=bsz)
+    rec = out["K6"]["bf16_stream"] = bf16_stream_record(
+        "K6", lambda: cb.bell_spmm_block(a_bf, b_bf),
+        lambda: cb.bell_spmm_block_plain(a_bf, b_bf),
+        _abs_bound(a, b, bf16), m, b, card, tol_dtype=bf16)
+    rec["issued_gflop"] = check_counted(
+        "K6 bf16 stream", cb.block_issued_flops(a_bf, b_bf),
+        cb.block_issued_model(a_bf, k), useful) / 1e9
+    del b_bf, a_bf
     # K5's bf16 kit at k 32, a bf16 operand
     kit_tbf = cb.bell_banded_prepare_t(a, compute_dtype=bf16,
                                        slot_valid=m["slot_valid"])
@@ -1593,12 +1644,55 @@ def _slab_vs_plain(label, pp, z1, z2, out_dtype):
     return (float(err.max()) if err.numel() else 0.0), y1
 
 
+def _prepared_vs_plain(label, pp, a, b, dtype):
+    """The prepared apply (K7 on the plan's product list, the blocks as they
+    are) twice, bitwise equal, against the list walk's plain version within
+    tol(dtype) * (|A||B|), outputs with no product zero, and the kernel's
+    own count of the products it multiplied against ``prod_ptr[-1]``;
+    returns (max |kernel - plain|, products counted)."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_bsr
+
+    y1 = pt.bsr_smsmm_apply_slab(pp, a, b).blocks
+    torch.cuda.synchronize()
+    y2 = pt.bsr_smsmm_apply_slab(pp, a, b).blocks
+    torch.cuda.synchronize()
+    if not torch.equal(y1, y2):
+        raise AssertionError(f"{label}: two runs differ bitwise")
+    lst = (pp.prod_ptr, pp.prod_ab)
+    yp = cuda_bsr.slab_list_plain(*lst, a.blocks, b.blocks, out_dtype=dtype)
+    bound = cuda_bsr.slab_list_plain(*lst, a.blocks.abs().double(),
+                                     b.blocks.abs().double(),
+                                     out_dtype=torch.float64)
+    if y1.shape != yp.shape or y1.dtype != dtype \
+            or not torch.isfinite(y1).all() \
+            or y1[torch.diff(pp.prod_ptr) == 0].any():
+        raise AssertionError(f"{label}: {tuple(y1.shape)} {y1.dtype} vs "
+                             f"plain {tuple(yp.shape)}, non-finite, or an "
+                             "output with no product is not zero")
+    err = (y1.double() - yp.double()).abs()
+    worst = float((err - _slab_tol(dtype) * bound).max()) \
+        if err.numel() else 0.0
+    if worst > 0:
+        raise AssertionError(f"{label}: error exceeds {_slab_tol(dtype)} * "
+                             f"|A||B| by {worst:.3e}")
+    issued = cuda_bsr.bsr_slab_issued(*lst, a.blocks, b.blocks,
+                                      out_dtype=dtype)
+    model = cuda_bsr.bsr_slab_issued_model(pp.prod_ptr)
+    if issued != model:
+        raise AssertionError(f"{label}: the kernel multiplied {issued} "
+                             f"products, the list holds {model}")
+    return (float(err.max()) if err.numel() else 0.0), issued
+
+
 def phase10_slab_kernel_vs_plain():
-    """K7 against its plain version on the card: bsz 8/16/32/64, float32,
+    """K7 against its plain versions on the card: bsz 8/16/32/64, float32,
     float64 and bf16, unpaired and paired schedules (odd and even A block
-    counts), a plan split into several reference chunks, an empty product
-    set, and the gradient's two schedules (dA, dB); each case twice for
-    bitwise repeatability."""
+    counts), the raw route (a list with the pads, built per call) and the
+    prepared route (the plan's list, with the kernel's product count), a
+    plan split into several reference chunks, one output of 40 products,
+    an empty product set, and the gradient's two schedules (dA, dB); each
+    case twice for bitwise repeatability."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_bsr
 
@@ -1626,8 +1720,10 @@ def phase10_slab_kernel_vs_plain():
         label = (f"K7 bsz={bsz} {str(dt)[6:]} paired={paired} A blocks "
                  f"{a.nbz} products {plan.n_products} g={pp.g} p={pp.p}")
         err, _ = _slab_vs_plain(label, pp, z1, z2, dt)
-        print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
-              "repeatable", flush=True)
+        err_p, issued = _prepared_vs_plain(f"{label} prepared", pp, a, b, dt)
+        print(f"   {label}: max|kernel-plain| {err:.3e} raw route (slots, "
+              f"pads kept), {err_p:.3e} prepared (the plan's list, "
+              f"{issued} products counted); bitwise repeatable", flush=True)
     # several reference chunks: the step cap lowered to 256 at g = 2
     a = _rand_bsr(60, 8, 0.1, f32, rng)
     plan = pt.bsr_smsmm_prepare(a, a)
@@ -1641,8 +1737,22 @@ def phase10_slab_kernel_vs_plain():
         raise AssertionError(f"K7 chunked: {len(pp.chunks)} chunks")
     z = cuda_bsr._append_zero(a.blocks, f32)
     err, _ = _slab_vs_plain("K7 chunked", pp, z, z, f32)
+    err_p, _ = _prepared_vs_plain("K7 chunked prepared", pp, a, a, f32)
     print(f"   K7 plan in {len(pp.chunks)} reference chunks: max|kernel-"
-          f"plain| {err:.3e}; bitwise repeatable", flush=True)
+          f"plain| {err:.3e} raw, {err_p:.3e} prepared; bitwise repeatable",
+          flush=True)
+    # one output block of 40 products: a block row times a block column
+    r40 = torch.arange(40, dtype=torch.int32, device="cuda")
+    blk = torch.from_numpy(rng.standard_normal((2, 40, 32, 32))).float()
+    a = pt.BSR(indices=r40, blocks=blk[0].cuda(), n=40 * 32, bsz=32)
+    b = pt.BSR(indices=r40 * 40, blocks=blk[1].cuda(), n=40 * 32, bsz=32)
+    pp = pt.bsr_smsmm_slab_prepare(pt.bsr_smsmm_prepare(a, b), 40, 40)
+    err_p, issued = _prepared_vs_plain("K7 one output", pp, a, b, f32)
+    if pp.nbz_out != 1 or issued != 40:
+        raise AssertionError(f"K7 one output: {pp.nbz_out} outputs, "
+                             f"{issued} products")
+    print(f"   K7 one output of 40 products: max|kernel-plain| "
+          f"{err_p:.3e}; bitwise repeatable", flush=True)
     # no block product at all: one stored block at (0, 1), squared
     e = pt.BSR(indices=torch.tensor([1], dtype=torch.int32, device="cuda"),
                blocks=torch.ones(1, 32, 32, device="cuda"), n=64, bsz=32)
@@ -1805,12 +1915,13 @@ def phase11_spgemm_main_path():
 
 
 def phase12_slab_timing(card, m, launches):
-    """K7 against its plain version at the fixture's shapes (the prepared
-    plan, forward and the gradient's schedules), then timed in turns —
-    plain, kernel, kernel, plain — alone and back to back: the raw slab
-    apply, the prepared ``bsr_smsmm_apply_slab``, a 5-step chain and the
-    AD forward + backward; the host prepare and the one-shot ``spgemm``
-    separately."""
+    """K7 against its plain versions at the fixture's shapes (the prepared
+    plan's list with the kernel's product count, the raw route, the
+    gradient's schedules, the bf16 and float64 kinds), then timed in turns
+    — plain, kernel, kernel, plain — alone and back to back: K7 on the
+    plan's list, the prepared ``bsr_smsmm_apply_slab`` (also bf16 and
+    float64), the raw slab apply, a 5-step chain and the AD forward +
+    backward; the host prepare and the one-shot ``spgemm`` separately."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_bsr
     from sparse_tpu_torch.utils.precision import full_precision
@@ -1838,9 +1949,19 @@ def phase12_slab_timing(card, m, launches):
           f"{t_ad:.2f} s; F={F} block products, {plan.nbz_out} output "
           f"blocks", flush=True)
     z = cuda_bsr._append_zero(ab.blocks, torch.float32)
-    err, _ = _slab_vs_plain("K7 at the fixture", pp, z, z, torch.float32)
-    print(f"   K7 at the fixture: max|kernel-plain| {err:.3e} over all "
-          "output blocks; bitwise repeatable", flush=True)
+    err_raw, _ = _slab_vs_plain("K7 raw route at the fixture", pp, z, z,
+                                torch.float32)
+    err, issued = _prepared_vs_plain("K7 at the fixture", pp, ab, ab,
+                                     torch.float32)
+    if issued != F:
+        raise AssertionError(f"K7 at the fixture: {issued} products "
+                             f"multiplied, {F} in the product")
+    print(f"   K7 at the fixture: max|kernel-plain| {err:.3e} prepared "
+          f"(the plan's list), {err_raw:.3e} raw route, over all output "
+          f"blocks; bitwise repeatable; products multiplied {issued} (the "
+          f"kernel's count) = prod_ptr[-1] for {F} useful = "
+          f"{issued / F:.4f}x; the slot tables hold {pp.b_idx.numel()} "
+          "slots, pads included", flush=True)
     # the gradient's schedules at the fixture's shapes
     rng = torch.Generator(device="cuda").manual_seed(12)
     ct = torch.randn(plan.nbz_out, bsz, bsz, device="cuda", generator=rng)
@@ -1858,12 +1979,15 @@ def phase12_slab_timing(card, m, launches):
     # output block written once (tables and the zero pads left out)
     nbytes = (2 * F + plan.nbz_out) * bsz * bsz * 4
 
-    def kern():
-        return cuda_bsr.run_slabs_arrays(*args, **kw,
-                                         slab_start=pp.slab_start)
+    lst = (pp.prod_ptr, pp.prod_ab)
+
+    def kern():  # K7 on the plan's list, through its launcher
+        return cuda_bsr._launch_list("K7", *lst, ab.blocks, ab.blocks, bsz,
+                                     torch.float32)
 
     def plain():
-        return cuda_bsr.run_slabs_arrays_plain(*args, **kw)
+        return cuda_bsr.slab_list_plain(*lst, ab.blocks, ab.blocks,
+                                        out_dtype=torch.float32)
 
     _, ms_p = _report_spmm("K7 plain", plain, flops, nbytes, card)
     _, ms_k = _report_spmm("K7 kernel", kern, flops, nbytes, card)
@@ -1871,6 +1995,28 @@ def phase12_slab_timing(card, m, launches):
     _report_spmm("K7 plain", plain, flops, nbytes, card)
     _report_spmm("bsr_smsmm_apply_slab", lambda: pt.bsr_smsmm_apply_slab(
         pp, ab, ab), flops, nbytes, card)
+    _report_spmm("run_slabs_arrays (raw)", lambda: cuda_bsr.run_slabs_arrays(
+        *args, **kw, slab_start=pp.slab_start), flops, nbytes, card)
+    kinds = {}
+    for dt in (torch.bfloat16, torch.float64):
+        x = pt.BSR(indices=ab.indices, blocks=ab.blocks.to(dt), n=ab.n,
+                   bsz=bsz)
+        kind, size = str(dt)[6:], x.blocks.element_size()
+        e, _ = _prepared_vs_plain(f"K7 {kind} at the fixture", pp, x, x, dt)
+        _, ms_dt = _report_spmm(f"bsr_smsmm_apply_slab {kind}",
+                                lambda: pt.bsr_smsmm_apply_slab(pp, x, x),
+                                flops, nbytes * size // 4, card)
+        # C = A A in this kind: A's blocks once, the output blocks once, at
+        # its element size; the flops at its peak
+        b_ms, b_by = bound_ms((ab.nbz + plan.nbz_out) * bsz * bsz * size,
+                              flops, dt)
+        print(f"   K7 {kind} at the fixture: max|kernel-plain| {e:.3e}; "
+              f"prepared apply {ms_dt:.4f} ms back to back, bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms_dt:.1%} of it [{card}]",
+              flush=True)
+        kinds[kind] = {"apply_ms": ms_dt, "bound_ms": b_ms, "bound_by": b_by,
+                       "max_abs_err": e}
+        del x
 
     def chain():
         for _ in range(5):
@@ -1925,7 +2071,10 @@ def phase12_slab_timing(card, m, launches):
     return kernel_entry("K7 bsr_slab", "sparse_tpu_torch/csrc/bsr_slab.cu",
                         "sparse_tpu/ops/pallas_bsr.py:467", launches, err,
                         ms_k, ms_p, cost, lib, call,
-                        library_ms_csr=csr_ms)
+                        library_ms_csr=csr_ms,
+                        issued_gflop=issued * 2 * bsz ** 3 / 1e9,
+                        useful_gflop=flops / 1e9, products_issued=issued,
+                        products_useful=F, **kinds)
 
 
 # -- slice 4: the K1 variants, K8, Matrix Market input, roofline -----------

@@ -37,7 +37,7 @@ _BUILD = _HERE / "_build"
 SOURCES = ("segtile_csr.cu", "segtile_mxu.cu", "segtile_block.cu",
            "bell_spmm.cu", "bell_banded.cu", "bsr_slab.cu")
 _HEADERS = ("segtile_common.cuh", "bell_common.cuh", "band_body.cuh",
-            "sm90_async.cuh")
+            "block_body.cuh", "sm90_async.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -62,8 +62,10 @@ _SIGNATURES = {
     # kind, blocks, cols, b, c, nb, Lb, bsz, k, stream
     "bell_fused": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
     "bell_block": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
-    # bell_fused's arguments, then the issued multiply-adds' counter
+    # bell_fused's (bell_block's) arguments, then the issued multiply-adds'
+    # counter
     "bell_fused_issued": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P, _P),
+    "bell_block_issued": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P, _P),
     # kind, tiles, start, b, c, ntiles, M, K, N, bsz, b_rows, stream
     "bell_banded": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P),
     # bell_banded's arguments, then the issued multiply-adds' counter
@@ -76,10 +78,9 @@ _SIGNATURES = {
     # bell_banded_t's arguments, then two counters: multiply-adds, tile bytes
     "bell_banded_t_issued": (_I, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL,
                              _LL, _P, _P),
-    # kind, z1, z2, a_idx, b_idx, oloc, slab_start, out, nbz_out, bsz, g, p,
-    # paired, vec, stream
-    "bsr_slab": (_I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _I, _I,
-                 _P),
+    # kind, z1, z2, prod_ptr, prod_ab, out, n_out, bsz, issued counter (or
+    # null), stream
+    "bsr_slab": (_I, _P, _P, _P, _P, _P, _LL, _LL, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -33,7 +33,14 @@
 // operand, so Inf or NaN in B opposite it gives the sparse product's
 // answer.
 //
-// K6, and K3's float64 and bf16x3 kinds, run the first body
+// K6's float32 and bf16 streams (bsz <= 64) run the persistent body of
+// block_body.cuh: thread blocks walk the output tiles (one block row x 128
+// columns) in order with a cp.async ring of stored blocks and operand
+// panels that runs across block rows, one vote per stored block (a padding
+// slot's zero block skips its panel and its multiply-adds), 8x8 float32
+// register tiles, bf16 on mma.sync; bell_block_issued counts the
+// multiply-adds the vote kept.  K6's float64 and bf16x3 kinds (and bsz
+// > 64), and K3's float64 and bf16x3 kinds, run the first body
 // (bell_common.cuh): one thread block owns one (block row, 64-column chunk
 // of k) and keeps its output in registers (4 x 4 per thread) across the
 // whole contraction; K3 stages the wide row in chunks of 16 contraction
@@ -42,6 +49,7 @@
 
 #include "band_body.cuh"
 #include "bell_common.cuh"
+#include "block_body.cuh"
 
 namespace {
 
@@ -159,6 +167,76 @@ cudaError_t launch_fused_band(const void* blocks, const void* cols,
   return cudaGetLastError();
 }
 
+// K6 for float32 and bf16 streams: blocks (nb, Lb, bsz, bsz), b (nb*bsz,
+// k) and C (nb*bsz, k) in the stream type T.
+template <typename T, int BK, bool VEC>
+__global__ void __launch_bounds__(bbody::kThreads)
+    block_tile_kernel(const T* __restrict__ blocks,
+                      const int* __restrict__ cols, const T* __restrict__ b,
+                      T* __restrict__ c, int nb, int Lb, int bsz, int k,
+                      unsigned long long* __restrict__ issued) {
+  bbody::run<T, BK, VEC>(blocks, cols, b, c, nb, Lb, bsz, k, issued);
+}
+
+template <typename T, int BK, bool VEC>
+cudaError_t launch_block_tiles(const void* blocks, const void* cols,
+                               const void* b, void* c, long long nb,
+                               long long Lb, long long bsz, long long k,
+                               unsigned long long* issued, void* stream) {
+  auto kern = block_tile_kernel<T, BK, VEC>;
+  constexpr int smem = bbody::Geo<T, BK>::kBytes;
+  cudaError_t rc = band::allow_smem<smem>(kern);
+  if (rc != cudaSuccess) return rc;
+  constexpr int threads = bbody::kThreads;
+  static int per_sm = 0;  // resident thread blocks per SM
+  if (per_sm == 0) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                       threads, smem);
+    if (rc != cudaSuccess) return rc;
+    if (per_sm < 1) per_sm = 1;
+  }
+  int dev = 0, sms = 0;
+  rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return rc;
+  const long long tiles = nb * ((bsz + bbody::kBM - 1) / bbody::kBM) *
+                          ((k + bbody::kBN - 1) / bbody::kBN);
+  const long long cap = static_cast<long long>(sms) * per_sm;
+  kern<<<static_cast<unsigned>(tiles < cap ? tiles : cap), threads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(blocks), static_cast<const int*>(cols),
+      static_cast<const T*>(b), static_cast<T*>(c), static_cast<int>(nb),
+      static_cast<int>(Lb), static_cast<int>(bsz), static_cast<int>(k),
+      issued);
+  return cudaGetLastError();
+}
+
+// The persistent K6 body's kinds, float32 and bf16, at bsz <= 64.
+template <typename T>
+cudaError_t launch_block_body(const void* blocks, const void* cols,
+                              const void* b, void* c, long long nb,
+                              long long Lb, long long bsz, long long k,
+                              unsigned long long* issued, void* stream) {
+  constexpr long long kMax = 0x7fffffffLL;
+  if (nb <= 0 || Lb <= 0 || bsz <= 0 || k <= 0) return cudaSuccess;
+  // 32-bit index math inside a block row's output and the step count
+  if (bsz > 64 || bsz * k > kMax || nb * Lb * 2 * ((k + 127) / 128) > kMax)
+    return cudaErrorInvalidValue;
+  constexpr long long V = 16 / sizeof(T);
+  const bool vec = bsz % V == 0 && k % V == 0 && band::aligned16(blocks) &&
+                   band::aligned16(b) && band::aligned16(c);
+  if (bsz <= 32)
+    return vec ? launch_block_tiles<T, 32, true>(blocks, cols, b, c, nb, Lb,
+                                                 bsz, k, issued, stream)
+               : launch_block_tiles<T, 32, false>(blocks, cols, b, c, nb, Lb,
+                                                  bsz, k, issued, stream);
+  return vec ? launch_block_tiles<T, 64, true>(blocks, cols, b, c, nb, Lb,
+                                               bsz, k, issued, stream)
+             : launch_block_tiles<T, 64, false>(blocks, cols, b, c, nb, Lb,
+                                                bsz, k, issued, stream);
+}
+
 template <typename T, bool SPLIT, bool FUSED>
 cudaError_t launch(const void* blocks, const void* cols, const void* b,
                    void* c, long long nb, long long Lb, long long bsz,
@@ -177,7 +255,8 @@ cudaError_t launch(const void* blocks, const void* cols, const void* b,
   return cudaGetLastError();
 }
 
-// The first body's kinds: all four for K6, float64 and bf16x3 for K3.
+// The first body's kinds: all four for K6 (float32 and bf16 only past
+// bsz 64), float64 and bf16x3 for K3.
 template <bool FUSED>
 int dispatch(int kind, const void* blocks, const void* cols, const void* b,
              void* c, long long nb, long long Lb, long long bsz, long long k,
@@ -210,10 +289,10 @@ extern "C" {
 
 // kind: 0 float32, 1 float32 with the bf16x3 split, 2 bf16 stream, 3
 // float64.  blocks (nb, Lb, bsz, bsz) and b (nb*bsz, k) in the stream type,
-// cols (nb, Lb) int32, C (nb*bsz, k) in float32 (float64 for kind 3).
-// K3's float32 and bf16 kinds run the band body, the others and K6 the
-// first body.  Returns cudaGetLastError() after the launch, or the error of
-// a shape the kernel cannot index.
+// cols (nb, Lb) int32, C (nb*bsz, k) in float32 (float64 for kind 3, bf16
+// for K6's kind 2 at bsz <= 64).  K3's float32 and bf16 kinds run the band
+// body, the others the first body.  Returns cudaGetLastError() after the
+// launch, or the error of a shape the kernel cannot index.
 int bell_fused(int kind, const void* blocks, const void* cols, const void* b,
                void* c, long long nb, long long Lb, long long bsz,
                long long k, void* stream) {
@@ -250,10 +329,44 @@ int bell_fused_issued(int kind, const void* blocks, const void* cols,
   }
 }
 
+// K6.  The float32 and bf16 kinds at bsz <= 64 run the persistent body,
+// the others the first body.  The persistent body's bf16 kind writes a
+// bf16 C (the result's dtype), the first body's float32.
 int bell_block(int kind, const void* blocks, const void* cols, const void* b,
                void* c, long long nb, long long Lb, long long bsz,
                long long k, void* stream) {
+  if (bsz <= 64) {
+    if (kind == kF32)
+      return launch_block_body<float>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                      nullptr, stream);
+    if (kind == kBF16)
+      return launch_block_body<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
+                                              bsz, k, nullptr, stream);
+  }
   return dispatch<false>(kind, blocks, cols, b, c, nb, Lb, bsz, k, stream);
+}
+
+// bell_block for the float32 and bf16 kinds at bsz <= 64 (C in the stream
+// type; others return cudaErrorInvalidValue), also adding to *issued (on
+// the card, zeroed by the caller) the multiply-adds the persistent body's
+// vote kept: rows x bsz x columns of a tile for each stored block it kept
+// there.
+int bell_block_issued(int kind, const void* blocks, const void* cols,
+                      const void* b, void* c, long long nb, long long Lb,
+                      long long bsz, long long k, void* issued,
+                      void* stream) {
+  auto* count = static_cast<unsigned long long*>(issued);
+  if (bsz > 64) return cudaErrorInvalidValue;
+  switch (kind) {
+    case kF32:
+      return launch_block_body<float>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                      count, stream);
+    case kBF16:
+      return launch_block_body<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
+                                              bsz, k, count, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,0 +1,457 @@
+// K6's float32 / bf16 body (bell_spmm.cu): C[r] (bsz, k) = sum over the
+// stored slots l of block row r of blocks[r, l] (bsz, bsz) @ the operand
+// panel B[cols[r, l]*bsz : +bsz] (bsz, k), one stored block at a time, as
+// sparse_tpu/ops/pallas_bell.py::bell_spmm_pallas (def :58, pallas_call
+// :89, kernel :41-55) steps its grid.
+//
+// Output tiles: one block row's 32 rows (a row group; bsz > 32 gives two)
+// by 128 columns (k > 128 gives more), column tiles fastest.  A thread block
+// of two warps is persistent: it walks the tiles blockIdx.x, + gridDim.x,
+// ... in order, so the blocks running at one time work on neighbouring
+// block rows and share their operand panels in L2.  Its steps are the
+// (tile, stored slot) pairs of those tiles, one after the other, and a
+// cp.async ring runs across tile boundaries: the stored block's rows of the
+// tile (A) kAhead steps ahead, the operand panel (B) kVote steps ahead, so
+// the next block row's first block and panel are in flight while a tile's
+// last block multiplies and its output is stored.  Once a step's A has
+// landed the block takes one vote (__syncthreads_or on magnitude bits, the
+// loop's only barrier, as band_body.cuh votes): a zero block (a padding
+// slot) skips its panel copy and its multiply-adds; NaN counts as non-zero,
+// -0 does not.  Float32: each thread keeps an 8x8 register tile (rows
+// r + 4q, columns 4c .. 4c+3 and 64 + 4c .. +3: 64 FMAs per four 16-byte
+// shared loads, conflict-free), in full float32.  bf16 (A and B bf16, sums
+// float32): each warp a 32 x 64 piece on mma.sync m16n8k16 from ldmatrix
+// fragments, the sums rounded to bf16 once as they are stored.  Each
+// output is written once, in the result type (float32, or bf16), after its
+// tile's fixed-order loop, with 16-byte streaming stores (__stcs; the mma
+// layout's bf16 pairs are traded within each lane quad into 16-byte runs).
+// The block's column ids are read one step before their panel copy needs
+// them.
+// With a counter, each thread block adds rows x bsz x columns of its tile
+// for every step its vote kept: bsz * bsz * k per kept stored block at
+// bsz <= 32.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "sm90_async.cuh"
+
+namespace bbody {
+
+constexpr int kBM = 32;       // output rows of a tile
+constexpr int kBN = 128;      // output columns of a tile
+constexpr int kThreads = 64;  // two warps
+
+template <typename T>
+struct Cfg;
+template <>
+struct Cfg<float> {
+  using Bits = unsigned;
+  using Acc = float[8][8];
+  static constexpr unsigned kWord = 0x7fffffffu;  // magnitude bits
+  static constexpr int kPadA = 4, kPadB = 0;
+  static constexpr int kVote = 1, kAhead = 2;
+};
+template <>
+struct Cfg<__nv_bfloat16> {
+  using Bits = unsigned short;
+  using Acc = float[2][8][4];  // per warp 2 m16 x 8 n8 mma tiles
+  static constexpr unsigned kWord = 0x7fff7fffu;
+  static constexpr int kPadA = 8, kPadB = 8;  // ldmatrix without conflicts
+  static constexpr int kVote = 2, kAhead = 3;  // the multiply is short
+};
+
+// BK: a step's contraction (the stored block's columns), 32 or 64.
+template <typename T, int BK>
+struct Geo {
+  static constexpr int PA = BK + Cfg<T>::kPadA, PB = kBN + Cfg<T>::kPadB;
+  static constexpr int kAStages = Cfg<T>::kAhead + 2;
+  static constexpr int kBStages = Cfg<T>::kVote + 1;
+  static constexpr int kAStage = kBM * PA, kBStage = BK * PB;
+  static constexpr int kBytes =
+      (kAStages * kAStage + kBStages * kBStage) * static_cast<int>(sizeof(T));
+};
+
+// Where a step lies: stored slot l of tile t = (block row r, row group at
+// m0, column tile at n0).  A thread block walks the tiles blockIdx.x,
+// + gridDim.x, ..., Lb steps each; a cursor follows one position of the
+// pipeline through them, dividing once per tile.
+struct Cursor {
+  int l, t, r, m0, n0;
+  __device__ __forceinline__ void decode(int m_groups, int n_tiles) {
+    n0 = (t % n_tiles) * kBN;
+    const int rest = t / n_tiles;
+    m0 = (rest % m_groups) * kBM;
+    r = rest / m_groups;
+  }
+  __device__ __forceinline__ void start(int m_groups, int n_tiles) {
+    l = 0;
+    t = blockIdx.x;
+    decode(m_groups, n_tiles);
+  }
+  __device__ __forceinline__ void next(int Lb, int m_groups, int n_tiles) {
+    if (++l == Lb) {
+      l = 0;
+      t += gridDim.x;
+      decode(m_groups, n_tiles);
+    }
+  }
+};
+
+// A: rows m0 .. m0+31 of the stored block (bsz x bsz at blk), all bsz
+// columns, into a (32 x BK) stage; rows and columns past bsz are zero.
+template <typename T, int BK, bool VEC>
+__device__ __forceinline__ void load_a(T* sa, const T* blk, int bsz, int m0) {
+  using G = Geo<T, BK>;
+  const int tid = threadIdx.x;
+  if constexpr (VEC) {
+    constexpr int V = 16 / sizeof(T), kRow = BK / V;
+#pragma unroll
+    for (int s = 0; s < kBM * kRow / kThreads; ++s) {
+      const int e = tid + s * kThreads;
+      const int i = e / kRow, c = (e % kRow) * V;
+      const int gi = m0 + i;
+      const bool ok = gi < bsz && c < bsz;
+      sm90::cp_async16(sa + i * G::PA + c, ok ? blk + gi * bsz + c : blk, ok);
+    }
+  } else {
+    using B = typename Cfg<T>::Bits;
+    B* dst = reinterpret_cast<B*>(sa);
+    const B* src = reinterpret_cast<const B*>(blk);
+#pragma unroll 4
+    for (int s = 0; s < kBM * BK / kThreads; ++s) {
+      const int e = tid + s * kThreads;
+      const int i = e / BK, c = e % BK;
+      const int gi = m0 + i;
+      dst[i * G::PA + c] = (gi < bsz && c < bsz) ? src[gi * bsz + c] : B(0);
+    }
+  }
+}
+
+// Whether any element this thread copied by load_a is non-zero (NaN is).
+template <typename T, int BK, bool VEC>
+__device__ __forceinline__ bool mine_nonzero(const T* sa) {
+  using G = Geo<T, BK>;
+  const int tid = threadIdx.x;
+  unsigned any = 0;
+  if constexpr (VEC) {
+    constexpr int V = 16 / sizeof(T), kRow = BK / V;
+#pragma unroll
+    for (int s = 0; s < kBM * kRow / kThreads; ++s) {
+      const int e = tid + s * kThreads;
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          sa + (e / kRow) * G::PA + (e % kRow) * V);
+      any |= (w.x | w.y | w.z | w.w) & Cfg<T>::kWord;
+    }
+  } else {
+    using B = typename Cfg<T>::Bits;
+    const B* src = reinterpret_cast<const B*>(sa);
+#pragma unroll 4
+    for (int s = 0; s < kBM * BK / kThreads; ++s) {
+      const int e = tid + s * kThreads;
+      any |= src[(e / BK) * G::PA + e % BK] & Cfg<T>::kWord;
+    }
+  }
+  return any != 0;
+}
+
+// B: panel rows 0 .. BK-1 (rows past bsz read 0) at panel (row-major,
+// leading dimension k), columns n0 .. n0+127 (past k read 0), into a stage.
+template <typename T, int BK, bool VEC>
+__device__ __forceinline__ void load_b(T* sb, const T* panel, int bsz, int k,
+                                       int n0) {
+  using G = Geo<T, BK>;
+  const int tid = threadIdx.x;
+  if constexpr (VEC) {
+    constexpr int V = 16 / sizeof(T), kRow = kBN / V;
+#pragma unroll
+    for (int s = 0; s < BK * kRow / kThreads; ++s) {
+      const int e = tid + s * kThreads;
+      const int j = e / kRow, c = (e % kRow) * V;
+      const bool ok = j < bsz && n0 + c < k;
+      sm90::cp_async16(sb + j * G::PB + c,
+                       ok ? panel + static_cast<long long>(j) * k + n0 + c
+                          : panel,
+                       ok);
+    }
+  } else {
+    using B = typename Cfg<T>::Bits;
+    B* dst = reinterpret_cast<B*>(sb);
+    const int lane = tid % 32;
+#pragma unroll 2
+    for (int j = tid / 32; j < BK; j += kThreads / 32) {
+      const bool row_ok = j < bsz;
+      const B* src = reinterpret_cast<const B*>(
+          panel + (row_ok ? static_cast<long long>(j) * k : 0));
+#pragma unroll
+      for (int c = lane; c < kBN; c += 32)
+        dst[j * G::PB + c] = (row_ok && n0 + c < k) ? src[n0 + c] : B(0);
+    }
+  }
+}
+
+// acc += A stage (32 x BK) @ B stage (BK x 128), float32: thread t owns
+// rows r + 4q (r = t / 16) and columns 4c .. 4c+3, 64 + 4c .. (c = t % 16).
+template <int BK>
+__device__ __forceinline__ void mma_step(const float* sa, const float* sb,
+                                         float (&acc)[8][8]) {
+  using G = Geo<float, BK>;
+  const float* pa = sa + (threadIdx.x / 16) * G::PA;
+  const float* pb = sb + (threadIdx.x % 16) * 4;
+#pragma unroll
+  for (int kq = 0; kq < BK; kq += 4) {
+    float4 a[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      a[q] = *reinterpret_cast<const float4*>(pa + 4 * q * G::PA + kq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(pb + (kq + kk) * G::PB);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(pb + (kq + kk) * G::PB + 64);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float x = kk == 0 ? a[q].x : kk == 1 ? a[q].y
+                      : kk == 2 ? a[q].z : a[q].w;
+        acc[q][0] = fmaf(x, b0.x, acc[q][0]);
+        acc[q][1] = fmaf(x, b0.y, acc[q][1]);
+        acc[q][2] = fmaf(x, b0.z, acc[q][2]);
+        acc[q][3] = fmaf(x, b0.w, acc[q][3]);
+        acc[q][4] = fmaf(x, b1.x, acc[q][4]);
+        acc[q][5] = fmaf(x, b1.y, acc[q][5]);
+        acc[q][6] = fmaf(x, b1.z, acc[q][6]);
+        acc[q][7] = fmaf(x, b1.w, acc[q][7]);
+      }
+    }
+  }
+}
+
+// The same for bf16 on the tensor cores: warp w owns all 32 rows and
+// columns 64w .. 64w+63, as 2 x 8 m16n8 tiles.
+template <int BK>
+__device__ __forceinline__ void mma_step(const __nv_bfloat16* sa,
+                                         const __nv_bfloat16* sb,
+                                         float (&acc)[2][8][4]) {
+  using G = Geo<__nv_bfloat16, BK>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 16) {
+    unsigned a[2][4], b[8][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      sm90::ldmatrix_x4(
+          a[mt], sa + (mt * 16 + lane % 16) * G::PA + ks + (lane / 16) * 8);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned r[4];
+      sm90::ldmatrix_x4_trans(
+          r, sb + (ks + (lane / 8) % 2 * 8 + lane % 8) * G::PB + warp * 64 +
+                 np * 16 + (lane / 16) * 8);
+      b[2 * np][0] = r[0];
+      b[2 * np][1] = r[1];
+      b[2 * np + 1][0] = r[2];
+      b[2 * np + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        sm90::mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+__device__ __forceinline__ void zero(float (&acc)[2][8][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+}
+
+// C rows m0 + . (< M) and columns n0 + . (< N) of one block row's output
+// (row-major, leading dimension N) from the register tile.
+template <bool VEC>
+__device__ __forceinline__ void store(const float (&acc)[8][8], float* c,
+                                      int M, int N, int m0, int n0) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int gi = m0 + t / 16 + 4 * q;
+    if (gi >= M) continue;
+    float* row = c + static_cast<long long>(gi) * N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gn = n0 + h * 64 + (t % 16) * 4;
+      const float* v = &acc[q][4 * h];
+      if constexpr (VEC) {
+        if (gn < N)
+          __stcs(reinterpret_cast<float4*>(row + gn),
+                 make_float4(v[0], v[1], v[2], v[3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gn + j < N) __stcs(row + gn + j, v[j]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned pick(const unsigned (&w)[4], int i) {
+  return i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
+}
+
+// The bf16 result from the mma layout: lane l holds columns 8nt + 2(l%4)
+// .. +1 of rows 16mt + l/4 (+8), rounded once to a bf16 pair.  Aligned:
+// for each group of four n-tiles, the four lanes of a quad trade their
+// pairs (a 4 x 4 transpose by shuffles), so lane q holds n-tile 4g + q's
+// eight columns and writes them as one 16-byte store.
+template <bool VEC>
+__device__ __forceinline__ void store(const float (&acc)[2][8][4],
+                                      __nv_bfloat16* c, int M, int N, int m0,
+                                      int n0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q = lane & 3, quad = lane & ~3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gi = m0 + mt * 16 + lane / 4 + h * 8;
+      __nv_bfloat16* row = c + static_cast<long long>(gi) * N;
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        const int col0 = n0 + warp * 64 + g * 32;
+        if constexpr (VEC) {
+          unsigned w[4], got[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const __nv_bfloat162 p = __floats2bfloat162_rn(
+                acc[mt][4 * g + i][2 * h], acc[mt][4 * g + i][2 * h + 1]);
+            w[i] = *reinterpret_cast<const unsigned*>(&p);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            // lane q receives from lane (q - j) & 3 that lane's pair of
+            // n-tile q
+            const int src = (q - j) & 3;
+            const unsigned v =
+                __shfl_sync(0xffffffffu, pick(w, (q + j) & 3), quad + src);
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+              if (src == s) got[s] = v;
+          }
+          const int gn = col0 + q * 8;
+          if (gi < M && gn < N)
+            __stcs(reinterpret_cast<uint4*>(row + gn),
+                   make_uint4(got[0], got[1], got[2], got[3]));
+        } else if (gi < M) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int gn = col0 + i * 8 + 2 * q + e;
+              if (gn < N)
+                row[gn] = __float2bfloat16_rn(acc[mt][4 * g + i][2 * h + e]);
+            }
+        }
+      }
+    }
+}
+
+// The persistent body.  blocks (nb, Lb, bsz, bsz), cols (nb, Lb), b
+// (nb*bsz, k) and c (nb*bsz, k) in T.  Needs Geo<T, BK>::kBytes of
+// dynamic shared memory.
+template <typename T, int BK, bool VEC>
+__device__ __forceinline__ void run(const T* __restrict__ blocks,
+                                    const int* __restrict__ cols,
+                                    const T* __restrict__ b,
+                                    T* __restrict__ c, int nb, int Lb,
+                                    int bsz, int k,
+                                    unsigned long long* issued) {
+  using Cf = Cfg<T>;
+  using G = Geo<T, BK>;
+  constexpr int kVote = Cf::kVote, kAhead = Cf::kAhead;
+  static_assert(kAhead - kVote == 1, "column ids are read one step ahead");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sa = reinterpret_cast<T*>(smem);
+  T* sb = sa + G::kAStages * G::kAStage;
+  const int m_groups = (bsz + kBM - 1) / kBM, n_tiles = (k + kBN - 1) / kBN;
+  const int tiles = nb * m_groups * n_tiles;  // the launcher checks the range
+  if (static_cast<int>(blockIdx.x) >= tiles) return;
+  const int nc = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * Lb;
+  const long long bsz2 = static_cast<long long>(bsz) * bsz;
+  auto stage_a = [&](int s) { return sa + (s % G::kAStages) * G::kAStage; };
+  auto stage_b = [&](int s) { return sb + (s % G::kBStages) * G::kBStage; };
+  // Step it copies A(it + kAhead) and reads its column id, votes on step
+  // it + kVote and copies its B, multiplies step it, and stores a tile
+  // after its last step.  Each thread commits two cp.async groups per step,
+  // A's then B's (empty where there is nothing to copy), so the wait before
+  // a vote leaves in flight only what is younger than A(it + kVote) and
+  // B(it).
+  constexpr int kWait = 2 * (kAhead - kVote) < 2 * kVote - 1
+                            ? 2 * (kAhead - kVote) : 2 * kVote - 1;
+  Cursor ca, cv, cm;  // the steps copied, voted on and multiplied
+  ca.start(m_groups, n_tiles);
+  cv.start(m_groups, n_tiles);
+  cm.start(m_groups, n_tiles);
+  typename Cf::Acc acc;
+  zero(acc);
+  unsigned nzq = 0;              // bit i: step it + i is non-zero
+  unsigned long long madds = 0;  // multiply-adds the vote kept
+  int col_vote = 0;              // column id of step it + kVote
+  for (int it = -kAhead; it < nc; ++it) {
+    // stage (it + kAhead) % kAStages was last read by step it - 2, before
+    // the last barrier; B's stage by step it - 1, before this step's one
+    int col_new = 0;
+    if (it + kAhead < nc) {
+      const long long slot = static_cast<long long>(ca.r) * Lb + ca.l;
+      col_new = __ldg(cols + slot);
+      load_a<T, BK, VEC>(stage_a(it + kAhead), blocks + slot * bsz2, bsz,
+                         ca.m0);
+      ca.next(Lb, m_groups, n_tiles);
+    }
+    sm90::cp_async_commit();
+    if (it + kVote >= 0) {
+      sm90::cp_async_wait<kWait>();
+      const bool live = it + kVote < nc;
+      const bool nz = __syncthreads_or(
+          live && mine_nonzero<T, BK, VEC>(stage_a(it + kVote)));
+      if (nz) {
+        load_b<T, BK, VEC>(stage_b(it + kVote),
+                           b + static_cast<long long>(col_vote) * bsz * k,
+                           bsz, k, cv.n0);
+        const int rows = bsz - cv.m0 < kBM ? bsz - cv.m0 : kBM;
+        const int cols_n = k - cv.n0 < kBN ? k - cv.n0 : kBN;
+        madds += static_cast<unsigned long long>(rows) * bsz * cols_n;
+      }
+      nzq |= static_cast<unsigned>(nz) << kVote;
+      cv.next(Lb, m_groups, n_tiles);
+    }
+    sm90::cp_async_commit();
+    col_vote = col_new;
+    if (it >= 0) {
+      if (nzq & 1u) mma_step<BK>(stage_a(it), stage_b(it), acc);
+      if (cm.l == Lb - 1) {  // the tile's last stored block
+        store<VEC>(acc, c + static_cast<long long>(cm.r) * bsz * k, bsz, k,
+                   cm.m0, cm.n0);
+        zero(acc);
+      }
+      cm.next(Lb, m_groups, n_tiles);
+    }
+    nzq >>= 1;
+  }
+  sm90::cp_async_wait<0>();
+  if (issued != nullptr && threadIdx.x == 0 && madds > 0)
+    atomicAdd(issued, madds);
+}
+
+}  // namespace bbody

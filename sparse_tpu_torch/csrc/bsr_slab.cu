@@ -1,71 +1,225 @@
-// K7: block-SpGEMM slab apply on Hopper, C[o] = sum over the schedule's
-// slots aimed at output block o of Z1[a] @ Z2[b], in slot order.
+// K7: block-SpGEMM slab apply on Hopper, C[o] = sum of Z1[a] @ Z2[b] over
+// the products (a, b) aimed at output block o, in list order.
 //
 // Replaces the TPU kernel in sparse_tpu/ops/pallas_bsr.py::run_slabs_arrays
-// (def :467, pallas_call :562, kernel :486), both table layouts:
-//   unpaired  slot i of step t reads Z1[a_idx[t*g + i]] and Z2[b_idx[t*g+i]]
-//             and adds into row oloc[t*g + i] of its slab;
-//   paired    a_idx holds (S*g/2) two-block windows: slot i reads
-//             Z1[2*a_idx[(t*g + i)/2] + (oloc & 1)], its row is oloc >> 1.
-// Slab s (p output blocks, global ids s*p .. s*p+p-1) owns the steps
-// [slab_start[s], slab_start[s+1]).  Pad slots read zero blocks and add
-// exact zeros.  Z1, Z2 (., bsz, bsz) and C (nbz_out, bsz, bsz) row-major.
+// (def :467, pallas_call :562, kernel :486-518).  The TPU walks slab
+// schedules (per step, g slots of an A slot, a B slot and a row within a
+// p-block slab; pads read zero blocks).  Here the schedule is first turned
+// into a product list (ops/cuda_bsr.py: built once per plan, or per call
+// on the device for the raw-array route): prod_ptr (n_out+1) gives each
+// output block's first product and prod_ab (F, 2) each product's A slot
+// and B slot, in slot order within its output block.
 //
-// What bounds it on this card: a product is 2*bsz^3 flops against two
-// bsz^2 blocks, and every output block is written once; at bsz 32 in float32
-// that is 64 KFLOP per 8 KB of operands, which mostly come from the 50 MB
-// L2 (each stored block feeds ~10 products on a banded pattern), so the
-// inner product runs on the CUDA cores at the rate shared memory feeds them
-// (full float32 is the contract: no TF32, no tensor cores), and the C write
-// (bsz^2 per output block) is the one stream that must reach device memory.
+// What bounds it on this card: at bsz 32 in float32 a product is 64 KFLOP
+// against two 4 KB blocks that mostly come from the 50 MB L2 (each stored
+// block feeds ~10 products), and every output block (4 KB) is written once
+// to device memory.  At the SpGEMM fixture both bounds sit near 0.19 ms:
+// 11.9 GFLOP on the CUDA cores (full float32 is the contract: no TF32) and
+// a 570 MB output stream.  Three quarters of its outputs have one product.
 //
-// What the design does about it: the TPU kernel zeroed a 128-block slab in
-// VMEM and read-modify-wrote it once per product, in a grid that runs in
-// order.  Here one thread block owns ONE output block: it scans its slab's
-// slots in order (a block-wide ballot keeps the ones aimed at its row, in
-// slot order), stages each product's A and B blocks in shared memory with
-// coalesced 16-byte loads, and keeps its bsz^2 sums in registers across all
-// its products.  It writes its block once, through shared memory so the
-// store is coalesced; a block with no product writes zeros (the TPU's
-// `first` zeroing, so C needs no memset).  No atomics, no second pass: the
-// result is bitwise repeatable.  Register tile: lane = output row (lane +
-// 32*rm), warp = 8 output columns; per contraction step a thread reads its
-// A element (rows padded to an odd stride: no bank conflict) and 8 B values
-// as broadcast 16-byte loads, for 8 FMAs per row.
+// What the design does about it: persistent teams (one warp per output
+// block for bsz <= 32, four warps for bsz <= 64), about (SMs x teams per
+// SM) of them.  The list is cut into kPieces ranges of output blocks per
+// team, balanced by products plus one per output (binary searches of
+// prod_ptr at the start); a team walks its kPieces ranges in turn, so the
+// teams running at one time work on one stretch of the output and meet
+// the factor blocks it needs in L2 (one contiguous range per team spread
+// them over the whole output: 0.55 ms against 0.39 at the fixture on an
+// H100, PERF.md).  A team keeps a ring of product stages
+// (A block | B block) in shared memory, filled by 16-byte cp.async
+// kStages-1 products ahead ACROSS output blocks and pieces, so copies stay
+// in flight while an output with one product multiplies and is stored.
+// One barrier per product (the team's).  Float32 and float64: each lane
+// keeps an 8x4 tile of a 32 x 32 output (rows r + 4q, so the padded A rows
+// give conflict-free 16-byte loads; B rows are broadcast 16-byte loads).
+// bf16: mma.sync m16n8k16 from ldmatrix fragments, float32 sums rounded
+// once.  Each output block is written once, from registers, with 16-byte
+// streaming stores (__stcs) so the output stream does not push factor
+// blocks out of L2; an output with no product
+// is written as zeros.  Products are summed in list order, no atomics on
+// the output: two runs are bitwise equal.  Block sizes that are not 8, 16,
+// 32 or 64 (or unaligned pointers) take element copies into a zero-padded
+// stage and guarded element stores.  With a counter, each team adds the
+// products it multiplied.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "sm90_async.cuh"
+
 namespace {
 
 // Element types of the C entry point.
 enum Kind { kF32 = 0, kBF16 = 2, kF64 = 3 };
 
-constexpr int kMaxBsz = 64;
-constexpr int kCols = 8;  // output columns per warp
+constexpr int kThreads = 128;  // four warps per thread block
+constexpr int kPieces = 8;     // output ranges per team
+constexpr unsigned kFull = 0xffffffffu;
 
+// Per element type: ring depth, and the row padding of the staged A and B
+// blocks (elements).
 template <typename T>
-struct AccOf {
-  using type = float;
+struct Cfg;
+template <>
+struct Cfg<float> {
+  static constexpr int kStages = 3, kPadA = 4, kPadB = 0;
 };
 template <>
-struct AccOf<double> {
-  using type = double;
+struct Cfg<double> {
+  static constexpr int kStages = 2, kPadA = 4, kPadB = 0;
+};
+template <>
+struct Cfg<__nv_bfloat16> {
+  static constexpr int kStages = 3, kPadA = 8, kPadB = 8;  // ldmatrix rows
 };
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ double widen(double x) { return x; }
+// BS: the block size padded to 8, 16, 32 or 64.  A team is one warp (one
+// 32 x 32 tile) for BS <= 32, four warps (a 2 x 2 grid of tiles) for 64.
+template <typename T, int BS>
+struct Geo {
+  static constexpr int W = BS > 32 ? 4 : 1;
+  static constexpr int kTeams = kThreads / (32 * W);
+  static constexpr int TS = BS > 32 ? 32 : BS;  // a warp's tile side
+  static constexpr int PA = BS + Cfg<T>::kPadA, PB = BS + Cfg<T>::kPadB;
+  static constexpr int kStage = BS * PA + BS * PB;  // elements
+  static constexpr int kStages = Cfg<T>::kStages;
+  static constexpr int kTeamElems = kStages * kStage;
+  static constexpr int kBytes =
+      kTeams * kTeamElems * static_cast<int>(sizeof(T));
+};
 
-__device__ __forceinline__ void narrow(float x, float* p) { *p = x; }
-__device__ __forceinline__ void narrow(float x, __nv_bfloat16* p) {
-  *p = __float2bfloat16_rn(x);
+template <int W>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (W == 1)
+    __syncwarp();
+  else
+    __syncthreads();  // a four-warp team is the whole thread block
 }
-__device__ __forceinline__ void narrow(double x, double* p) { *p = x; }
+
+// Smallest o in [0, n] with prod_ptr[o] + o >= t (prod_ptr[n] + n is the
+// total), for two targets t1 and t2 at once: one binary search each, their
+// loads side by side.
+__device__ __forceinline__ int2 find_starts(const int* __restrict__ prod_ptr,
+                                            int n, long long t1,
+                                            long long t2) {
+  int lo1 = 0, hi1 = n, lo2 = 0, hi2 = n;
+  while (lo1 < hi1 || lo2 < hi2) {
+    const int m1 = (lo1 + hi1) >> 1, m2 = (lo2 + hi2) >> 1;
+    if (lo1 < hi1) {
+      if (static_cast<long long>(__ldg(prod_ptr + m1)) + m1 >= t1)
+        hi1 = m1;
+      else
+        lo1 = m1 + 1;
+    }
+    if (lo2 < hi2) {
+      if (static_cast<long long>(__ldg(prod_ptr + m2)) + m2 >= t2)
+        hi2 = m2;
+      else
+        lo2 = m2 + 1;
+    }
+  }
+  return make_int2(lo1, lo2);
+}
+
+// src[i] for a warp walking i = start, start+1, ...: lane l holds
+// src[base + l] and src[base + 32 + l], so each value was asked for 32
+// steps before it is read.  Entries at or past n read 0.
+template <typename V>
+struct Ahead {
+  const V* src;
+  int n, base;
+  V cur, nxt;
+  __device__ __forceinline__ V ld(int i) const {
+    return i < n ? __ldg(src + i) : V{};
+  }
+  __device__ __forceinline__ void init(const V* s, int n_, int start,
+                                       int lane) {
+    src = s;
+    n = n_;
+    base = start;
+    cur = ld(base + lane);
+    nxt = ld(base + 32 + lane);
+  }
+  __device__ __forceinline__ V get(int i, int lane) {
+    if (i >= base + 32) {
+      base += 32;
+      cur = nxt;
+      nxt = ld(base + 32 + lane);
+    }
+    return shfl(cur, i - base);
+  }
+  __device__ __forceinline__ static int shfl(int v, int l) {
+    return __shfl_sync(kFull, v, l);
+  }
+  __device__ __forceinline__ static int2 shfl(int2 v, int l) {
+    return make_int2(__shfl_sync(kFull, v.x, l), __shfl_sync(kFull, v.y, l));
+  }
+};
+
+// -- copies --------------------------------------------------------------
+
+// One product's A block (rows pitch PA) and B block (pitch PB) into a
+// stage.  VEC (bsz == BS, 16-byte aligned): cp.async, 16 bytes a thread;
+// else element copies into the data region of a stage whose padding the
+// kernel zeroed once.
+template <typename T, int BS>
+__device__ __forceinline__ void copy_product(T* st, const T* __restrict__ a,
+                                             const T* __restrict__ b,
+                                             int bsz, bool vec, int tt) {
+  using G = Geo<T, BS>;
+  constexpr int TT = 32 * G::W;
+  T* sa = st;
+  T* sb = st + BS * G::PA;
+  if (vec) {
+    constexpr int V = 16 / static_cast<int>(sizeof(T)), CPR = BS / V;
+    constexpr int N = BS * CPR;
+#pragma unroll
+    for (int s = 0; s < (N + TT - 1) / TT; ++s) {
+      const int e = tt + s * TT;
+      if (N % TT == 0 || e < N) {
+        const int r = e / CPR, c = (e % CPR) * V;
+        sm90::cp_async16(sa + r * G::PA + c, a + r * BS + c, true);
+        sm90::cp_async16(sb + r * G::PB + c, b + r * BS + c, true);
+      }
+    }
+  } else {
+    for (int e = tt; e < bsz * bsz; e += TT) {
+      const int r = e / bsz, c = e - r * bsz;
+      sa[r * G::PA + c] = a[e];
+      sb[r * G::PB + c] = b[e];
+    }
+  }
+}
+
+// -- float32 / float64: 8x4 (BS 32, 64), 4x2 (16), 2x1 (8) lane tiles -------
+// Lane l: r = l / 8 owns rows R0 + r + 4q, c = l % 8 owns columns
+// C0 + c*TC .. +TC-1 of the warp's tile (R0, C0).
+
+template <typename S, int N>
+struct Vec {
+  S v[N];
+};
+
+template <typename S, int N>
+__device__ __forceinline__ Vec<S, N> lds(const S* p) {
+  Vec<S, N> r;
+  if constexpr (sizeof(S) * N >= 16) {
+    constexpr int P = 16 / static_cast<int>(sizeof(S));
+#pragma unroll
+    for (int i = 0; i < N; i += P) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p + i);
+      const S* s = reinterpret_cast<const S*>(&u);
+#pragma unroll
+      for (int j = 0; j < P; ++j) r.v[i + j] = s[j];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) r.v[i] = p[i];
+  }
+  return r;
+}
 
 __device__ __forceinline__ float mad(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -74,219 +228,352 @@ __device__ __forceinline__ double mad(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-// 8 consecutive values from 16-byte-aligned shared memory.
-__device__ __forceinline__ void lds8(const float* p, float (&r)[kCols]) {
-  const float4 u = reinterpret_cast<const float4*>(p)[0];
-  const float4 v = reinterpret_cast<const float4*>(p)[1];
-  r[0] = u.x; r[1] = u.y; r[2] = u.z; r[3] = u.w;
-  r[4] = v.x; r[5] = v.y; r[6] = v.z; r[7] = v.w;
-}
-__device__ __forceinline__ void lds8(const double* p, double (&r)[kCols]) {
-#pragma unroll
-  for (int q = 0; q < kCols / 2; ++q) {
-    const double2 u = reinterpret_cast<const double2*>(p)[q];
-    r[2 * q] = u.x;
-    r[2 * q + 1] = u.y;
-  }
-}
+template <typename S, int BS>
+struct FmaTile {
+  using G = Geo<S, BS>;
+  static constexpr int TR = G::TS / 4, TC = G::TS / 8;
+  S acc[TR][TC];
 
-// Layout of one thread block's dynamic shared memory, in elements of S:
-// As (bsz x lda) | Bs (bsz x ldb) | slot list (blockDim ints).
-struct Smem {
-  int lda, ldb, b_off, list_off_bytes;
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int q = 0; q < TR; ++q)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) acc[q][j] = S(0);
+  }
+
+  __device__ __forceinline__ void multiply(const S* st, int lane, int wt) {
+    const int R0 = (wt / 2) * 32, C0 = (wt % 2) * 32;
+    const S* pa = st + (R0 + lane / 8) * G::PA;
+    const S* pb = st + BS * G::PA + C0 + (lane % 8) * TC;
+#pragma unroll
+    for (int k = 0; k < BS; k += 4) {
+      Vec<S, 4> a[TR];
+#pragma unroll
+      for (int q = 0; q < TR; ++q) a[q] = lds<S, 4>(pa + 4 * q * G::PA + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const Vec<S, TC> b = lds<S, TC>(pb + (k + kk) * G::PB);
+#pragma unroll
+        for (int q = 0; q < TR; ++q)
+#pragma unroll
+          for (int j = 0; j < TC; ++j)
+            acc[q][j] = mad(a[q].v[kk], b.v[j], acc[q][j]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(S* dst, int bsz, bool vec, int lane,
+                                        int wt) const {
+    const int R0 = (wt / 2) * 32, C0 = (wt % 2) * 32;
+    const int c0 = C0 + (lane % 8) * TC;
+#pragma unroll
+    for (int q = 0; q < TR; ++q) {
+      const int row = R0 + lane / 8 + 4 * q;
+      if (vec) {  // bsz == BS: whole rows of whole vectors
+        S* p = dst + row * BS + c0;
+        if constexpr (sizeof(S) * TC >= 16) {
+          constexpr int P = 16 / static_cast<int>(sizeof(S));
+#pragma unroll
+          for (int j = 0; j < TC; j += P) {
+            uint4 u;
+            S* s = reinterpret_cast<S*>(&u);
+#pragma unroll
+            for (int i = 0; i < P; ++i) s[i] = acc[q][j + i];
+            __stcs(reinterpret_cast<uint4*>(p + j), u);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < TC; ++j) __stcs(p + j, acc[q][j]);
+        }
+      } else if (row < bsz) {
+#pragma unroll
+        for (int j = 0; j < TC; ++j)
+          if (c0 + j < bsz) dst[row * bsz + c0 + j] = acc[q][j];
+      }
+    }
+  }
 };
 
-template <typename S>
-__host__ __device__ __forceinline__ Smem smem_layout(int bsz) {
-  Smem m;
-  m.lda = bsz | 1;                 // odd stride: column reads conflict-free
-  m.ldb = (bsz + kCols - 1) / kCols * kCols;  // rows of 16-byte groups
-  m.b_off = (bsz * m.lda + 3) / 4 * 4;        // Bs 16-byte aligned
-  m.list_off_bytes = (m.b_off + bsz * m.ldb) * static_cast<int>(sizeof(S));
-  return m;
-}
+// -- bf16: mma.sync m16n8k16, MT x NT tiles per warp -----------------------
 
-template <typename S>
-inline size_t smem_bytes(int bsz, int threads) {
-  const Smem m = smem_layout<S>(bsz);
-  return static_cast<size_t>(m.list_off_bytes) + threads * sizeof(int);
-}
+template <int BS>
+struct MmaTile {
+  using T = __nv_bfloat16;
+  using G = Geo<T, BS>;
+  static constexpr int MT = G::TS / 16, NT = G::TS / 8;
+  float acc[MT][NT][4];
 
-// Copy one bsz x bsz block from global memory into shared memory (row
-// stride ld), widened to S.  VEC: 16-byte loads (bsz a multiple of the
-// vector width and aligned bases, checked by the caller).
-template <typename T, typename S, bool VEC>
-__device__ __forceinline__ void stage(const T* __restrict__ src, S* dst,
-                                      int ld, int bsz) {
-  constexpr int V = VEC ? 16 / sizeof(T) : 1;
-  const int per_row = bsz / V;
-  const int rstep = blockDim.x / per_row;
-  const int r0 = threadIdx.x / per_row;
-  const int c = (threadIdx.x - r0 * per_row) * V;
-  if (r0 >= rstep) return;
-  for (int r = r0; r < bsz; r += rstep) {
-    if constexpr (VEC) {
-      union {
-        uint4 u;
-        T t[V];
-      } x;
-      x.u = __ldg(reinterpret_cast<const uint4*>(src + r * bsz + c));
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-      for (int e = 0; e < V; ++e) dst[r * ld + c + e] = widen(x.t[e]);
-    } else {
-      dst[r * ld + c] = widen(src[r * bsz + c]);
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+  }
+
+  __device__ __forceinline__ void multiply(const T* st, int lane, int wt) {
+    const int R0 = (wt / 2) * 32, C0 = (wt % 2) * 32;
+    const T* sa = st;
+    const T* sb = st + BS * G::PA;
+#pragma unroll
+    for (int ks = 0; ks < BS; ks += 16) {
+      unsigned a[MT][4], b[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        sm90::ldmatrix_x4(a[mt], sa + (R0 + mt * 16 + lane % 16) * G::PA +
+                                     ks + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned r[4];
+        sm90::ldmatrix_x4_trans(
+            r, sb + (ks + (lane / 8) % 2 * 8 + lane % 8) * G::PB + C0 +
+                   np * 16 + (lane / 16) * 8);
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          sm90::mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
     }
   }
-}
 
-template <typename T, int RM, bool VEC>
-__global__ void __launch_bounds__(256)
-    bsr_slab_kernel(const T* __restrict__ z1, const T* __restrict__ z2,
-                    const int* __restrict__ a_idx,
-                    const int* __restrict__ b_idx,
-                    const int* __restrict__ oloc,
-                    const int* __restrict__ slab_start, T* __restrict__ out,
-                    int bsz, int g, int p, int paired) {
-  using S = typename AccOf<T>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int warp_hits[256 / 32];
-  const Smem L = smem_layout<S>(bsz);
-  S* As = reinterpret_cast<S*>(smem_raw);
-  S* Bs = As + L.b_off;
-  int* list = reinterpret_cast<int*>(smem_raw + L.list_off_bytes);
+  static __device__ __forceinline__ unsigned pick(const unsigned (&w)[4],
+                                                  int i) {
+    return i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
+  }
 
-  const long long o = blockIdx.x;
-  const int s = static_cast<int>(o / p);
-  const int row = static_cast<int>(o - static_cast<long long>(s) * p);
-  const long long lo = static_cast<long long>(slab_start[s]) * g;
-  const long long hi = static_cast<long long>(slab_start[s + 1]) * g;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const long long bsz2 = static_cast<long long>(bsz) * bsz;
-
-  S acc[RM][kCols];
+  // Element (row mt*16 + lane/4 + 8h, column nt*8 + 2*(lane%4) + e) of the
+  // warp's tile is acc[mt][nt][2h + e].  Aligned blocks: the four lanes of
+  // a quad trade their bf16 pairs (a 4 x 4 transpose by shuffles) so lane
+  // q holds n-tile q's eight columns and writes them as one 16-byte store.
+  __device__ __forceinline__ void store(T* dst, int bsz, bool vec, int lane,
+                                        int wt) const {
+    const int R0 = (wt / 2) * 32, C0 = (wt % 2) * 32;
+    const int q = lane & 3, quad = lane & ~3;
 #pragma unroll
-  for (int rm = 0; rm < RM; ++rm)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[rm][j] = S(0);
-
-  for (long long base = lo; base < hi; base += blockDim.x) {
-    // keep this chunk's slots aimed at `row`, in slot order
-    const long long slot = base + tid;
-    const bool hit = slot < hi && (__ldg(oloc + slot) >> paired) == row;
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) warp_hits[warp] = __popc(mask);
-    __syncthreads();
-    int off = 0, total = 0;
-    for (int w = 0; w < nwarps; ++w) {
-      const int cnt = warp_hits[w];
-      off += w < warp ? cnt : 0;
-      total += cnt;
-    }
-    if (hit) list[off + __popc(mask & ((1u << lane) - 1u))] = tid;
-    __syncthreads();
-    for (int q = 0; q < total; ++q) {
-      const long long sl = base + list[q];
-      const long long ai =
-          paired ? 2LL * __ldg(a_idx + (sl >> 1)) + (__ldg(oloc + sl) & 1)
-                 : static_cast<long long>(__ldg(a_idx + sl));
-      const long long bi = __ldg(b_idx + sl);
-      __syncthreads();  // the previous product is done with As / Bs
-      stage<T, S, VEC>(z1 + ai * bsz2, As, L.lda, bsz);
-      stage<T, S, VEC>(z2 + bi * bsz2, Bs, L.ldb, bsz);
-      __syncthreads();
-      const int c0 = warp * kCols;
-#pragma unroll 4
-      for (int k = 0; k < bsz; ++k) {
-        S b[kCols];
-        lds8(Bs + k * L.ldb + c0, b);
+      for (int h = 0; h < 2; ++h) {
+        const int row = R0 + mt * 16 + lane / 4 + 8 * h;
+        if (vec) {
+          unsigned w[4], got[4];
 #pragma unroll
-        for (int rm = 0; rm < RM; ++rm) {
-          const int i = lane + 32 * rm;
-          if (i < bsz) {
-            const S a = As[i * L.lda + k];
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) acc[rm][j] = mad(a, b[j], acc[rm][j]);
+          for (int nt = 0; nt < 4; ++nt) {
+            w[nt] = 0u;
+            if (nt < NT) {
+              const __nv_bfloat162 p = __floats2bfloat162_rn(
+                  acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+              w[nt] = *reinterpret_cast<const unsigned*>(&p);
+            }
           }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            // lane q receives from lane (q - j) & 3 that lane's word q
+            const int src = (q - j) & 3;
+            const unsigned v =
+                __shfl_sync(kFull, pick(w, (q + j) & 3), quad + src);
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+              if (src == s) got[s] = v;
+          }
+          if (q < NT)
+            __stcs(reinterpret_cast<uint4*>(dst + row * BS + C0 + q * 8),
+                   make_uint4(got[0], got[1], got[2], got[3]));
+        } else if (row < bsz) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = C0 + nt * 8 + 2 * q + e;
+              if (col < bsz)
+                dst[row * bsz + col] =
+                    __float2bfloat16_rn(acc[mt][nt][2 * h + e]);
+            }
         }
       }
-    }
-    __syncthreads();  // every warp has read warp_hits and list
   }
+};
 
-  // write C[o] once, through shared memory (As) so the store is coalesced
+template <typename T, int BS>
+struct TileOf {
+  using type = FmaTile<T, BS>;
+};
+template <int BS>
+struct TileOf<__nv_bfloat16, BS> {
+  using type = MmaTile<BS>;
+};
+
+// -- the kernel ----------------------------------------------------------
+
+template <typename T, int BS>
+__global__ void __launch_bounds__(kThreads)
+    slab_kernel(const T* __restrict__ z1, const T* __restrict__ z2,
+                const int* __restrict__ prod_ptr,
+                const int2* __restrict__ prod_ab, T* __restrict__ out,
+                int n_out, int bsz, int vec,
+                unsigned long long* __restrict__ issued) {
+  using G = Geo<T, BS>;
+  constexpr int S = G::kStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int team = warp / G::W, wt = warp % G::W;
+  const int tt = threadIdx.x % (32 * G::W);
+  T* ring = reinterpret_cast<T*>(smem) + team * G::kTeamElems;
+
+  // The list is cut into kPieces x (teams) ranges of output blocks,
+  // balanced by products plus one per output; team g takes the pieces g,
+  // g + teams, ...  in turn, so the teams running at one time work on one
+  // stretch of the outputs and share its factor blocks in L2.  Lane
+  // l < kPieces finds piece l's first and one-past-last output (p0, p1)
+  // and first and one-past-last product (f0, f1).
+  const long long nteams = static_cast<long long>(gridDim.x) * G::kTeams;
+  const long long g = static_cast<long long>(blockIdx.x) * G::kTeams + team;
+  const long long total = static_cast<long long>(__ldg(prod_ptr + n_out)) +
+                          n_out;
+  const long long npieces = nteams * kPieces;
+  int p0 = 0, p1 = 0, f0 = 0, f1 = 0;
+  if (lane < kPieces) {
+    const long long piece = g + lane * nteams;
+    const int2 o = find_starts(prod_ptr, n_out, total * piece / npieces,
+                               total * (piece + 1) / npieces);
+    p0 = o.x;
+    p1 = o.y;
+    f0 = __ldg(prod_ptr + p0);
+    f1 = __ldg(prod_ptr + p1);
+  }
+  if (!vec) {  // element copies fill only the data region: zero the rest
+    unsigned* z = reinterpret_cast<unsigned*>(ring);
+    for (int e = tt; e < G::kTeamElems * static_cast<int>(sizeof(T)) / 4;
+         e += 32 * G::W)
+      z[e] = 0u;
+    team_sync<G::W>();
+  }
+  const long long bsz2 = static_cast<long long>(bsz) * bsz;
+
+  // producer: copies the products of the team's pieces, in order, into the
+  // ring (fp into stage ps), one cp.async group a step, across pieces
+  int pp = 0;
+  int fp = __shfl_sync(kFull, f0, 0), fend = __shfl_sync(kFull, f1, 0);
+  int ps = 0;
+  Ahead<int2> pairs;
+  pairs.init(prod_ab, fend, fp, lane);
+  auto produce = [&]() {
+    while (fp >= fend && pp + 1 < kPieces) {
+      ++pp;
+      fp = __shfl_sync(kFull, f0, pp);
+      fend = __shfl_sync(kFull, f1, pp);
+      if (fp < fend) pairs.init(prod_ab, fend, fp, lane);
+    }
+    if (fp < fend) {
+      const int2 ab = pairs.get(fp, lane);
+      copy_product<T, BS>(ring + ps * G::kStage, z1 + ab.x * bsz2,
+                          z2 + ab.y * bsz2, bsz, vec != 0, tt);
+    }
+    sm90::cp_async_commit();
+    ++fp;
+    ps = ps + 1 == S ? 0 : ps + 1;
+  };
 #pragma unroll
-  for (int rm = 0; rm < RM; ++rm) {
-    const int i = lane + 32 * rm;
-    if (i < bsz) {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = warp * kCols + j;
-        if (c < bsz) As[i * L.lda + c] = acc[rm][j];
+  for (int s = 0; s < S - 1; ++s) produce();
+
+  typename TileOf<T, BS>::type tile;
+  int cs = 0;
+  unsigned long long walked = 0;  // products multiplied
+  for (int pc = 0; pc < kPieces; ++pc) {
+    const int o0 = __shfl_sync(kFull, p0, pc), o1 = __shfl_sync(kFull, p1, pc);
+    int fc = __shfl_sync(kFull, f0, pc);
+    if (o0 >= o1) continue;
+    Ahead<int> ends;
+    ends.init(prod_ptr, n_out + 1, o0 + 1, lane);
+    for (int o = o0; o < o1; ++o) {
+      const int fe = ends.get(o + 1, lane);
+      tile.zero();
+      for (; fc < fe; ++fc) {
+        // product fc has landed; every lane of the team is done with the
+        // one before, whose stage the copy issued below refills
+        sm90::cp_async_wait<S - 2>();
+        team_sync<G::W>();
+        tile.multiply(ring + cs * G::kStage, lane, wt);
+        produce();
+        cs = cs + 1 == S ? 0 : cs + 1;
+        ++walked;
       }
+      tile.store(out + o * bsz2, bsz, vec != 0, lane, wt);
     }
   }
-  __syncthreads();
-  T* dst = out + o * bsz2;
-  for (int e = tid; e < bsz2; e += blockDim.x) {
-    const int i = e / bsz;
-    narrow(As[i * L.lda + (e - i * bsz)], dst + e);
-  }
+  sm90::cp_async_wait<0>();
+  if (issued != nullptr && tt == 0)
+    atomicAdd(issued, walked);
 }
 
-template <typename T, int RM, bool VEC>
-cudaError_t launch_one(const void* z1, const void* z2, const void* a_idx,
-                       const void* b_idx, const void* oloc,
-                       const void* slab_start, void* out, long long nbz_out,
-                       int bsz, int g, int p, int paired,
-                       cudaStream_t stream) {
-  using S = typename AccOf<T>::type;
-  const int warps = (bsz + kCols - 1) / kCols;
-  const int threads = 32 * warps;
-  const size_t bytes = smem_bytes<S>(bsz, threads);
-  auto kernel = bsr_slab_kernel<T, RM, VEC>;
-  if (bytes > 48 * 1024) {
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+template <typename T, int BS>
+cudaError_t launch_bs(const void* z1, const void* z2, const void* prod_ptr,
+                      const void* prod_ab, void* out, int n_out, int bsz,
+                      unsigned long long* issued, cudaStream_t stream) {
+  using G = Geo<T, BS>;
+  auto kern = slab_kernel<T, BS>;
+  constexpr int smem = G::kBytes;
+  if constexpr (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<static_cast<unsigned>(nbz_out), threads, bytes, stream>>>(
+  static int per_sm = 0;  // resident thread blocks per SM
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, kThreads, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) per_sm = 1;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  // persistent: no more teams than the card holds at once, or than outputs
+  const long long want = (static_cast<long long>(n_out) + G::kTeams - 1) /
+                         G::kTeams;
+  const long long cap = static_cast<long long>(sms) * per_sm;
+  const int grid = static_cast<int>(want < cap ? want : cap);
+  const bool vec = bsz == BS && aligned16(z1) && aligned16(z2) &&
+                   aligned16(out);
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(z1), static_cast<const T*>(z2),
-      static_cast<const int*>(a_idx), static_cast<const int*>(b_idx),
-      static_cast<const int*>(oloc), static_cast<const int*>(slab_start),
-      static_cast<T*>(out), bsz, g, p, paired);
+      static_cast<const int*>(prod_ptr), static_cast<const int2*>(prod_ab),
+      static_cast<T*>(out), n_out, bsz, vec ? 1 : 0, issued);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* z1, const void* z2, const void* a_idx,
-                   const void* b_idx, const void* oloc,
-                   const void* slab_start, void* out, long long nbz_out,
-                   long long bsz, long long g, long long p, int paired,
-                   int vec, void* stream) {
-  if (nbz_out <= 0) return cudaSuccess;
-  if (bsz < 1 || bsz > kMaxBsz || g < 1 || p < 1 ||
-      nbz_out > 0x7fffffffLL)
+cudaError_t launch(const void* z1, const void* z2, const void* prod_ptr,
+                   const void* prod_ab, void* out, long long n_out,
+                   long long bsz, unsigned long long* issued, void* stream) {
+  if (n_out <= 0) return cudaSuccess;
+  if (bsz < 1 || bsz > 64 || n_out >= 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int b = static_cast<int>(bsz), gi = static_cast<int>(g),
-            pi = static_cast<int>(p);
-  if (bsz > 32) {
-    return vec ? launch_one<T, 2, true>(z1, z2, a_idx, b_idx, oloc,
-                                        slab_start, out, nbz_out, b, gi, pi,
-                                        paired, st)
-               : launch_one<T, 2, false>(z1, z2, a_idx, b_idx, oloc,
-                                         slab_start, out, nbz_out, b, gi, pi,
-                                         paired, st);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int n = static_cast<int>(n_out), b = static_cast<int>(bsz);
+  if constexpr (sizeof(T) > 2) {  // bf16's mma tiles start at 16
+    if (b <= 8)
+      return launch_bs<T, 8>(z1, z2, prod_ptr, prod_ab, out, n, b, issued,
+                             st);
   }
-  return vec ? launch_one<T, 1, true>(z1, z2, a_idx, b_idx, oloc, slab_start,
-                                      out, nbz_out, b, gi, pi, paired, st)
-             : launch_one<T, 1, false>(z1, z2, a_idx, b_idx, oloc,
-                                       slab_start, out, nbz_out, b, gi, pi,
-                                       paired, st);
+  if (b <= 16)
+    return launch_bs<T, 16>(z1, z2, prod_ptr, prod_ab, out, n, b, issued,
+                            st);
+  if (b <= 32)
+    return launch_bs<T, 32>(z1, z2, prod_ptr, prod_ab, out, n, b, issued,
+                            st);
+  return launch_bs<T, 64>(z1, z2, prod_ptr, prod_ab, out, n, b, issued, st);
 }
 
 }  // namespace
@@ -294,26 +581,24 @@ cudaError_t launch(const void* z1, const void* z2, const void* a_idx,
 extern "C" {
 
 // kind: 0 float32, 2 bfloat16 (float32 sums, rounded once), 3 float64.
-// z1, z2 (., bsz, bsz) and C (nbz_out, bsz, bsz) in that type; a_idx (S*g,
-// or S*g/2 windows when paired), b_idx and oloc (S*g) and slab_start
-// (ceil(nbz_out/p) + 1) int32.  vec: 16-byte loads are allowed (bsz a
-// multiple of the vector width, z1 and z2 16-byte aligned).  Returns
-// cudaGetLastError() after the launch.
-int bsr_slab(int kind, const void* z1, const void* z2, const void* a_idx,
-             const void* b_idx, const void* oloc, const void* slab_start,
-             void* out, long long nbz_out, long long bsz, long long g,
-             long long p, int paired, int vec, void* stream) {
+// z1, z2 (., bsz, bsz) and C (n_out, bsz, bsz) in that type; prod_ptr
+// (n_out + 1) and prod_ab (F, 2) int32, the product list.  issued: null,
+// or a counter on the card (zeroed by the caller) that gets the products
+// multiplied.  Returns cudaGetLastError() after the launch.
+int bsr_slab(int kind, const void* z1, const void* z2, const void* prod_ptr,
+             const void* prod_ab, void* out, long long n_out, long long bsz,
+             void* issued, void* stream) {
+  auto* count = static_cast<unsigned long long*>(issued);
   switch (kind) {
     case kF32:
-      return launch<float>(z1, z2, a_idx, b_idx, oloc, slab_start, out,
-                           nbz_out, bsz, g, p, paired, vec, stream);
+      return launch<float>(z1, z2, prod_ptr, prod_ab, out, n_out, bsz, count,
+                           stream);
     case kBF16:
-      return launch<__nv_bfloat16>(z1, z2, a_idx, b_idx, oloc, slab_start,
-                                   out, nbz_out, bsz, g, p, paired, vec,
-                                   stream);
+      return launch<__nv_bfloat16>(z1, z2, prod_ptr, prod_ab, out, n_out,
+                                   bsz, count, stream);
     case kF64:
-      return launch<double>(z1, z2, a_idx, b_idx, oloc, slab_start, out,
-                            nbz_out, bsz, g, p, paired, vec, stream);
+      return launch<double>(z1, z2, prod_ptr, prod_ab, out, n_out, bsz,
+                            count, stream);
     default:
       return cudaErrorInvalidValue;
   }

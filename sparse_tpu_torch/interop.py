@@ -26,7 +26,7 @@ from .formats.bsr import BSR, BsrSmsmmPlan, _bidx_dtype
 from .formats.coo import COO
 from .formats.csr import CSR
 from .ops.cuda_bell import BandedKit, BandedKitT, BandedPlan
-from .ops.cuda_bsr import BsrSlabPlan, BsrSlabPlanAD
+from .ops.cuda_bsr import BsrSlabPlan, BsrSlabPlanAD, slot_list
 from .ops.cuda_csr import SegTilePlan, seg_tiles_stream
 from .ops.cuda_csr_block import BlockSegTilePlan, block_seg_tiles_stream
 from .ops.dispatch import SmvmAutoPlan
@@ -169,40 +169,53 @@ def bsr_smsmm_plan_from_arrays(a_pos, b_pos, seg, indices, *, n, bsz,
 
 
 def slab_plan_from_arrays(a_idx, b_idx, oloc, slab, first, indices, *,
-                          chunks, n, bsz, g, p, nbz_out, paired=False,
-                          device=None) -> BsrSlabPlan:
-    """A :class:`BsrSlabPlan` from the reference's slab tables;
+                          chunks, n, bsz, g, p, nbz_out, nbz_a, nbz_b,
+                          paired=False, device=None) -> BsrSlabPlan:
+    """A :class:`BsrSlabPlan` from the reference's slab tables, prepared for
+    ``nbz_a`` / ``nbz_b`` stored A / B blocks (the counts the reference's
+    ``bsr_smsmm_pallas_prepare`` takes: its pad slots read past them).
     ``slab_start`` (the port's step range of each slab) is read off
-    ``first``, which holds one 1 per slab, in slab order."""
+    ``first``, which holds one 1 per slab, in slab order, and K7's product
+    list is derived here once (``cuda_bsr.slot_list``, pads left out)."""
     first_h = np.asarray(first).astype(np.int64)
     starts = np.append(np.flatnonzero(first_h), first_h.size)
     idx = np.asarray(indices)
+    tables = dict(a_idx=_t(a_idx, device, torch.int32),
+                  b_idx=_t(b_idx, device, torch.int32),
+                  oloc=_t(oloc, device, torch.int32),
+                  slab_start=_t(starts, device, torch.int32))
+    prod_ptr, prod_ab = slot_list(
+        tables["a_idx"], tables["b_idx"], tables["oloc"],
+        tables["slab_start"], g=int(g), p=int(p), nbz_out=int(nbz_out),
+        paired=bool(paired), caps=(int(nbz_a), int(nbz_b)))
     return BsrSlabPlan(
-        a_idx=_t(a_idx, device, torch.int32),
-        b_idx=_t(b_idx, device, torch.int32),
-        oloc=_t(oloc, device, torch.int32),
-        slab=_t(slab, device, torch.int32),
+        **tables, slab=_t(slab, device, torch.int32),
         first=_t(first, device, torch.int32),
         indices=_t(idx, device, torch.int64 if idx.dtype == np.int64
                    else INDEX_DTYPE),
         chunks=tuple(tuple(int(x) for x in c) for c in chunks), n=int(n),
         bsz=int(bsz), g=int(g), p=int(p), nbz_out=int(nbz_out),
-        paired=bool(paired), slab_start=_t(starts, device, torch.int32))
+        paired=bool(paired), prod_ptr=prod_ptr, prod_ab=prod_ab)
 
 
-def _slab_plan(src, device) -> BsrSlabPlan:
+def _slab_plan(src, device, nbz_a, nbz_b) -> BsrSlabPlan:
     return slab_plan_from_arrays(
         src.a_idx, src.b_idx, src.oloc, src.slab, src.first, src.indices,
-        device=device, **_plan_fields(
+        device=device, nbz_a=nbz_a, nbz_b=nbz_b, **_plan_fields(
             src, ("chunks", "n", "bsz", "g", "p", "nbz_out", "paired"), ()))
 
 
 def slab_plan_ad_from_arrays(fwd, da, db, *, device=None) -> BsrSlabPlanAD:
     """A :class:`BsrSlabPlanAD` from three plans with the reference's field
     names (``a_idx``/``b_idx``/``oloc``/``slab``/``first``/``indices`` and
-    ``chunks``/``n``/``bsz``/``g``/``p``/``nbz_out``/``paired``)."""
-    return BsrSlabPlanAD(fwd=_slab_plan(fwd, device),
-                         da=_slab_plan(da, device), db=_slab_plan(db, device))
+    ``chunks``/``n``/``bsz``/``g``/``p``/``nbz_out``/``paired``).  Their
+    output counts are each other's stored counts: ``da`` accumulates into
+    A's blocks, ``db`` into B's, and both read dC, which has the forward's
+    output blocks."""
+    na, nb, nc = int(da.nbz_out), int(db.nbz_out), int(fwd.nbz_out)
+    return BsrSlabPlanAD(fwd=_slab_plan(fwd, device, na, nb),
+                         da=_slab_plan(da, device, nc, nb),
+                         db=_slab_plan(db, device, na, nc))
 
 
 def spgemm_plan_from_arrays(a_pos, b_pos, seg, indices, indptr, *, shape,

@@ -30,9 +30,11 @@ K4 and K5 read ``start`` and ignore them.
 The float32 and bf16 streams of K3, K4 and K5 skip the band's all-zero
 32 x 32 chunks: K3 and K4 by a vote inside the kernel on what they read,
 K5 by the kit's chunk mask (:attr:`BandedKitT.chunk_nz`, built once with
-the kit), so it does not read them.  Each has an issued-work counter
+the kit), so it does not read them; K6's skip a padding slot's zero block
+by a vote per stored block.  Each has an issued-work counter
 (:func:`fused_issued_flops`, :func:`banded_issued_flops`,
-:func:`banded_t_issued`) beside a host model of what it should count.
+:func:`banded_t_issued`, :func:`block_issued_flops`) beside a host model
+of what it should count.
 
 Precision, as the reference's ``_resolve_precision``: float32 streams are
 full float32 (no TF32); ``precision="bf16x3"`` splits each float32 operand
@@ -70,6 +72,8 @@ __all__ = [
     "chunk_mask",
     "fused_issued_flops",
     "fused_issued_model",
+    "block_issued_flops",
+    "block_issued_model",
     "banded_t_issued",
     "banded_t_issued_model",
     "bell_spmm_block",
@@ -206,11 +210,24 @@ def _gather_einsum(a: BELL, b, stream_dtype, split: bool):
 
 
 def _rowwise(name: str, which: str, a: BELL, b, compute_dtype, precision,
-             plain: bool):
+             plain: bool, count: torch.Tensor | None = None):
+    """K3 (``which="fused"``) or K6 (``"block"``) on CUDA tensors, the
+    gather-einsum on CPU tensors or with ``plain``.  With ``count`` (an
+    int64 scalar on the card) the launch goes to the kernel's issued-work
+    entry instead, which adds the multiply-adds its vote kept to ``count``
+    and is left out of the launch counters."""
     b, out_dtype = _operand(name, a, b)
     k = b.shape[1]
     stream = compute_dtype or out_dtype
     split = _stream_mode(name, stream, precision)
+    if count is not None:
+        if stream not in _COUNTED or (which == "block" and a.bsz > 64):
+            raise ValueError(f"{name}: counts float32 and bf16 streams"
+                             f"{' at bsz <= 64' if which == 'block' else ''}"
+                             f", got {stream} at bsz {a.bsz}")
+        if not _on_cuda(name, a.blocks, a.cols, b):
+            raise ValueError(f"{name}: counts on the card only, got CPU "
+                             "tensors")
     if a.n == 0 or a.Lb == 0 or k == 0:
         return torch.zeros(a.n, k, dtype=out_dtype, device=b.device)
     if plain or not _on_cuda(name, a.blocks, a.cols, b):
@@ -219,16 +236,25 @@ def _rowwise(name: str, which: str, a: BELL, b, compute_dtype, precision,
     blocks = a.blocks.to(stream).contiguous()
     cols = a.cols.to(torch.int32).contiguous()
     bs = b.to(stream).contiguous()
-    out = torch.empty(a.n, k, dtype=_acc_dtype(stream), device=b.device)
+    # K6's persistent body rounds its bf16 sums as it stores them
+    direct = (which == "block" and stream == torch.bfloat16
+              and a.bsz <= 64)
+    out = torch.empty(a.n, k, dtype=stream if direct else _acc_dtype(stream),
+                      device=b.device)
     lib = _kernels.load()
-    fn = lib.bell_fused if which == "fused" else lib.bell_block
-    _launch(name, fn, _kind(stream, split), blocks.data_ptr(),
-            cols.data_ptr(), bs.data_ptr(), out.data_ptr(), a.nb, a.Lb,
-            a.bsz, k, device=b.device)
-    if which == "fused":
-        K3_LAUNCHES += 1
+    args = (_kind(stream, split), blocks.data_ptr(), cols.data_ptr(),
+            bs.data_ptr(), out.data_ptr(), a.nb, a.Lb, a.bsz, k)
+    if count is not None:
+        fn = (lib.bell_fused_issued if which == "fused"
+              else lib.bell_block_issued)
+        _launch(name, fn, *args, count.data_ptr(), device=b.device)
     else:
-        K6_LAUNCHES += 1
+        fn = lib.bell_fused if which == "fused" else lib.bell_block
+        _launch(name, fn, *args, device=b.device)
+        if which == "fused":
+            K3_LAUNCHES += 1
+        else:
+            K6_LAUNCHES += 1
     return out.to(out_dtype)
 
 
@@ -296,6 +322,12 @@ def banded_issued_model(tiles: torch.Tensor, k: int) -> int:
     return _band_body_model(tiles, k)
 
 
+def _issued(name: str, which: str, a: BELL, b, compute_dtype) -> int:
+    count = torch.zeros(1, dtype=torch.int64, device=a.device)
+    _rowwise(name, which, a, b, compute_dtype, None, False, count)
+    return 2 * int(count.item())
+
+
 def fused_issued_flops(a: BELL, b, *, compute_dtype=None) -> int:
     """Operations (two per multiply-add) that K3's float32 / bf16 body
     issues on ``a`` against ``b``, as the kernel counts them: each thread
@@ -304,26 +336,32 @@ def fused_issued_flops(a: BELL, b, *, compute_dtype=None) -> int:
     ``K3_LAUNCHES``.  CUDA tensors and float32 or bf16 streams only; the
     count is the kernel's, so there is no plain version
     (:func:`fused_issued_model` is what it should read)."""
-    name = "fused_issued_flops"
-    b, out_dtype = _operand(name, a, b)
-    stream = compute_dtype or out_dtype
-    if stream not in _COUNTED:
-        raise ValueError(f"{name}: counts float32 and bf16 streams, got "
-                         f"{stream}")
-    if not _on_cuda(name, a.blocks, a.cols, b):
-        raise ValueError(f"{name}: counts on the card only, got CPU tensors")
-    k = b.shape[1]
-    if a.n == 0 or a.Lb == 0 or k == 0:
-        return 0
-    blocks = a.blocks.to(stream).contiguous()
-    cols = a.cols.to(torch.int32).contiguous()
-    bs = b.to(stream).contiguous()
-    out = torch.empty(a.n, k, dtype=torch.float32, device=b.device)
-    count = torch.zeros(1, dtype=torch.int64, device=b.device)
-    _launch(name, _kernels.load().bell_fused_issued, _KIND[stream],
-            blocks.data_ptr(), cols.data_ptr(), bs.data_ptr(), out.data_ptr(),
-            a.nb, a.Lb, a.bsz, k, count.data_ptr(), device=b.device)
-    return 2 * int(count.item())
+    return _issued("fused_issued_flops", "fused", a, b, compute_dtype)
+
+
+def block_issued_model(a: BELL, k: int, *, stream_dtype=None) -> int:
+    """Host model of what K6's float32 / bf16 body issues on ``a`` at width
+    ``k`` (what :func:`block_issued_flops` should read), in operations (2
+    per multiply-add): for each stored block, and each 32-row group of it
+    that is not zero throughout in the stream dtype (NaN is not, -0 is),
+    its rows x bsz x k multiply-adds, so bsz * bsz * k per non-zero stored
+    block at bsz <= 32."""
+    bsz = a.bsz
+    blocks = a.blocks.to(stream_dtype or a.dtype).reshape(-1, bsz, bsz)
+    kept = _nonzero_chunks(blocks, _BAND_BM, bsz)[:, :, 0]  # (blocks, groups)
+    rows = (bsz - _BAND_BM * torch.arange(kept.shape[1])).clamp(max=_BAND_BM)
+    return 2 * int((kept.cpu() * rows).sum()) * bsz * k
+
+
+def block_issued_flops(a: BELL, b) -> int:
+    """Operations (two per multiply-add) that K6's float32 / bf16 body
+    issues on ``a`` against ``b``, as the kernel counts them: each thread
+    block adds, for every stored block its vote kept, the multiply-adds of
+    its tile's rows and columns, to a counter on the card.  One launch into
+    a scratch output, outside ``K6_LAUNCHES``.  CUDA tensors, float32 or
+    bf16 streams and bsz <= 64 only; the count is the kernel's, so there is
+    no plain version (:func:`block_issued_model` is what it should read)."""
+    return _issued("block_issued_flops", "block", a, b, None)
 
 
 # -- the banded plan ----------------------------------------------------------

@@ -23,15 +23,23 @@ the A slot (``a_idx``; a two-block window when ``paired``), the B slot
 (``b_idx``) and the output row within its slab (``oloc``); per step, its
 slab and whether it opens one (``first``).  The TPU's split into
 ``pallas_call`` chunks (``chunks``, ``slab`` relative to a chunk) is kept
-for parity; K7 ignores it and launches once per apply, reading each slab's
-step range from ``slab_start`` (computed in prepare, or from ``first`` on
-the device by :func:`run_slabs_arrays`).
+for parity; K7 ignores it and launches once per apply.
 
-On CUDA tensors :func:`run_slabs_arrays` launches K7 and counts the launch
-(``K7_LAUNCHES``); on CPU tensors it runs :func:`run_slabs_arrays_plain`,
-the same sums in plain PyTorch (gather the slots' blocks, one batched matmul
-in full precision, ``segment_sum`` by output block, in slot order).  There
-is no other route: tensors on two devices raise ``ValueError``.  Types:
+K7 does not walk the slot tables: it walks a product list, ``prod_ptr``
+(each output block's first product) and ``prod_ab`` (each product's A slot
+and B slot, in slot order within its output block, pads left out), which
+the planners build once per plan (:func:`_product_list`), and
+``interop.slab_plan_from_arrays`` once per carried plan
+(:func:`slot_list`).  On CUDA tensors
+the prepared applies launch K7 on the plan's list and on the factors'
+blocks as they are (no appended zero block), and :func:`run_slabs_arrays`
+derives the list from its slot tables on the device per call, pads kept
+(:func:`slot_list`); each launch is counted (``K7_LAUNCHES``).  On CPU
+tensors the applies run :func:`run_slabs_arrays_plain`, the reference's
+slot-order sums in plain PyTorch (gather the slots' blocks, one batched
+matmul in full precision, ``segment_sum`` by output block); the list walk
+has its own plain version, :func:`slab_list_plain`.  There is no other
+route: tensors on two devices raise ``ValueError``.  Types:
 float32 summed in full float32 (no TF32), float64 in float64, bfloat16
 summed in float32 and rounded once; any other dtype, a ``precision`` other
 than None or ``"highest"``, or (on a CUDA tensor) a block size above 64
@@ -62,9 +70,13 @@ __all__ = [
     "bsr_smsmm_apply_slab_ad",
     "run_slabs_arrays",
     "run_slabs_arrays_plain",
+    "slot_list",
+    "slab_list_plain",
+    "bsr_slab_issued",
+    "bsr_slab_issued_model",
 ]
 
-#: Launches of K7, counted where :func:`run_slabs_arrays` launches it and
+#: Launches of K7, counted where :func:`_launch_list` launches it and
 #: nowhere else.
 K7_LAUNCHES = 0
 
@@ -95,7 +107,15 @@ class BsrSlabPlan:
 
     ``paired=True``: ``a_idx`` has (S*g/2,) two-block windows and ``oloc``
     is ``row_in_slab * 2 + a_row_bit`` (the product reads slot
-    ``2*window + bit``); the A stream then needs two trailing zero slots."""
+    ``2*window + bit``); the A stream then needs two trailing zero slots.
+
+    ``prod_ptr`` (nbz_out+1,) int32 and ``prod_ab`` (F, 2) int32: the
+    product list K7 walks (first product of each output block; each
+    product's A slot and B slot, a paired window resolved to its slot, in
+    slot order within its output block, pad slots left out), built once
+    with the plan: by the planners, or by :func:`slot_list` where a plan is
+    carried in from the reference's tables
+    (``interop.slab_plan_from_arrays``)."""
 
     a_idx: torch.Tensor
     b_idx: torch.Tensor
@@ -109,8 +129,10 @@ class BsrSlabPlan:
     g: int
     p: int
     nbz_out: int
+    slab_start: torch.Tensor
+    prod_ptr: torch.Tensor
+    prod_ab: torch.Tensor
     paired: bool = False
-    slab_start: torch.Tensor | None = None
 
 
 def _default_gp(bsz: int, g: int | None, p: int | None) -> tuple[int, int]:
@@ -129,6 +151,20 @@ def _tables(indices, **arrays):
     dev = _device_of(indices)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in arrays.items()}
+
+
+def _product_list(out_s, s1_s, s2_s, n_out, slot=None):
+    """(prod_ptr, prod_ab) of products sorted by output (``out_s``
+    non-decreasing), stream-1 slots ``s1_s`` and stream-2 slots ``s2_s``;
+    ``slot``: each product's slot position, where the slot order within an
+    output differs from the given one (the paired schedule)."""
+    if slot is not None:
+        order = np.argsort(slot, kind="stable")
+        order = order[np.argsort(out_s[order], kind="stable")]
+        out_s, s1_s, s2_s = out_s[order], s1_s[order], s2_s[order]
+    ptr = np.zeros(n_out + 1, np.int64)
+    np.cumsum(np.bincount(out_s, minlength=n_out), out=ptr[1:])
+    return ptr.astype(np.int32), np.stack([s1_s, s2_s], 1).astype(np.int32)
 
 
 def _schedule(out_pos, s1_pos, s2_pos, pad1, pad2, n_out, indices,
@@ -182,10 +218,12 @@ def _schedule(out_pos, s1_pos, s2_pos, pad1, pad2, n_out, indices,
     first = np.zeros(S, np.int32)
     first[sstarts[:-1]] = 1
     chunks, slab_rel = _chunk_slabs(sstarts, slab_of_step, S, step_cap)
+    prod_ptr, prod_ab = _product_list(out_s, s1_s, s2_s, n_out)
     return BsrSlabPlan(
         **_tables(indices, a_idx=a_idx, b_idx=b_idx, oloc=oloc,
                   slab=slab_rel, first=first,
-                  slab_start=sstarts.astype(np.int32)),
+                  slab_start=sstarts.astype(np.int32), prod_ptr=prod_ptr,
+                  prod_ab=prod_ab),
         indices=indices,
         chunks=tuple(chunks),
         n=n,
@@ -266,8 +304,10 @@ def _schedule_paired(out_pos, s1_pos, s2_pos, pad1, pad2, n_out, indices,
     a_idx = np.full(S * gp, pad1 >> 1, np.int32)  # pad window: zero pair
     b_idx = np.full(S * g, pad2, np.int32)
     oloc = np.zeros(S * g, np.int32)
+    slot_of = np.zeros(F, np.int64)  # each product's slot position
 
     def put(ps, half, f):
+        slot_of[f] = 2 * ps + half
         b_idx[2 * ps + half] = s2_s[f]
         sl = int(out_s[f]) // p
         oloc[2 * ps + half] = ((int(out_s[f]) - sl * p) << 1) | (
@@ -285,10 +325,12 @@ def _schedule_paired(out_pos, s1_pos, s2_pos, pad1, pad2, n_out, indices,
     first_step = np.zeros(S, np.int32)
     first_step[sstarts[:-1]] = 1
     chunks, slab_rel = _chunk_slabs(sstarts, slab_of_step, S, step_cap)
+    prod_ptr, prod_ab = _product_list(out_s, s1_s, s2_s, n_out, slot_of)
     return BsrSlabPlan(
         **_tables(indices, a_idx=a_idx, b_idx=b_idx, oloc=oloc,
                   slab=slab_rel, first=first_step,
-                  slab_start=sstarts.astype(np.int32)),
+                  slab_start=sstarts.astype(np.int32), prod_ptr=prod_ptr,
+                  prod_ab=prod_ab),
         indices=indices,
         chunks=chunks,
         n=n,
@@ -423,6 +465,67 @@ def _slab_starts(first: torch.Tensor, nslabs: int) -> torch.Tensor:
     return starts.to(torch.int32)
 
 
+def slot_list(a_idx, b_idx, oloc, slab_start, *, g: int, p: int,
+              nbz_out: int, paired: bool = False, caps=None):
+    """The product list (``prod_ptr``, ``prod_ab``) of a slot schedule, on
+    its device (without a host sync unless ``caps`` is given): each slot's
+    global output block
+    (slab * p + row, the slab read off ``slab_start``) and its A and B
+    slots (a paired window resolved by the row bit), stably sorted by
+    output, so each output's products stay in slot order.  Pad slots are
+    kept (they read the appended zero blocks) unless ``caps`` = (stored A
+    blocks, stored B blocks) is given: then every slot that reads past
+    either is left out, which is exactly the pads."""
+    dev = b_idx.device
+    nslots = b_idx.shape[0]
+    step = torch.arange(nslots, device=dev) // g
+    slab = torch.searchsorted(slab_start[1:].long(), step, right=True)
+    oloc = oloc.long()
+    out = slab * p + (oloc >> 1 if paired else oloc)
+    if paired:
+        a = 2 * a_idx.long().repeat_interleave(2) + (oloc & 1)
+    else:
+        a = a_idx.long()
+    b = b_idx.long()
+    if caps is not None:
+        keep = (a < caps[0]) & (b < caps[1])
+        out, a, b = out[keep], a[keep], b[keep]
+    out, order = torch.sort(out, stable=True)
+    ptr = torch.searchsorted(out, torch.arange(nbz_out + 1, device=dev))
+    ab = torch.stack([a[order], b[order]], 1)
+    return ptr.to(torch.int32), ab.to(torch.int32).contiguous()
+
+
+def _launch_list(name, prod_ptr, prod_ab, z1, z2, bsz, out_dtype,
+                 count=None) -> torch.Tensor:
+    """K7 on the product list: ``(nbz_out, bsz, bsz)`` blocks in
+    ``out_dtype``.  The factors are passed as they are (cast only where
+    their dtype differs).  ``count``: an int64 counter on the card that
+    gets the products multiplied; such a launch is not a launch of the
+    main path and is not counted in ``K7_LAUNCHES``."""
+    global K7_LAUNCHES
+    if bsz > _MAX_BSZ:
+        raise ValueError(f"{name}: block size {bsz} > {_MAX_BSZ} (two "
+                         "blocks must fit in shared memory)")
+    nbz_out = prod_ptr.shape[0] - 1
+    dev = z1.device
+    z1c = z1.to(out_dtype).contiguous()
+    z2c = z2.to(out_dtype).contiguous()
+    ptr = prod_ptr.to(torch.int32).contiguous()
+    ab = prod_ab.to(torch.int32).contiguous()
+    out = torch.empty((nbz_out, bsz, bsz), dtype=out_dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = _kernels.load().bsr_slab(
+            _KIND[out_dtype], z1c.data_ptr(), z2c.data_ptr(), ptr.data_ptr(),
+            ab.data_ptr(), out.data_ptr(), nbz_out, bsz,
+            None if count is None else count.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(rc, name)
+    if count is None:
+        K7_LAUNCHES += 1
+    return out
+
+
 def run_slabs_arrays(p_a_idx, p_b_idx, p_oloc, p_first, p_slab,
                      z1: torch.Tensor, z2: torch.Tensor, *, chunks,
                      bsz: int, g: int, p: int, nbz_out: int, out_dtype,
@@ -431,10 +534,12 @@ def run_slabs_arrays(p_a_idx, p_b_idx, p_oloc, p_first, p_slab,
     """Raw-array slab apply (K7 on CUDA tensors, :func:`run_slabs_arrays_plain`
     on CPU tensors): ``(nbz_out, bsz, bsz)`` blocks, block ``o`` the sum, in
     slot order, of ``z1[a] @ z2[b]`` over the slots aimed at it.  ``z1`` and
-    ``z2`` carry the appended zero block(s) at the plan's pad slots.
-    ``slab_start`` (from the plan) saves deriving the slab step ranges from
-    ``p_first`` on the device; ``chunks`` and ``p_slab`` are the
-    reference's and only the plain version reads them."""
+    ``z2`` carry the appended zero block(s) at the plan's pad slots.  On the
+    card the slot tables become a product list per call
+    (:func:`slot_list`, one device sort; pads kept).  ``slab_start`` (from
+    the plan) saves deriving the slab step ranges from ``p_first``;
+    ``chunks`` and ``p_slab`` are the reference's and only the plain
+    version reads them."""
     name = "run_slabs_arrays"
     _check_call(out_dtype, precision)
     tensors = (p_a_idx, p_b_idx, p_oloc, p_first, z1, z2)
@@ -448,27 +553,11 @@ def run_slabs_arrays(p_a_idx, p_b_idx, p_oloc, p_first, p_slab,
     if bsz > _MAX_BSZ:
         raise ValueError(f"{name}: block size {bsz} > {_MAX_BSZ} (two "
                          "blocks must fit in shared memory)")
-    global K7_LAUNCHES
-    dev = z1.device
-    nslabs = -(-nbz_out // p)
     if slab_start is None:
-        slab_start = _slab_starts(p_first, nslabs)
-    z1c = z1.to(out_dtype).contiguous()
-    z2c = z2.to(out_dtype).contiguous()
-    tables = [t.to(torch.int32).contiguous()
-              for t in (p_a_idx, p_b_idx, p_oloc, slab_start)]
-    vec_width = 16 // z1c.element_size()
-    vec = int(bsz % vec_width == 0 and z1c.data_ptr() % 16 == 0
-              and z2c.data_ptr() % 16 == 0)
-    out = torch.empty((nbz_out, bsz, bsz), dtype=out_dtype, device=dev)
-    with torch.cuda.device(dev):
-        rc = _kernels.load().bsr_slab(
-            _KIND[out_dtype], z1c.data_ptr(), z2c.data_ptr(),
-            *(t.data_ptr() for t in tables), out.data_ptr(), nbz_out, bsz,
-            g, p, int(paired), vec, torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.check(rc, name)
-    K7_LAUNCHES += 1
-    return out
+        slab_start = _slab_starts(p_first, -(-nbz_out // p))
+    ptr, ab = slot_list(p_a_idx, p_b_idx, p_oloc, slab_start, g=g, p=p,
+                        nbz_out=nbz_out, paired=paired)
+    return _launch_list(name, ptr, ab, z1, z2, bsz, out_dtype)
 
 
 def run_slabs_arrays_plain(p_a_idx, p_b_idx, p_oloc, p_first, p_slab,
@@ -476,11 +565,11 @@ def run_slabs_arrays_plain(p_a_idx, p_b_idx, p_oloc, p_first, p_slab,
                            bsz: int, g: int, p: int, nbz_out: int, out_dtype,
                            precision=None,
                            paired: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of K7 (any device): gather every slot's two
-    blocks, one batched matmul in full precision (float32 sums for bf16),
-    and ``segment_sum`` by global output block in slot order.  The global
-    block of a slot is ``(chunk slab0 + slab[t]) * p + row``, as in the
-    reference's ``pallas_call`` chunks."""
+    """Plain PyTorch version of the slot-table apply (any device): gather
+    every slot's two blocks, one batched matmul in full precision (float32
+    sums for bf16), and ``segment_sum`` by global output block in slot
+    order.  The global block of a slot is ``(chunk slab0 + slab[t]) * p +
+    row``, as in the reference's ``pallas_call`` chunks."""
     _check_call(out_dtype, precision)
     dev = z1.device
     if nbz_out == 0:
@@ -503,12 +592,73 @@ def run_slabs_arrays_plain(p_a_idx, p_b_idx, p_oloc, p_first, p_slab,
     return blocks.to(out_dtype)
 
 
+def slab_list_plain(prod_ptr, prod_ab, z1: torch.Tensor, z2: torch.Tensor,
+                    *, out_dtype, precision=None) -> torch.Tensor:
+    """Plain PyTorch version of K7's list walk (any device): gather the
+    product pairs, one batched matmul in full precision (float32 sums for
+    bf16), then ``segment_sum`` by output block in list order; an output
+    with no product is zero."""
+    _check_call(out_dtype, precision)
+    nbz_out = prod_ptr.shape[0] - 1
+    bsz = z1.shape[-1]
+    dev = z1.device
+    ab = prod_ab.long()
+    out_id = torch.repeat_interleave(
+        torch.arange(nbz_out, device=dev), torch.diff(prod_ptr.long()),
+        output_size=ab.shape[0])
+    acc = torch.float64 if out_dtype == torch.float64 else torch.float32
+    if ab.shape[0] == 0:
+        return torch.zeros((nbz_out, bsz, bsz), dtype=out_dtype, device=dev)
+    with full_precision(acc):
+        prods = torch.bmm(z1.to(acc)[ab[:, 0]], z2.to(acc)[ab[:, 1]])
+    return segment_sum(prods, out_id, nbz_out).to(out_dtype)
+
+
+def bsr_slab_issued(prod_ptr, prod_ab, z1: torch.Tensor, z2: torch.Tensor,
+                    *, out_dtype) -> int:
+    """Products K7 multiplies on the list, as the kernel counts them on the
+    card (each team adds the products it walked).  One launch into a
+    scratch output, outside ``K7_LAUNCHES``; CUDA tensors only, so there is
+    no plain version (:func:`bsr_slab_issued_model` is what it should
+    read)."""
+    name = "bsr_slab_issued"
+    _check_call(out_dtype, None)
+    if not _on_cuda(name, prod_ptr, prod_ab, z1, z2):
+        raise ValueError(f"{name}: counts on the card only, got CPU tensors")
+    if prod_ptr.shape[0] <= 1:
+        return 0
+    count = torch.zeros(1, dtype=torch.int64, device=z1.device)
+    _launch_list(name, prod_ptr, prod_ab, z1, z2, z1.shape[-1], out_dtype,
+                 count)
+    return int(count.item())
+
+
+def bsr_slab_issued_model(prod_ptr) -> int:
+    """Host model of :func:`bsr_slab_issued`: every product of the list
+    once, ``prod_ptr[-1]``."""
+    return int(prod_ptr[-1]) if prod_ptr.shape[0] else 0
+
+
 def _run_slabs(pplan: BsrSlabPlan, z1, z2, out_dtype, precision):
     return run_slabs_arrays(
         pplan.a_idx, pplan.b_idx, pplan.oloc, pplan.first, pplan.slab,
         z1, z2, chunks=pplan.chunks, bsz=pplan.bsz, g=pplan.g, p=pplan.p,
         nbz_out=pplan.nbz_out, out_dtype=out_dtype, precision=precision,
         paired=pplan.paired, slab_start=pplan.slab_start)
+
+
+def _apply(name, pplan: BsrSlabPlan, x, y, out_dtype, precision, ka=1):
+    """One prepared apply, C[o] = sum of x[a] @ y[b] over the plan: on the
+    card K7 on the plan's list and the blocks as they are; on the CPU the
+    slot-table plain version, over the blocks with their zero pads (``ka``
+    of them on x)."""
+    _check_call(out_dtype, precision)
+    tensors = (pplan.b_idx, x, y)
+    if pplan.nbz_out == 0 or not _on_cuda(name, *tensors):
+        return _run_slabs(pplan, _append_zero(x, out_dtype, ka),
+                          _append_zero(y, out_dtype), out_dtype, precision)
+    return _launch_list(name, pplan.prod_ptr, pplan.prod_ab, x, y, pplan.bsz,
+                        out_dtype)
 
 
 def bsr_smsmm_apply_slab(pplan: BsrSlabPlan, a: BSR, b: BSR, *,
@@ -519,9 +669,8 @@ def bsr_smsmm_apply_slab(pplan: BsrSlabPlan, a: BSR, b: BSR, *,
     :func:`bsr_smsmm_apply_slab_ad` for autograd."""
     out_dtype = torch.promote_types(a.dtype, b.dtype)
     ka = 2 + (a.blocks.shape[0] & 1) if pplan.paired else 1
-    blocks = _run_slabs(pplan, _append_zero(a.blocks, out_dtype, ka),
-                        _append_zero(b.blocks, out_dtype), out_dtype,
-                        precision)
+    blocks = _apply("bsr_smsmm_apply_slab", pplan, a.blocks, b.blocks,
+                    out_dtype, precision, ka)
     return BSR(indices=pplan.indices, blocks=blocks, n=pplan.n,
                bsz=pplan.bsz)
 
@@ -535,28 +684,24 @@ class _SlabApplyAD(torch.autograd.Function):
         out_dtype = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
         ctx.plans, ctx.precision = plans, precision
         ctx.save_for_backward(a_blocks, b_blocks)
-        return _run_slabs(plans.fwd, _append_zero(a_blocks, out_dtype),
-                          _append_zero(b_blocks, out_dtype), out_dtype,
-                          precision)
+        return _apply("bsr_smsmm_apply_slab_ad", plans.fwd, a_blocks,
+                      b_blocks, out_dtype, precision)
 
     @staticmethod
     def backward(ctx, ct):
         a_blocks, b_blocks = ctx.saved_tensors
         plans, precision = ctx.plans, ctx.precision
         out_dtype = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
-        zc = _append_zero(ct, out_dtype)
+        name = "bsr_smsmm_apply_slab_ad"
         da = db = None
         if ctx.needs_input_grad[2]:
             # dA[a_pos] += dC[seg] @ B[b_pos]^T
-            da = _run_slabs(
-                plans.da, zc, _append_zero(b_blocks.transpose(1, 2),
-                                           out_dtype),
-                out_dtype, precision).to(a_blocks.dtype)
+            da = _apply(name, plans.da, ct, b_blocks.transpose(1, 2),
+                        out_dtype, precision).to(a_blocks.dtype)
         if ctx.needs_input_grad[3]:
             # dB[b_pos] += A[a_pos]^T @ dC[seg]
-            db = _run_slabs(
-                plans.db, _append_zero(a_blocks.transpose(1, 2), out_dtype),
-                zc, out_dtype, precision).to(b_blocks.dtype)
+            db = _apply(name, plans.db, a_blocks.transpose(1, 2), ct,
+                        out_dtype, precision).to(b_blocks.dtype)
         return None, None, da, db
 
 

@@ -113,7 +113,8 @@ def test_apply_matches_reference(nb, bsz, density, g, p):
     carried = interop.slab_plan_from_arrays(
         jpp.a_idx, jpp.b_idx, jpp.oloc, jpp.slab, jpp.first, jpp.indices,
         chunks=jpp.chunks, n=jpp.n, bsz=jpp.bsz, g=jpp.g, p=jpp.p,
-        nbz_out=jpp.nbz_out, paired=jpp.paired, device="cpu")
+        nbz_out=jpp.nbz_out, nbz_a=ja.nbz, nbz_b=jb.nbz, paired=jpp.paired,
+        device="cpu")
     np.testing.assert_allclose(
         _np(tcb.bsr_smsmm_apply_slab(carried, ta, tb).blocks),
         np.asarray(ref.blocks), **F32)

@@ -274,7 +274,9 @@ def _spmm_bound(a, b, stream):
 
 
 def _check_spmm(got, ref, bound, dtype):
-    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    # a bf16 result: both sides round a float32 sum to bf16 once
+    tol = {torch.float64: 1e-12, torch.bfloat16: 2.0 ** -7 + 1e-5}.get(
+        dtype, 1e-5)
     err = (got.double() - ref.double()).abs()
     assert got.shape == ref.shape and torch.isfinite(got).all()
     assert bool((err <= tol * bound).all()), float((err - tol * bound).max())
@@ -330,11 +332,15 @@ def _check_values(got, ref, bound, dtype, values):
 TIERS = {"f32": (torch.float32, None, None),
          "f64": (torch.float64, None, None),
          "bf16": (torch.float32, torch.bfloat16, None),
-         "bf16x3": (torch.float32, None, "bf16x3")}
+         "bf16x3": (torch.float32, None, "bf16x3"),
+         # bf16 blocks and operand: K3 and K6 stream bf16, bf16 results
+         "bf16in": (torch.bfloat16, None, None)}
 
 
 # K3's float32 and bf16 streams run the band body (32 x 128 blocks, the
-# zero-chunk vote), float64 and bf16x3 the first body, as K6 does.  Shapes:
+# zero-chunk vote), K6's the persistent body (one block row x 128 columns
+# per tile, a vote per stored block), both with their issued-work
+# counters; float64 and bf16x3 the first body.  Shapes:
 # bsz 3 and 33 (element copies, ragged 32-row blocks), 8, 24 (a 32-index
 # chunk spans two blocks), 32 (a chunk is a block), 64 (two row blocks per
 # block row); k 1, 5, 33, 65, 70 (element copies or a ragged column
@@ -362,7 +368,7 @@ def test_k3_k6_match_plain_at_odd_shapes(cuda, nb, bsz, hb, k, values, tier):
     _check_values(got, tcb.bell_spmm_fused_plain(a, b, compute_dtype=cd,
                                                  precision=prec), bound, dt,
                   values)
-    if tier in ("f32", "bf16"):  # the band body's own count of its work
+    if tier in ("f32", "bf16", "bf16in"):  # the band body's own count
         issued = tcb.fused_issued_flops(a, b, compute_dtype=cd)
         assert issued == tcb.fused_issued_model(a, k, compute_dtype=cd or dt)
         if values == "lone":
@@ -370,8 +376,18 @@ def test_k3_k6_match_plain_at_odd_shapes(cuda, nb, bsz, hb, k, values, tier):
     if cd is None:  # K6 streams at the result dtype
         got = _twice(lambda: tcb.bell_spmm_block(a, b, precision=prec),
                      "K6_LAUNCHES")
+        assert got.dtype == dt
         _check_values(got, tcb.bell_spmm_block_plain(a, b, precision=prec),
                       bound, dt, values)
+    if tier in ("f32", "bf16in"):  # K6's persistent body counts its work
+        before = tcb.K6_LAUNCHES
+        issued = tcb.block_issued_flops(a, b)
+        assert tcb.K6_LAUNCHES == before
+        assert issued == tcb.block_issued_model(a, k)
+        if values == "lone":  # in row bsz - 1: its 32-row group's rows
+            assert issued == 2 * (bsz - 32 * ((bsz - 1) // 32)) * bsz * k
+        if values == "zero":
+            assert issued == 0
 
 
 @pytest.mark.parametrize("tier", list(TIERS))
@@ -732,59 +748,140 @@ SLAB_DTYPES = {"f32": torch.float32, "f64": torch.float64,
                "bf16": torch.bfloat16}
 
 
+def _k7_twice(fn, count_before):
+    """Two launches of K7 through ``fn``, bitwise equal, two launches
+    counted; returns the first result."""
+    y1, y2 = fn(), fn()
+    torch.cuda.synchronize()
+    assert tbs.K7_LAUNCHES == count_before + 2
+    assert torch.equal(y1, y2)  # bitwise repeatable
+    return y1
+
+
+def _check_list(got, ptr, ab, z1, z2, dtype):
+    """K7's result on a product list against the list walk's plain version,
+    within tol * (|z1||z2|), and the kernel's own count of the products it
+    multiplied against the list's."""
+    ref = tbs.slab_list_plain(ptr, ab, z1, z2, out_dtype=dtype)
+    bound = tbs.slab_list_plain(ptr, ab, z1.abs().double(),
+                                z2.abs().double(), out_dtype=torch.float64)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12,
+           torch.bfloat16: 2.0 ** -7 + 1e-5}[dtype]
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    err = (got.double() - ref.double()).abs()
+    assert bool((err <= tol * bound).all()), float((err - tol * bound).max())
+    assert not got[torch.diff(ptr) == 0].any()  # no product: zeros
+    before = tbs.K7_LAUNCHES
+    assert tbs.bsr_slab_issued(ptr, ab, z1, z2, out_dtype=dtype) == \
+        tbs.bsr_slab_issued_model(ptr)
+    assert tbs.K7_LAUNCHES == before
+
+
+def _k7_route(route, pp, a, b, dt):
+    """K7 through the prepared apply (the plan's list, the blocks as they
+    are) or the raw-array route (the slot tables with appended zeros, a
+    list with the pads built per call); checked against the plain version
+    of the list it walks."""
+    if route == "prepared":
+        got = _k7_twice(lambda: pt.bsr_smsmm_apply_slab(pp, a, b).blocks,
+                        tbs.K7_LAUNCHES)
+        _check_list(got, pp.prod_ptr, pp.prod_ab, a.blocks, b.blocks, dt)
+        return got
+    ka = 2 + (a.nbz & 1) if pp.paired else 1
+    z1 = tbs._append_zero(a.blocks, dt, ka)
+    z2 = tbs._append_zero(b.blocks, dt)
+    args, kw = _slab_raw(pp, z1, z2, dt)
+    got = _k7_twice(lambda: tbs.run_slabs_arrays(*args, **kw),
+                    tbs.K7_LAUNCHES)
+    ptr, ab = tbs.slot_list(pp.a_idx, pp.b_idx, pp.oloc, pp.slab_start,
+                            g=pp.g, p=pp.p, nbz_out=pp.nbz_out,
+                            paired=pp.paired)
+    assert int(ptr[-1]) == pp.b_idx.numel()  # every slot, pads included
+    _check_list(got, ptr, ab, z1, z2, dt)
+    _check_slab(got, z1, z2, pp, dt)
+    return got
+
+
+@pytest.mark.parametrize("route", ["prepared", "raw"])
 @pytest.mark.parametrize("paired", [False, True])
 @pytest.mark.parametrize("dtype", list(SLAB_DTYPES))
 @pytest.mark.parametrize("bsz,nb,density", [(8, 40, 0.12), (16, 25, 0.15),
                                             (32, 16, 0.2), (64, 9, 0.3),
                                             (6, 30, 0.15), (40, 10, 0.3)])
-def test_k7_matches_plain(cuda, bsz, nb, density, dtype, paired):
-    """bsz 8-64 as the route gives them, and 6 and 40 (scalar loads, two
-    row groups); paired schedules with an odd A block count."""
+def test_k7_matches_plain(cuda, bsz, nb, density, dtype, paired, route):
+    """bsz 8-64 as the route gives them, and 6 and 40 (element copies into
+    a padded stage, one warp or four per output); paired schedules with an
+    odd A block count; the prepared route on the plan's list and the raw
+    route on the slot tables, each twice, bitwise equal, with the kernel's
+    product count."""
     dt = SLAB_DTYPES[dtype]
     a = _rand_bsr(nb, bsz, density, nb + bsz, dt, cuda, 1 if paired else None)
     b = _rand_bsr(nb, bsz, density, 3 * nb, dt, cuda)
     plan = pt.bsr_smsmm_prepare(a, b)
     pp = pt.bsr_smsmm_slab_prepare(plan, a.nbz, b.nbz, g=4 if paired else 3,
                                    p=8, paired=paired)
-    before = tbs.K7_LAUNCHES
-    c1 = pt.bsr_smsmm_apply_slab(pp, a, b)
-    c2 = pt.bsr_smsmm_apply_slab(pp, a, b)
-    torch.cuda.synchronize()
-    assert tbs.K7_LAUNCHES == before + 2
-    assert torch.equal(c1.blocks, c2.blocks)  # bitwise repeatable
-    ka = 2 + (a.nbz & 1) if paired else 1
-    _check_slab(c1.blocks, tbs._append_zero(a.blocks, dt, ka),
-                tbs._append_zero(b.blocks, dt), pp, dt)
+    assert int(pp.prod_ptr[-1]) == plan.n_products
+    _k7_route(route, pp, a, b, dt)
 
 
-def test_k7_chunked_plan_and_empty_set(cuda):
-    a = _rand_bsr(40, 8, 0.12, 1, torch.float32, cuda)
-    plan = pt.bsr_smsmm_prepare(a, a)
-    old = tbs._SMEM_BUDGET
-    try:
-        tbs._SMEM_BUDGET = (3 * 2 + 2) * 4 * 256
-        pp = pt.bsr_smsmm_slab_prepare(plan, a.nbz, a.nbz, g=2, p=2)
-    finally:
-        tbs._SMEM_BUDGET = old
-    assert len(pp.chunks) > 1
-    z = tbs._append_zero(a.blocks, torch.float32)
-    args, kw = _slab_raw(pp, z, z, torch.float32)
-    got = tbs.run_slabs_arrays(*args, **kw)  # slab ranges from `first`
-    assert torch.equal(got, pt.bsr_smsmm_apply_slab(pp, a, a).blocks)
-    _check_slab(got, z, z, pp, torch.float32)
+def _one_output(nb, bsz, seed, device):
+    """A stored block row times a stored block column: one output block
+    with nb products."""
+    rng = np.random.default_rng(seed)
+    blocks = torch.from_numpy(rng.standard_normal((2, nb, bsz, bsz))).float()
+    a = pt.BSR(indices=torch.arange(nb, dtype=torch.int32, device=device),
+               blocks=blocks[0].to(device), n=nb * bsz, bsz=bsz)
+    b = pt.BSR(indices=torch.arange(nb, dtype=torch.int32,
+                                    device=device) * nb,
+               blocks=blocks[1].to(device), n=nb * bsz, bsz=bsz)
+    return a, b
+
+
+@pytest.mark.parametrize("route", ["prepared", "raw"])
+@pytest.mark.parametrize("case", ["chunked", "one_output"])
+def test_k7_chunked_plan_and_empty_set(cuda, case, route):
+    """A plan in several reference chunks, and one output block of 40
+    products; then a product set that is empty."""
+    if case == "chunked":
+        a = b = _rand_bsr(40, 8, 0.12, 1, torch.float32, cuda)
+        plan = pt.bsr_smsmm_prepare(a, a)
+        old = tbs._SMEM_BUDGET
+        try:
+            tbs._SMEM_BUDGET = (3 * 2 + 2) * 4 * 256
+            pp = pt.bsr_smsmm_slab_prepare(plan, a.nbz, a.nbz, g=2, p=2)
+        finally:
+            tbs._SMEM_BUDGET = old
+        assert len(pp.chunks) > 1
+    else:
+        a, b = _one_output(40, 32, 8, cuda)
+        plan = pt.bsr_smsmm_prepare(a, b)
+        pp = pt.bsr_smsmm_slab_prepare(plan, a.nbz, b.nbz, g=4, p=4)
+        assert pp.nbz_out == 1 and int(pp.prod_ptr[-1]) == 40
+    got = _k7_route(route, pp, a, b, torch.float32)
+    z1 = tbs._append_zero(a.blocks, torch.float32)
+    z2 = tbs._append_zero(b.blocks, torch.float32)
+    args, kw = _slab_raw(pp, z1, z2, torch.float32)
+    _check_slab(got, z1, z2, pp, torch.float32)
+    # the raw route without the plan's slab ranges (read off `first`)
+    assert torch.equal(tbs.run_slabs_arrays(*args, **kw),
+                       tbs.run_slabs_arrays(*args, **kw,
+                                            slab_start=pp.slab_start))
     e = pt.BSR(indices=torch.tensor([1], dtype=torch.int32, device=cuda),
                blocks=torch.ones(1, 8, 8, device=cuda), n=16, bsz=8)
     pe = pt.bsr_smsmm_slab_prepare(pt.bsr_smsmm_prepare(e, e), 1, 1)
     assert pt.bsr_smsmm_apply_slab(pe, e, e).blocks.shape == (0, 8, 8)
 
 
+@pytest.mark.parametrize("density", [0.2, 0.06])
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
-def test_k7_gradients(cuda, dtype):
-    """dA and dB are K7 on the permuted schedules; they agree with torch
-    autograd through the plain ``bsr_smsmm_apply``."""
+def test_k7_gradients(cuda, dtype, density):
+    """dA and dB are K7 on the permuted schedules' lists; they agree with
+    torch autograd through the plain ``bsr_smsmm_apply``.  At density 0.06
+    some stored blocks meet no product: their gradient is zero."""
     dt = SLAB_DTYPES[dtype]
-    a = _rand_bsr(16, 32, 0.2, 4, dt, cuda)
-    b = _rand_bsr(16, 32, 0.2, 5, dt, cuda)
+    a = _rand_bsr(16, 32, density, 4, dt, cuda)
+    b = _rand_bsr(16, 32, density, 5, dt, cuda)
     plan = pt.bsr_smsmm_prepare(a, b)
     plans = pt.bsr_smsmm_slab_prepare_ad(plan, a.nbz, b.nbz)
     ct = torch.from_numpy(np.random.default_rng(6).standard_normal(
@@ -802,6 +899,8 @@ def test_k7_gradients(cuda, dtype):
         grads.append((ab.grad, bb.grad, tbs.K7_LAUNCHES - before))
     (ga, gb, launched), (ra, rb, none) = grads
     assert launched == 3 and none == 0
+    if density < 0.1:
+        assert bool((torch.diff(plans.da.prod_ptr) == 0).any())
     tol = 1e-5 if dt == torch.float32 else 1e-12
     for g, r, z1, z2, pp in (
             (ga, ra, tbs._append_zero(ct, dt),
@@ -809,6 +908,7 @@ def test_k7_gradients(cuda, dtype):
             (gb, rb, tbs._append_zero(a.blocks.transpose(1, 2), dt),
              tbs._append_zero(ct, dt), plans.db)):
         _check_slab(g, z1, z2, pp, dt)
+        _check_list(g, pp.prod_ptr, pp.prod_ab, z1[:-1], z2[:-1], dt)
         args, kw = _slab_raw(pp, z1.abs().double(), z2.abs().double(),
                              torch.float64)
         bound = tbs.run_slabs_arrays_plain(*args, **kw)
