@@ -57,7 +57,17 @@ call) against their plain versions and read the kernel's count of the
 products it multiplied, which must equal ``prod_ptr[-1]``.  K7's yardstick
 is two library calls, the gathered block pairs through ``torch.bmm`` and
 ``index_add_`` into the output blocks, since cuSPARSE refuses the
-fixture's ``A_csr @ A_csr``.
+fixture's ``A_csr @ A_csr`` (timed in float32, bf16 and float64).  The
+fifth slice is plain PyTorch: phase 16 runs the direct solver on
+``benchmarks/suite.py``'s 32 x 32-block band (half-width 2, seed 21) at nb
+256, 1024 and 4096 (``bsr_lu_find_fills`` + ``bsr_lu_numeric_prepare``,
+``bsr_lu_numeric_apply``, ``bsr_factorize(a).solve(b)``, ``bsr_forsolve``,
+on the host clock), with the residual through the SpMV main path and the
+solution against SciPy's ``spsolve``; phase 17 runs block-Jacobi and
+ILU(0) on the suite's SPD band, ``csr_sub`` / ``csr_add`` on band-10M,
+``bsr_add`` / ``bsr_mul`` on elasticity-400k, ``tri_smm`` / ``trap_smm`` at
+n = 8192 and ``msr_smvm`` on 500,000 rows against float64 oracles, and
+validates every matrix it built.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -1997,6 +2007,17 @@ def phase12_slab_timing(card, m, launches):
         pp, ab, ab), flops, nbytes, card)
     _report_spmm("run_slabs_arrays (raw)", lambda: cuda_bsr.run_slabs_arrays(
         *args, **kw, slab_start=pp.slab_start), flops, nbytes, card)
+    # The yardstick: the same block products as gathered block pairs
+    # through torch.bmm, summed into the output blocks by index_add_ (two
+    # library calls, the gathers included; the port never calls it)
+    a_pos, b_pos = plan.a_pos.long(), plan.b_pos.long()
+    seg = plan.seg.long()
+
+    def yardstick(blocks=ab.blocks):
+        out = blocks.new_zeros(plan.nbz_out, bsz, bsz)
+        return out.index_add_(0, seg, torch.bmm(blocks[a_pos],
+                                                blocks[b_pos]))
+
     kinds = {}
     for dt in (torch.bfloat16, torch.float64):
         x = pt.BSR(indices=ab.indices, blocks=ab.blocks.to(dt), n=ab.n,
@@ -2014,8 +2035,10 @@ def phase12_slab_timing(card, m, launches):
               f"prepared apply {ms_dt:.4f} ms back to back, bound "
               f"{b_ms:.4f} ms ({b_by}), {b_ms / ms_dt:.1%} of it [{card}]",
               flush=True)
+        lib_dt = library_ms(f"torch.bmm + index_add_ in {kind} (K7's "
+                            "yardstick)", lambda: yardstick(x.blocks), card)
         kinds[kind] = {"apply_ms": ms_dt, "bound_ms": b_ms, "bound_by": b_by,
-                       "max_abs_err": e}
+                       "max_abs_err": e, "library_ms": lib_dt}
         del x
 
     def chain():
@@ -2041,17 +2064,6 @@ def phase12_slab_timing(card, m, launches):
     csr = torch_csr(a)
     csr_ms = library_ms("A_csr @ A_csr", lambda: csr @ csr, card, n=5)
     del csr
-    # The yardstick: the same block products as gathered block pairs
-    # through torch.bmm, summed into the output blocks by index_add_ (two
-    # library calls, the gathers included; the port never calls it)
-    a_pos, b_pos = plan.a_pos.long(), plan.b_pos.long()
-    seg = plan.seg.long()
-
-    def yardstick(blocks=ab.blocks):
-        out = blocks.new_zeros(plan.nbz_out, bsz, bsz)
-        return out.index_add_(0, seg, torch.bmm(blocks[a_pos],
-                                                blocks[b_pos]))
-
     with full_precision(torch.float32):  # no TF32, as K7 computes
         c7 = pt.bsr_smsmm_apply_slab(pp, ab, ab).blocks
         e7 = check_close("two-call yardstick vs K7", yardstick(), c7,
@@ -2409,6 +2421,445 @@ def phase15_timing(card, sl, m, band_lib, launches):
     return out
 
 
+# -- slice 5: the direct solver, preconditioners, algebra, packed formats ---
+
+#: benchmarks/suite.py:1134-1189: the block band's block size and
+#: half-width, and the block-column counts of its LU section
+LU_BSZ, LU_HALF = 32, 2
+LU_NBS = (256, 1024, 4096)
+#: the SPD band of its solver section (suite.py:1207-1208)
+SPD_NB = 2000
+#: the size of the packed-format products (the blocked packed path) and of
+#: the mono matrix
+PACKED_N = 8192
+MONO_N = 500_000
+#: a solve's relative residual ||A x - b|| / ||b|| (float32), and its
+#: relative distance from SciPy's float64 solve
+RESID_TOL = 1e-4
+SOLVE_TOL = 1e-3
+
+
+def _suite_bands(nbs=(256, 1024, 4096), spd_nb=SPD_NB):
+    """The float32 block bands of ``benchmarks/suite.py:1137-1166``
+    (``block_band``: bsz 32, half-width 2, one pool of 521 blocks of
+    N(0, 0.05^2) from ``default_rng(21)``, +4 I on the diagonal blocks; the
+    SPD variant mirrors the blocks and symmetrizes the diagonal ones) in the
+    suite's draw order: the band and the sweep's right-hand side for nb
+    256, 1024 and 4096, then the SPD band at nb 2000.  Returns ({nb: (rows,
+    cols, blocks)}, (rows, cols, blocks) of the SPD band)."""
+    bsz, half = LU_BSZ, LU_HALF
+    rng = np.random.default_rng(21)
+
+    def block_band(nb, spd=False):
+        rows, cols = [], []
+        for off in range(-half, half + 1):
+            r = np.arange(max(0, -off), min(nb, nb - off), dtype=np.int64)
+            rows.append(r)
+            cols.append(r + off)
+        rows, cols = np.concatenate(rows), np.concatenate(cols)
+        order = np.lexsort((cols, rows))
+        rows, cols = rows[order], cols[order]
+        pool = rng.standard_normal(521 * bsz * bsz).astype(np.float32) * 0.05
+        blocks = pool.reshape(521, bsz, bsz)[np.arange(rows.size) % 521]
+        if spd:
+            mirror = {(int(r), int(c)): i
+                      for i, (r, c) in enumerate(zip(rows, cols))}
+            for i, (r, c) in enumerate(zip(rows, cols)):
+                if r < c:
+                    blocks[mirror[(int(c), int(r))]] = blocks[i].T
+                elif r == c:
+                    blocks[i] = (blocks[i] + blocks[i].T) / 2 \
+                        + np.eye(bsz, dtype=np.float32) * 4.0
+        else:
+            blocks[rows == cols] += np.eye(bsz, dtype=np.float32) * 4.0
+        return rows, cols, blocks
+
+    bands = {}
+    for nb in nbs:
+        bands[nb] = block_band(nb)
+        rng.standard_normal(nb * bsz)  # the suite's sweep right-hand side
+    return bands, block_band(spd_nb, spd=True)
+
+
+def _band_bsr(nb, band):
+    """The port's BSR (on the card) and SciPy's float64 CSR of a band."""
+    import scipy.sparse as sp
+
+    from sparse_tpu_torch import interop
+
+    rows, cols, blocks = band
+    a = interop.bsr_from_arrays(rows * nb + cols, blocks, nb * LU_BSZ,
+                                LU_BSZ)
+    s = sp.bsr_matrix((blocks.astype(np.float64), cols,
+                       np.searchsorted(rows, np.arange(nb + 1))),
+                      shape=(nb * LU_BSZ,) * 2).tocsr()
+    return a, s
+
+
+def _host_s(fn):
+    """Host seconds of ``fn()`` with the card synchronised on each side;
+    returns (seconds, result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _same_bits(label, *pairs):
+    for x, y in pairs:
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: two runs differ")
+
+
+def _rel(x, y):
+    """||x - y|| / ||y|| in float64."""
+    return float(torch.linalg.vector_norm(x.double() - y.double())
+                 / torch.linalg.vector_norm(y.double()))
+
+
+def phase16_direct_solver(card, bands):
+    """The direct solver at the suite's block band (nb in ``LU_NBS``):
+    ``bsr_lu_find_fills`` + ``bsr_lu_numeric_prepare`` (host),
+    ``bsr_lu_numeric_apply(pivot=True)``, ``bsr_factorize(a).solve(b)`` and
+    ``bsr_forsolve``, each on the host clock around the card; the residual
+    through ``smvm_prepare(bsr_to_csr(a)).apply``, the port's SpMV main
+    path (the caller reads its kernel's launch count around this phase);
+    ``x`` against SciPy's float64 ``spsolve``; two runs bitwise equal.
+    Plain PyTorch: no hand-written kernel runs in the factorization."""
+    import scipy.sparse.linalg as spla
+
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.utils.validate import validate_bsr, validate_csr
+
+    out = {}
+    for nb in LU_NBS:
+        a, s = _band_bsr(nb, bands[nb])
+        n = a.n
+        rng = np.random.default_rng(1600 + nb)
+        b_np = rng.standard_normal(n).astype(np.float32)
+        b = torch.from_numpy(b_np).cuda()
+        t_sym, (fills, plan) = _host_s(lambda: (pt.bsr_lu_find_fills(a),
+                                                pt.bsr_lu_numeric_prepare(a)))
+        if fills.size:
+            raise AssertionError(f"nb {nb}: the band has {len(fills)} fills")
+        t_lu, (lu, p) = _host_s(lambda: pt.bsr_lu_numeric_apply(plan, a))
+        t_lu2, (lu2, p2) = _host_s(lambda: pt.bsr_lu_numeric_apply(plan, a))
+        _same_bits(f"nb {nb} bsr_lu_numeric_apply", (lu.blocks, lu2.blocks),
+                   (p, p2))
+        del lu2, p2
+        t_fact, fact = _host_s(lambda: pt.bsr_factorize(a))
+        _same_bits(f"nb {nb} bsr_factorize vs the numeric apply",
+                   (fact.lu.blocks, lu.blocks), (fact.p, p))
+        t_solve, x = _host_s(lambda: fact.solve(b))
+        _same_bits(f"nb {nb} solve", (x, fact.solve(b)))
+        t_fwd, y = _host_s(lambda: pt.bsr_forsolve(fact.lu, b[p.long()],
+                                                   fact.fplan))
+        if not torch.isfinite(x).all() or not torch.isfinite(y).all():
+            raise AssertionError(f"nb {nb}: non-finite solve")
+        # the residual through the SpMV main path
+        t_csr, csr = _host_s(lambda: pt.bsr_to_csr(a))
+        t_prep, splan = _host_s(lambda: pt.smvm_prepare(csr))
+        resid = _rel(splan.apply(x), b)
+        if not resid <= RESID_TOL:
+            raise AssertionError(f"nb {nb}: ||Ax - b|| / ||b|| = {resid:.3e} "
+                                 f"> {RESID_TOL}")
+        t0 = time.perf_counter()
+        x_ref = spla.spsolve(s.tocsc(), b_np.astype(np.float64),
+                             permc_spec="NATURAL")
+        t_sp = time.perf_counter() - t0
+        err = _rel(x, torch.from_numpy(x_ref).cuda())
+        if not err <= SOLVE_TOL:
+            raise AssertionError(f"nb {nb}: ||x - x_spsolve|| / ||x_spsolve||"
+                                 f" = {err:.3e} > {SOLVE_TOL}")
+        t_val, _ = _host_s(lambda: (validate_bsr(a), validate_bsr(fact.lu),
+                                    validate_csr(csr)))
+        mb = a.blocks.numel() * a.blocks.element_size() / 1e6
+        print(f"   nb {nb}: n {n}, {a.nbz} blocks ({mb:.1f} MB), no fill; "
+              f"find_fills + numeric_prepare {t_sym:.3f} s; "
+              f"bsr_lu_numeric_apply {t_lu:.3f} s, again {t_lu2:.3f} s "
+              f"({t_lu / nb * 1e3:.3f} ms per block column); bsr_factorize "
+              f"{t_fact:.3f} s; solve {t_solve:.3f} s; bsr_forsolve "
+              f"{t_fwd:.3f} s (host clock around the card) [{card}]",
+              flush=True)
+        print(f"   nb {nb}: residual through smvm_prepare(bsr_to_csr(a))"
+              f".apply, rung {splan.kind}: {resid:.3e}; |x - spsolve| / "
+              f"|spsolve| {err:.3e} (SciPy float64, {t_sp:.2f} s); "
+              f"bsr_to_csr {t_csr:.2f} s, smvm_prepare {t_prep:.2f} s; "
+              f"validate_bsr x2 + validate_csr {t_val:.2f} s; bitwise "
+              "repeatable", flush=True)
+        out[nb] = dict(rung=splan.kind, find_fills_prepare_s=t_sym,
+                       numeric_apply_s=t_lu, factorize_s=t_fact,
+                       solve_s=t_solve, forsolve_s=t_fwd, residual=resid,
+                       vs_spsolve=err)
+        del a, s, lu, fact, x, y, csr, splan
+    return out
+
+
+def _check_rel(label, got, want, tol):
+    err = _rel(got, want)
+    if not err <= tol:
+        raise AssertionError(f"{label}: relative error {err:.3e} > {tol}")
+    return err
+
+
+def _timed(label, fn, card):
+    """One call's host seconds (first call), then back-to-back ms."""
+    t, out = _host_s(fn)
+    ms, fastest = pipelined_ms(fn, warmup=1, n=5, windows=3)
+    print(f"   {label}: first call {t:.3f} s; {ms:.4f} ms back to back "
+          f"(median window; fastest {fastest:.4f}) [{card}]", flush=True)
+    return out, ms
+
+
+def _phase17_preconditioners(card, spd):
+    """block-Jacobi and ILU(0) on the SPD band at nb 2000, against NumPy /
+    SciPy in float64."""
+    import scipy.sparse.linalg as spla
+
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.utils.validate import validate_bsr, validate_csr
+
+    rows, cols, blocks = spd
+    nb = int(rows.max()) + 1
+    a, s = _band_bsr(nb, spd)
+    n = a.n
+    rng = np.random.default_rng(17)
+    v_np = rng.standard_normal(n).astype(np.float32)
+    v = torch.from_numpy(v_np).cuda()
+    a_csr = pt.bsr_to_csr(a)
+    inv, ms_prep = _timed("block_jacobi_prepare(bs 32)",
+                          lambda: pt.block_jacobi_prepare(a_csr, LU_BSZ), card)
+    z, ms_app = _timed("block_jacobi_apply",
+                       lambda: pt.block_jacobi_apply(inv, v), card)
+    inv64 = np.linalg.inv(blocks[rows == cols].astype(np.float64))
+    vb = v_np.astype(np.float64).reshape(nb, LU_BSZ)
+    z_ref = np.einsum("bij,bj->bi", inv64, vb).reshape(-1)
+    bound = np.einsum("bij,bj->bi", np.abs(inv64), np.abs(vb)).reshape(-1)
+    e_bj = check_close("block_jacobi_apply vs numpy", z,
+                       torch.from_numpy(z_ref).cuda(),
+                       torch.from_numpy(bound).cuda(), torch.float32)
+    if pt.bsr_lu_find_fills(a).size:
+        raise AssertionError("the SPD band has fill: ILU(0) is not exact")
+    t_ilu, m = _host_s(lambda: pt.bsr_ilu0_preconditioner(a))
+    t_app, w = _host_s(lambda: m(v))
+    _same_bits("ILU(0) apply", (w, m(v)))
+    w64 = w.double().cpu().numpy()
+    back = _check_rel("A M(v) vs v", torch.from_numpy(s @ w64),
+                      torch.from_numpy(v_np.astype(np.float64)), RESID_TOL)
+    x_ref = spla.spsolve(s.tocsc(), v_np.astype(np.float64),
+                         permc_spec="NATURAL")
+    e_ilu = _check_rel("M(v) vs spsolve", w, torch.from_numpy(x_ref).cuda(),
+                       SOLVE_TOL)
+    validate_bsr(a)
+    validate_csr(a_csr)
+    print(f"   SPD band nb {nb} (n {n}): block-Jacobi max|z - numpy| "
+          f"{e_bj:.3e} (within 1e-5 |M||v|); ILU(0) set-up {t_ilu:.3f} s, "
+          f"apply {t_app:.3f} s (host clock), ||A M(v) - v|| / ||v|| "
+          f"{back:.3e}, |M(v) - spsolve| / |spsolve| {e_ilu:.3e} [{card}]",
+          flush=True)
+    return dict(block_jacobi_prepare_ms=ms_prep, block_jacobi_apply_ms=ms_app,
+                ilu0_setup_s=t_ilu, ilu0_apply_s=t_app, ilu0_residual=back)
+
+
+def _phase17_csr_algebra(card, a, s):
+    """``csr_sub(A, σ·csr_eye)`` and ``csr_add`` on band-10M: stored
+    structure, capacity and nnz exactly against SciPy's union pattern,
+    values within 1e-5 of |A| + σ against SciPy in float64 on A's stored
+    float32 values (``s``, the float64 draws, gives the pattern)."""
+    import scipy.sparse as sp
+
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.utils.validate import validate_csr
+
+    n = a.shape[0]
+    k0 = int(a.indptr[-1])
+    sa = sp.csr_matrix((a.data[:k0].double().cpu().numpy(),
+                        a.indices[:k0].cpu().numpy(),
+                        a.indptr.cpu().numpy()), shape=a.shape)
+    if not (np.array_equal(sa.indptr, s.indptr)
+            and np.array_equal(sa.indices, s.indices)):
+        raise AssertionError("band-10M: stored pattern differs from SciPy's")
+    sigma = 0.5
+    eye = pt.csr_scale(sigma, pt.csr_eye(n, n, a.dtype))
+    sub, ms_sub = _timed("csr_sub(A, σ I) on band-10M",
+                         lambda: pt.csr_sub(a, eye), card)
+    add, ms_add = _timed("csr_add(A - σ I, A)", lambda: pt.csr_add(sub, a),
+                         card)
+    i64 = sp.identity(n, format="csr")
+    union = (abs(sa) + i64).tocsr()
+    union.sort_indices()
+    for label, c, nse, ref, bnd in (
+            ("csr_sub", sub, a.nse + n, sa - sigma * i64,
+             abs(sa) + sigma * i64),
+            ("csr_add", add, 2 * a.nse + n, 2 * sa - sigma * i64,
+             2 * abs(sa) + sigma * i64)):
+        if c.nse != nse:
+            raise AssertionError(f"{label}: capacity {c.nse}, expected {nse}")
+        k = int(c.indptr[-1])
+        if not (np.array_equal(c.indptr.cpu().numpy(), union.indptr)
+                and np.array_equal(c.indices[:k].cpu().numpy(),
+                                   union.indices)):
+            raise AssertionError(f"{label}: stored structure differs from "
+                                 "the union pattern")
+        ref, bnd = ref.tocsr(), bnd.tocsr()
+        for m in (ref, bnd):
+            m.sort_indices()
+        if ref.nnz != k or bnd.nnz != k:  # SciPy drops exact zeros
+            raise AssertionError(f"{label}: an entry cancelled exactly")
+        nnz = int(pt.csr_nnz(c))
+        if nnz != k:
+            raise AssertionError(f"{label}: nnz {nnz} != {k} stored")
+        err = check_close(f"{label} values", c.data[:k],
+                          torch.from_numpy(ref.data).cuda(),
+                          torch.from_numpy(bnd.data).cuda(), torch.float32)
+        validate_csr(c)
+        print(f"   {label}: capacity {c.nse}, {k} stored = SciPy's union of "
+              f"A's pattern and I, nnz {nnz}; max|value - SciPy| "
+              f"{err:.3e}", flush=True)
+    validate_csr(a)
+    return dict(csr_sub_ms=ms_sub, csr_add_ms=ms_add)
+
+
+def _phase17_bsr_algebra(card, ab):
+    """``bsr_add`` / ``bsr_mul`` of the elasticity BSR and a BSR on every
+    third of its blocks (random values): structure, capacity and nnz
+    exactly, values against NumPy in float64."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.utils.validate import validate_bsr
+
+    idx = ab.indices.cpu().numpy().astype(np.int64)
+    blocks = ab.blocks.double().cpu().numpy()
+    sel = np.flatnonzero(idx % 3 == 0)
+    rng = np.random.default_rng(171)
+    bvals = rng.standard_normal((sel.size, 2, 2)).astype(np.float32)
+    b = pt.BSR(indices=ab.indices[torch.from_numpy(sel).cuda()],
+               blocks=torch.from_numpy(bvals).cuda(), n=ab.n, bsz=2)
+    add, ms_add = _timed(f"bsr_add ({ab.nbz} + {b.nbz} 2x2 blocks)",
+                         lambda: pt.bsr_add(ab, b), card)
+    mul, ms_mul = _timed("bsr_mul", lambda: pt.bsr_mul(ab, b), card)
+    want_add = blocks.copy()
+    want_add[sel] += bvals
+    bnd_add = np.abs(blocks)
+    bnd_add[sel] += np.abs(bvals)
+    want_mul = blocks[sel] * bvals
+    for label, c, nbz, want_idx, want, bnd in (
+            ("bsr_add", add, ab.nbz + b.nbz, idx, want_add, bnd_add),
+            ("bsr_mul", mul, ab.nbz, idx[sel], want_mul, np.abs(want_mul))):
+        k = want_idx.size
+        got_idx = c.indices.cpu().numpy().astype(np.int64)
+        if c.nbz != nbz or not np.array_equal(got_idx[:k], want_idx) \
+                or not (got_idx[k:] == ab.sentinel).all():
+            raise AssertionError(f"{label}: stored structure or capacity "
+                                 "differs")
+        err = check_close(f"{label} values", c.blocks[:k],
+                          torch.from_numpy(want).cuda(),
+                          torch.from_numpy(bnd).cuda(), torch.float32)
+        nnz = int(pt.bsr_nnz(c))
+        if nnz != int(np.count_nonzero(want)):
+            raise AssertionError(f"{label}: nnz {nnz} != NumPy's")
+        validate_bsr(c)
+        print(f"   {label}: capacity {c.nbz}, {k} stored blocks, nnz {nnz}; "
+              f"max|value - numpy| {err:.3e}", flush=True)
+    validate_bsr(ab)
+    validate_bsr(b)
+    return dict(bsr_add_ms=ms_add, bsr_mul_ms=ms_mul)
+
+
+def _packed_oracle(label, got, dense_a, dense_b, lower):
+    """Every packed entry against the float64 product on the card, within
+    1e-5 (|A||B|)."""
+    ref = dense_a.double() @ dense_b.double()
+    bnd = dense_a.double().abs() @ dense_b.double().abs()
+    mask = torch.tril if lower else torch.triu
+    return check_close(label, got.double(), mask(ref), mask(bnd),
+                       torch.float32)
+
+
+def _phase17_packed(card):
+    """``tri_smm`` and ``trap_smm`` at n = PACKED_N (the blocked packed
+    path) against the float64 product, every entry, and NumPy float64 on
+    sampled entries; ``msr_smvm`` on a MONO_N-row permutation with scale,
+    bit for bit against NumPy's float32 product."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.formats import trapezoidal as trap_mod
+    from sparse_tpu_torch.formats import triangular as tri_mod
+    from sparse_tpu_torch.utils.validate import validate_msr
+
+    n = PACKED_N
+    if n <= tri_mod._TRI_DENSE_MAX:
+        raise AssertionError("PACKED_N does not reach the blocked path")
+    gen = torch.Generator(device="cuda").manual_seed(172)
+    P = pt.tri_elements(n)
+    ta = pt.Triangular(torch.randn(P, device="cuda", generator=gen), n, True)
+    tb = pt.Triangular(torch.randn(P, device="cuda", generator=gen), n, True)
+    tc, ms_tri = _timed(f"tri_smm n {n} ({P} packed entries, "
+                        f"{P * 4 / 1e6:.1f} MB)", lambda: pt.tri_smm(ta, tb),
+                        card)
+    e_tri = _packed_oracle("tri_smm vs float64", pt.tri_todense(tc),
+                           pt.tri_todense(ta), pt.tri_todense(tb), True)
+    # NumPy float64 on sampled entries of the packed data
+    ad, bd, cd = (x.data.cpu().numpy() for x in (ta, tb, tc))
+    rng = np.random.default_rng(173)
+    B = tri_mod._TRI_BLOCK  # sample both sides of a tile boundary
+    rows = np.r_[0, n - 1, n - 1, B - 1, B, rng.integers(0, n, 120)]
+    cols = np.r_[0, 0, n - 1, B - 1, 0,
+                 [rng.integers(0, r + 1) for r in rows[5:]]]
+    for r, c in zip(rows, cols):
+        k = np.arange(c, r + 1)
+        ar = ad[r * (r + 1) // 2 + k].astype(np.float64)
+        bc = bd[k * (k + 1) // 2 + c].astype(np.float64)
+        if abs(cd[r * (r + 1) // 2 + c] - ar @ bc) \
+                > TOL[torch.float32] * (np.abs(ar) @ np.abs(bc)):
+            raise AssertionError(f"tri_smm ({r}, {c}) vs numpy")
+    del ta, tb, tc, ad, bd, cd
+    m, k = n * 3 // 4, n
+    xa = pt.Trapezoidal(torch.randn(pt.trap_elements(n, m), device="cuda",
+                                    generator=gen), n, m, True)
+    xb = pt.Trapezoidal(torch.randn(pt.trap_elements(m, k), device="cuda",
+                                    generator=gen), m, k, True)
+    if max(n, m, k) <= trap_mod._TRAP_DENSE_MAX:
+        raise AssertionError("trap_smm does not reach the blocked path")
+    xc, ms_trap = _timed(f"trap_smm ({n} x {m}) @ ({m} x {k})",
+                         lambda: pt.trap_smm(xa, xb), card)
+    e_trap = _packed_oracle("trap_smm vs float64", pt.trap_todense(xc),
+                            pt.trap_todense(xa), pt.trap_todense(xb), True)
+    del xa, xb, xc
+    # mono: a permutation with scale
+    perm = np.random.default_rng(174).permutation(MONO_N)
+    vals = np.random.default_rng(175).standard_normal(MONO_N).astype(
+        np.float32)
+    v_np = np.random.default_rng(176).standard_normal(MONO_N).astype(
+        np.float32)
+    msr = pt.msr_from_triples(MONO_N, MONO_N, zip(range(MONO_N),
+                                                  perm.tolist(),
+                                                  vals.tolist()),
+                              dtype=torch.float32)
+    v = torch.from_numpy(v_np).cuda()
+    y, ms_mono = _timed(f"msr_smvm ({MONO_N} rows)",
+                        lambda: pt.msr_smvm(msr, v), card)
+    if not np.array_equal(y.cpu().numpy(), vals * v_np[perm]):
+        raise AssertionError("msr_smvm differs from numpy's float32 product")
+    validate_msr(msr)
+    print(f"   tri_smm max|C - float64| {e_tri:.3e}, trap_smm {e_trap:.3e} "
+          f"(within 1e-5 |A||B| at every entry; tri_smm also against numpy "
+          f"float64 at {rows.size} sampled entries); msr_smvm equal to "
+          "numpy's float32 product", flush=True)
+    return dict(tri_smm_ms=ms_tri, trap_smm_ms=ms_trap, msr_smvm_ms=ms_mono)
+
+
+def phase17_precond_algebra_packed(card, spd, band, ela_bsr):
+    """Preconditioners on the SPD band, the CSR algebra on band-10M, the
+    BSR algebra on elasticity-400k, the packed formats at n = 8192 and the
+    mono SpMV, each against SciPy / NumPy in float64, with the matrices
+    validated."""
+    out = _phase17_preconditioners(card, spd)
+    out.update(_phase17_csr_algebra(card, *band))
+    out.update(_phase17_bsr_algebra(card, ela_bsr))
+    out.update(_phase17_packed(card))
+    return out
+
+
 def main():
     with Phase("phase 0: device", 60):
         card = phase0_device()
@@ -2488,6 +2939,27 @@ def main():
                300):
         kernels += phase15_timing(card, slice_run, spmm_run,
                                   band["library_ms"], slice_launches)
+    bands, spd = _suite_bands()
+    # the solve's residual runs the SpMV main path: counts start at 0 here
+    cuda_csr.K1_LAUNCHES = 0
+    cuda_csr_block.K2_LAUNCHES = 0
+    with Phase("phase 16: the direct solver at the suite's block band", 600):
+        solver = phase16_direct_solver(card, bands)
+    solver_launches = {"K1": cuda_csr.K1_LAUNCHES,
+                       "K2": cuda_csr_block.K2_LAUNCHES}
+    print(f"   solver-residual launches: {solver_launches}", flush=True)
+    rung_kernel = {"segtile": "K1", "blockseg": "K2"}
+    for nb, rec in solver.items():
+        kname = rung_kernel.get(rec["rung"])
+        if kname is None or solver_launches[kname] <= 0:
+            raise AssertionError(f"nb {nb}: the residual's rung "
+                                 f"{rec['rung']} launched no SpMV kernel")
+    with Phase("phase 17: preconditioners, algebra, packed formats", 400):
+        slice5 = phase17_precond_algebra_packed(
+            card, spd, (slice_run["a"], slice_run["s"]),
+            ela["plan"].state[0])
+    print(json.dumps({"solver": {str(k): v for k, v in solver.items()},
+                      "slice5": slice5, "card": card}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

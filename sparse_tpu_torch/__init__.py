@@ -20,6 +20,12 @@ and K1-mxu), the dense-band SpMM of ``benchmarks/measure_dband.py`` (K8,
 ``ops/cuda_dband.py``), Matrix Market input (``io/``) and the roofline
 model on the H100's own figures (``utils/stats.py``, ``utils/profiling.py``).
 On CPU tensors every kernel wrapper runs its plain PyTorch version instead.
+The fifth slice is plain PyTorch, as the reference is plain XLA there: the
+element-wise algebra of COO/CSR/CSC/BSR, the mono (MSR/MSC), packed
+triangular and trapezoidal formats, ``utils/validate.py``, the dense LU
+(``linalg/``) and the block-LU direct solver with its preconditioners
+(``solve/``: ``bsr_lup``, ``bsr_factorize(a).solve(b)``, ``bsr_ols``,
+block-Jacobi and ILU(0)).
 
 Constructors that take host data (lists, NumPy arrays, files) build on the
 card unless asked otherwise: ``device="cpu"``, or CPU tensors, for the CPU.
@@ -39,26 +45,40 @@ from .formats.bsr import (
     BSR,
     BSR_MAX_NB,
     BsrSmsmmPlan,
+    bsr_add,
     bsr_compact,
+    bsr_diag,
+    bsr_eye,
     bsr_from_coo,
+    bsr_from_dense,
+    bsr_make,
+    bsr_mul,
+    bsr_nnz,
+    bsr_scale,
     bsr_smsmm,
     bsr_smsmm_apply,
     bsr_smsmm_core,
     bsr_smsmm_prepare,
     bsr_smvm,
+    bsr_sub,
     bsr_to_coo,
     bsr_to_csr,
     bsr_todense,
+    bsr_transpose,
     bsr_zero,
     csr_to_bsr,
 )
 from .formats.coo import (
     COO,
+    coo_compact,
+    coo_concatenate,
     coo_from_dense,
     coo_from_triples,
     coo_make,
     coo_nnz,
     coo_normalize,
+    coo_pad_to,
+    coo_scale,
     coo_sort,
     coo_todense,
     coo_transpose,
@@ -66,25 +86,117 @@ from .formats.coo import (
 from .formats.csr import (
     CSC,
     CSR,
+    csc_add,
+    csc_diag,
+    csc_empty,
+    csc_eye,
     csc_from_coo,
     csc_from_dense,
     csc_from_triples,
+    csc_nnz,
+    csc_scale,
+    csc_sub,
     csc_to_coo,
     csc_todense,
     csc_transpose,
     csc_vsmm,
+    csr_add,
     csr_compact,
+    csr_diag,
+    csr_diagonal,
     csr_empty,
+    csr_eye,
     csr_from_coo,
     csr_from_dense,
     csr_from_triples,
     csr_nnz,
+    csr_scale,
     csr_smvm,
+    csr_sub,
     csr_to_coo,
     csr_todense,
     csr_transpose,
 )
+from .formats.mono import (
+    MSC,
+    MSR,
+    debug_checks,
+    msc_add,
+    msc_diag,
+    msc_empty,
+    msc_eye,
+    msc_from_coo,
+    msc_from_triples,
+    msc_nnz,
+    msc_scale,
+    msc_sub,
+    msc_to_coo,
+    msc_todense,
+    msc_transpose,
+    msc_vsmm,
+    msr_add,
+    msr_diag,
+    msr_dmsmm,
+    msr_empty,
+    msr_eye,
+    msr_from_coo,
+    msr_from_triples,
+    msr_nnz,
+    msr_scale,
+    msr_smvm,
+    msr_sub,
+    msr_to_coo,
+    msr_todense,
+    msr_transpose,
+    msr_vsmm,
+)
+from .formats.trapezoidal import (
+    Trapezoidal,
+    trap_add,
+    trap_diag,
+    trap_elements,
+    trap_eye,
+    trap_from_dense,
+    trap_idx,
+    trap_map,
+    trap_nnz,
+    trap_scale,
+    trap_smm,
+    trap_sub,
+    trap_todense,
+    trap_transpose,
+    trap_zero,
+)
+from .formats.triangular import (
+    Triangular,
+    tri_add,
+    tri_diag,
+    tri_elements,
+    tri_eye,
+    tri_from_dense,
+    tri_idx,
+    tri_map,
+    tri_nnz,
+    tri_scale,
+    tri_smm,
+    tri_sub,
+    tri_todense,
+    tri_transpose,
+    tri_zero,
+)
 from .io import mm_read, mm_read_coo, mm_write
+from .linalg.dense import (
+    backsolve_dense,
+    forsolve_dense,
+    lu_dense,
+    lup_dense,
+    perm_compose,
+    perm_id,
+    perm_inverse,
+    perm_to_matrix,
+    permute,
+    rowsolve_upper,
+)
 from .ops.bsr_ell import bsr_row_capacity, bsr_smvm_ell, bsr_spmm_ell
 from .ops.cuda_bell import (
     BandedKit,
@@ -151,20 +263,71 @@ from .ops.spmv import (
     csr_spmm_fast,
     row_capacity,
 )
+from .solve.bsr_lu import (
+    BSRFactorization,
+    LuNumericPlan,
+    TriSolvePlan,
+    bsr_backsolve,
+    bsr_factorize,
+    bsr_forsolve,
+    bsr_lower,
+    bsr_lu,
+    bsr_lu_find_fills,
+    bsr_lu_nofill,
+    bsr_lu_numeric_apply,
+    bsr_lu_numeric_prepare,
+    bsr_lup,
+    bsr_lup_nofill,
+    bsr_ols,
+    bsr_tri_plan,
+    bsr_upper,
+)
+from .solve.precond import (
+    block_jacobi_apply,
+    block_jacobi_prepare,
+    bsr_ilu0_preconditioner,
+)
 
 __all__ = [
     "BELL", "bell_from_bsr", "bell_from_csr", "bell_smvm", "bell_spmm",
     "bell_todense",
-    "BSR", "BSR_MAX_NB", "BsrSmsmmPlan", "bsr_compact", "bsr_from_coo",
-    "bsr_smsmm", "bsr_smsmm_apply", "bsr_smsmm_core", "bsr_smsmm_prepare",
-    "bsr_smvm", "bsr_to_coo", "bsr_to_csr", "bsr_todense", "bsr_zero",
+    "BSR", "BSR_MAX_NB", "BsrSmsmmPlan", "bsr_add", "bsr_compact",
+    "bsr_diag", "bsr_eye", "bsr_from_coo", "bsr_from_dense", "bsr_make",
+    "bsr_mul", "bsr_nnz", "bsr_scale", "bsr_smsmm", "bsr_smsmm_apply",
+    "bsr_smsmm_core", "bsr_smsmm_prepare", "bsr_smvm", "bsr_sub",
+    "bsr_to_coo", "bsr_to_csr", "bsr_todense", "bsr_transpose", "bsr_zero",
     "csr_to_bsr",
-    "COO", "coo_from_dense", "coo_from_triples", "coo_make", "coo_nnz",
-    "coo_normalize", "coo_sort", "coo_todense", "coo_transpose",
-    "CSC", "CSR", "csc_from_coo", "csc_from_dense", "csc_from_triples",
-    "csc_to_coo", "csc_todense", "csc_transpose", "csc_vsmm", "csr_compact",
-    "csr_empty", "csr_from_coo", "csr_from_dense", "csr_from_triples",
-    "csr_nnz", "csr_smvm", "csr_to_coo", "csr_todense", "csr_transpose",
+    "COO", "coo_compact", "coo_concatenate", "coo_from_dense",
+    "coo_from_triples", "coo_make", "coo_nnz", "coo_normalize", "coo_pad_to",
+    "coo_scale", "coo_sort", "coo_todense", "coo_transpose",
+    "CSC", "CSR", "csc_add", "csc_diag", "csc_empty", "csc_eye",
+    "csc_from_coo", "csc_from_dense", "csc_from_triples", "csc_nnz",
+    "csc_scale", "csc_sub", "csc_to_coo", "csc_todense", "csc_transpose",
+    "csc_vsmm", "csr_add", "csr_compact", "csr_diag", "csr_diagonal",
+    "csr_empty", "csr_eye", "csr_from_coo", "csr_from_dense",
+    "csr_from_triples", "csr_nnz", "csr_scale", "csr_smvm", "csr_sub",
+    "csr_to_coo", "csr_todense", "csr_transpose",
+    "MSC", "MSR", "debug_checks", "msc_add", "msc_diag", "msc_empty",
+    "msc_eye", "msc_from_coo", "msc_from_triples", "msc_nnz", "msc_scale",
+    "msc_sub", "msc_to_coo", "msc_todense", "msc_transpose", "msc_vsmm",
+    "msr_add", "msr_diag", "msr_dmsmm", "msr_empty", "msr_eye",
+    "msr_from_coo", "msr_from_triples", "msr_nnz", "msr_scale", "msr_smvm",
+    "msr_sub", "msr_to_coo", "msr_todense", "msr_transpose", "msr_vsmm",
+    "Trapezoidal", "trap_add", "trap_diag", "trap_elements", "trap_eye",
+    "trap_from_dense", "trap_idx", "trap_map", "trap_nnz", "trap_scale",
+    "trap_smm", "trap_sub", "trap_todense", "trap_transpose", "trap_zero",
+    "Triangular", "tri_add", "tri_diag", "tri_elements", "tri_eye",
+    "tri_from_dense", "tri_idx", "tri_map", "tri_nnz", "tri_scale",
+    "tri_smm", "tri_sub", "tri_todense", "tri_transpose", "tri_zero",
+    "backsolve_dense", "forsolve_dense", "lu_dense", "lup_dense",
+    "perm_compose", "perm_id", "perm_inverse", "perm_to_matrix", "permute",
+    "rowsolve_upper",
+    "BSRFactorization", "LuNumericPlan", "TriSolvePlan", "bsr_backsolve",
+    "bsr_factorize", "bsr_forsolve", "bsr_lower", "bsr_lu",
+    "bsr_lu_find_fills", "bsr_lu_nofill", "bsr_lu_numeric_apply",
+    "bsr_lu_numeric_prepare", "bsr_lup", "bsr_lup_nofill", "bsr_ols",
+    "bsr_tri_plan", "bsr_upper",
+    "block_jacobi_apply", "block_jacobi_prepare", "bsr_ilu0_preconditioner",
     "BsrSlabPlan", "BsrSlabPlanAD", "bsr_smsmm_apply_slab",
     "bsr_smsmm_apply_slab_ad", "bsr_smsmm_slab_prepare",
     "bsr_smsmm_slab_prepare_ad",

@@ -35,7 +35,17 @@ from .coo import COO, coo_normalize
 __all__ = [
     "BSR",
     "BSR_MAX_NB",
+    "bsr_make",
     "bsr_zero",
+    "bsr_eye",
+    "bsr_diag",
+    "bsr_from_dense",
+    "bsr_transpose",
+    "bsr_add",
+    "bsr_sub",
+    "bsr_mul",
+    "bsr_scale",
+    "bsr_nnz",
     "bsr_smvm",
     "bsr_smsmm",
     "bsr_smsmm_core",
@@ -88,6 +98,20 @@ class BSR:
     def device(self) -> torch.device:
         return self.blocks.device
 
+    def __add__(self, other: "BSR") -> "BSR":
+        return bsr_add(self, other)
+
+    def __sub__(self, other: "BSR") -> "BSR":
+        return bsr_sub(self, other)
+
+    def __mul__(self, v) -> "BSR":
+        if isinstance(v, BSR):
+            return bsr_mul(self, v)
+        return bsr_scale(v, self)
+
+    def __rmul__(self, v) -> "BSR":
+        return bsr_scale(v, self)
+
     def __matmul__(self, other):
         if isinstance(other, BSR):
             return bsr_smsmm(self, other)
@@ -97,8 +121,15 @@ class BSR:
             return bsr_smvm(self, other)
         return NotImplemented
 
+    @property
+    def T(self) -> "BSR":
+        return bsr_transpose(self)
+
     def todense(self) -> torch.Tensor:
         return bsr_todense(self)
+
+    def nnz(self) -> torch.Tensor:
+        return bsr_nnz(self)
 
 
 BSR_MAX_NB = 46340
@@ -166,6 +197,105 @@ def bsr_zero(n: int, bsz: int, nbz: int = 0, dtype=torch.float32, *,
                                   device=device),
                blocks=torch.zeros((nbz, bsz, bsz), dtype=dtype,
                                   device=device), n=n, bsz=bsz)
+
+
+def _host_block(x):
+    """One block entry as a NumPy array; a bf16 tensor as float32, which
+    holds every bf16 value exactly."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def bsr_make(n: int, bsz: int, entries, dtype=None, *, device=None) -> BSR:
+    """Construction from ``[(r, c, block), ...]`` block triples with
+    host-side bounds checks (reference ``mk``, blocked_square_regular.fut:
+    195-201); duplicate coordinates are summed.  ``dtype`` defaults to the
+    first block's tensor dtype, else NumPy's; builds on ``device``, else the
+    first block's device when it is a tensor, else CUDA."""
+    _check_divides(n, bsz)
+    nb = n // bsz
+    entries = list(entries)
+    first = entries[0][2] if entries else None
+    device = resolve_device(device, first)
+    if dtype is None and isinstance(first, torch.Tensor):
+        dtype = first.dtype
+    if not entries:
+        return bsr_zero(n, bsz, 0, dtype or torch.float32, device=device)
+    rs = np.asarray([e[0] for e in entries], np.int64)
+    cs = np.asarray([e[1] for e in entries], np.int64)
+    blks = np.stack([_host_block(e[2]) for e in entries])
+    if blks.shape[1:] != (bsz, bsz):
+        raise ValueError(f"blocks must be {bsz}x{bsz}; got {blks.shape[1:]}")
+    if rs.min() < 0 or rs.max() >= nb or cs.min() < 0 or cs.max() >= nb:
+        raise ValueError(f"block coordinate out of bounds for {nb}x{nb} "
+                         "blocks")
+    blocks = torch.from_numpy(np.ascontiguousarray(blks))
+    if dtype is not None:
+        blocks = blocks.to(dtype)
+    idxs = torch.from_numpy(rs * nb + cs).to(_bidx_dtype(nb))
+    return _merge_blocks(n, bsz, idxs.to(device), blocks.to(device))
+
+
+def bsr_eye(n: int, bsz: int, dtype=torch.float32, *, device=None) -> BSR:
+    """Identity (reference ``eye``, blocked_square_regular.fut:208-210), on
+    ``device`` (default CUDA)."""
+    _check_divides(n, bsz)
+    device = resolve_device(device)
+    nb = n // bsz
+    i = torch.arange(nb, dtype=_bidx_dtype(nb), device=device)
+    blk = torch.eye(bsz, dtype=dtype, device=device)
+    return BSR(indices=i * nb + i, blocks=blk.expand(nb, bsz, bsz).clone(),
+               n=n, bsz=bsz)
+
+
+def bsr_diag(v, bsz: int, *, device=None) -> BSR:
+    """Diagonal matrix from a length-n vector (reference ``diag``,
+    blocked_square_regular.fut:301-305), on ``device``, else ``v``'s
+    device, else CUDA."""
+    v = torch.as_tensor(v, device=resolve_device(device, v))
+    n = v.shape[0]
+    _check_divides(n, bsz)
+    nb = n // bsz
+    i = torch.arange(nb, dtype=_bidx_dtype(nb), device=v.device)
+    eye = torch.eye(bsz, dtype=v.dtype, device=v.device)
+    return BSR(indices=i * nb + i,
+               blocks=v.reshape(nb, bsz)[:, :, None] * eye[None], n=n,
+               bsz=bsz)
+
+
+def bsr_from_dense(x, bsz: int, nbz: int | None = None, *,
+                   device=None) -> BSR:
+    """The non-zero blocks of a dense square matrix, in block-row-major
+    order; ``nbz`` fixes the capacity (default: the non-zero block count).
+    Builds on ``device``, else ``x``'s device when it is a tensor, else
+    CUDA."""
+    x = torch.as_tensor(x, device=resolve_device(device, x))
+    n = x.shape[0]
+    if tuple(x.shape) != (n, n):
+        raise ValueError(f"BSR matrices are square; got {tuple(x.shape)}")
+    _check_divides(n, bsz)
+    nb = n // bsz
+    total = nb * nb
+    xb = x.reshape(nb, bsz, nb, bsz).permute(0, 2, 1, 3).reshape(
+        total, bsz, bsz)
+    nz = torch.any((xb != 0).reshape(total, -1), dim=1)
+    if nbz is None:
+        nbz = int(torch.sum(nz))
+    order = torch.argsort((~nz).to(torch.int8), stable=True)
+    if nbz <= total:
+        idx = order[:nbz]
+        taken = nz[idx]
+    else:
+        pad = nbz - total
+        idx = torch.cat([order, order.new_zeros(pad)])
+        taken = torch.cat([nz[order], nz.new_zeros(pad)])
+    idxs = torch.where(taken, idx, torch.full_like(idx, total))
+    blocks = torch.where(taken[:, None, None], xb[idx] if total else
+                         xb.new_zeros((nbz, bsz, bsz)),
+                         torch.zeros((), dtype=x.dtype, device=x.device))
+    return _merge_blocks(n, bsz, idxs.to(_bidx_dtype(nb)), blocks)
 
 
 def bsr_todense(a: BSR) -> torch.Tensor:
@@ -329,6 +459,61 @@ def bsr_compact(a: BSR) -> BSR:
     """Trim capacity to the exact valid block count (host sync)."""
     k = int(torch.sum(a.indices.long() < a.sentinel))
     return BSR(indices=a.indices[:k], blocks=a.blocks[:k], n=a.n, bsz=a.bsz)
+
+
+def bsr_transpose(a: BSR) -> BSR:
+    """Swap block coordinates and transpose each block (reference
+    ``transp``, blocked_square_regular.fut:226-232); one sort restores the
+    sorted-indices invariant."""
+    valid, r, c = _rc(a)
+    new_idx = torch.where(valid, c * a.nb + r, torch.full_like(r, a.sentinel))
+    return _merge_blocks(a.n, a.bsz, new_idx.to(a.indices.dtype),
+                         a.blocks.transpose(1, 2))
+
+
+def bsr_add(a: BSR, b: BSR) -> BSR:
+    """Element-wise addition by block-set union (reference ``add``,
+    blocked_square_regular.fut:258-275).  Capacity = nbz(a) + nbz(b)."""
+    _check_compat(a, b, "add")
+    return _merge_blocks(a.n, a.bsz, torch.cat([a.indices, b.indices]),
+                         torch.cat([a.blocks, b.blocks]))
+
+
+def bsr_sub(a: BSR, b: BSR) -> BSR:
+    """Element-wise subtraction (reference ``sub``,
+    blocked_square_regular.fut:277-278)."""
+    return bsr_add(a, bsr_scale(-1, b))
+
+
+def bsr_mul(a: BSR, b: BSR) -> BSR:
+    """Element-wise (Hadamard) product by block-set intersection, a
+    ``searchsorted`` of ``a``'s blocks in ``b``'s (reference ``mul``,
+    blocked_square_regular.fut:280-290).  Capacity = nbz(a)."""
+    _check_compat(a, b, "mul")
+    if a.nbz == 0 or b.nbz == 0:
+        return bsr_zero(a.n, a.bsz, a.nbz,
+                        torch.promote_types(a.dtype, b.dtype),
+                        device=a.device)
+    ai, bi = a.indices.long(), b.indices.long()
+    pos = torch.searchsorted(bi, ai).clamp(max=b.nbz - 1)
+    found = (bi[pos] == ai) & (ai < a.sentinel)
+    idxs = torch.where(found, ai, torch.full_like(ai, a.sentinel))
+    prod = a.blocks * b.blocks[pos]
+    blocks = torch.where(found[:, None, None], prod, torch.zeros_like(prod))
+    return _merge_blocks(a.n, a.bsz, idxs.to(a.indices.dtype), blocks)
+
+
+def bsr_scale(v, a: BSR) -> BSR:
+    """Scale all elements (reference ``scale``, blocked_square_regular.fut:
+    292-296)."""
+    return dataclasses.replace(a, blocks=a.blocks * v)
+
+
+def bsr_nnz(a: BSR) -> torch.Tensor:
+    """Non-zero scalars inside valid blocks (the reference's zero-filtering
+    ``coo``, blocked_square_regular.fut:614)."""
+    valid, _, _ = _rc(a)
+    return torch.sum((a.blocks != 0) & valid[:, None, None]).to(INDEX_DTYPE)
 
 
 def _check_compat(a: BSR, b: BSR, op: str) -> None:

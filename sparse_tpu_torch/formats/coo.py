@@ -27,6 +27,10 @@ __all__ = [
     "coo_from_dense",
     "coo_transpose",
     "coo_nnz",
+    "coo_pad_to",
+    "coo_concatenate",
+    "coo_compact",
+    "coo_scale",
 ]
 
 
@@ -103,6 +107,31 @@ def coo_from_triples(n: int, m: int, triples, dtype=None, *,
         data = data.to(dtype)
     return coo_make((n, m), torch.from_numpy(rows), torch.from_numpy(cols),
                     data, device=resolve_device(device))
+
+
+def coo_pad_to(a: COO, nse: int) -> COO:
+    """Pad to capacity ``nse`` with sentinel entries; shrinking raises."""
+    cur = a.nse
+    if nse < cur:
+        raise ValueError(f"cannot shrink COO capacity {cur} -> {nse}; use "
+                         "coo_compact")
+    if nse == cur:
+        return a
+    n, m = a.shape
+    extra = nse - cur
+    return COO(row=torch.cat([a.row, a.row.new_full((extra,), n)]),
+               col=torch.cat([a.col, a.col.new_full((extra,), m)]),
+               data=torch.cat([a.data, a.data.new_zeros(extra)]),
+               shape=a.shape)
+
+
+def coo_concatenate(a: COO, b: COO) -> COO:
+    """Both entry lists, ``a``'s first (duplicates are summed later, by
+    :func:`coo_normalize`)."""
+    if a.shape != b.shape:
+        raise ValueError(f"shape mismatch: {a.shape} vs {b.shape}")
+    return COO(row=torch.cat([a.row, b.row]), col=torch.cat([a.col, b.col]),
+               data=torch.cat([a.data, b.data]), shape=a.shape)
 
 
 def coo_sort(a: COO) -> COO:
@@ -193,3 +222,14 @@ def coo_nnz(a: COO) -> torch.Tensor:
     stored zeros do not count)."""
     n, _ = a.shape
     return torch.sum((a.row < n) & (a.data != 0)).to(INDEX_DTYPE)
+
+
+def coo_compact(a: COO) -> COO:
+    """Normalize, then trim padding to the exact valid count (host sync)."""
+    a = coo_normalize(a)
+    k = int(torch.sum(a.row < a.shape[0]))
+    return COO(row=a.row[:k], col=a.col[:k], data=a.data[:k], shape=a.shape)
+
+
+def coo_scale(v, a: COO) -> COO:
+    return dataclasses.replace(a, data=a.data * v)

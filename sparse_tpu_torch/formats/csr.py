@@ -15,8 +15,9 @@ compressed.fut:61-332):
 
 Construction sums duplicate triples (compressed.fut:154-160) and ``nnz``
 counts only non-zero stored values (compressed.fut:162-164).  ``CSR @ CSC``
-is SpGEMM (``ops/spgemm.py``), as in the reference.  The CSR/COO algebra
-(``add``/``sub``/``scale``) is not ported yet.
+is SpGEMM (``ops/spgemm.py``), as in the reference.  ``+``/``-`` merge by
+COO concatenation and rebuild, so cancellations stay stored as explicit
+zeros (compressed.fut:179-183); the result's capacity is nse(a) + nse(b).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from .._device import resolve_device
 from ..ops.segmented import INDEX_DTYPE, row_ids_from_indptr, segment_sum
 from .coo import (
     COO,
+    coo_concatenate,
     coo_from_dense,
     coo_from_triples,
     coo_normalize,
@@ -40,6 +42,8 @@ __all__ = [
     "CSR",
     "CSC",
     "csr_empty",
+    "csr_eye",
+    "csr_diag",
     "csr_compact",
     "csr_from_coo",
     "csr_from_dense",
@@ -47,14 +51,25 @@ __all__ = [
     "csr_to_coo",
     "csr_todense",
     "csr_smvm",
+    "csr_scale",
+    "csr_add",
+    "csr_sub",
+    "csr_diagonal",
     "csr_nnz",
     "csr_transpose",
+    "csc_empty",
+    "csc_eye",
+    "csc_diag",
     "csc_from_coo",
     "csc_from_triples",
     "csc_from_dense",
     "csc_to_coo",
     "csc_todense",
     "csc_vsmm",
+    "csc_scale",
+    "csc_add",
+    "csc_sub",
+    "csc_nnz",
     "csc_transpose",
 ]
 
@@ -99,12 +114,29 @@ class CSR:
             return spmm(self, other)
         return NotImplemented
 
+    def __add__(self, other: "CSR") -> "CSR":
+        return csr_add(self, other)
+
+    def __sub__(self, other: "CSR") -> "CSR":
+        return csr_sub(self, other)
+
+    def __mul__(self, v) -> "CSR":
+        return csr_scale(v, self)
+
+    __rmul__ = __mul__
+
     @property
     def T(self) -> "CSC":
         return csr_transpose(self)
 
     def todense(self) -> torch.Tensor:
         return csr_todense(self)
+
+    def tocoo(self) -> COO:
+        return csr_to_coo(self)
+
+    def nnz(self) -> torch.Tensor:
+        return csr_nnz(self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +161,17 @@ class CSC:
     def device(self) -> torch.device:
         return self.data.device
 
+    def __add__(self, other: "CSC") -> "CSC":
+        return csc_add(self, other)
+
+    def __sub__(self, other: "CSC") -> "CSC":
+        return csc_sub(self, other)
+
+    def __mul__(self, v) -> "CSC":
+        return csc_scale(v, self)
+
+    __rmul__ = __mul__
+
     def __rmatmul__(self, v):
         v = torch.as_tensor(v, device=self.device)
         if v.dim() == 1:
@@ -141,6 +184,12 @@ class CSC:
 
     def todense(self) -> torch.Tensor:
         return csc_todense(self)
+
+    def tocoo(self) -> COO:
+        return csc_to_coo(self)
+
+    def nnz(self) -> torch.Tensor:
+        return csc_nnz(self)
 
 
 # -- transpose duality (O(1), no data movement) ------------------------------
@@ -174,6 +223,30 @@ def csr_empty(n: int, m: int, nse: int = 0, dtype=torch.float32, *,
                indices=torch.zeros(nse, dtype=INDEX_DTYPE, device=device),
                indptr=torch.zeros(n + 1, dtype=INDEX_DTYPE, device=device),
                shape=(n, m))
+
+
+def csr_eye(n: int, m: int, dtype=torch.float32, *, device=None) -> CSR:
+    """Identity (reference ``eye``, compressed.fut:105-113), on ``device``
+    (default CUDA)."""
+    device = resolve_device(device)
+    e = min(n, m)
+    indptr = torch.cat([torch.arange(e + 1, dtype=INDEX_DTYPE, device=device),
+                        torch.full((n - e,), e, dtype=INDEX_DTYPE,
+                                   device=device)])
+    return CSR(data=torch.ones(e, dtype=dtype, device=device),
+               indices=torch.arange(e, dtype=INDEX_DTYPE, device=device),
+               indptr=indptr, shape=(n, m))
+
+
+def csr_diag(v, *, device=None) -> CSR:
+    """Diagonal matrix from a vector (reference ``diag``,
+    compressed.fut:115), on ``device``, else ``v``'s device, else CUDA."""
+    v = torch.as_tensor(v, device=resolve_device(device, v))
+    n = v.shape[0]
+    return CSR(data=v,
+               indices=torch.arange(n, dtype=INDEX_DTYPE, device=v.device),
+               indptr=torch.arange(n + 1, dtype=INDEX_DTYPE, device=v.device),
+               shape=(n, n))
 
 
 def csr_from_coo(a: COO) -> CSR:
@@ -240,6 +313,38 @@ def csr_smvm(a: CSR, v) -> torch.Tensor:
     return segment_sum(prods, rows, n, indices_are_sorted=True)
 
 
+def csr_scale(v, a: CSR) -> CSR:
+    """Scale all elements (reference ``scale``, compressed.fut:148-152)."""
+    return dataclasses.replace(a, data=a.data * v)
+
+
+def csr_add(a: CSR, b: CSR) -> CSR:
+    """Element-wise add by COO concatenation + rebuild: the duplicate sum
+    performs the addition (reference ``+``, compressed.fut:179-180).
+    Capacity of the result = nse(a) + nse(b)."""
+    if a.shape != b.shape:
+        raise ValueError(f"shape mismatch: {a.shape} vs {b.shape}")
+    return csr_from_coo(coo_concatenate(csr_to_coo(a), csr_to_coo(b)))
+
+
+def csr_sub(a: CSR, b: CSR) -> CSR:
+    """Element-wise subtract (reference ``-``, compressed.fut:182-183)."""
+    return csr_add(a, csr_scale(-1, b))
+
+
+def csr_diagonal(a: CSR) -> torch.Tensor:
+    """The main diagonal as a dense vector (stored zeros included; absent
+    entries are 0)."""
+    n, m = a.shape
+    k = min(n, m)
+    if a.nse == 0 or k == 0:
+        return torch.zeros(k, dtype=a.dtype, device=a.device)
+    rows = row_ids_from_indptr(a.indptr, a.nse)
+    on_diag = (rows < n) & (a.indices == rows)
+    contrib = torch.where(on_diag, a.data, torch.zeros_like(a.data))
+    return segment_sum(contrib, rows, n, indices_are_sorted=True)[:k]
+
+
 def csr_compact(a: CSR) -> CSR:
     """Trim capacity to the exact valid entry count (host sync)."""
     k = int(a.indptr[-1])
@@ -255,6 +360,19 @@ def csr_nnz(a: CSR) -> torch.Tensor:
 
 
 # -- CSC: delegation through the transpose duality ----------------------------
+
+
+def csc_empty(n: int, m: int, nse: int = 0, dtype=torch.float32, *,
+              device=None) -> CSC:
+    return csr_transpose(csr_empty(m, n, nse, dtype, device=device))
+
+
+def csc_eye(n: int, m: int, dtype=torch.float32, *, device=None) -> CSC:
+    return csr_transpose(csr_eye(m, n, dtype, device=device))
+
+
+def csc_diag(v, *, device=None) -> CSC:
+    return csr_transpose(csr_diag(v, device=device))
 
 
 def csc_from_coo(a: COO) -> CSC:
@@ -284,3 +402,21 @@ def csc_todense(a: CSC) -> torch.Tensor:
 def csc_vsmm(v, a: CSC) -> torch.Tensor:
     """Vector-matrix multiply v . A (reference ``vsmm``, compressed.fut:223)."""
     return csr_smvm(_csc_as_csr_t(a), v)
+
+
+def csc_scale(v, a: CSC) -> CSC:
+    return dataclasses.replace(a, data=a.data * v)
+
+
+def csc_add(a: CSC, b: CSC) -> CSC:
+    if a.shape != b.shape:
+        raise ValueError(f"shape mismatch: {a.shape} vs {b.shape}")
+    return csr_transpose(csr_add(_csc_as_csr_t(a), _csc_as_csr_t(b)))
+
+
+def csc_sub(a: CSC, b: CSC) -> CSC:
+    return csc_add(a, csc_scale(-1, b))
+
+
+def csc_nnz(a: CSC) -> torch.Tensor:
+    return csr_nnz(_csc_as_csr_t(a))

@@ -25,6 +25,9 @@ from .formats.bell import BELL
 from .formats.bsr import BSR, BsrSmsmmPlan, _bidx_dtype
 from .formats.coo import COO
 from .formats.csr import CSR
+from .formats.mono import MSR
+from .formats.trapezoidal import Trapezoidal
+from .formats.triangular import Triangular
 from .ops.cuda_bell import BandedKit, BandedKitT, BandedPlan
 from .ops.cuda_bsr import BsrSlabPlan, BsrSlabPlanAD, slot_list
 from .ops.cuda_csr import SegTilePlan, seg_tiles_stream
@@ -34,11 +37,17 @@ from .ops.hub_split import HubSplit
 from .ops.segmented import INDEX_DTYPE
 from .ops.spgemm import SpgemmPlan
 from .ops.spmv import SpmvPlan
+from .solve.bsr_lu import LuNumericPlan, TriSolvePlan
 
 __all__ = [
     "coo_from_arrays",
     "csr_from_arrays",
     "bsr_from_arrays",
+    "msr_from_arrays",
+    "triangular_from_arrays",
+    "trapezoidal_from_arrays",
+    "lu_plan_from_arrays",
+    "tri_plan_from_arrays",
     "seg_tile_plan_from_arrays",
     "block_seg_tile_plan_from_arrays",
     "smvm_plan_from_arrays",
@@ -82,6 +91,39 @@ def bsr_from_arrays(indices, blocks, n, bsz, *, device=None) -> BSR:
     nb = int(n) // int(bsz)
     return BSR(indices=_t(indices, device, _bidx_dtype(nb)),
                blocks=_t(blocks, device), n=int(n), bsz=int(bsz))
+
+
+def msr_from_arrays(col_idx, vals, shape, *, device=None) -> MSR:
+    return MSR(col_idx=_t(col_idx, device, INDEX_DTYPE),
+               vals=_t(vals, device), shape=(int(shape[0]), int(shape[1])))
+
+
+def triangular_from_arrays(data, n, lower, *, device=None) -> Triangular:
+    return Triangular(data=_t(data, device), n=int(n), lower=bool(lower))
+
+
+def trapezoidal_from_arrays(data, n, m, lower, *,
+                            device=None) -> Trapezoidal:
+    return Trapezoidal(data=_t(data, device), n=int(n), m=int(m),
+                       lower=bool(lower))
+
+
+def lu_plan_from_arrays(diag, p21, p12, s1, s2, st, pleft, *, nb, bsz,
+                        device=None) -> LuNumericPlan:
+    """The reference's ``LuNumericPlan`` (its seven index arrays, padded
+    lanes at the scratch slot ``nbz``) for ``bsr_lu_numeric_apply``."""
+    return LuNumericPlan(*(_t(x, device, torch.int32) for x in (
+        diag, p21, p12, s1, s2, st, pleft)), nb=int(nb), bsz=int(bsz))
+
+
+def tri_plan_from_arrays(off_pos, off_col, diag_pos, *, lower,
+                         device=None) -> TriSolvePlan:
+    """The reference's ``TriSolvePlan`` for ``bsr_forsolve`` /
+    ``bsr_backsolve``."""
+    return TriSolvePlan(off_pos=_t(off_pos, device, torch.int32),
+                        off_col=_t(off_col, device, torch.int32),
+                        diag_pos=_t(diag_pos, device, torch.int32),
+                        lower=bool(lower))
 
 
 def seg_tile_plan_from_arrays(vals, q, seg_of, rb, *, n, m, n_tiles, fill,

@@ -1117,3 +1117,57 @@ def test_mm_read_lands_on_the_card(cuda):
     y = pt.smvm_prepare(a).apply(torch.from_numpy(v).float().to(cuda))
     _assert_close(_np(y), s @ v.astype(np.float32).astype(np.float64), s,
                   v.astype(np.float32), np.float32)
+
+
+# -- the block LU's steps replayed as one CUDA graph ---------------------------
+
+
+def _lu_band(nb, bsz, seed, device):
+    """A float64 block band (half-width 2, +4 I on the diagonal) as a BSR
+    on ``device``."""
+    rng = np.random.default_rng(seed)
+    rows, cols = np.nonzero(np.abs(np.subtract.outer(np.arange(nb),
+                                                     np.arange(nb))) <= 2)
+    blocks = rng.standard_normal((rows.size, bsz, bsz)) * 0.05
+    blocks[rows == cols] += 4 * np.eye(bsz)
+    return interop.bsr_from_arrays(rows * nb + cols, blocks, nb * bsz, bsz,
+                                   device=device)
+
+
+@pytest.mark.parametrize("pivot", [True, False])
+def test_lu_graph_replay_matches_step_loop(cuda, monkeypatch, pivot):
+    """The numeric LU and both sweeps, replayed as one CUDA graph, equal
+    the step-by-step loop on the card bit for bit, and the CPU's factors
+    within 1e-12 (float64)."""
+    import importlib
+
+    lu_mod = importlib.import_module("sparse_tpu_torch.solve.bsr_lu")
+    a = _lu_band(40, 8, 3, cuda)
+    plan = pt.bsr_lu_numeric_prepare(a)
+    b = torch.randn(a.n, dtype=torch.float64, device=cuda)
+
+    def run():
+        lu, p = pt.bsr_lu_numeric_apply(plan, a, pivot)
+        y = pt.bsr_forsolve(lu, b[p.long()])
+        return lu.blocks, p, pt.bsr_backsolve(lu, y)
+
+    graph = run()
+
+    def loop(step, count, device):
+        for _ in range(count):
+            step()
+
+    monkeypatch.setattr(lu_mod, "_repeat", loop)
+    steps = run()
+    for g, s in zip(graph, steps):
+        assert torch.equal(g, s)
+    cpu = interop.bsr_from_arrays(a.indices.cpu(), a.blocks.cpu(), a.n,
+                                  a.bsz, device="cpu")
+    lu_cpu, p_cpu = pt.bsr_lu_numeric_apply(
+        pt.bsr_lu_numeric_prepare(cpu), cpu, pivot)
+    assert torch.equal(p_cpu, graph[1].cpu())
+    np.testing.assert_allclose(_np(graph[0]), _np(lu_cpu.blocks),
+                               rtol=1e-12, atol=1e-12)
+    x = _np(graph[2])
+    dense = _np(a.todense())
+    np.testing.assert_allclose(dense @ x, _np(b), rtol=1e-10, atol=1e-10)
