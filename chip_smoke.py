@@ -67,7 +67,20 @@ solution against SciPy's ``spsolve``; phase 17 runs block-Jacobi and
 ILU(0) on the suite's SPD band, ``csr_sub`` / ``csr_add`` on band-10M,
 ``bsr_add`` / ``bsr_mul`` on elasticity-400k, ``tri_smm`` / ``trap_smm`` at
 n = 8192 and ``msr_smvm`` on 500,000 rows against float64 oracles, and
-validates every matrix it built.
+validates every matrix it built.  The sixth slice is the distributed
+layer (``sparse_tpu_torch.parallel``): phase 18 runs it on an in-process
+mesh of 4 shards on the card — ``pcsr_spmv``, the three halo SpMVs and
+``halo_spmm`` (k = 32) on band-10M, ``halo_spmv_segtile`` launching K1
+once per shard per apply, and at one shard beside the bare K1 on the same
+compact stream; ``phub_spmv`` on the 1M-row power-law graph; ``pbell_smvm``
+/ ``pbell_spmm`` on bench.py's band; CG, PCG (Jacobi, block-Jacobi,
+ILU(0)), BiCGSTAB and GMRES on the suite's SPD band through ``PCSR`` and
+``HaloSegtile`` at 1 and 4 shards, float64, each residual against the same
+iterations in NumPy; ``pcsr_spgemm_aa`` / ``pcsr_transpose_device`` on
+elasticity-400k and ``pbsr_smsmm`` / ``pbsr_smsmm_slab`` (K7 once per
+shard per apply) on the SpGEMM fixture, each against SciPy — then the
+process-group route on NCCL at world size 1 against the in-process
+results, and prints a ``dist`` JSON line of times and ratios.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -2860,6 +2873,562 @@ def phase17_precond_algebra_packed(card, spd, band, ela_bsr):
     return out
 
 
+# -- slice 6: the distributed layer ------------------------------------------
+
+#: shards of the distributed phase's in-process mesh, and the solver
+#: section's iteration count (benchmarks/suite.py:1220)
+DIST_D = 4
+DIST_ITERS = 15
+#: benchmarks/gen_fixtures.powerlaw_graph's size for the hub-split cell
+POWERLAW_N = 1_000_000
+#: a relative residual at or below this is at the float64 rounding floor of
+#: a 64,000-row system (~sqrt(n) eps): two runs of the same iterations can
+#: only agree that both are there (relative agreement is held above it)
+RESID_FLOOR = 1e-13
+
+
+def _dist_ms(label, fn, card, n=N_TIMED, windows=5):
+    """Back-to-back ms of ``fn`` (median window), printed with the card."""
+    ms, fastest = pipelined_ms(fn, warmup=2, n=n, windows=windows)
+    print(f"   {label}: {ms:.4f} ms back to back (median window of {n}; "
+          f"fastest {fastest:.4f}) [{card}]", flush=True)
+    return ms
+
+
+def _launched(label, module, name, fn, want):
+    """Run ``fn`` once; the kernel counter ``module.name`` must rise by
+    exactly ``want``."""
+    before = getattr(module, name)
+    out = fn()
+    torch.cuda.synchronize()
+    got = getattr(module, name) - before
+    if got != want:
+        raise AssertionError(f"{label}: {name} rose by {got}, expected "
+                             f"{want}")
+    return out
+
+
+def _dist_vs_scipy(label, y, s, v64, n):
+    """The first ``n`` rows of a distributed product against SciPy's in
+    float64, within 1e-5 |A||v|."""
+    ref = torch.from_numpy(s @ v64).cuda()
+    bound = torch.from_numpy(abs(s) @ np.abs(v64)).cuda()
+    if not torch.isfinite(y).all():
+        raise AssertionError(f"{label}: non-finite values")
+    return check_close(label, y[:n], ref, bound, torch.float32)
+
+
+def _phase18_band(card, a, s, v_np):
+    """band-10M on an in-process mesh of ``DIST_D`` shards: the five halo
+    / all-gather entry points against SciPy, K1 once per shard per
+    ``halo_spmv_segtile`` apply; then, at D = 1, ``halo_spmv_segtile``
+    beside the bare K1 on the same compact stream (the reference's claim
+    that a 1-device mesh runs within ~10% of the bare kernel,
+    parallel/halo.py:600-603)."""
+    import sparse_tpu_torch.parallel as par
+    from sparse_tpu_torch.ops import cuda_csr
+
+    n = a.shape[0]
+    d = DIST_D
+    mesh = par.make_1d_mesh(d)
+    v64 = v_np.astype(np.float64)
+    t = {}
+    host = {}
+    for name, build in (("pcsr", par.pcsr_from_csr),
+                        ("halo", par.halo_partition),
+                        ("halo_overlapped", par.halo_partition_overlapped),
+                        ("halo_segtile", par.halo_partition_segtile)):
+        host[name], t[name] = _host_s(lambda: build(a, mesh))
+    v = par.shard_vector(torch.from_numpy(v_np), t["pcsr"], mesh)
+    calls = {"pcsr_spmv": lambda: par.pcsr_spmv(t["pcsr"], v, mesh),
+             "halo_spmv": lambda: par.halo_spmv(t["halo"], v, mesh),
+             "halo_spmv_overlapped": lambda: par.halo_spmv_overlapped(
+                 t["halo_overlapped"], v, mesh),
+             "halo_spmv_segtile": lambda: par.halo_spmv_segtile(
+                 t["halo_segtile"], v, mesh)}
+    errs = {}
+    for name, fn in calls.items():
+        y = _launched(name, cuda_csr, "K1_LAUNCHES", fn,
+                      d if name == "halo_spmv_segtile" else 0)
+        errs[name] = _dist_vs_scipy(f"band-10M {name}", y, s, v64, n)
+    rng = np.random.default_rng(18)
+    b_np = rng.standard_normal((n, 32)).astype(np.float32)
+    bm = par.shard_vector(torch.from_numpy(b_np), t["pcsr"], mesh)
+    calls["halo_spmm_k32"] = lambda: par.halo_spmm(t["halo"], bm, mesh)
+    errs["halo_spmm_k32"] = _dist_vs_scipy(
+        "band-10M halo_spmm k=32", calls["halo_spmm_k32"](), s,
+        b_np.astype(np.float64), n)
+    hs = t["halo_segtile"]
+    print(f"   band-10M over {d} shards: host build s "
+          f"{ {k: round(x, 3) for k, x in host.items()} }; halo "
+          f"{t['halo'].halo}, overlapped / segtile halo {hs.halo} "
+          f"({hs.comm_entries_per_device} entries a shard), segtile wsub "
+          f"{hs.wsub} fill {hs.fill:.4f}; max|y - scipy| "
+          f"{ {k: float(f'{e:.3e}') for k, e in errs.items()} } "
+          f"(within 1e-5 |A||v|); K1 {d} launches a segtile apply",
+          flush=True)
+    ms = {name: _dist_ms(f"band-10M D={d} {name}", fn, card,
+                         n=5 if name in ("halo_spmm_k32",) else N_TIMED)
+          for name, fn in calls.items()}
+    # the 1-shard claim: the same compact stream, bare and through the mesh
+    mesh1 = par.make_1d_mesh(1)
+    hs1 = par.halo_partition_segtile(a, mesh1)
+    v1 = par.shard_vector(torch.from_numpy(v_np), hs1, mesh1)
+    stream = hs1.plans[0].stream
+    v_op = torch.cat([v1, v1.new_zeros(hs1.halo)])
+    y1 = _launched("D=1 halo_spmv_segtile", cuda_csr, "K1_LAUNCHES",
+                   lambda: par.halo_spmv_segtile(hs1, v1, mesh1), 1)
+    bare = cuda_csr.segtile_stream_apply(stream, v_op)
+    if not torch.equal(y1, bare[:n]):
+        raise AssertionError("D=1 halo_spmv_segtile differs from the bare "
+                             "K1 on its stream")
+    turns = []
+    for which in ("bare", "dist", "dist", "bare"):
+        fn = (lambda: cuda_csr.segtile_stream_apply(stream, v_op)) \
+            if which == "bare" else \
+            (lambda: par.halo_spmv_segtile(hs1, v1, mesh1))
+        turns.append((which, pipelined_ms(fn, warmup=2)[0]))
+    bare_ms = statistics.median([m for w, m in turns if w == "bare"])
+    dist_ms = statistics.median([m for w, m in turns if w == "dist"])
+    print(f"   D=1: halo_spmv_segtile {dist_ms:.4f} ms, bare K1 on the same "
+          f"stream {bare_ms:.4f} ms back to back, in turns "
+          f"{[(w, round(m, 4)) for w, m in turns]}: ratio "
+          f"{dist_ms / bare_ms:.3f} (bitwise equal) [{card}]", flush=True)
+    ms.update(d1_halo_spmv_segtile=dist_ms, d1_bare_k1=bare_ms)
+    return dict(ms=ms, errs=errs, d1_ratio=dist_ms / bare_ms,
+                host_build_s=host, halo=hs.halo, hs1=hs1, y1=y1, v1=v1)
+
+
+def _phase18_phub(card):
+    """``phub_spmv`` over ``DIST_D`` shards on ``gen_fixtures.
+    powerlaw_graph(n=1_000_000, m=8, seed=2)`` (PERF.md's hub-split cell),
+    float32, against SciPy."""
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    from gen_fixtures import powerlaw_graph
+
+    import sparse_tpu_torch.parallel as par
+    from sparse_tpu_torch import interop
+
+    t_gen, s = _host_s(lambda: powerlaw_graph(n=POWERLAW_N, m=8, seed=2))
+    n = s.shape[0]
+    a = interop.csr_from_arrays(s.data.astype(np.float32), s.indices,
+                                s.indptr, s.shape)
+    s = sp_csr_f64(a)
+    mesh = par.make_1d_mesh(DIST_D)
+    t_part, ph = _host_s(lambda: par.phub_partition(a, mesh))
+    v_np = np.random.default_rng(19).standard_normal(n).astype(np.float32)
+    pa_len = -(-n // DIST_D) * DIST_D
+    v = par.put_sharded(np.concatenate(
+        [v_np, np.zeros(pa_len - n, np.float32)]), mesh)
+    err = _dist_vs_scipy("powerlaw phub_spmv", par.phub_spmv(ph, v, mesh),
+                         s, v_np.astype(np.float64), n)
+    print(f"   powerlaw graph n={n} nnz={s.nnz} (generated in {t_gen:.1f} "
+          f"s): phub_partition {t_part:.2f} s (hubs {ph.n_hub}, "
+          f"{ph.hub_comm_entries_per_device} hub entries a shard); "
+          f"max|y - scipy| {err:.3e}", flush=True)
+    ms = _dist_ms(f"powerlaw D={DIST_D} phub_spmv",
+                  lambda: par.phub_spmv(ph, v, mesh), card, n=5)
+    return dict(ms={"phub_spmv": ms}, errs={"phub_spmv": err}, nnz=s.nnz,
+                gen_s=t_gen)
+
+
+def sp_csr_f64(a):
+    """SciPy float64 CSR of the port's CSR (its stored entries)."""
+    import scipy.sparse as sp
+
+    k = int(a.indptr[-1])
+    return sp.csr_matrix((a.data[:k].double().cpu().numpy(),
+                          a.indices[:k].cpu().numpy(),
+                          a.indptr.cpu().numpy()), shape=a.shape)
+
+
+def _phase18_pbell(card, m):
+    """``pbell_smvm`` and ``pbell_spmm`` (k = 128) over ``DIST_D`` shards
+    on bench.py's block band (phase 8's BELL), against SciPy on phase 8's
+    subset of block rows."""
+    import sparse_tpu_torch.parallel as par
+
+    a, b, oracle = m["a"], m["b"], m["oracle"]
+    n = a.n
+    mesh = par.make_1d_mesh(DIST_D)
+    t_part, pe = _host_s(lambda: par.pbell_from_bell(a, mesh))
+    v = b[:, :1].contiguous()
+    vs = par.pbell_shard_vector(v[:, 0], pe, mesh)
+    bs = par.pbell_shard_vector(b, pe, mesh)
+    errs = {"pbell_smvm": oracle.check("pbell_smvm",
+                                       par.pbell_smvm(pe, vs, mesh)[:n]
+                                       .reshape(n, 1), v),
+            "pbell_spmm_k128": oracle.check(
+                "pbell_spmm k=128", par.pbell_spmm(pe, bs, mesh)[:n], b)}
+    print(f"   bench BELL over {DIST_D} shards: pbell_from_bell "
+          f"{t_part:.2f} s, rows_p {pe.rows_per_shard}; max|y - scipy| "
+          f"{ {k: float(f'{e:.3e}') for k, e in errs.items()} } on "
+          f"{oracle.rows.numel()} rows", flush=True)
+    ms = {"pbell_smvm": _dist_ms(f"bell-band-80M D={DIST_D} pbell_smvm",
+                                 lambda: par.pbell_smvm(pe, vs, mesh), card),
+          "pbell_spmm_k128": _dist_ms(
+              f"bell-band-80M D={DIST_D} pbell_spmm k=128",
+              lambda: par.pbell_spmm(pe, bs, mesh), card, n=5)}
+    return dict(ms=ms, errs=errs)
+
+
+# -- float64 NumPy / SciPy runs of the solvers' own iterations ---------------
+
+
+def _np_safe(den):
+    return 1.0 if den == 0 else den
+
+
+def _np_pcg(s, b, M, iters):
+    x, r = np.zeros_like(b), b.copy()
+    z = M(r)
+    p, rz = z.copy(), r @ z
+    for _ in range(iters):
+        ap = s @ p
+        alpha = rz / _np_safe(p @ ap)
+        x, r = x + alpha * p, r - alpha * ap
+        z = M(r)
+        rz_new = r @ z
+        p = z + rz_new / _np_safe(rz) * p
+        rz = rz_new
+    return x
+
+
+def _np_bicgstab(s, b, iters):
+    x, r, p, r_hat = np.zeros_like(b), b.copy(), b.copy(), b.copy()
+    rho = b @ b
+    for _ in range(iters):
+        v = s @ p
+        alpha = rho / _np_safe(r_hat @ v)
+        sv = r - alpha * v
+        t = s @ sv
+        omega = (t @ sv) / _np_safe(t @ t)
+        x = x + alpha * p + omega * sv
+        r = sv - omega * t
+        rho_new = r_hat @ r
+        p = r + rho_new / _np_safe(rho) * (alpha / _np_safe(omega)) \
+            * (p - omega * v)
+        rho = rho_new
+    return x
+
+
+def _np_normalize(x, thresh=None):
+    norm = np.sqrt(x @ x)
+    thresh = np.finfo(np.float64).eps if thresh is None else thresh
+    return (x / norm, norm) if norm > thresh else (np.zeros_like(x), 0.0)
+
+
+def _np_gmres(s, b, restart, iters):
+    """One or more restarts of the batched GMRES the port and the reference
+    run (jax.scipy's ``_gmres_batched``), unpreconditioned."""
+    x = np.zeros_like(b)
+    unit, norm = _np_normalize(b - s @ x)
+    for _ in range(iters):
+        if not norm > 0:
+            break
+        V = np.zeros((b.size, restart + 1))
+        V[:, 0] = unit
+        H = np.eye(restart, restart + 1)
+        for k in range(restart):
+            v = s @ V[:, k]
+            _, n0 = _np_normalize(v)
+            h = V.T @ v
+            v = v - V @ h
+            u, n1 = _np_normalize(v, np.finfo(np.float64).eps * n0)
+            h[k + 1] = n1
+            V[:, k + 1], H[k] = u, h
+            if n1 == 0:
+                break
+        beta = np.zeros(restart + 1)
+        beta[0] = norm
+        A = H.T
+        y = np.linalg.solve(A.T @ A, A.T @ beta)
+        x = x + V[:, :-1] @ y
+        unit, norm = _np_normalize(b - s @ x)
+    return x
+
+
+def _resid_agree(label, r, r_ref):
+    """The port's relative residual against the float64 run's, within 1e-3
+    relative, or both at the float64 floor."""
+    if r_ref > RESID_FLOOR:
+        ok = abs(r - r_ref) <= 1e-3 * r_ref
+    else:
+        ok = r <= RESID_FLOOR
+    if not ok:
+        raise AssertionError(f"{label}: residual {r:.3e}, float64 NumPy "
+                             f"{r_ref:.3e}")
+
+
+def _phase18_solvers(card, spd):
+    """The solvers on the suite's SPD block band at nb 2000 (64,000 rows,
+    suite.py:1197-1208), ``DIST_ITERS`` iterations, through ``PCSR`` and
+    ``HaloSegtile`` (K1 per shard) at D = 1 and ``DIST_D``: CG, PCG with
+    Jacobi, block-Jacobi and ILU(0), BiCGSTAB and GMRES(15) — in float64
+    (the suite's float32 draws, widened: after 15 steps these systems sit
+    below float32's resolution, so only float64 can be held against
+    NumPy's same iterations).  ms per iteration of the second call on the
+    host clock around the card; each relative residual against the same
+    iterations in float64 NumPy / SciPy."""
+    import scipy.sparse.linalg as spla
+
+    import sparse_tpu_torch as pt
+    import sparse_tpu_torch.parallel as par
+    from sparse_tpu_torch import interop
+
+    rows, cols, blocks = spd
+    nb = int(rows.max()) + 1
+    a_bsr = interop.bsr_from_arrays(rows * nb + cols,
+                                    blocks.astype(np.float64),
+                                    nb * LU_BSZ, LU_BSZ)
+    a = pt.bsr_to_csr(a_bsr)
+    s = sp_csr_f64(a)
+    n = a.shape[0]
+    b_np = np.random.default_rng(20).standard_normal(n)
+    b_norm = np.linalg.norm(b_np)
+    inv_d = 1.0 / s.diagonal()
+    inv_blocks64 = np.linalg.inv(blocks[rows == cols].astype(np.float64))
+    lu = spla.splu(s.tocsc(), permc_spec="NATURAL")
+    refs = {
+        "cg": _np_pcg(s, b_np, lambda r: r, DIST_ITERS),
+        "pcg_jacobi": _np_pcg(s, b_np, lambda r: inv_d * r, DIST_ITERS),
+        "pcg_block_jacobi": _np_pcg(
+            s, b_np, lambda r: np.einsum(
+                "bij,bj->bi", inv_blocks64,
+                r.reshape(nb, LU_BSZ)).reshape(-1), DIST_ITERS),
+        "pcg_ilu0": _np_pcg(s, b_np, lu.solve, DIST_ITERS),
+        "bicgstab": _np_bicgstab(s, b_np, DIST_ITERS),
+        "gmres": _np_gmres(s, b_np, DIST_ITERS, 1)}
+    r_ref = {k: float(np.linalg.norm(b_np - s @ x) / b_norm)
+             for k, x in refs.items()}
+    out = {}
+    for d in (1, DIST_D):
+        mesh = par.make_1d_mesh(d)
+        parts = {"pcsr": par.pcsr_from_csr(a, mesh),
+                 "segtile": par.halo_partition_segtile(a, mesh)}
+        pa = parts["pcsr"]
+        L = pa.rows_per_shard * d
+        bv = par.shard_vector(torch.from_numpy(b_np), pa, mesh)
+        invv = par.shard_vector(torch.from_numpy(inv_d), pa, mesh)
+        bj = pt.block_jacobi_prepare(a, LU_BSZ, padded_n=L)
+        ilu = pt.bsr_ilu0_preconditioner(a_bsr, padded_n=L)
+        for kind, part in parts.items():
+            runs = {
+                "cg": lambda: par.cg_solve(part, bv, mesh, iters=DIST_ITERS),
+                "pcg_jacobi": lambda: par.pcg_solve(part, bv, invv, mesh,
+                                                    iters=DIST_ITERS),
+                "pcg_block_jacobi": lambda: par.pcg_solve(
+                    part, bv, bj, mesh, iters=DIST_ITERS),
+                "pcg_ilu0": lambda: par.pcg_solve(part, bv, ilu, mesh,
+                                                  iters=DIST_ITERS),
+                "bicgstab": lambda: par.bicgstab_solve(part, bv, mesh,
+                                                       iters=DIST_ITERS),
+                "gmres": lambda: par.gmres_solve(part, bv, mesh,
+                                                 restart=DIST_ITERS,
+                                                 iters=1)}
+            for name, fn in runs.items():
+                x = fn()
+                t, x2 = _host_s(fn)
+                if not torch.equal(x, x2):
+                    raise AssertionError(f"{name} {kind} D={d}: two runs "
+                                         "differ")
+                xh = x[:n].cpu().numpy()
+                r = float(np.linalg.norm(b_np - s @ xh) / b_norm)
+                label = f"{name} {kind} D={d}"
+                _resid_agree(label, r, r_ref[name])
+                out[label] = dict(ms_per_iter=t / DIST_ITERS * 1e3,
+                                  residual=r, residual_float64=r_ref[name])
+                print(f"   spd-band-2000 {label}: "
+                      f"{t / DIST_ITERS * 1e3:.4f} ms per iteration "
+                      f"({DIST_ITERS} iterations, host clock); residual "
+                      f"{r:.3e}, float64 NumPy {r_ref[name]:.3e} [{card}]",
+                      flush=True)
+    return dict(solvers=out, b=b_np, a=a, s=s)
+
+
+def _csr_of_pcsr(p):
+    """SciPy float64 CSR of a row-partitioned CSR on an in-process mesh."""
+    import scipy.sparse as sp
+
+    ptr = p.indptr.long().cpu().numpy()
+    rows_p = p.rows_per_shard
+    data, idx, lens = [], [], []
+    for i in range(ptr.shape[0]):
+        k = ptr[i, -1]
+        data.append(p.data[i, :k].double().cpu().numpy())
+        idx.append(p.indices[i, :k].cpu().numpy())
+        lens.append(np.diff(ptr[i]))
+    indptr = np.concatenate([[0], np.cumsum(np.concatenate(lens))])
+    return sp.csr_matrix((np.concatenate(data), np.concatenate(idx),
+                          indptr[: p.shape[0] + 1]), shape=p.shape)
+
+
+def _sparse_vs(label, got, want, bound):
+    """The same non-zero pattern as SciPy's, values within 1e-5 |A||B|
+    (exact zeros dropped on both sides); returns the max abs error."""
+    got, want = got.tocsr(), want.tocsr()
+    for m in (got, want):
+        m.eliminate_zeros()
+        m.sort_indices()
+    if not (np.array_equal(got.indptr, want.indptr)
+            and np.array_equal(got.indices, want.indices)):
+        raise AssertionError(f"{label}: stored pattern differs from SciPy's")
+    diff = abs(got - want)
+    over = (diff - TOL[torch.float32] * bound).max()
+    if over > 0:
+        raise AssertionError(f"{label}: error exceeds 1e-5 |A||B| by "
+                             f"{over:.3e}")
+    return float(diff.max())
+
+
+def _phase18_spgemm(card, ela_bsr):
+    """``pcsr_spgemm_aa`` (A @ A) and ``pcsr_transpose_device`` over
+    ``DIST_D`` shards on elasticity-400k taken as CSR, against SciPy, then
+    ``pbsr_smsmm`` and ``pbsr_smsmm_slab`` (K7 once per shard per apply)
+    on spgemm-block-181k against SciPy's product on phase 11's subset of
+    block rows."""
+    import sparse_tpu_torch as pt
+    import sparse_tpu_torch.parallel as par
+    from sparse_tpu_torch import interop
+    from sparse_tpu_torch.ops import cuda_bsr
+
+    d = DIST_D
+    mesh = par.make_1d_mesh(d)
+    a = pt.bsr_to_csr(ela_bsr)
+    s = sp_csr_f64(a)
+    pa = par.pcsr_from_csr(a, mesh)
+    t_plan, plan = _host_s(lambda: par.build_pspgemm_plan(pa, pa, mesh))
+    c = par.pcsr_spgemm_aa(pa, pa, mesh, plan)
+    cs = _csr_of_pcsr(c)
+    err_aa = _sparse_vs("elasticity pcsr_spgemm_aa", cs, s @ s,
+                        abs(s) @ abs(s))
+    t_tplan, tplan = _host_s(lambda: par.build_transpose_plan(pa, mesh))
+    at = par.pcsr_transpose_device(pa, mesh, tplan)
+    ats = _csr_of_pcsr(at)
+    err_t = _sparse_vs("elasticity pcsr_transpose_device", ats,
+                       s.T.tocsr(), abs(s).T.tocsr())
+    print(f"   elasticity-400k as CSR over {d} shards: build_pspgemm_plan "
+          f"{t_plan:.2f} s (cap {plan.cap}, {plan.comm_entries_per_device} "
+          f"entries a shard), build_transpose_plan {t_tplan:.2f} s; A @ A "
+          f"nnz {cs.nnz} max|C - scipy| {err_aa:.3e}; A^T max err "
+          f"{err_t:.3e}", flush=True)
+    ms = {"pcsr_spgemm_aa": _dist_ms(
+        f"elasticity D={d} pcsr_spgemm_aa",
+        lambda: par.pcsr_spgemm_aa(pa, pa, mesh, plan), card, n=3,
+        windows=3),
+        "pcsr_transpose_device": _dist_ms(
+        f"elasticity D={d} pcsr_transpose_device",
+        lambda: par.pcsr_transpose_device(pa, mesh, tplan), card)}
+    del c, cs, at, ats
+
+    sb, rows, cols, bvals = _spgemm_fixture()
+    nb = 2_000
+    oracle = _ScipyBlockRows(sb)
+    ab = interop.bsr_from_arrays(rows * nb + cols, bvals, nb * 32, 32)
+    pb = par.pbsr_from_bsr(ab, mesh)
+    t_bplan, bplan = _host_s(lambda: par.build_pbsr_smsmm_plan(pb, pb, mesh))
+    t_splan, splan = _host_s(
+        lambda: par.build_pbsr_smsmm_plan_slab(pb, pb, mesh))
+    pc = par.pbsr_smsmm(pb, pb, mesh, bplan)
+    err_b = oracle.check("pbsr_smsmm",
+                         pt.bsr_to_csr(par.pbsr_to_bsr(pc)))
+    ps = _launched("pbsr_smsmm_slab", cuda_bsr, "K7_LAUNCHES",
+                   lambda: par.pbsr_smsmm_slab(pb, pb, mesh, splan), d)
+    err_s = oracle.check("pbsr_smsmm_slab",
+                         pt.bsr_to_csr(par.pbsr_to_bsr(ps)))
+    print(f"   spgemm-block-181k over {d} shards: build_pbsr_smsmm_plan "
+          f"{t_bplan:.2f} s, _slab {t_splan:.2f} s ({bplan.cap} products "
+          f"a shard at most, {bplan.comm_entries_per_device} values a "
+          f"shard); max|C - scipy| {err_b:.3e} / {err_s:.3e} (slab, K7 "
+          f"{d} launches an apply)", flush=True)
+    ms["pbsr_smsmm"] = _dist_ms(f"spgemm-block-181k D={d} pbsr_smsmm",
+                                lambda: par.pbsr_smsmm(pb, pb, mesh, bplan),
+                                card, n=5)
+    ms["pbsr_smsmm_slab"] = _dist_ms(
+        f"spgemm-block-181k D={d} pbsr_smsmm_slab",
+        lambda: par.pbsr_smsmm_slab(pb, pb, mesh, splan), card, n=5)
+    return dict(ms=ms, errs={"pcsr_spgemm_aa": err_aa,
+                             "pcsr_transpose_device": err_t,
+                             "pbsr_smsmm": err_b, "pbsr_smsmm_slab": err_s})
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _phase18_nccl(card, a, band, solver):
+    """The process-group route on NCCL at world size 1: the mesh's
+    collectives are NCCL's ``all_to_all_single`` / ``all_gather`` /
+    ``all_reduce``; ``halo_spmv_segtile`` on band-10M and ``cg_solve``
+    (PCSR) on the SPD band must equal the in-process D = 1 results within
+    rtol 1e-6."""
+    import torch.distributed as dist
+
+    import sparse_tpu_torch.parallel as par
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1,
+        rank=0)
+    try:
+        mesh = par.make_1d_mesh(1, group=dist.group.WORLD)
+        hs = par.halo_partition_segtile(a, mesh)
+        y = par.halo_spmv_segtile(hs, band["v1"], mesh)
+        pa = par.pcsr_from_csr(solver["a"], mesh)
+        bv = par.shard_vector(torch.from_numpy(solver["b"]), pa, mesh)
+        x = par.cg_solve(pa, bv, mesh, iters=DIST_ITERS)
+        mesh1 = par.make_1d_mesh(1)
+        x_in = par.cg_solve(par.pcsr_from_csr(solver["a"], mesh1),
+                            par.shard_vector(torch.from_numpy(solver["b"]),
+                                             pa, mesh1), mesh1,
+                            iters=DIST_ITERS)
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    errs = {}
+    for label, got, want in (("halo_spmv_segtile", y, band["y1"]),
+                             ("cg_solve", x, x_in)):
+        e = float((got.double() - want.double()).abs().max()
+                  / want.double().abs().max())
+        if not e <= 1e-6:
+            raise AssertionError(f"NCCL world 1 {label}: {e:.3e} from the "
+                                 "in-process mesh")
+        errs[label] = e
+    print(f"   {backend} world 1 on {mesh.device}: halo_spmv_segtile and "
+          f"cg_solve against the in-process D=1 results, max rel diff "
+          f"{errs}", flush=True)
+    return errs
+
+
+def phase18_distributed(card, band_run, spmm_run, spd, ela_bsr, launches):
+    """The distributed layer (``sparse_tpu_torch.parallel``) at the cells'
+    sizes: band-10M, the 1M-row power-law graph, bell-band-80M, the SPD
+    band, elasticity-400k and spgemm-block-181k, each against SciPy; the
+    process-group route on NCCL.  ``launches`` gets the K1 / K7 counts of
+    the checked runs, read before the timed ones."""
+    from sparse_tpu_torch.ops import cuda_bsr, cuda_csr
+
+    band = _phase18_band(card, band_run["a"], band_run["s"],
+                         band_run["v"].cpu().numpy())
+    phub = _phase18_phub(card)
+    pbell = _phase18_pbell(card, spmm_run)
+    solver = _phase18_solvers(card, spd)
+    spgemm = _phase18_spgemm(card, ela_bsr)
+    nccl = _phase18_nccl(card, band_run["a"], band, solver)
+    launches.update(K1=cuda_csr.K1_LAUNCHES, K7=cuda_bsr.K7_LAUNCHES)
+    ms = {**band["ms"], **phub["ms"], **pbell["ms"], **spgemm["ms"]}
+    errs = {**band["errs"], **phub["errs"], **pbell["errs"],
+            **spgemm["errs"]}
+    return {"dist": {"shards": DIST_D, "ms": ms, "max_abs_err": errs,
+                     "d1_segtile_over_bare_k1": band["d1_ratio"],
+                     "solvers": solver["solvers"], "nccl_world1": nccl,
+                     "card": card}}
+
+
 def main():
     with Phase("phase 0: device", 60):
         card = phase0_device()
@@ -2960,6 +3529,24 @@ def main():
             ela["plan"].state[0])
     print(json.dumps({"solver": {str(k): v for k, v in solver.items()},
                       "slice5": slice5, "card": card}), flush=True)
+    # the distributed layer's run: K1 and K7 counts start at 0 here
+    cuda_csr.K1_LAUNCHES = 0
+    cuda_bsr.K7_LAUNCHES = 0
+    dist_launches = {}
+    with Phase("phase 18: the distributed layer", 480):
+        dist = phase18_distributed(card, slice_run, spmm_run, spd,
+                                   ela["plan"].state[0], dist_launches)
+    print(f"   distributed-layer launches: {dist_launches}", flush=True)
+    for k, count in dist_launches.items():
+        if count <= 0:
+            raise AssertionError(f"{k} was not launched by the distributed "
+                                 "layer")
+    for entry in kernels:
+        key = entry["name"].split()[0]
+        if key in dist_launches:
+            entry["dist_launches"] = dist_launches[key]
+    dist["dist"]["launches"] = dist_launches
+    print(json.dumps(dist), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

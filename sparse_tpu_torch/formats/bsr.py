@@ -545,6 +545,22 @@ def _block_products(x: torch.Tensor, y: torch.Tensor, out_dtype):
     return out
 
 
+def _flat_block_products(fa: torch.Tensor, fb: torch.Tensor, bsz: int,
+                         out_dtype) -> torch.Tensor:
+    """Batched block products in the flat (F, bsz^2) layout (the
+    reference's small-block path): ``prods[:, i*bsz+j] = sum_k
+    fa[:, i*bsz+k] * fb[:, k*bsz+j]``, one elementwise product of
+    repeated / tiled columns per ``k``, summed in ``k`` order.  Sub-float32
+    inputs sum in float32 and round once."""
+    acc = (torch.float32 if out_dtype.is_floating_point
+           and torch.finfo(out_dtype).bits < 32 else out_dtype)
+    fa, fb = fa.to(acc), fb.to(acc)
+    prods = sum(fa[:, k::bsz].repeat_interleave(bsz, dim=1)
+                * fb[:, k * bsz:(k + 1) * bsz].repeat(1, bsz)
+                for k in range(bsz))
+    return prods.to(out_dtype)
+
+
 def bsr_smvm(a: BSR, v) -> torch.Tensor:
     """Block sparse matrix-vector product: batched block matvec + block-row
     segment sum (reference ``smvm``, blocked_square_regular.fut:307-331)."""

@@ -37,6 +37,9 @@ from .ops.hub_split import HubSplit
 from .ops.segmented import INDEX_DTYPE
 from .ops.spgemm import SpgemmPlan
 from .ops.spmv import SpmvPlan
+from .parallel import (PBELL, PBSR, PCSR, HaloPCSR, HaloPCSROverlap,
+                       HaloSegtile, PBsrSlabPlan, PBsrSmsmmPlan, PHubSplit,
+                       PSpGEMMPlan, PTransposePlan, put_sharded)
 from .solve.bsr_lu import LuNumericPlan, TriSolvePlan
 
 __all__ = [
@@ -59,6 +62,17 @@ __all__ = [
     "slab_plan_from_arrays",
     "slab_plan_ad_from_arrays",
     "spgemm_plan_from_arrays",
+    "pcsr_from_arrays",
+    "halo_pcsr_from_arrays",
+    "halo_overlap_from_arrays",
+    "halo_segtile_from_arrays",
+    "phub_from_arrays",
+    "pbell_from_arrays",
+    "pbsr_from_arrays",
+    "pspgemm_plan_from_arrays",
+    "ptranspose_plan_from_arrays",
+    "pbsr_smsmm_plan_from_arrays",
+    "pbsr_slab_plan_from_arrays",
 ]
 
 
@@ -344,3 +358,168 @@ def smvm_plan_from_arrays(kind: str, state, *, shape, perm=None,
         inv_perm=_t(inv_perm, device, torch.int64),
         kind=kind, shape=(int(shape[0]), int(shape[1])),
         value_src=_t(value_src, device, torch.int64))
+
+
+# -- the distributed layer ----------------------------------------------------
+#
+# Each function takes a partitioned object's stacked ``[D, ...]`` fields (all
+# D shards, as the reference holds them) and keeps this process's shards on
+# ``mesh`` (``put_sharded``); the shard count is the fields' leading
+# dimension.
+
+
+def _sh(x, mesh, dtype=None) -> torch.Tensor:
+    return put_sharded(_t(x, "cpu", dtype), mesh)
+
+
+def pcsr_from_arrays(data, indices, indptr, *, shape, rows_per_shard, mesh,
+                     axis="shards") -> PCSR:
+    return PCSR(data=_sh(data, mesh), indices=_sh(indices, mesh, torch.int32),
+                indptr=_sh(indptr, mesh, torch.int32),
+                shape=(int(shape[0]), int(shape[1])), axis=axis,
+                rows_per_shard=int(rows_per_shard),
+                n_shards=np.shape(indptr)[0])
+
+
+def halo_pcsr_from_arrays(data, indices, indptr, send_idx, *, shape,
+                          rows_per_shard, cols_per_shard, halo, mesh,
+                          axis="shards") -> HaloPCSR:
+    return HaloPCSR(
+        data=_sh(data, mesh), indices=_sh(indices, mesh, torch.int32),
+        indptr=_sh(indptr, mesh, torch.int32),
+        send_idx=_sh(send_idx, mesh, torch.int32),
+        shape=(int(shape[0]), int(shape[1])), axis=axis,
+        rows_per_shard=int(rows_per_shard),
+        cols_per_shard=int(cols_per_shard), halo=int(halo),
+        n_shards=np.shape(indptr)[0])
+
+
+def halo_overlap_from_arrays(int_data, int_idx, int_rows, fr_data, fr_idx,
+                             fr_rows, send_idx, *, shape, rows_per_shard,
+                             cols_per_shard, halo, mesh,
+                             axis="shards") -> HaloPCSROverlap:
+    i32 = torch.int32
+    return HaloPCSROverlap(
+        int_data=_sh(int_data, mesh), int_idx=_sh(int_idx, mesh, i32),
+        int_rows=_sh(int_rows, mesh, i32), fr_data=_sh(fr_data, mesh),
+        fr_idx=_sh(fr_idx, mesh, i32), fr_rows=_sh(fr_rows, mesh, i32),
+        send_idx=_sh(send_idx, mesh, i32),
+        shape=(int(shape[0]), int(shape[1])), axis=axis,
+        rows_per_shard=int(rows_per_shard),
+        cols_per_shard=int(cols_per_shard), halo=int(halo),
+        n_shards=np.shape(send_idx)[0])
+
+
+def halo_segtile_from_arrays(vals, q, seg_of, rb, send_idx, *, shape,
+                             rows_per_shard, cols_per_shard, halo, wsub,
+                             rows, kstep, chunks, n_tiles, fill, mesh,
+                             axis="shards") -> HaloSegtile:
+    """A :class:`~.parallel.HaloSegtile` from the reference's stacked slot
+    arrays (``(D, n_tiles, rows, 128)``): each of this process's shards
+    becomes a :class:`SegTilePlan` with its compact stream built here
+    (:func:`seg_tile_plan_from_arrays`, from the non-zero slots)."""
+    d = np.shape(send_idx)[0]
+    m_op = int(cols_per_shard) + d * int(halo)
+    vals, q, seg_of, rb = (np.asarray(x) for x in (vals, q, seg_of, rb))
+    plans = tuple(
+        seg_tile_plan_from_arrays(
+            vals[i], q[i], seg_of[i], rb[i], n=int(rows_per_shard), m=m_op,
+            n_tiles=int(n_tiles), fill=fill, chunks=chunks, wsub=wsub,
+            rows=rows, kstep=kstep, device=mesh.device)
+        for i in range(mesh.lo, mesh.hi))
+    return HaloSegtile(
+        plans=plans, send_idx=_sh(send_idx, mesh, torch.int32),
+        shape=(int(shape[0]), int(shape[1])), axis=axis,
+        rows_per_shard=int(rows_per_shard),
+        cols_per_shard=int(cols_per_shard), halo=int(halo), wsub=int(wsub),
+        rows=int(rows), kstep=int(kstep),
+        chunks=tuple(tuple(int(x) for x in c) for c in chunks),
+        n_tiles=int(n_tiles), fill=float(fill), n_shards=d)
+
+
+def phub_from_arrays(hub_data, hub_idx, hub_rows, tail_data, tail_idx,
+                     tail_rows, own_hub_idx, *, shape, rows_per_shard,
+                     cols_per_shard, hub_cols_per_shard, n_hub, mesh,
+                     axis="shards") -> PHubSplit:
+    i32 = torch.int32
+    return PHubSplit(
+        hub_data=_sh(hub_data, mesh), hub_idx=_sh(hub_idx, mesh, i32),
+        hub_rows=_sh(hub_rows, mesh, i32), tail_data=_sh(tail_data, mesh),
+        tail_idx=_sh(tail_idx, mesh, i32),
+        tail_rows=_sh(tail_rows, mesh, i32),
+        own_hub_idx=_sh(own_hub_idx, mesh, i32),
+        shape=(int(shape[0]), int(shape[1])), axis=axis,
+        rows_per_shard=int(rows_per_shard),
+        cols_per_shard=int(cols_per_shard),
+        hub_cols_per_shard=int(hub_cols_per_shard), n_hub=int(n_hub),
+        n_shards=np.shape(own_hub_idx)[0])
+
+
+def pbell_from_arrays(cols, blocks, *, n, bsz, rows_per_shard, mesh,
+                      axis="shards") -> PBELL:
+    return PBELL(cols=_sh(cols, mesh, torch.int32), blocks=_sh(blocks, mesh),
+                 n=int(n), bsz=int(bsz), axis=axis,
+                 rows_per_shard=int(rows_per_shard),
+                 n_shards=np.shape(cols)[0])
+
+
+def pbsr_from_arrays(indices, blocks, *, n, bsz, rows_per_shard, mesh,
+                     axis="shards") -> PBSR:
+    return PBSR(indices=_sh(indices, mesh), blocks=_sh(blocks, mesh),
+                n=int(n), bsz=int(bsz), axis=axis,
+                rows_per_shard=int(rows_per_shard),
+                n_shards=np.shape(indices)[0])
+
+
+def pspgemm_plan_from_arrays(send_pos, bi_gath, starts, lens, *, exch, cap,
+                             k, mesh) -> PSpGEMMPlan:
+    i32 = torch.int32
+    return PSpGEMMPlan(send_pos=_sh(send_pos, mesh, i32),
+                       bi_gath=_sh(bi_gath, mesh, i32),
+                       starts=_sh(starts, mesh, i32),
+                       lens=_sh(lens, mesh, i32), exch=int(exch),
+                       cap=int(cap), k=int(k))
+
+
+def ptranspose_plan_from_arrays(send_pos, perm, indices, indptr, *, exch,
+                                shape, rows_per_shard, mesh,
+                                axis="shards") -> PTransposePlan:
+    i32 = torch.int32
+    return PTransposePlan(
+        send_pos=_sh(send_pos, mesh, i32), perm=_sh(perm, mesh, i32),
+        indices=_sh(indices, mesh, i32), indptr=_sh(indptr, mesh, i32),
+        exch=int(exch), shape=(int(shape[0]), int(shape[1])), axis=axis,
+        rows_per_shard=int(rows_per_shard), n_shards=np.shape(perm)[0])
+
+
+def pbsr_smsmm_plan_from_arrays(send_pos, a_pos, b_pos, seg, out_indices, *,
+                                exch, cap, nbz_out, n, bsz, rows_per_shard,
+                                mesh, axis="shards") -> PBsrSmsmmPlan:
+    i32 = torch.int32
+    return PBsrSmsmmPlan(
+        send_pos=_sh(send_pos, mesh, i32), a_pos=_sh(a_pos, mesh, i32),
+        b_pos=_sh(b_pos, mesh, i32), seg=_sh(seg, mesh, i32),
+        out_indices=_sh(out_indices, mesh), exch=int(exch), cap=int(cap),
+        nbz_out=int(nbz_out), n=int(n), bsz=int(bsz), axis=axis,
+        rows_per_shard=int(rows_per_shard))
+
+
+def pbsr_slab_plan_from_arrays(send_pos, a_idx, b_idx, oloc, first, slab,
+                               out_indices, *, exch, chunks, g, p, nbz_out,
+                               n, bsz, rows_per_shard, mesh,
+                               axis="shards") -> PBsrSlabPlan:
+    """A :class:`~.parallel.PBsrSlabPlan` from the reference's
+    ``PBsrPallasPlan`` tables; ``slab_start`` is read off ``first`` (one 1
+    per slab, in slab order)."""
+    i32 = torch.int32
+    first_h = np.asarray(first).astype(np.int64)
+    starts = np.append(np.flatnonzero(first_h), first_h.size)
+    return PBsrSlabPlan(
+        send_pos=_sh(send_pos, mesh, i32), a_idx=_sh(a_idx, mesh, i32),
+        b_idx=_sh(b_idx, mesh, i32), oloc=_sh(oloc, mesh, i32),
+        first=_t(first, mesh.device, i32), slab=_t(slab, mesh.device, i32),
+        slab_start=_t(starts, mesh.device, i32),
+        out_indices=_sh(out_indices, mesh), exch=int(exch),
+        chunks=tuple(tuple(int(x) for x in c) for c in chunks), g=int(g),
+        p=int(p), nbz_out=int(nbz_out), n=int(n), bsz=int(bsz), axis=axis,
+        rows_per_shard=int(rows_per_shard))

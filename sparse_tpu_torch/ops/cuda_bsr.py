@@ -66,6 +66,7 @@ __all__ = [
     "BsrSlabPlanAD",
     "bsr_smsmm_slab_prepare",
     "bsr_smsmm_slab_prepare_ad",
+    "schedule_stacked",
     "bsr_smsmm_apply_slab",
     "bsr_smsmm_apply_slab_ad",
     "run_slabs_arrays",
@@ -364,6 +365,66 @@ def _chunk_slabs(sstarts, slab_of_step, S, step_cap):
         np.asarray([c[1] - c[0] for c in chunks], np.int64),
     )).astype(np.int32) if S else np.zeros(0, np.int32)
     return tuple(chunks), slab_rel
+
+
+def schedule_stacked(out_pos_list, s1_list, s2_list, pad1, pad2,
+                     n_out: int, g: int | None, p: int | None, bsz: int):
+    """Multi-shard slab schedule with one step / slab layout for all
+    shards (the reference's, for its one ``shard_map`` trace): the
+    per-slab step count is the max over shards, and ``first`` / ``slab`` /
+    ``chunks`` are shared; only ``a_idx`` / ``b_idx`` / ``oloc`` differ.
+    Returns ``(a_idx, b_idx, oloc, first, slab, chunks, g, p)``, the first
+    three ``(D, S*g)`` and ``first`` / ``slab`` ``(S,)``.  Empty shards
+    still have one inert step per slab (pad slots)."""
+    g, p = _default_gp(bsz, g, p)
+    D = len(out_pos_list)
+    step_cap = max(_SMEM_BUDGET // ((3 * g + 2) * 4), 256)
+    srt = []
+    for t in range(D):
+        op = np.asarray(out_pos_list[t], np.int64)
+        order = np.argsort(op, kind="stable")
+        srt.append((op[order], np.asarray(s1_list[t], np.int64)[order],
+                    np.asarray(s2_list[t], np.int64)[order]))
+    while True:
+        nslabs = max(-(-n_out // p), 1)
+        counts = np.zeros((D, nslabs), np.int64)
+        for t in range(D):
+            if srt[t][0].size:
+                counts[t] = np.bincount(srt[t][0] // p, minlength=nslabs)
+        steps_per = -(-np.maximum(counts.max(axis=0), 1) // g)
+        if int(steps_per.max(initial=1)) <= step_cap:
+            break
+        if p == 1:
+            raise ValueError(
+                "schedule_stacked: one output block exceeds a single "
+                "pallas_call's scalar-prefetch SMEM budget even at p=1; "
+                "use the XLA apply for this pattern"
+            )
+        p = max(p // 2, 1)
+    sstarts = np.zeros(nslabs + 1, np.int64)
+    np.cumsum(steps_per, out=sstarts[1:])
+    S = int(sstarts[-1])
+    a_idx = np.full((D, S * g), pad1, np.int32)
+    b_idx = np.full((D, S * g), pad2, np.int32)
+    oloc = np.zeros((D, S * g), np.int32)
+    for t in range(D):
+        out_s, s1_s, s2_s = srt[t]
+        F = out_s.size
+        if not F:
+            continue
+        slab_of_prod = out_s // p
+        pstart = np.zeros(nslabs + 1, np.int64)
+        np.cumsum(counts[t], out=pstart[1:])
+        rank = np.arange(F) - pstart[slab_of_prod]
+        pos = sstarts[slab_of_prod] * g + rank
+        a_idx[t, pos] = s1_s
+        b_idx[t, pos] = s2_s
+        oloc[t, pos] = (out_s - slab_of_prod * p).astype(np.int32)
+    slab_of_step = np.repeat(np.arange(nslabs, dtype=np.int64), steps_per)
+    first = np.zeros(S, np.int32)
+    first[sstarts[:-1]] = 1
+    chunks, slab_rel = _chunk_slabs(sstarts, slab_of_step, S, step_cap)
+    return a_idx, b_idx, oloc, first, slab_rel, chunks, g, p
 
 
 def bsr_smsmm_slab_prepare(plan: BsrSmsmmPlan, nbz_a: int, nbz_b: int,

@@ -4,7 +4,12 @@ JAX with every subpackage loaded.
 The reference has no ``__all__``, so its public names are ``dir()`` of the
 package (without a leading underscore), taken in a subprocess.  Every one
 of them exists in ``sparse_tpu_torch``, except the six ``_pallas`` names of
-the K7 plan API, which the port renamed ``_slab`` on purpose."""
+the K7 plan API, which the port renamed ``_slab`` on purpose.  The same
+holds for the distributed layer: ``sparse_tpu_torch.parallel`` and each of
+its seven modules export every public name of ``sparse_tpu.parallel`` and
+its module of that name (three ``_pallas`` names renamed ``_slab``),
+importing it loads no JAX, and its dry run passes all 13 sections on 8
+CPU shards."""
 
 import json
 import subprocess
@@ -37,6 +42,67 @@ def test_every_reference_name_is_exported():
     port = _public_names("sparse_tpu_torch")
     assert ref - port == set(RENAMED)
     assert set(RENAMED.values()) <= port
+
+
+PARALLEL_MODULES = ("pcsr", "halo", "phub", "pbell", "cg", "pspgemm", "pbsr")
+PARALLEL_RENAMED = {
+    "PBsrPallasPlan": "PBsrSlabPlan",
+    "build_pbsr_smsmm_plan_pallas": "build_pbsr_smsmm_plan_slab",
+    "pbsr_smsmm_pallas": "pbsr_smsmm_slab",
+}
+
+
+def _defined_names(package):
+    """{module: public names} of ``package`` and its distributed modules:
+    ``dir()`` of the package, and per module its ``__all__`` plus every
+    public function or class the module defines."""
+    code = (
+        "import importlib, inspect, json\n"
+        f"pkg = importlib.import_module({package!r})\n"
+        "out = {'': sorted(n for n in dir(pkg) if not n.startswith('_'))}\n"
+        f"for name in {PARALLEL_MODULES!r}:\n"
+        "    mod = importlib.import_module(pkg.__name__ + '.' + name)\n"
+        "    own = {n for n, o in vars(mod).items() if not n.startswith('_')\n"
+        "           and (inspect.isfunction(o) or inspect.isclass(o))\n"
+        "           and o.__module__ == mod.__name__}\n"
+        "    out[name] = sorted(own | set(getattr(mod, '__all__', ())))\n"
+        "print(json.dumps(out))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=300,
+                         env={"JAX_PLATFORMS": "cpu", "PATH": ""})
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_parallel_exports_every_reference_name():
+    ref = _defined_names("sparse_tpu.parallel")
+    port = _defined_names("sparse_tpu_torch.parallel")
+    everything = set().union(*ref.values())
+    renamed = {PARALLEL_RENAMED.get(n, n) for n in everything}
+    assert renamed <= set(port[""]), renamed - set(port[""])
+    for name in PARALLEL_MODULES:
+        want = {PARALLEL_RENAMED.get(n, n) for n in ref[name]}
+        assert want <= set(port[name]), (name, want - set(port[name]))
+    assert not set(PARALLEL_RENAMED) & set(port[""])
+
+
+def test_parallel_import_loads_no_jax():
+    code = ("import sys, sparse_tpu_torch.parallel, "
+            "sparse_tpu_torch.parallel.dryrun, sparse_tpu_torch.interop; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'sparse_tpu')]; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_dryrun_multichip_on_eight_cpu_shards():
+    code = ("from sparse_tpu_torch.parallel.dryrun import dryrun_multichip; "
+            "dryrun_multichip(8, device='cpu')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    lines = [ln for ln in out.splitlines() if ln.startswith("dryrun[8dev]")]
+    assert len(lines) == 13 and all(ln.endswith(" ok") for ln in lines)
+    assert "halo_spmv_segtile (K1 per shard)" in out
+    assert "pbsr_smsmm_slab (K7 per shard)" in out
 
 
 def test_import_with_new_subpackages_loads_no_jax():
