@@ -80,7 +80,21 @@ iterations in NumPy; ``pcsr_spgemm_aa`` / ``pcsr_transpose_device`` on
 elasticity-400k and ``pbsr_smsmm`` / ``pbsr_smsmm_slab`` (K7 once per
 shard per apply) on the SpGEMM fixture, each against SciPy — then the
 process-group route on NCCL at world size 1 against the in-process
-results, and prints a ``dist`` JSON line of times and ratios.
+results, and prints a ``dist`` JSON line of times and ratios.  Phase 19
+holds every kernel route to the reference's transform semantics:
+``torch.func.vmap`` over 4 vectors through band-10M's ``plan.apply``
+launches K1 4 times, each slice bitwise equal to one apply, and the same
+for K2 (elasticity-400k), K1-r32, K1-mxu, K3-K6, K7 (prepared and raw) and
+K8 over 2 operands; ``.backward()``, ``torch.autograd.grad``,
+``torch.func.grad``, ``torch.func.jvp`` and a forward-AD dual through each
+raise ``NotImplementedError``; ``bsr_smsmm_apply_slab_ad`` keeps its
+gradients and vmaps; and the ``autograd.Function``'s host cost is timed
+in turns with a direct launch.  Phase 20 runs the five port examples
+(``examples/torch_*.py``) at size: PageRank on the 1M-row power-law graph,
+the 1024 x 1024 Poisson problem and the fast distributed CG at n = 500,000
+on 4 shards, the Galerkin update at n = 2^20 and the block LU at nb 4096,
+each held to the reference script's assertion or to float64 NumPy running
+the same iterations, and prints a ``transforms`` / ``examples`` JSON line.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -3029,7 +3043,7 @@ def _phase18_phub(card):
     ms = _dist_ms(f"powerlaw D={DIST_D} phub_spmv",
                   lambda: par.phub_spmv(ph, v, mesh), card, n=5)
     return dict(ms={"phub_spmv": ms}, errs={"phub_spmv": err}, nnz=s.nnz,
-                gen_s=t_gen)
+                gen_s=t_gen, graph=s)
 
 
 def sp_csr_f64(a):
@@ -3409,7 +3423,8 @@ def phase18_distributed(card, band_run, spmm_run, spd, ela_bsr, launches):
     sizes: band-10M, the 1M-row power-law graph, bell-band-80M, the SPD
     band, elasticity-400k and spgemm-block-181k, each against SciPy; the
     process-group route on NCCL.  ``launches`` gets the K1 / K7 counts of
-    the checked runs, read before the timed ones."""
+    the checked runs, read before the timed ones.  Returns the ``dist``
+    record and the power-law graph (SciPy, float64) for phase 20."""
     from sparse_tpu_torch.ops import cuda_bsr, cuda_csr
 
     band = _phase18_band(card, band_run["a"], band_run["s"],
@@ -3426,7 +3441,495 @@ def phase18_distributed(card, band_run, spmm_run, spd, ela_bsr, launches):
     return {"dist": {"shards": DIST_D, "ms": ms, "max_abs_err": errs,
                      "d1_segtile_over_bare_k1": band["d1_ratio"],
                      "solvers": solver["solvers"], "nccl_world1": nccl,
-                     "card": card}}
+                     "card": card}}, phub["graph"]
+
+
+# -- phase 19: the kernel routes under torch.func and autograd ---------------
+
+#: slices of the main path's vmap (band-10M ``plan.apply``) and of the others
+VMAP_MAIN, VMAP_OTHER = 4, 2
+DERIVATIVE_MODES = ("backward", "autograd.grad", "func.grad", "func.jvp",
+                    "forward-AD dual")
+
+
+def _ask_derivative(fn, x, mode):
+    """One way of asking for a derivative through ``fn`` at ``x``."""
+    import torch.autograd.forward_ad as fwad
+
+    if mode == "backward":
+        xr = x.clone().requires_grad_(True)
+        (fn(xr).sum() + xr.sum()).backward()  # no silent gradient of ones
+        return xr.grad
+    if mode == "autograd.grad":
+        xr = x.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(xr).sum(), xr)
+    if mode == "func.grad":
+        return torch.func.grad(lambda y: fn(y).sum())(x)
+    if mode == "func.jvp":
+        return torch.func.jvp(fn, (x,), (torch.ones_like(x),))
+    with fwad.dual_level():
+        return fwad.unpack_dual(fn(fwad.make_dual(
+            x, torch.ones_like(x)))).tangent
+
+
+def _vmap_only(label, fn, xs, module, counter):
+    """``torch.func.vmap(fn)(xs)``: ``module.counter`` must rise once a
+    slice and each slice equal a single call bitwise.  Returns (launches,
+    the batched result)."""
+    before = getattr(module, counter)
+    got = torch.func.vmap(fn)(xs)
+    torch.cuda.synchronize()
+    launched = getattr(module, counter) - before
+    if launched != xs.shape[0]:
+        raise AssertionError(f"{label}: vmap over {xs.shape[0]} launched "
+                             f"{counter} {launched} times")
+    for i in range(xs.shape[0]):
+        if not torch.equal(got[i], fn(xs[i].clone())):
+            raise AssertionError(f"{label}: vmap slice {i} differs from a "
+                                 "single call")
+    return launched, got
+
+
+def _transforms_hold(label, fn, xs, module, counter):
+    """``torch.func.vmap`` of ``fn`` over ``xs`` launches the kernel once a
+    slice, each slice bitwise equal to a single call; every derivative
+    through it raises ``NotImplementedError`` naming the two routes that
+    differentiate; a forward on inputs that require grad still computes,
+    bitwise.  Returns the vmap's launches."""
+    launched, got = _vmap_only(label, fn, xs, module, counter)
+    for mode in DERIVATIVE_MODES:
+        try:
+            _ask_derivative(fn, xs[0], mode)
+        except NotImplementedError as e:
+            if "CPU tensors" not in str(e) or \
+                    "bsr_smsmm_apply_slab_ad" not in str(e):
+                raise AssertionError(f"{label} {mode}: message {e}")
+            continue
+        raise AssertionError(f"{label}: {mode} returned a derivative "
+                             "through the kernel")
+    y = fn(xs[0].clone().requires_grad_(True))
+    if not (y.requires_grad and torch.equal(y.detach(), got[0])):
+        raise AssertionError(f"{label}: forward on a grad input differs")
+    return launched
+
+
+def _slab_ad_holds(label, a, b):
+    """``bsr_smsmm_apply_slab_ad``: gradients through K7 (three launches)
+    against autograd through the plain ``bsr_smsmm_apply`` within 1e-5 of
+    |dC||B|-scaled; vmap over A's blocks bitwise equal to single applies;
+    forward mode raises."""
+    import dataclasses
+
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_bsr
+
+    plan = pt.bsr_smsmm_prepare(a, b)
+    plans = pt.bsr_smsmm_slab_prepare_ad(plan, a.nbz, b.nbz)
+    ct = torch.randn(plan.nbz_out, a.bsz, a.bsz, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(19))
+    grads = []
+    for apply in (lambda x: pt.bsr_smsmm_apply_slab_ad(plans, x, b),
+                  lambda x: pt.bsr_smsmm_apply(plan, x, b)):
+        leaf = a.blocks.clone().requires_grad_(True)
+        before = cuda_bsr.K7_LAUNCHES
+        apply(dataclasses.replace(a, blocks=leaf)).blocks.backward(ct)
+        torch.cuda.synchronize()
+        grads.append((leaf.grad, cuda_bsr.K7_LAUNCHES - before))
+    (g, k7), (r, k7_plain) = grads
+    if (k7, k7_plain) != (2, 0):  # forward + dA (B needs no gradient)
+        raise AssertionError(f"{label}: K7 launches {k7} / {k7_plain}")
+    # the bound: the same gradient of |dC| through |A| |B|
+    leaf = a.blocks.abs().requires_grad_(True)
+    pt.bsr_smsmm_apply(plan, dataclasses.replace(a, blocks=leaf),
+                       dataclasses.replace(b, blocks=b.blocks.abs())
+                       ).blocks.backward(ct.abs())
+    over = float(((g - r).abs() - 2e-5 * leaf.grad).max())
+    if over > 0:
+        raise AssertionError(f"{label}: dA exceeds 2e-5 |dC||B| by "
+                             f"{over:.3e}")
+    err = float((g - r).abs().max())
+
+    def fwd(x):
+        return pt.bsr_smsmm_apply_slab_ad(
+            plans, dataclasses.replace(a, blocks=x), b).blocks
+
+    launched, _ = _vmap_only(label, fwd, torch.stack([a.blocks, -a.blocks]),
+                             cuda_bsr, "K7_LAUNCHES")
+    try:
+        torch.func.jvp(fwd, (a.blocks,), (a.blocks,))
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError(f"{label}: jvp through the AD route")
+    return dict(grad_err=err, vmap_launches=launched)
+
+
+def _host_us(fn, n=200):
+    """Host microseconds per call of ``fn`` issued back to back (the
+    enqueue: the card is synchronised before and after, not between)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+@contextlib.contextmanager
+def _through_function():
+    """Every kernel launch through the ``autograd.Function`` even with no
+    transform in play (its cost beside the direct launch)."""
+    from sparse_tpu_torch.ops import _transforms
+
+    direct = _transforms._direct
+    _transforms._direct = lambda tensors: False
+    try:
+        yield
+    finally:
+        _transforms._direct = direct
+
+
+def _function_cost(card, apply):
+    """Host us per call and back-to-back ms of ``apply`` launched directly
+    and through the ``Function``, in turns (direct, function, function,
+    direct)."""
+    turns = []
+    for which in ("direct", "function", "function", "direct"):
+        ctx = _through_function() if which == "function" else \
+            contextlib.nullcontext()
+        with ctx:
+            turns.append((which, _host_us(apply), pipelined_ms(apply)[0]))
+    out = {}
+    for which in ("direct", "function"):
+        out[which] = dict(
+            host_us=statistics.median(u for w, u, _ in turns if w == which),
+            ms=statistics.median(m for w, _, m in turns if w == which))
+    extra = out["function"]["host_us"] - out["direct"]["host_us"]
+    print(f"   band-10M plan.apply host us per call / ms back to back, in "
+          f"turns: {[(w, round(u, 2), round(m, 4)) for w, u, m in turns]}; "
+          f"the Function adds {extra:.2f} us a call [{card}]", flush=True)
+    return dict(turns=turns, **out)
+
+
+def phase19_transforms(card, band, ela, spmm_run, slice_run, launches):
+    """Every kernel route under ``torch.func`` and autograd, as the
+    reference's ``pallas_call`` behaves under JAX's transforms: vmap over
+    ``VMAP_MAIN`` vectors through band-10M's ``plan.apply`` (the main path,
+    K1; ``launches`` gets its count, read with the count set to 0 just
+    before) and over ``VMAP_OTHER`` operands of K2 (elasticity-400k's
+    ``plan.apply``), K1-r32 / K1-mxu (band-10M's variant plans), K3-K6
+    (bench.py's band), K7 (prepared and raw) and K8; each derivative
+    through each raises; the differentiable K7 route keeps its gradients;
+    the ``Function``'s host cost beside a direct launch."""
+    import dataclasses
+
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import (cuda_bell, cuda_bsr, cuda_csr,
+                                      cuda_csr_block, cuda_dband)
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    plan, v = band["plan"], band["v"]
+    vs = torch.randn(VMAP_MAIN, v.shape[0], device="cuda", generator=gen)
+    cuda_csr.K1_LAUNCHES = 0
+    got = torch.func.vmap(plan.apply)(vs)
+    torch.cuda.synchronize()
+    launches["K1"] = cuda_csr.K1_LAUNCHES  # read before the checks' calls
+    if launches["K1"] != VMAP_MAIN:
+        raise AssertionError(f"vmap over {VMAP_MAIN} band-10M vectors "
+                             f"launched K1 {launches['K1']} times")
+    for i in range(VMAP_MAIN):
+        if not torch.equal(got[i], plan.apply(vs[i].clone())):
+            raise AssertionError(f"band-10M vmap slice {i} differs")
+    print(f"   band-10M plan.apply under vmap over {VMAP_MAIN} vectors: K1 "
+          f"rose by {launches['K1']}, each slice bitwise equal to one "
+          "apply", flush=True)
+    sl, m = slice_run, spmm_run
+    a, b, b32 = m["a"], m["b"], m["b32"]
+    bs = torch.stack([b, -0.5 * b])
+    rng = np.random.default_rng(19)
+    ka = _rand_bsr(400, 32, 0.02, torch.float32, rng)
+    kb = _rand_bsr(400, 32, 0.02, torch.float32, rng)
+    kplan = pt.bsr_smsmm_prepare(ka, kb)
+    pp = pt.bsr_smsmm_slab_prepare(kplan, ka.nbz, kb.nbz)
+    z1 = cuda_bsr._append_zero(ka.blocks, torch.float32)
+    z2 = cuda_bsr._append_zero(kb.blocks, torch.float32)
+    raw_args, raw_kw = _slab_args(pp, z1, z2, torch.float32)
+    dp = sl["dband"]
+    tiles, b3 = dp[torch.float32]
+    ev = ela["v"]
+    p8, p32 = sl["plans"][(8, "ff")], sl["plans"][(32, "ff")]
+    sv = torch.randn(VMAP_OTHER, sl["v"].shape[0], device="cuda",
+                     generator=gen)
+    cases = [
+        ("band-10M plan.apply", plan.apply, vs, cuda_csr, "K1_LAUNCHES"),
+        ("elasticity-400k plan.apply", ela["plan"].apply,
+         torch.stack([ev, -ev]), cuda_csr_block, "K2_LAUNCHES"),
+        ("K1-r32 csr_smvm_segtile", lambda x: pt.csr_smvm_segtile(
+            sl["a"], x, p32), sv, cuda_csr, "K1_R32_LAUNCHES"),
+        ("K1-mxu csr_smvm_segtile", lambda x: pt.csr_smvm_segtile(
+            sl["a"], x, p8, reduce="mxu"), sv, cuda_csr, "K1_MXU_LAUNCHES"),
+        ("K3 bell_spmm_fused", lambda x: cuda_bell.bell_spmm_fused(a, x), bs,
+         cuda_bell, "K3_LAUNCHES"),
+        ("K3 over BELL values", lambda x: cuda_bell.bell_spmm_fused(
+            dataclasses.replace(a, blocks=x), b),
+         torch.stack([a.blocks, 2 * a.blocks]), cuda_bell, "K3_LAUNCHES"),
+        ("K4 bell_spmm(plan=kit)", lambda x: pt.bell_spmm(
+            a, x, plan=m["kit"]), bs, cuda_bell, "K4_LAUNCHES"),
+        ("K5 bell_spmm(plan=kit_t)", lambda x: pt.bell_spmm(
+            a, x, plan=m["kit_t"]), torch.stack([b32, 2 * b32]), cuda_bell,
+         "K5_LAUNCHES"),
+        ("K6 bell_spmm_block", lambda x: cuda_bell.bell_spmm_block(a, x), bs,
+         cuda_bell, "K6_LAUNCHES"),
+        ("K7 bsr_smsmm_apply_slab", lambda x: pt.bsr_smsmm_apply_slab(
+            pp, dataclasses.replace(ka, blocks=x), kb).blocks,
+         torch.stack([ka.blocks, -ka.blocks]), cuda_bsr, "K7_LAUNCHES"),
+        ("K7 run_slabs_arrays", lambda x: cuda_bsr.run_slabs_arrays(
+            *raw_args[:5], x, z2, **raw_kw), torch.stack([z1, 2 * z1]),
+         cuda_bsr, "K7_LAUNCHES"),
+        ("K8 dband_spmm", lambda x: cuda_dband.dband_spmm(
+            tiles, dp["plan"].start, x, dp["nb"], dp["bsz"], dp["k"],
+            dp["plan"].W, 5, torch.float32), torch.stack([b3, -b3]),
+         cuda_dband, "K8_LAUNCHES"),
+    ]
+    vmapped = {}
+    for label, fn, xs, module, counter in cases:
+        vmapped[label] = _transforms_hold(label, fn, xs, module, counter)
+        print(f"   {label}: vmap over {xs.shape[0]} launched "
+              f"{counter[:-9]} {vmapped[label]} times, bitwise equal to "
+              f"single calls; {', '.join(DERIVATIVE_MODES)} each raise "
+              "NotImplementedError", flush=True)
+    slab_ad = _slab_ad_holds("bsr_smsmm_apply_slab_ad", ka, kb)
+    print(f"   bsr_smsmm_apply_slab_ad: dA through K7 within "
+          f"{slab_ad['grad_err']:.3e} of the plain autograd (2e-5 |dC||B| "
+          f"each); vmap launched K7 "
+          f"{slab_ad['vmap_launches']} times; jvp raises", flush=True)
+    cost = _function_cost(card, lambda: plan.apply(v))
+    return dict(main_vmap_launches=launches["K1"], vmap_launches=vmapped,
+                slab_ad=slab_ad, function_cost=cost, card=card)
+
+
+# -- phase 20: the five examples at size -------------------------------------
+
+#: the examples' sizes on the card (ROADMAP / PERF.md §4)
+POISSON_K, POISSON_SHARDS = 1024, 4
+FAST_CG_N, FAST_CG_SHARDS = 500_000, 4
+GALERKIN_N, GALERKIN_STEPS = 1 << 20, 20
+LU_EXAMPLE_BSZ, LU_EXAMPLE_NB = 4, 4096
+#: float32 iterates against float64 NumPy running the same iterations
+#: (phase 18's solver gate): relative residuals within this relative share,
+#: or both at float32's attainable accuracy (``_float32_floor``)
+ITER_AGREE = 1e-3
+FLOAT32_ROUNDOFF = 2.0 ** -24
+
+
+def _float32_floor(s, x, b, iters):
+    """The relative residual below which ``iters`` float32 CG steps cannot
+    resolve it: the gap between the true and the updated residual grows by
+    about u (||A|| ||x|| + ||b||) a step (Greenbaum, SIAM J. Matrix Anal.
+    Appl. 18, 1997), u = 2^-24, ||A|| bounded by its largest row sum."""
+    norm_a = float(abs(s).sum(axis=1).max())
+    return iters * FLOAT32_ROUNDOFF * (
+        norm_a * np.linalg.norm(x) / np.linalg.norm(b) + 1.0)
+
+
+def _np_chebyshev(s, lmax, degree):
+    """``parallel.chebyshev_preconditioner``'s polynomial in float64."""
+    lmin = lmax / 30.0
+    d, c = (lmax + lmin) / 2.0, (lmax - lmin) / 2.0
+
+    def apply(v):
+        z, r, p, alpha = np.zeros_like(v), v, v, 1.0 / d
+        for i in range(degree):
+            if i > 0:
+                beta = (c * alpha / 2.0) ** 2 if i > 1 else \
+                    0.5 * (c * alpha) ** 2
+                alpha = 1.0 / (d - beta / alpha)
+                p = r + beta * p
+            z = z + alpha * p
+            r = r - alpha * (s @ p)
+        return z
+
+    return apply
+
+
+def _agree(label, got, want, floor):
+    """Phase 18's rule: within ``ITER_AGREE`` relative, or both at the
+    floor."""
+    if want > floor:
+        ok = abs(got - want) <= ITER_AGREE * want
+    else:
+        ok = got <= floor
+    if not ok:
+        raise AssertionError(f"{label}: {got:.6e}, float64 NumPy's same "
+                             f"iterations {want:.6e} (floor {floor:.3e})")
+
+
+def _example_pagerank(card, graph, device):
+    import torch_pagerank as ex
+
+    p_mat = ex.transition(graph)
+    out = {}
+    for route in ("fast", "auto"):
+        r = ex.pagerank(p_mat, device=device, route=route)
+        ranks, oracle = r["ranks"], r["oracle"]
+        rel = float(np.max(np.abs(ranks - oracle) / np.abs(oracle)))
+        # the reference's gate holds at a million pages
+        np.testing.assert_allclose(ranks, oracle, rtol=1e-5)
+        top = np.argsort(ranks)[::-1][:5]
+        if not np.array_equal(top, np.argsort(oracle)[::-1][:5]):
+            raise AssertionError(f"pagerank {route}: top-5 differs")
+        label = "build_spmv_plan + csr_smvm_fast" if route == "fast" else \
+            f"smvm_prepare -> plan.apply (rung {r['rung']})"
+        print(f"   pagerank n={p_mat.shape[0]} nnz={p_mat.nnz}, {label}: "
+              f"top-5 pages {top.tolist()} ranks "
+              f"{np.round(ranks[top], 7).tolist()}; max rel err vs float64 "
+              f"{rel:.3e} (rtol 1e-5); {r['ms_per_step']:.4f} ms per step, "
+              f"{r['build_s']:.2f} s host set-up [{card}]", flush=True)
+        out[route] = dict(ms_per_step=r["ms_per_step"], build_s=r["build_s"],
+                          max_rel_err=rel, rung=r["rung"])
+    return out
+
+
+def _example_poisson(card, device):
+    import torch_poisson_cg as ex
+
+    t0 = time.perf_counter()
+    r = ex.poisson(POISSON_K, device=device, shards=POISSON_SHARDS)
+    t_all = time.perf_counter() - t0
+    s = r["s"].astype(np.float64)
+    b = r["b"].astype(np.float64)
+    x_true = r["x_true"].astype(np.float64)
+    n, nb = s.shape[0], s.shape[0] // 4
+    inv_d = 1.0 / s.diagonal()
+    blk = np.zeros((nb, 4, 4))
+    for i in range(4):
+        for j in range(4):
+            blk[:, i, j] = s[np.arange(nb) * 4 + i, np.arange(nb) * 4 + j].A1
+    inv_blk = np.linalg.inv(blk)
+    precs = {"jacobi": lambda x: inv_d * x,
+             "block-jacobi(4)": lambda x: np.einsum(
+                 "bij,bj->bi", inv_blk, x.reshape(nb, 4)).reshape(-1),
+             "chebyshev(6)": _np_chebyshev(s, r["lmax"], 6)}
+    out = {}
+    for name, x in r["x"].items():
+        iters = r["final_iters"] if " x" in name else r["iters"]
+        x64 = _np_pcg(s, b, precs[name.split(" x")[0]], iters)
+        err64 = np.linalg.norm(x64 - x_true) / np.linalg.norm(x_true)
+        res = np.linalg.norm(b - s @ x) / np.linalg.norm(b)
+        res64 = np.linalg.norm(b - s @ x64) / np.linalg.norm(b)
+        floor = _float32_floor(s, x, b, iters)
+        _agree(f"poisson {name} residual", res, res64, floor)
+        sec = r["seconds"][name]
+        print(f"   poisson grid {POISSON_K}x{POISSON_K} ({n} unknowns, "
+              f"{s.nnz} entries) on {POISSON_SHARDS} shards, {iters} iters, "
+              f"{name}: relative residual {res:.4e} (float64 NumPy "
+              f"{res64:.4e}; float32 floor {floor:.2e}), relative error "
+              f"{r['err'][name]:.4e} ({err64:.4e}); "
+              f"{sec / iters * 1e3:.3f} ms per iteration [{card}]",
+              flush=True)
+        out[name] = dict(err=r["err"][name], err_float64=err64,
+                         residual=res, residual_float64=res64,
+                         float32_floor=floor, ms_per_iter=sec / iters * 1e3)
+    print(f"   poisson: the reference's gate (error < 1e-4 after "
+          f"{r['final_iters']} Chebyshev iterations) is for a 32 x 32 grid; "
+          f"at {POISSON_K}^2 each run's residual is held to float64's same "
+          f"iterations (within {ITER_AGREE}, or both below float32's "
+          f"attainable accuracy), the error printed beside; {t_all:.1f} s "
+          f"in all, lmax {r['lmax']:.4f}", flush=True)
+    return out
+
+
+def _example_fast_cg(card, device):
+    import torch_fast_distributed_cg as ex
+
+    from sparse_tpu_torch.ops import cuda_csr
+
+    before = cuda_csr.K1_LAUNCHES
+    r = ex.fast_cg(FAST_CG_N, device=device, shards=FAST_CG_SHARDS)
+    k1 = cuda_csr.K1_LAUNCHES - before
+    if device == "cuda" and (k1 <= 0 or k1 % FAST_CG_SHARDS):
+        raise AssertionError(f"fast_distributed_cg: K1 rose by {k1}")
+    if not r["rel"] < 1e-5:  # the reference's gate
+        raise AssertionError(f"fast_distributed_cg: rel residual "
+                             f"{r['rel']:.3e}")
+    np.testing.assert_allclose(r["pcsr"], r["segtile"], rtol=2e-4,
+                               atol=2e-4)
+    print(f"   fast_distributed_cg n={FAST_CG_N} ({r['spd'].nnz} entries) "
+          f"on {FAST_CG_SHARDS} shards: halo/shard {r['halo']}, worst tile "
+          f"fill {r['fill']:.3f}; CG({r['iters']}) through HaloSegtile rel "
+          f"residual {r['rel']:.3e} (< 1e-5), PCSR within 2e-4; ms per "
+          f"iteration HaloSegtile "
+          f"{r['seconds']['segtile'] / r['iters'] * 1e3:.3f}, PCSR "
+          f"{r['seconds']['pcsr'] / r['iters'] * 1e3:.3f}; K1 launches "
+          f"{k1}; {r['build_s']:.1f} s host set-up [{card}]", flush=True)
+    return dict(rel=r["rel"], k1_launches=k1, build_s=r["build_s"],
+                ms_per_iter={k: t / r["iters"] * 1e3
+                             for k, t in r["seconds"].items()})
+
+
+def _example_galerkin(card, device):
+    import torch_galerkin_reuse as ex
+
+    r = ex.galerkin(GALERKIN_N, device=device, steps=GALERKIN_STEPS)
+    if not r["first_ok"]:  # the reference's np.allclose gate
+        raise AssertionError(f"galerkin: first update off by "
+                             f"{r['first_max_err']:.3e}")
+    print(f"   galerkin_reuse n={GALERKIN_N} (A_c {r['nc']}x{r['nc']}, "
+          f"{r['stored']} stored): {r['ms_per_step']:.3f} ms per update over "
+          f"{GALERKIN_STEPS} updates (host clock, the CSR upload included), "
+          f"plans {r['plan_s']:.2f} s; first update within np.allclose of "
+          f"SciPy's R A P (max err {r['first_max_err']:.3e}) [{card}]",
+          flush=True)
+    return dict(ms_per_step=r["ms_per_step"], plan_s=r["plan_s"],
+                stored=r["stored"], first_max_err=r["first_max_err"])
+
+
+def _example_block_lu(card, device):
+    import torch_block_lu_solve as ex
+
+    r = ex.block_lu(LU_EXAMPLE_BSZ, LU_EXAMPLE_NB, device=device)
+    if not r["resid"] < 1e-8:  # the reference's gate
+        raise AssertionError(f"block_lu_solve: residual {r['resid']:.3e}")
+    if not r["lu_err"] < 1e-10:
+        raise AssertionError(f"block_lu_solve: |P.A - L.U| "
+                             f"{r['lu_err']:.3e}")
+    print(f"   block_lu_solve {LU_EXAMPLE_NB}x{LU_EXAMPLE_NB} blocks (bsz "
+          f"{LU_EXAMPLE_BSZ}, n {r['n']}), fill-in blocks {r['fills']}; max "
+          f"|P.A - L.U| {r['lu_err']:.3e}; ols residual {r['resid']:.3e}; "
+          f"bsr_lup {r['seconds']['bsr_lup']:.3f} s, bsr_ols "
+          f"{r['seconds']['bsr_ols']:.3f} s (host clock) [{card}]",
+          flush=True)
+    return dict(fills=r["fills"], lu_err=r["lu_err"], resid=r["resid"],
+                host_s=r["seconds"])
+
+
+def phase20_examples(card, graph, device="cuda"):
+    """The five port examples (``examples/torch_*.py``) at size, through
+    the functions their scripts call: PageRank on powerlaw-1M (phase 18's
+    graph), 60 steps through the reference's plain route and through the
+    main path; the 1024 x 1024 Poisson problem on 4 shards; the fast
+    distributed CG at n = 500,000 on 4 shards; the Galerkin update at n =
+    1,048,576; the block LU at nb 4096.  Each holds the reference's gate
+    where it applies at size, else float64 NumPy's same iterations."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    out = {}
+    for name, run in (("pagerank", lambda: _example_pagerank(card, graph,
+                                                             device)),
+                      ("poisson_cg", lambda: _example_poisson(card, device)),
+                      ("fast_distributed_cg", lambda: _example_fast_cg(
+                          card, device)),
+                      ("galerkin_reuse", lambda: _example_galerkin(card,
+                                                                   device)),
+                      ("block_lu_solve", lambda: _example_block_lu(card,
+                                                                   device))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        out[name]["seconds"] = time.perf_counter() - t0
+        print(f"   {name}: {out[name]['seconds']:.1f} s", flush=True)
+    return out
 
 
 def main():
@@ -3534,8 +4037,9 @@ def main():
     cuda_bsr.K7_LAUNCHES = 0
     dist_launches = {}
     with Phase("phase 18: the distributed layer", 480):
-        dist = phase18_distributed(card, slice_run, spmm_run, spd,
-                                   ela["plan"].state[0], dist_launches)
+        dist, graph = phase18_distributed(card, slice_run, spmm_run, spd,
+                                          ela["plan"].state[0],
+                                          dist_launches)
     print(f"   distributed-layer launches: {dist_launches}", flush=True)
     for k, count in dist_launches.items():
         if count <= 0:
@@ -3547,6 +4051,30 @@ def main():
             entry["dist_launches"] = dist_launches[key]
     dist["dist"]["launches"] = dist_launches
     print(json.dumps(dist), flush=True)
+    # the transforms' run: phase 19 sets K1's count to 0 before its vmap
+    transform_launches = {}
+    with Phase("phase 19: kernel routes under vmap and autodiff", 180):
+        transforms = phase19_transforms(card, band, ela, spmm_run,
+                                        slice_run, transform_launches)
+    print(f"   transforms main-path launches: {transform_launches}",
+          flush=True)
+    # the examples' run: the kernel counts start at 0 here
+    cuda_csr.K1_LAUNCHES = 0
+    with Phase("phase 20: the five examples at size", 300):
+        examples = phase20_examples(card, graph)
+    del graph
+    examples_launches = {"K1": cuda_csr.K1_LAUNCHES}
+    print(f"   examples' launches: {examples_launches}", flush=True)
+    if examples_launches["K1"] <= 0:
+        raise AssertionError("K1 was not launched by the examples")
+    for entry in kernels:
+        key = entry["name"].split()[0]
+        if key in transform_launches:
+            entry["vmap_launches"] = transform_launches[key]
+        if key in examples_launches:
+            entry["example_launches"] = examples_launches[key]
+    print(json.dumps({"transforms": transforms, "examples": examples,
+                      "card": card}, default=float), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

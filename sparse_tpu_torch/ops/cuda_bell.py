@@ -56,6 +56,7 @@ import torch
 from .. import _kernels
 from ..formats.bell import BELL
 from ..utils.precision import full_precision
+from ._transforms import kernel_call
 
 __all__ = [
     "BandedPlan",
@@ -232,30 +233,37 @@ def _rowwise(name: str, which: str, a: BELL, b, compute_dtype, precision,
         return torch.zeros(a.n, k, dtype=out_dtype, device=b.device)
     if plain or not _on_cuda(name, a.blocks, a.cols, b):
         return _gather_einsum(a, b, stream, split).to(out_dtype)
-    global K3_LAUNCHES, K6_LAUNCHES
-    blocks = a.blocks.to(stream).contiguous()
-    cols = a.cols.to(torch.int32).contiguous()
-    bs = b.to(stream).contiguous()
     # K6's persistent body rounds its bf16 sums as it stores them
     direct = (which == "block" and stream == torch.bfloat16
               and a.bsz <= 64)
-    out = torch.empty(a.n, k, dtype=stream if direct else _acc_dtype(stream),
-                      device=b.device)
-    lib = _kernels.load()
-    args = (_kind(stream, split), blocks.data_ptr(), cols.data_ptr(),
-            bs.data_ptr(), out.data_ptr(), a.nb, a.Lb, a.bsz, k)
-    if count is not None:
-        fn = (lib.bell_fused_issued if which == "fused"
-              else lib.bell_block_issued)
-        _launch(name, fn, *args, count.data_ptr(), device=b.device)
-    else:
-        fn = lib.bell_fused if which == "fused" else lib.bell_block
-        _launch(name, fn, *args, device=b.device)
-        if which == "fused":
-            K3_LAUNCHES += 1
+
+    def launch(blocks, b):
+        # index tensors are prepared here, where no transform wraps them
+        global K3_LAUNCHES, K6_LAUNCHES
+        cols = a.cols.to(torch.int32).contiguous()
+        blocks = blocks.to(stream).contiguous()
+        bs = b.to(stream).contiguous()
+        out = torch.empty(a.n, k, dtype=stream if direct
+                          else _acc_dtype(stream), device=b.device)
+        lib = _kernels.load()
+        args = (_kind(stream, split), blocks.data_ptr(), cols.data_ptr(),
+                bs.data_ptr(), out.data_ptr(), a.nb, a.Lb, a.bsz, k)
+        if count is not None:
+            fn = (lib.bell_fused_issued if which == "fused"
+                  else lib.bell_block_issued)
+            _launch(name, fn, *args, count.data_ptr(), device=b.device)
         else:
-            K6_LAUNCHES += 1
-    return out.to(out_dtype)
+            fn = lib.bell_fused if which == "fused" else lib.bell_block
+            _launch(name, fn, *args, device=b.device)
+            if which == "fused":
+                K3_LAUNCHES += 1
+            else:
+                K6_LAUNCHES += 1
+        return out.to(out_dtype)
+
+    if count is not None:
+        return launch(a.blocks, b)
+    return kernel_call(name, launch, a.blocks, b)
 
 
 def bell_spmm_block(a: BELL, b, *, precision=None) -> torch.Tensor:
@@ -754,17 +762,21 @@ def _banded(a: BELL, b, plan: BandedPlan, compute_dtype, tiles, precision,
         win = torch.where(inside[:, :, None], bs[rows], bs.new_zeros(()))
         out = _contract(torch.bmm, tiles, win, stream, split)
         return out.reshape(nb_pad * bsz, k)[:a.n].to(out_dtype)
-    global K4_LAUNCHES
-    ts = tiles.to(stream).contiguous()
-    start = plan.start.to(torch.int32).contiguous()
-    bs = b.to(stream).contiguous()
-    out = torch.empty(nb_pad * bsz, k, dtype=_acc_dtype(stream),
-                      device=b.device)
-    _launch(name, _kernels.load().bell_banded, _kind(stream, split),
-            ts.data_ptr(), start.data_ptr(), bs.data_ptr(), out.data_ptr(),
-            ntiles, rt * bsz, W * bsz, k, bsz, a.n, device=b.device)
-    K4_LAUNCHES += 1
-    return out[:a.n].to(out_dtype)
+    def launch(tiles, b):
+        global K4_LAUNCHES
+        start = plan.start.to(torch.int32).contiguous()
+        ts = tiles.to(stream).contiguous()
+        bs = b.to(stream).contiguous()
+        out = torch.empty(nb_pad * bsz, k, dtype=_acc_dtype(stream),
+                          device=b.device)
+        _launch(name, _kernels.load().bell_banded, _kind(stream, split),
+                ts.data_ptr(), start.data_ptr(), bs.data_ptr(),
+                out.data_ptr(), ntiles, rt * bsz, W * bsz, k, bsz, a.n,
+                device=b.device)
+        K4_LAUNCHES += 1
+        return out[:a.n].to(out_dtype)
+
+    return kernel_call(name, launch, tiles, b)
 
 
 def bell_spmm_banded(a: BELL, b, plan: BandedPlan, *, compute_dtype=None,
@@ -823,17 +835,21 @@ def _banded_t(a: BELL, bt, kit: BandedKitT, precision, plain: bool):
                         split)  # (ntiles, k, rt*bsz)
         out = out.permute(1, 0, 2).reshape(k, n_pad)
         return out[:, :width].to(out_dtype)
-    global K5_LAUNCHES
-    ts = tiles_t.contiguous()
-    start = plan.start.to(torch.int32).contiguous()
-    bs = bt.to(stream).contiguous()
-    out = torch.empty(k, n_pad, dtype=_acc_dtype(stream), device=bt.device)
-    _launch(name, _kernels.load().bell_banded_t, _kind(stream, split),
-            ts.data_ptr(), start.data_ptr(), kit.chunk_nz.data_ptr(),
-            bs.data_ptr(), out.data_ptr(), ntiles, rt * bsz, W * bsz, k, bsz,
-            width, device=bt.device)
-    K5_LAUNCHES += 1
-    return out[:, :width].to(out_dtype)
+    def launch(tiles_t, bt):
+        global K5_LAUNCHES
+        start = plan.start.to(torch.int32).contiguous()
+        ts = tiles_t.contiguous()
+        bs = bt.to(stream).contiguous()
+        out = torch.empty(k, n_pad, dtype=_acc_dtype(stream),
+                          device=bt.device)
+        _launch(name, _kernels.load().bell_banded_t, _kind(stream, split),
+                ts.data_ptr(), start.data_ptr(), kit.chunk_nz.data_ptr(),
+                bs.data_ptr(), out.data_ptr(), ntiles, rt * bsz, W * bsz, k,
+                bsz, width, device=bt.device)
+        K5_LAUNCHES += 1
+        return out[:, :width].to(out_dtype)
+
+    return kernel_call(name, launch, tiles_t, bt)
 
 
 def bell_spmm_banded_t(a: BELL, bt, kit: BandedKitT, *,

@@ -59,6 +59,7 @@ import torch
 from .. import _kernels
 from ..formats.bsr import BSR, BsrSmsmmPlan
 from ..utils.precision import full_precision
+from ._transforms import kernel_call, not_differentiable, vmap_loop
 from .segmented import INDEX_DTYPE, segment_sum
 
 __all__ = [
@@ -563,28 +564,37 @@ def _launch_list(name, prod_ptr, prod_ab, z1, z2, bsz, out_dtype,
     ``out_dtype``.  The factors are passed as they are (cast only where
     their dtype differs).  ``count``: an int64 counter on the card that
     gets the products multiplied; such a launch is not a launch of the
-    main path and is not counted in ``K7_LAUNCHES``."""
-    global K7_LAUNCHES
+    main path and is not counted in ``K7_LAUNCHES``.  The factors go
+    through :func:`~sparse_tpu_torch.ops._transforms.kernel_call`
+    (``vmap`` launches once per slice; derivatives raise)."""
     if bsz > _MAX_BSZ:
         raise ValueError(f"{name}: block size {bsz} > {_MAX_BSZ} (two "
                          "blocks must fit in shared memory)")
     nbz_out = prod_ptr.shape[0] - 1
-    dev = z1.device
-    z1c = z1.to(out_dtype).contiguous()
-    z2c = z2.to(out_dtype).contiguous()
-    ptr = prod_ptr.to(torch.int32).contiguous()
-    ab = prod_ab.to(torch.int32).contiguous()
-    out = torch.empty((nbz_out, bsz, bsz), dtype=out_dtype, device=dev)
-    with torch.cuda.device(dev):
-        rc = _kernels.load().bsr_slab(
-            _KIND[out_dtype], z1c.data_ptr(), z2c.data_ptr(), ptr.data_ptr(),
-            ab.data_ptr(), out.data_ptr(), nbz_out, bsz,
-            None if count is None else count.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.check(rc, name)
-    if count is None:
-        K7_LAUNCHES += 1
-    return out
+
+    def launch(z1, z2):
+        # the lists are prepared here, where no transform wraps them
+        global K7_LAUNCHES
+        ptr = prod_ptr.to(torch.int32).contiguous()
+        ab = prod_ab.to(torch.int32).contiguous()
+        dev = z1.device
+        z1c = z1.to(out_dtype).contiguous()
+        z2c = z2.to(out_dtype).contiguous()
+        out = torch.empty((nbz_out, bsz, bsz), dtype=out_dtype, device=dev)
+        with torch.cuda.device(dev):
+            rc = _kernels.load().bsr_slab(
+                _KIND[out_dtype], z1c.data_ptr(), z2c.data_ptr(),
+                ptr.data_ptr(), ab.data_ptr(), out.data_ptr(), nbz_out, bsz,
+                None if count is None else count.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _kernels.check(rc, name)
+        if count is None:
+            K7_LAUNCHES += 1
+        return out
+
+    if count is not None:
+        return launch(z1, z2)
+    return kernel_call(name, launch, z1, z2)
 
 
 def run_slabs_arrays(p_a_idx, p_b_idx, p_oloc, p_first, p_slab,
@@ -614,11 +624,17 @@ def run_slabs_arrays(p_a_idx, p_b_idx, p_oloc, p_first, p_slab,
     if bsz > _MAX_BSZ:
         raise ValueError(f"{name}: block size {bsz} > {_MAX_BSZ} (two "
                          "blocks must fit in shared memory)")
-    if slab_start is None:
-        slab_start = _slab_starts(p_first, -(-nbz_out // p))
-    ptr, ab = slot_list(p_a_idx, p_b_idx, p_oloc, slab_start, g=g, p=p,
-                        nbz_out=nbz_out, paired=paired)
-    return _launch_list(name, ptr, ab, z1, z2, bsz, out_dtype)
+
+    def apply(z1, z2):
+        starts = slab_start if slab_start is not None else \
+            _slab_starts(p_first, -(-nbz_out // p))
+        ptr, ab = slot_list(p_a_idx, p_b_idx, p_oloc, starts, g=g, p=p,
+                            nbz_out=nbz_out, paired=paired)
+        return _launch_list(name, ptr, ab, z1, z2, bsz, out_dtype)
+
+    # the per-call product list goes to the kernel: a transform sees the
+    # whole route as one launch
+    return kernel_call(name, apply, z1, z2)
 
 
 def run_slabs_arrays_plain(p_a_idx, p_b_idx, p_oloc, p_first, p_slab,
@@ -738,15 +754,20 @@ def bsr_smsmm_apply_slab(pplan: BsrSlabPlan, a: BSR, b: BSR, *,
 
 class _SlabApplyAD(torch.autograd.Function):
     """C = A @ B on the forward schedule; dA and dB on the permuted
-    schedules, each one more slab apply."""
+    schedules, each one more slab apply.  ``vmap`` runs one apply per
+    slice; forward mode raises, as JAX's ``custom_vjp`` refuses it."""
 
     @staticmethod
-    def forward(ctx, plans, precision, a_blocks, b_blocks):
+    def forward(plans, precision, a_blocks, b_blocks):
         out_dtype = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
-        ctx.plans, ctx.precision = plans, precision
-        ctx.save_for_backward(a_blocks, b_blocks)
         return _apply("bsr_smsmm_apply_slab_ad", plans.fwd, a_blocks,
                       b_blocks, out_dtype, precision)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        plans, precision, a_blocks, b_blocks = inputs
+        ctx.plans, ctx.precision = plans, precision
+        ctx.save_for_backward(a_blocks, b_blocks)
 
     @staticmethod
     def backward(ctx, ct):
@@ -764,6 +785,18 @@ class _SlabApplyAD(torch.autograd.Function):
             db = _apply(name, plans.db, a_blocks.transpose(1, 2), ct,
                         out_dtype, precision).to(b_blocks.dtype)
         return None, None, da, db
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise NotImplementedError(not_differentiable(
+            "bsr_smsmm_apply_slab_ad", "forward"))
+
+    @staticmethod
+    def vmap(info, in_dims, plans, precision, a_blocks, b_blocks):
+        return vmap_loop(
+            info, in_dims[2:],
+            lambda x, y: _SlabApplyAD.apply(plans, precision, x, y),
+            (a_blocks, b_blocks))
 
 
 def bsr_smsmm_apply_slab_ad(plans: BsrSlabPlanAD, a: BSR, b: BSR, *,

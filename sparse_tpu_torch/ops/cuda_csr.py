@@ -41,6 +41,7 @@ import torch
 from .. import _kernels
 from ..formats.csr import CSR
 from ..utils.precision import full_precision
+from ._transforms import kernel_call
 
 __all__ = [
     "CompactStream",
@@ -583,10 +584,17 @@ def segtile_apply(vals, q, seg_of, rb, v, *, n: int, wsub: int, rows: int,
         raise ValueError(f"segtile_apply: wsub must be 8, 16 or 32, got "
                          f"{wsub}")
     nbR = -(-n // rows)
-    stream = _stream_from_slots(vals, q, seg_of, rb, rows=rows,
-                                n_rows=nbR * rows, n_cols=v.shape[0])
-    return segtile_stream_apply(stream, v, rows=rows, reduce=reduce,
-                                out_dtype=out_dtype)
+
+    def apply(vals, v):
+        stream = _stream_from_slots(vals, q, seg_of, rb, rows=rows,
+                                    n_rows=nbR * rows, n_cols=v.shape[0])
+        return segtile_stream_apply(stream, v, rows=rows, reduce=reduce,
+                                    out_dtype=out_dtype)
+
+    if not v.is_cuda:
+        return apply(vals, v)
+    # the per-call compaction reads the values: a transform sees it whole
+    return kernel_call("segtile_apply", apply, vals, v)
 
 
 def _check_slot_arrays(name, vals, q, seg_of, rb, v, val_shape, q_shape):
@@ -642,8 +650,8 @@ def segtile_apply_plain(vals, q, seg_of, rb, v, *, n: int, wsub: int,
     rbl = rb.long()
     keep = (rbl >= 0) & (rbl < nbR)
     y = torch.zeros(nbR, rows, dtype=out_dtype, device=v.device)
-    y.index_add_(0, rbl[keep], part[keep])
-    return y.reshape(-1)
+    # out of place, so torch.func.vmap can batch the operand
+    return y.index_add(0, rbl[keep], part[keep]).reshape(-1)
 
 
 def segtile_stream_apply(stream: CompactStream, v, *, rows: int = 8,
@@ -684,65 +692,83 @@ def segtile_stream_plain(stream: CompactStream, v, *,
     prod = (stream.vals[:k].to(out_dtype)
             * v.to(out_dtype)[stream.cols[:k].long()])
     y = torch.zeros(stream.n_rows, dtype=out_dtype, device=v.device)
-    return y.index_add_(0, _stream_rows(stream), prod)
+    # out of place, so torch.func.vmap can batch the operand
+    return y.index_add(0, _stream_rows(stream), prod)
 
 
 def _launch(name: str, fn, stream: CompactStream, v, out_dtype, comps: int,
-            tail: tuple) -> torch.Tensor:
+            tail: tuple, counted) -> torch.Tensor:
     """Launch a compact-stream kernel (csrc/segtile_csr.cu's arguments, then
     ``tail`` and the CUDA stream) on ``v``'s device; returns ``y``,
-    ``comps`` values per row.  Kept lean: at the sizes of a solver step
-    the host's work per call is comparable to the kernel's."""
+    ``comps`` values per row, and calls ``counted()`` once per launch.
+    The stream's values and ``v`` go through
+    :func:`~sparse_tpu_torch.ops._transforms.kernel_call` (``vmap`` launches
+    once per slice; derivatives raise).  Kept lean: at the sizes of a
+    solver step the host's work per call is comparable to the kernel's."""
     if out_dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: the CUDA kernel takes float32 or float64, "
                         f"got {out_dtype}")
-    vals = stream.vals
-    if vals.dtype != out_dtype:
-        vals = vals.to(out_dtype)
-    if v.dtype != out_dtype or not v.is_contiguous():
-        v = v.to(out_dtype).contiguous()
-    if v.data_ptr() % (comps * v.element_size()):
-        v = v.clone()  # a block kernel gathers the operand in pairs
-    if vals.data_ptr() % 16 or stream.cols.data_ptr() % 16:
-        raise ValueError(f"{name}: the stream's vals and cols must be "
-                         "16-byte aligned")
-    dev = v.device
-    y = torch.empty(comps * stream.n_rows, dtype=out_dtype, device=dev)
-    partial = (torch.empty(comps * stream.n_pieces, dtype=out_dtype,
-                           device=dev) if stream.n_pieces else None)
-    args = (vals.data_ptr(), stream.cols.data_ptr(),
-            stream.row_ptr.data_ptr(), stream.long_rows.data_ptr(),
-            stream.piece_ptr.data_ptr(), stream.piece_row.data_ptr(),
-            v.data_ptr(), 0 if partial is None else partial.data_ptr(),
-            y.data_ptr(), stream.n_rows, stream.n_long, stream.n_pieces,
-            *tail, torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index == torch.cuda.current_device():
-        rc = fn(*args)
-    else:
-        with torch.cuda.device(dev):
+
+    def launch(vals, v):
+        if vals.dtype != out_dtype:
+            vals = vals.to(out_dtype)
+        if v.dtype != out_dtype or not v.is_contiguous():
+            v = v.to(out_dtype).contiguous()
+        if v.data_ptr() % (comps * v.element_size()):
+            v = v.clone()  # a block kernel gathers the operand in pairs
+        if vals.data_ptr() % 16 or stream.cols.data_ptr() % 16:
+            raise ValueError(f"{name}: the stream's vals and cols must be "
+                             "16-byte aligned")
+        dev = v.device
+        y = torch.empty(comps * stream.n_rows, dtype=out_dtype, device=dev)
+        partial = (torch.empty(comps * stream.n_pieces, dtype=out_dtype,
+                               device=dev) if stream.n_pieces else None)
+        args = (vals.data_ptr(), stream.cols.data_ptr(),
+                stream.row_ptr.data_ptr(), stream.long_rows.data_ptr(),
+                stream.piece_ptr.data_ptr(), stream.piece_row.data_ptr(),
+                v.data_ptr(), 0 if partial is None else partial.data_ptr(),
+                y.data_ptr(), stream.n_rows, stream.n_long, stream.n_pieces,
+                *tail, torch.cuda.current_stream(dev).cuda_stream)
+        if dev.index == torch.cuda.current_device():
             rc = fn(*args)
-    _kernels.check(rc, name)
-    return y
+        else:
+            with torch.cuda.device(dev):
+                rc = fn(*args)
+        _kernels.check(rc, name)
+        counted()
+        return y
+
+    return kernel_call(name, launch, stream.vals, v)
+
+
+def _count_k1():
+    global K1_LAUNCHES
+    K1_LAUNCHES += 1
+
+
+def _count_k1_r32():
+    global K1_R32_LAUNCHES
+    K1_R32_LAUNCHES += 1
+
+
+def _count_k1_mxu():
+    global K1_MXU_LAUNCHES
+    K1_MXU_LAUNCHES += 1
 
 
 def _segtile_stream_cuda(stream, v, rows, reduce, out_dtype):
-    global K1_LAUNCHES, K1_R32_LAUNCHES, K1_MXU_LAUNCHES
     lib = _kernels.load()
     f32 = out_dtype == torch.float32
     if reduce == "mxu":
         fn = lib.segtile_mxu_f32 if f32 else lib.segtile_mxu_f64
         tail = (stream.long_min, stream.piece)
+        counted = _count_k1_mxu
     else:
         fn = lib.segtile_csr_f32 if f32 else lib.segtile_csr_f64
         tail = (stream.long_min, stream.piece, stream.group)
-    y = _launch(f"segtile_{reduce}", fn, stream, v, out_dtype, 1, tail)
-    if reduce == "mxu":
-        K1_MXU_LAUNCHES += 1
-    elif rows == 32:
-        K1_R32_LAUNCHES += 1
-    else:
-        K1_LAUNCHES += 1
-    return y
+        counted = _count_k1_r32 if rows == 32 else _count_k1
+    return _launch(f"segtile_{reduce}", fn, stream, v, out_dtype, 1, tail,
+                   counted)
 
 
 def segtile_hbm_bytes(plan: SegTilePlan) -> int:

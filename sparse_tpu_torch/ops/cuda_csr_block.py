@@ -252,7 +252,8 @@ def block_stream_plain(stream: CompactStream, v, *,
     prod = torch.stack([a[:, 0] * x[:, 0] + a[:, 1] * x[:, 1],
                         a[:, 2] * x[:, 0] + a[:, 3] * x[:, 1]], 1)
     y = torch.zeros(stream.n_rows, 2, dtype=out_dtype, device=v.device)
-    return y.index_add_(0, _stream_rows(stream), prod).reshape(-1)
+    # out of place, so torch.func.vmap can batch the operand
+    return y.index_add(0, _stream_rows(stream), prod).reshape(-1)
 
 
 def bsr_smvm_segtile_block_plain(ab: BSR, v, plan: BlockSegTilePlan) -> \
@@ -278,19 +279,22 @@ def bsr_smvm_segtile_block_plain(ab: BSR, v, plan: BlockSegTilePlan) -> \
     rbl = plan.rb.long()
     keep = (rbl >= 0) & (rbl < nbRb)
     y = torch.zeros(nbRb, _R, 2, dtype=out_dtype, device=v.device)
-    y.index_add_(0, rbl[keep], torch.stack([acc0, acc1], -1)[keep])
+    # out of place, so torch.func.vmap can batch the operand
+    y = y.index_add(0, rbl[keep], torch.stack([acc0, acc1], -1)[keep])
     return y.reshape(-1)[:nb * 2]
 
 
-def _segtile_block_cuda(stream: CompactStream, v, out_dtype):
+def _count_k2():
     global K2_LAUNCHES
+    K2_LAUNCHES += 1
+
+
+def _segtile_block_cuda(stream: CompactStream, v, out_dtype):
     lib = _kernels.load()
     fn = lib.segtile_block_f32 if out_dtype == torch.float32 \
         else lib.segtile_block_f64
-    y = _launch("bsr_smvm_segtile_block", fn, stream, v, out_dtype, 2,
-                (stream.long_min, stream.piece, stream.group))
-    K2_LAUNCHES += 1
-    return y
+    return _launch("bsr_smvm_segtile_block", fn, stream, v, out_dtype, 2,
+                   (stream.long_min, stream.piece, stream.group), _count_k2)
 
 
 def block_segtile_hbm_bytes(plan: BlockSegTilePlan) -> int:

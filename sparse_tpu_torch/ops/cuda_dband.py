@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from ._transforms import kernel_call
 from .cuda_bell import (
     _KIND,
     _acc_dtype,
@@ -76,19 +77,23 @@ def dband_spmm(tiles, start, b3, nb, bsz, k, W, rt, out_dtype):
     if not _on_cuda("dband_spmm", tiles, start, b3):
         return dband_spmm_plain(tiles, start, b3, nb, bsz, k, W, rt,
                                 out_dtype)
-    global K8_LAUNCHES
     stream = tiles.dtype
-    ts = tiles.contiguous()
-    st = start.to(torch.int32).contiguous()
-    bs = b3.to(stream).contiguous()
-    out = torch.empty(ntiles * rt * bsz, k, dtype=_acc_dtype(stream),
-                      device=tiles.device)
-    _launch("dband_spmm", _kernels.load().bell_banded, _KIND[stream],
-            ts.data_ptr(), st.data_ptr(), bs.data_ptr(), out.data_ptr(),
-            ntiles, rt * bsz, W * bsz, k, bsz, b3.shape[0] * bsz,
-            device=tiles.device)
-    K8_LAUNCHES += 1
-    return out[:nb * bsz].to(out_dtype)
+
+    def launch(tiles, b3):
+        global K8_LAUNCHES
+        st = start.to(torch.int32).contiguous()
+        ts = tiles.contiguous()
+        bs = b3.to(stream).contiguous()
+        out = torch.empty(ntiles * rt * bsz, k, dtype=_acc_dtype(stream),
+                          device=tiles.device)
+        _launch("dband_spmm", _kernels.load().bell_banded, _KIND[stream],
+                ts.data_ptr(), st.data_ptr(), bs.data_ptr(), out.data_ptr(),
+                ntiles, rt * bsz, W * bsz, k, bsz, b3.shape[0] * bsz,
+                device=tiles.device)
+        K8_LAUNCHES += 1
+        return out[:nb * bsz].to(out_dtype)
+
+    return kernel_call("dband_spmm", launch, tiles, b3)
 
 
 def dband_spmm_plain(tiles, start, b3, nb, bsz, k, W, rt, out_dtype):

@@ -170,9 +170,9 @@ def csr_smvm_fast(a: CSR, v, plan: SpmvPlan | None = None,
     out = torch.zeros(n, dtype=out_dtype, device=a.device)
     if not plan.bin_sizes or a.nse == 0 or m == 0:
         return out
-    out[plan.perm] = _apply_plan(a, v.to(out_dtype), plan, _smvm_rows,
-                                 row_chunk)
-    return out
+    # out of place, so torch.func.vmap can batch the operand
+    return out.index_put((plan.perm,), _apply_plan(
+        a, v.to(out_dtype), plan, _smvm_rows, row_chunk))
 
 
 def csr_spmm_fast(a: CSR, b, plan: SpmvPlan | None = None,
@@ -187,5 +187,5 @@ def csr_spmm_fast(a: CSR, b, plan: SpmvPlan | None = None,
     out = torch.zeros(n, k, dtype=out_dtype, device=a.device)
     if not plan.bin_sizes or a.nse == 0 or m == 0 or k == 0:
         return out
-    out[plan.perm] = _apply_plan(a, b, plan, _spmm_rows, row_chunk)
-    return out
+    return out.index_put((plan.perm,),
+                         _apply_plan(a, b, plan, _spmm_rows, row_chunk))

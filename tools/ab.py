@@ -1,7 +1,8 @@
 """Time one suite of kernels of one copy of ``sparse_tpu_torch``, to compare
 two versions of the package on one card.
 
-    python3 tools/ab.py --suite {bell,slab,segtile} [--root DIR] [--tag NAME]
+    python3 tools/ab.py --suite {bell,slab,segtile,apply} [--root DIR]
+        [--tag NAME]
 
 Imports ``sparse_tpu_torch`` from ``DIR`` (default: this checkout), and
 the inputs and the timing helper from this checkout's ``chip_smoke.py``.
@@ -27,11 +28,18 @@ Suites:
   through ``csr_smvm_segtile`` on band-10M (500k rows, ~10M entries,
   ``smvm_prepare``'s segtile plan), K2 through ``bsr_smvm_segtile_block``
   on elasticity-400k (the blockseg plan), and both plans' ``apply``.
+- ``apply``: the host-bound K1 entry points on band-10M: ``plan.apply``
+  and ``halo_spmv_segtile`` on a 1-shard in-process mesh.
+
+Beside each back-to-back time it prints the host microseconds per call
+(``chip_smoke._host_us``: 200 calls issued back to back, the card
+synchronised only before and after).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -150,7 +158,25 @@ def segtile_cases(cs):
     }
 
 
-SUITES = {"bell": bell_cases, "slab": slab_cases, "segtile": segtile_cases}
+def apply_cases(cs):
+    import torch
+
+    import sparse_tpu_torch.parallel as par
+
+    band = cs.phase4_band()
+    plan, v = band["plan"], band["v"]
+    a = plan.state[0]
+    mesh1 = par.make_1d_mesh(1)
+    hs1 = par.halo_partition_segtile(a, mesh1)
+    v1 = par.shard_vector(v.cpu(), hs1, mesh1)
+    return {
+        "band apply": lambda: plan.apply(v),
+        "halo D=1": lambda: par.halo_spmv_segtile(hs1, v1, mesh1),
+    }
+
+
+SUITES = {"bell": bell_cases, "slab": slab_cases, "segtile": segtile_cases,
+          "apply": apply_cases}
 
 
 def main():
@@ -165,8 +191,12 @@ def main():
 
     import sparse_tpu_torch
 
-    sys.path.insert(1, str(HERE))
-    import chip_smoke as cs
+    # this checkout's inputs and timing helpers, whatever DIR holds
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
 
     if not torch.cuda.is_available():
         raise SystemExit("ab: needs a CUDA card")
@@ -174,16 +204,19 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    ms = {}
+    ms, host_us = {}, {}
     for name, fn in SUITES[args.suite](cs).items():
         med, fastest = cs.pipelined_ms(fn)
         ms[name] = [med, fastest]
+        host_us[name] = cs._host_us(fn)
         print(f"   {args.tag} {name:11s}: {med:.4f} ms back to back (median "
-              f"window; fastest {fastest:.4f}) [{card}]", flush=True)
+              f"window; fastest {fastest:.4f}), host {host_us[name]:.2f} us "
+              f"a call [{card}]", flush=True)
     print(json.dumps({"suite": args.suite, "tag": args.tag,
                       "root": str(args.root),
                       "package": str(Path(sparse_tpu_torch.__file__).parent),
-                      "card": card, "ms": ms}), flush=True)
+                      "card": card, "ms": ms, "host_us": host_us}),
+          flush=True)
 
 
 if __name__ == "__main__":
