@@ -95,6 +95,14 @@ the 1024 x 1024 Poisson problem and the fast distributed CG at n = 500,000
 on 4 shards, the Galerkin update at n = 2^20 and the block LU at nb 4096,
 each held to the reference script's assertion or to float64 NumPy running
 the same iterations, and prints a ``transforms`` / ``examples`` JSON line.
+Phase 21 times the public paths no earlier phase runs or times at size,
+each against its float64 gate: the plain SpMV and SpMM entry points and
+the ``xla`` / ``bell`` rungs on band-10M and elasticity-400k, the SpMMs
+at ``__graft_entry__``'s shape, ``bell_smvm`` and the bf16x3 tier of K3,
+K4 and K6 on the 80M-entry band, the ESC and dense SpGEMM cores on cuts
+of the SpGEMM fixture, ``pcsr_spmm`` / ``halo_spmm_overlapped`` /
+``pcsr_spgemm`` over 4 shards, and an int32 pass exact to NumPy, and
+prints a ``surface`` JSON line.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -3932,6 +3940,428 @@ def phase20_examples(card, graph, device="cuda"):
     return out
 
 
+# -- phase 21: the rest of the public surface at size ------------------------
+
+#: bf16x3's gate: three bf16 products leave out lo*lo and round each part,
+#: at most 2^-15 of |A||B| beside float32's summation tolerance.
+BF16X3_TOL = 2.0 ** -15 + 1e-5
+#: The ESC core's cut: the full fixture's A @ A expands to 5.9e9 scalar
+#: products (~95 GB of keys, values and order); the leading block
+#: principal submatrix with at most this many products stands in for it.
+ESC_MAX_PRODUCTS = 1 << 27
+#: The dense SpGEMM core's operand: the leading 4096 x 4096 block of the
+#: fixture, 3 * 4096^2 dense elements within ``_MXU_DENSE_ELEMS``.
+MXU_N = 4096
+TRI_INT_N = 2048
+
+
+def _b2b(fn):
+    """Back-to-back ms of ``fn``: the median of 5 windows of 20 calls, of
+    one call for a path slower than 20 ms (its first call, on the host
+    clock, is the warm-up); returns (median, fastest, calls a window)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    n = N_TIMED if time.perf_counter() - t0 < 0.02 else 1
+    ms, fastest = pipelined_ms(fn, warmup=0, n=n, windows=5)
+    return ms, fastest, n
+
+
+def _gate(label, got, ref, bound, tol):
+    """|got - ref| <= tol * bound elementwise, finite; returns max err."""
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} vs "
+                             f"{tuple(ref.shape)}, or non-finite values")
+    err = (got.double() - ref.double()).abs()
+    over = float((err - tol * bound).max()) if err.numel() else 0.0
+    if over > 0:
+        raise AssertionError(f"{label}: error exceeds {tol:.3g} |A||x| by "
+                             f"{over:.3e}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _oracle(s, x64):
+    """SciPy's float64 ``s @ x64`` and ``|s| |x64|`` on the card."""
+    return (torch.from_numpy(s @ x64).cuda(),
+            torch.from_numpy(abs(s) @ np.abs(x64)).cuda())
+
+
+def _vs_scipy(label, y, s, x64, rows=None, tol=TOL[torch.float32],
+              oracle=None):
+    """``y`` (its first ``s.shape[0]`` rows, or ``rows``) against SciPy's
+    float64 ``s @ x64`` (or a ready ``oracle`` of it) within ``tol``
+    |A||x|."""
+    ref, bound = oracle or _oracle(s, x64)
+    got = y[:s.shape[0]] if rows is None else y[rows]
+    return _gate(label, got, ref, bound, tol)
+
+
+def _exact(label, got, want):
+    """An integer result equal to NumPy's int64 answer (``want``, computed
+    in float64 where every partial sum stays below 2^53)."""
+    if got.dtype != torch.int32 or not got.is_cuda:
+        raise AssertionError(f"{label}: {got.dtype} on {got.device}, "
+                             "expected int32 on the card")
+    want = np.asarray(want)
+    if not np.array_equal(got.long().cpu().numpy(),
+                          np.rint(want).astype(np.int64)):
+        raise AssertionError(f"{label}: differs from NumPy's exact answer")
+    return 0
+
+
+class _Paths:
+    """Phase 21's records: one line per path with its gate, back-to-back
+    time, host set-up time and the card."""
+
+    def __init__(self, card):
+        self.card, self.out = card, {}
+
+    def add(self, label, fn, err, setup_s=0.0, **extra):
+        ms, fastest, n = _b2b(fn)
+        self.out[label] = dict(max_abs_err=err, ms=ms, fastest_ms=fastest,
+                               setup_s=setup_s, **extra)
+        more = "".join(f"; {k} {v:.4f}" if isinstance(v, float)
+                       else f"; {k} {v}" for k, v in extra.items())
+        print(f"   {label}: gate passed (max err {err:.3e}); {ms:.4f} ms "
+              f"back to back (median of 5 windows of {n}; fastest "
+              f"{fastest:.4f}); set-up {setup_s:.3f} s (host){more} "
+              f"[{self.card}]", flush=True)
+        return ms
+
+
+def _phase21_band(paths, a, s, v):
+    """band-10M: the plain SpMV entry points, the ``xla`` and ``bell``
+    rungs, the SpMM entry points at k 64 and the distributed SpMMs over
+    ``DIST_D`` shards."""
+    import sparse_tpu_torch as pt
+    import sparse_tpu_torch.parallel as par
+
+    n = a.shape[0]
+    v64 = v.double().cpu().numpy()
+    y = pt.csr_smvm(a, v)
+    paths.add("band-10M csr_smvm", lambda: pt.csr_smvm(a, v),
+              _vs_scipy("csr_smvm", y, s, v64))
+    t, L = _host_s(lambda: pt.row_capacity(a))
+    y = pt.csr_smvm_ell(a, v, L)
+    paths.add("band-10M csr_smvm_ell", lambda: pt.csr_smvm_ell(a, v, L),
+              _vs_scipy("csr_smvm_ell", y, s, v64), t, L=L)
+    t, plan = _host_s(lambda: pt.build_spmv_plan(a))
+    y = pt.csr_smvm_fast(a, v, plan)
+    paths.add("band-10M csr_smvm_fast", lambda: pt.csr_smvm_fast(a, v, plan),
+              _vs_scipy("csr_smvm_fast", y, s, v64), t,
+              bins=len(plan.bin_sizes))
+    _phase21_rungs(paths, "band-10M", a, s, v)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b = torch.randn(n, 64, device="cuda", generator=gen)
+    b64 = b.double().cpu().numpy()
+    ab = _oracle(s, b64)
+    y = pt.spmm(a, b)
+    paths.add("band-10M spmm k 64", lambda: pt.spmm(a, b),
+              _vs_scipy("spmm", y, s, b64, oracle=ab))
+    y = pt.csr_spmm_fast(a, b, plan)
+    paths.add("band-10M csr_spmm_fast k 64",
+              lambda: pt.csr_spmm_fast(a, b, plan),
+              _vs_scipy("csr_spmm_fast", y, s, b64, oracle=ab))
+    t, ac = _host_s(lambda: pt.csc_from_coo(pt.csr_to_coo(a)))
+    bt = b.T.contiguous()
+    y = pt.dsmm(bt, ac)
+    st = s.T.tocsr()
+    paths.add("band-10M dsmm k 64", lambda: pt.dsmm(bt, ac),
+              _vs_scipy("dsmm", y.T, st, b64), t)
+    del y
+    mesh = par.make_1d_mesh(DIST_D)
+    t, pa = _host_s(lambda: par.pcsr_from_csr(a, mesh))
+    bs = par.shard_vector(b, pa, mesh)
+    y = par.pcsr_spmm(pa, bs, mesh)
+    paths.add(f"band-10M pcsr_spmm k 64 D={DIST_D}",
+              lambda: par.pcsr_spmm(pa, bs, mesh),
+              _vs_scipy("pcsr_spmm", y, s, b64, oracle=ab), t)
+    t, ho = _host_s(lambda: par.halo_partition_overlapped(a, mesh))
+    bh = par.shard_vector(b, ho, mesh)
+    y = par.halo_spmm_overlapped(ho, bh, mesh)
+    paths.add(f"band-10M halo_spmm_overlapped k 64 D={DIST_D}",
+              lambda: par.halo_spmm_overlapped(ho, bh, mesh),
+              _vs_scipy("halo_spmm_overlapped", y, s, b64, oracle=ab), t)
+
+
+def _phase21_rungs(paths, cell, a, s, v):
+    """``smvm_prepare(prefer=...)`` -> ``plan.apply`` for the ``xla`` and
+    ``bell`` rungs; the rung a plan took is printed (``bell`` needs natural
+    blocks of bsz >= 8 and falls through to ``xla`` without them)."""
+    import sparse_tpu_torch as pt
+
+    v64 = v.double().cpu().numpy()
+    for prefer in ("xla", "bell"):
+        t, plan = _host_s(lambda: pt.smvm_prepare(a, prefer=prefer))
+        y = plan.apply(v)
+        paths.add(f"{cell} smvm_prepare(prefer={prefer!r}).apply",
+                  lambda: plan.apply(v),
+                  _vs_scipy(f"{cell} {prefer}", y, s, v64), t,
+                  rung=plan.kind)
+
+
+def _phase21_elasticity(paths, ab):
+    """elasticity-400k (phase 5's block-RCM order, 2x2 blocks): the two
+    rungs on its CSR, ``bsr_smvm_ell`` and ``bsr_spmm_ell`` at k 64."""
+    import sparse_tpu_torch as pt
+
+    a = pt.bsr_to_csr(ab)
+    s = sp_csr_f64(a)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    v = torch.randn(a.shape[0], device="cuda", generator=gen)
+    _phase21_rungs(paths, "elasticity-400k", a, s, v)
+    t, lb = _host_s(lambda: pt.bsr_row_capacity(ab))
+    y = pt.bsr_smvm_ell(ab, v, lb)
+    paths.add("elasticity-400k bsr_smvm_ell",
+              lambda: pt.bsr_smvm_ell(ab, v, lb),
+              _vs_scipy("bsr_smvm_ell", y, s, v.double().cpu().numpy()), t,
+              Lb=lb)
+    b = torch.randn(a.shape[0], 64, device="cuda", generator=gen)
+    y = pt.bsr_spmm_ell(ab, b, lb)
+    paths.add("elasticity-400k bsr_spmm_ell k 64",
+              lambda: pt.bsr_spmm_ell(ab, b, lb),
+              _vs_scipy("bsr_spmm_ell", y, s, b.double().cpu().numpy()))
+    return a, s
+
+
+def _phase21_entry_spmm(paths):
+    """``spmm``, ``csr_spmm_fast`` and ``dsmm`` at ``__graft_entry__``'s
+    shape: 512 x 512 at density 0.05, k 64 (phase 8's draws)."""
+    import scipy.sparse as sp
+
+    import sparse_tpu_torch as pt
+
+    rng = np.random.default_rng(0)
+    dense = rng.standard_normal((512, 512)).astype(np.float32) * (
+        rng.random((512, 512)) < 0.05)
+    bb = rng.standard_normal((512, 64)).astype(np.float32)
+    s = sp.csr_matrix(dense.astype(np.float64))
+    a = pt.csr_from_dense(torch.from_numpy(dense).cuda())
+    ac = pt.csc_from_dense(torch.from_numpy(dense).cuda())
+    b = torch.from_numpy(bb).cuda()
+    bt = b.T.contiguous()
+    b64 = bb.astype(np.float64)
+    for label, fn, got in (
+            ("spmm", lambda: pt.spmm(a, b), lambda y: y),
+            ("csr_spmm_fast", lambda: pt.csr_spmm_fast(a, b), lambda y: y),
+            ("dsmm", lambda: pt.dsmm(bt, ac), lambda y: y.T)):
+        err = (_vs_scipy(label, got(fn()), s, b64) if label != "dsmm" else
+               _vs_scipy(label, got(fn()), s.T.tocsr(), b64))
+        paths.add(f"entry 512x512 {label} k 64", fn, err)
+
+
+def _phase21_bell(paths, m, card):
+    """bell-band-80M: ``bell_smvm`` at k 1, and the bf16x3 tier of K3, K4
+    and K6 at k 128 against SciPy, their plain versions and ``BSR @ B``;
+    returns the bf16x3 records."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    a, b, kit, oracle = m["a"], m["b"], m["kit"], m["oracle"]
+    v = b[:, 0].contiguous()
+    y = pt.bell_smvm(a, v)
+    vh = v.double().cpu().numpy()
+    paths.add("bell-band-80M bell_smvm k 1", lambda: pt.bell_smvm(a, v),
+              _vs_scipy("bell_smvm", y, oracle.s, vh, rows=oracle.rows))
+    bh = b.double().cpu().numpy()
+    bound = _abs_bound(a, b, torch.float32)
+    nbz, k = int(m["slot_valid"].sum()), b.shape[1]
+    nbytes, flops = spmm_cost(nbz, a.bsz, a.n, k)
+    b_ms, b_by = bound_ms(nbytes, 3 * flops, torch.bfloat16)
+    lib, lib_call = library_spmm(m, b, card, "float32, the bf16x3 "
+                                 "yardstick")
+    out = {}
+    for kname, kern, plain in (
+            ("K3", lambda: pt.bell_spmm(a, b, precision="bf16x3"),
+             lambda: cb.bell_spmm_fused_plain(a, b, precision="bf16x3")),
+            ("K4", lambda: pt.bell_spmm(a, b, plan=kit, precision="bf16x3"),
+             lambda: cb.bell_spmm_banded_plain(a, b, kit.plan,
+                                               tiles=kit.tiles,
+                                               precision="bf16x3")),
+            ("K6", lambda: cb.bell_spmm_block(a, b, precision="bf16x3"),
+             lambda: cb.bell_spmm_block_plain(a, b, precision="bf16x3"))):
+        label = f"{kname} bf16x3 k {k}"
+        before = getattr(cb, f"{kname}_LAUNCHES")
+        err_p, c = _twice_vs_plain(label, kern, plain, bound,
+                                   torch.float32)
+        if getattr(cb, f"{kname}_LAUNCHES") - before != 2:
+            raise AssertionError(f"{label}: {kname} was not launched")
+        err = _vs_scipy(label, c, oracle.s, bh, rows=oracle.rows,
+                        tol=BF16X3_TOL)
+        plain_ms = pipelined_ms(plain, warmup=1)[0]
+        ms = paths.add(f"bell-band-80M {label}", kern, err,
+                       max_abs_err_vs_plain=err_p, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        out[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib, library_call=lib_call,
+                          max_abs_err=err, max_abs_err_vs_plain=err_p)
+    return out
+
+
+def _esc_cut(rows, cols, nb):
+    """The largest leading block count ``nbp`` whose principal submatrix's
+    A @ A needs at most ``ESC_MAX_PRODUCTS`` scalar products."""
+    def products(nbp):
+        keep = (rows < nbp) & (cols < nbp)
+        per_row = np.bincount(rows[keep], minlength=nbp)
+        return int(per_row[cols[keep]].sum()) * 32 ** 3
+
+    lo, hi = 1, nb
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if products(mid) <= ESC_MAX_PRODUCTS else (
+            lo, mid - 1)
+    return lo, products(lo)
+
+
+def _csr_cuda(s, dtype=np.float32):
+    """A SciPy CSR's arrays as the port's CSR on the card in ``dtype``."""
+    from sparse_tpu_torch import interop
+
+    return interop.csr_from_arrays(s.data.astype(dtype), s.indices,
+                                   s.indptr, s.shape, device="cuda")
+
+
+def _phase21_spgemm(paths):
+    """The ESC core on the leading block principal submatrix of
+    spgemm-block-181k's scalar CSR within ``ESC_MAX_PRODUCTS``, and the
+    dense core on its leading ``MXU_N`` rows and columns, each A @ A
+    against SciPy; returns the ESC cut's SciPy matrix for the int32
+    pass."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import spgemm as sg
+
+    t0 = time.perf_counter()
+    sb, rows, cols, _ = _spgemm_fixture()
+    nbp, prods = _esc_cut(rows, cols, 2_000)
+    sc = sb.tocsr()
+    sub = sc[:nbp * 32, :nbp * 32].tocsr()
+    t_host = time.perf_counter() - t0
+    a = _csr_cuda(sub)
+    t, f = _host_s(lambda: int(pt.spgemm_flops(a, a)))
+    if f != prods:
+        raise AssertionError(f"spgemm_flops {f} != the host's {prods}")
+    c = pt.spgemm_csr_csr(a, a, f)
+    want = sub @ sub
+    err = _sparse_vs("ESC spgemm_csr_csr", sp_csr_f64(c), want,
+                     abs(sub) @ abs(sub))
+    paths.add(f"spgemm-block-181k cut ESC spgemm_csr_csr (n {nbp * 32}, "
+              f"{f} products)", lambda: pt.spgemm_csr_csr(a, a, f), err,
+              t_host + t, nnz=want.nnz, products=f)
+    sm = sc[:MXU_N, :MXU_N].tocsr()
+    am = _csr_cuda(sm)
+    if not sg._mxu_eligible(am, am):
+        raise AssertionError("the dense core's operand exceeds its budget")
+    t, nse = _host_s(lambda: int(pt.spgemm_mxu_nse(am, am)))
+    c = pt.spgemm_mxu_csr_csr(am, am, nse)
+    err = _sparse_vs("dense spgemm_mxu_csr_csr", sp_csr_f64(c), sm @ sm,
+                     abs(sm) @ abs(sm))
+    paths.add(f"spgemm-block-181k {MXU_N} x {MXU_N} spgemm_mxu_csr_csr",
+              lambda: pt.spgemm_mxu_csr_csr(am, am, nse), err, t, nse=nse)
+    return sub
+
+
+def _phase21_pspgemm(paths, a, s):
+    """``pcsr_spgemm`` (the one-shot A @ A, host pass included) on
+    elasticity-400k over ``DIST_D`` shards against SciPy."""
+    import sparse_tpu_torch.parallel as par
+
+    mesh = par.make_1d_mesh(DIST_D)
+    t, pa = _host_s(lambda: par.pcsr_from_csr(a, mesh))
+    c = par.pcsr_spgemm(pa, pa, mesh)
+    err = _sparse_vs("pcsr_spgemm", _csr_of_pcsr(c), s @ s, abs(s) @ abs(s))
+    paths.add(f"elasticity-400k pcsr_spgemm D={DIST_D}",
+              lambda: par.pcsr_spgemm(pa, pa, mesh), err, t)
+
+
+def _phase21_int32(paths, band, ab, m, sub):
+    """int32 through ``csr_smvm`` (band-10M's pattern), ``bsr_smvm``
+    (elasticity-400k's), ``bell_smvm`` (bell-band-80M's), ``spgemm`` (the
+    ESC cut's) and ``tri_smm`` (n ``TRI_INT_N``), each exactly NumPy's
+    int64 answer on the card, timed beside the same call in float32."""
+    import dataclasses
+
+    import scipy.sparse as sp
+
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.formats.bell import BELL
+
+    rng = np.random.default_rng(23)
+    i32 = torch.int32
+    a = band["a"]
+    ai = dataclasses.replace(a, data=(a.data * 400).round().to(i32))
+    si = sp_csr_f64(ai)
+    vi = torch.from_numpy(rng.integers(-8, 9, a.shape[0])).to(i32).cuda()
+    vf = vi.float()
+    paths.add("int32 band-10M csr_smvm", lambda: pt.csr_smvm(ai, vi),
+              _exact("csr_smvm", pt.csr_smvm(ai, vi),
+                     si @ vi.double().cpu().numpy()),
+              float32_ms=_b2b(lambda: pt.csr_smvm(a, vf))[0])
+    bi = dataclasses.replace(ab, blocks=(ab.blocks * 100).round().to(i32))
+    idx = ab.indices.long().cpu().numpy()
+    ok = idx < ab.nb * ab.nb
+    r, c = idx[ok] // ab.nb, idx[ok] % ab.nb
+    k, shape = np.arange(ab.bsz), (r.size, ab.bsz, ab.bsz)
+    sbi = sp.coo_matrix((bi.blocks.double().cpu().numpy()[ok].reshape(-1), (
+        np.broadcast_to(r[:, None, None] * ab.bsz + k[:, None], shape)
+        .reshape(-1),
+        np.broadcast_to(c[:, None, None] * ab.bsz + k, shape).reshape(-1))),
+        shape=(ab.n, ab.n)).tocsr()
+    wi = torch.from_numpy(rng.integers(-8, 9, ab.n)).to(i32).cuda()
+    paths.add("int32 elasticity-400k bsr_smvm", lambda: pt.bsr_smvm(bi, wi),
+              _exact("bsr_smvm", pt.bsr_smvm(bi, wi),
+                     sbi @ wi.double().cpu().numpy()),
+              float32_ms=_b2b(lambda: pt.bsr_smvm(ab, wi.float()))[0])
+    e = m["a"]
+    ei = BELL(cols=e.cols, blocks=(e.blocks * 400).round().to(i32), n=e.n,
+              bsz=e.bsz)
+    oracle = _ScipyRows(ei, m["cols_np"], m["slot_valid"])
+    ui = torch.from_numpy(rng.integers(-8, 9, e.n)).to(i32).cuda()
+    paths.add("int32 bell-band-80M bell_smvm", lambda: pt.bell_smvm(ei, ui),
+              _exact("bell_smvm", pt.bell_smvm(ei, ui)[oracle.rows],
+                     oracle.s @ ui.double().cpu().numpy()),
+              float32_ms=_b2b(lambda: pt.bell_smvm(e, ui.float()))[0])
+    qi = sp.csr_matrix((np.rint(sub.data * 400), sub.indices, sub.indptr),
+                       shape=sub.shape)
+    gi = _csr_cuda(qi, np.int32)
+    gf = _csr_cuda(qi, np.float32)
+    want = (qi @ qi).toarray()
+    paths.add(f"int32 spgemm-block-181k cut spgemm (n {sub.shape[0]})",
+              lambda: pt.spgemm(gi, gi),
+              _exact("spgemm", pt.csr_todense(pt.spgemm(gi, gi)), want),
+              float32_ms=_b2b(lambda: pt.spgemm(gf, gf))[0])
+    x = np.tril(rng.integers(-8, 9, (TRI_INT_N, TRI_INT_N)))
+    ti = pt.tri_from_dense(torch.from_numpy(x).to(i32).cuda())
+    tf = pt.tri_from_dense(torch.from_numpy(x).float().cuda())
+    x64 = x.astype(np.float64)
+    paths.add(f"int32 tri_smm n {TRI_INT_N}", lambda: pt.tri_smm(ti, ti),
+              _exact("tri_smm", pt.tri_todense(pt.tri_smm(ti, ti)),
+                     x64 @ x64),
+              float32_ms=_b2b(lambda: pt.tri_smm(tf, tf))[0])
+
+
+def phase21_surface(card, slice_run, ela_bsr, spmm_run):
+    """The public paths no earlier phase runs or times at size, each held
+    to its gate against SciPy / NumPy in float64 (PERF.md section 2),
+    timed back to back (the median of 5 windows), with its host set-up
+    time and the card: the plain SpMV and SpMM entry points and the
+    ``xla`` / ``bell`` rungs on band-10M and elasticity-400k, the SpMMs at
+    ``__graft_entry__``'s shape, ``bell_smvm`` and the bf16x3 tier of K3,
+    K4 and K6 on bell-band-80M, the ESC and dense SpGEMM cores on cuts of
+    spgemm-block-181k, three distributed paths over ``DIST_D`` shards,
+    and an int32 pass exact to NumPy.  Returns (paths, bf16x3)."""
+    paths = _Paths(card)
+    _phase21_band(paths, slice_run["a"], slice_run["s"], slice_run["v"])
+    ae, se = _phase21_elasticity(paths, ela_bsr)
+    _phase21_entry_spmm(paths)
+    bf16x3 = _phase21_bell(paths, spmm_run, card)
+    sub = _phase21_spgemm(paths)
+    _phase21_pspgemm(paths, ae, se)
+    _phase21_int32(paths, slice_run, ela_bsr, spmm_run, sub)
+    return paths.out, bf16x3
+
+
 def main():
     with Phase("phase 0: device", 60):
         card = phase0_device()
@@ -4075,6 +4505,11 @@ def main():
             entry["example_launches"] = examples_launches[key]
     print(json.dumps({"transforms": transforms, "examples": examples,
                       "card": card}, default=float), flush=True)
+    with Phase("phase 21: the rest of the surface at size", 90):
+        surface, bf16x3 = phase21_surface(card, slice_run,
+                                          ela["plan"].state[0], spmm_run)
+    print(json.dumps({"surface": surface, "bf16x3": bf16x3, "card": card},
+                     default=float), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,11 +20,12 @@ import numpy as np
 import torch
 
 from .._device import device_values, host_values
-from ..utils.precision import full_precision
+from ..ops.segmented import segment_sum
+from ..utils.precision import contract
 from .bsr import BSR
 
 __all__ = ["BELL", "bell_from_bsr", "bell_from_csr", "bell_smvm", "bell_spmm",
-           "bell_todense"]
+           "bell_todense", "bell_smvm_hbm_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,9 +102,20 @@ def bell_from_csr(a, bsz: int, Lb: int | None = None) -> BELL:
     return bell_from_bsr(bsr_compact(bsr_from_coo(csr_to_coo(a), bsz)), Lb=Lb)
 
 
+def bell_smvm_hbm_bytes(a: BELL) -> int:
+    """Device-memory bytes one :func:`bell_smvm` moves: the block stream,
+    the int32 block column ids, one gathered bsz-chunk of the operand per
+    slot and the output, at the BELL's value width (the reference's
+    formula, which counts 4-byte values)."""
+    w = a.blocks.element_size()
+    slots = a.nb * a.Lb
+    return slots * (a.bsz * a.bsz * w + 4 + a.bsz * w) + a.n * w
+
+
 def bell_smvm(a: BELL, v) -> torch.Tensor:
     """Scatter-free SpMV: stream blocks, gather operand chunks, contract
-    (full float32 for float32 operands, ``utils.precision``)."""
+    (``utils.precision.contract``: full float32 for float32 operands,
+    exact integer sums on every device)."""
     v = torch.as_tensor(v, device=a.device)
     if tuple(v.shape) != (a.n,):
         raise ValueError(
@@ -113,9 +125,7 @@ def bell_smvm(a: BELL, v) -> torch.Tensor:
         return torch.zeros(a.n, dtype=out_dtype, device=a.device)
     vb = v.to(out_dtype).reshape(a.nb, a.bsz)[a.cols.reshape(-1).long()] \
         .reshape(a.nb, a.Lb, a.bsz)
-    with full_precision(out_dtype):
-        out = torch.einsum("rlij,rlj->ri", a.blocks.to(out_dtype), vb)
-    return out.reshape(a.n)
+    return contract("rlij,rlj->ri", a.blocks.to(out_dtype), vb).reshape(a.n)
 
 
 def bell_spmm(a: BELL, b, *, prefer_pallas: bool | None = None, plan=None,
@@ -169,11 +179,12 @@ def bell_spmm(a: BELL, b, *, prefer_pallas: bool | None = None, plan=None,
 
 
 def bell_todense(a: BELL) -> torch.Tensor:
-    """Dense (n, n) matrix; padding slots (zero blocks) add nothing."""
+    """Dense (n, n) matrix; padding slots (zero blocks) add nothing.  Slots
+    aimed at one block are summed by the sorted ``segment_sum`` (bitwise
+    repeatable on the card, where ``index_add_`` is not)."""
     nb, bsz, Lb = a.nb, a.bsz, a.Lb
-    out = torch.zeros(nb * nb, bsz, bsz, dtype=a.dtype, device=a.device)
     r = torch.arange(nb, device=a.device).repeat_interleave(Lb)
-    out.index_add_(0, r * nb + a.cols.reshape(-1).long(),
-                   a.blocks.reshape(nb * Lb, bsz, bsz))
+    out = segment_sum(a.blocks.reshape(nb * Lb, bsz, bsz),
+                      r * nb + a.cols.reshape(-1).long(), nb * nb)
     return out.reshape(nb, nb, bsz, bsz).permute(0, 2, 1, 3).reshape(a.n,
                                                                     a.n)

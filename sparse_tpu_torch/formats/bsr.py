@@ -29,7 +29,7 @@ import torch
 
 from .._device import device_values, host_values, resolve_device
 from ..ops.segmented import INDEX_DTYPE, expand, segment_sum
-from ..utils.precision import full_precision
+from ..utils.precision import contract
 from .coo import COO, coo_normalize
 
 __all__ = [
@@ -531,18 +531,10 @@ def _block_products(x: torch.Tensor, y: torch.Tensor, out_dtype):
     Floating types multiply as one batched matmul in full precision, with
     sub-float32 inputs summed in float32 and rounded once (the reference's
     ``_flat_block_products`` / MXU einsum contract); integers sum exactly
-    over the shared index."""
-    if out_dtype.is_floating_point or out_dtype.is_complex:
-        acc = (torch.float32 if out_dtype.is_floating_point
-               and torch.finfo(out_dtype).bits < 32 else out_dtype)
-        with full_precision(acc):
-            return torch.bmm(x.to(acc), y.to(acc)).to(out_dtype)
-    x, y = x.to(out_dtype), y.to(out_dtype)
-    out = torch.zeros(x.shape[0], x.shape[1], y.shape[2], dtype=out_dtype,
-                      device=x.device)
-    for k in range(x.shape[2]):
-        out += x[:, :, k, None] * y[:, None, k, :]
-    return out
+    over the shared index (``utils.precision.contract``)."""
+    acc = (torch.float32 if out_dtype.is_floating_point
+           and torch.finfo(out_dtype).bits < 32 else out_dtype)
+    return contract("fij,fjk->fik", x.to(acc), y.to(acc)).to(out_dtype)
 
 
 def _flat_block_products(fa: torch.Tensor, fb: torch.Tensor, bsz: int,

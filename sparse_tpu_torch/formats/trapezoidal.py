@@ -25,8 +25,8 @@ import torch
 
 from .._device import resolve_device
 from ..ops.segmented import INDEX_DTYPE
-from ..utils.precision import full_precision
-from .triangular import _gather, _matmul, _scatter, _unrank_rows
+from ..utils.precision import contract, full_precision
+from .triangular import _gather, _scatter, _unrank_rows
 
 __all__ = [
     "Trapezoidal",
@@ -272,7 +272,8 @@ def _trap_smm_blocked(ad, bd, n: int, m: int, k: int, B: int):
         for bj in range(min(bi + 1, kb)):
             acc = ad.new_zeros((B, B))
             for bt in range(bj, min(bi + 1, mb)):
-                acc = acc + _matmul(
+                acc = acc + contract(
+                    "ij,jk->ik",
                     _gather(ad, _trap_tile(n, m, bi, bt, B, dev)),
                     _gather(bd, _trap_tile(m, k, bt, bj, B, dev)))
             _scatter(out, _trap_tile(n, k, bi, bj, B, dev), acc)
@@ -305,8 +306,8 @@ def trap_smm(a: Trapezoidal, b: Trapezoidal) -> Trapezoidal:
                     if a.lower else
                     _trap_smm_blocked(bd, ad, k, m, n, _TRAP_BLOCK))
             return Trapezoidal(data=data, n=n, m=k, lower=a.lower)
-        dc = _matmul(trap_todense(a).to(out_dtype),
-                     trap_todense(b).to(out_dtype))
+        dc = contract("ij,jk->ik", trap_todense(a).to(out_dtype),
+                      trap_todense(b).to(out_dtype))
     return trap_from_dense(dc, lower=a.lower)
 
 

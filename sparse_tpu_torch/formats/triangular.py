@@ -30,7 +30,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.segmented import INDEX_DTYPE
-from ..utils.precision import full_precision
+from ..utils.precision import contract, full_precision
 
 __all__ = [
     "Triangular",
@@ -245,18 +245,6 @@ _TRI_BLOCK = 512
 _TRI_N_MAX = 46340
 
 
-def _matmul(x, y):
-    """``x @ y``; integers summed exactly over the shared index, one
-    rank-1 term at a time, where the device has no integer matmul."""
-    if x.dtype.is_floating_point or x.dtype.is_complex \
-            or x.device.type == "cpu":
-        return torch.matmul(x, y)
-    out = x.new_zeros((x.shape[0], y.shape[1]))
-    for k in range(x.shape[1]):
-        out += x[:, k, None] * y[None, k, :]
-    return out
-
-
 def _tri_tile(n, bi, bj, B, device):
     """The (B, B) tile (rows bi*B.., cols bj*B..) of a packed-lower n x n
     triangle: its packed positions (clamped in range) and the mask of the
@@ -291,7 +279,8 @@ def _tri_smm_blocked(ad, bd, n: int, B: int) -> torch.Tensor:
         for bj in range(bi + 1):
             acc = ad.new_zeros((B, B))
             for bk in range(bj, bi + 1):
-                acc = acc + _matmul(
+                acc = acc + contract(
+                    "ij,jk->ik",
                     _gather(ad, _tri_tile(n, bi, bk, B, dev)),
                     _gather(bd, _tri_tile(n, bk, bj, B, dev)))
             _scatter(out, _tri_tile(n, bi, bj, B, dev), acc)
@@ -317,8 +306,8 @@ def tri_smm(a: Triangular, b: Triangular) -> Triangular:
             data = _tri_smm_blocked(ad.to(out_dtype), bd.to(out_dtype), n,
                                     _TRI_BLOCK)
             return Triangular(data=data, n=n, lower=a.lower)
-        dc = _matmul(tri_todense(a).to(out_dtype),
-                     tri_todense(b).to(out_dtype))
+        dc = contract("ij,jk->ik", tri_todense(a).to(out_dtype),
+                      tri_todense(b).to(out_dtype))
     return tri_from_dense(dc, lower=a.lower)
 
 

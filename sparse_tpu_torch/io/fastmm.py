@@ -2,13 +2,13 @@
 
 A copy of ``sparse_tpu/io/fastmm.py`` (the port may not import the
 reference package, which imports jax), with ``_fastmm.cpp`` copied
-verbatim; its array entry is not bound, since ``mm_read`` parses array
-bodies with NumPy, as the reference does.  Compiled with the ambient g++ on
-first use into the package's ignored ``_build/`` directory by
-``native.plansort.build_shared``; every entry point returns None when the
-toolchain or shared object is unavailable, and the caller parses with
-NumPy instead.  This is host parsing: the parsed entries go to the device
-afterwards.
+verbatim.  ``mm_read`` parses array bodies with NumPy, as the reference
+does; ``parse_array`` binds the array entry, as the reference's does.
+Compiled with the ambient g++ on first use into the package's ignored
+``_build/`` directory by ``native.plansort.build_shared``; every entry
+point returns None when the toolchain or shared object is unavailable, and
+the caller parses with NumPy instead.  This is host parsing: the parsed
+entries go to the device afterwards.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import numpy as np
 
 from ..native.plansort import build_shared
 
-__all__ = ["parse_coordinate"]
+__all__ = ["parse_coordinate", "parse_array"]
 
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE / "_fastmm.cpp"
@@ -40,6 +40,7 @@ def _load():
         try:
             lib = build_shared(_SRC, _SO)
             lib.parse_mm_coordinate.restype = ctypes.c_int64
+            lib.parse_mm_array.restype = ctypes.c_int64
             _lib = lib
         except Exception:
             _lib = None
@@ -71,3 +72,23 @@ def parse_coordinate(body: bytes, nnz: int, pattern: bool):
         )
     return rows, cols, vals
 
+
+def parse_array(body: bytes, count: int):
+    """Parse an array body natively; returns ``count`` float64 values, or
+    None when the native parser is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    vals = np.empty(count, np.float64)
+    buf = np.frombuffer(body, np.uint8)
+    got = lib.parse_mm_array(
+        ctypes.c_void_p(buf.ctypes.data),
+        ctypes.c_int64(len(body)),
+        ctypes.c_int64(count),
+        ctypes.c_void_p(vals.ctypes.data),
+    )
+    if got != count:
+        raise ValueError(
+            f"MatrixMarket array body malformed: parsed {got} of {count}"
+        )
+    return vals

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..formats.bsr import BSR
-from ..utils.precision import full_precision
+from ..utils.precision import contract
 
 __all__ = ["bsr_row_capacity", "bsr_smvm_ell", "bsr_spmm_ell"]
 
@@ -65,9 +65,7 @@ def bsr_smvm_ell(a: BSR, v, Lb: int) -> torch.Tensor:
     blocks, cols = _block_windows(a, Lb)
     vb = v.to(out_dtype).reshape(a.nb, a.bsz)[cols.reshape(-1)].reshape(
         a.nb, Lb, a.bsz)
-    with full_precision(out_dtype):
-        out = torch.einsum("rlij,rlj->ri", blocks.to(out_dtype), vb)
-    return out.reshape(a.n)
+    return contract("rlij,rlj->ri", blocks.to(out_dtype), vb).reshape(a.n)
 
 
 def bsr_spmm_ell(a: BSR, b, Lb: int) -> torch.Tensor:
@@ -85,6 +83,5 @@ def bsr_spmm_ell(a: BSR, b, Lb: int) -> torch.Tensor:
     blocks, cols = _block_windows(a, Lb)
     panels = b.to(out_dtype).reshape(a.nb, a.bsz, k)[cols.reshape(-1)] \
         .reshape(a.nb, Lb, a.bsz, k)
-    with full_precision(out_dtype):
-        out = torch.einsum("rlij,rljk->rik", blocks.to(out_dtype), panels)
-    return out.reshape(a.n, k)
+    return contract("rlij,rljk->rik", blocks.to(out_dtype),
+                    panels).reshape(a.n, k)

@@ -25,9 +25,10 @@ tensor-core product against an all-ones matrix); on CPU tensors
 other route: a CUDA tensor never reaches a plain version.
 
 :func:`segtile_apply` is the raw-array SpMV over a plan's slot arrays (the
-contract the per-shard halo SpMV calls): it compacts the non-zero slots on
-every call, then runs the same kernels.  :func:`segtile_apply_plain`, the
-slot-by-slot sum, stays as the reference-shaped oracle.
+contract the reference's per-shard halo SpMV calls): it compacts the
+slot arrays on every call, then runs the same kernels.
+:func:`segtile_apply_plain`, the slot-by-slot sum, stays as the
+reference-shaped oracle.
 """
 
 from __future__ import annotations
@@ -569,14 +570,19 @@ def segtile_apply(vals, q, seg_of, rb, v, *, n: int, wsub: int, rows: int,
 
     ``v`` is the operand in the plan's column space; returns the padded
     ``(ceil(n/rows)*rows,)`` output.  This is the slow route, which the
-    main path does not take: every call compacts the non-zero slots (a
-    device sort), then runs :func:`segtile_stream_apply` — K1, K1-r32 or
-    K1-mxu on CUDA tensors, :func:`segtile_stream_plain` on CPU tensors.
-    Slots whose column lies outside ``[0, len(v))`` or whose row block lies
-    outside the output read 0, as in the reference; a stored zero is not
-    told from padding (the same sums for finite operands).
-    ``kstep``/``chunks``/``batch`` are accepted for the reference's
-    signature and do not change the result."""
+    main path does not take: every call compacts the slots (a device
+    sort), then runs :func:`segtile_stream_apply` — K1, K1-r32 or K1-mxu
+    on CUDA tensors, :func:`segtile_stream_plain` on CPU tensors.  Slots
+    whose column lies outside ``[0, len(v))`` or whose row block lies
+    outside the output read 0, as in the reference.  On CPU tensors all the
+    remaining slots are kept, padding included, so a padding slot adds
+    ``0·v`` as the reference's kernel does; the compaction reads no value, and
+    ``torch.func.vmap`` batches over ``vals``.  On CUDA tensors the
+    non-zero slots are kept: K1's order of summation follows the stream's
+    row lengths, and this keeps the route bitwise equal to the plan's
+    stream (a stored zero is not told from padding there: the same sums
+    for finite operands).  ``kstep``/``chunks``/``batch`` are accepted for
+    the reference's signature and do not change the result."""
     _check_variant("segtile_apply", rows, reduce, batch)
     _check_slot_arrays("segtile_apply", vals, q, seg_of, rb, v,
                        (rows, _LANES), (rows, _LANES))
@@ -585,14 +591,15 @@ def segtile_apply(vals, q, seg_of, rb, v, *, n: int, wsub: int, rows: int,
                          f"{wsub}")
     nbR = -(-n // rows)
 
-    def apply(vals, v):
+    def apply(vals, v, pos=None):
         stream = _stream_from_slots(vals, q, seg_of, rb, rows=rows,
-                                    n_rows=nbR * rows, n_cols=v.shape[0])
+                                    n_rows=nbR * rows, n_cols=v.shape[0],
+                                    pos=pos)
         return segtile_stream_apply(stream, v, rows=rows, reduce=reduce,
                                     out_dtype=out_dtype)
 
     if not v.is_cuda:
-        return apply(vals, v)
+        return apply(vals, v, torch.arange(q.numel(), device=q.device))
     # the per-call compaction reads the values: a transform sees it whole
     return kernel_call("segtile_apply", apply, vals, v)
 

@@ -176,18 +176,27 @@ def _is_permutation(p: np.ndarray, n: int) -> bool:
     return bool(np.bincount(p, minlength=n).max() == 1)
 
 
+def _host_perm(p) -> np.ndarray:
+    """A permutation given as a sequence, array or tensor on any device,
+    as int64 on the host."""
+    if isinstance(p, torch.Tensor):
+        p = p.detach().cpu().numpy()
+    return np.asarray(p, np.int64)
+
+
 def permute_prepare(a: CSR, rperm, cperm=None) -> PermutePlan:
     """Host symbolic pass: plan ``A[rperm][:, cperm]`` for a fixed pattern
-    (``perm[k]`` = old index at new position k; ``cperm=None`` keeps
-    columns).  The plan lives on ``a``'s device."""
+    (``perm[k]`` = old index at new position k, a sequence, array or
+    tensor on any device; ``cperm=None`` keeps columns).  The plan lives
+    on ``a``'s device."""
     n, m = a.shape
-    rperm = np.asarray(rperm, np.int64)
+    rperm = _host_perm(rperm)
     if rperm.shape != (n,) or not _is_permutation(rperm, n):
         raise ValueError("permute_prepare: rperm is not a permutation of rows")
     if cperm is None:
         inv_c = np.arange(m, dtype=np.int64)
     else:
-        cperm = np.asarray(cperm, np.int64)
+        cperm = _host_perm(cperm)
         if cperm.shape != (m,) or not _is_permutation(cperm, m):
             raise ValueError(
                 "permute_prepare: cperm is not a permutation of columns")

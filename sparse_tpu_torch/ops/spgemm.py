@@ -40,7 +40,7 @@ from ..formats.csr import (
     csr_from_coo,
     csr_to_coo,
 )
-from ..utils.precision import full_precision
+from ..utils.precision import contract, full_precision
 from .segmented import (
     INDEX_DTYPE,
     cumsum_exclusive,
@@ -221,8 +221,7 @@ def spgemm_mxu_csr_csr(a: CSR, b: CSR, out_nse: int) -> CSR:
         return csr_empty(n, k, out_nse, out_dtype, device=a.device)
     av = _dense_values(a).to(out_dtype)
     bv = _dense_values(b).to(out_dtype)
-    with full_precision(out_dtype):
-        cv = torch.matmul(av, bv)
+    cv = contract("ij,jk->ik", av, bv)
     return _csr_from_dense_mask(cv.to(out_dtype), _pattern_mask(a, b),
                                 out_nse)
 

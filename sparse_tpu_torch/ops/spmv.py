@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..formats.csr import CSR
-from ..utils.precision import full_precision
+from ..utils.precision import contract
 
 __all__ = [
     "csr_smvm_ell",
@@ -72,8 +72,7 @@ def csr_smvm_ell(a: CSR, v, L: int) -> torch.Tensor:
 def _spmm_rows(idx, val, b):
     """Rows of A @ B for ELL windows ``(idx, val)`` of shape (rows, L)."""
     g = b[idx.reshape(-1)].reshape(*idx.shape, b.shape[1])
-    with full_precision(b.dtype):
-        return torch.einsum("nl,nlk->nk", val.to(b.dtype), g)
+    return contract("nl,nlk->nk", val.to(b.dtype), g)
 
 
 def _dense_operand(name: str, a: CSR, b):

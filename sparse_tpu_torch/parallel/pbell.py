@@ -17,7 +17,7 @@ import torch
 
 from .._device import host_values
 from ..formats.bell import BELL
-from ..utils.precision import full_precision
+from ..utils.precision import contract
 from .mesh import Mesh
 from .pcsr import _gathered, put_sharded
 
@@ -88,8 +88,7 @@ def pbell_shard_vector(v, a: PBELL, mesh: Mesh) -> torch.Tensor:
 
 def _contract(blocks, panels, spec):
     dt = torch.promote_types(blocks.dtype, panels.dtype)
-    with full_precision(dt):
-        return torch.einsum(spec, blocks.to(dt), panels.to(dt))
+    return contract(spec, blocks.to(dt), panels.to(dt))
 
 
 def pbell_smvm(a: PBELL, v: torch.Tensor, mesh: Mesh) -> torch.Tensor:

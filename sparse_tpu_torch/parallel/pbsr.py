@@ -28,7 +28,7 @@ import torch
 from .._device import host_values
 from ..formats.bsr import BSR, _bidx_dtype, _flat_block_products
 from ..ops.segmented import INDEX_DTYPE, segment_sum
-from ..utils.precision import full_precision
+from ..utils.precision import contract
 from .mesh import Mesh
 from .pcsr import _all_shards, put_sharded
 
@@ -324,9 +324,8 @@ def pbsr_smsmm(a: PBSR, b: PBSR, mesh: Mesh, plan: PBsrSmsmmPlan) -> PBSR:
         if bsz <= 8:
             prods = _flat_block_products(ga, gb, bsz, dtype)
         else:
-            with full_precision(dtype):
-                prods = torch.bmm(ga.reshape(-1, bsz, bsz),
-                                  gb.reshape(-1, bsz, bsz)).reshape(-1, b2)
+            prods = contract("fij,fjk->fik", ga.reshape(-1, bsz, bsz),
+                             gb.reshape(-1, bsz, bsz)).reshape(-1, b2)
         out.append(segment_sum(prods, plan.seg[i].to(INDEX_DTYPE),
                                plan.nbz_out, indices_are_sorted=True)
                    .reshape(plan.nbz_out, bsz, bsz))

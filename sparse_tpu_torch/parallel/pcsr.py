@@ -202,16 +202,20 @@ def shard_vector(v, a, mesh: Mesh) -> torch.Tensor:
 
 def pcsr_todense(a: PCSR) -> torch.Tensor:
     """The dense rows of the shards this process holds (all of them on an
-    in-process mesh: the whole matrix), duplicates summed — a check
-    utility."""
+    in-process mesh: the whole matrix), duplicates summed by the sorted
+    ``segment_sum`` (bitwise repeatable on the card) — a check utility."""
     n, m = a.shape
     L, rows_p = a.indptr.shape[0], a.rows_per_shard
-    out = torch.zeros((L * rows_p, m), dtype=a.dtype, device=a.data.device)
+    size = L * rows_p * m
+    flat = []
     for s in range(L):
         rows = row_ids_from_indptr(a.indptr[s], a.nse_per_shard).long()
-        keep = rows < rows_p  # padding carries the sentinel row
-        out.index_put_((s * rows_p + rows[keep], a.indices[s][keep].long()),
-                       a.data[s][keep], accumulate=True)
+        # padding carries the sentinel row: its id lands past the output
+        flat.append(torch.where(rows < rows_p,
+                                (s * rows_p + rows) * m
+                                + a.indices[s].long(), size))
+    out = segment_sum(a.data.reshape(-1), torch.cat(flat), size)
+    out = out.reshape(L * rows_p, m)
     if L == a.n_shards:
         return out[:n]
     return out

@@ -565,3 +565,60 @@ def test_vmap_through_every_rung_on_the_cpu(prefer):
         bound = 1e-5 * (abs(s) @ np.abs(vs[i].astype(np.float64)))
         err = np.abs(_np(got[i]) - s.astype(np.float64) @ vs[i])
         assert np.all(err <= bound)
+
+
+@pytest.mark.parametrize("rows", [8, 32])
+def test_vmap_over_raw_segtile_values_on_the_cpu(rows):
+    """``torch.func.vmap`` over the values of the raw-array
+    ``segtile_apply`` on CPU tensors: bitwise the per-slice calls, and the
+    reference's ``jax.vmap`` of its Pallas kernel (interpret mode) within
+    float32's 1e-5 |A||v|.  The compaction reads no value, so a padding
+    slot adds 0·v as the reference's kernel does: an Inf opposite one gives
+    the reference's NaN."""
+    rng = np.random.default_rng(rows)
+    n, m, nnz = 96, 300, 900
+    r = rng.integers(0, n, nnz)
+    c = np.clip(r * 3 + rng.integers(-40, 41, nnz), 0, m - 1)
+    s = sp.coo_matrix((rng.standard_normal(nnz).astype(np.float32),
+                       (r, c)), shape=(n, m)).tocsr()
+    s.sum_duplicates()
+    ja = st.CSR(data=jnp.asarray(s.data),
+                indices=jnp.asarray(s.indices.astype(np.int32)),
+                indptr=jnp.asarray(s.indptr.astype(np.int32)), shape=s.shape)
+    jp = jpc.build_seg_tiles(ja, wsub=8, rows=rows)
+    tq, tseg, trb = (torch.from_numpy(np.array(x))
+                     for x in (jp.q, jp.seg_of, jp.rb))
+    raw = dict(n=n, wsub=jp.wsub, rows=rows, kstep=jp.kstep,
+               chunks=jp.chunks)
+    scale = rng.standard_normal(3).astype(np.float32)
+    vals = np.asarray(jp.vals)[None] * scale[:, None, None, None]
+    v = rng.standard_normal(m).astype(np.float32)
+
+    def port(vals, v):
+        return tpc.segtile_apply(vals, tq, tseg, trb, v, **raw)
+
+    got = torch.func.vmap(port, in_dims=(0, None))(torch.from_numpy(vals),
+                                                   torch.from_numpy(v))
+    for i in range(3):
+        assert torch.equal(got[i], port(torch.from_numpy(vals[i]),
+                                        torch.from_numpy(v)))
+    ref = jax.vmap(lambda x: jpc.segtile_apply(
+        x, jp.q, jp.seg_of, jp.rb, jnp.asarray(v), interpret=True,
+        **raw))(jnp.asarray(vals))
+    bound = 1e-5 * np.abs(scale)[:, None] * (abs(s) @ np.abs(v))
+    err = np.abs(got.numpy()[:, :n].astype(np.float64)
+                 - np.asarray(ref)[:, :n])
+    assert (err <= bound + 1e-30).all()
+    # a padding slot reads a column no stored entry of its row block holds
+    q, seg_of, rb = (np.asarray(x) for x in (jp.q, jp.seg_of, jp.rb))
+    col = (seg_of[:, None, None] + q.astype(np.int64)) * 128 + np.arange(128)
+    pad = (np.asarray(jp.vals) == 0) & (col < m) & (rb[:, None, None] >= 0)
+    assert pad.any()
+    vi = v.copy()
+    vi[col[pad][0]] = np.inf
+    y = port(torch.from_numpy(vals[0]), torch.from_numpy(vi)).numpy()
+    y_ref = np.asarray(jpc.segtile_apply(
+        jnp.asarray(vals[0]), jp.q, jp.seg_of, jp.rb, jnp.asarray(vi),
+        interpret=True, **raw))
+    assert np.isnan(y).any()
+    np.testing.assert_array_equal(np.isnan(y), np.isnan(y_ref))

@@ -9,6 +9,7 @@ builds on the CPU with ``device="cpu"``; without it the port builds on the
 card, which this file checks raises on a machine without one.
 """
 
+import dataclasses
 from dataclasses import asdict
 from pathlib import Path
 
@@ -22,11 +23,13 @@ import torch
 import sparse_tpu as st
 import sparse_tpu_torch as pt
 from sparse_tpu.formats import bell as jbell
+from sparse_tpu.io import fastmm as j_fastmm
 from sparse_tpu.io import mm_read as j_mm_read
 from sparse_tpu.io import mm_read_coo as j_mm_read_coo
 from sparse_tpu.utils import stats as jstats
 from sparse_tpu_torch import interop
 from sparse_tpu_torch._device import resolve_device
+from sparse_tpu_torch.formats import bell as tbell
 from sparse_tpu_torch.io import fastmm, mm_read, mm_read_coo, mm_write
 from sparse_tpu_torch.utils import profiling
 from sparse_tpu_torch.utils import stats as tstats
@@ -219,6 +222,49 @@ def test_bell_stats_matches_reference():
                     n=nb * bsz, bsz=bsz)
     assert asdict(tstats.bell_stats(tb)) == asdict(jstats.bell_stats(jb))
     assert str(tstats.bell_stats(tb)) == str(jstats.bell_stats(jb))
+
+
+@pytest.mark.parametrize("body,count", [
+    (b"1.5\n2.5 3.5\n", 3),  # the reference's case, tests/test_io_stats.py
+    (b"% a comment line\n-1e-3\t4\r\n% another\n7.25 8\n", 4),
+    (b"1 2 3 4 5\n", 3),
+])
+def test_parse_array_matches_reference(body, count):
+    got, want = fastmm.parse_array(body, count), j_fastmm.parse_array(body,
+                                                                      count)
+    if got is None or want is None:
+        pytest.skip("no native toolchain (g++) on this host")
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+
+
+def test_parse_array_refuses_a_short_body_as_the_reference():
+    if fastmm.parse_array(b"1\n", 1) is None:
+        pytest.skip("no native toolchain (g++) on this host")
+    for parse in (fastmm.parse_array, j_fastmm.parse_array):
+        with pytest.raises(ValueError, match="parsed 1 of 3"):
+            parse(b"1.5 junk 2\n2.5\n", 3)
+
+
+@pytest.mark.parametrize("nb,bsz,Lb", [(4, 4, 3), (7, 32, 5), (1, 2, 1)])
+def test_bell_smvm_hbm_bytes_matches_reference(nb, bsz, Lb):
+    """float32 BELLs move the reference's bytes; other value widths scale
+    the value terms (blocks, operand chunks, output), not the int32 ids."""
+    rng = np.random.default_rng(nb * bsz)
+    cols = np.sort(rng.integers(0, nb, (nb, Lb)), axis=1).astype(np.int32)
+    blocks = rng.standard_normal((nb, Lb, bsz, bsz)).astype(np.float32)
+    jb = jbell.BELL(cols=jnp.asarray(cols), blocks=jnp.asarray(blocks),
+                    n=nb * bsz, bsz=bsz)
+    want = jbell.bell_smvm_hbm_bytes(jb)
+    for dt, w in ((np.float32, 4), (np.float64, 8), ("bf16", 2)):
+        tb = interop.bell_from_arrays(
+            cols, blocks.astype(np.float32 if dt == "bf16" else dt),
+            nb * bsz, bsz, device="cpu")
+        if dt == "bf16":
+            tb = dataclasses.replace(tb, blocks=tb.blocks.to(torch.bfloat16))
+        slots = nb * Lb
+        assert tbell.bell_smvm_hbm_bytes(tb) == want + (w - 4) * (
+            slots * (bsz * bsz + bsz) + nb * bsz)
 
 
 def test_timed_op_times_the_card_only():
