@@ -98,11 +98,14 @@ the same iterations, and prints a ``transforms`` / ``examples`` JSON line.
 Phase 21 times the public paths no earlier phase runs or times at size,
 each against its float64 gate: the plain SpMV and SpMM entry points and
 the ``xla`` / ``bell`` rungs on band-10M and elasticity-400k, the SpMMs
-at ``__graft_entry__``'s shape, ``bell_smvm`` and the bf16x3 tier of K3,
-K4 and K6 on the 80M-entry band, the ESC and dense SpGEMM cores on cuts
-of the SpGEMM fixture, ``pcsr_spmm`` / ``halo_spmm_overlapped`` /
+at ``__graft_entry__``'s shape, ``bell_smvm``, the bf16x3 kind of K3-K6
+(K3's and K4's on the band body's tensor cores, with their issued work)
+and their float64 kinds on the 80M-entry band, each beside ``BSR @ B`` in
+its dtype (float32 for bf16x3), the ESC and dense SpGEMM cores on cuts of
+the SpGEMM fixture, ``pcsr_spmm`` / ``halo_spmm_overlapped`` /
 ``pcsr_spgemm`` over 4 shards, and an int32 pass exact to NumPy, and
-prints a ``surface`` JSON line.
+prints a ``surface`` JSON line; the kinds' records join their kernels'
+entries in the ``kernels`` line.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -1021,10 +1024,10 @@ def _hand_kit_t(a, valid, rt, max_window, stream):
 
 
 def _mask_bodies_vs_plain(rng):
-    """K3's vote body, K6's persistent body and K5's mask body (float32 and
-    bf16 streams) against their plain versions at tests/test_torch_cuda.py's
-    shapes, each with the body's own count of its work against the host
-    model."""
+    """K3's vote body (float32, bf16 and bf16x3 streams), K6's persistent
+    body and K5's mask body (float32 and bf16 streams) against their plain
+    versions at tests/test_torch_cuda.py's shapes, each with the body's
+    own count of its work against the host model."""
     from sparse_tpu_torch.ops import cuda_bell as cb
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1040,14 +1043,15 @@ def _mask_bodies_vs_plain(rng):
         a = _with_values(_bell(cols, valid, bsz, f32, seed=nb * k + bsz),
                          values)
         b = torch.from_numpy(rng.standard_normal((a.n, k))).float().cuda()
-        for cd in (None, bf16):
+        for cd, prec in ((None, None), (bf16, None), (None, "bf16x3")):
             label = (f"K3 body nb={nb} bsz={bsz} k={k} {values} stream="
-                     f"{str(cd or f32)[6:]}")
+                     f"{str(cd or f32)[6:]} precision={prec}")
+            kw = dict(compute_dtype=cd, precision=prec)
             err = _values_vs_plain(
-                label, lambda: cb.bell_spmm_fused(a, b, compute_dtype=cd),
-                lambda: cb.bell_spmm_fused_plain(a, b, compute_dtype=cd),
+                label, lambda: cb.bell_spmm_fused(a, b, **kw),
+                lambda: cb.bell_spmm_fused_plain(a, b, **kw),
                 _abs_bound(a, b, cd or f32), values)
-            counted = cb.fused_issued_flops(a, b, compute_dtype=cd)
+            counted = cb.fused_issued_flops(a, b, **kw)
             model = cb.fused_issued_model(a, k, compute_dtype=cd or f32)
             if counted != model:
                 raise AssertionError(f"{label}: counted {counted} operations"
@@ -1120,14 +1124,15 @@ def _mask_bodies_vs_plain(rng):
 
 
 def phase7_bell_kernels_vs_plain():
-    """K3-K6 against their plain versions on the card: bsz 4/8/32, k
-    1/8/32/100/128, float32, float64, a bf16 stream and bf16x3, padding
-    slots and empty rows, nb not divisible by rt, plans with S > 1 and
-    S = 1, K5 with an unpadded and a padded operand; each case twice for
-    bitwise repeatability.  Then K3's and K5's float32 / bf16 bodies at the
-    card tests' shapes (bsz 3/8/16/24/32/33/64, k 1/7/32/33/70/128/200,
-    all-zero blocks, a lone element, a NaN in A, hand-built K5 kits) with
-    their issued-work counters."""
+    """K3-K6 against their plain versions on the card: bsz 4/8/24/32, k
+    1/8/32/33/100/128/200, float32, float64, a bf16 stream and bf16x3,
+    padding slots and empty rows, nb not divisible by rt, plans with S > 1
+    and S = 1, K5 with an unpadded and a padded operand; each case twice
+    for bitwise repeatability, K4's vote body with its issued-work count.
+    Then K3's float32 / bf16 / bf16x3 and K5's and K6's float32 / bf16
+    bodies at the card tests' shapes (bsz 3/8/16/24/32/33/64, k
+    1/7/32/33/70/128/200, all-zero blocks, a lone element, a NaN in A,
+    hand-built K5 kits) with their issued-work counters."""
     from sparse_tpu_torch.ops import cuda_bell as cb
 
     rng = np.random.default_rng(7)
@@ -1167,9 +1172,11 @@ def phase7_bell_kernels_vs_plain():
             (240, 32, 2, 5, 8, f32, None, "bf16x3", ()),
             # the vote body's ragged edges: bsz 24 divides no 32-row block
             # (rt*bsz = 72), k 200 ends in a part column block, k 33 takes
-            # element copies
+            # element copies; bf16x3 runs the same body
             (40, 24, 2, 3, 200, f32, None, None, (2,)),
-            (130, 24, 1, 7, 33, f32, bf16, None, (5,))):
+            (130, 24, 1, 7, 33, f32, bf16, None, (5,)),
+            (40, 24, 2, 3, 200, f32, None, "bf16x3", (2,)),
+            (130, 24, 1, 7, 33, f32, None, "bf16x3", (5,))):
         cols, valid = _band_pattern(nb, hb, empty)
         a = _bell(cols, valid, bsz, dt, seed=nb * k)
         b = torch.from_numpy(rng.standard_normal((a.n, k))).to(dt).cuda()
@@ -1186,8 +1193,17 @@ def phase7_bell_kernels_vs_plain():
             label, lambda: cb.bell_spmm_banded(a, b, plan, **kw),
             lambda: cb.bell_spmm_banded_plain(a, b, plan, **kw), bound,
             f64 if dt == f64 else f32)
+        issued = ""
+        if dt == f32:  # the vote body's own count (bf16x3: float32's)
+            counted = cb.banded_issued_flops(kit.tiles, plan.start, b, bsz,
+                                             precision=prec)
+            model = cb.banded_issued_model(kit.tiles, k)
+            if counted != model:
+                raise AssertionError(f"{label}: counted {counted} "
+                                     f"operations, host model {model}")
+            issued = f"; issued {counted} = host model"
         print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
-              "repeatable", flush=True)
+              f"repeatable{issued}", flush=True)
     if s_seen != {True, False}:
         raise AssertionError("K4 cases must cover plans with S > 1 and S = 1")
     # K5: (nb, bsz, k, dtype, compute_dtype, precision, padded operand)
@@ -1402,19 +1418,22 @@ def library_spmm(m, b, card, label):
     return ms, "torch.sparse_csr_tensor(...) @ B (BSR refused on the card)"
 
 
-def check_issued(label, tiles, start, b, bsz, useful):
+def check_issued(label, tiles, start, b, bsz, useful, precision=None):
     """The work the vote body of K4 / K8 issues on ``tiles`` against the
     operand ``b`` (rows, k), read from the kernel's own counter (one launch
     of ``banded_issued_flops``) beside the dense tile product's, checked as
-    ``check_counted`` does against the host model (the non-zero chunks)."""
+    ``check_counted`` does against the host model (the non-zero chunks;
+    bf16x3 keeps the float32 stream's)."""
     from sparse_tpu_torch.ops import cuda_bell as cb
 
     k = b.shape[1]
     dense = 2 * tiles.shape[0] * tiles.shape[1] * tiles.shape[2] * k
     print(f"   {label}: the dense tile product is {dense / 1e9:.3f} GFLOP",
           flush=True)
-    return check_counted(label, cb.banded_issued_flops(tiles, start, b, bsz),
-                         cb.banded_issued_model(tiles, k), useful)
+    return check_counted(
+        label, cb.banded_issued_flops(tiles, start, b, bsz,
+                                      precision=precision),
+        cb.banded_issued_model(tiles, k), useful)
 
 
 def check_k5_counts(label, a, bt, kit, useful):
@@ -1490,8 +1509,9 @@ def phase9_bell_timing(card, m):
     (tolerance, bitwise repeat over all rows), then timed in turns — plain,
     kernel, kernel, plain — alone and back to back, with the work the
     float32 bodies of K3, K4, K5 and K6 issue (K5 also the tile bytes it
-    reads); the bf16 streams of K4, K3 (``compute_dtype=bfloat16``), K6
-    (bf16 blocks) and K5 (a bf16 kit at k 32), each with a bf16 operand,
+    reads) and the bf16x3 split of K3 and K4 issues; the bf16 streams of
+    K4, K3 (``compute_dtype=bfloat16``), K6 (bf16 blocks) and K5 (a bf16
+    kit at k 32), each with a bf16 operand,
     the same way beside ``BSR @ B`` in bf16; then bell_spmm beside K6, and
     the chain."""
     import sparse_tpu_torch as pt
@@ -1556,6 +1576,13 @@ def phase9_bell_timing(card, m):
         "K3 float32", cb.fused_issued_flops(a, b),
         cb.fused_issued_model(a, k), useful) / 1e9
     out["K3"]["useful_gflop"] = useful / 1e9
+    # the bf16x3 split on the same vote body keeps float32's chunks (phase
+    # 21 times it)
+    check_issued("K4 bf16x3", kit.tiles, kit.plan.start, b, bsz, useful,
+                 precision="bf16x3")
+    check_counted("K3 bf16x3", cb.fused_issued_flops(a, b,
+                                                     precision="bf16x3"),
+                  cb.fused_issued_model(a, k), useful)
     useful32 = 2 * nnz * 32
     out["K6"]["issued_gflop"] = check_counted(
         "K6 float32", cb.block_issued_flops(a, b),
@@ -4151,51 +4178,137 @@ def _phase21_entry_spmm(paths):
         paths.add(f"entry 512x512 {label} k 64", fn, err)
 
 
-def _phase21_bell(paths, m, card):
-    """bell-band-80M: ``bell_smvm`` at k 1, and the bf16x3 tier of K3, K4
-    and K6 at k 128 against SciPy, their plain versions and ``BSR @ B``;
-    returns the bf16x3 records."""
-    import sparse_tpu_torch as pt
+def _phase21_kind(paths, label, kname, kern, plain, bound, tol_plain,
+                  oracle_err, cost, dtype, lib, lib_call):
+    """One stream kind of one of K3-K6 on bell-band-80M: twice, bitwise
+    equal and launched each time, against its plain version within
+    TOL[tol_plain] * ``bound`` and against SciPy (``oracle_err`` of the
+    result, which applies the gate), then timed back to back beside its
+    plain version, its bound (``cost`` (bytes, operations) at ``dtype``'s
+    peak) and the library call; returns the record."""
     from sparse_tpu_torch.ops import cuda_bell as cb
 
-    a, b, kit, oracle = m["a"], m["b"], m["kit"], m["oracle"]
+    before = getattr(cb, f"{kname}_LAUNCHES")
+    err_p, c = _twice_vs_plain(label, kern, plain, bound, tol_plain)
+    launches = getattr(cb, f"{kname}_LAUNCHES") - before
+    if launches != 2:
+        raise AssertionError(f"{label}: {kname} launched {launches} times "
+                             "for 2 calls")
+    err = oracle_err(c)
+    del c
+    plain_ms = pipelined_ms(plain, warmup=1)[0]
+    b_ms, b_by = bound_ms(*cost, dtype)
+    ms = paths.add(f"bell-band-80M {label}", kern, err,
+                   max_abs_err_vs_plain=err_p, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    if lib is not None:
+        print(f"   {label}: {ms:.4f} ms against the library's {lib:.4f} "
+              f"({lib_call}): {'faster' if ms < lib else 'SLOWER'}, "
+              f"{lib / ms:.2f}x [{paths.card}]", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, library_call=lib_call, max_abs_err=err,
+                max_abs_err_vs_plain=err_p, launches=launches)
+
+
+def _phase21_bell(paths, m, card):
+    """bell-band-80M: ``bell_smvm`` at k 1; the bf16x3 tier of K3 and K4
+    (the band body) and K6 at k 128 and of K5 at k 32 (the first body),
+    each against SciPy, its plain version and ``BSR @ B`` in float32, K3's
+    and K4's with their issued work; then the float64 kinds of K3, K4 and
+    K6 at k 128 and K5 at k 32 (the first body) beside ``BSR @ B`` in
+    float64.  Returns {kernel: {"bf16x3": record, "float64": record}}."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.formats.bell import BELL
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    a, b, b32, kit, kit_t = m["a"], m["b"], m["b32"], m["kit"], m["kit_t"]
+    oracle, valid = m["oracle"], m["slot_valid"]
     v = b[:, 0].contiguous()
     y = pt.bell_smvm(a, v)
     vh = v.double().cpu().numpy()
     paths.add("bell-band-80M bell_smvm k 1", lambda: pt.bell_smvm(a, v),
               _vs_scipy("bell_smvm", y, oracle.s, vh, rows=oracle.rows))
-    bh = b.double().cpu().numpy()
+    bh, bh32 = b.double().cpu().numpy(), b32.double().cpu().numpy()
+    nbz, k = int(valid.sum()), b.shape[1]
+    bt32 = b32.T.contiguous()
+    f64 = torch.float64
+
+    def vs_scipy(label, x, tol, transposed=False):
+        return lambda c: _vs_scipy(label, c.T if transposed else c,
+                                   oracle.s, x, rows=oracle.rows, tol=tol)
+
+    def split_cost(kk):  # float32 operands and result, three bf16 products
+        nbytes, flops = spmm_cost(nbz, a.bsz, a.n, kk)
+        return nbytes, 3 * flops
+
+    out = {"K3": {}, "K4": {}, "K5": {}, "K6": {}}
+    lib, call = library_spmm(m, b, card, "float32, the bf16x3 yardstick")
     bound = _abs_bound(a, b, torch.float32)
-    nbz, k = int(m["slot_valid"].sum()), b.shape[1]
-    nbytes, flops = spmm_cost(nbz, a.bsz, a.n, k)
-    b_ms, b_by = bound_ms(nbytes, 3 * flops, torch.bfloat16)
-    lib, lib_call = library_spmm(m, b, card, "float32, the bf16x3 "
-                                 "yardstick")
-    out = {}
+    x3 = "bf16x3"
     for kname, kern, plain in (
-            ("K3", lambda: pt.bell_spmm(a, b, precision="bf16x3"),
-             lambda: cb.bell_spmm_fused_plain(a, b, precision="bf16x3")),
-            ("K4", lambda: pt.bell_spmm(a, b, plan=kit, precision="bf16x3"),
+            ("K3", lambda: pt.bell_spmm(a, b, precision=x3),
+             lambda: cb.bell_spmm_fused_plain(a, b, precision=x3)),
+            ("K4", lambda: pt.bell_spmm(a, b, plan=kit, precision=x3),
              lambda: cb.bell_spmm_banded_plain(a, b, kit.plan,
                                                tiles=kit.tiles,
-                                               precision="bf16x3")),
-            ("K6", lambda: cb.bell_spmm_block(a, b, precision="bf16x3"),
-             lambda: cb.bell_spmm_block_plain(a, b, precision="bf16x3"))):
+                                               precision=x3)),
+            ("K6", lambda: cb.bell_spmm_block(a, b, precision=x3),
+             lambda: cb.bell_spmm_block_plain(a, b, precision=x3))):
         label = f"{kname} bf16x3 k {k}"
-        before = getattr(cb, f"{kname}_LAUNCHES")
-        err_p, c = _twice_vs_plain(label, kern, plain, bound,
-                                   torch.float32)
-        if getattr(cb, f"{kname}_LAUNCHES") - before != 2:
-            raise AssertionError(f"{label}: {kname} was not launched")
-        err = _vs_scipy(label, c, oracle.s, bh, rows=oracle.rows,
-                        tol=BF16X3_TOL)
-        plain_ms = pipelined_ms(plain, warmup=1)[0]
-        ms = paths.add(f"bell-band-80M {label}", kern, err,
-                       max_abs_err_vs_plain=err_p, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-        out[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=lib, library_call=lib_call,
-                          max_abs_err=err, max_abs_err_vs_plain=err_p)
+        out[kname]["bf16x3"] = _phase21_kind(
+            paths, label, kname, kern, plain, bound, torch.float32,
+            vs_scipy(label, bh, BF16X3_TOL), split_cost(k), torch.bfloat16,
+            lib, call)
+    # the split's issued work on the band body: the float32 stream's chunks
+    useful = 2 * m["nnz"] * k
+    out["K4"]["bf16x3"]["issued_gflop"] = check_issued(
+        "K4 bf16x3", kit.tiles, kit.plan.start, b, a.bsz, useful,
+        precision=x3) / 1e9
+    out["K3"]["bf16x3"]["issued_gflop"] = check_counted(
+        "K3 bf16x3", cb.fused_issued_flops(a, b, precision=x3),
+        cb.fused_issued_model(a, k), useful) / 1e9
+    lib32, call32 = library_spmm(m, b32, card, "k 32 float32, the bf16x3 "
+                                 "yardstick")
+    label = "K5 bf16x3 k 32"
+    out["K5"]["bf16x3"] = _phase21_kind(
+        paths, label, "K5",
+        lambda: cb.bell_spmm_banded_t(a, bt32, kit_t, precision=x3),
+        lambda: cb.bell_spmm_banded_t_plain(a, bt32, kit_t, precision=x3),
+        _abs_bound(a, b32, torch.float32).T, torch.float32,
+        vs_scipy(label, bh32, BF16X3_TOL, True), split_cost(32),
+        torch.bfloat16, lib32, call32)
+    # the float64 kinds, on the first body
+    a64 = BELL(cols=a.cols, blocks=a.blocks.double(), n=a.n, bsz=a.bsz)
+    b64 = b.double()
+    kit64 = cb.bell_banded_prepare(a64, row_tile=kit.plan.rt,
+                                   slot_valid=valid)
+    bound = _abs_bound(a64, b64, f64)
+    lib, call = library_spmm(m, b64, card, "float64")
+    cost = spmm_cost(nbz, a.bsz, a.n, k, 8, 8)
+    for kname, kern, plain in (
+            ("K3", lambda: cb.bell_spmm_fused(a64, b64),
+             lambda: cb.bell_spmm_fused_plain(a64, b64)),
+            ("K4", lambda: pt.bell_spmm(a64, b64, plan=kit64),
+             lambda: cb.bell_spmm_banded_plain(a64, b64, kit64.plan,
+                                               tiles=kit64.tiles)),
+            ("K6", lambda: cb.bell_spmm_block(a64, b64),
+             lambda: cb.bell_spmm_block_plain(a64, b64))):
+        label = f"{kname} float64 k {k}"
+        out[kname]["float64"] = _phase21_kind(
+            paths, label, kname, kern, plain, bound, f64,
+            vs_scipy(label, bh, TOL[f64]), cost, f64, lib, call)
+    del kit64, bound
+    kit_t64 = cb.bell_banded_prepare_t(a64, slot_valid=valid)
+    bt64 = bt32.double()
+    lib, call = library_spmm(m, b32.double(), card, "k 32 float64")
+    label = "K5 float64 k 32"
+    out["K5"]["float64"] = _phase21_kind(
+        paths, label, "K5", lambda: cb.bell_spmm_banded_t(a64, bt64, kit_t64),
+        lambda: cb.bell_spmm_banded_t_plain(a64, bt64, kit_t64),
+        _abs_bound(a64, b32.double(), f64).T, f64,
+        vs_scipy(label, bh32, TOL[f64], True),
+        spmm_cost(nbz, a.bsz, a.n, 32, 8, 8), f64, lib, call)
+    del kit_t64, a64, b64, bt64
     return out
 
 
@@ -4347,19 +4460,20 @@ def phase21_surface(card, slice_run, ela_bsr, spmm_run):
     timed back to back (the median of 5 windows), with its host set-up
     time and the card: the plain SpMV and SpMM entry points and the
     ``xla`` / ``bell`` rungs on band-10M and elasticity-400k, the SpMMs at
-    ``__graft_entry__``'s shape, ``bell_smvm`` and the bf16x3 tier of K3,
-    K4 and K6 on bell-band-80M, the ESC and dense SpGEMM cores on cuts of
-    spgemm-block-181k, three distributed paths over ``DIST_D`` shards,
-    and an int32 pass exact to NumPy.  Returns (paths, bf16x3)."""
+    ``__graft_entry__``'s shape, ``bell_smvm`` and the bf16x3 and float64
+    kinds of K3-K6 on bell-band-80M, the ESC and dense SpGEMM cores on
+    cuts of spgemm-block-181k, three distributed paths over ``DIST_D``
+    shards, and an int32 pass exact to NumPy.  Returns (paths, {kernel:
+    {kind: record}})."""
     paths = _Paths(card)
     _phase21_band(paths, slice_run["a"], slice_run["s"], slice_run["v"])
     ae, se = _phase21_elasticity(paths, ela_bsr)
     _phase21_entry_spmm(paths)
-    bf16x3 = _phase21_bell(paths, spmm_run, card)
+    kinds = _phase21_bell(paths, spmm_run, card)
     sub = _phase21_spgemm(paths)
     _phase21_pspgemm(paths, ae, se)
     _phase21_int32(paths, slice_run, ela_bsr, spmm_run, sub)
-    return paths.out, bf16x3
+    return paths.out, kinds
 
 
 def main():
@@ -4505,11 +4619,14 @@ def main():
             entry["example_launches"] = examples_launches[key]
     print(json.dumps({"transforms": transforms, "examples": examples,
                       "card": card}, default=float), flush=True)
-    with Phase("phase 21: the rest of the surface at size", 90):
-        surface, bf16x3 = phase21_surface(card, slice_run,
-                                          ela["plan"].state[0], spmm_run)
-    print(json.dumps({"surface": surface, "bf16x3": bf16x3, "card": card},
-                     default=float), flush=True)
+    with Phase("phase 21: the rest of the surface at size", 180):
+        surface, kinds = phase21_surface(card, slice_run,
+                                         ela["plan"].state[0], spmm_run)
+    print(json.dumps({"surface": surface, "card": card}, default=float),
+          flush=True)
+    # the bf16x3 and float64 kinds of K3-K6 join their kernels' records
+    for entry in kernels:
+        entry.update(kinds.get(entry["name"].split()[0], {}))
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-// The float32 / bf16 body of the blocked-ELL SpMM kernels K3 (bell_spmm.cu),
-// K4 and K8 (bell_banded.cu): C (M, N) = A (M, K) @ B (K, N) for one output
-// matrix, where A is a mostly-zero band and B the dense operand.  The kernels
-// differ only in where A's rows and B's rows live, which an address policy
-// says (DenseTile: K4/K8's densified tile and operand window; WideRow: K3's
-// block row [A_r0 | ... | A_r,Lb-1] and the operand panels its slots name).
+// The float32 / bf16 / bf16x3 body of the blocked-ELL SpMM kernels K3
+// (bell_spmm.cu), K4 and K8 (bell_banded.cu): C (M, N) = A (M, K) @ B (K, N)
+// for one output matrix, where A is a mostly-zero band and B the dense
+// operand.  The kernels differ only in where A's rows and B's rows live,
+// which an address policy says (DenseTile: K4/K8's densified tile and
+// operand window; WideRow: K3's block row [A_r0 | ... | A_r,Lb-1] and the
+// operand panels its slots name).
 //
 // One thread block owns 32 output rows and 128 output columns.  The
 // contraction runs in 32-index chunks through a ring in shared memory filled
@@ -15,11 +16,17 @@
 // non-zero and -0 does not.  Float32: each thread keeps an 8x4 register tile
 // fed by broadcast 16-byte shared loads, in full float32 (no TF32).  bf16
 // (A and B bf16, sums float32): the same tiling feeds mma.sync m16n8k16 from
-// ldmatrix fragments, each warp a 32x32 piece.  Copies are 16-byte vectors
-// (VEC), or one element at a time where a shape or a pointer's alignment
-// does not allow them.  Every output is written once, after one fixed-order
-// loop: no atomics on the output.  With a counter, each thread block adds
-// the multiply-adds of the chunks its vote kept, at their full size.
+// ldmatrix fragments, each warp a 32x32 piece.  bf16x3 (the Split kind:
+// float32 A and B, precision="bf16x3"): the float32 ring and vote, and the
+// bf16 kind's mma.sync tiling; each thread splits its float32 fragments in
+// registers into a bf16 high part and a bf16 residual and issues three
+// products into one float32 accumulator, hi*hi, hi*lo and lo*hi (lo*lo is
+// dropped), as sparse_tpu/ops/pallas_bell.py::_dot_bf16x3 defines them.
+// Copies are 16-byte vectors (VEC), or one element at a time where a shape
+// or a pointer's alignment does not allow them.  Every output is written
+// once, after one fixed-order loop: no atomics on the output.  With a
+// counter, each thread block adds the multiply-adds of the chunks its vote
+// kept, at their full size (once for bf16x3: the useful products).
 
 #pragma once
 
@@ -34,14 +41,22 @@ constexpr int kBM = 32;        // output rows per thread block
 constexpr int kBN = 128;       // output columns per thread block
 constexpr int kThreads = 128;  // four warps
 
-// Per stream type: kBK, the contraction chunk (one vote each); kVote, how
-// many chunks ahead of the one being multiplied the block votes (and starts
-// that chunk's B copy); kAhead (> kVote), how many ahead A is copied.  The
-// rings hold what is in flight plus what is being read.
-template <typename T>
+// The bf16x3 stream kind: float32 in memory and in shared memory, three
+// bf16 products on the tensor cores.
+struct Split {};
+
+// Per stream kind S (float, __nv_bfloat16, Split): T, the element type in
+// memory and in shared memory; kBK, the contraction chunk (one vote each);
+// kVote, how many chunks ahead of the one being multiplied the block votes
+// (and starts that chunk's B copy); kAhead (> kVote), how many ahead A is
+// copied.  The rings hold what is in flight plus what is being read.
+// a_at(i, c) and b_at(kk, c) place A's element (i, c) and B's (kk, c) of a
+// chunk in its stage.
+template <typename S>
 struct Cfg;
 template <>
 struct Cfg<float> {
+  using T = float;
   using Bits = unsigned;
   using Acc = float[8][4];              // 8 rows x 4 columns per thread
   static constexpr unsigned kWord = 0x7fffffffu;  // magnitude bits
@@ -51,9 +66,16 @@ struct Cfg<float> {
   static constexpr int kVote = 1, kAhead = 2;
   static constexpr int kAStages = kAhead + 2, kBStages = kVote + 1;
   static constexpr int kMinBlocks = 4;  // per SM: at most 128 registers
+  __device__ static __forceinline__ int a_at(int i, int c) {
+    return i * kAPitch + c;
+  }
+  __device__ static __forceinline__ int b_at(int kk, int c) {
+    return kk * kBPitch + c;
+  }
 };
 template <>
 struct Cfg<__nv_bfloat16> {
+  using T = __nv_bfloat16;
   using Bits = unsigned short;
   using Acc = float[2][4][4];           // 2 m16 x 4 n8 mma tiles per warp
   static constexpr unsigned kWord = 0x7fff7fffu;
@@ -63,13 +85,49 @@ struct Cfg<__nv_bfloat16> {
   static constexpr int kVote = 2, kAhead = 3;  // the multiply is short
   static constexpr int kAStages = kAhead + 2, kBStages = kVote + 1;
   static constexpr int kMinBlocks = 4;
+  __device__ static __forceinline__ int a_at(int i, int c) {
+    return i * kAPitch + c;
+  }
+  __device__ static __forceinline__ int b_at(int kk, int c) {
+    return kk * kBPitch + c;
+  }
+};
+// bf16x3: the float32 kind's ring (48 KB at 4 A and 2 B stages) and the
+// bf16 kind's tiling.  A thread reads its mma fragments as float32 from
+// shared memory: A's as 8-byte pairs along the contraction (rows g, g+8 of
+// a 16-row tile, columns 2t, 2t+1 and 2t+8, 2t+9, for lane 4g + t), B's
+// one element at a time (rows 2t, 2t+1, 2t+8, 2t+9, column g).  Unpadded
+// rows would put those reads on 2 to 8 threads a bank, and padding them
+// (A to 40, B to 132 floats) would cost 53 KB, so the rows stay unpadded
+// and a row's columns are swizzled: column c of A's row i sits at c ^ 8 *
+// (i % 4), of B's row kk at c ^ 8 * (kk / 2 % 4).  Every read of a
+// fragment then meets 32 distinct banks (per half warp for A's 8-byte
+// reads), and a 16-byte vector stays whole for cp.async.
+template <>
+struct Cfg<Split> {
+  using T = float;
+  using Bits = unsigned;
+  using Acc = float[2][4][4];           // 2 m16 x 4 n8 mma tiles per warp
+  static constexpr unsigned kWord = 0x7fffffffu;
+  static constexpr int kBK = 32;
+  static constexpr int kAPitch = kBK;
+  static constexpr int kBPitch = kBN;
+  static constexpr int kVote = 1, kAhead = 2;  // three products a pair
+  static constexpr int kAStages = kAhead + 2, kBStages = kVote + 1;
+  static constexpr int kMinBlocks = 4;
+  __device__ static __forceinline__ int a_at(int i, int c) {
+    return i * kAPitch + (c ^ ((i & 3) << 3));
+  }
+  __device__ static __forceinline__ int b_at(int kk, int c) {
+    return kk * kBPitch + (c ^ (((kk >> 1) & 3) << 3));
+  }
 };
 
-template <typename T>
+template <typename S>
 constexpr int smem_bytes() {
-  return (Cfg<T>::kAStages * kBM * Cfg<T>::kAPitch +
-          Cfg<T>::kBStages * Cfg<T>::kBK * Cfg<T>::kBPitch) *
-         static_cast<int>(sizeof(T));
+  return (Cfg<S>::kAStages * kBM * Cfg<S>::kAPitch +
+          Cfg<S>::kBStages * Cfg<S>::kBK * Cfg<S>::kBPitch) *
+         static_cast<int>(sizeof(typename Cfg<S>::T));
 }
 
 // -- address policies ----------------------------------------------------
@@ -171,10 +229,12 @@ struct WideRow {
 
 // A[m0 : m0+32, k0 : k0+32] into a stage; rows >= M and columns >= K are
 // zero.
-template <typename T, bool VEC, class P>
-__device__ __forceinline__ void load_a(T* sa, const P& p, int M, int K,
-                                       int m0, int k0) {
-  constexpr int kP = Cfg<T>::kAPitch, kBK = Cfg<T>::kBK;
+template <typename S, bool VEC, class P>
+__device__ __forceinline__ void load_a(typename Cfg<S>::T* sa, const P& p,
+                                       int M, int K, int m0, int k0) {
+  using Cf = Cfg<S>;
+  using T = typename Cf::T;
+  constexpr int kBK = Cf::kBK;
   const int tid = threadIdx.x;
   const auto v = p.a_chunk(k0);
   if constexpr (VEC) {
@@ -185,18 +245,18 @@ __device__ __forceinline__ void load_a(T* sa, const P& p, int M, int K,
       const int i = e / kRow, col = (e % kRow) * V;
       const int gi = m0 + i, gk = k0 + col;
       const bool ok = gi < M && gk < K;
-      sm90::cp_async16(sa + i * kP + col, ok ? v.at(gi, col) : p.a_any(),
+      sm90::cp_async16(sa + Cf::a_at(i, col), ok ? v.at(gi, col) : p.a_any(),
                        ok);
     }
   } else {
-    using B = typename Cfg<T>::Bits;
+    using B = typename Cf::Bits;
     B* dst = reinterpret_cast<B*>(sa);
 #pragma unroll 4
     for (int s = 0; s < kBM * kBK / kThreads; ++s) {
       const int e = tid + s * kThreads;
       const int i = e / kBK, col = e % kBK;
       const int gi = m0 + i, gk = k0 + col;
-      dst[i * kP + col] =
+      dst[Cf::a_at(i, col)] =
           (gi < M && gk < K) ? *reinterpret_cast<const B*>(v.at(gi, col))
                              : B(0);
     }
@@ -204,27 +264,28 @@ __device__ __forceinline__ void load_a(T* sa, const P& p, int M, int K,
 }
 
 // Whether any element this thread copied by load_a is non-zero (NaN is).
-template <typename T, bool VEC>
-__device__ __forceinline__ bool mine_nonzero(const T* sa) {
-  constexpr int kP = Cfg<T>::kAPitch, kBK = Cfg<T>::kBK;
+template <typename S, bool VEC>
+__device__ __forceinline__ bool mine_nonzero(const typename Cfg<S>::T* sa) {
+  using Cf = Cfg<S>;
+  constexpr int kBK = Cf::kBK;
   const int tid = threadIdx.x;
   unsigned any = 0;
   if constexpr (VEC) {
-    constexpr int V = 16 / sizeof(T), kRow = kBK / V;
+    constexpr int V = 16 / sizeof(typename Cf::T), kRow = kBK / V;
 #pragma unroll
     for (int s = 0; s < kBM * kRow / kThreads; ++s) {
       const int e = tid + s * kThreads;
       const uint4 w = *reinterpret_cast<const uint4*>(
-          sa + (e / kRow) * kP + (e % kRow) * V);
-      any |= (w.x | w.y | w.z | w.w) & Cfg<T>::kWord;
+          sa + Cf::a_at(e / kRow, (e % kRow) * V));
+      any |= (w.x | w.y | w.z | w.w) & Cf::kWord;
     }
   } else {
-    using B = typename Cfg<T>::Bits;
+    using B = typename Cf::Bits;
     const B* src = reinterpret_cast<const B*>(sa);
 #pragma unroll 4
     for (int s = 0; s < kBM * kBK / kThreads; ++s) {
       const int e = tid + s * kThreads;
-      any |= src[(e / kBK) * kP + e % kBK] & Cfg<T>::kWord;
+      any |= src[Cf::a_at(e / kBK, e % kBK)] & Cf::kWord;
     }
   }
   return any != 0;
@@ -233,10 +294,12 @@ __device__ __forceinline__ bool mine_nonzero(const T* sa) {
 // Operand rows k0 .. k0+31 (rows without data, those >= K among them, read
 // 0), columns n0 .. n0+127 (columns >= N read 0), into a stage; called for
 // k0 < K.
-template <typename T, bool VEC, class P>
-__device__ __forceinline__ void load_b(T* sb, const P& p, int N, int k0,
-                                       int n0) {
-  constexpr int kP = Cfg<T>::kBPitch, kBK = Cfg<T>::kBK;
+template <typename S, bool VEC, class P>
+__device__ __forceinline__ void load_b(typename Cfg<S>::T* sb, const P& p,
+                                       int N, int k0, int n0) {
+  using Cf = Cfg<S>;
+  using T = typename Cf::T;
+  constexpr int kBK = Cf::kBK;
   const int tid = threadIdx.x;
   const auto v = p.b_chunk(k0);
   if constexpr (VEC) {
@@ -247,11 +310,11 @@ __device__ __forceinline__ void load_b(T* sb, const P& p, int N, int k0,
       const int kk = e / kRow, col = (e % kRow) * V;
       const int gk = k0 + kk, gn = n0 + col;
       const bool ok = p.b_has(gk) && gn < N;
-      sm90::cp_async16(sb + kk * kP + col, ok ? v.row(kk) + gn : p.b_any(),
-                       ok);
+      sm90::cp_async16(sb + Cf::b_at(kk, col),
+                       ok ? v.row(kk) + gn : p.b_any(), ok);
     }
   } else {
-    using B = typename Cfg<T>::Bits;
+    using B = typename Cf::Bits;
     B* dst = reinterpret_cast<B*>(sb);
     // one operand row per thread and pass: its address is resolved once
     constexpr int kRowsPer = kThreads / 32;  // rows per pass
@@ -265,7 +328,7 @@ __device__ __forceinline__ void load_b(T* sb, const P& p, int N, int k0,
 #pragma unroll
       for (int c = lane; c < kBN; c += 32) {
         const int gn = n0 + c;
-        dst[kk * kP + c] = (row_ok && gn < N) ? src[gn] : B(0);
+        dst[Cf::b_at(kk, c)] = (row_ok && gn < N) ? src[gn] : B(0);
       }
     }
   }
@@ -337,6 +400,70 @@ __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* sa,
   }
 }
 
+// x0 and x1 as packed bf16 high parts (x0 in the low half, as an mma
+// operand register holds its lower contraction index) and bf16 residuals:
+// hi = bf16(x), lo = bf16(x - hi), the difference exact in float32.
+__device__ __forceinline__ void split2(float x0, float x1, unsigned& hi,
+                                       unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// The same with the bf16x3 split (float32 stages in Cfg<Split>'s layout,
+// the mma tiles' accumulator): warp w owns all 32 rows and columns 32w ..
+// 32w+31 as 2 x 4 m16n8 tiles, as the bf16 kind does.  Per 16-index step
+// each thread splits its A fragments (2 tiles x 4 registers) and B
+// fragments (4 tiles x 2 registers), then issues hi*hi for every tile,
+// then hi*lo, then lo*hi, each into the tile's one float32 accumulator.
+__device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
+                                          float (&acc)[2][4][4]) {
+  using Cf = Cfg<Split>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int ks = 0; ks < Cf::kBK; ks += 16) {
+    unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        // register r: row g (+8 for odd r), columns 2t, 2t+1 (+8 for r >= 2)
+        const int i = mt * 16 + g + (r & 1) * 8;
+        const int c = ks + 2 * t + (r >> 1) * 8;
+        const float2 x =
+            *reinterpret_cast<const float2*>(sa + Cf::a_at(i, c));
+        split2(x.x, x.y, ah[mt][r], al[mt][r]);
+      }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // register r: rows 2t, 2t+1 (+8 for r = 1), column g
+        const int kk = ks + 2 * t + r * 8, n = warp * 32 + nt * 8 + g;
+        split2(sb[Cf::b_at(kk, n)], sb[Cf::b_at(kk + 1, n)], bh[nt][r],
+               bl[nt][r]);
+      }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        sm90::mma_bf16_16816(acc[mt][nt], ah[mt], bh[nt]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        sm90::mma_bf16_16816(acc[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        sm90::mma_bf16_16816(acc[mt][nt], al[mt], bh[nt]);
+  }
+}
+
 // -- output -------------------------------------------------------------------
 
 // C[m0 + ., n0 + .] of one output (M, N) from the register tiles.
@@ -390,12 +517,14 @@ __device__ __forceinline__ void store(const float (&acc)[2][4][4], float* c,
 
 // C[m0 : m0+32, n0 : n0+128] of one output (M, N) at c (row-major, leading
 // dimension N) = A @ B over the whole contraction K, A and B read through
-// the policy p.  Needs smem_bytes<T>() of dynamic shared memory.
-template <typename T, bool VEC, class P>
+// the policy p, in the stream kind S.  Needs smem_bytes<S>() of dynamic
+// shared memory.
+template <typename S, bool VEC, class P>
 __device__ __forceinline__ void run(const P& p, float* c, int M, int K,
                                     int N, int m0, int n0,
                                     unsigned long long* issued) {
-  using Cf = Cfg<T>;
+  using Cf = Cfg<S>;
+  using T = typename Cf::T;
   constexpr int kVote = Cf::kVote, kAhead = Cf::kAhead, kBK = Cf::kBK;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sa = reinterpret_cast<T*>(smem);
@@ -410,8 +539,8 @@ __device__ __forceinline__ void run(const P& p, float* c, int M, int K,
   };
   auto vote = [&](int ch) {  // the loop's only barrier
     const bool nz =
-        __syncthreads_or(ch < nc && mine_nonzero<T, VEC>(stage_a(ch)));
-    if (nz) load_b<T, VEC>(stage_b(ch), p, N, ch * kBK, n0);
+        __syncthreads_or(ch < nc && mine_nonzero<S, VEC>(stage_a(ch)));
+    if (nz) load_b<S, VEC>(stage_b(ch), p, N, ch * kBK, n0);
     return nz;
   };
   // Step it copies A(it + kAhead), votes on chunk it + kVote and copies its
@@ -427,7 +556,7 @@ __device__ __forceinline__ void run(const P& p, float* c, int M, int K,
     // stage (it + kAhead) % kAStages was last read by chunk it - 2, before
     // the last barrier; B's stage by chunk it - 1, before this step's one
     if (it + kAhead < nc)
-      load_a<T, VEC>(stage_a(it + kAhead), p, M, K, m0, (it + kAhead) * kBK);
+      load_a<S, VEC>(stage_a(it + kAhead), p, M, K, m0, (it + kAhead) * kBK);
     sm90::cp_async_commit();
     if (it + kVote >= 0) {
       sm90::cp_async_wait<kWait>();

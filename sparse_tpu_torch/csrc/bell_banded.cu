@@ -28,12 +28,16 @@
 // HBM time, since finding the zeros means reading them.  At small k (K5,
 // k = 32) the tiles' bytes dominate instead.
 //
-// K4/K8 for float32 and bf16 streams (band_kernel below) run the body of
-// band_body.cuh on the tile: 32 x 128 output blocks (one block row at bsz
-// 32, all of k = 128, so each tile's A comes from device memory once), a
-// cp.async ring, and a vote that skips the tile's all-zero 32 x 32 chunks
-// (their B copy and multiply-adds), which brings the work issued at the
-// bench shape back to the useful flops.  bell_banded_issued launches the
+// K4/K8 for float32, bf16 and bf16x3 streams (band_kernel below) run the
+// body of band_body.cuh on the tile: 32 x 128 output blocks (one block row
+// at bsz 32, all of k = 128, so each tile's A comes from device memory
+// once), a cp.async ring, and a vote that skips the tile's all-zero 32 x 32
+// chunks (their B copy and multiply-adds), which brings the work issued at
+// the bench shape back to the useful flops.  bf16x3 keeps the float32
+// tiles and ring and splits each pair of fragments into three bf16
+// products on mma.sync (3 x 20.5 GFLOP at the bench band, a small share of
+// the tensor cores' rate); its floor is the 768 MB of float32 tiles it
+// must read to vote on them (>= 0.23 ms).  bell_banded_issued launches the
 // same body with a counter on the card: what the skip saves is measured.
 //
 // K5 for float32 and bf16 streams (band_t_kernel below): at k = 32 it is
@@ -49,10 +53,10 @@
 // Inf or NaN opposite a densified zero the result is the sparse product's
 // (what SciPy and BSR @ B give), not the NaN of the dense tile product.
 //
-// The float64 and bf16x3 kinds of K4/K8 and K5 stay on the first body
-// (bell_common.cuh): a thread block owns one (row tile, 64-row block,
-// 64-column chunk of k) output tile, stages A and B in shared memory 16 deep
-// and keeps a 4x4 register tile per thread.
+// The float64 kind of K4/K8, and the float64 and bf16x3 kinds of K5, stay
+// on the first body (bell_common.cuh): a thread block owns one (row tile,
+// 64-row block, 64-column chunk of k) output tile, stages A and B in shared
+// memory 16 deep and keeps a 4x4 register tile per thread.
 
 #include "band_body.cuh"
 #include "bell_common.cuh"
@@ -136,27 +140,31 @@ cudaError_t launch(bool transposed, const void* tiles, const void* start,
         static_cast<const T*>(b), static_cast<S*>(c), static_cast<int>(M),
         static_cast<int>(K), static_cast<int>(N), static_cast<int>(bsz),
         b_extent, out_cols);
-  } else {
+  } else if constexpr (!SPLIT) {  // K4's split runs band_kernel
     bell_banded_kernel<T, SPLIT><<<g, kThreads, 0, s>>>(
         static_cast<const T*>(tiles), static_cast<const int*>(start),
         static_cast<const T*>(b), static_cast<S*>(c), static_cast<int>(M),
         static_cast<int>(K), static_cast<int>(N), static_cast<int>(bsz),
         b_extent);
+  } else {
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-// -- K4/K8 for float32 and bf16 streams ---------------------------------------
+// -- K4/K8 for float32, bf16 and bf16x3 streams ------------------------------
 
-// tiles (ntiles, M, K) and b (b_rows, N) in the stream type T, C
-// (ntiles*M, N) float32.  Block (tile, 32-row block, 128-column block),
-// column blocks fastest.
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(band::kThreads, band::Cfg<T>::kMinBlocks)
-    band_kernel(const T* __restrict__ tiles, const int* __restrict__ start,
-                const T* __restrict__ b, float* __restrict__ c, int M, int K,
-                int N, int bsz, long long b_rows,
-                unsigned long long* __restrict__ issued) {
+// tiles (ntiles, M, K) and b (b_rows, N) in the stream kind S's element
+// type, C (ntiles*M, N) float32.  Block (tile, 32-row block, 128-column
+// block), column blocks fastest.
+template <typename S, bool VEC>
+__global__ void __launch_bounds__(band::kThreads, band::Cfg<S>::kMinBlocks)
+    band_kernel(const typename band::Cfg<S>::T* __restrict__ tiles,
+                const int* __restrict__ start,
+                const typename band::Cfg<S>::T* __restrict__ b,
+                float* __restrict__ c, int M, int K, int N, int bsz,
+                long long b_rows, unsigned long long* __restrict__ issued) {
+  using T = typename band::Cfg<S>::T;
   const int n_blocks = (N + band::kBN - 1) / band::kBN;
   const int m_blocks = (M + band::kBM - 1) / band::kBM;
   long long bid = blockIdx.x;
@@ -169,16 +177,17 @@ __global__ void __launch_bounds__(band::kThreads, band::Cfg<T>::kMinBlocks)
   const int rows_ok = left <= 0 ? 0 : left >= K ? K : static_cast<int>(left);
   const band::DenseTile<T> p{tiles + tile * M * K,
                              rows_ok > 0 ? b + row0 * N : b, K, N, rows_ok};
-  band::run<T, VEC>(p, c + tile * M * N, M, K, N, m0, n0, issued);
+  band::run<S, VEC>(p, c + tile * M * N, M, K, N, m0, n0, issued);
 }
 
-template <typename T>
+template <typename S>
 cudaError_t launch_band(const void* tiles, const void* start, const void* b,
                         void* c, long long ntiles, long long M, long long K,
                         long long N, long long bsz, long long b_rows,
                         unsigned long long* issued, void* stream) {
   using band::kBM;
   using band::kBN;
+  using T = typename band::Cfg<S>::T;
   constexpr long long kMax = 0x7fffffffLL;
   if (ntiles <= 0 || M <= 0 || N <= 0) return cudaSuccess;
   // 32-bit index math inside a tile, its window and its output
@@ -189,8 +198,8 @@ cudaError_t launch_band(const void* tiles, const void* start, const void* b,
   constexpr long long V = 16 / sizeof(T);
   const bool vec = K % V == 0 && N % V == 0 && band::aligned16(tiles) &&
                    band::aligned16(b) && band::aligned16(c);
-  auto kern = vec ? band_kernel<T, true> : band_kernel<T, false>;
-  constexpr int smem = band::smem_bytes<T>();
+  auto kern = vec ? band_kernel<S, true> : band_kernel<S, false>;
+  constexpr int smem = band::smem_bytes<S>();
   const cudaError_t rc = band::allow_smem<smem>(kern);
   if (rc != cudaSuccess) return rc;
   kern<<<static_cast<unsigned>(grid), band::kThreads, smem,
@@ -200,6 +209,27 @@ cudaError_t launch_band(const void* tiles, const void* start, const void* b,
       static_cast<int>(K), static_cast<int>(N), static_cast<int>(bsz),
       b_rows, issued);
   return cudaGetLastError();
+}
+
+// The band body's stream kinds: float32, bf16 and bf16x3.
+cudaError_t band_kinds(int kind, const void* tiles, const void* start,
+                       const void* b, void* c, long long ntiles, long long M,
+                       long long K, long long N, long long bsz,
+                       long long b_rows, unsigned long long* issued,
+                       void* stream) {
+  switch (kind) {
+    case kF32:
+      return launch_band<float>(tiles, start, b, c, ntiles, M, K, N, bsz,
+                                b_rows, issued, stream);
+    case kF32Split:
+      return launch_band<band::Split>(tiles, start, b, c, ntiles, M, K, N,
+                                      bsz, b_rows, issued, stream);
+    case kBF16:
+      return launch_band<__nv_bfloat16>(tiles, start, b, c, ntiles, M, K, N,
+                                        bsz, b_rows, issued, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // -- K5 for float32 and bf16 streams ------------------------------------------
@@ -564,7 +594,8 @@ cudaError_t launch(const void* tiles_t, const void* start, const void* mask,
 
 }  // namespace band_t
 
-// The float64 and bf16x3 kinds of K4 and K5, on the first body.
+// The float64 kind of K4 and the float64 and bf16x3 kinds of K5, on the
+// first body.
 int first_body(int kind, bool transposed, const void* tiles,
                const void* start, const void* b, void* c, long long ntiles,
                long long M, long long K, long long N, long long bsz,
@@ -587,45 +618,31 @@ extern "C" {
 
 // kind as in bell_spmm.cu.  tiles (ntiles, M, K) and b (b_rows, N) in the
 // stream type, start (ntiles,) int32, C (ntiles*M, N) in float32 (float64
-// for kind 3).  Float32 and bf16 streams run band_kernel, the others the
-// first body.  Returns cudaGetLastError() after the launch, or the error of
-// a shape the kernel cannot index.
+// for kind 3).  Float32, bf16 and bf16x3 streams run band_kernel, float64
+// the first body.  Returns cudaGetLastError() after the launch, or the
+// error of a shape the kernel cannot index.
 int bell_banded(int kind, const void* tiles, const void* start,
                 const void* b, void* c, long long ntiles, long long M,
                 long long K, long long N, long long bsz, long long b_rows,
                 void* stream) {
-  switch (kind) {
-    case kF32:
-      return launch_band<float>(tiles, start, b, c, ntiles, M, K, N, bsz,
-                                b_rows, nullptr, stream);
-    case kBF16:
-      return launch_band<__nv_bfloat16>(tiles, start, b, c, ntiles, M, K, N,
-                                        bsz, b_rows, nullptr, stream);
-    default:
-      return first_body(kind, false, tiles, start, b, c, ntiles, M, K, N,
-                        bsz, b_rows, 0, stream);
-  }
+  if (kind == kF64)
+    return first_body(kind, false, tiles, start, b, c, ntiles, M, K, N, bsz,
+                      b_rows, 0, stream);
+  return band_kinds(kind, tiles, start, b, c, ntiles, M, K, N, bsz, b_rows,
+                    nullptr, stream);
 }
 
-// bell_banded for the float32 and bf16 kinds (others return
+// bell_banded for the float32, bf16 and bf16x3 kinds (float64 returns
 // cudaErrorInvalidValue), also adding to *issued (on the card, zeroed by
 // the caller) the multiply-adds the body issues: kBM x kBK x kBN for every
-// chunk its vote kept.
+// chunk its vote kept (once for bf16x3, whose three products a pair are
+// the same multiply-adds split).
 int bell_banded_issued(int kind, const void* tiles, const void* start,
                        const void* b, void* c, long long ntiles, long long M,
                        long long K, long long N, long long bsz,
                        long long b_rows, void* issued, void* stream) {
-  auto* count = static_cast<unsigned long long*>(issued);
-  switch (kind) {
-    case kF32:
-      return launch_band<float>(tiles, start, b, c, ntiles, M, K, N, bsz,
-                                b_rows, count, stream);
-    case kBF16:
-      return launch_band<__nv_bfloat16>(tiles, start, b, c, ntiles, M, K, N,
-                                        bsz, b_rows, count, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return band_kinds(kind, tiles, start, b, c, ntiles, M, K, N, bsz, b_rows,
+                    static_cast<unsigned long long*>(issued), stream);
 }
 
 // tiles_t (ntiles, K, M) and bt (N, bt_cols) in the stream type, mask

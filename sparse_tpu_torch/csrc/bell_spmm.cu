@@ -18,13 +18,14 @@
 //
 // What the design does about it: the TPU's DMA gathers become loads of the
 // block's panel rows inside the kernel (no gathered intermediate in device
-// memory, as on the TPU).  K3's float32 and bf16 streams run the body of
-// band_body.cuh (K4's) on each block row's wide row: 32 output rows x 128
-// columns per thread block, 32-index contraction chunks (one stored block
-// at bsz 32), a cp.async ring (A ahead, B one chunk ahead), one
+// memory, as on the TPU).  K3's float32, bf16 and bf16x3 streams run the
+// body of band_body.cuh (K4's) on each block row's wide row: 32 output rows
+// x 128 columns per thread block, 32-index contraction chunks (one stored
+// block at bsz 32), a cp.async ring (A ahead, B one chunk ahead), one
 // __syncthreads_or vote per chunk so the zero blocks of padding slots skip
 // their operand copy and their multiply-adds, 8x4 float32 register tiles,
-// bf16 on mma.sync.  Each chunk resolves its block and column id once, and
+// bf16 on mma.sync, bf16x3 as three bf16 mma.sync products a float32
+// fragment pair.  Each chunk resolves its block and column id once, and
 // the row's column ids are prefetched into L1 at the start: the first body
 // paid a division and a column load per element (1.94 ms at the bench
 // shape on an H100, PERF.md), once per copied operand row it was 0.83 ms,
@@ -40,12 +41,12 @@
 // slot's zero block skips its panel and its multiply-adds), 8x8 float32
 // register tiles, bf16 on mma.sync; bell_block_issued counts the
 // multiply-adds the vote kept.  K6's float64 and bf16x3 kinds (and bsz
-// > 64), and K3's float64 and bf16x3 kinds, run the first body
-// (bell_common.cuh): one thread block owns one (block row, 64-column chunk
-// of k) and keeps its output in registers (4 x 4 per thread) across the
-// whole contraction; K3 stages the wide row in chunks of 16 contraction
-// indices that run across block boundaries, K6 walks the Lb stored blocks
-// one at a time.  No atomics, so two runs of one input agree bitwise.
+// > 64), and K3's float64 kind, run the first body (bell_common.cuh): one
+// thread block owns one (block row, 64-column chunk of k) and keeps its
+// output in registers (4 x 4 per thread) across the whole contraction; K3
+// stages the wide row in chunks of 16 contraction indices that run across
+// block boundaries, K6 walks the Lb stored blocks one at a time.  No
+// atomics, so two runs of one input agree bitwise.
 
 #include "band_body.cuh"
 #include "bell_common.cuh"
@@ -112,15 +113,17 @@ __global__ void __launch_bounds__(Shape<kRowsBM>::kThreads)
   store<S, kRowsBM>(acc, c + r * bsz * k, k, 1, bsz, k, p.m0, p.n0);
 }
 
-// K3 for float32 and bf16 streams: blocks (nb, Lb, bsz, bsz) and b
-// (nb*bsz, k) in the stream type T, C (nb*bsz, k) float32.  Block (block
-// row, 32-row block, 128-column block), column blocks fastest.
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(band::kThreads, band::Cfg<T>::kMinBlocks)
-    fused_band_kernel(const T* __restrict__ blocks,
-                      const int* __restrict__ cols, const T* __restrict__ b,
+// K3 for float32, bf16 and bf16x3 streams: blocks (nb, Lb, bsz, bsz) and b
+// (nb*bsz, k) in the stream kind S's element type, C (nb*bsz, k) float32.
+// Block (block row, 32-row block, 128-column block), column blocks fastest.
+template <typename S, bool VEC>
+__global__ void __launch_bounds__(band::kThreads, band::Cfg<S>::kMinBlocks)
+    fused_band_kernel(const typename band::Cfg<S>::T* __restrict__ blocks,
+                      const int* __restrict__ cols,
+                      const typename band::Cfg<S>::T* __restrict__ b,
                       float* __restrict__ c, int Lb, int bsz, int k,
                       unsigned long long* __restrict__ issued) {
+  using T = typename band::Cfg<S>::T;
   const int n_blocks = (k + band::kBN - 1) / band::kBN;
   const int m_blocks = (bsz + band::kBM - 1) / band::kBM;
   long long bid = blockIdx.x;
@@ -134,16 +137,17 @@ __global__ void __launch_bounds__(band::kThreads, band::Cfg<T>::kMinBlocks)
   // the row's column ids into L1 while A's first chunks are copied: the
   // first operand copy waits on them
   if (threadIdx.x == 0) sm90::prefetch_l1(cols + r * Lb);
-  band::run<T, VEC>(p, c + r * bsz * k, bsz, K, k, m0, n0, issued);
+  band::run<S, VEC>(p, c + r * bsz * k, bsz, K, k, m0, n0, issued);
 }
 
-template <typename T>
+template <typename S>
 cudaError_t launch_fused_band(const void* blocks, const void* cols,
                               const void* b, void* c, long long nb,
                               long long Lb, long long bsz, long long k,
                               unsigned long long* issued, void* stream) {
   using band::kBM;
   using band::kBN;
+  using T = typename band::Cfg<S>::T;
   constexpr long long kMax = 0x7fffffffLL;
   if (nb <= 0 || bsz <= 0 || k <= 0) return cudaSuccess;
   // 32-bit index math inside a block row's blocks and its output
@@ -155,8 +159,8 @@ cudaError_t launch_fused_band(const void* blocks, const void* cols,
   // operand rows are whole vectors
   const bool vec = bsz % V == 0 && k % V == 0 && band::aligned16(blocks) &&
                    band::aligned16(b) && band::aligned16(c);
-  auto kern = vec ? fused_band_kernel<T, true> : fused_band_kernel<T, false>;
-  constexpr int smem = band::smem_bytes<T>();
+  auto kern = vec ? fused_band_kernel<S, true> : fused_band_kernel<S, false>;
+  constexpr int smem = band::smem_bytes<S>();
   const cudaError_t rc = band::allow_smem<smem>(kern);
   if (rc != cudaSuccess) return rc;
   kern<<<static_cast<unsigned>(grid), band::kThreads, smem,
@@ -165,6 +169,26 @@ cudaError_t launch_fused_band(const void* blocks, const void* cols,
       static_cast<const T*>(b), static_cast<float*>(c), static_cast<int>(Lb),
       static_cast<int>(bsz), static_cast<int>(k), issued);
   return cudaGetLastError();
+}
+
+// K3's band-body kinds: float32, bf16 and bf16x3.
+cudaError_t fused_band_kinds(int kind, const void* blocks, const void* cols,
+                             const void* b, void* c, long long nb,
+                             long long Lb, long long bsz, long long k,
+                             unsigned long long* issued, void* stream) {
+  switch (kind) {
+    case kF32:
+      return launch_fused_band<float>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                      issued, stream);
+    case kF32Split:
+      return launch_fused_band<band::Split>(blocks, cols, b, c, nb, Lb, bsz,
+                                            k, issued, stream);
+    case kBF16:
+      return launch_fused_band<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
+                                              bsz, k, issued, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // K6 for float32 and bf16 streams: blocks (nb, Lb, bsz, bsz), b (nb*bsz,
@@ -245,8 +269,8 @@ cudaError_t launch(const void* blocks, const void* cols, const void* b,
   const long long grid = grid_blocks(nb, bsz, k, kRowsBM);
   if (grid <= 0) return cudaSuccess;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  auto kernel =
-      FUSED ? bell_fused_kernel<T, SPLIT> : bell_block_kernel<T, SPLIT>;
+  auto kernel = bell_block_kernel<T, SPLIT>;
+  if constexpr (FUSED) kernel = bell_fused_kernel<T, SPLIT>;
   kernel<<<static_cast<unsigned>(grid), Shape<kRowsBM>::kThreads, 0,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(blocks), static_cast<const int*>(cols),
@@ -256,7 +280,7 @@ cudaError_t launch(const void* blocks, const void* cols, const void* b,
 }
 
 // The first body's kinds: all four for K6 (float32 and bf16 only past
-// bsz 64), float64 and bf16x3 for K3.
+// bsz 64), float64 for K3.
 template <bool FUSED>
 int dispatch(int kind, const void* blocks, const void* cols, const void* b,
              void* c, long long nb, long long Lb, long long bsz, long long k,
@@ -268,8 +292,10 @@ int dispatch(int kind, const void* blocks, const void* cols, const void* b,
                                            k, stream);
       return cudaErrorInvalidValue;
     case kF32Split:
-      return launch<float, true, FUSED>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                        stream);
+      if constexpr (!FUSED)
+        return launch<float, true, FUSED>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                          stream);
+      return cudaErrorInvalidValue;
     case kBF16:
       if constexpr (!FUSED)
         return launch<__nv_bfloat16, false, FUSED>(blocks, cols, b, c, nb,
@@ -290,43 +316,28 @@ extern "C" {
 // kind: 0 float32, 1 float32 with the bf16x3 split, 2 bf16 stream, 3
 // float64.  blocks (nb, Lb, bsz, bsz) and b (nb*bsz, k) in the stream type,
 // cols (nb, Lb) int32, C (nb*bsz, k) in float32 (float64 for kind 3, bf16
-// for K6's kind 2 at bsz <= 64).  K3's float32 and bf16 kinds run the band
-// body, the others the first body.  Returns cudaGetLastError() after the
-// launch, or the error of a shape the kernel cannot index.
+// for K6's kind 2 at bsz <= 64).  K3's float32, bf16 and bf16x3 kinds run
+// the band body, float64 the first body.  Returns cudaGetLastError() after
+// the launch, or the error of a shape the kernel cannot index.
 int bell_fused(int kind, const void* blocks, const void* cols, const void* b,
                void* c, long long nb, long long Lb, long long bsz,
                long long k, void* stream) {
-  switch (kind) {
-    case kF32:
-      return launch_fused_band<float>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                      nullptr, stream);
-    case kBF16:
-      return launch_fused_band<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
-                                              bsz, k, nullptr, stream);
-    default:
-      return dispatch<true>(kind, blocks, cols, b, c, nb, Lb, bsz, k, stream);
-  }
+  if (kind == kF64)
+    return dispatch<true>(kind, blocks, cols, b, c, nb, Lb, bsz, k, stream);
+  return fused_band_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k, nullptr,
+                          stream);
 }
 
-// bell_fused for the float32 and bf16 kinds (others return
+// bell_fused for the float32, bf16 and bf16x3 kinds (float64 returns
 // cudaErrorInvalidValue), also adding to *issued (on the card, zeroed by
 // the caller) the multiply-adds the body issues: 32 x 32 x 128 for every
-// chunk of a wide row its vote kept.
+// chunk of a wide row its vote kept (once for bf16x3).
 int bell_fused_issued(int kind, const void* blocks, const void* cols,
                       const void* b, void* c, long long nb, long long Lb,
                       long long bsz, long long k, void* issued,
                       void* stream) {
-  auto* count = static_cast<unsigned long long*>(issued);
-  switch (kind) {
-    case kF32:
-      return launch_fused_band<float>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                      count, stream);
-    case kBF16:
-      return launch_fused_band<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
-                                              bsz, k, count, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return fused_band_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k,
+                          static_cast<unsigned long long*>(issued), stream);
 }
 
 // K6.  The float32 and bf16 kinds at bsz <= 64 run the persistent body,

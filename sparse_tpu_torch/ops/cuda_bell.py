@@ -27,11 +27,12 @@ of K5.  The super-tile fields (``S``, ``SW``, ``rel``, ``sup``) only shared a
 DMA window on the TPU; ``start == sup.repeat(S) + rel`` by construction, so
 K4 and K5 read ``start`` and ignore them.
 
-The float32 and bf16 streams of K3, K4 and K5 skip the band's all-zero
-32 x 32 chunks: K3 and K4 by a vote inside the kernel on what they read,
-K5 by the kit's chunk mask (:attr:`BandedKitT.chunk_nz`, built once with
-the kit), so it does not read them; K6's skip a padding slot's zero block
-by a vote per stored block.  Each has an issued-work counter
+The float32 and bf16 streams of K3, K4 and K5, and the bf16x3 streams of
+K3 and K4, skip the band's all-zero 32 x 32 chunks: K3 and K4 by a vote
+inside the kernel on what they read, K5 by the kit's chunk mask
+(:attr:`BandedKitT.chunk_nz`, built once with the kit), so it does not
+read them; K6's skip a padding slot's zero block by a vote per stored
+block.  Each has an issued-work counter
 (:func:`fused_issued_flops`, :func:`banded_issued_flops`,
 :func:`banded_t_issued`, :func:`block_issued_flops`) beside a host model
 of what it should count.
@@ -41,7 +42,9 @@ full float32 (no TF32); ``precision="bf16x3"`` splits each float32 operand
 into a bf16 high part and a bf16 residual and sums hi*hi + hi*lo + lo*hi in
 float32 (``_dot_bf16x3``); ``compute_dtype=torch.bfloat16`` streams bf16 and
 accumulates in float32.  Streams are float32, bfloat16 or float64 (float64
-accumulates in float64); anything else raises ``ValueError``.  The
+accumulates in float64); anything else raises ``ValueError``.  K3 and K4
+run bf16x3 on the tensor cores (three bf16 ``mma.sync`` products a float32
+pair, one float32 accumulator); K5 and K6 run it on their first body.  The
 interpret flag of the reference is dropped.
 """
 
@@ -306,45 +309,51 @@ def _nonzero_chunks(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def _band_body_model(a: torch.Tensor, k: int) -> int:
-    """Operations (2 per multiply-add) that the float32 / bf16 body of
-    ``csrc/band_body.cuh`` issues on A's (n, M, K) at width ``k``: one
-    32 x 32 x (k rounded up to 128) product for each 32 x 32 chunk of A
-    that is not zero throughout, where its vote keeps it."""
+    """Operations (2 per multiply-add) that the float32 / bf16 / bf16x3
+    body of ``csrc/band_body.cuh`` issues on A's (n, M, K) at width ``k``:
+    one 32 x 32 x (k rounded up to 128) product for each 32 x 32 chunk of A
+    that is not zero throughout, where its vote keeps it (bf16x3 splits
+    each into three bf16 products and counts it once)."""
     kept = int(_nonzero_chunks(a, _BAND_BM, _BAND_BK).sum())
     return kept * 2 * _BAND_BM * _BAND_BK * (-(-k // _BAND_BN) * _BAND_BN)
 
 
 def fused_issued_model(a: BELL, k: int, *, compute_dtype=None) -> int:
     """Host model of what K3's float32 / bf16 body issues on ``a`` at width
-    ``k`` (what :func:`fused_issued_flops` should read): the band body's
-    count over each block row's wide row [A_r0 | ... | A_r,Lb-1]."""
+    ``k`` (what :func:`fused_issued_flops` should read; the bf16x3 split
+    keeps exactly the float32 stream's chunks): the band body's count over
+    each block row's wide row [A_r0 | ... | A_r,Lb-1]."""
     wide = a.blocks.to(compute_dtype or a.dtype).transpose(1, 2).reshape(
         a.nb, a.bsz, a.Lb * a.bsz)
     return _band_body_model(wide, k)
 
 
 def banded_issued_model(tiles: torch.Tensor, k: int) -> int:
-    """Host model of what K4's and K8's float32 / bf16 body issues on the
-    densified ``tiles`` (ntiles, M, K) at width ``k`` (what
+    """Host model of what K4's and K8's float32 / bf16 / bf16x3 body issues
+    on the densified ``tiles`` (ntiles, M, K) at width ``k`` (what
     :func:`banded_issued_flops` should read)."""
     return _band_body_model(tiles, k)
 
 
-def _issued(name: str, which: str, a: BELL, b, compute_dtype) -> int:
+def _issued(name: str, which: str, a: BELL, b, compute_dtype,
+            precision=None) -> int:
     count = torch.zeros(1, dtype=torch.int64, device=a.device)
-    _rowwise(name, which, a, b, compute_dtype, None, False, count)
+    _rowwise(name, which, a, b, compute_dtype, precision, False, count)
     return 2 * int(count.item())
 
 
-def fused_issued_flops(a: BELL, b, *, compute_dtype=None) -> int:
-    """Operations (two per multiply-add) that K3's float32 / bf16 body
-    issues on ``a`` against ``b``, as the kernel counts them: each thread
-    block adds the chunks its zero-chunk vote kept, at their full size, to
-    a counter on the card.  One launch into a scratch output, outside
+def fused_issued_flops(a: BELL, b, *, compute_dtype=None,
+                       precision=None) -> int:
+    """Operations (two per multiply-add) that K3's float32 / bf16 / bf16x3
+    body issues on ``a`` against ``b``, as the kernel counts them: each
+    thread block adds the chunks its zero-chunk vote kept, at their full
+    size, to a counter on the card (a bf16x3 chunk once, though it issues
+    three bf16 products).  One launch into a scratch output, outside
     ``K3_LAUNCHES``.  CUDA tensors and float32 or bf16 streams only; the
     count is the kernel's, so there is no plain version
     (:func:`fused_issued_model` is what it should read)."""
-    return _issued("fused_issued_flops", "fused", a, b, compute_dtype)
+    return _issued("fused_issued_flops", "fused", a, b, compute_dtype,
+                   precision)
 
 
 def block_issued_model(a: BELL, k: int, *, stream_dtype=None) -> int:
@@ -649,21 +658,24 @@ def banded_spmm_t_hbm_bytes(kit: BandedKitT, bsz: int, n: int, k: int,
 
 
 def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
-                        b: torch.Tensor, bsz: int) -> int:
-    """Operations (two per multiply-add) that the float32 / bf16 body of K4
-    and K8 issues on ``tiles`` (ntiles, M, K) against the operand ``b``
-    (rows, k), as the kernel counts them: each thread block adds the chunks
-    its zero-chunk vote kept, at their full padded size, to a counter on
-    the card.  One launch into a scratch output, outside ``K4_LAUNCHES``
-    and ``K8_LAUNCHES``: it measures the skip and computes nothing.  CUDA
-    tensors with float32 or bf16 tiles only; the count is the kernel's, so
-    there is no plain version."""
+                        b: torch.Tensor, bsz: int, *,
+                        precision=None) -> int:
+    """Operations (two per multiply-add) that the float32 / bf16 / bf16x3
+    body of K4 and K8 issues on ``tiles`` (ntiles, M, K) against the
+    operand ``b`` (rows, k), as the kernel counts them: each thread block
+    adds the chunks its zero-chunk vote kept, at their full padded size,
+    to a counter on the card (a bf16x3 chunk once).  One launch into a
+    scratch output, outside ``K4_LAUNCHES`` and ``K8_LAUNCHES``: it
+    measures the skip and computes nothing.  CUDA tensors with float32 or
+    bf16 tiles only (``precision="bf16x3"`` splits float32 tiles); the
+    count is the kernel's, so there is no plain version."""
     name = "banded_issued_flops"
     if (tiles.dim() != 3 or b.dim() != 2
             or tiles.dtype not in (torch.float32, torch.bfloat16)):
         raise ValueError(f"{name}: tiles {tuple(tiles.shape)} {tiles.dtype}"
                          f" and operand {tuple(b.shape)}: needs 3-d float32 "
                          "or bf16 tiles and a 2-d operand")
+    split = _stream_mode(name, tiles.dtype, precision)
     if not _on_cuda(name, tiles, start, b):
         raise ValueError(f"{name}: counts on the card only, got CPU tensors")
     ntiles, M, K = tiles.shape
@@ -673,7 +685,8 @@ def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
     out = torch.empty(ntiles * M, b.shape[1], dtype=torch.float32,
                       device=b.device)
     count = torch.zeros(1, dtype=torch.int64, device=b.device)
-    _launch(name, _kernels.load().bell_banded_issued, _KIND[tiles.dtype],
+    _launch(name, _kernels.load().bell_banded_issued,
+            _kind(tiles.dtype, split),
             ts.data_ptr(), st.data_ptr(), bs.data_ptr(), out.data_ptr(),
             ntiles, M, K, b.shape[1], bsz, b.shape[0], count.data_ptr(),
             device=b.device)

@@ -204,6 +204,27 @@ def test_counters_need_the_card():
             kit, tiles_t=kit.tiles_t[:, :-1]))
 
 
+@pytest.mark.parametrize("precision,match", [("bf16x3", "card"),
+                                             (None, "card"),
+                                             ("tf32", "precision"),
+                                             ("bf16x6", "precision")])
+@pytest.mark.parametrize("entry", ["fused", "banded"])
+def test_issued_counters_refuse_cpu_and_unknown_precision(entry, precision,
+                                                          match):
+    """K3's and K4's counters take ``precision="bf16x3"`` (the split
+    kind); on CPU tensors they raise, as for any precision they do not
+    know."""
+    _, ta, ok, _ = _band(20, 32, 1, seed=4)
+    b = torch.ones(ta.n, 32)
+    with pytest.raises(ValueError, match=match):
+        if entry == "fused":
+            tcb.fused_issued_flops(ta, b, precision=precision)
+        else:
+            kit = tcb.bell_banded_prepare(ta, slot_valid=ok)
+            tcb.banded_issued_flops(kit.tiles, kit.plan.start, b, ta.bsz,
+                                    precision=precision)
+
+
 # -- the plain versions against the reference ---------------------------------
 
 

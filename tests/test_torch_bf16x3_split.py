@@ -1,0 +1,147 @@
+"""The error model of the bf16x3 split on the band body of K3 and K4.
+
+On the card, ``precision="bf16x3"`` runs ``csrc/band_body.cuh``: each
+thread block owns 32 output rows, walks the contraction in 32-index
+chunks, skips a chunk that is zero throughout in its rows (the vote), and
+in each 16-index step of a kept chunk issues three bf16 ``mma.sync``
+products into one float32 accumulator: hi*hi, then hi*lo, then lo*hi, each
+operand split as ``hi = bf16(x)``, ``lo = bf16(x - hi)``.  Here that order
+of summation is emulated in plain PyTorch (each step's 16 products summed
+exactly, then rounded into the float32 accumulator) on small banded shapes
+and held to the reference's ``_dot_bf16x3`` (``sparse_tpu/ops/
+pallas_bell.py``, the JAX function on the CPU) and to float64 NumPy within
+``2^-15 + 1e-5`` of ``|A||B|`` per element, the gate the card's smoke run
+holds the kernels to; and to the port's plain version within float32's
+1e-5, the card tests' tolerance between kernel and plain version.  An
+order that would fail those gates fails here before the card does.
+
+Operands: N(0, 1) draws; draws scaled by 2^u, u uniform in [-20, 20], in
+both A and B; and rows that cancel (pairs of A's columns of opposite sign
+against equal rows of B, so each sum is ~2^-10 of |A||B|).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sparse_tpu.ops import pallas_bell as jpb
+from sparse_tpu_torch import interop
+from sparse_tpu_torch.ops import cuda_bell as tcb
+
+BF16X3_TOL = 2.0 ** -15 + 1e-5
+F32_TOL = 1e-5
+CHUNK, STEP, ROWS = 32, 16, 32  # the band body's chunk, mma step, rows
+
+
+def _split(x):
+    """bf16 high part and bf16 residual of float32 ``x``, as float32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def band_body_bf16x3(a, b):
+    """C = A @ B (a: (n, M, K), b: (n, K, N), float32) in the order the
+    bf16x3 band body sums: per 32-row block of each output matrix, the
+    32-index chunks in order, a chunk that is zero in those rows skipped,
+    and per 16-index step hi*hi, hi*lo, lo*hi into one float32
+    accumulator."""
+    n, m, kk = a.shape
+    mp, kp = -(-m // ROWS) * ROWS, -(-kk // CHUNK) * CHUNK
+    a = torch.nn.functional.pad(a, (0, kp - kk, 0, mp - m))
+    b = torch.nn.functional.pad(b, (0, 0, 0, kp - kk))
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    blocks = a.reshape(n, mp // ROWS, ROWS, kp)
+    acc = torch.zeros(n, mp // ROWS, ROWS, b.shape[2])
+    for k0 in range(0, kp, CHUNK):
+        # the vote reads magnitude bits: NaN counts, -0 does not
+        chunk = blocks[..., k0:k0 + CHUNK]
+        kept = ((chunk != 0) | torch.isnan(chunk)).flatten(2).any(2)
+        for s0 in range(k0, k0 + CHUNK, STEP):
+            ks = slice(s0, s0 + STEP)
+            for x, y in ((ah, bh), (ah, bl), (al, bh)):
+                part = x[:, :, ks].double() @ y[:, ks].double()
+                new = (acc.double() + part.reshape(acc.shape)).float()
+                acc = torch.where(kept[..., None, None], new, acc)
+    return acc.reshape(n, mp, -1)[:, :m]
+
+
+def _operands(nb, bsz, hb, k, values, seed):
+    """A band BELL's (cols, blocks, slot_valid) and B (n, k), float32."""
+    rng = np.random.default_rng(seed)
+    c = np.arange(nb)[:, None] + np.arange(-hb, hb + 1)[None, :]
+    ok = (c >= 0) & (c < nb)
+    order = np.argsort(~ok, axis=1, kind="stable")
+    rows = np.arange(nb)[:, None]
+    cols, ok = np.where(ok, c, 0)[rows, order], ok[rows, order]
+    blocks = rng.standard_normal((nb, 2 * hb + 1, bsz, bsz))
+    b = rng.standard_normal((nb * bsz, k))
+    if values == "wide":
+        blocks *= 2.0 ** rng.uniform(-20, 20, blocks.shape)
+        b *= 2.0 ** rng.uniform(-20, 20, b.shape)
+    elif values == "cancel":
+        eps = 2.0 ** -10 * rng.standard_normal(blocks[..., 0::2].shape)
+        blocks[..., 1::2] = -blocks[..., 0::2] * (1 + eps)
+        b[1::2] = b[0::2]
+    blocks *= ok[:, :, None, None]
+    return (cols.astype(np.int32), blocks.astype(np.float32), ok,
+            b.astype(np.float32))
+
+
+def _products(kernel, ta, b, rt):
+    """Each output matrix's (A, B) as the band body sees it, with the
+    port's plain version of the whole product laid out the same way: K3's
+    wide rows against their stacked panels, or K4's densified tiles
+    against their operand windows."""
+    bt = torch.from_numpy(b)
+    if kernel == "K3":
+        nb, lb, bsz = ta.nb, ta.Lb, ta.bsz
+        a = ta.blocks.transpose(1, 2).reshape(nb, bsz, lb * bsz)
+        panels = bt.reshape(nb, bsz, -1)[ta.cols.long()].reshape(
+            nb, lb * bsz, -1)
+        plain = tcb.bell_spmm_fused_plain(ta, bt, precision="bf16x3")
+        return a, panels, plain.reshape(nb, bsz, -1)
+    plan = tcb.build_banded_plan(ta, row_tile=rt)
+    tiles = tcb._densify_band_tiles(ta, plan, torch.float32)
+    idx, inside = tcb._window_index(plan, ta.bsz, ta.n)
+    win = torch.where(inside[:, :, None], bt[idx], bt.new_zeros(()))
+    plain = tcb.bell_spmm_banded_plain(ta, bt, plan, tiles=tiles,
+                                       precision="bf16x3")
+    m = tiles.shape[1]
+    plain = torch.nn.functional.pad(plain, (0, 0, 0, tiles.shape[0] * m
+                                            - ta.n))
+    return tiles, win, plain.reshape(tiles.shape[0], m, -1)
+
+
+def _within(got, ref, bound, tol):
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+    assert np.isfinite(np.asarray(got, np.float64)).all()
+    assert np.all(err <= tol * bound), float((err - tol * bound).max())
+
+
+@pytest.mark.parametrize("values", ["normal", "wide", "cancel"])
+@pytest.mark.parametrize("kernel,nb,bsz,hb,rt,k", [
+    ("K4", 40, 8, 2, 4, 48),     # bsz 8: a chunk spans four panels
+    ("K4", 24, 32, 1, 3, 40),    # bsz 32: a chunk is one block
+    ("K4", 30, 24, 2, 3, 24),    # bsz 24: chunks straddle blocks
+    ("K3", 30, 32, 2, None, 40),  # padding slots: zero chunks
+    ("K3", 26, 24, 1, None, 16),
+])
+def test_band_body_order_meets_the_bf16x3_gate(kernel, nb, bsz, hb, rt, k,
+                                               values):
+    cols, blocks, ok, b = _operands(nb, bsz, hb, k, values,
+                                    seed=nb * bsz + k)
+    ta = interop.bell_from_arrays(cols, blocks, nb * bsz, bsz, device="cpu")
+    a, bw, plain = _products(kernel, ta, b, rt)
+    got = band_body_bf16x3(a, bw)
+    # zero chunks were there to skip
+    assert not bool(tcb._nonzero_chunks(a, ROWS, CHUNK).all())
+    a64, b64 = a.double().numpy(), bw.double().numpy()
+    bound = np.abs(a64) @ np.abs(b64)
+    ref = np.stack([np.asarray(jpb._dot_bf16x3(
+        jnp.asarray(x), jnp.asarray(y), jnp.float32))
+        for x, y in zip(a.numpy(), bw.numpy())])
+    _within(got.numpy(), ref, bound, BF16X3_TOL)
+    _within(got.numpy(), a64 @ b64, bound, BF16X3_TOL)
+    _within(got.numpy(), plain.numpy(), bound, F32_TOL)

@@ -337,10 +337,12 @@ TIERS = {"f32": (torch.float32, None, None),
          "bf16in": (torch.bfloat16, None, None)}
 
 
-# K3's float32 and bf16 streams run the band body (32 x 128 blocks, the
-# zero-chunk vote), K6's the persistent body (one block row x 128 columns
+# K3's float32, bf16 and bf16x3 streams run the band body (32 x 128
+# blocks, the zero-chunk vote; bf16x3 as three bf16 mma.sync products),
+# K6's float32 and bf16 the persistent body (one block row x 128 columns
 # per tile, a vote per stored block), both with their issued-work
-# counters; float64 and bf16x3 the first body.  Shapes:
+# counters; K3's float64 and K6's float64 and bf16x3 the first body.
+# Shapes:
 # bsz 3 and 33 (element copies, ragged 32-row blocks), 8, 24 (a 32-index
 # chunk spans two blocks), 32 (a chunk is a block), 64 (two row blocks per
 # block row); k 1, 5, 33, 65, 70 (element copies or a ragged column
@@ -368,8 +370,9 @@ def test_k3_k6_match_plain_at_odd_shapes(cuda, nb, bsz, hb, k, values, tier):
     _check_values(got, tcb.bell_spmm_fused_plain(a, b, compute_dtype=cd,
                                                  precision=prec), bound, dt,
                   values)
-    if tier in ("f32", "bf16", "bf16in"):  # the band body's own count
-        issued = tcb.fused_issued_flops(a, b, compute_dtype=cd)
+    if tier != "f64":  # the band body's own count (bf16x3: float32's)
+        issued = tcb.fused_issued_flops(a, b, compute_dtype=cd,
+                                        precision=prec)
         assert issued == tcb.fused_issued_model(a, k, compute_dtype=cd or dt)
         if values == "lone":
             assert issued == 2 * 32 * 32 * 128 * -(-k // 128)
@@ -409,14 +412,14 @@ def test_k4_matches_plain_at_odd_shapes(cuda, nb, bsz, hb, rt, k, tier):
                 _spmm_bound(a, b, kit.tiles.dtype), dt)
 
 
-# The float32 and bf16 streams of K4/K8 run the 32-row, 128-column body
-# with the zero-chunk vote; float64 and bf16x3 the first body.  Shapes:
+# The float32, bf16 and bf16x3 streams of K4/K8 run the 32-row, 128-column
+# body with the zero-chunk vote; float64 the first body.  Shapes:
 # bsz 24 (does not divide the 32-row block, nor does rt*bsz = 72), bsz 3
 # and 33 (ragged row blocks; the plan's lane rounding makes W*bsz a
 # multiple of 128, so W is 128 panels there), bsz 32 (blocks are block
 # rows); k 1 and 33 (element copies), 128 (one column block), 200 (two,
 # the second ragged).
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("tier", ["f32", "bf16", "bf16x3"])
 @pytest.mark.parametrize("k", [1, 33, 128, 200])
 @pytest.mark.parametrize("nb,bsz,hb,rt,mw", [(40, 24, 2, 3, 64),
                                              (130, 3, 2, 7, 128),
@@ -429,13 +432,20 @@ def test_k4_vote_body_matches_plain(cuda, nb, bsz, hb, rt, mw, k, tier):
         (a.n, k))).to(dt).to(cuda)
     kit = tcb.bell_banded_prepare(a, row_tile=rt, max_window=mw,
                                   compute_dtype=cd, slot_valid=ok)
-    kw = dict(tiles=kit.tiles, compute_dtype=kit.tiles.dtype)
+    kw = dict(tiles=kit.tiles, compute_dtype=kit.tiles.dtype,
+              precision=prec)
     got = _twice(lambda: tcb.bell_spmm_banded(a, b, kit.plan, **kw),
                  "K4_LAUNCHES")
     _check_spmm(got, tcb.bell_spmm_banded_plain(a, b, kit.plan, **kw),
                 _spmm_bound(a, b, kit.tiles.dtype), dt)
+    # the vote body's own count; bf16x3 keeps float32's chunks
+    assert tcb.banded_issued_flops(
+        kit.tiles, kit.plan.start, b, bsz, precision=prec) == _issued_model(
+            kit.tiles, k)
 
 
+# float64 runs the first body; bf16x3, which ran there before it moved to
+# the vote body, is kept beside it at these shapes
 @pytest.mark.parametrize("tier", ["f64", "bf16x3"])
 @pytest.mark.parametrize("k", [1, 200])
 def test_k4_first_body_kinds_match_plain(cuda, k, tier):
@@ -527,6 +537,43 @@ def test_k4_nan_in_a_propagates(cuda, stream):
     assert torch.equal(torch.isnan(y1), torch.isnan(want))
     ok = ~torch.isnan(want)
     assert torch.allclose(y1[ok], want[ok], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16", "bf16x3"])
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
+                                                           tier):
+    """Inf and NaN in operand panel 0, which block rows 0 and 1 store: K3's
+    padding slots (zero blocks at column 0 in the edge rows and the empty
+    row 6) and K4's densified zero chunks (block row 2 in tile 0's window)
+    sit opposite them, so the vote skips them and those rows are the
+    sparse product, finite; block rows 0 and 1 carry the Inf and NaN."""
+    dt, cd, prec = TIERS[tier]
+    a, ok = _band_bell(12, 32, 1, 8, dt, cuda, empty=(6,))
+    b = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (a.n, 40))).to(dt).to(cuda)
+    b_inf = b.clone()
+    b_inf[0, 5] = float("inf")
+    b_inf[3, 9] = float("nan")
+    if kernel == "K3":
+        kw = dict(compute_dtype=cd, precision=prec)
+        got = _twice(lambda: tcb.bell_spmm_fused(a, b_inf, **kw),
+                     "K3_LAUNCHES")
+        want = tcb.bell_spmm_fused_plain(a, b, **kw)
+    else:
+        kit = tcb.bell_banded_prepare(a, row_tile=3, compute_dtype=cd,
+                                      slot_valid=ok)
+        assert int(kit.plan.start[0]) == 0
+        kw = dict(tiles=kit.tiles, compute_dtype=kit.tiles.dtype,
+                  precision=prec)
+        got = _twice(lambda: tcb.bell_spmm_banded(a, b_inf, kit.plan, **kw),
+                     "K4_LAUNCHES")
+        want = tcb.bell_spmm_banded_plain(a, b, kit.plan, **kw)
+    hit = torch.zeros_like(got, dtype=torch.bool)
+    hit[:64, [5, 9]] = True  # block rows 0 and 1 against the Inf and NaN
+    assert not bool(torch.isfinite(got[hit]).any())
+    _check_spmm(got[~hit], want[~hit],
+                _spmm_bound(a, b, cd or dt)[~hit], dt)
 
 
 @pytest.mark.parametrize("stream", ["f32", "bf16"])

@@ -2,7 +2,7 @@
 two versions of the package on one card.
 
     python3 tools/ab.py --suite {bell,slab,segtile,apply} [--root DIR]
-        [--tag NAME]
+        [--tag NAME] [--cases NAME,NAME,...]
 
 Imports ``sparse_tpu_torch`` from ``DIR`` (default: this checkout), and
 the inputs and the timing helper from this checkout's ``chip_smoke.py``.
@@ -16,8 +16,9 @@ Suites:
 
 - ``bell``: the blocked-ELL SpMM kernels on ``bench.py``'s 80M-entry block
   band (nb 15,625, bsz 32, 5-block band, float32), k = 128 (k = 32 for
-  K5): K3, K4, K5, K6 and K8 in float32 and the bf16 streams of K3, K4,
-  K5, K6 (bf16 blocks) and K8 with bf16 operands.
+  K5): K3, K4, K5, K6 and K8 in float32, the bf16 streams of K3, K4,
+  K5, K6 (bf16 blocks) and K8 with bf16 operands, and the bf16x3 split of
+  K3 and K4 (float32 operands).
 - ``slab``: the block-SpGEMM slab apply (K7) on the SpGEMM fixture
   (``benchmarks/measure_auto_block.py``'s ``C = A A``: nb 2,000, bsz 32,
   19,025 stored blocks, 181,214 block products, float32): the prepared
@@ -76,7 +77,10 @@ def bell_cases(cs):
     return {
         "K3": lambda: cb.bell_spmm_fused(a, b),
         "K3 bf16": lambda: cb.bell_spmm_fused(a, b_bf, compute_dtype=bf16),
+        "K3 bf16x3": lambda: cb.bell_spmm_fused(a, b, precision="bf16x3"),
         "K4": lambda: cb.bell_spmm_banded(a, b, kit.plan, tiles=kit.tiles),
+        "K4 bf16x3": lambda: cb.bell_spmm_banded(
+            a, b, kit.plan, tiles=kit.tiles, precision="bf16x3"),
         "K4 bf16": lambda: cb.bell_spmm_banded(
             a, b_bf, kit_bf.plan, tiles=kit_bf.tiles, compute_dtype=bf16),
         "K5": lambda: cb.bell_spmm_banded_t(a, bt, kit_t),
@@ -185,7 +189,10 @@ def main():
     ap.add_argument("--root", default=str(HERE),
                     help="directory holding the sparse_tpu_torch to time")
     ap.add_argument("--tag", default="this", help="name of this version")
+    ap.add_argument("--cases", default="",
+                    help="comma-separated case names to time (default: all)")
     args = ap.parse_args()
+    only = {c.strip() for c in args.cases.split(",") if c.strip()}
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
@@ -206,6 +213,8 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     ms, host_us = {}, {}
     for name, fn in SUITES[args.suite](cs).items():
+        if only and name not in only:
+            continue
         med, fastest = cs.pipelined_ms(fn)
         ms[name] = [med, fastest]
         host_us[name] = cs._host_us(fn)
