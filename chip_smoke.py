@@ -41,12 +41,13 @@ chunks: phases 9 and 15 time both streams (K4's bf16 stream through
 read the work the body issued from a counter the kernel keeps on the card,
 which must stay within 1.25x the useful flops and equal this script's host
 model of the vote (the tiles' non-zero chunks).  K3's float32 and bf16
-streams run the same body on each block row's wide row, and K5's walk the
-transposed kit's chunk mask (built once per kit): phase 7 holds both
-against their plain versions at the card tests' shapes, phase 9 reads
-their counters at the bench shape the same way (K5 also the tile bytes it
-read, beside the kit's) and times their bf16 streams with bf16 operands
-beside ``BSR @ B`` in bf16.  K6's float32 and bf16 streams run a
+streams run the same body on each block row's wide row, and K5's four
+kinds (float32, bf16, bf16x3 and float64) walk the transposed kit's chunk
+mask (built once per kit): phase 7 holds both against their plain
+versions at the card tests' shapes, phase 9 reads their counters at the
+bench shape the same way (K5 also the tile bytes it read, beside the
+kit's) and times their bf16 streams with bf16 operands beside ``BSR @ B``
+in bf16.  K6's float32 and bf16 streams run a
 persistent body that votes once per stored block: phase 7 holds it
 against its plain version at the card tests' shapes, phase 9 reads its
 counter at the bench shape and times its bf16 stream (bf16 blocks and
@@ -99,13 +100,14 @@ Phase 21 times the public paths no earlier phase runs or times at size,
 each against its float64 gate: the plain SpMV and SpMM entry points and
 the ``xla`` / ``bell`` rungs on band-10M and elasticity-400k, the SpMMs
 at ``__graft_entry__``'s shape, ``bell_smvm``, the bf16x3 kind of K3-K6
-(K3's and K4's on the band body's tensor cores, with their issued work)
-and their float64 kinds on the 80M-entry band, each beside ``BSR @ B`` in
-its dtype (float32 for bf16x3), the ESC and dense SpGEMM cores on cuts of
-the SpGEMM fixture, ``pcsr_spmm`` / ``halo_spmm_overlapped`` /
-``pcsr_spgemm`` over 4 shards, and an int32 pass exact to NumPy, and
-prints a ``surface`` JSON line; the kinds' records join their kernels'
-entries in the ``kernels`` line.
+(K3's and K4's on the band body's tensor cores, K5's on its chunk-mask
+body, with their issued work) and their float64 kinds (K5's on the chunk-
+mask body, with its issued work and tile bytes) on the 80M-entry band,
+each beside ``BSR @ B`` in its dtype (float32 for bf16x3), the ESC and
+dense SpGEMM cores on cuts of the SpGEMM fixture, ``pcsr_spmm`` /
+``halo_spmm_overlapped`` / ``pcsr_spgemm`` over 4 shards, and an int32
+pass exact to NumPy, and prints a ``surface`` JSON line; the kinds'
+records join their kernels' entries in the ``kernels`` line.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -834,10 +836,11 @@ LIBRARY_CSR = ("torch.sparse_csr_tensor(...) @ v, the faster of int32 and "
                "int64 indices")
 
 
-def _apply_kernels(label, fn, calls=5):
+def _apply_kernels(label, fn, calls=5, forbid=("sort", "search")):
     """The device kernels ``calls`` runs of ``fn`` launch, from a
     ``torch.profiler`` trace: name, launches per call and device us per
-    call.  Fails if a sort or a search runs (the plan holds the order)."""
+    call.  Fails if a kernel named with a word of ``forbid`` runs (for a
+    plan's apply: a sort or a search, since the plan holds the order)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -858,7 +861,7 @@ def _apply_kernels(label, fn, calls=5):
     for name, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1]):
         print(f"   {label} kernel: {n / calls:g} launch(es) a call, "
               f"{us / calls:.1f} us a call: {name[:110]}", flush=True)
-    bad = [k for k in kernels if "sort" in k.lower() or "search" in k.lower()]
+    bad = [k for k in kernels if any(w in k.lower() for w in forbid)]
     if bad:
         raise AssertionError(f"{label}: a sort or search runs per call: "
                              f"{bad}")
@@ -1025,12 +1028,13 @@ def _hand_kit_t(a, valid, rt, max_window, stream):
 
 def _mask_bodies_vs_plain(rng):
     """K3's vote body (float32, bf16 and bf16x3 streams), K6's persistent
-    body and K5's mask body (float32 and bf16 streams) against their plain
-    versions at tests/test_torch_cuda.py's shapes, each with the body's
-    own count of its work against the host model."""
+    body and K5's mask body (float32, bf16, bf16x3 and float64) against
+    their plain versions at tests/test_torch_cuda.py's shapes, each with
+    the body's own count of its work against the host model."""
+    from sparse_tpu_torch.formats.bell import BELL
     from sparse_tpu_torch.ops import cuda_bell as cb
 
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
     # K3: (nb, bsz, hb, k, values); edge rows and an empty row hold
     # padding slots
     for nb, bsz, hb, k, values in (
@@ -1086,10 +1090,18 @@ def _mask_bodies_vs_plain(rng):
             (250, 32, 32, "zero", None), (250, 32, 32, "lone", None),
             (250, 32, 32, "nan", None)):
         cols, valid = _band_pattern(nb, 2)
-        a = _with_values(_bell(cols, valid, bsz, f32, seed=nb + bsz * k),
-                         values)
-        b = torch.from_numpy(rng.standard_normal((a.n, k))).float().cuda()
-        for stream in (f32, bf16):
+        a32 = _with_values(_bell(cols, valid, bsz, f32, seed=nb + bsz * k),
+                           values)
+        b32 = torch.from_numpy(rng.standard_normal((a32.n, k))).float().cuda()
+        # (stream, precision): float32, bf16, the bf16x3 split of a float32
+        # kit, float64 (A and B in float64, C^T in float64)
+        for stream, prec in ((f32, None), (bf16, None), (f32, "bf16x3"),
+                             (f64, None)):
+            a, b = a32, b32
+            if stream == f64:
+                a = BELL(cols=a32.cols, blocks=a32.blocks.double(), n=a32.n,
+                         bsz=bsz)
+                b = b32.double()
             if hand_rt:
                 kit = _hand_kit_t(a, valid, hand_rt, 128, stream)
             else:
@@ -1106,13 +1118,16 @@ def _mask_bodies_vs_plain(rng):
                     bnd = torch.cat([bound, bound.new_zeros(k, n_pad - a.n)],
                                     1)
                 label = (f"K5 body nb={nb} bsz={bsz} k={k} {values} "
-                         f"rt={kit.plan.rt} stream={str(stream)[6:]} operand "
+                         f"rt={kit.plan.rt} stream={str(stream)[6:]} "
+                         f"precision={prec} operand "
                          f"{'padded' if padded else 'n'}")
                 err = _values_vs_plain(
-                    label, lambda: cb.bell_spmm_banded_t(a, bt, kit),
-                    lambda: cb.bell_spmm_banded_t_plain(a, bt, kit), bnd,
-                    values)
-                counted = cb.banded_t_issued(a, bt, kit)
+                    label, lambda: cb.bell_spmm_banded_t(a, bt, kit,
+                                                         precision=prec),
+                    lambda: cb.bell_spmm_banded_t_plain(a, bt, kit,
+                                                        precision=prec),
+                    bnd, values, f64 if stream == f64 else f32)
+                counted = cb.banded_t_issued(a, bt, kit, precision=prec)
                 model = cb.banded_t_issued_model(kit, k)
                 if counted != model:
                     raise AssertionError(f"{label}: counted {counted} "
@@ -1129,10 +1144,11 @@ def phase7_bell_kernels_vs_plain():
     padding slots and empty rows, nb not divisible by rt, plans with S > 1
     and S = 1, K5 with an unpadded and a padded operand; each case twice
     for bitwise repeatability, K4's vote body with its issued-work count.
-    Then K3's float32 / bf16 / bf16x3 and K5's and K6's float32 / bf16
-    bodies at the card tests' shapes (bsz 3/8/16/24/32/33/64, k
-    1/7/32/33/70/128/200, all-zero blocks, a lone element, a NaN in A,
-    hand-built K5 kits) with their issued-work counters."""
+    Then K3's float32 / bf16 / bf16x3, K5's float32 / bf16 / bf16x3 /
+    float64 and K6's float32 / bf16 bodies at the card tests' shapes (bsz
+    3/8/16/24/32/33/64, k 1/7/32/33/70/128/200, all-zero blocks, a lone
+    element, a NaN in A, hand-built K5 kits) with their issued-work
+    counters."""
     from sparse_tpu_torch.ops import cuda_bell as cb
 
     rng = np.random.default_rng(7)
@@ -1404,10 +1420,33 @@ def torch_bsr(m, dtype=torch.float32):
 def library_spmm(m, b, card, label):
     """``A @ B`` by torch's BSR product on the bench band in ``b``'s dtype,
     or, where torch refuses BSR on the card, by its CSR product; returns
-    (ms, the call)."""
+    (ms, the call).  Timed once per width and dtype of ``b``: a later
+    request (another kernel's record, another phase) reuses that reading,
+    so every record of one width and dtype compares against the same one
+    (at k 32 the call's back-to-back windows spread by up to 1.8x from one
+    reading to the next, PERF.md section 6)."""
+    key = ("library", b.shape[1], b.dtype)
+    if key in m:
+        ms, call = m[key]
+        print(f"   library {label}: the reading of k {b.shape[1]} "
+              f"{str(b.dtype)[6:]} taken earlier in this run, "
+              f"{'refused' if ms is None else f'{ms:.4f} ms'}", flush=True)
+        return ms, call
+    m[key] = _library_spmm(m, b, card, label)
+    return m[key]
+
+
+def _library_spmm(m, b, card, label):
     bsr = m.get(("bsr", b.dtype))
     if bsr is None:
         bsr = m[("bsr", b.dtype)] = torch_bsr(m, b.dtype)
+    st = torch.cuda.memory_stats()
+    print(f"   allocator before BSR @ B ({label}): "
+          f"{st['allocated_bytes.all.current'] / 1e9:.2f} GB allocated, "
+          f"{st['reserved_bytes.all.current'] / 1e9:.2f} GB reserved, "
+          f"{st.get('num_alloc_retries')} retries, "
+          f"{st.get('num_device_alloc')} device allocations so far",
+          flush=True)
     ms = library_ms(f"BSR @ B ({label})", lambda: bsr @ b, card)
     if ms is not None:
         return ms, "torch.sparse_bsr_tensor(...) @ B"
@@ -1436,14 +1475,14 @@ def check_issued(label, tiles, start, b, bsz, useful, precision=None):
         cb.banded_issued_model(tiles, k), useful)
 
 
-def check_k5_counts(label, a, bt, kit, useful):
-    """K5's own counts on ``kit`` against ``bt``: the operations, checked as
-    ``check_counted`` does, and the tile bytes it copied, which must equal
-    the host model and are printed beside the kit's bytes; returns the
-    record's keys."""
+def check_k5_counts(label, a, bt, kit, useful, precision=None):
+    """K5's own counts on ``kit`` against ``bt`` (any kind; bf16x3 with
+    ``precision``): the operations, checked as ``check_counted`` does, and
+    the tile bytes it copied, which must equal the host model and are
+    printed beside the kit's bytes; returns the record's keys."""
     from sparse_tpu_torch.ops import cuda_bell as cb
 
-    ops, nbytes = cb.banded_t_issued(a, bt, kit)
+    ops, nbytes = cb.banded_t_issued(a, bt, kit, precision=precision)
     model_ops, model_bytes = cb.banded_t_issued_model(kit, bt.shape[0])
     if nbytes != model_bytes:
         raise AssertionError(f"{label}: copied {nbytes} tile bytes, host "
@@ -1563,6 +1602,13 @@ def phase9_bell_timing(card, m):
         kk = 32 if kname == "K5" else k
         lib, call = library_spmm(m, b32 if kname == "K5" else b, card,
                                  f"k {kk}")
+        if kname == "K5":  # what the k 32 yardstick's time is made of
+            bsr = m[("bsr", torch.float32)]
+            print(f"   library BSR @ B (k 32): "
+                  f"{_host_us(lambda: bsr @ b32):.1f} us of host time a "
+                  f"call issued back to back [{card}]", flush=True)
+            _apply_kernels("library BSR @ B (k 32)", lambda: bsr @ b32,
+                           forbid=())
         out[kname] = kernel_entry(
             name, f"sparse_tpu_torch/csrc/{src}", replaces,
             m["counts"][kname], err, ms_k, ms_p,
@@ -4212,11 +4258,13 @@ def _phase21_kind(paths, label, kname, kern, plain, bound, tol_plain,
 
 def _phase21_bell(paths, m, card):
     """bell-band-80M: ``bell_smvm`` at k 1; the bf16x3 tier of K3 and K4
-    (the band body) and K6 at k 128 and of K5 at k 32 (the first body),
-    each against SciPy, its plain version and ``BSR @ B`` in float32, K3's
-    and K4's with their issued work; then the float64 kinds of K3, K4 and
-    K6 at k 128 and K5 at k 32 (the first body) beside ``BSR @ B`` in
-    float64.  Returns {kernel: {"bf16x3": record, "float64": record}}."""
+    (the band body) and K6 (the first body) at k 128 and of K5 at k 32
+    (the chunk-mask body), each against SciPy, its plain version and ``BSR
+    @ B`` in float32, K3's, K4's and K5's with their issued work (K5's also
+    the tile bytes it copied); then the float64 kinds of K3, K4 and K6 at k
+    128 (the first body) and K5 at k 32 (the chunk-mask body, with its
+    issued work and tile bytes) beside ``BSR @ B`` in float64.  Returns
+    {kernel: {"bf16x3": record, "float64": record}}."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.formats.bell import BELL
     from sparse_tpu_torch.ops import cuda_bell as cb
@@ -4269,7 +4317,7 @@ def _phase21_bell(paths, m, card):
         cb.fused_issued_model(a, k), useful) / 1e9
     lib32, call32 = library_spmm(m, b32, card, "k 32 float32, the bf16x3 "
                                  "yardstick")
-    label = "K5 bf16x3 k 32"
+    label = "K5 bf16x3 k 32 (chunk-mask body)"
     out["K5"]["bf16x3"] = _phase21_kind(
         paths, label, "K5",
         lambda: cb.bell_spmm_banded_t(a, bt32, kit_t, precision=x3),
@@ -4277,7 +4325,10 @@ def _phase21_bell(paths, m, card):
         _abs_bound(a, b32, torch.float32).T, torch.float32,
         vs_scipy(label, bh32, BF16X3_TOL, True), split_cost(32),
         torch.bfloat16, lib32, call32)
-    # the float64 kinds, on the first body
+    useful32 = 2 * m["nnz"] * 32
+    out["K5"]["bf16x3"].update(check_k5_counts(
+        "K5 bf16x3 k=32", a, bt32, kit_t, useful32, precision=x3))
+    # the float64 kinds: K3, K4 and K6 on the first body
     a64 = BELL(cols=a.cols, blocks=a.blocks.double(), n=a.n, bsz=a.bsz)
     b64 = b.double()
     kit64 = cb.bell_banded_prepare(a64, row_tile=kit.plan.rt,
@@ -4301,13 +4352,15 @@ def _phase21_bell(paths, m, card):
     kit_t64 = cb.bell_banded_prepare_t(a64, slot_valid=valid)
     bt64 = bt32.double()
     lib, call = library_spmm(m, b32.double(), card, "k 32 float64")
-    label = "K5 float64 k 32"
+    label = "K5 float64 k 32 (chunk-mask body)"
     out["K5"]["float64"] = _phase21_kind(
         paths, label, "K5", lambda: cb.bell_spmm_banded_t(a64, bt64, kit_t64),
         lambda: cb.bell_spmm_banded_t_plain(a64, bt64, kit_t64),
         _abs_bound(a64, b32.double(), f64).T, f64,
         vs_scipy(label, bh32, TOL[f64], True),
         spmm_cost(nbz, a.bsz, a.n, 32, 8, 8), f64, lib, call)
+    out["K5"]["float64"].update(check_k5_counts(
+        "K5 float64 k=32", a64, bt64, kit_t64, useful32))
     del kit_t64, a64, b64, bt64
     return out
 

@@ -21,9 +21,10 @@
 // bf16 kind's mma.sync tiling; each thread splits its float32 fragments in
 // registers into a bf16 high part and a bf16 residual and issues three
 // products into one float32 accumulator, hi*hi, hi*lo and lo*hi (lo*lo is
-// dropped), as sparse_tpu/ops/pallas_bell.py::_dot_bf16x3 defines them.
-// Copies are 16-byte vectors (VEC), or one element at a time where a shape
-// or a pointer's alignment does not allow them.  Every output is written
+// dropped), as sparse_tpu/ops/pallas_bell.py::_dot_bf16x3 defines them
+// (split_chunk, which K5's bf16x3 kind in bell_banded.cu shares).  Copies
+// are 16-byte vectors (VEC), or one element at a time where a shape or a
+// pointer's alignment does not allow them.  Every output is written
 // once, after one fixed-order loop: no atomics on the output.  With a
 // counter, each thread block adds the multiply-adds of the chunks its vote
 // kept, at their full size (once for bf16x3: the useful products).
@@ -99,10 +100,19 @@ struct Cfg<__nv_bfloat16> {
 // one element at a time (rows 2t, 2t+1, 2t+8, 2t+9, column g).  Unpadded
 // rows would put those reads on 2 to 8 threads a bank, and padding them
 // (A to 40, B to 132 floats) would cost 53 KB, so the rows stay unpadded
-// and a row's columns are swizzled: column c of A's row i sits at c ^ 8 *
-// (i % 4), of B's row kk at c ^ 8 * (kk / 2 % 4).  Every read of a
-// fragment then meets 32 distinct banks (per half warp for A's 8-byte
-// reads), and a 16-byte vector stays whole for cp.async.
+// and a row's columns are swizzled (split_a_at, split_b_at): column c of
+// A's row i sits at c ^ 8 * (i % 4), of B's row kk at c ^ 8 * (kk / 2 %
+// 4).  Every read of a fragment then meets 32 distinct banks (per half
+// warp for A's 8-byte reads), and a 16-byte vector stays whole for
+// cp.async.  K5's bf16x3 kind (bell_banded.cu) stages its operand and tile
+// chunks in the same two layouts.
+__device__ __forceinline__ int split_a_at(int i, int c) {
+  return i * 32 + (c ^ ((i & 3) << 3));  // rows of 32 floats
+}
+template <int kPitch>
+__device__ __forceinline__ int split_b_at(int kk, int c) {
+  return kk * kPitch + (c ^ (((kk >> 1) & 3) << 3));
+}
 template <>
 struct Cfg<Split> {
   using T = float;
@@ -116,10 +126,10 @@ struct Cfg<Split> {
   static constexpr int kAStages = kAhead + 2, kBStages = kVote + 1;
   static constexpr int kMinBlocks = 4;
   __device__ static __forceinline__ int a_at(int i, int c) {
-    return i * kAPitch + (c ^ ((i & 3) << 3));
+    return split_a_at(i, c);
   }
   __device__ static __forceinline__ int b_at(int kk, int c) {
-    return kk * kBPitch + (c ^ (((kk >> 1) & 3) << 3));
+    return split_b_at<kBPitch>(kk, c);
   }
 };
 
@@ -412,19 +422,23 @@ __device__ __forceinline__ void split2(float x0, float x1, unsigned& hi,
   lo = *reinterpret_cast<const unsigned*>(&l);
 }
 
-// The same with the bf16x3 split (float32 stages in Cfg<Split>'s layout,
-// the mma tiles' accumulator): warp w owns all 32 rows and columns 32w ..
-// 32w+31 as 2 x 4 m16n8 tiles, as the bf16 kind does.  Per 16-index step
-// each thread splits its A fragments (2 tiles x 4 registers) and B
-// fragments (4 tiles x 2 registers), then issues hi*hi for every tile,
-// then hi*lo, then lo*hi, each into the tile's one float32 accumulator.
-__device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
-                                          float (&acc)[2][4][4]) {
-  using Cf = Cfg<Split>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// acc += A (32 x 32) @ B (32 x 32: columns n0 .. n0+31 of a stage whose
+// rows are kPitch floats) with the bf16x3 split, float32 stages in the
+// swizzled layouts (split_a_at, split_b_at<kPitch>), the mma tiles'
+// accumulator: the warp owns all 32 rows and those 32 columns as 2 x 4
+// m16n8 tiles.  Per 16-index step each thread splits its A fragments (2
+// tiles x 4 registers) and B fragments (4 tiles x 2 registers), then
+// issues hi*hi for every tile, then hi*lo, then lo*hi, each into the
+// tile's one float32 accumulator.  The one copy of that order: K3's and
+// K4's chunks (A the band, B the operand) and K5's (A the operand, B the
+// tile) both run it.
+template <int kPitch>
+__device__ __forceinline__ void split_chunk(const float* sa, const float* sb,
+                                            int n0, float (&acc)[2][4][4]) {
+  const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int ks = 0; ks < Cf::kBK; ks += 16) {
+  for (int ks = 0; ks < 32; ks += 16) {
     unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -434,7 +448,7 @@ __device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
         const int i = mt * 16 + g + (r & 1) * 8;
         const int c = ks + 2 * t + (r >> 1) * 8;
         const float2 x =
-            *reinterpret_cast<const float2*>(sa + Cf::a_at(i, c));
+            *reinterpret_cast<const float2*>(sa + split_a_at(i, c));
         split2(x.x, x.y, ah[mt][r], al[mt][r]);
       }
 #pragma unroll
@@ -442,9 +456,9 @@ __device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         // register r: rows 2t, 2t+1 (+8 for r = 1), column g
-        const int kk = ks + 2 * t + r * 8, n = warp * 32 + nt * 8 + g;
-        split2(sb[Cf::b_at(kk, n)], sb[Cf::b_at(kk + 1, n)], bh[nt][r],
-               bl[nt][r]);
+        const int kk = ks + 2 * t + r * 8, n = n0 + nt * 8 + g;
+        split2(sb[split_b_at<kPitch>(kk, n)],
+               sb[split_b_at<kPitch>(kk + 1, n)], bh[nt][r], bl[nt][r]);
       }
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -462,6 +476,13 @@ __device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
       for (int nt = 0; nt < 4; ++nt)
         sm90::mma_bf16_16816(acc[mt][nt], al[mt], bh[nt]);
   }
+}
+
+// The same for the band body's bf16x3 kind (Cfg<Split>'s stages): warp w
+// owns all 32 rows and columns 32w .. 32w+31, as the bf16 kind does.
+__device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
+                                          float (&acc)[2][4][4]) {
+  split_chunk<Cfg<Split>::kBPitch>(sa, sb, (threadIdx.x / 32) * 32, acc);
 }
 
 // -- output -------------------------------------------------------------------

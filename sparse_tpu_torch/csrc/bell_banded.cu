@@ -40,23 +40,26 @@
 // must read to vote on them (>= 0.23 ms).  bell_banded_issued launches the
 // same body with a counter on the card: what the skip saves is measured.
 //
-// K5 for float32 and bf16 streams (band_t_kernel below): at k = 32 it is
-// bound by the tile bytes (769 MB of transposed tiles at the bench band, of
-// which the 20 non-zero 32 x 32 chunks per tile are 320 MB: >= 0.134 ms with
-// the operand and C^T).  So it does not vote on what it has read: it walks
-// the kit's chunk mask, built once per kit, and copies only the non-zero
-// chunks.  32-row blocks of k (no padding at k = 32), one 32-column slice
-// of the tile per warp.  bell_banded_t_issued also counts the tile bytes it
-// copied.
+// K5 (band_t_kernel below): at k = 32 it is bound by the tile bytes (769
+// MB of transposed float32 tiles at the bench band, of which the 20
+// non-zero 32 x 32 chunks per tile are 320 MB: >= 0.134 ms with the operand
+// and C^T; twice that in float64).  So it does not vote on what it has
+// read: it walks the kit's chunk mask, built once per kit, and copies only
+// the non-zero chunks.  32-row blocks of k (no padding at k = 32), one
+// 32-column slice of the tile per warp.  Four kinds: float32 (8x4 register
+// tiles), bf16 (mma.sync), bf16x3 (float32 stages in band_body.cuh's
+// swizzled layouts, its split_chunk: three bf16 mma.sync products a float32
+// pair) and float64 (DMMA, two stages).  bell_banded_t_issued also counts
+// the tile bytes it copied.
 //
 // Behaviour: a skipped chunk never multiplies the operand, so where B holds
 // Inf or NaN opposite a densified zero the result is the sparse product's
 // (what SciPy and BSR @ B give), not the NaN of the dense tile product.
 //
-// The float64 kind of K4/K8, and the float64 and bf16x3 kinds of K5, stay
-// on the first body (bell_common.cuh): a thread block owns one (row tile,
-// 64-row block, 64-column chunk of k) output tile, stages A and B in shared
-// memory 16 deep and keeps a 4x4 register tile per thread.
+// The float64 kind of K4/K8 stays on the first body (bell_common.cuh): a
+// thread block owns one (row tile, 64-row block, 64-column chunk of k)
+// output tile, stages A and B in shared memory 16 deep and keeps a 4x4
+// register tile per thread; it multiplies every densified zero.
 
 #include "band_body.cuh"
 #include "bell_common.cuh"
@@ -67,88 +70,44 @@ using namespace bell;
 
 constexpr int kTileBM = 64;  // output rows per thread block
 
-// K4: tiles (ntiles, M, K) row-major, b (b_rows, N) row-major, C
-// (ntiles*M, N).  M = rt*bsz, K = W*bsz, N = k.
-template <typename T, bool SPLIT>
+// K4's float64 kind: tiles (ntiles, M, K) row-major, b (b_rows, N)
+// row-major, C (ntiles*M, N).  M = rt*bsz, K = W*bsz, N = k.
 __global__ void __launch_bounds__(Shape<kTileBM>::kThreads)
-    bell_banded_kernel(const T* __restrict__ tiles,
-                       const int* __restrict__ start, const T* __restrict__ b,
-                       typename AccOf<T>::type* __restrict__ c, int M, int K,
-                       int N, int bsz, long long b_rows) {
-  using S = typename AccOf<T>::type;
-  __shared__ Smem<S, kTileBM> sm;
+    bell_banded_kernel(const double* __restrict__ tiles,
+                       const int* __restrict__ start,
+                       const double* __restrict__ b, double* __restrict__ c,
+                       int M, int K, int N, int bsz, long long b_rows) {
+  __shared__ Smem<double, kTileBM> sm;
   const TilePos p = tile_pos<kTileBM>(M, N);
-  const T* a = tiles + p.tile * M * K;
+  const double* a = tiles + p.tile * M * K;
   const long long row0 = static_cast<long long>(__ldg(start + p.tile)) * bsz;
-  auto la = [&](int i, int kk) -> S {
-    return widen(a[static_cast<long long>(i) * K + kk]);
+  auto la = [&](int i, int kk) {
+    return a[static_cast<long long>(i) * K + kk];
   };
-  auto lb = [&](int kk, int n) -> S {
+  auto lb = [&](int kk, int n) {
     const long long row = row0 + kk;
-    return row < b_rows ? widen(b[row * N + n]) : S(0);
+    return row < b_rows ? b[row * N + n] : 0.0;
   };
-  S acc[kTM][kTN] = {};
-  accumulate<S, SPLIT, kTileBM, true, true>(sm, la, lb, M, N, K, p.m0, p.n0,
-                                            acc);
-  store<S, kTileBM>(acc, c + p.tile * M * N, N, 1, M, N, p.m0, p.n0);
+  double acc[kTM][kTN] = {};
+  accumulate<double, false, kTileBM, true, true>(sm, la, lb, M, N, K, p.m0,
+                                                 p.n0, acc);
+  store<double, kTileBM>(acc, c + p.tile * M * N, N, 1, M, N, p.m0, p.n0);
 }
 
-// K5: tiles_t (ntiles, K, M) row-major, bt (N, bt_cols) row-major, C^T
-// (N, out_cols) with out_cols = ntiles*M.  Columns of bt at or past bt_cols
-// read 0, so an unpadded (k, n) operand needs no padded copy.
-template <typename T, bool SPLIT>
-__global__ void __launch_bounds__(Shape<kTileBM>::kThreads)
-    bell_banded_t_kernel(const T* __restrict__ tiles_t,
-                         const int* __restrict__ start,
-                         const T* __restrict__ bt,
-                         typename AccOf<T>::type* __restrict__ ct, int M,
-                         int K, int N, int bsz, long long bt_cols,
-                         long long out_cols) {
-  using S = typename AccOf<T>::type;
-  __shared__ Smem<S, kTileBM> sm;
-  const TilePos p = tile_pos<kTileBM>(M, N);
-  const T* a = tiles_t + p.tile * M * K;
-  const long long col0 = static_cast<long long>(__ldg(start + p.tile)) * bsz;
-  auto la = [&](int i, int kk) -> S {
-    return widen(a[static_cast<long long>(kk) * M + i]);
-  };
-  auto lb = [&](int kk, int n) -> S {
-    const long long col = col0 + kk;
-    return col < bt_cols ? widen(bt[n * bt_cols + col]) : S(0);
-  };
-  S acc[kTM][kTN] = {};
-  accumulate<S, SPLIT, kTileBM, false, false>(sm, la, lb, M, N, K, p.m0,
-                                              p.n0, acc);
-  store<S, kTileBM>(acc, ct + p.tile * M, 1, out_cols, M, N, p.m0, p.n0);
-}
-
-template <typename T, bool SPLIT>
-cudaError_t launch(bool transposed, const void* tiles, const void* start,
-                   const void* b, void* c, long long ntiles, long long M,
-                   long long K, long long N, long long bsz, long long b_extent,
-                   long long out_cols, void* stream) {
-  using S = typename AccOf<T>::type;
+cudaError_t first_body_f64(const void* tiles, const void* start,
+                           const void* b, void* c, long long ntiles,
+                           long long M, long long K, long long N,
+                           long long bsz, long long b_rows, void* stream) {
   const long long grid = grid_blocks(ntiles, M, N, kTileBM);
   if (grid <= 0) return cudaSuccess;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned g = static_cast<unsigned>(grid);
-  constexpr int kThreads = Shape<kTileBM>::kThreads;
-  if (transposed) {
-    bell_banded_t_kernel<T, SPLIT><<<g, kThreads, 0, s>>>(
-        static_cast<const T*>(tiles), static_cast<const int*>(start),
-        static_cast<const T*>(b), static_cast<S*>(c), static_cast<int>(M),
-        static_cast<int>(K), static_cast<int>(N), static_cast<int>(bsz),
-        b_extent, out_cols);
-  } else if constexpr (!SPLIT) {  // K4's split runs band_kernel
-    bell_banded_kernel<T, SPLIT><<<g, kThreads, 0, s>>>(
-        static_cast<const T*>(tiles), static_cast<const int*>(start),
-        static_cast<const T*>(b), static_cast<S*>(c), static_cast<int>(M),
-        static_cast<int>(K), static_cast<int>(N), static_cast<int>(bsz),
-        b_extent);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  bell_banded_kernel<<<static_cast<unsigned>(grid),
+                       Shape<kTileBM>::kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(tiles), static_cast<const int*>(start),
+      static_cast<const double*>(b), static_cast<double*>(c),
+      static_cast<int>(M), static_cast<int>(K), static_cast<int>(N),
+      static_cast<int>(bsz), b_rows);
   return cudaGetLastError();
 }
 
@@ -232,7 +191,7 @@ cudaError_t band_kinds(int kind, const void* tiles, const void* start,
   }
 }
 
-// -- K5 for float32 and bf16 streams ------------------------------------------
+// -- K5 ----------------------------------------------------------------------
 //
 // C^T (N, out_cols) = B^T window (N, K) @ tiles_t[t] (K, M) per tile: the
 // operand is the dense factor and the tile the sparse one.  One thread
@@ -246,8 +205,12 @@ cudaError_t band_kinds(int kind, const void* tiles, const void* start,
 // the mask is set (warp-uniform, no divergence).  A cp.async ring keeps
 // kStages - 1 panels in flight behind one barrier per panel.  Float32:
 // 8x4 register tiles per thread in full float32; bf16: mma.sync m16n8k16,
-// the operand chunk by ldmatrix, the tile chunk by ldmatrix.trans.  Every
-// output is written once after a fixed-order loop: bitwise repeatable.
+// the operand chunk by ldmatrix, the tile chunk by ldmatrix.trans; bf16x3:
+// float32 stages, the operand chunk in the layout of the band body's
+// bf16x3 A and the tile chunk in that of its B, multiplied by its
+// split_chunk (three bf16 products a float32 pair, float32 sums); float64:
+// DMMA (mma.sync m8n8k4), C^T in float64.  Every output is written once
+// after a fixed-order loop: bitwise repeatable.
 
 namespace band_t {
 
@@ -258,43 +221,110 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBM = kSlice * kWarps;  // output columns per thread block
 
-template <typename T>
+// Per stream kind S (float, __nv_bfloat16, band::Split, double): T, the
+// element type in memory and in shared memory; Out, C^T's; kPitch, a
+// staged row's length; op_at(r, c) and tile_at(r, c) place element (r, c)
+// of the operand chunk and of a tile chunk in their stage.
+template <typename S>
 struct Cfg;
 template <>
 struct Cfg<float> {
+  using T = float;
+  using Out = float;
   using Bits = unsigned;
   using Acc = float[8][4];   // 8 rows x 4 columns of the warp's 32 x 32
   static constexpr int kPitch = 32;  // broadcast / 128-byte row reads
   static constexpr int kStages = 3;  // two panels in flight
   static constexpr int kMinBlocks = 3;
+  __device__ static __forceinline__ int op_at(int r, int c) {
+    return r * kPitch + c;
+  }
+  __device__ static __forceinline__ int tile_at(int r, int c) {
+    return r * kPitch + c;
+  }
 };
 template <>
 struct Cfg<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  using Out = float;
   using Bits = unsigned short;
   using Acc = float[2][4][4];  // 2 m16 x 4 n8 mma tiles per warp
   static constexpr int kPitch = 40;  // 80-byte rows: ldmatrix conflict-free
   static constexpr int kStages = 4;
   static constexpr int kMinBlocks = 4;
+  __device__ static __forceinline__ int op_at(int r, int c) {
+    return r * kPitch + c;
+  }
+  __device__ static __forceinline__ int tile_at(int r, int c) {
+    return r * kPitch + c;
+  }
+};
+// bf16x3: the float32 kind's ring (60 KB), the bf16 kind's mma tiles.
+// Rows stay unpadded and swizzled as the band body's bf16x3 stages, so
+// every fragment read of split_chunk meets 32 banks and 16-byte cp.async
+// vectors stay whole.
+template <>
+struct Cfg<band::Split> {
+  using T = float;
+  using Out = float;
+  using Bits = unsigned;
+  using Acc = float[2][4][4];
+  static constexpr int kPitch = 32;
+  static constexpr int kStages = 3;
+  static constexpr int kMinBlocks = 3;
+  __device__ static __forceinline__ int op_at(int r, int c) {
+    return band::split_a_at(r, c);
+  }
+  __device__ static __forceinline__ int tile_at(int r, int c) {
+    return band::split_b_at<kPitch>(r, c);
+  }
+};
+// float64 on DMMA (mma.sync m8n8k4): a stage is 40 KB, so two stages (one
+// panel in flight behind the one being multiplied, 80 KB) let two blocks
+// share an SM.  A fragment read takes one double a lane: the operand
+// chunk's rows g = 0..7 at columns t = 0..3, the tile chunk's rows t at
+// columns g.  Unpadded 32-double rows would put 4 lanes of a half warp on
+// one bank, so a row's columns are swizzled: the operand's row r at c ^ 4 *
+// (r % 8), the tile's row r at c ^ 4 * (r % 4).  Each half warp then meets
+// 32 banks, and 16-byte cp.async vectors (column pairs) stay whole.
+template <>
+struct Cfg<double> {
+  using T = double;
+  using Out = double;
+  using Bits = unsigned long long;
+  using Acc = double[4][4][2];  // 4 x 4 m8n8 tiles of the warp's 32 x 32
+  static constexpr int kPitch = 32;
+  static constexpr int kStages = 2;
+  static constexpr int kMinBlocks = 2;
+  __device__ static __forceinline__ int op_at(int r, int c) {
+    return r * kPitch + (c ^ ((r & 7) << 2));
+  }
+  __device__ static __forceinline__ int tile_at(int r, int c) {
+    return r * kPitch + (c ^ ((r & 3) << 2));
+  }
 };
 
 // One stage: the operand chunk [kBN][kBK], then each warp's tile chunk
 // [kBK][kSlice], every row kPitch long.
-template <typename T>
+template <typename S>
 __host__ __device__ constexpr int stage_elems() {
-  return (1 + kWarps) * kBK * Cfg<T>::kPitch;
+  return (1 + kWarps) * kBK * Cfg<S>::kPitch;
 }
-template <typename T>
+template <typename S>
 constexpr int smem_bytes() {
-  return Cfg<T>::kStages * stage_elems<T>() * static_cast<int>(sizeof(T));
+  return Cfg<S>::kStages * stage_elems<S>() *
+         static_cast<int>(sizeof(typename Cfg<S>::T));
 }
 
 // B^T rows n0 .. n0+31, window columns k0 .. k0+31 into the stage; rows >=
 // N, window columns >= K and operand columns >= bt_cols read 0.
-template <typename T, bool VEC>
-__device__ __forceinline__ void load_op(T* so, const T* bt, long long bt_cols,
-                                        int N, int n0, long long col0, int K,
-                                        int k0) {
-  constexpr int kP = Cfg<T>::kPitch;
+template <typename S, bool VEC>
+__device__ __forceinline__ void load_op(typename Cfg<S>::T* so,
+                                        const typename Cfg<S>::T* bt,
+                                        long long bt_cols, int N, int n0,
+                                        long long col0, int K, int k0) {
+  using Cf = Cfg<S>;
+  using T = typename Cf::T;
   const int tid = threadIdx.x;
   if constexpr (VEC) {
     constexpr int V = 16 / sizeof(T), kRow = kBK / V;
@@ -305,11 +335,11 @@ __device__ __forceinline__ void load_op(T* so, const T* bt, long long bt_cols,
       const int gn = n0 + r, kk = k0 + c;
       const long long col = col0 + kk;
       const bool ok = gn < N && kk < K && col < bt_cols;
-      sm90::cp_async16(so + r * kP + c, ok ? bt + gn * bt_cols + col : bt,
-                       ok);
+      sm90::cp_async16(so + Cf::op_at(r, c),
+                       ok ? bt + gn * bt_cols + col : bt, ok);
     }
   } else {
-    using B = typename Cfg<T>::Bits;
+    using B = typename Cf::Bits;
     const B* src = reinterpret_cast<const B*>(bt);
     B* dst = reinterpret_cast<B*>(so);
 #pragma unroll 4
@@ -318,7 +348,7 @@ __device__ __forceinline__ void load_op(T* so, const T* bt, long long bt_cols,
       const int r = e / kBK, c = e % kBK;
       const int gn = n0 + r, kk = k0 + c;
       const long long col = col0 + kk;
-      dst[r * kP + c] =
+      dst[Cf::op_at(r, c)] =
           (gn < N && kk < K && col < bt_cols) ? src[gn * bt_cols + col] : B(0);
     }
   }
@@ -326,10 +356,12 @@ __device__ __forceinline__ void load_op(T* so, const T* bt, long long bt_cols,
 
 // This warp's chunk: tile rows k0 .. k0+31, columns i0 .. i0+31 (rows >= K
 // and columns >= M read 0).
-template <typename T, bool VEC>
-__device__ __forceinline__ void load_tile(T* st, const T* tt, int M, int K,
-                                          int k0, int i0) {
-  constexpr int kP = Cfg<T>::kPitch;
+template <typename S, bool VEC>
+__device__ __forceinline__ void load_tile(typename Cfg<S>::T* st,
+                                          const typename Cfg<S>::T* tt,
+                                          int M, int K, int k0, int i0) {
+  using Cf = Cfg<S>;
+  using T = typename Cf::T;
   const int lane = threadIdx.x % 32;
   if constexpr (VEC) {
     constexpr int V = 16 / sizeof(T), kRow = kSlice / V;
@@ -339,17 +371,19 @@ __device__ __forceinline__ void load_tile(T* st, const T* tt, int M, int K,
       const int r = e / kRow, c = (e % kRow) * V;
       const int gk = k0 + r, gi = i0 + c;
       const bool ok = gk < K && gi < M;
-      sm90::cp_async16(st + r * kP + c, ok ? tt + gk * M + gi : tt, ok);
+      sm90::cp_async16(st + Cf::tile_at(r, c), ok ? tt + gk * M + gi : tt,
+                       ok);
     }
   } else {
-    using B = typename Cfg<T>::Bits;
+    using B = typename Cf::Bits;
     const B* src = reinterpret_cast<const B*>(tt);
     B* dst = reinterpret_cast<B*>(st);
     const int gi = i0 + lane;
 #pragma unroll 4
     for (int r = 0; r < kBK; ++r) {
       const int gk = k0 + r;
-      dst[r * kP + lane] = (gk < K && gi < M) ? src[gk * M + gi] : B(0);
+      dst[Cf::tile_at(r, lane)] =
+          (gk < K && gi < M) ? src[gk * M + gi] : B(0);
     }
   }
 }
@@ -416,6 +450,37 @@ __device__ __forceinline__ void mma_slice(const __nv_bfloat16* so,
   }
 }
 
+// bf16x3 (float32 stages in Cfg<band::Split>'s layouts, the mma tiles'
+// accumulator): the operand chunk is the split's A, the tile chunk its B
+// (operand-hi x tile-lo is the hi*lo product, as in _tile_dot).
+__device__ __forceinline__ void mma_slice(const float* so, const float* st,
+                                          float (&acc)[2][4][4]) {
+  band::split_chunk<Cfg<band::Split>::kPitch>(so, st, 0, acc);
+}
+
+// float64 on DMMA: 4 x 4 m8n8 tiles per warp; per 4-index step each lane
+// reads one double of each operand fragment and the warp issues the 16
+// products in a fixed order.
+__device__ __forceinline__ void mma_slice(const double* so, const double* st,
+                                          double (&acc)[4][4][2]) {
+  using Cf = Cfg<double>;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kq = 0; kq < kBK; kq += 4) {
+    double a[4], b[4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) a[mt] = so[Cf::op_at(mt * 8 + g, kq + t)];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) b[nt] = st[Cf::tile_at(kq + t, nt * 8 + g)];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        sm90::mma_f64_884(acc[mt][nt], a[mt], b[nt]);
+  }
+}
+
 // C^T rows n0 + ., columns i0 + . of this warp's slice; ct points at the
 // tile's first column, rows out_cols apart.
 template <bool VEC>
@@ -467,20 +532,48 @@ __device__ __forceinline__ void store(const float (&acc)[2][4][4], float* ct,
     }
 }
 
-// tiles_t (ntiles, K, M) and bt (N, bt_cols) in the stream type T, mask
-// (ntiles, P, Q) uint8, C^T (N, out_cols) float32.  Block (tile, 128-column
-// block, 32-row block of k), k fastest.  counts, when given: [0] the
-// multiply-adds issued (each multiplied chunk at its full 32 x 32 x 32),
-// [1] the tile bytes copied (each copied chunk's elements inside the tile).
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads, Cfg<T>::kMinBlocks)
-    band_t_kernel(const T* __restrict__ tiles_t, const int* __restrict__ start,
+template <bool VEC>
+__device__ __forceinline__ void store(const double (&acc)[4][4][2],
+                                      double* ct, long long out_cols, int M,
+                                      int N, int n0, int i0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    const int gn = n0 + mt * 8 + lane / 4;
+    if (gn >= N) continue;
+    double* row = ct + gn * out_cols;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int gi = i0 + nt * 8 + (lane % 4) * 2;
+      const double x = acc[mt][nt][0], y = acc[mt][nt][1];
+      if constexpr (VEC) {
+        if (gi < M) *reinterpret_cast<double2*>(row + gi) = make_double2(x, y);
+      } else {
+        if (gi < M) row[gi] = x;
+        if (gi + 1 < M) row[gi + 1] = y;
+      }
+    }
+  }
+}
+
+// tiles_t (ntiles, K, M) and bt (N, bt_cols) in the kind's element type T,
+// mask (ntiles, P, Q) uint8, C^T (N, out_cols) in Out (float64 for
+// float64, float32 otherwise).  Block (tile, 128-column block, 32-row
+// block of k), k fastest.  counts, when given: [0] the multiply-adds
+// issued (each multiplied chunk at its full 32 x 32 x 32, once for
+// bf16x3), [1] the tile bytes copied (each copied chunk's elements inside
+// the tile).
+template <typename S, bool VEC>
+__global__ void __launch_bounds__(kThreads, Cfg<S>::kMinBlocks)
+    band_t_kernel(const typename Cfg<S>::T* __restrict__ tiles_t,
+                  const int* __restrict__ start,
                   const unsigned char* __restrict__ mask,
-                  const T* __restrict__ bt, float* __restrict__ ct, int M,
-                  int K, int N, int bsz, long long bt_cols,
-                  long long out_cols,
+                  const typename Cfg<S>::T* __restrict__ bt,
+                  typename Cfg<S>::Out* __restrict__ ct, int M, int K, int N,
+                  int bsz, long long bt_cols, long long out_cols,
                   unsigned long long* __restrict__ counts) {
-  using Cf = Cfg<T>;
+  using Cf = Cfg<S>;
+  using T = typename Cf::T;
   constexpr int kS = Cf::kStages, kAhead = kS - 1, kP = Cf::kPitch;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
@@ -511,13 +604,13 @@ __global__ void __launch_bounds__(kThreads, Cfg<T>::kMinBlocks)
     }
     return p;
   };
-  auto stage = [&](int s) { return ring + s * stage_elems<T>(); };
+  auto stage = [&](int s) { return ring + s * stage_elems<S>(); };
   long long copied = 0;  // this warp's tile bytes
   auto fill = [&](int s, int p) {
     T* st = stage(s);
-    load_op<T, VEC>(st, bt, bt_cols, N, n0, col0, K, p * kBK);
+    load_op<S, VEC>(st, bt, bt_cols, N, n0, col0, K, p * kBK);
     if ((bits(p) >> warp) & 1u) {
-      load_tile<T, VEC>(st + (1 + warp) * kBK * kP, tt, M, K, p * kBK, i0);
+      load_tile<S, VEC>(st + (1 + warp) * kBK * kP, tt, M, K, p * kBK, i0);
       copied += static_cast<long long>(min(kBK, K - p * kBK)) *
                 min(kSlice, M - i0) * static_cast<int>(sizeof(T));
     }
@@ -561,12 +654,13 @@ __global__ void __launch_bounds__(kThreads, Cfg<T>::kMinBlocks)
   }
 }
 
-template <typename T>
+template <typename S>
 cudaError_t launch(const void* tiles_t, const void* start, const void* mask,
                    const void* bt, void* ct, long long ntiles, long long M,
                    long long K, long long N, long long bsz,
                    long long bt_cols, unsigned long long* counts,
                    void* stream) {
+  using T = typename Cfg<S>::T;
   constexpr long long kMax = 0x7fffffffLL;
   if (ntiles <= 0 || M <= 0 || N <= 0) return cudaSuccess;
   if (M * K > kMax) return cudaErrorInvalidValue;  // 32-bit inside a tile
@@ -578,35 +672,43 @@ cudaError_t launch(const void* tiles_t, const void* start, const void* mask,
   const bool vec = M % V == 0 && K % V == 0 && bsz % V == 0 &&
                    bt_cols % V == 0 && band::aligned16(tiles_t) &&
                    band::aligned16(bt) && band::aligned16(ct);
-  auto kern = vec ? band_t_kernel<T, true> : band_t_kernel<T, false>;
-  constexpr int smem = smem_bytes<T>();
+  auto kern = vec ? band_t_kernel<S, true> : band_t_kernel<S, false>;
+  constexpr int smem = smem_bytes<S>();
   const cudaError_t rc = band::allow_smem<smem>(kern);
   if (rc != cudaSuccess) return rc;
   kern<<<static_cast<unsigned>(grid), kThreads, smem,
          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(tiles_t), static_cast<const int*>(start),
       static_cast<const unsigned char*>(mask), static_cast<const T*>(bt),
-      static_cast<float*>(ct), static_cast<int>(M), static_cast<int>(K),
-      static_cast<int>(N), static_cast<int>(bsz), bt_cols, ntiles * M,
-      counts);
+      static_cast<typename Cfg<S>::Out*>(ct), static_cast<int>(M),
+      static_cast<int>(K), static_cast<int>(N), static_cast<int>(bsz),
+      bt_cols, ntiles * M, counts);
   return cudaGetLastError();
 }
 
 }  // namespace band_t
 
-// The float64 kind of K4 and the float64 and bf16x3 kinds of K5, on the
-// first body.
-int first_body(int kind, bool transposed, const void* tiles,
-               const void* start, const void* b, void* c, long long ntiles,
-               long long M, long long K, long long N, long long bsz,
-               long long b_extent, long long out_cols, void* stream) {
+// K5's four stream kinds, all on band_t_kernel; counts may be null.
+cudaError_t band_t_kinds(int kind, const void* tiles_t, const void* start,
+                         const void* mask, const void* bt, void* ct,
+                         long long ntiles, long long M, long long K,
+                         long long N, long long bsz, long long bt_cols,
+                         unsigned long long* counts, void* stream) {
   switch (kind) {
+    case kF32:
+      return band_t::launch<float>(tiles_t, start, mask, bt, ct, ntiles, M,
+                                   K, N, bsz, bt_cols, counts, stream);
     case kF32Split:
-      return launch<float, true>(transposed, tiles, start, b, c, ntiles, M,
-                                 K, N, bsz, b_extent, out_cols, stream);
+      return band_t::launch<band::Split>(tiles_t, start, mask, bt, ct,
+                                         ntiles, M, K, N, bsz, bt_cols,
+                                         counts, stream);
+    case kBF16:
+      return band_t::launch<__nv_bfloat16>(tiles_t, start, mask, bt, ct,
+                                           ntiles, M, K, N, bsz, bt_cols,
+                                           counts, stream);
     case kF64:
-      return launch<double, false>(transposed, tiles, start, b, c, ntiles, M,
-                                   K, N, bsz, b_extent, out_cols, stream);
+      return band_t::launch<double>(tiles_t, start, mask, bt, ct, ntiles, M,
+                                    K, N, bsz, bt_cols, counts, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -626,8 +728,8 @@ int bell_banded(int kind, const void* tiles, const void* start,
                 long long K, long long N, long long bsz, long long b_rows,
                 void* stream) {
   if (kind == kF64)
-    return first_body(kind, false, tiles, start, b, c, ntiles, M, K, N, bsz,
-                      b_rows, 0, stream);
+    return first_body_f64(tiles, start, b, c, ntiles, M, K, N, bsz, b_rows,
+                          stream);
   return band_kinds(kind, tiles, start, b, c, ntiles, M, K, N, bsz, b_rows,
                     nullptr, stream);
 }
@@ -646,48 +748,28 @@ int bell_banded_issued(int kind, const void* tiles, const void* start,
 }
 
 // tiles_t (ntiles, K, M) and bt (N, bt_cols) in the stream type, mask
-// (ntiles, ceil(K/32), ceil(M/32)) uint8 (read by the float32 and bf16
-// kinds, which run band_t_kernel; the others run the first body), C^T
-// (N, ntiles*M).
+// (ntiles, ceil(K/32), ceil(M/32)) uint8, C^T (N, ntiles*M) in float32
+// (float64 for kind 3).  Every kind runs band_t_kernel.
 int bell_banded_t(int kind, const void* tiles_t, const void* start,
                   const void* mask, const void* bt, void* ct,
                   long long ntiles, long long M, long long K, long long N,
                   long long bsz, long long bt_cols, void* stream) {
-  switch (kind) {
-    case kF32:
-      return band_t::launch<float>(tiles_t, start, mask, bt, ct, ntiles, M,
-                                   K, N, bsz, bt_cols, nullptr, stream);
-    case kBF16:
-      return band_t::launch<__nv_bfloat16>(tiles_t, start, mask, bt, ct,
-                                           ntiles, M, K, N, bsz, bt_cols,
-                                           nullptr, stream);
-    default:
-      return first_body(kind, true, tiles_t, start, bt, ct, ntiles, M, K, N,
-                        bsz, bt_cols, ntiles * M, stream);
-  }
+  return band_t_kinds(kind, tiles_t, start, mask, bt, ct, ntiles, M, K, N,
+                      bsz, bt_cols, nullptr, stream);
 }
 
-// bell_banded_t for the float32 and bf16 kinds (others return
-// cudaErrorInvalidValue), also adding to counts[0] the multiply-adds the
-// body issues (kBN x kBK x kSlice for every chunk a warp multiplied) and
-// to counts[1] the tile bytes it copied (on the card, zeroed by the caller).
+// bell_banded_t, also adding to counts[0] the multiply-adds the body issues
+// (kBN x kBK x kSlice for every chunk a warp multiplied, once for bf16x3)
+// and to counts[1] the tile bytes it copied, at the kind's element width
+// (on the card, zeroed by the caller).
 int bell_banded_t_issued(int kind, const void* tiles_t, const void* start,
                          const void* mask, const void* bt, void* ct,
                          long long ntiles, long long M, long long K,
                          long long N, long long bsz, long long bt_cols,
                          void* counts, void* stream) {
-  auto* count = static_cast<unsigned long long*>(counts);
-  switch (kind) {
-    case kF32:
-      return band_t::launch<float>(tiles_t, start, mask, bt, ct, ntiles, M,
-                                   K, N, bsz, bt_cols, count, stream);
-    case kBF16:
-      return band_t::launch<__nv_bfloat16>(tiles_t, start, mask, bt, ct,
-                                           ntiles, M, K, N, bsz, bt_cols,
-                                           count, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return band_t_kinds(kind, tiles_t, start, mask, bt, ct, ntiles, M, K, N,
+                      bsz, bt_cols, static_cast<unsigned long long*>(counts),
+                      stream);
 }
 
 }  // extern "C"

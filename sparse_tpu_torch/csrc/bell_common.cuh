@@ -1,4 +1,5 @@
-// Shared body of the blocked-ELL SpMM kernels K3-K6 (bell_spmm.cu,
+// The first body of the blocked-ELL SpMM kernels, which keeps the float64
+// kinds of K3, K4/K8 and K6, K6's bf16x3, and K6 past bsz 64 (bell_spmm.cu,
 // bell_banded.cu): one thread block accumulates one (BM x 64) output tile
 // of C = A @ B over the whole contraction, staging A and B in shared memory
 // in chunks of 16 along the contraction; each thread holds a 4 x 4 register

@@ -1,7 +1,7 @@
 // Hopper data-movement and tensor-core helpers of the blocked-ELL SpMM
 // bodies (band_body.cuh, bell_banded.cu, bell_spmm.cu): cp.async copies
 // into shared memory (16 bytes, with zero fill), an L1 prefetch, ldmatrix
-// fragment loads and the bf16 mma.sync.
+// fragment loads, the bf16 mma.sync and the float64 one (DMMA).
 
 #pragma once
 
@@ -65,6 +65,17 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d (8x8, float64) += a (8x4, row) @ b (4x8, col): lane 4g + t holds a's
+// (g, t), b's (t, g) and d's (g, 2t), (g, 2t + 1).
+__device__ __forceinline__ void mma_f64_884(double (&d)[2], double a,
+                                            double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
 }
 
 }  // namespace sm90

@@ -27,12 +27,12 @@ of K5.  The super-tile fields (``S``, ``SW``, ``rel``, ``sup``) only shared a
 DMA window on the TPU; ``start == sup.repeat(S) + rel`` by construction, so
 K4 and K5 read ``start`` and ignore them.
 
-The float32 and bf16 streams of K3, K4 and K5, and the bf16x3 streams of
-K3 and K4, skip the band's all-zero 32 x 32 chunks: K3 and K4 by a vote
-inside the kernel on what they read, K5 by the kit's chunk mask
+The float32, bf16 and bf16x3 streams of K3 and K4, and every stream of
+K5, skip the band's all-zero 32 x 32 chunks: K3 and K4 by a vote inside
+the kernel on what they read, K5 by the kit's chunk mask
 (:attr:`BandedKitT.chunk_nz`, built once with the kit), so it does not
-read them; K6's skip a padding slot's zero block by a vote per stored
-block.  Each has an issued-work counter
+read them; K6's float32 and bf16 streams skip a padding slot's zero block
+by a vote per stored block.  Each has an issued-work counter
 (:func:`fused_issued_flops`, :func:`banded_issued_flops`,
 :func:`banded_t_issued`, :func:`block_issued_flops`) beside a host model
 of what it should count.
@@ -42,10 +42,11 @@ full float32 (no TF32); ``precision="bf16x3"`` splits each float32 operand
 into a bf16 high part and a bf16 residual and sums hi*hi + hi*lo + lo*hi in
 float32 (``_dot_bf16x3``); ``compute_dtype=torch.bfloat16`` streams bf16 and
 accumulates in float32.  Streams are float32, bfloat16 or float64 (float64
-accumulates in float64); anything else raises ``ValueError``.  K3 and K4
-run bf16x3 on the tensor cores (three bf16 ``mma.sync`` products a float32
-pair, one float32 accumulator); K5 and K6 run it on their first body.  The
-interpret flag of the reference is dropped.
+accumulates in float64); anything else raises ``ValueError``.  K3, K4 and
+K5 run bf16x3 on the tensor cores (three bf16 ``mma.sync`` products a
+float32 pair, one float32 accumulator); K6 runs it, and K3, K4 and K6 run
+float64, on their first body, which skips no zero.  The interpret flag of
+the reference is dropped.
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ _KIND_F32_SPLIT = 1
 # band_t::kBN, kBK, kSlice)
 _BAND_BM, _BAND_BN, _BAND_BK = 32, 128, 32
 _BT_BN, _BT_BK, _BT_SLICE = 32, 32, 32
-_COUNTED = (torch.float32, torch.bfloat16)  # kinds with a counter
+_COUNTED = (torch.float32, torch.bfloat16)  # K3's and K6's counted kinds
 
 
 # -- precision ----------------------------------------------------------------
@@ -694,10 +695,12 @@ def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
 
 
 def banded_t_issued_model(kit: BandedKitT, k: int) -> tuple[int, int]:
-    """Host model of what K5's float32 / bf16 body counts at width ``k``:
+    """Host model of what K5's body counts at width ``k``, for every kind:
     (operations, 2 per multiply-add: one 32 x 32 x 32 product per set bit
-    of ``chunk_nz`` and 32-row block of k; tile bytes copied: each set
-    chunk's elements inside the tile, once per 32-row block of k)."""
+    of ``chunk_nz`` and 32-row block of k, once for bf16x3, whose three
+    products split the same multiply-adds; tile bytes copied: each set
+    chunk's elements inside the tile at the kit's element width, once per
+    32-row block of k)."""
     nt, K, M = kit.tiles_t.shape
     nz = kit.chunk_nz.bool()
     blocks_k = -(-k // _BT_BN)
@@ -709,18 +712,18 @@ def banded_t_issued_model(kit: BandedKitT, k: int) -> tuple[int, int]:
     return flops, nbytes
 
 
-def banded_t_issued(a: BELL, bt, kit: BandedKitT) -> tuple[int, int]:
-    """(operations, tile bytes) that K5's float32 / bf16 body issues on
-    ``kit`` against ``bt``, as the kernel counts them on the card: each
-    warp adds the chunks it multiplied, at their full 32 x 32 x 32, and the
-    bytes of the tile chunks it copied.  One launch into a scratch output,
-    outside ``K5_LAUNCHES``; CUDA tensors and float32 or bf16 kits only
-    (:func:`banded_t_issued_model` is what it should read)."""
+def banded_t_issued(a: BELL, bt, kit: BandedKitT, *,
+                    precision=None) -> tuple[int, int]:
+    """(operations, tile bytes) that K5's body issues on ``kit`` against
+    ``bt``, as the kernel counts them on the card: each warp adds the
+    chunks it multiplied, at their full 32 x 32 x 32 (once for bf16x3), and
+    the bytes of the tile chunks it copied.  One launch into a scratch
+    output, outside ``K5_LAUNCHES``; CUDA tensors only, any kit
+    (``precision="bf16x3"`` splits a float32 one;
+    :func:`banded_t_issued_model` is what it should read)."""
     name = "banded_t_issued"
     plan, tiles_t = kit.plan, kit.tiles_t
-    if tiles_t.dtype not in _COUNTED:
-        raise ValueError(f"{name}: counts float32 and bf16 kits, got "
-                         f"{tiles_t.dtype}")
+    split = _stream_mode(name, tiles_t.dtype, precision)
     if not isinstance(bt, torch.Tensor):
         bt = torch.as_tensor(bt, device=a.device)
     if not _on_cuda(name, tiles_t, kit.chunk_nz, plan.start, bt):
@@ -728,9 +731,10 @@ def banded_t_issued(a: BELL, bt, kit: BandedKitT) -> tuple[int, int]:
     ntiles, K, M = tiles_t.shape
     counts = torch.zeros(2, dtype=torch.int64, device=bt.device)
     bs = bt.to(tiles_t.dtype).contiguous()
-    out = torch.empty(bt.shape[0], ntiles * M, dtype=torch.float32,
-                      device=bt.device)
-    _launch(name, _kernels.load().bell_banded_t_issued, _KIND[tiles_t.dtype],
+    out = torch.empty(bt.shape[0], ntiles * M,
+                      dtype=_acc_dtype(tiles_t.dtype), device=bt.device)
+    _launch(name, _kernels.load().bell_banded_t_issued,
+            _kind(tiles_t.dtype, split),
             tiles_t.contiguous().data_ptr(),
             plan.start.to(torch.int32).contiguous().data_ptr(),
             kit.chunk_nz.data_ptr(), bs.data_ptr(), out.data_ptr(), ntiles,

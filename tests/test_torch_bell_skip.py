@@ -172,7 +172,9 @@ def test_k3_issued_model_counts_by_hand(k, col_blocks):
 @pytest.mark.parametrize("k,row_blocks", [(1, 1), (32, 1), (40, 2)])
 def test_k5_issued_model_counts_by_hand(k, row_blocks):
     """Tiles (4, 128, 40): chunks of 32 contraction rows x 32 columns, the
-    second column of chunks 8 columns wide."""
+    second column of chunks 8 columns wide.  Every kind reads this model:
+    bf16x3 a float32 kit's, each chunk once (its three products split the
+    same multiply-adds; the card tests read its counter against it)."""
     _, ta, ok, _ = _band(20, 8, 1, seed=1)
     kit = _hand_kit_t(ta, ok, 5, 64)
     assert tuple(kit.tiles_t.shape) == (4, 128, 40)
@@ -187,6 +189,9 @@ def test_k5_issued_model_counts_by_hand(k, row_blocks):
     assert nbytes == (32 * 32 + 32 * 8 + 32 * 32) * 4 * row_blocks
     half = dataclasses.replace(kit, tiles_t=t.to(torch.bfloat16))
     assert tcb.banded_t_issued_model(half, k) == (flops, nbytes // 2)
+    # float64 kits: the same chunks at 8 bytes an element
+    double = dataclasses.replace(kit, tiles_t=t.double())
+    assert tcb.banded_t_issued_model(double, k) == (flops, nbytes * 2)
 
 
 def test_counters_need_the_card():
@@ -208,10 +213,10 @@ def test_counters_need_the_card():
                                              (None, "card"),
                                              ("tf32", "precision"),
                                              ("bf16x6", "precision")])
-@pytest.mark.parametrize("entry", ["fused", "banded"])
+@pytest.mark.parametrize("entry", ["fused", "banded", "banded_t"])
 def test_issued_counters_refuse_cpu_and_unknown_precision(entry, precision,
                                                           match):
-    """K3's and K4's counters take ``precision="bf16x3"`` (the split
+    """K3's, K4's and K5's counters take ``precision="bf16x3"`` (the split
     kind); on CPU tensors they raise, as for any precision they do not
     know."""
     _, ta, ok, _ = _band(20, 32, 1, seed=4)
@@ -219,6 +224,10 @@ def test_issued_counters_refuse_cpu_and_unknown_precision(entry, precision,
     with pytest.raises(ValueError, match=match):
         if entry == "fused":
             tcb.fused_issued_flops(ta, b, precision=precision)
+        elif entry == "banded_t":
+            kit = tcb.bell_banded_prepare_t(ta, slot_valid=ok)
+            tcb.banded_t_issued(ta, b.T.contiguous(), kit,
+                                precision=precision)
         else:
             kit = tcb.bell_banded_prepare(ta, slot_valid=ok)
             tcb.banded_issued_flops(kit.tiles, kit.plan.start, b, ta.bsz,

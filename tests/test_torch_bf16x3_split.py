@@ -1,19 +1,25 @@
-"""The error model of the bf16x3 split on the band body of K3 and K4.
+"""The error model of the bf16x3 split on the band body of K3 and K4 and on
+K5's chunk-mask body.
 
-On the card, ``precision="bf16x3"`` runs ``csrc/band_body.cuh``: each
-thread block owns 32 output rows, walks the contraction in 32-index
-chunks, skips a chunk that is zero throughout in its rows (the vote), and
-in each 16-index step of a kept chunk issues three bf16 ``mma.sync``
-products into one float32 accumulator: hi*hi, then hi*lo, then lo*hi, each
-operand split as ``hi = bf16(x)``, ``lo = bf16(x - hi)``.  Here that order
-of summation is emulated in plain PyTorch (each step's 16 products summed
-exactly, then rounded into the float32 accumulator) on small banded shapes
-and held to the reference's ``_dot_bf16x3`` (``sparse_tpu/ops/
-pallas_bell.py``, the JAX function on the CPU) and to float64 NumPy within
-``2^-15 + 1e-5`` of ``|A||B|`` per element, the gate the card's smoke run
-holds the kernels to; and to the port's plain version within float32's
-1e-5, the card tests' tolerance between kernel and plain version.  An
-order that would fail those gates fails here before the card does.
+On the card, ``precision="bf16x3"`` runs ``csrc/band_body.cuh``'s
+``split_chunk``: the contraction in 32-index chunks, and in each 16-index
+step of a chunk that is multiplied three bf16 ``mma.sync`` products into
+one float32 accumulator: hi*hi, then hi*lo, then lo*hi, each operand split
+as ``hi = bf16(x)``, ``lo = bf16(x - hi)``.  K3 and K4 (32 output rows a
+thread block) skip a chunk that is zero throughout in their rows of A (the
+vote); K5 (``csrc/bell_banded.cu``: C^T = B^T window @ tile, the operand
+as A and the tile as B) skips a 32-column slice's chunk of the tile that
+the kit's mask marks zero.  Here that order of summation is emulated in
+plain PyTorch (each step's 16 products summed exactly, then rounded into
+the float32 accumulator) on small banded shapes and held to the
+reference's ``_dot_bf16x3`` (``sparse_tpu/ops/pallas_bell.py``, the JAX
+function on the CPU; for K5 also the reference kernel
+``bell_spmm_pallas_banded_t`` in interpret mode) and to float64 NumPy
+within ``2^-15 + 1e-5`` of ``|A||B|`` per element, the gate the card's
+smoke run holds the kernels to; and to the port's plain version within
+float32's 1e-5, the card tests' tolerance between kernel and plain
+version.  An order that would fail those gates fails here before the card
+does.
 
 Operands: N(0, 1) draws; draws scaled by 2^u, u uniform in [-20, 20], in
 both A and B; and rows that cancel (pairs of A's columns of opposite sign
@@ -25,13 +31,14 @@ import numpy as np
 import pytest
 import torch
 
+from sparse_tpu.formats import bell as jbell
 from sparse_tpu.ops import pallas_bell as jpb
 from sparse_tpu_torch import interop
 from sparse_tpu_torch.ops import cuda_bell as tcb
 
 BF16X3_TOL = 2.0 ** -15 + 1e-5
 F32_TOL = 1e-5
-CHUNK, STEP, ROWS = 32, 16, 32  # the band body's chunk, mma step, rows
+CHUNK, STEP, ROWS = 32, 16, 32  # the chunk, mma step and skip's width
 
 
 def _split(x):
@@ -40,31 +47,61 @@ def _split(x):
     return hi, (x - hi).to(torch.bfloat16).float()
 
 
-def band_body_bf16x3(a, b):
-    """C = A @ B (a: (n, M, K), b: (n, K, N), float32) in the order the
-    bf16x3 band body sums: per 32-row block of each output matrix, the
-    32-index chunks in order, a chunk that is zero in those rows skipped,
-    and per 16-index step hi*hi, hi*lo, lo*hi into one float32
-    accumulator."""
+def _ceil(n):
+    return -(-n // CHUNK) * CHUNK
+
+
+def _nonzero(x):
+    """Magnitude bits set: NaN counts, -0 does not."""
+    return (x != 0) | torch.isnan(x)
+
+
+def split_order(a, b, kept):
+    """C = A @ B (a: (n, M, K), b: (n, K, N), float32) in the bf16x3 bodies'
+    order: the 32-index chunks in order, chunk c's products left out of
+    output (i, j) where ``kept[:, i // 32, c, j // 32]`` is False, and per
+    16-index step hi*hi, hi*lo, lo*hi into one float32 accumulator."""
     n, m, kk = a.shape
-    mp, kp = -(-m // ROWS) * ROWS, -(-kk // CHUNK) * CHUNK
+    cols = b.shape[2]
+    mp, kp, np_ = _ceil(m), _ceil(kk), _ceil(cols)
     a = torch.nn.functional.pad(a, (0, kp - kk, 0, mp - m))
-    b = torch.nn.functional.pad(b, (0, 0, 0, kp - kk))
+    b = torch.nn.functional.pad(b, (0, np_ - cols, 0, kp - kk))
     ah, al = _split(a)
     bh, bl = _split(b)
-    blocks = a.reshape(n, mp // ROWS, ROWS, kp)
-    acc = torch.zeros(n, mp // ROWS, ROWS, b.shape[2])
-    for k0 in range(0, kp, CHUNK):
-        # the vote reads magnitude bits: NaN counts, -0 does not
-        chunk = blocks[..., k0:k0 + CHUNK]
-        kept = ((chunk != 0) | torch.isnan(chunk)).flatten(2).any(2)
+    acc = torch.zeros(n, mp, np_)
+    for c, k0 in enumerate(range(0, kp, CHUNK)):
+        keep = kept[:, :, c].repeat_interleave(ROWS, 1).repeat_interleave(
+            ROWS, 2)
         for s0 in range(k0, k0 + CHUNK, STEP):
             ks = slice(s0, s0 + STEP)
             for x, y in ((ah, bh), (ah, bl), (al, bh)):
                 part = x[:, :, ks].double() @ y[:, ks].double()
-                new = (acc.double() + part.reshape(acc.shape)).float()
-                acc = torch.where(kept[..., None, None], new, acc)
-    return acc.reshape(n, mp, -1)[:, :m]
+                acc = torch.where(keep, (acc.double() + part).float(), acc)
+    return acc[:, :m, :cols]
+
+
+def band_body_bf16x3(a, b):
+    """K3's and K4's order: per 32-row block of each output matrix, a chunk
+    that is zero in those rows of A skipped."""
+    n, m, kk = a.shape
+    ap = torch.nn.functional.pad(a, (0, _ceil(kk) - kk, 0, _ceil(m) - m))
+    kept = _nonzero(ap.reshape(n, _ceil(m) // ROWS, ROWS, _ceil(kk) // CHUNK,
+                               CHUNK)).any(4).any(2)
+    return split_order(a, b, kept[..., None].expand(
+        -1, -1, -1, _ceil(b.shape[2]) // ROWS))
+
+
+def k5_body_bf16x3(win, tiles_t):
+    """K5's order (win: (n, k, K) operand windows, tiles_t: (n, K, M)):
+    chunk c of a 32-column slice of the tile that is zero throughout
+    skipped for that slice's outputs."""
+    n, kk, m = tiles_t.shape
+    tp = torch.nn.functional.pad(tiles_t, (0, _ceil(m) - m, 0,
+                                           _ceil(kk) - kk))
+    kept = _nonzero(tp.reshape(n, _ceil(kk) // CHUNK, CHUNK, _ceil(m) // ROWS,
+                               ROWS)).any(4).any(2)
+    return split_order(win, tiles_t, kept[:, None].expand(
+        -1, _ceil(win.shape[1]) // ROWS, -1, -1))
 
 
 def _operands(nb, bsz, hb, k, values, seed):
@@ -89,12 +126,15 @@ def _operands(nb, bsz, hb, k, values, seed):
             b.astype(np.float32))
 
 
-def _products(kernel, ta, b, rt):
-    """Each output matrix's (A, B) as the band body sees it, with the
-    port's plain version of the whole product laid out the same way: K3's
-    wide rows against their stacked panels, or K4's densified tiles
-    against their operand windows."""
+def _products(kernel, ta, b, rt, cols, blocks):
+    """Each output matrix's (A, B) as the body sees it, with the port's
+    plain version of the whole product laid out the same way: K3's wide
+    rows against their stacked panels, K4's densified tiles against their
+    operand windows, or K5's operand windows (k, W*bsz) against its
+    transposed tiles (then also the reference kernel's C^T, per tile)."""
     bt = torch.from_numpy(b)
+    if kernel == "K5":
+        return _k5_products(ta, b, cols, blocks)
     if kernel == "K3":
         nb, lb, bsz = ta.nb, ta.Lb, ta.bsz
         a = ta.blocks.transpose(1, 2).reshape(nb, bsz, lb * bsz)
@@ -114,6 +154,31 @@ def _products(kernel, ta, b, rt):
     return tiles, win, plain.reshape(tiles.shape[0], m, -1)
 
 
+def _k5_products(ta, b, cols, blocks):
+    """K5 on the reference's kit (the port's carried over): per tile, the
+    operand window of B^T, the tile, the port's plain version and the
+    reference kernel in interpret mode, both as (ntiles, k, rt*bsz)."""
+    ja = jbell.BELL(cols=jnp.asarray(cols), blocks=jnp.asarray(blocks),
+                    n=ta.n, bsz=ta.bsz)
+    jk = jpb.bell_banded_prepare_t(ja)
+    kit = interop.banded_kit_t_from_arrays(jk.plan, jk.tiles_t, device="cpu")
+    bt = np.ascontiguousarray(b.T)
+    idx, inside = tcb._window_index(kit.plan, ta.bsz, ta.n)
+    tbt = torch.from_numpy(bt)
+    win = torch.where(inside[None], tbt[:, idx], tbt.new_zeros(()))
+    nt, _, m = kit.tiles_t.shape
+
+    def per_tile(ct):
+        ct = torch.from_numpy(np.array(ct, np.float32))
+        ct = torch.nn.functional.pad(ct, (0, nt * m - ct.shape[1]))
+        return ct.reshape(ct.shape[0], nt, m).permute(1, 0, 2)
+
+    plain = tcb.bell_spmm_banded_t_plain(ta, tbt, kit, precision="bf16x3")
+    ref = jpb.bell_spmm_pallas_banded_t(ja, jnp.asarray(bt), jk,
+                                        precision="bf16x3", interpret=True)
+    return win.permute(1, 0, 2), kit.tiles_t, per_tile(plain), per_tile(ref)
+
+
 def _within(got, ref, bound, tol):
     err = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
     assert np.isfinite(np.asarray(got, np.float64)).all()
@@ -127,16 +192,24 @@ def _within(got, ref, bound, tol):
     ("K4", 30, 24, 2, 3, 24),    # bsz 24: chunks straddle blocks
     ("K3", 30, 32, 2, None, 40),  # padding slots: zero chunks
     ("K3", 26, 24, 1, None, 16),
+    ("K5", 24, 32, 2, None, 32),  # bsz 32: a slice is one block row
+    ("K5", 40, 24, 1, None, 7),   # bsz 24: 384-column tiles, k 7
 ])
 def test_band_body_order_meets_the_bf16x3_gate(kernel, nb, bsz, hb, rt, k,
                                                values):
     cols, blocks, ok, b = _operands(nb, bsz, hb, k, values,
                                     seed=nb * bsz + k)
     ta = interop.bell_from_arrays(cols, blocks, nb * bsz, bsz, device="cpu")
-    a, bw, plain = _products(kernel, ta, b, rt)
-    got = band_body_bf16x3(a, bw)
-    # zero chunks were there to skip
-    assert not bool(tcb._nonzero_chunks(a, ROWS, CHUNK).all())
+    got_ref = _products(kernel, ta, b, rt, cols, blocks)
+    a, bw, plain = got_ref[:3]
+    if kernel == "K5":
+        got = k5_body_bf16x3(a, bw)
+        # zero chunks of the tiles were there to skip
+        assert not bool(tcb._nonzero_chunks(bw, CHUNK, ROWS).all())
+    else:
+        got = band_body_bf16x3(a, bw)
+        # zero chunks were there to skip
+        assert not bool(tcb._nonzero_chunks(a, ROWS, CHUNK).all())
     a64, b64 = a.double().numpy(), bw.double().numpy()
     bound = np.abs(a64) @ np.abs(b64)
     ref = np.stack([np.asarray(jpb._dot_bf16x3(
@@ -145,3 +218,5 @@ def test_band_body_order_meets_the_bf16x3_gate(kernel, nb, bsz, hb, rt, k,
     _within(got.numpy(), ref, bound, BF16X3_TOL)
     _within(got.numpy(), a64 @ b64, bound, BF16X3_TOL)
     _within(got.numpy(), plain.numpy(), bound, F32_TOL)
+    if kernel == "K5":  # the reference kernel, in interpret mode
+        _within(got.numpy(), got_ref[3].numpy(), bound, BF16X3_TOL)

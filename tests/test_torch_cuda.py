@@ -539,15 +539,18 @@ def test_k4_nan_in_a_propagates(cuda, stream):
     assert torch.allclose(y1[ok], want[ok], rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("tier", ["f32", "bf16", "bf16x3"])
-@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("kernel,tier", [
+    (kn, t) for kn in ("K3", "K4") for t in ("f32", "bf16", "bf16x3")] + [
+    ("K5", t) for t in ("f32", "bf16", "bf16x3", "f64")])
 def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
                                                            tier):
     """Inf and NaN in operand panel 0, which block rows 0 and 1 store: K3's
     padding slots (zero blocks at column 0 in the edge rows and the empty
-    row 6) and K4's densified zero chunks (block row 2 in tile 0's window)
-    sit opposite them, so the vote skips them and those rows are the
-    sparse product, finite; block rows 0 and 1 carry the Inf and NaN."""
+    row 6), K4's densified zero chunks (block row 2 in tile 0's window) and
+    K5's (block rows 2 and 3's slices of tile 0, whose window starts at
+    panel 0) sit opposite them, so the vote or the chunk mask skips them
+    and those rows are the sparse product, finite; block rows 0 and 1
+    carry the Inf and NaN.  K5 gives it in every kind, float64 too."""
     dt, cd, prec = TIERS[tier]
     a, ok = _band_bell(12, 32, 1, 8, dt, cuda, empty=(6,))
     b = torch.from_numpy(np.random.default_rng(9).standard_normal(
@@ -560,6 +563,13 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
         got = _twice(lambda: tcb.bell_spmm_fused(a, b_inf, **kw),
                      "K3_LAUNCHES")
         want = tcb.bell_spmm_fused_plain(a, b, **kw)
+    elif kernel == "K5":
+        kit = tcb.bell_banded_prepare_t(a, compute_dtype=cd, slot_valid=ok)
+        assert int(kit.plan.start[0]) == 0
+        got = _twice(lambda: tcb.bell_spmm_banded_t(
+            a, b_inf.T.contiguous(), kit, precision=prec), "K5_LAUNCHES").T
+        want = tcb.bell_spmm_banded_t_plain(a, b.T.contiguous(), kit,
+                                            precision=prec).T
     else:
         kit = tcb.bell_banded_prepare(a, row_tile=3, compute_dtype=cd,
                                       slot_valid=ok)
@@ -649,13 +659,14 @@ def _hand_kit_t(a, ok, rt, mw, stream):
                           .contiguous())
 
 
-# K5's float32 and bf16 streams run the mask body (32 rows of k x 128 tile
-# columns per thread block, one 32-column slice per warp), float64 and
-# bf16x3 the first body.  Kits: prepare_t's (rt*bsz a multiple of 128;
-# bsz 24 gives 384 columns) or, for bsz 3 and 33 (whose aligned plans
-# need windows of 384 and 128 panels), a hand-built one (rt 7 and 2: 21
-# and 66 columns, 128-panel windows).  bsz 3 and 33 take element copies;
-# k 1, 7, 33, 70, 200 end in a part 32-row block of k.  An unpadded
+# K5's four kinds run the mask body (32 rows of k x 128 tile columns per
+# thread block, one 32-column slice per warp; bf16x3 as three bf16 mma.sync
+# products, float64 on DMMA), each with its issued-work counter (operations
+# and tile bytes, at the kit's element width).  Kits: prepare_t's (rt*bsz a
+# multiple of 128; bsz 24 gives 384 columns) or, for bsz 3 and 33 (whose
+# aligned plans need windows of 384 and 128 panels), a hand-built one (rt 7
+# and 2: 21 and 66 columns, 128-panel windows).  bsz 3 and 33 take element
+# copies; k 1, 7, 33, 70, 200 end in a part 32-row block of k.  An unpadded
 # operand's last windows run past its end.
 K5_CASES = [(45, 16, 7, "band", None), (70, 8, 33, "band", None),
             (100, 24, 70, "band", None), (250, 32, 32, "band", None),
@@ -692,13 +703,13 @@ def test_k5_matches_plain_at_odd_shapes(cuda, nb, bsz, k, values, hand_rt,
     _check_values(got, tcb.bell_spmm_banded_t_plain(a, bt, kit,
                                                     precision=prec),
                   bound, dt, values)
-    if tier in ("f32", "bf16"):  # the mask body's own counts
-        counted = tcb.banded_t_issued(a, bt, kit)
-        assert counted == tcb.banded_t_issued_model(kit, k)
-        if values == "lone":
-            esz = kit.tiles_t.element_size()
-            assert counted == (2 * 32 ** 3 * -(-k // 32),
-                               32 * 32 * esz * -(-k // 32))
+    # the mask body's own counts (bf16x3: each chunk once)
+    counted = tcb.banded_t_issued(a, bt, kit, precision=prec)
+    assert counted == tcb.banded_t_issued_model(kit, k)
+    if values == "lone":
+        esz = kit.tiles_t.element_size()
+        assert counted == (2 * 32 ** 3 * -(-k // 32),
+                           32 * 32 * esz * -(-k // 32))
 
 
 def test_bell_spmm_on_cuda_launches_the_kernels(cuda):

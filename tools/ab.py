@@ -17,8 +17,8 @@ Suites:
 - ``bell``: the blocked-ELL SpMM kernels on ``bench.py``'s 80M-entry block
   band (nb 15,625, bsz 32, 5-block band, float32), k = 128 (k = 32 for
   K5): K3, K4, K5, K6 and K8 in float32, the bf16 streams of K3, K4,
-  K5, K6 (bf16 blocks) and K8 with bf16 operands, and the bf16x3 split of
-  K3 and K4 (float32 operands).
+  K5, K6 (bf16 blocks) and K8 with bf16 operands, the bf16x3 split of
+  K3, K4 and K5 (float32 operands), and K5 in float64 (a float64 kit).
 - ``slab``: the block-SpGEMM slab apply (K7) on the SpGEMM fixture
   (``benchmarks/measure_auto_block.py``'s ``C = A A``: nb 2,000, bsz 32,
   19,025 stored blocks, 181,214 block products, float32): the prepared
@@ -70,6 +70,9 @@ def bell_cases(cs):
     kit_t = cb.bell_banded_prepare_t(a, slot_valid=valid)
     kit_tbf = cb.bell_banded_prepare_t(a, compute_dtype=bf16,
                                        slot_valid=valid)
+    a64 = BELL(cols=a.cols, blocks=a.blocks.double(), n=a.n, bsz=bsz)
+    kit_t64 = cb.bell_banded_prepare_t(a64, slot_valid=valid)
+    bt64 = bt.double()
     dplan = cb.build_banded_plan(a, row_tile=5, max_window=96)
     b3 = torch.cat([b.reshape(nb, bsz, k), b.new_zeros(dplan.W, bsz, k)])
     k8_args = {s: (cdb.densify_tiles(a, dplan, s), dplan.start, b3.to(s), nb,
@@ -85,6 +88,9 @@ def bell_cases(cs):
             a, b_bf, kit_bf.plan, tiles=kit_bf.tiles, compute_dtype=bf16),
         "K5": lambda: cb.bell_spmm_banded_t(a, bt, kit_t),
         "K5 bf16": lambda: cb.bell_spmm_banded_t(a, bt_bf, kit_tbf),
+        "K5 bf16x3": lambda: cb.bell_spmm_banded_t(a, bt, kit_t,
+                                                   precision="bf16x3"),
+        "K5 f64": lambda: cb.bell_spmm_banded_t(a64, bt64, kit_t64),
         "K6": lambda: cb.bell_spmm_block(a, b),
         "K6 bf16": lambda: cb.bell_spmm_block(a_bf, b_bf),
         "K8": lambda: cdb.dband_spmm(*k8_args[f32]),
