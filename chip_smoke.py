@@ -101,9 +101,12 @@ each against its float64 gate: the plain SpMV and SpMM entry points and
 the ``xla`` / ``bell`` rungs on band-10M and elasticity-400k, the SpMMs
 at ``__graft_entry__``'s shape, ``bell_smvm``, the bf16x3 kind of K3-K6
 (K3's and K4's on the band body's tensor cores, K5's on its chunk-mask
-body, with their issued work) and their float64 kinds (K5's on the chunk-
-mask body, with its issued work and tile bytes) on the 80M-entry band,
-each beside ``BSR @ B`` in its dtype (float32 for bf16x3), the ESC and
+body, K6's on its persistent body, with their issued work) and the
+float64 kinds of K3-K6 and K8 (K4's and K8's on the band body's DMMA
+tiles, with their issued work; K5's on the chunk-mask body, with its
+issued work and tile bytes; K3's and K6's on the first body) on the
+80M-entry band, each beside ``BSR @ B`` in its dtype (float32 for
+bf16x3), the ESC and
 dense SpGEMM cores on cuts of the SpGEMM fixture, ``pcsr_spmm`` /
 ``halo_spmm_overlapped`` / ``pcsr_spgemm`` over 4 shards, and an int32
 pass exact to NumPy, and prints a ``surface`` JSON line; the kinds'
@@ -4225,15 +4228,17 @@ def _phase21_entry_spmm(paths):
 
 
 def _phase21_kind(paths, label, kname, kern, plain, bound, tol_plain,
-                  oracle_err, cost, dtype, lib, lib_call):
-    """One stream kind of one of K3-K6 on bell-band-80M: twice, bitwise
-    equal and launched each time, against its plain version within
+                  oracle_err, cost, dtype, lib, lib_call, counters=None):
+    """One stream kind of one of K3-K6 or K8 on bell-band-80M: twice,
+    bitwise equal and launched each time (by ``counters``' launch count,
+    ``cuda_bell``'s by default), against its plain version within
     TOL[tol_plain] * ``bound`` and against SciPy (``oracle_err`` of the
     result, which applies the gate), then timed back to back beside its
     plain version, its bound (``cost`` (bytes, operations) at ``dtype``'s
     peak) and the library call; returns the record."""
-    from sparse_tpu_torch.ops import cuda_bell as cb
+    from sparse_tpu_torch.ops import cuda_bell
 
+    cb = counters or cuda_bell
     before = getattr(cb, f"{kname}_LAUNCHES")
     err_p, c = _twice_vs_plain(label, kern, plain, bound, tol_plain)
     launches = getattr(cb, f"{kname}_LAUNCHES") - before
@@ -4256,18 +4261,20 @@ def _phase21_kind(paths, label, kname, kern, plain, bound, tol_plain,
                 max_abs_err_vs_plain=err_p, launches=launches)
 
 
-def _phase21_bell(paths, m, card):
+def _phase21_bell(paths, m, dband, card):
     """bell-band-80M: ``bell_smvm`` at k 1; the bf16x3 tier of K3 and K4
-    (the band body) and K6 (the first body) at k 128 and of K5 at k 32
+    (the band body), K6 (the persistent body) at k 128 and of K5 at k 32
     (the chunk-mask body), each against SciPy, its plain version and ``BSR
-    @ B`` in float32, K3's, K4's and K5's with their issued work (K5's also
-    the tile bytes it copied); then the float64 kinds of K3, K4 and K6 at k
-    128 (the first body) and K5 at k 32 (the chunk-mask body, with its
-    issued work and tile bytes) beside ``BSR @ B`` in float64.  Returns
+    @ B`` in float32, with its issued work (K5's also the tile bytes it
+    copied); then the float64 kinds at k 128 of K3 and K6 (the first
+    body), K4 and K8 (the band body on DMMA, with their issued work; K8 on
+    phase 14's plan ``dband``) and of K5 at k 32 (the chunk-mask body, with
+    its issued work and tile bytes) beside ``BSR @ B`` in float64.  Returns
     {kernel: {"bf16x3": record, "float64": record}}."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.formats.bell import BELL
     from sparse_tpu_torch.ops import cuda_bell as cb
+    from sparse_tpu_torch.ops import cuda_dband
 
     a, b, b32, kit, kit_t = m["a"], m["b"], m["b32"], m["kit"], m["kit_t"]
     oracle, valid = m["oracle"], m["slot_valid"]
@@ -4289,25 +4296,28 @@ def _phase21_bell(paths, m, card):
         nbytes, flops = spmm_cost(nbz, a.bsz, a.n, kk)
         return nbytes, 3 * flops
 
-    out = {"K3": {}, "K4": {}, "K5": {}, "K6": {}}
+    out = {"K3": {}, "K4": {}, "K5": {}, "K6": {}, "K8": {}}
     lib, call = library_spmm(m, b, card, "float32, the bf16x3 yardstick")
     bound = _abs_bound(a, b, torch.float32)
     x3 = "bf16x3"
-    for kname, kern, plain in (
-            ("K3", lambda: pt.bell_spmm(a, b, precision=x3),
+    for kname, body, kern, plain in (
+            ("K3", "band body", lambda: pt.bell_spmm(a, b, precision=x3),
              lambda: cb.bell_spmm_fused_plain(a, b, precision=x3)),
-            ("K4", lambda: pt.bell_spmm(a, b, plan=kit, precision=x3),
+            ("K4", "band body",
+             lambda: pt.bell_spmm(a, b, plan=kit, precision=x3),
              lambda: cb.bell_spmm_banded_plain(a, b, kit.plan,
                                                tiles=kit.tiles,
                                                precision=x3)),
-            ("K6", lambda: cb.bell_spmm_block(a, b, precision=x3),
+            ("K6", "persistent body",
+             lambda: cb.bell_spmm_block(a, b, precision=x3),
              lambda: cb.bell_spmm_block_plain(a, b, precision=x3))):
-        label = f"{kname} bf16x3 k {k}"
+        label = f"{kname} bf16x3 k {k} ({body})"
         out[kname]["bf16x3"] = _phase21_kind(
             paths, label, kname, kern, plain, bound, torch.float32,
             vs_scipy(label, bh, BF16X3_TOL), split_cost(k), torch.bfloat16,
             lib, call)
-    # the split's issued work on the band body: the float32 stream's chunks
+    # the split's issued work on the band and persistent bodies: the
+    # float32 stream's chunks and blocks
     useful = 2 * m["nnz"] * k
     out["K4"]["bf16x3"]["issued_gflop"] = check_issued(
         "K4 bf16x3", kit.tiles, kit.plan.start, b, a.bsz, useful,
@@ -4315,6 +4325,9 @@ def _phase21_bell(paths, m, card):
     out["K3"]["bf16x3"]["issued_gflop"] = check_counted(
         "K3 bf16x3", cb.fused_issued_flops(a, b, precision=x3),
         cb.fused_issued_model(a, k), useful) / 1e9
+    out["K6"]["bf16x3"]["issued_gflop"] = check_counted(
+        "K6 bf16x3", cb.block_issued_flops(a, b, precision=x3),
+        cb.block_issued_model(a, k), useful) / 1e9
     lib32, call32 = library_spmm(m, b32, card, "k 32 float32, the bf16x3 "
                                  "yardstick")
     label = "K5 bf16x3 k 32 (chunk-mask body)"
@@ -4328,7 +4341,8 @@ def _phase21_bell(paths, m, card):
     useful32 = 2 * m["nnz"] * 32
     out["K5"]["bf16x3"].update(check_k5_counts(
         "K5 bf16x3 k=32", a, bt32, kit_t, useful32, precision=x3))
-    # the float64 kinds: K3, K4 and K6 on the first body
+    # the float64 kinds: K3 and K6 on the first body, K4 and K8 on the
+    # band body
     a64 = BELL(cols=a.cols, blocks=a.blocks.double(), n=a.n, bsz=a.bsz)
     b64 = b.double()
     kit64 = cb.bell_banded_prepare(a64, row_tile=kit.plan.rt,
@@ -4336,19 +4350,38 @@ def _phase21_bell(paths, m, card):
     bound = _abs_bound(a64, b64, f64)
     lib, call = library_spmm(m, b64, card, "float64")
     cost = spmm_cost(nbz, a.bsz, a.n, k, 8, 8)
-    for kname, kern, plain in (
-            ("K3", lambda: cb.bell_spmm_fused(a64, b64),
+    for kname, body, kern, plain in (
+            ("K3", "first body", lambda: cb.bell_spmm_fused(a64, b64),
              lambda: cb.bell_spmm_fused_plain(a64, b64)),
-            ("K4", lambda: pt.bell_spmm(a64, b64, plan=kit64),
+            ("K4", "band body", lambda: pt.bell_spmm(a64, b64, plan=kit64),
              lambda: cb.bell_spmm_banded_plain(a64, b64, kit64.plan,
                                                tiles=kit64.tiles)),
-            ("K6", lambda: cb.bell_spmm_block(a64, b64),
+            ("K6", "first body", lambda: cb.bell_spmm_block(a64, b64),
              lambda: cb.bell_spmm_block_plain(a64, b64))):
-        label = f"{kname} float64 k {k}"
+        label = f"{kname} float64 k {k} ({body})"
         out[kname]["float64"] = _phase21_kind(
             paths, label, kname, kern, plain, bound, f64,
             vs_scipy(label, bh, TOL[f64]), cost, f64, lib, call)
-    del kit64, bound
+    out["K4"]["float64"]["issued_gflop"] = check_issued(
+        "K4 float64", kit64.tiles, kit64.plan.start, b64, a.bsz,
+        useful) / 1e9
+    del kit64
+    # K8 on phase 14's plan (measure_dband.py's flow: the operand padded
+    # with W zero panels), float64 tiles and operand
+    plan, nb, bsz = dband["plan"], dband["nb"], dband["bsz"]
+    tiles64 = cuda_dband.densify_tiles(a, plan, f64)
+    b3 = torch.cat([b64.reshape(nb, bsz, k), b64.new_zeros(plan.W, bsz, k)])
+    args = (tiles64, plan.start, b3, nb, bsz, k, plan.W, plan.rt, f64)
+    label = f"K8 float64 k {k} (band body)"
+    out["K8"]["float64"] = _phase21_kind(
+        paths, label, "K8", lambda: cuda_dband.dband_spmm(*args),
+        lambda: cuda_dband.dband_spmm_plain(*args), bound, f64,
+        vs_scipy(label, bh, TOL[f64]), cost, f64, lib, call,
+        counters=cuda_dband)
+    out["K8"]["float64"]["issued_gflop"] = check_issued(
+        "K8 float64", tiles64, plan.start, b3.reshape(-1, k), bsz,
+        useful) / 1e9
+    del tiles64, b3, args, bound
     kit_t64 = cb.bell_banded_prepare_t(a64, slot_valid=valid)
     bt64 = bt32.double()
     lib, call = library_spmm(m, b32.double(), card, "k 32 float64")
@@ -4513,16 +4546,16 @@ def phase21_surface(card, slice_run, ela_bsr, spmm_run):
     timed back to back (the median of 5 windows), with its host set-up
     time and the card: the plain SpMV and SpMM entry points and the
     ``xla`` / ``bell`` rungs on band-10M and elasticity-400k, the SpMMs at
-    ``__graft_entry__``'s shape, ``bell_smvm`` and the bf16x3 and float64
-    kinds of K3-K6 on bell-band-80M, the ESC and dense SpGEMM cores on
-    cuts of spgemm-block-181k, three distributed paths over ``DIST_D``
-    shards, and an int32 pass exact to NumPy.  Returns (paths, {kernel:
+    ``__graft_entry__``'s shape, ``bell_smvm``, the bf16x3 kinds of K3-K6
+    and the float64 kinds of K3-K6 and K8 on bell-band-80M, the ESC and
+    dense SpGEMM cores on cuts of spgemm-block-181k, three distributed
+    paths over ``DIST_D`` shards, and an int32 pass exact to NumPy.  Returns (paths, {kernel:
     {kind: record}})."""
     paths = _Paths(card)
     _phase21_band(paths, slice_run["a"], slice_run["s"], slice_run["v"])
     ae, se = _phase21_elasticity(paths, ela_bsr)
     _phase21_entry_spmm(paths)
-    kinds = _phase21_bell(paths, spmm_run, card)
+    kinds = _phase21_bell(paths, spmm_run, slice_run["dband"], card)
     sub = _phase21_spgemm(paths)
     _phase21_pspgemm(paths, ae, se)
     _phase21_int32(paths, slice_run, ela_bsr, spmm_run, sub)
@@ -4677,7 +4710,8 @@ def main():
                                          ela["plan"].state[0], spmm_run)
     print(json.dumps({"surface": surface, "card": card}, default=float),
           flush=True)
-    # the bf16x3 and float64 kinds of K3-K6 join their kernels' records
+    # the bf16x3 and float64 kinds of K3-K6 and K8 join their kernels'
+    # records
     for entry in kernels:
         entry.update(kinds.get(entry["name"].split()[0], {}))
     print(f"card: {card}", flush=True)

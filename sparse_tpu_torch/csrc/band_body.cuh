@@ -1,10 +1,10 @@
-// The float32 / bf16 / bf16x3 body of the blocked-ELL SpMM kernels K3
-// (bell_spmm.cu), K4 and K8 (bell_banded.cu): C (M, N) = A (M, K) @ B (K, N)
-// for one output matrix, where A is a mostly-zero band and B the dense
-// operand.  The kernels differ only in where A's rows and B's rows live,
-// which an address policy says (DenseTile: K4/K8's densified tile and
-// operand window; WideRow: K3's block row [A_r0 | ... | A_r,Lb-1] and the
-// operand panels its slots name).
+// The body of the blocked-ELL SpMM kernels K3 (bell_spmm.cu), K4 and K8
+// (bell_banded.cu) for float32, bf16, bf16x3 and float64 streams: C (M, N)
+// = A (M, K) @ B (K, N) for one output matrix, where A is a mostly-zero band
+// and B the dense operand.  The kernels differ only in where A's rows and
+// B's rows live, which an address policy says (DenseTile: K4/K8's densified
+// tile and operand window; WideRow: K3's block row [A_r0 | ... | A_r,Lb-1]
+// and the operand panels its slots name).
 //
 // One thread block owns 32 output rows and 128 output columns.  The
 // contraction runs in 32-index chunks through a ring in shared memory filled
@@ -22,12 +22,15 @@
 // registers into a bf16 high part and a bf16 residual and issues three
 // products into one float32 accumulator, hi*hi, hi*lo and lo*hi (lo*lo is
 // dropped), as sparse_tpu/ops/pallas_bell.py::_dot_bf16x3 defines them
-// (split_chunk, which K5's bf16x3 kind in bell_banded.cu shares).  Copies
-// are 16-byte vectors (VEC), or one element at a time where a shape or a
-// pointer's alignment does not allow them.  Every output is written
-// once, after one fixed-order loop: no atomics on the output.  With a
-// counter, each thread block adds the multiply-adds of the chunks its vote
-// kept, at their full size (once for bf16x3: the useful products).
+// (split_chunk, which K5's bf16x3 kind in bell_banded.cu and K6's in
+// block_body.cuh share).  float64 (A, B and C float64): the same ring and
+// vote on 64-bit words, each warp's 32 x 32 piece on DMMA (mma.sync
+// m8n8k4) from swizzled stages (dmma_chunk, which K5's float64 kind
+// shares).  Copies are 16-byte vectors (VEC), or one element at a time
+// where a shape or a pointer's alignment does not allow them.  Every output
+// is written once, after one fixed-order loop: no atomics on the output.
+// With a counter, each thread block adds the multiply-adds of the chunks its
+// vote kept, at their full size (once for bf16x3: the useful products).
 
 #pragma once
 
@@ -46,8 +49,9 @@ constexpr int kThreads = 128;  // four warps
 // bf16 products on the tensor cores.
 struct Split {};
 
-// Per stream kind S (float, __nv_bfloat16, Split): T, the element type in
-// memory and in shared memory; kBK, the contraction chunk (one vote each);
+// Per stream kind S (float, __nv_bfloat16, Split, double): T, the element
+// type in memory and in shared memory; Out, C's; kBK, the contraction chunk
+// (one vote each);
 // kVote, how many chunks ahead of the one being multiplied the block votes
 // (and starts that chunk's B copy); kAhead (> kVote), how many ahead A is
 // copied.  The rings hold what is in flight plus what is being read.
@@ -58,6 +62,7 @@ struct Cfg;
 template <>
 struct Cfg<float> {
   using T = float;
+  using Out = float;
   using Bits = unsigned;
   using Acc = float[8][4];              // 8 rows x 4 columns per thread
   static constexpr unsigned kWord = 0x7fffffffu;  // magnitude bits
@@ -77,6 +82,7 @@ struct Cfg<float> {
 template <>
 struct Cfg<__nv_bfloat16> {
   using T = __nv_bfloat16;
+  using Out = float;
   using Bits = unsigned short;
   using Acc = float[2][4][4];           // 2 m16 x 4 n8 mma tiles per warp
   static constexpr unsigned kWord = 0x7fff7fffu;
@@ -105,9 +111,12 @@ struct Cfg<__nv_bfloat16> {
 // 4).  Every read of a fragment then meets 32 distinct banks (per half
 // warp for A's 8-byte reads), and a 16-byte vector stays whole for
 // cp.async.  K5's bf16x3 kind (bell_banded.cu) stages its operand and tile
-// chunks in the same two layouts.
+// chunks in the same two layouts, K6's (block_body.cuh) its stored block
+// and panel, with A's rows 64 floats long at bsz 33-64: the swizzle stays
+// inside each 32-column half, so a half is a 32-index chunk of pitch 64.
+template <int kPitch = 32>
 __device__ __forceinline__ int split_a_at(int i, int c) {
-  return i * 32 + (c ^ ((i & 3) << 3));  // rows of 32 floats
+  return i * kPitch + (c ^ ((i & 3) << 3));
 }
 template <int kPitch>
 __device__ __forceinline__ int split_b_at(int kk, int c) {
@@ -116,6 +125,7 @@ __device__ __forceinline__ int split_b_at(int kk, int c) {
 template <>
 struct Cfg<Split> {
   using T = float;
+  using Out = float;
   using Bits = unsigned;
   using Acc = float[2][4][4];           // 2 m16 x 4 n8 mma tiles per warp
   static constexpr unsigned kWord = 0x7fffffffu;
@@ -130,6 +140,44 @@ struct Cfg<Split> {
   }
   __device__ static __forceinline__ int b_at(int kk, int c) {
     return split_b_at<kBPitch>(kk, c);
+  }
+};
+// float64 on DMMA (mma.sync m8n8k4), C in float64.  A fragment read takes
+// one double a lane: A's rows g = 0..7 of an 8-row tile at columns t =
+// 0..3, B's rows t at columns g.  Unpadded rows (32 and 128 doubles) would
+// put 4 lanes of a half warp on one bank, so a row's columns are swizzled:
+// A's row i at c ^ 4 * (i % 8), B's row kk at c ^ 4 * (kk % 4)
+// (dmma_a_at, dmma_b_at).  Each half warp then meets 32 banks, and 16-byte
+// cp.async vectors (column pairs) stay whole.  K5's float64 kind
+// (bell_banded.cu) stages its operand and tile chunks in the same layouts.
+// A stage is 8 KB of A and 32 KB of B: 96 KB at 4 A and 2 B stages, two
+// thread blocks an SM (on an H100 at bell-band-80M, k 128, a vote two
+// chunks ahead at one block an SM took 1.5x as long, A three chunks ahead
+// and streaming stores of C no less).
+__device__ __forceinline__ int dmma_a_at(int i, int c) {
+  return i * 32 + (c ^ ((i & 7) << 2));  // rows of 32 doubles
+}
+template <int kPitch>
+__device__ __forceinline__ int dmma_b_at(int kk, int c) {
+  return kk * kPitch + (c ^ ((kk & 3) << 2));
+}
+template <>
+struct Cfg<double> {
+  using T = double;
+  using Out = double;
+  using Bits = unsigned long long;
+  using Acc = double[4][4][2];          // 4 m8 x 4 n8 DMMA tiles per warp
+  static constexpr int kBK = 32;
+  static constexpr int kAPitch = kBK;
+  static constexpr int kBPitch = kBN;
+  static constexpr int kVote = 1, kAhead = 2;
+  static constexpr int kAStages = kAhead + 2, kBStages = kVote + 1;
+  static constexpr int kMinBlocks = 2;  // 96 KB of shared memory each
+  __device__ static __forceinline__ int a_at(int i, int c) {
+    return dmma_a_at(i, c);
+  }
+  __device__ static __forceinline__ int b_at(int kk, int c) {
+    return dmma_b_at<kBPitch>(kk, c);
   }
 };
 
@@ -274,10 +322,12 @@ __device__ __forceinline__ void load_a(typename Cfg<S>::T* sa, const P& p,
 }
 
 // Whether any element this thread copied by load_a is non-zero (NaN is).
+// A double's sign is bit 31 of its high word (the second 32-bit word).
 template <typename S, bool VEC>
 __device__ __forceinline__ bool mine_nonzero(const typename Cfg<S>::T* sa) {
   using Cf = Cfg<S>;
   constexpr int kBK = Cf::kBK;
+  constexpr bool k64 = sizeof(typename Cf::T) == 8;
   const int tid = threadIdx.x;
   unsigned any = 0;
   if constexpr (VEC) {
@@ -287,7 +337,10 @@ __device__ __forceinline__ bool mine_nonzero(const typename Cfg<S>::T* sa) {
       const int e = tid + s * kThreads;
       const uint4 w = *reinterpret_cast<const uint4*>(
           sa + Cf::a_at(e / kRow, (e % kRow) * V));
-      any |= (w.x | w.y | w.z | w.w) & Cf::kWord;
+      if constexpr (k64)
+        any |= w.x | w.z | ((w.y | w.w) & 0x7fffffffu);
+      else
+        any |= (w.x | w.y | w.z | w.w) & Cf::kWord;
     }
   } else {
     using B = typename Cf::Bits;
@@ -295,7 +348,10 @@ __device__ __forceinline__ bool mine_nonzero(const typename Cfg<S>::T* sa) {
 #pragma unroll 4
     for (int s = 0; s < kBM * kBK / kThreads; ++s) {
       const int e = tid + s * kThreads;
-      any |= src[Cf::a_at(e / kBK, e % kBK)] & Cf::kWord;
+      if constexpr (k64)
+        any |= (src[Cf::a_at(e / kBK, e % kBK)] << 1) != 0;
+      else
+        any |= src[Cf::a_at(e / kBK, e % kBK)] & Cf::kWord;
     }
   }
   return any != 0;
@@ -422,17 +478,18 @@ __device__ __forceinline__ void split2(float x0, float x1, unsigned& hi,
   lo = *reinterpret_cast<const unsigned*>(&l);
 }
 
-// acc += A (32 x 32) @ B (32 x 32: columns n0 .. n0+31 of a stage whose
-// rows are kPitch floats) with the bf16x3 split, float32 stages in the
-// swizzled layouts (split_a_at, split_b_at<kPitch>), the mma tiles'
-// accumulator: the warp owns all 32 rows and those 32 columns as 2 x 4
-// m16n8 tiles.  Per 16-index step each thread splits its A fragments (2
-// tiles x 4 registers) and B fragments (4 tiles x 2 registers), then
-// issues hi*hi for every tile, then hi*lo, then lo*hi, each into the
-// tile's one float32 accumulator.  The one copy of that order: K3's and
-// K4's chunks (A the band, B the operand) and K5's (A the operand, B the
-// tile) both run it.
-template <int kPitch>
+// acc += A (32 x 32: rows kAPitch floats) @ B (32 x 32: columns n0 ..
+// n0+31 of a stage whose rows are kBPitch floats) with the bf16x3 split,
+// float32 stages in the swizzled layouts (split_a_at<kAPitch>,
+// split_b_at<kBPitch>), the mma tiles' accumulator: the warp owns all 32
+// rows and those 32 columns as 2 x 4 m16n8 tiles.  Per 16-index step each
+// thread splits its A fragments (2 tiles x 4 registers) and B fragments (4
+// tiles x 2 registers), then issues hi*hi for every tile, then hi*lo, then
+// lo*hi, each into the tile's one float32 accumulator.  The one copy of
+// that order: K3's and K4's chunks (A the band, B the operand), K5's (A the
+// operand, B the tile) and K6's (A the stored block, B its panel) all run
+// it.
+template <int kBPitch, int kAPitch = 32>
 __device__ __forceinline__ void split_chunk(const float* sa, const float* sb,
                                             int n0, float (&acc)[2][4][4]) {
   const int lane = threadIdx.x % 32;
@@ -447,8 +504,8 @@ __device__ __forceinline__ void split_chunk(const float* sa, const float* sb,
         // register r: row g (+8 for odd r), columns 2t, 2t+1 (+8 for r >= 2)
         const int i = mt * 16 + g + (r & 1) * 8;
         const int c = ks + 2 * t + (r >> 1) * 8;
-        const float2 x =
-            *reinterpret_cast<const float2*>(sa + split_a_at(i, c));
+        const float2 x = *reinterpret_cast<const float2*>(
+            sa + split_a_at<kAPitch>(i, c));
         split2(x.x, x.y, ah[mt][r], al[mt][r]);
       }
 #pragma unroll
@@ -457,8 +514,8 @@ __device__ __forceinline__ void split_chunk(const float* sa, const float* sb,
       for (int r = 0; r < 2; ++r) {
         // register r: rows 2t, 2t+1 (+8 for r = 1), column g
         const int kk = ks + 2 * t + r * 8, n = n0 + nt * 8 + g;
-        split2(sb[split_b_at<kPitch>(kk, n)],
-               sb[split_b_at<kPitch>(kk + 1, n)], bh[nt][r], bl[nt][r]);
+        split2(sb[split_b_at<kBPitch>(kk, n)],
+               sb[split_b_at<kBPitch>(kk + 1, n)], bh[nt][r], bl[nt][r]);
       }
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -482,7 +539,43 @@ __device__ __forceinline__ void split_chunk(const float* sa, const float* sb,
 // owns all 32 rows and columns 32w .. 32w+31, as the bf16 kind does.
 __device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
                                           float (&acc)[2][4][4]) {
-  split_chunk<Cfg<Split>::kBPitch>(sa, sb, (threadIdx.x / 32) * 32, acc);
+  split_chunk<Cfg<Split>::kBPitch, Cfg<Split>::kAPitch>(
+      sa, sb, (threadIdx.x / 32) * 32, acc);
+}
+
+// acc += A (32 x 32, rows of 32 doubles) @ B (32 x 32: columns n0 .. n0+31
+// of a stage whose rows are kBPitch doubles) in float64 on DMMA, stages in
+// the swizzled layouts (dmma_a_at, dmma_b_at<kBPitch>): the warp owns all
+// 32 rows and those 32 columns as 4 x 4 m8n8 tiles.  Per 4-index step each
+// lane reads one double of each fragment and the warp issues the 16
+// products in a fixed order.  The one copy: K4's and K8's chunks (A the
+// band, B the operand) and K5's (A the operand, B the tile) run it.
+template <int kBPitch>
+__device__ __forceinline__ void dmma_chunk(const double* sa, const double* sb,
+                                           int n0, double (&acc)[4][4][2]) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kq = 0; kq < 32; kq += 4) {
+    double a[4], b[4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) a[mt] = sa[dmma_a_at(mt * 8 + g, kq + t)];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      b[nt] = sb[dmma_b_at<kBPitch>(kq + t, n0 + nt * 8 + g)];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        sm90::mma_f64_884(acc[mt][nt], a[mt], b[nt]);
+  }
+}
+
+// The same for the band body's float64 kind: warp w owns all 32 rows and
+// columns 32w .. 32w+31.
+__device__ __forceinline__ void mma_chunk(const double* sa, const double* sb,
+                                          double (&acc)[4][4][2]) {
+  dmma_chunk<Cfg<double>::kBPitch>(sa, sb, (threadIdx.x / 32) * 32, acc);
 }
 
 // -- output -------------------------------------------------------------------
@@ -534,15 +627,40 @@ __device__ __forceinline__ void store(const float (&acc)[2][4][4], float* c,
     }
 }
 
+// The float64 kind's C from the DMMA layout: lane l holds columns 8nt +
+// 2(l%4) .. +1 of row 8mt + l/4 of the warp's 32 columns.
+template <bool VEC>
+__device__ __forceinline__ void store(const double (&acc)[4][4][2], double* c,
+                                      int M, int N, int m0, int n0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    const int gi = m0 + mt * 8 + lane / 4;
+    if (gi >= M) continue;
+    double* row = c + gi * N;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int gn = n0 + warp * 32 + nt * 8 + (lane % 4) * 2;
+      const double x = acc[mt][nt][0], y = acc[mt][nt][1];
+      if constexpr (VEC) {
+        if (gn < N) *reinterpret_cast<double2*>(row + gn) = make_double2(x, y);
+      } else {
+        if (gn < N) row[gn] = x;
+        if (gn + 1 < N) row[gn + 1] = y;
+      }
+    }
+  }
+}
+
 // -- the body -----------------------------------------------------------------
 
 // C[m0 : m0+32, n0 : n0+128] of one output (M, N) at c (row-major, leading
-// dimension N) = A @ B over the whole contraction K, A and B read through
-// the policy p, in the stream kind S.  Needs smem_bytes<S>() of dynamic
-// shared memory.
+// dimension N, in Cfg<S>::Out) = A @ B over the whole contraction K, A and
+// B read through the policy p, in the stream kind S.  Needs smem_bytes<S>()
+// of dynamic shared memory.
 template <typename S, bool VEC, class P>
-__device__ __forceinline__ void run(const P& p, float* c, int M, int K,
-                                    int N, int m0, int n0,
+__device__ __forceinline__ void run(const P& p, typename Cfg<S>::Out* c,
+                                    int M, int K, int N, int m0, int n0,
                                     unsigned long long* issued) {
   using Cf = Cfg<S>;
   using T = typename Cf::T;

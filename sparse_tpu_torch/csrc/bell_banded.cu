@@ -28,17 +28,21 @@
 // HBM time, since finding the zeros means reading them.  At small k (K5,
 // k = 32) the tiles' bytes dominate instead.
 //
-// K4/K8 for float32, bf16 and bf16x3 streams (band_kernel below) run the
-// body of band_body.cuh on the tile: 32 x 128 output blocks (one block row
-// at bsz 32, all of k = 128, so each tile's A comes from device memory
-// once), a cp.async ring, and a vote that skips the tile's all-zero 32 x 32
-// chunks (their B copy and multiply-adds), which brings the work issued at
-// the bench shape back to the useful flops.  bf16x3 keeps the float32
-// tiles and ring and splits each pair of fragments into three bf16
-// products on mma.sync (3 x 20.5 GFLOP at the bench band, a small share of
-// the tensor cores' rate); its floor is the 768 MB of float32 tiles it
-// must read to vote on them (>= 0.23 ms).  bell_banded_issued launches the
-// same body with a counter on the card: what the skip saves is measured.
+// K4/K8 (band_kernel below) run the body of band_body.cuh on the tile in
+// every stream kind: 32 x 128 output blocks (one block row at bsz 32, all
+// of k = 128, so each tile's A comes from device memory once), a cp.async
+// ring, and a vote that skips the tile's all-zero 32 x 32 chunks (their B
+// copy and multiply-adds), which brings the work issued at the bench shape
+// back to the useful flops.  bf16x3 keeps the float32 tiles and ring and
+// splits each pair of fragments into three bf16 products on mma.sync (3 x
+// 20.5 GFLOP at the bench band, a small share of the tensor cores' rate);
+// its floor is the 768 MB of float32 tiles it must read to vote on them
+// (>= 0.23 ms).  float64 votes on 64-bit words and multiplies on DMMA
+// (mma.sync m8n8k4, twice the card's DFMA rate), C in float64: its floor is
+// the 1536 MB of float64 tiles it reads to vote (>= 0.46 ms) and the 512
+// MB output; the 20.5 GFLOP useful take >= 0.31 ms of the FP64 tensor
+// cores.  bell_banded_issued launches the same body with a counter on the
+// card: what the skip saves is measured.
 //
 // K5 (band_t_kernel below): at k = 32 it is bound by the tile bytes (769
 // MB of transposed float32 tiles at the bench band, of which the 20
@@ -49,80 +53,35 @@
 // 32-column slice of the tile per warp.  Four kinds: float32 (8x4 register
 // tiles), bf16 (mma.sync), bf16x3 (float32 stages in band_body.cuh's
 // swizzled layouts, its split_chunk: three bf16 mma.sync products a float32
-// pair) and float64 (DMMA, two stages).  bell_banded_t_issued also counts
-// the tile bytes it copied.
+// pair) and float64 (band_body.cuh's dmma_chunk on DMMA, two stages).
+// bell_banded_t_issued also counts the tile bytes it copied.
 //
 // Behaviour: a skipped chunk never multiplies the operand, so where B holds
 // Inf or NaN opposite a densified zero the result is the sparse product's
 // (what SciPy and BSR @ B give), not the NaN of the dense tile product.
-//
-// The float64 kind of K4/K8 stays on the first body (bell_common.cuh): a
-// thread block owns one (row tile, 64-row block, 64-column chunk of k)
-// output tile, stages A and B in shared memory 16 deep and keeps a 4x4
-// register tile per thread; it multiplies every densified zero.
+// Every kind of K4, K5 and K8 skips.
 
 #include "band_body.cuh"
-#include "bell_common.cuh"
+#include "bell_common.cuh"  // the stream kinds (enum Kind)
 
 namespace {
 
 using namespace bell;
 
-constexpr int kTileBM = 64;  // output rows per thread block
-
-// K4's float64 kind: tiles (ntiles, M, K) row-major, b (b_rows, N)
-// row-major, C (ntiles*M, N).  M = rt*bsz, K = W*bsz, N = k.
-__global__ void __launch_bounds__(Shape<kTileBM>::kThreads)
-    bell_banded_kernel(const double* __restrict__ tiles,
-                       const int* __restrict__ start,
-                       const double* __restrict__ b, double* __restrict__ c,
-                       int M, int K, int N, int bsz, long long b_rows) {
-  __shared__ Smem<double, kTileBM> sm;
-  const TilePos p = tile_pos<kTileBM>(M, N);
-  const double* a = tiles + p.tile * M * K;
-  const long long row0 = static_cast<long long>(__ldg(start + p.tile)) * bsz;
-  auto la = [&](int i, int kk) {
-    return a[static_cast<long long>(i) * K + kk];
-  };
-  auto lb = [&](int kk, int n) {
-    const long long row = row0 + kk;
-    return row < b_rows ? b[row * N + n] : 0.0;
-  };
-  double acc[kTM][kTN] = {};
-  accumulate<double, false, kTileBM, true, true>(sm, la, lb, M, N, K, p.m0,
-                                                 p.n0, acc);
-  store<double, kTileBM>(acc, c + p.tile * M * N, N, 1, M, N, p.m0, p.n0);
-}
-
-cudaError_t first_body_f64(const void* tiles, const void* start,
-                           const void* b, void* c, long long ntiles,
-                           long long M, long long K, long long N,
-                           long long bsz, long long b_rows, void* stream) {
-  const long long grid = grid_blocks(ntiles, M, N, kTileBM);
-  if (grid <= 0) return cudaSuccess;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  bell_banded_kernel<<<static_cast<unsigned>(grid),
-                       Shape<kTileBM>::kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(tiles), static_cast<const int*>(start),
-      static_cast<const double*>(b), static_cast<double*>(c),
-      static_cast<int>(M), static_cast<int>(K), static_cast<int>(N),
-      static_cast<int>(bsz), b_rows);
-  return cudaGetLastError();
-}
-
-// -- K4/K8 for float32, bf16 and bf16x3 streams ------------------------------
+// -- K4/K8 --------------------------------------------------------------------
 
 // tiles (ntiles, M, K) and b (b_rows, N) in the stream kind S's element
-// type, C (ntiles*M, N) float32.  Block (tile, 32-row block, 128-column
-// block), column blocks fastest.
+// type, C (ntiles*M, N) in Cfg<S>::Out (float64 for float64, float32
+// otherwise).  Block (tile, 32-row block, 128-column block), column blocks
+// fastest.
 template <typename S, bool VEC>
 __global__ void __launch_bounds__(band::kThreads, band::Cfg<S>::kMinBlocks)
     band_kernel(const typename band::Cfg<S>::T* __restrict__ tiles,
                 const int* __restrict__ start,
                 const typename band::Cfg<S>::T* __restrict__ b,
-                float* __restrict__ c, int M, int K, int N, int bsz,
-                long long b_rows, unsigned long long* __restrict__ issued) {
+                typename band::Cfg<S>::Out* __restrict__ c, int M, int K,
+                int N, int bsz, long long b_rows,
+                unsigned long long* __restrict__ issued) {
   using T = typename band::Cfg<S>::T;
   const int n_blocks = (N + band::kBN - 1) / band::kBN;
   const int m_blocks = (M + band::kBM - 1) / band::kBM;
@@ -164,13 +123,14 @@ cudaError_t launch_band(const void* tiles, const void* start, const void* b,
   kern<<<static_cast<unsigned>(grid), band::kThreads, smem,
          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(tiles), static_cast<const int*>(start),
-      static_cast<const T*>(b), static_cast<float*>(c), static_cast<int>(M),
+      static_cast<const T*>(b),
+      static_cast<typename band::Cfg<S>::Out*>(c), static_cast<int>(M),
       static_cast<int>(K), static_cast<int>(N), static_cast<int>(bsz),
       b_rows, issued);
   return cudaGetLastError();
 }
 
-// The band body's stream kinds: float32, bf16 and bf16x3.
+// The band body's stream kinds: float32, bf16, bf16x3 and float64.
 cudaError_t band_kinds(int kind, const void* tiles, const void* start,
                        const void* b, void* c, long long ntiles, long long M,
                        long long K, long long N, long long bsz,
@@ -186,6 +146,9 @@ cudaError_t band_kinds(int kind, const void* tiles, const void* start,
     case kBF16:
       return launch_band<__nv_bfloat16>(tiles, start, b, c, ntiles, M, K, N,
                                         bsz, b_rows, issued, stream);
+    case kF64:
+      return launch_band<double>(tiles, start, b, c, ntiles, M, K, N, bsz,
+                                 b_rows, issued, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -281,12 +244,10 @@ struct Cfg<band::Split> {
 };
 // float64 on DMMA (mma.sync m8n8k4): a stage is 40 KB, so two stages (one
 // panel in flight behind the one being multiplied, 80 KB) let two blocks
-// share an SM.  A fragment read takes one double a lane: the operand
-// chunk's rows g = 0..7 at columns t = 0..3, the tile chunk's rows t at
-// columns g.  Unpadded 32-double rows would put 4 lanes of a half warp on
-// one bank, so a row's columns are swizzled: the operand's row r at c ^ 4 *
-// (r % 8), the tile's row r at c ^ 4 * (r % 4).  Each half warp then meets
-// 32 banks, and 16-byte cp.async vectors (column pairs) stay whole.
+// share an SM.  The operand chunk is the band body's float64 A, the tile
+// chunk its B (band_body.cuh: dmma_a_at, dmma_b_at, swizzled so that every
+// fragment read of dmma_chunk meets 32 banks a half warp, and 16-byte
+// cp.async vectors stay whole).
 template <>
 struct Cfg<double> {
   using T = double;
@@ -297,10 +258,10 @@ struct Cfg<double> {
   static constexpr int kStages = 2;
   static constexpr int kMinBlocks = 2;
   __device__ static __forceinline__ int op_at(int r, int c) {
-    return r * kPitch + (c ^ ((r & 7) << 2));
+    return band::dmma_a_at(r, c);
   }
   __device__ static __forceinline__ int tile_at(int r, int c) {
-    return r * kPitch + (c ^ ((r & 3) << 2));
+    return band::dmma_b_at<kPitch>(r, c);
   }
 };
 
@@ -458,27 +419,10 @@ __device__ __forceinline__ void mma_slice(const float* so, const float* st,
   band::split_chunk<Cfg<band::Split>::kPitch>(so, st, 0, acc);
 }
 
-// float64 on DMMA: 4 x 4 m8n8 tiles per warp; per 4-index step each lane
-// reads one double of each operand fragment and the warp issues the 16
-// products in a fixed order.
+// float64 (the band body's A and B layouts): its DMMA chunk step.
 __device__ __forceinline__ void mma_slice(const double* so, const double* st,
                                           double (&acc)[4][4][2]) {
-  using Cf = Cfg<double>;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int kq = 0; kq < kBK; kq += 4) {
-    double a[4], b[4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) a[mt] = so[Cf::op_at(mt * 8 + g, kq + t)];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) b[nt] = st[Cf::tile_at(kq + t, nt * 8 + g)];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        sm90::mma_f64_884(acc[mt][nt], a[mt], b[nt]);
-  }
+  band::dmma_chunk<Cfg<double>::kPitch>(so, st, 0, acc);
 }
 
 // C^T rows n0 + ., columns i0 + . of this warp's slice; ct points at the
@@ -720,25 +664,20 @@ extern "C" {
 
 // kind as in bell_spmm.cu.  tiles (ntiles, M, K) and b (b_rows, N) in the
 // stream type, start (ntiles,) int32, C (ntiles*M, N) in float32 (float64
-// for kind 3).  Float32, bf16 and bf16x3 streams run band_kernel, float64
-// the first body.  Returns cudaGetLastError() after the launch, or the
-// error of a shape the kernel cannot index.
+// for kind 3).  Every kind runs band_kernel.  Returns cudaGetLastError()
+// after the launch, or the error of a shape the kernel cannot index.
 int bell_banded(int kind, const void* tiles, const void* start,
                 const void* b, void* c, long long ntiles, long long M,
                 long long K, long long N, long long bsz, long long b_rows,
                 void* stream) {
-  if (kind == kF64)
-    return first_body_f64(tiles, start, b, c, ntiles, M, K, N, bsz, b_rows,
-                          stream);
   return band_kinds(kind, tiles, start, b, c, ntiles, M, K, N, bsz, b_rows,
                     nullptr, stream);
 }
 
-// bell_banded for the float32, bf16 and bf16x3 kinds (float64 returns
-// cudaErrorInvalidValue), also adding to *issued (on the card, zeroed by
-// the caller) the multiply-adds the body issues: kBM x kBK x kBN for every
-// chunk its vote kept (once for bf16x3, whose three products a pair are
-// the same multiply-adds split).
+// bell_banded, also adding to *issued (on the card, zeroed by the caller)
+// the multiply-adds the body issues: kBM x kBK x kBN for every chunk its
+// vote kept (once for bf16x3, whose three products a pair are the same
+// multiply-adds split), in every kind.
 int bell_banded_issued(int kind, const void* tiles, const void* start,
                        const void* b, void* c, long long ntiles, long long M,
                        long long K, long long N, long long bsz,

@@ -1,6 +1,7 @@
 // The first body of the blocked-ELL SpMM kernels, which keeps the float64
-// kinds of K3, K4/K8 and K6, K6's bf16x3, and K6 past bsz 64 (bell_spmm.cu,
-// bell_banded.cu): one thread block accumulates one (BM x 64) output tile
+// kinds of K3 and K6 and every kind of K6 past bsz 64 (bell_spmm.cu; the
+// stream kinds below serve bell_banded.cu too): one thread block
+// accumulates one (BM x 64) output tile
 // of C = A @ B over the whole contraction, staging A and B in shared memory
 // in chunks of 16 along the contraction; each thread holds a 4 x 4 register
 // tile.  The caller says how A(i, kk) and B(kk, n) are read (a functor each,

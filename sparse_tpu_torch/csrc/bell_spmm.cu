@@ -34,19 +34,21 @@
 // operand, so Inf or NaN in B opposite it gives the sparse product's
 // answer.
 //
-// K6's float32 and bf16 streams (bsz <= 64) run the persistent body of
-// block_body.cuh: thread blocks walk the output tiles (one block row x 128
-// columns) in order with a cp.async ring of stored blocks and operand
-// panels that runs across block rows, one vote per stored block (a padding
-// slot's zero block skips its panel and its multiply-adds), 8x8 float32
-// register tiles, bf16 on mma.sync; bell_block_issued counts the
-// multiply-adds the vote kept.  K6's float64 and bf16x3 kinds (and bsz
-// > 64), and K3's float64 kind, run the first body (bell_common.cuh): one
-// thread block owns one (block row, 64-column chunk of k) and keeps its
-// output in registers (4 x 4 per thread) across the whole contraction; K3
-// stages the wide row in chunks of 16 contraction indices that run across
-// block boundaries, K6 walks the Lb stored blocks one at a time.  No
-// atomics, so two runs of one input agree bitwise.
+// K6's float32, bf16 and bf16x3 streams (bsz <= 64) run the persistent
+// body of block_body.cuh: thread blocks walk the output tiles (one block
+// row x 128 columns) in order with a cp.async ring of stored blocks and
+// operand panels that runs across block rows, one vote per stored block (a
+// padding slot's zero block skips its panel and its multiply-adds), 8x8
+// float32 register tiles, bf16 on mma.sync, bf16x3 as three bf16 mma.sync
+// products a float32 fragment pair (band_body.cuh's split_chunk);
+// bell_block_issued counts the multiply-adds the vote kept.  K6's float64
+// kind (and every kind past bsz 64), and K3's float64 kind, run the first
+// body (bell_common.cuh): one thread block owns one (block row, 64-column
+// chunk of k) and keeps its output in registers (4 x 4 per thread) across
+// the whole contraction; K3 stages the wide row in chunks of 16
+// contraction indices that run across block boundaries, K6 walks the Lb
+// stored blocks one at a time; it skips no zero.  No atomics, so two runs
+// of one input agree bitwise.
 
 #include "band_body.cuh"
 #include "bell_common.cuh"
@@ -191,24 +193,28 @@ cudaError_t fused_band_kinds(int kind, const void* blocks, const void* cols,
   }
 }
 
-// K6 for float32 and bf16 streams: blocks (nb, Lb, bsz, bsz), b (nb*bsz,
-// k) and C (nb*bsz, k) in the stream type T.
-template <typename T, int BK, bool VEC>
+// K6 for float32, bf16 and bf16x3 streams: blocks (nb, Lb, bsz, bsz), b
+// (nb*bsz, k) and C (nb*bsz, k) in the stream kind S's element type T
+// (float32 for bf16x3).
+template <typename S, int BK, bool VEC>
 __global__ void __launch_bounds__(bbody::kThreads)
-    block_tile_kernel(const T* __restrict__ blocks,
-                      const int* __restrict__ cols, const T* __restrict__ b,
-                      T* __restrict__ c, int nb, int Lb, int bsz, int k,
+    block_tile_kernel(const typename bbody::Cfg<S>::T* __restrict__ blocks,
+                      const int* __restrict__ cols,
+                      const typename bbody::Cfg<S>::T* __restrict__ b,
+                      typename bbody::Cfg<S>::T* __restrict__ c, int nb,
+                      int Lb, int bsz, int k,
                       unsigned long long* __restrict__ issued) {
-  bbody::run<T, BK, VEC>(blocks, cols, b, c, nb, Lb, bsz, k, issued);
+  bbody::run<S, BK, VEC>(blocks, cols, b, c, nb, Lb, bsz, k, issued);
 }
 
-template <typename T, int BK, bool VEC>
+template <typename S, int BK, bool VEC>
 cudaError_t launch_block_tiles(const void* blocks, const void* cols,
                                const void* b, void* c, long long nb,
                                long long Lb, long long bsz, long long k,
                                unsigned long long* issued, void* stream) {
-  auto kern = block_tile_kernel<T, BK, VEC>;
-  constexpr int smem = bbody::Geo<T, BK>::kBytes;
+  using T = typename bbody::Cfg<S>::T;
+  auto kern = block_tile_kernel<S, BK, VEC>;
+  constexpr int smem = bbody::Geo<S, BK>::kBytes;
   cudaError_t rc = band::allow_smem<smem>(kern);
   if (rc != cudaSuccess) return rc;
   constexpr int threads = bbody::kThreads;
@@ -236,12 +242,13 @@ cudaError_t launch_block_tiles(const void* blocks, const void* cols,
   return cudaGetLastError();
 }
 
-// The persistent K6 body's kinds, float32 and bf16, at bsz <= 64.
-template <typename T>
+// The persistent K6 body's kinds, float32, bf16 and bf16x3, at bsz <= 64.
+template <typename S>
 cudaError_t launch_block_body(const void* blocks, const void* cols,
                               const void* b, void* c, long long nb,
                               long long Lb, long long bsz, long long k,
                               unsigned long long* issued, void* stream) {
+  using T = typename bbody::Cfg<S>::T;
   constexpr long long kMax = 0x7fffffffLL;
   if (nb <= 0 || Lb <= 0 || bsz <= 0 || k <= 0) return cudaSuccess;
   // 32-bit index math inside a block row's output and the step count
@@ -251,14 +258,35 @@ cudaError_t launch_block_body(const void* blocks, const void* cols,
   const bool vec = bsz % V == 0 && k % V == 0 && band::aligned16(blocks) &&
                    band::aligned16(b) && band::aligned16(c);
   if (bsz <= 32)
-    return vec ? launch_block_tiles<T, 32, true>(blocks, cols, b, c, nb, Lb,
+    return vec ? launch_block_tiles<S, 32, true>(blocks, cols, b, c, nb, Lb,
                                                  bsz, k, issued, stream)
-               : launch_block_tiles<T, 32, false>(blocks, cols, b, c, nb, Lb,
+               : launch_block_tiles<S, 32, false>(blocks, cols, b, c, nb, Lb,
                                                   bsz, k, issued, stream);
-  return vec ? launch_block_tiles<T, 64, true>(blocks, cols, b, c, nb, Lb,
+  return vec ? launch_block_tiles<S, 64, true>(blocks, cols, b, c, nb, Lb,
                                                bsz, k, issued, stream)
-             : launch_block_tiles<T, 64, false>(blocks, cols, b, c, nb, Lb,
+             : launch_block_tiles<S, 64, false>(blocks, cols, b, c, nb, Lb,
                                                 bsz, k, issued, stream);
+}
+
+// K6's persistent kinds; counter may be null.  Other kinds return
+// cudaErrorInvalidValue.
+cudaError_t block_body_kinds(int kind, const void* blocks, const void* cols,
+                             const void* b, void* c, long long nb,
+                             long long Lb, long long bsz, long long k,
+                             unsigned long long* issued, void* stream) {
+  switch (kind) {
+    case kF32:
+      return launch_block_body<float>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                      issued, stream);
+    case kF32Split:
+      return launch_block_body<band::Split>(blocks, cols, b, c, nb, Lb, bsz,
+                                            k, issued, stream);
+    case kBF16:
+      return launch_block_body<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
+                                              bsz, k, issued, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, bool SPLIT, bool FUSED>
@@ -279,8 +307,8 @@ cudaError_t launch(const void* blocks, const void* cols, const void* b,
   return cudaGetLastError();
 }
 
-// The first body's kinds: all four for K6 (float32 and bf16 only past
-// bsz 64), float64 for K3.
+// The first body's kinds: float64 for K3 and K6, and every kind of K6 past
+// bsz 64.
 template <bool FUSED>
 int dispatch(int kind, const void* blocks, const void* cols, const void* b,
              void* c, long long nb, long long Lb, long long bsz, long long k,
@@ -340,44 +368,30 @@ int bell_fused_issued(int kind, const void* blocks, const void* cols,
                           static_cast<unsigned long long*>(issued), stream);
 }
 
-// K6.  The float32 and bf16 kinds at bsz <= 64 run the persistent body,
-// the others the first body.  The persistent body's bf16 kind writes a
-// bf16 C (the result's dtype), the first body's float32.
+// K6.  The float32, bf16 and bf16x3 kinds at bsz <= 64 run the persistent
+// body, float64 and bsz > 64 the first body.  The persistent body's bf16
+// kind writes a bf16 C (the result's dtype), the first body's float32.
 int bell_block(int kind, const void* blocks, const void* cols, const void* b,
                void* c, long long nb, long long Lb, long long bsz,
                long long k, void* stream) {
-  if (bsz <= 64) {
-    if (kind == kF32)
-      return launch_block_body<float>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                      nullptr, stream);
-    if (kind == kBF16)
-      return launch_block_body<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
-                                              bsz, k, nullptr, stream);
-  }
+  if (bsz <= 64 && kind != kF64)
+    return block_body_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k,
+                            nullptr, stream);
   return dispatch<false>(kind, blocks, cols, b, c, nb, Lb, bsz, k, stream);
 }
 
-// bell_block for the float32 and bf16 kinds at bsz <= 64 (C in the stream
-// type; others return cudaErrorInvalidValue), also adding to *issued (on
-// the card, zeroed by the caller) the multiply-adds the persistent body's
-// vote kept: rows x bsz x columns of a tile for each stored block it kept
-// there.
+// bell_block for the float32, bf16 and bf16x3 kinds at bsz <= 64 (C in the
+// stream type, float32 for bf16x3; others return cudaErrorInvalidValue),
+// also adding to *issued (on the card, zeroed by the caller) the
+// multiply-adds the persistent body's vote kept: rows x bsz x columns of a
+// tile for each stored block it kept there (once for bf16x3).
 int bell_block_issued(int kind, const void* blocks, const void* cols,
                       const void* b, void* c, long long nb, long long Lb,
                       long long bsz, long long k, void* issued,
                       void* stream) {
-  auto* count = static_cast<unsigned long long*>(issued);
   if (bsz > 64) return cudaErrorInvalidValue;
-  switch (kind) {
-    case kF32:
-      return launch_block_body<float>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                      count, stream);
-    case kBF16:
-      return launch_block_body<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
-                                              bsz, k, count, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return block_body_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k,
+                          static_cast<unsigned long long*>(issued), stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
-// K6's float32 / bf16 body (bell_spmm.cu): C[r] (bsz, k) = sum over the
-// stored slots l of block row r of blocks[r, l] (bsz, bsz) @ the operand
-// panel B[cols[r, l]*bsz : +bsz] (bsz, k), one stored block at a time, as
-// sparse_tpu/ops/pallas_bell.py::bell_spmm_pallas (def :58, pallas_call
-// :89, kernel :41-55) steps its grid.
+// K6's float32 / bf16 / bf16x3 body (bell_spmm.cu): C[r] (bsz, k) = sum
+// over the stored slots l of block row r of blocks[r, l] (bsz, bsz) @ the
+// operand panel B[cols[r, l]*bsz : +bsz] (bsz, k), one stored block at a
+// time, as sparse_tpu/ops/pallas_bell.py::bell_spmm_pallas (def :58,
+// pallas_call :89, kernel :41-55) steps its grid.
 //
 // Output tiles: one block row's 32 rows (a row group; bsz > 32 gives two)
 // by 128 columns (k > 128 gives more), column tiles fastest.  A thread block
@@ -21,21 +21,30 @@
 // r + 4q, columns 4c .. 4c+3 and 64 + 4c .. +3: 64 FMAs per four 16-byte
 // shared loads, conflict-free), in full float32.  bf16 (A and B bf16, sums
 // float32): each warp a 32 x 64 piece on mma.sync m16n8k16 from ldmatrix
-// fragments, the sums rounded to bf16 once as they are stored.  Each
-// output is written once, in the result type (float32, or bf16), after its
-// tile's fixed-order loop, with 16-byte streaming stores (__stcs; the mma
+// fragments, the sums rounded to bf16 once as they are stored.  bf16x3
+// (band::Split: float32 A and B, precision="bf16x3"): the float32 ring and
+// vote with unpadded stages in band_body.cuh's swizzled bf16x3 layouts,
+// each warp's 32 x 64 piece as two 32-column halves, each 32-index chunk
+// of a step multiplied by band_body.cuh's split_chunk (hi*hi, hi*lo, lo*hi
+// a 16-index step, into one float32 accumulator a tile), C in float32.
+// Each output is written once, in the result type (float32, or bf16), after
+// its tile's fixed-order loop, with streaming stores (__stcs; the mma
 // layout's bf16 pairs are traded within each lane quad into 16-byte runs).
 // The block's column ids are read one step before their panel copy needs
 // them.
 // With a counter, each thread block adds rows x bsz x columns of its tile
 // for every step its vote kept: bsz * bsz * k per kept stored block at
-// bsz <= 32.
+// bsz <= 32 (once for bf16x3: its three products split the same
+// multiply-adds).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "band_body.cuh"
 #include "sm90_async.cuh"
 
 namespace bbody {
@@ -44,10 +53,13 @@ constexpr int kBM = 32;       // output rows of a tile
 constexpr int kBN = 128;      // output columns of a tile
 constexpr int kThreads = 64;  // two warps
 
-template <typename T>
+// Per stream kind S (float, __nv_bfloat16, band::Split): T, the element
+// type in memory, in shared memory and of C.
+template <typename S>
 struct Cfg;
 template <>
 struct Cfg<float> {
+  using T = float;
   using Bits = unsigned;
   using Acc = float[8][8];
   static constexpr unsigned kWord = 0x7fffffffu;  // magnitude bits
@@ -56,22 +68,47 @@ struct Cfg<float> {
 };
 template <>
 struct Cfg<__nv_bfloat16> {
+  using T = __nv_bfloat16;
   using Bits = unsigned short;
   using Acc = float[2][8][4];  // per warp 2 m16 x 8 n8 mma tiles
   static constexpr unsigned kWord = 0x7fff7fffu;
   static constexpr int kPadA = 8, kPadB = 8;  // ldmatrix without conflicts
   static constexpr int kVote = 2, kAhead = 3;  // the multiply is short
 };
+// bf16x3: the float32 ring (48 KB at BK 32, 96 KB at BK 64), rows unpadded
+// and swizzled (placed by Geo's a_at / b_at); per warp two 32-column
+// halves of 2 m16 x 4 n8 mma tiles, split_chunk's accumulator each.
+template <>
+struct Cfg<band::Split> {
+  using T = float;
+  using Bits = unsigned;
+  using Acc = float[2][2][4][4];
+  static constexpr unsigned kWord = 0x7fffffffu;
+  static constexpr int kPadA = 0, kPadB = 0;
+  static constexpr int kVote = 1, kAhead = 2;
+};
 
 // BK: a step's contraction (the stored block's columns), 32 or 64.
-template <typename T, int BK>
+// a_at(i, c) and b_at(j, c) place A's element (i, c) and B's (j, c) in
+// their stages.
+template <typename S, int BK>
 struct Geo {
-  static constexpr int PA = BK + Cfg<T>::kPadA, PB = kBN + Cfg<T>::kPadB;
-  static constexpr int kAStages = Cfg<T>::kAhead + 2;
-  static constexpr int kBStages = Cfg<T>::kVote + 1;
+  using T = typename Cfg<S>::T;
+  static constexpr bool kSplit = std::is_same<S, band::Split>::value;
+  static constexpr int PA = BK + Cfg<S>::kPadA, PB = kBN + Cfg<S>::kPadB;
+  static constexpr int kAStages = Cfg<S>::kAhead + 2;
+  static constexpr int kBStages = Cfg<S>::kVote + 1;
   static constexpr int kAStage = kBM * PA, kBStage = BK * PB;
   static constexpr int kBytes =
       (kAStages * kAStage + kBStages * kBStage) * static_cast<int>(sizeof(T));
+  __device__ static __forceinline__ int a_at(int i, int c) {
+    if constexpr (kSplit) return band::split_a_at<PA>(i, c);
+    return i * PA + c;
+  }
+  __device__ static __forceinline__ int b_at(int j, int c) {
+    if constexpr (kSplit) return band::split_b_at<PB>(j, c);
+    return j * PB + c;
+  }
 };
 
 // Where a step lies: stored slot l of tile t = (block row r, row group at
@@ -102,9 +139,12 @@ struct Cursor {
 
 // A: rows m0 .. m0+31 of the stored block (bsz x bsz at blk), all bsz
 // columns, into a (32 x BK) stage; rows and columns past bsz are zero.
-template <typename T, int BK, bool VEC>
-__device__ __forceinline__ void load_a(T* sa, const T* blk, int bsz, int m0) {
-  using G = Geo<T, BK>;
+template <typename S, int BK, bool VEC>
+__device__ __forceinline__ void load_a(typename Cfg<S>::T* sa,
+                                       const typename Cfg<S>::T* blk, int bsz,
+                                       int m0) {
+  using T = typename Cfg<S>::T;
+  using G = Geo<S, BK>;
   const int tid = threadIdx.x;
   if constexpr (VEC) {
     constexpr int V = 16 / sizeof(T), kRow = BK / V;
@@ -114,10 +154,10 @@ __device__ __forceinline__ void load_a(T* sa, const T* blk, int bsz, int m0) {
       const int i = e / kRow, c = (e % kRow) * V;
       const int gi = m0 + i;
       const bool ok = gi < bsz && c < bsz;
-      sm90::cp_async16(sa + i * G::PA + c, ok ? blk + gi * bsz + c : blk, ok);
+      sm90::cp_async16(sa + G::a_at(i, c), ok ? blk + gi * bsz + c : blk, ok);
     }
   } else {
-    using B = typename Cfg<T>::Bits;
+    using B = typename Cfg<S>::Bits;
     B* dst = reinterpret_cast<B*>(sa);
     const B* src = reinterpret_cast<const B*>(blk);
 #pragma unroll 4
@@ -125,15 +165,16 @@ __device__ __forceinline__ void load_a(T* sa, const T* blk, int bsz, int m0) {
       const int e = tid + s * kThreads;
       const int i = e / BK, c = e % BK;
       const int gi = m0 + i;
-      dst[i * G::PA + c] = (gi < bsz && c < bsz) ? src[gi * bsz + c] : B(0);
+      dst[G::a_at(i, c)] = (gi < bsz && c < bsz) ? src[gi * bsz + c] : B(0);
     }
   }
 }
 
 // Whether any element this thread copied by load_a is non-zero (NaN is).
-template <typename T, int BK, bool VEC>
-__device__ __forceinline__ bool mine_nonzero(const T* sa) {
-  using G = Geo<T, BK>;
+template <typename S, int BK, bool VEC>
+__device__ __forceinline__ bool mine_nonzero(const typename Cfg<S>::T* sa) {
+  using T = typename Cfg<S>::T;
+  using G = Geo<S, BK>;
   const int tid = threadIdx.x;
   unsigned any = 0;
   if constexpr (VEC) {
@@ -142,16 +183,16 @@ __device__ __forceinline__ bool mine_nonzero(const T* sa) {
     for (int s = 0; s < kBM * kRow / kThreads; ++s) {
       const int e = tid + s * kThreads;
       const uint4 w = *reinterpret_cast<const uint4*>(
-          sa + (e / kRow) * G::PA + (e % kRow) * V);
-      any |= (w.x | w.y | w.z | w.w) & Cfg<T>::kWord;
+          sa + G::a_at(e / kRow, (e % kRow) * V));
+      any |= (w.x | w.y | w.z | w.w) & Cfg<S>::kWord;
     }
   } else {
-    using B = typename Cfg<T>::Bits;
+    using B = typename Cfg<S>::Bits;
     const B* src = reinterpret_cast<const B*>(sa);
 #pragma unroll 4
     for (int s = 0; s < kBM * BK / kThreads; ++s) {
       const int e = tid + s * kThreads;
-      any |= src[(e / BK) * G::PA + e % BK] & Cfg<T>::kWord;
+      any |= src[G::a_at(e / BK, e % BK)] & Cfg<S>::kWord;
     }
   }
   return any != 0;
@@ -159,10 +200,12 @@ __device__ __forceinline__ bool mine_nonzero(const T* sa) {
 
 // B: panel rows 0 .. BK-1 (rows past bsz read 0) at panel (row-major,
 // leading dimension k), columns n0 .. n0+127 (past k read 0), into a stage.
-template <typename T, int BK, bool VEC>
-__device__ __forceinline__ void load_b(T* sb, const T* panel, int bsz, int k,
-                                       int n0) {
-  using G = Geo<T, BK>;
+template <typename S, int BK, bool VEC>
+__device__ __forceinline__ void load_b(typename Cfg<S>::T* sb,
+                                       const typename Cfg<S>::T* panel,
+                                       int bsz, int k, int n0) {
+  using T = typename Cfg<S>::T;
+  using G = Geo<S, BK>;
   const int tid = threadIdx.x;
   if constexpr (VEC) {
     constexpr int V = 16 / sizeof(T), kRow = kBN / V;
@@ -171,13 +214,13 @@ __device__ __forceinline__ void load_b(T* sb, const T* panel, int bsz, int k,
       const int e = tid + s * kThreads;
       const int j = e / kRow, c = (e % kRow) * V;
       const bool ok = j < bsz && n0 + c < k;
-      sm90::cp_async16(sb + j * G::PB + c,
+      sm90::cp_async16(sb + G::b_at(j, c),
                        ok ? panel + static_cast<long long>(j) * k + n0 + c
                           : panel,
                        ok);
     }
   } else {
-    using B = typename Cfg<T>::Bits;
+    using B = typename Cfg<S>::Bits;
     B* dst = reinterpret_cast<B*>(sb);
     const int lane = tid % 32;
 #pragma unroll 2
@@ -187,7 +230,7 @@ __device__ __forceinline__ void load_b(T* sb, const T* panel, int bsz, int k,
           panel + (row_ok ? static_cast<long long>(j) * k : 0));
 #pragma unroll
       for (int c = lane; c < kBN; c += 32)
-        dst[j * G::PB + c] = (row_ok && n0 + c < k) ? src[n0 + c] : B(0);
+        dst[G::b_at(j, c)] = (row_ok && n0 + c < k) ? src[n0 + c] : B(0);
     }
   }
 }
@@ -263,6 +306,23 @@ __device__ __forceinline__ void mma_step(const __nv_bfloat16* sa,
   }
 }
 
+// The same in bf16x3 (Geo<band::Split, BK>'s stages): warp w owns all 32
+// rows and columns 64w .. 64w+63 as two 32-column halves, and each
+// 32-index chunk of the step (one at BK 32, two at BK 64: a half of A's
+// 64-float rows, 32 of B's rows) goes through split_chunk for each half.
+template <int BK>
+__device__ __forceinline__ void mma_step(const float* sa, const float* sb,
+                                         float (&acc)[2][2][4][4]) {
+  using G = Geo<band::Split, BK>;
+  const int n0 = (threadIdx.x / 32) * 64;
+#pragma unroll 1
+  for (int k0 = 0; k0 < BK; k0 += 32)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      band::split_chunk<G::PB, G::PA>(sa + k0, sb + k0 * G::PB, n0 + 32 * h,
+                                      acc[h]);
+}
+
 __device__ __forceinline__ void zero(float (&acc)[8][8]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -276,6 +336,17 @@ __device__ __forceinline__ void zero(float (&acc)[2][8][4]) {
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+}
+
+__device__ __forceinline__ void zero(float (&acc)[2][2][4][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[h][m][n][i] = 0.f;
 }
 
 // C rows m0 + . (< M) and columns n0 + . (< N) of one block row's output
@@ -367,18 +438,50 @@ __device__ __forceinline__ void store(const float (&acc)[2][8][4],
     }
 }
 
+// The float32 result of the bf16x3 kind from the mma layout: lane l holds
+// columns 8nt + 2(l%4) .. +1 of rows 16mt + l/4 (+8) of each half, written
+// as 8-byte streaming stores (a lane quad's four make one 32-byte run).
+template <bool VEC>
+__device__ __forceinline__ void store(const float (&acc)[2][2][4][4],
+                                      float* c, int M, int N, int m0,
+                                      int n0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int gi = m0 + mt * 16 + lane / 4 + r * 8;
+      if (gi >= M) continue;
+      float* row = c + static_cast<long long>(gi) * N;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int gn = n0 + warp * 64 + h * 32 + nt * 8 + (lane % 4) * 2;
+          const float x = acc[h][mt][nt][2 * r], y = acc[h][mt][nt][2 * r + 1];
+          if constexpr (VEC) {
+            if (gn < N)
+              __stcs(reinterpret_cast<float2*>(row + gn), make_float2(x, y));
+          } else {
+            if (gn < N) __stcs(row + gn, x);
+            if (gn + 1 < N) __stcs(row + gn + 1, y);
+          }
+        }
+    }
+}
+
 // The persistent body.  blocks (nb, Lb, bsz, bsz), cols (nb, Lb), b
-// (nb*bsz, k) and c (nb*bsz, k) in T.  Needs Geo<T, BK>::kBytes of
-// dynamic shared memory.
-template <typename T, int BK, bool VEC>
-__device__ __forceinline__ void run(const T* __restrict__ blocks,
-                                    const int* __restrict__ cols,
-                                    const T* __restrict__ b,
-                                    T* __restrict__ c, int nb, int Lb,
-                                    int bsz, int k,
-                                    unsigned long long* issued) {
-  using Cf = Cfg<T>;
-  using G = Geo<T, BK>;
+// (nb*bsz, k) and c (nb*bsz, k) in the stream kind S's element type T.
+// Needs Geo<S, BK>::kBytes of dynamic shared memory.
+template <typename S, int BK, bool VEC>
+__device__ __forceinline__ void run(
+    const typename Cfg<S>::T* __restrict__ blocks,
+    const int* __restrict__ cols, const typename Cfg<S>::T* __restrict__ b,
+    typename Cfg<S>::T* __restrict__ c, int nb, int Lb, int bsz, int k,
+    unsigned long long* issued) {
+  using T = typename Cfg<S>::T;
+  using Cf = Cfg<S>;
+  using G = Geo<S, BK>;
   constexpr int kVote = Cf::kVote, kAhead = Cf::kAhead;
   static_assert(kAhead - kVote == 1, "column ids are read one step ahead");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -415,7 +518,7 @@ __device__ __forceinline__ void run(const T* __restrict__ blocks,
     if (it + kAhead < nc) {
       const long long slot = static_cast<long long>(ca.r) * Lb + ca.l;
       col_new = __ldg(cols + slot);
-      load_a<T, BK, VEC>(stage_a(it + kAhead), blocks + slot * bsz2, bsz,
+      load_a<S, BK, VEC>(stage_a(it + kAhead), blocks + slot * bsz2, bsz,
                          ca.m0);
       ca.next(Lb, m_groups, n_tiles);
     }
@@ -424,9 +527,9 @@ __device__ __forceinline__ void run(const T* __restrict__ blocks,
       sm90::cp_async_wait<kWait>();
       const bool live = it + kVote < nc;
       const bool nz = __syncthreads_or(
-          live && mine_nonzero<T, BK, VEC>(stage_a(it + kVote)));
+          live && mine_nonzero<S, BK, VEC>(stage_a(it + kVote)));
       if (nz) {
-        load_b<T, BK, VEC>(stage_b(it + kVote),
+        load_b<S, BK, VEC>(stage_b(it + kVote),
                            b + static_cast<long long>(col_vote) * bsz * k,
                            bsz, k, cv.n0);
         const int rows = bsz - cv.m0 < kBM ? bsz - cv.m0 : kBM;

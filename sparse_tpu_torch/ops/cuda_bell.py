@@ -27,26 +27,27 @@ of K5.  The super-tile fields (``S``, ``SW``, ``rel``, ``sup``) only shared a
 DMA window on the TPU; ``start == sup.repeat(S) + rel`` by construction, so
 K4 and K5 read ``start`` and ignore them.
 
-The float32, bf16 and bf16x3 streams of K3 and K4, and every stream of
-K5, skip the band's all-zero 32 x 32 chunks: K3 and K4 by a vote inside
-the kernel on what they read, K5 by the kit's chunk mask
+The float32, bf16 and bf16x3 streams of K3, every stream of K4 (and K8)
+and of K5 skip the band's all-zero 32 x 32 chunks: K3 and K4 by a vote
+inside the kernel on what they read, K5 by the kit's chunk mask
 (:attr:`BandedKitT.chunk_nz`, built once with the kit), so it does not
-read them; K6's float32 and bf16 streams skip a padding slot's zero block
-by a vote per stored block.  Each has an issued-work counter
-(:func:`fused_issued_flops`, :func:`banded_issued_flops`,
-:func:`banded_t_issued`, :func:`block_issued_flops`) beside a host model
-of what it should count.
+read them; K6's float32, bf16 and bf16x3 streams (bsz <= 64) skip a
+padding slot's zero block by a vote per stored block.  Each has an
+issued-work counter (:func:`fused_issued_flops`,
+:func:`banded_issued_flops`, :func:`banded_t_issued`,
+:func:`block_issued_flops`) beside a host model of what it should count.
 
 Precision, as the reference's ``_resolve_precision``: float32 streams are
 full float32 (no TF32); ``precision="bf16x3"`` splits each float32 operand
 into a bf16 high part and a bf16 residual and sums hi*hi + hi*lo + lo*hi in
 float32 (``_dot_bf16x3``); ``compute_dtype=torch.bfloat16`` streams bf16 and
 accumulates in float32.  Streams are float32, bfloat16 or float64 (float64
-accumulates in float64); anything else raises ``ValueError``.  K3, K4 and
-K5 run bf16x3 on the tensor cores (three bf16 ``mma.sync`` products a
-float32 pair, one float32 accumulator); K6 runs it, and K3, K4 and K6 run
-float64, on their first body, which skips no zero.  The interpret flag of
-the reference is dropped.
+accumulates in float64); anything else raises ``ValueError``.  K3, K4, K5
+and K6 run bf16x3 on the tensor cores (three bf16 ``mma.sync`` products a
+float32 pair, one float32 accumulator); K4 and K5 run float64 on DMMA
+(``mma.sync`` m8n8k4); K3 and K6 run float64, and K6 every kind past bsz
+64, on their first body (``csrc/bell_common.cuh``), which skips no zero.
+The interpret flag of the reference is dropped.
 """
 
 from __future__ import annotations
@@ -110,7 +111,8 @@ _KIND_F32_SPLIT = 1
 # band_t::kBN, kBK, kSlice)
 _BAND_BM, _BAND_BN, _BAND_BK = 32, 128, 32
 _BT_BN, _BT_BK, _BT_SLICE = 32, 32, 32
-_COUNTED = (torch.float32, torch.bfloat16)  # K3's and K6's counted kinds
+# K3's and K6's counted streams (bf16x3 is a float32 stream)
+_COUNTED = (torch.float32, torch.bfloat16)
 
 
 # -- precision ----------------------------------------------------------------
@@ -310,11 +312,11 @@ def _nonzero_chunks(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def _band_body_model(a: torch.Tensor, k: int) -> int:
-    """Operations (2 per multiply-add) that the float32 / bf16 / bf16x3
-    body of ``csrc/band_body.cuh`` issues on A's (n, M, K) at width ``k``:
-    one 32 x 32 x (k rounded up to 128) product for each 32 x 32 chunk of A
-    that is not zero throughout, where its vote keeps it (bf16x3 splits
-    each into three bf16 products and counts it once)."""
+    """Operations (2 per multiply-add) that the body of
+    ``csrc/band_body.cuh`` issues on A's (n, M, K) at width ``k``, in every
+    kind: one 32 x 32 x (k rounded up to 128) product for each 32 x 32
+    chunk of A that is not zero throughout, where its vote keeps it (bf16x3
+    splits each into three bf16 products and counts it once)."""
     kept = int(_nonzero_chunks(a, _BAND_BM, _BAND_BK).sum())
     return kept * 2 * _BAND_BM * _BAND_BK * (-(-k // _BAND_BN) * _BAND_BN)
 
@@ -330,9 +332,10 @@ def fused_issued_model(a: BELL, k: int, *, compute_dtype=None) -> int:
 
 
 def banded_issued_model(tiles: torch.Tensor, k: int) -> int:
-    """Host model of what K4's and K8's float32 / bf16 / bf16x3 body issues
-    on the densified ``tiles`` (ntiles, M, K) at width ``k`` (what
-    :func:`banded_issued_flops` should read)."""
+    """Host model of what K4's and K8's body issues on the densified
+    ``tiles`` (ntiles, M, K) at width ``k`` (what
+    :func:`banded_issued_flops` should read): the same for every kind, a
+    float64 kit's and a bf16x3 call's those of the float32 kind."""
     return _band_body_model(tiles, k)
 
 
@@ -358,12 +361,14 @@ def fused_issued_flops(a: BELL, b, *, compute_dtype=None,
 
 
 def block_issued_model(a: BELL, k: int, *, stream_dtype=None) -> int:
-    """Host model of what K6's float32 / bf16 body issues on ``a`` at width
-    ``k`` (what :func:`block_issued_flops` should read), in operations (2
-    per multiply-add): for each stored block, and each 32-row group of it
-    that is not zero throughout in the stream dtype (NaN is not, -0 is),
-    its rows x bsz x k multiply-adds, so bsz * bsz * k per non-zero stored
-    block at bsz <= 32."""
+    """Host model of what K6's float32 / bf16 / bf16x3 body issues on ``a``
+    at width ``k`` (what :func:`block_issued_flops` should read), in
+    operations (2 per multiply-add): for each stored block, and each 32-row
+    group of it that is not zero throughout in the stream dtype (NaN is
+    not, -0 is), its rows x bsz x k multiply-adds, so bsz * bsz * k per
+    non-zero stored block at bsz <= 32.  bf16x3 (a float32 stream) counts
+    each once, as float32 does: its three products split the same
+    multiply-adds."""
     bsz = a.bsz
     blocks = a.blocks.to(stream_dtype or a.dtype).reshape(-1, bsz, bsz)
     kept = _nonzero_chunks(blocks, _BAND_BM, bsz)[:, :, 0]  # (blocks, groups)
@@ -371,15 +376,17 @@ def block_issued_model(a: BELL, k: int, *, stream_dtype=None) -> int:
     return 2 * int((kept.cpu() * rows).sum()) * bsz * k
 
 
-def block_issued_flops(a: BELL, b) -> int:
-    """Operations (two per multiply-add) that K6's float32 / bf16 body
-    issues on ``a`` against ``b``, as the kernel counts them: each thread
-    block adds, for every stored block its vote kept, the multiply-adds of
-    its tile's rows and columns, to a counter on the card.  One launch into
-    a scratch output, outside ``K6_LAUNCHES``.  CUDA tensors, float32 or
-    bf16 streams and bsz <= 64 only; the count is the kernel's, so there is
-    no plain version (:func:`block_issued_model` is what it should read)."""
-    return _issued("block_issued_flops", "block", a, b, None)
+def block_issued_flops(a: BELL, b, *, precision=None) -> int:
+    """Operations (two per multiply-add) that K6's float32 / bf16 / bf16x3
+    body issues on ``a`` against ``b``, as the kernel counts them: each
+    thread block adds, for every stored block its vote kept, the
+    multiply-adds of its tile's rows and columns, to a counter on the card
+    (a bf16x3 block once).  One launch into a scratch output, outside
+    ``K6_LAUNCHES``.  CUDA tensors, float32 or bf16 streams and bsz <= 64
+    only (``precision="bf16x3"`` splits a float32 one); the count is the
+    kernel's, so there is no plain version (:func:`block_issued_model` is
+    what it should read)."""
+    return _issued("block_issued_flops", "block", a, b, None, precision)
 
 
 # -- the banded plan ----------------------------------------------------------
@@ -661,21 +668,21 @@ def banded_spmm_t_hbm_bytes(kit: BandedKitT, bsz: int, n: int, k: int,
 def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
                         b: torch.Tensor, bsz: int, *,
                         precision=None) -> int:
-    """Operations (two per multiply-add) that the float32 / bf16 / bf16x3
-    body of K4 and K8 issues on ``tiles`` (ntiles, M, K) against the
-    operand ``b`` (rows, k), as the kernel counts them: each thread block
-    adds the chunks its zero-chunk vote kept, at their full padded size,
-    to a counter on the card (a bf16x3 chunk once).  One launch into a
-    scratch output, outside ``K4_LAUNCHES`` and ``K8_LAUNCHES``: it
-    measures the skip and computes nothing.  CUDA tensors with float32 or
-    bf16 tiles only (``precision="bf16x3"`` splits float32 tiles); the
-    count is the kernel's, so there is no plain version."""
+    """Operations (two per multiply-add) that the body of K4 and K8 issues
+    on ``tiles`` (ntiles, M, K) against the operand ``b`` (rows, k), as the
+    kernel counts them: each thread block adds the chunks its zero-chunk
+    vote kept, at their full padded size, to a counter on the card (a
+    bf16x3 chunk once).  One launch into a scratch output, outside
+    ``K4_LAUNCHES`` and ``K8_LAUNCHES``: it measures the skip and computes
+    nothing.  CUDA tensors with float32, bf16 or float64 tiles
+    (``precision="bf16x3"`` splits float32 tiles); the count is the
+    kernel's, so there is no plain version."""
     name = "banded_issued_flops"
     if (tiles.dim() != 3 or b.dim() != 2
-            or tiles.dtype not in (torch.float32, torch.bfloat16)):
+            or tiles.dtype not in _STREAMS):
         raise ValueError(f"{name}: tiles {tuple(tiles.shape)} {tiles.dtype}"
-                         f" and operand {tuple(b.shape)}: needs 3-d float32 "
-                         "or bf16 tiles and a 2-d operand")
+                         f" and operand {tuple(b.shape)}: needs 3-d float32, "
+                         "bf16 or float64 tiles and a 2-d operand")
     split = _stream_mode(name, tiles.dtype, precision)
     if not _on_cuda(name, tiles, start, b):
         raise ValueError(f"{name}: counts on the card only, got CPU tensors")
@@ -683,7 +690,7 @@ def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
     ts = tiles.contiguous()
     st = start.to(torch.int32).contiguous()
     bs = b.to(tiles.dtype).contiguous()
-    out = torch.empty(ntiles * M, b.shape[1], dtype=torch.float32,
+    out = torch.empty(ntiles * M, b.shape[1], dtype=_acc_dtype(tiles.dtype),
                       device=b.device)
     count = torch.zeros(1, dtype=torch.int64, device=b.device)
     _launch(name, _kernels.load().bell_banded_issued,

@@ -21,7 +21,9 @@ version.
 
 Precision: a float32 stream is full float32 (the reference's TPU default is
 a single bf16 pass; the port keeps its float32 contract); a bfloat16 stream
-is bf16 operands with float32 sums; float64 sums in float64.
+is bf16 operands with float32 sums; float64 sums in float64 (on DMMA).
+Every stream runs K4's vote body (``csrc/band_body.cuh``), which skips the
+tiles' all-zero 32 x 32 chunks.
 """
 
 from __future__ import annotations

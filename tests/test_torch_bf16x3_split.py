@@ -1,5 +1,5 @@
-"""The error model of the bf16x3 split on the band body of K3 and K4 and on
-K5's chunk-mask body.
+"""The error model of the bf16x3 split on the band body of K3 and K4, on
+K5's chunk-mask body and on K6's persistent body.
 
 On the card, ``precision="bf16x3"`` runs ``csrc/band_body.cuh``'s
 ``split_chunk``: the contraction in 32-index chunks, and in each 16-index
@@ -9,7 +9,10 @@ as ``hi = bf16(x)``, ``lo = bf16(x - hi)``.  K3 and K4 (32 output rows a
 thread block) skip a chunk that is zero throughout in their rows of A (the
 vote); K5 (``csrc/bell_banded.cu``: C^T = B^T window @ tile, the operand
 as A and the tile as B) skips a 32-column slice's chunk of the tile that
-the kit's mask marks zero.  Here that order of summation is emulated in
+the kit's mask marks zero; K6 (``csrc/block_body.cuh``) walks the stored
+blocks in slot order, each padded to 32 contraction indices (64 past bsz
+32), and skips a block that is zero throughout in a 32-row group of its
+rows.  Here that order of summation is emulated in
 plain PyTorch (each step's 16 products summed exactly, then rounded into
 the float32 accumulator) on small banded shapes and held to the
 reference's ``_dot_bf16x3`` (``sparse_tpu/ops/pallas_bell.py``, the JAX
@@ -104,6 +107,25 @@ def k5_body_bf16x3(win, tiles_t):
         -1, _ceil(win.shape[1]) // ROWS, -1, -1))
 
 
+def block_body_bf16x3(a, b, bsz):
+    """K6's order (a: (n, bsz, Lb*bsz) block rows [A_r0 | ... | A_r,Lb-1],
+    b: (n, Lb*bsz, k) their stacked panels): per stored block, in slot
+    order, its columns padded to 32 (64 past bsz 32), so that its 32-index
+    chunks are the body's, and the block skipped for the outputs of a
+    32-row group where it is zero throughout in those rows."""
+    n, m, wide = a.shape
+    lb, bk = wide // bsz, 32 if bsz <= 32 else 64
+    blocks = a.reshape(n, m, lb, bsz)
+    ap = torch.nn.functional.pad(blocks, (0, bk - bsz)).reshape(n, m, lb * bk)
+    bp = torch.nn.functional.pad(b.reshape(n, lb, bsz, -1),
+                                 (0, 0, 0, bk - bsz)).reshape(n, lb * bk, -1)
+    rows = torch.nn.functional.pad(blocks, (0, 0, 0, 0, 0, _ceil(m) - m))
+    kept = _nonzero(rows.reshape(n, _ceil(m) // ROWS, ROWS, lb, bsz)).any(
+        4).any(2).repeat_interleave(bk // CHUNK, 2)  # (n, groups, chunks)
+    return split_order(ap, bp, kept[..., None].expand(
+        -1, -1, -1, _ceil(b.shape[2]) // ROWS))
+
+
 def _operands(nb, bsz, hb, k, values, seed):
     """A band BELL's (cols, blocks, slot_valid) and B (n, k), float32."""
     rng = np.random.default_rng(seed)
@@ -128,19 +150,21 @@ def _operands(nb, bsz, hb, k, values, seed):
 
 def _products(kernel, ta, b, rt, cols, blocks):
     """Each output matrix's (A, B) as the body sees it, with the port's
-    plain version of the whole product laid out the same way: K3's wide
-    rows against their stacked panels, K4's densified tiles against their
-    operand windows, or K5's operand windows (k, W*bsz) against its
-    transposed tiles (then also the reference kernel's C^T, per tile)."""
+    plain version of the whole product laid out the same way: K3's and
+    K6's block rows (as wide rows) against their stacked panels, K4's
+    densified tiles against their operand windows, or K5's operand windows
+    (k, W*bsz) against its transposed tiles (then also the reference
+    kernel's C^T, per tile)."""
     bt = torch.from_numpy(b)
     if kernel == "K5":
         return _k5_products(ta, b, cols, blocks)
-    if kernel == "K3":
+    if kernel in ("K3", "K6"):
         nb, lb, bsz = ta.nb, ta.Lb, ta.bsz
         a = ta.blocks.transpose(1, 2).reshape(nb, bsz, lb * bsz)
         panels = bt.reshape(nb, bsz, -1)[ta.cols.long()].reshape(
             nb, lb * bsz, -1)
-        plain = tcb.bell_spmm_fused_plain(ta, bt, precision="bf16x3")
+        plain = (tcb.bell_spmm_fused_plain if kernel == "K3"
+                 else tcb.bell_spmm_block_plain)(ta, bt, precision="bf16x3")
         return a, panels, plain.reshape(nb, bsz, -1)
     plan = tcb.build_banded_plan(ta, row_tile=rt)
     tiles = tcb._densify_band_tiles(ta, plan, torch.float32)
@@ -194,6 +218,9 @@ def _within(got, ref, bound, tol):
     ("K3", 26, 24, 1, None, 16),
     ("K5", 24, 32, 2, None, 32),  # bsz 32: a slice is one block row
     ("K5", 40, 24, 1, None, 7),   # bsz 24: 384-column tiles, k 7
+    ("K6", 30, 32, 2, None, 40),  # a stored block is one chunk
+    ("K6", 26, 24, 1, None, 16),  # blocks padded to 32 indices
+    ("K6", 12, 64, 1, None, 24),  # two chunks and two row groups a block
 ])
 def test_band_body_order_meets_the_bf16x3_gate(kernel, nb, bsz, hb, rt, k,
                                                values):
@@ -206,6 +233,10 @@ def test_band_body_order_meets_the_bf16x3_gate(kernel, nb, bsz, hb, rt, k,
         got = k5_body_bf16x3(a, bw)
         # zero chunks of the tiles were there to skip
         assert not bool(tcb._nonzero_chunks(bw, CHUNK, ROWS).all())
+    elif kernel == "K6":
+        got = block_body_bf16x3(a, bw, bsz)
+        # padding slots' zero blocks were there to skip
+        assert not bool(_nonzero(ta.blocks).flatten(2).any(2).all())
     else:
         got = band_body_bf16x3(a, bw)
         # zero chunks were there to skip
@@ -220,3 +251,54 @@ def test_band_body_order_meets_the_bf16x3_gate(kernel, nb, bsz, hb, rt, k,
     _within(got.numpy(), plain.numpy(), bound, F32_TOL)
     if kernel == "K5":  # the reference kernel, in interpret mode
         _within(got.numpy(), got_ref[3].numpy(), bound, BF16X3_TOL)
+
+
+@pytest.mark.parametrize("nb,bsz,hb,k", [(30, 32, 2, 40), (12, 64, 1, 200),
+                                         (26, 24, 1, 7)])
+def test_k6_bf16x3_issued_model_is_float32s(nb, bsz, hb, k):
+    """K6's bf16x3 kind counts each kept block once, at the float32 model:
+    its three products split the same multiply-adds (the card tests read
+    its counter against this model)."""
+    cols, blocks, _, _ = _operands(nb, bsz, hb, k, "normal", seed=nb + k)
+    blocks[nb // 2] = 0.0   # an empty row: only padding
+    blocks[1, 0, :, :] = 0.0
+    blocks[1, 0, bsz - 1, 0] = np.nan  # a NaN is data
+    ta = interop.bell_from_arrays(cols, blocks, nb * bsz, bsz, device="cpu")
+    model = tcb.block_issued_model(ta, k)
+    assert model == tcb.block_issued_model(ta, k, stream_dtype=torch.float32)
+    # by hand: rows x bsz x k for every 32-row group of a stored block
+    # that holds data
+    groups = -(-bsz // ROWS)
+    rows = [min(ROWS, bsz - ROWS * g) for g in range(groups)]
+    kept = sum(rows[g] for blk in blocks.reshape(-1, bsz, bsz)
+               for g in range(groups)
+               if _nonzero(torch.from_numpy(blk[ROWS * g:ROWS * (g + 1)])
+                           ).any())
+    assert model == 2 * kept * bsz * k
+
+
+@pytest.mark.parametrize("nb,bsz,hb,rt,k", [(40, 8, 2, 4, 48),
+                                            (24, 32, 1, 3, 128),
+                                            (30, 24, 2, 3, 200)])
+def test_k4_float64_issued_model_is_float32s(nb, bsz, hb, rt, k):
+    """K4's and K8's float64 kind runs the same vote body on the same
+    chunks: the host model of a float64 kit equals the float32 kit's (and a
+    bf16x3 call reads the float32 kit's)."""
+    cols, blocks, ok, _ = _operands(nb, bsz, hb, k, "normal", seed=nb * rt)
+    t32 = interop.bell_from_arrays(cols, blocks, nb * bsz, bsz, device="cpu")
+    t64 = interop.bell_from_arrays(cols, blocks.astype(np.float64),
+                                   nb * bsz, bsz, device="cpu")
+    k32 = tcb.bell_banded_prepare(t32, row_tile=rt, slot_valid=ok)
+    k64 = tcb.bell_banded_prepare(t64, row_tile=rt, slot_valid=ok)
+    assert k64.tiles.dtype == torch.float64
+    model = tcb.banded_issued_model(k32.tiles, k)
+    assert tcb.banded_issued_model(k64.tiles, k) == model
+    # by hand: one 32 x 32 x (k rounded up to 128) product per 32 x 32
+    # chunk of the tiles that holds data, and some chunks hold none
+    nt, m, kk = k64.tiles.shape
+    t = np.zeros((nt, _ceil(m), _ceil(kk)), bool)
+    t[:, :m, :kk] = k64.tiles.numpy() != 0
+    chunks = t.reshape(nt, t.shape[1] // 32, 32, t.shape[2] // 32,
+                       32).any(axis=(2, 4))
+    assert not chunks.all()
+    assert model == int(chunks.sum()) * 2 * 32 * 32 * (-(-k // 128) * 128)

@@ -339,9 +339,10 @@ TIERS = {"f32": (torch.float32, None, None),
 
 # K3's float32, bf16 and bf16x3 streams run the band body (32 x 128
 # blocks, the zero-chunk vote; bf16x3 as three bf16 mma.sync products),
-# K6's float32 and bf16 the persistent body (one block row x 128 columns
-# per tile, a vote per stored block), both with their issued-work
-# counters; K3's float64 and K6's float64 and bf16x3 the first body.
+# K6's float32, bf16 and bf16x3 the persistent body (one block row x 128
+# columns per tile, a vote per stored block; bf16x3 on the same split),
+# both with their issued-work counters; K3's and K6's float64 the first
+# body.
 # Shapes:
 # bsz 3 and 33 (element copies, ragged 32-row blocks), 8, 24 (a 32-index
 # chunk spans two blocks), 32 (a chunk is a block), 64 (two row blocks per
@@ -382,9 +383,9 @@ def test_k3_k6_match_plain_at_odd_shapes(cuda, nb, bsz, hb, k, values, tier):
         assert got.dtype == dt
         _check_values(got, tcb.bell_spmm_block_plain(a, b, precision=prec),
                       bound, dt, values)
-    if tier in ("f32", "bf16in"):  # K6's persistent body counts its work
-        before = tcb.K6_LAUNCHES
-        issued = tcb.block_issued_flops(a, b)
+    if tier in ("f32", "bf16in", "bf16x3"):  # K6's persistent body counts
+        before = tcb.K6_LAUNCHES             # its work (bf16x3: float32's)
+        issued = tcb.block_issued_flops(a, b, precision=prec)
         assert tcb.K6_LAUNCHES == before
         assert issued == tcb.block_issued_model(a, k)
         if values == "lone":  # in row bsz - 1: its 32-row group's rows
@@ -412,14 +413,14 @@ def test_k4_matches_plain_at_odd_shapes(cuda, nb, bsz, hb, rt, k, tier):
                 _spmm_bound(a, b, kit.tiles.dtype), dt)
 
 
-# The float32, bf16 and bf16x3 streams of K4/K8 run the 32-row, 128-column
-# body with the zero-chunk vote; float64 the first body.  Shapes:
+# Every stream of K4/K8 runs the 32-row, 128-column body with the
+# zero-chunk vote (float64 on DMMA, C in float64).  Shapes:
 # bsz 24 (does not divide the 32-row block, nor does rt*bsz = 72), bsz 3
 # and 33 (ragged row blocks; the plan's lane rounding makes W*bsz a
 # multiple of 128, so W is 128 panels there), bsz 32 (blocks are block
 # rows); k 1 and 33 (element copies), 128 (one column block), 200 (two,
 # the second ragged).
-@pytest.mark.parametrize("tier", ["f32", "bf16", "bf16x3"])
+@pytest.mark.parametrize("tier", ["f32", "bf16", "bf16x3", "f64"])
 @pytest.mark.parametrize("k", [1, 33, 128, 200])
 @pytest.mark.parametrize("nb,bsz,hb,rt,mw", [(40, 24, 2, 3, 64),
                                              (130, 3, 2, 7, 128),
@@ -438,14 +439,15 @@ def test_k4_vote_body_matches_plain(cuda, nb, bsz, hb, rt, mw, k, tier):
                  "K4_LAUNCHES")
     _check_spmm(got, tcb.bell_spmm_banded_plain(a, b, kit.plan, **kw),
                 _spmm_bound(a, b, kit.tiles.dtype), dt)
-    # the vote body's own count; bf16x3 keeps float32's chunks
+    # the vote body's own count; bf16x3 and float64 keep float32's chunks
     assert tcb.banded_issued_flops(
         kit.tiles, kit.plan.start, b, bsz, precision=prec) == _issued_model(
             kit.tiles, k)
 
 
-# float64 runs the first body; bf16x3, which ran there before it moved to
-# the vote body, is kept beside it at these shapes
+# float64 and bf16x3 ran the first body before they moved to the vote
+# body; both now run the vote body, and these cases are kept at their
+# shapes
 @pytest.mark.parametrize("tier", ["f64", "bf16x3"])
 @pytest.mark.parametrize("k", [1, 200])
 def test_k4_first_body_kinds_match_plain(cuda, k, tier):
@@ -541,16 +543,18 @@ def test_k4_nan_in_a_propagates(cuda, stream):
 
 @pytest.mark.parametrize("kernel,tier", [
     (kn, t) for kn in ("K3", "K4") for t in ("f32", "bf16", "bf16x3")] + [
-    ("K5", t) for t in ("f32", "bf16", "bf16x3", "f64")])
+    ("K5", t) for t in ("f32", "bf16", "bf16x3", "f64")] + [
+    ("K4", "f64"), ("K6", "bf16x3")])
 def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
                                                            tier):
     """Inf and NaN in operand panel 0, which block rows 0 and 1 store: K3's
-    padding slots (zero blocks at column 0 in the edge rows and the empty
-    row 6), K4's densified zero chunks (block row 2 in tile 0's window) and
-    K5's (block rows 2 and 3's slices of tile 0, whose window starts at
-    panel 0) sit opposite them, so the vote or the chunk mask skips them
-    and those rows are the sparse product, finite; block rows 0 and 1
-    carry the Inf and NaN.  K5 gives it in every kind, float64 too."""
+    and K6's padding slots (zero blocks at column 0 in the edge rows and
+    the empty row 6), K4's densified zero chunks (block row 2 in tile 0's
+    window) and K5's (block rows 2 and 3's slices of tile 0, whose window
+    starts at panel 0) sit opposite them, so the vote or the chunk mask
+    skips them and those rows are the sparse product, finite; block rows 0
+    and 1 carry the Inf and NaN.  K4 and K5 give it in every kind, float64
+    too, and K6 in bf16x3 (its persistent body)."""
     dt, cd, prec = TIERS[tier]
     a, ok = _band_bell(12, 32, 1, 8, dt, cuda, empty=(6,))
     b = torch.from_numpy(np.random.default_rng(9).standard_normal(
@@ -563,6 +567,10 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
         got = _twice(lambda: tcb.bell_spmm_fused(a, b_inf, **kw),
                      "K3_LAUNCHES")
         want = tcb.bell_spmm_fused_plain(a, b, **kw)
+    elif kernel == "K6":
+        got = _twice(lambda: tcb.bell_spmm_block(a, b_inf, precision=prec),
+                     "K6_LAUNCHES")
+        want = tcb.bell_spmm_block_plain(a, b, precision=prec)
     elif kernel == "K5":
         kit = tcb.bell_banded_prepare_t(a, compute_dtype=cd, slot_valid=ok)
         assert int(kit.plan.start[0]) == 0
@@ -586,12 +594,14 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
                 _spmm_bound(a, b, cd or dt)[~hit], dt)
 
 
-@pytest.mark.parametrize("stream", ["f32", "bf16"])
+@pytest.mark.parametrize("stream", ["f32", "bf16", "f64"])
 def test_k8_windows_past_the_operand_end(cuda, stream):
     """``b3`` shorter than the last windows: rows past its end read 0."""
     from sparse_tpu_torch.ops import cuda_dband as tdb
 
-    sdt = torch.bfloat16 if stream == "bf16" else torch.float32
+    sdt = {"f32": torch.float32, "bf16": torch.bfloat16,
+           "f64": torch.float64}[stream]
+    odt = torch.float64 if sdt == torch.float64 else torch.float32
     nb, bsz, rt, k = 45, 32, 5, 128
     a, ok = _band_bell(nb, bsz, 2, 11, torch.float32, cuda, empty=(7,))
     plan = tcb.build_banded_plan(a, row_tile=rt, max_window=96,
@@ -601,7 +611,7 @@ def test_k8_windows_past_the_operand_end(cuda, stream):
         (a.n, k))).float().to(cuda)
     b3 = b.reshape(nb, bsz, k)[:nb - 3]  # the last windows run past it
     assert int(plan.start.max()) + plan.W > b3.shape[0]
-    args = (tiles, plan.start, b3, nb, bsz, k, plan.W, rt, torch.float32)
+    args = (tiles, plan.start, b3, nb, bsz, k, plan.W, rt, odt)
     before = tdb.K8_LAUNCHES
     y1, y2 = tdb.dband_spmm(*args), tdb.dband_spmm(*args)
     torch.cuda.synchronize()
@@ -609,7 +619,7 @@ def test_k8_windows_past_the_operand_end(cuda, stream):
     assert torch.equal(y1, y2) and y1.shape == (nb * bsz, k)
     b_cut = torch.cat([b3.reshape(-1, k), b.new_zeros(3 * bsz, k)])
     _check_spmm(y1, tdb.dband_spmm_plain(*args),
-                _spmm_bound(a, b_cut, sdt), torch.float32)
+                _spmm_bound(a, b_cut, sdt), odt)
 
 
 @pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])

@@ -140,13 +140,16 @@ def test_dband_equals_k4_plain_and_checks_shapes():
 
 
 def test_issued_count_is_the_kernels_only():
-    """K4/K8's issued-work count comes from the kernel on the card: CPU
-    tensors and the float64 kind (which runs the first body) are refused,
-    never modelled on the host."""
+    """K4/K8's issued-work count comes from the kernel on the card, in
+    every stream kind (float64 too, since it runs the vote body): CPU
+    tensors and a dtype with no kind are refused, never modelled on the
+    host."""
     _, _, ta = _banded(30, 8, 2, seed=5, dtype=np.float32)
     kit = tcb.bell_banded_prepare(ta, row_tile=5, max_window=96)
     b = torch.zeros(ta.n, 4)
     with pytest.raises(ValueError, match="on the card only"):
         tcb.banded_issued_flops(kit.tiles, kit.plan.start, b, 8)
-    with pytest.raises(ValueError, match="float32 or bf16"):
+    with pytest.raises(ValueError, match="on the card only"):
         tcb.banded_issued_flops(kit.tiles.double(), kit.plan.start, b, 8)
+    with pytest.raises(ValueError, match="float32, bf16 or float64"):
+        tcb.banded_issued_flops(kit.tiles.half(), kit.plan.start, b, 8)

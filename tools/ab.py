@@ -18,7 +18,8 @@ Suites:
   band (nb 15,625, bsz 32, 5-block band, float32), k = 128 (k = 32 for
   K5): K3, K4, K5, K6 and K8 in float32, the bf16 streams of K3, K4,
   K5, K6 (bf16 blocks) and K8 with bf16 operands, the bf16x3 split of
-  K3, K4 and K5 (float32 operands), and K5 in float64 (a float64 kit).
+  K3, K4, K5 and K6 (float32 operands), and K4, K5 and K8 in float64
+  (float64 kits and tiles).
 - ``slab``: the block-SpGEMM slab apply (K7) on the SpGEMM fixture
   (``benchmarks/measure_auto_block.py``'s ``C = A A``: nb 2,000, bsz 32,
   19,025 stored blocks, 181,214 block products, float32): the prepared
@@ -56,7 +57,7 @@ def bell_cases(cs):
     from sparse_tpu_torch.ops import cuda_bell as cb
     from sparse_tpu_torch.ops import cuda_dband as cdb
 
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
     a, _, valid, gen = cs._bench_bell()
     nb, bsz, k = a.nb, a.bsz, 128
     b = torch.randn(a.n, k, device="cuda", generator=gen) * 0.01
@@ -72,11 +73,13 @@ def bell_cases(cs):
                                        slot_valid=valid)
     a64 = BELL(cols=a.cols, blocks=a.blocks.double(), n=a.n, bsz=bsz)
     kit_t64 = cb.bell_banded_prepare_t(a64, slot_valid=valid)
-    bt64 = bt.double()
+    kit64 = cb.bell_banded_prepare(a64, row_tile=5, slot_valid=valid)
+    bt64, b64 = bt.double(), b.double()
     dplan = cb.build_banded_plan(a, row_tile=5, max_window=96)
     b3 = torch.cat([b.reshape(nb, bsz, k), b.new_zeros(dplan.W, bsz, k)])
     k8_args = {s: (cdb.densify_tiles(a, dplan, s), dplan.start, b3.to(s), nb,
-                   bsz, k, dplan.W, 5, f32) for s in (f32, bf16)}
+                   bsz, k, dplan.W, 5, f64 if s == f64 else f32)
+               for s in (f32, bf16, f64)}
     return {
         "K3": lambda: cb.bell_spmm_fused(a, b),
         "K3 bf16": lambda: cb.bell_spmm_fused(a, b_bf, compute_dtype=bf16),
@@ -86,6 +89,8 @@ def bell_cases(cs):
             a, b, kit.plan, tiles=kit.tiles, precision="bf16x3"),
         "K4 bf16": lambda: cb.bell_spmm_banded(
             a, b_bf, kit_bf.plan, tiles=kit_bf.tiles, compute_dtype=bf16),
+        "K4 f64": lambda: cb.bell_spmm_banded(a64, b64, kit64.plan,
+                                              tiles=kit64.tiles),
         "K5": lambda: cb.bell_spmm_banded_t(a, bt, kit_t),
         "K5 bf16": lambda: cb.bell_spmm_banded_t(a, bt_bf, kit_tbf),
         "K5 bf16x3": lambda: cb.bell_spmm_banded_t(a, bt, kit_t,
@@ -93,8 +98,10 @@ def bell_cases(cs):
         "K5 f64": lambda: cb.bell_spmm_banded_t(a64, bt64, kit_t64),
         "K6": lambda: cb.bell_spmm_block(a, b),
         "K6 bf16": lambda: cb.bell_spmm_block(a_bf, b_bf),
+        "K6 bf16x3": lambda: cb.bell_spmm_block(a, b, precision="bf16x3"),
         "K8": lambda: cdb.dband_spmm(*k8_args[f32]),
         "K8 bf16": lambda: cdb.dband_spmm(*k8_args[bf16]),
+        "K8 f64": lambda: cdb.dband_spmm(*k8_args[f64]),
     }
 
 
