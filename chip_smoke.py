@@ -1912,6 +1912,10 @@ def phase10_slab_kernel_vs_plain():
               flush=True)
 
 
+#: Block rows of the SpGEMM fixture (measure_auto_block.py's).
+SPGEMM_NB = 2_000
+
+
 def _spgemm_fixture():
     """``benchmarks/measure_auto_block.py``'s fixture, not cut: nb 2,000
     block rows of 32 x 32 blocks, 10 draws per block row within +-50 block
@@ -1920,7 +1924,7 @@ def _spgemm_fixture():
     (float64 copy of the float32 values) and the scalar CSR's arrays."""
     import scipy.sparse as sp
 
-    nb, bsz = 2_000, 32
+    nb, bsz = SPGEMM_NB, 32
     rng = np.random.default_rng(9)
     rows = np.repeat(np.arange(nb, dtype=np.int64), 10)
     cols = np.clip(rows + rng.integers(-50, 50, rows.size), 0, nb - 1)
@@ -4562,6 +4566,471 @@ def phase21_surface(card, slice_run, ela_bsr, spmm_run):
     return paths.out, kinds
 
 
+#: The bf16 SpMV kinds' gate against SciPy's float64 product of the bf16
+#: inputs: one rounding of a float32 sum to bf16, times (|A||v|)_i; against
+#: the plain version (which rounds its own float32 sum once): two.
+BF16_SPMV_GATE = 2.0 ** -8
+
+
+def _launch_attr(kname):
+    """The launch counter of kernel ``kname`` ("K1-mxu" -> K1_MXU_LAUNCHES)
+    and its module."""
+    from sparse_tpu_torch.ops import (cuda_bell, cuda_bsr, cuda_csr,
+                                      cuda_csr_block, cuda_dband)
+
+    mod = {"K1": cuda_csr, "K1-r32": cuda_csr, "K1-mxu": cuda_csr,
+           "K2": cuda_csr_block, "K7": cuda_bsr, "K8": cuda_dband}.get(
+               kname, cuda_bell)
+    return mod, kname.replace("-", "_").upper() + "_LAUNCHES"
+
+
+def _int_check(label, want):
+    """``check(y)`` for an int32 result: equal to NumPy's int64 answer
+    ``want`` taken modulo 2^32 (rows ``rows`` of y when given); 0."""
+    w = ((np.asarray(want, np.int64) + 2 ** 31) % 2 ** 32 - 2 ** 31)
+
+    def check(y, rows=None):
+        got = y if rows is None else y[rows]
+        if got.dtype != torch.int32:
+            raise AssertionError(f"{label}: {got.dtype}, expected int32")
+        if not np.array_equal(got.long().cpu().numpy(), w):
+            raise AssertionError(f"{label}: differs from NumPy's int64 "
+                                 "answer modulo 2^32")
+        return 0
+
+    return check
+
+
+def _bf16_check(label, exact, mag, tol=BF16_SPMV_GATE):
+    """``check(y)`` for a bf16 SpMV result: within ``tol`` (|A||v|)_i of
+    SciPy's float64 ``exact``; returns the max abs error."""
+    exact, mag = torch.from_numpy(exact), torch.from_numpy(mag)
+
+    def check(y):
+        nonlocal exact, mag
+        exact, mag = exact.to(y.device), mag.to(y.device)
+        if y.dtype != torch.bfloat16:
+            raise AssertionError(f"{label}: {y.dtype}, expected bf16")
+        return _gate(label, y, exact, mag, tol)
+
+    return check
+
+
+def _vs_plain(label, y, yp, mag):
+    """The kernel against its plain version: equal for int32; for bf16
+    within two roundings, 2 * 2^-8 (|A||v|)_i; returns the max abs error."""
+    if y.dtype == torch.int32:
+        if not torch.equal(y, yp):
+            raise AssertionError(f"{label}: differs from its plain version")
+        return 0
+    return _gate(label, y, yp, torch.from_numpy(mag).to(y.device),
+                 2 * BF16_SPMV_GATE)
+
+
+def _new_kind(card, label, kname, main, kern, plain, check, mag, cost, dtype,
+              sibling, lib, lib_call):
+    """One int32 or bf16 kind of kernel ``kname``: its main path ``main``
+    (an entry point a user calls) once, the kernel's launch count set to 0
+    just before and read just after, checked by ``check``; the kernel
+    ``kern`` twice, bitwise equal, against its plain version and ``check``;
+    then back to back (``_b2b``) the kernel, its plain version and its
+    float32 sibling, beside the bound of ``cost`` (bytes, operations) at
+    ``dtype``'s peak and the library call's ``lib`` ms (None: refused, the
+    reason in ``LIBRARY_REFUSALS[lib_call]``).  Returns the record."""
+    mod, attr = _launch_attr(kname)
+    setattr(mod, attr, 0)
+    y = main()
+    torch.cuda.synchronize()
+    launches = getattr(mod, attr)
+    if launches <= 0:
+        raise AssertionError(f"{label}: the main path launched no {kname}")
+    err = check(y)
+    del y
+    y1, y2 = kern(), kern()
+    torch.cuda.synchronize()
+    if not torch.equal(y1, y2):
+        raise AssertionError(f"{label}: two runs differ bitwise")
+    del y2
+    err_p = _vs_plain(label, y1, plain(), mag)
+    if check(y1) != err:
+        raise AssertionError(f"{label}: the kernel's result is not the "
+                             "main path's")
+    del y1
+    ms, fastest, n = _b2b(kern)
+    plain_ms = _b2b(plain)[0]
+    sib_ms = _b2b(sibling)[0]
+    b_ms, b_by = bound_ms(*cost, dtype)
+    print(f"   {label}: main path launched {kname} {launches} time(s); "
+          f"gate passed (max err {err:.3e}, vs plain {err_p:.3e}); "
+          f"{ms:.4f} ms back to back (median of 5 windows of {n}; fastest "
+          f"{fastest:.4f}); float32 sibling {sib_ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+          f"{cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.3f} Gop), "
+          f"{b_ms / ms:.1%} of it; library "
+          f"{'refused' if lib is None else f'{lib:.4f} ms'} ({lib_call}) "
+          f"[{card}]", flush=True)
+    rec = dict(ms=ms, fastest_ms=fastest, plain_ms=plain_ms,
+               float32_ms=sib_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib, library_call=lib_call, max_abs_err=err,
+               max_abs_err_vs_plain=err_p, launches=launches)
+    if lib is None:
+        rec["library_error"] = LIBRARY_REFUSALS.get(lib_call, "refused")
+    return rec
+
+
+def _library(label, fn, card):
+    """``library_ms`` of one call, keyed in ``LIBRARY_REFUSALS`` by the
+    label the records name; returns (ms or None, label)."""
+    return library_ms(label, fn, card), label
+
+
+def _library_csr(cell, kind, a, v, card):
+    """``library_csr_ms`` for a kind's record: (ms or None, the call's
+    name), a refusal kept under that name."""
+    label = f"CSR @ v {kind} ({cell})"
+    ms, _ = library_csr_ms(label, a, v, card)
+    call = f"{LIBRARY_CSR} ({kind}, {cell})"
+    if ms is None:
+        LIBRARY_REFUSALS[call] = LIBRARY_REFUSALS[f"{label}, int32 indices"]
+    return ms, call
+
+
+def _phase22_spmv(card, band, sl, ela, out):
+    """K1, K1-r32, K1-mxu on band-10M and K2 on elasticity-400k in int32
+    and bf16, each main path ``smvm_prepare(a) -> plan.apply(v)`` (and
+    ``csr_smvm_segtile`` for the variants)."""
+    import dataclasses
+
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_csr, cuda_csr_block
+    from sparse_tpu_torch.utils.stats import blocked_bound_bytes
+
+    rng = np.random.default_rng(220)
+    a32 = sl["a"]
+    n = a32.shape[0]
+    p32, v32 = band["plan"], band["v"]
+    ap32, st32 = p32.state
+    vp32 = v32 if p32.perm is None else v32[p32.perm]
+    ab32 = ela["plan"].state[0]
+    ae32 = pt.bsr_to_csr(ab32)
+    ep32, ev32 = ela["plan"], ela["v"]
+    eb32, est32 = ep32.state
+    evp32 = ev32.reshape(-1, 2)[ep32.perm].reshape(-1)
+    for kind, dt in (("int32", torch.int32), ("bf16", torch.bfloat16)):
+        if dt == torch.int32:
+            a = dataclasses.replace(a32, data=(a32.data * 400).round().to(dt))
+            v = torch.from_numpy(rng.integers(-8, 9, n)).to(dt).to(
+                v32.device)
+        else:
+            a = dataclasses.replace(a32, data=a32.data.to(dt))
+            v = v32.to(dt)
+        s, vh = sp_csr_f64(a), v.double().cpu().numpy()
+        mag = abs(s) @ np.abs(vh)
+        t0 = time.perf_counter()
+        plan = pt.smvm_prepare(a)
+        t_prep = time.perf_counter() - t0
+        if plan.kind != p32.kind:
+            raise AssertionError(f"band-10M {kind}: rung {plan.kind}, the "
+                                 f"float32 plan's {p32.kind}")
+        ap, st = plan.state
+        perm = plan.perm
+        vp = v if perm is None else v[perm]
+        inv = plan.inv_perm
+        unperm = (lambda y: y) if inv is None else (lambda y: y[inv])
+        check = (_int_check(f"band-10M {kind}", s @ vh) if kind == "int32"
+                 else _bf16_check(f"band-10M {kind}", s @ vh, mag))
+        lib, call = _library_csr("band-10M", kind, a, v, card)
+        cost = (csr_spmv_cost(a)[0], 2 * int(a.indptr[-1]))
+        print(f"   band-10M {kind}: smvm_prepare {t_prep:.2f} s (host), rung "
+              f"{plan.kind}, stream {st.stream.bytes_per_entry:.2f} B per "
+              "entry", flush=True)
+        out["K1"][kind] = _new_kind(
+            card, f"band-10M K1 {kind} (smvm_prepare -> plan.apply)", "K1",
+            lambda: plan.apply(v),
+            lambda: unperm(pt.csr_smvm_segtile(ap, vp, st)),
+            lambda: unperm(cuda_csr.segtile_stream_plain(st.stream, vp)),
+            check, mag, cost, dt,
+            lambda: pt.csr_smvm_segtile(ap32, vp32, st32), lib, call)
+        out["K1"][kind]["setup_s"] = t_prep
+        out["K1-mxu"][kind] = _new_kind(
+            card, f"band-10M K1-mxu {kind} (csr_smvm_segtile reduce='mxu')",
+            "K1-mxu",
+            lambda: unperm(pt.csr_smvm_segtile(ap, vp, st, reduce="mxu")),
+            lambda: unperm(pt.csr_smvm_segtile(ap, vp, st, reduce="mxu")),
+            lambda: unperm(cuda_csr.segtile_stream_plain(st.stream, vp)),
+            check, mag, cost, dt,
+            lambda: pt.csr_smvm_segtile(ap32, vp32, st32, reduce="mxu"),
+            lib, call)
+        if kind == "int32":
+            out["K1-mxu"][kind]["kernel"] = "segtile_csr_i32 (K1's)"
+        t0 = time.perf_counter()
+        p_r32 = cuda_csr.build_seg_tiles(ap, wsub=st.wsub, rows=32)
+        t_r32 = time.perf_counter() - t0
+        if kind == "int32":
+            r32_f32 = cuda_csr.build_seg_tiles(ap32, wsub=st32.wsub, rows=32)
+        out["K1-r32"][kind] = _new_kind(
+            card, f"band-10M K1-r32 {kind} (csr_smvm_segtile, 32-row plan)",
+            "K1-r32", lambda: unperm(pt.csr_smvm_segtile(ap, vp, p_r32)),
+            lambda: unperm(pt.csr_smvm_segtile(ap, vp, p_r32)),
+            lambda: unperm(cuda_csr.segtile_stream_plain(p_r32.stream, vp)),
+            check, mag, cost, dt,
+            lambda: pt.csr_smvm_segtile(ap32, vp32, r32_f32), lib, call)
+        out["K1-r32"][kind]["setup_s"] = t_r32
+        del plan, p_r32, ap, st, a
+        # K2: elasticity-400k (phase 5's block-RCM order) as a scalar CSR
+        if dt == torch.int32:
+            ae = dataclasses.replace(ae32,
+                                     data=(ae32.data * 100).round().to(dt))
+            w = torch.from_numpy(rng.integers(-8, 9, ae.shape[0])).to(
+                dt).to(ev32.device)
+        else:
+            ae = dataclasses.replace(ae32, data=ae32.data.to(dt))
+            w = ev32.to(dt)
+        se, wh = sp_csr_f64(ae), w.double().cpu().numpy()
+        emag = abs(se) @ np.abs(wh)
+        t0 = time.perf_counter()
+        eplan = pt.smvm_prepare(ae)
+        t_prep = time.perf_counter() - t0
+        if eplan.kind != "blockseg":
+            raise AssertionError(f"elasticity-400k {kind}: rung "
+                                 f"{eplan.kind}, expected blockseg")
+        eb, est = eplan.state
+        wp = w.reshape(-1, 2)[eplan.perm].reshape(-1)
+        einv = eplan.inv_perm
+
+        def eunperm(y):
+            return y.reshape(-1, 2)[einv].reshape(-1)
+
+        echeck = (_int_check(f"elasticity-400k {kind}", se @ wh)
+                  if kind == "int32" else
+                  _bf16_check(f"elasticity-400k {kind}", se @ wh, emag))
+        lib2, call2 = _library_csr("elasticity-400k", kind, ae, w, card)
+        nb = eb.nb
+        nbz = int((eb.indices.long() < nb * nb).sum())
+        size = 4 if dt == torch.int32 else 2
+        cost2 = (blocked_bound_bytes(nbz, 2, eb.n, value_bytes=size,
+                                     out_bytes=size, row_pointers=True),
+                 2 * 4 * nbz)
+        print(f"   elasticity-400k {kind}: smvm_prepare {t_prep:.2f} s "
+              f"(host), rung {eplan.kind}", flush=True)
+        out["K2"][kind] = _new_kind(
+            card, f"elasticity-400k K2 {kind} (smvm_prepare -> plan.apply)",
+            "K2", lambda: eplan.apply(w),
+            lambda: eunperm(cuda_csr_block.bsr_smvm_segtile_block(eb, wp,
+                                                                  est)),
+            lambda: eunperm(cuda_csr_block.block_stream_plain(est.stream,
+                                                              wp)),
+            echeck, emag, cost2, dt,
+            lambda: cuda_csr_block.bsr_smvm_segtile_block(eb32, evp32, est32),
+            lib2, call2)
+        out["K2"][kind]["setup_s"] = t_prep
+        del eplan, eb, est, ae
+
+
+def _phase22_bell(card, m, dband, out):
+    """K3 (no plan), K4 (a BandedKit), K5 (a BandedKitT, k 32), K6 and K8
+    on bell-band-80M in int32 through ``bell_spmm`` / ``bell_spmm_block`` /
+    ``dband_spmm``, exact on phase 8's subset of block rows."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.formats.bell import BELL
+    from sparse_tpu_torch.ops import cuda_bell as cb
+    from sparse_tpu_torch.ops import cuda_dband
+
+    i32 = torch.int32
+    a, b, kit, valid = m["a"], m["b"], m["kit"], m["slot_valid"]
+    k = b.shape[1]
+    ai = BELL(cols=a.cols, blocks=(a.blocks * 400).round().to(i32), n=a.n,
+              bsz=a.bsz)
+    oracle = _ScipyRows(ai, m["cols_np"], valid)
+    dev = a.blocks.device
+    rng = torch.Generator(device=dev).manual_seed(221)
+    bi = torch.randint(-8, 9, (a.n, k), device=dev, generator=rng,
+                       dtype=i32)
+    bi32 = bi[:, :32].contiguous()
+    bti = bi32.T.contiguous()
+    want = oracle.s @ bi.double().cpu().numpy()
+    want32 = oracle.s @ bi32.double().cpu().numpy()
+    check, check32 = _int_check("int32 k 128", want), _int_check(
+        "int32 k 32", want32)
+    mag = np.zeros(1)  # unused: int32 equals its plain version exactly
+
+    def rows(c):
+        return check(c, oracle.rows)
+
+    def rows32(c):
+        return check32(c, oracle.rows)
+
+    nbz = int(valid.sum())
+    cost = spmm_cost(nbz, a.bsz, a.n, k)
+    cost32 = spmm_cost(nbz, a.bsz, a.n, 32)
+    bsr = torch_bsr(dict(m, a=ai), torch.int32)
+    lib, call = _library("BSR @ B int32 (bell-band-80M, k 128)",
+                         lambda: bsr @ bi, card)
+    lib32, call32 = _library("BSR @ B int32 (bell-band-80M, k 32)",
+                             lambda: bsr @ bi32, card)
+    t0 = time.perf_counter()
+    kit_i = cb.bell_banded_prepare(ai, row_tile=kit.plan.rt, slot_valid=valid)
+    kit_ti = cb.bell_banded_prepare_t(ai, slot_valid=valid)
+    t_kits = time.perf_counter() - t0
+    print(f"   int32 kits: bell_banded_prepare + _t {t_kits:.2f} s (host "
+          "plan, densify on the card)", flush=True)
+    b32, kit_t = m["b32"], m["kit_t"]
+    bt32 = b32.T.contiguous()
+    out["K3"]["int32"] = _new_kind(
+        card, f"bell-band-80M K3 int32 k {k} (bell_spmm, no plan)", "K3",
+        lambda: pt.bell_spmm(ai, bi), lambda: cb.bell_spmm_fused(ai, bi),
+        lambda: cb.bell_spmm_fused_plain(ai, bi), rows, mag, cost, i32,
+        lambda: cb.bell_spmm_fused(a, b), lib, call)
+    out["K4"]["int32"] = _new_kind(
+        card, f"bell-band-80M K4 int32 k {k} (bell_spmm, BandedKit)", "K4",
+        lambda: pt.bell_spmm(ai, bi, plan=kit_i),
+        lambda: cb.bell_spmm_banded(ai, bi, kit_i.plan, tiles=kit_i.tiles),
+        lambda: cb.bell_spmm_banded_plain(ai, bi, kit_i.plan,
+                                          tiles=kit_i.tiles),
+        rows, mag, cost, i32,
+        lambda: cb.bell_spmm_banded(a, b, kit.plan, tiles=kit.tiles), lib,
+        call)
+    out["K5"]["int32"] = _new_kind(
+        card, "bell-band-80M K5 int32 k 32 (bell_spmm, BandedKitT)", "K5",
+        lambda: pt.bell_spmm(ai, bi32, plan=kit_ti),
+        lambda: cb.bell_spmm_banded_t(ai, bti, kit_ti).T,
+        lambda: cb.bell_spmm_banded_t_plain(ai, bti, kit_ti).T, rows32, mag,
+        cost32, i32, lambda: cb.bell_spmm_banded_t(a, bt32, kit_t), lib32,
+        call32)
+    out["K6"]["int32"] = _new_kind(
+        card, f"bell-band-80M K6 int32 k {k} (bell_spmm_block)", "K6",
+        lambda: cb.bell_spmm_block(ai, bi), lambda: cb.bell_spmm_block(ai, bi),
+        lambda: cb.bell_spmm_block_plain(ai, bi), rows, mag, cost, i32,
+        lambda: cb.bell_spmm_block(a, b), lib, call)
+    # the counters read the float32 kind's chunk and block models
+    useful = 2 * m["nnz"] * k
+    out["K3"]["int32"]["issued_gflop"] = check_counted(
+        "K3 int32", cb.fused_issued_flops(ai, bi), cb.fused_issued_model(
+            ai, k), useful) / 1e9
+    out["K6"]["int32"]["issued_gflop"] = check_counted(
+        "K6 int32", cb.block_issued_flops(ai, bi), cb.block_issued_model(
+            ai, k), useful) / 1e9
+    out["K4"]["int32"]["issued_gflop"] = check_issued(
+        "K4 int32", kit_i.tiles, kit_i.plan.start, bi, a.bsz, useful) / 1e9
+    out["K5"]["int32"].update(check_k5_counts(
+        "K5 int32 k=32", ai, bti, kit_ti, 2 * m["nnz"] * 32))
+    del kit_i, kit_ti
+    # K8 on phase 14's plan (the operand padded with W zero panels)
+    plan, nb, bsz = dband["plan"], dband["nb"], dband["bsz"]
+    tiles_i = cuda_dband.densify_tiles(ai, plan, i32)
+    tiles_f = cuda_dband.densify_tiles(a, plan, torch.float32)
+    b3 = torch.cat([bi.reshape(nb, bsz, k), bi.new_zeros(plan.W, bsz, k)])
+    b3f = torch.cat([b.reshape(nb, bsz, k), b.new_zeros(plan.W, bsz, k)])
+    args = (tiles_i, plan.start, b3, nb, bsz, k, plan.W, plan.rt, i32)
+    argsf = (tiles_f, plan.start, b3f, nb, bsz, k, plan.W, plan.rt,
+             torch.float32)
+    out["K8"]["int32"] = _new_kind(
+        card, f"bell-band-80M K8 int32 k {k} (dband_spmm)", "K8",
+        lambda: cuda_dband.dband_spmm(*args),
+        lambda: cuda_dband.dband_spmm(*args),
+        lambda: cuda_dband.dband_spmm_plain(*args), rows, mag, cost, i32,
+        lambda: cuda_dband.dband_spmm(*argsf), lib, call)
+    del tiles_i, tiles_f, b3, b3f, bsr
+
+
+def _phase22_slab(card, out):
+    """K7 in int32 on spgemm-block-181k's plan: ``bsr_smsmm_apply_slab``
+    (the prepared route), exact on every 8th output block row against
+    SciPy's int64 A @ A."""
+    import scipy.sparse as sp
+
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_bsr
+
+    _, rows, cols, bvals = _spgemm_fixture()
+    nb, bsz = SPGEMM_NB, 32
+    bi = np.rint(bvals * 1000).astype(np.int32)
+    idx = torch.from_numpy((rows * nb + cols).astype(np.int32)).cuda()
+    ai = pt.BSR(indices=idx, blocks=torch.from_numpy(bi).cuda(), n=nb * bsz,
+                bsz=bsz)
+    af = pt.BSR(indices=idx, blocks=torch.from_numpy(bvals).cuda(),
+                n=nb * bsz, bsz=bsz)
+    dev = idx.device
+    t0 = time.perf_counter()
+    plan = pt.bsr_smsmm_prepare(ai, ai)
+    pp = pt.bsr_smsmm_slab_prepare(plan, ai.nbz, ai.nbz)
+    t_prep = time.perf_counter() - t0
+    # SciPy's int64 A @ A on every 8th block row and the last
+    s = sp.bsr_matrix((bi.astype(np.int64), cols,
+                       np.searchsorted(rows, np.arange(nb + 1))),
+                      shape=(nb * bsz, nb * bsz))
+    sub = np.unique(np.r_[np.arange(0, nb, 8), nb - 1])
+    srows = (sub[:, None] * bsz + np.arange(bsz)).reshape(-1)
+    ref = (s.tocsr()[srows] @ s).tobsr(blocksize=(bsz, bsz))
+    ref.sort_indices()
+    oidx = pp.indices.long().cpu().numpy()
+    orow = oidx // nb
+    sel = np.flatnonzero(np.isin(orow, sub))
+    if not np.array_equal(oidx[sel] % nb, ref.indices) or not np.array_equal(
+            np.searchsorted(orow[sel], sub), ref.indptr[:-1]):
+        raise AssertionError("K7 int32: the output blocks of the subset "
+                             "differ from SciPy's")
+    check = _int_check("K7 int32", ref.data.reshape(-1))
+    selt = torch.from_numpy(sel).to(dev)
+
+    def blocks_check(c):
+        return check(c[selt].reshape(-1))
+
+    F = plan.n_products
+    flops = 2 * F * bsz ** 3
+    cost = ((ai.nbz + plan.nbz_out) * bsz * bsz * 4, flops)
+    a_pos, b_pos, seg = plan.a_pos.long(), plan.b_pos.long(), plan.seg.long()
+
+    def yardstick():
+        o = ai.blocks.new_zeros(plan.nbz_out, bsz, bsz)
+        return o.index_add_(0, seg, torch.bmm(ai.blocks[a_pos],
+                                              ai.blocks[b_pos]))
+
+    lib, call = _library("torch.bmm + index_add_ in int32 (K7's yardstick)",
+                         yardstick, card)
+    print(f"   spgemm-block-181k int32: host prepare {t_prep:.2f} s, {F} "
+          f"block products, {plan.nbz_out} output blocks; SciPy's int64 "
+          f"product on {sub.size} block rows", flush=True)
+    lst = (pp.prod_ptr, pp.prod_ab)
+    out["K7"]["int32"] = _new_kind(
+        card, "spgemm-block-181k K7 int32 (bsr_smsmm_apply_slab)", "K7",
+        lambda: pt.bsr_smsmm_apply_slab(pp, ai, ai).blocks,
+        lambda: pt.bsr_smsmm_apply_slab(pp, ai, ai).blocks,
+        lambda: cuda_bsr.slab_list_plain(*lst, ai.blocks, ai.blocks,
+                                         out_dtype=torch.int32),
+        blocks_check, np.zeros(1), cost, torch.int32,
+        lambda: pt.bsr_smsmm_apply_slab(pp, af, af).blocks, lib, call)
+    out["K7"]["int32"]["setup_s"] = t_prep
+    issued = cuda_bsr.bsr_slab_issued(*lst, ai.blocks, ai.blocks,
+                                      out_dtype=torch.int32)
+    if issued != F:
+        raise AssertionError(f"K7 int32: {issued} products multiplied, "
+                             f"{F} in the product")
+    out["K7"]["int32"]["products_issued"] = issued
+
+
+def phase22_int_bf16(card, band, sl, ela, m):
+    """The int32 kinds of K1 (and K1-r32, K1-mxu), K2, K3-K8 and the bf16
+    kinds of K1 (and its variants) and K2 at the suite's sizes: band-10M,
+    elasticity-400k, bell-band-80M (k 128, K5 at k 32) and
+    spgemm-block-181k's plan.  Each kind's main path runs with the
+    kernel's launch count set to 0 just before and read just after; its
+    record holds the kernel against its plain version (int32: equal) and
+    NumPy (int32: exact on the oracle's rows; bf16: within 2^-8 |A||v|),
+    bitwise repeatable, its back-to-back ms beside its float32 sibling's,
+    its plain version's, its bound and the library call's.  Returns
+    {kernel: {kind: record}}."""
+    out = {k: {} for k in ("K1", "K1-r32", "K1-mxu", "K2", "K3", "K4", "K5",
+                           "K6", "K7", "K8")}
+    _phase22_spmv(card, band, sl, ela, out)
+    _phase22_bell(card, m, sl["dband"], out)
+    _phase22_slab(card, out)
+    launches = {k: {kind: r["launches"] for kind, r in kinds.items()}
+                for k, kinds in out.items()}
+    print(f"   int32 / bf16 main-path launches: {launches}", flush=True)
+    return out
+
+
 def main():
     with Phase("phase 0: device", 60):
         card = phase0_device()
@@ -4710,10 +5179,21 @@ def main():
                                          ela["plan"].state[0], spmm_run)
     print(json.dumps({"surface": surface, "card": card}, default=float),
           flush=True)
-    # the bf16x3 and float64 kinds of K3-K6 and K8 join their kernels'
-    # records
+    # the int32 / bf16 kinds' run: each kind's launch count starts at 0
+    # just before its main path (phase 22)
+    with Phase("phase 22: the int32 and bf16 kinds at the suite's sizes",
+               300):
+        new_kinds = phase22_int_bf16(card, band, slice_run, ela, spmm_run)
+    for kname, recs in new_kinds.items():
+        kinds.setdefault(kname, {}).update(recs)
+    # the bf16x3, float64, int32 and bf16 kinds of the kernels join their
+    # kernels' records
     for entry in kernels:
         entry.update(kinds.get(entry["name"].split()[0], {}))
+    missing = sorted(k for k in new_kinds if not any(
+        e["name"].split()[0] == k for e in kernels))
+    if missing:
+        raise AssertionError(f"no kernel record for {missing}")
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

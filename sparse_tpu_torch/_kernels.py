@@ -36,8 +36,8 @@ _BUILD = _HERE / "_build"
 #: Linked into one library (the ``.cuh`` headers are included).
 SOURCES = ("segtile_csr.cu", "segtile_mxu.cu", "segtile_block.cu",
            "bell_spmm.cu", "bell_banded.cu", "bsr_slab.cu")
-_HEADERS = ("segtile_common.cuh", "bell_common.cuh", "band_body.cuh",
-            "block_body.cuh", "sm90_async.cuh")
+_HEADERS = ("segtile_common.cuh", "bell_common.cuh", "bell_kinds.cuh",
+            "band_body.cuh", "block_body.cuh", "sm90_async.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,13 +52,11 @@ _STREAM = (_P,) * 9 + (_LL,) * 3  # the compact-stream kernels' common head
 _SIGNATURES = {
     # vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
     # n_rows, n_long, n_pieces, long_min, piece, group, stream
-    "segtile_csr_f32": _STREAM + (_I, _I, _I, _P),
-    "segtile_csr_f64": _STREAM + (_I, _I, _I, _P),
-    "segtile_block_f32": _STREAM + (_I, _I, _I, _P),
-    "segtile_block_f64": _STREAM + (_I, _I, _I, _P),
+    **{f"segtile_{k}_{t}": _STREAM + (_I, _I, _I, _P)
+       for k in ("csr", "block") for t in ("f32", "f64", "i32", "bf16")},
     # the same without the lane group
-    "segtile_mxu_f32": _STREAM + (_I, _I, _P),
-    "segtile_mxu_f64": _STREAM + (_I, _I, _P),
+    **{f"segtile_mxu_{t}": _STREAM + (_I, _I, _P)
+       for t in ("f32", "f64", "bf16")},
     # kind, blocks, cols, b, c, nb, Lb, bsz, k, stream
     "bell_fused": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
     "bell_block": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),

@@ -1,10 +1,10 @@
 // The body of the blocked-ELL SpMM kernels K3 (bell_spmm.cu), K4 and K8
-// (bell_banded.cu) for float32, bf16, bf16x3 and float64 streams: C (M, N)
-// = A (M, K) @ B (K, N) for one output matrix, where A is a mostly-zero band
-// and B the dense operand.  The kernels differ only in where A's rows and
-// B's rows live, which an address policy says (DenseTile: K4/K8's densified
-// tile and operand window; WideRow: K3's block row [A_r0 | ... | A_r,Lb-1]
-// and the operand panels its slots name).
+// (bell_banded.cu) for float32, int32, bf16, bf16x3 and float64 streams:
+// C (M, N) = A (M, K) @ B (K, N) for one output matrix, where A is a
+// mostly-zero band and B the dense operand.  The kernels differ only in
+// where A's rows and B's rows live, which an address policy says
+// (DenseTile: K4/K8's densified tile and operand window; WideRow: K3's
+// block row [A_r0 | ... | A_r,Lb-1] and the operand panels its slots name).
 //
 // One thread block owns 32 output rows and 128 output columns.  The
 // contraction runs in 32-index chunks through a ring in shared memory filled
@@ -14,7 +14,10 @@
 // its multiply-adds.  The vote reads A only, so the result stays bitwise
 // repeatable, and reads magnitude bits, so a NaN stored in A counts as
 // non-zero and -0 does not.  Float32: each thread keeps an 8x4 register tile
-// fed by broadcast 16-byte shared loads, in full float32 (no TF32).  bf16
+// fed by broadcast 16-byte shared loads, in full float32 (no TF32).  int32
+// (A, B and C int32): the float32 kind's ring and tiling, integer
+// multiply-adds in unsigned (sums modulo 2^32, the reference's wrapping
+// int32 result), a vote on every bit of a word.  bf16
 // (A and B bf16, sums float32): the same tiling feeds mma.sync m16n8k16 from
 // ldmatrix fragments, each warp a 32x32 piece.  bf16x3 (the Split kind:
 // float32 A and B, precision="bf16x3"): the float32 ring and vote, and the
@@ -49,7 +52,7 @@ constexpr int kThreads = 128;  // four warps
 // bf16 products on the tensor cores.
 struct Split {};
 
-// Per stream kind S (float, __nv_bfloat16, Split, double): T, the element
+// Per stream kind S (float, int, __nv_bfloat16, Split, double): T, the element
 // type in memory and in shared memory; Out, C's; kBK, the contraction chunk
 // (one vote each);
 // kVote, how many chunks ahead of the one being multiplied the block votes
@@ -72,6 +75,30 @@ struct Cfg<float> {
   static constexpr int kVote = 1, kAhead = 2;
   static constexpr int kAStages = kAhead + 2, kBStages = kVote + 1;
   static constexpr int kMinBlocks = 4;  // per SM: at most 128 registers
+  __device__ static __forceinline__ int a_at(int i, int c) {
+    return i * kAPitch + c;
+  }
+  __device__ static __forceinline__ int b_at(int kk, int c) {
+    return kk * kBPitch + c;
+  }
+};
+// int32: the float32 kind's ring, register tile and broadcast loads, with
+// integer multiply-adds in unsigned (sums modulo 2^32, the reference's
+// wrapping int32 result in any order) and C int32.  Every bit of a word
+// counts in the vote: an int has no -0 and no NaN.
+template <>
+struct Cfg<int> {
+  using T = int;
+  using Out = int;
+  using Bits = unsigned;
+  using Acc = unsigned[8][4];
+  static constexpr unsigned kWord = 0xffffffffu;
+  static constexpr int kBK = 32;
+  static constexpr int kAPitch = kBK;
+  static constexpr int kBPitch = kBN;
+  static constexpr int kVote = 1, kAhead = 2;
+  static constexpr int kAStages = kAhead + 2, kBStages = kVote + 1;
+  static constexpr int kMinBlocks = 4;
   __device__ static __forceinline__ int a_at(int i, int c) {
     return i * kAPitch + c;
   }
@@ -431,6 +458,35 @@ __device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
   }
 }
 
+// The same for int32: thread (warp w, lane l) owns rows 8w .. 8w+7 and
+// columns 4l .. 4l+3, multiply-adds in unsigned.
+__device__ __forceinline__ void mma_chunk(const int* sa, const int* sb,
+                                          unsigned (&acc)[8][4]) {
+  constexpr int kBK = Cfg<int>::kBK;
+  const int* pa = sa + (threadIdx.x / 32) * 8 * kBK;
+  const int* pb = sb + (threadIdx.x % 32) * 4;
+#pragma unroll
+  for (int kq = 0; kq < kBK; kq += 4) {
+    uint4 a[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      a[r] = *reinterpret_cast<const uint4*>(pa + r * kBK + kq);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 b = *reinterpret_cast<const uint4*>(pb + (kq + q) * kBN);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const unsigned x = q == 0 ? a[r].x : q == 1 ? a[r].y
+                         : q == 2 ? a[r].z : a[r].w;
+        acc[r][0] += x * b.x;
+        acc[r][1] += x * b.y;
+        acc[r][2] += x * b.z;
+        acc[r][3] += x * b.w;
+      }
+    }
+  }
+}
+
 // The same for bf16 on the tensor cores: warp w owns all 32 rows and
 // columns 32w .. 32w+31, as 2 x 4 m16n8 tiles.
 __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* sa,
@@ -598,6 +654,28 @@ __device__ __forceinline__ void store(const float (&acc)[8][4], float* c,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (gn + j < N) row[gn + j] = acc[r][j];
+    }
+  }
+}
+
+// The int32 kind's C: the float32 kind's layout, each sum's bits.
+template <bool VEC>
+__device__ __forceinline__ void store(const unsigned (&acc)[8][4], int* c,
+                                      int M, int N, int m0, int n0) {
+  const int gn = n0 + (threadIdx.x % 32) * 4;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int gi = m0 + (threadIdx.x / 32) * 8 + r;
+    if (gi >= M) continue;
+    int* row = c + gi * N;
+    if constexpr (VEC) {
+      if (gn < N)
+        *reinterpret_cast<uint4*>(row + gn) =
+            make_uint4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gn + j < N) row[gn + j] = static_cast<int>(acc[r][j]);
     }
   }
 }

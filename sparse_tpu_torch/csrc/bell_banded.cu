@@ -29,7 +29,7 @@
 // k = 32) the tiles' bytes dominate instead.
 //
 // K4/K8 (band_kernel below) run the body of band_body.cuh on the tile in
-// every stream kind: 32 x 128 output blocks (one block row at bsz 32, all
+// every stream kind (float32, int32, bf16, bf16x3, float64): 32 x 128 output blocks (one block row at bsz 32, all
 // of k = 128, so each tile's A comes from device memory once), a cp.async
 // ring, and a vote that skips the tile's all-zero 32 x 32 chunks (their B
 // copy and multiply-adds), which brings the work issued at the bench shape
@@ -50,11 +50,16 @@
 // and C^T; twice that in float64).  So it does not vote on what it has
 // read: it walks the kit's chunk mask, built once per kit, and copies only
 // the non-zero chunks.  32-row blocks of k (no padding at k = 32), one
-// 32-column slice of the tile per warp.  Four kinds: float32 (8x4 register
-// tiles), bf16 (mma.sync), bf16x3 (float32 stages in band_body.cuh's
+// 32-column slice of the tile per warp.  Five kinds: float32 (8x4 register
+// tiles), int32 (the same tiles, multiply-adds in unsigned), bf16
+// (mma.sync), bf16x3 (float32 stages in band_body.cuh's
 // swizzled layouts, its split_chunk: three bf16 mma.sync products a float32
 // pair) and float64 (band_body.cuh's dmma_chunk on DMMA, two stages).
 // bell_banded_t_issued also counts the tile bytes it copied.
+//
+// Every int32 kind sums in unsigned, modulo 2^32: the reference's wrapping
+// int32 result, in any order.  Integer multiply-adds issue at half the
+// float32 rate on Hopper (64 INT32 lanes an SM against 128 FP32).
 //
 // Behaviour: a skipped chunk never multiplies the operand, so where B holds
 // Inf or NaN opposite a densified zero the result is the sparse product's
@@ -62,7 +67,7 @@
 // Every kind of K4, K5 and K8 skips.
 
 #include "band_body.cuh"
-#include "bell_common.cuh"  // the stream kinds (enum Kind)
+#include "bell_kinds.cuh"
 
 namespace {
 
@@ -130,7 +135,7 @@ cudaError_t launch_band(const void* tiles, const void* start, const void* b,
   return cudaGetLastError();
 }
 
-// The band body's stream kinds: float32, bf16, bf16x3 and float64.
+// The band body's stream kinds: float32, bf16, bf16x3, float64 and int32.
 cudaError_t band_kinds(int kind, const void* tiles, const void* start,
                        const void* b, void* c, long long ntiles, long long M,
                        long long K, long long N, long long bsz,
@@ -140,6 +145,9 @@ cudaError_t band_kinds(int kind, const void* tiles, const void* start,
     case kF32:
       return launch_band<float>(tiles, start, b, c, ntiles, M, K, N, bsz,
                                 b_rows, issued, stream);
+    case kI32:
+      return launch_band<int>(tiles, start, b, c, ntiles, M, K, N, bsz,
+                              b_rows, issued, stream);
     case kF32Split:
       return launch_band<band::Split>(tiles, start, b, c, ntiles, M, K, N,
                                       bsz, b_rows, issued, stream);
@@ -184,7 +192,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBM = kSlice * kWarps;  // output columns per thread block
 
-// Per stream kind S (float, __nv_bfloat16, band::Split, double): T, the
+// Per stream kind S (float, int, __nv_bfloat16, band::Split, double): T, the
 // element type in memory and in shared memory; Out, C^T's; kPitch, a
 // staged row's length; op_at(r, c) and tile_at(r, c) place element (r, c)
 // of the operand chunk and of a tile chunk in their stage.
@@ -198,6 +206,23 @@ struct Cfg<float> {
   using Acc = float[8][4];   // 8 rows x 4 columns of the warp's 32 x 32
   static constexpr int kPitch = 32;  // broadcast / 128-byte row reads
   static constexpr int kStages = 3;  // two panels in flight
+  static constexpr int kMinBlocks = 3;
+  __device__ static __forceinline__ int op_at(int r, int c) {
+    return r * kPitch + c;
+  }
+  __device__ static __forceinline__ int tile_at(int r, int c) {
+    return r * kPitch + c;
+  }
+};
+// int32: the float32 kind's stages and tiles, multiply-adds in unsigned.
+template <>
+struct Cfg<int> {
+  using T = int;
+  using Out = int;
+  using Bits = unsigned;
+  using Acc = unsigned[8][4];
+  static constexpr int kPitch = 32;
+  static constexpr int kStages = 3;
   static constexpr int kMinBlocks = 3;
   __device__ static __forceinline__ int op_at(int r, int c) {
     return r * kPitch + c;
@@ -379,6 +404,35 @@ __device__ __forceinline__ void mma_slice(const float* so, const float* st,
   }
 }
 
+// The same in int32, multiply-adds in unsigned.
+__device__ __forceinline__ void mma_slice(const int* so, const int* st,
+                                          unsigned (&acc)[8][4]) {
+  constexpr int kP = Cfg<int>::kPitch;
+  const int lane = threadIdx.x % 32;
+  const int* pa = so + (lane / 8) * 8 * kP;
+  const int* pb = st + (lane % 8) * 4;
+#pragma unroll
+  for (int kq = 0; kq < kBK; kq += 4) {
+    uint4 a[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      a[r] = *reinterpret_cast<const uint4*>(pa + r * kP + kq);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 b = *reinterpret_cast<const uint4*>(pb + (kq + q) * kP);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const unsigned x = q == 0 ? a[r].x : q == 1 ? a[r].y
+                         : q == 2 ? a[r].z : a[r].w;
+        acc[r][0] += x * b.x;
+        acc[r][1] += x * b.y;
+        acc[r][2] += x * b.z;
+        acc[r][3] += x * b.w;
+      }
+    }
+  }
+}
+
 // The same in bf16 on the tensor cores: 2 x 4 m16n8 tiles per warp.
 __device__ __forceinline__ void mma_slice(const __nv_bfloat16* so,
                                           const __nv_bfloat16* st,
@@ -446,6 +500,29 @@ __device__ __forceinline__ void store(const float (&acc)[8][4], float* ct,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (gi + j < M) row[gi + j] = acc[r][j];
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store(const unsigned (&acc)[8][4], int* ct,
+                                      long long out_cols, int M, int N,
+                                      int n0, int i0) {
+  const int lane = threadIdx.x % 32;
+  const int gi = i0 + (lane % 8) * 4;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int gn = n0 + (lane / 8) * 8 + r;
+    if (gn >= N) continue;
+    int* row = ct + gn * out_cols;
+    if constexpr (VEC) {
+      if (gi < M)
+        *reinterpret_cast<uint4*>(row + gi) =
+            make_uint4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gi + j < M) row[gi + j] = static_cast<int>(acc[r][j]);
     }
   }
 }
@@ -632,7 +709,7 @@ cudaError_t launch(const void* tiles_t, const void* start, const void* mask,
 
 }  // namespace band_t
 
-// K5's four stream kinds, all on band_t_kernel; counts may be null.
+// K5's five stream kinds, all on band_t_kernel; counts may be null.
 cudaError_t band_t_kinds(int kind, const void* tiles_t, const void* start,
                          const void* mask, const void* bt, void* ct,
                          long long ntiles, long long M, long long K,
@@ -642,6 +719,9 @@ cudaError_t band_t_kinds(int kind, const void* tiles_t, const void* start,
     case kF32:
       return band_t::launch<float>(tiles_t, start, mask, bt, ct, ntiles, M,
                                    K, N, bsz, bt_cols, counts, stream);
+    case kI32:
+      return band_t::launch<int>(tiles_t, start, mask, bt, ct, ntiles, M, K,
+                                 N, bsz, bt_cols, counts, stream);
     case kF32Split:
       return band_t::launch<band::Split>(tiles_t, start, mask, bt, ct,
                                          ntiles, M, K, N, bsz, bt_cols,
@@ -662,9 +742,9 @@ cudaError_t band_t_kinds(int kind, const void* tiles_t, const void* start,
 
 extern "C" {
 
-// kind as in bell_spmm.cu.  tiles (ntiles, M, K) and b (b_rows, N) in the
-// stream type, start (ntiles,) int32, C (ntiles*M, N) in float32 (float64
-// for kind 3).  Every kind runs band_kernel.  Returns cudaGetLastError()
+// kind as in bell_spmm.cu (bell_kinds.cuh).  tiles (ntiles, M, K) and b
+// (b_rows, N) in the stream type, start (ntiles,) int32, C (ntiles*M, N) in
+// float32 (float64 for kind 3, int32 for kind 4).  Every kind runs band_kernel.  Returns cudaGetLastError()
 // after the launch, or the error of a shape the kernel cannot index.
 int bell_banded(int kind, const void* tiles, const void* start,
                 const void* b, void* c, long long ntiles, long long M,
@@ -688,7 +768,7 @@ int bell_banded_issued(int kind, const void* tiles, const void* start,
 
 // tiles_t (ntiles, K, M) and bt (N, bt_cols) in the stream type, mask
 // (ntiles, ceil(K/32), ceil(M/32)) uint8, C^T (N, ntiles*M) in float32
-// (float64 for kind 3).  Every kind runs band_t_kernel.
+// (float64 for kind 3, int32 for kind 4).  Every kind runs band_t_kernel.
 int bell_banded_t(int kind, const void* tiles_t, const void* start,
                   const void* mask, const void* bt, void* ct,
                   long long ntiles, long long M, long long K, long long N,

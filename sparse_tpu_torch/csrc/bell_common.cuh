@@ -1,6 +1,6 @@
 // The first body of the blocked-ELL SpMM kernels, which keeps the float64
 // kinds of K3 and K6 and every kind of K6 past bsz 64 (bell_spmm.cu; the
-// stream kinds below serve bell_banded.cu too): one thread block
+// stream kinds are bell_kinds.cuh's): one thread block
 // accumulates one (BM x 64) output tile
 // of C = A @ B over the whole contraction, staging A and B in shared memory
 // in chunks of 16 along the contraction; each thread holds a 4 x 4 register
@@ -10,9 +10,11 @@
 // cross-block sums: every output element is written once, by one thread,
 // after one fixed-order loop — bitwise repeatable.
 //
-// Types: the stream T is float, __nv_bfloat16 or double; the shared-memory
-// and accumulator type S is double for double and float otherwise (bf16 is
-// widened exactly on the way into shared memory).  With SPLIT (precision
+// Types: the stream T is float, __nv_bfloat16, double or int; the
+// shared-memory and accumulator type S is double for double, unsigned for
+// int (K6's int32 kind past bsz 64: sums modulo 2^32, C written as their
+// bits) and float otherwise (bf16 is widened exactly on the way into shared
+// memory).  With SPLIT (precision
 // "bf16x3", float streams only) each operand is split in registers into a
 // bf16 high part and a bf16 residual and the tile sums hi*hi + hi*lo + lo*hi
 // in float, as sparse_tpu/ops/pallas_bell.py::_dot_bf16x3 does.
@@ -22,6 +24,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bell_kinds.cuh"
+
 namespace bell {
 
 constexpr int kBK = 16;  // contraction chunk staged per step
@@ -29,9 +33,6 @@ constexpr int kTM = 4;   // output rows per thread
 constexpr int kTN = 4;   // output columns per thread
 constexpr int kBN = 64;  // output columns per thread block
 constexpr int kPad = 4;  // shared-memory row padding (keeps 16-byte rows)
-
-// Stream kinds of the C entry points.
-enum Kind { kF32 = 0, kF32Split = 1, kBF16 = 2, kF64 = 3 };
 
 template <typename T>
 struct AccOf {
@@ -41,18 +42,28 @@ template <>
 struct AccOf<double> {
   using type = double;
 };
+template <>
+struct AccOf<int> {
+  using type = unsigned;  // int32 sums modulo 2^32, stored as their bits
+};
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ double widen(double x) { return x; }
+__device__ __forceinline__ unsigned widen(int x) {
+  return static_cast<unsigned>(x);
+}
 
 __device__ __forceinline__ float mad(float a, float b, float c) {
   return fmaf(a, b, c);
 }
 __device__ __forceinline__ double mad(double a, double b, double c) {
   return fma(a, b, c);
+}
+__device__ __forceinline__ unsigned mad(unsigned a, unsigned b, unsigned c) {
+  return a * b + c;
 }
 
 __device__ __forceinline__ float bf16_round(float x) {

@@ -14,12 +14,14 @@
 // panels of a band are shared by neighbouring rows and mostly hit the 50 MB
 // L2), so the float32 form runs on the CUDA cores (67 TFLOP/s on the data
 // sheet; full float32 is the contract, no TF32) — arithmetic-bound, not
-// stream-bound.
+// stream-bound.  The int32 kinds run the float32 tiling with integer
+// multiply-adds, which Hopper issues at half the float32 rate (64 INT32
+// lanes an SM against 128 FP32).
 //
 // What the design does about it: the TPU's DMA gathers become loads of the
 // block's panel rows inside the kernel (no gathered intermediate in device
-// memory, as on the TPU).  K3's float32, bf16 and bf16x3 streams run the
-// body of band_body.cuh (K4's) on each block row's wide row: 32 output rows
+// memory, as on the TPU).  K3's float32, int32, bf16 and bf16x3 streams
+// run the body of band_body.cuh (K4's) on each block row's wide row: 32 output rows
 // x 128 columns per thread block, 32-index contraction chunks (one stored
 // block at bsz 32), a cp.async ring (A ahead, B one chunk ahead), one
 // __syncthreads_or vote per chunk so the zero blocks of padding slots skip
@@ -34,24 +36,29 @@
 // operand, so Inf or NaN in B opposite it gives the sparse product's
 // answer.
 //
-// K6's float32, bf16 and bf16x3 streams (bsz <= 64) run the persistent
+// K6's float32, int32, bf16 and bf16x3 streams (bsz <= 64) run the
+// persistent
 // body of block_body.cuh: thread blocks walk the output tiles (one block
 // row x 128 columns) in order with a cp.async ring of stored blocks and
 // operand panels that runs across block rows, one vote per stored block (a
 // padding slot's zero block skips its panel and its multiply-adds), 8x8
-// float32 register tiles, bf16 on mma.sync, bf16x3 as three bf16 mma.sync
-// products a float32 fragment pair (band_body.cuh's split_chunk);
+// float32 register tiles (int32: the same tiles in unsigned), bf16 on
+// mma.sync, bf16x3 as three bf16 mma.sync products a float32 fragment pair
+// (band_body.cuh's split_chunk);
 // bell_block_issued counts the multiply-adds the vote kept.  K6's float64
 // kind (and every kind past bsz 64), and K3's float64 kind, run the first
 // body (bell_common.cuh): one thread block owns one (block row, 64-column
 // chunk of k) and keeps its output in registers (4 x 4 per thread) across
 // the whole contraction; K3 stages the wide row in chunks of 16
 // contraction indices that run across block boundaries, K6 walks the Lb
-// stored blocks one at a time; it skips no zero.  No atomics, so two runs
-// of one input agree bitwise.
+// stored blocks one at a time; it skips no zero (int32 past bsz 64 sums in
+// unsigned there).  Every int32 kind sums modulo 2^32: the reference's
+// wrapping int32 result, in any order.  No atomics, so two runs of one
+// input agree bitwise.
 
 #include "band_body.cuh"
 #include "bell_common.cuh"
+#include "bell_kinds.cuh"
 #include "block_body.cuh"
 
 namespace {
@@ -115,16 +122,17 @@ __global__ void __launch_bounds__(Shape<kRowsBM>::kThreads)
   store<S, kRowsBM>(acc, c + r * bsz * k, k, 1, bsz, k, p.m0, p.n0);
 }
 
-// K3 for float32, bf16 and bf16x3 streams: blocks (nb, Lb, bsz, bsz) and b
-// (nb*bsz, k) in the stream kind S's element type, C (nb*bsz, k) float32.
+// K3 for float32, bf16, bf16x3 and int32 streams: blocks (nb, Lb, bsz, bsz)
+// and b (nb*bsz, k) in the stream kind S's element type, C (nb*bsz, k) in
+// Cfg<S>::Out (float32; int32 for int32).
 // Block (block row, 32-row block, 128-column block), column blocks fastest.
 template <typename S, bool VEC>
 __global__ void __launch_bounds__(band::kThreads, band::Cfg<S>::kMinBlocks)
     fused_band_kernel(const typename band::Cfg<S>::T* __restrict__ blocks,
                       const int* __restrict__ cols,
                       const typename band::Cfg<S>::T* __restrict__ b,
-                      float* __restrict__ c, int Lb, int bsz, int k,
-                      unsigned long long* __restrict__ issued) {
+                      typename band::Cfg<S>::Out* __restrict__ c, int Lb,
+                      int bsz, int k, unsigned long long* __restrict__ issued) {
   using T = typename band::Cfg<S>::T;
   const int n_blocks = (k + band::kBN - 1) / band::kBN;
   const int m_blocks = (bsz + band::kBM - 1) / band::kBM;
@@ -168,12 +176,13 @@ cudaError_t launch_fused_band(const void* blocks, const void* cols,
   kern<<<static_cast<unsigned>(grid), band::kThreads, smem,
          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(blocks), static_cast<const int*>(cols),
-      static_cast<const T*>(b), static_cast<float*>(c), static_cast<int>(Lb),
-      static_cast<int>(bsz), static_cast<int>(k), issued);
+      static_cast<const T*>(b), static_cast<typename band::Cfg<S>::Out*>(c),
+      static_cast<int>(Lb), static_cast<int>(bsz), static_cast<int>(k),
+      issued);
   return cudaGetLastError();
 }
 
-// K3's band-body kinds: float32, bf16 and bf16x3.
+// K3's band-body kinds: float32, bf16, bf16x3 and int32.
 cudaError_t fused_band_kinds(int kind, const void* blocks, const void* cols,
                              const void* b, void* c, long long nb,
                              long long Lb, long long bsz, long long k,
@@ -182,6 +191,9 @@ cudaError_t fused_band_kinds(int kind, const void* blocks, const void* cols,
     case kF32:
       return launch_fused_band<float>(blocks, cols, b, c, nb, Lb, bsz, k,
                                       issued, stream);
+    case kI32:
+      return launch_fused_band<int>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                    issued, stream);
     case kF32Split:
       return launch_fused_band<band::Split>(blocks, cols, b, c, nb, Lb, bsz,
                                             k, issued, stream);
@@ -193,9 +205,9 @@ cudaError_t fused_band_kinds(int kind, const void* blocks, const void* cols,
   }
 }
 
-// K6 for float32, bf16 and bf16x3 streams: blocks (nb, Lb, bsz, bsz), b
-// (nb*bsz, k) and C (nb*bsz, k) in the stream kind S's element type T
-// (float32 for bf16x3).
+// K6 for float32, bf16, bf16x3 and int32 streams: blocks (nb, Lb, bsz,
+// bsz), b (nb*bsz, k) and C (nb*bsz, k) in the stream kind S's element type
+// T (float32 for bf16x3).
 template <typename S, int BK, bool VEC>
 __global__ void __launch_bounds__(bbody::kThreads)
     block_tile_kernel(const typename bbody::Cfg<S>::T* __restrict__ blocks,
@@ -242,7 +254,8 @@ cudaError_t launch_block_tiles(const void* blocks, const void* cols,
   return cudaGetLastError();
 }
 
-// The persistent K6 body's kinds, float32, bf16 and bf16x3, at bsz <= 64.
+// The persistent K6 body's kinds, float32, bf16, bf16x3 and int32, at bsz
+// <= 64.
 template <typename S>
 cudaError_t launch_block_body(const void* blocks, const void* cols,
                               const void* b, void* c, long long nb,
@@ -278,6 +291,9 @@ cudaError_t block_body_kinds(int kind, const void* blocks, const void* cols,
     case kF32:
       return launch_block_body<float>(blocks, cols, b, c, nb, Lb, bsz, k,
                                       issued, stream);
+    case kI32:
+      return launch_block_body<int>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                    issued, stream);
     case kF32Split:
       return launch_block_body<band::Split>(blocks, cols, b, c, nb, Lb, bsz,
                                             k, issued, stream);
@@ -308,7 +324,7 @@ cudaError_t launch(const void* blocks, const void* cols, const void* b,
 }
 
 // The first body's kinds: float64 for K3 and K6, and every kind of K6 past
-// bsz 64.
+// bsz 64 (int32 among them).
 template <bool FUSED>
 int dispatch(int kind, const void* blocks, const void* cols, const void* b,
              void* c, long long nb, long long Lb, long long bsz, long long k,
@@ -332,6 +348,11 @@ int dispatch(int kind, const void* blocks, const void* cols, const void* b,
     case kF64:
       return launch<double, false, FUSED>(blocks, cols, b, c, nb, Lb, bsz, k,
                                           stream);
+    case kI32:  // K6 past bsz 64: sums in unsigned, C int32
+      if constexpr (!FUSED)
+        return launch<int, false, FUSED>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                         stream);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
@@ -341,11 +362,12 @@ int dispatch(int kind, const void* blocks, const void* cols, const void* b,
 
 extern "C" {
 
-// kind: 0 float32, 1 float32 with the bf16x3 split, 2 bf16 stream, 3
-// float64.  blocks (nb, Lb, bsz, bsz) and b (nb*bsz, k) in the stream type,
-// cols (nb, Lb) int32, C (nb*bsz, k) in float32 (float64 for kind 3, bf16
-// for K6's kind 2 at bsz <= 64).  K3's float32, bf16 and bf16x3 kinds run
-// the band body, float64 the first body.  Returns cudaGetLastError() after
+// kind (bell_kinds.cuh): 0 float32, 1 float32 with the bf16x3 split, 2 bf16
+// stream, 3 float64, 4 int32.  blocks (nb, Lb, bsz, bsz) and b (nb*bsz, k)
+// in the stream type, cols (nb, Lb) int32, C (nb*bsz, k) in float32
+// (float64 for kind 3, int32 for kind 4, bf16 for K6's kind 2 at bsz <=
+// 64).  K3's float32, bf16, bf16x3 and int32 kinds run the band body,
+// float64 the first body.  Returns cudaGetLastError() after
 // the launch, or the error of a shape the kernel cannot index.
 int bell_fused(int kind, const void* blocks, const void* cols, const void* b,
                void* c, long long nb, long long Lb, long long bsz,
@@ -356,8 +378,8 @@ int bell_fused(int kind, const void* blocks, const void* cols, const void* b,
                           stream);
 }
 
-// bell_fused for the float32, bf16 and bf16x3 kinds (float64 returns
-// cudaErrorInvalidValue), also adding to *issued (on the card, zeroed by
+// bell_fused for the float32, bf16, bf16x3 and int32 kinds (float64
+// returns cudaErrorInvalidValue), also adding to *issued (on the card, zeroed by
 // the caller) the multiply-adds the body issues: 32 x 32 x 128 for every
 // chunk of a wide row its vote kept (once for bf16x3).
 int bell_fused_issued(int kind, const void* blocks, const void* cols,
@@ -368,9 +390,10 @@ int bell_fused_issued(int kind, const void* blocks, const void* cols,
                           static_cast<unsigned long long*>(issued), stream);
 }
 
-// K6.  The float32, bf16 and bf16x3 kinds at bsz <= 64 run the persistent
-// body, float64 and bsz > 64 the first body.  The persistent body's bf16
-// kind writes a bf16 C (the result's dtype), the first body's float32.
+// K6.  The float32, bf16, bf16x3 and int32 kinds at bsz <= 64 run the
+// persistent body, float64 and bsz > 64 the first body.  The persistent
+// body's bf16 kind writes a bf16 C (the result's dtype), the first body's
+// float32; int32 writes int32 on both.
 int bell_block(int kind, const void* blocks, const void* cols, const void* b,
                void* c, long long nb, long long Lb, long long bsz,
                long long k, void* stream) {
@@ -380,8 +403,9 @@ int bell_block(int kind, const void* blocks, const void* cols, const void* b,
   return dispatch<false>(kind, blocks, cols, b, c, nb, Lb, bsz, k, stream);
 }
 
-// bell_block for the float32, bf16 and bf16x3 kinds at bsz <= 64 (C in the
-// stream type, float32 for bf16x3; others return cudaErrorInvalidValue),
+// bell_block for the float32, bf16, bf16x3 and int32 kinds at bsz <= 64 (C
+// in the stream type, float32 for bf16x3; others return
+// cudaErrorInvalidValue),
 // also adding to *issued (on the card, zeroed by the caller) the
 // multiply-adds the persistent body's vote kept: rows x bsz x columns of a
 // tile for each stored block it kept there (once for bf16x3).

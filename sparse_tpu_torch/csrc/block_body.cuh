@@ -1,6 +1,6 @@
-// K6's float32 / bf16 / bf16x3 body (bell_spmm.cu): C[r] (bsz, k) = sum
-// over the stored slots l of block row r of blocks[r, l] (bsz, bsz) @ the
-// operand panel B[cols[r, l]*bsz : +bsz] (bsz, k), one stored block at a
+// K6's float32 / int32 / bf16 / bf16x3 body (bell_spmm.cu): C[r] (bsz, k)
+// = sum over the stored slots l of block row r of blocks[r, l] (bsz, bsz) @
+// the operand panel B[cols[r, l]*bsz : +bsz] (bsz, k), one stored block at a
 // time, as sparse_tpu/ops/pallas_bell.py::bell_spmm_pallas (def :58,
 // pallas_call :89, kernel :41-55) steps its grid.
 //
@@ -19,7 +19,9 @@
 // slot) skips its panel copy and its multiply-adds; NaN counts as non-zero,
 // -0 does not.  Float32: each thread keeps an 8x8 register tile (rows
 // r + 4q, columns 4c .. 4c+3 and 64 + 4c .. +3: 64 FMAs per four 16-byte
-// shared loads, conflict-free), in full float32.  bf16 (A and B bf16, sums
+// shared loads, conflict-free), in full float32.  int32: the same tile and
+// ring, integer multiply-adds in unsigned (sums modulo 2^32, the
+// reference's wrapping int32 result), a vote on every bit, C int32.  bf16 (A and B bf16, sums
 // float32): each warp a 32 x 64 piece on mma.sync m16n8k16 from ldmatrix
 // fragments, the sums rounded to bf16 once as they are stored.  bf16x3
 // (band::Split: float32 A and B, precision="bf16x3"): the float32 ring and
@@ -53,8 +55,8 @@ constexpr int kBM = 32;       // output rows of a tile
 constexpr int kBN = 128;      // output columns of a tile
 constexpr int kThreads = 64;  // two warps
 
-// Per stream kind S (float, __nv_bfloat16, band::Split): T, the element
-// type in memory, in shared memory and of C.
+// Per stream kind S (float, int, __nv_bfloat16, band::Split): T, the
+// element type in memory, in shared memory and of C.
 template <typename S>
 struct Cfg;
 template <>
@@ -63,6 +65,17 @@ struct Cfg<float> {
   using Bits = unsigned;
   using Acc = float[8][8];
   static constexpr unsigned kWord = 0x7fffffffu;  // magnitude bits
+  static constexpr int kPadA = 4, kPadB = 0;
+  static constexpr int kVote = 1, kAhead = 2;
+};
+// int32: the float32 kind's ring and 8x8 register tile, multiply-adds in
+// unsigned (sums modulo 2^32), C int32; the vote counts every bit.
+template <>
+struct Cfg<int> {
+  using T = int;
+  using Bits = unsigned;
+  using Acc = unsigned[8][8];
+  static constexpr unsigned kWord = 0xffffffffu;
   static constexpr int kPadA = 4, kPadB = 0;
   static constexpr int kVote = 1, kAhead = 2;
 };
@@ -272,6 +285,41 @@ __device__ __forceinline__ void mma_step(const float* sa, const float* sb,
   }
 }
 
+// The same for int32, multiply-adds in unsigned.
+template <int BK>
+__device__ __forceinline__ void mma_step(const int* sa, const int* sb,
+                                         unsigned (&acc)[8][8]) {
+  using G = Geo<int, BK>;
+  const int* pa = sa + (threadIdx.x / 16) * G::PA;
+  const int* pb = sb + (threadIdx.x % 16) * 4;
+#pragma unroll
+  for (int kq = 0; kq < BK; kq += 4) {
+    uint4 a[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      a[q] = *reinterpret_cast<const uint4*>(pa + 4 * q * G::PA + kq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint4 b0 = *reinterpret_cast<const uint4*>(pb + (kq + kk) * G::PB);
+      const uint4 b1 =
+          *reinterpret_cast<const uint4*>(pb + (kq + kk) * G::PB + 64);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const unsigned x = kk == 0 ? a[q].x : kk == 1 ? a[q].y
+                         : kk == 2 ? a[q].z : a[q].w;
+        acc[q][0] += x * b0.x;
+        acc[q][1] += x * b0.y;
+        acc[q][2] += x * b0.z;
+        acc[q][3] += x * b0.w;
+        acc[q][4] += x * b1.x;
+        acc[q][5] += x * b1.y;
+        acc[q][6] += x * b1.z;
+        acc[q][7] += x * b1.w;
+      }
+    }
+  }
+}
+
 // The same for bf16 on the tensor cores: warp w owns all 32 rows and
 // columns 64w .. 64w+63, as 2 x 8 m16n8 tiles.
 template <int BK>
@@ -329,6 +377,12 @@ __device__ __forceinline__ void zero(float (&acc)[8][8]) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 }
+__device__ __forceinline__ void zero(unsigned (&acc)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0u;
+}
 __device__ __forceinline__ void zero(float (&acc)[2][8][4]) {
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -372,6 +426,33 @@ __device__ __forceinline__ void store(const float (&acc)[8][8], float* c,
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           if (gn + j < N) __stcs(row + gn + j, v[j]);
+      }
+    }
+  }
+}
+
+// The int32 kind's C: the float32 kind's layout, each sum's bits.
+template <bool VEC>
+__device__ __forceinline__ void store(const unsigned (&acc)[8][8], int* c,
+                                      int M, int N, int m0, int n0) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int gi = m0 + t / 16 + 4 * q;
+    if (gi >= M) continue;
+    int* row = c + static_cast<long long>(gi) * N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gn = n0 + h * 64 + (t % 16) * 4;
+      const unsigned* v = &acc[q][4 * h];
+      if constexpr (VEC) {
+        if (gn < N)
+          __stcs(reinterpret_cast<uint4*>(row + gn),
+                 make_uint4(v[0], v[1], v[2], v[3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gn + j < N) __stcs(row + gn + j, static_cast<int>(v[j]));
       }
     }
   }

@@ -29,8 +29,9 @@
 // (A block | B block) in shared memory, filled by 16-byte cp.async
 // kStages-1 products ahead ACROSS output blocks and pieces, so copies stay
 // in flight while an output with one product multiplies and is stored.
-// One barrier per product (the team's).  Float32 and float64: each lane
-// keeps an 8x4 tile of a 32 x 32 output (rows r + 4q, so the padded A rows
+// One barrier per product (the team's).  Float32, float64 and int32 (as
+// unsigned: multiply-adds modulo 2^32, the reference's wrapping int32
+// result in any order): each lane keeps an 8x4 tile of a 32 x 32 output (rows r + 4q, so the padded A rows
 // give conflict-free 16-byte loads; B rows are broadcast 16-byte loads).
 // bf16: mma.sync m16n8k16 from ldmatrix fragments, float32 sums rounded
 // once.  Each output block is written once, from registers, with 16-byte
@@ -52,7 +53,7 @@
 namespace {
 
 // Element types of the C entry point.
-enum Kind { kF32 = 0, kBF16 = 2, kF64 = 3 };
+enum Kind { kF32 = 0, kBF16 = 2, kF64 = 3, kI32 = 4 };
 
 constexpr int kThreads = 128;  // four warps per thread block
 constexpr int kPieces = 8;     // output ranges per team
@@ -69,6 +70,13 @@ struct Cfg<float> {
 template <>
 struct Cfg<double> {
   static constexpr int kStages = 2, kPadA = 4, kPadB = 0;
+};
+// int32 runs as unsigned: the float32 team body's stages and padding, sums
+// modulo 2^32 (the reference's wrapping int32 result in any order), the
+// blocks and C read and written as their bits.
+template <>
+struct Cfg<unsigned> {
+  static constexpr int kStages = 3, kPadA = 4, kPadB = 0;
 };
 template <>
 struct Cfg<__nv_bfloat16> {
@@ -193,7 +201,7 @@ __device__ __forceinline__ void copy_product(T* st, const T* __restrict__ a,
   }
 }
 
-// -- float32 / float64: 8x4 (BS 32, 64), 4x2 (16), 2x1 (8) lane tiles -------
+// -- float32 / float64 / int32: 8x4 (BS 32, 64), 4x2 (16), 2x1 (8) lane tiles
 // Lane l: r = l / 8 owns rows R0 + r + 4q, c = l % 8 owns columns
 // C0 + c*TC .. +TC-1 of the warp's tile (R0, C0).
 
@@ -226,6 +234,9 @@ __device__ __forceinline__ float mad(float a, float b, float c) {
 }
 __device__ __forceinline__ double mad(double a, double b, double c) {
   return fma(a, b, c);
+}
+__device__ __forceinline__ unsigned mad(unsigned a, unsigned b, unsigned c) {
+  return a * b + c;
 }
 
 template <typename S, int BS>
@@ -580,7 +591,8 @@ cudaError_t launch(const void* z1, const void* z2, const void* prod_ptr,
 
 extern "C" {
 
-// kind: 0 float32, 2 bfloat16 (float32 sums, rounded once), 3 float64.
+// kind: 0 float32, 2 bfloat16 (float32 sums, rounded once), 3 float64, 4
+// int32 (sums modulo 2^32).
 // z1, z2 (., bsz, bsz) and C (n_out, bsz, bsz) in that type; prod_ptr
 // (n_out + 1) and prod_ab (F, 2) int32, the product list.  issued: null,
 // or a counter on the card (zeroed by the caller) that gets the products
@@ -599,6 +611,9 @@ int bsr_slab(int kind, const void* z1, const void* z2, const void* prod_ptr,
     case kF64:
       return launch<double>(z1, z2, prod_ptr, prod_ab, out, n_out, bsz,
                             count, stream);
+    case kI32:
+      return launch<unsigned>(z1, z2, prod_ptr, prod_ab, out, n_out, bsz,
+                              count, stream);
     default:
       return cudaErrorInvalidValue;
   }

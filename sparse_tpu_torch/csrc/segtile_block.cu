@@ -28,6 +28,13 @@
 // in its L1.
 // Long block rows are cut into pieces of 128 blocks, summed in order, as
 // in segtile_common.cuh.
+//
+// Kinds: float32 and float64 (BlockEntries); int32 (WideBlockEntries<int>:
+// 16-byte records, multiply-adds in unsigned — the reference's wrapping
+// int32 result in any order — stored as int32 bits); bf16
+// (WideBlockEntries<__nv_bfloat16>: 8-byte records, values and operand
+// widened exactly to float32, sums in float32 in the float32 kind's order,
+// y rounded once to bf16).
 
 #include "segtile_common.cuh"
 
@@ -50,6 +57,7 @@ __device__ __forceinline__ void load_pair(const double* v, int c, double& x0,
 template <typename Tp>
 struct BlockEntries {
   using T = Tp;
+  using Out = Tp;
   static constexpr int kUnit = 1;
   static constexpr int kC = 2;
   const T* vals;  // (nbz, 4), 16-byte aligned
@@ -83,25 +91,67 @@ struct BlockEntries {
   }
 };
 
-template <typename T>
-int segtile_block_any(const void* vals, const void* cols,
-                      const void* row_ptr, const void* long_rows,
-                      const void* piece_ptr, const void* piece_row,
-                      const void* v, void* partial, void* y, long long n_rows,
-                      long long n_long, long long n_pieces, int long_min,
-                      int piece, int group, void* stream) {
-  const BlockEntries<T> ent{static_cast<const T*>(vals),
-                            static_cast<const int*>(cols),
-                            static_cast<const T*>(v)};
-  const Rows rows{static_cast<const int*>(row_ptr),
-                  static_cast<const int*>(long_rows),
-                  static_cast<const int*>(piece_ptr),
-                  static_cast<const int*>(piece_row), n_rows, n_pieces,
-                  long_min, piece};
-  return static_cast<int>(launch_stream_rows_any(
-      ent, rows, n_long, group, static_cast<T*>(partial), static_cast<T*>(y),
-      static_cast<cudaStream_t>(stream)));
+// The operand pair (v[2c], v[2c+1]) widened: int32 as unsigned (one 8-byte
+// load), bf16 to float32 exactly (one 4-byte load, element 2c in the low
+// half).
+__device__ __forceinline__ void load_pair(const int* v, int c, unsigned& x0,
+                                          unsigned& x1) {
+  const int2 t = __ldg(reinterpret_cast<const int2*>(v) + c);
+  x0 = static_cast<unsigned>(t.x);
+  x1 = static_cast<unsigned>(t.y);
 }
+
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* v, int c,
+                                          float& x0, float& x1) {
+  const unsigned t = __ldg(reinterpret_cast<const unsigned*>(v) + c);
+  x0 = __uint_as_float(t << 16);
+  x1 = __uint_as_float(t & 0xffff0000u);
+}
+
+// The int32 and bf16 kinds: records and operand of type V, products and
+// sums in Widen<V>::Acc in the float kinds' order, y in Widen<V>::Out.
+template <typename V>
+struct WideBlockEntries {
+  using W = Widen<V>;
+  using T = typename W::Acc;
+  using Out = typename W::Out;
+  static constexpr int kUnit = 1;
+  static constexpr int kC = 2;
+  const V* vals;  // (nbz, 4), 16-byte aligned
+  const int* cols;
+  const V* v;  // (2 * nb), aligned to two elements
+
+  struct Unit {
+    V a[4];
+    int c;
+  };
+
+  __device__ __forceinline__ Unit load(long long u) const {
+    Unit x;
+    load4_stream(vals + 4 * u, x.a);
+    x.c = __ldcs(cols + u);
+    return x;
+  }
+
+  __device__ __forceinline__ void add(T (&acc)[2], const Unit& x,
+                                      long long, long long, long long) const {
+    T x0, x1;
+    load_pair(v, x.c, x0, x1);
+    acc[0] += W::of(x.a[0]) * x0 + W::of(x.a[1]) * x1;
+    acc[1] += W::of(x.a[2]) * x0 + W::of(x.a[3]) * x1;
+  }
+
+  __device__ __forceinline__ static void store(T* out, long long i,
+                                               const T (&acc)[2]) {
+    out[2 * i] = acc[0];
+    out[2 * i + 1] = acc[1];
+  }
+  __device__ __forceinline__ static void store(Out* out, long long i,
+                                               const T (&acc)[2]) {
+    store_out(out + 2 * i, acc[0]);
+    store_out(out + 2 * i + 1, acc[1]);
+  }
+};
 
 }  // namespace
 
@@ -117,9 +167,9 @@ int segtile_block_f32(const void* vals, const void* cols,
                       const void* v, void* partial, void* y, long long n_rows,
                       long long n_long, long long n_pieces, int long_min,
                       int piece, int group, void* stream) {
-  return segtile_block_any<float>(vals, cols, row_ptr, long_rows, piece_ptr,
-                                  piece_row, v, partial, y, n_rows, n_long,
-                                  n_pieces, long_min, piece, group, stream);
+  return launch_entries<BlockEntries<float>, float>(
+      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
+      n_rows, n_long, n_pieces, long_min, piece, group, stream);
 }
 
 int segtile_block_f64(const void* vals, const void* cols,
@@ -128,9 +178,33 @@ int segtile_block_f64(const void* vals, const void* cols,
                       const void* v, void* partial, void* y, long long n_rows,
                       long long n_long, long long n_pieces, int long_min,
                       int piece, int group, void* stream) {
-  return segtile_block_any<double>(vals, cols, row_ptr, long_rows, piece_ptr,
-                                   piece_row, v, partial, y, n_rows, n_long,
-                                   n_pieces, long_min, piece, group, stream);
+  return launch_entries<BlockEntries<double>, double>(
+      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
+      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+}
+
+// int32: records, v and y int32, partial int32 scratch (the sums' bits).
+int segtile_block_i32(const void* vals, const void* cols,
+                      const void* row_ptr, const void* long_rows,
+                      const void* piece_ptr, const void* piece_row,
+                      const void* v, void* partial, void* y, long long n_rows,
+                      long long n_long, long long n_pieces, int long_min,
+                      int piece, int group, void* stream) {
+  return launch_entries<WideBlockEntries<int>, int>(
+      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
+      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+}
+
+// bf16: records, v and y bf16 (8-byte records), partial float32 scratch.
+int segtile_block_bf16(const void* vals, const void* cols,
+                       const void* row_ptr, const void* long_rows,
+                       const void* piece_ptr, const void* piece_row,
+                       const void* v, void* partial, void* y,
+                       long long n_rows, long long n_long, long long n_pieces,
+                       int long_min, int piece, int group, void* stream) {
+  return launch_entries<WideBlockEntries<__nv_bfloat16>, __nv_bfloat16>(
+      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
+      n_rows, n_long, n_pieces, long_min, piece, group, stream);
 }
 
 }  // extern "C"

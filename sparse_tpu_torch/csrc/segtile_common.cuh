@@ -11,11 +11,18 @@
 // into partial[p], and long_row_sum adds a row's pieces in piece order.  No
 // float atomics anywhere, so every result is bitwise repeatable.
 //
+// Value kinds: float32 and float64 sum in their own type; int32 multiplies
+// and adds in unsigned (a sum modulo 2^32, the reference's wrapping int32
+// result in any order) and stores the bits as int32; bf16 widens values and
+// operand exactly to float32, sums in float32 (partial too) and rounds once
+// to bf16 as y is stored (Widen<V>, store_out).
+//
 // Everything lives in an anonymous namespace so each translation unit keeps
 // its own copy of the templates (all are linked into one library).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -73,6 +80,71 @@ __device__ __forceinline__ void load4_stream(const double* p,
   a[3] = t1.y;
 }
 
+__device__ __forceinline__ void load4_stream(const int* p, int (&a)[4]) {
+  const int4 t = __ldcs(reinterpret_cast<const int4*>(p));
+  a[0] = t.x;
+  a[1] = t.y;
+  a[2] = t.z;
+  a[3] = t.w;
+}
+
+// Four bf16 values: one 8-byte load (the wrapper checks 16-byte alignment
+// of the stream, whose units are 4 entries).
+__device__ __forceinline__ void load4_stream(const __nv_bfloat16* p,
+                                             __nv_bfloat16 (&a)[4]) {
+  const uint2 t = __ldcs(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+  a[0] = lo.x;
+  a[1] = lo.y;
+  a[2] = hi.x;
+  a[3] = hi.y;
+}
+
+// The sums of the int32 and bf16 kinds: Acc, the type products and sums
+// are taken in (partial too); Out, y's; of(x), a value widened exactly;
+// gather(v, c), operand element c through the read-only path.
+template <typename V>
+struct Widen;
+template <>
+struct Widen<int> {
+  using Acc = unsigned;
+  using Out = int;
+  __device__ static __forceinline__ unsigned of(int x) {
+    return static_cast<unsigned>(x);
+  }
+  __device__ static __forceinline__ unsigned gather(const int* v, int c) {
+    return static_cast<unsigned>(__ldg(v + c));
+  }
+};
+template <>
+struct Widen<__nv_bfloat16> {
+  using Acc = float;
+  using Out = __nv_bfloat16;
+  __device__ static __forceinline__ float of(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  // a bf16 is the high half of the float32 it widens to
+  __device__ static __forceinline__ float gather(const __nv_bfloat16* v,
+                                                 int c) {
+    return __uint_as_float(
+        static_cast<unsigned>(
+            __ldg(reinterpret_cast<const unsigned short*>(v) + c))
+        << 16);
+  }
+};
+
+// *p = x, in y's type: the float kinds store their sum as it is, int32 its
+// bits, bf16 rounds once to nearest even.
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(double* p, double x) { *p = x; }
+__device__ __forceinline__ void store_out(int* p, unsigned x) {
+  *p = static_cast<int>(x);
+}
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
 // Butterfly sum over the G lanes of an aligned lane group (G a power of two
 // up to 32): a fixed order, so the result is bitwise repeatable.  Every lane
 // of the warp takes part.
@@ -94,7 +166,7 @@ __host__ __device__ constexpr int rows_per_group() {
 // Chunk c of the short rows (see stream_rows).
 template <class E, int G>
 __device__ __forceinline__ void chunk_rows(const E& ent, const Rows& rows,
-                                           long long c, typename E::T* y) {
+                                           long long c, typename E::Out* y) {
   using T = typename E::T;
   constexpr int K = rows_per_group<G>();
   constexpr int kGroups = kWarp / G;  // lane groups of a warp
@@ -142,7 +214,7 @@ __device__ __forceinline__ void chunk_rows(const E& ent, const Rows& rows,
 }
 
 // The one-pass row kernel, for an entry kind E:
-//   E::T, E::kUnit (entries per load unit), E::kC (output components per
+//   E::T (the sums' type, and partial's), E::Out (y's), E::kUnit (entries per load unit), E::kC (output components per
 //   row), E::Unit and E::load(u) (load unit u's stream words),
 //   E::add(acc, x, u, s, e) (adds the entries of loaded unit x = u that lie
 //   in [s, e)) and E::store(out, i, acc) (writes out[i*kC .. i*kC + kC)).
@@ -152,12 +224,13 @@ __device__ __forceinline__ void chunk_rows(const E& ent, const Rows& rows,
 // next.  In a chunk, a warp takes 32 / G * K consecutive rows, its group j
 // (of G lanes) rows j, j + 32 / G, ... so that at each step the groups
 // read neighbouring rows.  The blocks after them take the long rows'
-// pieces, one warp per piece, written to partial[p*kC ..].
+// pieces, one warp per piece, written to partial[p*kC ..].  E::store takes
+// either (partial's T, or y's Out).
 template <class E, int G>
 __global__ void __launch_bounds__(kThreads)
     stream_rows(E ent, Rows rows, long long n_row_blocks, long long per_block,
                 typename E::T* __restrict__ partial,
-                typename E::T* __restrict__ y) {
+                typename E::Out* __restrict__ y) {
   if (blockIdx.x < n_row_blocks) {
     constexpr int kChunkRows = kThreads / G * rows_per_group<G>();
     const long long n_chunks = (rows.n_rows + kChunkRows - 1) / kChunkRows;
@@ -184,12 +257,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // y[long_rows[j]] = the sum of row j's piece partials in piece order, one
-// thread per long row (C components each).
-template <typename T, int C>
+// thread per long row (C components each), stored in y's type Out.
+template <typename T, int C, typename Out = T>
 __global__ void long_row_sum(const T* __restrict__ partial,
                              const int* __restrict__ long_rows,
                              const int* __restrict__ piece_ptr,
-                             long long n_long, T* __restrict__ y) {
+                             long long n_long, Out* __restrict__ y) {
   const long long j =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (j >= n_long) return;
@@ -199,16 +272,16 @@ __global__ void long_row_sum(const T* __restrict__ partial,
   for (int c = 0; c < C; ++c) {
     T acc = T(0);
     for (int p = p0; p < p1; ++p) acc += partial[static_cast<long long>(p) * C + c];
-    y[r * C + c] = acc;
+    store_out(y + r * C + c, acc);
   }
 }
 
-template <typename T, int C>
+template <typename T, int C, typename Out = T>
 cudaError_t launch_long_row_sum(const T* partial, const Rows& rows,
-                                long long n_long, T* y, cudaStream_t s) {
+                                long long n_long, Out* y, cudaStream_t s) {
   if (n_long > 0) {
     const long long blocks = (n_long + kThreads - 1) / kThreads;
-    long_row_sum<T, C><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+    long_row_sum<T, C, Out><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         partial, rows.long_rows, rows.piece_ptr, n_long, y);
   }
   return cudaGetLastError();
@@ -232,7 +305,7 @@ inline cudaError_t split_chunks(long long chunks, long long& per_block,
 template <class E, int G>
 cudaError_t launch_stream_rows(const E& ent, const Rows& rows,
                                long long n_long, typename E::T* partial,
-                               typename E::T* y, cudaStream_t s) {
+                               typename E::Out* y, cudaStream_t s) {
   constexpr int kChunkRows = kThreads / G * rows_per_group<G>();
   long long per_block, row_blocks;
   cudaError_t err = split_chunks((rows.n_rows + kChunkRows - 1) / kChunkRows,
@@ -245,16 +318,16 @@ cudaError_t launch_stream_rows(const E& ent, const Rows& rows,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return launch_long_row_sum<typename E::T, E::kC>(partial, rows, n_long, y,
-                                                   s);
+  return launch_long_row_sum<typename E::T, E::kC, typename E::Out>(
+      partial, rows, n_long, y, s);
 }
 
 // Dispatch the lane-group size (1, 2, 4, ..., 32) to its instantiation.
 template <class E>
 cudaError_t launch_stream_rows_any(const E& ent, const Rows& rows,
                                    long long n_long, int group,
-                                   typename E::T* partial, typename E::T* y,
-                                   cudaStream_t s) {
+                                   typename E::T* partial,
+                                   typename E::Out* y, cudaStream_t s) {
   switch (group) {
     case 1: return launch_stream_rows<E, 1>(ent, rows, n_long, partial, y, s);
     case 2: return launch_stream_rows<E, 2>(ent, rows, n_long, partial, y, s);
@@ -266,6 +339,28 @@ cudaError_t launch_stream_rows_any(const E& ent, const Rows& rows,
       return launch_stream_rows<E, 32>(ent, rows, n_long, partial, y, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// A C entry of an entries kind E: its values and operand of type V, int32
+// columns, the stream's row classes, lane group `group` (1, 2, 4, ..., 32);
+// returns cudaGetLastError().
+template <class E, typename V>
+int launch_entries(const void* vals, const void* cols, const void* row_ptr,
+                   const void* long_rows, const void* piece_ptr,
+                   const void* piece_row, const void* v, void* partial,
+                   void* y, long long n_rows, long long n_long,
+                   long long n_pieces, int long_min, int piece, int group,
+                   void* stream) {
+  const E ent{static_cast<const V*>(vals), static_cast<const int*>(cols),
+              static_cast<const V*>(v)};
+  const Rows rows{static_cast<const int*>(row_ptr),
+                  static_cast<const int*>(long_rows),
+                  static_cast<const int*>(piece_ptr),
+                  static_cast<const int*>(piece_row), n_rows, n_pieces,
+                  long_min, piece};
+  return static_cast<int>(launch_stream_rows_any(
+      ent, rows, n_long, group, static_cast<typename E::T*>(partial),
+      static_cast<typename E::Out*>(y), static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace

@@ -11,9 +11,18 @@
 // tile height only changes the order of a row's entries (and with it the
 // float rounding); K1-r32 is this kernel on a 32-row plan.
 //
+// Kinds: float32 and float64 (ScalarEntries, sums in their own type);
+// int32 (WideEntries<int>: multiply-adds in unsigned, so the sum is the
+// reference's int32 result modulo 2^32 in any order, overflow included,
+// stored as its bits); bf16 (WideEntries<__nv_bfloat16>: bf16 values and
+// operand widened exactly, products and sums in float32 in the float32
+// kind's order, partial float32, y rounded once to bf16 — the reference
+// sums in bf16, so this kind is the more accurate of the two).
+//
 // What bounds it on this card: the stream, 8 bytes per stored entry in
-// float32 (4-byte value + 4-byte column; 12 in float64), plus 4 bytes per
-// row offset and the output, against 3.35 TB/s of HBM.  The 8x8-row TPU
+// float32 (4-byte value + 4-byte column; 12 in float64, 8 in int32, 6 in
+// bf16), plus 4 bytes per row offset and the output, against 3.35 TB/s of
+// HBM.  The 8x8-row TPU
 // tiles at fill 0.066 cost 76 bytes per entry; the stream is read once.
 // The operand (2 MB at 500k float32 columns) stays in the 50 MB L2.
 //
@@ -43,6 +52,7 @@ namespace {
 template <typename Tp>
 struct ScalarEntries {
   using T = Tp;
+  using Out = Tp;
   static constexpr int kUnit = 4;
   static constexpr int kC = 1;
   const T* vals;  // padded to a multiple of 4 entries
@@ -78,25 +88,52 @@ struct ScalarEntries {
   }
 };
 
-template <typename T>
-int segtile_csr_any(const void* vals, const void* cols, const void* row_ptr,
-                    const void* long_rows, const void* piece_ptr,
-                    const void* piece_row, const void* v, void* partial,
-                    void* y, long long n_rows, long long n_long,
-                    long long n_pieces, int long_min, int piece, int group,
-                    void* stream) {
-  const ScalarEntries<T> ent{static_cast<const T*>(vals),
-                             static_cast<const int*>(cols),
-                             static_cast<const T*>(v)};
-  const Rows rows{static_cast<const int*>(row_ptr),
-                  static_cast<const int*>(long_rows),
-                  static_cast<const int*>(piece_ptr),
-                  static_cast<const int*>(piece_row), n_rows, n_pieces,
-                  long_min, piece};
-  return static_cast<int>(launch_stream_rows_any(
-      ent, rows, n_long, group, static_cast<T*>(partial), static_cast<T*>(y),
-      static_cast<cudaStream_t>(stream)));
-}
+// The int32 and bf16 kinds: values and operand of type V, products and
+// sums in Widen<V>::Acc (unsigned for int32, float32 for bf16) in the float
+// kinds' order, y in Widen<V>::Out.
+template <typename V>
+struct WideEntries {
+  using W = Widen<V>;
+  using T = typename W::Acc;
+  using Out = typename W::Out;
+  static constexpr int kUnit = 4;
+  static constexpr int kC = 1;
+  const V* vals;  // padded to a multiple of 4 entries
+  const int* cols;
+  const V* v;
+
+  struct Unit {
+    V a[4];
+    int4 c;
+  };
+
+  __device__ __forceinline__ Unit load(long long u) const {
+    Unit x;
+    load4_stream(vals + 4 * u, x.a);
+    x.c = __ldcs(reinterpret_cast<const int4*>(cols) + u);
+    return x;
+  }
+
+  __device__ __forceinline__ void add(T (&acc)[1], const Unit& x,
+                                      long long u, long long s,
+                                      long long e) const {
+    const int cs[4] = {x.c.x, x.c.y, x.c.z, x.c.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long i = 4 * u + j;
+      if (i >= s && i < e) acc[0] += W::of(x.a[j]) * W::gather(v, cs[j]);
+    }
+  }
+
+  __device__ __forceinline__ static void store(T* out, long long i,
+                                               const T (&acc)[1]) {
+    out[i] = acc[0];
+  }
+  __device__ __forceinline__ static void store(Out* out, long long i,
+                                               const T (&acc)[1]) {
+    store_out(out + i, acc[0]);
+  }
+};
 
 }  // namespace
 
@@ -113,9 +150,9 @@ int segtile_csr_f32(const void* vals, const void* cols, const void* row_ptr,
                     void* y, long long n_rows, long long n_long,
                     long long n_pieces, int long_min, int piece, int group,
                     void* stream) {
-  return segtile_csr_any<float>(vals, cols, row_ptr, long_rows, piece_ptr,
-                                piece_row, v, partial, y, n_rows, n_long,
-                                n_pieces, long_min, piece, group, stream);
+  return launch_entries<ScalarEntries<float>, float>(
+      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
+      n_rows, n_long, n_pieces, long_min, piece, group, stream);
 }
 
 int segtile_csr_f64(const void* vals, const void* cols, const void* row_ptr,
@@ -124,9 +161,33 @@ int segtile_csr_f64(const void* vals, const void* cols, const void* row_ptr,
                     void* y, long long n_rows, long long n_long,
                     long long n_pieces, int long_min, int piece, int group,
                     void* stream) {
-  return segtile_csr_any<double>(vals, cols, row_ptr, long_rows, piece_ptr,
-                                 piece_row, v, partial, y, n_rows, n_long,
-                                 n_pieces, long_min, piece, group, stream);
+  return launch_entries<ScalarEntries<double>, double>(
+      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
+      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+}
+
+// int32: vals, v and y int32, partial int32 scratch (the sums' bits).
+int segtile_csr_i32(const void* vals, const void* cols, const void* row_ptr,
+                    const void* long_rows, const void* piece_ptr,
+                    const void* piece_row, const void* v, void* partial,
+                    void* y, long long n_rows, long long n_long,
+                    long long n_pieces, int long_min, int piece, int group,
+                    void* stream) {
+  return launch_entries<WideEntries<int>, int>(
+      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
+      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+}
+
+// bf16: vals, v and y bf16, partial float32 scratch.
+int segtile_csr_bf16(const void* vals, const void* cols, const void* row_ptr,
+                     const void* long_rows, const void* piece_ptr,
+                     const void* piece_row, const void* v, void* partial,
+                     void* y, long long n_rows, long long n_long,
+                     long long n_pieces, int long_min, int piece, int group,
+                     void* stream) {
+  return launch_entries<WideEntries<__nv_bfloat16>, __nv_bfloat16>(
+      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
+      n_rows, n_long, n_pieces, long_min, piece, group, stream);
 }
 
 }  // extern "C"

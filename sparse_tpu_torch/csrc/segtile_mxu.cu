@@ -10,7 +10,7 @@
 // read from the same compact stream (segtile_csr.cu).
 //
 // What bounds it on this card: the stream, as K1 (8 bytes per stored entry
-// in float32, 12 in float64, against 3.35 TB/s); the reduction moves no
+// in float32, 12 in float64, 6 in bf16, against 3.35 TB/s); the reduction moves no
 // device memory, but every product makes a shared-memory round trip where
 // K1 keeps it in registers.
 //
@@ -24,7 +24,11 @@
 //    an all-ones B fragment.  Float32: m16n16k8 TF32 products, each product
 //    split into hi = tf32(p) and lo = tf32(p - hi), both multiplied into one
 //    float32 accumulator, so the sum keeps float32 accuracy (ones are exact
-//    in TF32).  Float64: m8n8k4 double products (DMMA).  Column 0 of the
+//    in TF32).  bf16: values and operand widened exactly to float32, whose
+//    product is exact, then the float32 kind's strip, y rounded once to
+//    bf16.  Float64: m8n8k4 double products (DMMA).  int32 runs K1's
+//    kernel (segtile_csr.cu): sm_90's tensor cores take no 32-bit integer
+//    operands, and a sum modulo 2^32 is one result whichever unit adds it.  Column 0 of the
 //    accumulator is the row sums, each written once to y: one pass, no
 //    partials, no atomics;
 //  * long rows: the pieces of segtile_common.cuh, each a strip of S pieces
@@ -109,12 +113,41 @@ struct Mma<double> {
   }
 };
 
+// Per value type V: T, the type of the products, the staged tile and the
+// sums (partial too); Out, y's; product(vals, cols, v, i), stream entry i's
+// product.  float32 and float64 in their own type; bf16 widened exactly to
+// float32, where a product of two bf16 values is exact, so the float32
+// kind's TF32 hi + lo lane sum applies unchanged, then y is rounded once.
+template <typename V>
+struct Val {
+  using T = V;
+  using Out = V;
+  __device__ static __forceinline__ T product(const V* vals, const int* cols,
+                                              const V* v, long long i) {
+    return __ldcs(vals + i) * __ldg(v + __ldcs(cols + i));
+  }
+};
+template <>
+struct Val<__nv_bfloat16> {
+  using T = float;
+  using Out = __nv_bfloat16;
+  __device__ static __forceinline__ float product(const __nv_bfloat16* vals,
+                                                  const int* cols,
+                                                  const __nv_bfloat16* v,
+                                                  long long i) {
+    const unsigned a =
+        __ldcs(reinterpret_cast<const unsigned short*>(vals) + i);
+    return __uint_as_float(a << 16) *
+           Widen<__nv_bfloat16>::gather(v, __ldcs(cols + i));
+  }
+};
+
 // Lane i < S holds strip row i's entry range [s, e).  On return
 // tile[i * kLd] is row i's sum (every lane of the warp takes part).
-template <typename T>
-__device__ __forceinline__ void strip_sums(const T* __restrict__ vals,
+template <typename V, typename T = typename Val<V>::T>
+__device__ __forceinline__ void strip_sums(const V* __restrict__ vals,
                                            const int* __restrict__ cols,
-                                           const T* __restrict__ v,
+                                           const V* __restrict__ v,
                                            long long s, long long e,
                                            T* tile) {
   constexpr int S = Mma<T>::kRows;
@@ -129,7 +162,7 @@ __device__ __forceinline__ void strip_sums(const T* __restrict__ vals,
           __shfl_sync(0xffffffffu, s, i) + c * kChunk + lane;
       T p = T(0);
       if (idx < __shfl_sync(0xffffffffu, e, i))
-        p = __ldcs(vals + idx) * __ldg(v + __ldcs(cols + idx));
+        p = Val<V>::product(vals, cols, v, idx);
       tile[i * kLd + lane] = p;
     }
     __syncwarp();
@@ -142,12 +175,13 @@ __device__ __forceinline__ void strip_sums(const T* __restrict__ vals,
 
 // Blocks [0, n_strip_blocks) take the short rows, one strip a warp; the
 // blocks after them take the pieces.
-template <typename T>
+template <typename V, typename T = typename Val<V>::T,
+          typename Out = typename Val<V>::Out>
 __global__ void __launch_bounds__(kThreads)
-    segtile_mxu_rows(const T* __restrict__ vals, const int* __restrict__ cols,
-                     const T* __restrict__ v, Rows rows,
+    segtile_mxu_rows(const V* __restrict__ vals, const int* __restrict__ cols,
+                     const V* __restrict__ v, Rows rows,
                      long long n_strip_blocks, T* __restrict__ partial,
-                     T* __restrict__ y) {
+                     Out* __restrict__ y) {
   constexpr int S = Mma<T>::kRows;
   __shared__ __align__(32) T tiles[kWarps * S * kLd];
   const int w = threadIdx.x / kWarp;
@@ -165,7 +199,7 @@ __global__ void __launch_bounds__(kThreads)
       if (!mine) e = s;  // a long row: its pieces sum it
     }
     strip_sums(vals, cols, v, s, e, tile);
-    if (mine) y[r] = tile[lane * kLd];
+    if (mine) store_out(y + r, tile[lane * kLd]);
   } else {
     const long long pc =
         (static_cast<long long>(blockIdx.x) - n_strip_blocks) * kWarps + w;
@@ -186,13 +220,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename V>
 int segtile_mxu_any(const void* vals, const void* cols, const void* row_ptr,
                     const void* long_rows, const void* piece_ptr,
                     const void* piece_row, const void* v, void* partial,
                     void* y, long long n_rows, long long n_long,
                     long long n_pieces, int long_min, int piece,
                     void* stream) {
+  using T = typename Val<V>::T;
+  using Out = typename Val<V>::Out;
   constexpr int S = Mma<T>::kRows;
   if (piece % (S * kChunk) != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Rows rows{static_cast<const int*>(row_ptr),
@@ -205,15 +241,15 @@ int segtile_mxu_any(const void* vals, const void* cols, const void* row_ptr,
   const long long strip_blocks = (strips + kWarps - 1) / kWarps;
   const long long grid = strip_blocks + (n_pieces + kWarps - 1) / kWarps;
   if (grid > 0) {
-    segtile_mxu_rows<T><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-        static_cast<const T*>(vals), static_cast<const int*>(cols),
-        static_cast<const T*>(v), rows, strip_blocks,
-        static_cast<T*>(partial), static_cast<T*>(y));
+    segtile_mxu_rows<V><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+        static_cast<const V*>(vals), static_cast<const int*>(cols),
+        static_cast<const V*>(v), rows, strip_blocks,
+        static_cast<T*>(partial), static_cast<Out*>(y));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(launch_long_row_sum<T, 1>(
-      static_cast<const T*>(partial), rows, n_long, static_cast<T*>(y), s));
+  return static_cast<int>(launch_long_row_sum<T, 1, Out>(
+      static_cast<const T*>(partial), rows, n_long, static_cast<Out*>(y), s));
 }
 
 }  // namespace
@@ -243,6 +279,20 @@ int segtile_mxu_f64(const void* vals, const void* cols, const void* row_ptr,
   return segtile_mxu_any<double>(vals, cols, row_ptr, long_rows, piece_ptr,
                                  piece_row, v, partial, y, n_rows, n_long,
                                  n_pieces, long_min, piece, stream);
+}
+
+// bf16: vals, v and y bf16, partial float32 scratch; piece a multiple of
+// 512 entries.  (int32 has no kind here: the tensor cores take no 32-bit
+// integer operands, and the wrapper launches segtile_csr_i32 instead.)
+int segtile_mxu_bf16(const void* vals, const void* cols, const void* row_ptr,
+                     const void* long_rows, const void* piece_ptr,
+                     const void* piece_row, const void* v, void* partial,
+                     void* y, long long n_rows, long long n_long,
+                     long long n_pieces, int long_min, int piece,
+                     void* stream) {
+  return segtile_mxu_any<__nv_bfloat16>(
+      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
+      n_rows, n_long, n_pieces, long_min, piece, stream);
 }
 
 }  // extern "C"

@@ -27,11 +27,11 @@ of K5.  The super-tile fields (``S``, ``SW``, ``rel``, ``sup``) only shared a
 DMA window on the TPU; ``start == sup.repeat(S) + rel`` by construction, so
 K4 and K5 read ``start`` and ignore them.
 
-The float32, bf16 and bf16x3 streams of K3, every stream of K4 (and K8)
-and of K5 skip the band's all-zero 32 x 32 chunks: K3 and K4 by a vote
-inside the kernel on what they read, K5 by the kit's chunk mask
+The float32, int32, bf16 and bf16x3 streams of K3, every stream of K4
+(and K8) and of K5 skip the band's all-zero 32 x 32 chunks: K3 and K4 by a
+vote inside the kernel on what they read, K5 by the kit's chunk mask
 (:attr:`BandedKitT.chunk_nz`, built once with the kit), so it does not
-read them; K6's float32, bf16 and bf16x3 streams (bsz <= 64) skip a
+read them; K6's float32, int32, bf16 and bf16x3 streams (bsz <= 64) skip a
 padding slot's zero block by a vote per stored block.  Each has an
 issued-work counter (:func:`fused_issued_flops`,
 :func:`banded_issued_flops`, :func:`banded_t_issued`,
@@ -41,10 +41,18 @@ Precision, as the reference's ``_resolve_precision``: float32 streams are
 full float32 (no TF32); ``precision="bf16x3"`` splits each float32 operand
 into a bf16 high part and a bf16 residual and sums hi*hi + hi*lo + lo*hi in
 float32 (``_dot_bf16x3``); ``compute_dtype=torch.bfloat16`` streams bf16 and
-accumulates in float32.  Streams are float32, bfloat16 or float64 (float64
-accumulates in float64); anything else raises ``ValueError``.  K3, K4, K5
-and K6 run bf16x3 on the tensor cores (three bf16 ``mma.sync`` products a
-float32 pair, one float32 accumulator); K4 and K5 run float64 on DMMA
+accumulates in float32.  Streams are float32, bfloat16, float64 (float64
+accumulates in float64) or int32 (multiply-adds modulo 2^32, the
+reference's wrapping int32 result, in any order; ``precision="bf16x3"``
+raises for it, as it does for float64: the reference's K3, K6 and XLA
+route refuse it there, and its K4 and K5 round an int32 stream through
+bf16); anything else raises ``ValueError``.  An int32 BELL with
+``compute_dtype=torch.bfloat16`` streams bf16 with float32 sums and
+returns int32, as the reference computes it (its result rounds each
+partial product to bf16, so the two agree within the bf16 gate).  K3, K4,
+K5 and K6 run bf16x3 on the tensor cores (three bf16 ``mma.sync`` products
+a float32 pair, one float32 accumulator) and int32 on the CUDA cores (the
+float32 tiling, integer multiply-adds); K4 and K5 run float64 on DMMA
 (``mma.sync`` m8n8k4); K3 and K6 run float64, and K6 every kind past bsz
 64, on their first body (``csrc/bell_common.cuh``), which skips no zero.
 The interpret flag of the reference is dropped.
@@ -60,7 +68,7 @@ import torch
 
 from .. import _kernels
 from ..formats.bell import BELL
-from ..utils.precision import full_precision
+from ..utils.precision import contract
 from ._transforms import kernel_call
 
 __all__ = [
@@ -99,10 +107,11 @@ K4_LAUNCHES = 0
 K5_LAUNCHES = 0
 K6_LAUNCHES = 0
 
-_STREAMS = (torch.float32, torch.bfloat16, torch.float64)
+_STREAMS = (torch.float32, torch.bfloat16, torch.float64, torch.int32)
 _PRECISIONS = (None, "highest", "bf16x3")
-# stream kinds of the C entry points (csrc/bell_common.cuh, enum Kind)
-_KIND = {torch.float32: 0, torch.bfloat16: 2, torch.float64: 3}
+# stream kinds of the C entry points (csrc/bell_kinds.cuh, enum Kind)
+_KIND = {torch.float32: 0, torch.bfloat16: 2, torch.float64: 3,
+         torch.int32: 4}
 _KIND_F32_SPLIT = 1
 # the float32 / bf16 bodies' tiling, as the kernels set it: K3/K4/K8's
 # output rows and columns per thread block and contraction chunk
@@ -112,7 +121,7 @@ _KIND_F32_SPLIT = 1
 _BAND_BM, _BAND_BN, _BAND_BK = 32, 128, 32
 _BT_BN, _BT_BK, _BT_SLICE = 32, 32, 32
 # K3's and K6's counted streams (bf16x3 is a float32 stream)
-_COUNTED = (torch.float32, torch.bfloat16)
+_COUNTED = (torch.float32, torch.bfloat16, torch.int32)
 
 
 # -- precision ----------------------------------------------------------------
@@ -137,16 +146,18 @@ def _stream_mode(name: str, stream_dtype, precision) -> bool:
     bf16 stream has no residual to split, so it needs none)."""
     if stream_dtype not in _STREAMS:
         raise ValueError(f"{name}: stream dtype {stream_dtype} is not one of "
-                         "float32, bfloat16, float64")
+                         "float32, bfloat16, float64, int32")
     prec = _resolve_precision(precision, stream_dtype)
-    if prec == "bf16x3" and stream_dtype == torch.float64:
+    if prec == "bf16x3" and stream_dtype in (torch.float64, torch.int32):
         raise ValueError(f"{name}: precision='bf16x3' needs a float32 or "
-                         "bfloat16 stream, got float64")
+                         f"bfloat16 stream, got {stream_dtype}")
     return prec == "bf16x3" and stream_dtype == torch.float32
 
 
 def _acc_dtype(stream_dtype):
-    return torch.float64 if stream_dtype == torch.float64 else torch.float32
+    if stream_dtype in (torch.float64, torch.int32):
+        return stream_dtype
+    return torch.float32
 
 
 def _bf16_parts(x: torch.Tensor):
@@ -154,17 +165,19 @@ def _bf16_parts(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
 
 
-def _contract(fn, x, y, stream_dtype, split: bool):
-    """``fn(x, y)`` (a bmm or einsum) at the kernels' precision: operands in
-    the stream dtype, products and sums in the accumulator dtype."""
+def _contract(spec: str, x, y, stream_dtype, split: bool):
+    """``einsum(spec, x, y)`` at the kernels' precision: operands in the
+    stream dtype, products and sums in the accumulator dtype
+    (``utils.precision.contract``: full float32, and int32 exactly on any
+    device, wrapping as the kernels do)."""
     acc = _acc_dtype(stream_dtype)
     x, y = x.to(stream_dtype).to(acc), y.to(stream_dtype).to(acc)
-    with full_precision(acc):
-        if not split:
-            return fn(x, y)
-        xh, xl = _bf16_parts(x)
-        yh, yl = _bf16_parts(y)
-        return fn(xh, yh) + fn(xh, yl) + fn(xl, yh)
+    if not split:
+        return contract(spec, x, y)
+    xh, xl = _bf16_parts(x)
+    yh, yl = _bf16_parts(y)
+    return (contract(spec, xh, yh) + contract(spec, xh, yl)
+            + contract(spec, xl, yh))
 
 
 # -- operands and devices -----------------------------------------------------
@@ -211,8 +224,7 @@ def _gather_einsum(a: BELL, b, stream_dtype, split: bool):
     k = b.shape[1]
     panels = b.to(stream_dtype).reshape(a.nb, a.bsz, k)[
         a.cols.reshape(-1).long()].reshape(a.nb, a.Lb, a.bsz, k)
-    out = _contract(lambda x, y: torch.einsum("rlij,rljk->rik", x, y),
-                    a.blocks, panels, stream_dtype, split)
+    out = _contract("rlij,rljk->rik", a.blocks, panels, stream_dtype, split)
     return out.reshape(a.n, k)
 
 
@@ -229,7 +241,8 @@ def _rowwise(name: str, which: str, a: BELL, b, compute_dtype, precision,
     split = _stream_mode(name, stream, precision)
     if count is not None:
         if stream not in _COUNTED or (which == "block" and a.bsz > 64):
-            raise ValueError(f"{name}: counts float32 and bf16 streams"
+            raise ValueError(f"{name}: counts float32 and bf16 streams "
+                             "and int32 ones"
                              f"{' at bsz <= 64' if which == 'block' else ''}"
                              f", got {stream} at bsz {a.bsz}")
         if not _on_cuda(name, a.blocks, a.cols, b):
@@ -322,10 +335,10 @@ def _band_body_model(a: torch.Tensor, k: int) -> int:
 
 
 def fused_issued_model(a: BELL, k: int, *, compute_dtype=None) -> int:
-    """Host model of what K3's float32 / bf16 body issues on ``a`` at width
-    ``k`` (what :func:`fused_issued_flops` should read; the bf16x3 split
-    keeps exactly the float32 stream's chunks): the band body's count over
-    each block row's wide row [A_r0 | ... | A_r,Lb-1]."""
+    """Host model of what K3's float32 / int32 / bf16 body issues on ``a``
+    at width ``k`` (what :func:`fused_issued_flops` should read; the bf16x3
+    split keeps exactly the float32 stream's chunks): the band body's count
+    over each block row's wide row [A_r0 | ... | A_r,Lb-1]."""
     wide = a.blocks.to(compute_dtype or a.dtype).transpose(1, 2).reshape(
         a.nb, a.bsz, a.Lb * a.bsz)
     return _band_body_model(wide, k)
@@ -348,21 +361,21 @@ def _issued(name: str, which: str, a: BELL, b, compute_dtype,
 
 def fused_issued_flops(a: BELL, b, *, compute_dtype=None,
                        precision=None) -> int:
-    """Operations (two per multiply-add) that K3's float32 / bf16 / bf16x3
-    body issues on ``a`` against ``b``, as the kernel counts them: each
-    thread block adds the chunks its zero-chunk vote kept, at their full
-    size, to a counter on the card (a bf16x3 chunk once, though it issues
-    three bf16 products).  One launch into a scratch output, outside
-    ``K3_LAUNCHES``.  CUDA tensors and float32 or bf16 streams only; the
-    count is the kernel's, so there is no plain version
+    """Operations (two per multiply-add) that K3's float32 / int32 / bf16 /
+    bf16x3 body issues on ``a`` against ``b``, as the kernel counts them:
+    each thread block adds the chunks its zero-chunk vote kept, at their
+    full size, to a counter on the card (a bf16x3 chunk once, though it
+    issues three bf16 products).  One launch into a scratch output, outside
+    ``K3_LAUNCHES``.  CUDA tensors and float32, int32 or bf16 streams only;
+    the count is the kernel's, so there is no plain version
     (:func:`fused_issued_model` is what it should read)."""
     return _issued("fused_issued_flops", "fused", a, b, compute_dtype,
                    precision)
 
 
 def block_issued_model(a: BELL, k: int, *, stream_dtype=None) -> int:
-    """Host model of what K6's float32 / bf16 / bf16x3 body issues on ``a``
-    at width ``k`` (what :func:`block_issued_flops` should read), in
+    """Host model of what K6's float32 / int32 / bf16 / bf16x3 body issues
+    on ``a`` at width ``k`` (what :func:`block_issued_flops` should read), in
     operations (2 per multiply-add): for each stored block, and each 32-row
     group of it that is not zero throughout in the stream dtype (NaN is
     not, -0 is), its rows x bsz x k multiply-adds, so bsz * bsz * k per
@@ -377,13 +390,13 @@ def block_issued_model(a: BELL, k: int, *, stream_dtype=None) -> int:
 
 
 def block_issued_flops(a: BELL, b, *, precision=None) -> int:
-    """Operations (two per multiply-add) that K6's float32 / bf16 / bf16x3
-    body issues on ``a`` against ``b``, as the kernel counts them: each
-    thread block adds, for every stored block its vote kept, the
+    """Operations (two per multiply-add) that K6's float32 / int32 / bf16 /
+    bf16x3 body issues on ``a`` against ``b``, as the kernel counts them:
+    each thread block adds, for every stored block its vote kept, the
     multiply-adds of its tile's rows and columns, to a counter on the card
     (a bf16x3 block once).  One launch into a scratch output, outside
-    ``K6_LAUNCHES``.  CUDA tensors, float32 or bf16 streams and bsz <= 64
-    only (``precision="bf16x3"`` splits a float32 one); the count is the
+    ``K6_LAUNCHES``.  CUDA tensors, float32, int32 or bf16 streams and bsz
+    <= 64 only (``precision="bf16x3"`` splits a float32 one); the count is the
     kernel's, so there is no plain version (:func:`block_issued_model` is
     what it should read)."""
     return _issued("block_issued_flops", "block", a, b, None, precision)
@@ -674,7 +687,7 @@ def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
     vote kept, at their full padded size, to a counter on the card (a
     bf16x3 chunk once).  One launch into a scratch output, outside
     ``K4_LAUNCHES`` and ``K8_LAUNCHES``: it measures the skip and computes
-    nothing.  CUDA tensors with float32, bf16 or float64 tiles
+    nothing.  CUDA tensors with float32, bf16, float64 or int32 tiles
     (``precision="bf16x3"`` splits float32 tiles); the count is the
     kernel's, so there is no plain version."""
     name = "banded_issued_flops"
@@ -682,7 +695,8 @@ def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
             or tiles.dtype not in _STREAMS):
         raise ValueError(f"{name}: tiles {tuple(tiles.shape)} {tiles.dtype}"
                          f" and operand {tuple(b.shape)}: needs 3-d float32, "
-                         "bf16 or float64 tiles and a 2-d operand")
+                         "bf16 or float64 tiles (or int32 ones) and a 2-d "
+                         "operand")
     split = _stream_mode(name, tiles.dtype, precision)
     if not _on_cuda(name, tiles, start, b):
         raise ValueError(f"{name}: counts on the card only, got CPU tensors")
@@ -784,7 +798,7 @@ def _banded(a: BELL, b, plan: BandedPlan, compute_dtype, tiles, precision,
         rows, inside = _window_index(plan, bsz, a.n)
         bs = b.to(stream)
         win = torch.where(inside[:, :, None], bs[rows], bs.new_zeros(()))
-        out = _contract(torch.bmm, tiles, win, stream, split)
+        out = _contract("tij,tjk->tik", tiles, win, stream, split)
         return out.reshape(nb_pad * bsz, k)[:a.n].to(out_dtype)
     def launch(tiles, b):
         global K4_LAUNCHES
@@ -855,8 +869,8 @@ def _banded_t(a: BELL, bt, kit: BandedKitT, precision, plain: bool):
         cols, inside = _window_index(plan, bsz, width)
         bs = bt.to(stream)
         win = torch.where(inside[None], bs[:, cols], bs.new_zeros(()))
-        out = _contract(torch.bmm, win.permute(1, 0, 2), tiles_t, stream,
-                        split)  # (ntiles, k, rt*bsz)
+        out = _contract("tij,tjk->tik", win.permute(1, 0, 2), tiles_t,
+                        stream, split)  # (ntiles, k, rt*bsz)
         out = out.permute(1, 0, 2).reshape(k, n_pad)
         return out[:, :width].to(out_dtype)
     def launch(tiles_t, bt):

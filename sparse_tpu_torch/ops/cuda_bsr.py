@@ -41,7 +41,9 @@ matmul in full precision, ``segment_sum`` by output block); the list walk
 has its own plain version, :func:`slab_list_plain`.  There is no other
 route: tensors on two devices raise ``ValueError``.  Types:
 float32 summed in full float32 (no TF32), float64 in float64, bfloat16
-summed in float32 and rounded once; any other dtype, a ``precision`` other
+summed in float32 and rounded once, int32 summed modulo 2^32 (the
+reference's wrapping int32 result; K7's float32 team body with integer
+multiply-adds); any other dtype, a ``precision`` other
 than None or ``"highest"``, or (on a CUDA tensor) a block size above 64
 raise ``ValueError``.  The gradient (:func:`bsr_smsmm_apply_slab_ad`) is a
 ``torch.autograd.Function`` whose backward is K7 twice, on the permuted
@@ -58,7 +60,7 @@ import torch
 
 from .. import _kernels
 from ..formats.bsr import BSR, BsrSmsmmPlan
-from ..utils.precision import full_precision
+from ..utils.precision import contract, full_precision
 from ._transforms import kernel_call, not_differentiable, vmap_loop
 from .segmented import INDEX_DTYPE, segment_sum
 
@@ -91,7 +93,8 @@ _SLAB_BYTES = 512 * 1024
 _SMEM_BUDGET = 700_000
 
 _MAX_BSZ = 64  # two blocks stay in shared memory
-_KIND = {torch.float32: 0, torch.bfloat16: 2, torch.float64: 3}
+_KIND = {torch.float32: 0, torch.bfloat16: 2, torch.float64: 3,
+         torch.int32: 4}
 _PRECISIONS = (None, "highest")
 
 
@@ -498,7 +501,7 @@ def _check_call(out_dtype, precision) -> None:
                          f"{_PRECISIONS}, got {precision!r}")
     if out_dtype not in _KIND:
         raise ValueError(f"run_slabs_arrays: dtype {out_dtype} is not one "
-                         "of float32, float64, bfloat16")
+                         "of float32, float64, bfloat16, int32")
 
 
 def _on_cuda(name: str, *tensors) -> bool:
@@ -662,11 +665,22 @@ def run_slabs_arrays_plain(p_a_idx, p_b_idx, p_oloc, p_first, p_slab,
         a_slot = 2 * p_a_idx.long().repeat_interleave(2) + (oloc & 1)
     else:
         a_slot = p_a_idx.long()
-    acc = torch.float64 if out_dtype == torch.float64 else torch.float32
-    with full_precision(acc):
-        prods = torch.bmm(z1.to(acc)[a_slot], z2.to(acc)[p_b_idx.long()])
+    prods = _block_products(z1, z2, a_slot, p_b_idx.long(), out_dtype)
     blocks = segment_sum(prods, out_id, nbz_out)
     return blocks.to(out_dtype)
+
+
+def _block_products(z1, z2, a, b, out_dtype) -> torch.Tensor:
+    """``z1[a[i]] @ z2[b[i]]`` for every i, in the plain versions' sum type:
+    one batched matmul in full precision (float32 sums for bf16), or for
+    int32 an exact sum of products on any device (``utils.precision.
+    contract``: CUDA has no integer matmul), wrapping modulo 2^32."""
+    if out_dtype == torch.int32:
+        return contract("pij,pjk->pik", z1.to(out_dtype)[a],
+                        z2.to(out_dtype)[b])
+    acc = torch.float64 if out_dtype == torch.float64 else torch.float32
+    with full_precision(acc):
+        return torch.bmm(z1.to(acc)[a], z2.to(acc)[b])
 
 
 def slab_list_plain(prod_ptr, prod_ab, z1: torch.Tensor, z2: torch.Tensor,
@@ -683,11 +697,9 @@ def slab_list_plain(prod_ptr, prod_ab, z1: torch.Tensor, z2: torch.Tensor,
     out_id = torch.repeat_interleave(
         torch.arange(nbz_out, device=dev), torch.diff(prod_ptr.long()),
         output_size=ab.shape[0])
-    acc = torch.float64 if out_dtype == torch.float64 else torch.float32
     if ab.shape[0] == 0:
         return torch.zeros((nbz_out, bsz, bsz), dtype=out_dtype, device=dev)
-    with full_precision(acc):
-        prods = torch.bmm(z1.to(acc)[ab[:, 0]], z2.to(acc)[ab[:, 1]])
+    prods = _block_products(z1, z2, ab[:, 0], ab[:, 1], out_dtype)
     return segment_sum(prods, out_id, nbz_out).to(out_dtype)
 
 

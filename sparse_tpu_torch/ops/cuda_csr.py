@@ -24,6 +24,15 @@ tensor-core product against an all-ones matrix); on CPU tensors
 :func:`segtile_stream_plain`, the same sum in plain PyTorch.  There is no
 other route: a CUDA tensor never reaches a plain version.
 
+Value kinds, every route: float32 and float64 sum in their own type; int32
+multiplies and adds modulo 2^32 (the reference's wrapping int32 result, in
+any order, overflow included); bf16 widens values and operand exactly to
+float32, sums in float32 and rounds once to bf16 (the reference sums in
+bf16, so the port is the more accurate).  K1-mxu's int32 kind is K1's
+kernel: sm_90's tensor cores take no 32-bit integer operands, and the
+launch counts as K1-mxu's.  Mixed inputs compute at
+``promote_types(values, operand)``.
+
 :func:`segtile_apply` is the raw-array SpMV over a plan's slot arrays (the
 contract the reference's per-shard halo SpMV calls): it compacts the
 slot arrays on every call, then runs the same kernels.
@@ -68,6 +77,10 @@ K1_LAUNCHES = 0
 K1_R32_LAUNCHES = 0
 K1_MXU_LAUNCHES = 0
 
+#: The kernels' value kinds and their C entries' suffixes.
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.int32: "i32",
+           torch.bfloat16: "bf16"}
+
 _LANES = 128
 _TILE_CAP = 102_400  # reference SMEM chunk budget; kept for plan parity
 _K = 512  # reference tiles per grid step at production sizes
@@ -84,9 +97,10 @@ class CompactStream:
     """A plan's stored entries as the card's kernels read them.
 
     ``vals``: the values in (output row, tile, lane) order — one per entry
-    for a scalar plan (zero-padded to a multiple of 4 for 16-byte loads), a
-    ``(nnz, 4)`` record ``(a00, a01, a10, a11)`` per 2x2 block for a block
-    plan; ``cols``: int32 (block) columns, padded alike; ``row_ptr``: int32
+    for a scalar plan (zero-padded to a multiple of 4 for 16-byte loads, 8
+    bytes a load unit in bf16, so the 16-byte aligned base keeps every unit
+    aligned), a ``(nnz, 4)`` record ``(a00, a01, a10, a11)`` per 2x2 block
+    for a block plan; ``cols``: int32 (block) columns, padded alike; ``row_ptr``: int32
     ``(n_rows + 1)`` offsets, row r being entries ``[row_ptr[r],
     row_ptr[r+1])``.  Row classes: a short row is summed by ``group`` lanes
     (the mean row length in load units — 4 entries, or one block — rounded
@@ -531,8 +545,10 @@ def csr_smvm_segtile(a: CSR, v, plan: SegTilePlan, *, reduce: str = "vpu",
 
     ``reduce``: how a row's products become one sum — ``"vpu"`` (a lane
     group's shuffle sum) or ``"mxu"`` (a tensor-core product against an
-    all-ones matrix, float32 split into two TF32 terms so the sum keeps
-    float32 accuracy).  ``batch`` (the reference's per-grid-step emission
+    all-ones matrix, float32 and bf16 split into two TF32 terms so the sum
+    keeps float32 accuracy; int32 takes the ``"vpu"`` kernel, since the
+    tensor cores take no 32-bit integers and a sum modulo 2^32 is one result
+    whichever unit adds it, counted in ``K1_MXU_LAUNCHES``).  ``batch`` (the reference's per-grid-step emission
     group of the TPU kernel) is accepted and does not change the result;
     below 1 it raises ``ValueError``, as the reference fails there."""
     _check_variant("csr_smvm_segtile", plan.rows, reduce, batch)
@@ -550,6 +566,12 @@ def csr_smvm_segtile(a: CSR, v, plan: SegTilePlan, *, reduce: str = "vpu",
                          "interop.seg_tile_plan_from_arrays")
     return segtile_stream_apply(plan.stream, v, rows=plan.rows,
                                 reduce=reduce, out_dtype=out_dtype)
+
+
+def _sum_dtype(out_dtype):
+    """The dtype the kernels sum ``out_dtype`` values in: float32 for bf16
+    (rounded once to bf16 at the end), the dtype itself otherwise."""
+    return torch.float32 if out_dtype == torch.bfloat16 else out_dtype
 
 
 def _check_variant(name: str, rows: int, reduce: str, batch) -> None:
@@ -666,7 +688,8 @@ def segtile_stream_apply(stream: CompactStream, v, *, rows: int = 8,
                          out_dtype=None) -> torch.Tensor:
     """``y = A v`` over a scalar plan's compact stream, ``(stream.n_rows,)``.
     CUDA tensors launch K1 (``reduce="vpu"``; counted as K1-r32 when the
-    plan has ``rows=32``) or K1-mxu (``reduce="mxu"``); CPU tensors run
+    plan has ``rows=32``) or K1-mxu (``reduce="mxu"``; its int32 kind is
+    K1's kernel, counted as K1-mxu's launch); CPU tensors run
     :func:`segtile_stream_plain`."""
     _check_variant("segtile_stream_apply", rows, reduce, None)
     if out_dtype is None:
@@ -692,15 +715,17 @@ def segtile_stream_plain(stream: CompactStream, v, *,
     """Plain PyTorch version of K1, K1-r32 and K1-mxu over a compact stream
     (any device): gather, product, sum by row in entry order.  The three
     kernels compute this one function; they differ in the order of the sum
-    and in which unit adds."""
+    and in which unit adds.  bf16 values and operand are summed in float32
+    and rounded once, as the kernels do; int32 sums wrap modulo 2^32."""
     if out_dtype is None:
         out_dtype = torch.promote_types(stream.vals.dtype, v.dtype)
+    acc = _sum_dtype(out_dtype)
     k = stream.nnz
-    prod = (stream.vals[:k].to(out_dtype)
-            * v.to(out_dtype)[stream.cols[:k].long()])
-    y = torch.zeros(stream.n_rows, dtype=out_dtype, device=v.device)
+    prod = (stream.vals[:k].to(out_dtype).to(acc)
+            * v.to(out_dtype).to(acc)[stream.cols[:k].long()])
+    y = torch.zeros(stream.n_rows, dtype=acc, device=v.device)
     # out of place, so torch.func.vmap can batch the operand
-    return y.index_add(0, _stream_rows(stream), prod)
+    return y.index_add(0, _stream_rows(stream), prod).to(out_dtype)
 
 
 def _launch(name: str, fn, stream: CompactStream, v, out_dtype, comps: int,
@@ -712,9 +737,9 @@ def _launch(name: str, fn, stream: CompactStream, v, out_dtype, comps: int,
     :func:`~sparse_tpu_torch.ops._transforms.kernel_call` (``vmap`` launches
     once per slice; derivatives raise).  Kept lean: at the sizes of a
     solver step the host's work per call is comparable to the kernel's."""
-    if out_dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: the CUDA kernel takes float32 or float64, "
-                        f"got {out_dtype}")
+    if out_dtype not in _SUFFIX:
+        raise TypeError(f"{name}: the CUDA kernel takes float32, float64, "
+                        f"int32 or bfloat16, got {out_dtype}")
 
     def launch(vals, v):
         if vals.dtype != out_dtype:
@@ -728,8 +753,9 @@ def _launch(name: str, fn, stream: CompactStream, v, out_dtype, comps: int,
                              "16-byte aligned")
         dev = v.device
         y = torch.empty(comps * stream.n_rows, dtype=out_dtype, device=dev)
-        partial = (torch.empty(comps * stream.n_pieces, dtype=out_dtype,
-                               device=dev) if stream.n_pieces else None)
+        partial = (torch.empty(comps * stream.n_pieces,
+                               dtype=_sum_dtype(out_dtype), device=dev)
+                   if stream.n_pieces else None)
         args = (vals.data_ptr(), stream.cols.data_ptr(),
                 stream.row_ptr.data_ptr(), stream.long_rows.data_ptr(),
                 stream.piece_ptr.data_ptr(), stream.piece_row.data_ptr(),
@@ -765,15 +791,19 @@ def _count_k1_mxu():
 
 def _segtile_stream_cuda(stream, v, rows, reduce, out_dtype):
     lib = _kernels.load()
-    f32 = out_dtype == torch.float32
-    if reduce == "mxu":
-        fn = lib.segtile_mxu_f32 if f32 else lib.segtile_mxu_f64
+    sfx = _SUFFIX.get(out_dtype)
+    if reduce == "mxu" and out_dtype != torch.int32:
+        fn = getattr(lib, f"segtile_mxu_{sfx}", None)
         tail = (stream.long_min, stream.piece)
         counted = _count_k1_mxu
     else:
-        fn = lib.segtile_csr_f32 if f32 else lib.segtile_csr_f64
+        # K1-mxu's int32 kind is K1's kernel: the tensor cores take no
+        # 32-bit integer operands, and a sum modulo 2^32 is the same
+        # whichever unit adds it; the launch counts as K1-mxu's
+        fn = getattr(lib, f"segtile_csr_{sfx}", None)
         tail = (stream.long_min, stream.piece, stream.group)
-        counted = _count_k1_r32 if rows == 32 else _count_k1
+        counted = (_count_k1_mxu if reduce == "mxu"
+                   else _count_k1_r32 if rows == 32 else _count_k1)
     return _launch(f"segtile_{reduce}", fn, stream, v, out_dtype, 1, tail,
                    counted)
 

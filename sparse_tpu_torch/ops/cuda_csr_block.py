@@ -11,7 +11,9 @@ The plan also holds its stored blocks as a compact stream
 (:class:`~.cuda_csr.CompactStream`, built once with the plan): one record
 of four values and one int32 block column per block, in (block row, tile,
 lane) order.  On CUDA tensors :func:`bsr_smvm_segtile_block` launches the
-hand-written Hopper kernel ``csrc/segtile_block.cu`` on it (one pass, K2);
+hand-written Hopper kernel ``csrc/segtile_block.cu`` on it (one pass, K2;
+float32, float64, int32 summed modulo 2^32, and bf16 summed in float32 and
+rounded once);
 on CPU tensors it runs :func:`block_stream_plain`, the same sum in plain
 PyTorch.  :func:`bsr_smvm_segtile_block_plain`, the slot-by-slot sum, stays
 as the reference-shaped oracle.  The result matches ``csr_smvm`` of the
@@ -29,6 +31,7 @@ from .. import _kernels
 from ..formats.bsr import BSR
 from .cuda_csr import (
     _LANES,
+    _SUFFIX,
     CompactStream,
     _check_refresh_source,
     _fill_slots,
@@ -37,6 +40,7 @@ from .cuda_csr import (
     _refresh_stream,
     _stream_from_slots,
     _stream_rows,
+    _sum_dtype,
 )
 
 __all__ = [
@@ -243,17 +247,20 @@ def block_stream_plain(stream: CompactStream, v, *,
                        out_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of K2 over a block plan's compact stream (any
     device): gather each block's operand pair, the two products, sum by
-    block row in entry order; ``y[2*row + i]``."""
+    block row in entry order; ``y[2*row + i]``.  bf16 is summed in float32
+    and rounded once, as the kernel does; int32 sums wrap modulo 2^32."""
     if out_dtype is None:
         out_dtype = torch.promote_types(stream.vals.dtype, v.dtype)
+    acc = _sum_dtype(out_dtype)
     k = stream.nnz
-    a = stream.vals[:k].to(out_dtype)
-    x = v.to(out_dtype).reshape(-1, 2)[stream.cols[:k].long()]
+    a = stream.vals[:k].to(out_dtype).to(acc)
+    x = v.to(out_dtype).to(acc).reshape(-1, 2)[stream.cols[:k].long()]
     prod = torch.stack([a[:, 0] * x[:, 0] + a[:, 1] * x[:, 1],
                         a[:, 2] * x[:, 0] + a[:, 3] * x[:, 1]], 1)
-    y = torch.zeros(stream.n_rows, 2, dtype=out_dtype, device=v.device)
+    y = torch.zeros(stream.n_rows, 2, dtype=acc, device=v.device)
     # out of place, so torch.func.vmap can batch the operand
-    return y.index_add(0, _stream_rows(stream), prod).reshape(-1)
+    return y.index_add(0, _stream_rows(stream), prod).reshape(-1).to(
+        out_dtype)
 
 
 def bsr_smvm_segtile_block_plain(ab: BSR, v, plan: BlockSegTilePlan) -> \
@@ -290,9 +297,8 @@ def _count_k2():
 
 
 def _segtile_block_cuda(stream: CompactStream, v, out_dtype):
-    lib = _kernels.load()
-    fn = lib.segtile_block_f32 if out_dtype == torch.float32 \
-        else lib.segtile_block_f64
+    fn = getattr(_kernels.load(), f"segtile_block_{_SUFFIX.get(out_dtype)}",
+                 None)
     return _launch("bsr_smvm_segtile_block", fn, stream, v, out_dtype, 2,
                    (stream.long_min, stream.piece, stream.group), _count_k2)
 

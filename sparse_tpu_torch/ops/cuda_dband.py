@@ -21,8 +21,9 @@ version.
 
 Precision: a float32 stream is full float32 (the reference's TPU default is
 a single bf16 pass; the port keeps its float32 contract); a bfloat16 stream
-is bf16 operands with float32 sums; float64 sums in float64 (on DMMA).
-Every stream runs K4's vote body (``csrc/band_body.cuh``), which skips the
+is bf16 operands with float32 sums; float64 sums in float64 (on DMMA);
+int32 sums modulo 2^32, as the reference's int32 product wraps.  Every
+stream runs K4's vote body (``csrc/band_body.cuh``), which skips the
 tiles' all-zero 32 x 32 chunks.
 """
 
@@ -64,7 +65,7 @@ def _check(tiles, start, b3, bsz, k, W, rt):
             f"b3 {tuple(b3.shape)} do not fit rt={rt} bsz={bsz} W={W} k={k}")
     if tiles.dtype not in _KIND:
         raise ValueError(f"{name}: stream dtype {tiles.dtype} is not one of "
-                         "float32, bfloat16, float64")
+                         "float32, bfloat16, float64, int32")
     return ntiles
 
 
@@ -110,6 +111,6 @@ def dband_spmm_plain(tiles, start, b3, nb, bsz, k, W, rt, out_dtype):
     win = torch.where(inside[:, :, None, None],
                       bs[panel.clamp(max=max(b3.shape[0] - 1, 0))],
                       bs.new_zeros(()))
-    out = _contract(torch.bmm, tiles, win.reshape(ntiles, W * bsz, k),
+    out = _contract("tij,tjk->tik", tiles, win.reshape(ntiles, W * bsz, k),
                     stream, False)
     return out.reshape(ntiles * rt * bsz, k)[:nb * bsz].to(out_dtype)

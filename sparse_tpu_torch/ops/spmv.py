@@ -151,7 +151,11 @@ def _apply_plan(a: CSR, operand, plan: SpmvPlan, rows_fn,
 
 def _smvm_rows(idx, val, v):
     g = v[idx.reshape(-1)].reshape(idx.shape)
-    return torch.sum(val.to(v.dtype) * g, dim=1)
+    # in v's dtype (torch widens an int32 sum to int64); bf16 products and
+    # sums in float32, rounded once, as the SpMV kernels take them
+    acc = torch.float32 if v.dtype == torch.bfloat16 else v.dtype
+    return torch.sum(val.to(v.dtype).to(acc) * g.to(acc), dim=1,
+                     dtype=acc).to(v.dtype)
 
 
 def csr_smvm_fast(a: CSR, v, plan: SpmvPlan | None = None,

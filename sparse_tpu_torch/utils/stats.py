@@ -30,7 +30,8 @@ __all__ = ["matrix_stats", "spmv_bytes", "roofline_report",
            "bell_stats", "BellStats", "csr_block_fill", "detect_block_size",
            "HBM_CEILING_GBPS", "F32_PEAK_TFLOPS", "csr_min_bytes",
            "blocked_min_bytes", "nnz_roofline", "PEAK_TFLOPS",
-           "csr_bound_bytes", "blocked_bound_bytes", "kernel_bound_s"]
+           "csr_bound_bytes", "blocked_bound_bytes", "kernel_bound_s",
+           "I32_PEAK_TOPS"]
 
 #: Device-memory rate of one NVIDIA H100 SXM (80 GB HBM3) from NVIDIA's data
 #: sheet, at the card's full 700 W power limit: the denominator of every
@@ -46,6 +47,12 @@ F32_PEAK_TFLOPS = 67.0
 #: CUDA cores), bf16 on the tensor cores.
 PEAK_TFLOPS = {torch.float32: F32_PEAK_TFLOPS, torch.float64: 67.0,
                torch.bfloat16: 989.0}
+
+#: int32 multiply-add rate of one H100 SXM, in tera-operations a second:
+#: half the float32 CUDA-core rate (64 INT32 lanes an SM against 128
+#: FP32), the operations ceiling of the int32 kinds.
+I32_PEAK_TOPS = F32_PEAK_TFLOPS / 2
+PEAK_TFLOPS[torch.int32] = I32_PEAK_TOPS
 
 
 def _host(x) -> np.ndarray:

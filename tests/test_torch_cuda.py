@@ -1239,3 +1239,390 @@ def test_lu_graph_replay_matches_step_loop(cuda, monkeypatch, pivot):
     x = _np(graph[2])
     dense = _np(a.todense())
     np.testing.assert_allclose(dense @ x, _np(b), rtol=1e-10, atol=1e-10)
+
+
+# -- the int32 and bf16 kinds --------------------------------------------------
+#
+# Every int32 kind (K1, K1-r32, K1-mxu, K2, K3-K8) equals NumPy's int64
+# product taken modulo 2^32 (values whose products and sums overflow int32)
+# and its plain version, bit for bit.  The bf16 kinds of K1 (its variants
+# too) and K2 are within 2^-8 (|A||v|)_i of SciPy's float64 product of the
+# bf16 inputs (one rounding of a float32 sum) and within two such roundings
+# of the plain version.  Each call is launched once (its counter) and two
+# calls are bitwise equal.
+
+KIND_DTYPE = {"int32": torch.int32, "bf16": torch.bfloat16}
+
+
+def _wrap32(x):
+    x = np.asarray(x, np.int64)
+    return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+
+
+def _ints(rng, shape, hi=2 ** 20):
+    x = rng.integers(-hi, hi, shape)
+    return np.where(x == 0, 1, x).astype(np.int32)
+
+
+def _kind_pair(s, kind, rng, device):
+    """The pattern of SciPy CSR ``s`` with int32 values (overflowing) or
+    bf16 values on ``device``, an operand, and the answer: (CSR, v, NumPy's
+    int32 answer or SciPy's float64 one, |A||v| or None)."""
+    n, m = s.shape
+    if kind == "int32":
+        x, v = _ints(rng, s.nnz), _ints(rng, m)
+        want = _wrap32(sp.csr_matrix((x.astype(np.int64), s.indices,
+                                      s.indptr), shape=s.shape)
+                       @ v.astype(np.int64))
+        a = interop.csr_from_arrays(x, s.indices, s.indptr, s.shape,
+                                    device=device)
+        return a, torch.from_numpy(v).to(device), want, None
+    x = torch.from_numpy(rng.standard_normal(s.nnz)).to(torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal(m)).to(torch.bfloat16)
+    s64 = sp.csr_matrix((x.double().numpy(), s.indices, s.indptr),
+                        shape=s.shape)
+    v64 = v.double().numpy()
+    a = interop.csr_from_arrays(x.float().numpy(), s.indices, s.indptr,
+                                s.shape, device=device)
+    a = dataclasses.replace(a, data=a.data.to(torch.bfloat16))
+    return a, v.to(device), s64 @ v64, abs(s64) @ np.abs(v64)
+
+
+def _check_kind(y, plain, want, mag, kind, gate=2.0 ** -8):
+    """int32: equal to the plain version and to NumPy; bf16: within
+    ``gate`` (|A||v|)_i of SciPy and twice that of the plain version."""
+    assert y.dtype == KIND_DTYPE[kind] and y.is_cuda
+    if kind == "int32":
+        assert torch.equal(y, plain)
+        np.testing.assert_array_equal(_np(y), want)
+        return
+    yd, pd = _np(y.double()), _np(plain.double())
+    assert np.all(np.abs(yd - want) <= gate * mag), \
+        np.max(np.abs(yd - want) - gate * mag)
+    assert np.all(np.abs(yd - pd) <= 2 * gate * mag)
+
+
+def _long_band(seed):
+    """band rows, a 3000-entry row (long: its pieces and their ordered
+    sum) and an empty row."""
+    s = _band(3000, 40000, seed, 2500).tolil()
+    s[5, :] = 1.0
+    s[9, :] = 0.0
+    s = s.tocsr()
+    s.eliminate_zeros()
+    return s
+
+
+@pytest.mark.parametrize("kind", ["int32", "bf16"])
+@pytest.mark.parametrize("rows,reduce", [(8, "vpu"), (32, "vpu"), (8, "mxu"),
+                                         (32, "mxu")])
+def test_k1_int32_bf16_kinds(cuda, rows, reduce, kind):
+    """K1, K1-r32 and K1-mxu in int32 and bf16 (K1-mxu's int32 kind is
+    K1's kernel, counted as K1-mxu's launch) over the compact stream, long
+    rows included; the raw-array route gives the plan route's result bit
+    for bit."""
+    rng = np.random.default_rng(41 + rows)
+    s = _long_band(41)
+    a, v, want, mag = _kind_pair(s, kind, rng, cuda)
+    plan = tpc.build_seg_tiles(a, wsub=16, rows=rows)
+    assert plan.stream.vals.dtype == a.dtype and plan.stream.n_pieces > 0
+    counter = _K1_COUNTERS[(rows, reduce)]
+    before = getattr(tpc, counter)
+    y1 = tpc.csr_smvm_segtile(a, v, plan, reduce=reduce)
+    y2 = tpc.csr_smvm_segtile(a, v, plan, reduce=reduce)
+    torch.cuda.synchronize()
+    assert getattr(tpc, counter) == before + 2
+    assert torch.equal(_bits(y1), _bits(y2))
+    _check_kind(y1, tpc.segtile_stream_plain(plan.stream, v), want, mag,
+                kind)
+    raw = dict(n=3000, wsub=16, rows=rows, kstep=plan.kstep,
+               chunks=plan.chunks, reduce=reduce)
+    y3 = tpc.segtile_apply(plan.vals, plan.q, plan.seg_of, plan.rb, v, **raw)
+    assert torch.equal(_bits(y3[:3000]), _bits(y1))
+
+
+@pytest.mark.parametrize("kind", ["int32", "bf16"])
+def test_k2_int32_bf16_kinds(cuda, kind):
+    """K2 in int32 and bf16 over the block plan's stream, a 600-block row
+    through the pieces, a misaligned operand bitwise the same."""
+    rng = np.random.default_rng(43)
+    s = _blocks(2000, 11, 900).tolil()
+    s[10:12, :1200] = 1.25  # block row 5: 600 blocks
+    s = s.tocsr()
+    a, v, want, mag = _kind_pair(s, kind, rng, cuda)
+    ab = tbsr.csr_to_bsr(a, 2)
+    plan = tpb.build_seg_tiles_block(ab, wsub=16)
+    assert plan.stream.n_long >= 1 and plan.stream.vals.dtype == a.dtype
+    before = tpb.K2_LAUNCHES
+    y1 = tpb.bsr_smvm_segtile_block(ab, v, plan)
+    y2 = tpb.bsr_smvm_segtile_block(ab, v, plan)
+    torch.cuda.synchronize()
+    assert tpb.K2_LAUNCHES == before + 2
+    assert torch.equal(_bits(y1), _bits(y2))
+    _check_kind(y1, tpb.block_stream_plain(plan.stream, v), want, mag, kind)
+    odd = torch.cat([v.new_zeros(1), v])[1:]  # one element off alignment
+    assert torch.equal(_bits(tpb.bsr_smvm_segtile_block(ab, odd, plan)),
+                       _bits(y1))
+
+
+@pytest.mark.parametrize("kind", ["int32", "bf16"])
+@pytest.mark.parametrize("rung", [None, "segtile", "blockseg", "hubsplit"])
+def test_main_path_rungs_int32_bf16(cuda, rung, kind):
+    """smvm_prepare -> plan.apply on an int32 and a bf16 CSR takes the rung
+    a float32 CSR of the pattern takes and launches K1 or K2 on it;
+    csr_smvm_auto and hub_split_smvm (a 256-column hub strip, the rest in
+    the row-binned tail) too.  hubsplit adds two bf16 results: three
+    roundings."""
+    rng = np.random.default_rng(45)
+    s = _blocks(1024, 3, 40) if rung in (None, "blockseg") \
+        else _band(4096, 40000, 4, 300)
+    a, v, want, mag = _kind_pair(s, kind, rng, cuda)
+    a32 = interop.csr_from_arrays(s.data.astype(np.float32), s.indices,
+                                  s.indptr, s.shape, device=cuda)
+    plan = pt.smvm_prepare(a, prefer=rung)
+    assert plan.kind == pt.smvm_prepare(a32, prefer=rung).kind == (
+        rung or "blockseg")
+    counts = (tpc.K1_LAUNCHES, tpb.K2_LAUNCHES)
+    y = plan.apply(v)
+    torch.cuda.synchronize()
+    launched = (tpc.K1_LAUNCHES - counts[0], tpb.K2_LAUNCHES - counts[1])
+    assert launched == ((0, 1) if plan.kind == "blockseg" else (1, 0))
+    gate = 3 * 2.0 ** -8 if rung == "hubsplit" else 2.0 ** -8
+    _check_kind(y, y, want, mag, kind, gate)
+    if rung == "segtile":
+        before = tpc.K1_LAUNCHES
+        _check_kind(pt.csr_smvm_auto(a, v), y, want, mag, kind)
+        assert tpc.K1_LAUNCHES == before + 1
+    if rung == "hubsplit":
+        split = pt.hub_split_prepare(a, max_hub_cols=256)
+        assert 0 < split.hub_nnz < split.tail_nnz
+        before = tpc.K1_LAUNCHES
+        _check_kind(pt.hub_split_smvm(split, v), y, want, mag, kind, gate)
+        assert tpc.K1_LAUNCHES == before + 1
+
+
+def _int_bell(nb, bsz, hb, seed, device, values="band", empty=()):
+    """An int32 block band (values up to 2^22: products and sums overflow
+    int32 against ``_ints`` operands) on ``device``, from
+    ``_band_bell``'s float64 one with ``values``; returns (BELL, slot_valid,
+    int64 blocks on the host)."""
+    a, ok = _band_bell(nb, bsz, hb, seed, torch.float64, device, empty=empty)
+    a = _with_values(a, values)
+    blocks = (a.blocks * 2 ** 20).round().to(torch.int32)
+    return BELL(cols=a.cols, blocks=blocks, n=a.n, bsz=a.bsz), ok, \
+        blocks.long().cpu().numpy()
+
+
+def _int_spmm_want(a, blocks64, b):
+    """NumPy's int64 C = A B of an int32 BELL, modulo 2^32."""
+    bh = b.long().cpu().numpy()
+    panels = bh.reshape(a.nb, a.bsz, -1)[a.cols.long().cpu().numpy()]
+    return _wrap32(np.einsum("rlij,rljk->rik", blocks64, panels).reshape(
+        a.n, -1))
+
+
+# K3_CASES without "nan": an int has none
+INT_BELL_CASES = [c for c in K3_CASES if c[4] != "nan"]
+
+
+@pytest.mark.parametrize("nb,bsz,hb,k,values", INT_BELL_CASES)
+def test_k3_k6_int32_at_odd_shapes(cuda, nb, bsz, hb, k, values):
+    """K3's int32 kind on the band body and K6's on the persistent body
+    (bsz <= 64) at K3_CASES' shapes: equal to their plain versions and to
+    NumPy modulo 2^32, with the multiply-adds their votes kept (the float32
+    kinds' chunk and block models)."""
+    a, _, blocks64 = _int_bell(nb, bsz, hb, nb + k, cuda, values,
+                               empty=(nb // 2,))
+    b = torch.from_numpy(_ints(np.random.default_rng(k), (a.n, k))).to(cuda)
+    want = _int_spmm_want(a, blocks64, b)
+    got = _twice(lambda: tcb.bell_spmm_fused(a, b), "K3_LAUNCHES")
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tcb.bell_spmm_fused_plain(a, b))
+    np.testing.assert_array_equal(_np(got), want)
+    assert tcb.fused_issued_flops(a, b) == tcb.fused_issued_model(a, k)
+    got = _twice(lambda: tcb.bell_spmm_block(a, b), "K6_LAUNCHES")
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tcb.bell_spmm_block_plain(a, b))
+    np.testing.assert_array_equal(_np(got), want)
+    assert tcb.block_issued_flops(a, b) == tcb.block_issued_model(a, k)
+    if values == "zero":
+        assert tcb.block_issued_flops(a, b) == 0
+
+
+@pytest.mark.parametrize("kind", ["int32", "f32"])
+@pytest.mark.parametrize("k", [33, 128])
+def test_k6_past_bsz64(cuda, k, kind):
+    """K6 at bsz 80 (past the persistent body's 64: the first body) in
+    int32 and float32, against its plain version (int32: equal, and NumPy
+    modulo 2^32)."""
+    nb, bsz = 12, 80
+    if kind == "int32":
+        a, _, blocks64 = _int_bell(nb, bsz, 1, k, cuda, empty=(5,))
+        b = torch.from_numpy(_ints(np.random.default_rng(k), (a.n, k))).to(
+            cuda)
+    else:
+        a, _ = _band_bell(nb, bsz, 1, k, torch.float32, cuda, empty=(5,))
+        b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (a.n, k))).float().to(cuda)
+    got = _twice(lambda: tcb.bell_spmm_block(a, b), "K6_LAUNCHES")
+    plain = tcb.bell_spmm_block_plain(a, b)
+    if kind == "int32":
+        assert got.dtype == torch.int32 and torch.equal(got, plain)
+        np.testing.assert_array_equal(_np(got), _int_spmm_want(a, blocks64,
+                                                               b))
+    else:
+        _check_spmm(got, plain, _spmm_bound(a, b, torch.float32),
+                    torch.float32)
+
+
+@pytest.mark.parametrize("k", [1, 33, 128, 200])
+@pytest.mark.parametrize("nb,bsz,hb,rt,mw", [(40, 24, 2, 3, 64),
+                                             (130, 3, 2, 7, 128),
+                                             (130, 33, 1, 2, 128),
+                                             (50, 32, 2, 5, 64)])
+def test_k4_int32_vote_body(cuda, nb, bsz, hb, rt, mw, k):
+    """K4's int32 kind on the band body (a vote on every bit of a word):
+    equal to its plain version and NumPy, with the float32 kind's chunk
+    count; bell_spmm with the kit launches it."""
+    a, ok, blocks64 = _int_bell(nb, bsz, hb, nb * k + bsz, cuda, empty=(2,))
+    b = torch.from_numpy(_ints(np.random.default_rng(k), (a.n, k))).to(cuda)
+    kit = tcb.bell_banded_prepare(a, row_tile=rt, max_window=mw,
+                                  slot_valid=ok)
+    assert kit.tiles.dtype == torch.int32
+    got = _twice(lambda: pt.bell_spmm(a, b, plan=kit), "K4_LAUNCHES")
+    assert torch.equal(got, tcb.bell_spmm_banded_plain(a, b, kit.plan,
+                                                       tiles=kit.tiles))
+    np.testing.assert_array_equal(_np(got), _int_spmm_want(a, blocks64, b))
+    assert tcb.banded_issued_flops(kit.tiles, kit.plan.start, b, bsz) == \
+        _issued_model(kit.tiles, k)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("nb,bsz,k,values,hand_rt",
+                         [c for c in K5_CASES if c[3] != "nan"])
+def test_k5_int32_mask_body(cuda, nb, bsz, k, values, hand_rt, padded):
+    """K5's int32 kind on the mask body, padded and unpadded operands,
+    prepared and hand-built kits: equal to its plain version and NumPy,
+    with its counts (operations and tile bytes at 4 bytes an element)."""
+    a, ok, blocks64 = _int_bell(nb, bsz, 2, nb + k, cuda, values)
+    b = torch.from_numpy(_ints(np.random.default_rng(k), (a.n, k))).to(cuda)
+    kit = (_hand_kit_t(a, ok, hand_rt, 128, torch.int32) if hand_rt else
+           tcb.bell_banded_prepare_t(a, max_window=128, slot_valid=ok))
+    assert kit.tiles_t.dtype == torch.int32
+    assert torch.equal(kit.chunk_nz, tcb.chunk_mask(kit.tiles_t))
+    n_pad = kit.plan.offs.shape[0] * bsz
+    bt = b.T.contiguous()
+    if padded:
+        bt = torch.cat([bt, bt.new_zeros(k, n_pad - a.n)], 1)
+    got = _twice(lambda: tcb.bell_spmm_banded_t(a, bt, kit), "K5_LAUNCHES")
+    assert got.shape == (k, n_pad if padded else a.n)
+    assert torch.equal(got, tcb.bell_spmm_banded_t_plain(a, bt, kit))
+    np.testing.assert_array_equal(_np(got[:, :a.n].T),
+                                  _int_spmm_want(a, blocks64, b))
+    assert tcb.banded_t_issued(a, bt, kit) == tcb.banded_t_issued_model(
+        kit, k)
+
+
+def test_bell_spmm_int32_routes_and_k8(cuda):
+    """bell_spmm on an int32 BELL with no plan, a BandedKit and a
+    BandedKitT launches K3, K4 and K5 once each, and dband_spmm K8, all
+    equal to NumPy modulo 2^32; precision="bf16x3" raises for an int32
+    stream on every route, launching nothing."""
+    from sparse_tpu_torch.ops import cuda_dband as tdb
+
+    nb, bsz, k, rt = 53, 16, 40, 5
+    a, ok, blocks64 = _int_bell(nb, bsz, 2, 7, cuda, empty=(9,))
+    b = torch.from_numpy(_ints(np.random.default_rng(8), (a.n, k))).to(cuda)
+    want = _int_spmm_want(a, blocks64, b)
+    kit = tcb.bell_banded_prepare(a, slot_valid=ok)
+    kit_t = tcb.bell_banded_prepare_t(a, slot_valid=ok)
+    for plan, counter in ((None, "K3_LAUNCHES"), (kit, "K4_LAUNCHES"),
+                          (kit_t, "K5_LAUNCHES")):
+        before = getattr(tcb, counter)
+        got = pt.bell_spmm(a, b, plan=plan)
+        torch.cuda.synchronize()
+        assert getattr(tcb, counter) == before + 1
+        np.testing.assert_array_equal(_np(got), want)
+    plan = tcb.build_banded_plan(a, row_tile=rt, max_window=96,
+                                 slot_valid=ok)
+    tiles = tdb.densify_tiles(a, plan, torch.int32)
+    b3 = torch.cat([b.reshape(nb, bsz, k), b.new_zeros(plan.W, bsz, k)])
+    args = (tiles, plan.start, b3, nb, bsz, k, plan.W, rt, torch.int32)
+    before = tdb.K8_LAUNCHES
+    y1, y2 = tdb.dband_spmm(*args), tdb.dband_spmm(*args)
+    torch.cuda.synchronize()
+    assert tdb.K8_LAUNCHES == before + 2 and torch.equal(y1, y2)
+    assert torch.equal(y1, tdb.dband_spmm_plain(*args))
+    np.testing.assert_array_equal(_np(y1), want)
+    counts = [getattr(tcb, f"K{i}_LAUNCHES") for i in (3, 4, 5, 6)]
+    for call in (lambda: pt.bell_spmm(a, b, precision="bf16x3"),
+                 lambda: pt.bell_spmm(a, b, plan=kit, precision="bf16x3"),
+                 lambda: pt.bell_spmm(a, b, plan=kit_t, precision="bf16x3"),
+                 lambda: tcb.bell_spmm_block(a, b, precision="bf16x3")):
+        with pytest.raises(ValueError, match="bf16x3"):
+            call()
+    assert counts == [getattr(tcb, f"K{i}_LAUNCHES") for i in (3, 4, 5, 6)]
+
+
+def _int_bsr(nb, bsz, density, seed, device, parity=None):
+    rng = np.random.default_rng(seed)
+    r, c = np.nonzero(rng.random((nb, nb)) < density)
+    if parity is not None and r.size % 2 != parity:
+        r, c = r[:-1], c[:-1]
+    blocks = torch.from_numpy(_ints(rng, (r.size, bsz, bsz)))
+    return pt.BSR(indices=torch.from_numpy((r * nb + c).astype(
+        np.int32)).to(device), blocks=blocks.to(device), n=nb * bsz,
+                  bsz=bsz)
+
+
+def _int_bsr_dense(a):
+    nb = a.n // a.bsz
+    x = np.zeros((a.n, a.n), np.int64)
+    for i, blk in zip(_np(a.indices), _np(a.blocks)):
+        r, c = divmod(int(i), nb)
+        x[r * a.bsz:(r + 1) * a.bsz, c * a.bsz:(c + 1) * a.bsz] = blk
+    return x
+
+
+@pytest.mark.parametrize("route", ["prepared", "raw"])
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("bsz,nb,density", [(8, 40, 0.12), (16, 25, 0.15),
+                                            (32, 16, 0.2), (64, 9, 0.3),
+                                            (6, 30, 0.15), (40, 10, 0.3)])
+def test_k7_int32(cuda, bsz, nb, density, paired, route):
+    """K7's int32 kind (the float32 team body, unsigned sums) on the
+    prepared route (the plan's list, no pads) and the raw one (the slot
+    tables, pads kept), bsz 6-64 (element copies at 6 and 40): twice,
+    bitwise equal, equal to the list walk's plain version and to NumPy's
+    A @ B modulo 2^32, with the kernel's product count."""
+    a = _int_bsr(nb, bsz, density, nb + bsz, cuda, 1 if paired else None)
+    b = _int_bsr(nb, bsz, density, 3 * nb, cuda)
+    plan = pt.bsr_smsmm_prepare(a, b)
+    pp = pt.bsr_smsmm_slab_prepare(plan, a.nbz, b.nbz, g=4 if paired else 3,
+                                   p=8, paired=paired)
+    dt = torch.int32
+    if route == "prepared":
+        ptr, ab, z1, z2 = pp.prod_ptr, pp.prod_ab, a.blocks, b.blocks
+        got = _k7_twice(lambda: pt.bsr_smsmm_apply_slab(pp, a, b).blocks,
+                        tbs.K7_LAUNCHES)
+    else:
+        ka = 2 + (a.nbz & 1) if paired else 1
+        z1 = tbs._append_zero(a.blocks, dt, ka)
+        z2 = tbs._append_zero(b.blocks, dt)
+        args, kw = _slab_raw(pp, z1, z2, dt)
+        got = _k7_twice(lambda: tbs.run_slabs_arrays(*args, **kw),
+                        tbs.K7_LAUNCHES)
+        assert torch.equal(got, tbs.run_slabs_arrays_plain(*args, **kw))
+        ptr, ab = tbs.slot_list(pp.a_idx, pp.b_idx, pp.oloc, pp.slab_start,
+                                g=pp.g, p=pp.p, nbz_out=pp.nbz_out,
+                                paired=pp.paired)
+    assert got.dtype == dt
+    assert torch.equal(got, tbs.slab_list_plain(ptr, ab, z1, z2,
+                                                out_dtype=dt))
+    c = pt.BSR(indices=pp.indices, blocks=got, n=a.n, bsz=bsz)
+    np.testing.assert_array_equal(
+        _int_bsr_dense(c), _wrap32(_int_bsr_dense(a) @ _int_bsr_dense(b)))
+    before = tbs.K7_LAUNCHES
+    assert tbs.bsr_slab_issued(ptr, ab, z1, z2, out_dtype=dt) == \
+        tbs.bsr_slab_issued_model(ptr)
+    assert tbs.K7_LAUNCHES == before

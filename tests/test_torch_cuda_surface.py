@@ -277,6 +277,15 @@ def _hub(i):
     return pt.hub_split_prepare(pt.csr_from_dense(i.t(x)), max_hub_cols=3)
 
 
+def _smvm_rungs(i):
+    """``smvm_prepare(a, prefer=rung).apply(v)`` on the segtile rung (K1 on
+    the card) and the blockseg rung (K2, on natural 2x2 blocks)."""
+    a = i.csr(64, 64, 0.1)
+    y = pt.smvm_prepare(a, prefer="segtile").apply(i.vec(64))
+    blk = pt.bsr_to_csr(i.bsr(16, 2, 0.3))
+    return y, pt.smvm_prepare(blk, prefer="blockseg").apply(i.vec(32))
+
+
 def _bsr_pair(i):
     a, b = i.bsr(6, 4, 0.4), i.bsr(6, 4, 0.4)
     return a, b
@@ -438,12 +447,16 @@ SURFACE = {
     "spgemm_mxu_csr_csr": Case(_spgemm_dense),
     "spgemm_mxu_nse": Case(lambda i: pt.spgemm_mxu_nse(i.csr(20, 16),
                                                        i.csr(16, 18))),
-    # ops.cuda_csr, ops.hub_split: the K1 routes take float32 / float64
+    # ops.cuda_csr, ops.hub_split, ops.dispatch, formats.bell: the K1, K2
+    # and K3 routes in every kind their kernels take (int32 and bf16 too)
     "csr_smvm_auto": Case(lambda i: pt.csr_smvm_auto(i.csr(64, 64, 0.1),
-                                                     i.vec(64)), F),
+                                                     i.vec(64)), FIB),
     "hub_split_prepare": Case(_hub, FB),
     "hub_split_smvm": Case(lambda i: pt.hub_split_smvm(_hub(i),
-                                                       i.vec(64)), F),
+                                                       i.vec(64)), FIB),
+    "smvm_prepare": Case(_smvm_rungs, FIB),
+    "bell_spmm": Case(lambda i: pt.bell_spmm(pt.bell_from_bsr(
+        i.bsr(8, 8, 0.4)), i.mat(64, 16, 1.0)), FIB),
     # ops.reorder: patterns, permutations and permuted values
     "rcm_order": Case(lambda i: pt.rcm_order(_band_csr(i)), (F32,)),
     "rcm_order_blocked": Case(lambda i: pt.rcm_order_blocked(

@@ -18,8 +18,8 @@ Suites:
   band (nb 15,625, bsz 32, 5-block band, float32), k = 128 (k = 32 for
   K5): K3, K4, K5, K6 and K8 in float32, the bf16 streams of K3, K4,
   K5, K6 (bf16 blocks) and K8 with bf16 operands, the bf16x3 split of
-  K3, K4, K5 and K6 (float32 operands), and K4, K5 and K8 in float64
-  (float64 kits and tiles).
+  K3, K4, K5 and K6 (float32 operands), and K3, K4, K5, K6 and K8 in
+  float64 (float64 blocks, kits and tiles).
 - ``slab``: the block-SpGEMM slab apply (K7) on the SpGEMM fixture
   (``benchmarks/measure_auto_block.py``'s ``C = A A``: nb 2,000, bsz 32,
   19,025 stored blocks, 181,214 block products, float32): the prepared
@@ -29,7 +29,8 @@ Suites:
 - ``segtile``: the segment-tile SpMV kernels: K1, K1-mxu and K1-r32
   through ``csr_smvm_segtile`` on band-10M (500k rows, ~10M entries,
   ``smvm_prepare``'s segtile plan), K2 through ``bsr_smvm_segtile_block``
-  on elasticity-400k (the blockseg plan), and both plans' ``apply``.
+  on elasticity-400k (the blockseg plan), K1, K1-mxu and K2 in float64 on
+  the same streams, and both plans' ``apply``.
 - ``apply``: the host-bound K1 entry points on band-10M: ``plan.apply``
   and ``halo_spmv_segtile`` on a 1-shard in-process mesh.
 
@@ -84,6 +85,7 @@ def bell_cases(cs):
         "K3": lambda: cb.bell_spmm_fused(a, b),
         "K3 bf16": lambda: cb.bell_spmm_fused(a, b_bf, compute_dtype=bf16),
         "K3 bf16x3": lambda: cb.bell_spmm_fused(a, b, precision="bf16x3"),
+        "K3 f64": lambda: cb.bell_spmm_fused(a64, b64),
         "K4": lambda: cb.bell_spmm_banded(a, b, kit.plan, tiles=kit.tiles),
         "K4 bf16x3": lambda: cb.bell_spmm_banded(
             a, b, kit.plan, tiles=kit.tiles, precision="bf16x3"),
@@ -99,6 +101,7 @@ def bell_cases(cs):
         "K6": lambda: cb.bell_spmm_block(a, b),
         "K6 bf16": lambda: cb.bell_spmm_block(a_bf, b_bf),
         "K6 bf16x3": lambda: cb.bell_spmm_block(a, b, precision="bf16x3"),
+        "K6 f64": lambda: cb.bell_spmm_block(a64, b64),
         "K8": lambda: cdb.dband_spmm(*k8_args[f32]),
         "K8 bf16": lambda: cdb.dband_spmm(*k8_args[bf16]),
         "K8 f64": lambda: cdb.dband_spmm(*k8_args[f64]),
@@ -154,7 +157,16 @@ def slab_cases(cs):
     return cases
 
 
+def _f64(x, field):
+    """``x`` (a dataclass) with its tensor ``field`` in float64."""
+    import dataclasses
+
+    return dataclasses.replace(x, **{field: getattr(x, field).double()})
+
+
 def segtile_cases(cs):
+    import dataclasses
+
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_csr, cuda_csr_block
 
@@ -165,12 +177,22 @@ def segtile_cases(cs):
     eplan, ev = ela["plan"], ela["v"]
     ab, est = eplan.state
     vp = ev.reshape(-1, 2)[eplan.perm].reshape(-1)
+    # the float64 kinds on the same streams
+    a64, v64 = _f64(a, "data"), v.double()
+    st64 = dataclasses.replace(st, stream=_f64(st.stream, "vals"))
+    ab64, vp64 = _f64(ab, "blocks"), vp.double()
+    est64 = dataclasses.replace(est, stream=_f64(est.stream, "vals"))
     return {
         "K1": lambda: pt.csr_smvm_segtile(a, v, st),
         "K1-mxu": lambda: pt.csr_smvm_segtile(a, v, st, reduce="mxu"),
         "K1-r32": lambda: pt.csr_smvm_segtile(a, v, st32),
+        "K1 f64": lambda: pt.csr_smvm_segtile(a64, v64, st64),
+        "K1-mxu f64": lambda: pt.csr_smvm_segtile(a64, v64, st64,
+                                                  reduce="mxu"),
         "band apply": lambda: plan.apply(v),
         "K2": lambda: cuda_csr_block.bsr_smvm_segtile_block(ab, vp, est),
+        "K2 f64": lambda: cuda_csr_block.bsr_smvm_segtile_block(ab64, vp64,
+                                                                est64),
         "ela apply": lambda: eplan.apply(ev),
     }
 
