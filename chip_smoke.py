@@ -102,11 +102,13 @@ the ``xla`` / ``bell`` rungs on band-10M and elasticity-400k, the SpMMs
 at ``__graft_entry__``'s shape, ``bell_smvm``, the bf16x3 kind of K3-K6
 (K3's and K4's on the band body's tensor cores, K5's on its chunk-mask
 body, K6's on its persistent body, with their issued work) and the
-float64 kinds of K3-K6 and K8 (K4's and K8's on the band body's DMMA
-tiles, with their issued work; K5's on the chunk-mask body, with its
-issued work and tile bytes; K3's and K6's on the first body) on the
+float64 kinds of K3-K6 and K8 (K3's, K4's and K8's on the band body's
+DMMA tiles, K6's on its persistent body's, with their issued work; K5's on
+the chunk-mask body, with its issued work and tile bytes) on the
 80M-entry band, each beside ``BSR @ B`` in its dtype (float32 for
-bf16x3), the ESC and
+bf16x3), K6 at bsz 128 in every kind (``bench.py``'s block band at nb
+3,907, where K6 runs K3's band body: its main path, plain version, SciPy,
+issued work, bound and ``BSR @ B``), the ESC and
 dense SpGEMM cores on cuts of the SpGEMM fixture, ``pcsr_spmm`` /
 ``halo_spmm_overlapped`` / ``pcsr_spgemm`` over 4 shards, and an int32
 pass exact to NumPy, and prints a ``surface`` JSON line; the kinds'
@@ -1258,43 +1260,45 @@ def phase7_bell_kernels_vs_plain():
     _mask_bodies_vs_plain(rng)
 
 
-def _bench_bell():
-    """``bench.py``'s block band as a BELL on the card, built as its
-    ``tpu_time`` does: the pattern and ``slot_valid`` on the host, the
-    values from a seeded pool of N(0, 0.01^2) blocks on the device."""
+def _bench_bell(nb=None, bsz=None):
+    """``bench.py``'s block band (``build_block_band(nb, bsz)``, its NB
+    and BSZ unless given) as a BELL on the card, built as its ``tpu_time``
+    does: the pattern and ``slot_valid`` on the host, the values from a
+    seeded pool of N(0, 0.01^2) blocks on the device."""
     sys.path.insert(0, str(ROOT))
     from bench import BSZ, NB, build_block_band
 
     from sparse_tpu_torch.formats.bell import BELL
 
-    rows, cols, _, _ = build_block_band()
-    lens = np.bincount(rows, minlength=NB)
+    nb, bsz = nb or NB, bsz or BSZ
+    rows, cols, _, _ = build_block_band(nb=nb, bsz=bsz)
+    lens = np.bincount(rows, minlength=nb)
     Lb = int(lens.max())
-    starts = np.zeros(NB + 1, np.int64)
+    starts = np.zeros(nb + 1, np.int64)
     np.cumsum(lens, out=starts[1:])
     slot = np.arange(rows.size) - starts[rows]
-    cols_np = np.zeros((NB, Lb), np.int32)
+    cols_np = np.zeros((nb, Lb), np.int32)
     cols_np[rows, slot] = cols
     slot_valid = np.arange(Lb)[None, :] < lens[:, None]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    pool = torch.randn(1021, BSZ, BSZ, device="cuda", generator=gen) * 0.01
-    idx = torch.arange(NB * Lb, device="cuda") % 1021
-    blocks = pool[idx].reshape(NB, Lb, BSZ, BSZ) * torch.from_numpy(
+    pool = torch.randn(1021, bsz, bsz, device="cuda", generator=gen) * 0.01
+    idx = torch.arange(nb * Lb, device="cuda") % 1021
+    blocks = pool[idx].reshape(nb, Lb, bsz, bsz) * torch.from_numpy(
         slot_valid).cuda()[:, :, None, None]
     a = BELL(cols=torch.from_numpy(cols_np).cuda(), blocks=blocks,
-             n=NB * BSZ, bsz=BSZ)
+             n=nb * bsz, bsz=bsz)
     return a, cols_np, slot_valid, gen
 
 
 class _ScipyRows:
     """SciPy BSR in float64 of a fixed subset of the BELL's block rows
-    (every 8th and the last), the oracle of phase 8."""
+    (every ``step``-th and the last), the oracle of phase 8."""
 
-    def __init__(self, a, cols_np, slot_valid):
+    def __init__(self, a, cols_np, slot_valid, step=8):
         import scipy.sparse as sp
 
         nb, bsz = a.nb, a.bsz
-        self.sub = np.unique(np.r_[np.arange(0, nb, 8), nb - 1])
+        self.sub = np.unique(np.r_[np.arange(0, nb, step), nb - 1])
         v = slot_valid[self.sub]
         blk = a.blocks[torch.from_numpy(self.sub).cuda()].double().cpu() \
             .numpy()[v]
@@ -4270,11 +4274,13 @@ def _phase21_bell(paths, m, dband, card):
     (the band body), K6 (the persistent body) at k 128 and of K5 at k 32
     (the chunk-mask body), each against SciPy, its plain version and ``BSR
     @ B`` in float32, with its issued work (K5's also the tile bytes it
-    copied); then the float64 kinds at k 128 of K3 and K6 (the first
-    body), K4 and K8 (the band body on DMMA, with their issued work; K8 on
-    phase 14's plan ``dband``) and of K5 at k 32 (the chunk-mask body, with
-    its issued work and tile bytes) beside ``BSR @ B`` in float64.  Returns
-    {kernel: {"bf16x3": record, "float64": record}}."""
+    copied); then the float64 kinds at k 128 of K3, K4 and K8 (the band
+    body on DMMA; K8 on phase 14's plan ``dband``) and K6 (the persistent
+    body on DMMA), with their issued work, and of K5 at k 32 (the
+    chunk-mask body, with its issued work and tile bytes) beside ``BSR @
+    B`` in float64; then K6 at bsz 128 in every kind
+    (``_phase21_k6_wide``).  Returns {kernel: {"bf16x3": record,
+    "float64": record}}, K6's also with "bsz128": {kind: record}."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.formats.bell import BELL
     from sparse_tpu_torch.ops import cuda_bell as cb
@@ -4345,8 +4351,8 @@ def _phase21_bell(paths, m, dband, card):
     useful32 = 2 * m["nnz"] * 32
     out["K5"]["bf16x3"].update(check_k5_counts(
         "K5 bf16x3 k=32", a, bt32, kit_t, useful32, precision=x3))
-    # the float64 kinds: K3 and K6 on the first body, K4 and K8 on the
-    # band body
+    # the float64 kinds: K3 and K4 on the band body (K3's wide row, K4's
+    # densified tiles), K6 on the persistent body
     a64 = BELL(cols=a.cols, blocks=a.blocks.double(), n=a.n, bsz=a.bsz)
     b64 = b.double()
     kit64 = cb.bell_banded_prepare(a64, row_tile=kit.plan.rt,
@@ -4355,12 +4361,12 @@ def _phase21_bell(paths, m, dband, card):
     lib, call = library_spmm(m, b64, card, "float64")
     cost = spmm_cost(nbz, a.bsz, a.n, k, 8, 8)
     for kname, body, kern, plain in (
-            ("K3", "first body", lambda: cb.bell_spmm_fused(a64, b64),
+            ("K3", "band body", lambda: cb.bell_spmm_fused(a64, b64),
              lambda: cb.bell_spmm_fused_plain(a64, b64)),
             ("K4", "band body", lambda: pt.bell_spmm(a64, b64, plan=kit64),
              lambda: cb.bell_spmm_banded_plain(a64, b64, kit64.plan,
                                                tiles=kit64.tiles)),
-            ("K6", "first body", lambda: cb.bell_spmm_block(a64, b64),
+            ("K6", "persistent body", lambda: cb.bell_spmm_block(a64, b64),
              lambda: cb.bell_spmm_block_plain(a64, b64))):
         label = f"{kname} float64 k {k} ({body})"
         out[kname]["float64"] = _phase21_kind(
@@ -4369,6 +4375,13 @@ def _phase21_bell(paths, m, dband, card):
     out["K4"]["float64"]["issued_gflop"] = check_issued(
         "K4 float64", kit64.tiles, kit64.plan.start, b64, a.bsz,
         useful) / 1e9
+    # K3's and K6's float64 votes: the float32 stream's chunks and blocks
+    out["K3"]["float64"]["issued_gflop"] = check_counted(
+        "K3 float64", cb.fused_issued_flops(a64, b64),
+        cb.fused_issued_model(a64, k), useful) / 1e9
+    out["K6"]["float64"]["issued_gflop"] = check_counted(
+        "K6 float64", cb.block_issued_flops(a64, b64),
+        cb.block_issued_model(a64, k), useful) / 1e9
     del kit64
     # K8 on phase 14's plan (measure_dband.py's flow: the operand padded
     # with W zero panels), float64 tiles and operand
@@ -4399,6 +4412,129 @@ def _phase21_bell(paths, m, dband, card):
     out["K5"]["float64"].update(check_k5_counts(
         "K5 float64 k=32", a64, bt64, kit_t64, useful32))
     del kit_t64, a64, b64, bt64
+    out["K6"]["bsz128"] = _phase21_k6_wide(card)
+    return out
+
+
+#: K6 past its persistent body's stages: ``bench.py``'s block band at bsz
+#: 128 (``build_block_band(nb=3_907, bsz=128)``: n 500,096), k 128.
+K6_WIDE_NB, K6_WIDE_BSZ = 3_907, 128
+
+
+def _phase21_k6_wide(card):
+    """K6 at bsz 128, where it runs K3's band body on the wide row, in
+    every kind on ``bench.py``'s block band at ``K6_WIDE_BSZ``: its main
+    path ``bell_spmm_block`` once with K6's launch count set to 0 just
+    before and read just after; then twice, bitwise equal, against its
+    plain version (int32: equal) and SciPy on every 64th block row (within
+    TOL, bf16x3's gate; int32: exact), its issued work against the host
+    model; timed back to back beside its plain version, its bound and
+    ``BSR @ B`` in the stream's dtype (float32 for bf16x3).  Returns
+    {kind: record}."""
+    from sparse_tpu_torch.formats.bell import BELL
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    f32, f64, bf16, i32 = (torch.float32, torch.float64, torch.bfloat16,
+                           torch.int32)
+    a, cols_np, valid, gen = _bench_bell(K6_WIDE_NB, K6_WIDE_BSZ)
+    k, bsz = 128, a.bsz
+    b = torch.randn(a.n, k, device="cuda", generator=gen) * 0.01
+    nbz = int(valid.sum())
+    useful = 2 * nbz * bsz * bsz * k
+    m = dict(a=a, cols_np=cols_np, slot_valid=valid)
+    print(f"   bsz {bsz} band: n {a.n}, {nbz} stored blocks of Lb {a.Lb}, "
+          f"{useful / 1e9:.3f} useful GFLOP at k {k}", flush=True)
+
+    def with_blocks(blocks):
+        return BELL(cols=a.cols, blocks=blocks, n=a.n, bsz=bsz)
+
+    ai = with_blocks((a.blocks * 400).round().to(i32))
+    bi = torch.randint(-8, 9, (a.n, k), device="cuda", generator=gen,
+                       dtype=i32)
+    # kind: (A, B, precision, tolerance against the plain version and
+    # against SciPy, bytes per element of A and B and of C, bound dtype)
+    kinds = {
+        "float32": (a, b, None, TOL[f32], TOL[f32], 4, 4, f32),
+        "bf16": (with_blocks(a.blocks.to(bf16)), b.to(bf16), None,
+                 TOL[bf16], TOL[bf16], 2, 2, bf16),
+        "bf16x3": (a, b, "bf16x3", TOL[f32], BF16X3_TOL, 4, 4, bf16),
+        "int32": (ai, bi, None, 0, 0, 4, 4, i32),
+        "float64": (with_blocks(a.blocks.double()), b.double(), None,
+                    TOL[f64], TOL[f64], 8, 8, f64)}
+    out = {}
+    for kind, (x, y, prec, tol_p, tol_s, isz, osz, bdt) in kinds.items():
+        label = f"K6 {kind} bsz {bsz} k {k} (band body, bell_spmm_block)"
+
+        def kern():
+            return cb.bell_spmm_block(x, y, precision=prec)
+
+        def plain():
+            return cb.bell_spmm_block_plain(x, y, precision=prec)
+
+        oracle = _ScipyRows(x, cols_np, valid, step=64)
+        yh = y.double().cpu().numpy()
+        want = oracle.s @ yh
+        cb.K6_LAUNCHES = 0
+        c = kern()  # the main path
+        torch.cuda.synchronize()
+        launches = cb.K6_LAUNCHES
+        if launches != 1:
+            raise AssertionError(f"{label}: the main path launched K6 "
+                                 f"{launches} times")
+        if kind == "int32":
+            err = _int_check(label, want)(c, oracle.rows)
+        else:
+            err = _gate(label, c[oracle.rows],
+                        torch.from_numpy(want).cuda(),
+                        torch.from_numpy(oracle.abs @ np.abs(yh)).cuda(),
+                        tol_s)
+        c2 = kern()
+        torch.cuda.synchronize()
+        if c.dtype != y.dtype or not torch.equal(_bits(c), _bits(c2)):
+            raise AssertionError(f"{label}: {c.dtype} result, or two runs "
+                                 "differ bitwise")
+        del c2
+        yp = plain()
+        if kind == "int32":
+            if not torch.equal(c, yp):
+                raise AssertionError(f"{label}: differs from its plain "
+                                     "version")
+            err_p = 0.0
+        else:
+            err_p = _gate(label, c, yp, _abs_bound(x, y, y.dtype), tol_p)
+        del c, yp
+        issued = check_counted(
+            f"K6 {kind} bsz {bsz}", cb.block_issued_flops(x, y,
+                                                          precision=prec),
+            cb.block_issued_model(x, k), useful)
+        ms, fastest, n = _b2b(kern)
+        plain_ms = _b2b(plain)[0]
+        nbytes, ops = spmm_cost(nbz, bsz, a.n, k, isz, osz)
+        b_ms, b_by = bound_ms(nbytes, 3 * ops if prec else ops, bdt)
+        if kind == "int32":
+            bsr = torch_bsr(dict(m, a=ai), i32)
+            lib, call = _library(f"BSR @ B int32 (bsz {bsz}, k {k})",
+                                 lambda: bsr @ bi, card)
+            del bsr
+        else:
+            lib, call = library_spmm(m, y.float() if prec else y, card,
+                                     f"bsz {bsz} k {k} {str(y.dtype)[6:]}")
+        print(f"   {label}: main path launched K6 {launches} time(s); gate "
+              f"passed (max err {err:.3e}, vs plain {err_p:.3e}); {ms:.4f} "
+              f"ms back to back (median of 5 windows of {n}; fastest "
+              f"{fastest:.4f}); plain {plain_ms:.4f} ms; bound {b_ms:.4f} "
+              f"ms ({b_by}), {b_ms / ms:.1%} of it; library "
+              f"{'refused' if lib is None else f'{lib:.4f} ms'} ({call}) "
+              f"[{card}]", flush=True)
+        out[kind] = dict(ms=ms, fastest_ms=fastest, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                         library_call=call, max_abs_err=err,
+                         max_abs_err_vs_plain=err_p, launches=launches,
+                         issued_gflop=issued / 1e9)
+        if lib is None:
+            out[kind]["library_error"] = LIBRARY_REFUSALS.get(call,
+                                                              "refused")
+    del m, kinds, a, ai, b, bi
     return out
 
 
@@ -4551,10 +4687,11 @@ def phase21_surface(card, slice_run, ela_bsr, spmm_run):
     time and the card: the plain SpMV and SpMM entry points and the
     ``xla`` / ``bell`` rungs on band-10M and elasticity-400k, the SpMMs at
     ``__graft_entry__``'s shape, ``bell_smvm``, the bf16x3 kinds of K3-K6
-    and the float64 kinds of K3-K6 and K8 on bell-band-80M, the ESC and
-    dense SpGEMM cores on cuts of spgemm-block-181k, three distributed
-    paths over ``DIST_D`` shards, and an int32 pass exact to NumPy.  Returns (paths, {kernel:
-    {kind: record}})."""
+    and the float64 kinds of K3-K6 and K8 on bell-band-80M, K6 at bsz 128
+    in every kind, the ESC and dense SpGEMM cores on cuts of
+    spgemm-block-181k, three distributed paths over ``DIST_D`` shards, and
+    an int32 pass exact to NumPy.  Returns (paths, {kernel: {kind:
+    record}})."""
     paths = _Paths(card)
     _phase21_band(paths, slice_run["a"], slice_run["s"], slice_run["v"])
     ae, se = _phase21_elasticity(paths, ela_bsr)
@@ -5174,7 +5311,7 @@ def main():
             entry["example_launches"] = examples_launches[key]
     print(json.dumps({"transforms": transforms, "examples": examples,
                       "card": card}, default=float), flush=True)
-    with Phase("phase 21: the rest of the surface at size", 180):
+    with Phase("phase 21: the rest of the surface at size", 360):
         surface, kinds = phase21_surface(card, slice_run,
                                          ela["plan"].state[0], spmm_run)
     print(json.dumps({"surface": surface, "card": card}, default=float),

@@ -36,7 +36,7 @@ _BUILD = _HERE / "_build"
 #: Linked into one library (the ``.cuh`` headers are included).
 SOURCES = ("segtile_csr.cu", "segtile_mxu.cu", "segtile_block.cu",
            "bell_spmm.cu", "bell_banded.cu", "bsr_slab.cu")
-_HEADERS = ("segtile_common.cuh", "bell_common.cuh", "bell_kinds.cuh",
+_HEADERS = ("segtile_common.cuh", "bell_kinds.cuh",
             "band_body.cuh", "block_body.cuh", "sm90_async.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,8 +1,10 @@
-// K6's float32 / int32 / bf16 / bf16x3 body (bell_spmm.cu): C[r] (bsz, k)
-// = sum over the stored slots l of block row r of blocks[r, l] (bsz, bsz) @
-// the operand panel B[cols[r, l]*bsz : +bsz] (bsz, k), one stored block at a
-// time, as sparse_tpu/ops/pallas_bell.py::bell_spmm_pallas (def :58,
-// pallas_call :89, kernel :41-55) steps its grid.
+// K6's body (bell_spmm.cu) at bsz <= 64, for float32, int32, bf16, bf16x3
+// and float64 streams: C[r] (bsz, k) = sum over the stored slots l of block
+// row r of blocks[r, l] (bsz, bsz) @ the operand panel B[cols[r, l]*bsz :
+// +bsz] (bsz, k), one stored block at a time, as
+// sparse_tpu/ops/pallas_bell.py::bell_spmm_pallas (def :58, pallas_call
+// :89, kernel :41-55) steps its grid.  Past bsz 64 K6 runs K3's band body
+// on the wide row instead (bell_spmm.cu).
 //
 // Output tiles: one block row's 32 rows (a row group; bsz > 32 gives two)
 // by 128 columns (k > 128 gives more), column tiles fastest.  A thread block
@@ -21,23 +23,26 @@
 // r + 4q, columns 4c .. 4c+3 and 64 + 4c .. +3: 64 FMAs per four 16-byte
 // shared loads, conflict-free), in full float32.  int32: the same tile and
 // ring, integer multiply-adds in unsigned (sums modulo 2^32, the
-// reference's wrapping int32 result), a vote on every bit, C int32.  bf16 (A and B bf16, sums
-// float32): each warp a 32 x 64 piece on mma.sync m16n8k16 from ldmatrix
-// fragments, the sums rounded to bf16 once as they are stored.  bf16x3
-// (band::Split: float32 A and B, precision="bf16x3"): the float32 ring and
-// vote with unpadded stages in band_body.cuh's swizzled bf16x3 layouts,
-// each warp's 32 x 64 piece as two 32-column halves, each 32-index chunk
-// of a step multiplied by band_body.cuh's split_chunk (hi*hi, hi*lo, lo*hi
-// a 16-index step, into one float32 accumulator a tile), C in float32.
-// Each output is written once, in the result type (float32, or bf16), after
-// its tile's fixed-order loop, with streaming stores (__stcs; the mma
-// layout's bf16 pairs are traded within each lane quad into 16-byte runs).
-// The block's column ids are read one step before their panel copy needs
-// them.
-// With a counter, each thread block adds rows x bsz x columns of its tile
-// for every step its vote kept: bsz * bsz * k per kept stored block at
-// bsz <= 32 (once for bf16x3: its three products split the same
-// multiply-adds).
+// reference's wrapping int32 result), a vote on every bit, C int32.  bf16
+// (A and B bf16, sums float32): each warp a 32 x 64 piece on mma.sync
+// m16n8k16 from ldmatrix fragments, the sums rounded to bf16 once as they
+// are stored.  bf16x3 (band::Split: float32 A and B, precision="bf16x3"):
+// the float32 ring and vote with unpadded stages in band_body.cuh's
+// swizzled bf16x3 layouts, each warp's 32 x 64 piece as two 32-column
+// halves, each 32-index chunk of a step multiplied by band_body.cuh's
+// split_chunk (hi*hi, hi*lo, lo*hi a 16-index step, into one float32
+// accumulator a tile), C in float32.  float64 (A, B and C float64, bsz
+// <= 32): the same ring and a vote on 64-bit words, unpadded stages in
+// band_body.cuh's swizzled DMMA layouts, four warps, each a 32 x 32 piece,
+// each 32-index chunk of a step multiplied by band_body.cuh's dmma_chunk
+// (mma.sync m8n8k4).  Each output is written once, in the
+// result type (float32, float64, int32 or bf16), after its tile's
+// fixed-order loop, with streaming stores (__stcs; the mma layout's bf16
+// pairs are traded within each lane quad into 16-byte runs).  The block's
+// column ids are read one step before their panel copy needs them.  With
+// a counter, each thread block adds rows x bsz x columns of its tile for
+// every step its vote kept: bsz * bsz * k per kept stored block at bsz <=
+// 32 (once for bf16x3: its three products split the same multiply-adds).
 
 #pragma once
 
@@ -53,10 +58,10 @@ namespace bbody {
 
 constexpr int kBM = 32;       // output rows of a tile
 constexpr int kBN = 128;      // output columns of a tile
-constexpr int kThreads = 64;  // two warps
+constexpr int kThreads = 64;  // two warps (float64: Geo's four)
 
-// Per stream kind S (float, int, __nv_bfloat16, band::Split): T, the
-// element type in memory, in shared memory and of C.
+// Per stream kind S (float, int, __nv_bfloat16, band::Split, double): T,
+// the element type in memory, in shared memory and of C.
 template <typename S>
 struct Cfg;
 template <>
@@ -100,6 +105,23 @@ struct Cfg<band::Split> {
   static constexpr int kPadA = 0, kPadB = 0;
   static constexpr int kVote = 1, kAhead = 2;
 };
+// float64, at BK 32 only (at 64 the ring would be 192 KB, one thread block
+// an SM): the float32 ring (96 KB, two thread blocks an SM), unpadded
+// stages in band_body.cuh's DMMA layouts (dmma_a_at, dmma_b_at: an A stage
+// is a stage of the band body's float64 kind).  Four warps (Geo::kThreads),
+// each a 32 x 32 piece of 4 m8 x 4 n8 DMMA tiles, dmma_chunk's accumulator:
+// 64 doubles a lane (two warps of 32 x 64, 128 a lane, ran no faster than
+// K3's band body at bsz 32 on an H100, and at BK 64 far slower).  The
+// launcher takes it at bsz <= 32 (bell_spmm.cu).  The vote reads 64-bit
+// words: a double's sign is bit 31 of its high word.
+template <>
+struct Cfg<double> {
+  using T = double;
+  using Bits = unsigned long long;
+  using Acc = double[4][4][2];
+  static constexpr int kPadA = 0, kPadB = 0;
+  static constexpr int kVote = 1, kAhead = 2;
+};
 
 // BK: a step's contraction (the stored block's columns), 32 or 64.
 // a_at(i, c) and b_at(j, c) place A's element (i, c) and B's (j, c) in
@@ -108,6 +130,9 @@ template <typename S, int BK>
 struct Geo {
   using T = typename Cfg<S>::T;
   static constexpr bool kSplit = std::is_same<S, band::Split>::value;
+  static constexpr bool kF64 = std::is_same<S, double>::value;
+  static_assert(!kF64 || BK == 32, "float64 steps are 32 indices");
+  static constexpr int kThreads = kF64 ? 2 * bbody::kThreads : bbody::kThreads;
   static constexpr int PA = BK + Cfg<S>::kPadA, PB = kBN + Cfg<S>::kPadB;
   static constexpr int kAStages = Cfg<S>::kAhead + 2;
   static constexpr int kBStages = Cfg<S>::kVote + 1;
@@ -116,10 +141,12 @@ struct Geo {
       (kAStages * kAStage + kBStages * kBStage) * static_cast<int>(sizeof(T));
   __device__ static __forceinline__ int a_at(int i, int c) {
     if constexpr (kSplit) return band::split_a_at<PA>(i, c);
+    if constexpr (kF64) return band::dmma_a_at(i, c);
     return i * PA + c;
   }
   __device__ static __forceinline__ int b_at(int j, int c) {
     if constexpr (kSplit) return band::split_b_at<PB>(j, c);
+    if constexpr (kF64) return band::dmma_b_at<PB>(j, c);
     return j * PB + c;
   }
 };
@@ -162,8 +189,8 @@ __device__ __forceinline__ void load_a(typename Cfg<S>::T* sa,
   if constexpr (VEC) {
     constexpr int V = 16 / sizeof(T), kRow = BK / V;
 #pragma unroll
-    for (int s = 0; s < kBM * kRow / kThreads; ++s) {
-      const int e = tid + s * kThreads;
+    for (int s = 0; s < kBM * kRow / G::kThreads; ++s) {
+      const int e = tid + s * G::kThreads;
       const int i = e / kRow, c = (e % kRow) * V;
       const int gi = m0 + i;
       const bool ok = gi < bsz && c < bsz;
@@ -174,8 +201,8 @@ __device__ __forceinline__ void load_a(typename Cfg<S>::T* sa,
     B* dst = reinterpret_cast<B*>(sa);
     const B* src = reinterpret_cast<const B*>(blk);
 #pragma unroll 4
-    for (int s = 0; s < kBM * BK / kThreads; ++s) {
-      const int e = tid + s * kThreads;
+    for (int s = 0; s < kBM * BK / G::kThreads; ++s) {
+      const int e = tid + s * G::kThreads;
       const int i = e / BK, c = e % BK;
       const int gi = m0 + i;
       dst[G::a_at(i, c)] = (gi < bsz && c < bsz) ? src[gi * bsz + c] : B(0);
@@ -184,6 +211,7 @@ __device__ __forceinline__ void load_a(typename Cfg<S>::T* sa,
 }
 
 // Whether any element this thread copied by load_a is non-zero (NaN is).
+// A double's sign is bit 31 of its high word (the second 32-bit word).
 template <typename S, int BK, bool VEC>
 __device__ __forceinline__ bool mine_nonzero(const typename Cfg<S>::T* sa) {
   using T = typename Cfg<S>::T;
@@ -193,19 +221,25 @@ __device__ __forceinline__ bool mine_nonzero(const typename Cfg<S>::T* sa) {
   if constexpr (VEC) {
     constexpr int V = 16 / sizeof(T), kRow = BK / V;
 #pragma unroll
-    for (int s = 0; s < kBM * kRow / kThreads; ++s) {
-      const int e = tid + s * kThreads;
+    for (int s = 0; s < kBM * kRow / G::kThreads; ++s) {
+      const int e = tid + s * G::kThreads;
       const uint4 w = *reinterpret_cast<const uint4*>(
           sa + G::a_at(e / kRow, (e % kRow) * V));
-      any |= (w.x | w.y | w.z | w.w) & Cfg<S>::kWord;
+      if constexpr (G::kF64)
+        any |= w.x | w.z | ((w.y | w.w) & 0x7fffffffu);
+      else
+        any |= (w.x | w.y | w.z | w.w) & Cfg<S>::kWord;
     }
   } else {
     using B = typename Cfg<S>::Bits;
     const B* src = reinterpret_cast<const B*>(sa);
 #pragma unroll 4
-    for (int s = 0; s < kBM * BK / kThreads; ++s) {
-      const int e = tid + s * kThreads;
-      any |= src[G::a_at(e / BK, e % BK)] & Cfg<S>::kWord;
+    for (int s = 0; s < kBM * BK / G::kThreads; ++s) {
+      const int e = tid + s * G::kThreads;
+      if constexpr (G::kF64)
+        any |= (src[G::a_at(e / BK, e % BK)] << 1) != 0;
+      else
+        any |= src[G::a_at(e / BK, e % BK)] & Cfg<S>::kWord;
     }
   }
   return any != 0;
@@ -223,8 +257,8 @@ __device__ __forceinline__ void load_b(typename Cfg<S>::T* sb,
   if constexpr (VEC) {
     constexpr int V = 16 / sizeof(T), kRow = kBN / V;
 #pragma unroll
-    for (int s = 0; s < BK * kRow / kThreads; ++s) {
-      const int e = tid + s * kThreads;
+    for (int s = 0; s < BK * kRow / G::kThreads; ++s) {
+      const int e = tid + s * G::kThreads;
       const int j = e / kRow, c = (e % kRow) * V;
       const bool ok = j < bsz && n0 + c < k;
       sm90::cp_async16(sb + G::b_at(j, c),
@@ -237,7 +271,7 @@ __device__ __forceinline__ void load_b(typename Cfg<S>::T* sb,
     B* dst = reinterpret_cast<B*>(sb);
     const int lane = tid % 32;
 #pragma unroll 2
-    for (int j = tid / 32; j < BK; j += kThreads / 32) {
+    for (int j = tid / 32; j < BK; j += G::kThreads / 32) {
       const bool row_ok = j < bsz;
       const B* src = reinterpret_cast<const B*>(
           panel + (row_ok ? static_cast<long long>(j) * k : 0));
@@ -371,6 +405,16 @@ __device__ __forceinline__ void mma_step(const float* sa, const float* sb,
                                       acc[h]);
 }
 
+// The same in float64 (Geo<double, 32>'s stages, four warps): warp w owns
+// all 32 rows and columns 32w .. 32w+31 of the step's one 32-index chunk,
+// through dmma_chunk.
+template <int BK>
+__device__ __forceinline__ void mma_step(const double* sa, const double* sb,
+                                         double (&acc)[4][4][2]) {
+  band::dmma_chunk<Geo<double, BK>::PB>(sa, sb, (threadIdx.x / 32) * 32,
+                                        acc);
+}
+
 __device__ __forceinline__ void zero(float (&acc)[8][8]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -401,6 +445,13 @@ __device__ __forceinline__ void zero(float (&acc)[2][2][4][4]) {
       for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[h][m][n][i] = 0.f;
+}
+
+__device__ __forceinline__ void zero(double (&acc)[4][4][2]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) acc[m][n][0] = acc[m][n][1] = 0.0;
 }
 
 // C rows m0 + . (< M) and columns n0 + . (< N) of one block row's output
@@ -549,6 +600,34 @@ __device__ __forceinline__ void store(const float (&acc)[2][2][4][4],
           }
         }
     }
+}
+
+// The float64 result from the DMMA layout: lane l holds columns 8nt +
+// 2(l%4) .. +1 of row 8mt + l/4 of its warp's 32, written as 16-byte
+// streaming stores (a lane quad's four make one 64-byte run).
+template <bool VEC>
+__device__ __forceinline__ void store(const double (&acc)[4][4][2],
+                                      double* c, int M, int N, int m0,
+                                      int n0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    const int gi = m0 + mt * 8 + lane / 4;
+    if (gi >= M) continue;
+    double* row = c + static_cast<long long>(gi) * N;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int gn = n0 + warp * 32 + nt * 8 + (lane % 4) * 2;
+      const double x = acc[mt][nt][0], y = acc[mt][nt][1];
+      if constexpr (VEC) {
+        if (gn < N)
+          __stcs(reinterpret_cast<double2*>(row + gn), make_double2(x, y));
+      } else {
+        if (gn < N) __stcs(row + gn, x);
+        if (gn + 1 < N) __stcs(row + gn + 1, y);
+      }
+    }
+  }
 }
 
 // The persistent body.  blocks (nb, Lb, bsz, bsz), cols (nb, Lb), b

@@ -27,15 +27,20 @@ of K5.  The super-tile fields (``S``, ``SW``, ``rel``, ``sup``) only shared a
 DMA window on the TPU; ``start == sup.repeat(S) + rel`` by construction, so
 K4 and K5 read ``start`` and ignore them.
 
-The float32, int32, bf16 and bf16x3 streams of K3, every stream of K4
-(and K8) and of K5 skip the band's all-zero 32 x 32 chunks: K3 and K4 by a
-vote inside the kernel on what they read, K5 by the kit's chunk mask
-(:attr:`BandedKitT.chunk_nz`, built once with the kit), so it does not
-read them; K6's float32, int32, bf16 and bf16x3 streams (bsz <= 64) skip a
-padding slot's zero block by a vote per stored block.  Each has an
-issued-work counter (:func:`fused_issued_flops`,
-:func:`banded_issued_flops`, :func:`banded_t_issued`,
-:func:`block_issued_flops`) beside a host model of what it should count.
+Every stream of K3, K4 (and K8) and K5 skips the band's all-zero 32 x 32
+chunks: K3 and K4 by a vote inside the kernel on what they read, K5 by the
+kit's chunk mask (:attr:`BandedKitT.chunk_nz`, built once with the kit),
+so it does not read them.  Every stream of K6 skips a padding slot's zero
+block by a vote per stored block on its persistent body, at bsz <= 64
+(float64: 32); past that K6 runs K3's kernel on the wide row and skips
+its all-zero 32 x 32 chunks, so where bsz is not a multiple of 32 a chunk
+that straddles a stored block and a padding block is multiplied whole.
+A skipped chunk or block never meets the operand: an Inf or NaN in B
+opposite it gives the sparse answer (as SciPy and ``BSR @ B`` do), where
+the reference's dense product gives NaN.  Each has an issued-work counter
+(:func:`fused_issued_flops`, :func:`banded_issued_flops`,
+:func:`banded_t_issued`, :func:`block_issued_flops`) beside a host model
+of what it should count.
 
 Precision, as the reference's ``_resolve_precision``: float32 streams are
 full float32 (no TF32); ``precision="bf16x3"`` splits each float32 operand
@@ -51,11 +56,9 @@ bf16); anything else raises ``ValueError``.  An int32 BELL with
 returns int32, as the reference computes it (its result rounds each
 partial product to bf16, so the two agree within the bf16 gate).  K3, K4,
 K5 and K6 run bf16x3 on the tensor cores (three bf16 ``mma.sync`` products
-a float32 pair, one float32 accumulator) and int32 on the CUDA cores (the
-float32 tiling, integer multiply-adds); K4 and K5 run float64 on DMMA
-(``mma.sync`` m8n8k4); K3 and K6 run float64, and K6 every kind past bsz
-64, on their first body (``csrc/bell_common.cuh``), which skips no zero.
-The interpret flag of the reference is dropped.
+a float32 pair, one float32 accumulator), int32 on the CUDA cores (the
+float32 tiling, integer multiply-adds) and float64 on DMMA (``mma.sync``
+m8n8k4).  The interpret flag of the reference is dropped.
 """
 
 from __future__ import annotations
@@ -120,8 +123,6 @@ _KIND_F32_SPLIT = 1
 # band_t::kBN, kBK, kSlice)
 _BAND_BM, _BAND_BN, _BAND_BK = 32, 128, 32
 _BT_BN, _BT_BK, _BT_SLICE = 32, 32, 32
-# K3's and K6's counted streams (bf16x3 is a float32 stream)
-_COUNTED = (torch.float32, torch.bfloat16, torch.int32)
 
 
 # -- precision ----------------------------------------------------------------
@@ -204,6 +205,14 @@ def _on_cuda(name: str, *tensors) -> bool:
                      f"got {sorted(str(d) for d in devices)}")
 
 
+def _k6_persistent(bsz: int, stream_dtype) -> bool:
+    """Whether K6 runs its persistent body (``csrc/bell_spmm.cu``'s
+    ``persistent_bsz``): a stored block fits its stages, bsz <= 64, and
+    float64's 32-index ring, bsz <= 32; past that it runs K3's band
+    body."""
+    return bsz <= (32 if stream_dtype == torch.float64 else 64)
+
+
 def _kind(stream_dtype, split: bool) -> int:
     return _KIND_F32_SPLIT if split else _KIND[stream_dtype]
 
@@ -239,22 +248,17 @@ def _rowwise(name: str, which: str, a: BELL, b, compute_dtype, precision,
     k = b.shape[1]
     stream = compute_dtype or out_dtype
     split = _stream_mode(name, stream, precision)
-    if count is not None:
-        if stream not in _COUNTED or (which == "block" and a.bsz > 64):
-            raise ValueError(f"{name}: counts float32 and bf16 streams "
-                             "and int32 ones"
-                             f"{' at bsz <= 64' if which == 'block' else ''}"
-                             f", got {stream} at bsz {a.bsz}")
-        if not _on_cuda(name, a.blocks, a.cols, b):
-            raise ValueError(f"{name}: counts on the card only, got CPU "
-                             "tensors")
+    if count is not None and not _on_cuda(name, a.blocks, a.cols, b):
+        raise ValueError(f"{name}: counts every stream at every bsz, on the "
+                         "card only; got CPU tensors")
     if a.n == 0 or a.Lb == 0 or k == 0:
         return torch.zeros(a.n, k, dtype=out_dtype, device=b.device)
     if plain or not _on_cuda(name, a.blocks, a.cols, b):
         return _gather_einsum(a, b, stream, split).to(out_dtype)
-    # K6's persistent body rounds its bf16 sums as it stores them
+    # K6's persistent body rounds its bf16 sums as it stores them; the band
+    # body writes them in float32
     direct = (which == "block" and stream == torch.bfloat16
-              and a.bsz <= 64)
+              and _k6_persistent(a.bsz, stream))
 
     def launch(blocks, b):
         # index tensors are prepared here, where no transform wraps them
@@ -335,10 +339,10 @@ def _band_body_model(a: torch.Tensor, k: int) -> int:
 
 
 def fused_issued_model(a: BELL, k: int, *, compute_dtype=None) -> int:
-    """Host model of what K3's float32 / int32 / bf16 body issues on ``a``
-    at width ``k`` (what :func:`fused_issued_flops` should read; the bf16x3
-    split keeps exactly the float32 stream's chunks): the band body's count
-    over each block row's wide row [A_r0 | ... | A_r,Lb-1]."""
+    """Host model of what K3's body issues on ``a`` at width ``k``, in every
+    kind (what :func:`fused_issued_flops` should read; the bf16x3 split
+    keeps exactly the float32 stream's chunks): the band body's count over
+    each block row's wide row [A_r0 | ... | A_r,Lb-1]."""
     wide = a.blocks.to(compute_dtype or a.dtype).transpose(1, 2).reshape(
         a.nb, a.bsz, a.Lb * a.bsz)
     return _band_body_model(wide, k)
@@ -361,12 +365,12 @@ def _issued(name: str, which: str, a: BELL, b, compute_dtype,
 
 def fused_issued_flops(a: BELL, b, *, compute_dtype=None,
                        precision=None) -> int:
-    """Operations (two per multiply-add) that K3's float32 / int32 / bf16 /
-    bf16x3 body issues on ``a`` against ``b``, as the kernel counts them:
-    each thread block adds the chunks its zero-chunk vote kept, at their
-    full size, to a counter on the card (a bf16x3 chunk once, though it
-    issues three bf16 products).  One launch into a scratch output, outside
-    ``K3_LAUNCHES``.  CUDA tensors and float32, int32 or bf16 streams only;
+    """Operations (two per multiply-add) that K3's body issues on ``a``
+    against ``b``, as the kernel counts them: each thread block adds the
+    chunks its zero-chunk vote kept, at their full size, to a counter on
+    the card (a bf16x3 chunk once, though it issues three bf16 products).
+    One launch into a scratch output, outside ``K3_LAUNCHES``.  Every
+    stream (float32, bf16, bf16x3, float64, int32), on CUDA tensors only;
     the count is the kernel's, so there is no plain version
     (:func:`fused_issued_model` is what it should read)."""
     return _issued("fused_issued_flops", "fused", a, b, compute_dtype,
@@ -374,15 +378,18 @@ def fused_issued_flops(a: BELL, b, *, compute_dtype=None,
 
 
 def block_issued_model(a: BELL, k: int, *, stream_dtype=None) -> int:
-    """Host model of what K6's float32 / int32 / bf16 / bf16x3 body issues
-    on ``a`` at width ``k`` (what :func:`block_issued_flops` should read), in
-    operations (2 per multiply-add): for each stored block, and each 32-row
-    group of it that is not zero throughout in the stream dtype (NaN is
-    not, -0 is), its rows x bsz x k multiply-adds, so bsz * bsz * k per
-    non-zero stored block at bsz <= 32.  bf16x3 (a float32 stream) counts
-    each once, as float32 does: its three products split the same
-    multiply-adds."""
+    """Host model of what K6's body issues on ``a`` at width ``k``, in every
+    kind (what :func:`block_issued_flops` should read), in operations (2
+    per multiply-add).  On the persistent body (bsz <= 64, float64 32): for
+    each stored block, and each 32-row group of it that is not zero
+    throughout in the stream dtype (NaN is not, -0 is), its rows x bsz x k
+    multiply-adds, so bsz * bsz * k per non-zero stored block at bsz <= 32.
+    Past that K6 runs K3's band body: :func:`fused_issued_model`.  bf16x3
+    (a float32 stream) counts each once, as float32 does: its three
+    products split the same multiply-adds."""
     bsz = a.bsz
+    if not _k6_persistent(bsz, stream_dtype or a.dtype):
+        return fused_issued_model(a, k, compute_dtype=stream_dtype)
     blocks = a.blocks.to(stream_dtype or a.dtype).reshape(-1, bsz, bsz)
     kept = _nonzero_chunks(blocks, _BAND_BM, bsz)[:, :, 0]  # (blocks, groups)
     rows = (bsz - _BAND_BM * torch.arange(kept.shape[1])).clamp(max=_BAND_BM)
@@ -390,15 +397,17 @@ def block_issued_model(a: BELL, k: int, *, stream_dtype=None) -> int:
 
 
 def block_issued_flops(a: BELL, b, *, precision=None) -> int:
-    """Operations (two per multiply-add) that K6's float32 / int32 / bf16 /
-    bf16x3 body issues on ``a`` against ``b``, as the kernel counts them:
-    each thread block adds, for every stored block its vote kept, the
-    multiply-adds of its tile's rows and columns, to a counter on the card
-    (a bf16x3 block once).  One launch into a scratch output, outside
-    ``K6_LAUNCHES``.  CUDA tensors, float32, int32 or bf16 streams and bsz
-    <= 64 only (``precision="bf16x3"`` splits a float32 one); the count is the
-    kernel's, so there is no plain version (:func:`block_issued_model` is
-    what it should read)."""
+    """Operations (two per multiply-add) that K6's body issues on ``a``
+    against ``b``, as the kernel counts them: on the persistent body (bsz
+    <= 64, float64 32) each thread block adds, for every stored block its
+    vote kept, the multiply-adds of its tile's rows and columns, to a
+    counter on the card (a bf16x3 block once); past that, K3's band body's
+    count (:func:`fused_issued_flops`).
+    One launch into a scratch output, outside ``K6_LAUNCHES``.  Every stream
+    (float32, bf16, float64, int32; ``precision="bf16x3"`` splits a float32
+    one) at every bsz, on CUDA tensors only; the count is the kernel's, so
+    there is no plain version (:func:`block_issued_model` is what it should
+    read)."""
     return _issued("block_issued_flops", "block", a, b, None, precision)
 
 

@@ -172,10 +172,14 @@ def test_banded_plan_fallbacks_match_reference():
 # -- the kernels' plain versions against the reference kernels ----------------
 
 
+# bsz 80: past the persistent body's 64, where K6 runs K3's band body on
+# the card; these hold the plain versions the card tests compare it with
 @pytest.mark.parametrize("n,bsz,k,dtype", [
     (32, 8, 128, np.float32),
     (64, 16, 8, np.float64),
     (36, 4, 1, np.float32),
+    (160, 80, 33, np.float32),
+    (160, 80, 33, np.float64),
 ])
 def test_k6_block_matches_reference(n, bsz, k, dtype):
     x, ja, ta = scattered(n // bsz, bsz, 0.4, seed=n + k, dtype=dtype)
@@ -194,6 +198,8 @@ def test_k6_block_matches_reference(n, bsz, k, dtype):
     (32, 8, 128, np.float32, None),
     (64, 16, 32, np.float64, None),
     (32, 8, 128, np.float32, "bfloat16"),
+    (160, 80, 33, np.float32, None),
+    (160, 80, 33, np.float64, None),
 ])
 def test_k3_fused_matches_reference(n, bsz, k, dtype, compute):
     x, ja, ta = scattered(n // bsz, bsz, 0.4, seed=n * 2 + k, dtype=dtype)

@@ -337,12 +337,11 @@ TIERS = {"f32": (torch.float32, None, None),
          "bf16in": (torch.bfloat16, None, None)}
 
 
-# K3's float32, bf16 and bf16x3 streams run the band body (32 x 128
-# blocks, the zero-chunk vote; bf16x3 as three bf16 mma.sync products),
-# K6's float32, bf16 and bf16x3 the persistent body (one block row x 128
-# columns per tile, a vote per stored block; bf16x3 on the same split),
-# both with their issued-work counters; K3's and K6's float64 the first
-# body.
+# Every stream of K3 runs the band body (32 x 128 blocks, the zero-chunk
+# vote; bf16x3 as three bf16 mma.sync products, float64 on DMMA), every
+# stream of K6 the persistent body (one block row x 128 columns per tile,
+# a vote per stored block; bf16x3 on the same split, float64 on the same
+# DMMA chunks), both with their issued-work counters.
 # Shapes:
 # bsz 3 and 33 (element copies, ragged 32-row blocks), 8, 24 (a 32-index
 # chunk spans two blocks), 32 (a chunk is a block), 64 (two row blocks per
@@ -371,20 +370,19 @@ def test_k3_k6_match_plain_at_odd_shapes(cuda, nb, bsz, hb, k, values, tier):
     _check_values(got, tcb.bell_spmm_fused_plain(a, b, compute_dtype=cd,
                                                  precision=prec), bound, dt,
                   values)
-    if tier != "f64":  # the band body's own count (bf16x3: float32's)
-        issued = tcb.fused_issued_flops(a, b, compute_dtype=cd,
-                                        precision=prec)
-        assert issued == tcb.fused_issued_model(a, k, compute_dtype=cd or dt)
-        if values == "lone":
-            assert issued == 2 * 32 * 32 * 128 * -(-k // 128)
+    # the band body's own count (bf16x3: float32's)
+    issued = tcb.fused_issued_flops(a, b, compute_dtype=cd, precision=prec)
+    assert issued == tcb.fused_issued_model(a, k, compute_dtype=cd or dt)
+    if values == "lone":
+        assert issued == 2 * 32 * 32 * 128 * -(-k // 128)
     if cd is None:  # K6 streams at the result dtype
         got = _twice(lambda: tcb.bell_spmm_block(a, b, precision=prec),
                      "K6_LAUNCHES")
         assert got.dtype == dt
         _check_values(got, tcb.bell_spmm_block_plain(a, b, precision=prec),
                       bound, dt, values)
-    if tier in ("f32", "bf16in", "bf16x3"):  # K6's persistent body counts
-        before = tcb.K6_LAUNCHES             # its work (bf16x3: float32's)
+    if cd is None:  # K6's persistent body counts its work (bf16x3:
+        before = tcb.K6_LAUNCHES  # float32's)
         issued = tcb.block_issued_flops(a, b, precision=prec)
         assert tcb.K6_LAUNCHES == before
         assert issued == tcb.block_issued_model(a, k)
@@ -544,7 +542,8 @@ def test_k4_nan_in_a_propagates(cuda, stream):
 @pytest.mark.parametrize("kernel,tier", [
     (kn, t) for kn in ("K3", "K4") for t in ("f32", "bf16", "bf16x3")] + [
     ("K5", t) for t in ("f32", "bf16", "bf16x3", "f64")] + [
-    ("K4", "f64"), ("K6", "bf16x3")])
+    ("K4", "f64"), ("K6", "bf16x3"), ("K3", "f64"), ("K6", "f64"),
+    ("K6", "f32"), ("K6", "bf16")])
 def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
                                                            tier):
     """Inf and NaN in operand panel 0, which block rows 0 and 1 store: K3's
@@ -553,9 +552,11 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
     window) and K5's (block rows 2 and 3's slices of tile 0, whose window
     starts at panel 0) sit opposite them, so the vote or the chunk mask
     skips them and those rows are the sparse product, finite; block rows 0
-    and 1 carry the Inf and NaN.  K4 and K5 give it in every kind, float64
-    too, and K6 in bf16x3 (its persistent body)."""
+    and 1 carry the Inf and NaN.  Every kernel gives it in every kind,
+    float64 too (K6 streams at the result dtype: its bf16 case takes bf16
+    blocks and operand)."""
     dt, cd, prec = TIERS[tier]
+    tol_dt = dt
     a, ok = _band_bell(12, 32, 1, 8, dt, cuda, empty=(6,))
     b = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (a.n, 40))).to(dt).to(cuda)
@@ -568,9 +569,13 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
                      "K3_LAUNCHES")
         want = tcb.bell_spmm_fused_plain(a, b, **kw)
     elif kernel == "K6":
+        if cd is not None:  # bf16 blocks and operand, a bf16 result
+            a = BELL(cols=a.cols, blocks=a.blocks.to(cd), n=a.n, bsz=a.bsz)
+            b, b_inf, tol_dt = b.to(cd), b_inf.to(cd), cd
         got = _twice(lambda: tcb.bell_spmm_block(a, b_inf, precision=prec),
                      "K6_LAUNCHES")
         want = tcb.bell_spmm_block_plain(a, b, precision=prec)
+        assert got.dtype == want.dtype == b.dtype
     elif kernel == "K5":
         kit = tcb.bell_banded_prepare_t(a, compute_dtype=cd, slot_valid=ok)
         assert int(kit.plan.start[0]) == 0
@@ -591,7 +596,7 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
     hit[:64, [5, 9]] = True  # block rows 0 and 1 against the Inf and NaN
     assert not bool(torch.isfinite(got[hit]).any())
     _check_spmm(got[~hit], want[~hit],
-                _spmm_bound(a, b, cd or dt)[~hit], dt)
+                _spmm_bound(a, b, cd or dt)[~hit], tol_dt)
 
 
 @pytest.mark.parametrize("stream", ["f32", "bf16", "f64"])
@@ -1449,30 +1454,86 @@ def test_k3_k6_int32_at_odd_shapes(cuda, nb, bsz, hb, k, values):
         assert tcb.block_issued_flops(a, b) == 0
 
 
-@pytest.mark.parametrize("kind", ["int32", "f32"])
+@pytest.mark.parametrize("kind", ["int32", "f32", "bf16", "bf16x3", "f64"])
 @pytest.mark.parametrize("k", [33, 128])
 def test_k6_past_bsz64(cuda, k, kind):
-    """K6 at bsz 80 (past the persistent body's 64: the first body) in
-    int32 and float32, against its plain version (int32: equal, and NumPy
-    modulo 2^32)."""
+    """K6 at bsz 80 (past the persistent body's 64: K3's band body on the
+    wide row, whose 32-index chunks straddle the stored blocks) in every
+    kind, against its plain version (int32: equal, and NumPy modulo 2^32;
+    bf16: bf16 blocks and operand, both sides rounding a float32 sum to the
+    bf16 result once), each in the first body's result dtype, with the
+    multiply-adds its vote kept (K3's chunk model over the wide row)."""
     nb, bsz = 12, 80
+    prec = "bf16x3" if kind == "bf16x3" else None
     if kind == "int32":
         a, _, blocks64 = _int_bell(nb, bsz, 1, k, cuda, empty=(5,))
         b = torch.from_numpy(_ints(np.random.default_rng(k), (a.n, k))).to(
             cuda)
     else:
-        a, _ = _band_bell(nb, bsz, 1, k, torch.float32, cuda, empty=(5,))
+        dt = {"f64": torch.float64, "bf16": torch.bfloat16}.get(
+            kind, torch.float32)
+        a, _ = _band_bell(nb, bsz, 1, k, dt, cuda, empty=(5,))
         b = torch.from_numpy(np.random.default_rng(k).standard_normal(
-            (a.n, k))).float().to(cuda)
-    got = _twice(lambda: tcb.bell_spmm_block(a, b), "K6_LAUNCHES")
-    plain = tcb.bell_spmm_block_plain(a, b)
+            (a.n, k))).to(dt).to(cuda)
+    got = _twice(lambda: tcb.bell_spmm_block(a, b, precision=prec),
+                 "K6_LAUNCHES")
+    plain = tcb.bell_spmm_block_plain(a, b, precision=prec)
+    assert got.dtype == plain.dtype == b.dtype
     if kind == "int32":
-        assert got.dtype == torch.int32 and torch.equal(got, plain)
+        assert torch.equal(got, plain)
         np.testing.assert_array_equal(_np(got), _int_spmm_want(a, blocks64,
                                                                b))
     else:
-        _check_spmm(got, plain, _spmm_bound(a, b, torch.float32),
-                    torch.float32)
+        _check_spmm(got, plain, _spmm_bound(a, b, b.dtype), b.dtype)
+    model = tcb.block_issued_model(a, k)
+    assert model == tcb.fused_issued_model(a, k) > 0
+    before = tcb.K6_LAUNCHES
+    assert tcb.block_issued_flops(a, b, precision=prec) == model
+    assert tcb.K6_LAUNCHES == before
+
+
+# float64 on the vote bodies: K3 on the band body (a 32-index chunk spans
+# two blocks at bsz 24 and 33, a block has ragged 32-row groups at bsz 3
+# and 33), K6 on the persistent body at bsz 3 and 24 and on K3's band body
+# at bsz 33 and 64 (past the float64 persistent body's 32); element copies
+# at bsz 3 and 33 and at k 1 and 33, 16-byte copies (two doubles) at bsz
+# 24 and 64 with k 128.
+@pytest.mark.parametrize("k", [1, 33, 128])
+@pytest.mark.parametrize("bsz", [3, 24, 33, 64])
+def test_k3_k6_float64_on_the_vote_bodies(cuda, bsz, k):
+    """K3 and K6 in float64 with all-zero stored blocks (every third row's
+    second slot, besides the padding slots) and a NaN stored in A: twice,
+    bitwise equal, launched each time; NaN exactly where the plain version
+    has it, the rest within 1e-12 |A||B|; each body's issued work equal to
+    its host model, which counts no all-zero block."""
+    nb = 20
+    a, _ = _band_bell(nb, bsz, 2, bsz + k, torch.float64, cuda,
+                      empty=(nb // 2,))
+    blocks = a.blocks.clone()
+    blocks[::3, 1] = 0.0
+    blocks[4, 2, bsz - 1, bsz // 2] = float("nan")
+    a = BELL(cols=a.cols, blocks=blocks, n=a.n, bsz=bsz)
+    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).to(cuda)
+    bound = _spmm_bound(a, b, torch.float64)
+    for kname, kern, plain, issued, model in (
+            ("K3", tcb.bell_spmm_fused, tcb.bell_spmm_fused_plain,
+             tcb.fused_issued_flops, tcb.fused_issued_model),
+            ("K6", tcb.bell_spmm_block, tcb.bell_spmm_block_plain,
+             tcb.block_issued_flops, tcb.block_issued_model)):
+        got = _twice(lambda: kern(a, b), f"{kname}_LAUNCHES")
+        assert got.dtype == torch.float64
+        _check_values(got, plain(a, b), bound, torch.float64, "nan")
+        assert issued(a, b) == model(a, k)
+        dense = a.blocks.clone()
+        dense[::3, 1] = 1.0  # the same band with no all-zero stored block
+        full = model(BELL(cols=a.cols, blocks=dense, n=a.n, bsz=bsz), k)
+        # the band body skips a zero block's chunks only where no chunk
+        # straddles it; the persistent body (K6 at bsz <= 32) every block
+        if bsz % 32 == 0 or (kname == "K6" and bsz <= 32):
+            assert model(a, k) < full
+        else:
+            assert model(a, k) <= full
 
 
 @pytest.mark.parametrize("k", [1, 33, 128, 200])

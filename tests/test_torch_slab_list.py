@@ -298,13 +298,34 @@ def test_k6_issued_model_by_hand(bsz):
     assert tbl.block_issued_model(a, k, stream_dtype=torch.bfloat16) == want
 
 
+def test_k6_issued_model_past_bsz64_is_the_band_bodys():
+    """Past bsz 64 K6 runs K3's band body on the wide row, so its model is
+    K3's: one 32 x 32 x 128 product for each 32 x 32 chunk of a block
+    row's wide row [A_r0 | A_r1] (rows 32, 32 and 16 at bsz 80; columns
+    0-31, 32-63, 64-95 (straddling the two blocks), 96-127, 128-159) that
+    holds a non-zero (NaN does, -0 does not)."""
+    bsz, k = 80, 70
+    blocks = np.zeros((3, 2, bsz, bsz), np.float32)
+    blocks[0, 0, 0, 0] = 1.0    # chunk (0, 0)
+    blocks[0, 1] = 2.0          # 3 row chunks x column chunks 2, 3, 4
+    blocks[1, 0, bsz - 1, 1] = np.nan  # chunk (2, 0)
+    blocks[1, 1] = -0.0
+    blocks[2, 0, 1, bsz - 1] = 3.0     # chunk (0, 2)
+    a = _bell([[0, 1], [1, 0], [2, 0]], blocks)
+    want = 12 * 2 * 32 * 32 * 128
+    assert tbl.block_issued_model(a, k) == want
+    assert tbl.block_issued_model(a, k, stream_dtype=torch.float64) == want
+    assert tbl.fused_issued_model(a, k) == want
+
+
 def test_k6_issued_counter_refuses_cpu_and_float64():
     blocks = np.ones((2, 1, 4, 4), np.float32)
     a = _bell([[0], [1]], blocks)
     with pytest.raises(ValueError, match="card"):
         tbl.block_issued_flops(a, torch.ones(8, 3))
+    # float64 counts too (on the card), and so does every bsz
     a64 = _bell([[0], [1]], blocks.astype(np.float64))
-    with pytest.raises(ValueError, match="float32 and bf16"):
+    with pytest.raises(ValueError, match="card"):
         tbl.block_issued_flops(a64, torch.ones(8, 3, dtype=torch.float64))
     with pytest.raises(ValueError, match="card"):
         tcb.bsr_slab_issued(torch.zeros(2, dtype=torch.int32),

@@ -19,7 +19,9 @@ Suites:
   K5): K3, K4, K5, K6 and K8 in float32, the bf16 streams of K3, K4,
   K5, K6 (bf16 blocks) and K8 with bf16 operands, the bf16x3 split of
   K3, K4, K5 and K6 (float32 operands), and K3, K4, K5, K6 and K8 in
-  float64 (float64 blocks, kits and tiles).
+  float64 (float64 blocks, kits and tiles); then K6 on the same band at bsz
+  128 (``chip_smoke.K6_WIDE_NB``: nb 3,907, n 500,096), k = 128, in
+  float32, bf16 (blocks and operand), bf16x3, int32 and float64.
 - ``slab``: the block-SpGEMM slab apply (K7) on the SpGEMM fixture
   (``benchmarks/measure_auto_block.py``'s ``C = A A``: nb 2,000, bsz 32,
   19,025 stored blocks, 181,214 block products, float32): the prepared
@@ -81,6 +83,15 @@ def bell_cases(cs):
     k8_args = {s: (cdb.densify_tiles(a, dplan, s), dplan.start, b3.to(s), nb,
                    bsz, k, dplan.W, 5, f64 if s == f64 else f32)
                for s in (f32, bf16, f64)}
+    w, _, _, gw = cs._bench_bell(cs.K6_WIDE_NB, cs.K6_WIDE_BSZ)
+    bw = torch.randn(w.n, k, device="cuda", generator=gw) * 0.01
+    wide = {dt: (BELL(cols=w.cols, blocks=w.blocks.to(dt), n=w.n, bsz=w.bsz),
+                 bw.to(dt)) for dt in (bf16, f64)}
+    wide[torch.int32] = (
+        BELL(cols=w.cols, blocks=(w.blocks * 400).round().int(), n=w.n,
+             bsz=w.bsz),
+        torch.randint(-8, 9, bw.shape, device="cuda", generator=gw,
+                      dtype=torch.int32))
     return {
         "K3": lambda: cb.bell_spmm_fused(a, b),
         "K3 bf16": lambda: cb.bell_spmm_fused(a, b_bf, compute_dtype=bf16),
@@ -105,6 +116,12 @@ def bell_cases(cs):
         "K8": lambda: cdb.dband_spmm(*k8_args[f32]),
         "K8 bf16": lambda: cdb.dband_spmm(*k8_args[bf16]),
         "K8 f64": lambda: cdb.dband_spmm(*k8_args[f64]),
+        "K6 b128": lambda: cb.bell_spmm_block(w, bw),
+        "K6 b128 bf16": lambda: cb.bell_spmm_block(*wide[bf16]),
+        "K6 b128 bf16x3": lambda: cb.bell_spmm_block(w, bw,
+                                                     precision="bf16x3"),
+        "K6 b128 i32": lambda: cb.bell_spmm_block(*wide[torch.int32]),
+        "K6 b128 f64": lambda: cb.bell_spmm_block(*wide[f64]),
     }
 
 
