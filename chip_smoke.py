@@ -107,8 +107,10 @@ DMMA tiles, K6's on its persistent body's, with their issued work; K5's on
 the chunk-mask body, with its issued work and tile bytes) on the
 80M-entry band, each beside ``BSR @ B`` in its dtype (float32 for
 bf16x3), K6 at bsz 128 in every kind (``bench.py``'s block band at nb
-3,907, where K6 runs K3's band body: its main path, plain version, SciPy,
-issued work, bound and ``BSR @ B``), the ESC and
+3,907, where K6 runs its wide-block body in bf16, bf16x3 and float64 and
+K3's band body in float32 and int32: its main path, plain version, SciPy,
+issued work, bound and ``BSR @ B``, each naming its body, and in bf16
+the kernels both sides run), the ESC and
 dense SpGEMM cores on cuts of the SpGEMM fixture, ``pcsr_spmm`` /
 ``halo_spmm_overlapped`` / ``pcsr_spgemm`` over 4 shards, and an int32
 pass exact to NumPy, and prints a ``surface`` JSON line; the kinds'
@@ -4419,18 +4421,24 @@ def _phase21_bell(paths, m, dband, card):
 #: K6 past its persistent body's stages: ``bench.py``'s block band at bsz
 #: 128 (``build_block_band(nb=3_907, bsz=128)``: n 500,096), k 128.
 K6_WIDE_NB, K6_WIDE_BSZ = 3_907, 128
+#: The source of each body K6 runs past bsz 64 (``cuda_bell._k6_body``).
+K6_BODY_SOURCE = {"wide": "sparse_tpu_torch/csrc/wide_body.cuh",
+                  "band": "sparse_tpu_torch/csrc/band_body.cuh"}
 
 
 def _phase21_k6_wide(card):
-    """K6 at bsz 128, where it runs K3's band body on the wide row, in
-    every kind on ``bench.py``'s block band at ``K6_WIDE_BSZ``: its main
-    path ``bell_spmm_block`` once with K6's launch count set to 0 just
-    before and read just after; then twice, bitwise equal, against its
-    plain version (int32: equal) and SciPy on every 64th block row (within
-    TOL, bf16x3's gate; int32: exact), its issued work against the host
+    """K6 at bsz 128 in every kind on ``bench.py``'s block band at
+    ``K6_WIDE_BSZ``, on the body ``cuda_bell._k6_body`` names: the
+    wide-block body (``csrc/wide_body.cuh``) in bf16, bf16x3 and float64,
+    K3's band body on the wide row in float32 and int32.  Its main path
+    ``bell_spmm_block`` once with K6's launch count set to 0 just before
+    and read just after; then twice, bitwise equal, against its plain
+    version (int32: equal) and SciPy on every 64th block row (within TOL,
+    bf16x3's gate; int32: exact), its issued work against its body's host
     model; timed back to back beside its plain version, its bound and
-    ``BSR @ B`` in the stream's dtype (float32 for bf16x3).  Returns
-    {kind: record}."""
+    ``BSR @ B`` in the stream's dtype (float32 for bf16x3); in bf16 a
+    ``torch.profiler`` trace names the kernels K6 and ``BSR @ B`` run.
+    Returns {kind: record}, each naming its body."""
     from sparse_tpu_torch.formats.bell import BELL
     from sparse_tpu_torch.ops import cuda_bell as cb
 
@@ -4463,7 +4471,9 @@ def _phase21_k6_wide(card):
                     TOL[f64], TOL[f64], 8, 8, f64)}
     out = {}
     for kind, (x, y, prec, tol_p, tol_s, isz, osz, bdt) in kinds.items():
-        label = f"K6 {kind} bsz {bsz} k {k} (band body, bell_spmm_block)"
+        body = cb._k6_body(bsz, k, y.dtype, prec is not None)
+        label = (f"K6 {kind} bsz {bsz} k {k} ({body} body, "
+                 "bell_spmm_block)")
 
         def kern():
             return cb.bell_spmm_block(x, y, precision=prec)
@@ -4504,9 +4514,9 @@ def _phase21_k6_wide(card):
             err_p = _gate(label, c, yp, _abs_bound(x, y, y.dtype), tol_p)
         del c, yp
         issued = check_counted(
-            f"K6 {kind} bsz {bsz}", cb.block_issued_flops(x, y,
-                                                          precision=prec),
-            cb.block_issued_model(x, k), useful)
+            f"K6 {kind} bsz {bsz} ({body} body)",
+            cb.block_issued_flops(x, y, precision=prec),
+            cb.block_issued_model(x, k, precision=prec), useful)
         ms, fastest, n = _b2b(kern)
         plain_ms = _b2b(plain)[0]
         nbytes, ops = spmm_cost(nbz, bsz, a.n, k, isz, osz)
@@ -4519,6 +4529,12 @@ def _phase21_k6_wide(card):
         else:
             lib, call = library_spmm(m, y.float() if prec else y, card,
                                      f"bsz {bsz} k {k} {str(y.dtype)[6:]}")
+        if kind == "bf16":  # the kernels each side runs, by name
+            bsr = m[("bsr", y.dtype)]  # library_spmm's
+            _apply_kernels(f"K6 bf16 bsz {bsz}", kern, forbid=())
+            _apply_kernels(f"BSR @ B bf16 bsz {bsz}", lambda: bsr @ y,
+                           forbid=())
+            del bsr
         print(f"   {label}: main path launched K6 {launches} time(s); gate "
               f"passed (max err {err:.3e}, vs plain {err_p:.3e}); {ms:.4f} "
               f"ms back to back (median of 5 windows of {n}; fastest "
@@ -4526,7 +4542,8 @@ def _phase21_k6_wide(card):
               f"ms ({b_by}), {b_ms / ms:.1%} of it; library "
               f"{'refused' if lib is None else f'{lib:.4f} ms'} ({call}) "
               f"[{card}]", flush=True)
-        out[kind] = dict(ms=ms, fastest_ms=fastest, plain_ms=plain_ms,
+        out[kind] = dict(body=body, source=K6_BODY_SOURCE[body],
+                         ms=ms, fastest_ms=fastest, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                          library_call=call, max_abs_err=err,
                          max_abs_err_vs_plain=err_p, launches=launches,

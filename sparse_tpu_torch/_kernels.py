@@ -37,7 +37,8 @@ _BUILD = _HERE / "_build"
 SOURCES = ("segtile_csr.cu", "segtile_mxu.cu", "segtile_block.cu",
            "bell_spmm.cu", "bell_banded.cu", "bsr_slab.cu")
 _HEADERS = ("segtile_common.cuh", "bell_kinds.cuh",
-            "band_body.cuh", "block_body.cuh", "sm90_async.cuh")
+            "band_body.cuh", "block_body.cuh", "wide_body.cuh",
+            "sm90_async.cuh", "sm90_tma.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -44,11 +44,19 @@
 // (int32: the same tiles in unsigned), bf16 on mma.sync, bf16x3 as three
 // bf16 mma.sync products a float32 fragment pair (band_body.cuh's
 // split_chunk), float64 on DMMA (band_body.cuh's dmma_chunk).  Past bsz 64,
-// where a stored block no longer fits the persistent body's stages (float64
-// past 32, where its ring would hold one thread block an SM), K6 runs K3's
-// band-body kernel: it computes the same C = sum_l A[r, l] @ B[cols[r, l]],
-// one 32-index chunk of the wide row at a time.
-// bell_block_issued counts the multiply-adds the vote kept.
+// where a stored block no longer fits the persistent body's stages, K6's
+// bf16, bf16x3 and float64 kinds run the wide-block body of wide_body.cuh
+// where TMA can describe the arrays (bsz and k times the element size
+// multiples of 16 bytes): one thread block an SM walks tiles of up to 128
+// rows of a block row x 128 columns (float64: 64), fed by a TMA ring on
+// mbarriers, bf16 on wgmma, bf16x3 on wgmma from B's bf16 planes with A
+// split in registers, float64 on Hopper's m16n8k8 DMMA, a vote per
+// warpgroup and 32-index slice.  The other shapes past it (float32 and
+// int32 at every bsz past 64, float64 at bsz 33-64, and shapes TMA cannot
+// describe) run K3's band-body kernel: it computes the same C = sum_l
+// A[r, l] @ B[cols[r, l]], one 32-index chunk of the wide row at a time.
+// k6_body names the rule.  bell_block_issued counts the multiply-adds the
+// vote kept.
 //
 // Behaviour: a skipped zero chunk or block never multiplies the operand, so
 // Inf or NaN in B opposite it gives the sparse product's answer (a chunk
@@ -62,6 +70,7 @@
 #include "band_body.cuh"
 #include "bell_kinds.cuh"
 #include "block_body.cuh"
+#include "wide_body.cuh"
 
 namespace {
 
@@ -202,10 +211,34 @@ cudaError_t launch_block_tiles(const void* blocks, const void* cols,
 
 // The largest bsz K6's persistent body takes in kind `kind`: a stored
 // block fits its stages (BK <= 64); float64's ring at BK 64 would hold one
-// thread block an SM (192 KB), so float64 takes BK 32 only.  Past it K6
-// runs K3's band body.
+// thread block an SM (192 KB), so float64 takes BK 32 only.
 constexpr long long persistent_bsz(int kind) {
   return kind == bell::kF64 ? 32 : 64;
+}
+
+// The element bytes of the kinds the wide-block body takes (bf16, bf16x3's
+// float32, float64); 0 for the others.
+constexpr long long wide_elem(int kind) {
+  return kind == bell::kBF16 ? 2
+         : kind == bell::kF32Split ? 4
+         : kind == bell::kF64 ? 8
+                               : 0;
+}
+
+// K6's body for kind `kind` at (bsz, k): the persistent body up to
+// persistent_bsz; past bsz 64 the wide-block body for the kinds it takes
+// where a TMA map can describe the arrays (bsz and k times the element size
+// multiples of 16 bytes); else K3's band body.  The rule reads shapes and
+// the kind only (ops/cuda_bell.py's _k6_body mirrors it); the wrapper makes
+// the wide body's arrays 16-byte aligned.
+enum K6Body { kPersistentBody = 0, kWideBody = 1, kBandBody = 2 };
+constexpr K6Body k6_body(int kind, long long bsz, long long k) {
+  return bsz <= persistent_bsz(kind) ? kPersistentBody
+         : bsz > 64 && wide_elem(kind) > 0 &&
+                 bsz * wide_elem(kind) % 16 == 0 &&
+                 k * wide_elem(kind) % 16 == 0
+             ? kWideBody
+             : kBandBody;
 }
 
 // The persistent K6 body's kinds, float32, bf16, bf16x3, float64 and
@@ -266,6 +299,102 @@ cudaError_t block_body_kinds(int kind, const void* blocks, const void* cols,
   }
 }
 
+// K6's wide-block body: blocks (nb, Lb, bsz, bsz), b (nb*bsz, k) in the
+// stream kind S's element type, C (nb*bsz, k) in wide::Cfg<S>::Out (bf16,
+// float32 for bf16x3, float64).
+template <typename S>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    wide_block_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const int* __restrict__ cols,
+                      typename wide::Cfg<S>::Out* __restrict__ c, int Lb,
+                      int bsz, int k, int tiles,
+                      unsigned long long* __restrict__ issued) {
+  wide::run<S>(&map_a, &map_b, cols, c, Lb, bsz, k, tiles, issued);
+}
+
+// Shapes the body cannot take return cudaErrorInvalidValue (bsz or k times
+// the element size not a multiple of 16 bytes, a pointer not 16-byte
+// aligned, more than 2^31 - 1 slots or tiles); a tensor map the driver
+// refuses returns cudaErrorNotSupported.  Nothing falls back.
+template <typename S>
+cudaError_t launch_wide(const void* blocks, const void* cols, const void* b,
+                        void* c, long long nb, long long Lb, long long bsz,
+                        long long k, unsigned long long* issued,
+                        void* stream) {
+  using Cf = wide::Cfg<S>;
+  using G = wide::Geo<S>;
+  constexpr long long kMax = 0x7fffffffLL;
+  constexpr long long E = sizeof(typename Cf::T);
+  if (nb <= 0 || Lb <= 0 || bsz <= 0 || k <= 0) return cudaSuccess;
+  const long long tiles = nb * ((bsz + wide::kBM - 1) / wide::kBM) *
+                          ((k + Cf::kBN - 1) / Cf::kBN);
+  if (bsz * E % 16 || k * E % 16 || !band::aligned16(blocks) ||
+      !band::aligned16(b) || !band::aligned16(c) || nb * Lb > kMax ||
+      tiles > kMax || bsz * k > kMax)
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  if (!sm90::encode_3d(&map_a, Cf::kType, E, blocks, bsz, bsz, nb * Lb,
+                       G::kRow, wide::kBM) ||
+      !sm90::encode_3d(&map_b, Cf::kType, E, b, k, bsz, nb, G::kRow,
+                       Cf::kKC))
+    return cudaErrorNotSupported;
+  auto kern = wide_block_kernel<S>;
+  cudaError_t rc = band::allow_smem<G::kBytes>(kern);
+  if (rc != cudaSuccess) return rc;
+  int dev = 0, sms = 0;
+  rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return rc;
+  kern<<<static_cast<unsigned>(tiles < sms ? tiles : sms), wide::kThreads,
+         G::kBytes, static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_b, static_cast<const int*>(cols),
+      static_cast<typename Cf::Out*>(c), static_cast<int>(Lb),
+      static_cast<int>(bsz), static_cast<int>(k), static_cast<int>(tiles),
+      issued);
+  return cudaGetLastError();
+}
+
+// The wide-block body's kinds: bf16, bf16x3 and float64; counter may be
+// null.  Other kinds return cudaErrorInvalidValue.
+cudaError_t wide_body_kinds(int kind, const void* blocks, const void* cols,
+                            const void* b, void* c, long long nb,
+                            long long Lb, long long bsz, long long k,
+                            unsigned long long* issued, void* stream) {
+  switch (kind) {
+    case bell::kBF16:
+      return launch_wide<__nv_bfloat16>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                        issued, stream);
+    case bell::kF32Split:
+      return launch_wide<band::Split>(blocks, cols, b, c, nb, Lb, bsz, k,
+                                      issued, stream);
+    case bell::kF64:
+      return launch_wide<double>(blocks, cols, b, c, nb, Lb, bsz, k, issued,
+                                 stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K6 on the body k6_body names; counter may be null.
+cudaError_t block_kinds(int kind, const void* blocks, const void* cols,
+                        const void* b, void* c, long long nb, long long Lb,
+                        long long bsz, long long k,
+                        unsigned long long* issued, void* stream) {
+  switch (k6_body(kind, bsz, k)) {
+    case kPersistentBody:
+      return block_body_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k,
+                              issued, stream);
+    case kWideBody:
+      return wide_body_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k,
+                             issued, stream);
+    default:
+      return fused_band_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k,
+                              issued, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -294,35 +423,32 @@ int bell_fused_issued(int kind, const void* blocks, const void* cols,
                           static_cast<unsigned long long*>(issued), stream);
 }
 
-// K6, bell_fused's arguments.  Up to persistent_bsz (64; float64 32) every
-// kind runs the persistent body, whose bf16 kind writes a bf16 C (the
-// result's dtype); past it K3's band-body kernel, whose bf16 kind writes a
+// K6, bell_fused's arguments, on the body k6_body names.  Up to
+// persistent_bsz (64; float64 32) every kind runs the persistent body, whose
+// bf16 kind writes a bf16 C (the result's dtype); past it bf16, bf16x3 and
+// float64 run the wide-block body where TMA can describe the arrays (bf16
+// writes bf16 C), the rest K3's band-body kernel, whose bf16 kind writes a
 // float32 C.  float32 and bf16x3 write float32, float64 float64, int32
 // int32.
 int bell_block(int kind, const void* blocks, const void* cols, const void* b,
                void* c, long long nb, long long Lb, long long bsz,
                long long k, void* stream) {
-  if (bsz <= persistent_bsz(kind))
-    return block_body_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k,
-                            nullptr, stream);
-  return fused_band_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k, nullptr,
-                          stream);
+  return block_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k, nullptr,
+                     stream);
 }
 
 // bell_block, also adding to *issued (on the card, zeroed by the caller) the
 // multiply-adds its body's vote kept: on the persistent body rows x bsz x
-// columns of a tile for each stored block it kept there, past
-// persistent_bsz bell_fused_issued's count (once for bf16x3).
+// columns of a tile for each stored block it kept there; on the wide-block
+// body a warpgroup's useful rows x a 32-index slice's useful indices x the
+// tile's useful columns for each slice it kept; on K3's band body
+// bell_fused_issued's count (each once for bf16x3).
 int bell_block_issued(int kind, const void* blocks, const void* cols,
                       const void* b, void* c, long long nb, long long Lb,
                       long long bsz, long long k, void* issued,
                       void* stream) {
-  auto* counter = static_cast<unsigned long long*>(issued);
-  if (bsz <= persistent_bsz(kind))
-    return block_body_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k,
-                            counter, stream);
-  return fused_band_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k, counter,
-                          stream);
+  return block_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k,
+                     static_cast<unsigned long long*>(issued), stream);
 }
 
 }  // extern "C"

@@ -30,11 +30,16 @@ K4 and K5 read ``start`` and ignore them.
 Every stream of K3, K4 (and K8) and K5 skips the band's all-zero 32 x 32
 chunks: K3 and K4 by a vote inside the kernel on what they read, K5 by the
 kit's chunk mask (:attr:`BandedKitT.chunk_nz`, built once with the kit),
-so it does not read them.  Every stream of K6 skips a padding slot's zero
-block by a vote per stored block on its persistent body, at bsz <= 64
-(float64: 32); past that K6 runs K3's kernel on the wide row and skips
-its all-zero 32 x 32 chunks, so where bsz is not a multiple of 32 a chunk
-that straddles a stored block and a padding block is multiplied whole.
+so it does not read them.  K6 runs one of three bodies (:func:`_k6_body`,
+mirroring ``csrc/bell_spmm.cu``'s ``k6_body``): every stream at bsz <= 64
+(float64: 32) its persistent body, which skips a padding slot's zero block
+by a vote per stored block; past bsz 64 its bf16, bf16x3 and float64
+streams the wide-block body (``csrc/wide_body.cuh``: 128-row tiles fed by
+a TMA ring, bf16 on ``wgmma``), which votes per 64 rows and 32-index slice
+of a stored block, where bsz and k times the element size are multiples of
+16 bytes; the other shapes K3's kernel on the wide row, which skips its
+all-zero 32 x 32 chunks, so where bsz is not a multiple of 32 a chunk that
+straddles a stored block and a padding block is multiplied whole.
 A skipped chunk or block never meets the operand: an Inf or NaN in B
 opposite it gives the sparse answer (as SciPy and ``BSR @ B`` do), where
 the reference's dense product gives NaN.  Each has an issued-work counter
@@ -205,16 +210,33 @@ def _on_cuda(name: str, *tensors) -> bool:
                      f"got {sorted(str(d) for d in devices)}")
 
 
-def _k6_persistent(bsz: int, stream_dtype) -> bool:
-    """Whether K6 runs its persistent body (``csrc/bell_spmm.cu``'s
-    ``persistent_bsz``): a stored block fits its stages, bsz <= 64, and
-    float64's 32-index ring, bsz <= 32; past that it runs K3's band
-    body."""
-    return bsz <= (32 if stream_dtype == torch.float64 else 64)
+# element bytes of the streams K6's wide-block body takes (bf16x3: float32)
+_WIDE_ELEM = {torch.bfloat16: 2, torch.float64: 8}
+
+
+def _k6_body(bsz: int, k: int, stream_dtype, split: bool = False) -> str:
+    """The body K6 runs (``csrc/bell_spmm.cu``'s ``k6_body``): at bsz <= 64
+    (float64: 32, its ring's stages) ``"persistent"``; past bsz 64 the bf16,
+    bf16x3 (``split``, a float32 stream) and float64 streams ``"wide"``
+    where a TMA map can describe the arrays (bsz and k times the element
+    size multiples of 16 bytes); every other shape ``"band"``, K3's band
+    body.  Reads the shapes and the stream only."""
+    if bsz <= (32 if stream_dtype == torch.float64 else 64):
+        return "persistent"
+    elem = 4 if split else _WIDE_ELEM.get(stream_dtype, 0)
+    if elem and bsz > 64 and bsz * elem % 16 == 0 and k * elem % 16 == 0:
+        return "wide"
+    return "band"
 
 
 def _kind(stream_dtype, split: bool) -> int:
     return _KIND_F32_SPLIT if split else _KIND[stream_dtype]
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start 16-byte
+    aligned (a contiguous view into a larger tensor)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(name: str, fn, *args, device) -> None:
@@ -255,10 +277,10 @@ def _rowwise(name: str, which: str, a: BELL, b, compute_dtype, precision,
         return torch.zeros(a.n, k, dtype=out_dtype, device=b.device)
     if plain or not _on_cuda(name, a.blocks, a.cols, b):
         return _gather_einsum(a, b, stream, split).to(out_dtype)
-    # K6's persistent body rounds its bf16 sums as it stores them; the band
-    # body writes them in float32
-    direct = (which == "block" and stream == torch.bfloat16
-              and _k6_persistent(a.bsz, stream))
+    body = _k6_body(a.bsz, k, stream, split) if which == "block" else "band"
+    # K6's persistent and wide-block bodies round their bf16 sums as they
+    # store them; the band body writes them in float32
+    direct = stream == torch.bfloat16 and body != "band"
 
     def launch(blocks, b):
         # index tensors are prepared here, where no transform wraps them
@@ -266,6 +288,8 @@ def _rowwise(name: str, which: str, a: BELL, b, compute_dtype, precision,
         cols = a.cols.to(torch.int32).contiguous()
         blocks = blocks.to(stream).contiguous()
         bs = b.to(stream).contiguous()
+        if body == "wide":  # its tensor maps take 16-byte aligned bases
+            blocks, bs = _aligned16(blocks), _aligned16(bs)
         out = torch.empty(a.n, k, dtype=stream if direct
                           else _acc_dtype(stream), device=b.device)
         lib = _kernels.load()
@@ -377,20 +401,42 @@ def fused_issued_flops(a: BELL, b, *, compute_dtype=None,
                    precision)
 
 
-def block_issued_model(a: BELL, k: int, *, stream_dtype=None) -> int:
+def _wide_body_model(blocks: torch.Tensor, k: int) -> int:
+    """Operations (2 per multiply-add) that K6's wide-block body issues on
+    the stored blocks (n, bsz, bsz) at width ``k``: for each 64-row group
+    and 32-index slice of a block that is not zero throughout (NaN is not,
+    -0 is), its rows x indices x k multiply-adds, so bsz * bsz * k per
+    non-zero stored block."""
+    bsz = blocks.shape[-1]
+    kept = _nonzero_chunks(blocks, 64, _BAND_BK).cpu()
+    rows = (bsz - 64 * torch.arange(kept.shape[1])).clamp(max=64)
+    idx = (bsz - _BAND_BK * torch.arange(kept.shape[2])).clamp(max=_BAND_BK)
+    return 2 * int((kept * rows[:, None] * idx[None, :]).sum()) * k
+
+
+def block_issued_model(a: BELL, k: int, *, stream_dtype=None,
+                       precision=None) -> int:
     """Host model of what K6's body issues on ``a`` at width ``k``, in every
     kind (what :func:`block_issued_flops` should read), in operations (2
-    per multiply-add).  On the persistent body (bsz <= 64, float64 32): for
-    each stored block, and each 32-row group of it that is not zero
-    throughout in the stream dtype (NaN is not, -0 is), its rows x bsz x k
-    multiply-adds, so bsz * bsz * k per non-zero stored block at bsz <= 32.
-    Past that K6 runs K3's band body: :func:`fused_issued_model`.  bf16x3
-    (a float32 stream) counts each once, as float32 does: its three
-    products split the same multiply-adds."""
+    per multiply-add), on the body :func:`_k6_body` names for the stream
+    (``precision="bf16x3"`` with a float32 one is the split kind).  On the
+    persistent body (bsz <= 64, float64 32): for each stored block, and
+    each 32-row group of it that is not zero throughout in the stream dtype
+    (NaN is not, -0 is), its rows x bsz x k multiply-adds, so bsz * bsz * k
+    per non-zero stored block at bsz <= 32.  On the wide-block body: the
+    same for each 64-row group and 32-index slice (:func:`_wide_body_model`).
+    On K3's band body: :func:`fused_issued_model`.  bf16x3 (a float32
+    stream) counts each once, as float32 does: its three products split the
+    same multiply-adds."""
     bsz = a.bsz
-    if not _k6_persistent(bsz, stream_dtype or a.dtype):
+    stream = stream_dtype or a.dtype
+    split = _stream_mode("block_issued_model", stream, precision)
+    body = _k6_body(bsz, k, stream, split)
+    if body == "band":
         return fused_issued_model(a, k, compute_dtype=stream_dtype)
-    blocks = a.blocks.to(stream_dtype or a.dtype).reshape(-1, bsz, bsz)
+    blocks = a.blocks.to(stream).reshape(-1, bsz, bsz)
+    if body == "wide":
+        return _wide_body_model(blocks, k)
     kept = _nonzero_chunks(blocks, _BAND_BM, bsz)[:, :, 0]  # (blocks, groups)
     rows = (bsz - _BAND_BM * torch.arange(kept.shape[1])).clamp(max=_BAND_BM)
     return 2 * int((kept.cpu() * rows).sum()) * bsz * k
@@ -401,8 +447,10 @@ def block_issued_flops(a: BELL, b, *, precision=None) -> int:
     against ``b``, as the kernel counts them: on the persistent body (bsz
     <= 64, float64 32) each thread block adds, for every stored block its
     vote kept, the multiply-adds of its tile's rows and columns, to a
-    counter on the card (a bf16x3 block once); past that, K3's band body's
-    count (:func:`fused_issued_flops`).
+    counter on the card (a bf16x3 block once); on the wide-block body each
+    warpgroup, for every 32-index slice its vote kept, its useful rows x
+    the slice's useful indices x the tile's useful columns; on K3's band
+    body, that body's count (:func:`fused_issued_flops`).
     One launch into a scratch output, outside ``K6_LAUNCHES``.  Every stream
     (float32, bf16, float64, int32; ``precision="bf16x3"`` splits a float32
     one) at every bsz, on CUDA tensors only; the count is the kernel's, so

@@ -173,13 +173,19 @@ def test_banded_plan_fallbacks_match_reference():
 
 
 # bsz 80: past the persistent body's 64, where K6 runs K3's band body on
-# the card; these hold the plain versions the card tests compare it with
+# the card (at k 33); bsz 128 (one 128-row tile) and 192 (two, the second
+# ragged) at k 16, where its float64 kind runs the wide-block body; these
+# hold the plain versions the card tests compare the kernels with
 @pytest.mark.parametrize("n,bsz,k,dtype", [
     (32, 8, 128, np.float32),
     (64, 16, 8, np.float64),
     (36, 4, 1, np.float32),
     (160, 80, 33, np.float32),
     (160, 80, 33, np.float64),
+    (384, 128, 16, np.float32),
+    (384, 128, 16, np.float64),
+    (384, 192, 16, np.float32),
+    (384, 192, 16, np.float64),
 ])
 def test_k6_block_matches_reference(n, bsz, k, dtype):
     x, ja, ta = scattered(n // bsz, bsz, 0.4, seed=n + k, dtype=dtype)

@@ -543,7 +543,8 @@ def test_k4_nan_in_a_propagates(cuda, stream):
     (kn, t) for kn in ("K3", "K4") for t in ("f32", "bf16", "bf16x3")] + [
     ("K5", t) for t in ("f32", "bf16", "bf16x3", "f64")] + [
     ("K4", "f64"), ("K6", "bf16x3"), ("K3", "f64"), ("K6", "f64"),
-    ("K6", "f32"), ("K6", "bf16")])
+    ("K6", "f32"), ("K6", "bf16")] + [
+    ("K6-wide", t) for t in ("bf16", "bf16x3", "f64")])
 def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
                                                            tier):
     """Inf and NaN in operand panel 0, which block rows 0 and 1 store: K3's
@@ -554,10 +555,17 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
     skips them and those rows are the sparse product, finite; block rows 0
     and 1 carry the Inf and NaN.  Every kernel gives it in every kind,
     float64 too (K6 streams at the result dtype: its bf16 case takes bf16
-    blocks and operand)."""
+    blocks and operand).  ``K6-wide`` is K6 at bsz 128 on its wide-block
+    body (5 block rows, row 3 empty): its vote skips each 32-index slice of
+    a padding block."""
     dt, cd, prec = TIERS[tier]
     tol_dt = dt
-    a, ok = _band_bell(12, 32, 1, 8, dt, cuda, empty=(6,))
+    wide = kernel == "K6-wide"
+    bsz = 128 if wide else 32
+    if wide:
+        a, ok = _band_bell(5, bsz, 1, 8, dt, cuda, empty=(3,))
+    else:
+        a, ok = _band_bell(12, bsz, 1, 8, dt, cuda, empty=(6,))
     b = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (a.n, 40))).to(dt).to(cuda)
     b_inf = b.clone()
@@ -568,10 +576,12 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
         got = _twice(lambda: tcb.bell_spmm_fused(a, b_inf, **kw),
                      "K3_LAUNCHES")
         want = tcb.bell_spmm_fused_plain(a, b, **kw)
-    elif kernel == "K6":
+    elif kernel in ("K6", "K6-wide"):
         if cd is not None:  # bf16 blocks and operand, a bf16 result
             a = BELL(cols=a.cols, blocks=a.blocks.to(cd), n=a.n, bsz=a.bsz)
             b, b_inf, tol_dt = b.to(cd), b_inf.to(cd), cd
+        assert (tcb._k6_body(bsz, 40, b.dtype, prec is not None) == "wide"
+                ) == wide
         got = _twice(lambda: tcb.bell_spmm_block(a, b_inf, precision=prec),
                      "K6_LAUNCHES")
         want = tcb.bell_spmm_block_plain(a, b, precision=prec)
@@ -593,7 +603,7 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
                      "K4_LAUNCHES")
         want = tcb.bell_spmm_banded_plain(a, b, kit.plan, **kw)
     hit = torch.zeros_like(got, dtype=torch.bool)
-    hit[:64, [5, 9]] = True  # block rows 0 and 1 against the Inf and NaN
+    hit[:2 * bsz, [5, 9]] = True  # block rows 0 and 1 against Inf and NaN
     assert not bool(torch.isfinite(got[hit]).any())
     _check_spmm(got[~hit], want[~hit],
                 _spmm_bound(a, b, cd or dt)[~hit], tol_dt)
@@ -1457,12 +1467,15 @@ def test_k3_k6_int32_at_odd_shapes(cuda, nb, bsz, hb, k, values):
 @pytest.mark.parametrize("kind", ["int32", "f32", "bf16", "bf16x3", "f64"])
 @pytest.mark.parametrize("k", [33, 128])
 def test_k6_past_bsz64(cuda, k, kind):
-    """K6 at bsz 80 (past the persistent body's 64: K3's band body on the
-    wide row, whose 32-index chunks straddle the stored blocks) in every
-    kind, against its plain version (int32: equal, and NumPy modulo 2^32;
-    bf16: bf16 blocks and operand, both sides rounding a float32 sum to the
-    bf16 result once), each in the first body's result dtype, with the
-    multiply-adds its vote kept (K3's chunk model over the wide row)."""
+    """K6 at bsz 80 (past the persistent body's 64) in every kind, on both
+    of its routes there: the wide-block body for bf16, bf16x3 and float64
+    at k 128, K3's band body on the wide row (whose 32-index chunks
+    straddle the stored blocks) for the rest, k 33 among them.  Against its
+    plain version (int32: equal, and NumPy modulo 2^32; bf16: bf16 blocks
+    and operand, both sides rounding a float32 sum to the bf16 result
+    once), each in the result dtype, with the multiply-adds its vote kept
+    equal to its body's host model (K3's chunk model over the wide row on
+    the band body)."""
     nb, bsz = 12, 80
     prec = "bf16x3" if kind == "bf16x3" else None
     if kind == "int32":
@@ -1475,6 +1488,9 @@ def test_k6_past_bsz64(cuda, k, kind):
         a, _ = _band_bell(nb, bsz, 1, k, dt, cuda, empty=(5,))
         b = torch.from_numpy(np.random.default_rng(k).standard_normal(
             (a.n, k))).to(dt).to(cuda)
+    body = tcb._k6_body(bsz, k, b.dtype, prec is not None)
+    assert body == ("wide" if k == 128 and kind in ("bf16", "bf16x3", "f64")
+                    else "band")
     got = _twice(lambda: tcb.bell_spmm_block(a, b, precision=prec),
                  "K6_LAUNCHES")
     plain = tcb.bell_spmm_block_plain(a, b, precision=prec)
@@ -1485,11 +1501,100 @@ def test_k6_past_bsz64(cuda, k, kind):
                                                                b))
     else:
         _check_spmm(got, plain, _spmm_bound(a, b, b.dtype), b.dtype)
-    model = tcb.block_issued_model(a, k)
-    assert model == tcb.fused_issued_model(a, k) > 0
+    model = tcb.block_issued_model(a, k, precision=prec)
+    assert model > 0
+    if body == "band":
+        assert model == tcb.fused_issued_model(a, k)
+    else:  # every stored block is non-zero throughout
+        stored = int((a.blocks != 0).any(3).any(2).sum())
+        assert model == 2 * stored * bsz * bsz * k
     before = tcb.K6_LAUNCHES
     assert tcb.block_issued_flops(a, b, precision=prec) == model
     assert tcb.K6_LAUNCHES == before
+
+
+# K6's wide-block body (bf16, bf16x3, float64 past bsz 64): bsz 80 (one
+# ragged 128-row tile: the second warpgroup holds 16 rows), 128 (one
+# tile), 192 (two, the second ragged), 256 (two); k 8 (one ragged column
+# tile), 128 (one), 136 (two, the second 8 wide).  Seven block rows, row 3
+# empty (padding slots only), the edge rows padded.
+@pytest.mark.parametrize("k", [8, 128, 136])
+@pytest.mark.parametrize("bsz", [80, 128, 192, 256])
+@pytest.mark.parametrize("kind", ["bf16", "bf16x3", "f64"])
+def test_k6_wide_body_matches_plain(cuda, kind, bsz, k):
+    """Twice, bitwise equal, launched each time; against its plain version
+    within 1e-5 |A||B| (bf16x3), 1e-12 (float64) or 2^-7 (bf16 against
+    bf16: both round a float32 sum to the bf16 result once); its count
+    equal to the wide body's host model, which counts no padding block."""
+    dt = {"f64": torch.float64, "bf16": torch.bfloat16}.get(kind,
+                                                           torch.float32)
+    prec = "bf16x3" if kind == "bf16x3" else None
+    assert tcb._k6_body(bsz, k, dt, prec is not None) == "wide"
+    a, ok = _band_bell(7, bsz, 1, bsz + k, dt, cuda, empty=(3,))
+    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).to(dt).to(cuda)
+    got = _twice(lambda: tcb.bell_spmm_block(a, b, precision=prec),
+                 "K6_LAUNCHES")
+    plain = tcb.bell_spmm_block_plain(a, b, precision=prec)
+    assert got.dtype == plain.dtype == dt
+    _check_spmm(got, plain, _spmm_bound(a, b, dt), dt)
+    model = tcb.block_issued_model(a, k, precision=prec)
+    assert model == 2 * int(ok.sum()) * bsz * bsz * k
+    assert tcb.block_issued_flops(a, b, precision=prec) == model
+
+
+@pytest.mark.parametrize("values", ["zero", "lone", "nan"])
+@pytest.mark.parametrize("kind", ["bf16", "bf16x3", "f64"])
+def test_k6_wide_body_votes(cuda, kind, values):
+    """All-zero blocks, a lone element (its 64-row group and 32-index slice
+    only are counted) and a NaN stored in A (NaN exactly where the plain
+    version has it) on the wide-block body at bsz 192, k 40, beside an
+    operand view that does not start 16-byte aligned (the wrapper copies
+    it)."""
+    dt = {"f64": torch.float64, "bf16": torch.bfloat16}.get(kind,
+                                                           torch.float32)
+    prec = "bf16x3" if kind == "bf16x3" else None
+    bsz, k = 192, 40
+    a, _ = _band_bell(6, bsz, 1, 5, dt, cuda)
+    a = _with_values(a, values)
+    base = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        a.n * k + 1)).to(dt).to(cuda)
+    b = base[1:].view(a.n, k)
+    assert b.data_ptr() % 16 and b.is_contiguous()
+    got = _twice(lambda: tcb.bell_spmm_block(a, b, precision=prec),
+                 "K6_LAUNCHES")
+    _check_values(got, tcb.bell_spmm_block_plain(a, b, precision=prec),
+                  _spmm_bound(a, b, dt), dt, values)
+    issued = tcb.block_issued_flops(a, b, precision=prec)
+    assert issued == tcb.block_issued_model(a, k, precision=prec)
+    if values == "zero":
+        assert issued == 0
+    if values == "lone":  # row bsz - 1: a 64-row group; column 96: slice 3
+        assert issued == 2 * 64 * 32 * k
+
+
+@pytest.mark.parametrize("kind,bsz,k", [("bf16", 65, 128), ("bf16", 80, 33),
+                                        ("bf16x3", 128, 33),
+                                        ("f64", 128, 33), ("f64", 40, 128)])
+def test_k6_shapes_tma_cannot_take_run_the_band_body(cuda, kind, bsz, k):
+    """Past the persistent body, a shape whose rows are not whole 16-byte
+    units (bsz 65 in bf16, k 33) and float64 at bsz 33-64 run K3's band
+    body, as before the wide-block body: its count is K3's chunk model."""
+    dt = {"f64": torch.float64, "bf16": torch.bfloat16}.get(kind,
+                                                           torch.float32)
+    prec = "bf16x3" if kind == "bf16x3" else None
+    assert tcb._k6_body(bsz, k, dt, prec is not None) == "band"
+    a, _ = _band_bell(5, bsz, 1, bsz + k, dt, cuda, empty=(2,))
+    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).to(dt).to(cuda)
+    got = _twice(lambda: tcb.bell_spmm_block(a, b, precision=prec),
+                 "K6_LAUNCHES")
+    assert got.dtype == dt
+    _check_spmm(got, tcb.bell_spmm_block_plain(a, b, precision=prec),
+                _spmm_bound(a, b, dt), dt)
+    model = tcb.block_issued_model(a, k, precision=prec)
+    assert model == tcb.fused_issued_model(a, k)
+    assert tcb.block_issued_flops(a, b, precision=prec) == model
 
 
 # float64 on the vote bodies: K3 on the band body (a 32-index chunk spans

@@ -298,12 +298,17 @@ def test_k6_issued_model_by_hand(bsz):
     assert tbl.block_issued_model(a, k, stream_dtype=torch.bfloat16) == want
 
 
-def test_k6_issued_model_past_bsz64_is_the_band_bodys():
-    """Past bsz 64 K6 runs K3's band body on the wide row, so its model is
-    K3's: one 32 x 32 x 128 product for each 32 x 32 chunk of a block
-    row's wide row [A_r0 | A_r1] (rows 32, 32 and 16 at bsz 80; columns
-    0-31, 32-63, 64-95 (straddling the two blocks), 96-127, 128-159) that
-    holds a non-zero (NaN does, -0 does not)."""
+@pytest.mark.parametrize("stream", [torch.float32, torch.float64])
+def test_k6_issued_model_past_bsz64_is_the_band_bodys(stream):
+    """Past bsz 64 K6's float32 stream runs K3's band body on the wide row,
+    so its model is K3's: one 32 x 32 x 128 product for each 32 x 32
+    chunk of a block row's wide row [A_r0 | A_r1] (rows 32, 32 and 16 at
+    bsz 80; columns 0-31, 32-63, 64-95 (straddling the two blocks),
+    96-127, 128-159) that holds a non-zero (NaN does, -0 does not).  Its
+    float64 stream at k 70 (560 bytes a row, a multiple of 16) runs the
+    wide-block body instead: useful rows x useful indices x k for each
+    64-row group and 32-index slice of a stored block that holds a
+    non-zero (rows 64 and 16, indices 32, 32 and 16 at bsz 80)."""
     bsz, k = 80, 70
     blocks = np.zeros((3, 2, bsz, bsz), np.float32)
     blocks[0, 0, 0, 0] = 1.0    # chunk (0, 0)
@@ -312,10 +317,18 @@ def test_k6_issued_model_past_bsz64_is_the_band_bodys():
     blocks[1, 1] = -0.0
     blocks[2, 0, 1, bsz - 1] = 3.0     # chunk (0, 2)
     a = _bell([[0, 1], [1, 0], [2, 0]], blocks)
-    want = 12 * 2 * 32 * 32 * 128
-    assert tbl.block_issued_model(a, k) == want
-    assert tbl.block_issued_model(a, k, stream_dtype=torch.float64) == want
-    assert tbl.fused_issued_model(a, k) == want
+    band = 12 * 2 * 32 * 32 * 128
+    assert tbl.fused_issued_model(a, k) == band
+    if stream == torch.float32:
+        assert tbl._k6_body(bsz, k, stream) == "band"
+        assert tbl.block_issued_model(a, k) == band
+        assert tbl.block_issued_model(a, k, stream_dtype=stream) == band
+        return
+    assert tbl._k6_body(bsz, k, stream) == "wide"
+    # (0, 0): group 0 x slice 0; (0, 1): whole; (1, 0): group 1 x slice 0;
+    # (2, 0): group 0 x slice 2
+    want = 2 * (64 * 32 + bsz * bsz + 16 * 32 + 64 * 16) * k
+    assert tbl.block_issued_model(a, k, stream_dtype=stream) == want
 
 
 def test_k6_issued_counter_refuses_cpu_and_float64():
