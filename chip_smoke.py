@@ -107,10 +107,10 @@ DMMA tiles, K6's on its persistent body's, with their issued work; K5's on
 the chunk-mask body, with its issued work and tile bytes) on the
 80M-entry band, each beside ``BSR @ B`` in its dtype (float32 for
 bf16x3), K6 at bsz 128 in every kind (``bench.py``'s block band at nb
-3,907, where K6 runs its wide-block body in bf16, bf16x3 and float64 and
-K3's band body in float32 and int32: its main path, plain version, SciPy,
-issued work, bound and ``BSR @ B``, each naming its body, and in bf16
-the kernels both sides run), the ESC and
+3,907, where K6 runs its wide-block body in float32, bf16, bf16x3 and
+float64 and K3's band body in int32: its main path, plain version, SciPy,
+issued work, bound, the SM clock under load and ``BSR @ B``, each naming
+its body, and in float32 and bf16 the kernels both sides run), the ESC and
 dense SpGEMM cores on cuts of the SpGEMM fixture, ``pcsr_spmm`` /
 ``halo_spmm_overlapped`` / ``pcsr_spgemm`` over 4 shards, and an int32
 pass exact to NumPy, and prints a ``surface`` JSON line; the kinds'
@@ -130,6 +130,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -846,25 +847,39 @@ LIBRARY_CSR = ("torch.sparse_csr_tensor(...) @ v, the faster of int32 and "
 def _apply_kernels(label, fn, calls=5, forbid=("sort", "search")):
     """The device kernels ``calls`` runs of ``fn`` launch, from a
     ``torch.profiler`` trace: name, launches per call and device us per
-    call.  Fails if a kernel named with a word of ``forbid`` runs (for a
-    plan's apply: a sort or a search, since the plan holds the order)."""
+    call.  A session in this process at times holds no device record at
+    all, torch's own kernels included, so each ends with a kernel of
+    torch's own (``torch.cuda._sleep``'s spin kernel): a session that sees
+    it but none of ``fn``'s tells a kernel the trace misses from a session
+    that came back empty; a session that sees none of ``fn``'s is said so
+    and run again, up to three sessions.  Fails if a kernel named with a
+    word of ``forbid`` runs (for a plan's apply: a sort or a search, since
+    the plan holds the order)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = kernels.get(e.name, (0, 0.0))
-            kernels[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    if not kernels:
-        print(f"   {label}: the profiler saw no device kernel", flush=True)
+    for session in (1, 2, 3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, us = kernels.get(e.name, (0, 0.0))
+                kernels[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        marker = [k for k in kernels if "spin_kernel" in k]
+        for k in marker:
+            del kernels[k]
+        if kernels:
+            break
+        print(f"   {label}: profiler session {session} of 3 saw no "
+              f"kernel of the call, {'but' if marker else 'nor'} torch's "
+              "marker kernel", flush=True)
     for name, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1]):
         print(f"   {label} kernel: {n / calls:g} launch(es) a call, "
               f"{us / calls:.1f} us a call: {name[:110]}", flush=True)
@@ -4429,16 +4444,17 @@ K6_BODY_SOURCE = {"wide": "sparse_tpu_torch/csrc/wide_body.cuh",
 def _phase21_k6_wide(card):
     """K6 at bsz 128 in every kind on ``bench.py``'s block band at
     ``K6_WIDE_BSZ``, on the body ``cuda_bell._k6_body`` names: the
-    wide-block body (``csrc/wide_body.cuh``) in bf16, bf16x3 and float64,
-    K3's band body on the wide row in float32 and int32.  Its main path
+    wide-block body (``csrc/wide_body.cuh``) in float32, bf16, bf16x3 and
+    float64, K3's band body on the wide row in int32.  Its main path
     ``bell_spmm_block`` once with K6's launch count set to 0 just before
     and read just after; then twice, bitwise equal, against its plain
     version (int32: equal) and SciPy on every 64th block row (within TOL,
     bf16x3's gate; int32: exact), its issued work against its body's host
     model; timed back to back beside its plain version, its bound and
-    ``BSR @ B`` in the stream's dtype (float32 for bf16x3); in bf16 a
-    ``torch.profiler`` trace names the kernels K6 and ``BSR @ B`` run.
-    Returns {kind: record}, each naming its body."""
+    ``BSR @ B`` in the stream's dtype (float32 for bf16x3), with the SM
+    clock and power draw ``nvidia-smi`` reads while it runs; in float32 and
+    bf16 a ``torch.profiler`` trace names the kernels K6 and ``BSR @ B``
+    run.  Returns {kind: record}, each naming its body."""
     from sparse_tpu_torch.formats.bell import BELL
     from sparse_tpu_torch.ops import cuda_bell as cb
 
@@ -4471,7 +4487,7 @@ def _phase21_k6_wide(card):
                     TOL[f64], TOL[f64], 8, 8, f64)}
     out = {}
     for kind, (x, y, prec, tol_p, tol_s, isz, osz, bdt) in kinds.items():
-        body = cb._k6_body(bsz, k, y.dtype, prec is not None)
+        body = cb._k6_body(bsz, k, y.dtype)
         label = (f"K6 {kind} bsz {bsz} k {k} ({body} body, "
                  "bell_spmm_block)")
 
@@ -4518,6 +4534,7 @@ def _phase21_k6_wide(card):
             cb.block_issued_flops(x, y, precision=prec),
             cb.block_issued_model(x, k, precision=prec), useful)
         ms, fastest, n = _b2b(kern)
+        clock = _clock_under(kern)
         plain_ms = _b2b(plain)[0]
         nbytes, ops = spmm_cost(nbz, bsz, a.n, k, isz, osz)
         b_ms, b_by = bound_ms(nbytes, 3 * ops if prec else ops, bdt)
@@ -4529,10 +4546,10 @@ def _phase21_k6_wide(card):
         else:
             lib, call = library_spmm(m, y.float() if prec else y, card,
                                      f"bsz {bsz} k {k} {str(y.dtype)[6:]}")
-        if kind == "bf16":  # the kernels each side runs, by name
+        if kind in ("float32", "bf16"):  # the kernels each side runs
             bsr = m[("bsr", y.dtype)]  # library_spmm's
-            _apply_kernels(f"K6 bf16 bsz {bsz}", kern, forbid=())
-            _apply_kernels(f"BSR @ B bf16 bsz {bsz}", lambda: bsr @ y,
+            _apply_kernels(f"K6 {kind} bsz {bsz}", kern, forbid=())
+            _apply_kernels(f"BSR @ B {kind} bsz {bsz}", lambda: bsr @ y,
                            forbid=())
             del bsr
         print(f"   {label}: main path launched K6 {launches} time(s); gate "
@@ -4540,10 +4557,11 @@ def _phase21_k6_wide(card):
               f"ms back to back (median of 5 windows of {n}; fastest "
               f"{fastest:.4f}); plain {plain_ms:.4f} ms; bound {b_ms:.4f} "
               f"ms ({b_by}), {b_ms / ms:.1%} of it; library "
-              f"{'refused' if lib is None else f'{lib:.4f} ms'} ({call}) "
-              f"[{card}]", flush=True)
+              f"{'refused' if lib is None else f'{lib:.4f} ms'} ({call}); "
+              f"SM clock, power under load {clock} [{card}]", flush=True)
         out[kind] = dict(body=body, source=K6_BODY_SOURCE[body],
                          ms=ms, fastest_ms=fastest, plain_ms=plain_ms,
+                         sm_clock_power=clock,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                          library_call=call, max_abs_err=err,
                          max_abs_err_vs_plain=err_p, launches=launches,
@@ -4553,6 +4571,32 @@ def _phase21_k6_wide(card):
                                                               "refused")
     del m, kinds, a, ai, b, bi
     return out
+
+
+def _clock_under(fn):
+    """``nvidia-smi``'s SM clock and power draw, read 1.5 s into 3 s of
+    ``fn`` back to back (its power reading is an average that lags a
+    change of load); "not read" if it gives none."""
+    got = []
+
+    def read():
+        time.sleep(1.5)
+        try:
+            got.extend(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60).stdout.strip().splitlines())
+        except (OSError, subprocess.SubprocessError):
+            pass
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    t_end = time.perf_counter() + 3.0
+    while time.perf_counter() < t_end:
+        fn()
+    reader.join()
+    torch.cuda.synchronize()
+    return got[0] if got else "not read"
 
 
 def _esc_cut(rows, cols, nb):

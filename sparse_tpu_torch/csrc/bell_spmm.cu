@@ -45,16 +45,18 @@
 // bf16 mma.sync products a float32 fragment pair (band_body.cuh's
 // split_chunk), float64 on DMMA (band_body.cuh's dmma_chunk).  Past bsz 64,
 // where a stored block no longer fits the persistent body's stages, K6's
-// bf16, bf16x3 and float64 kinds run the wide-block body of wide_body.cuh
-// where TMA can describe the arrays (bsz and k times the element size
-// multiples of 16 bytes): one thread block an SM walks tiles of up to 128
-// rows of a block row x 128 columns (float64: 64), fed by a TMA ring on
-// mbarriers, bf16 on wgmma, bf16x3 on wgmma from B's bf16 planes with A
-// split in registers, float64 on Hopper's m16n8k8 DMMA, a vote per
-// warpgroup and 32-index slice.  The other shapes past it (float32 and
-// int32 at every bsz past 64, float64 at bsz 33-64, and shapes TMA cannot
-// describe) run K3's band-body kernel: it computes the same C = sum_l
-// A[r, l] @ B[cols[r, l]], one 32-index chunk of the wide row at a time.
+// float32, bf16, bf16x3 and float64 kinds run the wide-block body of
+// wide_body.cuh where TMA can describe the arrays (bsz and k times the
+// element size multiples of 16 bytes): one thread block an SM walks tiles
+// of up to 128 rows of a block row x 128 columns (float64: 64), fed by a
+// TMA ring on mbarriers, float32 on 8 x 8 FFMA register tiles whose
+// fragment loads are one shared-memory wavefront each, bf16 on wgmma,
+// bf16x3 on wgmma from B's bf16 planes with A split in registers, float64
+// on Hopper's m16n8k8 DMMA, a vote per warpgroup and 32-index slice.  The
+// other shapes past it (int32 at every bsz past 64, float64 at bsz 33-64,
+// and shapes TMA cannot describe) run K3's band-body kernel: it computes
+// the same C = sum_l A[r, l] @ B[cols[r, l]], one 32-index chunk of the
+// wide row at a time.
 // k6_body names the rule.  bell_block_issued counts the multiply-adds the
 // vote kept.
 //
@@ -216,13 +218,13 @@ constexpr long long persistent_bsz(int kind) {
   return kind == bell::kF64 ? 32 : 64;
 }
 
-// The element bytes of the kinds the wide-block body takes (bf16, bf16x3's
-// float32, float64); 0 for the others.
+// The element bytes of the kinds the wide-block body takes (float32, bf16,
+// bf16x3's float32, float64); 0 for the others.
 constexpr long long wide_elem(int kind) {
-  return kind == bell::kBF16 ? 2
-         : kind == bell::kF32Split ? 4
-         : kind == bell::kF64 ? 8
-                               : 0;
+  return kind == bell::kBF16                            ? 2
+         : kind == bell::kF32 || kind == bell::kF32Split ? 4
+         : kind == bell::kF64                           ? 8
+                                                        : 0;
 }
 
 // K6's body for kind `kind` at (bsz, k): the persistent body up to
@@ -300,8 +302,8 @@ cudaError_t block_body_kinds(int kind, const void* blocks, const void* cols,
 }
 
 // K6's wide-block body: blocks (nb, Lb, bsz, bsz), b (nb*bsz, k) in the
-// stream kind S's element type, C (nb*bsz, k) in wide::Cfg<S>::Out (bf16,
-// float32 for bf16x3, float64).
+// stream kind S's element type, C (nb*bsz, k) in wide::Cfg<S>::Out
+// (float32, bf16, float32 for bf16x3, float64).
 template <typename S>
 __global__ void __launch_bounds__(wide::kThreads, 1)
     wide_block_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -356,13 +358,16 @@ cudaError_t launch_wide(const void* blocks, const void* cols, const void* b,
   return cudaGetLastError();
 }
 
-// The wide-block body's kinds: bf16, bf16x3 and float64; counter may be
-// null.  Other kinds return cudaErrorInvalidValue.
+// The wide-block body's kinds: float32, bf16, bf16x3 and float64; counter
+// may be null.  Other kinds return cudaErrorInvalidValue.
 cudaError_t wide_body_kinds(int kind, const void* blocks, const void* cols,
                             const void* b, void* c, long long nb,
                             long long Lb, long long bsz, long long k,
                             unsigned long long* issued, void* stream) {
   switch (kind) {
+    case bell::kF32:
+      return launch_wide<float>(blocks, cols, b, c, nb, Lb, bsz, k, issued,
+                                stream);
     case bell::kBF16:
       return launch_wide<__nv_bfloat16>(blocks, cols, b, c, nb, Lb, bsz, k,
                                         issued, stream);
@@ -425,11 +430,11 @@ int bell_fused_issued(int kind, const void* blocks, const void* cols,
 
 // K6, bell_fused's arguments, on the body k6_body names.  Up to
 // persistent_bsz (64; float64 32) every kind runs the persistent body, whose
-// bf16 kind writes a bf16 C (the result's dtype); past it bf16, bf16x3 and
-// float64 run the wide-block body where TMA can describe the arrays (bf16
-// writes bf16 C), the rest K3's band-body kernel, whose bf16 kind writes a
-// float32 C.  float32 and bf16x3 write float32, float64 float64, int32
-// int32.
+// bf16 kind writes a bf16 C (the result's dtype); past it float32, bf16,
+// bf16x3 and float64 run the wide-block body where TMA can describe the
+// arrays (bf16 writes bf16 C), the rest K3's band-body kernel, whose bf16
+// kind writes a float32 C.  float32 and bf16x3 write float32, float64
+// float64, int32 int32.
 int bell_block(int kind, const void* blocks, const void* cols, const void* b,
                void* c, long long nb, long long Lb, long long bsz,
                long long k, void* stream) {

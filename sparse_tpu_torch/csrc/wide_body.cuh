@@ -1,7 +1,7 @@
-// K6's wide-block body (bell_spmm.cu) past bsz 64, for bf16, bf16x3 and
-// float64 streams: C[r] (bsz, k) = sum over the slots l of block row r of
-// blocks[r, l] (bsz, bsz) @ the operand panel B[cols[r, l]*bsz : +bsz]
-// (bsz, k), summed in slot order, as
+// K6's wide-block body (bell_spmm.cu) past bsz 64, for float32, bf16,
+// bf16x3 and float64 streams: C[r] (bsz, k) = sum over the slots l of block
+// row r of blocks[r, l] (bsz, bsz) @ the operand panel B[cols[r, l]*bsz :
+// +bsz] (bsz, k), summed in slot order, as
 // sparse_tpu/ops/pallas_bell.py::bell_spmm_pallas (def :58, pallas_call
 // :89, kernel :41-55) steps its grid.
 //
@@ -39,6 +39,27 @@
 // slice it kept, its useful rows x the slice's useful indices x the tile's
 // useful columns (once for bf16x3: its three products split the same
 // multiply-adds), so a whole non-zero stored block counts bsz * bsz * k.
+//
+// float32 (A, B and C float32; full float32, fmaf on the CUDA cores, no
+// TF32): a stage is 32 indices (A one 16 KB box, B four 4 KB boxes of 32
+// columns), six of them.  Consumer thread 32w + l of warpgroup wg (warp w
+// of four, lane l: row group g = l % 8, column group h = l / 8) owns an
+// 8 x 8 register tile: rows 64wg + g + 8j (j = 0..7) and columns 32w + 4h
+// .. +3 and 32w + 16 + 4h .. +3, so warp w reads only B's box w.  What
+// sets the pace is shared memory against FFMA issue, so the map is chosen
+// for its wavefronts (128 bytes a cycle).  For 4 indices a thread issues 8
+// LDS.128 of A (row 64wg + g + 8j, 16-byte chunk q ^ g, as the swizzle
+// XORs the chunk with row % 8 = g: the warp's eight rows meet eight bank
+// groups, one wavefront) and 8 of B (two a row: chunks h and h + 4 of a
+// 128-byte row, XORed alike: four distinct chunks, one wavefront), against
+// 256 FFMA.  So per index a warp costs 4 wavefronts for 64 FFMA
+// instructions; the SM, 32 for its eight warps, 8 for the TMA fills (1 KB
+// an index) and 4 for the votes, against 128 issue clocks of FFMA.  (K3's
+// band body, each thread 8 x 4: 6 wavefronts per 32 FFMA a warp, about
+// 116 wavefronts per 128 clocks at four thread blocks an SM.)  A thread's
+// rows are 8 apart: consecutive rows would share row % 8 across the warp's
+// row groups and cost four wavefronts an A load.  Each output's sum runs
+// in index order, one fmaf at a time, slot after slot.
 //
 // bf16 (A, B and C bf16, sums float32): a stage is 64 indices (one
 // swizzle row of A); each warpgroup runs wgmma m64n128k16 on its 64 rows
@@ -90,11 +111,20 @@ constexpr int kThreads = 32 * (kWarps + 1);  // and the producer warp
 constexpr int kRowBytes = 128;  // a row of the 128-byte swizzle
 constexpr int kSlice = 32;      // contraction indices a vote
 
-// Per stream kind S (__nv_bfloat16, band::Split, double): T, the element
-// type in memory and in shared memory; Out, C's; kBN, a tile's columns;
-// kKC, a stage's contraction indices; kStages, the ring's depth (192 KB).
+// Per stream kind S (float, __nv_bfloat16, band::Split, double): T, the
+// element type in memory and in shared memory; Out, C's; kBN, a tile's
+// columns; kKC, a stage's contraction indices; kStages, the ring's depth
+// (192 KB).
 template <typename S>
 struct Cfg;
+template <>
+struct Cfg<float> {
+  using T = float;
+  using Out = float;
+  using Acc = float[8][8];  // a thread's 8 rows x 8 columns
+  static constexpr int kBN = 128, kKC = 32, kStages = 6, kPlanes = 0;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
 template <>
 struct Cfg<__nv_bfloat16> {
   using T = __nv_bfloat16;
@@ -193,6 +223,12 @@ __device__ __forceinline__ bool mine_nonzero(const unsigned char* sa, int wg,
 __device__ __forceinline__ void zero(float (&acc)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+}
+__device__ __forceinline__ void zero(float (&acc)[8][8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[j][n] = 0.f;
 }
 __device__ __forceinline__ void zero(double (&acc)[2][4][4]) {
 #pragma unroll
@@ -316,6 +352,67 @@ __device__ __forceinline__ void mma_stage<band::Split>(
   sm90::wgmma_wait<0>();
 }
 
+// A 16-byte load from shared memory at a 32-bit shared-window address.
+// The float32 kind reads its fragments through it: through a generic
+// pointer into the realigned dynamic shared memory they compile to generic
+// 64-bit loads (LD.E.128) with 64-bit addresses, and the kernel spilled
+// and ran slower (PERF.md section 6).
+__device__ __forceinline__ float4 lds128(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// float32: thread 32w + l of warpgroup wg (g = l % 8, h = l / 8) adds the
+// stage's 32 indices to its rows 64wg + g + 8j and columns 32w + 4h .. +3,
+// 32w + 16 + 4h .. +3 (box w of B), where the vote kept them: for each 4
+// indices q, eight A loads (row g + 8j's chunk q ^ g) and, per index kk,
+// two B loads (chunks h and h + 4 of row kk, XORed with kk % 8), then 64
+// fmaf an index.  Row kk's chunk h ^ (kk % 8) is (h ^ (kk % 4)) + 4 *
+// bit 2 of kk, and chunk (h + 4) ^ (kk % 8) the same with bit 2 flipped:
+// four base addresses a thread serve every B load, with immediate offsets.
+template <>
+__device__ __forceinline__ void mma_stage<float>(const unsigned char* st,
+                                                 unsigned votes,
+                                                 float (&acc)[8][8], int wg,
+                                                 unsigned char*, int) {
+  using G = Geo<float>;
+  if (!(votes & 1u)) return;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane % 8, h = lane / 8;
+  const unsigned s0 = static_cast<unsigned>(__cvta_generic_to_shared(st));
+  const unsigned pa = s0 + (64 * wg + g) * kRowBytes;
+  unsigned pb[4];  // chunk (h ^ t) of box warp's row 0
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    pb[t] = s0 + G::kABytes + warp * G::kBBox + ((h ^ t) << 4);
+#pragma unroll
+  for (int q = 0; q < Cfg<float>::kKC / 4; ++q) {
+    float4 a[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      a[j] = lds128(pa + 8 * j * kRowBytes + ((q ^ g) << 4));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kk = 4 * q + i;
+      const unsigned row = pb[i] + kk * kRowBytes;
+      const int hi = (kk & 4) << 4;  // bit 2 of kk, as 64 bytes
+      const float4 b0 = lds128(row + hi);
+      const float4 b1 = lds128(row + (64 ^ hi));
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float x = i == 0 ? a[j].x : i == 1 ? a[j].y
+                      : i == 2 ? a[j].z : a[j].w;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) acc[j][n] = fmaf(x, b[n], acc[j][n]);
+      }
+    }
+  }
+}
+
 // float64: warp wi of warpgroup wg owns rows 64wg + 32(wi/2) .. +31 and
 // columns 32(wi%2) .. +31 of the tile, as 2 m16 x 4 n8 tiles of Hopper's
 // m16n8k8 DMMA, and adds the stage's 32 indices (two A boxes of 16, each
@@ -432,6 +529,29 @@ __device__ __forceinline__ void store(const float (&acc)[64], float* c,
       if (gn < N)
         __stcs(reinterpret_cast<float2*>(row + gn),
                make_float2(acc[4 * nt + 2 * h], acc[4 * nt + 2 * h + 1]));
+    }
+  }
+}
+
+// float32 from the FFMA tiles: thread 32w + l of warpgroup wg holds rows
+// 64wg + l % 8 + 8j and columns 32w + 4(l / 8) .. +3 and 32w + 16 + 4(l /
+// 8) .. +3, written as 16-byte streaming stores (a warp's four lanes of
+// one row group write 64 contiguous bytes a row).  N is a multiple of 4.
+__device__ __forceinline__ void store(const float (&acc)[8][8], float* c,
+                                      int M, int N, int m0, int n0, int wg) {
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int gi = m0 + 64 * wg + lane % 8 + 8 * j;
+    if (gi >= M) continue;
+    float* row = c + static_cast<long long>(gi) * N;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int gn = n0 + 32 * warp + 16 * e + 4 * (lane / 8);
+      if (gn < N)
+        __stcs(reinterpret_cast<float4*>(row + gn),
+               make_float4(acc[j][4 * e], acc[j][4 * e + 1],
+                           acc[j][4 * e + 2], acc[j][4 * e + 3]));
     }
   }
 }

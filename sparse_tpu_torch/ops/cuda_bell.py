@@ -33,11 +33,12 @@ kit's chunk mask (:attr:`BandedKitT.chunk_nz`, built once with the kit),
 so it does not read them.  K6 runs one of three bodies (:func:`_k6_body`,
 mirroring ``csrc/bell_spmm.cu``'s ``k6_body``): every stream at bsz <= 64
 (float64: 32) its persistent body, which skips a padding slot's zero block
-by a vote per stored block; past bsz 64 its bf16, bf16x3 and float64
-streams the wide-block body (``csrc/wide_body.cuh``: 128-row tiles fed by
-a TMA ring, bf16 on ``wgmma``), which votes per 64 rows and 32-index slice
-of a stored block, where bsz and k times the element size are multiples of
-16 bytes; the other shapes K3's kernel on the wide row, which skips its
+by a vote per stored block; past bsz 64 its float32, bf16, bf16x3 and
+float64 streams the wide-block body (``csrc/wide_body.cuh``: 128-row tiles
+fed by a TMA ring, float32 on 8 x 8 FFMA register tiles, bf16 on
+``wgmma``), which votes per 64 rows and 32-index slice of a stored block,
+where bsz and k times the element size are multiples of 16 bytes; int32
+and the other shapes K3's kernel on the wide row, which skips its
 all-zero 32 x 32 chunks, so where bsz is not a multiple of 32 a chunk that
 straddles a stored block and a padding block is multiplied whole.
 A skipped chunk or block never meets the operand: an Inf or NaN in B
@@ -210,20 +211,20 @@ def _on_cuda(name: str, *tensors) -> bool:
                      f"got {sorted(str(d) for d in devices)}")
 
 
-# element bytes of the streams K6's wide-block body takes (bf16x3: float32)
-_WIDE_ELEM = {torch.bfloat16: 2, torch.float64: 8}
+# element bytes of the streams K6's wide-block body takes
+_WIDE_ELEM = {torch.float32: 4, torch.bfloat16: 2, torch.float64: 8}
 
 
-def _k6_body(bsz: int, k: int, stream_dtype, split: bool = False) -> str:
+def _k6_body(bsz: int, k: int, stream_dtype) -> str:
     """The body K6 runs (``csrc/bell_spmm.cu``'s ``k6_body``): at bsz <= 64
-    (float64: 32, its ring's stages) ``"persistent"``; past bsz 64 the bf16,
-    bf16x3 (``split``, a float32 stream) and float64 streams ``"wide"``
-    where a TMA map can describe the arrays (bsz and k times the element
-    size multiples of 16 bytes); every other shape ``"band"``, K3's band
-    body.  Reads the shapes and the stream only."""
+    (float64: 32, its ring's stages) ``"persistent"``; past bsz 64 the
+    float32 (with or without the bf16x3 split), bf16 and float64 streams
+    ``"wide"`` where a TMA map can describe the arrays (bsz and k times the
+    element size multiples of 16 bytes); int32 and every other shape
+    ``"band"``, K3's band body.  Reads the shapes and the stream only."""
     if bsz <= (32 if stream_dtype == torch.float64 else 64):
         return "persistent"
-    elem = 4 if split else _WIDE_ELEM.get(stream_dtype, 0)
+    elem = _WIDE_ELEM.get(stream_dtype, 0)
     if elem and bsz > 64 and bsz * elem % 16 == 0 and k * elem % 16 == 0:
         return "wide"
     return "band"
@@ -277,7 +278,7 @@ def _rowwise(name: str, which: str, a: BELL, b, compute_dtype, precision,
         return torch.zeros(a.n, k, dtype=out_dtype, device=b.device)
     if plain or not _on_cuda(name, a.blocks, a.cols, b):
         return _gather_einsum(a, b, stream, split).to(out_dtype)
-    body = _k6_body(a.bsz, k, stream, split) if which == "block" else "band"
+    body = _k6_body(a.bsz, k, stream) if which == "block" else "band"
     # K6's persistent and wide-block bodies round their bf16 sums as they
     # store them; the band body writes them in float32
     direct = stream == torch.bfloat16 and body != "band"
@@ -430,8 +431,8 @@ def block_issued_model(a: BELL, k: int, *, stream_dtype=None,
     same multiply-adds."""
     bsz = a.bsz
     stream = stream_dtype or a.dtype
-    split = _stream_mode("block_issued_model", stream, precision)
-    body = _k6_body(bsz, k, stream, split)
+    _stream_mode("block_issued_model", stream, precision)
+    body = _k6_body(bsz, k, stream)
     if body == "band":
         return fused_issued_model(a, k, compute_dtype=stream_dtype)
     blocks = a.blocks.to(stream).reshape(-1, bsz, bsz)

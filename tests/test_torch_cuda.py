@@ -544,7 +544,7 @@ def test_k4_nan_in_a_propagates(cuda, stream):
     ("K5", t) for t in ("f32", "bf16", "bf16x3", "f64")] + [
     ("K4", "f64"), ("K6", "bf16x3"), ("K3", "f64"), ("K6", "f64"),
     ("K6", "f32"), ("K6", "bf16")] + [
-    ("K6-wide", t) for t in ("bf16", "bf16x3", "f64")])
+    ("K6-wide", t) for t in ("f32", "bf16", "bf16x3", "f64")])
 def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
                                                            tier):
     """Inf and NaN in operand panel 0, which block rows 0 and 1 store: K3's
@@ -580,8 +580,7 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
         if cd is not None:  # bf16 blocks and operand, a bf16 result
             a = BELL(cols=a.cols, blocks=a.blocks.to(cd), n=a.n, bsz=a.bsz)
             b, b_inf, tol_dt = b.to(cd), b_inf.to(cd), cd
-        assert (tcb._k6_body(bsz, 40, b.dtype, prec is not None) == "wide"
-                ) == wide
+        assert (tcb._k6_body(bsz, 40, b.dtype) == "wide") == wide
         got = _twice(lambda: tcb.bell_spmm_block(a, b_inf, precision=prec),
                      "K6_LAUNCHES")
         want = tcb.bell_spmm_block_plain(a, b, precision=prec)
@@ -1468,8 +1467,8 @@ def test_k3_k6_int32_at_odd_shapes(cuda, nb, bsz, hb, k, values):
 @pytest.mark.parametrize("k", [33, 128])
 def test_k6_past_bsz64(cuda, k, kind):
     """K6 at bsz 80 (past the persistent body's 64) in every kind, on both
-    of its routes there: the wide-block body for bf16, bf16x3 and float64
-    at k 128, K3's band body on the wide row (whose 32-index chunks
+    of its routes there: the wide-block body for float32, bf16, bf16x3 and
+    float64 at k 128, K3's band body on the wide row (whose 32-index chunks
     straddle the stored blocks) for the rest, k 33 among them.  Against its
     plain version (int32: equal, and NumPy modulo 2^32; bf16: bf16 blocks
     and operand, both sides rounding a float32 sum to the bf16 result
@@ -1488,9 +1487,8 @@ def test_k6_past_bsz64(cuda, k, kind):
         a, _ = _band_bell(nb, bsz, 1, k, dt, cuda, empty=(5,))
         b = torch.from_numpy(np.random.default_rng(k).standard_normal(
             (a.n, k))).to(dt).to(cuda)
-    body = tcb._k6_body(bsz, k, b.dtype, prec is not None)
-    assert body == ("wide" if k == 128 and kind in ("bf16", "bf16x3", "f64")
-                    else "band")
+    body = tcb._k6_body(bsz, k, b.dtype)
+    assert body == ("wide" if k == 128 and kind != "int32" else "band")
     got = _twice(lambda: tcb.bell_spmm_block(a, b, precision=prec),
                  "K6_LAUNCHES")
     plain = tcb.bell_spmm_block_plain(a, b, precision=prec)
@@ -1513,23 +1511,24 @@ def test_k6_past_bsz64(cuda, k, kind):
     assert tcb.K6_LAUNCHES == before
 
 
-# K6's wide-block body (bf16, bf16x3, float64 past bsz 64): bsz 80 (one
-# ragged 128-row tile: the second warpgroup holds 16 rows), 128 (one
-# tile), 192 (two, the second ragged), 256 (two); k 8 (one ragged column
-# tile), 128 (one), 136 (two, the second 8 wide).  Seven block rows, row 3
-# empty (padding slots only), the edge rows padded.
+# K6's wide-block body (float32, bf16, bf16x3, float64 past bsz 64): bsz
+# 80 (one ragged 128-row tile: the second warpgroup holds 16 rows), 128
+# (one tile), 192 (two, the second ragged), 256 (two); k 8 (one ragged
+# column tile), 128 (one), 136 (two, the second 8 wide).  Seven block
+# rows, row 3 empty (padding slots only), the edge rows padded.
 @pytest.mark.parametrize("k", [8, 128, 136])
 @pytest.mark.parametrize("bsz", [80, 128, 192, 256])
-@pytest.mark.parametrize("kind", ["bf16", "bf16x3", "f64"])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "bf16x3", "f64"])
 def test_k6_wide_body_matches_plain(cuda, kind, bsz, k):
     """Twice, bitwise equal, launched each time; against its plain version
-    within 1e-5 |A||B| (bf16x3), 1e-12 (float64) or 2^-7 (bf16 against
-    bf16: both round a float32 sum to the bf16 result once); its count
-    equal to the wide body's host model, which counts no padding block."""
+    within 1e-5 |A||B| (float32, bf16x3), 1e-12 (float64) or 2^-7 (bf16
+    against bf16: both round a float32 sum to the bf16 result once); its
+    count equal to the wide body's host model, which counts no padding
+    block."""
     dt = {"f64": torch.float64, "bf16": torch.bfloat16}.get(kind,
                                                            torch.float32)
     prec = "bf16x3" if kind == "bf16x3" else None
-    assert tcb._k6_body(bsz, k, dt, prec is not None) == "wide"
+    assert tcb._k6_body(bsz, k, dt) == "wide"
     a, ok = _band_bell(7, bsz, 1, bsz + k, dt, cuda, empty=(3,))
     b = torch.from_numpy(np.random.default_rng(k).standard_normal(
         (a.n, k))).to(dt).to(cuda)
@@ -1544,7 +1543,7 @@ def test_k6_wide_body_matches_plain(cuda, kind, bsz, k):
 
 
 @pytest.mark.parametrize("values", ["zero", "lone", "nan"])
-@pytest.mark.parametrize("kind", ["bf16", "bf16x3", "f64"])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "bf16x3", "f64"])
 def test_k6_wide_body_votes(cuda, kind, values):
     """All-zero blocks, a lone element (its 64-row group and 32-index slice
     only are counted) and a NaN stored in A (NaN exactly where the plain
@@ -1575,15 +1574,17 @@ def test_k6_wide_body_votes(cuda, kind, values):
 
 @pytest.mark.parametrize("kind,bsz,k", [("bf16", 65, 128), ("bf16", 80, 33),
                                         ("bf16x3", 128, 33),
-                                        ("f64", 128, 33), ("f64", 40, 128)])
+                                        ("f64", 128, 33), ("f64", 40, 128),
+                                        ("f32", 66, 128), ("f32", 128, 70)])
 def test_k6_shapes_tma_cannot_take_run_the_band_body(cuda, kind, bsz, k):
     """Past the persistent body, a shape whose rows are not whole 16-byte
-    units (bsz 65 in bf16, k 33) and float64 at bsz 33-64 run K3's band
-    body, as before the wide-block body: its count is K3's chunk model."""
+    units (bsz 65 in bf16, bsz 66 in float32, k 33, float32 at k 70) and
+    float64 at bsz 33-64 run K3's band body, as before the wide-block body:
+    its count is K3's chunk model."""
     dt = {"f64": torch.float64, "bf16": torch.bfloat16}.get(kind,
                                                            torch.float32)
     prec = "bf16x3" if kind == "bf16x3" else None
-    assert tcb._k6_body(bsz, k, dt, prec is not None) == "band"
+    assert tcb._k6_body(bsz, k, dt) == "band"
     a, _ = _band_bell(5, bsz, 1, bsz + k, dt, cuda, empty=(2,))
     b = torch.from_numpy(np.random.default_rng(k).standard_normal(
         (a.n, k))).to(dt).to(cuda)

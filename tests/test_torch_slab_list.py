@@ -300,11 +300,14 @@ def test_k6_issued_model_by_hand(bsz):
 
 @pytest.mark.parametrize("stream", [torch.float32, torch.float64])
 def test_k6_issued_model_past_bsz64_is_the_band_bodys(stream):
-    """Past bsz 64 K6's float32 stream runs K3's band body on the wide row,
-    so its model is K3's: one 32 x 32 x 128 product for each 32 x 32
-    chunk of a block row's wide row [A_r0 | A_r1] (rows 32, 32 and 16 at
-    bsz 80; columns 0-31, 32-63, 64-95 (straddling the two blocks),
-    96-127, 128-159) that holds a non-zero (NaN does, -0 does not).  Its
+    """Past bsz 64 K6's float32 stream at k 70 (280 bytes an operand row,
+    not a whole number of 16-byte units, so no TMA map describes it) runs
+    K3's band body on the wide row, as it did before float32 took the
+    wide-block body at other shapes, so its model is K3's: one 32 x 32 x
+    128 product for each 32 x 32 chunk of a block row's wide row [A_r0 |
+    A_r1] (rows 32, 32 and 16 at bsz 80; columns 0-31, 32-63, 64-95
+    (straddling the two blocks), 96-127, 128-159) that holds a non-zero
+    (NaN does, -0 does not).  Its
     float64 stream at k 70 (560 bytes a row, a multiple of 16) runs the
     wide-block body instead: useful rows x useful indices x k for each
     64-row group and 32-index slice of a stored block that holds a
