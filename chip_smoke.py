@@ -34,7 +34,12 @@ versions over that stream (a 20,000-entry row, stored zeros, the
 raw-array route, refresh), phases 6 and 15 time them through
 ``csr_smvm_segtile`` / ``bsr_smvm_segtile_block`` against
 ``torch.sparse_csr_tensor(...) @ v`` with int32 and with int64 indices,
-and a profiler trace lists the kernels of one apply.  K4 and K8 share one
+with each entry's host microseconds a call, and a profiler trace lists
+the kernels of one apply.  The elasticity plan carries the folded view of
+its stream (the block RCM folded into K2's columns and output rows):
+phase 6 holds the folded K2 bitwise to the unfolded K2 gathered back,
+times both and the apply, and fails unless the apply's trace names one
+kernel, launched once.  K4 and K8 share one
 body for float32 and bf16 streams that skips the tiles' all-zero 32 x 32
 chunks: phases 9 and 15 time both streams (K4's bf16 stream through
 ``compute_dtype=bfloat16``) beside ``BSR @ B`` in the same type, and
@@ -114,7 +119,10 @@ its body, and in float32 and bf16 the kernels both sides run), the ESC and
 dense SpGEMM cores on cuts of the SpGEMM fixture, ``pcsr_spmm`` /
 ``halo_spmm_overlapped`` / ``pcsr_spgemm`` over 4 shards, and an int32
 pass exact to NumPy, and prints a ``surface`` JSON line; the kinds'
-records join their kernels' entries in the ``kernels`` line.
+records join their kernels' entries in the ``kernels`` line.  Phase 22
+drives the int32 and bf16 kinds of every kernel route and the float64
+kinds of K1, K1-r32, K1-mxu and K2 through their main paths, K2's kernel
+timed alone (as its float32 sibling is) and its apply beside it.
 
 Every phase has a deadline; any failure exits non-zero before the result
 line.  The last two lines of standard output are one JSON object per kernel
@@ -772,8 +780,12 @@ def _time_in_turns(cell, kname, kernel, plain, apply, nnz, stream_bytes,
 def phase6_timing(card, band, ela, launches):
     """K1 and K2 against their plain versions at the main path's shapes
     (tolerance, bitwise repeat), the median times of the kernel through its
-    entry point and of its plain version in turns, then of apply; a
-    profiler trace names the kernels of one apply."""
+    entry point and of its plain version in turns, then of apply, and the
+    host us a call of each kernel's entry; a profiler trace names the
+    kernels of one apply.  K2 is timed on the plan's folded view (the
+    blockseg apply's one launch, in the caller's numbering) and on the
+    unfolded stream (the permuted operand), bitwise equal once gathered
+    back; the elasticity apply must be that one K2 launch."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_csr, cuda_csr_block
 
@@ -793,6 +805,9 @@ def phase6_timing(card, band, ela, launches):
     ms_k, ms_p = _time_in_turns("band", "K1", k1, p1, lambda: plan.apply(v),
                                 band["nnz"], cuda_csr.segtile_stream_bytes(st),
                                 card)
+    host1 = _host_us(k1)
+    print(f"   band K1 csr_smvm_segtile: {host1:.2f} host us a call "
+          "(enqueue, 200 calls back to back)", flush=True)
     _apply_kernels("band apply", lambda: plan.apply(v))
     lib, libs = library_csr_ms("CSR @ v (band)", a, v, card)
     band["library_ms"] = (lib, libs)
@@ -801,25 +816,48 @@ def phase6_timing(card, band, ela, launches):
         "sparse_tpu/ops/pallas_csr.py:492", launches["K1"], err1, ms_k, ms_p,
         csr_spmv_cost(a), lib, LIBRARY_CSR,
         bytes_per_stored_entry=st.stream.bytes_per_entry,
-        library_ms_by_index=libs))
-    # K2 on the elasticity plan
+        library_ms_by_index=libs, host_us=host1))
+    # K2 on the elasticity plan: its folded view, v as the caller holds it
     plan, v = ela["plan"], ela["v"]
     ab, st = plan.state
     vp = v.reshape(-1, 2)[plan.perm].reshape(-1)
 
     def k2():
-        return cuda_csr_block.bsr_smvm_segtile_block(ab, vp, st)
+        return cuda_csr_block.block_folded_apply(ab, v, st)
 
     def p2():
-        return cuda_csr_block.block_stream_plain(st.stream, vp)
+        return cuda_csr_block.block_stream_plain(st.folded, v)
 
-    bound = _block_bound(ab, vp.abs().double())
-    err2, _ = _twice_vs_plain("K2 vs plain (elasticity)", k2, p2, bound,
-                              torch.float32)
+    def k2_unfolded():
+        return cuda_csr_block.bsr_smvm_segtile_block(ab, vp, st)
+
+    # |A||v| in the caller's numbering
+    bound = _block_bound(ab, vp.abs().double()).reshape(-1, 2)[
+        plan.inv_perm].reshape(-1)
+    err2, y2 = _twice_vs_plain("K2 vs plain (elasticity)", k2, p2, bound,
+                               torch.float32)
+    y_unf = k2_unfolded().reshape(-1, 2)[plan.inv_perm].reshape(-1)
+    if not torch.equal(y2.view(torch.int32), y_unf.view(torch.int32)):
+        raise AssertionError("elasticity: the folded K2 differs from the "
+                             "unfolded K2 gathered back")
     ms_k, ms_p = _time_in_turns(
         "elasticity", "K2", k2, p2, lambda: plan.apply(v), ela["nnz"],
         cuda_csr_block.block_stream_bytes(st), card)
-    _apply_kernels("elasticity apply", lambda: plan.apply(v))
+    _, ms_unf = _report("elasticity", "K2 unfolded", k2_unfolded, ela["nnz"],
+                        cuda_csr_block.block_stream_bytes(st), card)
+    _, ms_apply = _report("elasticity", "apply", lambda: plan.apply(v),
+                          ela["nnz"], cuda_csr_block.block_stream_bytes(st),
+                          card)
+    host2 = _host_us(k2)
+    host_apply = _host_us(lambda: plan.apply(v))
+    print(f"   elasticity K2 block_folded_apply: {host2:.2f} host us a call, "
+          f"plan.apply {host_apply:.2f} (enqueue, 200 calls back to back); "
+          "folded K2 bitwise the unfolded K2 gathered back", flush=True)
+    apply_kernels = _apply_kernels("elasticity apply", lambda: plan.apply(v),
+                                   one=True)
+    # the same kernel on the unfolded stream: its device time beside
+    unfolded_kernels = _apply_kernels("elasticity K2 unfolded", k2_unfolded,
+                                      one=True)
     lib2, libs2 = library_csr_ms("CSR @ v (elasticity)", pt.bsr_to_csr(ab),
                                  vp, card)
     # the 2x2 blocks once (values and block column), block row pointers,
@@ -835,7 +873,9 @@ def phase6_timing(card, band, ela, launches):
         "sparse_tpu/ops/pallas_csr_block.py:229", launches["K2"], err2, ms_k,
         ms_p, cost2, lib2, LIBRARY_CSR,
         bytes_per_stored_entry=st.stream.bytes_per_entry,
-        library_ms_by_index=libs2))
+        library_ms_by_index=libs2, unfolded_ms=ms_unf, apply_ms=ms_apply,
+        apply_kernels=apply_kernels, unfolded_kernels=unfolded_kernels,
+        host_us=host2, apply_host_us=host_apply))
     return out
 
 
@@ -844,17 +884,20 @@ LIBRARY_CSR = ("torch.sparse_csr_tensor(...) @ v, the faster of int32 and "
                "int64 indices")
 
 
-def _apply_kernels(label, fn, calls=5, forbid=("sort", "search")):
+def _apply_kernels(label, fn, calls=5, forbid=("sort", "search"),
+                   one=False):
     """The device kernels ``calls`` runs of ``fn`` launch, from a
     ``torch.profiler`` trace: name, launches per call and device us per
-    call.  A session in this process at times holds no device record at
-    all, torch's own kernels included, so each ends with a kernel of
-    torch's own (``torch.cuda._sleep``'s spin kernel): a session that sees
+    call; returns {name: [launches a call, us a call]}.  A session in
+    this process at times holds no device record at all, torch's own
+    kernels included, so each ends with a kernel of torch's own
+    (``torch.cuda._sleep``'s spin kernel): a session that sees
     it but none of ``fn``'s tells a kernel the trace misses from a session
     that came back empty; a session that sees none of ``fn``'s is said so
     and run again, up to three sessions.  Fails if a kernel named with a
     word of ``forbid`` runs (for a plan's apply: a sort or a search, since
-    the plan holds the order)."""
+    the plan holds the order), and with ``one`` unless the trace names
+    exactly one kernel, launched once a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -887,6 +930,10 @@ def _apply_kernels(label, fn, calls=5, forbid=("sort", "search")):
     if bad:
         raise AssertionError(f"{label}: a sort or search runs per call: "
                              f"{bad}")
+    if one and [n for n, _ in kernels.values()] != [calls]:
+        raise AssertionError(f"{label}: {len(kernels)} kernels, expected "
+                             f"one launched once a call: {sorted(kernels)}")
+    return {k: [n / calls, us / calls] for k, (n, us) in kernels.items()}
 
 
 def _block_bound(ab, vabs):
@@ -4799,16 +4846,17 @@ def _int_check(label, want):
     return check
 
 
-def _bf16_check(label, exact, mag, tol=BF16_SPMV_GATE):
-    """``check(y)`` for a bf16 SpMV result: within ``tol`` (|A||v|)_i of
-    SciPy's float64 ``exact``; returns the max abs error."""
+def _bf16_check(label, exact, mag, tol=BF16_SPMV_GATE,
+                dtype=torch.bfloat16):
+    """``check(y)`` for a bf16 (or ``dtype``) SpMV result: within ``tol``
+    (|A||v|)_i of SciPy's float64 ``exact``; returns the max abs error."""
     exact, mag = torch.from_numpy(exact), torch.from_numpy(mag)
 
     def check(y):
         nonlocal exact, mag
         exact, mag = exact.to(y.device), mag.to(y.device)
-        if y.dtype != torch.bfloat16:
-            raise AssertionError(f"{label}: {y.dtype}, expected bf16")
+        if y.dtype != dtype:
+            raise AssertionError(f"{label}: {y.dtype}, expected {dtype}")
         return _gate(label, y, exact, mag, tol)
 
     return check
@@ -4816,25 +4864,34 @@ def _bf16_check(label, exact, mag, tol=BF16_SPMV_GATE):
 
 def _vs_plain(label, y, yp, mag):
     """The kernel against its plain version: equal for int32; for bf16
-    within two roundings, 2 * 2^-8 (|A||v|)_i; returns the max abs error."""
+    within two roundings, 2 * 2^-8 (|A||v|)_i; for float64 within two
+    float64 gates, 2e-12 (|A||v|)_i; returns the max abs error."""
     if y.dtype == torch.int32:
         if not torch.equal(y, yp):
             raise AssertionError(f"{label}: differs from its plain version")
         return 0
-    return _gate(label, y, yp, torch.from_numpy(mag).to(y.device),
-                 2 * BF16_SPMV_GATE)
+    tol = (2 * TOL[torch.float64] if y.dtype == torch.float64
+           else 2 * BF16_SPMV_GATE)
+    return _gate(label, y, yp, torch.from_numpy(mag).to(y.device), tol)
 
 
 def _new_kind(card, label, kname, main, kern, plain, check, mag, cost, dtype,
-              sibling, lib, lib_call):
-    """One int32 or bf16 kind of kernel ``kname``: its main path ``main``
-    (an entry point a user calls) once, the kernel's launch count set to 0
-    just before and read just after, checked by ``check``; the kernel
-    ``kern`` twice, bitwise equal, against its plain version and ``check``;
-    then back to back (``_b2b``) the kernel, its plain version and its
-    float32 sibling, beside the bound of ``cost`` (bytes, operations) at
-    ``dtype``'s peak and the library call's ``lib`` ms (None: refused, the
-    reason in ``LIBRARY_REFUSALS[lib_call]``).  Returns the record."""
+              sibling, lib, lib_call, view=None, apply=None):
+    """One int32, bf16 or float64 kind of kernel ``kname``: its main path
+    ``main`` (an entry point a user calls) once, the kernel's launch count
+    set to 0 just before and read just after, checked by ``check``; the
+    kernel ``kern`` twice, bitwise equal, against its plain version and
+    ``check`` (both through ``view`` when given: the main path's numbering
+    of a kernel that runs in the plan's); then back to back (``_b2b``) the
+    kernel, its plain version, its float32 sibling and, when given,
+    ``apply`` (the main path's call), beside the bound of ``cost`` (bytes,
+    operations) at ``dtype``'s peak and the library call's ``lib`` ms
+    (None: refused, the reason in ``LIBRARY_REFUSALS[lib_call]``).  Returns
+    the record."""
+    if view is None:
+        def view(y):
+            return y
+
     mod, attr = _launch_attr(kname)
     setattr(mod, attr, 0)
     y = main()
@@ -4849,19 +4906,21 @@ def _new_kind(card, label, kname, main, kern, plain, check, mag, cost, dtype,
     if not torch.equal(y1, y2):
         raise AssertionError(f"{label}: two runs differ bitwise")
     del y2
-    err_p = _vs_plain(label, y1, plain(), mag)
-    if check(y1) != err:
+    err_p = _vs_plain(label, view(y1), view(plain()), mag)
+    if check(view(y1)) != err:
         raise AssertionError(f"{label}: the kernel's result is not the "
                              "main path's")
     del y1
     ms, fastest, n = _b2b(kern)
     plain_ms = _b2b(plain)[0]
     sib_ms = _b2b(sibling)[0]
+    apply_ms = None if apply is None else _b2b(apply)[0]
+    main_ms = "" if apply is None else f"main-path call {apply_ms:.4f} ms; "
     b_ms, b_by = bound_ms(*cost, dtype)
     print(f"   {label}: main path launched {kname} {launches} time(s); "
           f"gate passed (max err {err:.3e}, vs plain {err_p:.3e}); "
           f"{ms:.4f} ms back to back (median of 5 windows of {n}; fastest "
-          f"{fastest:.4f}); float32 sibling {sib_ms:.4f} ms; plain "
+          f"{fastest:.4f}); float32 sibling {sib_ms:.4f} ms; {main_ms}plain "
           f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
           f"{cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.3f} Gop), "
           f"{b_ms / ms:.1%} of it; library "
@@ -4871,6 +4930,8 @@ def _new_kind(card, label, kname, main, kern, plain, check, mag, cost, dtype,
                float32_ms=sib_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=lib, library_call=lib_call, max_abs_err=err,
                max_abs_err_vs_plain=err_p, launches=launches)
+    if apply is not None:
+        rec["apply_ms"] = apply_ms
     if lib is None:
         rec["library_error"] = LIBRARY_REFUSALS.get(lib_call, "refused")
     return rec
@@ -4894,9 +4955,11 @@ def _library_csr(cell, kind, a, v, card):
 
 
 def _phase22_spmv(card, band, sl, ela, out):
-    """K1, K1-r32, K1-mxu on band-10M and K2 on elasticity-400k in int32
-    and bf16, each main path ``smvm_prepare(a) -> plan.apply(v)`` (and
-    ``csr_smvm_segtile`` for the variants)."""
+    """K1, K1-r32, K1-mxu on band-10M and K2 on elasticity-400k in int32,
+    bf16 and float64, each main path ``smvm_prepare(a) -> plan.apply(v)``
+    (and ``csr_smvm_segtile`` for the variants).  K2 is timed as its
+    float32 sibling is, alone on the plan's stream and the permuted
+    operand, and the main path's apply (its folded view) beside it."""
     import dataclasses
 
     import sparse_tpu_torch as pt
@@ -4914,7 +4977,8 @@ def _phase22_spmv(card, band, sl, ela, out):
     ep32, ev32 = ela["plan"], ela["v"]
     eb32, est32 = ep32.state
     evp32 = ev32.reshape(-1, 2)[ep32.perm].reshape(-1)
-    for kind, dt in (("int32", torch.int32), ("bf16", torch.bfloat16)):
+    for kind, dt in (("int32", torch.int32), ("bf16", torch.bfloat16),
+                     ("float64", torch.float64)):
         if dt == torch.int32:
             a = dataclasses.replace(a32, data=(a32.data * 400).round().to(dt))
             v = torch.from_numpy(rng.integers(-8, 9, n)).to(dt).to(
@@ -4924,6 +4988,8 @@ def _phase22_spmv(card, band, sl, ela, out):
             v = v32.to(dt)
         s, vh = sp_csr_f64(a), v.double().cpu().numpy()
         mag = abs(s) @ np.abs(vh)
+        gates = {"bf16": (BF16_SPMV_GATE, dt),
+                 "float64": (TOL[torch.float64], dt)}
         t0 = time.perf_counter()
         plan = pt.smvm_prepare(a)
         t_prep = time.perf_counter() - t0
@@ -4936,7 +5002,8 @@ def _phase22_spmv(card, band, sl, ela, out):
         inv = plan.inv_perm
         unperm = (lambda y: y) if inv is None else (lambda y: y[inv])
         check = (_int_check(f"band-10M {kind}", s @ vh) if kind == "int32"
-                 else _bf16_check(f"band-10M {kind}", s @ vh, mag))
+                 else _bf16_check(f"band-10M {kind}", s @ vh, mag,
+                                  *gates[kind]))
         lib, call = _library_csr("band-10M", kind, a, v, card)
         cost = (csr_spmv_cost(a)[0], 2 * int(a.indptr[-1]))
         print(f"   band-10M {kind}: smvm_prepare {t_prep:.2f} s (host), rung "
@@ -5001,11 +5068,12 @@ def _phase22_spmv(card, band, sl, ela, out):
 
         echeck = (_int_check(f"elasticity-400k {kind}", se @ wh)
                   if kind == "int32" else
-                  _bf16_check(f"elasticity-400k {kind}", se @ wh, emag))
+                  _bf16_check(f"elasticity-400k {kind}", se @ wh, emag,
+                              *gates[kind]))
         lib2, call2 = _library_csr("elasticity-400k", kind, ae, w, card)
         nb = eb.nb
         nbz = int((eb.indices.long() < nb * nb).sum())
-        size = 4 if dt == torch.int32 else 2
+        size = torch.empty(0, dtype=dt).element_size()
         cost2 = (blocked_bound_bytes(nbz, 2, eb.n, value_bytes=size,
                                      out_bytes=size, row_pointers=True),
                  2 * 4 * nbz)
@@ -5014,13 +5082,11 @@ def _phase22_spmv(card, band, sl, ela, out):
         out["K2"][kind] = _new_kind(
             card, f"elasticity-400k K2 {kind} (smvm_prepare -> plan.apply)",
             "K2", lambda: eplan.apply(w),
-            lambda: eunperm(cuda_csr_block.bsr_smvm_segtile_block(eb, wp,
-                                                                  est)),
-            lambda: eunperm(cuda_csr_block.block_stream_plain(est.stream,
-                                                              wp)),
+            lambda: cuda_csr_block.bsr_smvm_segtile_block(eb, wp, est),
+            lambda: cuda_csr_block.block_stream_plain(est.stream, wp),
             echeck, emag, cost2, dt,
             lambda: cuda_csr_block.bsr_smvm_segtile_block(eb32, evp32, est32),
-            lib2, call2)
+            lib2, call2, view=eunperm, apply=lambda: eplan.apply(w))
         out["K2"][kind]["setup_s"] = t_prep
         del eplan, eb, est, ae
 
@@ -5209,15 +5275,15 @@ def _phase22_slab(card, out):
 
 def phase22_int_bf16(card, band, sl, ela, m):
     """The int32 kinds of K1 (and K1-r32, K1-mxu), K2, K3-K8 and the bf16
-    kinds of K1 (and its variants) and K2 at the suite's sizes: band-10M,
-    elasticity-400k, bell-band-80M (k 128, K5 at k 32) and
-    spgemm-block-181k's plan.  Each kind's main path runs with the
+    and float64 kinds of K1 (and its variants) and K2 at the suite's
+    sizes: band-10M, elasticity-400k, bell-band-80M (k 128, K5 at k 32)
+    and spgemm-block-181k's plan.  Each kind's main path runs with the
     kernel's launch count set to 0 just before and read just after; its
     record holds the kernel against its plain version (int32: equal) and
-    NumPy (int32: exact on the oracle's rows; bf16: within 2^-8 |A||v|),
-    bitwise repeatable, its back-to-back ms beside its float32 sibling's,
-    its plain version's, its bound and the library call's.  Returns
-    {kernel: {kind: record}}."""
+    NumPy (int32: exact on the oracle's rows; bf16: within 2^-8 |A||v|;
+    float64: within 1e-12 |A||v|), bitwise repeatable, its back-to-back
+    ms beside its float32 sibling's, its plain version's, its bound and
+    the library call's.  Returns {kernel: {kind: record}}."""
     out = {k: {} for k in ("K1", "K1-r32", "K1-mxu", "K2", "K3", "K4", "K5",
                            "K6", "K7", "K8")}
     _phase22_spmv(card, band, sl, ela, out)
@@ -5379,7 +5445,7 @@ def main():
           flush=True)
     # the int32 / bf16 kinds' run: each kind's launch count starts at 0
     # just before its main path (phase 22)
-    with Phase("phase 22: the int32 and bf16 kinds at the suite's sizes",
+    with Phase("phase 22: the int32, bf16 and SpMV float64 kinds at size",
                300):
         new_kinds = phase22_int_bf16(card, band, slice_run, ela, spmm_run)
     for kname, recs in new_kinds.items():

@@ -26,8 +26,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "find_nvcc", "library_path", "build",
-           "load", "check"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "StreamArgs", "find_nvcc",
+           "library_path", "build", "load", "check"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -49,15 +49,12 @@ _I = ctypes.c_int
 
 # name -> argtypes.  Pointer arguments are c_void_p (a Python int from
 # Tensor.data_ptr()); the last argument is the cudaStream_t.
-_STREAM = (_P,) * 9 + (_LL,) * 3  # the compact-stream kernels' common head
 _SIGNATURES = {
-    # vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
-    # n_rows, n_long, n_pieces, long_min, piece, group, stream
-    **{f"segtile_{k}_{t}": _STREAM + (_I, _I, _I, _P)
-       for k in ("csr", "block") for t in ("f32", "f64", "i32", "bf16")},
-    # the same without the lane group
-    **{f"segtile_mxu_{t}": _STREAM + (_I, _I, _P)
-       for t in ("f32", "f64", "bf16")},
+    # the compact-stream kernels (K1, K1-mxu, K2): the address of the
+    # stream's StreamArgs, vals, v, partial, y, stream
+    **{f"segtile_{k}_{t}": (_P,) * 6
+       for k in ("csr", "block", "mxu") for t in ("f32", "f64", "i32", "bf16")
+       if (k, t) != ("mxu", "i32")},
     # kind, blocks, cols, b, c, nb, Lb, bsz, k, stream
     "bell_fused": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
     "bell_block": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
@@ -81,6 +78,20 @@ _SIGNATURES = {
     # null), stream
     "bsr_slab": (_I, _P, _P, _P, _P, _P, _LL, _LL, _P, _P),
 }
+
+
+class StreamArgs(ctypes.Structure):
+    """``csrc/segtile_common.cuh``'s ``StreamArgs``: a compact stream's
+    arguments that stay the same from call to call (device pointers as
+    ints; ``out_rows`` / ``out_long`` 0 but in K2's folded view), built
+    once per stream by its wrapper and passed by address."""
+
+    _fields_ = [("cols", _P), ("row_ptr", _P), ("long_rows", _P),
+                ("piece_ptr", _P), ("piece_row", _P), ("n_rows", _LL),
+                ("n_long", _LL), ("n_pieces", _LL), ("long_min", _I),
+                ("piece", _I), ("group", _I), ("out_rows", _P),
+                ("out_long", _P)]
+
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -29,6 +29,21 @@
 // Long block rows are cut into pieces of 128 blocks, summed in order, as
 // in segtile_common.cuh.
 //
+// The folded view (a plan composed with a block permutation P, the block
+// RCM of ops/dispatch.py): the stream's block columns are given in the
+// caller's numbering (P[c]) and out_rows maps stream block row r to the
+// caller's block row P[r] (out_long likewise for the long rows), so
+// y[2*P[r] + i] is written straight from the stream with no gather of v
+// before the kernel and none of y after it.  The stream and each row's
+// order of summation are the unfolded plan's, so the folded result has the
+// bits of the unfolded one gathered back through P.  A null out_rows is
+// the identity (the unfolded stream).  What it costs: where the caller's
+// numbering scatters neighbouring block rows (a node-scrambled mesh), the
+// operand's window no longer stays in L1 and each pair gather reads its
+// own L2 sector; the operand (1.6 MB at 400k float32 rows) still stays in
+// the 50 MB L2, and the two gathers and their launches around the
+// unfolded kernel are gone.
+//
 // Kinds: float32 and float64 (BlockEntries); int32 (WideBlockEntries<int>:
 // 16-byte records, multiply-adds in unsigned — the reference's wrapping
 // int32 result in any order — stored as int32 bits); bf16
@@ -62,7 +77,8 @@ struct BlockEntries {
   static constexpr int kC = 2;
   const T* vals;  // (nbz, 4), 16-byte aligned
   const int* cols;
-  const T* v;  // (2 * nb), aligned to two elements
+  const T* v;          // (2 * nb), aligned to two elements
+  const int* out_rows;  // stream block row -> y's block row, or null
 
   struct Unit {
     T a[4];
@@ -82,6 +98,10 @@ struct BlockEntries {
     load_pair(v, x.c, x0, x1);
     acc[0] += x.a[0] * x0 + x.a[1] * x1;
     acc[1] += x.a[2] * x0 + x.a[3] * x1;
+  }
+
+  __device__ __forceinline__ long long out_row(long long r) const {
+    return out_rows ? __ldg(out_rows + r) : r;
   }
 
   __device__ __forceinline__ static void store(T* out, long long i,
@@ -119,7 +139,8 @@ struct WideBlockEntries {
   static constexpr int kC = 2;
   const V* vals;  // (nbz, 4), 16-byte aligned
   const int* cols;
-  const V* v;  // (2 * nb), aligned to two elements
+  const V* v;          // (2 * nb), aligned to two elements
+  const int* out_rows;  // stream block row -> y's block row, or null
 
   struct Unit {
     V a[4];
@@ -141,6 +162,10 @@ struct WideBlockEntries {
     acc[1] += W::of(x.a[2]) * x0 + W::of(x.a[3]) * x1;
   }
 
+  __device__ __forceinline__ long long out_row(long long r) const {
+    return out_rows ? __ldg(out_rows + r) : r;
+  }
+
   __device__ __forceinline__ static void store(T* out, long long i,
                                                const T (&acc)[2]) {
     out[2 * i] = acc[0];
@@ -153,58 +178,51 @@ struct WideBlockEntries {
   }
 };
 
+// A C entry of block kind E (records and operand of type V).
+template <class E, typename V>
+int launch_block(const StreamArgs* a, const void* vals, const void* v,
+                 void* partial, void* y, void* stream) {
+  const E ent{static_cast<const V*>(vals), a->cols, static_cast<const V*>(v),
+              a->out_rows};
+  return static_cast<int>(launch_stream_rows_any(
+      ent, rows_of(*a), a->n_long, a->group,
+      static_cast<typename E::T*>(partial), static_cast<typename E::Out*>(y),
+      static_cast<cudaStream_t>(stream), a->out_long));
+}
+
 }  // namespace
 
 extern "C" {
 
-// vals (nbz, 4) block records, cols int32 (nbz) block columns, row_ptr int32
-// (n_rows + 1) over block rows, long_rows/piece_ptr/piece_row as in
-// segtile_csr.cu, v (2 * nb), partial scratch (2 * n_pieces), y (2 * n_rows)
-// with y[2*row + i].  Returns cudaGetLastError().
-int segtile_block_f32(const void* vals, const void* cols,
-                      const void* row_ptr, const void* long_rows,
-                      const void* piece_ptr, const void* piece_row,
-                      const void* v, void* partial, void* y, long long n_rows,
-                      long long n_long, long long n_pieces, int long_min,
-                      int piece, int group, void* stream) {
-  return launch_entries<BlockEntries<float>, float>(
-      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
-      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+// a: the stream's fixed arguments (segtile_common.cuh: block columns, row
+// offsets over block rows, long rows, lane group, and for the folded view
+// out_rows / out_long, else both null); vals (nbz, 4) block records, v
+// (2 * nb), partial scratch (2 * n_pieces), y (2 * n_rows) with
+// y[2*out_row + i], and the CUDA stream.  Returns cudaGetLastError().
+int segtile_block_f32(const StreamArgs* a, const void* vals, const void* v,
+                      void* partial, void* y, void* stream) {
+  return launch_block<BlockEntries<float>, float>(a, vals, v, partial, y,
+                                                  stream);
 }
 
-int segtile_block_f64(const void* vals, const void* cols,
-                      const void* row_ptr, const void* long_rows,
-                      const void* piece_ptr, const void* piece_row,
-                      const void* v, void* partial, void* y, long long n_rows,
-                      long long n_long, long long n_pieces, int long_min,
-                      int piece, int group, void* stream) {
-  return launch_entries<BlockEntries<double>, double>(
-      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
-      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+int segtile_block_f64(const StreamArgs* a, const void* vals, const void* v,
+                      void* partial, void* y, void* stream) {
+  return launch_block<BlockEntries<double>, double>(a, vals, v, partial, y,
+                                                    stream);
 }
 
 // int32: records, v and y int32, partial int32 scratch (the sums' bits).
-int segtile_block_i32(const void* vals, const void* cols,
-                      const void* row_ptr, const void* long_rows,
-                      const void* piece_ptr, const void* piece_row,
-                      const void* v, void* partial, void* y, long long n_rows,
-                      long long n_long, long long n_pieces, int long_min,
-                      int piece, int group, void* stream) {
-  return launch_entries<WideBlockEntries<int>, int>(
-      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
-      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+int segtile_block_i32(const StreamArgs* a, const void* vals, const void* v,
+                      void* partial, void* y, void* stream) {
+  return launch_block<WideBlockEntries<int>, int>(a, vals, v, partial, y,
+                                                  stream);
 }
 
 // bf16: records, v and y bf16 (8-byte records), partial float32 scratch.
-int segtile_block_bf16(const void* vals, const void* cols,
-                       const void* row_ptr, const void* long_rows,
-                       const void* piece_ptr, const void* piece_row,
-                       const void* v, void* partial, void* y,
-                       long long n_rows, long long n_long, long long n_pieces,
-                       int long_min, int piece, int group, void* stream) {
-  return launch_entries<WideBlockEntries<__nv_bfloat16>, __nv_bfloat16>(
-      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
-      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+int segtile_block_bf16(const StreamArgs* a, const void* vals, const void* v,
+                       void* partial, void* y, void* stream) {
+  return launch_block<WideBlockEntries<__nv_bfloat16>, __nv_bfloat16>(
+      a, vals, v, partial, y, stream);
 }
 
 }  // extern "C"

@@ -9,7 +9,10 @@
 // at most `long_min` entries: a lane group sums it and writes y[r] once.  A
 // longer row is cut into pieces of `piece` entries; one warp sums each piece
 // into partial[p], and long_row_sum adds a row's pieces in piece order.  No
-// float atomics anywhere, so every result is bitwise repeatable.
+// float atomics anywhere, so every result is bitwise repeatable.  An entry
+// kind may write stream row r to another output row (E::out_row: K2's
+// folded view writes in the caller's numbering); the long rows' sum then
+// takes their output rows as a list of its own (out_long).
 //
 // Value kinds: float32 and float64 sum in their own type; int32 multiplies
 // and adds in unsigned (a sum modulo 2^32, the reference's wrapping int32
@@ -17,8 +20,10 @@
 // operand exactly to float32, sums in float32 (partial too) and rounds once
 // to bf16 as y is stored (Widen<V>, store_out).
 //
-// Everything lives in an anonymous namespace so each translation unit keeps
-// its own copy of the templates (all are linked into one library).
+// Everything but StreamArgs (the C entries' fixed arguments, one layout for
+// the whole library) lives in an anonymous namespace so each translation
+// unit keeps its own copy of the templates (all are linked into one
+// library).
 
 #pragma once
 
@@ -209,7 +214,8 @@ __device__ __forceinline__ void chunk_rows(const E& ent, const Rows& rows,
       ent.add(acc[k], ent.load(u), u, s[k], e[k]);
 #pragma unroll
     for (int c = 0; c < E::kC; ++c) acc[k][c] = group_sum<G>(acc[k][c]);
-    if (mine[k] && g == 0) E::store(y, r0 + k * kGroups, acc[k]);
+    if (mine[k] && g == 0)
+      E::store(y, ent.out_row(r0 + k * kGroups), acc[k]);
   }
 }
 
@@ -217,7 +223,8 @@ __device__ __forceinline__ void chunk_rows(const E& ent, const Rows& rows,
 //   E::T (the sums' type, and partial's), E::Out (y's), E::kUnit (entries per load unit), E::kC (output components per
 //   row), E::Unit and E::load(u) (load unit u's stream words),
 //   E::add(acc, x, u, s, e) (adds the entries of loaded unit x = u that lie
-//   in [s, e)) and E::store(out, i, acc) (writes out[i*kC .. i*kC + kC)).
+//   in [s, e)), E::out_row(r) (the output row of stream row r) and
+//   E::store(out, i, acc) (writes out[i*kC .. i*kC + kC)).
 // Blocks [0, n_row_blocks) take the short rows, each `per_block`
 // consecutive chunks of kThreads / G * K rows in turn, so the operand's
 // window of neighbouring rows stays in the SM's L1 from one chunk to the
@@ -276,13 +283,16 @@ __global__ void long_row_sum(const T* __restrict__ partial,
   }
 }
 
+// out_long: each long row's output row (null: its stream row).
 template <typename T, int C, typename Out = T>
 cudaError_t launch_long_row_sum(const T* partial, const Rows& rows,
-                                long long n_long, Out* y, cudaStream_t s) {
+                                long long n_long, Out* y, cudaStream_t s,
+                                const int* out_long = nullptr) {
   if (n_long > 0) {
     const long long blocks = (n_long + kThreads - 1) / kThreads;
     long_row_sum<T, C, Out><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        partial, rows.long_rows, rows.piece_ptr, n_long, y);
+        partial, out_long ? out_long : rows.long_rows, rows.piece_ptr, n_long,
+        y);
   }
   return cudaGetLastError();
 }
@@ -305,7 +315,8 @@ inline cudaError_t split_chunks(long long chunks, long long& per_block,
 template <class E, int G>
 cudaError_t launch_stream_rows(const E& ent, const Rows& rows,
                                long long n_long, typename E::T* partial,
-                               typename E::Out* y, cudaStream_t s) {
+                               typename E::Out* y, cudaStream_t s,
+                               const int* out_long) {
   constexpr int kChunkRows = kThreads / G * rows_per_group<G>();
   long long per_block, row_blocks;
   cudaError_t err = split_chunks((rows.n_rows + kChunkRows - 1) / kChunkRows,
@@ -319,48 +330,80 @@ cudaError_t launch_stream_rows(const E& ent, const Rows& rows,
     if (err != cudaSuccess) return err;
   }
   return launch_long_row_sum<typename E::T, E::kC, typename E::Out>(
-      partial, rows, n_long, y, s);
+      partial, rows, n_long, y, s, out_long);
 }
 
-// Dispatch the lane-group size (1, 2, 4, ..., 32) to its instantiation.
+// Dispatch the lane-group size (1, 2, 4, ..., 32) to its instantiation;
+// out_long as in launch_long_row_sum.
 template <class E>
 cudaError_t launch_stream_rows_any(const E& ent, const Rows& rows,
                                    long long n_long, int group,
                                    typename E::T* partial,
-                                   typename E::Out* y, cudaStream_t s) {
+                                   typename E::Out* y, cudaStream_t s,
+                                   const int* out_long = nullptr) {
   switch (group) {
-    case 1: return launch_stream_rows<E, 1>(ent, rows, n_long, partial, y, s);
-    case 2: return launch_stream_rows<E, 2>(ent, rows, n_long, partial, y, s);
-    case 4: return launch_stream_rows<E, 4>(ent, rows, n_long, partial, y, s);
-    case 8: return launch_stream_rows<E, 8>(ent, rows, n_long, partial, y, s);
+    case 1:
+      return launch_stream_rows<E, 1>(ent, rows, n_long, partial, y, s,
+                                      out_long);
+    case 2:
+      return launch_stream_rows<E, 2>(ent, rows, n_long, partial, y, s,
+                                      out_long);
+    case 4:
+      return launch_stream_rows<E, 4>(ent, rows, n_long, partial, y, s,
+                                      out_long);
+    case 8:
+      return launch_stream_rows<E, 8>(ent, rows, n_long, partial, y, s,
+                                      out_long);
     case 16:
-      return launch_stream_rows<E, 16>(ent, rows, n_long, partial, y, s);
+      return launch_stream_rows<E, 16>(ent, rows, n_long, partial, y, s,
+                                       out_long);
     case 32:
-      return launch_stream_rows<E, 32>(ent, rows, n_long, partial, y, s);
+      return launch_stream_rows<E, 32>(ent, rows, n_long, partial, y, s,
+                                       out_long);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// A C entry of an entries kind E: its values and operand of type V, int32
-// columns, the stream's row classes, lane group `group` (1, 2, 4, ..., 32);
-// returns cudaGetLastError().
+}  // namespace
+
+// The arguments of a compact-stream kernel that stay the same from call to
+// call, built once per stream by its wrapper (ops/cuda_csr.py, whose
+// ctypes copy is _kernels.StreamArgs) and passed by address.
+struct StreamArgs {
+  const int* cols;       // int32 columns, 16-byte aligned
+  const int* row_ptr;    // (n_rows + 1) entry offsets
+  const int* long_rows;  // (n_long)
+  const int* piece_ptr;  // (n_long + 1)
+  const int* piece_row;  // (n_pieces)
+  long long n_rows;
+  long long n_long;
+  long long n_pieces;
+  int long_min;
+  int piece;
+  int group;             // K1's and K2's lane group: 1, 2, 4, ..., 32
+  const int* out_rows;   // K2's folded view: (n_rows) output rows, or null
+  const int* out_long;   // (n_long) the long rows' output rows, or null
+};
+
+namespace {
+
+// The row classes of a stream's fixed arguments.
+inline Rows rows_of(const StreamArgs& a) {
+  return Rows{a.row_ptr, a.long_rows, a.piece_ptr, a.piece_row,
+              a.n_rows,  a.n_pieces,  a.long_min,  a.piece};
+}
+
+// A C entry of an entries kind E (values and operand of type V, int32
+// columns): the stream's fixed arguments, then the values, the operand,
+// the scratch, y and the CUDA stream; returns cudaGetLastError().
 template <class E, typename V>
-int launch_entries(const void* vals, const void* cols, const void* row_ptr,
-                   const void* long_rows, const void* piece_ptr,
-                   const void* piece_row, const void* v, void* partial,
-                   void* y, long long n_rows, long long n_long,
-                   long long n_pieces, int long_min, int piece, int group,
-                   void* stream) {
-  const E ent{static_cast<const V*>(vals), static_cast<const int*>(cols),
-              static_cast<const V*>(v)};
-  const Rows rows{static_cast<const int*>(row_ptr),
-                  static_cast<const int*>(long_rows),
-                  static_cast<const int*>(piece_ptr),
-                  static_cast<const int*>(piece_row), n_rows, n_pieces,
-                  long_min, piece};
+int launch_entries(const StreamArgs* a, const void* vals, const void* v,
+                   void* partial, void* y, void* stream) {
+  const E ent{static_cast<const V*>(vals), a->cols, static_cast<const V*>(v)};
   return static_cast<int>(launch_stream_rows_any(
-      ent, rows, n_long, group, static_cast<typename E::T*>(partial),
-      static_cast<typename E::Out*>(y), static_cast<cudaStream_t>(stream)));
+      ent, rows_of(*a), a->n_long, a->group,
+      static_cast<typename E::T*>(partial), static_cast<typename E::Out*>(y),
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace

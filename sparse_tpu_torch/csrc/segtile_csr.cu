@@ -82,6 +82,10 @@ struct ScalarEntries {
     }
   }
 
+  __device__ __forceinline__ static long long out_row(long long r) {
+    return r;
+  }
+
   __device__ __forceinline__ static void store(T* out, long long i,
                                                const T (&acc)[1]) {
     out[i] = acc[0];
@@ -125,6 +129,10 @@ struct WideEntries {
     }
   }
 
+  __device__ __forceinline__ static long long out_row(long long r) {
+    return r;
+  }
+
   __device__ __forceinline__ static void store(T* out, long long i,
                                                const T (&acc)[1]) {
     out[i] = acc[0];
@@ -139,55 +147,34 @@ struct WideEntries {
 
 extern "C" {
 
-// vals (nnz padded to a multiple of 4, 16-byte aligned), cols int32 (same
-// length and alignment), row_ptr int32 (n_rows + 1), long_rows int32
-// (n_long), piece_ptr int32 (n_long + 1), piece_row int32 (n_pieces), v (m),
-// partial scratch (n_pieces), y (n_rows); group is 1, 2, 4, 8, 16 or 32.
-// Returns cudaGetLastError().
-int segtile_csr_f32(const void* vals, const void* cols, const void* row_ptr,
-                    const void* long_rows, const void* piece_ptr,
-                    const void* piece_row, const void* v, void* partial,
-                    void* y, long long n_rows, long long n_long,
-                    long long n_pieces, int long_min, int piece, int group,
-                    void* stream) {
-  return launch_entries<ScalarEntries<float>, float>(
-      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
-      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+// a: the stream's fixed arguments (segtile_common.cuh; cols padded to a
+// multiple of 4 entries, 16-byte aligned; no output map); vals (cols'
+// length and alignment), v (m), partial scratch (n_pieces), y (n_rows) and
+// the CUDA stream.  Returns cudaGetLastError().
+int segtile_csr_f32(const StreamArgs* a, const void* vals, const void* v,
+                    void* partial, void* y, void* stream) {
+  return launch_entries<ScalarEntries<float>, float>(a, vals, v, partial, y,
+                                                     stream);
 }
 
-int segtile_csr_f64(const void* vals, const void* cols, const void* row_ptr,
-                    const void* long_rows, const void* piece_ptr,
-                    const void* piece_row, const void* v, void* partial,
-                    void* y, long long n_rows, long long n_long,
-                    long long n_pieces, int long_min, int piece, int group,
-                    void* stream) {
-  return launch_entries<ScalarEntries<double>, double>(
-      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
-      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+int segtile_csr_f64(const StreamArgs* a, const void* vals, const void* v,
+                    void* partial, void* y, void* stream) {
+  return launch_entries<ScalarEntries<double>, double>(a, vals, v, partial,
+                                                       y, stream);
 }
 
 // int32: vals, v and y int32, partial int32 scratch (the sums' bits).
-int segtile_csr_i32(const void* vals, const void* cols, const void* row_ptr,
-                    const void* long_rows, const void* piece_ptr,
-                    const void* piece_row, const void* v, void* partial,
-                    void* y, long long n_rows, long long n_long,
-                    long long n_pieces, int long_min, int piece, int group,
-                    void* stream) {
-  return launch_entries<WideEntries<int>, int>(
-      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
-      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+int segtile_csr_i32(const StreamArgs* a, const void* vals, const void* v,
+                    void* partial, void* y, void* stream) {
+  return launch_entries<WideEntries<int>, int>(a, vals, v, partial, y,
+                                               stream);
 }
 
 // bf16: vals, v and y bf16, partial float32 scratch.
-int segtile_csr_bf16(const void* vals, const void* cols, const void* row_ptr,
-                     const void* long_rows, const void* piece_ptr,
-                     const void* piece_row, const void* v, void* partial,
-                     void* y, long long n_rows, long long n_long,
-                     long long n_pieces, int long_min, int piece, int group,
-                     void* stream) {
+int segtile_csr_bf16(const StreamArgs* a, const void* vals, const void* v,
+                     void* partial, void* y, void* stream) {
   return launch_entries<WideEntries<__nv_bfloat16>, __nv_bfloat16>(
-      vals, cols, row_ptr, long_rows, piece_ptr, piece_row, v, partial, y,
-      n_rows, n_long, n_pieces, long_min, piece, group, stream);
+      a, vals, v, partial, y, stream);
 }
 
 }  // extern "C"

@@ -351,9 +351,16 @@ def smvm_plan_from_arrays(kind: str, state, *, shape, perm=None,
                           inv_perm=None, value_src=None,
                           device=None) -> SmvmAutoPlan:
     """A dispatch plan of rung ``kind`` from the reference's state objects
-    (see the module docstring) and its reorder arrays."""
+    (see the module docstring) and its reorder arrays; a ``blockseg`` plan
+    with a reorder carries its folded view, as ``smvm_prepare``'s does."""
+    st = _state(kind, state, device)
+    if kind == "blockseg" and perm is not None:
+        from .ops.cuda_csr_block import block_seg_tiles_fold
+
+        st = (st[0], block_seg_tiles_fold(st[1], _t(perm, device,
+                                                     torch.int64)))
     return SmvmAutoPlan(
-        state=_state(kind, state, device),
+        state=st,
         perm=_t(perm, device, torch.int64),
         inv_perm=_t(inv_perm, device, torch.int64),
         kind=kind, shape=(int(shape[0]), int(shape[1])),

@@ -42,6 +42,7 @@ reference-shaped oracle.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import warnings
 
@@ -109,6 +110,12 @@ class CompactStream:
     lists the long rows, ``piece_ptr`` (n_long + 1) offsets their pieces,
     ``piece_row`` names each piece's long row.  ``perm`` (refreshable
     plans): each stream entry's index in the plan's ``pos``/``eidx`` order.
+    ``out_rows`` / ``out_long`` (a folded view,
+    :func:`~.cuda_csr_block.block_seg_tiles_fold`): the int32 output row
+    of each stream row and of each long row, the columns given in the same
+    numbering; None is the identity.  Each kernel's arguments that stay the
+    same from call to call are kept on the stream at its first launch
+    (:func:`_fixed_args`), outside the fields.
     """
 
     vals: torch.Tensor
@@ -123,6 +130,8 @@ class CompactStream:
     long_min: int
     piece: int
     perm: torch.Tensor | None = None
+    out_rows: torch.Tensor | None = None
+    out_long: torch.Tensor | None = None
 
     @property
     def n_long(self) -> int:
@@ -704,10 +713,11 @@ def segtile_stream_apply(stream: CompactStream, v, *, rows: int = 8,
 
 
 def _stream_rows(stream: CompactStream) -> torch.Tensor:
-    """The row of each stream entry (int64)."""
-    return torch.repeat_interleave(
-        torch.arange(stream.n_rows, device=stream.row_ptr.device),
-        stream.row_ptr.diff().long())
+    """The output row of each stream entry (int64): its stream row, or
+    that row's ``out_rows`` in a folded view."""
+    rows = (torch.arange(stream.n_rows, device=stream.row_ptr.device)
+            if stream.out_rows is None else stream.out_rows.long())
+    return torch.repeat_interleave(rows, stream.row_ptr.diff().long())
 
 
 def segtile_stream_plain(stream: CompactStream, v, *,
@@ -728,18 +738,54 @@ def segtile_stream_plain(stream: CompactStream, v, *,
     return y.index_add(0, _stream_rows(stream), prod).to(out_dtype)
 
 
-def _launch(name: str, fn, stream: CompactStream, v, out_dtype, comps: int,
-            tail: tuple, counted) -> torch.Tensor:
-    """Launch a compact-stream kernel (csrc/segtile_csr.cu's arguments, then
-    ``tail`` and the CUDA stream) on ``v``'s device; returns ``y``,
-    ``comps`` values per row, and calls ``counted()`` once per launch.
-    The stream's values and ``v`` go through
+def _fixed_args(stream: CompactStream, symbol: str):
+    """The kernel ``symbol`` and the address of the stream's
+    :class:`~sparse_tpu_torch._kernels.StreamArgs` (its columns, row
+    classes and output map: what stays the same from call to call),
+    resolved and built at the first launch and kept on the stream, in an
+    attribute that is not a field: ``dataclasses.replace`` makes a stream
+    without it, and a comparison of fields does not see it."""
+    cache = stream.__dict__.get("_launch_args")
+    if cache is None:
+        cache = {}
+        object.__setattr__(stream, "_launch_args", cache)
+    hit = cache.get(symbol)
+    if hit is None:
+        if stream.cols.data_ptr() % 16:
+            raise ValueError(f"{symbol}: the stream's cols must be 16-byte "
+                             "aligned")
+        fold = stream.out_rows is not None
+        args = _kernels.StreamArgs(
+            stream.cols.data_ptr(), stream.row_ptr.data_ptr(),
+            stream.long_rows.data_ptr(), stream.piece_ptr.data_ptr(),
+            stream.piece_row.data_ptr(), stream.n_rows, stream.n_long,
+            stream.n_pieces, stream.long_min, stream.piece, stream.group,
+            stream.out_rows.data_ptr() if fold else 0,
+            stream.out_long.data_ptr() if fold else 0)
+        # the struct stays referenced beside its address
+        hit = cache[symbol] = (getattr(_kernels.load(), symbol),
+                               ctypes.addressof(args), args)
+    return hit
+
+
+def _launch(name: str, kernel: str, stream: CompactStream, v, out_dtype,
+            comps: int, counted) -> torch.Tensor:
+    """Launch the compact-stream kernel ``kernel`` (its C entry's name
+    without the dtype suffix) on ``v``'s device; returns ``y``, ``comps``
+    values per row, and calls ``counted()`` once per launch.  The stream's
+    values and ``v`` go through
     :func:`~sparse_tpu_torch.ops._transforms.kernel_call` (``vmap`` launches
     once per slice; derivatives raise).  Kept lean: at the sizes of a
-    solver step the host's work per call is comparable to the kernel's."""
-    if out_dtype not in _SUFFIX:
+    solver step the host's work per call is comparable to the kernel's, so
+    the fixed arguments are built once per stream (:func:`_fixed_args`)
+    and a call passes six."""
+    sfx = _SUFFIX.get(out_dtype)
+    if sfx is None:
         raise TypeError(f"{name}: the CUDA kernel takes float32, float64, "
                         f"int32 or bfloat16, got {out_dtype}")
+    fn, fixed, _ = _fixed_args(stream, f"{kernel}_{sfx}")
+    n_y = comps * stream.n_rows
+    n_partial = comps * stream.n_pieces
 
     def launch(vals, v):
         if vals.dtype != out_dtype:
@@ -748,20 +794,17 @@ def _launch(name: str, fn, stream: CompactStream, v, out_dtype, comps: int,
             v = v.to(out_dtype).contiguous()
         if v.data_ptr() % (comps * v.element_size()):
             v = v.clone()  # a block kernel gathers the operand in pairs
-        if vals.data_ptr() % 16 or stream.cols.data_ptr() % 16:
-            raise ValueError(f"{name}: the stream's vals and cols must be "
-                             "16-byte aligned")
+        if vals.data_ptr() % 16:
+            raise ValueError(f"{name}: the stream's vals must be 16-byte "
+                             "aligned")
         dev = v.device
-        y = torch.empty(comps * stream.n_rows, dtype=out_dtype, device=dev)
-        partial = (torch.empty(comps * stream.n_pieces,
-                               dtype=_sum_dtype(out_dtype), device=dev)
-                   if stream.n_pieces else None)
-        args = (vals.data_ptr(), stream.cols.data_ptr(),
-                stream.row_ptr.data_ptr(), stream.long_rows.data_ptr(),
-                stream.piece_ptr.data_ptr(), stream.piece_row.data_ptr(),
-                v.data_ptr(), 0 if partial is None else partial.data_ptr(),
-                y.data_ptr(), stream.n_rows, stream.n_long, stream.n_pieces,
-                *tail, torch.cuda.current_stream(dev).cuda_stream)
+        y = torch.empty(n_y, dtype=out_dtype, device=dev)
+        partial = (torch.empty(n_partial, dtype=_sum_dtype(out_dtype),
+                               device=dev).data_ptr() if n_partial else 0)
+        # the raw handle of the current stream: torch.cuda.current_stream()
+        # builds a Stream object on every call
+        args = (fixed, vals.data_ptr(), v.data_ptr(), partial, y.data_ptr(),
+                torch._C._cuda_getCurrentRawStream(dev.index))
         if dev.index == torch.cuda.current_device():
             rc = fn(*args)
         else:
@@ -790,22 +833,18 @@ def _count_k1_mxu():
 
 
 def _segtile_stream_cuda(stream, v, rows, reduce, out_dtype):
-    lib = _kernels.load()
-    sfx = _SUFFIX.get(out_dtype)
+    if stream.out_rows is not None:
+        raise ValueError("segtile_stream_apply: K1 takes no folded view")
     if reduce == "mxu" and out_dtype != torch.int32:
-        fn = getattr(lib, f"segtile_mxu_{sfx}", None)
-        tail = (stream.long_min, stream.piece)
-        counted = _count_k1_mxu
-    else:
-        # K1-mxu's int32 kind is K1's kernel: the tensor cores take no
-        # 32-bit integer operands, and a sum modulo 2^32 is the same
-        # whichever unit adds it; the launch counts as K1-mxu's
-        fn = getattr(lib, f"segtile_csr_{sfx}", None)
-        tail = (stream.long_min, stream.piece, stream.group)
-        counted = (_count_k1_mxu if reduce == "mxu"
-                   else _count_k1_r32 if rows == 32 else _count_k1)
-    return _launch(f"segtile_{reduce}", fn, stream, v, out_dtype, 1, tail,
-                   counted)
+        return _launch("segtile_mxu", "segtile_mxu", stream, v, out_dtype, 1,
+                       _count_k1_mxu)
+    # K1-mxu's int32 kind is K1's kernel: the tensor cores take no 32-bit
+    # integer operands, and a sum modulo 2^32 is the same whichever unit
+    # adds it; the launch counts as K1-mxu's
+    counted = (_count_k1_mxu if reduce == "mxu"
+               else _count_k1_r32 if rows == 32 else _count_k1)
+    return _launch(f"segtile_{reduce}", "segtile_csr", stream, v, out_dtype,
+                   1, counted)
 
 
 def segtile_hbm_bytes(plan: SegTilePlan) -> int:

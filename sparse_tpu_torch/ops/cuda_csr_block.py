@@ -18,6 +18,14 @@ on CPU tensors it runs :func:`block_stream_plain`, the same sum in plain
 PyTorch.  :func:`bsr_smvm_segtile_block_plain`, the slot-by-slot sum, stays
 as the reference-shaped oracle.  The result matches ``csr_smvm`` of the
 scalar expansion up to float summation order.
+
+A plan built on a block-permuted matrix ``P A P^T`` (the dispatcher's block
+RCM) can carry a folded view of its stream (:func:`block_seg_tiles_fold`):
+the same values, row offsets and long rows, the block columns in the
+caller's numbering and a map from stream block row to the caller's block
+row.  :func:`block_folded_apply` runs K2 on it: ``y = A v`` in one launch
+on ``v`` as the caller holds it, with no gather before or after, and the
+bits of the unfolded apply gathered back through ``P``.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ from .cuda_csr import (
 __all__ = [
     "BlockSegTilePlan",
     "build_seg_tiles_block",
+    "block_folded_apply",
+    "block_seg_tiles_fold",
     "block_seg_tiles_refresh",
     "block_seg_tiles_stream",
     "bsr_smvm_segtile_block",
@@ -72,7 +82,8 @@ class BlockSegTilePlan:
     slot occupancy, padding tiles included as in the reference.  ``pos``/
     ``eidx`` (``refreshable=True``) feed :func:`block_seg_tiles_refresh`;
     ``nbz``: block capacity of the BSR the plan was built from; ``stream``:
-    the compact stream K2 reads."""
+    the compact stream K2 reads; ``folded``: its folded view
+    (:func:`block_seg_tiles_fold`), or None."""
 
     vals: torch.Tensor
     q: torch.Tensor
@@ -90,6 +101,7 @@ class BlockSegTilePlan:
     eidx: torch.Tensor | None = None
     nbz: int | None = None
     stream: CompactStream | None = None
+    folded: CompactStream | None = None
 
 
 def _fill_planes(pos, values, size, n_tiles, bsz):
@@ -195,8 +207,33 @@ def block_seg_tiles_refresh(plan: BlockSegTilePlan,
     values = blocks[plan.eidx]
     vals = _fill_planes(plan.pos, values, plan.n_tiles * _R * _LANES,
                         plan.n_tiles, plan.bsz)
-    return dataclasses.replace(plan, vals=vals,
-                               stream=_refresh_stream(plan.stream, values))
+    stream = _refresh_stream(plan.stream, values)
+    folded = (None if plan.folded is None
+              else dataclasses.replace(plan.folded, vals=stream.vals))
+    return dataclasses.replace(plan, vals=vals, stream=stream, folded=folded)
+
+
+def block_seg_tiles_fold(plan: BlockSegTilePlan, perm) -> BlockSegTilePlan:
+    """``plan`` (built on ``P A P^T``, block row ``i`` of it being block row
+    ``perm[i]`` of ``A``) with the folded view of its stream: the stream's
+    values, row offsets and long-row arrays, its block columns mapped to
+    ``perm[c]`` and the output map ``perm`` (stream block row ``r`` writes
+    ``y[2*perm[r] + i]``), on the stream's device.  The view adds two int32
+    arrays of the plan's size (block columns, block rows) and one of its
+    long rows'; :func:`block_seg_tiles_refresh` keeps it in step."""
+    stream = plan.stream
+    if stream is None:
+        raise ValueError("block_seg_tiles_fold: the plan carries no compact "
+                         "stream")
+    p = torch.as_tensor(perm, device=stream.cols.device).to(torch.int32)
+    if tuple(p.shape) != (plan.nb,):
+        raise ValueError(f"block_seg_tiles_fold: perm has shape "
+                         f"{tuple(p.shape)}, the plan has {plan.nb} block "
+                         "rows")
+    folded = dataclasses.replace(stream, cols=p[stream.cols.long()],
+                                 out_rows=p, out_long=p[
+                                     stream.long_rows.long()])
+    return dataclasses.replace(plan, folded=folded)
 
 
 def block_seg_tiles_stream(plan: BlockSegTilePlan) -> CompactStream:
@@ -213,42 +250,68 @@ def block_seg_tiles_stream(plan: BlockSegTilePlan) -> CompactStream:
                               pos=plan.pos, keep_perm=plan.eidx is not None)
 
 
-def _operand(ab: BSR, v, plan: BlockSegTilePlan):
-    v = torch.as_tensor(v, device=plan.vals.device)
+def _operand(name, ab: BSR, v, plan: BlockSegTilePlan):
+    dev = plan.vals.device
+    if not isinstance(v, torch.Tensor) or v.device != dev:
+        v = torch.as_tensor(v, device=dev)
     if tuple(v.shape) != (ab.n,):
-        raise ValueError(
-            f"bsr_smvm_segtile_block: vector shape {tuple(v.shape)} != "
-            f"({ab.n},)")
-    return v, torch.promote_types(ab.dtype, v.dtype)
+        raise ValueError(f"{name}: vector shape {tuple(v.shape)} != "
+                         f"({ab.n},)")
+    dt = ab.blocks.dtype
+    return v, dt if v.dtype == dt else torch.promote_types(dt, v.dtype)
 
 
 def bsr_smvm_segtile_block(ab: BSR, v, plan: BlockSegTilePlan) -> \
         torch.Tensor:
     """SpMV through the block-granule kernel over the plan's compact stream
     (K2 on CUDA tensors, :func:`block_stream_plain` on CPU tensors)."""
-    v, out_dtype = _operand(ab, v, plan)
+    name = "bsr_smvm_segtile_block"
+    v, out_dtype = _operand(name, ab, v, plan)
     if ab.n == 0:
         return torch.zeros(0, dtype=out_dtype, device=v.device)
-    stream = plan.stream
-    if stream is None:
-        raise ValueError("bsr_smvm_segtile_block: the plan carries no "
-                         "compact stream; build it with build_seg_tiles_block "
-                         "or interop.block_seg_tile_plan_from_arrays")
-    devices = {stream.vals.device, v.device}
-    if devices == {torch.device("cpu")}:
-        return block_stream_plain(stream, v, out_dtype=out_dtype)
-    if len(devices) == 1 and v.is_cuda:
-        return _segtile_block_cuda(stream, v, out_dtype)
-    raise ValueError(f"bsr_smvm_segtile_block: tensors must share one "
-                     f"device, got {sorted(str(d) for d in devices)}")
+    if plan.stream is None:
+        raise ValueError(f"{name}: the plan carries no compact stream; "
+                         "build it with build_seg_tiles_block or "
+                         "interop.block_seg_tile_plan_from_arrays")
+    return _stream_apply(name, plan.stream, v, out_dtype)
+
+
+def block_folded_apply(ab: BSR, v, plan: BlockSegTilePlan) -> torch.Tensor:
+    """``y = A v`` in the caller's numbering through the plan's folded view
+    (:func:`block_seg_tiles_fold`; ``ab`` is the plan's permuted BSR, ``v``
+    in the caller's numbering): one K2 launch on CUDA tensors,
+    :func:`block_stream_plain` on the view on CPU tensors.  Its result has
+    the bits of ``bsr_smvm_segtile_block`` on the permuted operand,
+    gathered back."""
+    name = "block_folded_apply"
+    v, out_dtype = _operand(name, ab, v, plan)
+    if ab.n == 0:
+        return torch.zeros(0, dtype=out_dtype, device=v.device)
+    if plan.folded is None:
+        raise ValueError(f"{name}: the plan carries no folded view; build it "
+                         "with block_seg_tiles_fold")
+    return _stream_apply(name, plan.folded, v, out_dtype)
+
+
+def _stream_apply(name, stream: CompactStream, v, out_dtype):
+    """K2 on a stream (or its view) on CUDA tensors, its plain version on
+    CPU tensors; raises when the two lie on different devices."""
+    if stream.vals.device != v.device:
+        raise ValueError(f"{name}: tensors must share one device, got "
+                         f"{stream.vals.device} and {v.device}")
+    if v.is_cuda:
+        return _launch(name, "segtile_block", stream, v, out_dtype, 2,
+                       _count_k2)
+    return block_stream_plain(stream, v, out_dtype=out_dtype)
 
 
 def block_stream_plain(stream: CompactStream, v, *,
                        out_dtype=None) -> torch.Tensor:
-    """Plain PyTorch version of K2 over a block plan's compact stream (any
-    device): gather each block's operand pair, the two products, sum by
-    block row in entry order; ``y[2*row + i]``.  bf16 is summed in float32
-    and rounded once, as the kernel does; int32 sums wrap modulo 2^32."""
+    """Plain PyTorch version of K2 over a block plan's compact stream or its
+    folded view (any device): gather each block's operand pair, the two
+    products, sum by output block row in entry order; ``y[2*row + i]``.
+    bf16 is summed in float32 and rounded once, as the kernel does; int32
+    sums wrap modulo 2^32."""
     if out_dtype is None:
         out_dtype = torch.promote_types(stream.vals.dtype, v.dtype)
     acc = _sum_dtype(out_dtype)
@@ -267,7 +330,7 @@ def bsr_smvm_segtile_block_plain(ab: BSR, v, plan: BlockSegTilePlan) -> \
         torch.Tensor:
     """Plain PyTorch version of K2 (any device): gather both operand planes,
     4 plane products, lane sums, sum by row block."""
-    v, out_dtype = _operand(ab, v, plan)
+    v, out_dtype = _operand("bsr_smvm_segtile_block_plain", ab, v, plan)
     nb = plan.nb
     if ab.n == 0:
         return torch.zeros(0, dtype=out_dtype, device=v.device)
@@ -294,13 +357,6 @@ def bsr_smvm_segtile_block_plain(ab: BSR, v, plan: BlockSegTilePlan) -> \
 def _count_k2():
     global K2_LAUNCHES
     K2_LAUNCHES += 1
-
-
-def _segtile_block_cuda(stream: CompactStream, v, out_dtype):
-    fn = getattr(_kernels.load(), f"segtile_block_{_SUFFIX.get(out_dtype)}",
-                 None)
-    return _launch("bsr_smvm_segtile_block", fn, stream, v, out_dtype, 2,
-                   (stream.long_min, stream.piece, stream.group), _count_k2)
 
 
 def block_segtile_hbm_bytes(plan: BlockSegTilePlan) -> int:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..formats.csr import CSR
+from .cuda_csr_block import block_folded_apply
 
 __all__ = ["SmvmAutoPlan", "smvm_prepare"]
 
@@ -45,8 +46,9 @@ class SmvmAutoPlan:
     ``kind``: ``"blockseg"``, ``"segtile"``, ``"bell"``, ``"hubsplit"`` or
     ``"xla"``; ``state``: the rung's own plan tuple; ``perm``/``inv_perm``:
     the composed symmetric reorder (None = identity; BLOCK permutations for
-    ``blockseg``); ``value_src``: original storage slot of each reordered
-    plan entry (:meth:`refresh`)."""
+    ``blockseg``, whose plan then carries the folded view that
+    :meth:`apply` runs); ``value_src``: original storage slot of each
+    reordered plan entry (:meth:`refresh`)."""
 
     state: tuple
     perm: torch.Tensor | None
@@ -91,14 +93,16 @@ class SmvmAutoPlan:
             else self.state[0].hub_cols.device
 
     def apply(self, v) -> torch.Tensor:
-        """y = A v in the original index space."""
+        """y = A v in the original index space.  The ``blockseg`` rung with
+        a composed reorder runs its plan's folded view
+        (:func:`~.cuda_csr_block.block_seg_tiles_fold`): one K2 launch on
+        ``v`` as given, with the bits of the permuted apply gathered back."""
+        if self.kind == "blockseg" and self.perm is not None:
+            ab, plan = self.state
+            return block_folded_apply(ab, v, plan)
         v = torch.as_tensor(v, device=self.device)
         if self.perm is None:
             return self.apply_permuted(v)
-        if self.kind == "blockseg":
-            vp = v.reshape(-1, 2)[self.perm].reshape(-1)
-            y = self.apply_permuted(vp)
-            return y.reshape(-1, 2)[self.inv_perm].reshape(-1)
         y = self.apply_permuted(v[self.perm])
         return y[self.inv_perm]
 
@@ -141,7 +145,8 @@ def smvm_prepare(a: CSR, *, reorder: bool = True, verbose: bool = False,
     Ladder, first match wins (the reference's order):
 
     1. square + fully dense natural 2x2 blocks, on CUDA -> ``blockseg`` over
-       a block-RCM reorder (``reorder=False`` skips the RCM);
+       a block-RCM reorder folded into the plan (``reorder=False`` skips
+       the RCM);
     2. operand + output within the residency cap and tile fill above the
        floor, on CUDA -> ``segtile`` (after scalar RCM when ``reorder`` and
        it halves the bandwidth);
@@ -174,7 +179,7 @@ def smvm_prepare(a: CSR, *, reorder: bool = True, verbose: bool = False,
     if want("blockseg", n == m and n % 2 == 0,
             lambda: on_cuda and n >= 1024 and csr_block_fill(a, 2) == 1.0):
         from ..formats.bsr import csr_to_bsr
-        from .cuda_csr_block import build_seg_tiles_block
+        from .cuda_csr_block import block_seg_tiles_fold, build_seg_tiles_block
         from .reorder import block_perm_pair, csr_permute, rcm_order_blocked
 
         if reorder:
@@ -193,6 +198,7 @@ def smvm_prepare(a: CSR, *, reorder: bool = True, verbose: bool = False,
             if perm is not None:
                 pbn, invn = block_perm_pair(perm, 2)
                 pb, inv = to_dev(pbn), to_dev(invn)
+                plan = block_seg_tiles_fold(plan, pb)
             return SmvmAutoPlan(state=(ab, plan), perm=pb, inv_perm=inv,
                                 kind="blockseg", shape=(n, m))
 

@@ -1793,3 +1793,144 @@ def test_k7_int32(cuda, bsz, nb, density, paired, route):
     assert tbs.bsr_slab_issued(ptr, ab, z1, z2, out_dtype=dt) == \
         tbs.bsr_slab_issued_model(ptr)
     assert tbs.K7_LAUNCHES == before
+
+
+# -- K2's folded view and K1-mxu's register-fed lane sum -----------------------
+
+
+def _kind_csr(s, kind, rng, device):
+    """``_kind_pair`` with float32 and float64 too: (CSR, v, SciPy's or
+    NumPy's answer, |A||v| or None)."""
+    if kind in KIND_DTYPE:
+        return _kind_pair(s, kind, rng, device)
+    dtype = {"float32": np.float32, "float64": np.float64}[kind]
+    v = rng.standard_normal(s.shape[1]).astype(dtype)
+    a = _csr(s, dtype, device)
+    s64 = s.astype(np.float64)
+    return a, torch.from_numpy(v).to(device), s64 @ v.astype(np.float64), \
+        abs(s64) @ np.abs(v.astype(np.float64))
+
+
+def _unfolded(plan, v):
+    """The parent's blockseg apply: gather v through the block RCM, K2 on
+    the plan's stream, gather y back."""
+    ab, bp = plan.state
+    vp = v.reshape(-1, 2)[plan.perm].reshape(-1)
+    y = tpb.bsr_smvm_segtile_block(ab, vp, bp)
+    return y.reshape(-1, 2)[plan.inv_perm].reshape(-1)
+
+
+@pytest.mark.parametrize("kind", ["float32", "float64", "int32", "bf16"])
+def test_k2_folded_apply_is_the_unfolded_apply(cuda, kind):
+    """The blockseg apply over a block RCM is one K2 launch on the folded
+    view, bitwise equal to the unfolded apply (gathers around K2), long
+    block rows through their pieces and an empty block row included; so
+    after a kernel-level refresh, which keeps both views in step."""
+    rng = np.random.default_rng(61)
+    s = _blocks(2000, 11, 900).tolil()
+    s[10:12, :1200] = 1.25  # block row 5: 600 blocks
+    s[20:22, :] = 0  # block row 10: empty
+    s = s.tocsr()
+    s.eliminate_zeros()
+    a, v, want, mag = _kind_csr(s, kind, rng, cuda)
+    plan = pt.smvm_prepare(a, prefer="blockseg")
+    bp = plan.state[1]
+    assert plan.perm is not None and bp.folded is not None
+    assert bp.stream.n_long >= 1 and bp.stream.n_pieces >= 2
+    before = tpb.K2_LAUNCHES
+    y1, y2 = plan.apply(v), plan.apply(v)
+    torch.cuda.synchronize()
+    assert tpb.K2_LAUNCHES == before + 2
+    assert torch.equal(_bits(y1), _bits(y2))
+    assert torch.equal(_bits(y1), _bits(_unfolded(plan, v)))
+    plain = tpb.block_stream_plain(bp.folded, v)
+    if kind in KIND_DTYPE:
+        _check_kind(y1, plain, want, mag, kind)
+    else:
+        dt = np.dtype(kind).type
+        _assert_close(_np(y1), _np(plain), s, _np(v), dt)
+        _assert_close(_np(y1), want, s, _np(v), dt)
+    assert bool((y1[20:22] == 0).all())
+    # a kernel-level refresh keeps the folded view in step
+    ab = plan.state[0]
+    rp = tpb.block_seg_tiles_fold(
+        tpb.build_seg_tiles_block(ab, wsub=16, refreshable=True), plan.perm)
+    new = (ab.blocks * 3 + 1) if kind == "int32" else ab.blocks * -1.5
+    rp = tpb.block_seg_tiles_refresh(rp, new)
+    ab2 = pt.BSR(indices=ab.indices, blocks=new, n=ab.n, bsz=2)
+    p2 = dataclasses.replace(plan, state=(ab2, rp))
+    assert torch.equal(_bits(p2.apply(v)), _bits(_unfolded(p2, v)))
+    assert torch.equal(_bits(tpb.bsr_smvm_segtile_block(ab2, v, rp)),
+                       _bits(tpb.bsr_smvm_segtile_block(
+                           ab2, v, tpb.build_seg_tiles_block(ab2, wsub=16))))
+
+
+def test_k2_folded_apply_under_vmap(cuda):
+    """``torch.func.vmap`` over the blockseg apply launches K2 once a
+    slice, each slice bitwise the single apply."""
+    s = _blocks(1024, 3, 40)
+    a = _csr(s, np.float32, cuda)
+    plan = pt.smvm_prepare(a, prefer="blockseg")
+    assert plan.state[1].folded is not None
+    vs = torch.from_numpy(np.random.default_rng(62).standard_normal(
+        (3, s.shape[0])).astype(np.float32)).to(cuda)
+    before = tpb.K2_LAUNCHES
+    ys = torch.func.vmap(plan.apply)(vs)
+    torch.cuda.synchronize()
+    assert tpb.K2_LAUNCHES == before + 3
+    for i in range(3):
+        assert torch.equal(_bits(ys[i]), _bits(plan.apply(vs[i])))
+        assert torch.equal(_bits(ys[i]), _bits(_unfolded(plan, vs[i])))
+
+
+def _mxu_rows(rng):
+    """Rows of 0, 1, 7, 8, 9 and 20 entries in turn over 3000 rows of 5000
+    columns and rows of 129, 700 and 3000 entries (past long_min:
+    pieces)."""
+    n, m = 3000, 5000
+    lens = np.array([0, 1, 7, 8, 9, 20])[np.arange(n) % 6]
+    lens[[40, 1500, 2998]] = (129, 700, 3000)
+    rows = np.repeat(np.arange(n), lens)
+    cols = np.concatenate([np.sort(rng.choice(m, k, replace=False))
+                           for k in lens])
+    return sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                         shape=(n, m))
+
+
+@pytest.mark.parametrize("kind", ["float32", "bf16", "float64"])
+@pytest.mark.parametrize("rows", [8, 32])
+def test_k1_mxu_register_fed_sum(cuda, rows, kind):
+    """K1-mxu's tensor-core lane sum against its plain version on 8- and
+    32-row plans: every row length of a step (0, 1, 7, 8, 9, 20 entries),
+    long rows, a NaN in A that reaches its row's sum and no other; two
+    runs bitwise equal, one launch a call."""
+    rng = np.random.default_rng(63 + rows)
+    s = _mxu_rows(rng)
+    a, v, want, mag = _kind_csr(s, kind, rng, cuda)
+    data = a.data.clone()
+    data[s.indptr[101] + 3] = float("nan")  # a NaN stored in row 101
+    a = dataclasses.replace(a, data=data)
+    plan = tpc.build_seg_tiles(a, wsub=32, rows=rows)
+    assert plan.stream.n_long >= 3
+    before = tpc.K1_MXU_LAUNCHES
+    y1 = tpc.csr_smvm_segtile(a, v, plan, reduce="mxu")
+    y2 = tpc.csr_smvm_segtile(a, v, plan, reduce="mxu")
+    torch.cuda.synchronize()
+    assert tpc.K1_MXU_LAUNCHES == before + 2
+    assert torch.equal(_bits(y1), _bits(y2))
+    plain = tpc.segtile_stream_plain(plan.stream, v)
+    nan = np.zeros(s.shape[0], bool)
+    nan[101] = True
+    assert bool(torch.isnan(y1[101])) and bool(torch.isnan(plain[101]))
+    assert not bool(torch.isnan(y1[torch.from_numpy(~nan).to(cuda)]).any())
+    ok = ~nan
+    if kind == "bf16":
+        _check_kind(y1[torch.from_numpy(ok).to(cuda)],
+                    plain[torch.from_numpy(ok).to(cuda)], want[ok], mag[ok],
+                    kind)
+    else:
+        dt = np.dtype(kind).type
+        _assert_close(_np(y1)[ok], _np(plain)[ok], s[ok], _np(v), dt)
+        _assert_close(_np(y1)[ok], want[ok], s[ok], _np(v), dt)
+    empty = np.flatnonzero(np.diff(s.indptr) == 0)
+    assert bool((y1[torch.from_numpy(empty).to(cuda)] == 0).all())

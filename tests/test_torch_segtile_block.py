@@ -6,6 +6,8 @@ Tolerances: float64 1e-12 and float32 1e-5, both times ``|A||v|`` per row.
 The kernel itself is tested on the card by ``tests/test_torch_cuda.py``.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -237,3 +239,113 @@ def test_wide_block_coordinates():
     s = sp.csr_matrix((v, (r, c)), shape=(n, n))
     got = _np(tpb.bsr_smvm_segtile_block(tb, torch.from_numpy(xv), tp))
     _assert_close(got, s @ xv, s, xv, np.float64)
+
+
+# -- the folded view of a block plan (the dispatcher's block RCM) -------------
+
+
+def _fold_matrix():
+    """A node-scrambled 2x2 block band (nb 400), block row 5 holding 300
+    blocks (long: three pieces) and block row 9 empty."""
+    x = _block_matrix(400, seed=3)
+    x[10:12, :600] = 1.25
+    x[18:20, :] = 0.0
+    return x
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _kind_csr(x, kind):
+    """The pattern of dense ``x`` as a CPU CSR of ``kind`` and an operand
+    (int32: values x 1000 rounded, an integer operand)."""
+    s = sp.csr_matrix(x)
+    rng = np.random.default_rng(11)
+    if kind == "int32":
+        data = np.round(s.data * 1000).astype(np.int32)
+        v = torch.from_numpy(rng.integers(-9, 10, s.shape[0]).astype(
+            np.int32))
+    else:
+        data = s.data
+        v = torch.from_numpy(rng.standard_normal(s.shape[0]))
+    ta = interop.csr_from_arrays(data, s.indices, s.indptr, s.shape,
+                                 device="cpu")
+    dt = {"float32": torch.float32, "float64": torch.float64,
+          "int32": torch.int32, "bf16": torch.bfloat16}[kind]
+    return (dataclasses.replace(ta, data=ta.data.to(dt)), v.to(dt))
+
+
+def _unfolded(plan, v):
+    """The blockseg apply before the fold: v gathered through the block
+    RCM, K2's plain version on the permuted stream, y gathered back."""
+    ab, bp = plan.state
+    vp = v.reshape(-1, 2)[plan.perm].reshape(-1)
+    return tpb.bsr_smvm_segtile_block(ab, vp, bp).reshape(-1, 2)[
+        plan.inv_perm].reshape(-1)
+
+
+@pytest.mark.parametrize("case", ["scrambled", "long_rows"])
+def test_folded_view_follows_the_permutation(case):
+    """The folded view maps the stream's block columns and rows through the
+    block permutation and shares the stream's values, offsets and long-row
+    arrays."""
+    x = _fold_matrix() if case == "long_rows" else _block_matrix(64, seed=2)
+    ta, _ = _kind_csr(x, "float64")
+    plan = pt.smvm_prepare(ta, prefer="blockseg")
+    bp, perm = plan.state[1], plan.perm
+    st, fv = bp.stream, bp.folded
+    assert perm is not None and fv is not None
+    assert fv.cols.dtype == fv.out_rows.dtype == fv.out_long.dtype \
+        == torch.int32
+    np.testing.assert_array_equal(_np(fv.cols), _np(perm[st.cols.long()]))
+    np.testing.assert_array_equal(_np(fv.out_rows), _np(perm))
+    np.testing.assert_array_equal(_np(fv.out_long),
+                                  _np(perm[st.long_rows.long()]))
+    for f in ("vals", "row_ptr", "long_rows", "piece_ptr", "piece_row"):
+        assert getattr(fv, f) is getattr(st, f), f
+    assert (fv.n_rows, fv.nnz, fv.group, fv.long_min, fv.piece) == \
+        (st.n_rows, st.nnz, st.group, st.long_min, st.piece)
+    assert st.out_rows is None and st.out_long is None
+    assert (st.n_long > 0) == (case == "long_rows")
+    with pytest.raises(ValueError, match="block rows"):
+        tpb.block_seg_tiles_fold(bp, perm[:-1])
+
+
+@pytest.mark.parametrize("case", ["scrambled", "reorder_false", "refresh"])
+@pytest.mark.parametrize("kind", ["float32", "float64", "int32", "bf16"])
+def test_folded_apply_is_the_unfolded_apply(kind, case):
+    """``plan.apply`` on the folded view returns the bits of the unfolded
+    ``inv(apply_permuted(perm(v)))``: long block rows in pieces and an
+    empty block row included; without a reorder there is no view and the
+    apply is ``apply_permuted``; after a kernel-level refresh both views
+    agree with a rebuild."""
+    ta, v = _kind_csr(_fold_matrix(), kind)
+    plan = pt.smvm_prepare(ta, prefer="blockseg",
+                           reorder=case != "reorder_false")
+    ab, bp = plan.state
+    if case == "reorder_false":
+        assert plan.perm is None and bp.folded is None
+        assert torch.equal(_bits(plan.apply(v)),
+                           _bits(plan.apply_permuted(v)))
+        return
+    assert bp.stream.n_pieces >= 2
+    if case == "refresh":
+        rp = tpb.block_seg_tiles_fold(
+            tpb.build_seg_tiles_block(ab, wsub=16, refreshable=True),
+            plan.perm)
+        new = ab.blocks * 3 + 1 if kind == "int32" else ab.blocks * -1.5
+        ab = pt.BSR(indices=ab.indices, blocks=new, n=ab.n, bsz=2)
+        bp = tpb.block_seg_tiles_refresh(rp, new)
+        assert bp.folded.vals is bp.stream.vals
+        plan = dataclasses.replace(plan, state=(ab, bp))
+        rebuilt = tpb.block_seg_tiles_fold(
+            tpb.build_seg_tiles_block(ab, wsub=16), plan.perm)
+        assert torch.equal(_bits(tpb.block_folded_apply(ab, v, rebuilt)),
+                           _bits(plan.apply(v)))
+    y = plan.apply(v)
+    assert y.dtype == v.dtype
+    assert torch.equal(_bits(y), _bits(_unfolded(plan, v)))
+    assert torch.equal(_bits(y), _bits(tpb.block_folded_apply(ab, v, bp)))
+    assert bool((y[18:20] == 0).all())

@@ -31,8 +31,10 @@ Suites:
 - ``segtile``: the segment-tile SpMV kernels: K1, K1-mxu and K1-r32
   through ``csr_smvm_segtile`` on band-10M (500k rows, ~10M entries,
   ``smvm_prepare``'s segtile plan), K2 through ``bsr_smvm_segtile_block``
-  on elasticity-400k (the blockseg plan), K1, K1-mxu and K2 in float64 on
-  the same streams, and both plans' ``apply``.
+  on elasticity-400k (the blockseg plan, on the block-permuted operand),
+  K1, K1-mxu and K2 in float64, bf16 (bf16 operands) and int32 on the same
+  streams, and both plans' ``apply`` (elasticity's: the folded K2 where the
+  package has it, else the two gathers around K2).
 - ``apply``: the host-bound K1 entry points on band-10M: ``plan.apply``
   and ``halo_spmv_segtile`` on a 1-shard in-process mesh.
 
@@ -174,15 +176,24 @@ def slab_cases(cs):
     return cases
 
 
-def _f64(x, field):
-    """``x`` (a dataclass) with its tensor ``field`` in float64."""
+def _kinds(x, field):
+    """``x`` (a dataclass) with its tensor ``field`` in float64, bf16 and
+    int32 (x 400, rounded): {suffix: copy}."""
     import dataclasses
 
-    return dataclasses.replace(x, **{field: getattr(x, field).double()})
+    import torch
+
+    t = getattr(x, field)
+    return {"f64": dataclasses.replace(x, **{field: t.double()}),
+            "bf16": dataclasses.replace(x, **{field: t.to(torch.bfloat16)}),
+            "i32": dataclasses.replace(
+                x, **{field: (t * 400).round().to(torch.int32)})}
 
 
 def segtile_cases(cs):
     import dataclasses
+
+    import torch
 
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_csr, cuda_csr_block
@@ -194,24 +205,40 @@ def segtile_cases(cs):
     eplan, ev = ela["plan"], ela["v"]
     ab, est = eplan.state
     vp = ev.reshape(-1, 2)[eplan.perm].reshape(-1)
-    # the float64 kinds on the same streams
-    a64, v64 = _f64(a, "data"), v.double()
-    st64 = dataclasses.replace(st, stream=_f64(st.stream, "vals"))
-    ab64, vp64 = _f64(ab, "blocks"), vp.double()
-    est64 = dataclasses.replace(est, stream=_f64(est.stream, "vals"))
-    return {
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def operand(x, sfx):
+        if sfx == "i32":
+            return torch.randint(-8, 9, x.shape, device="cuda",
+                                 generator=gen, dtype=torch.int32)
+        return x.double() if sfx == "f64" else x.to(torch.bfloat16)
+
+    cases = {
         "K1": lambda: pt.csr_smvm_segtile(a, v, st),
         "K1-mxu": lambda: pt.csr_smvm_segtile(a, v, st, reduce="mxu"),
         "K1-r32": lambda: pt.csr_smvm_segtile(a, v, st32),
-        "K1 f64": lambda: pt.csr_smvm_segtile(a64, v64, st64),
-        "K1-mxu f64": lambda: pt.csr_smvm_segtile(a64, v64, st64,
-                                                  reduce="mxu"),
         "band apply": lambda: plan.apply(v),
         "K2": lambda: cuda_csr_block.bsr_smvm_segtile_block(ab, vp, est),
-        "K2 f64": lambda: cuda_csr_block.bsr_smvm_segtile_block(ab64, vp64,
-                                                                est64),
         "ela apply": lambda: eplan.apply(ev),
     }
+    # the other kinds on the same streams
+    streams = _kinds(st.stream, "vals")
+    for sfx, ak in _kinds(a, "data").items():
+        sk = dataclasses.replace(st, stream=streams[sfx])
+        vk = operand(v, sfx)
+        cases[f"K1 {sfx}"] = (
+            lambda ak=ak, vk=vk, sk=sk: pt.csr_smvm_segtile(ak, vk, sk))
+        cases[f"K1-mxu {sfx}"] = (
+            lambda ak=ak, vk=vk, sk=sk: pt.csr_smvm_segtile(
+                ak, vk, sk, reduce="mxu"))
+    estreams = _kinds(est.stream, "vals")
+    for sfx, abk in _kinds(ab, "blocks").items():
+        ek = dataclasses.replace(est, stream=estreams[sfx])
+        vk = operand(vp, sfx)
+        cases[f"K2 {sfx}"] = (
+            lambda abk=abk, vk=vk, ek=ek:
+            cuda_csr_block.bsr_smvm_segtile_block(abk, vk, ek))
+    return cases
 
 
 def apply_cases(cs):
