@@ -1623,7 +1623,8 @@ def phase9_bell_timing(card, m):
     K4, K3 (``compute_dtype=bfloat16``), K6 (bf16 blocks) and K5 (a bf16
     kit at k 32), each with a bf16 operand,
     the same way beside ``BSR @ B`` in bf16; then bell_spmm beside K6, and
-    the chain."""
+    the chain.  The SM clock and power under K3's and K4's float32 kernels
+    (the band body's float32 map) are read beside their times."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.formats.bell import BELL
     from sparse_tpu_torch.ops import cuda_bell as cb
@@ -1684,6 +1685,9 @@ def phase9_bell_timing(card, m):
             name, f"sparse_tpu_torch/csrc/{src}", replaces,
             m["counts"][kname], err, ms_k, ms_p,
             spmm_cost(nbz, bsz, a.n, kk), lib, call)
+        if kname in ("K3", "K4"):  # the band body's float32 map
+            out[kname]["sm_clock_power"] = _clock_line(
+                f"{kname} float32 kernel", kern, card)
     useful = 2 * nnz * k
     out["K4"]["issued_gflop"] = check_issued(
         "K4 float32", kit.tiles, kit.plan.start, b, bsz, useful) / 1e9
@@ -2585,7 +2589,8 @@ def phase15_timing(card, sl, m, band_lib, launches):
             "K8 dband_spmm", "sparse_tpu_torch/csrc/bell_banded.cu",
             "benchmarks/measure_dband.py:57", launches["K8"], err, ms_k,
             ms_p, c, lib, call, issued_gflop=issued / 1e9,
-            useful_gflop=c[1] / 1e9)
+            useful_gflop=c[1] / 1e9,
+            sm_clock_power=_clock_line("K8 float32 kernel", kern, card))
     out.append(entry)
     # the card's streaming rate: 20 chained copies of 1 GiB
     x = torch.empty(1 << 28, device="cuda").normal_()
@@ -4620,6 +4625,14 @@ def _phase21_k6_wide(card):
     return out
 
 
+def _clock_line(label, fn, card):
+    """``_clock_under(fn)``, printed under ``label``; returns it."""
+    clock = _clock_under(fn)
+    print(f"   {label}: SM clock, power under load {clock} [{card}]",
+          flush=True)
+    return clock
+
+
 def _clock_under(fn):
     """``nvidia-smi``'s SM clock and power draw, read 1.5 s into 3 s of
     ``fn`` back to back (its power reading is an average that lags a
@@ -4876,7 +4889,7 @@ def _vs_plain(label, y, yp, mag):
 
 
 def _new_kind(card, label, kname, main, kern, plain, check, mag, cost, dtype,
-              sibling, lib, lib_call, view=None, apply=None):
+              sibling, lib, lib_call, view=None, apply=None, clock=False):
     """One int32, bf16 or float64 kind of kernel ``kname``: its main path
     ``main`` (an entry point a user calls) once, the kernel's launch count
     set to 0 just before and read just after, checked by ``check``; the
@@ -4886,8 +4899,9 @@ def _new_kind(card, label, kname, main, kern, plain, check, mag, cost, dtype,
     kernel, its plain version, its float32 sibling and, when given,
     ``apply`` (the main path's call), beside the bound of ``cost`` (bytes,
     operations) at ``dtype``'s peak and the library call's ``lib`` ms
-    (None: refused, the reason in ``LIBRARY_REFUSALS[lib_call]``).  Returns
-    the record."""
+    (None: refused, the reason in ``LIBRARY_REFUSALS[lib_call]``); with
+    ``clock``, the SM clock and power under the kernel and under its
+    sibling (``_clock_under``).  Returns the record."""
     if view is None:
         def view(y):
             return y
@@ -4934,6 +4948,10 @@ def _new_kind(card, label, kname, main, kern, plain, check, mag, cost, dtype,
         rec["apply_ms"] = apply_ms
     if lib is None:
         rec["library_error"] = LIBRARY_REFUSALS.get(lib_call, "refused")
+    if clock:
+        rec["sm_clock_power"] = _clock_line(f"{label}, kernel", kern, card)
+        rec["float32_sm_clock_power"] = _clock_line(
+            f"{label}, float32 sibling", sibling, card)
     return rec
 
 
@@ -5144,7 +5162,7 @@ def _phase22_bell(card, m, dband, out):
         card, f"bell-band-80M K3 int32 k {k} (bell_spmm, no plan)", "K3",
         lambda: pt.bell_spmm(ai, bi), lambda: cb.bell_spmm_fused(ai, bi),
         lambda: cb.bell_spmm_fused_plain(ai, bi), rows, mag, cost, i32,
-        lambda: cb.bell_spmm_fused(a, b), lib, call)
+        lambda: cb.bell_spmm_fused(a, b), lib, call, clock=True)
     out["K4"]["int32"] = _new_kind(
         card, f"bell-band-80M K4 int32 k {k} (bell_spmm, BandedKit)", "K4",
         lambda: pt.bell_spmm(ai, bi, plan=kit_i),
@@ -5153,7 +5171,7 @@ def _phase22_bell(card, m, dband, out):
                                           tiles=kit_i.tiles),
         rows, mag, cost, i32,
         lambda: cb.bell_spmm_banded(a, b, kit.plan, tiles=kit.tiles), lib,
-        call)
+        call, clock=True)
     out["K5"]["int32"] = _new_kind(
         card, "bell-band-80M K5 int32 k 32 (bell_spmm, BandedKitT)", "K5",
         lambda: pt.bell_spmm(ai, bi32, plan=kit_ti),
@@ -5193,7 +5211,7 @@ def _phase22_bell(card, m, dband, out):
         lambda: cuda_dband.dband_spmm(*args),
         lambda: cuda_dband.dband_spmm(*args),
         lambda: cuda_dband.dband_spmm_plain(*args), rows, mag, cost, i32,
-        lambda: cuda_dband.dband_spmm(*argsf), lib, call)
+        lambda: cuda_dband.dband_spmm(*argsf), lib, call, clock=True)
     del tiles_i, tiles_f, b3, b3f, bsr
 
 

@@ -14,10 +14,12 @@
 // its multiply-adds.  The vote reads A only, so the result stays bitwise
 // repeatable, and reads magnitude bits, so a NaN stored in A counts as
 // non-zero and -0 does not.  Float32: each thread keeps an 8x4 register tile
-// fed by broadcast 16-byte shared loads, in full float32 (no TF32).  int32
-// (A, B and C int32): the float32 kind's ring and tiling, integer
-// multiply-adds in unsigned (sums modulo 2^32, the reference's wrapping
-// int32 result), a vote on every bit of a word.  bf16
+// fed by 16-byte shared loads, A's as warp-wide broadcasts, in full float32
+// (no TF32): 8 shared-memory cycles per 32 FFMA instructions of a warp,
+// the fewest a 32-accumulator map can cost (mma_chunk).  int32 (A, B and C
+// int32): the float32 kind's ring, tiling and map (one mma_chunk and one
+// store for both), integer multiply-adds in unsigned (sums modulo 2^32, the
+// reference's wrapping int32 result), a vote on every bit of a word.  bf16
 // (A and B bf16, sums float32): the same tiling feeds mma.sync m16n8k16 from
 // ldmatrix fragments, each warp a 32x32 piece.  bf16x3 (the Split kind:
 // float32 A and B, precision="bf16x3"): the float32 ring and vote, and the
@@ -39,6 +41,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "sm90_async.cuh"
 
@@ -82,7 +86,7 @@ struct Cfg<float> {
     return kk * kBPitch + c;
   }
 };
-// int32: the float32 kind's ring, register tile and broadcast loads, with
+// int32: the float32 kind's ring, register map and broadcast loads, with
 // integer multiply-adds in unsigned (sums modulo 2^32, the reference's
 // wrapping int32 result in any order) and C int32.  Every bit of a word
 // counts in the vote: an int has no -0 and no NaN.
@@ -429,59 +433,54 @@ __device__ __forceinline__ void load_b(typename Cfg<S>::T* sb, const P& p,
 
 // -- multiply-adds ------------------------------------------------------------
 
-// acc += A chunk (32 x 32) @ B chunk (32 x 128), float32: thread (warp w,
-// lane l) owns rows 8w .. 8w+7 and columns 4l .. 4l+3.
-__device__ __forceinline__ void mma_chunk(const float* sa, const float* sb,
-                                          float (&acc)[8][4]) {
-  constexpr int kBK = Cfg<float>::kBK;
-  const float* pa = sa + (threadIdx.x / 32) * 8 * kBK;
-  const float* pb = sb + (threadIdx.x % 32) * 4;
-#pragma unroll
-  for (int kq = 0; kq < kBK; kq += 4) {
-    float4 a[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      a[r] = *reinterpret_cast<const float4*>(pa + r * kBK + kq);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 b = *reinterpret_cast<const float4*>(pb + (kq + q) * kBN);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float x = q == 0 ? a[r].x : q == 1 ? a[r].y
-                      : q == 2 ? a[r].z : a[r].w;
-        acc[r][0] = fmaf(x, b.x, acc[r][0]);
-        acc[r][1] = fmaf(x, b.y, acc[r][1]);
-        acc[r][2] = fmaf(x, b.z, acc[r][2]);
-        acc[r][3] = fmaf(x, b.w, acc[r][3]);
-      }
-    }
-  }
+// One multiply-add of the float32 kind (fmaf, full float32) and of the
+// int32 kind (unsigned, modulo 2^32).
+__device__ __forceinline__ void madd(float& acc, float x, float b) {
+  acc = fmaf(x, b, acc);
+}
+__device__ __forceinline__ void madd(unsigned& acc, unsigned x, unsigned b) {
+  acc += x * b;
 }
 
-// The same for int32: thread (warp w, lane l) owns rows 8w .. 8w+7 and
-// columns 4l .. 4l+3, multiply-adds in unsigned.
-__device__ __forceinline__ void mma_chunk(const int* sa, const int* sb,
-                                          unsigned (&acc)[8][4]) {
-  constexpr int kBK = Cfg<int>::kBK;
-  const int* pa = sa + (threadIdx.x / 32) * 8 * kBK;
-  const int* pb = sb + (threadIdx.x % 32) * 4;
+// acc += A chunk (32 x 32) @ B chunk (32 x 128), float32 or int32 (T float
+// or int, Acc float or unsigned): thread (warp w, lane l) owns rows 8w ..
+// 8w+7 and columns 4l .. 4l+3.  Shared memory serves an LDS.128 a quarter
+// warp a cycle, or two quarters a cycle where each reads one 16-byte chunk:
+// a warp-wide broadcast costs 2 cycles, 8 distinct chunks a quarter 4
+// (tools/lds_probe.py on an H100).  For each 4 indices a thread issues 8
+// LDS.128 of A (broadcasts) and 4 of B (32 distinct chunks), against 128
+// multiply-adds: 8 cycles per 32 FFMA instructions of a warp, so at four
+// thread blocks an SM shared memory is as busy as FFMA issue before the
+// fills and votes.  With 32 accumulators a thread no map costs fewer: the
+// 8 lanes of a quarter own different outputs, so its A or its B loads
+// read 8 chunks a quarter.  (A thread owning rows 8 apart and two
+// 4-column runs, on a row-swizzled A stage, also costs 8, and K3, K4 and
+// K8 ran 6-11% slower so on an H100, PERF.md section 6.)  Each output's
+// sum runs in index order, one multiply-add at a time.
+template <typename T, typename Acc>
+__device__ __forceinline__ void mma_chunk(const T* sa, const T* sb,
+                                          Acc (&acc)[8][4]) {
+  using V = std::conditional_t<std::is_same_v<Acc, float>, float4, uint4>;
+  constexpr int kBK = Cfg<T>::kBK;
+  const T* pa = sa + (threadIdx.x / 32) * 8 * kBK;
+  const T* pb = sb + (threadIdx.x % 32) * 4;
 #pragma unroll
   for (int kq = 0; kq < kBK; kq += 4) {
-    uint4 a[8];
+    V a[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r)
-      a[r] = *reinterpret_cast<const uint4*>(pa + r * kBK + kq);
+      a[r] = *reinterpret_cast<const V*>(pa + r * kBK + kq);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const uint4 b = *reinterpret_cast<const uint4*>(pb + (kq + q) * kBN);
+      const V b = *reinterpret_cast<const V*>(pb + (kq + q) * kBN);
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
-        const unsigned x = q == 0 ? a[r].x : q == 1 ? a[r].y
-                         : q == 2 ? a[r].z : a[r].w;
-        acc[r][0] += x * b.x;
-        acc[r][1] += x * b.y;
-        acc[r][2] += x * b.z;
-        acc[r][3] += x * b.w;
+        const Acc x = q == 0 ? a[r].x : q == 1 ? a[r].y
+                    : q == 2 ? a[r].z : a[r].w;
+        madd(acc[r][0], x, b.x);
+        madd(acc[r][1], x, b.y);
+        madd(acc[r][2], x, b.z);
+        madd(acc[r][3], x, b.w);
       }
     }
   }
@@ -636,46 +635,32 @@ __device__ __forceinline__ void mma_chunk(const double* sa, const double* sb,
 
 // -- output -------------------------------------------------------------------
 
-// C[m0 + ., n0 + .] of one output (M, N) from the register tiles.
-template <bool VEC>
-__device__ __forceinline__ void store(const float (&acc)[8][4], float* c,
-                                      int M, int N, int m0, int n0) {
-  const int gn = n0 + (threadIdx.x % 32) * 4;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int gi = m0 + (threadIdx.x / 32) * 8 + r;
-    if (gi >= M) continue;
-    float* row = c + gi * N;
-    if constexpr (VEC) {
-      if (gn < N)
-        *reinterpret_cast<float4*>(row + gn) =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (gn + j < N) row[gn + j] = acc[r][j];
-    }
-  }
+// Four sums of a register tile into C: float32 as they are, int32 as their
+// bits.
+__device__ __forceinline__ void put4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void put4(int* p, const unsigned (&v)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-// The int32 kind's C: the float32 kind's layout, each sum's bits.
-template <bool VEC>
-__device__ __forceinline__ void store(const unsigned (&acc)[8][4], int* c,
-                                      int M, int N, int m0, int n0) {
+// C[m0 + ., n0 + .] of one output (M, N) from mma_chunk's register tiles
+// (float32 or int32).
+template <bool VEC, typename Acc, typename O>
+__device__ __forceinline__ void store(const Acc (&acc)[8][4], O* c, int M,
+                                      int N, int m0, int n0) {
   const int gn = n0 + (threadIdx.x % 32) * 4;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int gi = m0 + (threadIdx.x / 32) * 8 + r;
     if (gi >= M) continue;
-    int* row = c + gi * N;
+    O* row = c + gi * N;
     if constexpr (VEC) {
-      if (gn < N)
-        *reinterpret_cast<uint4*>(row + gn) =
-            make_uint4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      if (gn < N) put4(row + gn, acc[r]);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (gn + j < N) row[gn + j] = static_cast<int>(acc[r][j]);
+        if (gn + j < N) row[gn + j] = static_cast<O>(acc[r][j]);
     }
   }
 }

@@ -26,11 +26,13 @@
 // thread block, 32-index contraction chunks (one stored block at bsz 32), a
 // cp.async ring (A ahead, B one chunk ahead), one __syncthreads_or vote per
 // chunk so the zero blocks of padding slots skip their operand copy and
-// their multiply-adds, 8x4 float32 register tiles, bf16 on mma.sync,
-// bf16x3 as three bf16 mma.sync products a float32 fragment pair, float64
-// on DMMA (mma.sync m8n8k4) from swizzled stages.  Each chunk resolves its
-// block and column id once, and the row's column ids are prefetched into
-// L1 at the start: a division and a column load per element cost float32
+// their multiply-adds, 8x4 float32 register tiles (8 shared-memory cycles
+// per 32 FFMA of a warp; int32 on the same map), bf16 on
+// mma.sync, bf16x3 as three bf16 mma.sync products a float32 fragment pair,
+// float64 on DMMA (mma.sync m8n8k4) from swizzled stages.  Each chunk
+// resolves its block and column id once, and the row's column ids are
+// prefetched into L1 at the start: a division and a column load per
+// element cost float32
 // 1.94 ms at the bench shape on an H100 (PERF.md), once per copied operand
 // row 0.83 ms, once per chunk 0.70.  bell_fused_issued counts the
 // multiply-adds the vote kept.

@@ -47,19 +47,19 @@
 // 8 x 8 register tile: rows 64wg + g + 8j (j = 0..7) and columns 32w + 4h
 // .. +3 and 32w + 16 + 4h .. +3, so warp w reads only B's box w.  What
 // sets the pace is shared memory against FFMA issue, so the map is chosen
-// for its wavefronts (128 bytes a cycle).  For 4 indices a thread issues 8
+// for its shared-memory cycles: an LDS.128 is served a quarter warp a
+// cycle, or two quarters a cycle where each reads one 16-byte chunk
+// (tools/lds_probe.py on an H100).  For 4 indices a thread issues 8
 // LDS.128 of A (row 64wg + g + 8j, 16-byte chunk q ^ g, as the swizzle
-// XORs the chunk with row % 8 = g: the warp's eight rows meet eight bank
-// groups, one wavefront) and 8 of B (two a row: chunks h and h + 4 of a
-// 128-byte row, XORed alike: four distinct chunks, one wavefront), against
-// 256 FFMA.  So per index a warp costs 4 wavefronts for 64 FFMA
-// instructions; the SM, 32 for its eight warps, 8 for the TMA fills (1 KB
-// an index) and 4 for the votes, against 128 issue clocks of FFMA.  (K3's
-// band body, each thread 8 x 4: 6 wavefronts per 32 FFMA a warp, about
-// 116 wavefronts per 128 clocks at four thread blocks an SM.)  A thread's
-// rows are 8 apart: consecutive rows would share row % 8 across the warp's
-// row groups and cost four wavefronts an A load.  Each output's sum runs
-// in index order, one fmaf at a time, slot after slot.
+// XORs the chunk with row % 8 = g: a quarter's eight rows meet eight bank
+// groups, 4 cycles) and 8 of B (two a row: chunk h, then h + 4, of a
+// 128-byte row, XORed alike: one chunk a quarter, 2 cycles), against 256
+// FFMA.  So per index a warp costs 12 cycles for 64 FFMA instructions, 6
+// per 32 (K3's band body, each thread 8 x 4 with 32 accumulators: 8, the
+// fewest such a map can cost).  A thread's rows are 8 apart: consecutive
+// rows would share row % 8 across a quarter's row groups, an 8-way bank
+// conflict (32 cycles an A load).  Each output's sum runs in index order,
+// one fmaf at a time, slot after slot.
 //
 // bf16 (A, B and C bf16, sums float32): a stage is 64 indices (one
 // swizzle row of A); each warpgroup runs wgmma m64n128k16 on its 64 rows

@@ -297,10 +297,10 @@ def _twice(fn, counter):
 
 
 def _with_values(a, values):
-    """``a`` with other values: "band" keeps them, "zero" makes every block
-    zero, "lone" leaves one stored element (1.5, in a stored slot of an
-    interior row), "nan" puts a NaN into a stored block."""
-    if values == "band":
+    """``a`` with other values: "band" and "shift" keep them, "zero" makes
+    every block zero, "lone" leaves one stored element (1.5, in a stored
+    slot of an interior row), "nan" puts a NaN into a stored block."""
+    if values in ("band", "shift"):
         return a
     blocks = a.blocks.clone()
     r = a.nb // 3
@@ -311,6 +311,19 @@ def _with_values(a, values):
     elif values == "nan":
         blocks[r, 1, 1, 0] = float("nan")
     return BELL(cols=a.cols, blocks=blocks, n=a.n, bsz=a.bsz)
+
+
+def _shifted(b, values):
+    """``b``, or for "shift" a copy of it one element past a 16-byte
+    boundary (a contiguous view the wrappers take as it is), so the kernels
+    copy and store element by element."""
+    if values != "shift":
+        return b
+    flat = b.new_empty(b.numel() + 1)
+    out = flat[1:].view(b.shape)
+    out.copy_(b)
+    assert out.data_ptr() % 16 and out.is_contiguous()
+    return out
 
 
 def _check_values(got, ref, bound, dtype, values):
@@ -348,12 +361,24 @@ TIERS = {"f32": (torch.float32, None, None),
 # block row); k 1, 5, 33, 65, 70 (element copies or a ragged column
 # block), 32, 128, 200 (two column blocks).  Edge rows and an empty row
 # hold padding slots (zero blocks at column 0).
+# The edges of the band body's float32 / int32 register map: bsz 13, 20,
+# 45 and 100 (not multiples of 8: part of a thread's rows fall past the
+# block row), k 20, 100, 130 and 257 (a warp's columns partly past N),
+# "shift" (the operand one element off a 16-byte boundary: element copies
+# and stores where bsz and k would allow vectors), and bsz 80 / 100 (K6
+# past its persistent body: int32 and the shapes TMA cannot describe run
+# the band body).
 K3_CASES = [(37, 3, 2, 5, "band"), (29, 33, 1, 65, "band"),
             (50, 8, 3, 1, "band"), (40, 24, 2, 70, "band"),
             (30, 32, 2, 32, "band"), (12, 64, 1, 200, "band"),
             (29, 33, 1, 33, "band"), (37, 3, 2, 200, "band"),
             (30, 32, 2, 128, "zero"), (30, 32, 2, 128, "lone"),
-            (30, 32, 2, 128, "nan"), (40, 24, 2, 33, "lone")]
+            (30, 32, 2, 128, "nan"), (40, 24, 2, 33, "lone"),
+            (21, 13, 2, 20, "band"), (17, 40, 1, 100, "band"),
+            (13, 45, 1, 130, "band"), (9, 20, 2, 257, "band"),
+            (21, 13, 2, 100, "nan"), (17, 40, 1, 100, "shift"),
+            (30, 32, 2, 128, "shift"), (8, 100, 1, 257, "band"),
+            (7, 80, 1, 20, "shift"), (21, 13, 2, 1, "lone")]
 
 
 @pytest.mark.parametrize("tier", list(TIERS))
@@ -362,8 +387,8 @@ def test_k3_k6_match_plain_at_odd_shapes(cuda, nb, bsz, hb, k, values, tier):
     dt, cd, prec = TIERS[tier]
     a, _ = _band_bell(nb, bsz, hb, nb + k, dt, cuda, empty=(nb // 2,))
     a = _with_values(a, values)
-    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
-        (a.n, k))).to(dt).to(cuda)
+    b = _shifted(torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).to(dt).to(cuda), values)
     bound = _spmm_bound(a, b, cd or dt)
     got = _twice(lambda: tcb.bell_spmm_fused(a, b, compute_dtype=cd,
                                              precision=prec), "K3_LAUNCHES")
@@ -394,7 +419,10 @@ def test_k3_k6_match_plain_at_odd_shapes(cuda, nb, bsz, hb, k, values, tier):
 
 @pytest.mark.parametrize("tier", list(TIERS))
 @pytest.mark.parametrize("nb,bsz,hb,rt,k", [(41, 24, 2, 3, 70),
-                                            (26, 16, 1, 4, 3)])
+                                            (26, 16, 1, 4, 3),
+                                            (29, 40, 1, 3, 130),
+                                            (26, 16, 1, 3, 257),
+                                            (23, 8, 1, 5, 20)])
 def test_k4_matches_plain_at_odd_shapes(cuda, nb, bsz, hb, rt, k, tier):
     dt, cd, prec = TIERS[tier]
     a, ok = _band_bell(nb, bsz, hb, nb * k, dt, cuda, empty=(1,))
@@ -417,13 +445,16 @@ def test_k4_matches_plain_at_odd_shapes(cuda, nb, bsz, hb, rt, k, tier):
 # and 33 (ragged row blocks; the plan's lane rounding makes W*bsz a
 # multiple of 128, so W is 128 panels there), bsz 32 (blocks are block
 # rows); k 1 and 33 (element copies), 128 (one column block), 200 (two,
-# the second ragged).
+# the second ragged), 20, 100, 130 and 257 (a warp's columns partly past
+# N); bsz 13 (part of a thread's rows past M).
+K4_K = [1, 33, 128, 200, 20, 100, 130, 257]
+K4_SHAPES = [(40, 24, 2, 3, 64), (130, 3, 2, 7, 128), (130, 33, 1, 2, 128),
+             (50, 32, 2, 5, 64), (130, 13, 1, 3, 128)]
+
+
 @pytest.mark.parametrize("tier", ["f32", "bf16", "bf16x3", "f64"])
-@pytest.mark.parametrize("k", [1, 33, 128, 200])
-@pytest.mark.parametrize("nb,bsz,hb,rt,mw", [(40, 24, 2, 3, 64),
-                                             (130, 3, 2, 7, 128),
-                                             (130, 33, 1, 2, 128),
-                                             (50, 32, 2, 5, 64)])
+@pytest.mark.parametrize("k", K4_K)
+@pytest.mark.parametrize("nb,bsz,hb,rt,mw", K4_SHAPES)
 def test_k4_vote_body_matches_plain(cuda, nb, bsz, hb, rt, mw, k, tier):
     dt, cd, prec = TIERS[tier]
     a, ok = _band_bell(nb, bsz, hb, nb * k + bsz, dt, cuda, empty=(2,))
@@ -639,7 +670,11 @@ def test_k8_windows_past_the_operand_end(cuda, stream):
 @pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bsz,W,rt,k,shift", [(3, 5, 7, 33, 0),
                                               (33, 3, 2, 70, 0),
-                                              (8, 4, 3, 64, 1)])
+                                              (8, 4, 3, 64, 1),
+                                              (8, 4, 3, 100, 1),
+                                              (16, 3, 3, 20, 1),
+                                              (13, 5, 3, 257, 0),
+                                              (20, 4, 2, 130, 1)])
 def test_k8_element_copies(cuda, bsz, W, rt, k, shift, stream):
     """Tiles of any W (K8 takes them as given): W*bsz not a multiple of 16
     bytes, or tiles, operand and output at an odd element offset (shift),
@@ -1442,12 +1477,13 @@ INT_BELL_CASES = [c for c in K3_CASES if c[4] != "nan"]
 @pytest.mark.parametrize("nb,bsz,hb,k,values", INT_BELL_CASES)
 def test_k3_k6_int32_at_odd_shapes(cuda, nb, bsz, hb, k, values):
     """K3's int32 kind on the band body and K6's on the persistent body
-    (bsz <= 64) at K3_CASES' shapes: equal to their plain versions and to
-    NumPy modulo 2^32, with the multiply-adds their votes kept (the float32
-    kinds' chunk and block models)."""
+    (bsz <= 64; past 64 on K3's band body) at K3_CASES' shapes: equal to
+    their plain versions and to NumPy modulo 2^32, with the multiply-adds
+    their votes kept (the float32 kinds' chunk and block models)."""
     a, _, blocks64 = _int_bell(nb, bsz, hb, nb + k, cuda, values,
                                empty=(nb // 2,))
-    b = torch.from_numpy(_ints(np.random.default_rng(k), (a.n, k))).to(cuda)
+    b = _shifted(torch.from_numpy(_ints(np.random.default_rng(k),
+                                        (a.n, k))).to(cuda), values)
     want = _int_spmm_want(a, blocks64, b)
     got = _twice(lambda: tcb.bell_spmm_fused(a, b), "K3_LAUNCHES")
     assert got.dtype == torch.int32
@@ -1642,11 +1678,8 @@ def test_k3_k6_float64_on_the_vote_bodies(cuda, bsz, k):
             assert model(a, k) <= full
 
 
-@pytest.mark.parametrize("k", [1, 33, 128, 200])
-@pytest.mark.parametrize("nb,bsz,hb,rt,mw", [(40, 24, 2, 3, 64),
-                                             (130, 3, 2, 7, 128),
-                                             (130, 33, 1, 2, 128),
-                                             (50, 32, 2, 5, 64)])
+@pytest.mark.parametrize("k", K4_K)
+@pytest.mark.parametrize("nb,bsz,hb,rt,mw", K4_SHAPES)
 def test_k4_int32_vote_body(cuda, nb, bsz, hb, rt, mw, k):
     """K4's int32 kind on the band body (a vote on every bit of a word):
     equal to its plain version and NumPy, with the float32 kind's chunk

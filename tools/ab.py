@@ -18,10 +18,12 @@ Suites:
   band (nb 15,625, bsz 32, 5-block band, float32), k = 128 (k = 32 for
   K5): K3, K4, K5, K6 and K8 in float32, the bf16 streams of K3, K4,
   K5, K6 (bf16 blocks) and K8 with bf16 operands, the bf16x3 split of
-  K3, K4, K5 and K6 (float32 operands), and K3, K4, K5, K6 and K8 in
-  float64 (float64 blocks, kits and tiles); then K6 on the same band at bsz
-  128 (``chip_smoke.K6_WIDE_NB``: nb 3,907, n 500,096), k = 128, in
-  float32, bf16 (blocks and operand), bf16x3, int32 and float64.
+  K3, K4, K5 and K6 (float32 operands), K3, K4, K5, K6 and K8 in
+  float64 (float64 blocks, kits and tiles), and K3, K4 and K8 in int32
+  (the blocks x 400, rounded; operand entries in [-8, 8]); then K6 on the
+  same band at bsz 128 (``chip_smoke.K6_WIDE_NB``: nb 3,907, n 500,096),
+  k = 128, in float32, bf16 (blocks and operand), bf16x3, int32 and
+  float64.
 - ``slab``: the block-SpGEMM slab apply (K7) on the SpGEMM fixture
   (``benchmarks/measure_auto_block.py``'s ``C = A A``: nb 2,000, bsz 32,
   19,025 stored blocks, 181,214 block products, float32): the prepared
@@ -40,12 +42,16 @@ Suites:
 
 Beside each back-to-back time it prints the host microseconds per call
 (``chip_smoke._host_us``: 200 calls issued back to back, the card
-synchronised only before and after).
+synchronised only before and after) and a sha256 of the case's output
+(one more call after the timing, its bytes hashed on the host), so turns
+of two versions compare bits as well as time.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
 import importlib.util
 import json
 import subprocess
@@ -94,6 +100,15 @@ def bell_cases(cs):
              bsz=w.bsz),
         torch.randint(-8, 9, bw.shape, device="cuda", generator=gw,
                       dtype=torch.int32))
+    i32 = torch.int32
+    ai = BELL(cols=a.cols, blocks=(a.blocks * 400).round().to(i32), n=a.n,
+              bsz=bsz)
+    bi = torch.randint(-8, 9, b.shape, device="cuda", generator=gen,
+                       dtype=i32)
+    kit_i = cb.bell_banded_prepare(ai, row_tile=5, slot_valid=valid)
+    b3i = torch.cat([bi.reshape(nb, bsz, k), bi.new_zeros(dplan.W, bsz, k)])
+    k8_args[i32] = (cdb.densify_tiles(ai, dplan, i32), dplan.start, b3i, nb,
+                    bsz, k, dplan.W, 5, i32)
     return {
         "K3": lambda: cb.bell_spmm_fused(a, b),
         "K3 bf16": lambda: cb.bell_spmm_fused(a, b_bf, compute_dtype=bf16),
@@ -118,6 +133,10 @@ def bell_cases(cs):
         "K8": lambda: cdb.dband_spmm(*k8_args[f32]),
         "K8 bf16": lambda: cdb.dband_spmm(*k8_args[bf16]),
         "K8 f64": lambda: cdb.dband_spmm(*k8_args[f64]),
+        "K3 i32": lambda: cb.bell_spmm_fused(ai, bi),
+        "K4 i32": lambda: cb.bell_spmm_banded(ai, bi, kit_i.plan,
+                                              tiles=kit_i.tiles),
+        "K8 i32": lambda: cdb.dband_spmm(*k8_args[i32]),
         "K6 b128": lambda: cb.bell_spmm_block(w, bw),
         "K6 b128 bf16": lambda: cb.bell_spmm_block(*wide[bf16]),
         "K6 b128 bf16x3": lambda: cb.bell_spmm_block(w, bw,
@@ -258,6 +277,25 @@ def apply_cases(cs):
     }
 
 
+def digest(y) -> str:
+    """sha256 of an output's bytes: a tensor, or the tensors of a
+    dataclass (a BSR result) in field order."""
+    import torch
+
+    h = hashlib.sha256()
+
+    def add(x):
+        if isinstance(x, torch.Tensor):
+            h.update(x.detach().contiguous().cpu().view(torch.uint8)
+                     .numpy().tobytes())
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                add(getattr(x, f.name))
+
+    add(y)
+    return h.hexdigest()
+
+
 SUITES = {"bell": bell_cases, "slab": slab_cases, "segtile": segtile_cases,
           "apply": apply_cases}
 
@@ -290,20 +328,22 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    ms, host_us = {}, {}
+    ms, host_us, sha = {}, {}, {}
     for name, fn in SUITES[args.suite](cs).items():
         if only and name not in only:
             continue
         med, fastest = cs.pipelined_ms(fn)
         ms[name] = [med, fastest]
         host_us[name] = cs._host_us(fn)
+        sha[name] = digest(fn())  # outside the timed windows
         print(f"   {args.tag} {name:11s}: {med:.4f} ms back to back (median "
               f"window; fastest {fastest:.4f}), host {host_us[name]:.2f} us "
-              f"a call [{card}]", flush=True)
+              f"a call, sha256 {sha[name][:16]} [{card}]", flush=True)
     print(json.dumps({"suite": args.suite, "tag": args.tag,
                       "root": str(args.root),
                       "package": str(Path(sparse_tpu_torch.__file__).parent),
-                      "card": card, "ms": ms, "host_us": host_us}),
+                      "card": card, "ms": ms, "host_us": host_us,
+                      "sha256": sha}),
           flush=True)
 
 
