@@ -1884,8 +1884,9 @@ def phase10_slab_kernel_vs_plain():
     counts), the raw route (a list with the pads, built per call) and the
     prepared route (the plan's list, with the kernel's product count), a
     plan split into several reference chunks, one output of 40 products,
-    an empty product set, and the gradient's two schedules (dA, dB); each
-    case twice for bitwise repeatability."""
+    an empty product set, and the gradient's two schedules (dA, dB); then
+    float64 at bsz 1, 8, 16, 20, 32, 33 and 64 on both routes; each case
+    twice for bitwise repeatability."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.ops import cuda_bsr
 
@@ -1917,6 +1918,20 @@ def phase10_slab_kernel_vs_plain():
         print(f"   {label}: max|kernel-plain| {err:.3e} raw route (slots, "
               f"pads kept), {err_p:.3e} prepared (the plan's list, "
               f"{issued} products counted); bitwise repeatable", flush=True)
+    # float64 at the card tests' sizes: the FMA tile to bsz 8, the DMMA
+    # body past it (element copies where bsz is not 8, 16, 32 or 64)
+    for bsz in (1, 8, 16, 20, 32, 33, 64):
+        a = _rand_bsr(max(12, 240 // bsz), bsz, 0.2, f64, rng)
+        plan = pt.bsr_smsmm_prepare(a, a)
+        pp = pt.bsr_smsmm_slab_prepare(plan, a.nbz, a.nbz)
+        z = cuda_bsr._append_zero(a.blocks, f64)
+        label = f"K7 float64 bsz={bsz} products {plan.n_products}"
+        err, _ = _slab_vs_plain(label, pp, z, z, f64)
+        err_p, issued = _prepared_vs_plain(f"{label} prepared", pp, a, a,
+                                           f64)
+        print(f"   {label}: max|kernel-plain| {err:.3e} raw, {err_p:.3e} "
+              f"prepared ({issued} products counted); bitwise repeatable",
+              flush=True)
     # several reference chunks: the step cap lowered to 256 at g = 2
     a = _rand_bsr(60, 8, 0.1, f32, rng)
     plan = pt.bsr_smsmm_prepare(a, a)
@@ -2206,6 +2221,13 @@ def phase12_slab_timing(card, m, launches):
                                                 blocks[b_pos]))
 
     kinds = {}
+    # how often consecutive products of the list share an A slot (a copy
+    # the producer could skip), counted on the host
+    ab_np = pp.prod_ab.cpu().numpy()
+    share_a = float((ab_np[1:, 0] == ab_np[:-1, 0]).mean()) \
+        if len(ab_np) > 1 else 0.0
+    print(f"   K7 product list: {share_a:.1%} of consecutive products share "
+          "their A slot (host count)", flush=True)
     for dt in (torch.bfloat16, torch.float64):
         x = pt.BSR(indices=ab.indices, blocks=ab.blocks.to(dt), n=ab.n,
                    bsz=bsz)
@@ -2225,7 +2247,9 @@ def phase12_slab_timing(card, m, launches):
         lib_dt = library_ms(f"torch.bmm + index_add_ in {kind} (K7's "
                             "yardstick)", lambda: yardstick(x.blocks), card)
         kinds[kind] = {"apply_ms": ms_dt, "bound_ms": b_ms, "bound_by": b_by,
-                       "max_abs_err": e, "library_ms": lib_dt}
+                       "max_abs_err": e, "library_ms": lib_dt,
+                       "geometry": _slab_geometry_line(f"K7 {kind}", dt,
+                                                       bsz, card)}
         del x
 
     def chain():
@@ -2267,13 +2291,31 @@ def phase12_slab_timing(card, m, launches):
     # C = A A: A's blocks once (z1 and z2 are one buffer), the output
     # blocks once; 2 F bsz^3 flops
     cost = ((ab.nbz + plan.nbz_out) * bsz * bsz * 4, flops)
+    geometry = _slab_geometry_line("K7 float32", torch.float32, bsz, card)
     return kernel_entry("K7 bsr_slab", "sparse_tpu_torch/csrc/bsr_slab.cu",
                         "sparse_tpu/ops/pallas_bsr.py:467", launches, err,
                         ms_k, ms_p, cost, lib, call,
                         library_ms_csr=csr_ms,
                         issued_gflop=issued * 2 * bsz ** 3 / 1e9,
                         useful_gflop=flops / 1e9, products_issued=issued,
-                        products_useful=F, **kinds)
+                        products_useful=F, share_a=share_a,
+                        geometry=geometry, **kinds)
+
+
+def _slab_geometry_line(label, dtype, bsz, card):
+    """Print and return the geometry K7 launches for ``dtype`` at ``bsz``
+    (``cuda_bsr.slab_geometry``: ring stages, shared bytes a block, blocks
+    an SM, registers, spills, the body)."""
+    from sparse_tpu_torch.ops import cuda_bsr
+
+    geo = cuda_bsr.slab_geometry(dtype, bsz)
+    print(f"   {label} geometry at bsz {bsz}: {geo['body']}, "
+          f"{geo['stages']} stages a team, {geo['teams']} teams a "
+          f"128-thread block, {geo['shared_bytes']} shared bytes a block, "
+          f"{geo['blocks_per_sm']} blocks an SM, {geo['registers']} "
+          f"registers and {geo['local_bytes']} local bytes a thread "
+          f"[{card}]", flush=True)
+    return geo
 
 
 # -- slice 4: the K1 variants, K8, Matrix Market input, roofline -----------
@@ -4972,6 +5014,23 @@ def _library_csr(cell, kind, a, v, card):
     return ms, call
 
 
+def _k1_geometry_line(group, card):
+    """Print and return the geometry of K1's float64 row kernel and of its
+    float32 twin at lane group ``group`` (``cuda_csr.k1_geometry``)."""
+    from sparse_tpu_torch.ops import cuda_csr
+
+    geo = {}
+    for kind, dt in (("float64", torch.float64), ("float32", torch.float32)):
+        g = geo[kind] = cuda_csr.k1_geometry(dt, group)
+        print(f"   K1 {kind} row kernel at lane group {group}: "
+              f"{g['registers']} registers and {g['local_bytes']} local "
+              f"bytes a thread, {g['shared_bytes']} static shared bytes, "
+              f"{g['blocks_per_sm']} blocks of 256 threads an SM, "
+              f"{g['rows_per_group']} rows a lane group [{card}]",
+              flush=True)
+    return geo
+
+
 def _phase22_spmv(card, band, sl, ela, out):
     """K1, K1-r32, K1-mxu on band-10M and K2 on elasticity-400k in int32,
     bf16 and float64, each main path ``smvm_prepare(a) -> plan.apply(v)``
@@ -5035,6 +5094,9 @@ def _phase22_spmv(card, band, sl, ela, out):
             check, mag, cost, dt,
             lambda: pt.csr_smvm_segtile(ap32, vp32, st32), lib, call)
         out["K1"][kind]["setup_s"] = t_prep
+        if dt == torch.float64:
+            out["K1"][kind]["geometry"] = _k1_geometry_line(st.stream.group,
+                                                            card)
         out["K1-mxu"][kind] = _new_kind(
             card, f"band-10M K1-mxu {kind} (csr_smvm_segtile reduce='mxu')",
             "K1-mxu",

@@ -29,14 +29,20 @@
 // (A block | B block) in shared memory, filled by 16-byte cp.async
 // kStages-1 products ahead ACROSS output blocks and pieces, so copies stay
 // in flight while an output with one product multiplies and is stored.
-// One barrier per product (the team's).  Float32, float64 and int32 (as
-// unsigned: multiply-adds modulo 2^32, the reference's wrapping int32
-// result in any order): each lane keeps an 8x4 tile of a 32 x 32 output (rows r + 4q, so the padded A rows
-// give conflict-free 16-byte loads; B rows are broadcast 16-byte loads).
-// bf16: mma.sync m16n8k16 from ldmatrix fragments, float32 sums rounded
-// once.  Each output block is written once, from registers, with 16-byte
-// streaming stores (__stcs) so the output stream does not push factor
-// blocks out of L2; an output with no product
+// One barrier per product (the team's).  Float32, int32 (as unsigned:
+// multiply-adds modulo 2^32, the reference's wrapping int32 result in any
+// order) and float64 at bsz <= 8: each lane keeps an 8x4 tile of a
+// 32 x 32 output (rows r + 4q, so the padded A rows give conflict-free
+// 16-byte loads; B rows are broadcast 16-byte loads).  bf16: mma.sync
+// m16n8k16 from ldmatrix fragments, float32 sums rounded once.  float64
+// past bsz 8: Hopper's m16n8k8 DMMA on stages of 16-wide k-slices with
+// swizzled rows, three a team, the next copies issued before each
+// multiply (DmmaGeo below): the CUDA cores' float64 FMA tile ran at half
+// the float64 tensor rate, paid two 8-byte operands a 16-byte load, and
+// its two 17 KB stages of a whole product held one block an SM with no
+// copy in flight during a multiply.  Each output block is written once,
+// from registers, with 16-byte streaming stores (__stcs) so the output
+// stream does not push factor blocks out of L2; an output with no product
 // is written as zeros.  Products are summed in list order, no atomics on
 // the output: two runs are bitwise equal.  Block sizes that are not 8, 16,
 // 32 or 64 (or unaligned pointers) take element copies into a zero-padded
@@ -47,8 +53,10 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "sm90_async.cuh"
+#include "sm90_tma.cuh"
 
 namespace {
 
@@ -67,9 +75,11 @@ template <>
 struct Cfg<float> {
   static constexpr int kStages = 3, kPadA = 4, kPadB = 0;
 };
+// float64 at BS 8 (the FMA tile; DMMA's m16 would pad it to twice the
+// work); BS 16-64 run DmmaGeo's body below.
 template <>
 struct Cfg<double> {
-  static constexpr int kStages = 2, kPadA = 4, kPadB = 0;
+  static constexpr int kStages = 3, kPadA = 4, kPadB = 0;
 };
 // int32 runs as unsigned: the float32 team body's stages and padding, sums
 // modulo 2^32 (the reference's wrapping int32 result in any order), the
@@ -410,6 +420,155 @@ struct MmaTile {
   }
 };
 
+// -- float64 on Hopper's m16n8k8 DMMA, BS 16, 32, 64 ------------------------
+//
+// A stage holds a k-slice of KD = 16 of one product: A's BS x 16 columns
+// and B's 16 x BS rows, unpadded, each row's 16-byte chunks XOR-swizzled
+// by 2 * (row % 4), so every fragment load (a lane's double) is one
+// shared-memory wavefront per half warp: A's lanes (g, t) read rows g, in
+// chunks (kk + t) / 2 ^ 2g, B's rows kk + t in chunks n / 2 ^ 2t, 16
+// distinct 8-byte slots of a 128-byte line either way.  A product is
+// BS / 16 stages (1 at BS 16, 2 at 32, 4 at 64); three stages a team
+// keep two stages' copies in flight while a third is multiplied, in 24 KB
+// a one-warp team at BS 32 (two 128-thread blocks an SM; 48 KB a
+// four-warp team at BS 64); with two, one copy in flight, the apply took
+// 0.82 ms against 0.70 at the SpGEMM fixture (tools/slab_variants.py).
+
+template <int BS>
+struct DmmaGeo {
+  static constexpr int W = BS > 32 ? 4 : 1;  // warps a team
+  static constexpr int kTeams = kThreads / (32 * W);
+  static constexpr int TS = BS > 32 ? 32 : BS;  // a warp's tile side
+  static constexpr int MT = TS / 16, NT = TS / 8;
+  static constexpr int KD = 16;            // k of a stage
+  static constexpr int kParts = BS / KD;   // stages a product
+  static constexpr int kStage = 2 * BS * KD;  // doubles: A part, B part
+  static constexpr int kStages = 3;
+  static constexpr int kTeamElems = kStages * kStage;
+  static constexpr int kBytes = kTeams * kTeamElems * 8;
+  // output ranges a team: the teams running at one time walk 1/kPieces of
+  // the outputs, whose factor blocks then fit the L2 in float64 too (at
+  // the SpGEMM fixture's band, by its block counts, ~46 MB at 8 and ~17
+  // MB at 32 of A's 156 MB; 0.83 ms at 8, 0.73 at 16, 0.70 at 32 on an
+  // H100, tools/slab_variants.py)
+  static constexpr int kPieces = 32;
+  // offsets (doubles) of A part element (r, c), c < KD, and of B part
+  // element (k, n), k < KD
+  __device__ static __forceinline__ int a_at(int r, int c) {
+    return r * KD + ((((c >> 1) ^ ((r & 3) << 1))) << 1) + (c & 1);
+  }
+  __device__ static __forceinline__ int b_at(int k, int n) {
+    return BS * KD + k * BS + ((((n >> 1) ^ ((k & 3) << 1))) << 1) + (n & 1);
+  }
+};
+
+// Part `part` of one product (A's columns and B's rows 16 part .. +15)
+// into a stage.  vec (bsz == BS, 16-byte aligned): cp.async, 16 bytes a
+// thread; else guarded element copies, zeros past bsz.
+template <int BS>
+__device__ __forceinline__ void copy_part(double* st,
+                                          const double* __restrict__ a,
+                                          const double* __restrict__ b,
+                                          int part, int bsz, bool vec,
+                                          int tt) {
+  using G = DmmaGeo<BS>;
+  constexpr int TT = 32 * G::W, KD = G::KD;
+  const int k0 = part * KD;
+  if (vec) {
+    constexpr int NA = BS * KD / 2, NB = KD * BS / 2;  // 16-byte chunks
+#pragma unroll
+    for (int s = 0; s < NA / TT; ++s) {
+      const int e = tt + s * TT;
+      const int r = e / (KD / 2), c = (e % (KD / 2)) * 2;
+      sm90::cp_async16(st + G::a_at(r, c), a + r * BS + k0 + c, true);
+    }
+#pragma unroll
+    for (int s = 0; s < NB / TT; ++s) {
+      const int e = tt + s * TT;
+      const int k = e / (BS / 2), n = (e % (BS / 2)) * 2;
+      sm90::cp_async16(st + G::b_at(k, n), b + (k0 + k) * BS + n, true);
+    }
+  } else {
+    for (int e = tt; e < BS * KD; e += TT) {
+      const int r = e / KD, c = e % KD;
+      st[G::a_at(r, c)] =
+          r < bsz && k0 + c < bsz ? a[r * bsz + k0 + c] : 0.0;
+      const int k = e / BS, n = e % BS;
+      st[G::b_at(k, n)] =
+          k0 + k < bsz && n < bsz ? b[(k0 + k) * bsz + n] : 0.0;
+    }
+  }
+}
+
+// A warp's TS x TS tile of the output at (R0, C0) as MT x NT fragments of
+// m16n8: lane 4g + t holds (R0 + 16 mt + g (+8), C0 + 8 nt + 2t (+1)).
+template <int BS>
+struct DmmaTile {
+  using G = DmmaGeo<BS>;
+  double acc[G::MT][G::NT][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int m = 0; m < G::MT; ++m)
+#pragma unroll
+      for (int n = 0; n < G::NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.0;
+  }
+
+  __device__ __forceinline__ void multiply(const double* st, int lane,
+                                           int wt) {
+    const int R0 = (wt / 2) * 32, C0 = (wt % 2) * 32;
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int kk = 0; kk < G::KD; kk += 8) {
+      double a[G::MT][4], b[G::NT][2];
+#pragma unroll
+      for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)  // (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+          a[mt][i] = st[G::a_at(R0 + 16 * mt + g + 8 * (i & 1),
+                                kk + t + 4 * (i >> 1))];
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)  // (t, g), (t+4, g)
+          b[nt][i] = st[G::b_at(kk + t + 4 * i, C0 + 8 * nt + g)];
+#pragma unroll
+      for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt)
+          sm90::mma_f64_16808(acc[mt][nt], a[mt], b[nt]);
+    }
+  }
+
+  // Aligned blocks: each lane's column pair as one 16-byte streaming
+  // store; else guarded element stores.
+  __device__ __forceinline__ void store(double* dst, int bsz, bool vec,
+                                        int lane, int wt) const {
+    const int R0 = (wt / 2) * 32, C0 = (wt % 2) * 32;
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = R0 + 16 * mt + g + 8 * h;
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt) {
+          const int col = C0 + 8 * nt + 2 * t;
+          const double x0 = acc[mt][nt][2 * h], x1 = acc[mt][nt][2 * h + 1];
+          if (vec) {
+            __stcs(reinterpret_cast<double2*>(dst + row * BS + col),
+                   make_double2(x0, x1));
+          } else if (row < bsz) {
+            if (col < bsz) dst[row * bsz + col] = x0;
+            if (col + 1 < bsz) dst[row * bsz + col + 1] = x1;
+          }
+        }
+      }
+  }
+};
+
 template <typename T, int BS>
 struct TileOf {
   using type = FmaTile<T, BS>;
@@ -522,46 +681,201 @@ __global__ void __launch_bounds__(kThreads)
     atomicAdd(issued, walked);
 }
 
+// float64 at BS 16-64: slab_kernel's walk (its lists and order, cut into
+// DmmaGeo::kPieces ranges a team) over stages of a product's k-slices,
+// multiplied on DMMA.  The copy into the stage consumed one step before
+// is issued before the multiply, so two stages' copies are in flight
+// while one is multiplied.
+template <int BS>
+__global__ void __launch_bounds__(kThreads)
+    slab_dmma_kernel(const double* __restrict__ z1,
+                     const double* __restrict__ z2,
+                     const int* __restrict__ prod_ptr,
+                     const int2* __restrict__ prod_ab,
+                     double* __restrict__ out, int n_out, int bsz, int vec,
+                     unsigned long long* __restrict__ issued) {
+  using G = DmmaGeo<BS>;
+  constexpr int S = G::kStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int team = warp / G::W, wt = warp % G::W;
+  const int tt = threadIdx.x % (32 * G::W);
+  double* ring = reinterpret_cast<double*>(smem) + team * G::kTeamElems;
+
+  // the pieces, cut as slab_kernel cuts its kPieces
+  const long long nteams = static_cast<long long>(gridDim.x) * G::kTeams;
+  const long long g = static_cast<long long>(blockIdx.x) * G::kTeams + team;
+  const long long total = static_cast<long long>(__ldg(prod_ptr + n_out)) +
+                          n_out;
+  const long long npieces = nteams * G::kPieces;
+  int p0 = 0, p1 = 0, f0 = 0, f1 = 0;
+  if (lane < G::kPieces) {
+    const long long piece = g + lane * nteams;
+    const int2 o = find_starts(prod_ptr, n_out, total * piece / npieces,
+                               total * (piece + 1) / npieces);
+    p0 = o.x;
+    p1 = o.y;
+    f0 = __ldg(prod_ptr + p0);
+    f1 = __ldg(prod_ptr + p1);
+  }
+  const long long bsz2 = static_cast<long long>(bsz) * bsz;
+
+  // producer: part `part` of product fp into stage ps, one cp.async group
+  // a step, across pieces
+  int pp = 0, part = 0;
+  int fp = __shfl_sync(kFull, f0, 0), fend = __shfl_sync(kFull, f1, 0);
+  int ps = 0;
+  Ahead<int2> pairs;
+  pairs.init(prod_ab, fend, fp, lane);
+  auto produce = [&]() {
+    while (fp >= fend && pp + 1 < G::kPieces) {
+      ++pp;
+      fp = __shfl_sync(kFull, f0, pp);
+      fend = __shfl_sync(kFull, f1, pp);
+      if (fp < fend) pairs.init(prod_ab, fend, fp, lane);
+    }
+    if (fp < fend) {
+      const int2 ab = pairs.get(fp, lane);
+      copy_part<BS>(ring + ps * G::kStage, z1 + ab.x * bsz2,
+                    z2 + ab.y * bsz2, part, bsz, vec != 0, tt);
+    }
+    sm90::cp_async_commit();
+    if (++part == G::kParts) {
+      part = 0;
+      ++fp;
+    }
+    ps = ps + 1 == S ? 0 : ps + 1;
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) produce();
+
+  DmmaTile<BS> tile;
+  int cs = 0;
+  unsigned long long walked = 0;  // products multiplied
+  for (int pc = 0; pc < G::kPieces; ++pc) {
+    const int o0 = __shfl_sync(kFull, p0, pc), o1 = __shfl_sync(kFull, p1, pc);
+    int fc = __shfl_sync(kFull, f0, pc);
+    if (o0 >= o1) continue;
+    Ahead<int> ends;
+    ends.init(prod_ptr, n_out + 1, o0 + 1, lane);
+    for (int o = o0; o < o1; ++o) {
+      const int fe = ends.get(o + 1, lane);
+      tile.zero();
+      for (; fc < fe; ++fc) {
+#pragma unroll 1
+        for (int k = 0; k < G::kParts; ++k) {
+          // this stage has landed; every lane of the team is done with
+          // the one before, which the copy issued next refills
+          sm90::cp_async_wait<S - 2>();
+          team_sync<G::W>();
+          produce();
+          tile.multiply(ring + cs * G::kStage, lane, wt);
+          cs = cs + 1 == S ? 0 : cs + 1;
+        }
+        ++walked;
+      }
+      tile.store(out + o * bsz2, bsz, vec != 0, lane, wt);
+    }
+  }
+  sm90::cp_async_wait<0>();
+  if (issued != nullptr && tt == 0)
+    atomicAdd(issued, walked);
+}
+
 inline bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+// The body kind T runs at BS: its kernel, teams a block, ring stages and
+// shared bytes a block.  float64 past BS 8 runs the DMMA body.
+template <typename T, int BS,
+          bool D = std::is_same<T, double>::value && BS >= 16>
+struct Body {
+  using G = Geo<T, BS>;
+  static constexpr int kTeams = G::kTeams, kStages = G::kStages,
+                       kBytes = G::kBytes;
+  static auto kernel() { return slab_kernel<T, BS>; }
+};
+template <typename T, int BS>
+struct Body<T, BS, true> {
+  using G = DmmaGeo<BS>;
+  static constexpr int kTeams = G::kTeams, kStages = G::kStages,
+                       kBytes = G::kBytes;
+  static auto kernel() { return slab_dmma_kernel<BS>; }
+};
+
+// Sets the kernel's shared-memory limit and gives its resident thread
+// blocks per SM (asked once).
+template <typename T, int BS>
+cudaError_t blocks_per_sm(int& per_sm_out) {
+  using B = Body<T, BS>;
+  if constexpr (B::kBytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        B::kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, B::kBytes);
+    if (e != cudaSuccess) return e;
+  }
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, B::kernel(), kThreads, B::kBytes);
+    if (e != cudaSuccess) return e;
+    per_sm = n < 1 ? 1 : n;
+  }
+  per_sm_out = per_sm;
+  return cudaSuccess;
 }
 
 template <typename T, int BS>
 cudaError_t launch_bs(const void* z1, const void* z2, const void* prod_ptr,
                       const void* prod_ab, void* out, int n_out, int bsz,
                       unsigned long long* issued, cudaStream_t stream) {
-  using G = Geo<T, BS>;
-  auto kern = slab_kernel<T, BS>;
-  constexpr int smem = G::kBytes;
-  if constexpr (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  static int per_sm = 0;  // resident thread blocks per SM
-  if (per_sm == 0) {
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kern, kThreads, smem);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) per_sm = 1;
-  }
+  using B = Body<T, BS>;
+  int per_sm = 0;
+  cudaError_t e = blocks_per_sm<T, BS>(per_sm);
+  if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   // persistent: no more teams than the card holds at once, or than outputs
-  const long long want = (static_cast<long long>(n_out) + G::kTeams - 1) /
-                         G::kTeams;
+  const long long want = (static_cast<long long>(n_out) + B::kTeams - 1) /
+                         B::kTeams;
   const long long cap = static_cast<long long>(sms) * per_sm;
   const int grid = static_cast<int>(want < cap ? want : cap);
   const bool vec = bsz == BS && aligned16(z1) && aligned16(z2) &&
                    aligned16(out);
-  kern<<<grid, kThreads, smem, stream>>>(
+  const auto kern = B::kernel();
+  kern<<<grid, kThreads, B::kBytes, stream>>>(
       static_cast<const T*>(z1), static_cast<const T*>(z2),
       static_cast<const int*>(prod_ptr), static_cast<const int2*>(prod_ab),
       static_cast<T*>(out), n_out, bsz, vec ? 1 : 0, issued);
   return cudaGetLastError();
+}
+
+// The launched geometry at BS: out[0..6] = ring stages, shared bytes a
+// block, resident blocks an SM, registers a thread, local bytes a thread,
+// teams a block, body (0 the FMA tile, 1 bf16 mma.sync, 2 float64 DMMA).
+template <typename T, int BS>
+cudaError_t geometry_bs(int* out) {
+  using B = Body<T, BS>;
+  int per_sm = 0;
+  cudaError_t e = blocks_per_sm<T, BS>(per_sm);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes at;
+  e = cudaFuncGetAttributes(&at, B::kernel());
+  if (e != cudaSuccess) return e;
+  out[0] = B::kStages;
+  out[1] = B::kBytes;
+  out[2] = per_sm;
+  out[3] = at.numRegs;
+  out[4] = static_cast<int>(at.localSizeBytes);
+  out[5] = B::kTeams;
+  out[6] = std::is_same<T, double>::value && BS >= 16
+               ? 2
+               : (std::is_same<T, __nv_bfloat16>::value ? 1 : 0);
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -585,6 +899,18 @@ cudaError_t launch(const void* z1, const void* z2, const void* prod_ptr,
     return launch_bs<T, 32>(z1, z2, prod_ptr, prod_ab, out, n, b, issued,
                             st);
   return launch_bs<T, 64>(z1, z2, prod_ptr, prod_ab, out, n, b, issued, st);
+}
+
+// geometry_bs at the BS launch<T> takes for bsz.
+template <typename T>
+cudaError_t geometry(long long bsz, int* out) {
+  if (bsz < 1 || bsz > 64) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) > 2) {
+    if (bsz <= 8) return geometry_bs<T, 8>(out);
+  }
+  if (bsz <= 16) return geometry_bs<T, 16>(out);
+  if (bsz <= 32) return geometry_bs<T, 32>(out);
+  return geometry_bs<T, 64>(out);
 }
 
 }  // namespace
@@ -616,6 +942,19 @@ int bsr_slab(int kind, const void* z1, const void* z2, const void* prod_ptr,
                               count, stream);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The geometry bsr_slab launches for kind and bsz (geometry_bs): out[0..6]
+// = ring stages, shared bytes a block, resident blocks an SM, registers and
+// local bytes a thread, teams a block, body.  Returns a cudaError_t.
+int bsr_slab_geometry(int kind, long long bsz, int* out) {
+  switch (kind) {
+    case kF32: return geometry<float>(bsz, out);
+    case kBF16: return geometry<__nv_bfloat16>(bsz, out);
+    case kF64: return geometry<double>(bsz, out);
+    case kI32: return geometry<unsigned>(bsz, out);
+    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -168,12 +168,21 @@ __host__ __device__ constexpr int rows_per_group() {
   return G <= 8 ? 4 : (G == 16 ? 2 : 1);
 }
 
+// Rows a lane group of entry kind E takes at once: rows_per_group, but
+// two where that is four for a kind that sets kHalfRows<E> (float64, whose
+// units hold twice the registers: see segtile_csr.cu).
+template <class E>
+constexpr bool kHalfRows = false;
+template <class E, int G>
+constexpr int group_rows =
+    kHalfRows<E> && rows_per_group<G>() == 4 ? 2 : rows_per_group<G>();
+
 // Chunk c of the short rows (see stream_rows).
 template <class E, int G>
 __device__ __forceinline__ void chunk_rows(const E& ent, const Rows& rows,
                                            long long c, typename E::Out* y) {
   using T = typename E::T;
-  constexpr int K = rows_per_group<G>();
+  constexpr int K = group_rows<E, G>;
   constexpr int kGroups = kWarp / G;  // lane groups of a warp
   const long long r0 =
       (c * kWarps + threadIdx.x / kWarp) * kGroups * K +
@@ -239,7 +248,7 @@ __global__ void __launch_bounds__(kThreads)
                 typename E::T* __restrict__ partial,
                 typename E::Out* __restrict__ y) {
   if (blockIdx.x < n_row_blocks) {
-    constexpr int kChunkRows = kThreads / G * rows_per_group<G>();
+    constexpr int kChunkRows = kThreads / G * group_rows<E, G>;
     const long long n_chunks = (rows.n_rows + kChunkRows - 1) / kChunkRows;
     const long long c1 = min((blockIdx.x + 1) * per_block, n_chunks);
     for (long long c = blockIdx.x * per_block; c < c1; ++c)
@@ -317,7 +326,7 @@ cudaError_t launch_stream_rows(const E& ent, const Rows& rows,
                                long long n_long, typename E::T* partial,
                                typename E::Out* y, cudaStream_t s,
                                const int* out_long) {
-  constexpr int kChunkRows = kThreads / G * rows_per_group<G>();
+  constexpr int kChunkRows = kThreads / G * group_rows<E, G>;
   long long per_block, row_blocks;
   cudaError_t err = split_chunks((rows.n_rows + kChunkRows - 1) / kChunkRows,
                                  per_block, row_blocks);

@@ -11,7 +11,8 @@
 // tile height only changes the order of a row's entries (and with it the
 // float rounding); K1-r32 is this kernel on a 32-row plan.
 //
-// Kinds: float32 and float64 (ScalarEntries, sums in their own type);
+// Kinds: float32 and float64 (ScalarEntries, sums in their own type;
+// float64 two rows a lane group, kHalfRows);
 // int32 (WideEntries<int>: multiply-adds in unsigned, so the sum is the
 // reference's int32 result modulo 2^32 in any order, overflow included,
 // stored as its bits); bf16 (WideEntries<__nv_bfloat16>: bf16 values and
@@ -34,9 +35,10 @@
 //    evict-first (__ldcs), masking the entries outside the row; the operand
 //    is gathered through the read-only path (__ldg); the group's butterfly
 //    sum is written once — no partials, no second pass, no atomics;
-//  * a group takes 4 rows (2 at G = 16, 1 at G = 32) and issues the
-//    first units of all of them before its first gather, so a lane has
-//    several stream loads in flight instead of one per round trip;
+//  * a group takes 4 rows (2 at G = 16, 1 at G = 32; float64 2 where
+//    the others take 4) and issues the first units of all of them before
+//    its first gather, so a lane has several stream loads in flight
+//    instead of one per round trip;
 //  * the gathers, not the stream, would dominate the L2 traffic if each
 //    block met its operand window once (a 32-byte sector per 4-byte
 //    gather): a block walks consecutive chunks of 128 rows (8 blocks per
@@ -92,6 +94,16 @@ struct ScalarEntries {
   }
 };
 
+// float64: two rows a lane group where the other kinds take four.  Four
+// rows of 48-byte units held 108 registers a thread (two 256-thread blocks
+// an SM) and took 0.0703 ms on band-10M; every two-row form that
+// tools/k1_f64_probe.py tried held 62 registers (four blocks) and took
+// 0.0472-0.0481 ms, 32-bit entry offsets or a grid of one wave worth no
+// more than 1.5% there (NVIDIA H100 80GB HBM3, 700 W).  Each row's sum
+// keeps its order.
+template <>
+constexpr bool kHalfRows<ScalarEntries<double>> = true;
+
 // The int32 and bf16 kinds: values and operand of type V, products and
 // sums in Widen<V>::Acc (unsigned for int32, float32 for bf16) in the float
 // kinds' order, y in Widen<V>::Out.
@@ -143,6 +155,34 @@ struct WideEntries {
   }
 };
 
+// The launched geometry of kernel `fn` (256-thread blocks, no dynamic
+// shared memory): out[0..4] = registers and local bytes a thread, static
+// shared bytes a block, resident blocks an SM, rows a lane group.
+template <typename Fn>
+cudaError_t geometry_of(Fn fn, int rows, int* out) {
+  cudaFuncAttributes at;
+  cudaError_t e = cudaFuncGetAttributes(&at, fn);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                      0);
+  if (e != cudaSuccess) return e;
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = static_cast<int>(at.sharedSizeBytes);
+  out[3] = per_sm;
+  out[4] = rows;
+  return cudaSuccess;
+}
+
+template <int G>
+cudaError_t geometry_g(bool f64, int* out) {
+  using D = ScalarEntries<double>;
+  using F = ScalarEntries<float>;
+  return f64 ? geometry_of(stream_rows<D, G>, group_rows<D, G>, out)
+             : geometry_of(stream_rows<F, G>, group_rows<F, G>, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -175,6 +215,22 @@ int segtile_csr_bf16(const StreamArgs* a, const void* vals, const void* v,
                      void* partial, void* y, void* stream) {
   return launch_entries<WideEntries<__nv_bfloat16>, __nv_bfloat16>(
       a, vals, v, partial, y, stream);
+}
+
+// The geometry of K1's row kernel at lane group `group` (1, 2, ..., 32)
+// for float64 (f64 != 0) or float32: out[0..4] = registers and local bytes
+// a thread, static shared bytes, resident 256-thread blocks an SM, rows a
+// lane group.  Returns a cudaError_t.
+int segtile_csr_geometry(int f64, int group, int* out) {
+  switch (group) {
+    case 1: return geometry_g<1>(f64 != 0, out);
+    case 2: return geometry_g<2>(f64 != 0, out);
+    case 4: return geometry_g<4>(f64 != 0, out);
+    case 8: return geometry_g<8>(f64 != 0, out);
+    case 16: return geometry_g<16>(f64 != 0, out);
+    case 32: return geometry_g<32>(f64 != 0, out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

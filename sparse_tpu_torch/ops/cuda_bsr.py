@@ -53,6 +53,7 @@ reference is dropped.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -720,6 +721,25 @@ def bsr_slab_issued(prod_ptr, prod_ab, z1: torch.Tensor, z2: torch.Tensor,
     _launch_list(name, prod_ptr, prod_ab, z1, z2, z1.shape[-1], out_dtype,
                  count)
     return int(count.item())
+
+
+_GEOMETRY = ("stages", "shared_bytes", "blocks_per_sm", "registers",
+             "local_bytes", "teams", "body")
+_BODIES = ("fma tile", "bf16 mma.sync", "float64 m16n8k8 dmma")
+
+
+def slab_geometry(dtype, bsz: int) -> dict:
+    """The geometry K7 launches for ``dtype`` and block size ``bsz``, from
+    the CUDA runtime on the current card: ring stages a team, shared bytes
+    a 128-thread block, resident blocks an SM, registers and local
+    (spilled) bytes a thread, teams a block and the body that multiplies.
+    Card only: raises where the kernels cannot be built."""
+    out = (ctypes.c_int * len(_GEOMETRY))()
+    _kernels.check(_kernels.load().bsr_slab_geometry(_KIND[dtype], bsz, out),
+                   "slab_geometry")
+    geo = dict(zip(_GEOMETRY, out))
+    geo["body"] = _BODIES[geo["body"]]
+    return geo
 
 
 def bsr_slab_issued_model(prod_ptr) -> int:

@@ -847,6 +847,23 @@ def _segtile_stream_cuda(stream, v, rows, reduce, out_dtype):
                    1, counted)
 
 
+_GEOMETRY_K1 = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm",
+                "rows_per_group")
+
+
+def k1_geometry(dtype, group: int) -> dict:
+    """The launched geometry of K1's row kernel at lane group ``group``:
+    float64's (two rows a lane group) for ``dtype`` float64, float32's
+    otherwise, from the CUDA runtime on the current card: registers and
+    local (spilled) bytes a thread, static shared bytes, resident
+    256-thread blocks an SM, rows a lane group takes at once.  Card only:
+    raises where the kernels cannot be built."""
+    out = (ctypes.c_int * len(_GEOMETRY_K1))()
+    _kernels.check(_kernels.load().segtile_csr_geometry(
+        int(dtype == torch.float64), group, out), "k1_geometry")
+    return dict(zip(_GEOMETRY_K1, out))
+
+
 def segtile_hbm_bytes(plan: SegTilePlan) -> int:
     """Bytes one segment-tile SpMV moves at float32, the reference's model:
     5 B per slot (value + int8 pointer) + the operand + the output."""

@@ -300,12 +300,21 @@ def test_paired_schedule_matches_reference(nb, density, seed, parity):
         _np(got.blocks), _np(tbsr.bsr_smsmm_apply(tp, ta, tb).blocks), **F32)
 
 
-def test_float64_apply():
-    ja, ta = random_pair(7, 16, 0.35, seed=21, dtype=np.float64)
-    jb, tb = random_pair(7, 16, 0.35, seed=22, dtype=np.float64)
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("bsz,nb", [(8, 8), (16, 7), (20, 6), (32, 5),
+                                    (33, 5), (64, 4)])
+def test_float64_apply(bsz, nb, paired):
+    """float64 at the block sizes of K7's FMA tile (8) and its DMMA body
+    (16-64; 20 and 33 through element copies on the card), unpaired and
+    paired schedules, at 1e-12."""
+    ja, ta = random_pair(nb, bsz, 0.35, seed=21, dtype=np.float64)
+    jb, tb = random_pair(nb, bsz, 0.35, seed=22, dtype=np.float64)
     jp, tp = _plans(ja, jb, ta, tb)
-    jpp = jpb.bsr_smsmm_pallas_prepare(jp, ja.nbz, jb.nbz, g=4, p=8)
-    tpp = tcb.bsr_smsmm_slab_prepare(tp, ta.nbz, tb.nbz, g=4, p=8)
+    jpp = jpb.bsr_smsmm_pallas_prepare(jp, ja.nbz, jb.nbz, g=4, p=8,
+                                       paired=paired)
+    tpp = tcb.bsr_smsmm_slab_prepare(tp, ta.nbz, tb.nbz, g=4, p=8,
+                                     paired=paired)
+    _assert_same_schedule(tpp, jpp)
     got = tcb.bsr_smsmm_apply_slab(tpp, ta, tb)
     assert got.blocks.dtype == torch.float64
     ref = jpb.bsr_smsmm_apply_pallas(jpp, ja, jb, interpret=True)

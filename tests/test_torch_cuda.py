@@ -1967,3 +1967,108 @@ def test_k1_mxu_register_fed_sum(cuda, rows, kind):
         _assert_close(_np(y1)[ok], want[ok], s[ok], _np(v), dt)
     empty = np.flatnonzero(np.diff(s.indptr) == 0)
     assert bool((y1[torch.from_numpy(empty).to(cuda)] == 0).all())
+
+
+def _k1_f64_rows(rng):
+    """3000 rows of 5000 columns in float64: ~20 band entries a row, with
+    empty rows (some in a run), one-entry rows, rows of exactly 256 and 257
+    entries (the stream's long_min at lane group 8, and one past it: the
+    pieces), rows of odd lengths so the next segment starts mid-unit, and
+    a last row of 7 entries."""
+    n, m = 3000, 5000
+    lens = rng.integers(14, 27, n)
+    lens[[5, 6, 7, 900, 2997]] = 0
+    lens[[100, 101, 1234]] = 1
+    lens[[300, 301]] = (256, 257)
+    lens[[102, 103, 104]] = (3, 5, 9)
+    lens[-1] = 7
+    rows = np.repeat(np.arange(n), lens)
+    cols = np.concatenate([
+        np.sort(rng.choice(m, k, replace=False)) if k > 200 else
+        np.sort(np.clip(i + rng.choice(np.arange(-600, 600), k,
+                                       replace=False), 0, m - 1))
+        for i, k in enumerate(lens)])
+    s = sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                      shape=(n, m))
+    s.sum_duplicates()
+    return s
+
+
+@pytest.mark.parametrize("rows", [8, 32])
+def test_k1_float64_row_kernel_edges(cuda, rows):
+    """K1 / K1-r32 in float64 (the row kernel at two rows a lane group)
+    against the plain version and SciPy at 1e-12 (|A||v|): empty rows,
+    one-entry rows, rows of long_min and long_min + 1 entries, segments
+    starting mid-unit, the last row; two runs bitwise equal, one launch a
+    call; the kernel's geometry read from the runtime."""
+    rng = np.random.default_rng(230 + rows)
+    s = _k1_f64_rows(rng)
+    a = _csr(s, np.float64, cuda)
+    plan = tpc.build_seg_tiles(a, wsub=32, rows=rows)
+    st = plan.stream
+    assert st.group == 8 and st.long_min == 256
+    lens = np.diff(s.indptr)
+    assert (lens == 256).any() and (lens == 257).any() and st.n_long >= 1
+    assert int(st.long_rows.max()) == 301  # 257 entries: long; 256: short
+    v = rng.standard_normal(5000)
+    vt = torch.from_numpy(v).to(cuda)
+    name = "K1_R32_LAUNCHES" if rows == 32 else "K1_LAUNCHES"
+    before = getattr(tpc, name)
+    y1 = tpc.csr_smvm_segtile(a, vt, plan)
+    y2 = tpc.csr_smvm_segtile(a, vt, plan)
+    torch.cuda.synchronize()
+    assert getattr(tpc, name) == before + 2
+    assert torch.equal(y1, y2)
+    _assert_close(_np(y1), _np(tpc.segtile_stream_plain(st, vt)), s, v,
+                  np.float64)
+    _assert_close(_np(y1), s @ v, s, v, np.float64)
+    empty = torch.from_numpy(np.flatnonzero(lens == 0)).to(cuda)
+    assert bool((y1[empty] == 0).all())
+    geo = tpc.k1_geometry(torch.float64, st.group)
+    assert geo["rows_per_group"] == 2 and geo["blocks_per_sm"] >= 1
+    assert tpc.k1_geometry(torch.float32, st.group)["rows_per_group"] == 4
+
+
+def _k7_list(nb_out, n_blocks, rng, device):
+    """A product list over ``n_blocks`` stored blocks with outputs of no,
+    one and many (40) products: (prod_ptr, prod_ab) int32 on ``device``."""
+    counts = np.array([0, 1, 3, 0, 40, 1, 0, 2])[np.arange(nb_out) % 8]
+    ptr = np.r_[0, np.cumsum(counts)].astype(np.int32)
+    ab = rng.integers(0, n_blocks, (int(ptr[-1]), 2)).astype(np.int32)
+    return (torch.from_numpy(ptr).to(device),
+            torch.from_numpy(ab).contiguous().to(device))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("bsz", [1, 8, 16, 20, 32, 33, 64])
+def test_k7_float64_dmma_body(cuda, bsz, aligned):
+    """K7 in float64 (bsz 16-64 on the m16n8k8 DMMA body with a three-stage
+    ring of k-slices, bsz 1-8 on the FMA tile) on a hand-built list:
+    outputs of no product (+0, every bit), one and 40 products, against
+    the list walk's plain version at 1e-12 (|z1||z2|), two runs bitwise
+    equal, the kernel's product count equal to the model; misaligned
+    factors take the element copies; the geometry the runtime reports."""
+    rng = np.random.default_rng(bsz + 7 * aligned)
+    n_blocks, nb_out = 30, 24
+    ptr, ab = _k7_list(nb_out, n_blocks, rng, cuda)
+    buf = torch.from_numpy(rng.standard_normal(
+        (2, n_blocks * bsz * bsz + 1))).to(cuda)
+    off = 0 if aligned else 1  # one float64 off 16-byte alignment
+    z1 = buf[0, off:off + n_blocks * bsz * bsz].view(n_blocks, bsz, bsz)
+    z2 = buf[1, off:off + n_blocks * bsz * bsz].view(n_blocks, bsz, bsz)
+    assert (z1.data_ptr() % 16 == 0) == aligned
+    before = tbs.K7_LAUNCHES
+    y1 = tbs._launch_list("K7", ptr, ab, z1, z2, bsz, torch.float64)
+    y2 = tbs._launch_list("K7", ptr, ab, z1, z2, bsz, torch.float64)
+    torch.cuda.synchronize()
+    assert tbs.K7_LAUNCHES == before + 2
+    assert torch.equal(y1, y2)
+    _check_list(y1, ptr, ab, z1, z2, torch.float64)
+    empty = torch.diff(ptr) == 0
+    assert not bool(torch.signbit(y1[empty]).any())
+    geo = tbs.slab_geometry(torch.float64, bsz)
+    dmma = bsz > 8
+    assert (geo["body"] == "float64 m16n8k8 dmma") == dmma
+    assert geo["stages"] == 3
+    if 16 < bsz <= 32:
+        assert geo["blocks_per_sm"] >= 2  # 24 KB a one-warp team

@@ -186,6 +186,61 @@ def test_row_classes():
     assert empty.vals.numel() == 0 and empty.row_ptr.numel() == 17
 
 
+def _float64_edges(rng):
+    """600 rows of 3000 columns: ~20 band entries a row, empty rows (a run
+    of them), one-entry rows, rows of 256 and 257 entries (the float64
+    kernel's long_min at lane group 8, and one past it), odd lengths that
+    start the next row mid-unit, a last row of 7 entries."""
+    n, m = 600, 3000
+    lens = rng.integers(14, 27, n)
+    lens[[5, 6, 7, 400]] = 0
+    lens[[100, 101]] = 1
+    lens[[300, 301]] = (256, 257)
+    lens[[102, 103]] = (3, 5)
+    lens[-1] = 7
+    cols = [np.sort(rng.choice(m, k, replace=False)) if k > 200 else
+            np.sort(np.clip(i + rng.choice(np.arange(-300, 300), k,
+                                           replace=False), 0, m - 1))
+            for i, k in enumerate(lens)]
+    s = sp.csr_matrix((rng.standard_normal(lens.sum()),
+                       (np.repeat(np.arange(n), lens), np.concatenate(cols))),
+                      shape=(n, m))
+    s.sum_duplicates()
+    return s
+
+
+@pytest.mark.parametrize("rows", [8, 32])
+def test_float64_row_edges_match_reference(rows):
+    """The float64 stream K1 and K1-r32 read, at the row lengths their
+    float64 kernel treats apart (empty, one entry, long_min and one past
+    it, a mid-unit start, the last row): the classes are the ones the
+    kernel keys on, and the entry point's result on the CPU matches the
+    reference's ``segtile_apply`` (interpret mode) and SciPy at 1e-12
+    (|A||v|)."""
+    rng = np.random.default_rng(230 + rows)
+    s = _float64_edges(rng)
+    lens = np.diff(s.indptr)
+    ta = _csr(s)
+    tp = tpc.build_seg_tiles(ta, wsub=32, rows=rows)
+    stream = tp.stream
+    assert stream.group == 8 and stream.long_min == 256
+    assert (lens == 256).any() and (lens == 257).any()
+    np.testing.assert_array_equal(_np(stream.long_rows),
+                                  np.flatnonzero(lens > 256))
+    assert stream.n_pieces == 1  # 257 entries: one 512-entry piece
+    v = rng.standard_normal(s.shape[1])
+    got = _np(tpc.csr_smvm_segtile(ta, torch.from_numpy(v), tp))
+    jp = jpc.build_seg_tiles(_jcsr(s), wsub=32, rows=rows)
+    ref = np.asarray(jpc.segtile_apply(
+        jp.vals, jp.q, jp.seg_of, jp.rb, jnp.asarray(v), n=jp.n,
+        wsub=jp.wsub, rows=jp.rows, kstep=jp.kstep, chunks=jp.chunks,
+        interpret=True))[:s.shape[0]]
+    assert got.dtype == np.float64
+    _assert_close(got, ref, s, v, np.float64)
+    _assert_close(got, s @ v, s, v, np.float64)
+    assert not got[lens == 0].any()
+
+
 @pytest.mark.parametrize("rows,layout", VARIANTS)
 def test_refresh_equals_rebuild(rows, layout):
     s = CASES["band_zeros"]()

@@ -47,6 +47,9 @@ def kernels(lib: str, tool: str) -> dict[str, list[str]]:
         if m:
             body = funcs.setdefault(_ANON.sub(r"<\1.cu>", m.group(1)), [])
             continue
+        if line.startswith("Fatbin"):  # the next ELF's header: no kernel's
+            body = None
+            continue
         text = _ENC.sub("", _ADDR.sub("", line)).strip()
         if body is not None and text and not text.startswith("."):
             body.append(text)
