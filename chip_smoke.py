@@ -5014,19 +5014,24 @@ def _library_csr(cell, kind, a, v, card):
     return ms, call
 
 
-def _k1_geometry_line(group, card):
-    """Print and return the geometry of K1's float64 row kernel and of its
-    float32 twin at lane group ``group`` (``cuda_csr.k1_geometry``)."""
+def _k1_geometry_line(group, card, kinds=("float64", "float32"), n_rows=0):
+    """Print and return the geometry of K1's row kernel in ``kinds`` at
+    lane group ``group`` and its split of a launch over ``n_rows`` rows
+    (``cuda_csr.k1_geometry``; bf16's is ``narrow_rows``)."""
     from sparse_tpu_torch.ops import cuda_csr
 
+    dts = {"float64": torch.float64, "float32": torch.float32,
+           "bf16": torch.bfloat16}
     geo = {}
-    for kind, dt in (("float64", torch.float64), ("float32", torch.float32)):
-        g = geo[kind] = cuda_csr.k1_geometry(dt, group)
+    for kind in kinds:
+        g = geo[kind] = cuda_csr.k1_geometry(dts[kind], group, n_rows)
+        split = (f"; {g['row_blocks']} row blocks of {g['chunks_per_block']}"
+                 f" chunks over {n_rows} rows" if n_rows else "")
         print(f"   K1 {kind} row kernel at lane group {group}: "
               f"{g['registers']} registers and {g['local_bytes']} local "
               f"bytes a thread, {g['shared_bytes']} static shared bytes, "
               f"{g['blocks_per_sm']} blocks of 256 threads an SM, "
-              f"{g['rows_per_group']} rows a lane group [{card}]",
+              f"{g['rows_per_group']} rows a lane group{split} [{card}]",
               flush=True)
     return geo
 
@@ -5097,6 +5102,14 @@ def _phase22_spmv(card, band, sl, ela, out):
         if dt == torch.float64:
             out["K1"][kind]["geometry"] = _k1_geometry_line(st.stream.group,
                                                             card)
+        if dt == torch.bfloat16:
+            geo = out["K1"][kind]["geometry"] = _k1_geometry_line(
+                st.stream.group, card, ("bf16", "float32"),
+                st.stream.n_rows)["bf16"]
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            if geo["row_blocks"] > geo["blocks_per_sm"] * sms:
+                raise AssertionError(f"band-10M K1 bf16: {geo['row_blocks']}"
+                                     " row blocks, more than one wave")
         out["K1-mxu"][kind] = _new_kind(
             card, f"band-10M K1-mxu {kind} (csr_smvm_segtile reduce='mxu')",
             "K1-mxu",

@@ -77,9 +77,10 @@ _SIGNATURES = {
     # kind, z1, z2, prod_ptr, prod_ab, out, n_out, bsz, issued counter (or
     # null), stream
     "bsr_slab": (_I, _P, _P, _P, _P, _P, _LL, _LL, _P, _P),
-    # launched geometry, into a host int array: K1's row kernel (float64
-    # flag, lane group) and K7's body (kind, bsz)
-    "segtile_csr_geometry": (_I, _I, _P),
+    # launched geometry, into a host int array: K1's row kernel (kind 0
+    # float32, 1 float64, 2 bf16; lane group; rows of a launch) and K7's
+    # body (kind, bsz)
+    "segtile_csr_geometry": (_I, _I, _LL, _P),
     "bsr_slab_geometry": (_I, _LL, _P),
 }
 

@@ -1,7 +1,8 @@
 // Shared pieces of the compact-stream SpMV kernels (segtile_csr.cu,
 // segtile_mxu.cu, segtile_block.cu): the row classes of a plan's compact
-// stream, streamed loads, the lane-group sum, the one-pass row kernel and
-// the fixed-order sum of a long row's pieces.
+// stream, streamed loads, the lane-group sum, the one-pass row kernel (and
+// narrow_rows, its form on 32-bit entry offsets on one wave of resident
+// blocks) and the fixed-order sum of a long row's pieces.
 //
 // The stream (built once per plan by ops/cuda_csr.py) holds a plan's stored
 // entries in (output row, tile, lane) order, so each output row is one
@@ -29,6 +30,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -272,6 +275,93 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Chunk c of the short rows on 32-bit entry offsets (a stream's row
+// offsets are int32): chunk_rows with int where it holds long long, for
+// narrow_rows.  E::add takes int offsets.
+template <class E, int G>
+__device__ __forceinline__ void narrow_chunk(const E& ent, const Rows& rows,
+                                             int c, typename E::Out* y) {
+  using T = typename E::T;
+  constexpr int K = group_rows<E, G>;
+  constexpr int kGroups = kWarp / G;  // lane groups of a warp
+  const int r0 = (c * kWarps + static_cast<int>(threadIdx.x / kWarp)) *
+                     kGroups * K +
+                 static_cast<int>((threadIdx.x % kWarp) / G);
+  const int g = threadIdx.x % G;
+  int s[K], e[K];
+  bool mine[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int r = r0 + k * kGroups;
+    s[k] = e[k] = 0;
+    mine[k] = false;
+    if (r < rows.n_rows) {
+      s[k] = __ldg(rows.row_ptr + r);
+      e[k] = __ldg(rows.row_ptr + r + 1);
+      mine[k] = e[k] - s[k] <= rows.long_min;
+      if (!mine[k]) e[k] = s[k];  // a long row: its pieces sum it
+    }
+  }
+  T acc[K][E::kC];
+  typename E::Unit x[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int c = 0; c < E::kC; ++c) acc[k][c] = T(0);
+    const int u = s[k] / E::kUnit + g;
+    if (u * E::kUnit < e[k]) x[k] = ent.load(u);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int u = s[k] / E::kUnit + g;
+    if (u * E::kUnit < e[k]) ent.add(acc[k], x[k], u, s[k], e[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {  // the rest of each row
+    for (int u = s[k] / E::kUnit + g + G; u * E::kUnit < e[k]; u += G)
+      ent.add(acc[k], ent.load(u), u, s[k], e[k]);
+#pragma unroll
+    for (int c = 0; c < E::kC; ++c) acc[k][c] = group_sum<G>(acc[k][c]);
+    if (mine[k] && g == 0)
+      E::store(y, ent.out_row(r0 + k * kGroups), acc[k]);
+  }
+}
+
+// stream_rows on 32-bit entry offsets (narrow_chunk), held to MINB
+// resident blocks an SM by __launch_bounds__ and launched on one wave of
+// resident blocks (launch_narrow_rows), each walking the chunks that wave
+// leaves it; the long rows' pieces as in stream_rows.
+template <class E, int G, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    narrow_rows(E ent, Rows rows, int n_row_blocks, int per_block,
+                typename E::T* __restrict__ partial,
+                typename E::Out* __restrict__ y) {
+  if (static_cast<int>(blockIdx.x) < n_row_blocks) {
+    constexpr int kChunkRows = kThreads / G * group_rows<E, G>;
+    const int n_chunks =
+        static_cast<int>((rows.n_rows + kChunkRows - 1) / kChunkRows);
+    const int c0 = static_cast<int>(blockIdx.x) * per_block;
+    const int c1 = min(c0 + per_block, n_chunks);
+    for (int c = c0; c < c1; ++c) narrow_chunk<E, G>(ent, rows, c, y);
+  } else {
+    using T = typename E::T;
+    T acc[E::kC];
+#pragma unroll
+    for (int c = 0; c < E::kC; ++c) acc[c] = T(0);
+    const long long pc =
+        (static_cast<long long>(blockIdx.x) - n_row_blocks) * kWarps +
+        threadIdx.x / kWarp;
+    const int lane = threadIdx.x % kWarp;
+    long long s, e;
+    piece_range(rows, pc, s, e);
+    for (long long u = s / E::kUnit + lane; u * E::kUnit < e; u += kWarp)
+      ent.add(acc, ent.load(u), u, s, e);
+#pragma unroll
+    for (int c = 0; c < E::kC; ++c) acc[c] = group_sum<kWarp>(acc[c]);
+    if (pc < rows.n_pieces && lane == 0) E::store(partial, pc, acc);
+  }
+}
+
 // y[long_rows[j]] = the sum of row j's piece partials in piece order, one
 // thread per long row (C components each), stored in y's type Out.
 template <typename T, int C, typename Out = T>
@@ -306,19 +396,24 @@ cudaError_t launch_long_row_sum(const T* partial, const Rows& rows,
   return cudaGetLastError();
 }
 
-// `chunks` consecutive row chunks over kBlocksPerSm blocks per SM of the
+// `chunks` consecutive row chunks over `per_sm` blocks per SM of the
 // current device: `per_block` chunks a block, `blocks` blocks.
 inline cudaError_t split_chunks(long long chunks, long long& per_block,
-                                long long& blocks) {
+                                long long& blocks,
+                                int per_sm = kBlocksPerSm) {
   int dev = 0, sms = 1;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long want = static_cast<long long>(sms) * kBlocksPerSm;
+  const long long want = static_cast<long long>(sms) * per_sm;
   per_block = chunks > want ? (chunks + want - 1) / want : 1;
   blocks = (chunks + per_block - 1) / per_block;
   return err;
 }
+
+// Rows a chunk of the row kernel holds at lane group G for entry kind E.
+template <class E, int G>
+constexpr int kChunkRowsOf = kThreads / G * group_rows<E, G>;
 
 // Launch stream_rows at lane-group size G, then the long rows' sum.
 template <class E, int G>
@@ -326,7 +421,7 @@ cudaError_t launch_stream_rows(const E& ent, const Rows& rows,
                                long long n_long, typename E::T* partial,
                                typename E::Out* y, cudaStream_t s,
                                const int* out_long) {
-  constexpr int kChunkRows = kThreads / G * group_rows<E, G>;
+  constexpr int kChunkRows = kChunkRowsOf<E, G>;
   long long per_block, row_blocks;
   cudaError_t err = split_chunks((rows.n_rows + kChunkRows - 1) / kChunkRows,
                                  per_block, row_blocks);
@@ -342,6 +437,52 @@ cudaError_t launch_stream_rows(const E& ent, const Rows& rows,
       partial, rows, n_long, y, s, out_long);
 }
 
+// Launch narrow_rows<E, G, MINB> on one wave of resident blocks (their
+// count read from the runtime at the first launch), then the long rows'
+// sum.
+template <class E, int G, int MINB>
+cudaError_t launch_narrow_rows(const E& ent, const Rows& rows,
+                               long long n_long, typename E::T* partial,
+                               typename E::Out* y, cudaStream_t s) {
+  constexpr int kChunkRows = kChunkRowsOf<E, G>;
+  static int resident = 0;
+  cudaError_t err = cudaSuccess;
+  if (resident == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, narrow_rows<E, G, MINB>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (resident == 0) return cudaErrorInvalidConfiguration;
+  long long per_block, row_blocks;
+  err = split_chunks((rows.n_rows + kChunkRows - 1) / kChunkRows, per_block,
+                     row_blocks, resident);
+  if (err != cudaSuccess) return err;
+  const long long grid = row_blocks + (rows.n_pieces + kWarps - 1) / kWarps;
+  if (grid > 0) {
+    narrow_rows<E, G, MINB><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+        ent, rows, static_cast<int>(row_blocks), static_cast<int>(per_block),
+        partial, y);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_long_row_sum<typename E::T, E::kC, typename E::Out>(
+      partial, rows, n_long, y, s, nullptr);
+}
+
+// f(std::integral_constant<int, G>{}) at the lane-group size `group` (1,
+// 2, 4, ..., 32); cudaErrorInvalidValue for any other.
+template <class F>
+cudaError_t with_group(int group, F&& f) {
+  switch (group) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Dispatch the lane-group size (1, 2, 4, ..., 32) to its instantiation;
 // out_long as in launch_long_row_sum.
 template <class E>
@@ -350,27 +491,10 @@ cudaError_t launch_stream_rows_any(const E& ent, const Rows& rows,
                                    typename E::T* partial,
                                    typename E::Out* y, cudaStream_t s,
                                    const int* out_long = nullptr) {
-  switch (group) {
-    case 1:
-      return launch_stream_rows<E, 1>(ent, rows, n_long, partial, y, s,
-                                      out_long);
-    case 2:
-      return launch_stream_rows<E, 2>(ent, rows, n_long, partial, y, s,
-                                      out_long);
-    case 4:
-      return launch_stream_rows<E, 4>(ent, rows, n_long, partial, y, s,
-                                      out_long);
-    case 8:
-      return launch_stream_rows<E, 8>(ent, rows, n_long, partial, y, s,
-                                      out_long);
-    case 16:
-      return launch_stream_rows<E, 16>(ent, rows, n_long, partial, y, s,
-                                       out_long);
-    case 32:
-      return launch_stream_rows<E, 32>(ent, rows, n_long, partial, y, s,
-                                       out_long);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_group(group, [&](auto g) {
+    return launch_stream_rows<E, decltype(g)::value>(ent, rows, n_long,
+                                                     partial, y, s, out_long);
+  });
 }
 
 }  // namespace

@@ -15,10 +15,10 @@
 // float64 two rows a lane group, kHalfRows);
 // int32 (WideEntries<int>: multiply-adds in unsigned, so the sum is the
 // reference's int32 result modulo 2^32 in any order, overflow included,
-// stored as its bits); bf16 (WideEntries<__nv_bfloat16>: bf16 values and
-// operand widened exactly, products and sums in float32 in the float32
-// kind's order, partial float32, y rounded once to bf16 — the reference
-// sums in bf16, so this kind is the more accurate of the two).
+// stored as its bits); bf16 (NarrowBf16: bf16 values and operand widened
+// exactly, products and sums in float32 in the float32 kind's order,
+// partial float32, y rounded once to bf16 — the reference sums in bf16, so
+// this kind is the more accurate of the two — on narrow_rows, below).
 //
 // What bounds it on this card: the stream, 8 bytes per stored entry in
 // float32 (4-byte value + 4-byte column; 12 in float64, 8 in int32, 6 in
@@ -45,7 +45,12 @@
 //    SM in all), so the window of neighbouring rows stays in its L1;
 //  * long rows (more than 8 group passes) would hold their warp: they are
 //    cut into 512-entry pieces, one warp each, and a one-thread-per-row
-//    pass adds the pieces in order (launched only when long rows exist).
+//    pass adds the pieces in order (launched only when long rows exist);
+//  * bf16 is held by the latency of its dependent loads (row offsets, then
+//    units, then gathers), not by the L1's gathers: it runs narrow_rows,
+//    whose 32-bit offsets and two rows a lane group fit 40 registers, so 6
+//    blocks of 256 threads are resident an SM (stream_rows: 80 registers,
+//    3), on a grid of one wave of them (see NarrowBf16).
 
 #include "segtile_common.cuh"
 
@@ -155,32 +160,82 @@ struct WideEntries {
   }
 };
 
+// bf16 on narrow_rows (segtile_common.cuh): WideEntries<bf16> with adds
+// on 32-bit entry offsets, two rows a lane group where stream_rows takes
+// four, at most 40 registers (6 resident blocks an SM), on one wave of
+// resident blocks.  On band-10M stream_rows held it to 80 registers with
+// 8 bytes spilled, 3 blocks an SM, in 2.5 waves of 8 blocks an SM, and
+// took 0.0382-0.0388 ms; this takes 0.0273-0.0281 (tools/k1_bf16_probe.py,
+// NVIDIA H100 80GB HBM3, 700 W).  Gathers all on one 128-byte line saved
+// 8% of the old kernel; staging each block's operand window in shared
+// memory cost 9-19% in every form tried.  Each row keeps its order of
+// adds, so the result is the same bits.
+struct NarrowBf16 : WideEntries<__nv_bfloat16> {
+  using WideEntries<__nv_bfloat16>::add;  // the long rows' pieces
+
+  __device__ __forceinline__ void add(float (&acc)[1], const Unit& x, int u,
+                                      int s, int e) const {
+    const int cs[4] = {x.c.x, x.c.y, x.c.z, x.c.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 4 * u + j;
+      if (i >= s && i < e) acc[0] += W::of(x.a[j]) * W::gather(v, cs[j]);
+    }
+  }
+};
+
+template <>
+constexpr bool kHalfRows<NarrowBf16> = true;
+
+constexpr int kBf16Blocks = 6;  // narrow_rows' resident blocks an SM
+
 // The launched geometry of kernel `fn` (256-thread blocks, no dynamic
-// shared memory): out[0..4] = registers and local bytes a thread, static
-// shared bytes a block, resident blocks an SM, rows a lane group.
+// shared memory) on chunks of `chunk_rows` rows, split over `per_sm`
+// blocks an SM (0: the resident count): out[0..6] = registers and local
+// bytes a thread, static shared bytes a block, resident blocks an SM, rows
+// a lane group, then the row blocks and chunks a block of a launch over
+// n_rows rows.
 template <typename Fn>
-cudaError_t geometry_of(Fn fn, int rows, int* out) {
+cudaError_t geometry_of(Fn fn, int rows, int chunk_rows, int per_sm,
+                        long long n_rows, int* out) {
   cudaFuncAttributes at;
   cudaError_t e = cudaFuncGetAttributes(&at, fn);
-  int per_sm = 0;
+  int resident = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
-                                                      0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn,
+                                                      kThreads, 0);
+  long long per_block = 0, blocks = 0;
+  if (e == cudaSuccess)
+    e = split_chunks((n_rows + chunk_rows - 1) / chunk_rows, per_block,
+                     blocks, per_sm ? per_sm : resident);
   if (e != cudaSuccess) return e;
   out[0] = at.numRegs;
   out[1] = static_cast<int>(at.localSizeBytes);
   out[2] = static_cast<int>(at.sharedSizeBytes);
-  out[3] = per_sm;
+  out[3] = resident;
   out[4] = rows;
+  out[5] = static_cast<int>(blocks);
+  out[6] = static_cast<int>(per_block);
   return cudaSuccess;
 }
 
 template <int G>
-cudaError_t geometry_g(bool f64, int* out) {
+cudaError_t geometry_g(int kind, long long n_rows, int* out) {
   using D = ScalarEntries<double>;
   using F = ScalarEntries<float>;
-  return f64 ? geometry_of(stream_rows<D, G>, group_rows<D, G>, out)
-             : geometry_of(stream_rows<F, G>, group_rows<F, G>, out);
+  switch (kind) {
+    case 0:
+      return geometry_of(stream_rows<F, G>, group_rows<F, G>,
+                         kChunkRowsOf<F, G>, kBlocksPerSm, n_rows, out);
+    case 1:
+      return geometry_of(stream_rows<D, G>, group_rows<D, G>,
+                         kChunkRowsOf<D, G>, kBlocksPerSm, n_rows, out);
+    case 2:
+      return geometry_of(narrow_rows<NarrowBf16, G, kBf16Blocks>,
+                         group_rows<NarrowBf16, G>,
+                         kChunkRowsOf<NarrowBf16, G>, 0, n_rows, out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -210,27 +265,28 @@ int segtile_csr_i32(const StreamArgs* a, const void* vals, const void* v,
                                                stream);
 }
 
-// bf16: vals, v and y bf16, partial float32 scratch.
+// bf16: vals, v and y bf16, partial float32 scratch; narrow_rows.
 int segtile_csr_bf16(const StreamArgs* a, const void* vals, const void* v,
                      void* partial, void* y, void* stream) {
-  return launch_entries<WideEntries<__nv_bfloat16>, __nv_bfloat16>(
-      a, vals, v, partial, y, stream);
+  const NarrowBf16 ent{{static_cast<const __nv_bfloat16*>(vals), a->cols,
+                         static_cast<const __nv_bfloat16*>(v)}};
+  return static_cast<int>(with_group(a->group, [&](auto g) {
+    return launch_narrow_rows<NarrowBf16, decltype(g)::value, kBf16Blocks>(
+        ent, rows_of(*a), a->n_long, static_cast<float*>(partial),
+        static_cast<__nv_bfloat16*>(y), static_cast<cudaStream_t>(stream));
+  }));
 }
 
 // The geometry of K1's row kernel at lane group `group` (1, 2, ..., 32)
-// for float64 (f64 != 0) or float32: out[0..4] = registers and local bytes
-// a thread, static shared bytes, resident 256-thread blocks an SM, rows a
-// lane group.  Returns a cudaError_t.
-int segtile_csr_geometry(int f64, int group, int* out) {
-  switch (group) {
-    case 1: return geometry_g<1>(f64 != 0, out);
-    case 2: return geometry_g<2>(f64 != 0, out);
-    case 4: return geometry_g<4>(f64 != 0, out);
-    case 8: return geometry_g<8>(f64 != 0, out);
-    case 16: return geometry_g<16>(f64 != 0, out);
-    case 32: return geometry_g<32>(f64 != 0, out);
-    default: return cudaErrorInvalidValue;
-  }
+// for kind 0 (float32), 1 (float64) or 2 (bf16, narrow_rows): out[0..6] =
+// registers and local bytes a thread, static shared bytes, resident
+// 256-thread blocks an SM, rows a lane group, and the row blocks and
+// chunks a block of a launch over n_rows rows on the current card.
+// Returns a cudaError_t.
+int segtile_csr_geometry(int kind, int group, long long n_rows, int* out) {
+  return static_cast<int>(with_group(group, [&](auto g) {
+    return geometry_g<decltype(g)::value>(kind, n_rows, out);
+  }));
 }
 
 }  // extern "C"

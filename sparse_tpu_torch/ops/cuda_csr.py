@@ -91,6 +91,10 @@ _REDUCES = ("vpu", "mxu")
 #: a lane; csrc/segtile_common.cuh).
 _LONG_PASSES = 8
 _PIECE_UNITS = 128
+#: Entries of a bf16 stream K1 takes: its row kernel keeps entry offsets in
+#: 32 bits (``narrow_rows``), with room past the last for a lane group's
+#: unit steps.
+_NARROW_MAX = 2**31 - 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -843,24 +847,31 @@ def _segtile_stream_cuda(stream, v, rows, reduce, out_dtype):
     # adds it; the launch counts as K1-mxu's
     counted = (_count_k1_mxu if reduce == "mxu"
                else _count_k1_r32 if rows == 32 else _count_k1)
+    if out_dtype == torch.bfloat16 and stream.vals.numel() > _NARROW_MAX:
+        raise ValueError(f"segtile_stream_apply: {stream.vals.numel()} "
+                         "entries; K1's bf16 kernel keeps entry offsets in "
+                         f"32 bits, at most {_NARROW_MAX}")
     return _launch(f"segtile_{reduce}", "segtile_csr", stream, v, out_dtype,
                    1, counted)
 
 
 _GEOMETRY_K1 = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm",
-                "rows_per_group")
+                "rows_per_group", "row_blocks", "chunks_per_block")
+_GEOMETRY_KIND = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
-def k1_geometry(dtype, group: int) -> dict:
-    """The launched geometry of K1's row kernel at lane group ``group``:
-    float64's (two rows a lane group) for ``dtype`` float64, float32's
-    otherwise, from the CUDA runtime on the current card: registers and
-    local (spilled) bytes a thread, static shared bytes, resident
-    256-thread blocks an SM, rows a lane group takes at once.  Card only:
-    raises where the kernels cannot be built."""
+def k1_geometry(dtype, group: int, n_rows: int = 0) -> dict:
+    """The launched geometry of K1's row kernel at lane group ``group`` for
+    ``dtype`` float32, float64 (two rows a lane group) or bfloat16 (the
+    row kernel on 32-bit entry offsets, one wave of resident blocks), from
+    the CUDA runtime on the current card: registers and local (spilled)
+    bytes a thread, static shared bytes, resident 256-thread blocks an SM,
+    rows a lane group takes at once, and the row blocks and chunks a block
+    of a launch over ``n_rows`` rows.  Card only: raises where the kernels
+    cannot be built."""
     out = (ctypes.c_int * len(_GEOMETRY_K1))()
     _kernels.check(_kernels.load().segtile_csr_geometry(
-        int(dtype == torch.float64), group, out), "k1_geometry")
+        _GEOMETRY_KIND[dtype], group, n_rows, out), "k1_geometry")
     return dict(zip(_GEOMETRY_K1, out))
 
 

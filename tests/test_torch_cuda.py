@@ -2029,6 +2029,102 @@ def test_k1_float64_row_kernel_edges(cuda, rows):
     assert tpc.k1_geometry(torch.float32, st.group)["rows_per_group"] == 4
 
 
+def _k1_bf16_rows(rng):
+    """3000 rows of 40,000 columns in bf16: ~20 band entries a row within
+    +-600 of column 12 i, rows 700-1099 scattered over all the columns,
+    empty rows (a run of them), one-entry rows, rows of 256 entries
+    (long_min at lane group 8) and 257 (long: the pieces), odd lengths that
+    start the next row mid-unit, a last row of 7."""
+    n, m = 3000, 40_000
+    lens = rng.integers(14, 27, n)
+    lens[[5, 6, 7, 2100, 2996]] = 0
+    lens[[100, 101, 1500]] = 1
+    lens[[300, 301]] = (256, 257)
+    lens[[102, 103, 104]] = (3, 5, 9)
+    lens[-1] = 7
+    cols = [np.sort(rng.choice(m, k, replace=False)) if k == 257
+            or 700 <= i < 1100 else
+            np.sort(np.clip(12 * i + rng.choice(np.arange(-600, 600), k,
+                                                replace=False), 0, m - 1))
+            for i, k in enumerate(lens)]
+    return sp.csr_matrix((np.ones(lens.sum()), (np.repeat(np.arange(n), lens),
+                                                np.concatenate(cols))),
+                         shape=(n, m))
+
+
+def _pow2_ints(rng, size):
+    """Small integers times powers of two, exact in bf16, with exact
+    float32 products and sums over a few hundred of them."""
+    k = rng.integers(1, 9, size) * rng.choice([-1, 1], size)
+    return (k * 2.0 ** rng.integers(-2, 1, size)).astype(np.float32)
+
+
+@pytest.mark.parametrize("values", ["exact", "random"])
+@pytest.mark.parametrize("rows", [8, 32])
+def test_k1_bf16_row_kernel_edges(cuda, rows, values):
+    """K1 / K1-r32 in bf16 (the row kernel on 32-bit entry offsets, one
+    wave of resident blocks) at the row lengths it treats apart: exact sums
+    (values and operand small integers times powers of two) bitwise the
+    plain version's, random values within 2^-8 (|A||v|) of SciPy; an
+    operand view off 16-byte alignment gives the same bits; two runs
+    bitwise equal, one launch a call; the kernel's geometry and its split
+    of the launch from the runtime."""
+    rng = np.random.default_rng(240 + rows)
+    s = _k1_bf16_rows(rng)
+    n, m = s.shape
+    lens = np.diff(s.indptr)
+    if values == "exact":
+        x, vh = _pow2_ints(rng, s.nnz), _pow2_ints(rng, m)
+    else:
+        x = rng.standard_normal(s.nnz).astype(np.float32)
+        vh = rng.standard_normal(m).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    vb = torch.from_numpy(vh).to(torch.bfloat16)
+    s64 = sp.csr_matrix((xb.double().numpy(), s.indices, s.indptr),
+                        shape=s.shape)
+    v64 = vb.double().numpy()
+    a = interop.csr_from_arrays(xb.float().numpy(), s.indices, s.indptr,
+                                s.shape, device=cuda)
+    a = dataclasses.replace(a, data=a.data.to(torch.bfloat16))
+    plan = tpc.build_seg_tiles(a, wsub=32, rows=rows)
+    st = plan.stream
+    assert st.vals.dtype == torch.bfloat16
+    assert st.group == 8 and st.long_min == 256
+    assert (lens == 256).any() and int(st.long_rows.max()) == 301
+    v = vb.to(cuda)
+    buf = torch.zeros(m + 8, dtype=torch.bfloat16, device=cuda)
+    odd = buf[3:3 + m]  # six bytes off 16-byte alignment
+    odd.copy_(vb)
+    assert odd.data_ptr() % 16 == 6
+    name = "K1_R32_LAUNCHES" if rows == 32 else "K1_LAUNCHES"
+    ys = []
+    for op in (v, odd):
+        before = getattr(tpc, name)
+        y1 = tpc.csr_smvm_segtile(a, op, plan)
+        y2 = tpc.csr_smvm_segtile(a, op, plan)
+        torch.cuda.synchronize()
+        assert getattr(tpc, name) == before + 2
+        assert torch.equal(_bits(y1), _bits(y2))
+        plain = tpc.segtile_stream_plain(st, op)
+        if values == "exact":
+            assert torch.equal(_bits(y1), _bits(plain))
+        _check_kind(y1, plain, s64 @ v64, abs(s64) @ np.abs(v64), "bf16")
+        empty = torch.from_numpy(np.flatnonzero(lens == 0)).to(cuda)
+        assert not bool(y1[empty].any())
+        ys.append(y1)
+    assert torch.equal(_bits(ys[0]), _bits(ys[1]))
+    geo = tpc.k1_geometry(torch.bfloat16, st.group, n)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert geo["rows_per_group"] == 2 and geo["local_bytes"] == 0
+    assert geo["registers"] <= 40 and geo["blocks_per_sm"] >= 6
+    chunks = -(-n // 64)  # 256 threads, 8 lanes a row, 2 rows a group
+    assert geo["row_blocks"] == chunks <= geo["blocks_per_sm"] * sms
+    assert geo["chunks_per_block"] == 1
+    big = tpc.k1_geometry(torch.bfloat16, st.group, 500_000)
+    assert big["row_blocks"] <= big["blocks_per_sm"] * sms
+    assert big["row_blocks"] * big["chunks_per_block"] >= -(-500_000 // 64)
+
+
 def _k7_list(nb_out, n_blocks, rng, device):
     """A product list over ``n_blocks`` stored blocks with outputs of no,
     one and many (40) products: (prod_ptr, prod_ab) int32 on ``device``."""

@@ -35,8 +35,9 @@ Suites:
   ``smvm_prepare``'s segtile plan), K2 through ``bsr_smvm_segtile_block``
   on elasticity-400k (the blockseg plan, on the block-permuted operand),
   K1, K1-mxu and K2 in float64, bf16 (bf16 operands) and int32 on the same
-  streams, K1-r32 in float64, and both plans' ``apply`` (elasticity's: the
-  folded K2 where the package has it, else the two gathers around K2).
+  streams, K1-r32 in float64 and bf16, and both plans' ``apply``
+  (elasticity's: the folded K2 where the package has it, else the two
+  gathers around K2).
 - ``apply``: the host-bound K1 entry points on band-10M: ``plan.apply``
   and ``halo_spmv_segtile`` on a 1-shard in-process mesh.
 
@@ -250,9 +251,12 @@ def segtile_cases(cs):
         cases[f"K1-mxu {sfx}"] = (
             lambda ak=ak, vk=vk, sk=sk: pt.csr_smvm_segtile(
                 ak, vk, sk, reduce="mxu"))
-    s32 = dataclasses.replace(st32, stream=_kinds(st32.stream, "vals")["f64"])
-    a64, v64 = _kinds(a, "data")["f64"], v.double()
-    cases["K1-r32 f64"] = lambda: pt.csr_smvm_segtile(a64, v64, s32)
+    streams32 = _kinds(st32.stream, "vals")
+    for sfx in ("f64", "bf16"):
+        s32 = dataclasses.replace(st32, stream=streams32[sfx])
+        ak, vk = _kinds(a, "data")[sfx], operand(v, sfx)
+        cases[f"K1-r32 {sfx}"] = (
+            lambda ak=ak, vk=vk, s32=s32: pt.csr_smvm_segtile(ak, vk, s32))
     estreams = _kinds(est.stream, "vals")
     for sfx, abk in _kinds(ab, "blocks").items():
         ek = dataclasses.replace(est, stream=estreams[sfx])
