@@ -45,7 +45,14 @@ chunks: phases 9 and 15 time both streams (K4's bf16 stream through
 ``compute_dtype=bfloat16``) beside ``BSR @ B`` in the same type, and
 read the work the body issued from a counter the kernel keeps on the card,
 which must stay within 1.25x the useful flops and equal this script's host
-model of the vote (the tiles' non-zero chunks).  K3's float32 and bf16
+model of the vote (the tiles' non-zero chunks).  K4 on a kit
+(``bell_spmm(plan=kit)``, "K4-kit" in the records) walks the kit's chunk
+mask instead of voting: phase 7 holds it bit for bit to the vote body at
+the card tests' shapes and on hand-built kits, phase 8 runs both routes
+on the main path (the vote body through a bare ``BandedPlan``), and
+phases 9, 15, 21 and 22 time it in every kind with the vote route on the
+kit's tiles and K8 beside it, its count checked against the vote's model.
+K3's float32 and bf16
 streams run the same body on each block row's wide row, and K5's four
 kinds (float32, bf16, bf16x3 and float64) walk the transposed kit's chunk
 mask (built once per kit): phase 7 holds both against their plain
@@ -1207,12 +1214,105 @@ def _mask_bodies_vs_plain(rng):
                       "model", flush=True)
 
 
+def _kit_vs_vote(label, a, b, kit, prec, bound, tol_dtype):
+    """K4's kit route (``bell_spmm(plan=kit)``: the mask body, counted in
+    ``K4_KIT_LAUNCHES``) twice against the plain version within
+    TOL[tol_dtype] * ``bound``, bitwise equal to the vote body on the kit's
+    tiles, its own count of issued work the vote body's model; returns the
+    max |kernel - plain|."""
+    import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    kw = dict(tiles=kit.tiles, compute_dtype=kit.tiles.dtype, precision=prec)
+    before = (cb.K4_KIT_LAUNCHES, cb.K4_LAUNCHES)
+    err, y = _twice_vs_plain(
+        label, lambda: pt.bell_spmm(a, b, plan=kit, precision=prec),
+        lambda: cb.bell_spmm_banded_plain(a, b, kit.plan, **kw), bound,
+        tol_dtype)
+    if (cb.K4_KIT_LAUNCHES, cb.K4_LAUNCHES) != (before[0] + 2, before[1]):
+        raise AssertionError(f"{label}: not two launches of the mask body")
+    if not torch.equal(_bits(y), _bits(cb.bell_spmm_banded(
+            a, b, kit.plan, **kw))):
+        raise AssertionError(f"{label}: differs from the vote body")
+    counted = cb.banded_issued_flops(kit.tiles, kit.plan.start, b, a.bsz,
+                                     precision=prec, mask=kit.chunk_nz)
+    model = cb.banded_issued_model(kit.tiles, b.shape[1])
+    if counted != model:
+        raise AssertionError(f"{label}: counted {counted} operations, host "
+                             f"model {model}")
+    return err
+
+
+def _kit_edges_vs_vote(rng):
+    """K4's mask body on hand-built kits in float32, bf16 and float64: no
+    marked chunk, one, all of them, and a window of 3 panels at bsz 24 and
+    13 (K = 72 and 39, not multiples of 32; 16-byte and element copies),
+    each bitwise the vote body with its count."""
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    f32 = torch.float32
+    for bsz, W, fill in ((32, None, "none"), (32, None, "one"),
+                         (32, None, "all"), (24, 3, "band"),
+                         (13, 3, "band")):
+        nb = 12 if W is None else 30
+        cols, valid = _band_pattern(nb, 1, (7,) if W else ())
+        a = _bell(cols, valid, bsz, f32, seed=nb + bsz)
+        plan = (cb.build_banded_plan(a, row_tile=2, slot_valid=valid)
+                if W is None else _narrow_plan(a, valid, W))
+        for stream in (f32, torch.bfloat16, torch.float64):
+            tiles = cb._densify_band_tiles(a, plan, stream)
+            if fill == "none":
+                tiles.zero_()
+            elif fill == "one":
+                tiles.zero_()
+                tiles[1, 37, 70] = 1.5
+            elif fill == "all":
+                tiles.normal_()
+            kit = cb.BandedKit(plan=plan, tiles=tiles)
+            k = 40
+            b = torch.from_numpy(rng.standard_normal((a.n, k))).to(f32).cuda()
+            bound = (_abs_bound(a, b, stream) if fill == "band" else
+                     cb.bell_spmm_banded_plain(a, b.abs(), plan,
+                                               tiles=tiles.abs(),
+                                               compute_dtype=stream))
+            label = (f"K4 kit bsz={bsz} W={plan.W} K={tiles.shape[2]} "
+                     f"{fill} stream={str(stream)[6:]}")
+            err = _kit_vs_vote(label, a, b, kit, None, bound,
+                               torch.float64 if stream == torch.float64
+                               else f32)
+            print(f"   {label}: {int(kit.chunk_nz.sum())} of "
+                  f"{kit.chunk_nz.numel()} chunks marked; max|kernel-plain| "
+                  f"{err:.3e}; bitwise the vote body's", flush=True)
+
+
+def _narrow_plan(a, valid, W):
+    """A one-row-tile banded plan whose window is ``W`` panels, so the
+    tiles' K = W*bsz need not be a multiple of 32 (the planner rounds W to
+    128 lanes): each row's first stored column, its window start clamped
+    into [0, nb - W]."""
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    cols = a.cols.cpu().numpy().astype(np.int64)
+    first = np.where(valid.any(1), cols[:, 0], 0)
+    start = np.minimum(first, a.nb - W)
+
+    def i32(x):
+        return torch.from_numpy(np.asarray(x, np.int32)).cuda()
+
+    return cb.BandedPlan(offs=i32(first - start), start=i32(start),
+                         rel=i32(np.zeros(a.nb)), sup=i32(start), W=W,
+                         rt=1, S=1, SW=W)
+
+
 def phase7_bell_kernels_vs_plain():
     """K3-K6 against their plain versions on the card: bsz 4/8/24/32, k
     1/8/32/33/100/128/200, float32, float64, a bf16 stream and bf16x3,
     padding slots and empty rows, nb not divisible by rt, plans with S > 1
     and S = 1, K5 with an unpadded and a padded operand; each case twice
-    for bitwise repeatability, K4's vote body with its issued-work count.
+    for bitwise repeatability, K4's vote body with its issued-work count,
+    and K4's kit route (``bell_spmm(plan=kit)``, the mask body) at the same
+    shapes and on hand-built kits (no, one, every chunk marked; K not a
+    multiple of 32), bitwise the vote body's, with its count.
     Then K3's float32 / bf16 / bf16x3, K5's float32 / bf16 / bf16x3 /
     float64 and K6's float32 / bf16 bodies at the card tests' shapes (bsz
     3/8/16/24/32/33/64, k 1/7/32/33/70/128/200, all-zero blocks, a lone
@@ -1289,8 +1389,14 @@ def phase7_bell_kernels_vs_plain():
             issued = f"; issued {counted} = host model"
         print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
               f"repeatable{issued}", flush=True)
+        err = _kit_vs_vote(f"{label} kit route", a, b, kit, prec, bound,
+                           f64 if dt == f64 else f32)
+        print(f"   {label} kit route (mask body): max|kernel-plain| "
+              f"{err:.3e}; bitwise the vote body's; issued = host model",
+              flush=True)
     if s_seen != {True, False}:
         raise AssertionError("K4 cases must cover plans with S > 1 and S = 1")
+    _kit_edges_vs_vote(rng)
     # K5: (nb, bsz, k, dtype, compute_dtype, precision, padded operand)
     for nb, bsz, k, dt, cd, prec, padded in (
             (250, 32, 32, f32, None, None, False),
@@ -1412,14 +1518,17 @@ def phase8_spmm_main_path():
     counts = {}
     out = {}
     for label, fn, kname in (
-            ("bell_spmm(plan=kit) [K4]",
-             lambda: pt.bell_spmm(a, b, plan=kit), "K4"),
+            ("bell_spmm(plan=kit) [K4-kit, the mask body]",
+             lambda: pt.bell_spmm(a, b, plan=kit), "K4-kit"),
+            ("bell_spmm(plan=kit.plan) [K4, the vote body]",
+             lambda: pt.bell_spmm(a, b, plan=kit.plan), "K4"),
             ("bell_spmm(a, b) [K3]", lambda: pt.bell_spmm(a, b), "K3"),
             ("bell_spmm_block [K6]", lambda: cb.bell_spmm_block(a, b), "K6")):
-        before = getattr(cb, f"{kname}_LAUNCHES")
+        attr = kname.replace("-", "_").upper() + "_LAUNCHES"
+        before = getattr(cb, attr)
         c = fn()
         torch.cuda.synchronize()
-        counts[kname] = getattr(cb, f"{kname}_LAUNCHES") - before
+        counts[kname] = getattr(cb, attr) - before
         err = oracle.check(label, c, b)
         out[kname] = c
         print(f"   {label}: {tuple(c.shape)} max|C-scipy| {err:.3e} on "
@@ -1447,8 +1556,8 @@ def phase8_spmm_main_path():
         torch.cuda.synchronize()
         err = oracle.check(f"chain step {step + 1}", y, x)
         x = y
-    print(f"   chain b <- A b x{K_CHAIN} [K4]: every step within 1e-5|A||b| "
-          f"of scipy (last max err {err:.3e}); |b_5| / |b| = "
+    print(f"   chain b <- A b x{K_CHAIN} [K4-kit]: every step within "
+          f"1e-5|A||b| of scipy (last max err {err:.3e}); |b_5| / |b| = "
           f"{float(x.norm() / b.norm()):.3e}", flush=True)
     # spmm at __graft_entry__.entry()'s shape: 512 x 512 at 5 %, k = 64
     rng = np.random.default_rng(0)
@@ -1528,12 +1637,14 @@ def _library_spmm(m, b, card, label):
     return ms, "torch.sparse_csr_tensor(...) @ B (BSR refused on the card)"
 
 
-def check_issued(label, tiles, start, b, bsz, useful, precision=None):
-    """The work the vote body of K4 / K8 issues on ``tiles`` against the
+def check_issued(label, tiles, start, b, bsz, useful, precision=None,
+                 mask=None):
+    """The work the vote body of K4 / K8 (with ``mask``, a kit's chunk
+    mask: K4's mask body, the kit route) issues on ``tiles`` against the
     operand ``b`` (rows, k), read from the kernel's own counter (one launch
     of ``banded_issued_flops``) beside the dense tile product's, checked as
     ``check_counted`` does against the host model (the non-zero chunks;
-    bf16x3 keeps the float32 stream's)."""
+    bf16x3 keeps the float32 stream's; the mask body the vote's)."""
     from sparse_tpu_torch.ops import cuda_bell as cb
 
     k = b.shape[1]
@@ -1542,8 +1653,23 @@ def check_issued(label, tiles, start, b, bsz, useful, precision=None):
           flush=True)
     return check_counted(
         label, cb.banded_issued_flops(tiles, start, b, bsz,
-                                      precision=precision),
+                                      precision=precision, mask=mask),
         cb.banded_issued_model(tiles, k), useful)
+
+
+def kit_beside(label, rec, card, **others):
+    """A record ``rec`` of K4's kit route (or of K8) with the back-to-back
+    times of the calls ``others`` (name -> fn: the vote route on the kit's
+    tiles, the kit route, K8 on the same band) taken right after it, under
+    ``beside_ms``; printed with their ratios to ``rec``'s time."""
+    beside = {name: pipelined_ms(fn, warmup=2)[0]
+              for name, fn in others.items()}
+    rec["beside_ms"] = beside
+    print(f"   {label}: {rec['ms']:.4f} ms; beside it "
+          + "; ".join(f"{name} {ms:.4f} ms ({ms / rec['ms']:.2f}x)"
+                      for name, ms in beside.items()) + f" [{card}]",
+          flush=True)
+    return rec
 
 
 def check_k5_counts(label, a, bt, kit, useful, precision=None):
@@ -1619,9 +1745,12 @@ def phase9_bell_timing(card, m):
     (tolerance, bitwise repeat over all rows), then timed in turns — plain,
     kernel, kernel, plain — alone and back to back, with the work the
     float32 bodies of K3, K4, K5 and K6 issue (K5 also the tile bytes it
-    reads) and the bf16x3 split of K3 and K4 issues; the bf16 streams of
-    K4, K3 (``compute_dtype=bfloat16``), K6 (bf16 blocks) and K5 (a bf16
-    kit at k 32), each with a bf16 operand,
+    reads) and the bf16x3 split of K3 and K4 issues; K4 twice: through
+    ``bell_spmm(plan=kit)`` (K4-kit, the mask body) and on the kit's tiles
+    (``bell_spmm_banded(..., tiles=kit.tiles)``, the vote body), the vote
+    route timed again beside the kit route; the bf16 streams of
+    K4 (both routes), K3 (``compute_dtype=bfloat16``), K6 (bf16 blocks) and
+    K5 (a bf16 kit at k 32), each with a bf16 operand,
     the same way beside ``BSR @ B`` in bf16; then bell_spmm beside K6, and
     the chain.  The SM clock and power under K3's and K4's float32 kernels
     (the band body's float32 map) are read beside their times."""
@@ -1639,6 +1768,10 @@ def phase9_bell_timing(card, m):
     bound32 = bound[:, :32].T.contiguous()
     bt32 = b32.T.contiguous()  # K5's operand layout, outside the timing
     cases = (
+        ("K4-kit bell_banded_masked", "sparse_tpu/ops/pallas_bell.py:430",
+         "bell_banded.cu", lambda: pt.bell_spmm(a, b, plan=kit),
+         lambda: cb.bell_spmm_banded_plain(a, b, kit.plan, tiles=kit.tiles),
+         bound, 2 * nnz * k, cb.banded_spmm_hbm_bytes(kit, bsz, a.n, k)),
         ("K4 bell_banded", "sparse_tpu/ops/pallas_bell.py:430",
          "bell_banded.cu",
          lambda: cb.bell_spmm_banded(a, b, kit.plan, tiles=kit.tiles),
@@ -1685,13 +1818,21 @@ def phase9_bell_timing(card, m):
             name, f"sparse_tpu_torch/csrc/{src}", replaces,
             m["counts"][kname], err, ms_k, ms_p,
             spmm_cost(nbz, bsz, a.n, kk), lib, call)
-        if kname in ("K3", "K4"):  # the band body's float32 map
+        if kname in ("K3", "K4", "K4-kit"):  # the band body's float32 map
             out[kname]["sm_clock_power"] = _clock_line(
                 f"{kname} float32 kernel", kern, card)
     useful = 2 * nnz * k
     out["K4"]["issued_gflop"] = check_issued(
         "K4 float32", kit.tiles, kit.plan.start, b, bsz, useful) / 1e9
     out["K4"]["useful_gflop"] = useful / 1e9
+    # the kit route: the mask body's count is the vote's model
+    out["K4-kit"]["issued_gflop"] = check_issued(
+        "K4-kit float32", kit.tiles, kit.plan.start, b, bsz, useful,
+        mask=kit.chunk_nz) / 1e9
+    out["K4-kit"]["useful_gflop"] = useful / 1e9
+    kit_beside("K4-kit float32", out["K4-kit"], card, **{
+        "K4 (vote body, the kit's tiles)": lambda: cb.bell_spmm_banded(
+            a, b, kit.plan, tiles=kit.tiles)})
     # K3's vote and K5's mask, read from their own counters
     out["K3"]["issued_gflop"] = check_counted(
         "K3 float32", cb.fused_issued_flops(a, b),
@@ -1701,6 +1842,8 @@ def phase9_bell_timing(card, m):
     # 21 times it)
     check_issued("K4 bf16x3", kit.tiles, kit.plan.start, b, bsz, useful,
                  precision="bf16x3")
+    check_issued("K4-kit bf16x3", kit.tiles, kit.plan.start, b, bsz, useful,
+                 precision="bf16x3", mask=kit.chunk_nz)
     check_counted("K3 bf16x3", cb.fused_issued_flops(a, b,
                                                      precision="bf16x3"),
                   cb.fused_issued_model(a, k), useful)
@@ -1724,6 +1867,16 @@ def phase9_bell_timing(card, m):
     rec["issued_gflop"] = check_issued(
         "K4 bf16 stream", kit_bf.tiles, kit_bf.plan.start, b_bf, bsz,
         useful) / 1e9
+    rec = out["K4-kit"]["bf16_stream"] = bf16_stream_record(
+        "K4-kit", lambda: pt.bell_spmm(a, b_bf, plan=kit_bf),
+        lambda: cb.bell_spmm_banded_plain(a, b_bf, kit_bf.plan, **kw),
+        _abs_bound(a, b, bf16), m, b, card)
+    rec["issued_gflop"] = check_issued(
+        "K4-kit bf16 stream", kit_bf.tiles, kit_bf.plan.start, b_bf, bsz,
+        useful, mask=kit_bf.chunk_nz) / 1e9
+    kit_beside("K4-kit bf16 stream", rec, card, **{
+        "K4 (vote body, the kit's tiles)": lambda: cb.bell_spmm_banded(
+            a, b_bf, kit_bf.plan, **kw)})
     # a float32 operand: the wrapper rounds it to bf16 on every call
     _report_spmm("K4 bf16, float32 B", lambda: cb.bell_spmm_banded(
         a, b, kit_bf.plan, **kw), useful,
@@ -1764,9 +1917,9 @@ def phase9_bell_timing(card, m):
                                lambda: pt.bell_spmm(a, b, plan=kit),
                                2 * nnz * k, banded_bytes, card)
     ms_k6 = out["K6"]["ms"]
-    print(f"   bell_spmm(plan=kit) runs K4: {ms_route:.4f} ms back to back "
-          f"against K6's {ms_k6:.4f} ({ms_route / ms_k6:.2f}x); the route is "
-          f"recorded, not changed [{card}]", flush=True)
+    print(f"   bell_spmm(plan=kit) runs K4's mask body: {ms_route:.4f} ms "
+          f"back to back against K6's {ms_k6:.4f} ({ms_route / ms_k6:.2f}x); "
+          f"the route is recorded, not changed [{card}]", flush=True)
 
     def chain():
         x = b
@@ -2527,13 +2680,15 @@ def phase14_slice(wsub0, m):
 
 def phase15_timing(card, sl, m, band_lib, launches):
     """Every band-10M variant plan x reduce through ``csr_smvm_segtile``
-    and K8 (float32, bf16 stream, each with the work its vote body issues)
+    and K8 (float32, bf16 stream, each with the work its vote body issues,
+    K4's kit route and vote route on the same band timed beside it)
     against their plain versions in turns
     (plain, kernel, kernel, plain), alone and back to back, with
     nnz_roofline at csr_min_bytes and the compact stream's bytes, and the
     entry point's dependency-chained time
     (``timed_op``); a 1 GiB device copy as the card's streaming rate."""
     import sparse_tpu_torch as pt
+    from sparse_tpu_torch.ops import cuda_bell as cb
     from sparse_tpu_torch.ops import cuda_csr, cuda_dband
     from sparse_tpu_torch.utils.profiling import timed_op
     from sparse_tpu_torch.utils.stats import (HBM_CEILING_GBPS,
@@ -2617,6 +2772,17 @@ def phase15_timing(card, sl, m, band_lib, launches):
             rec["issued_gflop"] = check_issued(
                 "K8 bf16 stream", tiles, plan.start, b3.reshape(-1, k), bsz,
                 c[1]) / 1e9
+            kit_bf = cb.bell_banded_prepare(m["a"], row_tile=5,
+                                            compute_dtype=stream,
+                                            slot_valid=m["slot_valid"])
+            b_bf = d["b"].to(stream)
+            kit_beside("K8 bf16 stream", rec, card, **{
+                "K4-kit": lambda: pt.bell_spmm(m["a"], b_bf, plan=kit_bf),
+                "K4 (vote body, the kit's tiles)":
+                    lambda: cb.bell_spmm_banded(
+                        m["a"], b_bf, kit_bf.plan, tiles=kit_bf.tiles,
+                        compute_dtype=stream)})
+            del kit_bf, b_bf
             continue
         err, _ = _twice_vs_plain("K8 float32 at the bench shape", kern,
                                  plain, bound, torch.float32)
@@ -2633,6 +2799,11 @@ def phase15_timing(card, sl, m, band_lib, launches):
             ms_p, c, lib, call, issued_gflop=issued / 1e9,
             useful_gflop=c[1] / 1e9,
             sm_clock_power=_clock_line("K8 float32 kernel", kern, card))
+        kit = m["kit"]
+        kit_beside("K8 float32", entry, card, **{
+            "K4-kit": lambda: pt.bell_spmm(m["a"], d["b"], plan=kit),
+            "K4 (vote body, the kit's tiles)": lambda: cb.bell_spmm_banded(
+                m["a"], d["b"], kit.plan, tiles=kit.tiles)})
     out.append(entry)
     # the card's streaming rate: 20 chained copies of 1 GiB
     x = torch.empty(1 << 28, device="cuda").normal_()
@@ -3879,8 +4050,12 @@ def phase19_transforms(card, band, ela, spmm_run, slice_run, launches):
         ("K3 over BELL values", lambda x: cuda_bell.bell_spmm_fused(
             dataclasses.replace(a, blocks=x), b),
          torch.stack([a.blocks, 2 * a.blocks]), cuda_bell, "K3_LAUNCHES"),
-        ("K4 bell_spmm(plan=kit)", lambda x: pt.bell_spmm(
-            a, x, plan=m["kit"]), bs, cuda_bell, "K4_LAUNCHES"),
+        ("K4-kit bell_spmm(plan=kit)", lambda x: pt.bell_spmm(
+            a, x, plan=m["kit"]), bs, cuda_bell, "K4_KIT_LAUNCHES"),
+        ("K4 bell_spmm_banded(tiles=kit.tiles)", lambda x:
+            cuda_bell.bell_spmm_banded(a, x, m["kit"].plan,
+                                       tiles=m["kit"].tiles), bs, cuda_bell,
+         "K4_LAUNCHES"),
         ("K5 bell_spmm(plan=kit_t)", lambda x: pt.bell_spmm(
             a, x, plan=m["kit_t"]), torch.stack([b32, 2 * b32]), cuda_bell,
          "K5_LAUNCHES"),
@@ -4347,20 +4522,19 @@ def _phase21_entry_spmm(paths):
 
 
 def _phase21_kind(paths, label, kname, kern, plain, bound, tol_plain,
-                  oracle_err, cost, dtype, lib, lib_call, counters=None):
-    """One stream kind of one of K3-K6 or K8 on bell-band-80M: twice,
-    bitwise equal and launched each time (by ``counters``' launch count,
-    ``cuda_bell``'s by default), against its plain version within
+                  oracle_err, cost, dtype, lib, lib_call):
+    """One stream kind of one of K3-K6, K4's kit route or K8 on
+    bell-band-80M: twice, bitwise equal and launched each time (by
+    ``kname``'s launch count, ``_launch_attr``), against its plain version
+    within
     TOL[tol_plain] * ``bound`` and against SciPy (``oracle_err`` of the
     result, which applies the gate), then timed back to back beside its
     plain version, its bound (``cost`` (bytes, operations) at ``dtype``'s
     peak) and the library call; returns the record."""
-    from sparse_tpu_torch.ops import cuda_bell
-
-    cb = counters or cuda_bell
-    before = getattr(cb, f"{kname}_LAUNCHES")
+    mod, attr = _launch_attr(kname)
+    before = getattr(mod, attr)
     err_p, c = _twice_vs_plain(label, kern, plain, bound, tol_plain)
-    launches = getattr(cb, f"{kname}_LAUNCHES") - before
+    launches = getattr(mod, attr) - before
     if launches != 2:
         raise AssertionError(f"{label}: {kname} launched {launches} times "
                              "for 2 calls")
@@ -4382,7 +4556,9 @@ def _phase21_kind(paths, label, kname, kern, plain, bound, tol_plain,
 
 def _phase21_bell(paths, m, dband, card):
     """bell-band-80M: ``bell_smvm`` at k 1; the bf16x3 tier of K3 and K4
-    (the band body), K6 (the persistent body) at k 128 and of K5 at k 32
+    (the band body; K4 also through ``bell_spmm(plan=kit)``, its mask
+    body, with the vote route and, in float64, K8 timed beside it), K6
+    (the persistent body) at k 128 and of K5 at k 32
     (the chunk-mask body), each against SciPy, its plain version and ``BSR
     @ B`` in float32, with its issued work (K5's also the tile bytes it
     copied); then the float64 kinds at k 128 of K3, K4 and K8 (the band
@@ -4417,15 +4593,21 @@ def _phase21_bell(paths, m, dband, card):
         nbytes, flops = spmm_cost(nbz, a.bsz, a.n, kk)
         return nbytes, 3 * flops
 
-    out = {"K3": {}, "K4": {}, "K5": {}, "K6": {}, "K8": {}}
+    out = {"K3": {}, "K4": {}, "K4-kit": {}, "K5": {}, "K6": {}, "K8": {}}
     lib, call = library_spmm(m, b, card, "float32, the bf16x3 yardstick")
     bound = _abs_bound(a, b, torch.float32)
     x3 = "bf16x3"
     for kname, body, kern, plain in (
             ("K3", "band body", lambda: pt.bell_spmm(a, b, precision=x3),
              lambda: cb.bell_spmm_fused_plain(a, b, precision=x3)),
-            ("K4", "band body",
+            ("K4-kit", "mask body, bell_spmm(plan=kit)",
              lambda: pt.bell_spmm(a, b, plan=kit, precision=x3),
+             lambda: cb.bell_spmm_banded_plain(a, b, kit.plan,
+                                               tiles=kit.tiles,
+                                               precision=x3)),
+            ("K4", "band body, the kit's tiles",
+             lambda: cb.bell_spmm_banded(a, b, kit.plan, tiles=kit.tiles,
+                                         precision=x3),
              lambda: cb.bell_spmm_banded_plain(a, b, kit.plan,
                                                tiles=kit.tiles,
                                                precision=x3)),
@@ -4443,6 +4625,12 @@ def _phase21_bell(paths, m, dband, card):
     out["K4"]["bf16x3"]["issued_gflop"] = check_issued(
         "K4 bf16x3", kit.tiles, kit.plan.start, b, a.bsz, useful,
         precision=x3) / 1e9
+    out["K4-kit"]["bf16x3"]["issued_gflop"] = check_issued(
+        "K4-kit bf16x3", kit.tiles, kit.plan.start, b, a.bsz, useful,
+        precision=x3, mask=kit.chunk_nz) / 1e9
+    kit_beside("K4-kit bf16x3", out["K4-kit"]["bf16x3"], card, **{
+        "K4 (vote body, the kit's tiles)": lambda: cb.bell_spmm_banded(
+            a, b, kit.plan, tiles=kit.tiles, precision=x3)})
     out["K3"]["bf16x3"]["issued_gflop"] = check_counted(
         "K3 bf16x3", cb.fused_issued_flops(a, b, precision=x3),
         cb.fused_issued_model(a, k), useful) / 1e9
@@ -4474,7 +4662,13 @@ def _phase21_bell(paths, m, dband, card):
     for kname, body, kern, plain in (
             ("K3", "band body", lambda: cb.bell_spmm_fused(a64, b64),
              lambda: cb.bell_spmm_fused_plain(a64, b64)),
-            ("K4", "band body", lambda: pt.bell_spmm(a64, b64, plan=kit64),
+            ("K4-kit", "mask body, bell_spmm(plan=kit)",
+             lambda: pt.bell_spmm(a64, b64, plan=kit64),
+             lambda: cb.bell_spmm_banded_plain(a64, b64, kit64.plan,
+                                               tiles=kit64.tiles)),
+            ("K4", "band body, the kit's tiles",
+             lambda: cb.bell_spmm_banded(a64, b64, kit64.plan,
+                                         tiles=kit64.tiles),
              lambda: cb.bell_spmm_banded_plain(a64, b64, kit64.plan,
                                                tiles=kit64.tiles)),
             ("K6", "persistent body", lambda: cb.bell_spmm_block(a64, b64),
@@ -4486,6 +4680,9 @@ def _phase21_bell(paths, m, dband, card):
     out["K4"]["float64"]["issued_gflop"] = check_issued(
         "K4 float64", kit64.tiles, kit64.plan.start, b64, a.bsz,
         useful) / 1e9
+    out["K4-kit"]["float64"]["issued_gflop"] = check_issued(
+        "K4-kit float64", kit64.tiles, kit64.plan.start, b64, a.bsz,
+        useful, mask=kit64.chunk_nz) / 1e9
     # K3's and K6's float64 votes: the float32 stream's chunks and blocks
     out["K3"]["float64"]["issued_gflop"] = check_counted(
         "K3 float64", cb.fused_issued_flops(a64, b64),
@@ -4493,7 +4690,6 @@ def _phase21_bell(paths, m, dband, card):
     out["K6"]["float64"]["issued_gflop"] = check_counted(
         "K6 float64", cb.block_issued_flops(a64, b64),
         cb.block_issued_model(a64, k), useful) / 1e9
-    del kit64
     # K8 on phase 14's plan (measure_dband.py's flow: the operand padded
     # with W zero panels), float64 tiles and operand
     plan, nb, bsz = dband["plan"], dband["nb"], dband["bsz"]
@@ -4504,12 +4700,15 @@ def _phase21_bell(paths, m, dband, card):
     out["K8"]["float64"] = _phase21_kind(
         paths, label, "K8", lambda: cuda_dband.dband_spmm(*args),
         lambda: cuda_dband.dband_spmm_plain(*args), bound, f64,
-        vs_scipy(label, bh, TOL[f64]), cost, f64, lib, call,
-        counters=cuda_dband)
+        vs_scipy(label, bh, TOL[f64]), cost, f64, lib, call)
     out["K8"]["float64"]["issued_gflop"] = check_issued(
         "K8 float64", tiles64, plan.start, b3.reshape(-1, k), bsz,
         useful) / 1e9
-    del tiles64, b3, args, bound
+    kit_beside("K4-kit float64", out["K4-kit"]["float64"], card, **{
+        "K4 (vote body, the kit's tiles)": lambda: cb.bell_spmm_banded(
+            a64, b64, kit64.plan, tiles=kit64.tiles),
+        "K8": lambda: cuda_dband.dband_spmm(*args)})
+    del tiles64, b3, args, bound, kit64
     kit_t64 = cb.bell_banded_prepare_t(a64, slot_valid=valid)
     bt64 = bt32.double()
     lib, call = library_spmm(m, b32.double(), card, "k 32 float64")
@@ -5185,9 +5384,11 @@ def _phase22_spmv(card, band, sl, ela, out):
 
 
 def _phase22_bell(card, m, dband, out):
-    """K3 (no plan), K4 (a BandedKit), K5 (a BandedKitT, k 32), K6 and K8
-    on bell-band-80M in int32 through ``bell_spmm`` / ``bell_spmm_block`` /
-    ``dband_spmm``, exact on phase 8's subset of block rows."""
+    """K3 (no plan), K4 (a BandedKit: its mask body, K4-kit; a BandedPlan:
+    its vote body), K5 (a BandedKitT, k 32), K6 and K8 on bell-band-80M in
+    int32 through ``bell_spmm`` / ``bell_spmm_block`` / ``dband_spmm``,
+    exact on phase 8's subset of block rows; the vote route and K8 timed
+    beside the kit route."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.formats.bell import BELL
     from sparse_tpu_torch.ops import cuda_bell as cb
@@ -5238,9 +5439,19 @@ def _phase22_bell(card, m, dband, out):
         lambda: pt.bell_spmm(ai, bi), lambda: cb.bell_spmm_fused(ai, bi),
         lambda: cb.bell_spmm_fused_plain(ai, bi), rows, mag, cost, i32,
         lambda: cb.bell_spmm_fused(a, b), lib, call, clock=True)
-    out["K4"]["int32"] = _new_kind(
-        card, f"bell-band-80M K4 int32 k {k} (bell_spmm, BandedKit)", "K4",
+    out["K4-kit"]["int32"] = _new_kind(
+        card, f"bell-band-80M K4-kit int32 k {k} (bell_spmm, BandedKit: the "
+        "mask body)", "K4-kit",
         lambda: pt.bell_spmm(ai, bi, plan=kit_i),
+        lambda: pt.bell_spmm(ai, bi, plan=kit_i),
+        lambda: cb.bell_spmm_banded_plain(ai, bi, kit_i.plan,
+                                          tiles=kit_i.tiles),
+        rows, mag, cost, i32, lambda: pt.bell_spmm(a, b, plan=kit), lib,
+        call, clock=True)
+    out["K4"]["int32"] = _new_kind(
+        card, f"bell-band-80M K4 int32 k {k} (bell_spmm, BandedPlan: the "
+        "vote body)", "K4",
+        lambda: pt.bell_spmm(ai, bi, plan=kit_i.plan),
         lambda: cb.bell_spmm_banded(ai, bi, kit_i.plan, tiles=kit_i.tiles),
         lambda: cb.bell_spmm_banded_plain(ai, bi, kit_i.plan,
                                           tiles=kit_i.tiles),
@@ -5269,9 +5480,12 @@ def _phase22_bell(card, m, dband, out):
             ai, k), useful) / 1e9
     out["K4"]["int32"]["issued_gflop"] = check_issued(
         "K4 int32", kit_i.tiles, kit_i.plan.start, bi, a.bsz, useful) / 1e9
+    out["K4-kit"]["int32"]["issued_gflop"] = check_issued(
+        "K4-kit int32", kit_i.tiles, kit_i.plan.start, bi, a.bsz, useful,
+        mask=kit_i.chunk_nz) / 1e9
     out["K5"]["int32"].update(check_k5_counts(
         "K5 int32 k=32", ai, bti, kit_ti, 2 * m["nnz"] * 32))
-    del kit_i, kit_ti
+    del kit_ti
     # K8 on phase 14's plan (the operand padded with W zero panels)
     plan, nb, bsz = dband["plan"], dband["nb"], dband["bsz"]
     tiles_i = cuda_dband.densify_tiles(ai, plan, i32)
@@ -5287,7 +5501,11 @@ def _phase22_bell(card, m, dband, out):
         lambda: cuda_dband.dband_spmm(*args),
         lambda: cuda_dband.dband_spmm_plain(*args), rows, mag, cost, i32,
         lambda: cuda_dband.dband_spmm(*argsf), lib, call, clock=True)
-    del tiles_i, tiles_f, b3, b3f, bsr
+    kit_beside("K4-kit int32", out["K4-kit"]["int32"], card, **{
+        "K4 (vote body, the kit's tiles)": lambda: cb.bell_spmm_banded(
+            ai, bi, kit_i.plan, tiles=kit_i.tiles),
+        "K8": lambda: cuda_dband.dband_spmm(*args)})
+    del tiles_i, tiles_f, b3, b3f, bsr, kit_i
 
 
 def _phase22_slab(card, out):
@@ -5377,8 +5595,8 @@ def phase22_int_bf16(card, band, sl, ela, m):
     float64: within 1e-12 |A||v|), bitwise repeatable, its back-to-back
     ms beside its float32 sibling's, its plain version's, its bound and
     the library call's.  Returns {kernel: {kind: record}}."""
-    out = {k: {} for k in ("K1", "K1-r32", "K1-mxu", "K2", "K3", "K4", "K5",
-                           "K6", "K7", "K8")}
+    out = {k: {} for k in ("K1", "K1-r32", "K1-mxu", "K2", "K3", "K4",
+                           "K4-kit", "K5", "K6", "K7", "K8")}
     _phase22_spmv(card, band, sl, ela, out)
     _phase22_bell(card, m, sl["dband"], out)
     _phase22_slab(card, out)
@@ -5418,12 +5636,13 @@ def main():
     from sparse_tpu_torch.ops import cuda_bell
 
     # the SpMM main path's run: launch counts start at 0 here
-    for kname in ("K3", "K4", "K5", "K6"):
+    for kname in ("K3", "K4", "K4_KIT", "K5", "K6"):
         setattr(cuda_bell, f"{kname}_LAUNCHES", 0)
     with Phase("phase 8: bell_spmm at bench.py's shape, spmm", 240):
         spmm_run = phase8_spmm_main_path()
-    spmm_launches = {k: getattr(cuda_bell, f"{k}_LAUNCHES")
-                     for k in ("K3", "K4", "K5", "K6")}
+    spmm_launches = {k: getattr(cuda_bell, k.replace("-", "_").upper()
+                                + "_LAUNCHES")
+                     for k in ("K3", "K4", "K4-kit", "K5", "K6")}
     print(f"   SpMM main-path launches: {spmm_launches}", flush=True)
     for k, count in spmm_launches.items():
         if count <= 0:

@@ -67,6 +67,12 @@ _SIGNATURES = {
     # bell_banded's arguments, then the issued multiply-adds' counter
     "bell_banded_issued": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,
                            _P, _P),
+    # kind, tiles, start, chunk mask, b, c, ntiles, M, K, N, bsz, b_rows,
+    # stream; then the same with the issued multiply-adds' counter
+    "bell_banded_masked": (_I, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL,
+                           _LL, _P),
+    "bell_banded_masked_issued": (_I, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
+                                  _LL, _LL, _P, _P),
     # kind, tiles_t, start, chunk mask, bt, ct, ntiles, M, K, N, bsz,
     # bt_cols, stream
     "bell_banded_t": (_I, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,

@@ -778,6 +778,74 @@ __device__ __forceinline__ void run(const P& p, typename Cfg<S>::Out* c,
     atomicAdd(issued, static_cast<unsigned long long>(kept) * kBM * kBK * kBN);
 }
 
+// The same product where a mask says which chunks hold data: mk[ch] != 0
+// for each 32-index chunk ch of A's rows m0 .. m0+31 that is not zero
+// throughout, as the vote would find it (K4's kit: BandedKit.chunk_nz).
+// The loop walks the marked chunks only: their A and B copies go into one
+// ring of kBStages stages (the A stages it leaves unused keep the vote
+// body's shared-memory size), issued together as one cp.async group a
+// chunk, kBStages - 1 chunks ahead, one barrier a chunk, no vote.  It
+// multiplies the chunks the vote keeps in the same order, so C and the
+// issued count are bitwise run's; a block with no marked chunk stores
+// zeros.
+template <typename S, bool VEC, class P>
+__device__ __forceinline__ void run_masked(const P& p,
+                                           const unsigned char* __restrict__ mk,
+                                           typename Cfg<S>::Out* c, int M,
+                                           int K, int N, int m0, int n0,
+                                           unsigned long long* issued) {
+  using Cf = Cfg<S>;
+  using T = typename Cf::T;
+  constexpr int kBK = Cf::kBK, kS = Cf::kBStages, kAhead = kS - 1;
+  static_assert(kBK == 32 && kBM == 32, "a mask chunk is 32 x 32");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sa = reinterpret_cast<T*>(smem);
+  T* sb = sa + Cf::kAStages * kBM * Cf::kAPitch;
+  const int nc = (K + kBK - 1) / kBK;
+  typename Cf::Acc acc = {};
+  auto next = [&](int ch) {  // the first marked chunk after ch, or nc
+    for (++ch; ch < nc && __ldg(mk + ch) == 0; ++ch) {
+    }
+    return ch;
+  };
+  // stage s was last read by the multiply of chunk it - 1, before this
+  // step's barrier
+  auto fill = [&](int s, int ch) {
+    load_a<S, VEC>(sa + s * kBM * Cf::kAPitch, p, M, K, m0, ch * kBK);
+    load_b<S, VEC>(sb + s * kBK * Cf::kBPitch, p, N, ch * kBK, n0);
+  };
+  int cl = next(-1);  // the next chunk to copy
+  int cm = cl;        // the next chunk to multiply
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) {
+    if (cl < nc) {
+      fill(s, cl);
+      cl = next(cl);
+    }
+    sm90::cp_async_commit();
+  }
+  int kept = 0;
+  for (int it = 0; cm < nc; ++it) {
+    // one group a step: chunk it has landed once kAhead - 1 younger ones
+    // may still be in flight
+    sm90::cp_async_wait<kAhead - 1>();
+    __syncthreads();
+    if (cl < nc) {
+      fill((it + kAhead) % kS, cl);
+      cl = next(cl);
+    }
+    sm90::cp_async_commit();
+    const int s = it % kS;
+    mma_chunk(sa + s * kBM * Cf::kAPitch, sb + s * kBK * Cf::kBPitch, acc);
+    ++kept;
+    cm = next(cm);
+  }
+  sm90::cp_async_wait<0>();
+  store<VEC>(acc, c, M, N, m0, n0);
+  if (issued != nullptr && threadIdx.x == 0 && kept > 0)
+    atomicAdd(issued, static_cast<unsigned long long>(kept) * kBM * kBK * kBN);
+}
+
 // Lets kern (a __global__ wrapper of run) take smem bytes of dynamic shared
 // memory where that is more than the default 48 KB.
 template <int SMEM, class K>

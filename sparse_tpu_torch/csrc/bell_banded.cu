@@ -44,6 +44,17 @@
 // cores.  bell_banded_issued launches the same body with a counter on the
 // card: what the skip saves is measured.
 //
+// K4 on a kit (bell_spmm(plan=kit)): to find the zero chunks, the vote
+// reads every chunk of the densified tiles, 2.4x the non-zero ones at the
+// bench band (12 chunks a 32-row block, 5 of them with data).  A kit
+// carries its tiles' chunk mask (BandedKit.chunk_nz, built once with the
+// kit), so band_mask_kernel copies and multiplies the marked chunks only
+// (band::run_masked: A and B of a chunk in one ring stage, one barrier a
+// chunk): 640 of 1536 MB of float64 tiles read at the bench band, 320 of
+// 768 in float32.  It keeps the vote's chunks in the vote's order, so its
+// C and its count are band_kernel's, bit for bit.  Raw tiles without a kit
+// (K4's tiles route, the BandedPlan route, K8) keep the vote.
+//
 // K5 (band_t_kernel below): at k = 32 it is bound by the tile bytes (769
 // MB of transposed float32 tiles at the bench band, of which the 20
 // non-zero 32 x 32 chunks per tile are 320 MB: >= 0.134 ms with the operand
@@ -103,14 +114,48 @@ __global__ void __launch_bounds__(band::kThreads, band::Cfg<S>::kMinBlocks)
   band::run<S, VEC>(p, c + tile * M * N, M, K, N, m0, n0, issued);
 }
 
+// band_kernel on a kit's tiles with its chunk mask (ntiles, ceil(M/32),
+// ceil(K/32)) uint8: the body walks the marked chunks of its row block only
+// (band::run_masked), bitwise band_kernel's C.  The block's index math is
+// band_kernel's, written out again so that band_kernel's code stays as it
+// was.
+template <typename S, bool VEC>
+__global__ void __launch_bounds__(band::kThreads, band::Cfg<S>::kMinBlocks)
+    band_mask_kernel(const typename band::Cfg<S>::T* __restrict__ tiles,
+                     const int* __restrict__ start,
+                     const unsigned char* __restrict__ mask,
+                     const typename band::Cfg<S>::T* __restrict__ b,
+                     typename band::Cfg<S>::Out* __restrict__ c, int M, int K,
+                     int N, int bsz, long long b_rows,
+                     unsigned long long* __restrict__ issued) {
+  using T = typename band::Cfg<S>::T;
+  const int n_blocks = (N + band::kBN - 1) / band::kBN;
+  const int m_blocks = (M + band::kBM - 1) / band::kBM;
+  const int nc = (K + band::Cfg<S>::kBK - 1) / band::Cfg<S>::kBK;
+  long long bid = blockIdx.x;
+  const int n0 = static_cast<int>(bid % n_blocks) * band::kBN;
+  bid /= n_blocks;  // (tile, row block)
+  const int m0 = static_cast<int>(bid % m_blocks) * band::kBM;
+  const long long tile = bid / m_blocks;
+  const long long row0 = static_cast<long long>(__ldg(start + tile)) * bsz;
+  const long long left = b_rows - row0;
+  const int rows_ok = left <= 0 ? 0 : left >= K ? K : static_cast<int>(left);
+  const band::DenseTile<T> p{tiles + tile * M * K,
+                             rows_ok > 0 ? b + row0 * N : b, K, N, rows_ok};
+  band::run_masked<S, VEC>(p, mask + bid * nc, c + tile * M * N, M, K, N, m0,
+                           n0, issued);
+}
+
 template <typename S>
-cudaError_t launch_band(const void* tiles, const void* start, const void* b,
-                        void* c, long long ntiles, long long M, long long K,
-                        long long N, long long bsz, long long b_rows,
-                        unsigned long long* issued, void* stream) {
+cudaError_t launch_band(const void* tiles, const void* start, const void* mask,
+                        const void* b, void* c, long long ntiles, long long M,
+                        long long K, long long N, long long bsz,
+                        long long b_rows, unsigned long long* issued,
+                        void* stream) {
   using band::kBM;
   using band::kBN;
   using T = typename band::Cfg<S>::T;
+  using O = typename band::Cfg<S>::Out;
   constexpr long long kMax = 0x7fffffffLL;
   if (ntiles <= 0 || M <= 0 || N <= 0) return cudaSuccess;
   // 32-bit index math inside a tile, its window and its output
@@ -121,42 +166,48 @@ cudaError_t launch_band(const void* tiles, const void* start, const void* b,
   constexpr long long V = 16 / sizeof(T);
   const bool vec = K % V == 0 && N % V == 0 && band::aligned16(tiles) &&
                    band::aligned16(b) && band::aligned16(c);
-  auto kern = vec ? band_kernel<S, true> : band_kernel<S, false>;
   constexpr int smem = band::smem_bytes<S>();
-  const cudaError_t rc = band::allow_smem<smem>(kern);
-  if (rc != cudaSuccess) return rc;
-  kern<<<static_cast<unsigned>(grid), band::kThreads, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(tiles), static_cast<const int*>(start),
-      static_cast<const T*>(b),
-      static_cast<typename band::Cfg<S>::Out*>(c), static_cast<int>(M),
-      static_cast<int>(K), static_cast<int>(N), static_cast<int>(bsz),
-      b_rows, issued);
-  return cudaGetLastError();
+  // the mask, where there is one, goes between start and b
+  auto go = [&](auto kern, auto... mask_arg) {
+    const cudaError_t rc = band::allow_smem<smem>(kern);
+    if (rc != cudaSuccess) return rc;
+    kern<<<static_cast<unsigned>(grid), band::kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(tiles), static_cast<const int*>(start),
+        mask_arg..., static_cast<const T*>(b), static_cast<O*>(c),
+        static_cast<int>(M), static_cast<int>(K), static_cast<int>(N),
+        static_cast<int>(bsz), b_rows, issued);
+    return cudaGetLastError();
+  };
+  if (mask == nullptr)
+    return go(vec ? band_kernel<S, true> : band_kernel<S, false>);
+  return go(vec ? band_mask_kernel<S, true> : band_mask_kernel<S, false>,
+            static_cast<const unsigned char*>(mask));
 }
 
-// The band body's stream kinds: float32, bf16, bf16x3, float64 and int32.
+// The band body's stream kinds: float32, bf16, bf16x3, float64 and int32;
+// band_mask_kernel where a chunk mask is given, band_kernel where it is null.
 cudaError_t band_kinds(int kind, const void* tiles, const void* start,
-                       const void* b, void* c, long long ntiles, long long M,
-                       long long K, long long N, long long bsz,
-                       long long b_rows, unsigned long long* issued,
-                       void* stream) {
+                       const void* mask, const void* b, void* c,
+                       long long ntiles, long long M, long long K, long long N,
+                       long long bsz, long long b_rows,
+                       unsigned long long* issued, void* stream) {
   switch (kind) {
     case kF32:
-      return launch_band<float>(tiles, start, b, c, ntiles, M, K, N, bsz,
-                                b_rows, issued, stream);
+      return launch_band<float>(tiles, start, mask, b, c, ntiles, M, K, N,
+                                bsz, b_rows, issued, stream);
     case kI32:
-      return launch_band<int>(tiles, start, b, c, ntiles, M, K, N, bsz,
+      return launch_band<int>(tiles, start, mask, b, c, ntiles, M, K, N, bsz,
                               b_rows, issued, stream);
     case kF32Split:
-      return launch_band<band::Split>(tiles, start, b, c, ntiles, M, K, N,
-                                      bsz, b_rows, issued, stream);
+      return launch_band<band::Split>(tiles, start, mask, b, c, ntiles, M, K,
+                                      N, bsz, b_rows, issued, stream);
     case kBF16:
-      return launch_band<__nv_bfloat16>(tiles, start, b, c, ntiles, M, K, N,
-                                        bsz, b_rows, issued, stream);
+      return launch_band<__nv_bfloat16>(tiles, start, mask, b, c, ntiles, M,
+                                        K, N, bsz, b_rows, issued, stream);
     case kF64:
-      return launch_band<double>(tiles, start, b, c, ntiles, M, K, N, bsz,
-                                 b_rows, issued, stream);
+      return launch_band<double>(tiles, start, mask, b, c, ntiles, M, K, N,
+                                 bsz, b_rows, issued, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -744,14 +795,15 @@ extern "C" {
 
 // kind as in bell_spmm.cu (bell_kinds.cuh).  tiles (ntiles, M, K) and b
 // (b_rows, N) in the stream type, start (ntiles,) int32, C (ntiles*M, N) in
-// float32 (float64 for kind 3, int32 for kind 4).  Every kind runs band_kernel.  Returns cudaGetLastError()
-// after the launch, or the error of a shape the kernel cannot index.
+// float32 (float64 for kind 3, int32 for kind 4).  Every kind runs
+// band_kernel.  Returns cudaGetLastError() after the launch, or the error
+// of a shape the kernel cannot index.
 int bell_banded(int kind, const void* tiles, const void* start,
                 const void* b, void* c, long long ntiles, long long M,
                 long long K, long long N, long long bsz, long long b_rows,
                 void* stream) {
-  return band_kinds(kind, tiles, start, b, c, ntiles, M, K, N, bsz, b_rows,
-                    nullptr, stream);
+  return band_kinds(kind, tiles, start, nullptr, b, c, ntiles, M, K, N, bsz,
+                    b_rows, nullptr, stream);
 }
 
 // bell_banded, also adding to *issued (on the card, zeroed by the caller)
@@ -762,8 +814,32 @@ int bell_banded_issued(int kind, const void* tiles, const void* start,
                        const void* b, void* c, long long ntiles, long long M,
                        long long K, long long N, long long bsz,
                        long long b_rows, void* issued, void* stream) {
-  return band_kinds(kind, tiles, start, b, c, ntiles, M, K, N, bsz, b_rows,
-                    static_cast<unsigned long long*>(issued), stream);
+  return band_kinds(kind, tiles, start, nullptr, b, c, ntiles, M, K, N, bsz,
+                    b_rows, static_cast<unsigned long long*>(issued), stream);
+}
+
+// bell_banded on a kit's tiles with its chunk mask (ntiles, ceil(M/32),
+// ceil(K/32)) uint8, 1 where a 32 x 32 chunk holds a non-zero element:
+// every kind runs band_mask_kernel, which copies and multiplies the marked
+// chunks only.  The same C as bell_banded where the mask is the tiles' own.
+int bell_banded_masked(int kind, const void* tiles, const void* start,
+                       const void* mask, const void* b, void* c,
+                       long long ntiles, long long M, long long K,
+                       long long N, long long bsz, long long b_rows,
+                       void* stream) {
+  return band_kinds(kind, tiles, start, mask, b, c, ntiles, M, K, N, bsz,
+                    b_rows, nullptr, stream);
+}
+
+// bell_banded_masked, also adding to *issued the multiply-adds of every
+// chunk it multiplied, counted as bell_banded_issued counts them.
+int bell_banded_masked_issued(int kind, const void* tiles, const void* start,
+                              const void* mask, const void* b, void* c,
+                              long long ntiles, long long M, long long K,
+                              long long N, long long bsz, long long b_rows,
+                              void* issued, void* stream) {
+  return band_kinds(kind, tiles, start, mask, b, c, ntiles, M, K, N, bsz,
+                    b_rows, static_cast<unsigned long long*>(issued), stream);
 }
 
 // tiles_t (ntiles, K, M) and bt (N, bt_cols) in the stream type, mask

@@ -136,7 +136,8 @@ def bell_spmm(a: BELL, b, *, prefer_pallas: bool | None = None, plan=None,
     the kernels for CUDA tensors and the gather-einsum path for CPU tensors,
     as the reference's default means the kernels on a TPU backend only.
     With the kernels, ``plan`` picks one: a ``BandedKit`` from
-    ``ops.cuda_bell.bell_banded_prepare`` goes to K4, a ``BandedKitT``
+    ``ops.cuda_bell.bell_banded_prepare`` goes to K4 on the kit's tiles,
+    which reads only the chunks its mask (``chunk_nz``) marks, a ``BandedKitT``
     (``bell_banded_prepare_t``, small k) to K5 through two n*k transposes, a
     bare ``BandedPlan`` to K4 densifying its tiles in the call, None to the
     fused kernel K3.  ``compute_dtype=torch.bfloat16`` streams both operands
@@ -168,9 +169,8 @@ def bell_spmm(a: BELL, b, *, prefer_pallas: bool | None = None, plan=None,
                                    precision=precision)
         return ct.T.contiguous()
     if isinstance(plan, cb.BandedKit):
-        return cb.bell_spmm_banded(a, b, plan.plan, tiles=plan.tiles,
-                                   compute_dtype=plan.tiles.dtype,
-                                   precision=precision)
+        # K4 through the kit's chunk mask: it reads the marked chunks only
+        return cb._bell_spmm_kit(a, b, plan, precision=precision)
     if isinstance(plan, cb.BandedPlan):
         return cb.bell_spmm_banded(a, b, plan, compute_dtype=compute_dtype,
                                    precision=precision)

@@ -28,10 +28,12 @@ DMA window on the TPU; ``start == sup.repeat(S) + rel`` by construction, so
 K4 and K5 read ``start`` and ignore them.
 
 Every stream of K3, K4 (and K8) and K5 skips the band's all-zero 32 x 32
-chunks: K3 and K4 by a vote inside the kernel on what they read, K5 by the
-kit's chunk mask (:attr:`BandedKitT.chunk_nz`, built once with the kit),
-so it does not read them.  K6 runs one of three bodies (:func:`_k6_body`,
-mirroring ``csrc/bell_spmm.cu``'s ``k6_body``): every stream at bsz <= 64
+chunks: K3, K8 and K4 on raw tiles by a vote inside the kernel on what they
+read; K5 and K4 on a kit (``bell_spmm(plan=kit)``) by the kit's chunk mask
+(:attr:`BandedKitT.chunk_nz`, :attr:`BandedKit.chunk_nz`, built once with
+the kit), so they do not read them.  K6 runs one of three bodies
+(:func:`_k6_body`, mirroring ``csrc/bell_spmm.cu``'s ``k6_body``): every
+stream at bsz <= 64
 (float64: 32) its persistent body, which skips a padding slot's zero block
 by a vote per stored block; past bsz 64 its float32, bf16, bf16x3 and
 float64 streams the wide-block body (``csrc/wide_body.cuh``: 128-row tiles
@@ -112,7 +114,8 @@ __all__ = [
 #: Launches of each CUDA kernel, counted where its wrapper launches it and
 #: nowhere else.
 K3_LAUNCHES = 0
-K4_LAUNCHES = 0
+K4_LAUNCHES = 0  # K4's vote body: raw tiles, a BandedPlan
+K4_KIT_LAUNCHES = 0  # K4's mask body: bell_spmm(plan=kit)
 K5_LAUNCHES = 0
 K6_LAUNCHES = 0
 
@@ -623,10 +626,25 @@ def _densify_band_tiles(a: BELL, plan: BandedPlan, stream_dtype):
 class BandedKit:
     """Plan + densified tiles of :func:`bell_banded_prepare`, passed to
     ``bell_spmm(..., plan=kit)``.  The tiles are bound to the matrix VALUES:
-    re-prepare, or :func:`bell_banded_refresh`, after updating the blocks."""
+    re-prepare, or :func:`bell_banded_refresh`, after updating the blocks.
+
+    ``chunk_nz`` (ntiles, ceil(M/32), ceil(K/32)) uint8 is built with the
+    kit, whoever builds it, on the tiles' device: 1 where a 32 x 32 chunk
+    of the tiles (ntiles, M, K) holds a non-zero element (NaN does, -0 does
+    not; an int32 tile any set bit), the chunks K4's vote would keep.  K4
+    on the kit reads only the chunks it marks.  It is plan data; the
+    reference's kit has no such field (187,500 bytes at ``bench.py``'s
+    band).  Tiles edited in place keep a stale mask: the kit is
+    value-bound, and :func:`bell_banded_refresh` builds a new one."""
 
     plan: BandedPlan
     tiles: torch.Tensor
+    chunk_nz: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                               compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "chunk_nz", _nonzero_chunks(
+            self.tiles, _BAND_BM, _BAND_BK).to(torch.uint8))
 
 
 def chunk_mask(tiles_t: torch.Tensor) -> torch.Tensor:
@@ -736,18 +754,37 @@ def banded_spmm_t_hbm_bytes(kit: BandedKitT, bsz: int, n: int, k: int,
     return kit.tiles_t.numel() * esz + window_bytes + n * k * out_itemsize
 
 
+def _check_mask(name: str, mask: torch.Tensor, tiles: torch.Tensor):
+    """``ValueError`` unless ``mask`` is a uint8 chunk mask of ``tiles``
+    (ntiles, M, K) on their device: (ntiles, ceil(M/32), ceil(K/32))."""
+    nt, m, kk = tiles.shape
+    want = (nt, -(-m // _BAND_BM), -(-kk // _BAND_BK))
+    if (not isinstance(mask, torch.Tensor) or mask.dtype != torch.uint8
+            or mask.device != tiles.device or tuple(mask.shape) != want
+            or not mask.is_contiguous()):
+        got = ((tuple(mask.shape), mask.dtype, str(mask.device))
+               if isinstance(mask, torch.Tensor) else type(mask).__name__)
+        raise ValueError(f"{name}: chunk mask {got} does not fit tiles "
+                         f"{tuple(tiles.shape)} on {tiles.device}: needs a "
+                         f"contiguous uint8 {want} on the tiles' device")
+
+
 def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
-                        b: torch.Tensor, bsz: int, *,
-                        precision=None) -> int:
+                        b: torch.Tensor, bsz: int, *, precision=None,
+                        mask: torch.Tensor | None = None) -> int:
     """Operations (two per multiply-add) that the body of K4 and K8 issues
     on ``tiles`` (ntiles, M, K) against the operand ``b`` (rows, k), as the
     kernel counts them: each thread block adds the chunks its zero-chunk
     vote kept, at their full padded size, to a counter on the card (a
-    bf16x3 chunk once).  One launch into a scratch output, outside
-    ``K4_LAUNCHES`` and ``K8_LAUNCHES``: it measures the skip and computes
-    nothing.  CUDA tensors with float32, bf16, float64 or int32 tiles
-    (``precision="bf16x3"`` splits float32 tiles); the count is the
-    kernel's, so there is no plain version."""
+    bf16x3 chunk once).  With ``mask`` (a kit's :attr:`BandedKit.chunk_nz`)
+    it counts K4's kit route instead, the mask body, which multiplies the
+    chunks the mask marks: the same count where the mask is the tiles'
+    own.  One launch into a scratch output, outside ``K4_LAUNCHES``,
+    ``K4_KIT_LAUNCHES`` and ``K8_LAUNCHES``: it measures the skip and
+    computes nothing.  CUDA tensors with float32, bf16, float64 or int32
+    tiles (``precision="bf16x3"`` splits float32 tiles); the count is the
+    kernel's, so there is no plain version
+    (:func:`banded_issued_model` is what it should read)."""
     name = "banded_issued_flops"
     if (tiles.dim() != 3 or b.dim() != 2
             or tiles.dtype not in _STREAMS):
@@ -756,6 +793,8 @@ def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
                          "bf16 or float64 tiles (or int32 ones) and a 2-d "
                          "operand")
     split = _stream_mode(name, tiles.dtype, precision)
+    if mask is not None:
+        _check_mask(name, mask, tiles)
     if not _on_cuda(name, tiles, start, b):
         raise ValueError(f"{name}: counts on the card only, got CPU tensors")
     ntiles, M, K = tiles.shape
@@ -765,9 +804,14 @@ def banded_issued_flops(tiles: torch.Tensor, start: torch.Tensor,
     out = torch.empty(ntiles * M, b.shape[1], dtype=_acc_dtype(tiles.dtype),
                       device=b.device)
     count = torch.zeros(1, dtype=torch.int64, device=b.device)
-    _launch(name, _kernels.load().bell_banded_issued,
-            _kind(tiles.dtype, split),
-            ts.data_ptr(), st.data_ptr(), bs.data_ptr(), out.data_ptr(),
+    lib = _kernels.load()
+    ptrs = (ts.data_ptr(), st.data_ptr(), bs.data_ptr(), out.data_ptr())
+    if mask is not None:
+        fn, ptrs = lib.bell_banded_masked_issued, (
+            ptrs[0], ptrs[1], mask.data_ptr(), *ptrs[2:])
+    else:
+        fn = lib.bell_banded_issued
+    _launch(name, fn, _kind(tiles.dtype, split), *ptrs,
             ntiles, M, K, b.shape[1], bsz, b.shape[0], count.data_ptr(),
             device=b.device)
     return 2 * int(count.item())
@@ -835,8 +879,19 @@ def _window_index(plan: BandedPlan, bsz: int, extent: int):
     return idx.clamp(max=max(extent - 1, 0)), idx < extent
 
 
+def _same_tensor(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether ``x`` is ``y``'s data seen the same way (a transform may
+    hand a launch another tensor object over the same memory)."""
+    return (x.data_ptr() == y.data_ptr() and x.dtype == y.dtype
+            and x.shape == y.shape and x.stride() == y.stride()
+            and x.device == y.device)
+
+
 def _banded(a: BELL, b, plan: BandedPlan, compute_dtype, tiles, precision,
-            plain: bool):
+            plain: bool, kit: BandedKit | None = None):
+    """K4 (its plain version on CPU tensors or with ``plain``).  With
+    ``kit`` (``tiles`` its tiles) a launch on the kit's own tiles runs the
+    mask body on ``kit.chunk_nz``; any other launch, the vote body."""
     name = "bell_spmm_banded"
     b, out_dtype = _operand(name, a, b)
     k = b.shape[1]
@@ -852,6 +907,8 @@ def _banded(a: BELL, b, plan: BandedPlan, compute_dtype, tiles, precision,
     if tuple(tiles.shape) != (ntiles, rt * bsz, W * bsz):
         raise ValueError(f"{name}: tiles {tuple(tiles.shape)} != "
                          f"({ntiles}, {rt * bsz}, {W * bsz})")
+    if kit is not None:
+        _check_mask(name, kit.chunk_nz, tiles)
     if plain or not _on_cuda(name, tiles, plan.start, b):
         rows, inside = _window_index(plan, bsz, a.n)
         bs = b.to(stream)
@@ -859,17 +916,27 @@ def _banded(a: BELL, b, plan: BandedPlan, compute_dtype, tiles, precision,
         out = _contract("tij,tjk->tik", tiles, win, stream, split)
         return out.reshape(nb_pad * bsz, k)[:a.n].to(out_dtype)
     def launch(tiles, b):
-        global K4_LAUNCHES
+        global K4_LAUNCHES, K4_KIT_LAUNCHES
+        masked = kit is not None and _same_tensor(tiles, kit.tiles)
         start = plan.start.to(torch.int32).contiguous()
         ts = tiles.to(stream).contiguous()
         bs = b.to(stream).contiguous()
         out = torch.empty(nb_pad * bsz, k, dtype=_acc_dtype(stream),
                           device=b.device)
-        _launch(name, _kernels.load().bell_banded, _kind(stream, split),
-                ts.data_ptr(), start.data_ptr(), bs.data_ptr(),
-                out.data_ptr(), ntiles, rt * bsz, W * bsz, k, bsz, a.n,
-                device=b.device)
-        K4_LAUNCHES += 1
+        lib = _kernels.load()
+        ptrs = (ts.data_ptr(), start.data_ptr(), bs.data_ptr(),
+                out.data_ptr())
+        if masked:
+            fn, ptrs = lib.bell_banded_masked, (
+                ptrs[0], ptrs[1], kit.chunk_nz.data_ptr(), *ptrs[2:])
+        else:
+            fn = lib.bell_banded
+        _launch(name, fn, _kind(stream, split), *ptrs, ntiles, rt * bsz,
+                W * bsz, k, bsz, a.n, device=b.device)
+        if masked:
+            K4_KIT_LAUNCHES += 1
+        else:
+            K4_LAUNCHES += 1
         return out[:a.n].to(out_dtype)
 
     return kernel_call(name, launch, tiles, b)
@@ -894,6 +961,17 @@ def bell_spmm_banded_plain(a: BELL, b, plan: BandedPlan, *,
     """Plain PyTorch version of K4 (any device): gather every tile's operand
     window, then one batched matmul."""
     return _banded(a, b, plan, compute_dtype, tiles, precision, True)
+
+
+def _bell_spmm_kit(a: BELL, b, kit: BandedKit, *,
+                   precision=None) -> torch.Tensor:
+    """``bell_spmm(a, b, plan=kit)``: K4 on the kit's tiles, streaming at
+    their dtype, through the kit's chunk mask (``bell_banded_masked``:
+    only the marked chunks are read and multiplied; bitwise the vote
+    body's C) on CUDA tensors, ``bell_spmm_banded_plain``'s product on CPU
+    tensors.  A mask that does not fit the tiles raises ``ValueError``."""
+    return _banded(a, b, kit.plan, kit.tiles.dtype, kit.tiles, precision,
+                   False, kit)
 
 
 # -- K5: banded, transposed (small k) -----------------------------------------

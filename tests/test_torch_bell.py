@@ -307,11 +307,13 @@ def test_bell_spmm_dispatch_by_plan_type(monkeypatch):
     kit = tcb.bell_banded_prepare(ta)
     kit_t = tcb.bell_banded_prepare_t(ta)
     calls = []
-    for name in ("bell_spmm_fused", "bell_spmm_banded", "bell_spmm_banded_t"):
+    # a BandedKit goes to K4 through its chunk mask (_bell_spmm_kit)
+    for name in ("bell_spmm_fused", "bell_spmm_banded", "bell_spmm_banded_t",
+                 "_bell_spmm_kit"):
         orig = getattr(tcb, name)
         monkeypatch.setattr(tcb, name, lambda *a, _o=orig, _n=name, **kw: (
             calls.append(_n), _o(*a, **kw))[1])
-    cases = [(None, "bell_spmm_fused"), (kit, "bell_spmm_banded"),
+    cases = [(None, "bell_spmm_fused"), (kit, "_bell_spmm_kit"),
              (kit.plan, "bell_spmm_banded"), (kit_t, "bell_spmm_banded_t")]
     for plan, want in cases:
         calls.clear()

@@ -575,13 +575,15 @@ def test_k4_nan_in_a_propagates(cuda, stream):
     ("K5", t) for t in ("f32", "bf16", "bf16x3", "f64")] + [
     ("K4", "f64"), ("K6", "bf16x3"), ("K3", "f64"), ("K6", "f64"),
     ("K6", "f32"), ("K6", "bf16")] + [
+    ("K4-kit", t) for t in ("f32", "bf16", "bf16x3", "f64")] + [
     ("K6-wide", t) for t in ("f32", "bf16", "bf16x3", "f64")])
 def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
                                                            tier):
     """Inf and NaN in operand panel 0, which block rows 0 and 1 store: K3's
     and K6's padding slots (zero blocks at column 0 in the edge rows and
     the empty row 6), K4's densified zero chunks (block row 2 in tile 0's
-    window) and K5's (block rows 2 and 3's slices of tile 0, whose window
+    window; ``K4-kit``: the kit route, whose chunk mask skips them) and
+    K5's (block rows 2 and 3's slices of tile 0, whose window
     starts at panel 0) sit opposite them, so the vote or the chunk mask
     skips them and those rows are the sparse product, finite; block rows 0
     and 1 carry the Inf and NaN.  Every kernel gives it in every kind,
@@ -629,8 +631,13 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
         assert int(kit.plan.start[0]) == 0
         kw = dict(tiles=kit.tiles, compute_dtype=kit.tiles.dtype,
                   precision=prec)
-        got = _twice(lambda: tcb.bell_spmm_banded(a, b_inf, kit.plan, **kw),
-                     "K4_LAUNCHES")
+        if kernel == "K4-kit":
+            got = _twice(lambda: pt.bell_spmm(a, b_inf, plan=kit,
+                                              precision=prec),
+                         "K4_KIT_LAUNCHES")
+        else:
+            got = _twice(lambda: tcb.bell_spmm_banded(a, b_inf, kit.plan,
+                                                      **kw), "K4_LAUNCHES")
         want = tcb.bell_spmm_banded_plain(a, b, kit.plan, **kw)
     hit = torch.zeros_like(got, dtype=torch.bool)
     hit[:2 * bsz, [5, 9]] = True  # block rows 0 and 1 against Inf and NaN
@@ -784,7 +791,7 @@ def test_bell_spmm_on_cuda_launches_the_kernels(cuda):
     bound = torch.from_numpy(abs(s) @ np.abs(bh)).to(cuda)
     kit = tcb.bell_banded_prepare(a, slot_valid=ok)
     kit_t = tcb.bell_banded_prepare_t(a, slot_valid=ok)
-    for plan, counter in ((None, "K3_LAUNCHES"), (kit, "K4_LAUNCHES"),
+    for plan, counter in ((None, "K3_LAUNCHES"), (kit, "K4_KIT_LAUNCHES"),
                           (kit.plan, "K4_LAUNCHES"),
                           (kit_t, "K5_LAUNCHES")):
         before = getattr(tcb, counter)
@@ -794,9 +801,10 @@ def test_bell_spmm_on_cuda_launches_the_kernels(cuda):
         assert got.is_cuda and got.is_contiguous()
         _check_spmm(got, ref, bound, torch.float32)
     _check_spmm(a @ b, ref, bound, torch.float32)
-    counts = [getattr(tcb, f"K{i}_LAUNCHES") for i in (3, 4, 5, 6)]
+    names = ("K3", "K4", "K4_KIT", "K5", "K6")
+    counts = [getattr(tcb, f"{n}_LAUNCHES") for n in names]
     got = pt.bell_spmm(a, b, prefer_pallas=False)  # the gather-einsum
-    assert counts == [getattr(tcb, f"K{i}_LAUNCHES") for i in (3, 4, 5, 6)]
+    assert counts == [getattr(tcb, f"{n}_LAUNCHES") for n in names]
     _check_spmm(got, ref, bound, torch.float32)
 
 
@@ -1683,15 +1691,18 @@ def test_k3_k6_float64_on_the_vote_bodies(cuda, bsz, k):
 def test_k4_int32_vote_body(cuda, nb, bsz, hb, rt, mw, k):
     """K4's int32 kind on the band body (a vote on every bit of a word):
     equal to its plain version and NumPy, with the float32 kind's chunk
-    count; bell_spmm with the kit launches it."""
+    count; bell_spmm with the kit launches its mask body, bitwise the
+    vote body's C."""
     a, ok, blocks64 = _int_bell(nb, bsz, hb, nb * k + bsz, cuda, empty=(2,))
     b = torch.from_numpy(_ints(np.random.default_rng(k), (a.n, k))).to(cuda)
     kit = tcb.bell_banded_prepare(a, row_tile=rt, max_window=mw,
                                   slot_valid=ok)
     assert kit.tiles.dtype == torch.int32
-    got = _twice(lambda: pt.bell_spmm(a, b, plan=kit), "K4_LAUNCHES")
+    got = _twice(lambda: pt.bell_spmm(a, b, plan=kit), "K4_KIT_LAUNCHES")
     assert torch.equal(got, tcb.bell_spmm_banded_plain(a, b, kit.plan,
                                                        tiles=kit.tiles))
+    assert torch.equal(got, tcb.bell_spmm_banded(a, b, kit.plan,
+                                                 tiles=kit.tiles))
     np.testing.assert_array_equal(_np(got), _int_spmm_want(a, blocks64, b))
     assert tcb.banded_issued_flops(kit.tiles, kit.plan.start, b, bsz) == \
         _issued_model(kit.tiles, k)
@@ -1725,7 +1736,8 @@ def test_k5_int32_mask_body(cuda, nb, bsz, k, values, hand_rt, padded):
 
 def test_bell_spmm_int32_routes_and_k8(cuda):
     """bell_spmm on an int32 BELL with no plan, a BandedKit and a
-    BandedKitT launches K3, K4 and K5 once each, and dband_spmm K8, all
+    BandedKitT launches K3, K4 (its mask body) and K5 once each, and
+    dband_spmm K8, all
     equal to NumPy modulo 2^32; precision="bf16x3" raises for an int32
     stream on every route, launching nothing."""
     from sparse_tpu_torch.ops import cuda_dband as tdb
@@ -1736,7 +1748,7 @@ def test_bell_spmm_int32_routes_and_k8(cuda):
     want = _int_spmm_want(a, blocks64, b)
     kit = tcb.bell_banded_prepare(a, slot_valid=ok)
     kit_t = tcb.bell_banded_prepare_t(a, slot_valid=ok)
-    for plan, counter in ((None, "K3_LAUNCHES"), (kit, "K4_LAUNCHES"),
+    for plan, counter in ((None, "K3_LAUNCHES"), (kit, "K4_KIT_LAUNCHES"),
                           (kit_t, "K5_LAUNCHES")):
         before = getattr(tcb, counter)
         got = pt.bell_spmm(a, b, plan=plan)
@@ -2168,3 +2180,231 @@ def test_k7_float64_dmma_body(cuda, bsz, aligned):
     assert geo["stages"] == 3
     if 16 < bsz <= 32:
         assert geo["blocks_per_sm"] >= 2  # 24 KB a one-warp team
+
+
+# -- K4 on a kit: the mask body -----------------------------------------------
+#
+# bell_spmm(plan=kit) runs K4's mask body on the kit's chunk mask
+# (BandedKit.chunk_nz): it copies and multiplies the chunks the mask marks
+# only, which are the chunks the vote body keeps, in the same order.  So
+# its C is bitwise the vote body's on the same tiles (the tiles route,
+# bell_spmm_banded(..., tiles=kit.tiles)) and its issued count the vote
+# body's model, in every kind, at the vote body's shapes (K4_SHAPES, K4_K:
+# ragged row blocks, element copies, K not a multiple of 32 where W*bsz is
+# not).
+
+KIT_TIERS = ["f32", "bf16", "bf16x3", "f64", "i32"]
+
+
+def _kit_operands(cuda, nb, bsz, hb, seed, k, tier, empty=(2,)):
+    """(BELL, operand, slot_valid, compute dtype, precision) of a block
+    band in ``tier`` (``"i32"``: an int32 band and operand)."""
+    if tier == "i32":
+        a, ok, _ = _int_bell(nb, bsz, hb, seed, cuda, empty=empty)
+        b = torch.from_numpy(_ints(np.random.default_rng(k), (a.n, k)))
+        return a, b.to(cuda), ok, None, None
+    dt, cd, prec = TIERS[tier]
+    a, ok = _band_bell(nb, bsz, hb, seed, dt, cuda, empty=empty)
+    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).to(dt).to(cuda)
+    return a, b, ok, cd, prec
+
+
+def _kit_is_the_vote(a, b, kit, prec):
+    """The kit route twice (bitwise, K4_KIT_LAUNCHES), equal bit for bit to
+    the vote body on the kit's tiles, its count the vote body's model;
+    returns C."""
+    before = tcb.K4_LAUNCHES
+    got = _twice(lambda: pt.bell_spmm(a, b, plan=kit, precision=prec),
+                 "K4_KIT_LAUNCHES")
+    assert tcb.K4_LAUNCHES == before  # the vote body did not run
+    vote = tcb.bell_spmm_banded(a, b, kit.plan, tiles=kit.tiles,
+                                compute_dtype=kit.tiles.dtype,
+                                precision=prec)
+    assert torch.equal(_bits(got), _bits(vote))
+    k = b.shape[1]
+    counted = tcb.banded_issued_flops(kit.tiles, kit.plan.start, b, a.bsz,
+                                      precision=prec, mask=kit.chunk_nz)
+    assert counted == tcb.banded_issued_model(kit.tiles, k) == \
+        tcb.banded_issued_flops(kit.tiles, kit.plan.start, b, a.bsz,
+                                precision=prec)
+    return got
+
+
+@pytest.mark.parametrize("tier", KIT_TIERS)
+@pytest.mark.parametrize("k", K4_K)
+@pytest.mark.parametrize("nb,bsz,hb,rt,mw", K4_SHAPES)
+def test_k4_kit_route_is_the_vote_route(cuda, nb, bsz, hb, rt, mw, k, tier):
+    a, b, ok, cd, prec = _kit_operands(cuda, nb, bsz, hb, nb * k + bsz, k,
+                                       tier)
+    kit = tcb.bell_banded_prepare(a, row_tile=rt, max_window=mw,
+                                  compute_dtype=cd, slot_valid=ok)
+    assert torch.equal(kit.chunk_nz, tcb._nonzero_chunks(
+        kit.tiles, 32, 32).to(torch.uint8))
+    assert 0 < int(kit.chunk_nz.sum()) < kit.chunk_nz.numel()
+    got = _kit_is_the_vote(a, b, kit, prec)
+    if tier != "i32":
+        dt = TIERS[tier][0]
+        _check_spmm(got, tcb.bell_spmm_banded_plain(
+            a, b, kit.plan, tiles=kit.tiles, compute_dtype=kit.tiles.dtype,
+            precision=prec), _spmm_bound(a, b, kit.tiles.dtype), dt)
+    else:
+        assert torch.equal(got, tcb.bell_spmm_banded_plain(
+            a, b, kit.plan, tiles=kit.tiles))
+
+
+def _fill_chunks(t, where):
+    """Write into the all-zero tiles ``t`` (4, 64, 128 at bsz 32, rt 2):
+    no chunk, one element in one chunk, the last row and column of a chunk
+    in two tiles, every chunk, or a NaN beside a value."""
+    if where == "one":
+        t[1, 37, 70] = 1.5
+    elif where == "edges":
+        t[2, 31, 63] = -2.0
+        t[3, 63, 95] = 0.75
+    elif where == "all":
+        t.copy_(torch.from_numpy(np.random.default_rng(3).standard_normal(
+            tuple(t.shape))).to(t.dtype))
+    elif where == "nan":
+        t[0, 5, 40] = float("nan")
+        t[0, 5, 41] = 1.0
+        t[1, 40, 3] = 2.0
+
+
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16,
+                                    torch.float64])
+@pytest.mark.parametrize("where", ["none", "one", "edges", "all", "nan"])
+def test_k4_kit_mask_edges(cuda, where, stream, shift):
+    """Hand-built kits whose masks mark no chunk (every row a zero), one,
+    two at a chunk's last row and column, all of them, and a NaN's chunk;
+    ``shift`` puts the operand one element off 16 bytes, so the mask body
+    copies element by element.  Each is bitwise the vote body and counts
+    one 32 x 32 x 128 chunk for each marked one."""
+    a, b, plan, tiles = _sparse_tiles_case(cuda, stream,
+                                           lambda t: _fill_chunks(t, where))
+    b = _shifted(b.to(stream), "shift" if shift else "band")
+    kit = tcb.BandedKit(plan=plan, tiles=tiles)
+    marked = int(kit.chunk_nz.sum())
+    assert marked == {"none": 0, "one": 1, "edges": 2, "all": 4 * 2 * 4,
+                      "nan": 2}[where]
+    got = _kit_is_the_vote(a, b, kit, None)
+    assert tcb.banded_issued_flops(tiles, plan.start, b, 32,
+                                   mask=kit.chunk_nz) == \
+        marked * 2 * 32 * 32 * 128
+    if where == "none":
+        assert not bool(got.any())
+    if where == "nan":
+        assert torch.isnan(got[5]).all()
+    want = tcb.bell_spmm_banded_plain(a, b, plan, tiles=tiles,
+                                      compute_dtype=stream)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    bound = tcb.bell_spmm_banded_plain(a, b.abs(), plan, tiles=tiles.abs(),
+                                       compute_dtype=stream)
+    _check_spmm(got[ok], want[ok], bound[ok],
+                torch.float64 if stream == torch.float64 else torch.float32)
+
+
+@pytest.mark.parametrize("tier", KIT_TIERS)
+def test_k4_kit_refresh_and_vmap(cuda, tier):
+    """A refreshed kit carries its new tiles' mask: a chunk that turns to
+    zero (block row 4's blocks) and one that turns non-zero (the empty row
+    2's stored slots) move in the mask, and the kit route stays bitwise the
+    vote body on the new tiles.  Under ``torch.func.vmap`` over three
+    operands the kit route launches once a slice, each bitwise one call."""
+    a, b, ok, cd, prec = _kit_operands(cuda, 20, 32, 1, 11, 40, tier,
+                                       empty=())
+    blocks = a.blocks.clone()
+    blocks[2] = 0
+    a0 = BELL(cols=a.cols, blocks=blocks, n=a.n, bsz=a.bsz)
+    kit = tcb.bell_banded_prepare(a0, row_tile=2, compute_dtype=cd,
+                                  slot_valid=ok)
+    _kit_is_the_vote(a0, b, kit, prec)
+    blocks = a.blocks.clone()
+    blocks[4] = 0
+    a1 = BELL(cols=a.cols, blocks=blocks, n=a.n, bsz=a.bsz)
+    fresh = tcb.bell_banded_refresh(kit, a1)
+    assert torch.equal(fresh.chunk_nz, tcb._nonzero_chunks(
+        fresh.tiles, 32, 32).to(torch.uint8))
+    # rt 2 at bsz 32: block row r is row block r % 2 of tile r // 2
+    assert not bool(kit.chunk_nz[1, 0].any()) and bool(
+        fresh.chunk_nz[1, 0].any())
+    assert bool(kit.chunk_nz[2, 0].any()) and not bool(
+        fresh.chunk_nz[2, 0].any())
+    got = _kit_is_the_vote(a1, b, fresh, prec)
+    bs = torch.stack([b, 2 * b, -b])
+    before = tcb.K4_KIT_LAUNCHES
+    ys = torch.func.vmap(lambda x: pt.bell_spmm(a1, x, plan=fresh,
+                                                precision=prec))(bs)
+    torch.cuda.synchronize()
+    assert tcb.K4_KIT_LAUNCHES == before + 3
+    assert torch.equal(_bits(ys[0]), _bits(got))
+    for i in (1, 2):
+        assert torch.equal(_bits(ys[i]), _bits(pt.bell_spmm(
+            a1, bs[i], plan=fresh, precision=prec)))
+
+
+def _narrow_plan(a, ok, W):
+    """A one-row-tile plan whose window is ``W`` panels, so the tiles' K =
+    W*bsz need not be a multiple of 32 (the planner rounds W to 128
+    lanes): each row's first stored column, its window start clamped into
+    [0, nb - W]."""
+    cols = a.cols.cpu().numpy().astype(np.int64)
+    first = np.where(ok.any(1), cols[:, 0], 0)
+    start = np.minimum(first, a.nb - W)
+
+    def i32(x):
+        return torch.from_numpy(np.asarray(x, np.int32)).to(a.cols.device)
+
+    return tcb.BandedPlan(offs=i32(first - start), start=i32(start),
+                          rel=i32(np.zeros(a.nb)), sup=i32(start), W=W,
+                          rt=1, S=1, SW=W)
+
+
+@pytest.mark.parametrize("tier", KIT_TIERS)
+@pytest.mark.parametrize("bsz,k", [(24, 40), (13, 40), (24, 1)])
+def test_k4_kit_k_not_a_multiple_of_32(cuda, bsz, k, tier):
+    """Hand-built kits on a window of 3 panels: K = 72 (chunks of 32, 32
+    and 8 indices; 16-byte copies) or 39 (32 and 7; element copies), one
+    32-row block of bsz rows; an empty row (no marked chunk).  Bitwise the
+    vote body, its count the model, within the plain version's bound."""
+    a, b, ok, cd, prec = _kit_operands(cuda, 30, bsz, 1, bsz + k, k, tier,
+                                       empty=(7,))
+    plan = _narrow_plan(a, ok, 3)
+    tiles = tcb._densify_band_tiles(a, plan, cd or a.dtype)
+    kit = tcb.BandedKit(plan=plan, tiles=tiles)
+    assert kit.chunk_nz.shape == (30, 1, -(-3 * bsz // 32))
+    assert not bool(kit.chunk_nz[7].any()) and bool(
+        kit.chunk_nz[:, 0, -1].any())
+    got = _kit_is_the_vote(a, b, kit, prec)
+    want = tcb.bell_spmm_banded_plain(a, b, plan, tiles=tiles,
+                                      compute_dtype=tiles.dtype,
+                                      precision=prec)
+    if tier == "i32":
+        assert torch.equal(got, want)
+    else:
+        _check_spmm(got, want, _spmm_bound(a, b, tiles.dtype),
+                    TIERS[tier][0])
+    assert not bool(got[7 * bsz:8 * bsz].any())
+
+
+def test_k4_kit_refuses_a_mask_that_does_not_fit(cuda):
+    """A mask of another shape, dtype or device than the tiles' raises
+    before any launch: no route gives way to the vote body or the plain
+    version."""
+    a, ok = _band_bell(16, 32, 1, 0, torch.float32, cuda)
+    b = torch.ones(a.n, 8, device=cuda)
+    kit = tcb.bell_banded_prepare(a, row_tile=2, slot_valid=ok)
+    m = kit.chunk_nz
+    counts = (tcb.K4_LAUNCHES, tcb.K4_KIT_LAUNCHES)
+    for bad in (m[:, :, :-1].contiguous(), m.to(torch.int32), m.cpu(),
+                m.bool()):
+        hand = tcb.BandedKit(plan=kit.plan, tiles=kit.tiles)
+        object.__setattr__(hand, "chunk_nz", bad)
+        with pytest.raises(ValueError, match="chunk mask"):
+            pt.bell_spmm(a, b, plan=hand)
+        with pytest.raises(ValueError, match="chunk mask"):
+            tcb.banded_issued_flops(kit.tiles, kit.plan.start, b, 32,
+                                    mask=bad)
+    assert (tcb.K4_LAUNCHES, tcb.K4_KIT_LAUNCHES) == counts

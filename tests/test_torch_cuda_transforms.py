@@ -168,7 +168,7 @@ def _bell_case(dev, which):
     if which == "K4":
         kit = tcb.bell_banded_prepare(a, slot_valid=ok)
         return Case(lambda b: pt.bell_spmm(a, b, plan=kit), bs, tcb,
-                    "K4_LAUNCHES")
+                    "K4_KIT_LAUNCHES")
     kit_t = tcb.bell_banded_prepare_t(a, slot_valid=ok)
     bts = _rows3(rng, 32, a.n).to(dev)
     return Case(lambda bt: tcb.bell_spmm_banded_t(a, bt, kit_t), bts, tcb,

@@ -20,7 +20,10 @@ Suites:
   K5, K6 (bf16 blocks) and K8 with bf16 operands, the bf16x3 split of
   K3, K4, K5 and K6 (float32 operands), K3, K4, K5, K6 and K8 in
   float64 (float64 blocks, kits and tiles), and K3, K4 and K8 in int32
-  (the blocks x 400, rounded; operand entries in [-8, 8]); then K6 on the
+  (the blocks x 400, rounded; operand entries in [-8, 8]); K4 is timed on
+  the kits' tiles (``bell_spmm_banded(..., tiles=kit.tiles)``, the vote
+  body) and, as "K4 kit", through ``bell_spmm(a, b, plan=kit)`` in every
+  kind (the mask body where the package has one); then K6 on the
   same band at bsz 128 (``chip_smoke.K6_WIDE_NB``: nb 3,907, n 500,096),
   k = 128, in float32, bf16 (blocks and operand), bf16x3, int32 and
   float64.
@@ -65,7 +68,7 @@ HERE = Path(__file__).resolve().parent.parent
 def bell_cases(cs):
     import torch
 
-    from sparse_tpu_torch.formats.bell import BELL
+    from sparse_tpu_torch.formats.bell import BELL, bell_spmm
     from sparse_tpu_torch.ops import cuda_bell as cb
     from sparse_tpu_torch.ops import cuda_dband as cdb
 
@@ -122,6 +125,11 @@ def bell_cases(cs):
             a, b_bf, kit_bf.plan, tiles=kit_bf.tiles, compute_dtype=bf16),
         "K4 f64": lambda: cb.bell_spmm_banded(a64, b64, kit64.plan,
                                               tiles=kit64.tiles),
+        "K4 kit": lambda: bell_spmm(a, b, plan=kit),
+        "K4 kit bf16x3": lambda: bell_spmm(a, b, plan=kit,
+                                           precision="bf16x3"),
+        "K4 kit bf16": lambda: bell_spmm(a, b_bf, plan=kit_bf),
+        "K4 kit f64": lambda: bell_spmm(a64, b64, plan=kit64),
         "K5": lambda: cb.bell_spmm_banded_t(a, bt, kit_t),
         "K5 bf16": lambda: cb.bell_spmm_banded_t(a, bt_bf, kit_tbf),
         "K5 bf16x3": lambda: cb.bell_spmm_banded_t(a, bt, kit_t,
@@ -137,6 +145,7 @@ def bell_cases(cs):
         "K3 i32": lambda: cb.bell_spmm_fused(ai, bi),
         "K4 i32": lambda: cb.bell_spmm_banded(ai, bi, kit_i.plan,
                                               tiles=kit_i.tiles),
+        "K4 kit i32": lambda: bell_spmm(ai, bi, plan=kit_i),
         "K8 i32": lambda: cdb.dband_spmm(*k8_args[i32]),
         "K6 b128": lambda: cb.bell_spmm_block(w, bw),
         "K6 b128 bf16": lambda: cb.bell_spmm_block(*wide[bf16]),
