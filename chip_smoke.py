@@ -1317,7 +1317,9 @@ def phase7_bell_kernels_vs_plain():
     float64 and K6's float32 / bf16 bodies at the card tests' shapes (bsz
     3/8/16/24/32/33/64, k 1/7/32/33/70/128/200, all-zero blocks, a lone
     element, a NaN in A, hand-built K5 kits) with their issued-work
-    counters."""
+    counters.  Then K3 in every kind on more tiles than resident blocks
+    (``_k3_walk_vs_plain``) and the band body's float64 kind on
+    m16n8k8 at ragged shapes (``_band_f64_vs_plain``)."""
     from sparse_tpu_torch.ops import cuda_bell as cb
 
     rng = np.random.default_rng(7)
@@ -1428,6 +1430,134 @@ def phase7_bell_kernels_vs_plain():
         print(f"   {label}: max|kernel-plain| {err:.3e}; bitwise "
               "repeatable", flush=True)
     _mask_bodies_vs_plain(rng)
+    _k3_walk_vs_plain(rng)
+    _band_f64_vs_plain(rng)
+
+
+def _k3_walk_vs_plain(rng):
+    """K3 on its grid in every kind (bf16, bf16x3 and float64 walk their
+    tiles on at most the thread blocks resident at once, one ring each,
+    ``band::run_tiles``; float32 and int32 take a thread block a tile), on
+    bands of five slots a block row holding more than twice as many tiles
+    as resident blocks (``cuda_bell.fused_geometry``): bsz 32 / k 128 (the
+    bench band's tile), 20 / 129 and 100 / 31 (ragged row and column
+    blocks; element copies), two block rows of zero blocks only and, in
+    the float kinds, a NaN in A.  Twice, bitwise equal and launched each
+    time, against the plain version (int32: equal), the zero rows exact
+    zeros, the issued count its host model, the geometry printed."""
+    from sparse_tpu_torch.formats.bell import BELL
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    f32, f64, bf16, i32 = (torch.float32, torch.float64, torch.bfloat16,
+                           torch.int32)
+    # kind: (blocks' dtype, compute dtype, precision, tolerance dtype)
+    kinds = {"float32": (f32, None, None, f32),
+             "float64": (f64, None, None, f64),
+             "bf16": (f32, bf16, None, f32),
+             "bf16x3": (f32, None, "bf16x3", f32),
+             "int32": (i32, None, None, None)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bsz, k in ((32, 128), (20, 129), (100, 31)):
+        per_row = -(-bsz // 32) * -(-k // 128)
+        for kind, (dt, cd, prec, tol) in kinds.items():
+            stream = cd or dt
+            walks = kind in ("float64", "bf16", "bf16x3")
+            geo = cb.fused_geometry(1, 5, bsz, k, stream, prec)
+            if geo["walks"] != walks:
+                raise AssertionError(f"K3 {kind}: walks {geo['walks']}")
+            resident = geo["blocks_per_sm"] * sms
+            nb = (2 * resident + 3) // per_row + 1
+            empty = (nb // 4, 3 * nb // 4)
+            cols, valid = _band_pattern(nb, 2, empty)
+            a = _bell(cols, valid, bsz, f64, seed=nb + bsz + k)
+            if kind == "int32":
+                blocks = (a.blocks * 2 ** 20).round().to(i32)
+                b = torch.from_numpy(rng.integers(
+                    -2 ** 20, 2 ** 20, (a.n, k)).astype(np.int32)).cuda()
+            else:
+                blocks = a.blocks.to(dt)
+                blocks[nb // 2, 1, 1, 0] = float("nan")
+                b = torch.from_numpy(rng.standard_normal((a.n, k))).to(
+                    dt).cuda()
+            a = BELL(cols=a.cols, blocks=blocks, n=a.n, bsz=bsz)
+            geo = cb.fused_geometry(nb, a.Lb, bsz, k, stream, prec)
+            if geo["grid"] != (resident if walks else geo["tiles"]) or \
+                    geo["tiles"] <= 2 * resident:
+                raise AssertionError(f"K3 {kind}: {geo} against {resident} "
+                                     "resident blocks")
+            label = (f"K3 {kind} bsz={bsz} k={k} nb={nb} "
+                     f"({'walk' if walks else 'a thread block a tile'})")
+            kw = dict(compute_dtype=cd, precision=prec)
+
+            def kern():
+                return cb.bell_spmm_fused(a, b, **kw)
+
+            def plain():
+                return cb.bell_spmm_fused_plain(a, b, **kw)
+
+            before = cb.K3_LAUNCHES
+            if kind == "int32":
+                y1, y2 = kern(), kern()
+                err = 0.0
+                if not (torch.equal(y1, y2) and torch.equal(y1, plain())):
+                    raise AssertionError(f"{label}: differs from its plain "
+                                         "version, or between two runs")
+            else:
+                err = _values_vs_plain(label, kern, plain,
+                                       _abs_bound(a, b, stream), "nan", tol)
+            if cb.K3_LAUNCHES != before + 2:
+                raise AssertionError(f"{label}: not two launches")
+            y = kern()
+            for r in empty:
+                if bool(y[r * bsz:(r + 1) * bsz].any()):
+                    raise AssertionError(f"{label}: block row {r} of zero "
+                                         "blocks is not zero")
+            counted = cb.fused_issued_flops(a, b, **kw)
+            if counted != cb.fused_issued_model(a, k, compute_dtype=stream):
+                raise AssertionError(f"{label}: counted {counted}, not the "
+                                     "host model")
+            print(f"   {label}: {geo['tiles']} tiles on {geo['grid']} "
+                  f"thread blocks ({geo['blocks_per_sm']} an SM, "
+                  f"{geo['registers']} registers, {geo['local_bytes']} local "
+                  f"bytes a thread); max|kernel-plain| {err:.3e}; bitwise "
+                  "repeatable; zero rows zero; issued = host model",
+                  flush=True)
+            del a, b, y
+
+
+def _band_f64_vs_plain(rng):
+    """The band body's float64 kind (m16n8k8) at ragged shapes: K4's vote
+    route against its plain version within 1e-12 |A||B|, its kit route
+    bitwise the vote's with the vote's count (``_kit_vs_vote``), and K8 on
+    the same plan and tiles bitwise the vote's."""
+    from sparse_tpu_torch.ops import cuda_bell as cb
+    from sparse_tpu_torch.ops import cuda_dband
+
+    f64 = torch.float64
+    for nb, bsz, hb, rt, mw, k in ((130, 13, 1, 3, 128, 129),
+                                   (40, 24, 2, 3, 64, 31),
+                                   (130, 33, 1, 2, 128, 200),
+                                   (130, 3, 2, 7, 128, 1)):
+        cols, valid = _band_pattern(nb, hb, (nb // 2,))
+        a = _bell(cols, valid, bsz, f64, seed=nb * k + bsz)
+        b = torch.from_numpy(rng.standard_normal((a.n, k))).cuda()
+        kit = cb.bell_banded_prepare(a, row_tile=rt, max_window=mw,
+                                     slot_valid=valid)
+        plan, bound = kit.plan, _abs_bound(a, b, f64)
+        kw = dict(tiles=kit.tiles, compute_dtype=f64)
+        label = (f"K4 / K8 float64 nb={nb} bsz={bsz} rt={plan.rt} "
+                 f"W={plan.W} k={k}")
+        err, vote = _twice_vs_plain(
+            label, lambda: cb.bell_spmm_banded(a, b, plan, **kw),
+            lambda: cb.bell_spmm_banded_plain(a, b, plan, **kw), bound, f64)
+        _kit_vs_vote(f"{label} kit route", a, b, kit, None, bound, f64)
+        b3 = torch.cat([b.reshape(nb, bsz, k), b.new_zeros(plan.W, bsz, k)])
+        y = cuda_dband.dband_spmm(kit.tiles, plan.start, b3, nb, bsz, k,
+                                  plan.W, plan.rt, f64)
+        if not torch.equal(_bits(y), _bits(vote)):
+            raise AssertionError(f"{label}: K8 differs from K4's vote route")
+        print(f"   {label}: max|kernel-plain| {err:.3e}; kit route and K8 "
+              "bitwise the vote route's", flush=True)
 
 
 def _bench_bell(nb=None, bsz=None):
@@ -1753,7 +1883,9 @@ def phase9_bell_timing(card, m):
     K5 (a bf16 kit at k 32), each with a bf16 operand,
     the same way beside ``BSR @ B`` in bf16; then bell_spmm beside K6, and
     the chain.  The SM clock and power under K3's and K4's float32 kernels
-    (the band body's float32 map) are read beside their times."""
+    (the band body's float32 map) and K3's bf16 stream are read beside
+    their times, with K3's grid (``cuda_bell.fused_geometry``: tiles,
+    thread blocks, registers)."""
     import sparse_tpu_torch as pt
     from sparse_tpu_torch.formats.bell import BELL
     from sparse_tpu_torch.ops import cuda_bell as cb
@@ -1891,6 +2023,19 @@ def phase9_bell_timing(card, m):
     rec["issued_gflop"] = check_counted(
         "K3 bf16 stream", cb.fused_issued_flops(a, b_bf, **kw),
         cb.fused_issued_model(a, k, compute_dtype=bf16), useful) / 1e9
+    rec["sm_clock_power"] = _clock_line(
+        "K3 bf16 stream kernel", lambda: cb.bell_spmm_fused(a, b_bf, **kw),
+        card)
+    # K3's grid: bf16 walks its tiles on the resident thread blocks,
+    # float32 takes a thread block a tile
+    for kind, dt in (("float32", torch.float32), ("bf16", bf16)):
+        geo = cb.fused_geometry(nb, Lb, bsz, k, dt)
+        (out["K3"] if dt == torch.float32 else rec)["geometry"] = geo
+        print(f"   K3 {kind}: {geo['tiles']} tiles of "
+              f"{geo['chunks_per_tile']} chunks on {geo['grid']} thread "
+              f"blocks ({geo['blocks_per_sm']} an SM; walks: "
+              f"{geo['walks']}), {geo['registers']} registers and "
+              f"{geo['local_bytes']} local bytes a thread", flush=True)
     # K6's bf16 stream: bf16 blocks and a bf16 operand, a bf16 result
     a_bf = BELL(cols=a.cols, blocks=a.blocks.to(bf16), n=a.n, bsz=bsz)
     rec = out["K6"]["bf16_stream"] = bf16_stream_record(
@@ -4565,7 +4710,9 @@ def _phase21_bell(paths, m, dband, card):
     body on DMMA; K8 on phase 14's plan ``dband``) and K6 (the persistent
     body on DMMA), with their issued work, and of K5 at k 32 (the
     chunk-mask body, with its issued work and tile bytes) beside ``BSR @
-    B`` in float64; then K6 at bsz 128 in every kind
+    B`` in float64; the band body's kinds among them (K3's bf16x3 and the
+    float64 kinds of K3, K4 and K8) with the SM clock and power
+    ``nvidia-smi`` reads while each runs; then K6 at bsz 128 in every kind
     (``_phase21_k6_wide``).  Returns {kernel: {"bf16x3": record,
     "float64": record}}, K6's also with "bsz128": {kind: record}."""
     import sparse_tpu_torch as pt
@@ -4619,6 +4766,9 @@ def _phase21_bell(paths, m, dband, card):
             paths, label, kname, kern, plain, bound, torch.float32,
             vs_scipy(label, bh, BF16X3_TOL), split_cost(k), torch.bfloat16,
             lib, call)
+        if kname == "K3":  # K3's walk
+            out[kname]["bf16x3"]["sm_clock_power"] = _clock_line(
+                f"{label} kernel", kern, card)
     # the split's issued work on the band and persistent bodies: the
     # float32 stream's chunks and blocks
     useful = 2 * m["nnz"] * k
@@ -4677,6 +4827,9 @@ def _phase21_bell(paths, m, dband, card):
         out[kname]["float64"] = _phase21_kind(
             paths, label, kname, kern, plain, bound, f64,
             vs_scipy(label, bh, TOL[f64]), cost, f64, lib, call)
+        if kname != "K6":  # the band body's float64 on m16n8k8
+            out[kname]["float64"]["sm_clock_power"] = _clock_line(
+                f"{label} kernel", kern, card)
     out["K4"]["float64"]["issued_gflop"] = check_issued(
         "K4 float64", kit64.tiles, kit64.plan.start, b64, a.bsz,
         useful) / 1e9
@@ -4704,6 +4857,8 @@ def _phase21_bell(paths, m, dband, card):
     out["K8"]["float64"]["issued_gflop"] = check_issued(
         "K8 float64", tiles64, plan.start, b3.reshape(-1, k), bsz,
         useful) / 1e9
+    out["K8"]["float64"]["sm_clock_power"] = _clock_line(
+        f"{label} kernel", lambda: cuda_dband.dband_spmm(*args), card)
     kit_beside("K4-kit float64", out["K4-kit"]["float64"], card, **{
         "K4 (vote body, the kit's tiles)": lambda: cb.bell_spmm_banded(
             a64, b64, kit64.plan, tiles=kit64.tiles),

@@ -6,14 +6,20 @@
 // (DenseTile: K4/K8's densified tile and operand window; WideRow: K3's
 // block row [A_r0 | ... | A_r,Lb-1] and the operand panels its slots name).
 //
-// One thread block owns 32 output rows and 128 output columns.  The
-// contraction runs in 32-index chunks through a ring in shared memory filled
-// by cp.async: A kAhead chunks ahead, B one chunk (kVote) ahead.  Once a
-// chunk of A has landed the block takes one vote (__syncthreads_or, the
-// loop's only barrier): a chunk that is zero throughout skips its B copy and
-// its multiply-adds.  The vote reads A only, so the result stays bitwise
+// A tile is 32 output rows and 128 output columns.  Its contraction runs in
+// 32-index chunks through a ring in shared memory filled by cp.async: A
+// kAhead chunks ahead, B one chunk (kVote) ahead.  Once a chunk of A has
+// landed the block takes one vote (__syncthreads_or, the loop's only
+// barrier): a chunk that is zero throughout skips its B copy and its
+// multiply-adds.  The vote reads A only, so the result stays bitwise
 // repeatable, and reads magnitude bits, so a NaN stored in A counts as
-// non-zero and -0 does not.  Float32: each thread keeps an 8x4 register tile
+// non-zero and -0 does not.  K4 and K8, and K3 in float32 and int32, run a
+// tile a thread block (run, run_masked).  K3's bf16, bf16x3 and float64
+// kinds (run_tiles) launch at most the thread blocks resident at once,
+// each walking its tiles in order with one ring across them, so that the
+// next tile's first chunks are in flight while the last chunk of the
+// current one multiplies (bell_spmm.cu's kWalks says which kinds, and why).
+// Float32: each thread keeps an 8x4 register tile
 // fed by 16-byte shared loads, A's as warp-wide broadcasts, in full float32
 // (no TF32): 8 shared-memory cycles per 32 FFMA instructions of a warp,
 // the fewest a 32-accumulator map can cost (mma_chunk).  int32 (A, B and C
@@ -29,13 +35,18 @@
 // dropped), as sparse_tpu/ops/pallas_bell.py::_dot_bf16x3 defines them
 // (split_chunk, which K5's bf16x3 kind in bell_banded.cu and K6's in
 // block_body.cuh share).  float64 (A, B and C float64): the same ring and
-// vote on 64-bit words, each warp's 32 x 32 piece on DMMA (mma.sync
-// m8n8k4) from swizzled stages (dmma_chunk, which K5's float64 kind
-// shares).  Copies are 16-byte vectors (VEC), or one element at a time
-// where a shape or a pointer's alignment does not allow them.  Every output
-// is written once, after one fixed-order loop: no atomics on the output.
-// With a counter, each thread block adds the multiply-adds of the chunks its
-// vote kept, at their full size (once for bf16x3: the useful products).
+// vote on 64-bit words, each warp's 32 x 32 piece on Hopper's DMMA
+// (mma.sync m16n8k8, 32 instructions a warp a chunk where Ampere's m8n8k4
+// takes 128: K3's multiply-adds alone took 0.44-0.46 ms at bell-band-80M
+// where m8n8k4's took 0.69, on an H100 SXM at 700 W, tools/k3_probe.py)
+// from swizzled stages; dmma_chunk, m8n8k4 on the same stages, stays for
+// K5's and K6's float64 kinds.  Copies are 16-byte vectors (VEC), or one
+// element at a time where a shape or a pointer's alignment does not allow
+// them.  Every output
+// is written once, after its tile's fixed-order loop: no atomics on the
+// output.  With a counter, each thread block adds the multiply-adds of the
+// chunks its vote kept, at their full size (once for bf16x3: the useful
+// products).
 
 #pragma once
 
@@ -45,6 +56,7 @@
 #include <type_traits>
 
 #include "sm90_async.cuh"
+#include "sm90_tma.cuh"
 
 namespace band {
 
@@ -173,18 +185,20 @@ struct Cfg<Split> {
     return split_b_at<kBPitch>(kk, c);
   }
 };
-// float64 on DMMA (mma.sync m8n8k4), C in float64.  A fragment read takes
-// one double a lane: A's rows g = 0..7 of an 8-row tile at columns t =
-// 0..3, B's rows t at columns g.  Unpadded rows (32 and 128 doubles) would
-// put 4 lanes of a half warp on one bank, so a row's columns are swizzled:
-// A's row i at c ^ 4 * (i % 8), B's row kk at c ^ 4 * (kk % 4)
-// (dmma_a_at, dmma_b_at).  Each half warp then meets 32 banks, and 16-byte
-// cp.async vectors (column pairs) stay whole.  K5's float64 kind
-// (bell_banded.cu) stages its operand and tile chunks in the same layouts.
-// A stage is 8 KB of A and 32 KB of B: 96 KB at 4 A and 2 B stages, two
-// thread blocks an SM (on an H100 at bell-band-80M, k 128, a vote two
-// chunks ahead at one block an SM took 1.5x as long, A three chunks ahead
-// and streaming stores of C no less).
+// float64 on DMMA, C in float64.  A fragment read takes one double a lane
+// (lane 4g + t): for m16n8k8 A's rows g and g + 8 of a 16-row tile at
+// columns t and t + 4, B's rows t and t + 4 at column g; for m8n8k4 (K5's
+// and K6's dmma_chunk) A's row g at column t, B's row t at column g.
+// Unpadded rows (32 and 128 doubles) would put 4 lanes of a half warp on
+// one bank, so a row's columns are swizzled: A's row i at c ^ 4 * (i % 8),
+// B's row kk at c ^ 4 * (kk % 4) (dmma_a_at, dmma_b_at).  Rows g and g + 8
+// share i % 8, and rows t and t + 4 share kk % 4, so every fragment read of
+// either shape meets 32 banks a half warp, and 16-byte cp.async vectors
+// (column pairs) stay whole.  K5's float64 kind (bell_banded.cu) stages its
+// operand and tile chunks in the same layouts.  A stage is 8 KB of A and 32
+// KB of B: 96 KB at 4 A and 2 B stages, two thread blocks an SM (on an H100
+// at bell-band-80M, k 128, a vote two chunks ahead at one block an SM took
+// 1.5x as long, A three chunks ahead and streaming stores of C no less).
 __device__ __forceinline__ int dmma_a_at(int i, int c) {
   return i * 32 + (c ^ ((i & 7) << 2));  // rows of 32 doubles
 }
@@ -197,7 +211,7 @@ struct Cfg<double> {
   using T = double;
   using Out = double;
   using Bits = unsigned long long;
-  using Acc = double[4][4][2];          // 4 m8 x 4 n8 DMMA tiles per warp
+  using Acc = double[2][4][4];          // 2 m16 x 4 n8 DMMA tiles per warp
   static constexpr int kBK = 32;
   static constexpr int kAPitch = kBK;
   static constexpr int kBPitch = kBN;
@@ -312,6 +326,23 @@ struct WideRow {
   __device__ __forceinline__ bool b_has(int kk) const { return kk < K; }
   __device__ __forceinline__ const T* a_any() const { return blk; }
   __device__ __forceinline__ const T* b_any() const { return b; }
+};
+
+// K3's outputs for run_tiles: output r is block row r, read through its
+// WideRow; prefetch(r) asks for the row's column ids in L1.
+template <typename T>
+struct WideRows {
+  const T* blocks;
+  const int* cols;
+  const T* b;
+  int Lb, bsz, N;
+  __device__ __forceinline__ WideRow<T> at(int r) const {
+    const long long l = static_cast<long long>(r) * Lb;
+    return {blocks + l * bsz * bsz, cols + l, b, bsz, Lb * bsz, N};
+  }
+  __device__ __forceinline__ void prefetch(int r) const {
+    sm90::prefetch_l1(cols + static_cast<long long>(r) * Lb);
+  }
 };
 
 // -- copies -------------------------------------------------------------------
@@ -626,11 +657,34 @@ __device__ __forceinline__ void dmma_chunk(const double* sa, const double* sb,
   }
 }
 
-// The same for the band body's float64 kind: warp w owns all 32 rows and
-// columns 32w .. 32w+31.
+// The same for the band body's float64 kind on Hopper's m16n8k8 DMMA: warp
+// w owns all 32 rows and columns 32w .. 32w+31 as 2 m16 x 4 n8 tiles.  Per
+// 8-index step each lane reads its four A doubles of both m16 tiles, then
+// for each n8 tile its two B doubles and issues the tile's two products;
+// the steps run in index order, as dmma_chunk's do.
 __device__ __forceinline__ void mma_chunk(const double* sa, const double* sb,
-                                          double (&acc)[4][4][2]) {
-  dmma_chunk<Cfg<double>::kBPitch>(sa, sb, (threadIdx.x / 32) * 32, acc);
+                                          double (&acc)[2][4][4]) {
+  constexpr int kPB = Cfg<double>::kBPitch;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, n0 = (threadIdx.x / 32) * 32;
+#pragma unroll
+  for (int ks = 0; ks < 32; ks += 8) {
+    double a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)  // rows g (+8 for odd r), column t (+4)
+        a[mt][r] = sa[dmma_a_at(mt * 16 + g + (r & 1) * 8,
+                                ks + t + (r >> 1) * 4)];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = n0 + nt * 8 + g;
+      const double b[2] = {sb[dmma_b_at<kPB>(ks + t, n)],
+                           sb[dmma_b_at<kPB>(ks + t + 4, n)]};
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) sm90::mma_f64_16808(acc[mt][nt], a[mt], b);
+    }
+  }
 }
 
 // -- output -------------------------------------------------------------------
@@ -690,28 +744,43 @@ __device__ __forceinline__ void store(const float (&acc)[2][4][4], float* c,
     }
 }
 
-// The float64 kind's C from the DMMA layout: lane l holds columns 8nt +
-// 2(l%4) .. +1 of row 8mt + l/4 of the warp's 32 columns.
+// The float64 kind's C from the m16n8k8 layout: lane l holds columns 8nt +
+// 2(l%4) .. +1 of rows 16mt + l/4 and 16mt + l/4 + 8 of the warp's 32
+// columns.
 template <bool VEC>
-__device__ __forceinline__ void store(const double (&acc)[4][4][2], double* c,
+__device__ __forceinline__ void store(const double (&acc)[2][4][4], double* c,
                                       int M, int N, int m0, int n0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const int gi = m0 + mt * 8 + lane / 4;
-    if (gi >= M) continue;
-    double* row = c + gi * N;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int gn = n0 + warp * 32 + nt * 8 + (lane % 4) * 2;
-      const double x = acc[mt][nt][0], y = acc[mt][nt][1];
-      if constexpr (VEC) {
-        if (gn < N) *reinterpret_cast<double2*>(row + gn) = make_double2(x, y);
-      } else {
-        if (gn < N) row[gn] = x;
-        if (gn + 1 < N) row[gn + 1] = y;
+    for (int h = 0; h < 2; ++h) {
+      const int gi = m0 + mt * 16 + lane / 4 + h * 8;
+      if (gi >= M) continue;
+      double* row = c + gi * N;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int gn = n0 + warp * 32 + nt * 8 + (lane % 4) * 2;
+        const double x = acc[mt][nt][2 * h], y = acc[mt][nt][2 * h + 1];
+        if constexpr (VEC) {
+          if (gn < N)
+            *reinterpret_cast<double2*>(row + gn) = make_double2(x, y);
+        } else {
+          if (gn < N) row[gn] = x;
+          if (gn + 1 < N) row[gn + 1] = y;
+        }
       }
     }
+}
+
+// Sets every accumulator of a register tile (any kind's Acc) to zero.
+template <typename A>
+__device__ __forceinline__ void zero(A& acc) {
+  if constexpr (std::is_array_v<A>) {
+#pragma unroll
+    for (int i = 0; i < static_cast<int>(std::extent_v<A>); ++i) zero(acc[i]);
+  } else {
+    acc = A(0);
   }
 }
 
@@ -774,6 +843,136 @@ __device__ __forceinline__ void run(const P& p, typename Cfg<S>::Out* c,
   sm90::cp_async_wait<0>();
   store<VEC>(acc, c, M, N, m0, n0);
   // each kept chunk at its full size, padding rows and columns included
+  if (issued != nullptr && threadIdx.x == 0 && kept > 0)
+    atomicAdd(issued, static_cast<unsigned long long>(kept) * kBM * kBK * kBN);
+}
+
+// run over many outputs, each (M, N) row-major, output r at c + r * M * N
+// = A_r @ B_r over its contraction K, read through the policy w.at(r) (a
+// WideRows): the thread block walks the tiles blockIdx.x, + gridDim.x, ...
+// in order (tile t: output t / (mb * nb), then its 32-row block, then its
+// 128-column block fastest, for mb 32-row and nb 128-column blocks an
+// output) with one ring.  The chunk counter, the stages and the vote's
+// queue run on across tiles, so the next tile's first A chunks and its
+// vote are in flight while the current tile's last chunk multiplies; a
+// tile's accumulators are stored once after its last chunk, then zeroed.
+// Each tile multiplies run's chunks in run's order, so C and the issued
+// count are run's.  A tile of K = 0 walks one chunk of zeros, so that it
+// stores zeros.  The launcher keeps the tiles and a thread block's steps
+// (its tiles times the chunks a tile) under 2^31 - 8.
+template <typename S, bool VEC, class W>
+__device__ __forceinline__ void run_tiles(const W& w, typename Cfg<S>::Out* c,
+                                          int outputs, int M, int K, int N,
+                                          unsigned long long* issued) {
+  using Cf = Cfg<S>;
+  using T = typename Cf::T;
+  constexpr int kVote = Cf::kVote, kAhead = Cf::kAhead, kBK = Cf::kBK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sa = reinterpret_cast<T*>(smem);
+  T* sb = sa + Cf::kAStages * kBM * Cf::kAPitch;
+  const int nc = K > 0 ? (K + kBK - 1) / kBK : 1;  // chunks a tile
+  const unsigned mb = (M + kBM - 1) / kBM, nb = (N + kBN - 1) / kBN;
+  const unsigned tiles = static_cast<unsigned>(outputs) * mb * nb;
+  if (blockIdx.x >= tiles) return;
+  const int ns =  // steps: this block's tiles times nc
+      static_cast<int>((tiles - blockIdx.x + gridDim.x - 1) / gridDim.x) * nc;
+  auto stage_a = [&](int it) {
+    return sa + (it % Cf::kAStages) * kBM * Cf::kAPitch;
+  };
+  auto stage_b = [&](int it) {
+    return sb + (it % Cf::kBStages) * kBK * Cf::kBPitch;
+  };
+  // a position of the pipeline: chunk ch of tile t, whose output is r and
+  // whose block starts at row m0, column n0 (decoded once a tile)
+  struct Pos {
+    int ch;
+    unsigned t;
+    int r, m0, n0;
+  };
+  auto decode = [&](Pos& q) {
+    q.n0 = static_cast<int>(q.t % nb) * kBN;
+    const unsigned rest = q.t / nb;
+    q.m0 = static_cast<int>(rest % mb) * kBM;
+    q.r = static_cast<int>(rest / mb);
+  };
+  auto next = [&](Pos& q) {  // whether q enters a new tile
+    if (++q.ch < nc) return false;
+    q.ch = 0;
+    q.t += gridDim.x;
+    decode(q);
+    return true;
+  };
+  // the column ids of tile t's output into L1, a tile before the copies
+  // that read them
+  auto prefetch = [&](unsigned t) {
+    if (threadIdx.x != 0 || t >= tiles) return;
+    Pos q{0, t, 0, 0, 0};
+    decode(q);
+    w.prefetch(q.r);
+  };
+  Pos ca{0, blockIdx.x, 0, 0, 0};  // the next A copy
+  Pos cv = ca;                     // the next vote and B copy
+  decode(ca);
+  decode(cv);
+  prefetch(blockIdx.x);
+  prefetch(blockIdx.x + gridDim.x);
+  typename Cf::Acc acc;
+  zero(acc);
+  // Step it votes on step it + kVote and copies its B, then copies
+  // A(it + kAheadW), then multiplies step it.  Its A copy comes after the
+  // step's barrier, so it may take the stage of step it - 1, read before
+  // that barrier: A runs one step further ahead than run's, in as many
+  // stages.  Two cp.async groups a step, B's then A's (empty where there is
+  // nothing to copy), so the wait before a vote leaves in flight only what
+  // is younger than B(it) and A(it + kVote): A has two steps to land, B
+  // kVote.
+  constexpr int kAheadW = kAhead + 1;
+  static_assert(Cf::kAStages == kAheadW + 1, "A's stages hold the ring");
+  constexpr int kWait = 2 * kVote - 1 < 2 * (kAheadW - kVote - 1)
+                            ? 2 * kVote - 1 : 2 * (kAheadW - kVote - 1);
+  unsigned nzq = 0;  // bit i: step it + i is non-zero
+  int kept = 0;      // chunks multiplied
+  int it = -kAheadW;
+  auto copies = [&] {  // step it's vote and copies
+    if (it + kVote >= 0) {
+      sm90::cp_async_wait<kWait>();
+      const bool live = it + kVote < ns;
+      const bool nz = __syncthreads_or(
+          live && mine_nonzero<S, VEC>(stage_a(it + kVote)));
+      if (nz)
+        load_b<S, VEC>(stage_b(it + kVote), w.at(cv.r), N, cv.ch * kBK,
+                       cv.n0);
+      nzq |= static_cast<unsigned>(nz) << kVote;
+      if (live) next(cv);
+    }
+    sm90::cp_async_commit();
+    if (it + kAheadW < ns) {
+      load_a<S, VEC>(stage_a(it + kAheadW), w.at(ca.r), M, K, ca.m0,
+                     ca.ch * kBK);
+      if (next(ca) && ca.t < tiles) prefetch(ca.t + gridDim.x);
+    }
+    sm90::cp_async_commit();
+  };
+  for (; it < 0; ++it) {  // the first copies
+    copies();
+    nzq >>= 1;
+  }
+  for (unsigned t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int ch = 0; ch < nc; ++ch, ++it) {
+      copies();
+      if (nzq & 1u) {
+        mma_chunk(stage_a(it), stage_b(it), acc);
+        ++kept;
+      }
+      nzq >>= 1;
+    }
+    Pos q{0, t, 0, 0, 0};
+    decode(q);
+    store<VEC>(acc, c + static_cast<long long>(q.r) * M * N, M, N, q.m0,
+               q.n0);
+    zero(acc);
+  }
+  sm90::cp_async_wait<0>();
   if (issued != nullptr && threadIdx.x == 0 && kept > 0)
     atomicAdd(issued, static_cast<unsigned long long>(kept) * kBM * kBK * kBN);
 }

@@ -37,12 +37,16 @@
 // splits each pair of fragments into three bf16 products on mma.sync (3 x
 // 20.5 GFLOP at the bench band, a small share of the tensor cores' rate);
 // its floor is the 768 MB of float32 tiles it must read to vote on them
-// (>= 0.23 ms).  float64 votes on 64-bit words and multiplies on DMMA
-// (mma.sync m8n8k4, twice the card's DFMA rate), C in float64: its floor is
-// the 1536 MB of float64 tiles it reads to vote (>= 0.46 ms) and the 512
-// MB output; the 20.5 GFLOP useful take >= 0.31 ms of the FP64 tensor
-// cores.  bell_banded_issued launches the same body with a counter on the
-// card: what the skip saves is measured.
+// (>= 0.23 ms).  float64 votes on 64-bit words and multiplies on Hopper's
+// m16n8k8 DMMA (the FP64 tensor cores, 67 TFLOP/s on the data sheet, twice
+// the DFMA rate; a quarter of Ampere's m8n8k4 instructions, under which
+// the vote route took 1.08 ms at the bench band and the kit route 0.88,
+// where m16n8k8 takes 0.96 and 0.70 on an H100 SXM at 700 W), C in
+// float64: its floor is the 1536 MB of float64 tiles it reads to vote, the
+// 512 MB operand and the 512 MB output (>= 0.76 ms); the 20.5 GFLOP useful
+// take >= 0.31 ms of the FP64 tensor cores.  bell_banded_issued launches
+// the same body with a counter on the card: what the skip saves is
+// measured.
 //
 // K4 on a kit (bell_spmm(plan=kit)): to find the zero chunks, the vote
 // reads every chunk of the densified tiles, 2.4x the non-zero ones at the
@@ -192,25 +196,11 @@ cudaError_t band_kinds(int kind, const void* tiles, const void* start,
                        long long ntiles, long long M, long long K, long long N,
                        long long bsz, long long b_rows,
                        unsigned long long* issued, void* stream) {
-  switch (kind) {
-    case kF32:
-      return launch_band<float>(tiles, start, mask, b, c, ntiles, M, K, N,
-                                bsz, b_rows, issued, stream);
-    case kI32:
-      return launch_band<int>(tiles, start, mask, b, c, ntiles, M, K, N, bsz,
-                              b_rows, issued, stream);
-    case kF32Split:
-      return launch_band<band::Split>(tiles, start, mask, b, c, ntiles, M, K,
-                                      N, bsz, b_rows, issued, stream);
-    case kBF16:
-      return launch_band<__nv_bfloat16>(tiles, start, mask, b, c, ntiles, M,
-                                        K, N, bsz, b_rows, issued, stream);
-    case kF64:
-      return launch_band<double>(tiles, start, mask, b, c, ntiles, M, K, N,
-                                 bsz, b_rows, issued, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_kind(kind, [&](auto s) {
+    return launch_band<typename decltype(s)::type>(
+        tiles, start, mask, b, c, ntiles, M, K, N, bsz, b_rows, issued,
+        stream);
+  });
 }
 
 // -- K5 ----------------------------------------------------------------------
@@ -766,27 +756,11 @@ cudaError_t band_t_kinds(int kind, const void* tiles_t, const void* start,
                          long long ntiles, long long M, long long K,
                          long long N, long long bsz, long long bt_cols,
                          unsigned long long* counts, void* stream) {
-  switch (kind) {
-    case kF32:
-      return band_t::launch<float>(tiles_t, start, mask, bt, ct, ntiles, M,
-                                   K, N, bsz, bt_cols, counts, stream);
-    case kI32:
-      return band_t::launch<int>(tiles_t, start, mask, bt, ct, ntiles, M, K,
-                                 N, bsz, bt_cols, counts, stream);
-    case kF32Split:
-      return band_t::launch<band::Split>(tiles_t, start, mask, bt, ct,
-                                         ntiles, M, K, N, bsz, bt_cols,
-                                         counts, stream);
-    case kBF16:
-      return band_t::launch<__nv_bfloat16>(tiles_t, start, mask, bt, ct,
-                                           ntiles, M, K, N, bsz, bt_cols,
-                                           counts, stream);
-    case kF64:
-      return band_t::launch<double>(tiles_t, start, mask, bt, ct, ntiles, M,
-                                    K, N, bsz, bt_cols, counts, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_kind(kind, [&](auto s) {
+    return band_t::launch<typename decltype(s)::type>(
+        tiles_t, start, mask, bt, ct, ntiles, M, K, N, bsz, bt_cols, counts,
+        stream);
+  });
 }
 
 }  // namespace

@@ -16,26 +16,30 @@
 // sheet; full float32 is the contract, no TF32) — arithmetic-bound, not
 // stream-bound.  The int32 kinds run the float32 tiling with integer
 // multiply-adds, which Hopper issues at half the float32 rate (64 INT32
-// lanes an SM against 128 FP32).  float64 runs on DMMA (67 TFLOP/s), where
-// its bytes, twice float32's, bind it.
+// lanes an SM against 128 FP32).  float64 runs on the FP64 tensor cores
+// (67 TFLOP/s), where its bytes, twice float32's, bind it: at bell-band-80M
+// its copies alone (the blocks, and operand chunks that cross the L2 once
+// for each stored block) took 0.76 ms and its multiply-adds alone 0.45 on
+// an H100 SXM at 700 W (tools/k3_probe.py).
 //
 // What the design does about it: the TPU's DMA gathers become loads of the
 // block's panel rows inside the kernel (no gathered intermediate in device
 // memory, as on the TPU).  Every kind of K3 runs the body of band_body.cuh
-// (K4's) on each block row's wide row: 32 output rows x 128 columns per
-// thread block, 32-index contraction chunks (one stored block at bsz 32), a
+// (K4's) on each block row's wide row: tiles of 32 output rows x 128
+// columns, 32-index contraction chunks (one stored block at bsz 32), a
 // cp.async ring (A ahead, B one chunk ahead), one __syncthreads_or vote per
 // chunk so the zero blocks of padding slots skip their operand copy and
 // their multiply-adds, 8x4 float32 register tiles (8 shared-memory cycles
-// per 32 FFMA of a warp; int32 on the same map), bf16 on
-// mma.sync, bf16x3 as three bf16 mma.sync products a float32 fragment pair,
-// float64 on DMMA (mma.sync m8n8k4) from swizzled stages.  Each chunk
-// resolves its block and column id once, and the row's column ids are
-// prefetched into L1 at the start: a division and a column load per
-// element cost float32
-// 1.94 ms at the bench shape on an H100 (PERF.md), once per copied operand
-// row 0.83 ms, once per chunk 0.70.  bell_fused_issued counts the
-// multiply-adds the vote kept.
+// per 32 FFMA of a warp; int32 on the same map), bf16 on mma.sync, bf16x3
+// as three bf16 mma.sync products a float32 fragment pair, float64 on
+// Hopper's m16n8k8 DMMA from swizzled stages.  bf16, bf16x3 and float64
+// walk their tiles on the resident thread blocks with one ring each
+// (kWalks below); float32 and int32 take a thread block a tile.  Each
+// chunk resolves its block and column id once, and a tile's column ids are
+// prefetched into L1 (a tile ahead where the kind walks): a division and a
+// column load per element cost float32 1.94 ms at the bench shape on an
+// H100 (PERF.md), once per copied operand row 0.83 ms, once per chunk 0.70.
+// bell_fused_issued counts the multiply-adds the vote kept.
 //
 // Every kind of K6 at bsz <= 64 (float64: 32) runs the persistent body of
 // block_body.cuh:
@@ -45,9 +49,9 @@
 // block skips its panel and its multiply-adds), 8x8 float32 register tiles
 // (int32: the same tiles in unsigned), bf16 on mma.sync, bf16x3 as three
 // bf16 mma.sync products a float32 fragment pair (band_body.cuh's
-// split_chunk), float64 on DMMA (band_body.cuh's dmma_chunk).  Past bsz 64,
-// where a stored block no longer fits the persistent body's stages, K6's
-// float32, bf16, bf16x3 and float64 kinds run the wide-block body of
+// split_chunk), float64 on m8n8k4 DMMA (band_body.cuh's dmma_chunk).  Past
+// bsz 64, where a stored block no longer fits the persistent body's stages,
+// K6's float32, bf16, bf16x3 and float64 kinds run the wide-block body of
 // wide_body.cuh where TMA can describe the arrays (bsz and k times the
 // element size multiples of 16 bytes): one thread block an SM walks tiles
 // of up to 128 rows of a block row x 128 columns (float64: 64), fed by a
@@ -78,32 +82,114 @@
 
 namespace {
 
+// Whether K3's kind S walks its tiles on the resident thread blocks with
+// one ring (band::run_tiles) or launches a thread block a tile (band::run).
+// On an H100 SXM at 700 W at bell-band-80M, in turns against band::run's
+// kernel (same m16n8k8 multiply, bits equal, tools/k3_probe.py's "run"),
+// the walk took float64 0.94-0.95 ms against 1.01, the bf16 kernel
+// 0.279-0.281 against 0.281-0.286 and bf16x3 0.540-0.553 against
+// 0.555-0.565; float32 took 2% longer walking and int32 6.5% (11.5% at bsz
+// 128, where K6 runs this kernel), so those two keep a thread block a tile.
+template <typename S>
+constexpr bool kWalks =
+    !std::is_same<S, float>::value && !std::is_same<S, int>::value;
+
 // K3, and K6 past bsz 64: blocks (nb, Lb, bsz, bsz) and b (nb*bsz, k) in
 // the stream kind S's element type, C (nb*bsz, k) in Cfg<S>::Out (float32;
-// float64 for float64, int32 for int32).
-// Block (block row, 32-row block, 128-column block), column blocks fastest.
+// float64 for float64, int32 for int32).  Tiles (block row, 32-row block,
+// 128-column block), column blocks fastest: walked by each thread block,
+// blockIdx.x, + gridDim.x, ..., where kWalks<S>, else tile blockIdx.x.
 template <typename S, bool VEC>
 __global__ void __launch_bounds__(band::kThreads, band::Cfg<S>::kMinBlocks)
     fused_band_kernel(const typename band::Cfg<S>::T* __restrict__ blocks,
                       const int* __restrict__ cols,
                       const typename band::Cfg<S>::T* __restrict__ b,
-                      typename band::Cfg<S>::Out* __restrict__ c, int Lb,
-                      int bsz, int k, unsigned long long* __restrict__ issued) {
+                      typename band::Cfg<S>::Out* __restrict__ c, int nb,
+                      int Lb, int bsz, int k,
+                      unsigned long long* __restrict__ issued) {
   using T = typename band::Cfg<S>::T;
-  const int n_blocks = (k + band::kBN - 1) / band::kBN;
-  const int m_blocks = (bsz + band::kBM - 1) / band::kBM;
-  long long bid = blockIdx.x;
-  const int n0 = static_cast<int>(bid % n_blocks) * band::kBN;
-  bid /= n_blocks;
-  const int m0 = static_cast<int>(bid % m_blocks) * band::kBM;
-  const long long r = bid / m_blocks;
-  const int K = Lb * bsz;
-  const band::WideRow<T> p{blocks + r * Lb * bsz * bsz, cols + r * Lb, b,
-                           bsz, K, k};
-  // the row's column ids into L1 while A's first chunks are copied: the
-  // first operand copy waits on them
-  if (threadIdx.x == 0) sm90::prefetch_l1(cols + r * Lb);
-  band::run<S, VEC>(p, c + r * bsz * k, bsz, K, k, m0, n0, issued);
+  if constexpr (kWalks<S>) {
+    const band::WideRows<T> w{blocks, cols, b, Lb, bsz, k};
+    band::run_tiles<S, VEC>(w, c, nb, bsz, Lb * bsz, k, issued);
+  } else {
+    const int n_blocks = (k + band::kBN - 1) / band::kBN;
+    const int m_blocks = (bsz + band::kBM - 1) / band::kBM;
+    long long bid = blockIdx.x;
+    const int n0 = static_cast<int>(bid % n_blocks) * band::kBN;
+    bid /= n_blocks;
+    const int m0 = static_cast<int>(bid % m_blocks) * band::kBM;
+    const long long r = bid / m_blocks;
+    const int K = Lb * bsz;
+    const band::WideRow<T> p{blocks + r * Lb * bsz * bsz, cols + r * Lb, b,
+                             bsz, K, k};
+    // the row's column ids into L1 while A's first chunks are copied: the
+    // first operand copy waits on them
+    if (threadIdx.x == 0) sm90::prefetch_l1(cols + r * Lb);
+    band::run<S, VEC>(p, c + r * bsz * k, bsz, K, k, m0, n0, issued);
+  }
+}
+
+// The grid of fused_band_kernel<S, VEC> over `tiles` tiles of nc chunks
+// each: where kWalks<S>, the thread blocks resident at once on the current
+// device (its SMs times the kernel's blocks an SM, from the occupancy call,
+// read once), no more than the tiles, and enough that no thread block
+// walks more than 2^31 - 8 steps; else the tiles.  Gives the blocks an SM
+// where per_sm_out is not null; a kind that does not walk asks the device
+// nothing else.
+template <typename S, bool VEC>
+cudaError_t fused_grid(long long tiles, long long nc, long long* grid,
+                       int* per_sm_out) {
+  constexpr long long kMax = 0x7fffffffLL;
+  auto kern = fused_band_kernel<S, VEC>;
+  constexpr int smem = band::smem_bytes<S>();
+  cudaError_t rc = band::allow_smem<smem>(kern);
+  if (rc != cudaSuccess) return rc;
+  *grid = tiles;
+  if (!kWalks<S> && per_sm_out == nullptr) return cudaSuccess;
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                       band::kThreads, smem);
+    if (rc != cudaSuccess) return rc;
+    if (per_sm < 1) per_sm = 1;
+  }
+  if (per_sm_out != nullptr) *per_sm_out = per_sm;
+  if (!kWalks<S>) return cudaSuccess;
+  int dev = 0, sms = 0;
+  rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return rc;
+  const long long cap = static_cast<long long>(sms) * per_sm;
+  long long g = tiles < cap ? tiles : cap;
+  const long long most = (kMax - 8) / nc;  // tiles a thread block may walk
+  if ((tiles + g - 1) / g > most) g = (tiles + most - 1) / most;
+  *grid = g;
+  return cudaSuccess;
+}
+
+// The tiles and chunks a tile of K3's walk, or an error where the kernel
+// cannot index the shape (32-bit index math inside a block row's blocks
+// and its output, at most 2^31 - 1 tiles).
+inline cudaError_t fused_shape(long long nb, long long Lb, long long bsz,
+                               long long k, long long* tiles, long long* nc) {
+  using band::kBM;
+  using band::kBN;
+  constexpr long long kMax = 0x7fffffffLL;
+  if (Lb < 0 || Lb * bsz * bsz > kMax || bsz * k > kMax)
+    return cudaErrorInvalidValue;
+  *tiles = nb * ((bsz + kBM - 1) / kBM) * ((k + kBN - 1) / kBN);
+  if (*tiles > kMax) return cudaErrorInvalidConfiguration;
+  *nc = Lb > 0 ? (Lb * bsz + 31) / 32 : 1;  // band_body.cuh's kBK
+  return cudaSuccess;
+}
+
+// 16-byte copies: a vector of the wide row stays inside one block, and
+// operand rows are whole vectors.
+template <typename S>
+bool fused_vec(long long bsz, long long k) {
+  constexpr long long V = 16 / sizeof(typename band::Cfg<S>::T);
+  return bsz % V == 0 && k % V == 0;
 }
 
 template <typename S>
@@ -111,31 +197,56 @@ cudaError_t launch_fused_band(const void* blocks, const void* cols,
                               const void* b, void* c, long long nb,
                               long long Lb, long long bsz, long long k,
                               unsigned long long* issued, void* stream) {
-  using band::kBM;
-  using band::kBN;
   using T = typename band::Cfg<S>::T;
-  constexpr long long kMax = 0x7fffffffLL;
   if (nb <= 0 || bsz <= 0 || k <= 0) return cudaSuccess;
-  // 32-bit index math inside a block row's blocks and its output
-  if (Lb * bsz * bsz > kMax || bsz * k > kMax) return cudaErrorInvalidValue;
-  const long long grid = nb * ((bsz + kBM - 1) / kBM) * ((k + kBN - 1) / kBN);
-  if (grid > kMax) return cudaErrorInvalidConfiguration;
-  constexpr long long V = 16 / sizeof(T);
-  // 16-byte copies: a vector of the wide row stays inside one block, and
-  // operand rows are whole vectors
-  const bool vec = bsz % V == 0 && k % V == 0 && band::aligned16(blocks) &&
-                   band::aligned16(b) && band::aligned16(c);
-  auto kern = vec ? fused_band_kernel<S, true> : fused_band_kernel<S, false>;
-  constexpr int smem = band::smem_bytes<S>();
-  const cudaError_t rc = band::allow_smem<smem>(kern);
+  long long tiles = 0, nc = 0, grid = 0;
+  cudaError_t rc = fused_shape(nb, Lb, bsz, k, &tiles, &nc);
   if (rc != cudaSuccess) return rc;
-  kern<<<static_cast<unsigned>(grid), band::kThreads, smem,
+  const bool vec = fused_vec<S>(bsz, k) && band::aligned16(blocks) &&
+                   band::aligned16(b) && band::aligned16(c);
+  rc = vec ? fused_grid<S, true>(tiles, nc, &grid, nullptr)
+           : fused_grid<S, false>(tiles, nc, &grid, nullptr);
+  if (rc != cudaSuccess) return rc;
+  auto kern = vec ? fused_band_kernel<S, true> : fused_band_kernel<S, false>;
+  kern<<<static_cast<unsigned>(grid), band::kThreads, band::smem_bytes<S>(),
          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(blocks), static_cast<const int*>(cols),
       static_cast<const T*>(b), static_cast<typename band::Cfg<S>::Out*>(c),
-      static_cast<int>(Lb), static_cast<int>(bsz), static_cast<int>(k),
-      issued);
+      static_cast<int>(nb), static_cast<int>(Lb), static_cast<int>(bsz),
+      static_cast<int>(k), issued);
   return cudaGetLastError();
+}
+
+// K3's launched geometry for (nb, Lb, bsz, k), 16-byte aligned arrays:
+// out[0..7] = registers and local (spilled) bytes a thread, dynamic shared
+// bytes a block, resident blocks an SM, tiles, thread blocks launched,
+// chunks a tile and whether the kind walks its tiles, on the current
+// device.
+template <typename S>
+cudaError_t fused_geometry(long long nb, long long Lb, long long bsz,
+                           long long k, int* out) {
+  if (nb <= 0 || bsz <= 0 || k <= 0) return cudaErrorInvalidValue;
+  long long tiles = 0, nc = 0, grid = 0;
+  cudaError_t rc = fused_shape(nb, Lb, bsz, k, &tiles, &nc);
+  if (rc != cudaSuccess) return rc;
+  const bool vec = fused_vec<S>(bsz, k);
+  int per_sm = 0;
+  rc = vec ? fused_grid<S, true>(tiles, nc, &grid, &per_sm)
+           : fused_grid<S, false>(tiles, nc, &grid, &per_sm);
+  cudaFuncAttributes at;
+  if (rc == cudaSuccess)
+    rc = cudaFuncGetAttributes(&at, vec ? fused_band_kernel<S, true>
+                                        : fused_band_kernel<S, false>);
+  if (rc != cudaSuccess) return rc;
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = band::smem_bytes<S>();
+  out[3] = per_sm;
+  out[4] = static_cast<int>(tiles);
+  out[5] = static_cast<int>(grid);
+  out[6] = static_cast<int>(nc);
+  out[7] = kWalks<S>;
+  return cudaSuccess;
 }
 
 // The band-body kinds of K3 (and of K6 past bsz 64): float32, bf16,
@@ -144,25 +255,10 @@ cudaError_t fused_band_kinds(int kind, const void* blocks, const void* cols,
                              const void* b, void* c, long long nb,
                              long long Lb, long long bsz, long long k,
                              unsigned long long* issued, void* stream) {
-  switch (kind) {
-    case bell::kF32:
-      return launch_fused_band<float>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                      issued, stream);
-    case bell::kI32:
-      return launch_fused_band<int>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                    issued, stream);
-    case bell::kF32Split:
-      return launch_fused_band<band::Split>(blocks, cols, b, c, nb, Lb, bsz,
-                                            k, issued, stream);
-    case bell::kBF16:
-      return launch_fused_band<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
-                                              bsz, k, issued, stream);
-    case bell::kF64:
-      return launch_fused_band<double>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                       issued, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return bell::with_kind(kind, [&](auto s) {
+    return launch_fused_band<typename decltype(s)::type>(
+        blocks, cols, b, c, nb, Lb, bsz, k, issued, stream);
+  });
 }
 
 // K6 at bsz <= 64: blocks (nb, Lb, bsz, bsz), b (nb*bsz, k) and C (nb*bsz,
@@ -282,26 +378,12 @@ cudaError_t block_body_kinds(int kind, const void* blocks, const void* cols,
                              const void* b, void* c, long long nb,
                              long long Lb, long long bsz, long long k,
                              unsigned long long* issued, void* stream) {
-  switch (kind) {
-    case bell::kF32:
-      return launch_block_body<float>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                      issued, stream);
-    case bell::kI32:
-      return launch_block_body<int>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                    issued, stream);
-    case bell::kF32Split:
-      return launch_block_body<band::Split>(blocks, cols, b, c, nb, Lb, bsz,
-                                            k, issued, stream);
-    case bell::kBF16:
-      return launch_block_body<__nv_bfloat16>(blocks, cols, b, c, nb, Lb,
-                                              bsz, k, issued, stream);
-    case bell::kF64:
-      return launch_block_body<double>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                       issued, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return bell::with_kind(kind, [&](auto s) {
+    return launch_block_body<typename decltype(s)::type>(
+        blocks, cols, b, c, nb, Lb, bsz, k, issued, stream);
+  });
 }
+
 
 // K6's wide-block body: blocks (nb, Lb, bsz, bsz), b (nb*bsz, k) in the
 // stream kind S's element type, C (nb*bsz, k) in wide::Cfg<S>::Out
@@ -366,23 +448,16 @@ cudaError_t wide_body_kinds(int kind, const void* blocks, const void* cols,
                             const void* b, void* c, long long nb,
                             long long Lb, long long bsz, long long k,
                             unsigned long long* issued, void* stream) {
-  switch (kind) {
-    case bell::kF32:
-      return launch_wide<float>(blocks, cols, b, c, nb, Lb, bsz, k, issued,
-                                stream);
-    case bell::kBF16:
-      return launch_wide<__nv_bfloat16>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                        issued, stream);
-    case bell::kF32Split:
-      return launch_wide<band::Split>(blocks, cols, b, c, nb, Lb, bsz, k,
-                                      issued, stream);
-    case bell::kF64:
-      return launch_wide<double>(blocks, cols, b, c, nb, Lb, bsz, k, issued,
-                                 stream);
-    default:
+  return bell::with_kind(kind, [&](auto s) {
+    using S = typename decltype(s)::type;
+    if constexpr (std::is_same<S, int>::value)
       return cudaErrorInvalidValue;
-  }
+    else
+      return launch_wide<S>(blocks, cols, b, c, nb, Lb, bsz, k, issued,
+                            stream);
+  });
 }
+
 
 // K6 on the body k6_body names; counter may be null.
 cudaError_t block_kinds(int kind, const void* blocks, const void* cols,
@@ -428,6 +503,18 @@ int bell_fused_issued(int kind, const void* blocks, const void* cols,
                       void* stream) {
   return fused_band_kinds(kind, blocks, cols, b, c, nb, Lb, bsz, k,
                           static_cast<unsigned long long*>(issued), stream);
+}
+
+// K3's launched geometry in kind `kind` for blocks (nb, Lb, bsz, bsz) and
+// k columns (16-byte aligned arrays): out[0..7] = registers and local
+// bytes a thread, dynamic shared bytes a block, resident blocks an SM,
+// tiles, thread blocks launched, chunks a tile and 1 where the kind walks
+// its tiles, on the current device.  Returns a cudaError_t.
+int bell_fused_geometry(int kind, long long nb, long long Lb, long long bsz,
+                        long long k, int* out) {
+  return bell::with_kind(kind, [&](auto s) {
+    return fused_geometry<typename decltype(s)::type>(nb, Lb, bsz, k, out);
+  });
 }
 
 // K6, bell_fused's arguments, on the body k6_body names.  Up to

@@ -71,6 +71,7 @@ m8n8k4).  The interpret flag of the reference is dropped.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -403,6 +404,32 @@ def fused_issued_flops(a: BELL, b, *, compute_dtype=None,
     (:func:`fused_issued_model` is what it should read)."""
     return _issued("fused_issued_flops", "fused", a, b, compute_dtype,
                    precision)
+
+
+_GEOMETRY_K3 = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm",
+                "tiles", "grid", "chunks_per_tile", "walks")
+
+
+def fused_geometry(nb: int, Lb: int, bsz: int, k: int,
+                   stream_dtype=torch.float32, precision=None) -> dict:
+    """K3's launched geometry for blocks (nb, Lb, bsz, bsz) at width ``k``
+    in the stream ``stream_dtype`` (float32 with ``precision="bf16x3"``: the
+    split), 16-byte aligned, from the CUDA runtime on the current card:
+    registers and local (spilled) bytes a thread, dynamic shared bytes and
+    resident 128-thread blocks an SM, the tiles (32 rows x 128 columns of a
+    block row's output), the thread blocks a launch takes, the 32-index
+    chunks a tile, and ``walks``: whether the kind walks its tiles on at
+    most the resident blocks with one ring each (bf16, bf16x3, float64) or
+    takes a thread block a tile (float32, int32).  Card only: raises where
+    the kernels cannot be built."""
+    out = (ctypes.c_int * len(_GEOMETRY_K3))()
+    kind = _kind(stream_dtype, precision == "bf16x3")
+    _kernels.check(_kernels.load().bell_fused_geometry(kind, nb, Lb, bsz, k,
+                                                       out),
+                   "fused_geometry")
+    geo = dict(zip(_GEOMETRY_K3, out))
+    geo["walks"] = bool(geo["walks"])
+    return geo
 
 
 def _wide_body_model(blocks: torch.Tensor, k: int) -> int:

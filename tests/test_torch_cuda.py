@@ -2408,3 +2408,116 @@ def test_k4_kit_refuses_a_mask_that_does_not_fit(cuda):
             tcb.banded_issued_flops(kit.tiles, kit.plan.start, b, 32,
                                     mask=bad)
     assert (tcb.K4_LAUNCHES, tcb.K4_KIT_LAUNCHES) == counts
+
+
+# K3's grid: the kinds that walk their tiles (bf16, bf16x3, float64:
+# band::run_tiles) take at most the thread blocks resident at once
+# (fused_geometry's grid), each walking its tiles with one ring that runs
+# across them; float32 and int32 take a thread block a tile.  Every kind at
+# bsz 3 and 20 (ragged 32-row blocks; a 32-index chunk spans blocks), 32 (a
+# chunk is a block), 33, 64 (two row blocks), 100 (four, the last ragged)
+# and k 1, 31 (element copies), 128, 129 and 200 (a ragged column block):
+# one block row of one slot (Lb 1, one tile), then a band of Lb 5 holding
+# more than twice as many tiles as resident blocks, with two block rows of
+# zero blocks only and, in the float kinds, a NaN stored in A, then that
+# band against an operand one element off a 16-byte boundary (element
+# copies).
+WALK_KINDS = ["f32", "f64", "bf16", "bf16x3", "i32"]
+
+
+def _walk_case(cuda, nb, hb, bsz, k, kind):
+    """(BELL, operand, its empty block rows) for ``_walk``'s cases."""
+    empty = (nb // 4, 3 * nb // 4) if nb > 4 else ()
+    if kind == "i32":
+        a, _, _ = _int_bell(nb, bsz, hb, nb + k, cuda, empty=empty)
+        b = torch.from_numpy(_ints(np.random.default_rng(k), (a.n, k)))
+        return a, b.to(cuda), empty
+    dt = TIERS[kind][0]
+    a, _ = _band_bell(nb, bsz, hb, nb + k, dt, cuda, empty=empty)
+    if nb > 4:  # a NaN in block row nb // 2, which holds data
+        a.blocks[nb // 2, 1, bsz // 2, 0] = float("nan")
+    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).to(dt).to(cuda)
+    return a, b, empty
+
+
+@pytest.mark.parametrize("k", [1, 31, 128, 129, 200])
+@pytest.mark.parametrize("bsz", [3, 20, 32, 33, 64, 100])
+@pytest.mark.parametrize("kind", WALK_KINDS)
+def test_k3_tiles_on_its_grid(cuda, kind, bsz, k):
+    """K3 twice, bitwise equal and launched each time, on its grid (the
+    walking kinds on at most the resident blocks); within its kind's gate
+    of the plain version (int32: equal), NaN exactly where the plain
+    version has it, zero rows of zero blocks exactly zero; the issued count
+    equal to its host model."""
+    cd, prec = (None, None) if kind == "i32" else TIERS[kind][1:]
+    dt = torch.int32 if kind == "i32" else TIERS[kind][0]
+    stream = cd or dt
+    per_row = -(-bsz // 32) * -(-k // 128)
+    geo = tcb.fused_geometry(1, 5, bsz, k, stream, prec)
+    assert geo["walks"] == (kind in ("bf16", "bf16x3", "f64"))
+    resident = geo["blocks_per_sm"] * torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    nb_big = (2 * resident + 3) // per_row + 1
+    for nb, hb, shift in ((1, 0, False), (nb_big, 2, False),
+                          (nb_big, 2, True)):
+        a, b, empty = _walk_case(cuda, nb, hb, bsz, k, kind)
+        b = _shifted(b, "shift" if shift else "band")
+        geo = tcb.fused_geometry(nb, a.Lb, bsz, k, stream, prec)
+        assert geo["tiles"] == nb * per_row
+        if geo["walks"]:
+            assert geo["grid"] == min(geo["tiles"], resident)
+            assert nb == 1 or geo["tiles"] > 2 * geo["grid"]
+        else:
+            assert geo["grid"] == geo["tiles"]
+        kw = dict(compute_dtype=cd, precision=prec)
+        got = _twice(lambda: tcb.bell_spmm_fused(a, b, **kw), "K3_LAUNCHES")
+        want = tcb.bell_spmm_fused_plain(a, b, **kw)
+        if kind == "i32":
+            assert torch.equal(got, want)
+        else:
+            _check_values(got, want, _spmm_bound(a, b, stream), dt,
+                          "nan" if nb > 4 else "band")
+        for r in empty:
+            assert not bool(got[r * bsz:(r + 1) * bsz].any())
+        assert tcb.fused_issued_flops(a, b, **kw) == \
+            tcb.fused_issued_model(a, k, compute_dtype=stream)
+
+
+# The band body's float64 kind on Hopper's m16n8k8 DMMA, K8 and both K4
+# routes (the vote on raw tiles, the chunk mask on a kit) at K4_SHAPES'
+# ragged rows (bsz 3, 13, 24, 33: part of a 16-row tile past M) and k 31 /
+# 129 (a ragged 32-column piece and column block, element copies).
+@pytest.mark.parametrize("k", [31, 129])
+@pytest.mark.parametrize("nb,bsz,hb,rt,mw", K4_SHAPES)
+def test_band_body_float64_on_m16n8k8(cuda, nb, bsz, hb, rt, mw, k):
+    """K4's vote route against its plain version within 1e-12 |A||B|, its
+    kit route bitwise the vote's with the vote's count, and K8 on the same
+    plan and tiles bitwise the vote's and within the gate of its plain
+    version, each twice, bitwise equal."""
+    from sparse_tpu_torch.ops import cuda_dband as tdb
+
+    f64 = torch.float64
+    a, b, ok, _, _ = _kit_operands(cuda, nb, bsz, hb, nb * k + bsz, k, "f64")
+    kit = tcb.bell_banded_prepare(a, row_tile=rt, max_window=mw,
+                                  slot_valid=ok)
+    plan, bound = kit.plan, _spmm_bound(a, b, f64)
+    kw = dict(tiles=kit.tiles, compute_dtype=f64)
+    vote = _twice(lambda: tcb.bell_spmm_banded(a, b, plan, **kw),
+                  "K4_LAUNCHES")
+    _check_spmm(vote, tcb.bell_spmm_banded_plain(a, b, plan, **kw), bound,
+                f64)
+    assert tcb.banded_issued_flops(kit.tiles, plan.start, b, bsz) == \
+        _issued_model(kit.tiles, k)
+    assert torch.equal(_bits(_kit_is_the_vote(a, b, kit, None)), _bits(vote))
+    b3 = torch.cat([b.reshape(nb, bsz, k), b.new_zeros(plan.W, bsz, k)])
+    args = (kit.tiles, plan.start, b3, nb, bsz, k, plan.W, plan.rt, f64)
+    before = tdb.K8_LAUNCHES
+    y1, y2 = tdb.dband_spmm(*args), tdb.dband_spmm(*args)
+    torch.cuda.synchronize()
+    assert tdb.K8_LAUNCHES == before + 2
+    # K8 is the vote body on the same tiles: zero panels past the operand
+    # where K4 reads zeros
+    assert torch.equal(_bits(y1), _bits(y2)) and torch.equal(_bits(y1),
+                                                             _bits(vote))
+    _check_spmm(y1, tdb.dband_spmm_plain(*args), bound, f64)

@@ -17,7 +17,9 @@ Suites:
 - ``bell``: the blocked-ELL SpMM kernels on ``bench.py``'s 80M-entry block
   band (nb 15,625, bsz 32, 5-block band, float32), k = 128 (k = 32 for
   K5): K3, K4, K5, K6 and K8 in float32, the bf16 streams of K3, K4,
-  K5, K6 (bf16 blocks) and K8 with bf16 operands, the bf16x3 split of
+  K5, K6 (bf16 blocks) and K8 with bf16 operands (K3's rounds the float32
+  blocks on every call; "K3 bf16 kernel" launches K3's kernel alone on bf16
+  blocks into a float32 C), the bf16x3 split of
   K3, K4, K5 and K6 (float32 operands), K3, K4, K5, K6 and K8 in
   float64 (float64 blocks, kits and tiles), and K3, K4 and K8 in int32
   (the blocks x 400, rounded; operand entries in [-8, 8]); K4 is timed on
@@ -113,9 +115,23 @@ def bell_cases(cs):
     b3i = torch.cat([bi.reshape(nb, bsz, k), bi.new_zeros(dplan.W, bsz, k)])
     k8_args[i32] = (cdb.densify_tiles(ai, dplan, i32), dplan.start, b3i, nb,
                     bsz, k, dplan.W, 5, i32)
+    # K3's bf16 kernel alone: the wrapper's "K3 bf16" rounds the float32
+    # blocks to bf16 on every call
+    from sparse_tpu_torch import _kernels
+
+    blocks_bf, c32 = a.blocks.to(bf16), torch.empty(a.n, k, device="cuda")
+
+    def k3_bf16_kernel():
+        cb._launch("K3 bf16 kernel", _kernels.load().bell_fused,
+                   cb._KIND[bf16], blocks_bf.data_ptr(), a.cols.data_ptr(),
+                   b_bf.data_ptr(), c32.data_ptr(), nb, a.Lb, bsz, k,
+                   device=c32.device)
+        return c32
+
     return {
         "K3": lambda: cb.bell_spmm_fused(a, b),
         "K3 bf16": lambda: cb.bell_spmm_fused(a, b_bf, compute_dtype=bf16),
+        "K3 bf16 kernel": k3_bf16_kernel,
         "K3 bf16x3": lambda: cb.bell_spmm_fused(a, b, precision="bf16x3"),
         "K3 f64": lambda: cb.bell_spmm_fused(a64, b64),
         "K4": lambda: cb.bell_spmm_banded(a, b, kit.plan, tiles=kit.tiles),

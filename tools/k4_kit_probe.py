@@ -5,8 +5,8 @@ route (``bell_spmm(a, b, plan=kit)``).
     python3 tools/k4_kit_probe.py [--forms mask,no-multiply,no-b,a-ahead]
         [--cases "K4 kit,K4 kit f64"] [--rounds 2]
 
-Each form is a copy of this checkout's package under
-``sparse_tpu_torch/_build/probe/<form>/`` with ``run_masked`` edited:
+Each form is a copy of this checkout's package with ``run_masked``
+edited (``tools/_probe.py`` copies, builds and times them):
 
 - ``mask``: as it is;
 - ``no-multiply``: copies the marked chunks and multiplies none, so its
@@ -17,24 +17,17 @@ Each form is a copy of this checkout's package under
   ``kBStages - 1`` ahead in B's, two cp.async groups a step (the vote
   body's rings, with a barrier in the place of the vote).
 
-The last three give wrong results: they time and check nothing.  Each form
-runs ``tools/ab.py --suite bell --cases CASES`` in its own process, the
-forms in turns (reversed in every other round), and its lines are printed
-as they come.  Needs a card and ``nvcc`` (the builds side by side, ~45
-s; ~20 s a process; ~3.5 min for the four forms in two rounds).
+The last three give wrong results: they time and check nothing.  The forms
+run in turns (reversed in every other round), each in its own process.
+Needs a card and ``nvcc`` (the builds side by side, ~45 s; ~20 s a
+process; ~3.5 min for the four forms in two rounds).
 """
 
 from __future__ import annotations
 
 import argparse
-import shutil
-import subprocess
-import sys
-from pathlib import Path
 
-HERE = Path(__file__).resolve().parent.parent
-PKG = HERE / "sparse_tpu_torch"
-PROBE = PKG / "_build" / "probe"
+import _probe
 
 _MMA = ("    mma_chunk(sa + s * kBM * Cf::kAPitch, sb + s * kBK * Cf::kBPitch,"
         " acc);\n")
@@ -104,27 +97,15 @@ def _edit(form: str, src: str) -> str:
     if form == "mask":
         return src
     if form == "no-multiply":
-        assert src.count(_MMA) == 1
-        return src.replace(_MMA, "")
+        return _probe.sub(_MMA, "", src, "the multiply")
     if form == "no-b":
-        assert src.count(_LOAD_B) == 1
-        return src.replace(_LOAD_B, "")
+        return _probe.sub(_LOAD_B, "", src, "B's copy")
     if form == "a-ahead":
         start = src.index("template <typename S, bool VEC, class P>\n"
                           "__device__ __forceinline__ void run_masked(")
         end = src.index("// Lets kern", start)
         return src[:start] + _A_AHEAD.lstrip("\n") + "\n" + src[end:]
     raise SystemExit(f"k4_kit_probe: unknown form {form!r}")
-
-
-def _copy(form: str) -> Path:
-    root = PROBE / form
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(PKG, root / "sparse_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    body = root / "sparse_tpu_torch" / "csrc" / "band_body.cuh"
-    body.write_text(_edit(form, body.read_text()))
-    return root
 
 
 def main():
@@ -135,20 +116,8 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     forms = [f.strip() for f in args.forms.split(",") if f.strip()]
-    roots = {f: _copy(f) for f in forms}
-    # the builds side by side, before any timing
-    builds = [subprocess.Popen(
-        [sys.executable, "-c",
-         "from sparse_tpu_torch import _kernels; _kernels.build()"],
-        cwd=roots[f]) for f in forms]
-    if any([p.wait() for p in builds]):
-        raise SystemExit("k4_kit_probe: a build failed")
-    for r in range(args.rounds):
-        for f in (forms if r % 2 == 0 else forms[::-1]):
-            subprocess.run([sys.executable, str(HERE / "tools" / "ab.py"),
-                            "--suite", "bell", "--root", str(roots[f]),
-                            "--tag", f, "--cases", args.cases], check=True)
-    shutil.rmtree(PROBE, ignore_errors=True)
+    _probe.run({f: {"band_body.cuh": lambda src, f=f: _edit(f, src)}
+                for f in forms}, args.cases, args.rounds)
 
 
 if __name__ == "__main__":
