@@ -1802,6 +1802,51 @@ def kit_beside(label, rec, card, **others):
     return rec
 
 
+#: the sha256 of each float32 K4 / K8 result the phases digest, by label:
+#: every phase that digests a label on the same inputs must find the same
+#: bits (phases 9, 15, 21 and 22)
+F32_DIGESTS: dict[str, str] = {}
+
+
+def f32_digest(label, fn, card):
+    """``fn``'s (K4's kit or vote route, or K8, in float32 at the bench
+    shape) back-to-back time and the sha256 of its C, which must equal the
+    first digest taken under ``label`` in this run; returns both."""
+    import hashlib
+
+    ms, fastest = pipelined_ms(fn, warmup=1)
+    y = fn()
+    torch.cuda.synchronize()
+    sha = hashlib.sha256(y.contiguous().cpu().view(torch.uint8).numpy()
+                         .tobytes()).hexdigest()
+    del y
+    first = F32_DIGESTS.setdefault(label, sha)
+    if sha != first:
+        raise AssertionError(f"{label}: C's sha256 {sha[:16]} is not the "
+                             f"first phase's {first[:16]}")
+    print(f"   {label}: {ms:.4f} ms back to back (fastest {fastest:.4f}); "
+          f"sha256 {sha[:16]}, the same in every phase [{card}]",
+          flush=True)
+    return dict(ms=ms, fastest_ms=fastest, sha256=sha)
+
+
+def band_geometry_line(label, tiles, k, card, masked=False):
+    """Print and return the geometry K4's vote body (``masked``: its mask
+    body, the kit route) or K8 launches on ``tiles`` (., M, K) at width
+    ``k`` in the tiles' dtype (``cuda_bell.banded_geometry``)."""
+    from sparse_tpu_torch.ops import cuda_bell as cb
+
+    _, M, K = tiles.shape
+    geo = cb.banded_geometry(M, K, k, tiles.dtype, masked=masked)
+    print(f"   {label} geometry on ({M}, {K}) tiles, k {k}: "
+          f"{geo['rows_per_block']} output rows a thread block, "
+          f"{geo['registers']} registers and {geo['local_bytes']} local "
+          f"bytes a thread, {geo['shared_bytes']} shared bytes and "
+          f"{geo['blocks_per_sm']} blocks of 128 threads an SM [{card}]",
+          flush=True)
+    return geo
+
+
 def check_k5_counts(label, a, bt, kit, useful, precision=None):
     """K5's own counts on ``kit`` against ``bt`` (any kind; bf16x3 with
     ``precision``): the operations, checked as ``check_counted`` does, and
@@ -1953,6 +1998,12 @@ def phase9_bell_timing(card, m):
         if kname in ("K3", "K4", "K4-kit"):  # the band body's float32 map
             out[kname]["sm_clock_power"] = _clock_line(
                 f"{kname} float32 kernel", kern, card)
+        if kname in ("K4", "K4-kit"):
+            out[kname]["geometry"] = band_geometry_line(
+                f"{kname} float32", kit.tiles, k, card,
+                masked=kname == "K4-kit")
+            out[kname]["sha256"] = f32_digest(f"{kname} float32", kern,
+                                              card)["sha256"]
     useful = 2 * nnz * k
     out["K4"]["issued_gflop"] = check_issued(
         "K4 float32", kit.tiles, kit.plan.start, b, bsz, useful) / 1e9
@@ -2944,6 +2995,8 @@ def phase15_timing(card, sl, m, band_lib, launches):
             ms_p, c, lib, call, issued_gflop=issued / 1e9,
             useful_gflop=c[1] / 1e9,
             sm_clock_power=_clock_line("K8 float32 kernel", kern, card))
+        entry["geometry"] = band_geometry_line("K8 float32", tiles, k, card)
+        entry["sha256"] = f32_digest("K8 float32", kern, card)["sha256"]
         kit = m["kit"]
         kit_beside("K8 float32", entry, card, **{
             "K4-kit": lambda: pt.bell_spmm(m["a"], d["b"], plan=kit),
@@ -4864,6 +4917,18 @@ def _phase21_bell(paths, m, dband, card):
             a64, b64, kit64.plan, tiles=kit64.tiles),
         "K8": lambda: cuda_dband.dband_spmm(*args)})
     del tiles64, b3, args, bound, kit64
+    # the float32 kernels beside their bf16x3 and float64 kinds: the same
+    # bits as phases 9 and 15
+    tiles32, b3_32 = dband[torch.float32]
+    args32 = (tiles32, plan.start, b3_32, nb, bsz, k, plan.W, plan.rt,
+              torch.float32)
+    for kname, fn in (
+            ("K4-kit", lambda: pt.bell_spmm(a, b, plan=kit)),
+            ("K4", lambda: cb.bell_spmm_banded(a, b, kit.plan,
+                                               tiles=kit.tiles)),
+            ("K8", lambda: cuda_dband.dband_spmm(*args32))):
+        out[kname]["float32"] = f32_digest(f"{kname} float32", fn, card)
+    del args32
     kit_t64 = cb.bell_banded_prepare_t(a64, slot_valid=valid)
     bt64 = bt32.double()
     lib, call = library_spmm(m, b32.double(), card, "k 32 float64")
@@ -5660,6 +5725,14 @@ def _phase22_bell(card, m, dband, out):
         "K4 (vote body, the kit's tiles)": lambda: cb.bell_spmm_banded(
             ai, bi, kit_i.plan, tiles=kit_i.tiles),
         "K8": lambda: cuda_dband.dband_spmm(*args)})
+    # the float32 siblings: the same bits as phases 9, 15 and 21
+    for kname, fn in (
+            ("K4-kit", lambda: pt.bell_spmm(a, b, plan=kit)),
+            ("K4", lambda: cb.bell_spmm_banded(a, b, kit.plan,
+                                               tiles=kit.tiles)),
+            ("K8", lambda: cuda_dband.dband_spmm(*argsf))):
+        out[kname]["int32"]["float32_sha256"] = f32_digest(
+            f"{kname} float32", fn, card)["sha256"]
     del tiles_i, tiles_f, b3, b3f, bsr, kit_i
 
 

@@ -85,10 +85,12 @@ _SIGNATURES = {
     "bsr_slab": (_I, _P, _P, _P, _P, _P, _LL, _LL, _P, _P),
     # launched geometry, into a host int array: K1's row kernel (kind 0
     # float32, 1 float64, 2 bf16; lane group; rows of a launch), K7's body
-    # (kind, bsz) and K3's walk (kind, nb, Lb, bsz, k)
+    # (kind, bsz), K3's walk (kind, nb, Lb, bsz, k) and K4's / K8's body
+    # (kind, masked, M, K, N)
     "segtile_csr_geometry": (_I, _I, _LL, _P),
     "bsr_slab_geometry": (_I, _LL, _P),
     "bell_fused_geometry": (_I, _LL, _LL, _LL, _LL, _P),
+    "bell_banded_geometry": (_I, _I, _LL, _LL, _LL, _P),
 }
 
 

@@ -29,13 +29,17 @@
 // k = 32) the tiles' bytes dominate instead.
 //
 // K4/K8 (band_kernel below) run the body of band_body.cuh on the tile in
-// every stream kind (float32, int32, bf16, bf16x3, float64): 32 x 128 output blocks (one block row at bsz 32, all
-// of k = 128, so each tile's A comes from device memory once), a cp.async
-// ring, and a vote that skips the tile's all-zero 32 x 32 chunks (their B
-// copy and multiply-adds), which brings the work issued at the bench shape
-// back to the useful flops.  bf16x3 keeps the float32 tiles and ring and
-// splits each pair of fragments into three bf16 products on mma.sync (3 x
-// 20.5 GFLOP at the bench band, a small share of the tensor cores' rate);
+// every stream kind (float32, int32, bf16, bf16x3, float64): 32 x 128
+// output blocks (one block row at bsz 32, all of k = 128, so each tile's A
+// comes from device memory once), a cp.async ring, and a vote that skips
+// the tile's all-zero 32 x 32 chunks (their B copy and multiply-adds),
+// which brings the work issued at the bench shape back to the useful
+// flops.  (Thread blocks over two 32-row blocks sharing each B chunk, on
+// the wide body's 8 x 8 map or on this one, ran 10-60% slower in float32
+// on an H100: tools/pair_probe.py, PERF.md section 6.)  bf16x3 keeps the
+// float32 tiles and ring and splits each pair of fragments into three
+// bf16 products on mma.sync (3 x 20.5 GFLOP at the bench band, a small
+// share of the tensor cores' rate);
 // its floor is the 768 MB of float32 tiles it must read to vote on them
 // (>= 0.23 ms).  float64 votes on 64-bit words and multiplies on Hopper's
 // m16n8k8 DMMA (the FP64 tensor cores, 67 TFLOP/s on the data sheet, twice
@@ -90,41 +94,68 @@ using namespace bell;
 
 // -- K4/K8 --------------------------------------------------------------------
 
+// K4's and K8's launch geometry in the stream kind S: thread blocks of
+// band::kThreads threads over 32 output rows and 128 columns, on band::run
+// (band_kernel) and band::run_masked (band_mask_kernel).
+template <typename S>
+struct Dense {
+  static constexpr int kBM = band::kBM;
+  static constexpr int kThreads = band::kThreads;
+  static constexpr int kMinBlocks = band::Cfg<S>::kMinBlocks;
+  static constexpr int kSmem = band::smem_bytes<S>();
+};
+
+// A thread block's place in K4/K8's grid and its tile's address policy:
+// block (tile, row block of kRows rows, 128-column block), column blocks
+// fastest; bid is (tile, row block) as one index.
+template <typename T>
+struct DenseBlock {
+  long long tile, bid;
+  int m0, n0;
+  band::DenseTile<T> p;
+};
+
+template <int kRows, typename T>
+__device__ __forceinline__ DenseBlock<T> dense_block(
+    const T* __restrict__ tiles, const int* __restrict__ start,
+    const T* __restrict__ b, int M, int K, int N, int bsz,
+    long long b_rows) {
+  const int n_blocks = (N + band::kBN - 1) / band::kBN;
+  const int m_blocks = (M + kRows - 1) / kRows;
+  long long bid = blockIdx.x;
+  const int n0 = static_cast<int>(bid % n_blocks) * band::kBN;
+  bid /= n_blocks;
+  const int m0 = static_cast<int>(bid % m_blocks) * kRows;
+  const long long tile = bid / m_blocks;
+  const long long row0 = static_cast<long long>(__ldg(start + tile)) * bsz;
+  const long long left = b_rows - row0;  // window rows inside the operand
+  const int rows_ok = left <= 0 ? 0 : left >= K ? K : static_cast<int>(left);
+  return {tile, bid, m0, n0,
+          {tiles + tile * M * K, rows_ok > 0 ? b + row0 * N : b, K, N,
+           rows_ok}};
+}
+
 // tiles (ntiles, M, K) and b (b_rows, N) in the stream kind S's element
 // type, C (ntiles*M, N) in Cfg<S>::Out (float64 for float64, float32
-// otherwise).  Block (tile, 32-row block, 128-column block), column blocks
-// fastest.
+// otherwise).
 template <typename S, bool VEC>
-__global__ void __launch_bounds__(band::kThreads, band::Cfg<S>::kMinBlocks)
+__global__ void __launch_bounds__(Dense<S>::kThreads, Dense<S>::kMinBlocks)
     band_kernel(const typename band::Cfg<S>::T* __restrict__ tiles,
                 const int* __restrict__ start,
                 const typename band::Cfg<S>::T* __restrict__ b,
                 typename band::Cfg<S>::Out* __restrict__ c, int M, int K,
                 int N, int bsz, long long b_rows,
                 unsigned long long* __restrict__ issued) {
-  using T = typename band::Cfg<S>::T;
-  const int n_blocks = (N + band::kBN - 1) / band::kBN;
-  const int m_blocks = (M + band::kBM - 1) / band::kBM;
-  long long bid = blockIdx.x;
-  const int n0 = static_cast<int>(bid % n_blocks) * band::kBN;
-  bid /= n_blocks;
-  const int m0 = static_cast<int>(bid % m_blocks) * band::kBM;
-  const long long tile = bid / m_blocks;
-  const long long row0 = static_cast<long long>(__ldg(start + tile)) * bsz;
-  const long long left = b_rows - row0;  // window rows inside the operand
-  const int rows_ok = left <= 0 ? 0 : left >= K ? K : static_cast<int>(left);
-  const band::DenseTile<T> p{tiles + tile * M * K,
-                             rows_ok > 0 ? b + row0 * N : b, K, N, rows_ok};
-  band::run<S, VEC>(p, c + tile * M * N, M, K, N, m0, n0, issued);
+  const auto d =
+      dense_block<Dense<S>::kBM>(tiles, start, b, M, K, N, bsz, b_rows);
+  band::run<S, VEC>(d.p, c + d.tile * M * N, M, K, N, d.m0, d.n0, issued);
 }
 
 // band_kernel on a kit's tiles with its chunk mask (ntiles, ceil(M/32),
 // ceil(K/32)) uint8: the body walks the marked chunks of its row block only
-// (band::run_masked), bitwise band_kernel's C.  The block's index math is
-// band_kernel's, written out again so that band_kernel's code stays as it
-// was.
+// (band::run_masked), bitwise band_kernel's C.
 template <typename S, bool VEC>
-__global__ void __launch_bounds__(band::kThreads, band::Cfg<S>::kMinBlocks)
+__global__ void __launch_bounds__(Dense<S>::kThreads, Dense<S>::kMinBlocks)
     band_mask_kernel(const typename band::Cfg<S>::T* __restrict__ tiles,
                      const int* __restrict__ start,
                      const unsigned char* __restrict__ mask,
@@ -132,22 +163,11 @@ __global__ void __launch_bounds__(band::kThreads, band::Cfg<S>::kMinBlocks)
                      typename band::Cfg<S>::Out* __restrict__ c, int M, int K,
                      int N, int bsz, long long b_rows,
                      unsigned long long* __restrict__ issued) {
-  using T = typename band::Cfg<S>::T;
-  const int n_blocks = (N + band::kBN - 1) / band::kBN;
-  const int m_blocks = (M + band::kBM - 1) / band::kBM;
   const int nc = (K + band::Cfg<S>::kBK - 1) / band::Cfg<S>::kBK;
-  long long bid = blockIdx.x;
-  const int n0 = static_cast<int>(bid % n_blocks) * band::kBN;
-  bid /= n_blocks;  // (tile, row block)
-  const int m0 = static_cast<int>(bid % m_blocks) * band::kBM;
-  const long long tile = bid / m_blocks;
-  const long long row0 = static_cast<long long>(__ldg(start + tile)) * bsz;
-  const long long left = b_rows - row0;
-  const int rows_ok = left <= 0 ? 0 : left >= K ? K : static_cast<int>(left);
-  const band::DenseTile<T> p{tiles + tile * M * K,
-                             rows_ok > 0 ? b + row0 * N : b, K, N, rows_ok};
-  band::run_masked<S, VEC>(p, mask + bid * nc, c + tile * M * N, M, K, N, m0,
-                           n0, issued);
+  const auto d =
+      dense_block<Dense<S>::kBM>(tiles, start, b, M, K, N, bsz, b_rows);
+  band::run_masked<S, VEC>(d.p, mask + d.bid * nc, c + d.tile * M * N, M, K,
+                           N, d.m0, d.n0, issued);
 }
 
 template <typename S>
@@ -156,11 +176,10 @@ cudaError_t launch_band(const void* tiles, const void* start, const void* mask,
                         long long K, long long N, long long bsz,
                         long long b_rows, unsigned long long* issued,
                         void* stream) {
-  using band::kBM;
   using band::kBN;
   using T = typename band::Cfg<S>::T;
   using O = typename band::Cfg<S>::Out;
-  constexpr long long kMax = 0x7fffffffLL;
+  constexpr long long kMax = 0x7fffffffLL, kBM = Dense<S>::kBM;
   if (ntiles <= 0 || M <= 0 || N <= 0) return cudaSuccess;
   // 32-bit index math inside a tile, its window and its output
   if (M * K > kMax || K * N > kMax || M * N > kMax)
@@ -170,12 +189,12 @@ cudaError_t launch_band(const void* tiles, const void* start, const void* mask,
   constexpr long long V = 16 / sizeof(T);
   const bool vec = K % V == 0 && N % V == 0 && band::aligned16(tiles) &&
                    band::aligned16(b) && band::aligned16(c);
-  constexpr int smem = band::smem_bytes<S>();
+  constexpr int smem = Dense<S>::kSmem;
   // the mask, where there is one, goes between start and b
   auto go = [&](auto kern, auto... mask_arg) {
     const cudaError_t rc = band::allow_smem<smem>(kern);
     if (rc != cudaSuccess) return rc;
-    kern<<<static_cast<unsigned>(grid), band::kThreads, smem,
+    kern<<<static_cast<unsigned>(grid), Dense<S>::kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(tiles), static_cast<const int*>(start),
         mask_arg..., static_cast<const T*>(b), static_cast<O*>(c),
@@ -201,6 +220,40 @@ cudaError_t band_kinds(int kind, const void* tiles, const void* start,
         tiles, start, mask, b, c, ntiles, M, K, N, bsz, b_rows, issued,
         stream);
   });
+}
+
+// K4's / K8's launched geometry in kind S for tiles (., M, K) and N operand
+// columns, 16-byte aligned arrays, the mask body where masked: out[0..4] =
+// registers and local (spilled) bytes a thread, shared bytes a block
+// (dynamic and static), resident blocks an SM and output rows a thread
+// block, on the current device.
+template <typename S>
+cudaError_t band_geometry(bool masked, long long M, long long K, long long N,
+                          int* out) {
+  if (M <= 0 || K <= 0 || N <= 0) return cudaErrorInvalidValue;
+  constexpr long long V = 16 / sizeof(typename band::Cfg<S>::T);
+  const bool vec = K % V == 0 && N % V == 0;
+  constexpr int smem = Dense<S>::kSmem;
+  auto read = [&](auto kern) {
+    cudaError_t rc = band::allow_smem<smem>(kern);
+    cudaFuncAttributes at;
+    if (rc == cudaSuccess) rc = cudaFuncGetAttributes(&at, kern);
+    int per_sm = 0;
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kern, Dense<S>::kThreads, smem);
+    if (rc != cudaSuccess) return rc;
+    out[0] = at.numRegs;
+    out[1] = static_cast<int>(at.localSizeBytes);
+    out[2] = smem + static_cast<int>(at.sharedSizeBytes);
+    out[3] = per_sm;
+    out[4] = Dense<S>::kBM;
+    return cudaSuccess;
+  };
+  if (masked)
+    return vec ? read(band_mask_kernel<S, true>)
+               : read(band_mask_kernel<S, false>);
+  return vec ? read(band_kernel<S, true>) : read(band_kernel<S, false>);
 }
 
 // -- K5 ----------------------------------------------------------------------
@@ -814,6 +867,19 @@ int bell_banded_masked_issued(int kind, const void* tiles, const void* start,
                               void* issued, void* stream) {
   return band_kinds(kind, tiles, start, mask, b, c, ntiles, M, K, N, bsz,
                     b_rows, static_cast<unsigned long long*>(issued), stream);
+}
+
+// K4's / K8's launched geometry in kind `kind` for tiles (., M, K) and N
+// operand columns (16-byte aligned arrays), band_mask_kernel's where masked
+// is not 0, band_kernel's where it is: out[0..4] = registers and local
+// bytes a thread, shared bytes a block, resident blocks an SM and output
+// rows a thread block, on the current device.  Returns a cudaError_t.
+int bell_banded_geometry(int kind, int masked, long long M, long long K,
+                         long long N, int* out) {
+  return bell::with_kind(kind, [&](auto s) {
+    return band_geometry<typename decltype(s)::type>(masked != 0, M, K, N,
+                                                     out);
+  });
 }
 
 // tiles_t (ntiles, K, M) and bt (N, bt_cols) in the stream type, mask

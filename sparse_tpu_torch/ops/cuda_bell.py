@@ -432,6 +432,26 @@ def fused_geometry(nb: int, Lb: int, bsz: int, k: int,
     return geo
 
 
+_GEOMETRY_BAND = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm",
+                  "rows_per_block")
+
+
+def banded_geometry(M: int, K: int, k: int, stream_dtype=torch.float32, *,
+                    masked: bool = False) -> dict:
+    """K4's and K8's launched geometry for tiles (., M, K) at width ``k`` in
+    the stream ``stream_dtype``, 16-byte aligned: the vote body's kernel,
+    or with ``masked`` the mask body's (K4's kit route), from the CUDA
+    runtime on the current card: registers and local (spilled) bytes a
+    thread, shared bytes and resident 128-thread blocks an SM, and the
+    output rows a thread block takes.  Card only: raises where the kernels
+    cannot be built."""
+    out = (ctypes.c_int * len(_GEOMETRY_BAND))()
+    _kernels.check(_kernels.load().bell_banded_geometry(
+        _kind(stream_dtype, False), int(masked), M, K, k, out),
+        "banded_geometry")
+    return dict(zip(_GEOMETRY_BAND, out))
+
+
 def _wide_body_model(blocks: torch.Tensor, k: int) -> int:
     """Operations (2 per multiply-add) that K6's wide-block body issues on
     the stored blocks (n, bsz, bsz) at width ``k``: for each 64-row group

@@ -319,3 +319,33 @@ def test_kit_route_under_vmap_on_the_cpu():
         assert torch.equal(ys[i], tbell.bell_spmm(ta, bs[i],
                                                   prefer_pallas=True,
                                                   plan=kit))
+
+
+# -- the vote grain -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("rt,bsz,k", [(2, 32, 128), (3, 32, 40),
+                                      (5, 32, 200), (3, 24, 1)])
+def test_issued_model_counts_each_32_row_half(rt, bsz, k, dtype):
+    """``banded_issued_model`` on tiles where one 32-row half of every 64
+    rows is zero (the first half in even tiles, the second in odd ones; a
+    few -0 entries in the zero halves of float tiles): one 32 x 32 x (k
+    rounded up to 128) product for each 32 x 32 chunk that a numpy count
+    finds non-zero, never one for a 64-row pair.  This is the vote grain
+    K4's and K8's bodies count at, whatever rows a thread block takes."""
+    rng = np.random.default_rng(rt * bsz + k)
+    nt, m, kk = 3, rt * bsz, 12 * 32 + 8
+    x = rng.standard_normal((nt, m, kk)) * (rng.random((nt, m, kk)) < 0.02)
+    x = x.astype(dtype) if dtype == np.float32 else (x * 50).astype(dtype)
+    for t in range(nt):
+        for r0 in range(32 * (t % 2), m, 64):
+            x[t, r0:r0 + 32] = 0
+            if dtype == np.float32:
+                x[t, r0:min(r0 + 32, m), ::97] = -0.0
+    chunks = _mask_from_bits(torch.from_numpy(x))
+    assert chunks.any() and not chunks.all()
+    # the zeroed 32-row blocks (-0 included) hold no chunk
+    assert not chunks[0, 0::2].any() and not chunks[1, 1::2].any()
+    want = int(chunks.sum()) * 2 * 32 * 32 * (-(-k // 128) * 128)
+    assert tcb.banded_issued_model(torch.from_numpy(x), k) == want

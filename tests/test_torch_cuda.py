@@ -576,7 +576,8 @@ def test_k4_nan_in_a_propagates(cuda, stream):
     ("K4", "f64"), ("K6", "bf16x3"), ("K3", "f64"), ("K6", "f64"),
     ("K6", "f32"), ("K6", "bf16")] + [
     ("K4-kit", t) for t in ("f32", "bf16", "bf16x3", "f64")] + [
-    ("K6-wide", t) for t in ("f32", "bf16", "bf16x3", "f64")])
+    ("K6-wide", t) for t in ("f32", "bf16", "bf16x3", "f64")] + [
+    (kn, t) for kn in ("K4-half", "K4-kit-half") for t in ("f32", "f64")])
 def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
                                                            tier):
     """Inf and NaN in operand panel 0, which block rows 0 and 1 store: K3's
@@ -590,15 +591,21 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
     float64 too (K6 streams at the result dtype: its bf16 case takes bf16
     blocks and operand).  ``K6-wide`` is K6 at bsz 128 on its wide-block
     body (5 block rows, row 3 empty): its vote skips each 32-index slice of
-    a padding block."""
+    a padding block.  ``-half``: K4 with block row 0 empty too, so that the
+    zero chunk opposite panel 0 lies in one 32-row block of the tile's
+    first 64 rows and block row 1's non-zero chunk in the other: block row
+    0 is exact zeros, block row 1 carries the Inf and NaN."""
     dt, cd, prec = TIERS[tier]
     tol_dt = dt
+    half = kernel.endswith("-half")
+    kernel = kernel.removesuffix("-half")
     wide = kernel == "K6-wide"
     bsz = 128 if wide else 32
     if wide:
         a, ok = _band_bell(5, bsz, 1, 8, dt, cuda, empty=(3,))
     else:
-        a, ok = _band_bell(12, bsz, 1, 8, dt, cuda, empty=(6,))
+        a, ok = _band_bell(12, bsz, 1, 8, dt, cuda,
+                           empty=(0, 6) if half else (6,))
     b = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (a.n, 40))).to(dt).to(cuda)
     b_inf = b.clone()
@@ -640,8 +647,10 @@ def test_inf_opposite_a_zero_chunk_gives_the_sparse_answer(cuda, kernel,
                                                       **kw), "K4_LAUNCHES")
         want = tcb.bell_spmm_banded_plain(a, b, kit.plan, **kw)
     hit = torch.zeros_like(got, dtype=torch.bool)
-    hit[:2 * bsz, [5, 9]] = True  # block rows 0 and 1 against Inf and NaN
+    hit[bsz if half else 0:2 * bsz, [5, 9]] = True  # against Inf and NaN
     assert not bool(torch.isfinite(got[hit]).any())
+    if half:
+        assert not bool(got[:bsz].any())
     _check_spmm(got[~hit], want[~hit],
                 _spmm_bound(a, b, cd or dt)[~hit], tol_dt)
 
@@ -2269,26 +2278,42 @@ def _fill_chunks(t, where):
         t[0, 5, 40] = float("nan")
         t[0, 5, 41] = 1.0
         t[1, 40, 3] = 2.0
+    elif where == "half":  # chunk 1 of tile 0's first 32 rows, not its next
+        t[0, 3, 40] = 1.5
+        t[0, 40, 100] = 2.0
 
 
 @pytest.mark.parametrize("shift", [False, True])
 @pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16,
                                     torch.float64])
-@pytest.mark.parametrize("where", ["none", "one", "edges", "all", "nan"])
+@pytest.mark.parametrize("where", ["none", "one", "edges", "all", "nan",
+                                   "half"])
 def test_k4_kit_mask_edges(cuda, where, stream, shift):
     """Hand-built kits whose masks mark no chunk (every row a zero), one,
-    two at a chunk's last row and column, all of them, and a NaN's chunk;
-    ``shift`` puts the operand one element off 16 bytes, so the mask body
-    copies element by element.  Each is bitwise the vote body and counts
-    one 32 x 32 x 128 chunk for each marked one."""
+    two at a chunk's last row and column, all of them, a NaN's chunk, and
+    a chunk marked in one 32-row block of a tile's 64 rows but not in the
+    other, with an Inf in B opposite it (``half``: the marked block's rows
+    are not finite in that column, the other block's are); ``shift`` puts
+    the operand one element off 16 bytes, so the mask body copies element
+    by element.  Each is bitwise the vote body and counts one 32 x 32 x 128
+    chunk for each marked one."""
     a, b, plan, tiles = _sparse_tiles_case(cuda, stream,
                                            lambda t: _fill_chunks(t, where))
     b = _shifted(b.to(stream), "shift" if shift else "band")
+    b_ref = b
+    if where == "half":  # Inf opposite chunk 1 of tile 0, column 7
+        b = _shifted(b.clone(), "shift" if shift else "band")
+        b[int(plan.start[0]) * 32 + 32 + 5, 7] = float("inf")
     kit = tcb.BandedKit(plan=plan, tiles=tiles)
     marked = int(kit.chunk_nz.sum())
     assert marked == {"none": 0, "one": 1, "edges": 2, "all": 4 * 2 * 4,
-                      "nan": 2}[where]
+                      "nan": 2, "half": 2}[where]
     got = _kit_is_the_vote(a, b, kit, None)
+    if where == "half":
+        assert not bool(torch.isfinite(got[:32, 7]).any())
+        assert bool(torch.isfinite(got[32:, 7]).all())
+        got = torch.cat([got[:, :7], got[:, 8:]], 1)
+        b = torch.cat([b_ref[:, :7], b_ref[:, 8:]], 1)
     assert tcb.banded_issued_flops(tiles, plan.start, b, 32,
                                    mask=kit.chunk_nz) == \
         marked * 2 * 32 * 32 * 128
@@ -2521,3 +2546,107 @@ def test_band_body_float64_on_m16n8k8(cuda, nb, bsz, hb, rt, mw, k):
     assert torch.equal(_bits(y1), _bits(y2)) and torch.equal(_bits(y1),
                                                              _bits(vote))
     _check_spmm(y1, tdb.dband_spmm_plain(*args), bound, f64)
+
+
+# K4's and K8's float32 kernels at each number of 32-row blocks a tile can
+# hold: M = rt * bsz of 32, 64, 96 and 160 (one to five blocks; 160 is
+# bench.py's rt 5 at bsz 32) and 72 (bsz 24, rt 3: the last block
+# ragged); k 40 (16-byte copies, a column block partly past N) and 200 (two
+# column blocks, the second ragged); the operand aligned or one element
+# off 16 bytes (element copies).
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("k", [40, 200])
+@pytest.mark.parametrize("bsz,rt", [(32, 1), (32, 2), (32, 3), (32, 5),
+                                    (24, 3)])
+def test_k4_k8_float32_row_blocks(cuda, bsz, rt, k, shift):
+    """The vote route within 1e-5 |A||B| of its plain version, its count
+    the model; the kit route bitwise the vote's, with the same count; K8 on
+    the kit's plan and tiles bitwise the vote's; each twice, bitwise
+    equal."""
+    from sparse_tpu_torch.ops import cuda_dband as tdb
+
+    f32, how = torch.float32, "shift" if shift else "band"
+    nb = 6 * rt + 7  # not a multiple of rt > 1; at least the window
+    a, ok = _band_bell(nb, bsz, 2, nb + k, f32, cuda, empty=(2,))
+    b = _shifted(torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (a.n, k))).float().to(cuda), how)
+    kit = tcb.bell_banded_prepare(a, row_tile=rt, slot_valid=ok)
+    assert kit is not None and kit.tiles.shape[1] == rt * bsz
+    plan = kit.plan
+    kw = dict(tiles=kit.tiles, compute_dtype=f32)
+    vote = _twice(lambda: tcb.bell_spmm_banded(a, b, plan, **kw),
+                  "K4_LAUNCHES")
+    _check_spmm(vote, tcb.bell_spmm_banded_plain(a, b, plan, **kw),
+                _spmm_bound(a, b, f32), f32)
+    assert tcb.banded_issued_flops(kit.tiles, plan.start, b, bsz) == \
+        tcb.banded_issued_model(kit.tiles, k) == _issued_model(kit.tiles, k)
+    assert torch.equal(_bits(_kit_is_the_vote(a, b, kit, None)), _bits(vote))
+    b3 = _shifted(torch.cat([b.reshape(nb, bsz, k),
+                             b.new_zeros(plan.W, bsz, k)]), how)
+    args = (kit.tiles, plan.start, b3, nb, bsz, k, plan.W, plan.rt, f32)
+    before = tdb.K8_LAUNCHES
+    y1, y2 = tdb.dband_spmm(*args), tdb.dband_spmm(*args)
+    torch.cuda.synchronize()
+    assert tdb.K8_LAUNCHES == before + 2
+    assert torch.equal(_bits(y1), _bits(y2)) and torch.equal(_bits(y1),
+                                                             _bits(vote))
+
+
+@pytest.mark.parametrize("bsz", [24, 13])
+def test_k8_float32_k_not_a_multiple_of_32(cuda, bsz):
+    """K8 on a hand-built plan whose window is 3 panels (K = 72: chunks of
+    32, 32 and 8; or 39: 32 and 7, element copies), a 32-row block of bsz
+    rows a tile, an empty row: bitwise K4's vote route on the same tiles,
+    within the gate of its plain version, its count the model."""
+    from sparse_tpu_torch.ops import cuda_dband as tdb
+
+    f32, nb, k = torch.float32, 30, 40
+    a, ok = _band_bell(nb, bsz, 1, bsz + k, f32, cuda, empty=(7,))
+    b = torch.from_numpy(np.random.default_rng(bsz).standard_normal(
+        (a.n, k))).float().to(cuda)
+    plan = _narrow_plan(a, ok, 3)
+    tiles = tcb._densify_band_tiles(a, plan, f32)
+    assert tiles.shape[2] % 32
+    vote = _twice(lambda: tcb.bell_spmm_banded(a, b, plan, tiles=tiles),
+                  "K4_LAUNCHES")
+    b3 = torch.cat([b.reshape(nb, bsz, k), b.new_zeros(plan.W, bsz, k)])
+    args = (tiles, plan.start, b3, nb, bsz, k, plan.W, plan.rt, f32)
+    before = tdb.K8_LAUNCHES
+    y1, y2 = tdb.dband_spmm(*args), tdb.dband_spmm(*args)
+    torch.cuda.synchronize()
+    assert tdb.K8_LAUNCHES == before + 2
+    assert torch.equal(_bits(y1), _bits(y2)) and torch.equal(_bits(y1),
+                                                             _bits(vote))
+    _check_spmm(y1, tdb.dband_spmm_plain(*args), _spmm_bound(a, b, f32), f32)
+    assert tcb.banded_issued_flops(tiles, plan.start, b3.reshape(-1, k),
+                                   bsz) == tcb.banded_issued_model(tiles, k)
+    assert not bool(y1[7 * bsz:8 * bsz].any())
+
+
+def test_k4_k8_float32_a_sum_of_negative_zeros(cuda):
+    """A row whose products all round to -0 (1e-30 against -1e-30 in one
+    kept chunk) sums to -0 on the vote route, the kit route and K8: each
+    output's sum starts at +0 and adds its products one at a time, so
+    fmaf's first rounding gives -0 and the rest keep it.  The plain
+    version gives 0; every other output is within its gate."""
+    from sparse_tpu_torch.ops import cuda_dband as tdb
+
+    def fill(t):  # tile 1, row 40 (its second 32-row block), chunk 1
+        t[1, 40, 32:64] = 1e-30
+
+    f32 = torch.float32
+    a, b, plan, tiles = _sparse_tiles_case(cuda, f32, fill)
+    w1 = int(plan.start[1]) * 32  # tile 1's window in the operand
+    b[w1 + 32:w1 + 64, 3] = -1e-30
+    kit = tcb.BandedKit(plan=plan, tiles=tiles)
+    got = _kit_is_the_vote(a, b, kit, None)
+    r = 64 + 40
+    assert float(got[r, 3]) == 0.0 and bool(torch.signbit(got[r, 3]))
+    want = tcb.bell_spmm_banded_plain(a, b, plan, tiles=tiles)
+    assert float(want[r, 3]) == 0.0
+    bound = tcb.bell_spmm_banded_plain(a, b.abs(), plan, tiles=tiles.abs())
+    _check_spmm(got, want, bound, f32)
+    nb, k = a.nb, b.shape[1]
+    b3 = torch.cat([b.reshape(nb, 32, k), b.new_zeros(plan.W, 32, k)])
+    y = tdb.dband_spmm(tiles, plan.start, b3, nb, 32, k, plan.W, plan.rt, f32)
+    assert torch.equal(_bits(y), _bits(got))

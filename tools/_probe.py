@@ -22,7 +22,7 @@ HERE = Path(__file__).resolve().parent.parent
 PROBE = HERE / "sparse_tpu_torch" / "_build" / "probe"
 
 # prints the registers and spills ``nvcc -Xptxas -v`` reports for the
-# kernels whose names hold REPORT, one line a kernel
+# kernels whose names match the regex REPORT, one line a kernel
 _BUILD = r'''
 import re
 from sparse_tpu_torch import _kernels
@@ -32,7 +32,7 @@ name = None
 for line in _kernels.build_log.splitlines() if report else ():
     m = re.search(r"Compiling entry function '(\S+)'", line)
     if m:
-        name = m.group(1) if report in m.group(1) else None
+        name = m.group(1) if re.search(report, m.group(1)) else None
     elif name and ("registers" in line or "spill" in line):
         print(f"   {form}: {name}: {line.split('info    :')[-1].strip()}",
               flush=True)
@@ -69,7 +69,7 @@ def run(forms: dict[str, Edits], cases: str, rounds: int,
         root: Path = HERE, report: str = "") -> None:
     """Builds ``root``'s package once a form with its edits and times
     ``cases`` of ``tools/ab.py --suite bell`` on each, in turns; prints the
-    ptxas lines of the kernels whose names hold ``report``."""
+    ptxas lines of the kernels whose names match the regex ``report``."""
     roots = {f: _copy(root, f, e) for f, e in forms.items()}
     builds = [subprocess.Popen(
         [sys.executable, "-c",

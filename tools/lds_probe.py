@@ -16,6 +16,11 @@ warp-wide broadcast.  Lane l, g = l % 8, h = l / 8:
   every quarter warp (a 4 x 8 or 8 x 8 map's A fragments);
 - ``one chunk a quarter``: 16 h, quarters differ (its B fragments);
 - ``8 rows, unswizzled``: 128 g, eight rows in one bank group.
+
+Then it counts each register map's shared-memory cycles per 32 FFMA
+instructions of a warp from those costs, a broadcast taken as 2 cycles
+(``MAPS``: the LDS.128 of each pattern a thread issues per 4 contraction
+indices, and the multiply-adds they feed).
 """
 
 from __future__ import annotations
@@ -32,6 +37,17 @@ BUILD = HERE / "sparse_tpu_torch" / "_build" / "lds_probe"
 
 PATTERNS = ["broadcast", "32 chunks", "8 rows, swizzled",
             "one chunk a quarter", "8 rows, unswizzled"]
+
+# map -> ({pattern: LDS.128 a thread per 4 indices}, multiply-adds a thread
+# per 4 indices): the band body's 8 x 4 (A broadcast, B 32 chunks); the
+# wide body's 8 x 8, which tools/pair_body.cuh's pair body also takes
+# (rows 8 apart on a swizzled A, two B chunks an index); the pair body's
+# half-warps 4 x 16 (four B chunks an index)
+MAPS = {"8x4 band body": ({"broadcast": 8, "32 chunks": 4}, 128),
+        "8x8 wide / pair body": ({"8 rows, swizzled": 8,
+                                  "one chunk a quarter": 8}, 256),
+        "4x16 half-warps": ({"8 rows, swizzled": 4,
+                             "one chunk a quarter": 16}, 256)}
 
 SOURCE = r"""
 #include <cuda_runtime.h>
@@ -141,11 +157,17 @@ def main():
         print(f"   {name:20s}: {r['ms']:.4f} ms, "
               f"{r['ns_per_warp_lds_per_sm']:.4f} ns a warp LDS.128 an SM, "
               f"{r['vs_broadcast']:.2f}x the broadcast [{card}]", flush=True)
+    maps = {}
+    for name, (loads, fma) in MAPS.items():
+        cycles = sum(n * 2 * out[p]["vs_broadcast"] for p, n in loads.items())
+        maps[name] = cycles * 32 / fma
+        print(f"   {name:20s}: {maps[name]:.2f} shared-memory cycles per 32 "
+              f"FFMA of a warp [{card}]", flush=True)
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(json.dumps({"card": card, "sm_clock_after": clock.strip(),
-                      "patterns": out}), flush=True)
+                      "patterns": out, "maps": maps}), flush=True)
 
 
 if __name__ == "__main__":
