@@ -2577,14 +2577,35 @@ def phase12_slab_timing(card, m, launches):
         if len(ab_np) > 1 else 0.0
     print(f"   K7 product list: {share_a:.1%} of consecutive products share "
           "their A slot (host count)", flush=True)
+    for dt in (torch.float32, torch.bfloat16):
+        listed, grouped = _a_slot_share(pp.prod_ptr, pp.prod_ab,
+                                        cuda_bsr.slab_geometry(dt, bsz))
+        print(f"   K7 {str(dt)[6:]} walk: {listed:.1%} of consecutive "
+              f"products within a team's piece share their A slot as "
+              f"listed, {grouped:.1%} if each piece's outputs were grouped "
+              "by their first product's A slot (host count on the launched "
+              "pieces)", flush=True)
+    _slab_geometry_line("K7 int32", torch.int32, bsz, card)
     for dt in (torch.bfloat16, torch.float64):
         x = pt.BSR(indices=ab.indices, blocks=ab.blocks.to(dt), n=ab.n,
                    bsz=bsz)
         kind, size = str(dt)[6:], x.blocks.element_size()
         e, _ = _prepared_vs_plain(f"K7 {kind} at the fixture", pp, x, x, dt)
+        # this kind's path: one prepared apply, counted from 0
+        cuda_bsr.K7_LAUNCHES = 0
+        pt.bsr_smsmm_apply_slab(pp, x, x)
+        torch.cuda.synchronize()
+        ran = cuda_bsr.K7_LAUNCHES
+        if ran == 0:
+            raise AssertionError(f"K7 {kind}: the prepared apply launched "
+                                 "no K7")
         _, ms_dt = _report_spmm(f"bsr_smsmm_apply_slab {kind}",
                                 lambda: pt.bsr_smsmm_apply_slab(pp, x, x),
                                 flops, nbytes * size // 4, card)
+        _, plain_dt = _report_spmm(
+            f"K7 plain {kind}", lambda: cuda_bsr.slab_list_plain(
+                *lst, x.blocks, x.blocks, out_dtype=dt),
+            flops, nbytes * size // 4, card)
         # C = A A in this kind: A's blocks once, the output blocks once, at
         # its element size; the flops at its peak
         b_ms, b_by = bound_ms((ab.nbz + plan.nbz_out) * bsz * bsz * size,
@@ -2595,8 +2616,10 @@ def phase12_slab_timing(card, m, launches):
               flush=True)
         lib_dt = library_ms(f"torch.bmm + index_add_ in {kind} (K7's "
                             "yardstick)", lambda: yardstick(x.blocks), card)
-        kinds[kind] = {"apply_ms": ms_dt, "bound_ms": b_ms, "bound_by": b_by,
-                       "max_abs_err": e, "library_ms": lib_dt,
+        kinds[kind] = {"apply_ms": ms_dt, "plain_ms": plain_dt,
+                       "launches": ran, "bound_ms": b_ms,
+                       "bound_by": b_by, "max_abs_err": e,
+                       "library_ms": lib_dt,
                        "geometry": _slab_geometry_line(f"K7 {kind}", dt,
                                                        bsz, card)}
         del x
@@ -2653,18 +2676,53 @@ def phase12_slab_timing(card, m, launches):
 
 def _slab_geometry_line(label, dtype, bsz, card):
     """Print and return the geometry K7 launches for ``dtype`` at ``bsz``
-    (``cuda_bsr.slab_geometry``: ring stages, shared bytes a block, blocks
-    an SM, registers, spills, the body)."""
+    (``cuda_bsr.slab_geometry``: ring stages of k-slices, shared bytes a
+    block, blocks an SM, registers, spills, the body, pieces a team)."""
     from sparse_tpu_torch.ops import cuda_bsr
 
     geo = cuda_bsr.slab_geometry(dtype, bsz)
     print(f"   {label} geometry at bsz {bsz}: {geo['body']}, "
-          f"{geo['stages']} stages a team, {geo['teams']} teams a "
-          f"128-thread block, {geo['shared_bytes']} shared bytes a block, "
+          f"{geo['stages']} stages a team of k-slices of {geo['k_slice']}, "
+          f"{geo['teams']} teams a 128-thread block, {geo['pieces']} "
+          f"pieces a team, {geo['shared_bytes']} shared bytes a block, "
           f"{geo['blocks_per_sm']} blocks an SM, {geo['registers']} "
           f"registers and {geo['local_bytes']} local bytes a thread "
           f"[{card}]", flush=True)
     return geo
+
+
+def _a_slot_share(prod_ptr, prod_ab, geo):
+    """Shares of consecutive products within one of K7's pieces (the output
+    ranges a team walks, cut as the kernel cuts them for the launched
+    geometry ``geo`` on this card) that have the A slot of the product
+    before: as the list orders them, and if each piece walked its outputs
+    grouped (stably) by their first product's A slot.  Host count."""
+    ptr = prod_ptr.long().cpu().numpy()
+    a = prod_ab[:, 0].long().cpu().numpy()
+    n = ptr.size - 1
+    if a.size < 2:
+        return 0.0, 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    teams = min(-(-n // geo["teams"]),
+                sms * geo["blocks_per_sm"]) * geo["teams"]
+    npieces = teams * geo["pieces"]
+    total = int(ptr[-1]) + n
+    cuts = np.searchsorted(ptr + np.arange(n + 1),
+                           total * np.arange(npieces + 1) // npieces)
+    piece = np.searchsorted(cuts, np.arange(n), side="right") - 1
+    counts = np.diff(ptr)
+
+    def share(order):
+        c = counts[order]
+        start = np.repeat(ptr[:-1][order] - np.cumsum(c) + c, c)
+        f = start + np.arange(c.sum())
+        pc = np.repeat(piece[order], c)
+        same = pc[1:] == pc[:-1]
+        return float((a[f][1:] == a[f][:-1])[same].mean()) \
+            if same.any() else 0.0
+
+    first = np.where(counts > 0, a[np.minimum(ptr[:-1], a.size - 1)], -1)
+    return share(np.arange(n)), share(np.lexsort((first, piece)))
 
 
 # -- slice 4: the K1 variants, K8, Matrix Market input, roofline -----------

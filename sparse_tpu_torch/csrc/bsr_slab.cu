@@ -25,29 +25,35 @@
 // teams running at one time work on one stretch of the output and meet
 // the factor blocks it needs in L2 (one contiguous range per team spread
 // them over the whole output: 0.55 ms against 0.39 at the fixture on an
-// H100, PERF.md).  A team keeps a ring of product stages
-// (A block | B block) in shared memory, filled by 16-byte cp.async
-// kStages-1 products ahead ACROSS output blocks and pieces, so copies stay
-// in flight while an output with one product multiplies and is stored.
-// One barrier per product (the team's).  Float32, int32 (as unsigned:
+// H100, PERF.md).  One kernel serves every kind: a team keeps a ring of
+// three stages in shared memory (Cfg / Geo below, DmmaGeo for float64
+// past bsz 8), filled by 16-byte cp.async two stages ahead ACROSS
+// products, output blocks and pieces; the copy into the stage consumed
+// one step before is issued before each multiply, so two stages' copies
+// are in flight while one is multiplied and while an output with one
+// product is stored.  float32, int32 and bf16: stages of whole products
+// (A block | B block); a ring of 16-wide k-slices with more warps an SM
+// ran slower in all three (Cfg).  float64 past bsz 8: stages of 16-wide
+// k-slices, a product bsz / 16 of them multiplied in k order (so each
+// output's sums keep a whole product's order).
+// One barrier per stage (the team's).  Float32, int32 (as unsigned:
 // multiply-adds modulo 2^32, the reference's wrapping int32 result in any
 // order) and float64 at bsz <= 8: each lane keeps an 8x4 tile of a
 // 32 x 32 output (rows r + 4q, so the padded A rows give conflict-free
 // 16-byte loads; B rows are broadcast 16-byte loads).  bf16: mma.sync
-// m16n8k16 from ldmatrix fragments, float32 sums rounded once.  float64
-// past bsz 8: Hopper's m16n8k8 DMMA on stages of 16-wide k-slices with
-// swizzled rows, three a team, the next copies issued before each
-// multiply (DmmaGeo below): the CUDA cores' float64 FMA tile ran at half
-// the float64 tensor rate, paid two 8-byte operands a 16-byte load, and
-// its two 17 KB stages of a whole product held one block an SM with no
-// copy in flight during a multiply.  Each output block is written once,
+// m16n8k16 from ldmatrix fragments (rows padded by 16 bytes), float32
+// sums rounded once.  float64 past bsz 8: Hopper's m16n8k8 DMMA on
+// unpadded slices with swizzled rows (DmmaGeo below): the CUDA cores'
+// float64 FMA tile ran at half the float64 tensor rate and paid two
+// 8-byte operands a 16-byte load.  Each output block is written once,
 // from registers, with 16-byte streaming stores (__stcs) so the output
 // stream does not push factor blocks out of L2; an output with no product
 // is written as zeros.  Products are summed in list order, no atomics on
 // the output: two runs are bitwise equal.  Block sizes that are not 8, 16,
-// 32 or 64 (or unaligned pointers) take element copies into a zero-padded
-// stage and guarded element stores.  With a counter, each team adds the
-// products it multiplied.
+// 32 or 64 (or unaligned pointers) take element copies (into whole-product
+// stages whose padding the kernel zeroed once; float64's slices with zeros
+// past bsz) and guarded element stores.  With a counter, each team
+// adds the products it multiplied.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,11 +70,18 @@ namespace {
 enum Kind { kF32 = 0, kBF16 = 2, kF64 = 3, kI32 = 4 };
 
 constexpr int kThreads = 128;  // four warps per thread block
-constexpr int kPieces = 8;     // output ranges per team
 constexpr unsigned kFull = 0xffffffffu;
 
 // Per element type: ring depth, and the row padding of the staged A and B
-// blocks (elements).
+// blocks (elements).  The float32, int32 and bf16 kinds stage whole
+// products: 16-wide k-slices, 3-6 stages a team and 12-20 warps an SM, ran
+// slower in each of them at the SpGEMM fixture on an H100 (float32
+// 0.43-0.45 ms against 0.39-0.42, bf16 0.29 against 0.23, int32 0.53
+// against 0.50; tools/slab_variants.py --form ring, PERF.md).  Copies hold
+// these kinds, and an A slice reads half of each block row, so a
+// product's copies take twice the L1 requests for A's bytes and twice the
+// waits, barriers and producer steps: bf16's copies alone went 0.23 ->
+// 0.28 ms.
 template <typename T>
 struct Cfg;
 template <>
@@ -76,7 +89,7 @@ struct Cfg<float> {
   static constexpr int kStages = 3, kPadA = 4, kPadB = 0;
 };
 // float64 at BS 8 (the FMA tile; DMMA's m16 would pad it to twice the
-// work); BS 16-64 run DmmaGeo's body below.
+// work); BS 16-64 run DmmaGeo's ring below.
 template <>
 struct Cfg<double> {
   static constexpr int kStages = 3, kPadA = 4, kPadB = 0;
@@ -88,24 +101,40 @@ template <>
 struct Cfg<unsigned> {
   static constexpr int kStages = 3, kPadA = 4, kPadB = 0;
 };
+// rows padded by 16 bytes, so each ldmatrix phase's eight row addresses
+// fall in eight bank groups
 template <>
 struct Cfg<__nv_bfloat16> {
-  static constexpr int kStages = 3, kPadA = 8, kPadB = 8;  // ldmatrix rows
+  static constexpr int kStages = 3, kPadA = 8, kPadB = 8;
 };
 
 // BS: the block size padded to 8, 16, 32 or 64.  A team is one warp (one
 // 32 x 32 tile) for BS <= 32, four warps (a 2 x 2 grid of tiles) for 64.
+// A stage holds one product: A's BS x BS block in rows of pitch PA, then
+// B's in rows of pitch PB.  The walk and the copies take a product as
+// kParts k-slices of KD, as DmmaGeo's are; here KD = BS, one stage.
 template <typename T, int BS>
 struct Geo {
   static constexpr int W = BS > 32 ? 4 : 1;
   static constexpr int kTeams = kThreads / (32 * W);
   static constexpr int TS = BS > 32 ? 32 : BS;  // a warp's tile side
-  static constexpr int PA = BS + Cfg<T>::kPadA, PB = BS + Cfg<T>::kPadB;
-  static constexpr int kStage = BS * PA + BS * PB;  // elements
+  static constexpr int KD = BS;
+  static constexpr int kParts = BS / KD;        // stages a product
+  static constexpr int PA = KD + Cfg<T>::kPadA, PB = BS + Cfg<T>::kPadB;
+  static constexpr int kStage = BS * PA + KD * PB;  // elements
   static constexpr int kStages = Cfg<T>::kStages;
+  static constexpr int kPieces = 8;  // output ranges a team
   static constexpr int kTeamElems = kStages * kStage;
   static constexpr int kBytes =
       kTeams * kTeamElems * static_cast<int>(sizeof(T));
+  // offsets (elements) of A part element (r, c), c < KD, and of B part
+  // element (k, n), k < KD
+  __device__ static __forceinline__ int a_at(int r, int c) {
+    return r * PA + c;
+  }
+  __device__ static __forceinline__ int b_at(int k, int n) {
+    return BS * PA + k * PB + n;
+  }
 };
 
 template <int W>
@@ -176,41 +205,6 @@ struct Ahead {
   }
 };
 
-// -- copies --------------------------------------------------------------
-
-// One product's A block (rows pitch PA) and B block (pitch PB) into a
-// stage.  VEC (bsz == BS, 16-byte aligned): cp.async, 16 bytes a thread;
-// else element copies into the data region of a stage whose padding the
-// kernel zeroed once.
-template <typename T, int BS>
-__device__ __forceinline__ void copy_product(T* st, const T* __restrict__ a,
-                                             const T* __restrict__ b,
-                                             int bsz, bool vec, int tt) {
-  using G = Geo<T, BS>;
-  constexpr int TT = 32 * G::W;
-  T* sa = st;
-  T* sb = st + BS * G::PA;
-  if (vec) {
-    constexpr int V = 16 / static_cast<int>(sizeof(T)), CPR = BS / V;
-    constexpr int N = BS * CPR;
-#pragma unroll
-    for (int s = 0; s < (N + TT - 1) / TT; ++s) {
-      const int e = tt + s * TT;
-      if (N % TT == 0 || e < N) {
-        const int r = e / CPR, c = (e % CPR) * V;
-        sm90::cp_async16(sa + r * G::PA + c, a + r * BS + c, true);
-        sm90::cp_async16(sb + r * G::PB + c, b + r * BS + c, true);
-      }
-    }
-  } else {
-    for (int e = tt; e < bsz * bsz; e += TT) {
-      const int r = e / bsz, c = e - r * bsz;
-      sa[r * G::PA + c] = a[e];
-      sb[r * G::PB + c] = b[e];
-    }
-  }
-}
-
 // -- float32 / float64 / int32: 8x4 (BS 32, 64), 4x2 (16), 2x1 (8) lane tiles
 // Lane l: r = l / 8 owns rows R0 + r + 4q, c = l % 8 owns columns
 // C0 + c*TC .. +TC-1 of the warp's tile (R0, C0).
@@ -262,12 +256,13 @@ struct FmaTile {
       for (int j = 0; j < TC; ++j) acc[q][j] = S(0);
   }
 
+  // one stage: k = 0 .. KD-1 of the slice, in order
   __device__ __forceinline__ void multiply(const S* st, int lane, int wt) {
     const int R0 = (wt / 2) * 32, C0 = (wt % 2) * 32;
     const S* pa = st + (R0 + lane / 8) * G::PA;
     const S* pb = st + BS * G::PA + C0 + (lane % 8) * TC;
 #pragma unroll
-    for (int k = 0; k < BS; k += 4) {
+    for (int k = 0; k < G::KD; k += 4) {
       Vec<S, 4> a[TR];
 #pragma unroll
       for (int q = 0; q < TR; ++q) a[q] = lds<S, 4>(pa + 4 * q * G::PA + k);
@@ -333,12 +328,13 @@ struct MmaTile {
         for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
   }
 
+  // one stage: its k-slice of 16 (one m16n8k16 step)
   __device__ __forceinline__ void multiply(const T* st, int lane, int wt) {
     const int R0 = (wt / 2) * 32, C0 = (wt % 2) * 32;
     const T* sa = st;
     const T* sb = st + BS * G::PA;
 #pragma unroll
-    for (int ks = 0; ks < BS; ks += 16) {
+    for (int ks = 0; ks < G::KD; ks += 16) {
       unsigned a[MT][4], b[NT][2];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -422,17 +418,16 @@ struct MmaTile {
 
 // -- float64 on Hopper's m16n8k8 DMMA, BS 16, 32, 64 ------------------------
 //
-// A stage holds a k-slice of KD = 16 of one product: A's BS x 16 columns
-// and B's 16 x BS rows, unpadded, each row's 16-byte chunks XOR-swizzled
-// by 2 * (row % 4), so every fragment load (a lane's double) is one
-// shared-memory wavefront per half warp: A's lanes (g, t) read rows g, in
-// chunks (kk + t) / 2 ^ 2g, B's rows kk + t in chunks n / 2 ^ 2t, 16
-// distinct 8-byte slots of a 128-byte line either way.  A product is
-// BS / 16 stages (1 at BS 16, 2 at 32, 4 at 64); three stages a team
-// keep two stages' copies in flight while a third is multiplied, in 24 KB
-// a one-warp team at BS 32 (two 128-thread blocks an SM; 48 KB a
-// four-warp team at BS 64); with two, one copy in flight, the apply took
-// 0.82 ms against 0.70 at the SpGEMM fixture (tools/slab_variants.py).
+// A stage holds a k-slice of KD = 16 of one product, unpadded, each
+// row's 16-byte chunks XOR-swizzled by 2 * (row % 4), so
+// every fragment load (a lane's double) is one shared-memory wavefront per
+// half warp: A's lanes (g, t) read rows g, in chunks (kk + t) / 2 ^ 2g,
+// B's rows kk + t in chunks n / 2 ^ 2t, 16 distinct 8-byte slots of a
+// 128-byte line either way.  Three stages a team keep two stages' copies
+// in flight while a third is multiplied, in 24 KB a one-warp team at BS 32
+// (two 128-thread blocks an SM; 48 KB a four-warp team at BS 64); with
+// two, one copy in flight, the apply took 0.82 ms against 0.70 at the
+// SpGEMM fixture (tools/slab_variants.py).
 
 template <int BS>
 struct DmmaGeo {
@@ -461,44 +456,6 @@ struct DmmaGeo {
     return BS * KD + k * BS + ((((n >> 1) ^ ((k & 3) << 1))) << 1) + (n & 1);
   }
 };
-
-// Part `part` of one product (A's columns and B's rows 16 part .. +15)
-// into a stage.  vec (bsz == BS, 16-byte aligned): cp.async, 16 bytes a
-// thread; else guarded element copies, zeros past bsz.
-template <int BS>
-__device__ __forceinline__ void copy_part(double* st,
-                                          const double* __restrict__ a,
-                                          const double* __restrict__ b,
-                                          int part, int bsz, bool vec,
-                                          int tt) {
-  using G = DmmaGeo<BS>;
-  constexpr int TT = 32 * G::W, KD = G::KD;
-  const int k0 = part * KD;
-  if (vec) {
-    constexpr int NA = BS * KD / 2, NB = KD * BS / 2;  // 16-byte chunks
-#pragma unroll
-    for (int s = 0; s < NA / TT; ++s) {
-      const int e = tt + s * TT;
-      const int r = e / (KD / 2), c = (e % (KD / 2)) * 2;
-      sm90::cp_async16(st + G::a_at(r, c), a + r * BS + k0 + c, true);
-    }
-#pragma unroll
-    for (int s = 0; s < NB / TT; ++s) {
-      const int e = tt + s * TT;
-      const int k = e / (BS / 2), n = (e % (BS / 2)) * 2;
-      sm90::cp_async16(st + G::b_at(k, n), b + (k0 + k) * BS + n, true);
-    }
-  } else {
-    for (int e = tt; e < BS * KD; e += TT) {
-      const int r = e / KD, c = e % KD;
-      st[G::a_at(r, c)] =
-          r < bsz && k0 + c < bsz ? a[r * bsz + k0 + c] : 0.0;
-      const int k = e / BS, n = e % BS;
-      st[G::b_at(k, n)] =
-          k0 + k < bsz && n < bsz ? b[(k0 + k) * bsz + n] : 0.0;
-    }
-  }
-}
 
 // A warp's TS x TS tile of the output at (R0, C0) as MT x NT fragments of
 // m16n8: lane 4g + t holds (R0 + 16 mt + g (+8), C0 + 8 nt + 2t (+1)).
@@ -569,25 +526,93 @@ struct DmmaTile {
   }
 };
 
-template <typename T, int BS>
-struct TileOf {
-  using type = FmaTile<T, BS>;
+// The body kind T runs at BS: its stage geometry G, its tile, the body's
+// number (0 the FMA tile, 1 bf16 mma.sync, 2 float64 DMMA) and the
+// minimum resident blocks an SM of the kernel's launch bounds (0: none,
+// ptxas's own register count).  float64 past BS 8 runs DMMA.  bf16 at BS
+// 16 asks for one: left to itself ptxas holds its walk to 64 registers and
+// spills 8 bytes a thread; asked for one block, it takes 82 and spills
+// none.  Every other kind keeps ptxas's count: a minimum of 1 gave them
+// 5-43 registers more (float64's DMMA 211 against 168, 3% slower; bf16 at
+// BS 64 146 against 126, 3 blocks an SM instead of 4, 14% slower at bsz
+// 40 on an H100; tools/slab_variants.py, PERF.md).
+template <typename T, int BS,
+          bool D = std::is_same<T, double>::value && BS >= 16>
+struct Body {
+  using G = Geo<T, BS>;
+  using Tile = FmaTile<T, BS>;
+  static constexpr int kBody = 0, kMinBlocks = 0;
 };
 template <int BS>
-struct TileOf<__nv_bfloat16, BS> {
-  using type = MmaTile<BS>;
+struct Body<__nv_bfloat16, BS, false> {
+  using G = Geo<__nv_bfloat16, BS>;
+  using Tile = MmaTile<BS>;
+  static constexpr int kBody = 1, kMinBlocks = BS == 16 ? 1 : 0;
 };
+template <typename T, int BS>
+struct Body<T, BS, true> {
+  using G = DmmaGeo<BS>;
+  using Tile = DmmaTile<BS>;
+  static constexpr int kBody = 2, kMinBlocks = 0;
+};
+
+// -- copies --------------------------------------------------------------
+
+// Part `part` of one product (A's columns and B's rows KD part .. +KD-1)
+// into a stage.  vec (bsz == BS, 16-byte aligned): cp.async, 16 bytes a
+// thread; else element copies: of the data region of a whole-product
+// stage whose padding the kernel zeroed once, or of the whole slice with
+// zeros past bsz (a slice's stage holds other k-ranges in turn).
+template <typename T, int BS>
+__device__ __forceinline__ void copy_part(T* st, const T* __restrict__ a,
+                                          const T* __restrict__ b, int part,
+                                          int bsz, bool vec, int tt) {
+  using G = typename Body<T, BS>::G;
+  constexpr int TT = 32 * G::W, KD = G::KD;
+  const int k0 = part * KD;
+  if (vec) {
+    // 16-byte chunks: N of A's part and N of B's, thread tt copying chunk
+    // e = tt + s * TT of each
+    constexpr int V = 16 / static_cast<int>(sizeof(T)), N = BS * KD / V;
+#pragma unroll
+    for (int s = 0; s < (N + TT - 1) / TT; ++s) {
+      const int e = tt + s * TT;
+      if (N % TT == 0 || e < N) {
+        const int r = e / (KD / V), c = (e % (KD / V)) * V;
+        const int k = e / (BS / V), n = (e % (BS / V)) * V;
+        sm90::cp_async16(st + G::a_at(r, c), a + r * BS + k0 + c, true);
+        sm90::cp_async16(st + G::b_at(k, n), b + (k0 + k) * BS + n, true);
+      }
+    }
+  } else if constexpr (G::kParts == 1) {
+    for (int e = tt; e < bsz * bsz; e += TT) {
+      const int r = e / bsz, c = e - r * bsz;
+      st[G::a_at(r, c)] = a[e];
+      st[G::b_at(r, c)] = b[e];
+    }
+  } else {
+    for (int e = tt; e < BS * KD; e += TT) {
+      const int r = e / KD, c = e % KD;
+      st[G::a_at(r, c)] =
+          r < bsz && k0 + c < bsz ? a[r * bsz + k0 + c] : T{};
+      const int k = e / BS, n = e % BS;
+      st[G::b_at(k, n)] =
+          k0 + k < bsz && n < bsz ? b[(k0 + k) * bsz + n] : T{};
+    }
+  }
+}
 
 // -- the kernel ----------------------------------------------------------
 
 template <typename T, int BS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Body<T, BS>::kMinBlocks)
     slab_kernel(const T* __restrict__ z1, const T* __restrict__ z2,
                 const int* __restrict__ prod_ptr,
                 const int2* __restrict__ prod_ab, T* __restrict__ out,
                 int n_out, int bsz, int vec,
                 unsigned long long* __restrict__ issued) {
-  using G = Geo<T, BS>;
+  using B = Body<T, BS>;
+  using G = typename B::G;
   constexpr int S = G::kStages;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -605,108 +630,6 @@ __global__ void __launch_bounds__(kThreads)
   const long long g = static_cast<long long>(blockIdx.x) * G::kTeams + team;
   const long long total = static_cast<long long>(__ldg(prod_ptr + n_out)) +
                           n_out;
-  const long long npieces = nteams * kPieces;
-  int p0 = 0, p1 = 0, f0 = 0, f1 = 0;
-  if (lane < kPieces) {
-    const long long piece = g + lane * nteams;
-    const int2 o = find_starts(prod_ptr, n_out, total * piece / npieces,
-                               total * (piece + 1) / npieces);
-    p0 = o.x;
-    p1 = o.y;
-    f0 = __ldg(prod_ptr + p0);
-    f1 = __ldg(prod_ptr + p1);
-  }
-  if (!vec) {  // element copies fill only the data region: zero the rest
-    unsigned* z = reinterpret_cast<unsigned*>(ring);
-    for (int e = tt; e < G::kTeamElems * static_cast<int>(sizeof(T)) / 4;
-         e += 32 * G::W)
-      z[e] = 0u;
-    team_sync<G::W>();
-  }
-  const long long bsz2 = static_cast<long long>(bsz) * bsz;
-
-  // producer: copies the products of the team's pieces, in order, into the
-  // ring (fp into stage ps), one cp.async group a step, across pieces
-  int pp = 0;
-  int fp = __shfl_sync(kFull, f0, 0), fend = __shfl_sync(kFull, f1, 0);
-  int ps = 0;
-  Ahead<int2> pairs;
-  pairs.init(prod_ab, fend, fp, lane);
-  auto produce = [&]() {
-    while (fp >= fend && pp + 1 < kPieces) {
-      ++pp;
-      fp = __shfl_sync(kFull, f0, pp);
-      fend = __shfl_sync(kFull, f1, pp);
-      if (fp < fend) pairs.init(prod_ab, fend, fp, lane);
-    }
-    if (fp < fend) {
-      const int2 ab = pairs.get(fp, lane);
-      copy_product<T, BS>(ring + ps * G::kStage, z1 + ab.x * bsz2,
-                          z2 + ab.y * bsz2, bsz, vec != 0, tt);
-    }
-    sm90::cp_async_commit();
-    ++fp;
-    ps = ps + 1 == S ? 0 : ps + 1;
-  };
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) produce();
-
-  typename TileOf<T, BS>::type tile;
-  int cs = 0;
-  unsigned long long walked = 0;  // products multiplied
-  for (int pc = 0; pc < kPieces; ++pc) {
-    const int o0 = __shfl_sync(kFull, p0, pc), o1 = __shfl_sync(kFull, p1, pc);
-    int fc = __shfl_sync(kFull, f0, pc);
-    if (o0 >= o1) continue;
-    Ahead<int> ends;
-    ends.init(prod_ptr, n_out + 1, o0 + 1, lane);
-    for (int o = o0; o < o1; ++o) {
-      const int fe = ends.get(o + 1, lane);
-      tile.zero();
-      for (; fc < fe; ++fc) {
-        // product fc has landed; every lane of the team is done with the
-        // one before, whose stage the copy issued below refills
-        sm90::cp_async_wait<S - 2>();
-        team_sync<G::W>();
-        tile.multiply(ring + cs * G::kStage, lane, wt);
-        produce();
-        cs = cs + 1 == S ? 0 : cs + 1;
-        ++walked;
-      }
-      tile.store(out + o * bsz2, bsz, vec != 0, lane, wt);
-    }
-  }
-  sm90::cp_async_wait<0>();
-  if (issued != nullptr && tt == 0)
-    atomicAdd(issued, walked);
-}
-
-// float64 at BS 16-64: slab_kernel's walk (its lists and order, cut into
-// DmmaGeo::kPieces ranges a team) over stages of a product's k-slices,
-// multiplied on DMMA.  The copy into the stage consumed one step before
-// is issued before the multiply, so two stages' copies are in flight
-// while one is multiplied.
-template <int BS>
-__global__ void __launch_bounds__(kThreads)
-    slab_dmma_kernel(const double* __restrict__ z1,
-                     const double* __restrict__ z2,
-                     const int* __restrict__ prod_ptr,
-                     const int2* __restrict__ prod_ab,
-                     double* __restrict__ out, int n_out, int bsz, int vec,
-                     unsigned long long* __restrict__ issued) {
-  using G = DmmaGeo<BS>;
-  constexpr int S = G::kStages;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int team = warp / G::W, wt = warp % G::W;
-  const int tt = threadIdx.x % (32 * G::W);
-  double* ring = reinterpret_cast<double*>(smem) + team * G::kTeamElems;
-
-  // the pieces, cut as slab_kernel cuts its kPieces
-  const long long nteams = static_cast<long long>(gridDim.x) * G::kTeams;
-  const long long g = static_cast<long long>(blockIdx.x) * G::kTeams + team;
-  const long long total = static_cast<long long>(__ldg(prod_ptr + n_out)) +
-                          n_out;
   const long long npieces = nteams * G::kPieces;
   int p0 = 0, p1 = 0, f0 = 0, f1 = 0;
   if (lane < G::kPieces) {
@@ -718,10 +641,19 @@ __global__ void __launch_bounds__(kThreads)
     f0 = __ldg(prod_ptr + p0);
     f1 = __ldg(prod_ptr + p1);
   }
+  if constexpr (G::kParts == 1) {
+    if (!vec) {  // element copies fill only the data region: zero the rest
+      unsigned* z = reinterpret_cast<unsigned*>(ring);
+      for (int e = tt; e < G::kTeamElems * static_cast<int>(sizeof(T)) / 4;
+           e += 32 * G::W)
+        z[e] = 0u;
+      team_sync<G::W>();
+    }
+  }
   const long long bsz2 = static_cast<long long>(bsz) * bsz;
 
   // producer: part `part` of product fp into stage ps, one cp.async group
-  // a step, across pieces
+  // a step, across outputs and pieces
   int pp = 0, part = 0;
   int fp = __shfl_sync(kFull, f0, 0), fend = __shfl_sync(kFull, f1, 0);
   int ps = 0;
@@ -736,11 +668,12 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (fp < fend) {
       const int2 ab = pairs.get(fp, lane);
-      copy_part<BS>(ring + ps * G::kStage, z1 + ab.x * bsz2,
-                    z2 + ab.y * bsz2, part, bsz, vec != 0, tt);
+      copy_part<T, BS>(ring + ps * G::kStage, z1 + ab.x * bsz2,
+                       z2 + ab.y * bsz2, G::kParts == 1 ? 0 : part, bsz,
+                       vec != 0, tt);
     }
     sm90::cp_async_commit();
-    if (++part == G::kParts) {
+    if (G::kParts == 1 || ++part == G::kParts) {
       part = 0;
       ++fp;
     }
@@ -749,7 +682,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) produce();
 
-  DmmaTile<BS> tile;
+  typename B::Tile tile;
   int cs = 0;
   unsigned long long walked = 0;  // products multiplied
   for (int pc = 0; pc < G::kPieces; ++pc) {
@@ -765,7 +698,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 1
         for (int k = 0; k < G::kParts; ++k) {
           // this stage has landed; every lane of the team is done with
-          // the one before, which the copy issued next refills
+          // the one before, which the copy issued here refills
           sm90::cp_async_wait<S - 2>();
           team_sync<G::W>();
           produce();
@@ -786,39 +719,22 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
-// The body kind T runs at BS: its kernel, teams a block, ring stages and
-// shared bytes a block.  float64 past BS 8 runs the DMMA body.
-template <typename T, int BS,
-          bool D = std::is_same<T, double>::value && BS >= 16>
-struct Body {
-  using G = Geo<T, BS>;
-  static constexpr int kTeams = G::kTeams, kStages = G::kStages,
-                       kBytes = G::kBytes;
-  static auto kernel() { return slab_kernel<T, BS>; }
-};
-template <typename T, int BS>
-struct Body<T, BS, true> {
-  using G = DmmaGeo<BS>;
-  static constexpr int kTeams = G::kTeams, kStages = G::kStages,
-                       kBytes = G::kBytes;
-  static auto kernel() { return slab_dmma_kernel<BS>; }
-};
-
 // Sets the kernel's shared-memory limit and gives its resident thread
 // blocks per SM (asked once).
 template <typename T, int BS>
 cudaError_t blocks_per_sm(int& per_sm_out) {
-  using B = Body<T, BS>;
-  if constexpr (B::kBytes > 48 * 1024) {
+  using G = typename Body<T, BS>::G;
+  if constexpr (G::kBytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        B::kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, B::kBytes);
+        slab_kernel<T, BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        G::kBytes);
     if (e != cudaSuccess) return e;
   }
   static int per_sm = 0;
   if (per_sm == 0) {
     int n = 0;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, B::kernel(), kThreads, B::kBytes);
+        &n, slab_kernel<T, BS>, kThreads, G::kBytes);
     if (e != cudaSuccess) return e;
     per_sm = n < 1 ? 1 : n;
   }
@@ -830,7 +746,7 @@ template <typename T, int BS>
 cudaError_t launch_bs(const void* z1, const void* z2, const void* prod_ptr,
                       const void* prod_ab, void* out, int n_out, int bsz,
                       unsigned long long* issued, cudaStream_t stream) {
-  using B = Body<T, BS>;
+  using G = typename Body<T, BS>::G;
   int per_sm = 0;
   cudaError_t e = blocks_per_sm<T, BS>(per_sm);
   if (e != cudaSuccess) return e;
@@ -840,41 +756,42 @@ cudaError_t launch_bs(const void* z1, const void* z2, const void* prod_ptr,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   // persistent: no more teams than the card holds at once, or than outputs
-  const long long want = (static_cast<long long>(n_out) + B::kTeams - 1) /
-                         B::kTeams;
+  const long long want = (static_cast<long long>(n_out) + G::kTeams - 1) /
+                         G::kTeams;
   const long long cap = static_cast<long long>(sms) * per_sm;
   const int grid = static_cast<int>(want < cap ? want : cap);
   const bool vec = bsz == BS && aligned16(z1) && aligned16(z2) &&
                    aligned16(out);
-  const auto kern = B::kernel();
-  kern<<<grid, kThreads, B::kBytes, stream>>>(
+  slab_kernel<T, BS><<<grid, kThreads, G::kBytes, stream>>>(
       static_cast<const T*>(z1), static_cast<const T*>(z2),
       static_cast<const int*>(prod_ptr), static_cast<const int2*>(prod_ab),
       static_cast<T*>(out), n_out, bsz, vec ? 1 : 0, issued);
   return cudaGetLastError();
 }
 
-// The launched geometry at BS: out[0..6] = ring stages, shared bytes a
-// block, resident blocks an SM, registers a thread, local bytes a thread,
-// teams a block, body (0 the FMA tile, 1 bf16 mma.sync, 2 float64 DMMA).
+// The launched geometry at BS: out[0..8] = ring stages a team, shared
+// bytes a block, resident blocks an SM, registers a thread, local bytes a
+// thread, teams a block, body (0 the FMA tile, 1 bf16 mma.sync, 2 float64
+// DMMA), k of a stage, output ranges (pieces) a team.
 template <typename T, int BS>
 cudaError_t geometry_bs(int* out) {
   using B = Body<T, BS>;
+  using G = typename B::G;
   int per_sm = 0;
   cudaError_t e = blocks_per_sm<T, BS>(per_sm);
   if (e != cudaSuccess) return e;
   cudaFuncAttributes at;
-  e = cudaFuncGetAttributes(&at, B::kernel());
+  e = cudaFuncGetAttributes(&at, slab_kernel<T, BS>);
   if (e != cudaSuccess) return e;
-  out[0] = B::kStages;
-  out[1] = B::kBytes;
+  out[0] = G::kStages;
+  out[1] = G::kBytes;
   out[2] = per_sm;
   out[3] = at.numRegs;
   out[4] = static_cast<int>(at.localSizeBytes);
-  out[5] = B::kTeams;
-  out[6] = std::is_same<T, double>::value && BS >= 16
-               ? 2
-               : (std::is_same<T, __nv_bfloat16>::value ? 1 : 0);
+  out[5] = G::kTeams;
+  out[6] = B::kBody;
+  out[7] = G::KD;
+  out[8] = G::kPieces;
   return cudaSuccess;
 }
 
@@ -945,9 +862,10 @@ int bsr_slab(int kind, const void* z1, const void* z2, const void* prod_ptr,
   }
 }
 
-// The geometry bsr_slab launches for kind and bsz (geometry_bs): out[0..6]
-// = ring stages, shared bytes a block, resident blocks an SM, registers and
-// local bytes a thread, teams a block, body.  Returns a cudaError_t.
+// The geometry bsr_slab launches for kind and bsz (geometry_bs): out[0..8]
+// = ring stages a team, shared bytes a block, resident blocks an SM,
+// registers and local bytes a thread, teams a block, body, k of a stage,
+// pieces a team.  Returns a cudaError_t.
 int bsr_slab_geometry(int kind, long long bsz, int* out) {
   switch (kind) {
     case kF32: return geometry<float>(bsz, out);

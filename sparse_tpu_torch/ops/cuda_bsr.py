@@ -724,7 +724,7 @@ def bsr_slab_issued(prod_ptr, prod_ab, z1: torch.Tensor, z2: torch.Tensor,
 
 
 _GEOMETRY = ("stages", "shared_bytes", "blocks_per_sm", "registers",
-             "local_bytes", "teams", "body")
+             "local_bytes", "teams", "body", "k_slice", "pieces")
 _BODIES = ("fma tile", "bf16 mma.sync", "float64 m16n8k8 dmma")
 
 
@@ -732,8 +732,11 @@ def slab_geometry(dtype, bsz: int) -> dict:
     """The geometry K7 launches for ``dtype`` and block size ``bsz``, from
     the CUDA runtime on the current card: ring stages a team, shared bytes
     a 128-thread block, resident blocks an SM, registers and local
-    (spilled) bytes a thread, teams a block and the body that multiplies.
-    Card only: raises where the kernels cannot be built."""
+    (spilled) bytes a thread, teams a block, the body that multiplies, the
+    k of a stage (each stage a k-slice of one product; ``bsz`` padded to 8,
+    16, 32 or 64 where a stage is a whole product) and the output ranges
+    (pieces) a team walks.  Card only: raises where the kernels cannot be
+    built."""
     out = (ctypes.c_int * len(_GEOMETRY))()
     _kernels.check(_kernels.load().bsr_slab_geometry(_KIND[dtype], bsz, out),
                    "slab_geometry")

@@ -2187,8 +2187,66 @@ def test_k7_float64_dmma_body(cuda, bsz, aligned):
     dmma = bsz > 8
     assert (geo["body"] == "float64 m16n8k8 dmma") == dmma
     assert geo["stages"] == 3
+    assert geo["k_slice"] == (16 if dmma else 8)  # bsz <= 8: a whole product
     if 16 < bsz <= 32:
         assert geo["blocks_per_sm"] >= 2  # 24 KB a one-warp team
+
+
+# K7's float32, bf16 and int32 kinds: (dtype, blocks an SM at least at
+# bsz 17-32).  Their ring is three stages of whole products, each refilled
+# before the multiply of the stage after it (a ring of 16-wide k-slices ran
+# slower in all three)
+K7_KINDS = {"f32": (torch.float32, 2), "bf16": (torch.bfloat16, 3),
+            "i32": (torch.int32, 2)}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("bsz", [16, 32, 40, 64])
+@pytest.mark.parametrize("kind", list(K7_KINDS))
+def test_k7_team_ring(cuda, kind, bsz, aligned):
+    """K7's float32, bf16 and int32 kinds on a hand-built list: outputs of
+    no product (+0, every bit), one and 40 products; two runs bitwise
+    equal; against the list walk's plain version at the kind's tolerance
+    (int32 exactly, sums modulo 2^32); the kernel's product count equal to
+    ``prod_ptr[-1]``; misaligned factors (and bsz 40) take the element
+    copies; the geometry the runtime reports (three stages of whole
+    products; no local (spilled) bytes)."""
+    dt, per_sm = K7_KINDS[kind]
+    rng = np.random.default_rng(bsz + 11 * aligned)
+    n_blocks, nb_out = 30, 24
+    ptr, ab = _k7_list(nb_out, n_blocks, rng, cuda)
+    size = n_blocks * bsz * bsz
+    vals = rng.integers(-8, 9, (2, size + 8)) if dt == torch.int32 else \
+        rng.standard_normal((2, size + 8))
+    buf = torch.from_numpy(vals).to(dt).to(cuda)
+    off = 0 if aligned else 1  # one element off 16-byte alignment
+    z1 = buf[0, off:off + size].view(n_blocks, bsz, bsz)
+    z2 = buf[1, off:off + size].view(n_blocks, bsz, bsz)
+    assert (z1.data_ptr() % 16 == 0) == aligned
+    before = tbs.K7_LAUNCHES
+    y1 = tbs._launch_list("K7", ptr, ab, z1, z2, bsz, dt)
+    y2 = tbs._launch_list("K7", ptr, ab, z1, z2, bsz, dt)
+    torch.cuda.synchronize()
+    assert tbs.K7_LAUNCHES == before + 2
+    assert torch.equal(y1, y2)
+    empty = torch.diff(ptr) == 0
+    if dt == torch.int32:
+        assert torch.equal(y1, tbs.slab_list_plain(ptr, ab, z1, z2,
+                                                   out_dtype=dt))
+        assert not y1[empty].any()
+        assert tbs.bsr_slab_issued(ptr, ab, z1, z2, out_dtype=dt) == \
+            tbs.bsr_slab_issued_model(ptr) == int(ptr[-1])
+        assert tbs.K7_LAUNCHES == before + 2
+    else:
+        _check_list(y1, ptr, ab, z1, z2, dt)
+        assert not bool(torch.signbit(y1[empty]).any())
+    geo = tbs.slab_geometry(dt, bsz)
+    assert geo["body"] == ("bf16 mma.sync" if kind == "bf16" else "fma tile")
+    assert geo["k_slice"] == (16 if bsz <= 16 else 32 if bsz <= 32 else 64)
+    assert geo["stages"] == 3
+    assert geo["local_bytes"] == 0 and geo["pieces"] == 8
+    if 16 < bsz <= 32:
+        assert geo["blocks_per_sm"] >= per_sm and geo["teams"] == 4
 
 
 # -- K4 on a kit: the mask body -----------------------------------------------

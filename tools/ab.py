@@ -32,7 +32,8 @@ Suites:
 - ``slab``: the block-SpGEMM slab apply (K7) on the SpGEMM fixture
   (``benchmarks/measure_auto_block.py``'s ``C = A A``: nb 2,000, bsz 32,
   19,025 stored blocks, 181,214 block products, float32): the prepared
-  ``bsr_smsmm_apply_slab`` in float32, bf16 and float64, the raw-array
+  ``bsr_smsmm_apply_slab`` in float32, bf16, float64 and int32 (the
+  blocks x 400, rounded), the raw-array
   ``run_slabs_arrays`` on the plan's slot tables, a 5-step chain of
   prepared applies and the differentiable apply's forward + backward.
 - ``segtile``: the segment-tile SpMV kernels: K1, K1-mxu and K1-r32
@@ -185,6 +186,8 @@ def slab_cases(cs):
     blocks = torch.from_numpy(bvals).cuda()
     a = {dt: pt.BSR(indices=idx, blocks=blocks.to(dt), n=nb * bsz, bsz=bsz)
          for dt in (torch.float32, torch.bfloat16, torch.float64)}
+    a[torch.int32] = pt.BSR(indices=idx, blocks=(blocks * 400).round().to(
+        torch.int32), n=nb * bsz, bsz=bsz)
     f32 = a[torch.float32]
     plan = pt.bsr_smsmm_prepare(f32, f32)
     pp = pt.bsr_smsmm_slab_prepare(plan, f32.nbz, f32.nbz)
@@ -211,7 +214,7 @@ def slab_cases(cs):
         return out
 
     cases = {"apply f32": lambda: pt.bsr_smsmm_apply_slab(pp, f32, f32)}
-    for dt in (torch.bfloat16, torch.float64):
+    for dt in (torch.bfloat16, torch.float64, torch.int32):
         x = a[dt]
         cases[f"apply {str(dt)[6:]}"] = (
             lambda x=x: pt.bsr_smsmm_apply_slab(pp, x, x))
